@@ -1,0 +1,138 @@
+"""DFedAvgM (Algorithm 1) and quantized DFedAvgM (Algorithm 2) — the
+synchronous, unfused round of the JAX package's ``core/dfedavgm.py`` for a
+static ``MixingSpec``.
+
+One communication round:
+
+  1. every client i runs K heavy-ball SGD steps from x^t(i)   (local_sgd)
+  2. unquantized: send z^t(i) = y^{t,K}(i); x^{t+1} = W z^t    (eq. 5)
+     quantized:   send q^t(i) = Q(y^{t,K}(i) - x^t(i)) and mix (eq. 7,
+                  or the Lemma-5 recursion)
+
+Client copies are stacked on a leading axis of size m. The PRNG chain is
+the JAX one: ``split(state.rng, 3)`` gives the round, mixing and next
+keys, and ``split(key_round, m)`` the client keys. Keys stay on the CPU
+(they are a few words); the parameters live on the round's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from .. import prng
+from ..device import resolve_device
+from .local_sgd import local_train
+from .mixing import MixerConfig, consensus_distance, make_mixer
+from .quantize import QuantConfig, message_bits
+from .topology import MixingSpec
+
+Params = dict[str, torch.Tensor]
+LossFn = Callable[..., torch.Tensor]
+
+__all__ = ["DFedAvgMConfig", "RoundState", "init_round_state",
+           "make_round_step", "average_params", "round_comm_bits"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DFedAvgMConfig:
+    """Hyper-parameters of Algorithms 1/2.
+
+    eta:   local learning rate
+    theta: heavy-ball momentum in [0, 1)
+    local_steps: K — local iterations per communication round
+    quant: None -> Algorithm 1; QuantConfig -> Algorithm 2
+    mixer_impl: "auto" | "dense" | "ring" | "sparse" (see MixerConfig)
+    fuse_round: the JAX package's fused-round variant; not ported yet
+    """
+
+    eta: float = 0.01
+    theta: float = 0.9
+    local_steps: int = 4
+    quant: QuantConfig | None = None
+    mixer_impl: str = "auto"
+    fuse_round: bool = False
+
+    def mixer_config(self) -> MixerConfig:
+        return MixerConfig(impl=self.mixer_impl, quant=self.quant)
+
+
+class RoundState(NamedTuple):
+    """Carried state of the synchronous round loop."""
+
+    params: Params        # stacked client copies, leaves [m, ...]
+    rng: torch.Tensor     # round-level key, int64 [2] on the CPU
+    round: int
+
+
+def init_round_state(params_stacked: Params, key: torch.Tensor
+                     ) -> RoundState:
+    return RoundState(params=params_stacked, rng=key.to("cpu"), round=0)
+
+
+def average_params(stacked: Params) -> Params:
+    """Consensus/average model xbar = (1/m) sum_i x(i)."""
+    return {n: z.to(torch.float32).mean(dim=0).to(z.dtype)
+            for n, z in stacked.items()}
+
+
+def round_comm_bits(spec: MixingSpec, n_params: int,
+                    quant: QuantConfig | None) -> int:
+    """Bits moved on the graph in ONE round (paper §3.2 accounting):
+    every client sends its (possibly quantized) message across each
+    directed edge."""
+    qc = quant if quant is not None else QuantConfig(bits=32)
+    return message_bits(n_params, qc) * spec.graph.num_directed_edges()
+
+
+def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig, spec: MixingSpec,
+                    *, device=None, with_metrics: bool = True,
+                    with_telemetry: bool = False,
+                    skip_inactive_compute: bool = False,
+                    async_cfg=None, placement=None) -> Callable:
+    """Build round_step(state, batches) -> (state', metrics).
+
+    ``batches``: dict with leaves [m, K, ...] on ``device``. ``loss_fn``
+    (params, batch, rng) returns the per-client losses [m]. ``device``
+    defaults to CUDA; pass ``"cpu"`` to run the plain versions of the
+    kernels on the CPU. Metrics are 0-dim tensors on the device: ``loss``
+    (mean over clients of the mean local loss), and with ``with_metrics``
+    ``consensus_dist`` of x^{t+1} and ``local_drift`` of z^t.
+    """
+    if cfg.fuse_round:
+        raise NotImplementedError("the fused round is not ported yet "
+                                  "(ROADMAP A13)")
+    if not isinstance(spec, MixingSpec):
+        raise NotImplementedError("time-varying schedules are not ported "
+                                  "yet (ROADMAP A12)")
+    if skip_inactive_compute:
+        raise NotImplementedError("compute-skip gathers come with the "
+                                  "schedules (ROADMAP A12)")
+    if async_cfg is not None:
+        raise NotImplementedError("the async engine is not ported yet "
+                                  "(ROADMAP A14)")
+    if placement is not None:
+        raise NotImplementedError("client placement is not ported yet "
+                                  "(ROADMAP A17)")
+    if with_telemetry:
+        raise NotImplementedError("telemetry is not ported yet "
+                                  "(ROADMAP A16)")
+    resolve_device(device)
+    m = spec.m
+    mixer = make_mixer(spec, cfg.mixer_config(), device=device)
+
+    def round_step(state: RoundState, batches: Params):
+        key_round, key_mix, key_next = prng.split(state.rng, 3)
+        client_keys = prng.split(key_round, m)
+        z, losses = local_train(loss_fn, state.params, batches, client_keys,
+                                eta=cfg.eta, theta=cfg.theta)
+        x_next = mixer(state.params, z, key_mix, state.round)
+        metrics = {"loss": losses.mean()}
+        if with_metrics:
+            metrics["consensus_dist"] = consensus_distance(x_next)
+            metrics["local_drift"] = consensus_distance(z)
+        return RoundState(params=x_next, rng=key_next,
+                          round=state.round + 1), metrics
+
+    return round_step

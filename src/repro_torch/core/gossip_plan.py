@@ -1,0 +1,158 @@
+"""GossipPlan: the permutation-step program of one gossip round — the
+static part of the JAX package's ``core/gossip_plan.py``, numpy for numpy.
+
+    x'(i) = w_self(i) * z(i) + sum_k w_k(i) * z(src_k(i))
+
+Each step k is a full permutation ``src_k`` of the m clients. On a mesh
+the JAX package realizes a step as one ``ppermute``; on one device the
+port realizes it as an index gather. ``src_k(i) == i`` marks an idle slot
+(no wire, weight forced to 0).
+
+Invariants (as in the JAX package):
+
+  * EXACT EDGE COVER: every directed support edge appears in exactly one
+    step (``_check_exact_cover``), so a gathered weight is applied once.
+  * Ring steps are the two cyclic shifts; any other graph lowers to
+    greedy matchings (involutions).
+
+Block sharding and placement (``block_plan``, ``placed``, ``Placement``)
+wait for the multi-device slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["GossipPlan", "plan_from_spec", "ring_steps", "matching_steps"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GossipPlan:
+    """Permutation-step program for one gossip round.
+
+    src:     [n_steps, m] int32 — in step k, client i receives from
+             ``src[k, i]``; ``src[k, i] == i`` is an idle slot.
+    w_self / w_steps: static weights (diag(W) and W[i, src[k, i]]),
+             present when compiled from a static MixingSpec.
+    """
+
+    m: int
+    src: np.ndarray
+    name: str = "plan"
+    w_self: np.ndarray | None = None      # [m] float64
+    w_steps: np.ndarray | None = None     # [n_steps, m] float64
+
+    def __post_init__(self):
+        src = np.asarray(self.src, dtype=np.int32)
+        if src.ndim != 2 or src.shape[1] != self.m:
+            raise ValueError(f"src must be [n_steps, {self.m}], "
+                             f"got {src.shape}")
+        ref = np.arange(self.m)
+        for k in range(src.shape[0]):
+            if not np.array_equal(np.sort(src[k]), ref):
+                raise ValueError(f"step {k} is not a permutation of "
+                                 f"range({self.m})")
+        object.__setattr__(self, "src", src)
+        if (self.w_self is None) != (self.w_steps is None):
+            raise ValueError("w_self and w_steps must be set together")
+        if self.w_self is not None:
+            ws = np.asarray(self.w_self, np.float64)
+            wk = np.asarray(self.w_steps, np.float64)
+            if ws.shape != (self.m,) or wk.shape != src.shape:
+                raise ValueError("static weight shapes do not match plan")
+            object.__setattr__(self, "w_self", ws)
+            object.__setattr__(self, "w_steps", wk)
+
+    @property
+    def n_steps(self) -> int:
+        return int(self.src.shape[0])
+
+    @property
+    def is_static(self) -> bool:
+        return self.w_self is not None
+
+    def wire_pairs(self, k: int) -> list[tuple[int, int]]:
+        """(source, target) pairs step k actually moves (idle slots
+        dropped)."""
+        return [(int(self.src[k, i]), i) for i in range(self.m)
+                if int(self.src[k, i]) != i]
+
+    def gather_weights(self, W) -> tuple[np.ndarray, np.ndarray]:
+        """W [m, m] -> (w_self [m], w_steps [n_steps, m]) as f32, idle
+        slots forced to weight 0 (W is cast to f32 first, as in JAX)."""
+        Wf = np.asarray(W, np.float32)
+        idx = np.arange(self.m)
+        w_self = Wf[idx, idx]
+        w_steps = Wf[idx[None, :], self.src]
+        w_steps = np.where(self.src == idx[None, :], np.float32(0.0),
+                           w_steps)
+        return w_self, w_steps
+
+    def static_weights(self) -> tuple[np.ndarray, np.ndarray]:
+        if not self.is_static:
+            raise ValueError(f"plan {self.name!r} has no static weights")
+        return self.w_self, self.w_steps
+
+
+def ring_steps(m: int) -> np.ndarray:
+    """Ring decomposition: receive-from-left, receive-from-right (which
+    coincide at m == 2 — one step)."""
+    if m < 2:
+        raise ValueError("ring plan needs m >= 2")
+    left = np.array([(i - 1) % m for i in range(m)], np.int32)
+    if m == 2:
+        return left[None, :]
+    right = np.array([(i + 1) % m for i in range(m)], np.int32)
+    return np.stack([left, right])
+
+
+def matching_steps(adj: np.ndarray) -> np.ndarray:
+    """Greedy edge coloring of an arbitrary adjacency into matchings —
+    each color class is an involution permutation. Uses at most
+    2*max_degree - 1 colors."""
+    a = np.asarray(adj, dtype=bool)
+    m = a.shape[0]
+    ii, jj = np.nonzero(np.triu(a, k=1))
+    colors_at = [set() for _ in range(m)]
+    steps: list[np.ndarray] = []
+    for i, j in zip(ii.tolist(), jj.tolist()):
+        c = 0
+        while c in colors_at[i] or c in colors_at[j]:
+            c += 1
+        while c >= len(steps):
+            steps.append(np.arange(m, dtype=np.int32))
+        steps[c][i], steps[c][j] = j, i
+        colors_at[i].add(c)
+        colors_at[j].add(c)
+    if not steps:  # edgeless support: a single idle step keeps shapes sane
+        steps = [np.arange(m, dtype=np.int32)]
+    return np.stack(steps)
+
+
+def _check_exact_cover(src: np.ndarray, adj: np.ndarray) -> None:
+    """Every directed edge of ``adj`` must appear exactly once across the
+    steps (double coverage would double-count gathered weights)."""
+    m = src.shape[1]
+    count = np.zeros((m, m), dtype=np.int64)
+    for k in range(src.shape[0]):
+        rows = np.nonzero(src[k] != np.arange(m))[0]
+        np.add.at(count, (rows, src[k][rows]), 1)
+    if not np.array_equal(count, np.asarray(adj, dtype=np.int64)):
+        raise ValueError("plan steps do not cover the support graph's "
+                         "directed edges exactly once")
+
+
+def plan_from_spec(spec) -> GossipPlan:
+    """Static MixingSpec -> plan with baked weights gathered from spec.W
+    (a ring uses its two shifts; any other graph uses matchings)."""
+    src = (ring_steps(spec.m) if spec.kind == "ring"
+           else matching_steps(spec.graph.adj))
+    _check_exact_cover(src, spec.graph.adj)
+    W = np.asarray(spec.W, np.float64)
+    m = spec.m
+    w_self = np.diag(W).copy()
+    w_steps = W[np.arange(m)[None, :], src].copy()
+    w_steps[src == np.arange(m)[None, :]] = 0.0
+    return GossipPlan(m=m, src=src, name=f"plan[{spec.graph.name}]",
+                      w_self=w_self, w_steps=w_steps)

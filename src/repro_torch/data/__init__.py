@@ -1,0 +1,3 @@
+from .synthetic import classification_dataset, ClassificationData  # noqa
+from .federated import (FederatedDataset, partition_iid,  # noqa
+                        partition_noniid_shards)

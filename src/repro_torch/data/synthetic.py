@@ -1,0 +1,48 @@
+"""Deterministic synthetic data (numpy; copied from the JAX package's
+``data/synthetic.py``): a 10-class Gaussian-mixture "MNIST-like"
+(784-dim) or "CIFAR-like" (32x32x3) dataset whose class means are fixed
+random directions and whose within-class noise sets the difficulty."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["classification_dataset", "ClassificationData"]
+
+
+@dataclasses.dataclass
+class ClassificationData:
+    x: np.ndarray          # [n, ...features]
+    y: np.ndarray          # [n] int
+    n_classes: int
+
+
+def classification_dataset(n: int = 12000, *, d: int = 784,
+                           n_classes: int = 10, noise: float = 1.2,
+                           image: bool = False, img_side: int = 32,
+                           seed: int = 0) -> ClassificationData:
+    """Gaussian mixture with unit-norm class means scaled to give a
+    learnable-but-not-trivial problem (paper-qualitative regime)."""
+    rng = np.random.default_rng(seed)
+    if image:
+        shape = (img_side, img_side, 3)
+        d = int(np.prod(shape))
+        # low-frequency class templates (4x4 upsampled): spatially
+        # coherent, so convolutional models can actually pick them up
+        up = img_side // 4
+        coarse = rng.normal(size=(n_classes, 4, 4, 3)).astype(np.float32)
+        means = np.kron(coarse, np.ones((1, up, up, 1), np.float32))
+        means = means.reshape(n_classes, d)
+    else:
+        means = rng.normal(size=(n_classes, d)).astype(np.float32)
+    means /= np.linalg.norm(means, axis=1, keepdims=True)
+    means *= 4.0
+    y = rng.integers(0, n_classes, size=n)
+    x = means[y] + noise * rng.normal(size=(n, d)).astype(np.float32)
+    if image:
+        x = x.reshape(n, *shape)
+    else:
+        x = x.astype(np.float32)
+    return ClassificationData(x=x, y=y.astype(np.int64),
+                              n_classes=n_classes)

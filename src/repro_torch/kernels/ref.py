@@ -1,0 +1,115 @@
+"""Plain PyTorch versions of the three kernels on the main path.
+
+Each function here computes exactly what its CUDA kernel computes, in the
+same operation order, with one torch op per rounding step. On CPU tensors
+the kernel wrappers call these; on the card ``chip_smoke.py`` holds every
+kernel against them.
+
+Wire format (the JAX package's ``kernels/ref.py``): a flat tensor of n
+values is padded to ``per * W`` (``per = 32 // bits``) and viewed as
+``[per, W]``; word ``w`` packs the offset-encoded fields of column ``w``:
+
+    word[w] = sum_i (offset_encode(x[i, w]) << (bits * i))
+
+Packed u32 words are carried as ``int32`` bit patterns (computed in
+``int64``, then narrowed), since the shift into bit 31 needs an unsigned
+or 64-bit carrier and torch's uint32 op coverage is thin.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+LANE_BLOCK = 512  # lane-dim block of the planar layout (multiple of 128)
+MASK32 = 0xFFFFFFFF
+
+
+def planar_pad_len(n: int, bits: int) -> tuple[int, int]:
+    """Return (per, W) with per*W >= n, W a multiple of LANE_BLOCK."""
+    per = 32 // bits
+    w = -(-n // per)
+    w = -(-w // LANE_BLOCK) * LANE_BLOCK
+    return per, w
+
+
+def u32_to_i32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the same bit patterns as int32."""
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def i32_to_u32(words: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their uint32 values in int64."""
+    return words.to(torch.int64) & MASK32
+
+
+def _shifts(bits: int, device) -> torch.Tensor:
+    per = 32 // bits
+    return (torch.arange(per, dtype=torch.int64, device=device)
+            * bits)[:, None]
+
+
+def quantize_pack_buffer_ref(x: torch.Tensor, block_scales: torch.Tensor,
+                             bits: int, noise: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """Whole-buffer quantize + planar pack with per-lane-block scales.
+
+    x: [..., per, W] f32 (W % LANE_BLOCK == 0); block_scales:
+    [..., W // LANE_BLOCK] f32; noise: uniform [0, 1) like x for
+    stochastic rounding, None = deterministic floor. Returns int32
+    [..., W] (u32 bit patterns).
+    """
+    qmin, qmax = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    s = block_scales.to(torch.float32).repeat_interleave(LANE_BLOCK, dim=-1)
+    a = x.to(torch.float32) / s.unsqueeze(-2)
+    k = torch.floor(a)
+    if noise is not None:
+        k = k + (noise < (a - k)).to(torch.float32)
+    k = k.clamp(qmin, qmax).to(torch.int64)
+    fields = k + (1 << (bits - 1))
+    words = (fields << _shifts(bits, x.device)).sum(dim=-2)
+    return u32_to_i32(words)
+
+
+def dequant_mix_buffer_ref(base: torch.Tensor, streams: torch.Tensor,
+                           block_scales: torch.Tensor, weights: torch.Tensor,
+                           bits: int) -> torch.Tensor:
+    """Whole-buffer fused unpack + dequantize + weighted apply:
+
+        out = base + sum_k weights[..., k] * deq(streams[..., k, :])
+
+    base: [..., per, W]; streams: int32 [..., K, W]; block_scales:
+    [..., K, W // LANE_BLOCK]; weights: [..., K]. The accumulation is
+    f32, starts at ``base`` and takes the streams in order (own stream
+    first, then plan steps), one rounding per multiply and per add.
+    """
+    mask = (1 << bits) - 1
+    offset = 1 << (bits - 1)
+    shifts = _shifts(bits, base.device)
+    scol = block_scales.to(torch.float32).repeat_interleave(LANE_BLOCK,
+                                                            dim=-1)
+    u = i32_to_u32(streams)
+    acc = base.to(torch.float32)
+    for k in range(streams.shape[-2]):
+        fields = (u[..., k, None, :] >> shifts) & mask
+        deq = (fields - offset).to(torch.float32) * scol[..., k, None, :]
+        acc = acc + weights[..., k, None, None].to(torch.float32) * deq
+    return acc.to(base.dtype)
+
+
+def _f32(v) -> float | torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32)
+    return float(np.float32(v))
+
+
+def momentum_sgd_ref(y: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                     eta, theta) -> tuple[torch.Tensor, torch.Tensor]:
+    """Heavy-ball (paper eq. 4, velocity form) with f32 eta/theta:
+
+        v' = theta*v - eta*g ;  y' = y + v'
+    """
+    eta, theta = _f32(eta), _f32(theta)
+    v_next = theta * v.to(torch.float32) - eta * g.to(torch.float32)
+    y_next = y.to(torch.float32) + v_next
+    return y_next.to(y.dtype), v_next.to(v.dtype)
