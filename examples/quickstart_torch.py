@@ -2,11 +2,13 @@
 
 16 clients on a ring train the paper's 2NN on a synthetic 10-class
 problem — the configuration of ``examples/quickstart.py``, through the
-port's library API. The round runs the three CUDA kernels (encode,
-decode-mix, heavy-ball update) on the card. Run:
+port's library API. The round runs the CUDA kernels (encode, decode-mix,
+heavy-ball update; with ``--fuse-round`` the fused encode and decode that
+fold in the last two local steps) on the card. Run:
 
     PYTHONPATH=src python examples/quickstart_torch.py            # GPU
     PYTHONPATH=src python examples/quickstart_torch.py --device cpu
+    PYTHONPATH=src python examples/quickstart_torch.py --fuse-round
 """
 import argparse
 
@@ -26,6 +28,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--rounds", type=int, default=60)
+    ap.add_argument("--fuse-round", action="store_true")
     args = ap.parse_args()
     dev = torch.device(args.device)
 
@@ -41,7 +44,8 @@ def main() -> None:
 
     spec = MixingSpec.ring(M_CLIENTS, self_weight=0.5)  # PSD ring
     cfg = DFedAvgMConfig(eta=0.05, theta=0.9, local_steps=K,
-                         quant=QuantConfig(bits=8))
+                         quant=QuantConfig(bits=8),
+                         fuse_round=args.fuse_round)
     step = make_round_step(loss_fn, cfg, spec, device=dev)
     state = init_round_state(stacked, prng.PRNGKey(1))
 

@@ -1,6 +1,6 @@
 """DFedAvgM (Algorithm 1) and quantized DFedAvgM (Algorithm 2) — the
-synchronous, unfused round of the JAX package's ``core/dfedavgm.py`` for a
-static ``MixingSpec``.
+synchronous round of the JAX package's ``core/dfedavgm.py`` for a static
+``MixingSpec``, unfused or fused (``DFedAvgMConfig.fuse_round``).
 
 One communication round:
 
@@ -23,8 +23,9 @@ import torch
 
 from .. import prng
 from ..device import resolve_device
-from .local_sgd import local_train
-from .mixing import MixerConfig, consensus_distance, make_mixer
+from .local_sgd import local_train, local_train_deferred
+from .mixing import (MixerConfig, consensus_distance, make_fused_tail,
+                     make_mixer)
 from .quantize import QuantConfig, message_bits
 from .topology import MixingSpec
 
@@ -44,7 +45,11 @@ class DFedAvgMConfig:
     local_steps: K — local iterations per communication round
     quant: None -> Algorithm 1; QuantConfig -> Algorithm 2
     mixer_impl: "auto" | "dense" | "ring" | "sparse" (see MixerConfig)
-    fuse_round: the JAX package's fused-round variant; not ported yet
+    fuse_round: the fused round (``core.mixing.make_fused_tail``): the
+           last two local steps fold into the wire encode (B4) and decode
+           (B5) kernels. An algorithm variant — neighbours see y_{K-1},
+           not y_K — equal to the default round only at ``eta == 0``.
+           Needs ``local_steps >= 2``.
     """
 
     eta: float = 0.01
@@ -100,15 +105,9 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig, spec: MixingSpec,
     (mean over clients of the mean local loss), and with ``with_metrics``
     ``consensus_dist`` of x^{t+1} and ``local_drift`` of z^t.
     """
-    if cfg.fuse_round:
-        raise NotImplementedError("the fused round is not ported yet "
-                                  "(ROADMAP A13)")
     if not isinstance(spec, MixingSpec):
         raise NotImplementedError("time-varying schedules are not ported "
                                   "yet (ROADMAP A12)")
-    if skip_inactive_compute:
-        raise NotImplementedError("compute-skip gathers come with the "
-                                  "schedules (ROADMAP A12)")
     if async_cfg is not None:
         raise NotImplementedError("the async engine is not ported yet "
                                   "(ROADMAP A14)")
@@ -118,6 +117,13 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig, spec: MixingSpec,
     if with_telemetry:
         raise NotImplementedError("telemetry is not ported yet "
                                   "(ROADMAP A16)")
+    if cfg.fuse_round:
+        return _make_fused_round_step(
+            loss_fn, cfg, spec, device=device, with_metrics=with_metrics,
+            skip_inactive_compute=skip_inactive_compute)
+    if skip_inactive_compute:
+        raise NotImplementedError("compute-skip gathers come with the "
+                                  "schedules (ROADMAP A12)")
     resolve_device(device)
     m = spec.m
     mixer = make_mixer(spec, cfg.mixer_config(), device=device)
@@ -132,6 +138,58 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig, spec: MixingSpec,
         if with_metrics:
             metrics["consensus_dist"] = consensus_distance(x_next)
             metrics["local_drift"] = consensus_distance(z)
+        return RoundState(params=x_next, rng=key_next,
+                          round=state.round + 1), metrics
+
+    return round_step
+
+
+def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
+                           spec: MixingSpec, *, device=None,
+                           with_metrics: bool = True,
+                           skip_inactive_compute: bool = False) -> Callable:
+    """The ``cfg.fuse_round`` realization of :func:`make_round_step`: K-2
+    local steps (``local_train_deferred``), then the fused tail
+    (``core.mixing.make_fused_tail``) — penultimate update + encode in
+    one pass (B4), the last gradient, mix + deferred last update in one
+    pass (B5). Same ``round_step(state, batches)`` contract and PRNG
+    chain; the ``loss`` metric averages the same K per-step losses and
+    ``local_drift`` is taken of the published z = y_{K-1}. Not
+    bit-compatible with the unfused round except at ``eta == 0``."""
+    if skip_inactive_compute is True:
+        raise ValueError("fuse_round runs the full-width client vmap; "
+                         "skip_inactive_compute=True is incompatible")
+    if cfg.local_steps < 2:
+        raise ValueError(
+            f"fuse_round needs local_steps >= 2 (one step is deferred "
+            f"past the mix), got {cfg.local_steps}")
+    resolve_device(device)
+    m = spec.m
+    impl = cfg.mixer_config().resolved_impl(spec)
+    if impl == "ring" and spec.kind != "ring":
+        raise ValueError(f"ring mixer needs a ring MixingSpec, got "
+                         f"kind={spec.kind!r}")
+    plan = spec.gossip_plan() if impl in ("ring", "sparse") else None
+    tail = make_fused_tail(loss_fn, m, eta=cfg.eta, theta=cfg.theta,
+                           quant=cfg.quant, plan=plan, W=spec.W,
+                           device=device)
+
+    def round_step(state: RoundState, batches: Params):
+        key_round, key_mix, key_next = prng.split(state.rng, 3)
+        client_keys = prng.split(key_round, m)
+        K = next(iter(batches.values())).shape[1]
+        y, v, g, losses_head = local_train_deferred(
+            loss_fn, state.params, batches, client_keys, eta=cfg.eta,
+            theta=cfg.theta)                             # losses [m, K-1]
+        batch_last = {n: b[:, K - 1] for n, b in batches.items()}
+        keys_last = prng.split(client_keys, K)[:, K - 1]
+        x_next, y_pub, loss_last = tail(state.params, y, v, g, batch_last,
+                                        keys_last, key_mix)
+        losses = torch.cat([losses_head, loss_last[:, None]], dim=1)
+        metrics = {"loss": losses.mean(dim=1).mean()}
+        if with_metrics:
+            metrics["consensus_dist"] = consensus_distance(x_next)
+            metrics["local_drift"] = consensus_distance(y_pub)
         return RoundState(params=x_next, rng=key_next,
                           round=state.round + 1), metrics
 

@@ -16,6 +16,9 @@ leading client axis of size m. Two backends:
     plan's ``src`` table (the index gather that stands in for the
     ``ppermute``) and decodes and applies them, own stream first.
 
+``make_fused_tail`` is the fused round's tail over the same two backends
+(B4 encodes, B5 decodes and applies the deferred last step).
+
 Semantics, as in the JAX package:
   unquantized (Alg. 1, eq. 5):  x' = W @ z
   quantized, ``eq7``:           x' = x + W @ Q(z - x)
@@ -32,14 +35,15 @@ import torch
 from .. import prng
 from ..device import resolve_device
 from .gossip_plan import GossipPlan
+from .local_sgd import loss_and_grad
 from .quantize import QuantConfig, dequantize_int, quantize_int
 from .topology import MixingSpec
 from .wire_layout import WireLayout
 
 Params = dict[str, torch.Tensor]
 
-__all__ = ["MixerConfig", "make_mixer", "make_plan_mixer", "mix_dense",
-           "consensus_distance"]
+__all__ = ["MixerConfig", "make_mixer", "make_plan_mixer", "make_fused_tail",
+           "mix_dense", "consensus_distance"]
 
 _IMPLS = ("auto", "dense", "ring", "sparse")
 
@@ -135,6 +139,19 @@ def _weighted_replica_base(X: torch.Tensor, weights: torch.Tensor,
     return base
 
 
+def _plan_tables(plan: GossipPlan, dev: torch.device
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The streams a client combines — its own, then one per live plan
+    step — as ``src`` int32 [K, m] (row 0 the identity) and the static
+    weights f32 [m, K]."""
+    w_self, w_steps = plan.static_weights()
+    live = [k for k in range(plan.n_steps) if plan.wire_pairs(k)]
+    src = np.stack([np.arange(plan.m)] + [plan.src[k] for k in live])
+    weights = np.stack([w_self] + [w_steps[k] for k in live], axis=1)
+    return (torch.as_tensor(src.astype(np.int32), device=dev),
+            torch.as_tensor(weights.astype(np.float32), device=dev))
+
+
 def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
                     device=None) -> Callable:
     """Static plan (baked weights) -> mixer(x, z, key=None, t=None) -> x'.
@@ -145,12 +162,7 @@ def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
     the device (inside B2 for the quantized wire).
     """
     dev = resolve_device(device)
-    w_self, w_steps = plan.static_weights()
-    live = [k for k in range(plan.n_steps) if plan.wire_pairs(k)]
-    src = np.stack([np.arange(plan.m)] + [plan.src[k] for k in live])
-    weights = np.stack([w_self] + [w_steps[k] for k in live], axis=1)
-    src_t = torch.as_tensor(src.astype(np.int32), device=dev)      # [K, m]
-    w_t = torch.as_tensor(weights.astype(np.float32), device=dev)  # [m, K]
+    src_t, w_t = _plan_tables(plan, dev)
     layouts: dict = {}
 
     def mix_fp32(z: Params) -> Params:
@@ -190,6 +202,111 @@ def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
         return layout.from_planar_stacked(out)
 
     return mixer
+
+
+def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
+                    quant: QuantConfig | None = None,
+                    plan: GossipPlan | None = None,
+                    W: np.ndarray | None = None, device=None) -> Callable:
+    """Fused-round tail for a static spec on one device: the round's last
+    two local steps, the wire encode and the combined decode-apply — the
+    single-device counterpart of the JAX package's ``make_fused_tail``.
+
+    The returned ``tail(x, y, v, g, batch_last, keys_last, key_q)``
+    consumes :func:`~repro_torch.core.local_sgd.local_train_deferred`'s
+    output (``y``/``v``/``g`` the un-applied penultimate step, stacked
+    over clients) and returns ``(x_next, y_pub, loss_last)``:
+
+      1. SEND — ``v' = theta*v - eta*g; y' = y + v'`` and ``pack(Q(y' -
+         x))`` in one pass (B4); the published z is ``y'``.
+      2. The round's LAST gradient ``g_K = grad(y')``.
+      3. RECEIVE — ``x' = [base + sum_k w_k*deq(stream_k)] + (theta*v' -
+         eta*g_K)`` in one pass (B5), each plan step's stream gathered
+         through ``src``.
+
+    An algorithm variant: neighbours see y_{K-1}, not y_K; at ``eta ==
+    0`` it equals the unfused round bitwise. ``plan=None`` is the dense
+    reference (tree-level, any ``W``); a static :class:`GossipPlan` runs
+    the plan body (plain torch on the fp32 wire, B4 and B5 on the
+    quantized wire). ``loss_last`` [m] holds the last step's losses.
+    """
+    dev = resolve_device(device)
+    eta_f, theta_f = float(np.float32(eta)), float(np.float32(theta))
+    quant_on = quant is not None and quant.enabled
+
+    def penultimate(y: Params, v: Params, g: Params):
+        v1 = {n: theta_f * v[n].to(torch.float32)
+              - eta_f * g[n].to(torch.float32) for n in y}
+        y1 = {n: (y[n].to(torch.float32) + v1[n]).to(y[n].dtype) for n in y}
+        return y1, v1
+
+    def deferred(mixed: Params, v1: Params, gK: Params) -> Params:
+        return {n: (mixed[n].to(torch.float32) + theta_f * v1[n]
+                    - eta_f * gK[n].to(torch.float32)).to(mixed[n].dtype)
+                for n in mixed}
+
+    if plan is None:
+        if W is None:
+            raise ValueError("the dense fused tail needs W")
+
+        def dense_tail(x, y, v, g, batch_last, keys_last, key_q):
+            y1, v1 = penultimate(y, v, g)
+            loss_last, gK = loss_and_grad(loss_fn, y1, batch_last, keys_last)
+            mixed = (_mix_dense_quantized(W, x, y1, quant, key_q)
+                     if quant_on else mix_dense(W, y1))
+            return deferred(mixed, v1, gK), y1, loss_last
+
+        return dense_tail
+
+    if plan.m != m:
+        raise ValueError(f"plan has m={plan.m}, expected {m}")
+    src_t, w_t = _plan_tables(plan, dev)
+    et = (eta_f, theta_f)
+    layouts: dict = {}
+
+    def layout_for(x: Params) -> WireLayout:
+        sig = tuple((n, tuple(x[n].shape), x[n].dtype) for n in sorted(x))
+        if sig not in layouts:
+            layouts[sig] = WireLayout.for_tree(
+                x, quant.bits if quant_on else 32, stacked=True)
+        return layouts[sig]
+
+    def fp32_tail(x, y, v, g, batch_last, keys_last, key_q):
+        del key_q
+        layout = layout_for(x)
+        y1, v1 = penultimate(y, v, g)
+        z = layout.flatten_f32(y1)               # [m, n]
+        loss_last, gK = loss_and_grad(loss_fn, y1, batch_last, keys_last)
+        acc = w_t[:, 0, None] * z
+        for j in range(1, src_t.shape[0]):
+            acc = acc + w_t[:, j, None] * z[src_t[j].long()]
+        return deferred(layout.unflatten(acc), v1, gK), y1, loss_last
+
+    def quant_tail(x, y, v, g, batch_last, keys_last, key_q):
+        layout = layout_for(x)
+        X = layout.to_planar_stacked(x)                  # [m, per, W]
+        y2d = layout.to_planar_stacked(y)
+        v2d = layout.to_planar_stacked(v)
+        g2d = layout.to_planar_stacked(g)
+        # Scales of the RESULTING delta, in B4's expression order.
+        delta = (y2d + (theta_f * v2d - eta_f * g2d)) - X
+        scales = layout.leaf_scales(delta, quant)        # [m, n_leaves]
+        noise = None
+        if quant.stochastic:
+            keys = _quant_leaf_keys(key_q, layout.n_leaves, m)
+            noise = layout.noise_stacked(keys.to(dev))
+        y_out, v_out, words = layout.encode_momentum(
+            y2d, v2d, g2d, X, scales, et, quant, noise=noise)
+        y_pub = layout.from_planar_stacked(y_out)
+        loss_last, gK = loss_and_grad(loss_fn, y_pub, batch_last, keys_last)
+        gK2d = layout.to_planar_stacked(gK)
+        base = (_weighted_replica_base(X, w_t, src_t)
+                if quant.delta_mode == "lemma5" else X)
+        out = layout.decode_apply_momentum(base, words, scales, w_t, src_t,
+                                           v_out, gK2d, et, quant)
+        return layout.from_planar_stacked(out), y_pub, loss_last
+
+    return quant_tail if quant_on else fp32_tail
 
 
 def make_mixer(spec: MixingSpec, cfg: MixerConfig, device=None) -> Callable:

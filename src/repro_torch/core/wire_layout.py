@@ -4,8 +4,9 @@
 A client's parameter dict is flattened once per round into a single
 planar ``[per, W]`` buffer (``per = 32 // bits``, ``W`` a multiple of
 ``LANE_BLOCK``), each leaf in a block-aligned column segment, so the
-encode (B1) and the fused decode-apply (B2) each run once per round over
-one contiguous array for all m clients.
+encode (B1, or B4 in the fused round) and the fused decode-apply (B2, or
+B5) each run once per round over one contiguous array for all m clients.
+The fp32 wire is a plain concatenation (``flatten_f32``).
 
 Invariants (as in the JAX package):
 
@@ -29,8 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from .. import prng
-from ..kernels.dequant_mix import dequant_mix_buffer
-from ..kernels.quantize_pack import quantize_pack_buffer
+from ..kernels.dequant_mix import (dequant_mix_buffer,
+                                   dequant_mix_momentum_buffer)
+from ..kernels.quantize_pack import (momentum_quantize_pack_buffer,
+                                     quantize_pack_buffer)
 from ..kernels.ref import LANE_BLOCK
 from .quantize import scale_from_amax
 
@@ -101,6 +104,24 @@ class WireLayout:
     def _segments(self):
         return zip(self.names, self.shapes, self.dtypes, self.sizes,
                    self.leaf_words, self.word_offsets)
+
+    # -- fp32 wire: plain flatten/unflatten ---------------------------------
+
+    def flatten_f32(self, tree: Params) -> torch.Tensor:
+        """Stacked dict (leaves [m, ...]) -> [m, sum(sizes)] f32: row c is
+        the JAX package's ``flatten_f32`` of client c's dict."""
+        return torch.cat([tree[n].reshape(tree[n].shape[0], -1)
+                          .to(torch.float32) for n in self.names], dim=1)
+
+    def unflatten(self, flat: torch.Tensor) -> Params:
+        """Inverse of :meth:`flatten_f32`: [m, sum(sizes)] -> stacked
+        dict in the leaves' shapes and dtypes."""
+        out, off = {}, 0
+        for name, shape, dtype, n, _, _ in self._segments():
+            out[name] = flat[:, off:off + n].reshape(
+                (flat.shape[0],) + shape).to(dtype)
+            off += n
+        return out
 
     # -- planar buffers -----------------------------------------------------
 
@@ -220,3 +241,36 @@ class WireLayout:
         return dequant_mix_buffer(base.contiguous(), words,
                                   self.block_scales(scales), weights, src,
                                   quant.bits)
+
+    def encode_momentum(self, y2d: torch.Tensor, v2d: torch.Tensor,
+                        g2d: torch.Tensor, x2d: torch.Tensor,
+                        scales: torch.Tensor, et, quant,
+                        noise: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Fused-round send side (B4): apply the penultimate heavy-ball
+        step and emit the wire words as a side output of the same pass,
+
+            v' = theta*v - eta*g ;  y' = y + v' ;  words = pack(Q(y' - x))
+
+        y2d/v2d/g2d/x2d [m, per, W] f32; scales [m, n_leaves] of the
+        RESULTING delta (the caller computes them from the same expression
+        order); et = (eta, theta). Returns (y', v', words int32 [m, W])."""
+        if quant.stochastic and noise is None:
+            raise ValueError("stochastic encode needs noise")
+        return momentum_quantize_pack_buffer(
+            y2d.contiguous(), v2d.contiguous(), g2d.contiguous(),
+            x2d.contiguous(), self.block_scales(scales), quant.bits, et,
+            noise.contiguous() if quant.stochastic else None)
+
+    def decode_apply_momentum(self, base: torch.Tensor, words: torch.Tensor,
+                              scales: torch.Tensor, weights: torch.Tensor,
+                              src: torch.Tensor, v2d: torch.Tensor,
+                              g2d: torch.Tensor, et, quant) -> torch.Tensor:
+        """Fused-round receive side (B5): the decode-apply of
+        :meth:`decode_apply` and the deferred last heavy-ball step in one
+        pass, ``[base + sum_k w_k*deq(words[src_k])] + (theta*v - eta*g)``.
+        v2d/g2d [m, per, W]; et = (eta, theta). No v output: momentum
+        restarts every round."""
+        return dequant_mix_momentum_buffer(
+            base.contiguous(), words, self.block_scales(scales), weights,
+            src, v2d.contiguous(), g2d.contiguous(), et, quant.bits)

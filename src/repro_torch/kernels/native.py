@@ -31,7 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 600
 
-KERNELS = ("quantize_pack_buffer", "dequant_mix_buffer", "momentum_sgd")
+KERNELS = ("quantize_pack_buffer", "dequant_mix_buffer", "momentum_sgd",
+           "momentum_quantize_pack_buffer", "dequant_mix_momentum_buffer",
+           "quantize_pack", "dequant_mix_plan", "dequant_mix")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,17 +1,105 @@
-"""Public wrappers around the kernels, and their launch counters.
+"""Public entry points around the kernels, and their launch counters — the
+port of the JAX package's ``kernels/ops.py``.
 
-``momentum_update`` is the counterpart of the JAX package's
-``kernels.ops.make_fused_momentum_update``: the heavy-ball step over a
-dict of parameter leaves, one B3 launch per leaf on the card.
+The per-tensor entry points work on ONE flat parameter vector ``[n]``,
+zero-padded to ``planar_pad_len(n, bits)`` and viewed row-major as
+``[per, W]``:
+
+encode_delta         — per-tensor scale + B6 (quantize + pack)
+decode_apply_ring    — B8, the ring form of eq. 7
+decode_apply_plan    — B7, eq. 7 over a plan's [k, W] stream stack
+momentum_update_flat — B3 on (8, 512)-padded blocks
+
+``momentum_update`` is the heavy-ball step over a dict of parameter
+leaves (one B3 launch per leaf), which ``make_fused_momentum_update``
+returns. Words travel as int32 bit patterns of the JAX package's uint32.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from .. import prng
 from . import native
+from .dequant_mix import dequant_mix, dequant_mix_plan
 from .momentum_sgd import momentum_sgd
+from .quantize_pack import quantize_pack
+from .ref import planar_pad_len
 
 Params = dict[str, torch.Tensor]
+
+MS_ROW, MS_LANE = 8, 512   # the Pallas momentum kernel's block
+
+
+def _planar(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Flat [n] -> zero-padded f32 [per, W]."""
+    per, w = planar_pad_len(x.shape[0], bits)
+    return F.pad(x.to(torch.float32), (0, per * w - x.shape[0])).reshape(
+        per, w)
+
+
+def encode_delta(delta: torch.Tensor, bits: int, *, stochastic: bool = True,
+                 key: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat f32 delta [n] -> (packed words int32 [W], per-tensor scale s).
+
+    ``s = amax / qmax`` is a true division (1.0 when amax is 0), as in
+    the JAX package's ``encode_delta`` — not the reciprocal multiply of
+    ``core.quantize.scale_from_amax``. The noise is ``uniform(key,
+    (per, W))`` over the whole padded buffer from one key."""
+    x2d = _planar(delta, bits)
+    qmax = torch.full((), 2 ** (bits - 1) - 1, dtype=torch.float32,
+                      device=x2d.device)
+    amax = delta.to(torch.float32).abs().amax()
+    # Divide by a device tensor: CUDA turns a division by a host scalar
+    # into a multiply by its reciprocal.
+    s = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    noise = None
+    if stochastic:
+        if key is None:
+            raise ValueError("stochastic encode needs a key")
+        noise = prng.uniform(key.to(x2d.device), x2d.shape)
+    return quantize_pack(x2d, s, bits, noise), s
+
+
+def decode_apply_ring(x: torch.Tensor, q_own: torch.Tensor,
+                      q_left: torch.Tensor, q_right: torch.Tensor,
+                      scales: torch.Tensor, *, bits: int, w_self: float,
+                      w_nb: float) -> torch.Tensor:
+    """Fused eq.-7 ring apply for a flat parameter vector x [n]."""
+    n = x.shape[0]
+    out = dequant_mix(_planar(x, bits), q_own, q_left, q_right, scales, bits,
+                      w_self, w_nb)
+    return out.reshape(-1)[:n].to(x.dtype)
+
+
+def decode_apply_plan(x: torch.Tensor, streams: torch.Tensor,
+                      scales: torch.Tensor, weights: torch.Tensor, *,
+                      bits: int) -> torch.Tensor:
+    """Fused GossipPlan apply for a flat parameter vector x [n] (eq. 7):
+    ``x + sum_k weights[k] * deq(streams[k], scales[k])``; streams int32
+    [k, W] (own stream first), scales and weights f32 [k]."""
+    n = x.shape[0]
+    out = dequant_mix_plan(_planar(x, bits), streams, scales, weights, bits)
+    return out.reshape(-1)[:n].to(x.dtype)
+
+
+def _pad2d(flat: torch.Tensor) -> torch.Tensor:
+    rows = -(-flat.shape[0] // MS_LANE)
+    rows = -(-rows // MS_ROW) * MS_ROW
+    return F.pad(flat, (0, rows * MS_LANE - flat.shape[0])).reshape(
+        rows, MS_LANE)
+
+
+def momentum_update_flat(y: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                         eta: float, theta: float
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One heavy-ball step on flat vectors [n], run by B3 on the
+    (8, 512)-padded blocks of the Pallas kernel. Returns (y', v')."""
+    n = y.shape[0]
+    y_o, v_o = momentum_sgd(_pad2d(y), _pad2d(v), _pad2d(g.to(y.dtype)),
+                            eta, theta)
+    return y_o.reshape(-1)[:n], v_o.reshape(-1)[:n]
 
 
 def momentum_update(y: Params, v: Params, g: Params, eta: float,
@@ -22,6 +110,13 @@ def momentum_update(y: Params, v: Params, g: Params, eta: float,
     for name, yl in y.items():
         ys[name], vs[name] = momentum_sgd(yl, v[name], g[name], eta, theta)
     return ys, vs
+
+
+def make_fused_momentum_update():
+    """The heavy-ball update over a dict of parameter leaves (B3 per
+    leaf): :func:`momentum_update`, the counterpart of the JAX package's
+    ``make_fused_momentum_update``."""
+    return momentum_update
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,22 +1,44 @@
-"""B1: whole-buffer quantize + planar bit-pack (the wire encoder).
+"""The wire encoders, ports of the JAX package's ``kernels/quantize_pack.py``
+as the CUDA kernels of ``csrc/quantize_pack.cu``:
 
-Port of ``quantize_pack_buffer_pallas`` (JAX package,
-``kernels/quantize_pack.py``) as the CUDA kernel ``csrc/quantize_pack.cu``.
-One launch encodes all m clients' planar buffers with per-lane-block
-scales. On CPU tensors the wrapper runs the plain version
-(``ref.quantize_pack_buffer_ref``); on CUDA tensors it launches the kernel
-or raises.
+B1 ``quantize_pack_buffer`` — whole-buffer quantize + planar bit-pack for
+   all m clients with per-lane-block scales (``quantize_pack_buffer_pallas``);
+B4 ``momentum_quantize_pack_buffer`` — the same encode fused with the
+   round's penultimate heavy-ball step
+   (``momentum_quantize_pack_buffer_pallas``);
+B6 ``quantize_pack`` — one [per, W] buffer with one scale
+   (``quantize_pack_pallas``): B1's kernel with a scale stride of 0.
+
+On CPU tensors a wrapper runs its plain version (``ref``); on CUDA tensors
+it launches its kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import native
-from .ref import LANE_BLOCK, quantize_pack_buffer_ref
+from .ref import (LANE_BLOCK, momentum_quantize_pack_buffer_ref,
+                  quantize_pack_buffer_ref, quantize_pack_ref)
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES_ONE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES_MOMENTUM = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                      + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _check_planar(x: torch.Tensor, bits: int, name: str = "x") -> None:
+    if bits not in (2, 4, 8, 16):
+        raise ValueError(f"bits must be in (2, 4, 8, 16), got {bits}")
+    if x.dim() != 3:
+        raise ValueError(f"{name} must be [m, per, W], got {tuple(x.shape)}")
+    m, per, w = x.shape
+    if per != 32 // bits or w % LANE_BLOCK:
+        raise ValueError(f"bad planar shape {tuple(x.shape)} for {bits} bits")
+    if not 0 < m < 65536:
+        raise ValueError(f"client count {m} out of range")
 
 
 def quantize_pack_buffer(x: torch.Tensor, block_scales: torch.Tensor,
@@ -28,15 +50,8 @@ def quantize_pack_buffer(x: torch.Tensor, block_scales: torch.Tensor,
     patterns)."""
     if x.device.type == "cpu":
         return quantize_pack_buffer_ref(x, block_scales, bits, noise)
-    if bits not in (2, 4, 8, 16):
-        raise ValueError(f"bits must be in (2, 4, 8, 16), got {bits}")
-    if x.dim() != 3:
-        raise ValueError(f"x must be [m, per, W], got {tuple(x.shape)}")
-    m, per, w = x.shape
-    if per != 32 // bits or w % LANE_BLOCK:
-        raise ValueError(f"bad planar shape {tuple(x.shape)} for {bits} bits")
-    if not 0 < m < 65536:
-        raise ValueError(f"client count {m} out of range")
+    _check_planar(x, bits)
+    m, _, w = x.shape
     native.require(x, "x", torch.float32)
     native.require(block_scales, "block_scales", torch.float32,
                    (m, w // LANE_BLOCK), x.device)
@@ -49,4 +64,70 @@ def quantize_pack_buffer(x: torch.Tensor, block_scales: torch.Tensor,
                 block_scales.data_ptr(), out.data_ptr(), m, w, bits,
                 int(noise is not None), native.stream_of(x))
     native.check_launch(rc, "quantize_pack_buffer")
+    return out
+
+
+def momentum_quantize_pack_buffer(y: torch.Tensor, v: torch.Tensor,
+                                  g: torch.Tensor, x: torch.Tensor,
+                                  block_scales: torch.Tensor, bits: int,
+                                  et, noise: torch.Tensor | None = None
+                                  ) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Penultimate heavy-ball step + encode in one pass:
+    ``v' = theta*v - eta*g``, ``y' = y + v'``, ``words = pack(Q(y' - x))``.
+
+    y, v, g, x: f32 [m, per, W] planar buffers; block_scales: f32
+    [m, W // 512] of the resulting delta; et = (eta, theta); noise: f32
+    like y (stochastic) or None. Returns (y', v', words int32 [m, W]).
+    """
+    if y.device.type == "cpu":
+        return momentum_quantize_pack_buffer_ref(y, v, g, x, block_scales,
+                                                 bits, et, noise)
+    _check_planar(y, bits, "y")
+    m, _, w = y.shape
+    native.require(y, "y", torch.float32)
+    for t, name in ((v, "v"), (g, "g"), (x, "x")):
+        native.require(t, name, torch.float32, y.shape, y.device)
+    native.require(block_scales, "block_scales", torch.float32,
+                   (m, w // LANE_BLOCK), y.device)
+    if noise is not None:
+        native.require(noise, "noise", torch.float32, y.shape, y.device)
+    y_out = torch.empty_like(y)
+    v_out = torch.empty_like(v)
+    out = torch.empty((m, w), dtype=torch.int32, device=y.device)
+    fn = native.function("quantize_pack", "momentum_quantize_pack_buffer",
+                         _ARGTYPES_MOMENTUM)
+    with torch.cuda.device(y.device):
+        rc = fn(y.data_ptr(), v.data_ptr(), g.data_ptr(), x.data_ptr(),
+                None if noise is None else noise.data_ptr(),
+                block_scales.data_ptr(), y_out.data_ptr(), v_out.data_ptr(),
+                out.data_ptr(), m, w, bits, float(np.float32(et[0])),
+                float(np.float32(et[1])), int(noise is not None),
+                native.stream_of(y))
+    native.check_launch(rc, "momentum_quantize_pack_buffer")
+    return y_out, v_out, out
+
+
+def quantize_pack(x: torch.Tensor, s: torch.Tensor, bits: int,
+                  noise: torch.Tensor | None = None) -> torch.Tensor:
+    """x: f32 [per, W] (per = 32 // bits, W % 512 == 0); s: f32 scale
+    (0-dim or [1]) on x's device; noise: f32 like x or None. Returns int32
+    [W]."""
+    if x.device.type == "cpu":
+        return quantize_pack_ref(x, s, bits, noise)
+    if x.dim() != 2:
+        raise ValueError(f"x must be [per, W], got {tuple(x.shape)}")
+    _check_planar(x[None], bits)
+    w = x.shape[1]
+    native.require(x, "x", torch.float32)
+    native.require(s.reshape(1), "s", torch.float32, (1,), x.device)
+    if noise is not None:
+        native.require(noise, "noise", torch.float32, x.shape, x.device)
+    out = torch.empty((w,), dtype=torch.int32, device=x.device)
+    fn = native.function("quantize_pack", "quantize_pack", _ARGTYPES_ONE)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), None if noise is None else noise.data_ptr(),
+                s.data_ptr(), out.data_ptr(), w, bits, int(noise is not None),
+                native.stream_of(x))
+    native.check_launch(rc, "quantize_pack")
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels on the main path.
+"""Plain PyTorch versions of the hand-written kernels (B1-B8).
 
 Each function here computes exactly what its CUDA kernel computes, in the
 same operation order, with one torch op per rounding step. On CPU tensors
@@ -71,6 +71,25 @@ def quantize_pack_buffer_ref(x: torch.Tensor, block_scales: torch.Tensor,
     return u32_to_i32(words)
 
 
+def _dequant_accumulate(base: torch.Tensor, streams: torch.Tensor,
+                        block_scales: torch.Tensor, weights: torch.Tensor,
+                        bits: int) -> torch.Tensor:
+    """f32 ``base + sum_k weights[..., k] * deq(streams[..., k, :])``,
+    own stream first, one rounding per multiply and per add."""
+    mask = (1 << bits) - 1
+    offset = 1 << (bits - 1)
+    shifts = _shifts(bits, base.device)
+    scol = block_scales.to(torch.float32).repeat_interleave(LANE_BLOCK,
+                                                            dim=-1)
+    u = i32_to_u32(streams)
+    acc = base.to(torch.float32)
+    for k in range(streams.shape[-2]):
+        fields = (u[..., k, None, :] >> shifts) & mask
+        deq = (fields - offset).to(torch.float32) * scol[..., k, None, :]
+        acc = acc + weights[..., k, None, None].to(torch.float32) * deq
+    return acc
+
+
 def dequant_mix_buffer_ref(base: torch.Tensor, streams: torch.Tensor,
                            block_scales: torch.Tensor, weights: torch.Tensor,
                            bits: int) -> torch.Tensor:
@@ -83,18 +102,94 @@ def dequant_mix_buffer_ref(base: torch.Tensor, streams: torch.Tensor,
     f32, starts at ``base`` and takes the streams in order (own stream
     first, then plan steps), one rounding per multiply and per add.
     """
-    mask = (1 << bits) - 1
-    offset = 1 << (bits - 1)
-    shifts = _shifts(bits, base.device)
-    scol = block_scales.to(torch.float32).repeat_interleave(LANE_BLOCK,
-                                                            dim=-1)
-    u = i32_to_u32(streams)
-    acc = base.to(torch.float32)
-    for k in range(streams.shape[-2]):
-        fields = (u[..., k, None, :] >> shifts) & mask
-        deq = (fields - offset).to(torch.float32) * scol[..., k, None, :]
-        acc = acc + weights[..., k, None, None].to(torch.float32) * deq
-    return acc.to(base.dtype)
+    return _dequant_accumulate(base, streams, block_scales, weights,
+                               bits).to(base.dtype)
+
+
+def momentum_quantize_pack_buffer_ref(y: torch.Tensor, v: torch.Tensor,
+                                      g: torch.Tensor, x: torch.Tensor,
+                                      block_scales: torch.Tensor, bits: int,
+                                      et, noise: torch.Tensor | None = None
+                                      ) -> tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """Fused penultimate heavy-ball step + whole-buffer encode (B4):
+
+        v' = theta*v - eta*g ;  y' = y + v' ;  words = pack(Q(y' - x))
+
+    y/v/g/x: [..., per, W] f32 planar buffers; block_scales:
+    [..., W // LANE_BLOCK] — scales of the RESULTING delta, which the
+    caller computes from the same expression order; et = (eta, theta).
+    Returns (y', v', words int32 [..., W]).
+    """
+    eta, theta = _f32(et[0]), _f32(et[1])
+    v_next = theta * v.to(torch.float32) - eta * g.to(torch.float32)
+    y_next = y.to(torch.float32) + v_next
+    delta = y_next - x.to(torch.float32)
+    words = quantize_pack_buffer_ref(delta, block_scales, bits, noise)
+    return y_next.to(y.dtype), v_next.to(v.dtype), words
+
+
+def dequant_mix_momentum_buffer_ref(base: torch.Tensor,
+                                    streams: torch.Tensor,
+                                    block_scales: torch.Tensor,
+                                    weights: torch.Tensor, v: torch.Tensor,
+                                    g: torch.Tensor, et,
+                                    bits: int) -> torch.Tensor:
+    """Fused mix + deferred heavy-ball step (B5):
+
+        out = [base + sum_k weights[..., k] * deq(streams[..., k, :])]
+              + (theta*v - eta*g)
+
+    Shapes as in :func:`dequant_mix_buffer_ref` plus v/g [..., per, W];
+    et = (eta, theta). The momentum term is added to the f32 accumulator
+    before the cast, as in the JAX kernel.
+    """
+    eta, theta = _f32(et[0]), _f32(et[1])
+    acc = _dequant_accumulate(base, streams, block_scales, weights, bits)
+    v_next = theta * v.to(torch.float32) - eta * g.to(torch.float32)
+    return (acc + v_next).to(base.dtype)
+
+
+def quantize_pack_ref(x: torch.Tensor, s: torch.Tensor, bits: int,
+                      noise: torch.Tensor | None = None) -> torch.Tensor:
+    """B6: quantize + planar pack of one [per, W] buffer with ONE scale
+    ``s`` (0-dim f32). Returns int32 [W]."""
+    n_blocks = x.shape[-1] // LANE_BLOCK
+    return quantize_pack_buffer_ref(x, s.reshape(1).expand(n_blocks), bits,
+                                    noise)
+
+
+def dequant_mix_plan_ref(x: torch.Tensor, streams: torch.Tensor,
+                         scales: torch.Tensor, weights: torch.Tensor,
+                         bits: int) -> torch.Tensor:
+    """B7: ``x + sum_k weights[k] * deq(streams[k], scales[k])`` over one
+    [per, W] buffer; streams int32 [k, W], scales/weights f32 [k]."""
+    n_blocks = x.shape[-1] // LANE_BLOCK
+    sblk = scales.to(torch.float32)[:, None].expand(-1, n_blocks)
+    return dequant_mix_buffer_ref(x, streams, sblk, weights, bits)
+
+
+def ring_weights(w_self: float, w_nb: float, device=None) -> torch.Tensor:
+    """The ring decode's static weights (w_self, w_nb, w_nb) as f32,
+    written by two fills on the device. A host-to-device copy (or an
+    item assignment, which makes one) would wait for the stream."""
+    w = torch.full((3,), _f32(w_nb), dtype=torch.float32, device=device)
+    w[:1].fill_(_f32(w_self))
+    return w
+
+
+def dequant_mix_ref(x: torch.Tensor, q_own: torch.Tensor,
+                    q_left: torch.Tensor, q_right: torch.Tensor,
+                    scales: torch.Tensor, bits: int, w_self: float,
+                    w_nb: float) -> torch.Tensor:
+    """B8: the ring form of eq. 7 over one [per, W] buffer,
+
+        x + w_self*deq(q_own) + w_nb*deq(q_left) + w_nb*deq(q_right)
+
+    q_*: int32 [W]; scales f32 [3] (own, left, right)."""
+    return dequant_mix_plan_ref(x, torch.stack([q_own, q_left, q_right]),
+                                scales, ring_weights(w_self, w_nb, x.device),
+                                bits)
 
 
 def _f32(v) -> float | torch.Tensor:

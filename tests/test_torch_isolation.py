@@ -1,0 +1,49 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package (``repro``). Only the
+parity tests import both. The check walks each file's syntax tree, so an
+import inside a function counts too."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "repro")
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def imported_roots(path: Path) -> set[str]:
+    """Top-level package of every absolute import in ``path``."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_the_port_has_modules_to_check():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "src/repro_torch/core/dfedavgm.py" in names
+    assert "chip_smoke.py" in names and len(names) > 20
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[p.relative_to(ROOT).as_posix() for p in FILES])
+def test_no_jax_or_repro_import(path):
+    bad = imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_the_check_catches_each_forbidden_form(tmp_path):
+    for src in ("import jax", "import jax.numpy as jnp",
+                "from jaxlib import xla_client", "from repro.core import x",
+                "import repro", "def f():\n    from jax import lax\n"):
+        p = tmp_path / "m.py"
+        p.write_text(src + "\n")
+        assert imported_roots(p) & set(FORBIDDEN), src
+    p = tmp_path / "m.py"
+    p.write_text("import repro_torch\nfrom . import repro\nimport torch\n")
+    assert not imported_roots(p) & set(FORBIDDEN)

@@ -128,8 +128,9 @@ def test_round_state_and_metrics_shapes():
 
 def test_unported_branches_raise():
     spec = MixingSpec.ring(M)
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_round_step(t_loss, DFedAvgMConfig(fuse_round=True), spec,
+    with pytest.raises(ValueError, match="local_steps >= 2"):
+        make_round_step(t_loss, DFedAvgMConfig(fuse_round=True,
+                                               local_steps=1), spec,
                         device="cpu")
     with pytest.raises(NotImplementedError, match="A16"):
         make_round_step(t_loss, DFedAvgMConfig(), spec, device="cpu",
