@@ -10,11 +10,16 @@ Phases (any failure exits non-zero):
    per source, all in parallel);
 3. hold every kernel against its plain PyTorch version on the card at the
    shapes its path gives it — B1-B5 at the quickstart's wire shapes (2NN,
-   m=16, ring, 8 and 4 bits), B6-B8 on one client's flat 2NN vector —
-   packed words bitwise equal, floats within MAX_ULP (bitwise is
-   expected: the kernels pin rounding with _rn intrinsics and keep the
-   plain version's operation order); time kernel and plain version with
-   CUDA events;
+   m=16, ring, 8 and 4 bits; B1 keyed, drawing its own noise, against
+   ``noise_stacked`` + the plain encode, and with tensor noise; B3 over
+   all six leaves in one launch and on a misaligned view), B6-B8 on one
+   client's flat 2NN vector — packed words bitwise equal, floats within
+   MAX_ULP (B3 bitwise; bitwise is expected everywhere: the kernels pin
+   rounding with _rn intrinsics and keep the plain version's operation
+   order); time kernel, plain version and, for B3, the library's
+   multi-tensor SGD step (``torch._fused_sgd_``) with CUDA events; count
+   keyed B1's compiled instructions by pipe (``cuobjdump -sass``) for its
+   operations bound;
 4. one quickstart round on the card against the same round on the CPU,
    and the plan realization against the dense one on the card, for the
    unfused and the fused round;
@@ -22,7 +27,8 @@ Phases (any failure exits non-zero):
    counter set to 0 just before and read just after: the quickstart
    round (2NN 784-200-200-10, 16 clients on a ring with self-weight 0.5,
    K=4, batch 32, eta=0.05, theta=0.9, 8-bit stochastic lemma5 gossip)
-   for ROUNDS rounds, unfused (B1, B2, B3) and fused (B3, B4, B5); then
+   for ROUNDS rounds, unfused (B1 keyed, B2, B3 once a local step) and
+   fused (B3, B4, B5); then
    the per-tensor ``ops`` entry points once each (B6, B7, B8, B3);
    check the counts, a finite falling loss and the ops against the CPU;
 6. profile both rounds (device busy and idle share, time by kernel);
@@ -35,6 +41,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -51,8 +58,29 @@ M, K, BATCH, ROUNDS = 16, 4, 32, 12
 ETA, THETA = 0.05, 0.9
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+SMS, CLOCK_HZ = 132, 1.98e9  # H100 SXM: SMs, boost clock
+# Thread instructions one Hopper SM retires per clock, by pipe. Four
+# sub-partitions each issue one warp instruction a clock (issue: 128) and
+# hold 16 ALU lanes (integer add, logic, shift, compare, select; float
+# compare and min/max: 64), 16 FMA-heavy lanes (f32 and IMAD) beside 16
+# FMA-lite lanes (f32 only), so 128 f32 but 64 IMAD a clock, and 4 XU
+# lanes (MUFU and conversions: 16). 128 f32 lanes x 2 operations x 132 SMs
+# x 1.98 GHz is the data sheet's 67 TFLOP/s.
+PIPE_PER_CLK = {"issue": 128, "alu": 64, "fma": 128, "imad": 64, "xu": 16}
+# SASS opcodes (the part before the first ".") by pipe; any other opcode
+# (memory, uniform datapath, control) counts toward issue only.
+SASS_PIPE = {
+    "alu": {"IADD3", "LOP3", "SHF", "ISETP", "SEL", "FSEL", "PLOP3", "MOV",
+            "FMNMX", "FSETP", "LEA", "IABS", "PRMT", "IMNMX", "VIMNMX",
+            "BMSK", "FCHK", "P2R", "R2P", "CS2R", "FLO", "BREV", "POPC"},
+    "imad": {"IMAD", "IMUL", "IDP", "VIADD"},
+    "fp32": {"FFMA", "FADD", "FMUL", "FFMA32I", "FADD32I", "FMUL32I",
+             "HFMA2", "HADD2", "HMUL2"},
+    "xu": {"MUFU", "F2I", "I2F", "F2F", "FRND", "I2FP", "F2IP"},
+}
 MAX_ULP = 2                  # stated float bound kernel vs plain
 REPS, WARMUP = 20, 3
+HOST_RUNS, HOST_RUN = 100, 3  # host clock: runs of back-to-back calls
 SLEEP_CYCLES = 4_000_000     # ~2 ms of GPU clock: covers the host enqueue
 KERNEL_SOURCES = {
     "quantize_pack_buffer": ("src/repro_torch/csrc/quantize_pack.cu",
@@ -73,6 +101,10 @@ KERNEL_SOURCES = {
     "dequant_mix": ("src/repro_torch/csrc/dequant_mix.cu",
                     "src/repro/kernels/dequant_mix.py:232"),
 }
+# Further times a row carries where its kernel has them, all measured.
+EXTRA_KEYS = ("host_ms", "plain_call_ms", "plain_host_ms",
+              "library_call_ms", "library_host_ms", "tensor_noise_ms",
+              "tensor_noise_call_ms", "tensor_noise_host_ms")
 # The path whose launch counts each kernel's row reports.
 KERNEL_PATH = {"quantize_pack_buffer": "unfused",
                "dequant_mix_buffer": "unfused", "momentum_sgd": "unfused",
@@ -99,14 +131,19 @@ def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-def time_ms(fn, flush: torch.Tensor) -> tuple[float, float]:
-    """(device ms, call ms) of one call, medians over REPS.
+def time_ms(fn, flush: torch.Tensor) -> tuple[float, float, float]:
+    """(device ms, call ms, host ms) of one call.
 
     Device: the L2 is flushed, then the stream is held busy
     (``torch.cuda._sleep``) while the host enqueues the call between two
     events, so the events time the call's kernels alone, not the host's
     Python and launch overhead. Call: the same events with the stream
-    idle, so the host's launch path is in the time."""
+    idle, so the host's launch path is in the time (less what overlaps
+    the flush). Both are medians over REPS. Host: the host clock around
+    one call — the wrapper's Python, checks and enqueue, without the
+    device — as a median over HOST_RUNS runs of HOST_RUN back-to-back
+    calls between synchronizes, the first call of each run left out (it
+    follows the wait), with no flush or event in between."""
     for _ in range(WARMUP):
         fn()
     dev, call = [], []
@@ -122,17 +159,149 @@ def time_ms(fn, flush: torch.Tensor) -> tuple[float, float]:
             end.record()
             end.synchronize()
             out.append(start.elapsed_time(end))
-    return statistics.median(dev), statistics.median(call)
+    host = []
+    for _ in range(HOST_RUNS):
+        torch.cuda.synchronize()
+        for i in range(HOST_RUN):
+            t0 = time.perf_counter()
+            fn()
+            if i:
+                host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return (statistics.median(dev), statistics.median(call),
+            statistics.median(host))
+
+
+def timed(r: dict, prefix: str, fn, flush: torch.Tensor) -> None:
+    """Store ``time_ms(fn)`` in r as <prefix>ms, <prefix>call_ms and
+    <prefix>host_ms."""
+    (r[f"{prefix}ms"], r[f"{prefix}call_ms"],
+     r[f"{prefix}host_ms"]) = time_ms(fn, flush)
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+def bound(n_bytes: int, n_ops: int, ops_ms: float = 0.0
+          ) -> tuple[float, str]:
+    """Least time in ms for the work: the larger of the bytes over the
+    memory rate and the operations over their peak rate — n_ops f32
+    operations at the f32 rate, or ``ops_ms`` where the instructions were
+    counted by pipe (:func:`sass_ops_ms`)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = max(n_ops / F32_OPS_PER_S * 1e3, ops_ms)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_counts(sass: str, pattern: str) -> dict[str, int]:
+    """Instructions of the one kernel in the ``cuobjdump -sass`` text
+    whose mangled name matches ``pattern``, by opcode (the part before
+    the first "."), as one thread runs it once through. Left out: the
+    subroutines it CALLs and the blocks that set up and make such a call
+    (the IEEE division's slow path, taken only for operands out of its
+    fast range), NOPs, and the closing branch to itself. A block starts
+    at a branch or call target and after a branch, EXIT or RET; a loop's
+    body counts once."""
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    found = [f for f in funcs if re.search(pattern, f.split()[0])]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} kernels match {pattern}")
+    code, labels, pending = [], {}, []   # code: (address, opcode, operands)
+    for line in found[0].splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if lab:
+            pending.append(lab.group(1))
+        elif ins:
+            at = int(ins.group(1), 16)
+            labels.update((name, at) for name in pending)
+            pending = []
+            code.append((at, ins.group(2).split(".")[0], ins.group(3)))
+
+    def targets(ops: tuple) -> set[int]:
+        """Addresses the instructions ``ops`` branch or call to."""
+        out = set()
+        for _, op, arg in code:
+            if op in ops:
+                out.update(int(t, 16) for t in re.findall(r"0x([0-9a-f]+)",
+                                                          arg))
+                out.update(labels[t] for t in re.findall(r"\.L_x_\d+", arg))
+        return out
+
+    called = targets(("CALL",))
+    starts = targets(("BRA", "CALL"))
+    blocks: list[list[tuple[int, str, str]]] = []
+    for k, ins in enumerate(code):
+        if not blocks or ins[0] in starts or code[k - 1][1] in ("BRA",
+                                                                 "EXIT",
+                                                                 "RET"):
+            blocks.append([])
+        blocks[-1].append(ins)
+    counts: dict[str, int] = {}
+    in_sub = False
+    for body in blocks:
+        in_sub = in_sub or body[0][0] in called
+        ops = [op for _, op, _ in body]
+        if in_sub:
+            in_sub = "RET" not in ops
+            continue
+        if "CALL" in ops or (ops == ["BRA"] and body[0][0] in targets(
+                ("BRA",)) and re.search(f"0x0*{body[0][0]:x}\\b",
+                                       body[0][2])):
+            continue
+        for op in ops:
+            if op != "NOP":
+                counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def pipe_ms(counts: dict[str, float]) -> dict[str, float]:
+    """Time in ms each pipe needs for ``counts`` thread instructions (by
+    opcode) spread over every SM at its peak rate; the f32 and IMAD
+    instructions share the FMA pipe."""
+    n = {p: sum(v for k, v in counts.items() if k in ops)
+         for p, ops in SASS_PIPE.items()}
+    n["issue"] = sum(counts.values())
+    per_s = {p: PIPE_PER_CLK[p] * SMS * CLOCK_HZ for p in PIPE_PER_CLK}
+    return {"issue": n["issue"] / per_s["issue"] * 1e3,
+            "alu": n["alu"] / per_s["alu"] * 1e3,
+            "fma": max(n["imad"] / per_s["imad"],
+                       (n["imad"] + n["fp32"]) / per_s["fma"]) * 1e3,
+            "xu": n["xu"] / per_s["xu"] * 1e3}
+
+
+def keyed_b1_ops(bits: int, threads: int, n_real: int) -> dict:
+    """Keyed B1's operations bound from its compiled code. The tensor-
+    noise kernel of the same body gives the work of a thread (T, per
+    thread); the keyed kernel's surplus over it, over the values a thread
+    packs, gives the work of one draw (D, per value: the hash, its
+    counter and bounds check, a share of the leaf lookup, less the noise
+    loads). This run's work is threads x T + real values x D (padding
+    draws nothing); the bound is its busiest pipe."""
+    from repro_torch.kernels import native
+
+    sass = subprocess.run(
+        [native.cuda_tool("cuobjdump"), "-sass",
+         str(native.lib_path("quantize_pack"))], capture_output=True,
+        text=True, check=True, timeout=120).stdout
+    name = r"quantize_pack_buffer_kernelILi{}ELN\w*NoiseE{}E"
+    per_thread = sass_counts(sass, name.format(bits, 1))
+    keyed = sass_counts(sass, name.format(bits, 2))
+    values = 4 * (32 // bits)           # kCols columns x per rows
+    per_draw = {k: (keyed.get(k, 0) - per_thread.get(k, 0)) / values
+                for k in set(keyed) | set(per_thread)}
+    work = {k: threads * per_thread.get(k, 0) + n_real * per_draw[k]
+            for k in per_draw}
+    ms = pipe_ms(work)
+    pipe = max(ms, key=ms.get)
+    return {"ms": ms[pipe], "pipe": pipe, "pipe_ms": ms,
+            "threads": threads, "real_values": n_real,
+            "instructions": sum(work.values()),
+            "tensor_noise_per_thread": per_thread,
+            "keyed_per_thread": keyed,
+            "per_draw": {k: v for k, v in per_draw.items() if v}}
 
 
 def quickstart_setup(dev, fuse_round: bool = False):
@@ -169,7 +338,6 @@ def kernel_checks(dev, flush):
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_mix import (dequant_mix_buffer,
                                                  dequant_mix_buffer_plain)
-    from repro_torch.kernels.momentum_sgd import momentum_sgd
     from repro_torch.kernels.quantize_pack import quantize_pack_buffer
     from repro_torch.models.paper_nets import init_2nn
 
@@ -199,30 +367,50 @@ def kernel_checks(dev, flush):
         X = layout.to_planar_stacked(x)
         delta = layout.to_planar_stacked({n: z[n] - x[n] for n in x})
         sblk = layout.block_scales(layout.leaf_scales(delta, quant))
-        noise = (layout.noise_stacked(
-            _quant_leaf_keys(key, layout.n_leaves, M).to(dev))
-            if stochastic else None)
-        words = quantize_pack_buffer(delta, sblk, bits, noise)
-        words_ref = ref.quantize_pack_buffer_ref(delta, sblk, bits, noise)
-        torch.cuda.synchronize()
-        check_words(f"B1 bits={bits} stochastic={stochastic}", words,
-                    words_ref)
         r = rec["quantize_pack_buffer"]
-        r["checks"].append(f"bits={bits} stochastic={stochastic} "
-                           f"shape={list(delta.shape)} words bitwise")
-        if (bits, stochastic) == (8, True):
-            n_el = delta.numel()
-            r["ms"], r["call_ms"] = time_ms(lambda: quantize_pack_buffer(
-                delta, sblk, bits, noise), flush)
-            r["plain_ms"], r["plain_call_ms"] = time_ms(
-                lambda: ref.quantize_pack_buffer_ref(delta, sblk, bits,
-                                                     noise), flush)
+        what = f"B1 bits={bits} stochastic={stochastic}"
+        if not stochastic:
+            words = quantize_pack_buffer(delta, sblk, bits)
+            check_words(what, words, ref.quantize_pack_buffer_ref(
+                delta, sblk, bits))
+            r["checks"].append(f"bits={bits} deterministic "
+                               f"shape={list(delta.shape)} words bitwise")
+            continue
+        keys = _quant_leaf_keys(key, layout.n_leaves, M).to(dev)
+        table = layout.noise_table
+        noise = layout.noise_stacked(keys)
+        words = quantize_pack_buffer(delta, sblk, bits, keys=keys,
+                                     table=table)
+        words_ref = ref.quantize_pack_buffer_ref(delta, sblk, bits, noise)
+        words_tensor = quantize_pack_buffer(delta, sblk, bits, noise)
+        noise_ref = ref.keyed_noise_ref(keys, table, layout.per,
+                                        layout.total_words)
+        torch.cuda.synchronize()
+        check_words(f"{what} keyed", words, words_ref)
+        check_words(f"{what} tensor noise", words_tensor, words_ref)
+        check_words("keyed_noise_ref vs noise_stacked",
+                    noise_ref.view(torch.int32), noise.view(torch.int32))
+        r["checks"].append(f"bits={bits} stochastic shape="
+                           f"{list(delta.shape)} keyed and tensor-noise "
+                           "words bitwise vs noise_stacked + plain")
+        if bits == 8:
+            n_real = sum(layout.sizes) * M
+            timed(r, "", lambda: quantize_pack_buffer(
+                delta, sblk, bits, keys=keys, table=table), flush)
+            timed(r, "plain_", lambda: ref.quantize_pack_buffer_ref(
+                delta, sblk, bits, layout.noise_stacked(keys)), flush)
+            r["sass"] = keyed_b1_ops(bits, delta.shape[0]
+                                     * delta.shape[2] // 4, n_real)
             r["bound_ms"], r["bound_by"] = bound(
-                nbytes(delta, sblk, noise, words), 8 * n_el)
+                nbytes(delta, sblk, keys, words), 0, r["sass"]["ms"])
+            r["bound_bytes_ms"] = bound(nbytes(delta, sblk, keys, words),
+                                        0)[0]
+            timed(r, "tensor_noise_", lambda: quantize_pack_buffer(
+                delta, sblk, bits, noise), flush)
+            r["tensor_noise_bound_ms"] = bound(
+                nbytes(delta, sblk, noise, words), 8 * delta.numel())[0]
             r["shape"] = list(delta.shape)
 
-        if not stochastic:
-            continue
         out = dequant_mix_buffer(X, words, sblk, w, src, bits)
         out_ref = dequant_mix_buffer_plain(X, words, sblk, w, src, bits)
         torch.cuda.synchronize()
@@ -231,41 +419,68 @@ def kernel_checks(dev, flush):
         r["checks"].append(f"bits={bits} K=3 shape={list(X.shape)} "
                            f"max_ulp={r['max_ulp']}")
         if bits == 8:
-            r["ms"], r["call_ms"] = time_ms(lambda: dequant_mix_buffer(
+            timed(r, "", lambda: dequant_mix_buffer(
                 X, words, sblk, w, src, bits), flush)
-            r["plain_ms"], r["plain_call_ms"] = time_ms(
-                lambda: dequant_mix_buffer_plain(X, words, sblk, w, src,
-                                                 bits), flush)
+            timed(r, "plain_", lambda: dequant_mix_buffer_plain(
+                X, words, sblk, w, src, bits), flush)
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes(X, words, sblk, w, src, out),
                 X.numel() * 3 * src.shape[0])
             r["shape"] = list(X.shape)
 
-    y = stacked_randn(0.05)
-    v = stacked_randn(0.01)
-    g = stacked_randn(0.1)
-    r = rec["momentum_sgd"]
-    outs = {n: momentum_sgd(y[n], v[n], g[n], ETA, THETA) for n in y}
-    refs = {n: ref.momentum_sgd_ref(y[n], v[n], g[n], ETA, THETA) for n in y}
-    torch.cuda.synchronize()
-    for n in y:
-        check_floats(r, f"B3 leaf {n}", zip(outs[n], refs[n]))
-    n_el = sum(t.numel() for t in y.values())
-    r["checks"].append(f"6 leaves x {M} clients = {n_el} values, "
-                       f"max_ulp={r['max_ulp']}")
-    r["ms"], r["call_ms"] = time_ms(
-        lambda: [momentum_sgd(y[n], v[n], g[n], ETA, THETA) for n in y],
-        flush)
-    r["plain_ms"], r["plain_call_ms"] = time_ms(
-        lambda: [ref.momentum_sgd_ref(y[n], v[n], g[n], ETA, THETA)
-                 for n in y], flush)
-    r["bound_ms"], r["bound_by"] = bound(5 * 4 * n_el, 3 * n_el)
-    r["shape"] = f"one local step: 6 leaves x {M} clients ({n_el} f32)"
+    momentum_checks(dev, flush, rec["momentum_sgd"], stacked_randn)
     fused_kernel_checks(dev, flush, rec, x, stacked_randn)
     ops_kernel_checks(dev, flush, rec)
     for name, r in rec.items():
         print(json.dumps({"check": name, **r}), flush=True)
     return rec
+
+
+def momentum_checks(dev, flush, r, stacked_randn):
+    """B3 at one local step of the quickstart: all six leaves of the 2NN
+    for 16 clients in one launch, bitwise against the plain step, plus a
+    leaf that is a misaligned view (the kernel's scalar loop); timed as
+    one call of ``momentum_update`` against the plain per-leaf step and
+    the library's multi-tensor SGD step over the same leaves."""
+    from repro_torch.kernels import momentum_update, ref
+    from repro_torch.kernels.momentum_sgd import momentum_sgd
+
+    y, v, g = stacked_randn(0.05), stacked_randn(0.01), stacked_randn(0.1)
+    ys, vs = momentum_update(y, v, g, ETA, THETA)
+    refs = {n: ref.momentum_sgd_ref(y[n], v[n], g[n], ETA, THETA) for n in y}
+    n_mis = y["b2"].numel() + 5
+    spare = torch.empty(n_mis + 1, device=dev)
+    y_mis = spare[1:].copy_(torch.randn(n_mis, device=dev))
+    v_mis, g_mis = torch.randn(n_mis, device=dev), torch.randn(n_mis,
+                                                               device=dev)
+    mis = momentum_sgd(y_mis, v_mis, g_mis, ETA, THETA)
+    mis_ref = ref.momentum_sgd_ref(y_mis, v_mis, g_mis, ETA, THETA)
+    torch.cuda.synchronize()
+    pairs = [(ys[n], refs[n][0]) for n in y] + [(vs[n], refs[n][1])
+                                                for n in y]
+    pairs += list(zip(mis, mis_ref))
+    for a, b in pairs:
+        check_words("B3 vs plain", a.view(torch.int32), b.view(torch.int32))
+    check_floats(r, "B3", pairs)
+    n_el = sum(t.numel() for t in y.values())
+    r["checks"].append(f"6 leaves x {M} clients = {n_el} values in one "
+                       f"launch, and a misaligned view of {n_mis} values: "
+                       "bitwise")
+    timed(r, "", lambda: momentum_update(y, v, g, ETA, THETA), flush)
+    timed(r, "plain_", lambda: [ref.momentum_sgd_ref(
+        y[n], v[n], g[n], ETA, THETA) for n in y], flush)
+    # torch._fused_sgd_ makes the same step in place over a list of
+    # tensors (buf' = theta*buf + g; p' = p - eta*buf', i.e. v = -eta*buf)
+    # and reads and writes the same five streams: timed only.
+    params = [t.clone() for t in y.values()]
+    bufs = [t.clone() for t in v.values()]
+    grads = list(g.values())
+    timed(r, "library_", lambda: torch._fused_sgd_(
+        params, grads, bufs, weight_decay=0.0, momentum=THETA, lr=ETA,
+        dampening=0.0, nesterov=False, maximize=False, is_first_step=False),
+        flush)
+    r["bound_ms"], r["bound_by"] = bound(5 * 4 * n_el, 3 * n_el)
+    r["shape"] = f"one local step: 6 leaves x {M} clients ({n_el} f32)"
 
 
 def check_floats(rec: dict, what: str, pairs) -> None:
@@ -331,12 +546,10 @@ def fused_kernel_checks(dev, flush, rec, x, stacked_randn):
                            f"shape={list(Y.shape)} words bitwise, "
                            f"max_ulp={r['max_ulp']}")
         if (bits, stochastic) == (8, True):
-            r["ms"], r["call_ms"] = time_ms(
-                lambda: momentum_quantize_pack_buffer(Y, V, G, X, sblk, bits,
-                                                      et, noise), flush)
-            r["plain_ms"], r["plain_call_ms"] = time_ms(
-                lambda: ref.momentum_quantize_pack_buffer_ref(
-                    Y, V, G, X, sblk, bits, et, noise), flush)
+            timed(r, "", lambda: momentum_quantize_pack_buffer(
+                Y, V, G, X, sblk, bits, et, noise), flush)
+            timed(r, "plain_", lambda: ref.momentum_quantize_pack_buffer_ref(
+                Y, V, G, X, sblk, bits, et, noise), flush)
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes(Y, V, G, X, noise, sblk, y_out, v_out, words),
                 10 * Y.numel())
@@ -355,12 +568,10 @@ def fused_kernel_checks(dev, flush, rec, x, stacked_randn):
         r["checks"].append(f"bits={bits} K=3 shape={list(X.shape)} "
                            f"max_ulp={r['max_ulp']}")
         if bits == 8:
-            r["ms"], r["call_ms"] = time_ms(
-                lambda: dequant_mix_momentum_buffer(
-                    base, words, sblk, w, src, v_out, GK, et, bits), flush)
-            r["plain_ms"], r["plain_call_ms"] = time_ms(
-                lambda: dequant_mix_momentum_buffer_plain(
-                    base, words, sblk, w, src, v_out, GK, et, bits), flush)
+            timed(r, "", lambda: dequant_mix_momentum_buffer(
+                base, words, sblk, w, src, v_out, GK, et, bits), flush)
+            timed(r, "plain_", lambda: dequant_mix_momentum_buffer_plain(
+                base, words, sblk, w, src, v_out, GK, et, bits), flush)
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes(base, words, sblk, w, src, v_out, GK, out),
                 base.numel() * (3 * src.shape[0] + 4))
@@ -396,10 +607,9 @@ def ops_kernel_checks(dev, flush, rec):
         r["checks"].append(f"bits=8 stochastic={nz is not None} "
                            f"shape={list(x2d.shape)} words bitwise")
     words = quantize_pack(x2d, s, 8, noise)
-    r["ms"], r["call_ms"] = time_ms(lambda: quantize_pack(x2d, s, 8, noise),
-                                    flush)
-    r["plain_ms"], r["plain_call_ms"] = time_ms(
-        lambda: ref.quantize_pack_ref(x2d, s, 8, noise), flush)
+    timed(r, "", lambda: quantize_pack(x2d, s, 8, noise), flush)
+    timed(r, "plain_", lambda: ref.quantize_pack_ref(x2d, s, 8, noise),
+          flush)
     r["bound_ms"], r["bound_by"] = bound(nbytes(x2d, s, noise, words),
                                          8 * x2d.numel())
     r["shape"] = list(x2d.shape)
@@ -429,25 +639,25 @@ def ops_kernel_checks(dev, flush, rec):
         check_floats(r, name, [(out, plain())])
         r["checks"].append(f"bits=8 k=3 shape={list(xb.shape)} "
                            f"max_ulp={r['max_ulp']}")
-        r["ms"], r["call_ms"] = time_ms(kernel, flush)
-        r["plain_ms"], r["plain_call_ms"] = time_ms(plain, flush)
+        timed(r, "", kernel, flush)
+        timed(r, "plain_", plain, flush)
         r["bound_ms"], r["bound_by"] = bound(nbytes(*inputs, out),
                                              9 * xb.numel())
         r["shape"] = list(xb.shape)
 
 
-def expected_launches(fuse_round: bool, n_leaves: int) -> dict:
+def expected_launches(fuse_round: bool) -> dict:
     """Launch counts of ROUNDS quickstart rounds: one encode and one
-    decode a round, B3 once per leaf per applied local step (K unfused,
-    K - 2 fused: B4 and B5 apply the last two)."""
+    decode a round, B3 once per applied local step over all leaves (K
+    unfused, K - 2 fused: B4 and B5 apply the last two)."""
     expect = {k: 0 for k in KERNEL_SOURCES}
     if fuse_round:
         expect.update(momentum_quantize_pack_buffer=ROUNDS,
                       dequant_mix_momentum_buffer=ROUNDS,
-                      momentum_sgd=ROUNDS * (K - 2) * n_leaves)
+                      momentum_sgd=ROUNDS * (K - 2))
     else:
         expect.update(quantize_pack_buffer=ROUNDS, dequant_mix_buffer=ROUNDS,
-                      momentum_sgd=ROUNDS * K * n_leaves)
+                      momentum_sgd=ROUNDS * K)
     return expect
 
 
@@ -474,7 +684,7 @@ def round_path(dev, fuse_round: bool):
         losses.append(float(met["loss"]))
         cons.append(float(met["consensus_dist"]))
     counts = launch_counts()
-    expect = expected_launches(fuse_round, len(stacked))
+    expect = expected_launches(fuse_round)
     name = "fused" if fuse_round else "unfused"
     print(json.dumps({"path": f"quickstart {name}", "rounds": ROUNDS,
                       "loss": losses, "consensus_dist": cons,
@@ -672,10 +882,13 @@ def profile_rounds(step, state, batches) -> dict:
                 sorted(groups.items(), key=lambda kv: -kv[1])}}
 
 
-def round_breakdown(dev, n_rounds: int = 5) -> tuple[dict, dict]:
+def round_breakdown(dev, n_rounds: int = 9) -> tuple[dict, dict]:
     """Phase 6, where a quickstart round's time goes: host-clock times of
     the unfused round's phases (each ended by a synchronize; median of
-    n_rounds), then a profile of n_rounds unfused and n_rounds fused
+    n_rounds) and of ``noise_stacked`` alone — the plain-torch noise
+    that keyed B1 no longer needs, still drawn by the fused round — with
+    an unfused and a fused round timed in turn in every pass, so the two
+    share the host's drift; then a profile of 5 unfused and 5 fused
     rounds."""
     from repro_torch import prng
     from repro_torch.core import MixerConfig, init_round_state, make_mixer
@@ -688,14 +901,18 @@ def round_breakdown(dev, n_rounds: int = 5) -> tuple[dict, dict]:
                for t in range(n_rounds + 1)]
     state = init_round_state(stacked, prng.PRNGKey(1))
     state, _ = step(state, batches[-1])              # warm-up
+    fstep = quickstart_setup(dev, fuse_round=True)[-1]
+    fstate = init_round_state(stacked, prng.PRNGKey(1))
+    fstate, _ = fstep(fstate, batches[-1])           # warm-up
     mixer = make_mixer(spec, MixerConfig(quant=cfg.quant), device=dev)
     layout = WireLayout.for_tree(stacked, cfg.quant.bits, stacked=True)
     keys = prng.split(prng.PRNGKey(2), M)
     x = state.params
     z, _ = local_train(loss_fn, x, batches[0], keys, eta=ETA, theta=THETA)
     mixer(x, z, prng.PRNGKey(3))                     # warm-up
-    phases: dict[str, list] = {"round": [], "local_sgd": [], "mix": [],
-                               "noise_in_mix": []}
+    phases: dict[str, list] = {"round": [], "fused_round": [],
+                               "local_sgd": [], "mix": [],
+                               "noise_stacked_alone": []}
     for b in batches[:n_rounds]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -712,22 +929,23 @@ def round_breakdown(dev, n_rounds: int = 5) -> tuple[dict, dict]:
         step(state, b)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
+        fstep(fstate, b)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
         phases["local_sgd"].append((t1 - t0) * 1e3)
         phases["mix"].append((t2 - t1) * 1e3)
-        phases["noise_in_mix"].append((t3 - t2) * 1e3)
+        phases["noise_stacked_alone"].append((t3 - t2) * 1e3)
         phases["round"].append((t4 - t3) * 1e3)
+        phases["fused_round"].append((t5 - t4) * 1e3)
 
     rep = {"path": "quickstart unfused",
            "phase_ms_median": {k: statistics.median(v)
                                for k, v in phases.items()},
-           **profile_rounds(step, state, batches[:n_rounds])}
+           "phase_ms": phases,
+           **profile_rounds(step, state, batches[:5])}
     print(json.dumps(rep), flush=True)
-
-    fstep = quickstart_setup(dev, fuse_round=True)[-1]
-    fstate = init_round_state(stacked, prng.PRNGKey(1))
-    fstate, _ = fstep(fstate, batches[-1])           # warm-up
     frep = {"path": "quickstart fused",
-            **profile_rounds(fstep, fstate, batches[:n_rounds])}
+            **profile_rounds(fstep, fstate, batches[:5])}
     print(json.dumps(frep), flush=True)
     return rep, frep
 
@@ -770,8 +988,10 @@ def main() -> int:
                       "path": path, "max_abs_err": r["max_abs_err"],
                       "ms": r["ms"], "plain_ms": r["plain_ms"],
                       "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                      "library_ms": None, "call_ms": r["call_ms"],
-                      "max_ulp": r["max_ulp"], "shape": r["shape"]})
+                      "library_ms": r.get("library_ms"),
+                      "call_ms": r["call_ms"],
+                      "max_ulp": r["max_ulp"], "shape": r["shape"],
+                      **{k: r[k] for k in EXTRA_KEYS if k in r}})
     print(json.dumps({"round_ms_median": {"unfused": unfused_ms,
                                           "fused": fused_ms},
                       "loss_first_last": {

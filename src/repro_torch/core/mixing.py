@@ -11,7 +11,8 @@ leading client axis of size m. Two backends:
     any other bounded-degree graph) — the JAX package's sparse executor
     on a one-device client mesh, whose mesh-free spec is
     ``execute_plan_reference``. Quantized, one round is: flatten to the
-    planar wire buffer, encode every client in one B1 launch, then one
+    planar wire buffer, encode every client in one B1 launch (which draws
+    the stochastic-rounding noise itself from the per-leaf keys), then one
     B2 launch that gathers each plan step's words and scales through the
     plan's ``src`` table (the index gather that stands in for the
     ``ppermute``) and decodes and applies them, own stream first.
@@ -189,11 +190,10 @@ def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
         # Leaf-dtype subtraction before the f32 cast, as in the reference.
         delta = layout.to_planar_stacked({n: z[n] - x[n] for n in x})
         scales = layout.leaf_scales(delta, quant)              # [m, nl]
-        noise = None
-        if quant.stochastic:
-            keys = _quant_leaf_keys(key, layout.n_leaves, plan.m)
-            noise = layout.noise_stacked(keys.to(dev))
-        words = layout.encode(delta, scales, quant, noise=noise)
+        keys = None
+        if quant.stochastic:     # B1 draws the noise from the keys
+            keys = _quant_leaf_keys(key, layout.n_leaves, plan.m).to(dev)
+        words = layout.encode(delta, scales, quant, keys=keys)
         if quant.delta_mode == "lemma5":
             base = _weighted_replica_base(X, w_t, src_t)
         else:

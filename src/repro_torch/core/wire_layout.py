@@ -34,7 +34,7 @@ from ..kernels.dequant_mix import (dequant_mix_buffer,
                                    dequant_mix_momentum_buffer)
 from ..kernels.quantize_pack import (momentum_quantize_pack_buffer,
                                      quantize_pack_buffer)
-from ..kernels.ref import LANE_BLOCK
+from ..kernels.ref import LANE_BLOCK, NoiseTable
 from .quantize import scale_from_amax
 
 Params = dict[str, torch.Tensor]
@@ -204,6 +204,12 @@ class WireLayout:
         return torch.where(valid, u, torch.zeros((), dtype=u.dtype,
                                                  device=u.device))
 
+    @property
+    def noise_table(self) -> NoiseTable:
+        """The leaf table keyed B1 draws its noise from: the same noise as
+        :meth:`noise_stacked`, computed inside the kernel."""
+        return NoiseTable(self.word_offsets, self.leaf_words, self.sizes)
+
     def noise(self, leaf_keys: torch.Tensor) -> torch.Tensor:
         """One client's noise: ``leaf_keys`` [n_leaves, 2] -> [per, W]."""
         return self.noise_stacked(leaf_keys[:, None])[0]
@@ -221,15 +227,20 @@ class WireLayout:
     # -- codec --------------------------------------------------------------
 
     def encode(self, delta: torch.Tensor, scales: torch.Tensor, quant,
-               noise: torch.Tensor | None = None) -> torch.Tensor:
+               keys: torch.Tensor | None = None) -> torch.Tensor:
         """Quantize + planar-pack every client's buffer in one pass (B1):
-        delta [m, per, W] f32, scales [m, n_leaves], noise like delta
-        (stochastic) or None. Returns int32 words [m, W]."""
-        if quant.stochastic and noise is None:
-            raise ValueError("stochastic encode needs noise")
-        return quantize_pack_buffer(
-            delta.contiguous(), self.block_scales(scales), quant.bits,
-            noise.contiguous() if quant.stochastic else None)
+        delta [m, per, W] f32, scales [m, n_leaves]. Stochastic rounding
+        takes ``keys`` [n_leaves, m, 2] (the raw ``_quant_leaf_keys``
+        output): B1 draws :meth:`noise_stacked`'s noise itself, so it is
+        never written out. Returns int32 words [m, W]."""
+        sblk = self.block_scales(scales)
+        if not quant.stochastic:
+            return quantize_pack_buffer(delta.contiguous(), sblk, quant.bits)
+        if keys is None:
+            raise ValueError("stochastic encode needs keys")
+        return quantize_pack_buffer(delta.contiguous(), sblk, quant.bits,
+                                    keys=keys.contiguous(),
+                                    table=self.noise_table)
 
     def decode_apply(self, base: torch.Tensor, words: torch.Tensor,
                      scales: torch.Tensor, weights: torch.Tensor,

@@ -1,21 +1,25 @@
 """Build, load and count the hand-written CUDA kernels.
 
-The sources live in ``repro_torch/csrc/*.cu``, each with a plain C
-interface. At first use every missing library is compiled by its own
-``nvcc`` process (all started together) into ``repro_torch/_build/``,
-under a name keyed by a hash of the source and the flags, and loaded with
-``ctypes`` — so a checkout builds its kernels on first call and a second
-run reuses them. Nothing here runs at import: the CPU tests import every
-module without ``nvcc`` or a card.
+The sources live in ``repro_torch/csrc/*.cu`` (the headers they share in
+``csrc/*.cuh``), each with a plain C interface. At first use every
+missing library is compiled by its own ``nvcc`` process (all started
+together) into ``repro_torch/_build/``, under a name keyed by a hash of
+the source, its headers and the flags, and loaded with ``ctypes`` — so a
+checkout builds its kernels on first call and a second run reuses them.
+Nothing here runs at import: the CPU tests import every module without
+``nvcc`` or a card.
 
-Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
-and nowhere else, so a run can show that it went through the kernels.
+Every wrapper adds to ``LAUNCHES[name]`` the launches its C entry point
+reports (one, or one per 64 leaves of a leaf table) where it launches its
+kernel and nowhere else, so a run can show that it went through the
+kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,6 +34,7 @@ SOURCES = ("quantize_pack", "dequant_mix", "momentum_sgd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 600
+_INCLUDE = re.compile(r'^#include "([^"]+)"', re.MULTILINE)
 
 KERNELS = ("quantize_pack_buffer", "dequant_mix_buffer", "momentum_sgd",
            "momentum_quantize_pack_buffer", "dequant_mix_momentum_buffer",
@@ -40,21 +45,27 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): under
+    ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``), else on PATH."""
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.is_file():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
-                           "PATH to build the repro_torch CUDA kernels")
+        raise RuntimeError(f"{name} not found: set CUDA_HOME or put the "
+                           "CUDA toolkit's bin on PATH")
     return found
 
 
 def lib_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives: keyed by
-    the source bytes and the compiler flags."""
-    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    the source bytes, the bytes of every header of ``csrc/`` it includes
+    (``#include "x.cuh"``) and the compiler flags."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src)
+    for header in _INCLUDE.findall(src.decode()):
+        h.update((CSRC_DIR / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -72,7 +83,7 @@ def build(names=SOURCES) -> dict[str, float]:
             out = lib_path(name)
             if out.exists():
                 continue
-            nvcc = nvcc or _nvcc()
+            nvcc = nvcc or cuda_tool("nvcc")
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC_DIR / f"{name}.cu")]
@@ -120,11 +131,12 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_launch(rc: int, kernel: str) -> None:
-    """Raise if the launch failed; count it if it did not."""
+def check_launch(rc: int, kernel: str, launches: int = 1) -> None:
+    """Raise if the launch failed; count the ``launches`` the entry point
+    made if it did not."""
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[kernel] += launches
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

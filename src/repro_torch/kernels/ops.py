@@ -8,11 +8,12 @@ zero-padded to ``planar_pad_len(n, bits)`` and viewed row-major as
 encode_delta         — per-tensor scale + B6 (quantize + pack)
 decode_apply_ring    — B8, the ring form of eq. 7
 decode_apply_plan    — B7, eq. 7 over a plan's [k, W] stream stack
-momentum_update_flat — B3 on (8, 512)-padded blocks
+momentum_update_flat — B3 on one flat vector (a one-leaf table)
 
 ``momentum_update`` is the heavy-ball step over a dict of parameter
-leaves (one B3 launch per leaf), which ``make_fused_momentum_update``
-returns. Words travel as int32 bit patterns of the JAX package's uint32.
+leaves (one B3 launch for all of them), which
+``make_fused_momentum_update`` returns. Words travel as int32 bit
+patterns of the JAX package's uint32.
 """
 from __future__ import annotations
 
@@ -22,13 +23,11 @@ import torch.nn.functional as F
 from .. import prng
 from . import native
 from .dequant_mix import dequant_mix, dequant_mix_plan
-from .momentum_sgd import momentum_sgd
+from .momentum_sgd import momentum_sgd, momentum_sgd_leaves
 from .quantize_pack import quantize_pack
 from .ref import planar_pad_len
 
 Params = dict[str, torch.Tensor]
-
-MS_ROW, MS_LANE = 8, 512   # the Pallas momentum kernel's block
 
 
 def _planar(x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -84,37 +83,32 @@ def decode_apply_plan(x: torch.Tensor, streams: torch.Tensor,
     return out.reshape(-1)[:n].to(x.dtype)
 
 
-def _pad2d(flat: torch.Tensor) -> torch.Tensor:
-    rows = -(-flat.shape[0] // MS_LANE)
-    rows = -(-rows // MS_ROW) * MS_ROW
-    return F.pad(flat, (0, rows * MS_LANE - flat.shape[0])).reshape(
-        rows, MS_LANE)
-
-
 def momentum_update_flat(y: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                          eta: float, theta: float
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One heavy-ball step on flat vectors [n], run by B3 on the
-    (8, 512)-padded blocks of the Pallas kernel. Returns (y', v')."""
-    n = y.shape[0]
-    y_o, v_o = momentum_sgd(_pad2d(y), _pad2d(v), _pad2d(g.to(y.dtype)),
-                            eta, theta)
-    return y_o.reshape(-1)[:n], v_o.reshape(-1)[:n]
+    """One heavy-ball step on flat vectors [n], one B3 launch. The Pallas
+    form pads to (8, 512) blocks and slices back; B3 needs no padding, so
+    the values are the same. Returns (y', v')."""
+    return momentum_sgd(y.contiguous(), v.contiguous(),
+                        g.to(y.dtype).contiguous(), eta, theta)
 
 
 def momentum_update(y: Params, v: Params, g: Params, eta: float,
                     theta: float) -> tuple[Params, Params]:
-    """(y', v') with ``v' = theta*v - eta*g`` and ``y' = y + v'`` leaf by
-    leaf, in ``y``'s key order."""
-    ys, vs = {}, {}
-    for name, yl in y.items():
-        ys[name], vs[name] = momentum_sgd(yl, v[name], g[name], eta, theta)
-    return ys, vs
+    """(y', v') with ``v' = theta*v - eta*g`` and ``y' = y + v'`` over
+    every leaf, in ``y``'s key order: one B3 launch on CUDA tensors. The
+    outputs are views into one allocation (see
+    :func:`~repro_torch.kernels.momentum_sgd.momentum_sgd_leaves`)."""
+    names = list(y)
+    ys, vs = momentum_sgd_leaves([y[n] for n in names],
+                                 [v[n] for n in names],
+                                 [g[n] for n in names], eta, theta)
+    return dict(zip(names, ys)), dict(zip(names, vs))
 
 
 def make_fused_momentum_update():
-    """The heavy-ball update over a dict of parameter leaves (B3 per
-    leaf): :func:`momentum_update`, the counterpart of the JAX package's
+    """The heavy-ball update over a dict of parameter leaves (one B3
+    launch): :func:`momentum_update`, the counterpart of the JAX package's
     ``make_fused_momentum_update``."""
     return momentum_update
 

@@ -17,8 +17,12 @@ or 64-bit carrier and torch's uint32 op coverage is thin.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+
+from .. import prng
 
 LANE_BLOCK = 512  # lane-dim block of the planar layout (multiple of 128)
 MASK32 = 0xFFFFFFFF
@@ -69,6 +73,38 @@ def quantize_pack_buffer_ref(x: torch.Tensor, block_scales: torch.Tensor,
     fields = k + (1 << (bits - 1))
     words = (fields << _shifts(bits, x.device)).sum(dim=-2)
     return u32_to_i32(words)
+
+
+class NoiseTable(NamedTuple):
+    """A wire layout's leaves as keyed B1 takes them: leaf ``l`` owns the
+    columns ``[word_offsets[l], word_offsets[l] + leaf_words[l])`` (in
+    order, contiguous, each a multiple of ``LANE_BLOCK``) and the first
+    ``sizes[l]`` positions of its planar ``[per, leaf_words[l]]`` segment
+    in row-major order are real values; the rest is padding."""
+    word_offsets: tuple
+    leaf_words: tuple
+    sizes: tuple
+
+
+def keyed_noise_ref(keys: torch.Tensor, table: NoiseTable, per: int,
+                    W: int) -> torch.Tensor:
+    """The stochastic-rounding noise keyed B1 draws in its kernel, in plain
+    torch from the same table: keys int64 [n_leaves, m, 2] -> f32
+    [m, per, W]. Position (c, i, w), with ``l`` the leaf whose columns hold
+    ``w``, is ``uniform_at(keys[l, c], i * leaf_words[l] + w -
+    word_offsets[l])`` where that index is below ``sizes[l]``, else 0."""
+    dev = keys.device
+    offs = torch.tensor(table.word_offsets, dtype=torch.int64, device=dev)
+    col = torch.arange(W, dtype=torch.int64, device=dev)
+    leaf = torch.searchsorted(offs, col, right=True) - 1
+    lw = torch.tensor(table.leaf_words, dtype=torch.int64, device=dev)[leaf]
+    size = torch.tensor(table.sizes, dtype=torch.int64, device=dev)[leaf]
+    rows = torch.arange(per, dtype=torch.int64, device=dev)[:, None]
+    idx = rows * lw + (col - offs[leaf])                       # [per, W]
+    k = (keys & MASK32).permute(1, 0, 2)[:, leaf]              # [m, W, 2]
+    u = prng.uniform_at(k[:, None, :, 0], k[:, None, :, 1], idx)
+    return torch.where(idx < size, u, torch.zeros((), dtype=u.dtype,
+                                                  device=dev))
 
 
 def _dequant_accumulate(base: torch.Tensor, streams: torch.Tensor,

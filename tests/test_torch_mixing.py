@@ -128,9 +128,9 @@ def test_mixer_wire_words_and_scales_bitwise(qname):
     lay = WireLayout.for_tree(tx, q.bits, stacked=True)
     delta = lay.to_planar_stacked({n: tz[n] - tx[n] for n in tx})
     scales = lay.leaf_scales(delta, q)
-    noise = (lay.noise_stacked(t_leaf_keys(prng.PRNGKey(5), lay.n_leaves, M))
+    tkeys = (t_leaf_keys(prng.PRNGKey(5), lay.n_leaves, M)
              if q.stochastic else None)
-    words = lay.encode(delta, scales, q, noise=noise)
+    words = lay.encode(delta, scales, q, keys=tkeys)
 
     jx, jz = to_jax(x), to_jax(z)
     ref = JWireLayout.for_tree(jax.tree.map(lambda a: a[0], jx),

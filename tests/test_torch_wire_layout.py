@@ -132,9 +132,9 @@ def test_encode_bitwise_vs_jax_seq_and_pallas(bits, stochastic):
     keys = _quant_leaf_keys(jax.random.PRNGKey(6), ref.n_leaves, m)
     delta = lay.to_planar_stacked(tt)
     scales = lay.leaf_scales(delta, q)
-    noise = (lay.noise_stacked(t_leaf_keys(prng.PRNGKey(6), lay.n_leaves, m))
+    tkeys = (t_leaf_keys(prng.PRNGKey(6), lay.n_leaves, m)
              if stochastic else None)
-    got = lay.encode(delta, scales, q, noise=noise).numpy()
+    got = lay.encode(delta, scales, q, keys=tkeys).numpy()
     assert got.shape == (m, lay.total_words)
     want_seq = np.asarray(ref.encode(jdelta, jscales, jq, leaf_keys=keys))
     want_pallas = np.asarray(ref.encode(jdelta, jscales, jq, leaf_keys=keys,
