@@ -9,17 +9,18 @@ Phases (any failure exits non-zero):
 2. build the CUDA sources in ``src/repro_torch/csrc`` (timed, one nvcc
    per source, all in parallel);
 3. hold every kernel against its plain PyTorch version on the card at the
-   shapes its path gives it — B1-B5 at the quickstart's wire shapes (2NN,
-   m=16, ring, 8 and 4 bits; B1 keyed, drawing its own noise, against
-   ``noise_stacked`` + the plain encode, and with tensor noise; B3 over
-   all six leaves in one launch and on a misaligned view), B6-B8 on one
-   client's flat 2NN vector — packed words bitwise equal, floats within
-   MAX_ULP (B3 bitwise; bitwise is expected everywhere: the kernels pin
-   rounding with _rn intrinsics and keep the plain version's operation
-   order); time kernel, plain version and, for B3, the library's
-   multi-tensor SGD step (``torch._fused_sgd_``) with CUDA events; count
-   keyed B1's compiled instructions by pipe (``cuobjdump -sass``) for its
-   operations bound;
+   shapes its path gives it — B1, B2, B4 and B5 at the quickstart's wire
+   shapes (2NN, m=16, ring) at 2, 4, 8 and 16 bits (B1 and B4 keyed,
+   drawing their own noise, against ``noise_stacked`` + the plain
+   version, and with tensor noise), B3 over all six leaves in one launch
+   and on a misaligned view, B6-B8 on one client's flat 2NN vector —
+   packed words and B1-B5's floats bitwise equal, B6-B8's floats within
+   MAX_ULP (bitwise is expected everywhere: the kernels pin rounding with
+   _rn intrinsics and keep the plain version's operation order); time
+   kernel, plain version and, for B3, the library's multi-tensor SGD step
+   (``torch._fused_sgd_``) with CUDA events; count keyed B1's and keyed
+   B4's compiled instructions by pipe (``cuobjdump -sass``) for their
+   operations bounds;
 4. one quickstart round on the card against the same round on the CPU,
    and the plan realization against the dense one on the card, for the
    unfused and the fused round;
@@ -28,7 +29,7 @@ Phases (any failure exits non-zero):
    round (2NN 784-200-200-10, 16 clients on a ring with self-weight 0.5,
    K=4, batch 32, eta=0.05, theta=0.9, 8-bit stochastic lemma5 gossip)
    for ROUNDS rounds, unfused (B1 keyed, B2, B3 once a local step) and
-   fused (B3, B4, B5); then
+   fused (B3, B4 keyed, B5); then
    the per-tensor ``ops`` entry points once each (B6, B7, B8, B3);
    check the counts, a finite falling loss and the ops against the CPU;
 6. profile both rounds (device busy and idle share, time by kernel);
@@ -79,6 +80,8 @@ SASS_PIPE = {
     "xu": {"MUFU", "F2I", "I2F", "F2F", "FRND", "I2FP", "F2IP"},
 }
 MAX_ULP = 2                  # stated float bound kernel vs plain
+# (bits, stochastic) of the wire at which B1, B2, B4 and B5 are checked.
+CODECS = ((8, True), (8, False), (4, True), (2, True), (16, True))
 REPS, WARMUP = 20, 3
 HOST_RUNS, HOST_RUN = 100, 3  # host clock: runs of back-to-back calls
 SLEEP_CYCLES = 4_000_000     # ~2 ms of GPU clock: covers the host enqueue
@@ -102,9 +105,10 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/dequant_mix.py:232"),
 }
 # Further times a row carries where its kernel has them, all measured.
-EXTRA_KEYS = ("host_ms", "plain_call_ms", "plain_host_ms",
-              "library_call_ms", "library_host_ms", "tensor_noise_ms",
-              "tensor_noise_call_ms", "tensor_noise_host_ms")
+EXTRA_KEYS = ("clean_ms", "host_ms", "plain_call_ms", "plain_host_ms",
+              "library_call_ms", "library_host_ms", "library_clean_ms",
+              "tensor_noise_ms", "tensor_noise_call_ms",
+              "tensor_noise_host_ms", "tensor_noise_clean_ms")
 # The path whose launch counts each kernel's row reports.
 KERNEL_PATH = {"quantize_pack_buffer": "unfused",
                "dequant_mix_buffer": "unfused", "momentum_sgd": "unfused",
@@ -131,25 +135,33 @@ def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-def time_ms(fn, flush: torch.Tensor) -> tuple[float, float, float]:
-    """(device ms, call ms, host ms) of one call.
+def time_ms(fn, flush: torch.Tensor) -> tuple[float, float, float, float]:
+    """(device ms, call ms, host ms, clean device ms) of one call.
 
-    Device: the L2 is flushed, then the stream is held busy
-    (``torch.cuda._sleep``) while the host enqueues the call between two
-    events, so the events time the call's kernels alone, not the host's
-    Python and launch overhead. Call: the same events with the stream
-    idle, so the host's launch path is in the time (less what overlaps
-    the flush). Both are medians over REPS. Host: the host clock around
-    one call — the wrapper's Python, checks and enqueue, without the
-    device — as a median over HOST_RUNS runs of HOST_RUN back-to-back
-    calls between synchronizes, the first call of each run left out (it
-    follows the wait), with no flush or event in between."""
+    Device: the L2 is flushed by writing a 128 MB buffer, then the stream
+    is held busy (``torch.cuda._sleep``) while the host enqueues the call
+    between two events, so the events time the call's kernels alone, not
+    the host's Python and launch overhead. The flush leaves the L2 full of
+    dirty lines, which the call writes back as its own data evicts them.
+    Clean device: the same, with the L2 flushed by reading the buffer, so
+    the call finds it cold and clean and the events time its own traffic.
+    Call: the dirty flush with
+    the stream idle, so the host's launch path is in the time (less what
+    overlaps the flush). All three are medians over REPS. Host: the host
+    clock around one call — the wrapper's Python, checks and enqueue,
+    without the device — as a median over HOST_RUNS runs of HOST_RUN
+    back-to-back calls between synchronizes, the first call of each run
+    left out (it follows the wait), with no flush or event in between."""
     for _ in range(WARMUP):
         fn()
-    dev, call = [], []
+    dev, call, clean = [], [], []
     for _ in range(REPS):
-        for held, out in ((True, dev), (False, call)):
-            flush.zero_()
+        for held, dirty, out in ((True, True, dev), (False, True, call),
+                                 (True, False, clean)):
+            if dirty:
+                flush.zero_()
+            else:
+                flush.sum()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             if held:
@@ -169,14 +181,14 @@ def time_ms(fn, flush: torch.Tensor) -> tuple[float, float, float]:
                 host.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     return (statistics.median(dev), statistics.median(call),
-            statistics.median(host))
+            statistics.median(host), statistics.median(clean))
 
 
 def timed(r: dict, prefix: str, fn, flush: torch.Tensor) -> None:
-    """Store ``time_ms(fn)`` in r as <prefix>ms, <prefix>call_ms and
-    <prefix>host_ms."""
-    (r[f"{prefix}ms"], r[f"{prefix}call_ms"],
-     r[f"{prefix}host_ms"]) = time_ms(fn, flush)
+    """Store ``time_ms(fn)`` in r as <prefix>ms, <prefix>call_ms,
+    <prefix>host_ms and <prefix>clean_ms."""
+    (r[f"{prefix}ms"], r[f"{prefix}call_ms"], r[f"{prefix}host_ms"],
+     r[f"{prefix}clean_ms"]) = time_ms(fn, flush)
 
 
 def nbytes(*ts) -> int:
@@ -272,21 +284,24 @@ def pipe_ms(counts: dict[str, float]) -> dict[str, float]:
             "xu": n["xu"] / per_s["xu"] * 1e3}
 
 
-def keyed_b1_ops(bits: int, threads: int, n_real: int) -> dict:
-    """Keyed B1's operations bound from its compiled code. The tensor-
-    noise kernel of the same body gives the work of a thread (T, per
-    thread); the keyed kernel's surplus over it, over the values a thread
-    packs, gives the work of one draw (D, per value: the hash, its
-    counter and bounds check, a share of the leaf lookup, less the noise
-    loads). This run's work is threads x T + real values x D (padding
-    draws nothing); the bound is its busiest pipe."""
+def keyed_ops(kernel: str, bits: int, threads: int, n_real: int) -> dict:
+    """The operations bound of keyed B1 (``kernel`` =
+    "quantize_pack_buffer") or keyed B4 ("momentum_quantize_pack_buffer")
+    from its compiled code. The tensor-noise kernel of the same body gives
+    the work of a thread (T, per thread); the keyed kernel's surplus over
+    it, over the values a thread packs, gives the work of one draw (D, per
+    value: the hash, its counter and bounds check, a share of the leaf
+    lookup, less the noise loads). This run's work is threads x T + real
+    values x D (padding draws nothing); the bound is its busiest pipe."""
     from repro_torch.kernels import native
 
     sass = subprocess.run(
         [native.cuda_tool("cuobjdump"), "-sass",
          str(native.lib_path("quantize_pack"))], capture_output=True,
         text=True, check=True, timeout=120).stdout
-    name = r"quantize_pack_buffer_kernelILi{}ELN\w*NoiseE{}E"
+    # The digit is the end of the mangled name's length prefix, so B1's
+    # pattern does not match inside B4's name.
+    name = r"\d" + kernel + r"_kernelILi{}ELN\w*NoiseE{}E"
     per_thread = sass_counts(sass, name.format(bits, 1))
     keyed = sass_counts(sass, name.format(bits, 2))
     values = 4 * (32 // bits)           # kCols columns x per rows
@@ -361,7 +376,7 @@ def kernel_checks(dev, flush):
     rec = {k: {"max_abs_err": 0.0, "max_ulp": 0, "checks": []}
            for k in KERNEL_SOURCES}
 
-    for bits, stochastic in ((8, True), (8, False), (4, True)):
+    for bits, stochastic in CODECS:
         quant = QuantConfig(bits=bits, stochastic=stochastic)
         layout = WireLayout.for_tree(x, bits, stacked=True)
         X = layout.to_planar_stacked(x)
@@ -399,8 +414,9 @@ def kernel_checks(dev, flush):
                 delta, sblk, bits, keys=keys, table=table), flush)
             timed(r, "plain_", lambda: ref.quantize_pack_buffer_ref(
                 delta, sblk, bits, layout.noise_stacked(keys)), flush)
-            r["sass"] = keyed_b1_ops(bits, delta.shape[0]
-                                     * delta.shape[2] // 4, n_real)
+            r["sass"] = keyed_ops("quantize_pack_buffer", bits,
+                                  delta.shape[0] * delta.shape[2] // 4,
+                                  n_real)
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes(delta, sblk, keys, words), 0, r["sass"]["ms"])
             r["bound_bytes_ms"] = bound(nbytes(delta, sblk, keys, words),
@@ -415,10 +431,12 @@ def kernel_checks(dev, flush):
         out_ref = dequant_mix_buffer_plain(X, words, sblk, w, src, bits)
         torch.cuda.synchronize()
         r = rec["dequant_mix_buffer"]
+        check_words(f"B2 bits={bits}", out.view(torch.int32),
+                    out_ref.view(torch.int32))
         check_floats(r, f"B2 bits={bits}", [(out, out_ref)])
         r["checks"].append(f"bits={bits} K=3 shape={list(X.shape)} "
-                           f"max_ulp={r['max_ulp']}")
-        if bits == 8:
+                           "bitwise")
+        if (bits, stochastic) == (8, True):
             timed(r, "", lambda: dequant_mix_buffer(
                 X, words, sblk, w, src, bits), flush)
             timed(r, "plain_", lambda: dequant_mix_buffer_plain(
@@ -427,6 +445,10 @@ def kernel_checks(dev, flush):
                 nbytes(X, words, sblk, w, src, out),
                 X.numel() * 3 * src.shape[0])
             r["shape"] = list(X.shape)
+            # What the card's memory gives a plain streaming pass under
+            # the same timing: base copied into out (B2 less its words).
+            timed(r, "copy_", lambda: out.copy_(X), flush)
+            r["copy_bound_ms"] = bound(nbytes(X, out), 0)[0]
 
     momentum_checks(dev, flush, rec["momentum_sgd"], stacked_randn)
     fused_kernel_checks(dev, flush, rec, x, stacked_randn)
@@ -523,36 +545,56 @@ def fused_kernel_checks(dev, flush, rec, x, stacked_randn):
     v, g, gk = stacked_randn(0.01), stacked_randn(0.1), stacked_randn(0.1)
     src, w = _plan_tables(MixingSpec.ring(M, self_weight=0.5).gossip_plan(),
                           dev)
-    for bits, stochastic in ((8, True), (8, False), (4, True)):
+    for bits, stochastic in CODECS:
         quant = QuantConfig(bits=bits, stochastic=stochastic)
         layout = WireLayout.for_tree(x, bits, stacked=True)
         X, Y, V, G, GK = (layout.to_planar_stacked(t)
                           for t in (x, y, v, g, gk))
         delta = (Y + (theta_f * V - eta_f * G)) - X
         sblk = layout.block_scales(layout.leaf_scales(delta, quant))
-        noise = (layout.noise_stacked(
-            _quant_leaf_keys(prng.PRNGKey(4), layout.n_leaves, M).to(dev))
-            if stochastic else None)
-        y_out, v_out, words = momentum_quantize_pack_buffer(
-            Y, V, G, X, sblk, bits, et, noise)
+        r = rec["momentum_quantize_pack_buffer"]
+        what = f"B4 bits={bits} stochastic={stochastic}"
+        keys = table = noise = None
+        if stochastic:
+            keys = _quant_leaf_keys(prng.PRNGKey(4), layout.n_leaves,
+                                    M).to(dev)
+            table = layout.noise_table
+            noise = layout.noise_stacked(keys)
         want = ref.momentum_quantize_pack_buffer_ref(Y, V, G, X, sblk, bits,
                                                      et, noise)
+        runs = {"": momentum_quantize_pack_buffer(
+            Y, V, G, X, sblk, bits, et, keys=keys, table=table)}
+        if stochastic:
+            runs["tensor noise "] = momentum_quantize_pack_buffer(
+                Y, V, G, X, sblk, bits, et, noise)
         torch.cuda.synchronize()
-        what = f"B4 bits={bits} stochastic={stochastic}"
-        check_words(what, words, want[2])
-        r = rec["momentum_quantize_pack_buffer"]
-        check_floats(r, what, zip((y_out, v_out), want[:2]))
-        r["checks"].append(f"bits={bits} stochastic={stochastic} "
-                           f"shape={list(Y.shape)} words bitwise, "
-                           f"max_ulp={r['max_ulp']}")
+        for form, got in runs.items():
+            for a, b in zip(got, want):
+                check_words(f"{what} {form}", a.view(torch.int32),
+                            b.view(torch.int32))
+            check_floats(r, what, zip(got[:2], want[:2]))
+        y_out, v_out, words = runs[""]
+        r["checks"].append(
+            f"bits={bits} stochastic={stochastic} shape={list(Y.shape)} "
+            + ("keyed and tensor-noise words vs noise_stacked + plain"
+               if stochastic else "words") + ", y' and v' bitwise")
         if (bits, stochastic) == (8, True):
+            n_real = sum(layout.sizes) * M
             timed(r, "", lambda: momentum_quantize_pack_buffer(
-                Y, V, G, X, sblk, bits, et, noise), flush)
+                Y, V, G, X, sblk, bits, et, keys=keys, table=table), flush)
             timed(r, "plain_", lambda: ref.momentum_quantize_pack_buffer_ref(
+                Y, V, G, X, sblk, bits, et, layout.noise_stacked(keys)),
+                flush)
+            timed(r, "tensor_noise_", lambda: momentum_quantize_pack_buffer(
                 Y, V, G, X, sblk, bits, et, noise), flush)
-            r["bound_ms"], r["bound_by"] = bound(
+            moved = nbytes(Y, V, G, X, sblk, keys, y_out, v_out, words)
+            r["sass"] = keyed_ops("momentum_quantize_pack_buffer", bits,
+                                  Y.shape[0] * Y.shape[2] // 4, n_real)
+            r["bound_ms"], r["bound_by"] = bound(moved, 0, r["sass"]["ms"])
+            r["bound_bytes_ms"] = bound(moved, 0)[0]
+            r["tensor_noise_bound_ms"] = bound(
                 nbytes(Y, V, G, X, noise, sblk, y_out, v_out, words),
-                10 * Y.numel())
+                10 * Y.numel())[0]
             r["shape"] = list(Y.shape)
 
         if not stochastic:
@@ -564,9 +606,11 @@ def fused_kernel_checks(dev, flush, rec, x, stacked_randn):
                                                     v_out, GK, et, bits)
         torch.cuda.synchronize()
         r = rec["dequant_mix_momentum_buffer"]
+        check_words(f"B5 bits={bits}", out.view(torch.int32),
+                    out_ref.view(torch.int32))
         check_floats(r, f"B5 bits={bits}", [(out, out_ref)])
         r["checks"].append(f"bits={bits} K=3 shape={list(X.shape)} "
-                           f"max_ulp={r['max_ulp']}")
+                           "bitwise")
         if bits == 8:
             timed(r, "", lambda: dequant_mix_momentum_buffer(
                 base, words, sblk, w, src, v_out, GK, et, bits), flush)
@@ -886,7 +930,7 @@ def round_breakdown(dev, n_rounds: int = 9) -> tuple[dict, dict]:
     """Phase 6, where a quickstart round's time goes: host-clock times of
     the unfused round's phases (each ended by a synchronize; median of
     n_rounds) and of ``noise_stacked`` alone — the plain-torch noise
-    that keyed B1 no longer needs, still drawn by the fused round — with
+    that neither round draws any more (keyed B1 and B4 draw it) — with
     an unfused and a fused round timed in turn in every pass, so the two
     share the host's drift; then a profile of 5 unfused and 5 fused
     rounds."""

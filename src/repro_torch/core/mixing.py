@@ -18,7 +18,8 @@ leading client axis of size m. Two backends:
     ``ppermute``) and decodes and applies them, own stream first.
 
 ``make_fused_tail`` is the fused round's tail over the same two backends
-(B4 encodes, B5 decodes and applies the deferred last step).
+(B4 encodes, drawing its noise from the keys as B1 does; B5 decodes and
+applies the deferred last step).
 
 Semantics, as in the JAX package:
   unquantized (Alg. 1, eq. 5):  x' = W @ z
@@ -291,12 +292,11 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
         # Scales of the RESULTING delta, in B4's expression order.
         delta = (y2d + (theta_f * v2d - eta_f * g2d)) - X
         scales = layout.leaf_scales(delta, quant)        # [m, n_leaves]
-        noise = None
-        if quant.stochastic:
-            keys = _quant_leaf_keys(key_q, layout.n_leaves, m)
-            noise = layout.noise_stacked(keys.to(dev))
+        keys = None
+        if quant.stochastic:     # B4 draws the noise from the keys
+            keys = _quant_leaf_keys(key_q, layout.n_leaves, m).to(dev)
         y_out, v_out, words = layout.encode_momentum(
-            y2d, v2d, g2d, X, scales, et, quant, noise=noise)
+            y2d, v2d, g2d, X, scales, et, quant, keys=keys)
         y_pub = layout.from_planar_stacked(y_out)
         loss_last, gK = loss_and_grad(loss_fn, y_pub, batch_last, keys_last)
         gK2d = layout.to_planar_stacked(gK)

@@ -206,8 +206,8 @@ class WireLayout:
 
     @property
     def noise_table(self) -> NoiseTable:
-        """The leaf table keyed B1 draws its noise from: the same noise as
-        :meth:`noise_stacked`, computed inside the kernel."""
+        """The leaf table keyed B1 and B4 draw their noise from: the same
+        noise as :meth:`noise_stacked`, computed inside the kernel."""
         return NoiseTable(self.word_offsets, self.leaf_words, self.sizes)
 
     def noise(self, leaf_keys: torch.Tensor) -> torch.Tensor:
@@ -256,7 +256,7 @@ class WireLayout:
     def encode_momentum(self, y2d: torch.Tensor, v2d: torch.Tensor,
                         g2d: torch.Tensor, x2d: torch.Tensor,
                         scales: torch.Tensor, et, quant,
-                        noise: torch.Tensor | None = None
+                        keys: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Fused-round send side (B4): apply the penultimate heavy-ball
         step and emit the wire words as a side output of the same pass,
@@ -265,13 +265,20 @@ class WireLayout:
 
         y2d/v2d/g2d/x2d [m, per, W] f32; scales [m, n_leaves] of the
         RESULTING delta (the caller computes them from the same expression
-        order); et = (eta, theta). Returns (y', v', words int32 [m, W])."""
-        if quant.stochastic and noise is None:
-            raise ValueError("stochastic encode needs noise")
-        return momentum_quantize_pack_buffer(
-            y2d.contiguous(), v2d.contiguous(), g2d.contiguous(),
-            x2d.contiguous(), self.block_scales(scales), quant.bits, et,
-            noise.contiguous() if quant.stochastic else None)
+        order); et = (eta, theta). Stochastic rounding takes ``keys``
+        [n_leaves, m, 2] as :meth:`encode` does: B4 draws
+        :meth:`noise_stacked`'s noise itself. Returns (y', v', words int32
+        [m, W])."""
+        operands = (y2d.contiguous(), v2d.contiguous(), g2d.contiguous(),
+                    x2d.contiguous(), self.block_scales(scales), quant.bits,
+                    et)
+        if not quant.stochastic:
+            return momentum_quantize_pack_buffer(*operands)
+        if keys is None:
+            raise ValueError("stochastic encode needs keys")
+        return momentum_quantize_pack_buffer(*operands,
+                                             keys=keys.contiguous(),
+                                             table=self.noise_table)
 
     def decode_apply_momentum(self, base: torch.Tensor, words: torch.Tensor,
                               scales: torch.Tensor, weights: torch.Tensor,

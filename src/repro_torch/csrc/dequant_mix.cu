@@ -30,14 +30,22 @@
 // B5 also reads v and g, ~56 MB, ~16.8 us; B7 and B8 on one client's 2NN
 // vector ([4, 50 176], k = 3) move 2.2 MB, ~0.66 us, far below a launch.
 //
-// Design: grid (word chunks, clients), one thread per word column
-// holding its per accumulators in registers. B2 and B5 gather each
-// neighbour's words and scales through the plan's src table themselves,
-// so the [m, K, W] stream stack the JAX reference builds is never
-// written. Every word load is coalesced (one source client per
-// (block, k)). Each multiply and add is a separate _rn intrinsic, so nvcc
-// cannot contract them into an FMA and the output is bitwise equal to the
-// plain PyTorch version.
+// Design: grid (word chunks, clients). B2 and B5 gather each neighbour's
+// words and scales through the plan's src table themselves, so the
+// [m, K, W] stream stack the JAX reference builds is never written. A B2/B5
+// thread holds 4 consecutive word columns and their per x 4 accumulators
+// in registers: one 16-byte load of base (B5: and of v and g) per planar
+// row, one 16-byte load of the 4 words per stream, one 16-byte store per
+// row; neighbouring threads hold neighbouring columns, so every access is
+// coalesced (one source client per (block, k)). W is a multiple of 512, so
+// rows stay 16-byte aligned and a thread's columns share one lane block,
+// hence one scale per stream. src[k, c] and w[c, k] are uniform across a
+// block: a thread reads them, and its streams' scales, for up to kStreams
+// streams at a time before any word of those streams is decoded, so their
+// word loads are in flight together (the ring's K = 3 is one group). B7
+// keeps one thread per column. Each multiply and add is a separate _rn
+// intrinsic, so nvcc cannot contract them into an FMA and the output is
+// bitwise equal to the plain PyTorch version.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,6 +53,9 @@ namespace {
 
 constexpr int kLaneBlock = 512;
 constexpr int kThreads = 256;
+constexpr int kCols = 4;      // word columns a B2/B5 thread decodes
+constexpr int kStreams = 4;   // streams whose words a B2/B5 thread loads
+                              // before decoding any of them
 
 // acc[i] += wk * ((field_i(word) - 2^(b-1)) * s), one rounding per step.
 template <int BITS>
@@ -61,10 +72,14 @@ __device__ __forceinline__ void accumulate(float (&acc)[32 / BITS],
   }
 }
 
+__device__ __forceinline__ void unpack4(float4 a, float (&out)[kCols]) {
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+}
+
 // The body of B2 (MOMENTUM = false) and B5 (MOMENTUM = true) for client
-// c and word column w.
+// c and word columns [w, w + 4).
 template <int BITS, bool MOMENTUM>
-__device__ __forceinline__ void mix_column(
+__device__ __forceinline__ void mix_columns(
     const float* __restrict__ base, const uint32_t* __restrict__ words,
     const float* __restrict__ sblk, const float* __restrict__ weights,
     const int* __restrict__ src, const float* __restrict__ v,
@@ -72,29 +87,59 @@ __device__ __forceinline__ void mix_column(
     int W, float eta, float theta) {
   constexpr int PER = 32 / BITS;
   const int c = blockIdx.y;
-  const int w = blockIdx.x * kThreads + threadIdx.x;
+  const int w = kCols * (blockIdx.x * kThreads + threadIdx.x);
   if (w >= W) return;
   const size_t at = static_cast<size_t>(c) * PER * W + w;
   const int n_blocks = W / kLaneBlock;
-  float acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = base[at + static_cast<size_t>(i) * W];
   const int blk = w / kLaneBlock;
-  for (int k = 0; k < K; ++k) {
-    const int sc = src[k * m + c];
-    accumulate<BITS>(acc, words[static_cast<size_t>(sc) * W + w],
-                     sblk[static_cast<size_t>(sc) * n_blocks + blk],
-                     weights[c * K + k]);
+  float acc[kCols][PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    float b[kCols];
+    unpack4(*reinterpret_cast<const float4*>(base + at
+                                             + static_cast<size_t>(i) * W),
+            b);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j][i] = b[j];
+  }
+  for (int k0 = 0; k0 < K; k0 += kStreams) {
+    uint4 wd[kStreams];
+    float s[kStreams], wk[kStreams];
+#pragma unroll
+    for (int q = 0; q < kStreams; ++q) {
+      if (k0 + q < K) {
+        const int sc = src[(k0 + q) * m + c];
+        wd[q] = *reinterpret_cast<const uint4*>(
+            words + static_cast<size_t>(sc) * W + w);
+        s[q] = sblk[static_cast<size_t>(sc) * n_blocks + blk];
+        wk[q] = weights[c * K + k0 + q];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kStreams; ++q) {
+      if (k0 + q < K) {
+        accumulate<BITS>(acc[0], wd[q].x, s[q], wk[q]);
+        accumulate<BITS>(acc[1], wd[q].y, s[q], wk[q]);
+        accumulate<BITS>(acc[2], wd[q].z, s[q], wk[q]);
+        accumulate<BITS>(acc[3], wd[q].w, s[q], wk[q]);
+      }
+    }
   }
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const size_t ai = at + static_cast<size_t>(i) * W;
+    float r[kCols] = {acc[0][i], acc[1][i], acc[2][i], acc[3][i]};
     if (MOMENTUM) {
-      const float vn =
-          __fsub_rn(__fmul_rn(theta, v[ai]), __fmul_rn(eta, g[ai]));
-      acc[i] = __fadd_rn(acc[i], vn);
+      float vs[kCols], gs[kCols];
+      unpack4(*reinterpret_cast<const float4*>(v + ai), vs);
+      unpack4(*reinterpret_cast<const float4*>(g + ai), gs);
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        r[j] = __fadd_rn(r[j], __fsub_rn(__fmul_rn(theta, vs[j]),
+                                         __fmul_rn(eta, gs[j])));
     }
-    out[ai] = acc[i];
+    *reinterpret_cast<float4*>(out + ai) = make_float4(r[0], r[1], r[2],
+                                                       r[3]);
   }
 }
 
@@ -106,8 +151,8 @@ __global__ void dequant_mix_buffer_kernel(const float* __restrict__ base,
                                           const int* __restrict__ src,
                                           float* __restrict__ out, int m,
                                           int K, int W) {
-  mix_column<BITS, false>(base, words, sblk, weights, src, nullptr, nullptr,
-                          out, m, K, W, 0.0f, 0.0f);
+  mix_columns<BITS, false>(base, words, sblk, weights, src, nullptr,
+                           nullptr, out, m, K, W, 0.0f, 0.0f);
 }
 
 template <int BITS>
@@ -117,8 +162,8 @@ __global__ void dequant_mix_momentum_buffer_kernel(
     const int* __restrict__ src, const float* __restrict__ v,
     const float* __restrict__ g, float* __restrict__ out, int m, int K,
     int W, float eta, float theta) {
-  mix_column<BITS, true>(base, words, sblk, weights, src, v, g, out, m, K,
-                         W, eta, theta);
+  mix_columns<BITS, true>(base, words, sblk, weights, src, v, g, out, m, K,
+                          W, eta, theta);
 }
 
 template <int BITS>
@@ -147,7 +192,7 @@ void launch(const float* base, const uint32_t* words, const float* sblk,
             const float* weights, const int* src, const float* v,
             const float* g, float* out, int m, int K, int W, float eta,
             float theta, cudaStream_t stream) {
-  const dim3 grid((W + kThreads - 1) / kThreads, m);
+  const dim3 grid((W / kCols + kThreads - 1) / kThreads, m);
   if (v == nullptr) {
     dequant_mix_buffer_kernel<BITS><<<grid, kThreads, 0, stream>>>(
         base, words, sblk, weights, src, out, m, K, W);
@@ -170,6 +215,8 @@ int dispatch_buffer(const void* base, const void* words, const void* sblk,
   const float* gf = static_cast<const float*>(g);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W % kLaneBlock || W < kLaneBlock || m < 1 || K < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (bits) {
     case 2:
       launch<2>(b, wd, s, wt, sr, vf, gf, o, m, K, W, eta, theta, st);
@@ -190,9 +237,9 @@ int dispatch_buffer(const void* base, const void* words, const void* sblk,
 
 }  // namespace
 
-// B2. base, out: f32 [m, 32/bits, W]; words: u32 [m, W]; sblk: f32
-// [m, W/512]; weights: f32 [m, K]; src: int32 [K, m]. Returns
-// cudaGetLastError().
+// B2. base, out: f32 [m, 32/bits, W] and words: u32 [m, W], each 16-byte
+// aligned, W a multiple of 512; sblk: f32 [m, W/512]; weights: f32 [m, K];
+// src: int32 [K, m]. Returns cudaGetLastError().
 extern "C" int dequant_mix_buffer(const void* base, const void* words,
                                   const void* sblk, const void* weights,
                                   const void* src, void* out, int m, int K,
@@ -201,8 +248,8 @@ extern "C" int dequant_mix_buffer(const void* base, const void* words,
                          out, m, K, W, bits, 0.0f, 0.0f, stream);
 }
 
-// B5. As B2, plus v, g: f32 [m, 32/bits, W] (the deferred step) and
-// runtime eta, theta. Returns cudaGetLastError().
+// B5. As B2, plus v, g: f32 [m, 32/bits, W], 16-byte aligned (the
+// deferred step) and runtime eta, theta. Returns cudaGetLastError().
 extern "C" int dequant_mix_momentum_buffer(const void* base,
                                            const void* words,
                                            const void* sblk,

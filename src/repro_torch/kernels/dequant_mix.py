@@ -66,6 +66,8 @@ def _check_operands(base, words, block_scales, weights, src, bits) -> None:
                    (m, w // LANE_BLOCK), dev)
     native.require(weights, "weights", torch.float32, (m, k), dev)
     native.require(src, "src", torch.int32, (k, m), dev)
+    native.require_aligned(base, "base")
+    native.require_aligned(words, "words")
 
 
 def dequant_mix_buffer(base: torch.Tensor, words: torch.Tensor,
@@ -77,7 +79,8 @@ def dequant_mix_buffer(base: torch.Tensor, words: torch.Tensor,
     base: f32 [m, per, W]; words: int32 [m, W] (every client's own
     packed stream); block_scales: f32 [m, W // 512]; weights: f32 [m, K];
     src: int32 [K, m] — row 0 is the identity (own stream first), row k
-    the plan step client c receives from. Returns f32 [m, per, W].
+    the plan step client c receives from. On CUDA, base and words must be
+    16-byte aligned. Returns f32 [m, per, W].
     """
     if base.device.type == "cpu":
         return dequant_mix_buffer_plain(base, words, block_scales, weights,
@@ -120,8 +123,9 @@ def dequant_mix_momentum_buffer(base: torch.Tensor, words: torch.Tensor,
         return dequant_mix_momentum_buffer_plain(base, words, block_scales,
                                                  weights, src, v, g, et, bits)
     _check_operands(base, words, block_scales, weights, src, bits)
-    native.require(v, "v", torch.float32, base.shape, base.device)
-    native.require(g, "g", torch.float32, base.shape, base.device)
+    for t, name in ((v, "v"), (g, "g")):
+        native.require(t, name, torch.float32, base.shape, base.device)
+        native.require_aligned(t, name)
     m, _, w = base.shape
     k = src.shape[0]
     out = torch.empty_like(base)

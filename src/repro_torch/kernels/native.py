@@ -153,3 +153,10 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_aligned(t: torch.Tensor, name: str) -> None:
+    """A kernel that moves 16 bytes a thread needs its operand to start on
+    a 16-byte boundary (its rows follow, W being a multiple of 512)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")

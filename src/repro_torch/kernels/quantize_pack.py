@@ -7,7 +7,8 @@ B1 ``quantize_pack_buffer`` — whole-buffer quantize + planar bit-pack for
    the kernel from the per-leaf keys and the layout's ``NoiseTable``;
 B4 ``momentum_quantize_pack_buffer`` — the same encode fused with the
    round's penultimate heavy-ball step
-   (``momentum_quantize_pack_buffer_pallas``);
+   (``momentum_quantize_pack_buffer_pallas``), its noise given as a
+   tensor or, keyed, drawn inside the kernel as B1 draws it;
 B6 ``quantize_pack`` — one [per, W] buffer with one scale
    (``quantize_pack_pallas``): B1's kernel with a scale stride of 0.
 
@@ -34,6 +35,9 @@ _ARGTYPES_KEYED = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
 _ARGTYPES_ONE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _ARGTYPES_MOMENTUM = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES_MOMENTUM_KEYED = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+                            + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3
+                            + [ctypes.c_int] + [ctypes.c_void_p] * 2)
 
 
 def _check_planar(x: torch.Tensor, bits: int, name: str = "x") -> None:
@@ -59,8 +63,7 @@ def quantize_pack_buffer(x: torch.Tensor, block_scales: torch.Tensor,
     the kernel draws the same noise itself (``keyed_noise_ref``); neither
     = deterministic floor. On CUDA, x (and noise) must be 16-byte aligned.
     Returns int32 [m, W] (u32 bit patterns)."""
-    if keys is not None and (noise is not None or table is None):
-        raise ValueError("keyed encode takes keys and a table, not noise")
+    _check_noise_source(noise, keys, table)
     if x.device.type == "cpu":
         if keys is not None:
             noise = keyed_noise_ref(keys, table, x.shape[1], x.shape[2])
@@ -70,13 +73,16 @@ def quantize_pack_buffer(x: torch.Tensor, block_scales: torch.Tensor,
     native.require(x, "x", torch.float32)
     native.require(block_scales, "block_scales", torch.float32,
                    (m, w // LANE_BLOCK), x.device)
-    _require_aligned(x, "x")
+    native.require_aligned(x, "x")
     if noise is not None:
         native.require(noise, "noise", torch.float32, x.shape, x.device)
-        _require_aligned(noise, "noise")
+        native.require_aligned(noise, "noise")
     out = torch.empty((m, w), dtype=torch.int32, device=x.device)
     if keys is not None:
-        _keyed_launches(x, block_scales, bits, keys, table, out)
+        _launch_keyed("quantize_pack_buffer_keyed", _ARGTYPES_KEYED,
+                      "quantize_pack_buffer", keys, table, x,
+                      x.data_ptr(), keys.data_ptr(), block_scales.data_ptr(),
+                      out.data_ptr(), m, w, bits)
         return out
     fn = native.function("quantize_pack", "quantize_pack_buffer", _ARGTYPES)
     with torch.cuda.device(x.device):
@@ -87,26 +93,27 @@ def quantize_pack_buffer(x: torch.Tensor, block_scales: torch.Tensor,
     return out
 
 
-def _require_aligned(t: torch.Tensor, name: str) -> None:
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary")
+def _check_noise_source(noise, keys, table) -> None:
+    if keys is not None and (noise is not None or table is None):
+        raise ValueError("keyed encode takes keys and a table, not noise")
 
 
-def _keyed_launches(x, block_scales, bits, keys, table, out) -> None:
-    """Keyed B1 over the whole table: the C entry makes one launch per 64
-    leaves and refuses a table that does not cover x's columns."""
-    m, _, w = x.shape
+def _launch_keyed(symbol: str, argtypes: list, kernel: str,
+                  keys: torch.Tensor, table: NoiseTable, like: torch.Tensor,
+                  *args) -> None:
+    """One call of a keyed C entry (B1 or B4) with the leading ``args``,
+    then the whole leaf table, ``like``'s stream and the launch count: the
+    entry makes one launch per 64 leaves and refuses a table that does not
+    cover ``like``'s columns. Counted under ``kernel``."""
     offs, lw, sizes = _table_arrays(table)
-    native.require(keys, "keys", torch.int64, (len(sizes), m, 2), x.device)
-    fn = native.function("quantize_pack", "quantize_pack_buffer_keyed",
-                         _ARGTYPES_KEYED)
+    native.require(keys, "keys", torch.int64, (len(sizes), like.shape[0], 2),
+                   like.device)
+    fn = native.function("quantize_pack", symbol, argtypes)
     launches = ctypes.c_int(0)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), keys.data_ptr(), block_scales.data_ptr(),
-                out.data_ptr(), m, w, bits, offs.ctypes.data,
-                lw.ctypes.data, sizes.ctypes.data, len(sizes),
-                native.stream_of(x), ctypes.byref(launches))
-    native.check_launch(rc, "quantize_pack_buffer", launches.value)
+    with torch.cuda.device(like.device):
+        rc = fn(*args, offs.ctypes.data, lw.ctypes.data, sizes.ctypes.data,
+                len(sizes), native.stream_of(like), ctypes.byref(launches))
+    native.check_launch(rc, kernel, launches.value)
 
 
 @functools.lru_cache(maxsize=64)
@@ -121,40 +128,54 @@ def _table_arrays(table: NoiseTable) -> tuple:
 def momentum_quantize_pack_buffer(y: torch.Tensor, v: torch.Tensor,
                                   g: torch.Tensor, x: torch.Tensor,
                                   block_scales: torch.Tensor, bits: int,
-                                  et, noise: torch.Tensor | None = None
+                                  et, noise: torch.Tensor | None = None, *,
+                                  keys: torch.Tensor | None = None,
+                                  table: NoiseTable | None = None
                                   ) -> tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
     """Penultimate heavy-ball step + encode in one pass:
     ``v' = theta*v - eta*g``, ``y' = y + v'``, ``words = pack(Q(y' - x))``.
 
     y, v, g, x: f32 [m, per, W] planar buffers; block_scales: f32
-    [m, W // 512] of the resulting delta; et = (eta, theta); noise: f32
-    like y (stochastic) or None. Returns (y', v', words int32 [m, W]).
+    [m, W // 512] of the resulting delta; et = (eta, theta). Stochastic
+    rounding takes its noise as ``noise`` (f32 like y) or keyed, from
+    ``keys`` int64 [n_leaves, m, 2] and the layout's ``table``, as
+    :func:`quantize_pack_buffer` does; neither = deterministic floor. On
+    CUDA, every input must be 16-byte aligned. Returns (y', v', words
+    int32 [m, W]).
     """
+    _check_noise_source(noise, keys, table)
     if y.device.type == "cpu":
+        if keys is not None:
+            noise = keyed_noise_ref(keys, table, y.shape[1], y.shape[2])
         return momentum_quantize_pack_buffer_ref(y, v, g, x, block_scales,
                                                  bits, et, noise)
     _check_planar(y, bits, "y")
     m, _, w = y.shape
-    native.require(y, "y", torch.float32)
-    for t, name in ((v, "v"), (g, "g"), (x, "x")):
-        native.require(t, name, torch.float32, y.shape, y.device)
+    for t, name in ((y, "y"), (v, "v"), (g, "g"), (x, "x"), (noise, "noise")):
+        if t is not None:
+            native.require(t, name, torch.float32, y.shape, y.device)
+            native.require_aligned(t, name)
     native.require(block_scales, "block_scales", torch.float32,
                    (m, w // LANE_BLOCK), y.device)
-    if noise is not None:
-        native.require(noise, "noise", torch.float32, y.shape, y.device)
     y_out = torch.empty_like(y)
     v_out = torch.empty_like(v)
     out = torch.empty((m, w), dtype=torch.int32, device=y.device)
+    eta, theta = float(np.float32(et[0])), float(np.float32(et[1]))
+    lead = (y.data_ptr(), v.data_ptr(), g.data_ptr(), x.data_ptr())
+    tail = (block_scales.data_ptr(), y_out.data_ptr(), v_out.data_ptr(),
+            out.data_ptr(), m, w, bits, eta, theta)
+    if keys is not None:
+        _launch_keyed("momentum_quantize_pack_buffer_keyed",
+                      _ARGTYPES_MOMENTUM_KEYED,
+                      "momentum_quantize_pack_buffer", keys, table, y,
+                      *lead, keys.data_ptr(), *tail)
+        return y_out, v_out, out
     fn = native.function("quantize_pack", "momentum_quantize_pack_buffer",
                          _ARGTYPES_MOMENTUM)
     with torch.cuda.device(y.device):
-        rc = fn(y.data_ptr(), v.data_ptr(), g.data_ptr(), x.data_ptr(),
-                None if noise is None else noise.data_ptr(),
-                block_scales.data_ptr(), y_out.data_ptr(), v_out.data_ptr(),
-                out.data_ptr(), m, w, bits, float(np.float32(et[0])),
-                float(np.float32(et[1])), int(noise is not None),
-                native.stream_of(y))
+        rc = fn(*lead, None if noise is None else noise.data_ptr(), *tail,
+                int(noise is not None), native.stream_of(y))
     native.check_launch(rc, "momentum_quantize_pack_buffer")
     return y_out, v_out, out
 
@@ -172,10 +193,10 @@ def quantize_pack(x: torch.Tensor, s: torch.Tensor, bits: int,
     w = x.shape[1]
     native.require(x, "x", torch.float32)
     native.require(s.reshape(1), "s", torch.float32, (1,), x.device)
-    _require_aligned(x, "x")
+    native.require_aligned(x, "x")
     if noise is not None:
         native.require(noise, "noise", torch.float32, x.shape, x.device)
-        _require_aligned(noise, "noise")
+        native.require_aligned(noise, "noise")
     out = torch.empty((w,), dtype=torch.int32, device=x.device)
     fn = native.function("quantize_pack", "quantize_pack", _ARGTYPES_ONE)
     with torch.cuda.device(x.device):

@@ -76,8 +76,8 @@ def quantize_pack_buffer_ref(x: torch.Tensor, block_scales: torch.Tensor,
 
 
 class NoiseTable(NamedTuple):
-    """A wire layout's leaves as keyed B1 takes them: leaf ``l`` owns the
-    columns ``[word_offsets[l], word_offsets[l] + leaf_words[l])`` (in
+    """A wire layout's leaves as keyed B1 and B4 take them: leaf ``l`` owns
+    the columns ``[word_offsets[l], word_offsets[l] + leaf_words[l])`` (in
     order, contiguous, each a multiple of ``LANE_BLOCK``) and the first
     ``sizes[l]`` positions of its planar ``[per, leaf_words[l]]`` segment
     in row-major order are real values; the rest is padding."""
@@ -88,8 +88,8 @@ class NoiseTable(NamedTuple):
 
 def keyed_noise_ref(keys: torch.Tensor, table: NoiseTable, per: int,
                     W: int) -> torch.Tensor:
-    """The stochastic-rounding noise keyed B1 draws in its kernel, in plain
-    torch from the same table: keys int64 [n_leaves, m, 2] -> f32
+    """The stochastic-rounding noise keyed B1 and B4 draw in their kernel,
+    in plain torch from the same table: keys int64 [n_leaves, m, 2] -> f32
     [m, per, W]. Position (c, i, w), with ``l`` the leaf whose columns hold
     ``w``, is ``uniform_at(keys[l, c], i * leaf_words[l] + w -
     word_offsets[l])`` where that index is below ``sizes[l]``, else 0."""

@@ -17,6 +17,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __grid_constant__
 
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
