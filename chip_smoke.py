@@ -8,19 +8,22 @@ Phases (any failure exits non-zero):
 1. print the card (``nvidia-smi`` name and power limit) and versions;
 2. build the CUDA sources in ``src/repro_torch/csrc`` (timed, one nvcc
    per source, all in parallel);
-3. hold every kernel against its plain PyTorch version on the card at the
+3. time the floor of the event times (one launch that moves 4 bytes);
+   hold every kernel against its plain PyTorch version on the card at the
    shapes its path gives it — B1, B2, B4 and B5 at the quickstart's wire
    shapes (2NN, m=16, ring) at 2, 4, 8 and 16 bits (B1 and B4 keyed,
    drawing their own noise, against ``noise_stacked`` + the plain
    version, and with tensor noise), B3 over all six leaves in one launch
-   and on a misaligned view, B6-B8 on one client's flat 2NN vector —
-   packed words and B1-B5's floats bitwise equal, B6-B8's floats within
-   MAX_ULP (bitwise is expected everywhere: the kernels pin rounding with
-   _rn intrinsics and keep the plain version's operation order); time
-   kernel, plain version and, for B3, the library's multi-tensor SGD step
-   (``torch._fused_sgd_``) with CUDA events; count keyed B1's and keyed
-   B4's compiled instructions by pipe (``cuobjdump -sass``) for their
-   operations bounds;
+   and on a misaligned view, B6-B8 on one client's flat 2NN vector (B6
+   keyed and B8 at 2, 4, 8 and 16 bits) —
+   packed words and B1-B5's floats bitwise equal, B7's and B8's floats
+   within MAX_ULP (bitwise is expected everywhere: the kernels pin
+   rounding with _rn intrinsics and keep the plain version's operation
+   order); time kernel, plain version and, for B3, the library's
+   multi-tensor SGD step (``torch._fused_sgd_``) with CUDA events; count
+   keyed B1's, B4's and B6's compiled instructions by pipe (``cuobjdump
+   -sass``) for their operations bounds, and B8's global loads against
+   its first decode; check that a B8 call is one device operation;
 4. one quickstart round on the card against the same round on the CPU,
    and the plan realization against the dense one on the card, for the
    unfused and the fused round;
@@ -32,9 +35,12 @@ Phases (any failure exits non-zero):
    fused (B3, B4 keyed, B5); then
    the per-tensor ``ops`` entry points once each (B6, B7, B8, B3);
    check the counts, a finite falling loss and the ops against the CPU;
+   time ``encode_delta`` and ``decode_apply_ring`` as a caller sees them
+   (host clock to a synchronize) and list the device operations each
+   makes: ``encode_delta`` must copy nothing from the host;
 6. profile both rounds (device busy and idle share, time by kernel);
-7. print the kernel table as one JSON line, then the card again, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+7. print the kernel table (with the floor) as one JSON line, then the
+   card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs one CUDA card and exits non-zero without one.
 """
@@ -80,10 +86,14 @@ SASS_PIPE = {
     "xu": {"MUFU", "F2I", "I2F", "F2F", "FRND", "I2FP", "F2IP"},
 }
 MAX_ULP = 2                  # stated float bound kernel vs plain
+# The Noise enumerators of csrc/quantize_pack.cu, as the mangled kernel
+# names carry them.
+TENSOR_NOISE, KEYED, KEYED_BY_VALUE = 1, 2, 3
 # (bits, stochastic) of the wire at which B1, B2, B4 and B5 are checked.
 CODECS = ((8, True), (8, False), (4, True), (2, True), (16, True))
 REPS, WARMUP = 20, 3
 HOST_RUNS, HOST_RUN = 100, 3  # host clock: runs of back-to-back calls
+OPS_CALLS = 4                # calls a device-operation count profiles
 SLEEP_CYCLES = 4_000_000     # ~2 ms of GPU clock: covers the host enqueue
 KERNEL_SOURCES = {
     "quantize_pack_buffer": ("src/repro_torch/csrc/quantize_pack.cu",
@@ -206,6 +216,25 @@ def bound(n_bytes: int, n_ops: int, ops_ms: float = 0.0
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sass_function(sass: str, pattern: str) -> str:
+    """The SASS of the one kernel in the ``cuobjdump -sass`` text whose
+    mangled name matches ``pattern``."""
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    found = [f for f in funcs if re.search(pattern, f.split()[0])]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} kernels match {pattern}")
+    return found[0]
+
+
+def sass_of(lib: str) -> str:
+    """``cuobjdump -sass`` of the built library ``lib``."""
+    from repro_torch.kernels import native
+
+    return subprocess.run(
+        [native.cuda_tool("cuobjdump"), "-sass", str(native.lib_path(lib))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+
+
 def sass_counts(sass: str, pattern: str) -> dict[str, int]:
     """Instructions of the one kernel in the ``cuobjdump -sass`` text
     whose mangled name matches ``pattern``, by opcode (the part before
@@ -215,12 +244,8 @@ def sass_counts(sass: str, pattern: str) -> dict[str, int]:
     fast range), NOPs, and the closing branch to itself. A block starts
     at a branch or call target and after a branch, EXIT or RET; a loop's
     body counts once."""
-    funcs = re.split(r"\n\s*Function : ", sass)[1:]
-    found = [f for f in funcs if re.search(pattern, f.split()[0])]
-    if len(found) != 1:
-        raise AssertionError(f"{len(found)} kernels match {pattern}")
     code, labels, pending = [], {}, []   # code: (address, opcode, operands)
-    for line in found[0].splitlines():
+    for line in sass_function(sass, pattern).splitlines():
         lab = re.match(r"\s*(\.L_x_\d+):", line)
         ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                        r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
@@ -284,27 +309,27 @@ def pipe_ms(counts: dict[str, float]) -> dict[str, float]:
             "xu": n["xu"] / per_s["xu"] * 1e3}
 
 
-def keyed_ops(kernel: str, bits: int, threads: int, n_real: int) -> dict:
+def keyed_ops(kernel: str, bits: int, threads: int, n_real: int,
+              keyed: int = KEYED, cols: int = 4) -> dict:
     """The operations bound of keyed B1 (``kernel`` =
-    "quantize_pack_buffer") or keyed B4 ("momentum_quantize_pack_buffer")
-    from its compiled code. The tensor-noise kernel of the same body gives
-    the work of a thread (T, per thread); the keyed kernel's surplus over
-    it, over the values a thread packs, gives the work of one draw (D, per
-    value: the hash, its counter and bounds check, a share of the leaf
-    lookup, less the noise loads). This run's work is threads x T + real
-    values x D (padding draws nothing); the bound is its busiest pipe."""
-    from repro_torch.kernels import native
-
-    sass = subprocess.run(
-        [native.cuda_tool("cuobjdump"), "-sass",
-         str(native.lib_path("quantize_pack"))], capture_output=True,
-        text=True, check=True, timeout=120).stdout
+    "quantize_pack_buffer"), keyed B4 ("momentum_quantize_pack_buffer") or
+    keyed B6 ("quantize_pack", its key by value: ``keyed`` =
+    KEYED_BY_VALUE, one column a thread: ``cols`` = 1) from its compiled
+    code. The tensor-noise kernel of the same body gives the work of a
+    thread (T, per thread); the keyed kernel's surplus over it, over the
+    values a thread packs (``cols`` x per), gives the
+    work of one draw (D, per value: the hash, its counter and bounds
+    check, a share of the leaf lookup, less the noise loads). This run's
+    work is threads x T + real values x D (padding draws nothing, except
+    in B6, which draws over the whole padded buffer as encode_delta
+    does); the bound is its busiest pipe."""
+    sass = sass_of("quantize_pack")
     # The digit is the end of the mangled name's length prefix, so B1's
-    # pattern does not match inside B4's name.
+    # pattern does not match inside B4's name, nor B6's inside B1's.
     name = r"\d" + kernel + r"_kernelILi{}ELN\w*NoiseE{}E"
-    per_thread = sass_counts(sass, name.format(bits, 1))
-    keyed = sass_counts(sass, name.format(bits, 2))
-    values = 4 * (32 // bits)           # kCols columns x per rows
+    per_thread = sass_counts(sass, name.format(bits, TENSOR_NOISE))
+    keyed = sass_counts(sass, name.format(bits, keyed))
+    values = cols * (32 // bits)        # columns x per rows
     per_draw = {k: (keyed.get(k, 0) - per_thread.get(k, 0)) / values
                 for k in set(keyed) | set(per_thread)}
     work = {k: threads * per_thread.get(k, 0) + n_real * per_draw[k]
@@ -317,6 +342,21 @@ def keyed_ops(kernel: str, bits: int, threads: int, n_real: int) -> dict:
             "tensor_noise_per_thread": per_thread,
             "keyed_per_thread": keyed,
             "per_draw": {k: v for k, v in per_draw.items() if v}}
+
+
+def load_order(lib: str, pattern: str) -> dict:
+    """Where one kernel's global loads stand against its first decode
+    (the first integer-to-float conversion of a field) in its SASS: the
+    loads issued before it, and those after."""
+    ops = [m.group(1).split(".")[0] for m in re.finditer(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+        sass_function(sass_of(lib), pattern))]
+    first = next((i for i, op in enumerate(ops) if op in ("I2F", "I2FP")),
+                 len(ops))
+    loads = [i for i, op in enumerate(ops) if op == "LDG"]
+    return {"loads_before_first_decode": sum(i < first for i in loads),
+            "loads_after": sum(i > first for i in loads),
+            "first_decode_at": first, "instructions": len(ops)}
 
 
 def quickstart_setup(dev, fuse_round: bool = False):
@@ -623,9 +663,12 @@ def fused_kernel_checks(dev, flush, rec, x, stacked_randn):
 
 
 def ops_kernel_checks(dev, flush, rec):
-    """B6, B7 and B8 on one client's flat 2NN vector (n = 199 210, 8 bits:
-    planar [4, 50 176]; k = 3 streams), the inputs the ops entry points
-    give them."""
+    """B6, B7 and B8 on one client's flat 2NN vector (n = 199 210: planar
+    [4, 50 176] at 8 bits; k = 3 streams), the inputs the ops entry points
+    give them. B6 keyed (its key by value, as a host key goes, and by
+    pointer) against ``keyed_noise_ref`` over the one-leaf table + the
+    plain encode, and B8 against its plain version, at 2, 4, 8 and 16
+    bits; B6 with tensor noise and deterministic, and B7, at 8 bits."""
     import torch.nn.functional as F
 
     from repro_torch import prng
@@ -638,32 +681,88 @@ def ops_kernel_checks(dev, flush, rec):
     flat = torch.cat([t.reshape(-1) for _, t in
                       sorted(init_2nn(0, device="cpu").items())])
     n = flat.numel()
-    per, wd = ref.planar_pad_len(n, 8)
     delta = (0.01 * torch.randn(n, generator=gen)).to(dev)
-    x2d = F.pad(delta, (0, per * wd - n)).reshape(per, wd)
-    s = delta.abs().amax() / torch.full((), 127.0, device=dev)
-    noise = prng.uniform(prng.PRNGKey(6).to(dev), (per, wd))
+    key = prng.split(prng.PRNGKey(6), 2)[1]
+    key_dev = key.to(dev)
     r = rec["quantize_pack"]
+    at = {}                 # bits -> (x2d, s, noise)
+    for bits in (2, 4, 8, 16):
+        per, wd = ref.planar_pad_len(n, bits)
+        x2d = F.pad(delta, (0, per * wd - n)).reshape(per, wd)
+        s = delta.abs().amax() / torch.full((), 2.0 ** (bits - 1) - 1,
+                                            device=dev)
+        table = ref.NoiseTable((0,), (wd,), (per * wd,))
+        noise = ref.keyed_noise_ref(key_dev.reshape(1, 1, 2), table, per,
+                                    wd)[0]
+        check_words(f"B6 bits={bits} one-leaf table vs prng.uniform",
+                    noise.view(torch.int32),
+                    prng.uniform(key_dev, (per, wd)).view(torch.int32))
+        want = ref.quantize_pack_ref(x2d, s, bits, noise)
+        check_words(f"B6 bits={bits} keyed, host key",
+                    quantize_pack(x2d, s, bits, key=key), want)
+        check_words(f"B6 bits={bits} keyed, device key",
+                    quantize_pack(x2d, s, bits, key=key_dev), want)
+        r["checks"].append(f"bits={bits} keyed (host and device key) "
+                           f"shape={list(x2d.shape)} words bitwise vs "
+                           "one-leaf keyed_noise_ref + plain")
+        at[bits] = x2d, s, noise
+    x2d, s, noise = at[8]
+    per, wd = x2d.shape
     for nz in (noise, None):
-        got = quantize_pack(x2d, s, 8, nz)
-        check_words(f"B6 stochastic={nz is not None}", got,
+        check_words(f"B6 stochastic={nz is not None}",
+                    quantize_pack(x2d, s, 8, nz),
                     ref.quantize_pack_ref(x2d, s, 8, nz))
         r["checks"].append(f"bits=8 stochastic={nz is not None} "
                            f"shape={list(x2d.shape)} words bitwise")
-    words = quantize_pack(x2d, s, 8, noise)
-    timed(r, "", lambda: quantize_pack(x2d, s, 8, noise), flush)
-    timed(r, "plain_", lambda: ref.quantize_pack_ref(x2d, s, 8, noise),
-          flush)
-    r["bound_ms"], r["bound_by"] = bound(nbytes(x2d, s, noise, words),
-                                         8 * x2d.numel())
+    words = quantize_pack(x2d, s, 8, key=key)
+    timed(r, "", lambda: quantize_pack(x2d, s, 8, key=key), flush)
+    timed(r, "plain_", lambda: ref.quantize_pack_ref(
+        x2d, s, 8, prng.uniform(key_dev, x2d.shape)), flush)
+    timed(r, "tensor_noise_", lambda: quantize_pack(x2d, s, 8, noise), flush)
+    r["sass"] = keyed_ops("quantize_pack", 8, wd, per * wd,
+                          keyed=KEYED_BY_VALUE, cols=1)
+    r["bound_ms"], r["bound_by"] = bound(nbytes(x2d, s, words), 0,
+                                         r["sass"]["ms"])
+    r["bound_bytes_ms"] = bound(nbytes(x2d, s, words), 0)[0]
+    r["tensor_noise_bound_ms"] = bound(nbytes(x2d, s, noise, words),
+                                       8 * x2d.numel())[0]
     r["shape"] = list(x2d.shape)
 
-    xb = (torch.randn(per * wd, generator=gen) * 0.05).to(dev).reshape(
-        per, wd)
-    streams = torch.randint(-2 ** 31, 2 ** 31, (3, wd), generator=gen,
-                            dtype=torch.int64).to(torch.int32).to(dev)
-    scales = (torch.rand(3, generator=gen) * 1e-3).to(dev)
+    r = rec["dequant_mix"]
+    ring_at = {}            # bits -> (xb, streams, scales)
+    for bits in (2, 4, 8, 16):
+        per, wd = ref.planar_pad_len(n, bits)
+        xb = (torch.randn(per * wd, generator=gen) * 0.05).to(dev).reshape(
+            per, wd)
+        streams = torch.randint(-2 ** 31, 2 ** 31, (3, wd), generator=gen,
+                                dtype=torch.int64).to(torch.int32).to(dev)
+        scales = (torch.rand(3, generator=gen) * 1e-3).to(dev)
+        out = dequant_mix(xb, streams[0], streams[1], streams[2], scales,
+                          bits, 0.5, 0.25)
+        check_floats(r, f"B8 bits={bits}", [(out, ref.dequant_mix_ref(
+            xb, streams[0], streams[1], streams[2], scales, bits, 0.5,
+            0.25))])
+        r["checks"].append(f"bits={bits} shape={list(xb.shape)} "
+                           f"max_ulp={r['max_ulp']}")
+        ring_at[bits] = xb, streams, scales
+    xb, streams, scales = ring_at[8]
+    q_own, q_left, q_right = streams.unbind()
+    ops = device_ops(lambda: dequant_mix(xb, q_own, q_left, q_right, scales,
+                                         8, 0.5, 0.25))
+    r["device_ops_per_call"] = len(ops) / OPS_CALLS
+    r["device_ops"] = sorted(set(ops))
+    if len(ops) != OPS_CALLS or "dequant_mix_ring_kernel" not in ops[0]:
+        raise AssertionError(f"dequant_mix: {OPS_CALLS} calls made device "
+                             f"operations {ops}, expected one each")
+    r["sass_load_order"] = load_order("dequant_mix",
+                                      r"\ddequant_mix_ring_kernelILi8E")
     weights = torch.tensor([0.5, 0.25, 0.25], device=dev)
+    r = rec["dequant_mix_plan"]
+    check_floats(r, "dequant_mix_plan", [(
+        dequant_mix_plan(xb, streams, scales, weights, 8),
+        ref.dequant_mix_plan_ref(xb, streams, scales, weights, 8))])
+    r["checks"].append(f"bits=8 k=3 shape={list(xb.shape)} "
+                       f"max_ulp={r['max_ulp']}")
     cases = {
         "dequant_mix_plan": (
             lambda: dequant_mix_plan(xb, streams, scales, weights, 8),
@@ -675,19 +774,90 @@ def ops_kernel_checks(dev, flush, rec):
                                 scales, 8, 0.5, 0.25),
             lambda: ref.dequant_mix_ref(xb, streams[0], streams[1],
                                         streams[2], scales, 8, 0.5, 0.25),
-            (xb, streams, scales)),
+            (xb, q_own, q_left, q_right, scales)),
     }
     for name, (kernel, plain, inputs) in cases.items():
         r = rec[name]
         out = kernel()
-        check_floats(r, name, [(out, plain())])
-        r["checks"].append(f"bits=8 k=3 shape={list(xb.shape)} "
-                           f"max_ulp={r['max_ulp']}")
         timed(r, "", kernel, flush)
         timed(r, "plain_", plain, flush)
         r["bound_ms"], r["bound_by"] = bound(nbytes(*inputs, out),
                                              9 * xb.numel())
         r["shape"] = list(xb.shape)
+
+
+def device_ops(fn, calls: int = OPS_CALLS) -> list[str]:
+    """Names of the device operations (kernels, copies, fills) ``calls``
+    calls of ``fn`` make, from a ``torch.profiler`` trace. A first trace,
+    around a warm-up call, is left out: the first trace of a process can
+    miss its first kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for n in (1, calls):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names
+
+
+def floor_time(flush) -> dict:
+    """The floor of the event times: one launch that moves 4 bytes
+    (``zero_`` of a one-element tensor), timed as every kernel is."""
+    t = torch.ones(1, device=flush.device)
+    r = {}
+    timed(r, "", t.zero_, flush)
+    return r
+
+
+def entry_points(dev, runs: int = 200) -> dict:
+    """``encode_delta`` and ``decode_apply_ring`` as a caller sees them, on
+    one client's flat 2NN vector at 8 bits: the host clock around one call
+    ended by ``torch.cuda.synchronize()`` (median of ``runs`` after a
+    warm-up), and the device operations one call makes (profiler). Only
+    the entry points' public signatures are used, so the same function
+    times another tree's package."""
+    from repro_torch import prng
+    from repro_torch.kernels import (decode_apply_ring, encode_delta,
+                                     ref)
+
+    gen = torch.Generator().manual_seed(4)
+    n = 199210
+    _, wd = ref.planar_pad_len(n, 8)
+    x = (torch.randn(n, generator=gen) * 0.05).to(dev)
+    delta = (torch.randn(n, generator=gen) * 0.01).to(dev)
+    q = (torch.randint(-2 ** 31, 2 ** 31, (3, wd), generator=gen,
+                       dtype=torch.int64).to(torch.int32).to(dev))
+    q_own, q_left, q_right = (t.clone() for t in q)
+    scales = (torch.rand(3, generator=gen) * 1e-3).to(dev)
+    key = prng.PRNGKey(8)
+    calls = {
+        "encode_delta": lambda: encode_delta(delta, 8, key=key),
+        "decode_apply_ring": lambda: decode_apply_ring(
+            x, q_own, q_left, q_right, scales, bits=8, w_self=0.5,
+            w_nb=0.25)}
+    rep = {}
+    for name, fn in calls.items():
+        for _ in range(WARMUP):
+            fn()
+        ms = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ops = device_ops(fn)
+        rep[name] = {"call_ms_median": statistics.median(ms),
+                     "call_ms_quartiles": statistics.quantiles(ms, n=4),
+                     "device_ops_per_call": len(ops) / OPS_CALLS,
+                     "device_ops": sorted(set(ops))}
+    return {"entry_points": rep}
 
 
 def expected_launches(fuse_round: bool) -> dict:
@@ -1014,6 +1184,8 @@ def main() -> int:
                       "nvcc_s": per_source}), flush=True)
 
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+    floor = floor_time(flush)
+    print(json.dumps({"floor": floor}), flush=True)
     rec = kernel_checks(dev, flush)
     del flush
     reference_checks(dev)
@@ -1021,6 +1193,12 @@ def main() -> int:
     counts["unfused"], unfused_ms, losses = round_path(dev, False)
     counts["fused"], fused_ms, fused_losses = round_path(dev, True)
     counts["ops"] = ops_path(dev)
+    entry = entry_points(dev)
+    print(json.dumps(entry), flush=True)
+    copies = [op for op in entry["entry_points"]["encode_delta"]["device_ops"]
+              if "HtoD" in op]
+    if copies:
+        raise AssertionError(f"encode_delta copies from the host: {copies}")
     round_breakdown(dev)
 
     table = []
@@ -1042,7 +1220,8 @@ def main() -> int:
                           "unfused": [losses[0], losses[-1]],
                           "fused": [fused_losses[0], fused_losses[-1]]}}))
     print(card)
-    print(json.dumps({"kernels": table}))
+    print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
+                      "floor_clean_ms": floor["clean_ms"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,9 +9,9 @@
 // B7, dequant_mix_plan — replaces dequant_mix_plan_pallas,
 //   src/repro/kernels/dequant_mix.py:203 (pallas_call at :216, body
 //   _dequant_mix_plan_kernel at :45).
-// B8 (dequant_mix_pallas, src/repro/kernels/dequant_mix.py:232, body
-//   _dequant_mix_kernel at :27) is B7 at k = 3 with the weights
-//   (w_self, w_nb, w_nb): its wrapper launches dequant_mix_plan below.
+// B8, dequant_mix_ring — replaces dequant_mix_pallas,
+//   src/repro/kernels/dequant_mix.py:232 (pallas_call at :243, body
+//   _dequant_mix_kernel at :27): the ring form over three stream pointers.
 //
 // B2 computes, for every client c and planar element (i, w):
 //   out[c,i,w] = base[c,i,w]
@@ -22,13 +22,15 @@
 // round's deferred heavy-ball step (theta * v - eta * g) to the f32
 // accumulator before the store. B7 is the per-tensor form over one
 // client: out = x + sum_k weight[k] * (field_k - 2^(b-1)) * scale[k] over
-// a [k, W] stream stack.
+// a [k, W] stream stack. B8 is the ring's k = 3 with the weights (w_self,
+// w_nb, w_nb): own, then left, then right.
 //
 // Bound on the H100: bytes. At the 2NN main path (m = 16, per = 4,
 // W = 51 712, K = 3) B2 reads the base and every client's words once
 // (the gather form) and writes the output, ~30 MB, ~8.9 us at 3.35 TB/s;
 // B5 also reads v and g, ~56 MB, ~16.8 us; B7 and B8 on one client's 2NN
-// vector ([4, 50 176], k = 3) move 2.2 MB, ~0.66 us, far below a launch.
+// vector ([4, 50 176], k = 3) move 2.2 MB, ~0.66 us, far below a launch:
+// what bounds them is the launch and the DRAM latency of their loads.
 //
 // Design: grid (word chunks, clients). B2 and B5 gather each neighbour's
 // words and scales through the plan's src table themselves, so the
@@ -43,9 +45,18 @@
 // block: a thread reads them, and its streams' scales, for up to kStreams
 // streams at a time before any word of those streams is decoded, so their
 // word loads are in flight together (the ring's K = 3 is one group). B7
-// keeps one thread per column. Each multiply and add is a separate _rn
-// intrinsic, so nvcc cannot contract them into an FMA and the output is
-// bitwise equal to the plain PyTorch version.
+// keeps one thread per column. B8 is built for latency: one launch, its
+// three streams as three pointers (no [3, W] stack, no weight tensor: the
+// weights come by value), and a thread of 4 columns issues every load it
+// needs — its per 16-byte rows of x, the three streams' 16-byte words and
+// the three scales — before it decodes anything (load_now: the compiler
+// would otherwise sink each stream's loads to its decode), so the whole job
+// is one DRAM round trip. 4 columns a thread is W / 4 = 12 544 threads at
+// the 2NN vector; blocks of kRingThreads = 64 make that 196 blocks, so every
+// one of the 132 SMs holds one (blocks of 256 would leave 83 SMs idle). Each
+// multiply and add is a separate _rn intrinsic, so nvcc cannot contract
+// them into an FMA and the output is bitwise equal to the plain PyTorch
+// version.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,6 +67,7 @@ constexpr int kThreads = 256;
 constexpr int kCols = 4;      // word columns a B2/B5 thread decodes
 constexpr int kStreams = 4;   // streams whose words a B2/B5 thread loads
                               // before decoding any of them
+constexpr int kRingThreads = 64;  // B8's block: >= 132 blocks at W = 50 176
 
 // acc[i] += wk * ((field_i(word) - 2^(b-1)) * s), one rounding per step.
 template <int BITS>
@@ -74,6 +86,46 @@ __device__ __forceinline__ void accumulate(float (&acc)[32 / BITS],
 
 __device__ __forceinline__ void unpack4(float4 a, float (&out)[kCols]) {
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+}
+
+// Loads that stay in the order they are written. nvcc and ptxas otherwise
+// sink each of B8's loads to just before its first use, so a stream's
+// words are only asked for after the previous stream is decoded (a DRAM
+// round trip per stream); volatile loads keep their order, so B8 issues
+// its own stream's words last, and every load is in flight before the
+// first decode. A host build reads plainly.
+__device__ __forceinline__ float4 load_now(const float* p) {
+#ifdef __CUDA_ARCH__
+  float4 v;
+  asm volatile("ld.volatile.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+#else
+  return *reinterpret_cast<const float4*>(p);
+#endif
+}
+
+__device__ __forceinline__ uint4 load_now(const uint32_t* p) {
+#ifdef __CUDA_ARCH__
+  uint4 v;
+  asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+#else
+  return *reinterpret_cast<const uint4*>(p);
+#endif
+}
+
+__device__ __forceinline__ float load_scalar_now(const float* p) {
+#ifdef __CUDA_ARCH__
+  float v;
+  asm volatile("ld.volatile.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+#else
+  return *p;
+#endif
 }
 
 // The body of B2 (MOMENTUM = false) and B5 (MOMENTUM = true) for client
@@ -187,6 +239,55 @@ __global__ void dequant_mix_plan_kernel(const float* __restrict__ x,
   for (int i = 0; i < PER; ++i) out[static_cast<size_t>(i) * W + w] = acc[i];
 }
 
+// B8: one thread per 4 columns [w, w + 4); every load is issued before
+// the first decode, then own, left and right accumulate in that order.
+template <int BITS>
+__global__ void __launch_bounds__(kRingThreads)
+dequant_mix_ring_kernel(const float* __restrict__ x,
+                        const uint32_t* __restrict__ q_own,
+                        const uint32_t* __restrict__ q_left,
+                        const uint32_t* __restrict__ q_right,
+                        const float* __restrict__ scales, float w_self,
+                        float w_nb, float* __restrict__ out, int W) {
+  constexpr int PER = 32 / BITS;
+  const int w = kCols * (blockIdx.x * kRingThreads + threadIdx.x);
+  if (w >= W) return;
+  // Own's words last: its decode comes first, so it cannot start before
+  // every other load is issued.
+  float4 xr[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    xr[i] = load_now(x + static_cast<size_t>(i) * W + w);
+  const uint4 ql = load_now(q_left + w);
+  const uint4 qr = load_now(q_right + w);
+  const float s_own = load_scalar_now(scales);
+  const float s_left = load_scalar_now(scales + 1);
+  const float s_right = load_scalar_now(scales + 2);
+  const uint4 qo = load_now(q_own + w);
+  float acc[kCols][PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    float b[kCols];
+    unpack4(xr[i], b);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j][i] = b[j];
+  }
+  const uint4 q[3] = {qo, ql, qr};
+  const float s[3] = {s_own, s_left, s_right};
+  const float wk[3] = {w_self, w_nb, w_nb};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    accumulate<BITS>(acc[0], q[k].x, s[k], wk[k]);
+    accumulate<BITS>(acc[1], q[k].y, s[k], wk[k]);
+    accumulate<BITS>(acc[2], q[k].z, s[k], wk[k]);
+    accumulate<BITS>(acc[3], q[k].w, s[k], wk[k]);
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    *reinterpret_cast<float4*>(out + static_cast<size_t>(i) * W + w) =
+        make_float4(acc[0][i], acc[1][i], acc[2][i], acc[3][i]);
+}
+
 template <int BITS>
 void launch(const float* base, const uint32_t* words, const float* sblk,
             const float* weights, const int* src, const float* v,
@@ -265,8 +366,8 @@ extern "C" int dequant_mix_momentum_buffer(const void* base,
                          bits, eta, theta, stream);
 }
 
-// B7 (and B8 at K = 3). x, out: f32 [32/bits, W]; streams: u32 [K, W];
-// scales, weights: f32 [K]. Returns cudaGetLastError().
+// B7. x, out: f32 [32/bits, W]; streams: u32 [K, W]; scales, weights:
+// f32 [K]. Returns cudaGetLastError().
 extern "C" int dequant_mix_plan(const void* x, const void* streams,
                                 const void* scales, const void* weights,
                                 void* out, int K, int W, int bits,
@@ -294,6 +395,47 @@ extern "C" int dequant_mix_plan(const void* x, const void* streams,
     case 16:
       dequant_mix_plan_kernel<16>
           <<<grid, kThreads, 0, st>>>(xf, sw, sc, wt, o, K, W);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B8. x, out: f32 [32/bits, W] and q_own, q_left, q_right: u32 [W], each
+// 16-byte aligned, W a multiple of 512; scales: f32 [3] on the device (own,
+// left, right); w_self, w_nb: the static weights rounded to f32. Returns
+// cudaGetLastError() (or cudaErrorInvalidValue for a bad W or bits).
+extern "C" int dequant_mix_ring(const void* x, const void* q_own,
+                                const void* q_left, const void* q_right,
+                                const void* scales, float w_self, float w_nb,
+                                void* out, int W, int bits, void* stream) {
+  const float* xf = static_cast<const float*>(x);
+  const uint32_t* qo = static_cast<const uint32_t*>(q_own);
+  const uint32_t* ql = static_cast<const uint32_t*>(q_left);
+  const uint32_t* qr = static_cast<const uint32_t*>(q_right);
+  const float* sc = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W % kLaneBlock || W < kLaneBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid =
+      static_cast<unsigned>(W / kCols / kRingThreads);  // W % 256 == 0
+  switch (bits) {
+    case 2:
+      dequant_mix_ring_kernel<2><<<grid, kRingThreads, 0, st>>>(
+          xf, qo, ql, qr, sc, w_self, w_nb, o, W);
+      break;
+    case 4:
+      dequant_mix_ring_kernel<4><<<grid, kRingThreads, 0, st>>>(
+          xf, qo, ql, qr, sc, w_self, w_nb, o, W);
+      break;
+    case 8:
+      dequant_mix_ring_kernel<8><<<grid, kRingThreads, 0, st>>>(
+          xf, qo, ql, qr, sc, w_self, w_nb, o, W);
+      break;
+    case 16:
+      dequant_mix_ring_kernel<16><<<grid, kRingThreads, 0, st>>>(
+          xf, qo, ql, qr, sc, w_self, w_nb, o, W);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,8 +9,13 @@
 //   (pallas_call at :147, body _momentum_quantize_pack_kernel at :82).
 // B6, quantize_pack — replaces quantize_pack_pallas,
 //   src/repro/kernels/quantize_pack.py:166 (pallas_call at :177, the same
-//   body _quantize_pack_kernel). B1's kernel with one scale: the scale
-//   stride is 0 and m = 1, as the JAX package runs one body for both.
+//   body _quantize_pack_kernel): B1's encode of one client's buffer with
+//   one scale, in a kernel of its own sized for one client. Keyed
+//   (quantize_pack_keyed), it draws ops.encode_delta's noise itself:
+//   uniform(key, (per, W)) over the whole padded buffer, position (i, w)
+//   drawing element i * W + w, which is B1's counter for a one-leaf table
+//   (word offset 0, leaf words W, size per * W); so the words are those of
+//   the JAX package's encode_delta for the same key.
 //
 // Computes, for every client c and word column w of a planar [per, W]
 // buffer (per = 32 / bits):
@@ -30,10 +35,14 @@
 // takes the busiest pipe at its peak rate. B4 keyed reads y, v, g and
 // x_held and writes y', v' and the words, ~82.7 MB, ~24.7 us: bytes, since
 // the same draws cost B1 ~12 us of ALU (chip_smoke.py counts B4's SASS the
-// same way). B6 on one client's 2NN vector ([4, 50 176]) moves 1.8 MB,
-// ~0.54 us, far below a launch.
+// same way). B6 on one client's 2NN vector ([4, 50 176]): keyed it reads x
+// and the scale and writes the words, ~1.0 MB, ~0.30 us, and draws 200 704
+// values (padding too, as encode_delta does), which chip_smoke.py counts
+// by pipe from its SASS as for B1, ~0.65 us; with tensor noise it moves
+// 1.8 MB, ~0.54 us. Either is far below a launch: what bounds B6 is the
+// launch and the DRAM round trips a thread waits for.
 //
-// Design: B1, B4 and B6 run one body (encode_columns), one launch for all m
+// Design: B1 and B4 run one body (encode_columns), one launch for all m
 // clients, grid (column chunks, clients). Each thread packs 4 consecutive
 // word columns: per planar row one 16-byte load of each input (x; B4: y, v,
 // g and x_held; the noise in tensor mode) and one 16-byte store of each
@@ -42,7 +51,7 @@
 // coalesced. W is a multiple of 512, so rows stay 16-byte aligned and 4
 // columns never straddle a lane block. The noise source is a template
 // parameter: none (deterministic floor), tensor (a [m, per, W] f32 input,
-// B6 and the parity tests) or keyed. Keyed, the kernel draws the
+// the parity tests) or keyed. Keyed, the kernel draws the
 // stochastic-rounding noise itself: the wrapper passes the raw per-leaf keys
 // [n_leaves, m, 2] (int64, truncated to u32 here) and the layout's leaf
 // table (word offset, leaf words, size), which the C entry hands the kernel
@@ -57,6 +66,21 @@
 // the _rn intrinsics so the words (and B4's y', v') are bitwise equal to
 // the plain PyTorch version (IEEE division, no contraction of
 // theta * v - eta * g into an FMA).
+//
+// B6 is one client: with B1's body (4 columns a thread, blocks of 256) the
+// 2NN vector is 49 blocks on 132 SMs, one or two warps on an SM, and each
+// thread loads its rows one at a time, every load behind the previous
+// row's division slow path and keyed draw (ptxas does not hoist a load
+// past their branches): a DRAM round trip per row, with too few warps to
+// hide it. So B6 has its own body (quantize_pack_kernel): one column a
+// thread in blocks of kOneThreads = 64 (784 blocks, ~6 on every SM, 4-byte
+// access: the loads are latency, not bandwidth, at this size), every row of
+// x (and of the noise) loaded before anything is computed, then the draws,
+// then the fields: one round trip. The whole buffer draws, so no leaf
+// lookup and no bounds check. Its key comes by value when the caller holds
+// it on the host (prng.PRNGKey makes a CPU tensor; a pageable copy to the
+// device would stall the stream), and by pointer, as B1's keys do, when it
+// lies on the device.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,8 +92,11 @@ constexpr int kLaneBlock = 512;
 constexpr int kThreads = 256;
 constexpr int kCols = 4;          // word columns a thread packs
 constexpr int kMaxKeyedLeaves = 64;
+constexpr int kOneThreads = 64;   // B6: >= 132 blocks at W = 50 176
 
-enum class Noise { kNone, kTensor, kKeyed };
+// kKeyed reads its keys from the device; kKeyedByValue (B6 alone) takes
+// its one key by value.
+enum class Noise { kNone, kTensor, kKeyed, kKeyedByValue };
 
 // The layout's leaves served by one keyed launch (by value): leaf l owns
 // columns [word_offset[l], word_offset[l] + leaf_words[l]) and size[l] real
@@ -83,10 +110,8 @@ struct KeyedTable {
 };
 
 // Every operand of one encode, as the C entries gather them. x is the value
-// B1 and B6 encode, or B4's held parameters x_held; y, v, g, y_out and
-// v_out are B4's alone (null for B1 and B6). sblk
-// holds one scale per (client, lane block); s_stride is the distance
-// between two lane blocks' scales (0 for B6's single scale).
+// B1 encodes, or B4's held parameters x_held; y, v, g, y_out and v_out are
+// B4's alone (null for B1). sblk holds one scale per (client, lane block).
 struct Operands {
   const float* x;
   const float* y;
@@ -100,7 +125,6 @@ struct Operands {
   uint32_t* out;
   int m;
   int W;
-  int s_stride;
   float eta;
   float theta;
 };
@@ -139,7 +163,7 @@ __device__ __forceinline__ void encode_columns(
     const float* __restrict__ noise, const int64_t* __restrict__ keys,
     const float* __restrict__ sblk, float* __restrict__ y_out,
     float* __restrict__ v_out, uint32_t* __restrict__ out, int m, int W,
-    int s_stride, float eta, float theta, int w_begin, int w_end,
+    float eta, float theta, int w_begin, int w_end,
     const KeyedTable& t) {
   constexpr int PER = 32 / BITS;
   constexpr bool STOCHASTIC = NOISE != Noise::kNone;
@@ -147,7 +171,7 @@ __device__ __forceinline__ void encode_columns(
   const int w = w_begin + kCols * (blockIdx.x * kThreads + threadIdx.x);
   if (w >= w_end) return;
   const float s = sblk[(static_cast<size_t>(c) * (W / kLaneBlock)
-                        + w / kLaneBlock) * s_stride];
+                        + w / kLaneBlock)];
   uint32_t k1 = 0, k2 = 0, lw = 0, col = 0;
   int64_t size = 0;
   if (NOISE == Noise::kKeyed) {
@@ -212,10 +236,10 @@ __device__ __forceinline__ void encode(const Operands& o, int w_begin,
                                        int w_end, const KeyedTable& t) {
   encode_columns<BITS, NOISE, MOMENTUM>(
       o.x, o.y, o.v, o.g, o.noise, o.keys, o.sblk, o.y_out, o.v_out, o.out,
-      o.m, o.W, o.s_stride, o.eta, o.theta, w_begin, w_end, t);
+      o.m, o.W, o.eta, o.theta, w_begin, w_end, t);
 }
 
-// B1 and B6. The table is a __grid_constant__ parameter: the leaf search
+// B1. The table is a __grid_constant__ parameter: the leaf search
 // indexes it in place, without a copy to local memory.
 template <int BITS, Noise NOISE>
 __global__ void __launch_bounds__(kThreads)
@@ -231,6 +255,77 @@ momentum_quantize_pack_buffer_kernel(const Operands o, int w_begin,
                                      int w_end,
                                      const __grid_constant__ KeyedTable t) {
   encode<BITS, NOISE, true>(o, w_begin, w_end, t);
+}
+
+// B6: word column w of one [per, W] buffer with one scale *s. Every load
+// comes first; the key is (k1, k2), or key[0..1] when NOISE is kKeyed.
+template <int BITS, Noise NOISE>
+__global__ void __launch_bounds__(kOneThreads)
+quantize_pack_kernel(const float* __restrict__ x,
+                     const float* __restrict__ noise,
+                     const int64_t* __restrict__ key,
+                     const float* __restrict__ s, uint32_t* __restrict__ out,
+                     int W, uint32_t k1, uint32_t k2) {
+  constexpr int PER = 32 / BITS;
+  const int w = blockIdx.x * kOneThreads + threadIdx.x;
+  if (w >= W) return;
+  float xs[PER], us[PER] = {};
+#pragma unroll
+  for (int i = 0; i < PER; ++i) xs[i] = x[static_cast<size_t>(i) * W + w];
+  if constexpr (NOISE == Noise::kTensor) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      us[i] = noise[static_cast<size_t>(i) * W + w];
+  }
+  const float scale = *s;
+  if constexpr (NOISE == Noise::kKeyed) {
+    k1 = static_cast<uint32_t>(key[0]);
+    k2 = static_cast<uint32_t>(key[1]);
+  }
+  if constexpr (NOISE == Noise::kKeyed || NOISE == Noise::kKeyedByValue) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      us[i] = threefry::uniform_at(
+          k1, k2, static_cast<uint64_t>(i) * W + static_cast<uint64_t>(w));
+  }
+  uint32_t word = 0;
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    word |= quantize_field<BITS, NOISE != Noise::kNone>(xs[i], scale, us[i])
+            << (BITS * i);
+  out[w] = word;
+}
+
+template <int BITS, Noise NOISE>
+void launch_one(const float* x, const float* noise, const int64_t* key,
+                const float* s, uint32_t* out, int W, uint32_t k1,
+                uint32_t k2, cudaStream_t stream) {
+  const unsigned grid = static_cast<unsigned>(W / kOneThreads);
+  quantize_pack_kernel<BITS, NOISE><<<grid, kOneThreads, 0, stream>>>(
+      x, noise, key, s, out, W, k1, k2);
+}
+
+// One B6 launch over all W columns (a multiple of 512).
+template <Noise NOISE>
+int dispatch_one(const void* x, const void* noise, const void* key,
+                 const void* s, void* out, int W, int bits, uint32_t k1,
+                 uint32_t k2, void* stream) {
+  const float* xf = static_cast<const float*>(x);
+  const float* nf = static_cast<const float*>(noise);
+  const int64_t* kp = static_cast<const int64_t*>(key);
+  const float* sf = static_cast<const float*>(s);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W % kLaneBlock || W < kLaneBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (bits) {
+    case 2: launch_one<2, NOISE>(xf, nf, kp, sf, o, W, k1, k2, st); break;
+    case 4: launch_one<4, NOISE>(xf, nf, kp, sf, o, W, k1, k2, st); break;
+    case 8: launch_one<8, NOISE>(xf, nf, kp, sf, o, W, k1, k2, st); break;
+    case 16: launch_one<16, NOISE>(xf, nf, kp, sf, o, W, k1, k2, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int BITS, Noise NOISE, bool MOMENTUM>
@@ -310,8 +405,7 @@ int dispatch_keyed(const Operands& o, int bits, const int32_t* word_offset,
 }
 
 Operands encode_operands(const void* x, const void* noise, const void* keys,
-                         const void* sblk, void* out, int m, int W,
-                         int s_stride) {
+                         const void* sblk, void* out, int m, int W) {
   Operands o{};
   o.x = static_cast<const float*>(x);
   o.noise = static_cast<const float*>(noise);
@@ -320,7 +414,6 @@ Operands encode_operands(const void* x, const void* noise, const void* keys,
   o.out = static_cast<uint32_t*>(out);
   o.m = m;
   o.W = W;
-  o.s_stride = s_stride;
   return o;
 }
 
@@ -329,7 +422,7 @@ Operands momentum_operands(const void* y, const void* v, const void* g,
                            const void* keys, const void* sblk, void* y_out,
                            void* v_out, void* out, int m, int W, float eta,
                            float theta) {
-  Operands o = encode_operands(x, noise, keys, sblk, out, m, W, 1);
+  Operands o = encode_operands(x, noise, keys, sblk, out, m, W);
   o.y = static_cast<const float*>(y);
   o.v = static_cast<const float*>(v);
   o.g = static_cast<const float*>(g);
@@ -350,7 +443,7 @@ extern "C" int quantize_pack_buffer(const void* x, const void* noise,
                                     int W, int bits, int stochastic,
                                     void* stream) {
   return dispatch_plain<false>(
-      encode_operands(x, noise, nullptr, sblk, out, m, W, 1), bits,
+      encode_operands(x, noise, nullptr, sblk, out, m, W), bits,
       stochastic, stream);
 }
 
@@ -367,19 +460,37 @@ extern "C" int quantize_pack_buffer_keyed(
     int W, int bits, const int32_t* word_offset, const int32_t* leaf_words,
     const int64_t* sizes, int n_leaves, void* stream, int* launches) {
   return dispatch_keyed<false>(
-      encode_operands(x, nullptr, keys, sblk, out, m, W, 1), bits,
+      encode_operands(x, nullptr, keys, sblk, out, m, W), bits,
       word_offset, leaf_words, sizes, n_leaves, stream, launches);
 }
 
-// B6. x, noise: f32 [32/bits, W], 16-byte aligned; s: f32 [1] (device);
-// out: u32 [W]. noise may be null when stochastic == 0. Returns
+// B6 with tensor noise or none. x, noise: f32 [32/bits, W]; s: f32 [1]
+// (device); out: u32 [W]. noise may be null when stochastic == 0. Returns
 // cudaGetLastError().
 extern "C" int quantize_pack(const void* x, const void* noise, const void* s,
                              void* out, int W, int bits, int stochastic,
                              void* stream) {
-  return dispatch_plain<false>(
-      encode_operands(x, noise, nullptr, s, out, 1, W, 0), bits, stochastic,
-      stream);
+  return stochastic
+             ? dispatch_one<Noise::kTensor>(x, noise, nullptr, s, out, W,
+                                            bits, 0, 0, stream)
+             : dispatch_one<Noise::kNone>(x, nullptr, nullptr, s, out, W,
+                                          bits, 0, 0, stream);
+}
+
+// B6 keyed: the noise of uniform(key, (32/bits, W)) drawn in the kernel.
+// x: f32 [32/bits, W]; s: f32 [1] (device); out: u32 [W]. key: int64 [2]
+// on the device (the raw key words, truncated to u32 here), or null, and
+// then the key is (k1, k2) by value. Returns cudaGetLastError() (or
+// cudaErrorInvalidValue for a bad W or bits).
+extern "C" int quantize_pack_keyed(const void* x, const void* key,
+                                   uint32_t k1, uint32_t k2, const void* s,
+                                   void* out, int W, int bits,
+                                   void* stream) {
+  return key ? dispatch_one<Noise::kKeyed>(x, nullptr, key, s, out, W, bits,
+                                           0, 0, stream)
+             : dispatch_one<Noise::kKeyedByValue>(x, nullptr, nullptr, s,
+                                                  out, W, bits, k1, k2,
+                                                  stream);
 }
 
 // B4 with tensor noise or none. y, v, g, x, noise, y_out, v_out: f32

@@ -3,12 +3,13 @@ PyTorch version (``ref.py``):
 
 quantize_pack — B1, whole-buffer quantize + planar pack (wire encoder);
                 B4, the same fused with the penultimate heavy-ball step;
-                B6, one buffer with one scale (B1's kernel)
+                B6, one buffer with one scale (B1's encode, keyed or
+                with tensor noise, in a kernel sized for one client)
 dequant_mix   — B2, whole-buffer fused unpack + dequantize + gossip apply,
                 gathering neighbours' streams through the plan's src table;
                 B5, the same fused with the deferred last heavy-ball step;
-                B7, one buffer over a [k, W] stream stack; B8, its ring
-                form (B7's kernel at k = 3)
+                B7, one buffer over a [k, W] stream stack; B8, the ring
+                form over three stream pointers
 momentum_sgd  — B3, fused heavy-ball update
 
 ``ops`` holds the per-tensor entry points (``encode_delta``,

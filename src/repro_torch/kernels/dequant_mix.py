@@ -8,8 +8,9 @@ B5 ``dequant_mix_momentum_buffer`` — the same decode fused with the
    (``dequant_mix_momentum_buffer_pallas``);
 B7 ``dequant_mix_plan`` — one [per, W] buffer, one scale and weight per
    stream of a [k, W] stack (``dequant_mix_plan_pallas``);
-B8 ``dequant_mix`` — the ring form (``dequant_mix_pallas``): B7's kernel
-   at k = 3 with the weights (w_self, w_nb, w_nb).
+B8 ``dequant_mix`` — the ring form (``dequant_mix_pallas``): one launch
+   of a kernel of its own over the three stream pointers (own, left,
+   right) with the weights (w_self, w_nb, w_nb) by value.
 
 Unlike the Pallas kernels, which take an already gathered ``[k, W]``
 stream stack per client, B2 and B5 take every client's own words once plus
@@ -28,12 +29,14 @@ import torch
 from . import native
 from .ref import (LANE_BLOCK, dequant_mix_buffer_ref,
                   dequant_mix_momentum_buffer_ref, dequant_mix_plan_ref,
-                  dequant_mix_ref, ring_weights)
+                  dequant_mix_ref)
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGTYPES_MOMENTUM = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 _ARGTYPES_PLAN = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES_RING = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2
+                  + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def dequant_mix_buffer_plain(base: torch.Tensor, words: torch.Tensor,
@@ -141,15 +144,17 @@ def dequant_mix_momentum_buffer(base: torch.Tensor, words: torch.Tensor,
     return out
 
 
-def _launch_plan(x: torch.Tensor, streams: torch.Tensor, scales: torch.Tensor,
-                 weights: torch.Tensor, bits: int, kernel: str
-                 ) -> torch.Tensor:
-    """One launch of ``csrc/dequant_mix.cu:dequant_mix_plan``, counted
-    under ``kernel``."""
+def _check_one(x: torch.Tensor, bits: int) -> None:
     if bits not in (2, 4, 8, 16):
         raise ValueError(f"bits must be in (2, 4, 8, 16), got {bits}")
     if x.dim() != 2 or x.shape[0] != 32 // bits or x.shape[1] % LANE_BLOCK:
         raise ValueError(f"bad planar shape {tuple(x.shape)} for {bits} bits")
+
+
+def _launch_plan(x: torch.Tensor, streams: torch.Tensor, scales: torch.Tensor,
+                 weights: torch.Tensor, bits: int) -> torch.Tensor:
+    """One launch of ``csrc/dequant_mix.cu:dequant_mix_plan``."""
+    _check_one(x, bits)
     k, w = streams.shape[0], x.shape[1]
     native.require(x, "x", torch.float32)
     native.require(streams, "streams", torch.int32, (k, w), x.device)
@@ -161,7 +166,7 @@ def _launch_plan(x: torch.Tensor, streams: torch.Tensor, scales: torch.Tensor,
         rc = fn(x.data_ptr(), streams.data_ptr(), scales.data_ptr(),
                 weights.data_ptr(), out.data_ptr(), k, w, bits,
                 native.stream_of(x))
-    native.check_launch(rc, kernel)
+    native.check_launch(rc, "dequant_mix_plan")
     return out
 
 
@@ -173,7 +178,7 @@ def dequant_mix_plan(x: torch.Tensor, streams: torch.Tensor,
     (runtime). Returns f32 [per, W]."""
     if x.device.type == "cpu":
         return dequant_mix_plan_ref(x, streams, scales, weights, bits)
-    return _launch_plan(x, streams, scales, weights, bits, "dequant_mix_plan")
+    return _launch_plan(x, streams, scales, weights, bits)
 
 
 def dequant_mix(x: torch.Tensor, q_own: torch.Tensor, q_left: torch.Tensor,
@@ -181,10 +186,28 @@ def dequant_mix(x: torch.Tensor, q_own: torch.Tensor, q_left: torch.Tensor,
                 w_self: float, w_nb: float) -> torch.Tensor:
     """Ring form of eq. 7: ``x + w_self*deq(q_own) + w_nb*deq(q_left) +
     w_nb*deq(q_right)``; x f32 [per, W]; q_* int32 [W]; scales f32 [3]
-    (own, left, right); the static weights are rounded to f32."""
+    (own, left, right); the static weights are rounded to f32. On CUDA,
+    x and the three streams must be 16-byte aligned; the call is one
+    launch of ``csrc/dequant_mix.cu:dequant_mix_ring`` and allocates only
+    its output."""
     if x.device.type == "cpu":
         return dequant_mix_ref(x, q_own, q_left, q_right, scales, bits,
                                w_self, w_nb)
-    return _launch_plan(x, torch.stack([q_own, q_left, q_right]), scales,
-                        ring_weights(w_self, w_nb, x.device), bits,
-                        "dequant_mix")
+    _check_one(x, bits)
+    w = x.shape[1]
+    native.require(x, "x", torch.float32)
+    native.require_aligned(x, "x")
+    for q, name in ((q_own, "q_own"), (q_left, "q_left"),
+                    (q_right, "q_right")):
+        native.require(q, name, torch.int32, (w,), x.device)
+        native.require_aligned(q, name)
+    native.require(scales, "scales", torch.float32, (3,), x.device)
+    out = torch.empty_like(x)
+    fn = native.function("dequant_mix", "dequant_mix_ring", _ARGTYPES_RING)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), q_own.data_ptr(), q_left.data_ptr(),
+                q_right.data_ptr(), scales.data_ptr(),
+                float(np.float32(w_self)), float(np.float32(w_nb)),
+                out.data_ptr(), w, bits, native.stream_of(x))
+    native.check_launch(rc, "dequant_mix")
+    return out

@@ -5,7 +5,8 @@ The per-tensor entry points work on ONE flat parameter vector ``[n]``,
 zero-padded to ``planar_pad_len(n, bits)`` and viewed row-major as
 ``[per, W]``:
 
-encode_delta         — per-tensor scale + B6 (quantize + pack)
+encode_delta         — per-tensor scale + B6 (quantize + pack; keyed on
+                       the card: the noise is drawn in the kernel)
 decode_apply_ring    — B8, the ring form of eq. 7
 decode_apply_plan    — B7, eq. 7 over a plan's [k, W] stream stack
 momentum_update_flat — B3 on one flat vector (a one-leaf table)
@@ -20,7 +21,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .. import prng
 from . import native
 from .dequant_mix import dequant_mix, dequant_mix_plan
 from .momentum_sgd import momentum_sgd, momentum_sgd_leaves
@@ -45,7 +45,11 @@ def encode_delta(delta: torch.Tensor, bits: int, *, stochastic: bool = True,
     ``s = amax / qmax`` is a true division (1.0 when amax is 0), as in
     the JAX package's ``encode_delta`` — not the reciprocal multiply of
     ``core.quantize.scale_from_amax``. The noise is ``uniform(key,
-    (per, W))`` over the whole padded buffer from one key."""
+    (per, W))`` over the whole padded buffer from one key: on the CPU
+    drawn by ``prng.uniform``, on the card by B6 itself from the key
+    (a host key by value), the same bits."""
+    if stochastic and key is None:
+        raise ValueError("stochastic encode needs a key")
     x2d = _planar(delta, bits)
     qmax = torch.full((), 2 ** (bits - 1) - 1, dtype=torch.float32,
                       device=x2d.device)
@@ -53,12 +57,7 @@ def encode_delta(delta: torch.Tensor, bits: int, *, stochastic: bool = True,
     # Divide by a device tensor: CUDA turns a division by a host scalar
     # into a multiply by its reciprocal.
     s = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
-    noise = None
-    if stochastic:
-        if key is None:
-            raise ValueError("stochastic encode needs a key")
-        noise = prng.uniform(key.to(x2d.device), x2d.shape)
-    return quantize_pack(x2d, s, bits, noise), s
+    return quantize_pack(x2d, s, bits, key=key if stochastic else None), s
 
 
 def decode_apply_ring(x: torch.Tensor, q_own: torch.Tensor,

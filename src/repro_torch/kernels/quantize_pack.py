@@ -10,7 +10,9 @@ B4 ``momentum_quantize_pack_buffer`` — the same encode fused with the
    (``momentum_quantize_pack_buffer_pallas``), its noise given as a
    tensor or, keyed, drawn inside the kernel as B1 draws it;
 B6 ``quantize_pack`` — one [per, W] buffer with one scale
-   (``quantize_pack_pallas``): B1's kernel with a scale stride of 0.
+   (``quantize_pack_pallas``): B1's encode in a kernel of its own sized
+   for one client, its noise given as a tensor or, keyed, drawn inside
+   the kernel from one key as ``uniform(key, (per, W))``.
 
 On CPU tensors a wrapper runs its plain version (``ref``); on CUDA tensors
 it launches its kernel or raises.
@@ -23,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import prng
 from . import native
 from .ref import (LANE_BLOCK, NoiseTable, keyed_noise_ref,
                   momentum_quantize_pack_buffer_ref, quantize_pack_buffer_ref,
@@ -33,6 +36,9 @@ _ARGTYPES_KEYED = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 2)
 _ARGTYPES_ONE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES_ONE_KEYED = ([ctypes.c_void_p] * 2 + [ctypes.c_uint32] * 2
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
 _ARGTYPES_MOMENTUM = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 _ARGTYPES_MOMENTUM_KEYED = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
@@ -181,11 +187,20 @@ def momentum_quantize_pack_buffer(y: torch.Tensor, v: torch.Tensor,
 
 
 def quantize_pack(x: torch.Tensor, s: torch.Tensor, bits: int,
-                  noise: torch.Tensor | None = None) -> torch.Tensor:
+                  noise: torch.Tensor | None = None, *,
+                  key: torch.Tensor | None = None) -> torch.Tensor:
     """x: f32 [per, W] (per = 32 // bits, W % 512 == 0); s: f32 scale
-    (0-dim or [1]) on x's device; noise: f32 like x or None. Returns int32
-    [W]."""
+    (0-dim or [1]) on x's device. Stochastic rounding takes its noise
+    either as ``noise`` (f32 like x) or keyed: ``key`` int64 [2] (a raw
+    key, on the host or on x's device), from which the kernel draws
+    ``prng.uniform(key, (per, W))`` itself; neither = deterministic floor.
+    A host key reaches the kernel by value, without a copy to the device.
+    Returns int32 [W]."""
+    if key is not None and noise is not None:
+        raise ValueError("keyed encode takes a key, not noise")
     if x.device.type == "cpu":
+        if key is not None:
+            noise = prng.uniform(key.to(x.device), x.shape)
         return quantize_pack_ref(x, s, bits, noise)
     if x.dim() != 2:
         raise ValueError(f"x must be [per, W], got {tuple(x.shape)}")
@@ -193,11 +208,12 @@ def quantize_pack(x: torch.Tensor, s: torch.Tensor, bits: int,
     w = x.shape[1]
     native.require(x, "x", torch.float32)
     native.require(s.reshape(1), "s", torch.float32, (1,), x.device)
-    native.require_aligned(x, "x")
     if noise is not None:
         native.require(noise, "noise", torch.float32, x.shape, x.device)
-        native.require_aligned(noise, "noise")
     out = torch.empty((w,), dtype=torch.int32, device=x.device)
+    if key is not None:
+        _launch_one_keyed(x, s, bits, key, out)
+        return out
     fn = native.function("quantize_pack", "quantize_pack", _ARGTYPES_ONE)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), None if noise is None else noise.data_ptr(),
@@ -205,3 +221,26 @@ def quantize_pack(x: torch.Tensor, s: torch.Tensor, bits: int,
                 native.stream_of(x))
     native.check_launch(rc, "quantize_pack")
     return out
+
+
+def _launch_one_keyed(x: torch.Tensor, s: torch.Tensor, bits: int,
+                      key: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of ``csrc/quantize_pack.cu:quantize_pack_keyed``: a host
+    key goes as its two u32 words by value, a key on x's device by
+    pointer. Counted under ``quantize_pack``."""
+    if key.dtype != torch.int64 or tuple(key.shape) != (2,):
+        raise ValueError(f"key must be int64 [2], got {key.dtype} "
+                         f"{tuple(key.shape)}")
+    if key.device.type == "cpu":
+        k1, k2 = (v & 0xFFFFFFFF for v in key.tolist())
+        key_ptr = None
+    else:
+        native.require(key, "key", torch.int64, (2,), x.device)
+        k1 = k2 = 0
+        key_ptr = key.data_ptr()
+    fn = native.function("quantize_pack", "quantize_pack_keyed",
+                         _ARGTYPES_ONE_KEYED)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), key_ptr, k1, k2, s.data_ptr(), out.data_ptr(),
+                x.shape[1], bits, native.stream_of(x))
+    native.check_launch(rc, "quantize_pack")

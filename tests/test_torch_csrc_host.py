@@ -1,12 +1,14 @@
-"""The CUDA sources of B1-B6, compiled for the host and run on the CPU
-against their plain PyTorch versions.
+"""The CUDA sources of B1-B6 and B8, compiled for the host and run on the
+CPU against their plain PyTorch versions.
 
 ``tests/cuda_host/cuda_runtime.h`` stands in for the CUDA runtime and the
 device intrinsics these kernels use; every ``kernel<<<...>>>(args)`` launch
 is rewritten into a loop over blocks and threads. So the kernels' own index
 arithmetic runs here — block-to-leaf search, float4 and scalar paths, the
 keyed noise's leaf lookup, counters and threefry rounds, B2's and B5's
-four columns a thread and their stream gather — called through
+four columns a thread and their stream gather, keyed B6's counter over
+the whole padded buffer and its key by value or by pointer, B8's three
+stream pointers — called through
 their C entry points exactly as the wrappers call them. What it cannot show
 (the device compiler, timing, memory coalescing) is left to
 ``chip_smoke.py`` on the card.
@@ -336,3 +338,75 @@ def test_b2_b5_four_columns_a_thread(host_lib, bits, K, momentum):
         assert fn(*args, ptr(out), m, K, w - 4, bits, None) != 0
     assert np.array_equal(as_bits(out), as_bits(want))
 
+
+
+@pytest.mark.parametrize("w_self,w_nb", [(0.5, 0.25), (1 / 3, 1 / 3)])
+@pytest.mark.parametrize("bits", [2, 4, 8, 16])
+def test_b8_ring_entry(host_lib, bits, w_self, w_nb):
+    """B8's own entry (three stream pointers, the weights by value) against
+    the plain ring decode, bitwise, over six blocks of 256 columns."""
+    fn = entry(host_lib("dequant_mix"), "dequant_mix_ring",
+               [P] * 5 + [F32] * 2 + [P] + [ctypes.c_int] * 2 + [P])
+    per, w = 32 // bits, 3 * ref.LANE_BLOCK
+    rng = np.random.default_rng(bits)
+    x = torch.from_numpy((0.5 * rng.normal(size=(per, w))).astype(
+        np.float32))
+    q = [torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, w,
+                                       dtype=np.int64).astype(np.int32))
+         for _ in range(3)]
+    scales = torch.from_numpy(rng.uniform(1e-4, 1e-2, 3).astype(np.float32))
+    out = np.full((per, w), np.nan, np.float32)
+    ws, wn = float(np.float32(w_self)), float(np.float32(w_nb))
+    assert fn(ptr(x), *(ptr(t) for t in q), ptr(scales), ws, wn, ptr(out), w,
+              bits, None) == 0
+    want = ref.dequant_mix_ref(x, *q, scales, bits, w_self, w_nb)
+    assert np.array_equal(as_bits(out), as_bits(want))
+    # W must be a multiple of 512, bits one of 2, 4, 8, 16
+    assert fn(ptr(x), *(ptr(t) for t in q), ptr(scales), ws, wn, ptr(out),
+              w - 256, bits, None) != 0
+    assert fn(ptr(x), *(ptr(t) for t in q), ptr(scales), ws, wn, ptr(out), w,
+              3, None) != 0
+
+
+@pytest.mark.parametrize("form", ["host key", "device key", "tensor noise",
+                                  "deterministic"])
+@pytest.mark.parametrize("n", [3000, 199210])
+@pytest.mark.parametrize("bits", [2, 4, 8, 16])
+def test_b6_keyed_one_leaf(host_lib, bits, n, form):
+    """B6 as ``encode_delta`` calls it, on a flat vector of n values padded
+    to planar: keyed (the key by value, as a host key goes, or by pointer,
+    as a device key goes) against ``prng.uniform(key, (per, W))`` + the
+    plain encode, which is the noise of the JAX package's encode_delta;
+    with tensor noise and deterministic against the plain encode."""
+    lib = host_lib("quantize_pack")
+    per, w = ref.planar_pad_len(n, bits)
+    rng = np.random.default_rng(n + bits)
+    x = torch.zeros(per * w)
+    x[:n] = torch.from_numpy((0.01 * rng.normal(size=n)).astype(np.float32))
+    x = x.reshape(per, w)
+    s = (x.abs().amax() / (2 ** (bits - 1) - 1)).reshape(1)
+    key = prng.split(prng.PRNGKey(n + bits), 2)[1].contiguous()
+    noise = (None if form == "deterministic"
+             else prng.uniform(key, (per, w)).contiguous())
+    out = np.zeros(w, np.int32)
+    if form in ("host key", "device key"):
+        fn = entry(lib, "quantize_pack_keyed",
+                   [P] * 2 + [ctypes.c_uint32] * 2 + [P] * 2
+                   + [ctypes.c_int] * 2 + [P])
+        k1, k2 = key.tolist()
+        by_ptr = ptr(key) if form == "device key" else None
+        if by_ptr is not None:
+            k1 = k2 = 0
+        assert fn(ptr(x), by_ptr, k1, k2, ptr(s), ptr(out), w, bits,
+                  None) == 0
+        # W must be a multiple of 512, bits one of 2, 4, 8, 16
+        assert fn(ptr(x), by_ptr, k1, k2, ptr(s), ptr(out), w - 256, bits,
+                  None) != 0
+        assert fn(ptr(x), by_ptr, k1, k2, ptr(s), ptr(out), w, 0,
+                  None) != 0
+    else:
+        fn = entry(lib, "quantize_pack", [P] * 4 + [ctypes.c_int] * 3 + [P])
+        assert fn(ptr(x), None if noise is None else ptr(noise), ptr(s),
+                  ptr(out), w, bits, int(noise is not None), None) == 0
+    assert np.array_equal(out, ref.quantize_pack_ref(x, s[0], bits,
+                                                     noise).numpy())

@@ -65,11 +65,14 @@ def random_streams(rng, k, bits):
 
 
 @pytest.mark.parametrize("stochastic", [True, False])
-@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bits", [8, 4, 2, 16])
 def test_encode_delta_words_and_scale_bitwise(bits, stochastic):
+    """Words and scale against the JAX package's encode_delta for the same
+    key; and the words keyed B6 gives on the card, whose noise is the
+    one-leaf table's (``keyed_noise_ref``), are the same words."""
     rng = np.random.default_rng(bits + stochastic)
-    for trial in range(3):
-        delta = (rng.normal(size=N) * rng.uniform(1e-3, 3)).astype(
+    for trial, n in enumerate((N, 1, 3000)):
+        delta = (rng.normal(size=n) * rng.uniform(1e-3, 3)).astype(
             np.float32)
         jw, js = jops.encode_delta(
             jnp.asarray(delta), bits, stochastic=stochastic,
@@ -82,6 +85,46 @@ def test_encode_delta_words_and_scale_bitwise(bits, stochastic):
         assert tw.dtype == torch.int32 and tw.shape == jw.shape
         assert np.array_equal(np.asarray(jw).view(np.int32), tw.numpy())
         assert np.float32(js).tobytes() == ts.numpy().tobytes()
+        if stochastic:
+            x2d = torch.from_numpy(planar(delta, bits))
+            noise = one_leaf_noise(prng.PRNGKey(trial), *x2d.shape)
+            assert torch.equal(ref.quantize_pack_ref(x2d, ts, bits, noise),
+                               tw)
+
+
+def one_leaf_noise(key, per, w):
+    """The noise keyed B6 draws: ``keyed_noise_ref`` over a one-leaf table
+    (word offset 0, leaf words W, size per * W) and one client."""
+    return ref.keyed_noise_ref(key.reshape(1, 1, 2),
+                               ref.NoiseTable((0,), (w,), (per * w,)), per,
+                               w)[0]
+
+
+@pytest.mark.parametrize("n", [1, 511, N, 199210])
+@pytest.mark.parametrize("bits", [2, 4, 8, 16])
+def test_one_leaf_keyed_table_is_uniform(bits, n):
+    """Keyed B6's noise (position (i, w) draws element i * W + w of
+    uniform(key)) is ``prng.uniform(key, (per, W))`` bit for bit, padding
+    included, for a key with both words in use."""
+    per, w = ref.planar_pad_len(n, bits)
+    key = prng.split(prng.PRNGKey(n), 2)[1]
+    assert int(key[0]) and int(key[1])
+    got = one_leaf_noise(key, per, w)
+    want = prng.uniform(key, (per, w))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_quantize_pack_key_or_noise():
+    """B6 takes its noise as a tensor or as a key, not both; keyed on the
+    CPU it is the plain encode fed ``prng.uniform(key, (per, W))``."""
+    x = torch.from_numpy(planar(np.linspace(-1, 1, N, dtype=np.float32), 8))
+    s = torch.tensor(1 / 127, dtype=torch.float32)
+    key = prng.PRNGKey(5)
+    noise = prng.uniform(key, x.shape)
+    with pytest.raises(ValueError, match="key"):
+        quantize_pack(x, s, 8, noise, key=key)
+    assert torch.equal(quantize_pack(x, s, 8, key=key),
+                       ref.quantize_pack_ref(x, s, 8, noise))
 
 
 def test_encode_delta_zero_and_key_checks():
@@ -174,6 +217,10 @@ def test_decode_apply_ring_vs_jax(bits, w_self, w_nb):
 
 
 def test_ring_is_the_plan_kernel_at_k3():
+    """The ring's plain version is the plan's at k = 3 with the weights
+    (w_self, w_nb, w_nb). On the card the two are separate kernels (B8
+    over three stream pointers, B7 over a stack), each held to its own
+    plain version."""
     rng = np.random.default_rng(9)
     x = torch.from_numpy(planar(rng.normal(size=N).astype(np.float32), 8))
     q = torch.from_numpy(random_streams(rng, 3, 8).view(np.int32))
