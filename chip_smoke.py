@@ -8,26 +8,39 @@ Phases (any failure exits non-zero):
 1. print the card (``nvidia-smi`` name and power limit) and versions;
 2. build the CUDA sources in ``src/repro_torch/csrc`` (timed, one nvcc
    per source, all in parallel);
-3. time the floor of the event times (one launch that moves 4 bytes);
+3. time ``encode_delta``, ``decode_apply_ring`` and ``decode_apply_plan``
+   as a caller sees them (host clock to a synchronize) and list the
+   device operations each makes, by the profiler and by capturing one
+   call in a CUDA graph (first, while the process is fresh: the
+   profiler's traces lose kernels later on the card's machine); by the
+   graph, ``encode_delta`` must copy only on the device, and each decode
+   must be one device operation, its kernel;
+4. time the floor of the event times (one launch that moves 4 bytes);
    hold every kernel against its plain PyTorch version on the card at the
    shapes its path gives it — B1, B2, B4 and B5 at the quickstart's wire
    shapes (2NN, m=16, ring) at 2, 4, 8 and 16 bits (B1 and B4 keyed,
    drawing their own noise, against ``noise_stacked`` + the plain
    version, and with tensor noise), B3 over all six leaves in one launch
    and on a misaligned view, B6-B8 on one client's flat 2NN vector (B6
-   keyed and B8 at 2, 4, 8 and 16 bits) —
-   packed words and B1-B5's floats bitwise equal, B7's and B8's floats
+   keyed and B8 at 2, 4, 8 and 16 bits; B7 at 2, 4, 8 and 16 bits and
+   K = 1, 3, 5 and 9 through its flat entry, its planar entry and its
+   flat entry on a misaligned x), and B7 on the SmolLM-135M vector (8
+   bits, K = 5 and 3, flat entry) —
+   packed words and B1-B5's and B7's floats bitwise equal, B8's floats
    within MAX_ULP (bitwise is expected everywhere: the kernels pin
    rounding with _rn intrinsics and keep the plain version's operation
    order); time kernel, plain version and, for B3, the library's
    multi-tensor SGD step (``torch._fused_sgd_``) with CUDA events; count
    keyed B1's, B4's and B6's compiled instructions by pipe (``cuobjdump
-   -sass``) for their operations bounds, and B8's global loads against
-   its first decode; check that a B8 call is one device operation;
-4. one quickstart round on the card against the same round on the CPU,
+   -sass``) for their operations bounds, and check that B7's (8 bits,
+   K = 3) and B8's global loads all come before their first decode;
+   check that a B8 call is one device operation; time B7 through its
+   Pallas-shaped entry at both vectors (``plan_times``, which another
+   tree's package can run too);
+5. one quickstart round on the card against the same round on the CPU,
    and the plan realization against the dense one on the card, for the
    unfused and the fused round;
-5. drive three paths through the library API, each with every launch
+6. drive three paths through the library API, each with every launch
    counter set to 0 just before and read just after: the quickstart
    round (2NN 784-200-200-10, 16 clients on a ring with self-weight 0.5,
    K=4, batch 32, eta=0.05, theta=0.9, 8-bit stochastic lemma5 gossip)
@@ -35,17 +48,15 @@ Phases (any failure exits non-zero):
    fused (B3, B4 keyed, B5); then
    the per-tensor ``ops`` entry points once each (B6, B7, B8, B3);
    check the counts, a finite falling loss and the ops against the CPU;
-   time ``encode_delta`` and ``decode_apply_ring`` as a caller sees them
-   (host clock to a synchronize) and list the device operations each
-   makes: ``encode_delta`` must copy nothing from the host;
-6. profile both rounds (device busy and idle share, time by kernel);
-7. print the kernel table (with the floor) as one JSON line, then the
+7. profile both rounds (device busy and idle share, time by kernel);
+8. print the kernel table (with the floor) as one JSON line, then the
    card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs one CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -92,6 +103,11 @@ TENSOR_NOISE, KEYED, KEYED_BY_VALUE = 1, 2, 3
 # (bits, stochastic) of the wire at which B1, B2, B4 and B5 are checked.
 CODECS = ((8, True), (8, False), (4, True), (2, True), (16, True))
 REPS, WARMUP = 20, 3
+FLAT_2NN = 199210            # one client's 2NN 784-200-200-10 vector
+# SmolLM-135M's parameter count: CONFIG.n_params() of the JAX package's
+# src/repro/configs/smollm_135m.py (hf:HuggingFaceTB/SmolLM-135M), the
+# flat vector at which B7 is bound by bytes, not by a launch.
+SMOLLM_N = 134_515_008
 HOST_RUNS, HOST_RUN = 100, 3  # host clock: runs of back-to-back calls
 OPS_CALLS = 4                # calls a device-operation count profiles
 SLEEP_CYCLES = 4_000_000     # ~2 ms of GPU clock: covers the host enqueue
@@ -116,6 +132,7 @@ KERNEL_SOURCES = {
 }
 # Further times a row carries where its kernel has them, all measured.
 EXTRA_KEYS = ("clean_ms", "host_ms", "plain_call_ms", "plain_host_ms",
+              "smollm",
               "library_call_ms", "library_host_ms", "library_clean_ms",
               "tensor_noise_ms", "tensor_noise_call_ms",
               "tensor_noise_host_ms", "tensor_noise_clean_ms")
@@ -344,19 +361,29 @@ def keyed_ops(kernel: str, bits: int, threads: int, n_real: int,
             "per_draw": {k: v for k, v in per_draw.items() if v}}
 
 
-def load_order(lib: str, pattern: str) -> dict:
+def load_order(sass: str, pattern: str) -> dict:
     """Where one kernel's global loads stand against its first decode
-    (the first integer-to-float conversion of a field) in its SASS: the
-    loads issued before it, and those after."""
+    (the first integer-to-float conversion of a field) in its SASS (of
+    the ``cuobjdump -sass`` text): the loads issued before it, and those
+    after."""
     ops = [m.group(1).split(".")[0] for m in re.finditer(
         r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-        sass_function(sass_of(lib), pattern))]
+        sass_function(sass, pattern))]
     first = next((i for i, op in enumerate(ops) if op in ("I2F", "I2FP")),
                  len(ops))
     loads = [i for i, op in enumerate(ops) if op == "LDG"]
     return {"loads_before_first_decode": sum(i < first for i in loads),
             "loads_after": sum(i > first for i in loads),
             "first_decode_at": first, "instructions": len(ops)}
+
+
+def loads_first(what: str, order: dict) -> dict:
+    """Fail unless every global load of a kernel's SASS comes before its
+    first decode (:func:`load_order`)."""
+    if order["loads_after"] or not order["loads_before_first_decode"]:
+        raise AssertionError(f"{what}: global loads after the first "
+                             f"decode: {order}")
+    return order
 
 
 def quickstart_setup(dev, fuse_round: bool = False):
@@ -668,12 +695,13 @@ def ops_kernel_checks(dev, flush, rec):
     give them. B6 keyed (its key by value, as a host key goes, and by
     pointer) against ``keyed_noise_ref`` over the one-leaf table + the
     plain encode, and B8 against its plain version, at 2, 4, 8 and 16
-    bits; B6 with tensor noise and deterministic, and B7, at 8 bits."""
+    bits; B6 with tensor noise and deterministic at 8 bits; B7 as
+    :func:`plan_kernel_checks` says."""
     import torch.nn.functional as F
 
     from repro_torch import prng
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dequant_mix import dequant_mix, dequant_mix_plan
+    from repro_torch.kernels.dequant_mix import dequant_mix
     from repro_torch.kernels.quantize_pack import quantize_pack
     from repro_torch.models.paper_nets import init_2nn
 
@@ -681,6 +709,7 @@ def ops_kernel_checks(dev, flush, rec):
     flat = torch.cat([t.reshape(-1) for _, t in
                       sorted(init_2nn(0, device="cpu").items())])
     n = flat.numel()
+    assert n == FLAT_2NN
     delta = (0.01 * torch.randn(n, generator=gen)).to(dev)
     key = prng.split(prng.PRNGKey(6), 2)[1]
     key_dev = key.to(dev)
@@ -747,54 +776,161 @@ def ops_kernel_checks(dev, flush, rec):
         ring_at[bits] = xb, streams, scales
     xb, streams, scales = ring_at[8]
     q_own, q_left, q_right = streams.unbind()
-    ops = device_ops(lambda: dequant_mix(xb, q_own, q_left, q_right, scales,
-                                         8, 0.5, 0.25))
+    call = lambda: dequant_mix(xb, q_own, q_left, q_right,  # noqa: E731
+                               scales, 8, 0.5, 0.25)
+    ops = device_ops(call)
     r["device_ops_per_call"] = len(ops) / OPS_CALLS
     r["device_ops"] = sorted(set(ops))
-    if len(ops) != OPS_CALLS or "dequant_mix_ring_kernel" not in ops[0]:
-        raise AssertionError(f"dequant_mix: {OPS_CALLS} calls made device "
-                             f"operations {ops}, expected one each")
-    r["sass_load_order"] = load_order("dequant_mix",
-                                      r"\ddequant_mix_ring_kernelILi8E")
-    weights = torch.tensor([0.5, 0.25, 0.25], device=dev)
-    r = rec["dequant_mix_plan"]
-    check_floats(r, "dequant_mix_plan", [(
-        dequant_mix_plan(xb, streams, scales, weights, 8),
-        ref.dequant_mix_plan_ref(xb, streams, scales, weights, 8))])
-    r["checks"].append(f"bits=8 k=3 shape={list(xb.shape)} "
-                       f"max_ulp={r['max_ulp']}")
-    cases = {
-        "dequant_mix_plan": (
-            lambda: dequant_mix_plan(xb, streams, scales, weights, 8),
-            lambda: ref.dequant_mix_plan_ref(xb, streams, scales, weights,
-                                             8),
-            (xb, streams, scales, weights)),
-        "dequant_mix": (
-            lambda: dequant_mix(xb, streams[0], streams[1], streams[2],
-                                scales, 8, 0.5, 0.25),
-            lambda: ref.dequant_mix_ref(xb, streams[0], streams[1],
-                                        streams[2], scales, 8, 0.5, 0.25),
-            (xb, q_own, q_left, q_right, scales)),
-    }
-    for name, (kernel, plain, inputs) in cases.items():
-        r = rec[name]
-        out = kernel()
-        timed(r, "", kernel, flush)
-        timed(r, "plain_", plain, flush)
-        r["bound_ms"], r["bound_by"] = bound(nbytes(*inputs, out),
-                                             9 * xb.numel())
-        r["shape"] = list(xb.shape)
+    r["graph_ops"] = graph_ops(call)
+    if r["graph_ops"] != ["kernel"]:
+        raise AssertionError(f"dequant_mix: graph {r['graph_ops']}, "
+                             "expected one kernel a call")
+    r["sass_load_order"] = loads_first("B8", load_order(
+        sass_of("dequant_mix"), r"\ddequant_mix_ring_kernelILi8E"))
+    out = dequant_mix(xb, q_own, q_left, q_right, scales, 8, 0.5, 0.25)
+    timed(r, "", lambda: dequant_mix(xb, q_own, q_left, q_right, scales, 8,
+                                     0.5, 0.25), flush)
+    timed(r, "plain_", lambda: ref.dequant_mix_ref(
+        xb, q_own, q_left, q_right, scales, 8, 0.5, 0.25), flush)
+    r["bound_ms"], r["bound_by"] = bound(
+        nbytes(xb, q_own, q_left, q_right, scales, out), 9 * xb.numel())
+    r["shape"] = list(xb.shape)
+    plan_kernel_checks(dev, flush, rec["dequant_mix_plan"], n, gen)
 
 
-def device_ops(fn, calls: int = OPS_CALLS) -> list[str]:
+def plan_operands(dev, n: int, bits: int, k: int, gen):
+    """B7's operands for a flat vector of n values: x f32 [n], streams
+    int32 [k, W], scales and weights f32 [k], drawn from ``gen`` (a CPU
+    generator, or one on the card for a large n)."""
+    from repro_torch.kernels.ref import planar_pad_len
+
+    _, wd = planar_pad_len(n, bits)
+    on = gen.device
+    x = (torch.randn(n, generator=gen, device=on) * 0.05).to(dev)
+    streams = torch.randint(-2 ** 31, 2 ** 31, (k, wd), generator=gen,
+                            dtype=torch.int64, device=on).to(torch.int32)
+    scales = torch.rand(k, generator=gen, device=on) * 1e-3
+    weights = torch.rand(k, generator=gen, device=on)
+    return x, streams.to(dev), scales.to(dev), weights.to(dev)
+
+
+def plan_kernel_checks(dev, flush, r, n, gen):
+    """B7 bitwise against the plain plan decode of the zero-padded planar
+    view (``dequant_mix_plan_ref``): on one client's flat 2NN vector at 2,
+    4, 8 and 16 bits and K = 1, 3, 5 and 9 through its flat entry (the
+    path of ``decode_apply_plan``), its planar entry and its flat entry on
+    an x one float past a 16-byte boundary; its 8-bit K = 3 SASS issues
+    every load before the first decode; timed at 8 bits, K = 3 there. Then
+    at the SmolLM-135M vector (8 bits, K = 5 and 3) through the flat entry:
+    bitwise, and timed with its plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_mix import (dequant_mix_plan,
+                                                 dequant_mix_plan_flat)
+
+    def held(what, bits, x, streams, scales, weights):
+        """Check the flat (and, for an aligned x, the planar) entry; return
+        the flat output."""
+        nx = x.shape[0]
+        want = ref.dequant_mix_plan_ref(ref.pad_planar(x, bits), streams,
+                                        scales, weights, bits)
+        flat = dequant_mix_plan_flat(x, streams, scales, weights, bits)
+        pairs = [(f"{what} flat", flat, want.reshape(-1)[:nx])]
+        if nx == n:
+            spare = torch.empty(nx + 1, device=dev)
+            mis = dequant_mix_plan_flat(spare[1:].copy_(x), streams, scales,
+                                        weights, bits)
+            planar = dequant_mix_plan(ref.pad_planar(x, bits), streams,
+                                      scales, weights, bits)
+            pairs += [(f"{what} misaligned flat", mis, want.reshape(-1)[:nx]),
+                      (f"{what} planar", planar, want)]
+        torch.cuda.synchronize()
+        for form, got, exp in pairs:
+            check_words(form, got.view(torch.int32), exp.view(torch.int32))
+            check_floats(r, form, [(got, exp)])
+        return flat
+
+    for bits in (2, 4, 8, 16):
+        for k in (1, 3, 5, 9):
+            held(f"B7 bits={bits} K={k}", bits,
+                 *plan_operands(dev, n, bits, k, gen))
+        r["checks"].append(f"bits={bits} K=1,3,5,9 n={n}: flat, misaligned "
+                           "flat and planar entries bitwise")
+    r["sass_load_order"] = loads_first("B7", load_order(
+        sass_of("dequant_mix"), r"\ddequant_mix_plan_kernelILi8ELi3E"))
+    x, streams, scales, weights = plan_operands(dev, n, 8, 3, gen)
+    out = dequant_mix_plan_flat(x, streams, scales, weights, 8)
+    timed(r, "", lambda: dequant_mix_plan_flat(x, streams, scales, weights,
+                                               8), flush)
+    timed(r, "plain_", lambda: ref.dequant_mix_plan_ref(
+        ref.pad_planar(x, 8), streams, scales, weights, 8), flush)
+    r["bound_ms"], r["bound_by"] = bound(
+        nbytes(x, streams, scales, weights, out), 3 * 3 * n)
+    r["shape"] = f"x f32 [{n}] (planar [4, {streams.shape[1]}]), K=3"
+
+    big = torch.Generator(device=dev).manual_seed(16)
+    # r["smollm"] holds this run's times and bounds only (it goes on the
+    # kernels line); what was derived from them goes on the check line.
+    r["smollm"] = {}
+    for k in (5, 3):
+        x, streams, scales, weights = plan_operands(dev, SMOLLM_N, 8, k, big)
+        out = held(f"B7 SmolLM-135M K={k}", 8, x, streams, scales, weights)
+        rk = {}
+        timed(rk, "", lambda: dequant_mix_plan_flat(x, streams, scales,
+                                                    weights, 8), flush)
+        timed(rk, "plain_", lambda: ref.dequant_mix_plan_ref(
+            ref.pad_planar(x, 8), streams, scales, weights, 8), flush)
+        rk["bound_ms"], rk["bound_by"] = bound(
+            nbytes(x, streams, scales, weights, out), 3 * k * SMOLLM_N)
+        r["smollm"][f"k{k}"] = rk
+        r["checks"].append(
+            f"SmolLM-135M x f32 [{SMOLLM_N}] (planar [4, {streams.shape[1]}]) "
+            f"bits=8 K={k}: flat entry bitwise; clean at "
+            f"{rk['bound_ms'] / rk['clean_ms']:.4f} of the byte bound")
+
+
+def plan_times(dev, flush) -> dict:
+    """B7 through its Pallas-shaped entry ``dequant_mix_plan`` (x f32
+    [per, W]) at 8 bits: on one client's 2NN vector at K = 3, 5, 9, 13
+    and 17 (the quickstart's complete graph has k = m = 16) and
+    on the SmolLM-135M vector at K = 5 and 3, its ``kernel`` and ``clean``
+    device times (:func:`time_ms`) beside the byte bound of the call. Only
+    the entry's public signature is used, so the same function times
+    another tree's B7."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.dequant_mix import dequant_mix_plan
+    from repro_torch.kernels.ref import planar_pad_len
+
+    rep = {}
+    for name, nx, ks in (("2nn", FLAT_2NN, (3, 5, 9, 13, 17)),
+                         ("smollm", SMOLLM_N, (5, 3))):
+        per, wd = planar_pad_len(nx, 8)
+        gen = torch.Generator(device=dev).manual_seed(nx)
+        x, streams, scales, weights = plan_operands(dev, nx, 8, max(ks), gen)
+        x2d = F.pad(x, (0, per * wd - nx)).reshape(per, wd)
+        del x
+        for k in ks:
+            args = (x2d, streams[:k], scales[:k].contiguous(),
+                    weights[:k].contiguous())
+            rk = {}
+            out = dequant_mix_plan(*args, 8)
+            timed(rk, "", lambda: dequant_mix_plan(*args, 8), flush)
+            rk["bound_ms"] = bound(nbytes(*args, out), 0)[0]
+            rep[f"{name}_k{k}"] = rk
+    return {"plan_times": rep}
+
+
+def device_ops(fn, calls: int = OPS_CALLS, tries: int = 3) -> list[str]:
     """Names of the device operations (kernels, copies, fills) ``calls``
     calls of ``fn`` make, from a ``torch.profiler`` trace. A first trace,
     around a warm-up call, is left out: the first trace of a process can
-    miss its first kernels."""
+    miss its first kernels. A trace can also lose kernels later in a
+    process (it never adds one), so ``tries`` traces are taken and the
+    longest is returned."""
     from torch.profiler import ProfilerActivity, profile
 
-    names = []
-    for n in (1, calls):
+    best: list[str] = []
+    for n in (1,) + (calls,) * tries:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -803,7 +939,89 @@ def device_ops(fn, calls: int = OPS_CALLS) -> list[str]:
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    return names
+        if n == calls and len(names) > len(best):
+            best = names
+    return best
+
+
+class _Memcpy3D(ctypes.Structure):
+    """``CUDA_MEMCPY3D`` of the CUDA driver API: a copy node's
+    parameters."""
+    _fields_ = ([(f, ctypes.c_size_t) for f in ("srcX", "srcY", "srcZ",
+                                                 "srcLOD")]
+                + [("srcType", ctypes.c_int), ("srcHost", ctypes.c_void_p),
+                   ("srcDevice", ctypes.c_uint64),
+                   ("srcArray", ctypes.c_void_p),
+                   ("reserved0", ctypes.c_void_p)]
+                + [(f, ctypes.c_size_t) for f in ("srcPitch", "srcHeight",
+                                                   "dstX", "dstY", "dstZ",
+                                                   "dstLOD")]
+                + [("dstType", ctypes.c_int), ("dstHost", ctypes.c_void_p),
+                   ("dstDevice", ctypes.c_uint64),
+                   ("dstArray", ctypes.c_void_p),
+                   ("reserved1", ctypes.c_void_p)]
+                + [(f, ctypes.c_size_t) for f in ("dstPitch", "dstHeight",
+                                                   "width", "height",
+                                                   "depth")])
+
+
+def graph_ops(fn) -> list[str]:
+    """The device operations one call of ``fn`` makes, as the nodes of a
+    CUDA graph captured around the call: "kernel", "fill", "copy XtoY"
+    (X, Y: H host, D device, A array, for the copy's source and
+    destination) or "node <CUgraphNodeType>". A capture holds every
+    operation the call enqueues, a pinned host copy too; a profiler trace
+    on the card's machine can lose kernels and copies."""
+    fn()                                  # first-use loads outside it
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_int)]
+    cuda.cuGraphMemcpyNodeGetParams.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(_Memcpy3D)]
+    cuda.cuPointerGetAttribute.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_uint64]
+
+    def memory(kind: int, address: int) -> str:
+        """H, D or A for a ``CUmemorytype`` (1 host, 2 device, 3 array,
+        4 unified: then the pointer's own; memory CUDA does not know is
+        pageable host memory)."""
+        if kind == 4:
+            own = ctypes.c_uint(0)
+            kind = (1 if cuda.cuPointerGetAttribute(  # MEMORY_TYPE
+                ctypes.byref(own), 2, address) else own.value)
+        return {1: "H", 2: "D", 3: "A"}.get(kind, "?")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if count.value and cuda.cuGraphGetNodes(handle, nodes,
+                                            ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    ops = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value == 1:
+            p = _Memcpy3D()
+            if cuda.cuGraphMemcpyNodeGetParams(ctypes.c_void_p(node),
+                                               ctypes.byref(p)):
+                raise RuntimeError("cuGraphMemcpyNodeGetParams failed")
+            ops.append(f"copy {memory(p.srcType, p.srcDevice)}to"
+                       f"{memory(p.dstType, p.dstDevice)}")
+        else:
+            ops.append({0: "kernel", 2: "fill"}.get(kind.value,
+                                                    f"node {kind.value}"))
+    graph.reset()
+    return ops
 
 
 def floor_time(flush) -> dict:
@@ -816,18 +1034,19 @@ def floor_time(flush) -> dict:
 
 
 def entry_points(dev, runs: int = 200) -> dict:
-    """``encode_delta`` and ``decode_apply_ring`` as a caller sees them, on
-    one client's flat 2NN vector at 8 bits: the host clock around one call
-    ended by ``torch.cuda.synchronize()`` (median of ``runs`` after a
-    warm-up), and the device operations one call makes (profiler). Only
-    the entry points' public signatures are used, so the same function
-    times another tree's package."""
+    """``encode_delta``, ``decode_apply_ring`` and ``decode_apply_plan``
+    as a caller sees them, on one client's flat 2NN vector at 8 bits
+    (the plan with k = 3): the host clock around one call ended by
+    ``torch.cuda.synchronize()`` (median of ``runs`` after a warm-up),
+    and the device operations one call makes (profiler). Only the entry
+    points' public signatures are used, so the same function times
+    another tree's package."""
     from repro_torch import prng
-    from repro_torch.kernels import (decode_apply_ring, encode_delta,
-                                     ref)
+    from repro_torch.kernels import (decode_apply_plan, decode_apply_ring,
+                                     encode_delta, ref)
 
     gen = torch.Generator().manual_seed(4)
-    n = 199210
+    n = FLAT_2NN
     _, wd = ref.planar_pad_len(n, 8)
     x = (torch.randn(n, generator=gen) * 0.05).to(dev)
     delta = (torch.randn(n, generator=gen) * 0.01).to(dev)
@@ -835,12 +1054,15 @@ def entry_points(dev, runs: int = 200) -> dict:
                        dtype=torch.int64).to(torch.int32).to(dev))
     q_own, q_left, q_right = (t.clone() for t in q)
     scales = (torch.rand(3, generator=gen) * 1e-3).to(dev)
+    weights = torch.tensor([0.5, 0.25, 0.25]).to(dev)
     key = prng.PRNGKey(8)
     calls = {
         "encode_delta": lambda: encode_delta(delta, 8, key=key),
         "decode_apply_ring": lambda: decode_apply_ring(
             x, q_own, q_left, q_right, scales, bits=8, w_self=0.5,
-            w_nb=0.25)}
+            w_nb=0.25),
+        "decode_apply_plan": lambda: decode_apply_plan(
+            x, q, scales, weights, bits=8)}
     rep = {}
     for name, fn in calls.items():
         for _ in range(WARMUP):
@@ -856,8 +1078,28 @@ def entry_points(dev, runs: int = 200) -> dict:
         rep[name] = {"call_ms_median": statistics.median(ms),
                      "call_ms_quartiles": statistics.quantiles(ms, n=4),
                      "device_ops_per_call": len(ops) / OPS_CALLS,
-                     "device_ops": sorted(set(ops))}
+                     "device_ops": sorted(set(ops)),
+                     "graph_ops": graph_ops(fn)}
     return {"entry_points": rep}
+
+
+def check_entry_points(entry: dict) -> None:
+    """By the nodes of one captured call: ``encode_delta`` copies only
+    from the device to the device, and each decode is one device operation a call, a
+    kernel. The profiler's names are listed beside them, not checked: its
+    traces on the card's machine lose records, so a short list proves
+    nothing."""
+    calls = entry["entry_points"]
+    copies = [op for op in calls["encode_delta"]["graph_ops"]
+              if op.startswith("copy") and op != "copy DtoD"]
+    if copies:
+        raise AssertionError(f"encode_delta copies other than on the "
+                             f"device: {copies}")
+    for name in ("decode_apply_ring", "decode_apply_plan"):
+        got = calls[name]
+        if got["graph_ops"] != ["kernel"]:
+            raise AssertionError(f"{name}: device operations {got}, "
+                                 "expected one kernel a call")
 
 
 def expected_launches(fuse_round: bool) -> dict:
@@ -929,7 +1171,7 @@ def ops_path(dev):
                                      reset_launch_counts)
 
     gen = torch.Generator().manual_seed(3)
-    n = 199210
+    n = FLAT_2NN
     _, wd = ref.planar_pad_len(n, 8)
     x, delta, y, v, g = (torch.randn(n, generator=gen) * sc
                          for sc in (0.05, 0.01, 0.05, 0.01, 0.1))
@@ -1183,22 +1425,21 @@ def main() -> int:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": per_source}), flush=True)
 
+    # First, while the profiler's traces of a fresh process are whole.
+    entry = entry_points(dev)
+    print(json.dumps(entry), flush=True)
+    check_entry_points(entry)
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
     floor = floor_time(flush)
     print(json.dumps({"floor": floor}), flush=True)
     rec = kernel_checks(dev, flush)
+    print(json.dumps(plan_times(dev, flush)), flush=True)
     del flush
     reference_checks(dev)
     counts = {}
     counts["unfused"], unfused_ms, losses = round_path(dev, False)
     counts["fused"], fused_ms, fused_losses = round_path(dev, True)
     counts["ops"] = ops_path(dev)
-    entry = entry_points(dev)
-    print(json.dumps(entry), flush=True)
-    copies = [op for op in entry["entry_points"]["encode_delta"]["device_ops"]
-              if "HtoD" in op]
-    if copies:
-        raise AssertionError(f"encode_delta copies from the host: {copies}")
     round_breakdown(dev)
 
     table = []

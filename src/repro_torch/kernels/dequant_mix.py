@@ -12,6 +12,12 @@ B8 ``dequant_mix`` — the ring form (``dequant_mix_pallas``): one launch
    of a kernel of its own over the three stream pointers (own, left,
    right) with the weights (w_self, w_nb, w_nb) by value.
 
+B7 and B8 also take the flat [n] vector the per-tensor entry points hold
+(``dequant_mix_plan_flat``, ``dequant_mix_flat``): their kernels read x
+[n] as its zero-padded planar view and write only [:n], so a call is one
+launch with no pad and no slice; the Pallas-shaped wrappers call the
+same C entries with n = per * W.
+
 Unlike the Pallas kernels, which take an already gathered ``[k, W]``
 stream stack per client, B2 and B5 take every client's own words once plus
 the plan's ``src`` table and gather neighbours' words and scales
@@ -29,14 +35,16 @@ import torch
 from . import native
 from .ref import (LANE_BLOCK, dequant_mix_buffer_ref,
                   dequant_mix_momentum_buffer_ref, dequant_mix_plan_ref,
-                  dequant_mix_ref)
+                  dequant_mix_ref, pad_planar, planar_pad_len)
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGTYPES_MOMENTUM = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-_ARGTYPES_PLAN = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES_PLAN = ([ctypes.c_void_p] * 5 + [ctypes.c_int64]
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _ARGTYPES_RING = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2
-                  + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                  + [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p])
 
 
 def dequant_mix_buffer_plain(base: torch.Tensor, words: torch.Tensor,
@@ -144,27 +152,48 @@ def dequant_mix_momentum_buffer(base: torch.Tensor, words: torch.Tensor,
     return out
 
 
-def _check_one(x: torch.Tensor, bits: int) -> None:
+def _check_bits(bits: int) -> None:
     if bits not in (2, 4, 8, 16):
         raise ValueError(f"bits must be in (2, 4, 8, 16), got {bits}")
+
+
+def _check_one(x: torch.Tensor, bits: int) -> None:
+    _check_bits(bits)
     if x.dim() != 2 or x.shape[0] != 32 // bits or x.shape[1] % LANE_BLOCK:
         raise ValueError(f"bad planar shape {tuple(x.shape)} for {bits} bits")
+    native.require(x, "x", torch.float32)
+
+
+def _check_flat(x: torch.Tensor, bits: int) -> int:
+    """Validate a flat f32 x [n]; return the planar width W of n values."""
+    _check_bits(bits)
+    native.require(x, "x", torch.float32)
+    if x.dim() != 1 or x.shape[0] < 1:
+        raise ValueError(f"x must be a non-empty flat [n], got "
+                         f"{tuple(x.shape)}")
+    return planar_pad_len(x.shape[0], bits)[1]
+
+
+def _on_planar(fn, x: torch.Tensor, bits: int) -> torch.Tensor:
+    """A planar plain version on a flat x [n]: pad, apply, keep [:n]."""
+    return fn(pad_planar(x, bits)).reshape(-1)[:x.shape[0]]
 
 
 def _launch_plan(x: torch.Tensor, streams: torch.Tensor, scales: torch.Tensor,
                  weights: torch.Tensor, bits: int) -> torch.Tensor:
-    """One launch of ``csrc/dequant_mix.cu:dequant_mix_plan``."""
-    _check_one(x, bits)
-    k, w = streams.shape[0], x.shape[1]
-    native.require(x, "x", torch.float32)
+    """One launch of ``csrc/dequant_mix.cu:dequant_mix_plan`` on a flat
+    x [n]; returns f32 [n]."""
+    w = _check_flat(x, bits)
+    k = streams.shape[0]
     native.require(streams, "streams", torch.int32, (k, w), x.device)
+    native.require_aligned(streams, "streams")
     native.require(scales, "scales", torch.float32, (k,), x.device)
     native.require(weights, "weights", torch.float32, (k,), x.device)
     out = torch.empty_like(x)
     fn = native.function("dequant_mix", "dequant_mix_plan", _ARGTYPES_PLAN)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), streams.data_ptr(), scales.data_ptr(),
-                weights.data_ptr(), out.data_ptr(), k, w, bits,
+                weights.data_ptr(), out.data_ptr(), x.shape[0], k, w, bits,
                 native.stream_of(x))
     native.check_launch(rc, "dequant_mix_plan")
     return out
@@ -175,28 +204,35 @@ def dequant_mix_plan(x: torch.Tensor, streams: torch.Tensor,
                      bits: int) -> torch.Tensor:
     """``x + sum_k weights[k] * deq(streams[k], scales[k])`` in stream
     order: x f32 [per, W]; streams int32 [k, W]; scales, weights f32 [k]
-    (runtime). Returns f32 [per, W]."""
+    (runtime). Returns f32 [per, W]. On CUDA, streams must be 16-byte
+    aligned."""
     if x.device.type == "cpu":
         return dequant_mix_plan_ref(x, streams, scales, weights, bits)
+    _check_one(x, bits)
+    return _launch_plan(x.reshape(-1), streams, scales, weights,
+                        bits).view(x.shape)
+
+
+def dequant_mix_plan_flat(x: torch.Tensor, streams: torch.Tensor,
+                          scales: torch.Tensor, weights: torch.Tensor,
+                          bits: int) -> torch.Tensor:
+    """:func:`dequant_mix_plan` on a flat f32 x [n], read as its
+    zero-padded planar view; streams int32 [k, W] with W =
+    ``planar_pad_len(n, bits)[1]``. Returns f32 [n]. On CUDA the call is
+    one launch and allocates only its output; x may start at any 4-byte
+    boundary, streams on a 16-byte one."""
+    if x.device.type == "cpu":
+        return _on_planar(lambda x2d: dequant_mix_plan_ref(
+            x2d, streams, scales, weights, bits), x, bits)
     return _launch_plan(x, streams, scales, weights, bits)
 
 
-def dequant_mix(x: torch.Tensor, q_own: torch.Tensor, q_left: torch.Tensor,
-                q_right: torch.Tensor, scales: torch.Tensor, bits: int,
-                w_self: float, w_nb: float) -> torch.Tensor:
-    """Ring form of eq. 7: ``x + w_self*deq(q_own) + w_nb*deq(q_left) +
-    w_nb*deq(q_right)``; x f32 [per, W]; q_* int32 [W]; scales f32 [3]
-    (own, left, right); the static weights are rounded to f32. On CUDA,
-    x and the three streams must be 16-byte aligned; the call is one
-    launch of ``csrc/dequant_mix.cu:dequant_mix_ring`` and allocates only
-    its output."""
-    if x.device.type == "cpu":
-        return dequant_mix_ref(x, q_own, q_left, q_right, scales, bits,
-                               w_self, w_nb)
-    _check_one(x, bits)
-    w = x.shape[1]
-    native.require(x, "x", torch.float32)
-    native.require_aligned(x, "x")
+def _launch_ring(x: torch.Tensor, q_own: torch.Tensor, q_left: torch.Tensor,
+                 q_right: torch.Tensor, scales: torch.Tensor, bits: int,
+                 w_self: float, w_nb: float) -> torch.Tensor:
+    """One launch of ``csrc/dequant_mix.cu:dequant_mix_ring`` on a flat
+    x [n]; returns f32 [n]."""
+    w = _check_flat(x, bits)
     for q, name in ((q_own, "q_own"), (q_left, "q_left"),
                     (q_right, "q_right")):
         native.require(q, name, torch.int32, (w,), x.device)
@@ -208,6 +244,38 @@ def dequant_mix(x: torch.Tensor, q_own: torch.Tensor, q_left: torch.Tensor,
         rc = fn(x.data_ptr(), q_own.data_ptr(), q_left.data_ptr(),
                 q_right.data_ptr(), scales.data_ptr(),
                 float(np.float32(w_self)), float(np.float32(w_nb)),
-                out.data_ptr(), w, bits, native.stream_of(x))
+                out.data_ptr(), x.shape[0], w, bits, native.stream_of(x))
     native.check_launch(rc, "dequant_mix")
     return out
+
+
+def dequant_mix(x: torch.Tensor, q_own: torch.Tensor, q_left: torch.Tensor,
+                q_right: torch.Tensor, scales: torch.Tensor, bits: int,
+                w_self: float, w_nb: float) -> torch.Tensor:
+    """Ring form of eq. 7: ``x + w_self*deq(q_own) + w_nb*deq(q_left) +
+    w_nb*deq(q_right)``; x f32 [per, W]; q_* int32 [W]; scales f32 [3]
+    (own, left, right); the static weights are rounded to f32. On CUDA,
+    the three streams must be 16-byte aligned; the call is one launch of
+    ``csrc/dequant_mix.cu:dequant_mix_ring`` and allocates only its
+    output."""
+    if x.device.type == "cpu":
+        return dequant_mix_ref(x, q_own, q_left, q_right, scales, bits,
+                               w_self, w_nb)
+    _check_one(x, bits)
+    return _launch_ring(x.reshape(-1), q_own, q_left, q_right, scales, bits,
+                        w_self, w_nb).view(x.shape)
+
+
+def dequant_mix_flat(x: torch.Tensor, q_own: torch.Tensor,
+                     q_left: torch.Tensor, q_right: torch.Tensor,
+                     scales: torch.Tensor, bits: int, w_self: float,
+                     w_nb: float) -> torch.Tensor:
+    """:func:`dequant_mix` on a flat f32 x [n], read as its zero-padded
+    planar view; q_* int32 [W] with W = ``planar_pad_len(n, bits)[1]``.
+    Returns f32 [n]. On CUDA the call is one launch and allocates only its
+    output; x may start at any 4-byte boundary."""
+    if x.device.type == "cpu":
+        return _on_planar(lambda x2d: dequant_mix_ref(
+            x2d, q_own, q_left, q_right, scales, bits, w_self, w_nb), x, bits)
+    return _launch_ring(x, q_own, q_left, q_right, scales, bits, w_self,
+                        w_nb)

@@ -2,8 +2,8 @@
 port of the JAX package's ``kernels/ops.py``.
 
 The per-tensor entry points work on ONE flat parameter vector ``[n]``,
-zero-padded to ``planar_pad_len(n, bits)`` and viewed row-major as
-``[per, W]``:
+read as its zero-padded planar view ``[per, W]`` (W =
+``planar_pad_len(n, bits)[1]``, row-major):
 
 encode_delta         — per-tensor scale + B6 (quantize + pack; keyed on
                        the card: the noise is drawn in the kernel)
@@ -11,6 +11,8 @@ decode_apply_ring    — B8, the ring form of eq. 7
 decode_apply_plan    — B7, eq. 7 over a plan's [k, W] stream stack
 momentum_update_flat — B3 on one flat vector (a one-leaf table)
 
+On the card the two decodes read x [n] in place and write only [:n]: a
+call on an f32 x is one launch and no other device operation.
 ``momentum_update`` is the heavy-ball step over a dict of parameter
 leaves (one B3 launch for all of them), which
 ``make_fused_momentum_update`` returns. Words travel as int32 bit
@@ -19,22 +21,14 @@ patterns of the JAX package's uint32.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from . import native
-from .dequant_mix import dequant_mix, dequant_mix_plan
+from .dequant_mix import dequant_mix_flat, dequant_mix_plan_flat
 from .momentum_sgd import momentum_sgd, momentum_sgd_leaves
 from .quantize_pack import quantize_pack
-from .ref import planar_pad_len
+from .ref import pad_planar
 
 Params = dict[str, torch.Tensor]
-
-
-def _planar(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Flat [n] -> zero-padded f32 [per, W]."""
-    per, w = planar_pad_len(x.shape[0], bits)
-    return F.pad(x.to(torch.float32), (0, per * w - x.shape[0])).reshape(
-        per, w)
 
 
 def encode_delta(delta: torch.Tensor, bits: int, *, stochastic: bool = True,
@@ -50,7 +44,7 @@ def encode_delta(delta: torch.Tensor, bits: int, *, stochastic: bool = True,
     (a host key by value), the same bits."""
     if stochastic and key is None:
         raise ValueError("stochastic encode needs a key")
-    x2d = _planar(delta, bits)
+    x2d = pad_planar(delta, bits)
     qmax = torch.full((), 2 ** (bits - 1) - 1, dtype=torch.float32,
                       device=x2d.device)
     amax = delta.to(torch.float32).abs().amax()
@@ -64,11 +58,12 @@ def decode_apply_ring(x: torch.Tensor, q_own: torch.Tensor,
                       q_left: torch.Tensor, q_right: torch.Tensor,
                       scales: torch.Tensor, *, bits: int, w_self: float,
                       w_nb: float) -> torch.Tensor:
-    """Fused eq.-7 ring apply for a flat parameter vector x [n]."""
-    n = x.shape[0]
-    out = dequant_mix(_planar(x, bits), q_own, q_left, q_right, scales, bits,
-                      w_self, w_nb)
-    return out.reshape(-1)[:n].to(x.dtype)
+    """Fused eq.-7 ring apply for a flat parameter vector x [n]. On the
+    card one B8 launch for an f32 x; another dtype is converted to f32
+    before it and back after it (two more operations)."""
+    out = dequant_mix_flat(x.to(torch.float32).contiguous(), q_own, q_left,
+                           q_right, scales, bits, w_self, w_nb)
+    return out.to(x.dtype)
 
 
 def decode_apply_plan(x: torch.Tensor, streams: torch.Tensor,
@@ -76,10 +71,12 @@ def decode_apply_plan(x: torch.Tensor, streams: torch.Tensor,
                       bits: int) -> torch.Tensor:
     """Fused GossipPlan apply for a flat parameter vector x [n] (eq. 7):
     ``x + sum_k weights[k] * deq(streams[k], scales[k])``; streams int32
-    [k, W] (own stream first), scales and weights f32 [k]."""
-    n = x.shape[0]
-    out = dequant_mix_plan(_planar(x, bits), streams, scales, weights, bits)
-    return out.reshape(-1)[:n].to(x.dtype)
+    [k, W] (own stream first), scales and weights f32 [k] on x's device.
+    On the card one B7 launch for an f32 x; another dtype is converted to
+    f32 before it and back after it (two more operations)."""
+    out = dequant_mix_plan_flat(x.to(torch.float32).contiguous(), streams,
+                                scales, weights, bits)
+    return out.to(x.dtype)
 
 
 def momentum_update_flat(y: torch.Tensor, v: torch.Tensor, g: torch.Tensor,

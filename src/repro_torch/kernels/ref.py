@@ -36,6 +36,13 @@ def planar_pad_len(n: int, bits: int) -> tuple[int, int]:
     return per, w
 
 
+def pad_planar(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Flat [n] -> its zero-padded f32 planar view [per, W]."""
+    per, w = planar_pad_len(x.shape[0], bits)
+    return torch.nn.functional.pad(x.to(torch.float32),
+                                   (0, per * w - x.shape[0])).reshape(per, w)
+
+
 def u32_to_i32(words: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> the same bit patterns as int32."""
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(

@@ -1,5 +1,5 @@
-"""The CUDA sources of B1-B6 and B8, compiled for the host and run on the
-CPU against their plain PyTorch versions.
+"""The CUDA sources of B1-B8, compiled for the host and run on the CPU
+against their plain PyTorch versions.
 
 ``tests/cuda_host/cuda_runtime.h`` stands in for the CUDA runtime and the
 device intrinsics these kernels use; every ``kernel<<<...>>>(args)`` launch
@@ -7,13 +7,15 @@ is rewritten into a loop over blocks and threads. So the kernels' own index
 arithmetic runs here — block-to-leaf search, float4 and scalar paths, the
 keyed noise's leaf lookup, counters and threefry rounds, B2's and B5's
 four columns a thread and their stream gather, keyed B6's counter over
-the whole padded buffer and its key by value or by pointer, B8's three
-stream pointers — called through
+the whole padded buffer and its key by value or by pointer, B7's streams
+fixed at compile time or in groups, B8's three stream pointers, and the
+flat [n] x of B7 and B8 with its ragged tail and scalar path — called
+through
 their C entry points exactly as the wrappers call them. What it cannot show
 (the device compiler, timing, memory coalescing) is left to
 ``chip_smoke.py`` on the card.
 
-Contracts: words bitwise; B2-B5 float outputs bitwise.
+Contracts: words bitwise; float outputs bitwise.
 """
 import ctypes
 import re
@@ -48,6 +50,12 @@ MANY = {f"l{i:02d}": (i % 5 + 1,) if i % 3 else (i + 1, 2)
 B3_ARGS = [P] * 2 + [ctypes.c_int, ctypes.c_float, ctypes.c_float, P, P]
 F32 = ctypes.c_float
 TABLE_ARGS = [P] * 3 + [ctypes.c_int] + [P] * 2
+PLAN_ARGS = [P] * 5 + [ctypes.c_int64] + [ctypes.c_int] * 3 + [P]
+RING_ARGS = ([P] * 5 + [F32] * 2 + [P, ctypes.c_int64] + [ctypes.c_int] * 2
+             + [P])
+# Flat vector lengths: one value, ragged tails of partial and empty rows,
+# and one client's 2NN vector.
+FLAT_N = [1, 970, 3000, 199210]
 ETA, THETA = 0.05, 0.9
 
 
@@ -340,32 +348,128 @@ def test_b2_b5_four_columns_a_thread(host_lib, bits, K, momentum):
 
 
 
+def random_words(rng, shape) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape,
+                                         dtype=np.int64).astype(np.int32))
+
+
+def flat_xs(x: torch.Tensor):
+    """x [n] twice: 16-byte aligned, and a view one float past a 16-byte
+    boundary (the kernels' scalar path)."""
+    spare = torch.empty(x.shape[0] + 1)
+    return x.clone(), spare[1:].copy_(x)
+
+
+def run_flat(call, n: int) -> torch.Tensor:
+    """Call a flat entry into a fresh out of n values and a NaN guard
+    past them; assert it succeeded and wrote nothing past n."""
+    out = torch.full((n + 1,), float("nan"))
+    assert call(ptr(out)) == 0
+    assert torch.isnan(out[n])
+    return out[:n]
+
+
+@pytest.mark.parametrize("n", FLAT_N)
+@pytest.mark.parametrize("K", [1, 3, 5, 9])
+@pytest.mark.parametrize("bits", [2, 4, 8, 16])
+def test_b7_flat_entry(host_lib, bits, K, n):
+    """B7's C entry on a flat x [n], as ``dequant_mix_plan_flat`` calls
+    it, bitwise against the plain plan decode of the zero-padded planar
+    view sliced to n: K fixed at compile time (K <= 8) or in groups (9),
+    x aligned and misaligned."""
+    fn = entry(host_lib("dequant_mix"), "dequant_mix_plan", PLAN_ARGS)
+    _, w = ref.planar_pad_len(n, bits)
+    rng = np.random.default_rng(1000 * bits + 10 * K + n)
+    xv = torch.from_numpy((0.5 * rng.normal(size=n)).astype(np.float32))
+    streams = random_words(rng, (K, w))
+    scales = torch.from_numpy(rng.uniform(1e-4, 1e-2, K).astype(np.float32))
+    weights = torch.from_numpy(rng.uniform(0, 0.5, K).astype(np.float32))
+    want = ref.dequant_mix_plan_ref(ref.pad_planar(xv, bits), streams,
+                                    scales, weights, bits).reshape(-1)[:n]
+    for x in flat_xs(xv):
+        out = run_flat(lambda o: fn(ptr(x), ptr(streams), ptr(scales),
+                                    ptr(weights), o, n, K, w, bits, None),
+                     n)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+def test_b7_flat_entry_checks(host_lib):
+    """B7's C entry refuses bad bits, K = 0, a W that is not a multiple of
+    512, an n that W does not fit as ``planar_pad_len`` sizes it, and a
+    misaligned stack."""
+    fn = entry(host_lib("dequant_mix"), "dequant_mix_plan", PLAN_ARGS)
+    n, K, bits = 3000, 3, 8
+    per, w = ref.planar_pad_len(n, bits)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    streams = random_words(rng, (K, w))
+    scales, weights = torch.rand(K), torch.rand(K)
+    misaligned = torch.empty(K * w + 1, dtype=torch.int32)[1:]
+
+    def call(st=streams, n=n, K=K, w=w, bits=bits):
+        out = torch.full((per * w,), float("nan"))
+        return fn(ptr(x), ptr(st), ptr(scales), ptr(weights), ptr(out), n,
+                  K, w, bits, None)
+
+    assert call() == 0
+    for bad in ({"bits": 3}, {"bits": 0}, {"K": 0}, {"w": w - 4},
+                {"w": w + ref.LANE_BLOCK}, {"n": per * w + 1},
+                {"n": per * (w - ref.LANE_BLOCK)}, {"st": misaligned}):
+        assert call(**bad) != 0, bad
+
+
 @pytest.mark.parametrize("w_self,w_nb", [(0.5, 0.25), (1 / 3, 1 / 3)])
 @pytest.mark.parametrize("bits", [2, 4, 8, 16])
 def test_b8_ring_entry(host_lib, bits, w_self, w_nb):
     """B8's own entry (three stream pointers, the weights by value) against
-    the plain ring decode, bitwise, over six blocks of 256 columns."""
-    fn = entry(host_lib("dequant_mix"), "dequant_mix_ring",
-               [P] * 5 + [F32] * 2 + [P] + [ctypes.c_int] * 2 + [P])
+    the plain ring decode, bitwise, over six blocks of 256 columns of a
+    full planar buffer (n = per * W, as the Pallas-shaped wrapper calls
+    it)."""
+    fn = entry(host_lib("dequant_mix"), "dequant_mix_ring", RING_ARGS)
     per, w = 32 // bits, 3 * ref.LANE_BLOCK
+    n = per * w
     rng = np.random.default_rng(bits)
     x = torch.from_numpy((0.5 * rng.normal(size=(per, w))).astype(
         np.float32))
-    q = [torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, w,
-                                       dtype=np.int64).astype(np.int32))
-         for _ in range(3)]
+    q = [random_words(rng, w) for _ in range(3)]
     scales = torch.from_numpy(rng.uniform(1e-4, 1e-2, 3).astype(np.float32))
     out = np.full((per, w), np.nan, np.float32)
     ws, wn = float(np.float32(w_self)), float(np.float32(w_nb))
-    assert fn(ptr(x), *(ptr(t) for t in q), ptr(scales), ws, wn, ptr(out), w,
-              bits, None) == 0
+    assert fn(ptr(x), *(ptr(t) for t in q), ptr(scales), ws, wn, ptr(out), n,
+              w, bits, None) == 0
     want = ref.dequant_mix_ref(x, *q, scales, bits, w_self, w_nb)
     assert np.array_equal(as_bits(out), as_bits(want))
     # W must be a multiple of 512, bits one of 2, 4, 8, 16
     assert fn(ptr(x), *(ptr(t) for t in q), ptr(scales), ws, wn, ptr(out),
-              w - 256, bits, None) != 0
-    assert fn(ptr(x), *(ptr(t) for t in q), ptr(scales), ws, wn, ptr(out), w,
-              3, None) != 0
+              per * (w - 256), w - 256, bits, None) != 0
+    assert fn(ptr(x), *(ptr(t) for t in q), ptr(scales), ws, wn, ptr(out), n,
+              w, 3, None) != 0
+
+
+@pytest.mark.parametrize("n", FLAT_N)
+@pytest.mark.parametrize("bits", [2, 4, 8, 16])
+def test_b8_ring_flat_entry(host_lib, bits, n):
+    """B8's C entry on a flat x [n], as ``dequant_mix_flat`` calls it,
+    bitwise against the plain ring decode of the zero-padded planar view
+    sliced to n, x aligned and misaligned; an n that W does not fit is
+    refused."""
+    fn = entry(host_lib("dequant_mix"), "dequant_mix_ring", RING_ARGS)
+    per, w = ref.planar_pad_len(n, bits)
+    rng = np.random.default_rng(n + bits)
+    xv = torch.from_numpy((0.5 * rng.normal(size=n)).astype(np.float32))
+    q = [random_words(rng, w) for _ in range(3)]
+    scales = torch.from_numpy(rng.uniform(1e-4, 1e-2, 3).astype(np.float32))
+    ws, wn = float(np.float32(0.5)), float(np.float32(0.25))
+    want = ref.dequant_mix_ref(ref.pad_planar(xv, bits), *q, scales, bits,
+                               0.5, 0.25).reshape(-1)[:n]
+    for x in flat_xs(xv):
+        out = run_flat(lambda o: fn(ptr(x), *(ptr(t) for t in q),
+                                    ptr(scales), ws, wn, o, n, w, bits,
+                                    None), n)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    for bad_n in (per * w + 1, per * (w - ref.LANE_BLOCK)):
+        assert fn(ptr(xv), *(ptr(t) for t in q), ptr(scales), ws, wn,
+                  ptr(torch.empty(per * w + 1)), bad_n, w, bits, None) != 0
 
 
 @pytest.mark.parametrize("form", ["host key", "device key", "tensor noise",

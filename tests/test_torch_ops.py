@@ -58,8 +58,8 @@ def planar(x, bits):
     return np.pad(x, (0, per * w - x.shape[0])).reshape(per, w)
 
 
-def random_streams(rng, k, bits):
-    _, w = ref.planar_pad_len(N, bits)
+def random_streams(rng, k, bits, n=N):
+    _, w = ref.planar_pad_len(n, bits)
     return rng.integers(0, 2 ** 32, size=(k, w), dtype=np.uint64).astype(
         np.uint32)
 
@@ -184,6 +184,54 @@ def test_decode_apply_plan_vs_jax(bits, k):
                              torch.from_numpy(weights), bits).numpy()
     assert within_ulp(plain, direct, deq_scale(planar(x, bits), streams,
                                                scales, weights, bits), k + 1)
+
+
+@pytest.mark.parametrize("n", [1, 970, 3000, 199210])
+@pytest.mark.parametrize("bits,k", [(8, 3), (4, 9), (2, 5), (16, 1)])
+def test_decode_apply_plan_ragged_n_vs_jax(bits, k, n):
+    """``decode_apply_plan`` on flat vectors whose last planar row is
+    partial or whose tail rows are empty (the cases B7's flat entry reads
+    with its scalar path on the card) against the JAX package's, within
+    k + 1 ulp; its CPU path is the plain decode of the padded view."""
+    rng = np.random.default_rng(n + 10 * bits + k)
+    x = rng.normal(size=n).astype(np.float32)
+    streams = random_streams(rng, k, bits, n)
+    scales = rng.uniform(1e-3, 1e-1, size=k).astype(np.float32)
+    weights = rng.uniform(0.1, 0.6, size=k).astype(np.float32)
+    want = np.asarray(jops.decode_apply_plan(
+        jnp.asarray(x), jnp.asarray(streams), jnp.asarray(scales),
+        jnp.asarray(weights), bits=bits, interpret=True))
+    before = launch_counts()
+    got = decode_apply_plan(torch.from_numpy(x),
+                            torch.from_numpy(streams.view(np.int32)),
+                            torch.from_numpy(scales),
+                            torch.from_numpy(weights), bits=bits).numpy()
+    assert launch_counts() == before
+    assert got.shape == (n,) and got.dtype == np.float32
+    scale = deq_scale(planar(x, bits), streams, scales, weights,
+                      bits).reshape(-1)[:n]
+    assert within_ulp(got, want, scale, k + 1)
+
+
+@pytest.mark.parametrize("n", [1, 3000, 199210])
+def test_decode_apply_ring_ragged_n_vs_jax(n):
+    """``decode_apply_ring`` on the same ragged lengths against the JAX
+    package's, within 4 ulp (three streams)."""
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=n).astype(np.float32)
+    q = random_streams(rng, 3, 8, n)
+    scales = rng.uniform(1e-3, 1e-1, size=3).astype(np.float32)
+    want = np.asarray(jops.decode_apply_ring(
+        jnp.asarray(x), *(jnp.asarray(a) for a in q), jnp.asarray(scales),
+        bits=8, w_self=0.5, w_nb=0.25, interpret=True))
+    got = decode_apply_ring(torch.from_numpy(x),
+                            *(torch.from_numpy(a.view(np.int32)) for a in q),
+                            torch.from_numpy(scales), bits=8, w_self=0.5,
+                            w_nb=0.25).numpy()
+    assert got.shape == (n,)
+    wts = np.asarray([0.5, 0.25, 0.25], np.float32)
+    scale = deq_scale(planar(x, 8), q, scales, wts, 8).reshape(-1)[:n]
+    assert within_ulp(got, want, scale, 4)
 
 
 @pytest.mark.parametrize("bits,w_self,w_nb", [(8, 1 / 3, 1 / 3),
