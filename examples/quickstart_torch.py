@@ -4,7 +4,10 @@
 problem — the configuration of ``examples/quickstart.py``, through the
 port's library API. The round runs the CUDA kernels (encode, decode-mix,
 heavy-ball update; with ``--fuse-round`` the fused encode and decode that
-fold in the last two local steps) on the card. Run:
+fold in the last two local steps) on the card, each round one replay of a
+CUDA graph captured around the round step (``capture_step``, the port's
+counterpart of the reference's ``jax.jit``); on the CPU the step runs
+eagerly. Run:
 
     PYTHONPATH=src python examples/quickstart_torch.py            # GPU
     PYTHONPATH=src python examples/quickstart_torch.py --device cpu
@@ -16,8 +19,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import (DFedAvgMConfig, MixingSpec, QuantConfig,
-                              average_params, init_round_state,
-                              make_round_step)
+                              average_params, capture_step,
+                              init_round_state, make_round_step)
 from repro_torch.data import FederatedDataset, classification_dataset
 from repro_torch.models.paper_nets import apply_2nn, init_2nn, softmax_xent
 
@@ -51,6 +54,8 @@ def main() -> None:
 
     for t in range(args.rounds):
         batches = fed.round_batches(t, K=K, batch=BATCH, device=dev)
+        if t == 0 and dev.type == "cuda":
+            step = capture_step(step, state, batches)
         state, metrics = step(state, batches)
         if t % 10 == 0 or t == args.rounds - 1:
             print(f"round {t:3d}  loss={float(metrics['loss']):.4f}  "

@@ -1,7 +1,9 @@
 """Core: quantized DFedAvgM as PyTorch — the port of the JAX package's
-``repro.core`` for one synchronous round on one device."""
-from .topology import (Graph, MixingSpec, ring_graph, lazy_uniform,  # noqa
-                       metropolis_hastings, max_degree_weights,
+``repro.core`` for one synchronous round on one device, its FedAvg and
+DSGD baselines, the paper's bit accounting, and ``capture_step``, which
+runs a round as one CUDA graph (the counterpart of ``jax.jit``)."""
+from .topology import (Graph, MixingSpec, ring_graph, complete_graph,  # noqa
+                       lazy_uniform, metropolis_hastings, max_degree_weights,
                        check_mixing_matrix)
 from .quantize import (QuantConfig, quantize_int, dequantize_int,  # noqa
                        message_bits, scale_from_amax)
@@ -12,3 +14,11 @@ from .mixing import (MixerConfig, make_mixer, make_plan_mixer,  # noqa
                      mix_dense, consensus_distance)
 from .dfedavgm import (DFedAvgMConfig, RoundState, init_round_state,  # noqa
                        make_round_step, average_params, round_comm_bits)
+from .baselines import (FedAvgConfig, make_fedavg_step, DSGDConfig,  # noqa
+                        make_dsgd_step)
+from .comm_cost import (CommLedger, dfedavgm_round_bits, fedavg_round_bits,  # noqa
+                        dsgd_round_bits, schedule_round_bits,
+                        plan_round_bits, async_event_bits,
+                        prop3_quantization_wins, prop3_epsilon_floor,
+                        bottleneck_bits)
+from .compiled import capture_step  # noqa

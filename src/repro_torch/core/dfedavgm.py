@@ -11,8 +11,9 @@ One communication round:
 
 Client copies are stacked on a leading axis of size m. The PRNG chain is
 the JAX one: ``split(state.rng, 3)`` gives the round, mixing and next
-keys, and ``split(key_round, m)`` the client keys. Keys stay on the CPU
-(they are a few words); the parameters live on the round's device.
+keys, and ``split(key_round, m)`` the client keys. The key lives on the
+parameters' device, so the chain runs there and a round copies nothing
+from the host (``core.compiled`` captures it in one CUDA graph).
 """
 from __future__ import annotations
 
@@ -23,10 +24,11 @@ import torch
 
 from .. import prng
 from ..device import resolve_device
+from .comm_cost import dfedavgm_round_bits
 from .local_sgd import local_train, local_train_deferred
 from .mixing import (MixerConfig, consensus_distance, make_fused_tail,
                      make_mixer)
-from .quantize import QuantConfig, message_bits
+from .quantize import QuantConfig
 from .topology import MixingSpec
 
 Params = dict[str, torch.Tensor]
@@ -67,13 +69,16 @@ class RoundState(NamedTuple):
     """Carried state of the synchronous round loop."""
 
     params: Params        # stacked client copies, leaves [m, ...]
-    rng: torch.Tensor     # round-level key, int64 [2] on the CPU
+    rng: torch.Tensor     # round-level key, int64 [2], on the params' device
     round: int
 
 
 def init_round_state(params_stacked: Params, key: torch.Tensor
                      ) -> RoundState:
-    return RoundState(params=params_stacked, rng=key.to("cpu"), round=0)
+    """The round loop's first state; the key moves to the parameters'
+    device, where the whole key chain then runs."""
+    dev = next(iter(params_stacked.values())).device
+    return RoundState(params=params_stacked, rng=key.to(dev), round=0)
 
 
 def average_params(stacked: Params) -> Params:
@@ -87,8 +92,7 @@ def round_comm_bits(spec: MixingSpec, n_params: int,
     """Bits moved on the graph in ONE round (paper §3.2 accounting):
     every client sends its (possibly quantized) message across each
     directed edge."""
-    qc = quant if quant is not None else QuantConfig(bits=32)
-    return message_bits(n_params, qc) * spec.graph.num_directed_edges()
+    return dfedavgm_round_bits(spec.graph, n_params, quant)
 
 
 def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig, spec: MixingSpec,

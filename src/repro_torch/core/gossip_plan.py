@@ -72,6 +72,12 @@ class GossipPlan:
     def is_static(self) -> bool:
         return self.w_self is not None
 
+    @property
+    def num_directed_wire_edges(self) -> int:
+        """Directed messages ONE round of the plan moves — what
+        :func:`~repro_torch.core.comm_cost.plan_round_bits` bills."""
+        return int((self.src != np.arange(self.m)[None, :]).sum())
+
     def wire_pairs(self, k: int) -> list[tuple[int, int]]:
         """(source, target) pairs step k actually moves (idle slots
         dropped)."""

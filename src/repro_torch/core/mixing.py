@@ -81,15 +81,39 @@ class MixerConfig:
         return "dense"
 
 
-def mix_dense(W: np.ndarray, stacked: Params) -> Params:
-    """Eq. 5 reference: x' = W @ z per leaf, f32 over the client axis."""
+def mix_dense(W, stacked: Params) -> Params:
+    """Eq. 5 reference: x' = W @ z per leaf, f32 over the client axis.
+
+    ``W`` is numpy, as in the JAX package, or an f32 tensor already on
+    the leaves' device (what the mixers and DSGD pass: built once, so a
+    round copies nothing from the host)."""
     out = {}
     for name, z in stacked.items():
-        Wt = torch.as_tensor(np.asarray(W), dtype=torch.float32,
-                             device=z.device)
+        Wt = _device_w(W, z.device)
         out[name] = torch.tensordot(Wt, z.to(torch.float32),
                                     dims=([1], [0])).to(z.dtype)
     return out
+
+
+def _device_w(W, dev: torch.device) -> torch.Tensor:
+    """``W`` as an f32 tensor on ``dev``: converted from numpy, or a
+    tensor already there (no copy)."""
+    if isinstance(W, torch.Tensor):
+        if W.dtype != torch.float32 or W.device != dev:
+            raise ValueError(f"W must be f32 on {dev}, got {W.dtype} on "
+                             f"{W.device}")
+        return W
+    return torch.as_tensor(np.asarray(W), dtype=torch.float32, device=dev)
+
+
+def _key_on(key: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """The mixing key, which must already lie on the parameters' device:
+    a host key would cost a pageable copy every round and cannot be
+    captured in a CUDA graph."""
+    if key is None or key.device != dev:
+        raise ValueError(f"the quantizer key must be on {dev}, got "
+                         f"{None if key is None else key.device}")
+    return key
 
 
 def _quant_leaf_keys(key: torch.Tensor, n_leaves: int, m: int
@@ -100,17 +124,17 @@ def _quant_leaf_keys(key: torch.Tensor, n_leaves: int, m: int
     return prng.split(key, n_leaves * m).reshape(n_leaves, m, 2)
 
 
-def _mix_dense_quantized(W: np.ndarray, x: Params, z: Params,
-                         quant: QuantConfig, key: torch.Tensor | None
-                         ) -> Params:
-    """Eq. 7 / Lemma 5 with dense W, quantizing per client and leaf."""
+def _mix_dense_quantized(W, x: Params, z: Params, quant: QuantConfig,
+                         key: torch.Tensor | None) -> Params:
+    """Eq. 7 / Lemma 5 with dense W (numpy, or f32 on the leaves'
+    device), quantizing per client and leaf."""
     names = sorted(x)
     m = x[names[0]].shape[0]
     dev = x[names[0]].device
-    Wt = torch.as_tensor(np.asarray(W), dtype=torch.float32, device=dev)
+    Wt = _device_w(W, dev)
     keys = None
     if quant.stochastic and quant.enabled:
-        keys = _quant_leaf_keys(key, len(names), m).to(dev)
+        keys = _quant_leaf_keys(_key_on(key, dev), len(names), m)
     out = {}
     for li, name in enumerate(names):
         xl, zl = x[name], z[name]
@@ -193,7 +217,8 @@ def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
         scales = layout.leaf_scales(delta, quant)              # [m, nl]
         keys = None
         if quant.stochastic:     # B1 draws the noise from the keys
-            keys = _quant_leaf_keys(key, layout.n_leaves, plan.m).to(dev)
+            keys = _quant_leaf_keys(_key_on(key, X.device),
+                                    layout.n_leaves, plan.m)
         words = layout.encode(delta, scales, quant, keys=keys)
         if quant.delta_mode == "lemma5":
             base = _weighted_replica_base(X, w_t, src_t)
@@ -208,7 +233,7 @@ def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
 def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
                     quant: QuantConfig | None = None,
                     plan: GossipPlan | None = None,
-                    W: np.ndarray | None = None, device=None) -> Callable:
+                    W=None, device=None) -> Callable:
     """Fused-round tail for a static spec on one device: the round's last
     two local steps, the wire encode and the combined decode-apply — the
     single-device counterpart of the JAX package's ``make_fused_tail``.
@@ -249,6 +274,7 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
     if plan is None:
         if W is None:
             raise ValueError("the dense fused tail needs W")
+        W = _device_w(W, dev)
 
         def dense_tail(x, y, v, g, batch_last, keys_last, key_q):
             y1, v1 = penultimate(y, v, g)
@@ -294,7 +320,8 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
         scales = layout.leaf_scales(delta, quant)        # [m, n_leaves]
         keys = None
         if quant.stochastic:     # B4 draws the noise from the keys
-            keys = _quant_leaf_keys(key_q, layout.n_leaves, m).to(dev)
+            keys = _quant_leaf_keys(_key_on(key_q, X.device),
+                                    layout.n_leaves, m)
         y_out, v_out, words = layout.encode_momentum(
             y2d, v2d, g2d, X, scales, et, quant, keys=keys)
         y_pub = layout.from_planar_stacked(y_out)
@@ -324,16 +351,16 @@ def make_mixer(spec: MixingSpec, cfg: MixerConfig, device=None) -> Callable:
             raise ValueError(f"ring mixer needs a ring MixingSpec, got "
                              f"kind={spec.kind!r}")
         return make_plan_mixer(spec.gossip_plan(), quant, device=device)
-    resolve_device(device)
+    Wt = _device_w(spec.W, resolve_device(device))   # once, not per round
     if quant is None or not quant.enabled:
         def mixer(x, z, key=None, t=None):
             del x, key, t
-            return mix_dense(spec.W, z)
+            return mix_dense(Wt, z)
         return mixer
 
     def mixer(x, z, key=None, t=None):
         del t
-        return _mix_dense_quantized(spec.W, x, z, quant, key)
+        return _mix_dense_quantized(Wt, x, z, quant, key)
     return mixer
 
 

@@ -19,7 +19,7 @@ from typing import Iterable
 
 import numpy as np
 
-__all__ = ["Graph", "ring_graph", "metropolis_hastings",
+__all__ = ["Graph", "ring_graph", "complete_graph", "metropolis_hastings",
            "max_degree_weights", "lazy_uniform", "check_mixing_matrix",
            "MixingSpec"]
 
@@ -72,6 +72,12 @@ def ring_graph(m: int) -> Graph:
     if m == 2:  # the two "edges" coincide
         adj = np.array([[False, True], [True, False]])
     return Graph(adj, name=f"ring{m}")
+
+
+def complete_graph(m: int) -> Graph:
+    """All-to-all: gossip degenerates to exact averaging each round."""
+    adj = ~np.eye(m, dtype=bool)
+    return Graph(adj, name=f"complete{m}")
 
 
 def metropolis_hastings(graph: Graph) -> np.ndarray:
@@ -175,6 +181,14 @@ class MixingSpec:
             raise ValueError(f"unknown scheme {scheme!r}")
         check_mixing_matrix(W, graph)
         return MixingSpec(graph=graph, W=W, kind="dense")
+
+    @staticmethod
+    def complete(m: int) -> "MixingSpec":
+        """W = 11^T/m — makes DFedAvgM coincide with (all-client) FedAvg."""
+        g = complete_graph(m)
+        W = np.full((m, m), 1.0 / m)
+        check_mixing_matrix(W, g)
+        return MixingSpec(graph=g, W=W, kind="dense")
 
     def gossip_plan(self):
         """Compile this static spec into a :class:`~repro_torch.core.

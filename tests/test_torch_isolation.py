@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch`` and neither
-``chip_smoke.py`` nor ``chip_b7_variants.py`` imports JAX or the JAX
-package (``repro``). Only the parity tests import both. The check walks
-each file's syntax tree, so an import inside a function counts too."""
+"""The port stands alone: no module of ``src/repro_torch`` and none of
+``chip_smoke.py``, ``chip_b7_variants.py`` and ``chip_turns.py`` imports
+JAX or the JAX package (``repro``). Only the parity tests import both.
+The check walks each file's syntax tree, so an import inside a function
+counts too."""
 import ast
 from pathlib import Path
 
@@ -10,7 +11,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro")
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_b7_variants.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_b7_variants.py",
+    ROOT / "chip_turns.py"]
 
 
 def imported_roots(path: Path) -> set[str]:
