@@ -34,9 +34,14 @@ Phases (any failure exits non-zero):
    keyed B1's, B4's and B6's compiled instructions by pipe (``cuobjdump
    -sass``) for their operations bounds, and check that B7's (8 bits,
    K = 3) and B8's global loads all come before their first decode;
-   check that a B8 call is one device operation; time B7 through its
-   Pallas-shaped entry at both vectors (``plan_times``, which another
-   tree's package can run too);
+   check that a B8 call is one device operation; hold T1 and T2 (the
+   key chain's threefry split and uniform draw, ``csrc/threefry.cu``)
+   bitwise against ``prng.split_plain`` and ``prng.uniform_plain`` (R in
+   {1, 16, 96} keys split into 2-96; every 2NN and CNN leaf for 16
+   keys), time them against the floor and T2 against its ALU bound, and
+   check by graph capture that a split on the card is one T1 node; time
+   B7 through its Pallas-shaped entry at both vectors (``plan_times``,
+   which another tree's package can run too);
 5. one quickstart round on the card against the same round on the CPU,
    and the plan realization against the dense one on the card, for the
    unfused and the fused round;
@@ -45,7 +50,7 @@ Phases (any failure exits non-zero):
    round (2NN 784-200-200-10, 16 clients on a ring with self-weight 0.5,
    K=4, batch 32, eta=0.05, theta=0.9, 8-bit stochastic lemma5 gossip)
    for ROUNDS rounds, unfused (B1 keyed, B2, B3 once a local step) and
-   fused (B3, B4 keyed, B5); then
+   fused (B3, B4 keyed, B5), both with T1 once a split (4 a round); then
    the per-tensor ``ops`` entry points once each (B6, B7, B8, B3);
    check the counts, a finite falling loss and the ops against the CPU;
 7. profile both rounds (device busy and idle share, time by kernel);
@@ -55,17 +60,26 @@ Phases (any failure exits non-zero):
    graph a round) against 12 eager rounds from the same state: bitwise
    (else the trajectory contract, with the rounds where they part); the
    graph holds exactly one round's kernel nodes of each kernel (unfused
-   B1 = B2 = 1, B3 = 4; fused B4 = B5 = 1, B3 = 2; named by
-   ``cuFuncGetName``) and no copy from host memory;
-10. captured against eager round time by the host clock, in turns in
+   B1 = B2 = 1, B3 = 4; fused B4 = B5 = 1, B3 = 2; T1 = 4 in both; named
+   by ``cuFuncGetName``), no copy from host memory and no node of the
+   int64 tensor threefry;
+10. the paper's CNN (1 663 370 parameters, m 16, K 4, batch 32) and
+   CharLSTM (820 522, m 8, K 2, batch 8, sequence 40) at full width on
+   the quickstart's gossip: 12 eager rounds with their launch counts
+   against 12 captured rounds, bitwise; each graph holds exactly B1 = B2
+   = 1, B3 = K, T1 = 4 kernel nodes; finite losses, the last
+   LOSS_MARGIN below ln(classes) (a model that learns);
+11. captured against eager round time by the host clock, in turns in
    this process, with a profile of 5 replays, a replay's device time and
    the cost of the no-alias clones;
-11. the Fig. 6 and Figs 2-5 benches (``repro_torch.bench``) at full size,
-   captured and eager, plus the ring 8-bit Fig. 6 arm (B1, B2, B3 in its
-   graph): captured equal to eager bitwise in every arm, finite losses
-   that fall, accuracy, commMB from ``comm_cost`` against the paper's
-   formula, each graph's kernel nodes;
-12. print the kernel table (with the floor) as one JSON line, then the
+12. the Fig. 6, Figs 2-5, Fig. 8 (CNN) and Fig. 7 (CharLSTM) benches
+   (``repro_torch.bench``) at full size, captured and eager, plus the
+   ring 8-bit Fig. 6 arm (B1, B2, B3 in its graph): captured equal to
+   eager bitwise in every arm, finite losses that fall, accuracy,
+   commMB from ``comm_cost`` against the paper's formula, each graph's
+   kernel nodes (B3, T1 and, on a dense quantized mix, T2 a leaf) and
+   the eager arm's launches;
+13. print the kernel table (with the floor) as one JSON line, then the
    card again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs one CUDA card and exits non-zero without one.
@@ -146,6 +160,12 @@ KERNEL_SOURCES = {
                          "src/repro/kernels/dequant_mix.py:203"),
     "dequant_mix": ("src/repro_torch/csrc/dequant_mix.cu",
                     "src/repro/kernels/dequant_mix.py:232"),
+    # No Pallas kernel: the JAX package leaves the key chain's
+    # jax.random.split and jax.random.uniform to XLA; these name the calls.
+    "threefry_split": ("src/repro_torch/csrc/threefry.cu",
+                       "src/repro/core/dfedavgm.py:258"),
+    "threefry_uniform": ("src/repro_torch/csrc/threefry.cu",
+                         "src/repro/core/quantize.py:139"),
 }
 # Further times a row carries where its kernel has them, all measured.
 EXTRA_KEYS = ("clean_ms", "host_ms", "plain_call_ms", "plain_host_ms",
@@ -158,7 +178,26 @@ KERNEL_PATH = {"quantize_pack_buffer": "unfused",
                "dequant_mix_buffer": "unfused", "momentum_sgd": "unfused",
                "momentum_quantize_pack_buffer": "fused",
                "dequant_mix_momentum_buffer": "fused", "quantize_pack": "ops",
-               "dequant_mix_plan": "ops", "dequant_mix": "ops"}
+               "dequant_mix_plan": "ops", "dequant_mix": "ops",
+               "threefry_split": "unfused", "threefry_uniform": "fig8"}
+# Splits a round makes (round keys, client keys, per-step keys, and the
+# per-leaf quantizer keys of a quantized wire), the fused round too.
+SPLITS_A_ROUND = 4
+# A graph node of the int64 tensor threefry (prng.split_plain's mask,
+# shifts, or and xor on int64), by its demangled function name.
+INT64_THREEFRY = re.compile(
+    r"(Bitwise(And|Or|Xor)Functor|[lr]shift_kernel)[^;]*\blong\b")
+# The paper's models at full width (configs/paper_models.py), each on the
+# quickstart's ring plan with the 8-bit stochastic lemma5 wire. The CNN
+# reads 28x28x1 images with low-frequency class templates (the first
+# channel of ``classification_dataset(image=True)``): on the MNIST-like
+# vectors' per-pixel random class means it stays at chance for 12 rounds,
+# the JAX package's CNN too, so its loss would show no gradient at work.
+FULL_WIDTH = {"cnn": dict(m=16, K=4, batch=32, eta=0.01, noise=1.0),
+              "charlstm": dict(m=8, K=2, batch=8, seq=40, eta=1.0)}
+# How far under ln(classes), the loss of a model that guesses, the last
+# full-width round's loss must come.
+LOSS_MARGIN = 0.2
 
 
 def card_line() -> str:
@@ -815,6 +854,137 @@ def ops_kernel_checks(dev, flush, rec):
     plan_kernel_checks(dev, flush, rec["dequant_mix_plan"], n, gen)
 
 
+def threefry_ops(kernel: str, n_draws: int) -> dict:
+    """The operations bound of T1 or T2 (``kernel`` = "threefry_split" or
+    "threefry_uniform") from its compiled code: a thread makes one draw,
+    so this run's work is ``n_draws`` times the instructions of one
+    thread (by opcode); the bound is its busiest pipe."""
+    per = sass_counts(sass_of("threefry"), r"\d" + kernel + r"_kernel")
+    ms = pipe_ms({k: v * n_draws for k, v in per.items()})
+    pipe = max(ms, key=ms.get)
+    return {"ms": ms[pipe], "pipe": pipe, "pipe_ms": ms, "draws": n_draws,
+            "per_draw": per, "instructions_per_draw": sum(per.values())}
+
+
+def keychain_checks(dev, flush) -> dict:
+    """T1 and T2 against their plain versions on the card, bitwise: T1
+    (``kernels.threefry.split``) against ``prng.split_plain`` for R keys
+    in {1, 16, 96} split into num in {2, 3, 4, 16, 96}; T2
+    (``kernels.threefry.uniform``) against ``prng.uniform_plain`` at every
+    leaf size of the 2NN and of the paper's CNN for m = 16 keys, and of
+    the models the dense quantized benches run at their own key counts:
+    Fig. 8's CNN (``bench.cnn``) and Fig. 7's CharLSTM (``bench.charlm``).
+    Timed: T1 at the quickstart's per-leaf split (one key into 6 x 16)
+    and each of a round's splits; T2 at Fig. 8's w1 (its largest leaf,
+    on the path whose launches the kernels line reports), and at the
+    2NN's w1 (the Figs 2-5 quantized arms) and the paper CNN's w1 for 16
+    clients; both against their plain versions, the launch floor
+    (``floor``) and, for T2, its ALU bound from the compiled code. Then,
+    by graph capture,
+    one ``prng.split`` on a device key is one T1 node, and the int64
+    threefry detector finds ``split_plain``'s own nodes."""
+    from repro_torch import prng
+    from repro_torch.configs.paper_models import PAPER_MODELS
+    from repro_torch.bench import charlm, cnn
+    from repro_torch.kernels import threefry
+    from repro_torch.models.paper_nets import (init_2nn, init_charlstm,
+                                               init_cnn)
+
+    gen = torch.Generator().manual_seed(9)
+
+    def keys(rows):
+        return torch.randint(0, 2 ** 32, (rows, 2), generator=gen,
+                             dtype=torch.int64).to(dev)
+
+    rec = {k: {"max_abs_err": 0.0, "max_ulp": 0, "checks": []}
+           for k in ("threefry_split", "threefry_uniform")}
+    for rows in (1, 16, 96):
+        k = keys(rows)
+        for num in (2, 3, 4, 16, 96):
+            check_words(f"T1 R={rows} num={num}", threefry.split(k, num),
+                        prng.split_plain(k, num))
+        rec["threefry_split"]["checks"].append(
+            f"R={rows} num=2,3,4,16,96 bitwise")
+    sizes = {}
+    for model, params, m in (
+            ("2nn", init_2nn(0, device="cpu"), M),
+            ("cnn", init_cnn(0, device="cpu", **PAPER_MODELS["cnn"]), M),
+            ("fig8", init_cnn(0, in_ch=3, img=cnn.IMG, device="cpu"), cnn.M),
+            ("fig7", init_charlstm(0, vocab=charlm.VOCAB, device="cpu"),
+             charlm.M)):
+        k = keys(m)
+        for name, t in params.items():
+            n = t.numel()
+            sizes[f"{model}/{name}"] = (m, n)
+            check_words(f"T2 {model}/{name} [{m}, {n}]",
+                        threefry.uniform(k, (n,)).view(torch.int32),
+                        prng.uniform_plain(k, (n,)).view(torch.int32))
+        rec["threefry_uniform"]["checks"].append(
+            f"{model}: every leaf, m={m}, bitwise")
+    torch.cuda.synchronize()
+
+    r = rec["threefry_split"]
+    key = keys(1)[0]
+    n_leaf_keys = 6 * M
+    timed(r, "", lambda: threefry.split(key, n_leaf_keys), flush)
+    timed(r, "plain_", lambda: prng.split_plain(key, n_leaf_keys), flush)
+    out = threefry.split(key, n_leaf_keys)
+    r["sass"] = threefry_ops("threefry_split", n_leaf_keys)
+    r["bound_ms"], r["bound_by"] = bound(nbytes(key, out), 0,
+                                         r["sass"]["ms"])
+    r["shape"] = [1, n_leaf_keys, 2]
+    r["round_splits_ms"] = {}
+    for rows, num in ((1, 3), (1, M), (M, K), (1, n_leaf_keys)):
+        t = {}
+        k = keys(rows)
+        timed(t, "", lambda: threefry.split(k, num), flush)
+        r["round_splits_ms"][f"[{rows}, 2] -> {num}"] = t["clean_ms"]
+
+    r = rec["threefry_uniform"]
+    for tag in ("fig8/w1", "2nn/w1", "cnn/w1"):
+        m, n = sizes[tag]
+        k = keys(m)
+        t = {}
+        timed(t, "", lambda: threefry.uniform(k, (n,)), flush)
+        timed(t, "plain_", lambda: prng.uniform_plain(k, (n,)), flush)
+        out = threefry.uniform(k, (n,))
+        ops = threefry_ops("threefry_uniform", m * n)
+        t["bound_ms"], t["bound_by"] = bound(nbytes(k, out), 0, ops["ms"])
+        t["bound_bytes_ms"] = bound(nbytes(k, out), 0)[0]
+        t["sass"] = ops
+        t["shape"] = [m, n]
+        if tag == "fig8/w1":
+            r.update(t)
+        else:
+            r[tag.replace("/", "_")] = t
+
+    # By graph capture: a device key's split is one T1 node and nothing
+    # else; the detector of int64 threefry nodes sees the plain chain's.
+    key = prng.PRNGKey(1, device=dev)
+    ops = graph_ops(lambda: prng.split(key, 3))
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    prng.split_plain(key, 3)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        prng.split_plain(key, 3)
+    plain_nodes = graph_nodes(graph)
+    graph.reset()
+    rep = {"split_graph_ops": ops,
+           "split_plain_graph_nodes": len(plain_nodes),
+           "split_plain_int64_threefry_nodes": int64_threefry_nodes(
+               plain_nodes)}
+    rec["threefry_split"].update(rep)
+    for name, r in rec.items():
+        print(json.dumps({"check": name, **r}), flush=True)
+    if ops != ["kernel"]:
+        raise AssertionError(f"prng.split on the card: {ops}, expected one "
+                             "kernel")
+    if rep["split_plain_int64_threefry_nodes"] < 20:
+        raise AssertionError(f"the int64 threefry detector misses "
+                             f"split_plain's nodes: {rep}")
+    return rec
+
+
 def plan_operands(dev, n: int, bits: int, k: int, gen):
     """B7's operands for a flat vector of n values: x f32 [n], streams
     int32 [k, W], scales and weights f32 [k], drawn from ``gen`` (a CPU
@@ -1082,6 +1252,32 @@ def graph_ops(fn) -> list[str]:
     return ops
 
 
+def demangle(name: str) -> str:
+    """A mangled C++ function name as ``c++filt`` prints it, by the C++
+    runtime's ``__cxa_demangle``; a name that is not mangled as it is."""
+    lib = ctypes.CDLL("libstdc++.so.6")
+    fn = getattr(lib, "__cxa_demangle")
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_void_p
+    status = ctypes.c_int(-1)
+    out = fn(name.encode(), None, None, ctypes.byref(status))
+    if status.value or not out:
+        return name
+    text = ctypes.string_at(out).decode()
+    libc = ctypes.CDLL(None)
+    libc.free.argtypes = [ctypes.c_void_p]
+    libc.free(out)
+    return text
+
+
+def int64_threefry_nodes(nodes) -> int:
+    """Kernel nodes among a graph's nodes (:func:`graph_nodes`) that do the
+    int64 tensor threefry's bitwise work (:data:`INT64_THREEFRY`)."""
+    return sum(1 for op, name in nodes
+               if op == "kernel" and INT64_THREEFRY.search(demangle(name)))
+
+
 def floor_time(flush) -> dict:
     """The floor of the event times: one launch that moves 4 bytes
     (``zero_`` of a one-element tensor), timed as every kernel is."""
@@ -1163,8 +1359,10 @@ def check_entry_points(entry: dict) -> None:
 def expected_launches(fuse_round: bool) -> dict:
     """Launch counts of ROUNDS quickstart rounds: one encode and one
     decode a round, B3 once per applied local step over all leaves (K
-    unfused, K - 2 fused: B4 and B5 apply the last two)."""
+    unfused, K - 2 fused: B4 and B5 apply the last two), and T1 once a
+    split (SPLITS_A_ROUND a round, fused too)."""
     expect = {k: 0 for k in KERNEL_SOURCES}
+    expect["threefry_split"] = ROUNDS * SPLITS_A_ROUND
     if fuse_round:
         expect.update(momentum_quantize_pack_buffer=ROUNDS,
                       dequant_mix_momentum_buffer=ROUNDS,
@@ -1334,9 +1532,10 @@ def reference_checks(dev):
 
     ck = prng.split(prng.PRNGKey(6), M)
     b = fed.round_batches(1, K=K, batch=BATCH, device=dev)
-    y, v, g, _ = local_train_deferred(loss_fn, x, b, ck, eta=ETA, theta=THETA)
+    sk = prng.split(ck, K)
+    y, v, g, _ = local_train_deferred(loss_fn, x, b, sk, eta=ETA, theta=THETA)
     args = (x, y, v, g, {n: t[:, K - 1] for n, t in b.items()},
-            prng.split(ck, K)[:, K - 1], key)
+            sk[:, K - 1], key)
     tails = [make_fused_tail(loss_fn, M, eta=ETA, theta=THETA,
                              quant=cfg.quant, plan=plan, W=spec.W,
                              device=dev)(*args)
@@ -1353,14 +1552,15 @@ def reference_checks(dev):
 
 def _kernel_group(name: str) -> str:
     # Longest names first: "quantize_pack_buffer_kernel" is inside
-    # "momentum_quantize_pack_buffer_kernel".
+    # "momentum_quantize_pack_buffer_kernel". T1 and T2 are
+    # "threefry_split_kernel" and "threefry_uniform_kernel".
     for kernel in sorted(KERNEL_SOURCES, key=len, reverse=True):
         if f"{kernel}_kernel" in name:
             return kernel
     if "gemm" in name or "xmma" in name:
         return "matmul"
     if "<long" in name or "long," in name:
-        return "int64 elementwise (threefry keys and noise)"
+        return "int64 elementwise"
     return "other elementwise, reductions, copies"
 
 
@@ -1476,39 +1676,65 @@ def kernel_nodes(nodes) -> dict:
 
 def check_round_graph(what: str, nodes, expect: dict) -> dict:
     """A captured round's graph: exactly ``expect`` kernel nodes of each
-    of the port's kernels, and no copy from host memory."""
+    of the port's kernels, no copy from host memory and no node of the
+    int64 tensor threefry (the key chain is T1 and T2 alone)."""
     got = kernel_nodes(nodes)
     host = [op for op, _ in nodes if op.startswith("copy H")]
     rep = {"graph_nodes": len(nodes), "kernel_nodes": got,
            "expected_kernel_nodes": expect, "host_copies": host,
+           "int64_threefry_nodes": int64_threefry_nodes(nodes),
            "ops": {op: sum(1 for o, _ in nodes if o == op)
                    for op in sorted({o for o, _ in nodes})}}
     if got != expect:
         raise AssertionError(f"{what}: kernel nodes {got} != {expect}")
     if host:
         raise AssertionError(f"{what}: copies from host memory {host}")
+    if rep["int64_threefry_nodes"]:
+        raise AssertionError(f"{what}: {rep['int64_threefry_nodes']} int64 "
+                             "threefry nodes")
     return rep
 
 
 def captured_rounds(dev, fuse_round: bool) -> dict:
     """ROUNDS quickstart rounds eagerly and ROUNDS through
-    ``capture_step`` from one state and key: parameters, key, ``loss``
-    and ``consensus_dist`` must agree bitwise (else within the trajectory
-    contract, with the rounds where they part printed); the graph must
-    hold exactly one round's kernel nodes of each kernel
-    (``expected_launches`` / ROUNDS) and no copy from host memory."""
+    ``capture_step`` from one state and key (:func:`captured_vs_eager`);
+    the graph must hold exactly one round's kernel nodes of each kernel
+    (``expected_launches`` / ROUNDS)."""
     from repro_torch import prng
-    from repro_torch.core import capture_step, init_round_state
+    from repro_torch.core import init_round_state
 
     data, fed, stacked, spec, cfg, loss_fn, step = quickstart_setup(
         dev, fuse_round)
     batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
                for t in range(ROUNDS)]
-    s0 = init_round_state(stacked, prng.PRNGKey(1))
+    name = "fused" if fuse_round else "unfused"
+    return captured_vs_eager(
+        f"captured quickstart {name}", step,
+        lambda: quickstart_setup(dev, fuse_round)[-1],
+        init_round_state(stacked, prng.PRNGKey(1)), batches,
+        {k: v // ROUNDS for k, v in expected_launches(fuse_round).items()})
+
+
+def captured_vs_eager(what: str, step, make_step, s0, batches,
+                      expect_nodes: dict) -> dict:
+    """len(batches) rounds of ``step`` eagerly and as many through
+    ``capture_step`` of a step of its own (``make_step()``) from one
+    state ``s0``, a round of each in turn: parameters, key, ``loss`` and
+    ``consensus_dist`` must agree bitwise (else within the trajectory
+    contract, with the rounds where they part printed); the graph must
+    hold exactly ``expect_nodes`` kernel nodes of each kernel, no copy
+    from host memory and no int64 threefry node. Each round is timed by
+    the host clock to a synchronize (the eager rounds with their batch
+    on the device, the captured ones copying it into the graph's
+    buffers); the launch counters are read around the eager rounds (a
+    replay launches nothing from the host)."""
+    from repro_torch.core import capture_step
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
     # A step of its own that only ``run`` holds, as when a caller writes
     # ``step = capture_step(step, ...)``: the graph reads tensors the step
     # owns, and the eager rounds below reuse any memory freed with it.
-    own_step = quickstart_setup(dev, fuse_round)[-1]
+    own_step = make_step()
     t0 = time.perf_counter()
     run = capture_step(own_step, s0, batches[0])
     torch.cuda.synchronize()
@@ -1517,43 +1743,148 @@ def captured_rounds(dev, fuse_round: bool) -> dict:
     gc.collect()
     states = {"eager": s0, "captured": s0}
     metrics = {"eager": [], "captured": []}
+    round_ms = {"eager": [], "captured": []}
     round_ulp, rng_equal = [], True
+    reset_launch_counts()
     for b in batches:
         for mode, fn in (("eager", step), ("captured", run)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             states[mode], met = fn(states[mode], b)
+            torch.cuda.synchronize()
+            round_ms[mode].append((time.perf_counter() - t0) * 1e3)
             metrics[mode].append([float(met["loss"]),
                                   float(met["consensus_dist"])])
         round_ulp.append(max(ulp_diff(states["eager"].params[n],
                                       states["captured"].params[n])
-                             for n in stacked))
+                             for n in s0.params))
         rng_equal &= torch.equal(states["eager"].rng,
                                  states["captured"].rng)
-    name = "fused" if fuse_round else "unfused"
+    counts = launch_counts()
     nodes = graph_nodes(run.graph)
     bitwise = (max(round_ulp) == 0 and rng_equal
                and metrics["eager"] == metrics["captured"])
-    rep = {"path": f"captured quickstart {name}", "rounds": ROUNDS,
+    rep = {"path": what, "rounds": len(batches),
            "capture_s": capture_s, "bitwise": bitwise,
            "max_ulp_by_round": round_ulp, "rng_equal": rng_equal,
-           "loss_consensus": metrics,
-           **check_round_graph(name, nodes, {
-               k: v // ROUNDS for k, v in
-               expected_launches(fuse_round).items()})}
+           "loss_consensus": metrics, "eager_launches": counts,
+           "round_ms_median": {k: statistics.median(v[1:])
+                               for k, v in round_ms.items()},
+           "round_ms": round_ms,
+           **check_round_graph(what, nodes, expect_nodes)}
     if not bitwise:
         rep["first_round_apart"] = next(
-            (t for t in range(ROUNDS) if round_ulp[t]
+            (t for t in range(len(batches)) if round_ulp[t]
              or metrics["eager"][t] != metrics["captured"][t]), None)
     print(json.dumps(rep), flush=True)
     if not rng_equal:
-        raise AssertionError(f"{name}: captured key chain differs")
+        raise AssertionError(f"{what}: captured key chain differs")
     for (le, ce), (lc, cc) in zip(metrics["eager"], metrics["captured"]):
         if abs(lc / le - 1) > 1e-5 or abs(cc / ce - 1) > 1e-3:
-            raise AssertionError(f"{name}: captured rounds leave the "
+            raise AssertionError(f"{what}: captured rounds leave the "
                                  f"trajectory contract: {metrics}")
     for n, t in states["captured"].params.items():
-        if t.shape != stacked[n].shape or not torch.isfinite(t).all():
-            raise AssertionError(f"{name} leaf {n}: bad shape or non-finite")
+        if t.shape != s0.params[n].shape or not torch.isfinite(t).all():
+            raise AssertionError(f"{what} leaf {n}: bad shape or non-finite")
     return rep
+
+
+def full_width_setup(dev, model: str):
+    """The paper's CNN (``PAPER_MODELS["cnn"]``: 28x28x1, 1 663 370
+    parameters, on one channel of 28x28 template images) or CharLSTM
+    (``PAPER_MODELS["charlstm"]``: vocab 90, 820 522 parameters, on one
+    ``char_stream`` a client) at full width, with FULL_WIDTH's clients,
+    local steps and batch, on ``ring(m, 0.5)`` with the 8-bit stochastic
+    lemma5 wire on the ring plan (B1, B2, B3, T1). Returns (stacked
+    params, step, make_step, batch_of(t) on the device, classes)."""
+    import dataclasses
+
+    from repro_torch.bench.charlm import lm_batches
+    from repro_torch.bench.common import loss_charlm, loss_cnn, stacked
+    from repro_torch.configs.paper_models import PAPER_MODELS
+    from repro_torch.core import (DFedAvgMConfig, MixingSpec, QuantConfig,
+                                  make_round_step)
+    from repro_torch.data import (FederatedDataset, char_stream,
+                                  classification_dataset)
+    from repro_torch.models.paper_nets import init_charlstm, init_cnn
+
+    c = FULL_WIDTH[model]
+    m, k = c["m"], c["K"]
+    if model == "cnn":
+        data = classification_dataset(n=8000, image=True, img_side=28,
+                                      noise=c["noise"], seed=0)
+        fed = FederatedDataset.make(dataclasses.replace(
+            data, x=np.ascontiguousarray(data.x[..., :1])), m, iid=True)
+        params = stacked(init_cnn(0, device=dev, **PAPER_MODELS["cnn"]), m)
+        loss_fn, classes = loss_cnn, PAPER_MODELS["cnn"]["n_classes"]
+
+        def batch_of(t):
+            return fed.round_batches(t, K=k, batch=c["batch"], device=dev)
+    else:
+        vocab = PAPER_MODELS["charlstm"]["vocab"]
+        streams = [char_stream(4000, vocab=vocab, bias_seed=i, seed=i)
+                   for i in range(m)]
+        params = stacked(init_charlstm(0, device=dev,
+                                       **PAPER_MODELS["charlstm"]), m)
+        loss_fn, classes = loss_charlm, vocab
+
+        def batch_of(t):
+            return {n: x.to(dev) for n, x in lm_batches(
+                streams, t, K=k, batch=c["batch"], seq=c["seq"]).items()}
+
+    def make_step():
+        return make_round_step(loss_fn, DFedAvgMConfig(
+            eta=c["eta"], theta=THETA, local_steps=k,
+            quant=QuantConfig(bits=8)), MixingSpec.ring(m, self_weight=0.5),
+            device=dev)
+
+    return params, make_step(), make_step, batch_of, classes
+
+
+def full_width(dev) -> dict:
+    """The paper's CNN and CharLSTM at full width (:func:`full_width_setup`):
+    ROUNDS eager rounds with their launch counts (B1 = B2 = ROUNDS, B3 =
+    K x ROUNDS, T1 = SPLITS_A_ROUND x ROUNDS) against ROUNDS captured
+    rounds, bitwise (:func:`captured_vs_eager`); each graph holds
+    exactly B1 = B2 = 1, B3 = K, T1 = SPLITS_A_ROUND kernel nodes. Losses
+    finite, the last LOSS_MARGIN below ln(classes)."""
+    from repro_torch import prng
+    from repro_torch.core import init_round_state
+
+    out = {}
+    for model, c in FULL_WIDTH.items():
+        params, step, make_step, batch_of, classes = full_width_setup(
+            dev, model)
+        batches = [batch_of(t) for t in range(ROUNDS)]
+        per_round = dict.fromkeys(KERNEL_SOURCES, 0)
+        per_round.update(quantize_pack_buffer=1, dequant_mix_buffer=1,
+                         momentum_sgd=c["K"], threefry_split=SPLITS_A_ROUND)
+        rep = captured_vs_eager(
+            f"full width {model}", step, make_step,
+            init_round_state(params, prng.PRNGKey(1)), batches, per_round)
+        expect = {k: v * ROUNDS for k, v in per_round.items()}
+        losses = [lc[0] for lc in rep["loss_consensus"]["eager"]]
+        summary = {"path": f"full width {model}", "config": c,
+                   "params_per_client": sum(
+                       t[0].numel() for t in params.values()),
+                   "param_mb": sum(t.numel() * t.element_size()
+                                   for t in params.values()) / 1e6,
+                   "round_ms_median": rep["round_ms_median"],
+                   "graph_nodes": rep["graph_nodes"],
+                   "kernel_nodes": rep["kernel_nodes"],
+                   "loss_first_last": [losses[0], losses[-1]],
+                   "loss_gate": math.log(classes) - LOSS_MARGIN,
+                   "launches": rep["eager_launches"],
+                   "expected_launches": expect}
+        print(json.dumps(summary), flush=True)
+        if rep["eager_launches"] != expect:
+            raise AssertionError(f"full width {model}: launches "
+                                 f"{rep['eager_launches']} != {expect}")
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < summary["loss_gate"]:
+            raise AssertionError(f"full width {model}: losses {losses}")
+        out[model] = summary
+    return out
 
 
 def median_round_ms(fn, state, batches, move_to=None) -> float:
@@ -1795,21 +2126,26 @@ def eager_round_ms(dev, passes: int = 2) -> dict:
 
 
 def bench_path(dev) -> list[dict]:
-    """The port's Fig. 6 and Figs 2-5 benches at full size, every arm
-    captured (each round one replay) and then eagerly, plus the Fig. 6
-    DFedAvgM arm on the ring realization with the 8-bit wire (B1, B2, B3
-    in its graph). Gates: each captured arm's first and last loss, last
-    consensus distance and accuracy equal the eager arm's bitwise (both
-    start from one seed and one data stream); finite losses that fall;
-    each graph's kernel nodes; commMB from the port's ``comm_cost``
-    equal to the paper's formula; accuracy above a floor set by the
-    arm's gradient steps: 0.5 from 100 steps, 0.3 at 50 (25 rounds of
+    """The port's benches at full size — Fig. 6, Figs 2-5, Fig. 8 (the
+    CNN) and Fig. 7 (the CharLSTM) — every arm captured (each round one
+    replay) and then eagerly, plus the Fig. 6 DFedAvgM arm on the ring
+    realization with the 8-bit wire (B1, B2, B3 in its graph). Gates:
+    each captured arm's first and last loss, last consensus distance and
+    accuracy (where the bench has one) equal the eager arm's bitwise
+    (both start from one seed and one data stream); finite losses that
+    fall; each graph's kernel nodes (B3 a local step, T1 a split, T2 a
+    leaf of a dense quantized mix), and the eager arm's launches the
+    same nodes times its rounds; commMB from the port's ``comm_cost``
+    equal to the paper's formula; a 2NN arm's accuracy above a floor set
+    by its gradient steps: 0.5 from 100 steps, 0.3 at 50 (25 rounds of
     K = 2) and 0.15 at 25 (K = 1). In those 25 rounds the reference's
     own ``benchmarks/bench_quant_epochs.py`` reaches only 0.23-0.24 at
     K = 1 and 0.46-0.58 at K = 2 on the CPU, the port 0.19-0.20 and
     0.40-0.51 from its own init."""
-    from repro_torch.bench import common, fig6_compare, quant_epochs
+    from repro_torch.bench import (charlm, cnn, common, fig6_compare,
+                                   quant_epochs)
     from repro_torch.core import QuantConfig, dfedavgm_round_bits
+    from repro_torch.kernels import launch_counts, reset_launch_counts
 
     d = 199_210
     m, k, rounds = fig6_compare.M, fig6_compare.K, fig6_compare.ROUNDS
@@ -1826,57 +2162,84 @@ def bench_path(dev) -> list[dict]:
         yield "fig6/dfedavgm_ring_q8", dict(
             r, comm_bits=bits, derived=f"acc={r['acc']:.3f};"
             f"commMB={bits/8e6:.0f}")
+        yield from cnn.arms(device=dev, capture=capture)
+        yield from charlm.arms(device=dev, capture=capture)
 
     paper_mb = {   # the paper's §3.2 formulas, for the commMB gate
         "fig6/dfedavgm": 32 * d * ring_edges * rounds / 8e6,
         "fig6/fedavg": 2 * 32 * d * m * rounds / 8e6,
         "fig6/dsgd": 32 * d * ring_edges * rounds * k / 8e6,
         "fig6/dfedavgm_ring_q8": (32 + 8 * d) * ring_edges * rounds / 8e6}
-    finals = ("first_loss", "loss", "consensus_dist", "acc")
+    leaves = {"fig6": 6, "fig2345": 6, "fig8": 8, "fig7": 9}
 
-    def arm_steps(name: str) -> tuple[int, int]:
-        """(B3 launches a round, gradient steps in the run) of an arm."""
+    def arm_plan(name: str) -> tuple[dict, int, int]:
+        """(kernel nodes a round, rounds, gradient steps) of an arm."""
+        fig = name.split("/")[0]
         if name == "fig6/dsgd":
-            return 0, rounds * k
-        kk = int(name.rsplit("K", 1)[1]) if "/K" in name else k
-        return kk, kk * (rounds if name.startswith("fig6")
-                         else quant_epochs.ROUNDS)
+            kk, n_rounds = 0, rounds * k
+        elif fig == "fig8":
+            kk, n_rounds = int(name.rsplit("K", 1)[1]), cnn.ROUNDS
+        elif fig == "fig7":
+            kk, n_rounds = charlm.K, charlm.ROUNDS
+        else:
+            kk = int(name.rsplit("K", 1)[1]) if "/K" in name else k
+            n_rounds = rounds if fig == "fig6" else quant_epochs.ROUNDS
+        quantized = not (fig == "fig6" and name != "fig6/dfedavgm_ring_q8"
+                         or name.endswith("bits32"))
+        nodes = dict.fromkeys(KERNEL_SOURCES, 0)
+        nodes["momentum_sgd"] = kk
+        # DSGD splits the round key and the client keys; FedAvg and
+        # DFedAvgM also the per-step keys; a quantized wire also the
+        # per-leaf keys (T2 drawing each leaf's noise on the dense mixer).
+        nodes["threefry_split"] = (2 if name == "fig6/dsgd" else
+                                   SPLITS_A_ROUND - 1 + quantized)
+        if name == "fig6/dfedavgm_ring_q8":
+            nodes.update(quantize_pack_buffer=1, dequant_mix_buffer=1)
+        elif quantized:
+            nodes["threefry_uniform"] = leaves[fig]
+        return nodes, n_rounds, max(kk, 1) * n_rounds
+
+    def finals(r: dict) -> dict:
+        return {f: r[f] for f in ("first_loss", "loss", "consensus_dist",
+                                  "acc") if f in r}
 
     rows = []
     for name, r in arms(True):
-        expect = dict.fromkeys(KERNEL_SOURCES, 0)
-        expect["momentum_sgd"] = arm_steps(name)[0]
-        if name == "fig6/dfedavgm_ring_q8":
-            expect.update(quantize_pack_buffer=1, dequant_mix_buffer=1)
         rows.append({"name": name, "us_per_round": r["us_per_round"],
-                     "derived": r["derived"],
-                     **{f: r[f] for f in finals},
+                     "derived": r["derived"], **finals(r),
                      "capture_s": r["capture_s"],
                      "comm_bits": r.get("comm_bits"),
                      **check_round_graph(name, graph_nodes(r["graph"]),
-                                         expect)})
+                                         arm_plan(name)[0])})
         del r
+    reset_launch_counts()
     for row, (name, r) in zip(rows, arms(False)):
         if row["name"] != name:
             raise AssertionError(f"eager arm {name} != {row['name']}")
+        row["eager_launches"] = launch_counts()
         row["eager_us_per_round"] = r["us_per_round"]
-        row["eager"] = {f: r[f] for f in finals}
-        row["captured_equals_eager"] = all(row[f] == r[f] for f in finals)
+        row["eager"] = finals(r)
+        row["captured_equals_eager"] = finals(row) == row["eager"]
+        reset_launch_counts()
     for row in rows:
         print(json.dumps({"bench_row": row}), flush=True)
     for row in rows:
         name = row["name"]
-        steps = arm_steps(name)[1]
+        nodes, n_rounds, steps = arm_plan(name)
         floor = 0.5 if steps >= 100 else 0.3 if steps >= 50 else 0.15
         if not row["captured_equals_eager"]:
-            raise AssertionError(f"{name}: captured {[row[f] for f in finals]}"
-                                 f" != eager {row['eager']}")
+            raise AssertionError(f"{name}: captured {finals(row)} != eager "
+                                 f"{row['eager']}")
+        expect = {kn: v * n_rounds for kn, v in nodes.items()}
+        if row["eager_launches"] != expect:
+            raise AssertionError(f"{name}: eager launches "
+                                 f"{row['eager_launches']} != {expect}")
         if not (math.isfinite(row["first_loss"])
                 and math.isfinite(row["loss"])):
             raise AssertionError(f"{name}: non-finite loss {row}")
         if not row["loss"] < row["first_loss"]:
             raise AssertionError(f"{name}: loss did not fall {row}")
-        if not row["acc"] > floor:
+        if name.startswith(("fig6", "fig2345")) and not row["acc"] > floor:
             raise AssertionError(f"{name}: accuracy {row['acc']} <= {floor}")
         if name in paper_mb:
             mb = dict(f.split("=") for f in row["derived"].split(";"))
@@ -1895,6 +2258,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda:0")
     card = card_line()
     print(card, flush=True)
@@ -1914,6 +2278,7 @@ def main() -> int:
     floor = floor_time(flush)
     print(json.dumps({"floor": floor}), flush=True)
     rec = kernel_checks(dev, flush)
+    rec.update(keychain_checks(dev, flush))
     print(json.dumps(plan_times(dev, flush)), flush=True)
     del flush
     reference_checks(dev)
@@ -1925,8 +2290,13 @@ def main() -> int:
     host_groups(dev)                  # the eager round's host time first
     captured = {"unfused": captured_rounds(dev, False),
                 "fused": captured_rounds(dev, True)}
+    wide = full_width(dev)
     times = round_times(dev)
-    bench_path(dev)
+    rows = bench_path(dev)
+    fig8 = [r for r in rows if r["name"].startswith("fig8/")]
+    counts["fig8"] = {k: sum(r["eager_launches"][k] for r in fig8)
+                      for k in KERNEL_SOURCES}
+    captured["fig8"] = fig8[0]
 
     table = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -1951,7 +2321,12 @@ def main() -> int:
                           k: v["graph_nodes"] for k, v in captured.items()},
                       "loss_first_last": {
                           "unfused": [losses[0], losses[-1]],
-                          "fused": [fused_losses[0], fused_losses[-1]]}}))
+                          "fused": [fused_losses[0], fused_losses[-1]]},
+                      "full_width": {
+                          k: {f: v[f] for f in ("round_ms_median",
+                                                "graph_nodes",
+                                                "loss_first_last")}
+                          for k, v in wide.items()}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

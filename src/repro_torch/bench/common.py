@@ -23,7 +23,8 @@ from ..core import (DFedAvgMConfig, MixingSpec, QuantConfig, average_params,
                     capture_step, init_round_state, make_round_step)
 from ..data import FederatedDataset, classification_dataset
 from ..device import resolve_device
-from ..models.paper_nets import apply_2nn, init_2nn, softmax_xent
+from ..models.paper_nets import (apply_2nn, apply_charlstm, apply_cnn,
+                                 init_2nn, softmax_xent)
 
 Params = dict[str, torch.Tensor]
 
@@ -88,13 +89,39 @@ def acc_2nn(params: Params, data) -> float:
                      .to(torch.float32).mean())
 
 
+def stacked(p0: Params, m: int) -> Params:
+    """m client copies of one model's parameters, leaves [m, ...]."""
+    return {n: t.unsqueeze(0).expand((m,) + t.shape).contiguous()
+            for n, t in p0.items()}
+
+
 def stacked_2nn(m: int, seed: int, device) -> Params:
     """m copies of the 2NN drawn from ``seed`` (the port's generator; the
     reference's ``init_2nn(jax.random.PRNGKey(seed))`` is not reproduced
     bitwise, so accuracies differ from the reference's by the init)."""
-    p0 = init_2nn(seed, device=device)
-    return {n: t.unsqueeze(0).expand((m,) + t.shape).contiguous()
-            for n, t in p0.items()}
+    return stacked(init_2nn(seed, device=device), m)
+
+
+def loss_cnn(p, batch, rng):
+    return softmax_xent(apply_cnn(p, batch["x"]), batch["y"])
+
+
+def acc_cnn(params: Params, x, y) -> float:
+    """Accuracy of one (unstacked) CNN on NHWC images ``x`` (numpy)."""
+    dev = next(iter(params.values())).device
+    with torch.no_grad():
+        pred = apply_cnn(params, torch.from_numpy(x).to(dev)).argmax(-1)
+        return float((pred == torch.from_numpy(y).to(dev))
+                     .to(torch.float32).mean())
+
+
+def loss_charlm(p, batch, rng):
+    """Next-character loss of the CharLSTM on ``batch["t"]`` [m, B, L+1]:
+    the mean over batch and time, as the reference's ``softmax_xent`` of
+    [B, L] logits."""
+    t = batch["t"]
+    logits = apply_charlstm(p, t[..., :-1])
+    return softmax_xent(logits.flatten(-3, -2), t[..., 1:].flatten(-2))
 
 
 def run_rounds(step: Callable, state, batch_of: Callable[[int], Params],

@@ -1,4 +1,4 @@
-"""Bench runner of the port: the paper's 2NN figures, one module each.
+"""Bench runner of the port: the paper's figures, one module each.
 Prints ``name,us_per_call,derived`` CSV, as the reference's
 ``benchmarks/run.py`` does, and exits non-zero if a bench failed.
 
@@ -6,9 +6,11 @@ Prints ``name,us_per_call,derived`` CSV, as the reference's
                                     [--device cpu|cuda]
 
 ``--smoke`` runs every bench at tiny scale (m 4, 2 rounds). On the card
-(the default) every round is one CUDA graph replay and TF32 is off, as
-the reference's f32 matmuls are IEEE; ``--device cpu`` runs the rounds
-eagerly on the CPU.
+(the default) every round is one CUDA graph replay, TF32 is off, as the
+reference's f32 matmuls and convolutions are IEEE, and cuDNN keeps to
+deterministic algorithms (one with atomics in its weight gradient would
+make a captured round differ from the eager one); ``--device cpu`` runs
+the rounds eagerly on the CPU.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import torch
 MODULES = [
     "fig6_compare",     # Fig 6: vs FedAvg / DSGD (rounds & bits)
     "quant_epochs",     # Figs 2-5: bits x local epochs, IID/non-IID
+    "cnn",              # Fig 8: the CNN, local epochs
+    "charlm",           # Fig 7: the char-LSTM, fp32 vs 8-bit wire
 ]
 
 
@@ -35,6 +39,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     mods = MODULES if not args.only else [
         m for m in MODULES if any(s in m for s in args.only.split(","))]
     print("name,us_per_call,derived")

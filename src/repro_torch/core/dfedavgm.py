@@ -182,11 +182,12 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         key_round, key_mix, key_next = prng.split(state.rng, 3)
         client_keys = prng.split(key_round, m)
         K = next(iter(batches.values())).shape[1]
+        step_keys = prng.split(client_keys, K)           # [m, K, 2], once
         y, v, g, losses_head = local_train_deferred(
-            loss_fn, state.params, batches, client_keys, eta=cfg.eta,
+            loss_fn, state.params, batches, step_keys, eta=cfg.eta,
             theta=cfg.theta)                             # losses [m, K-1]
         batch_last = {n: b[:, K - 1] for n, b in batches.items()}
-        keys_last = prng.split(client_keys, K)[:, K - 1]
+        keys_last = step_keys[:, K - 1]
         x_next, y_pub, loss_last = tail(state.params, y, v, g, batch_last,
                                         keys_last, key_mix)
         losses = torch.cat([losses_head, loss_last[:, None]], dim=1)

@@ -85,14 +85,16 @@ def local_train(loss_fn: LossFn, params: Params, batches: Params,
 
 
 def local_train_deferred(loss_fn: LossFn, params: Params, batches: Params,
-                         keys: torch.Tensor, *, eta: float, theta: float
+                         step_keys: torch.Tensor, *, eta: float, theta: float
                          ) -> tuple[Params, Params, Params, torch.Tensor]:
     """Fused-round variant of :func:`local_train`: stop BEFORE applying
     step K-2's update, returning the raw material of the last two steps
     for the fused tail (``core.mixing.make_fused_tail``):
 
       * steps ``0 .. K-3`` run exactly as in :func:`local_train` (same
-        per-step keys ``split(keys[c], K)``, same batches);
+        batches; ``step_keys`` [m, K, 2] is ``split(keys, K)`` of the
+        client keys, which the fused round splits once and whose step K-1
+        key it keeps for its tail);
       * step ``K-2``'s loss and gradient are computed, its update is not
         applied (B4 folds it into the wire encode);
       * step ``K-1`` is left to the caller.
@@ -103,7 +105,6 @@ def local_train_deferred(loss_fn: LossFn, params: Params, batches: Params,
     K = next(iter(batches.values())).shape[1]
     if K < 2:
         raise ValueError(f"deferred local training needs K >= 2, got {K}")
-    step_keys = prng.split(keys, K)                         # [m, K, 2]
     y, v, losses = _steps(loss_fn, params, batches, step_keys, K - 2, eta,
                           theta)
     loss, g = loss_and_grad(loss_fn, y, {n: b[:, K - 2] for n, b in

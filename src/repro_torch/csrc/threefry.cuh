@@ -25,10 +25,11 @@ __device__ __forceinline__ void rounds(uint32_t& x1, uint32_t& x2, int r0,
   x1 += x2; x2 = rotl(x2, r3) ^ x1;
 }
 
-// The hash of counter words (x1, x2) under key words (k1, k2); returns the
-// XOR of the two output words (prng.random_bits).
-__device__ __forceinline__ uint32_t bits(uint32_t k1, uint32_t k2,
-                                         uint32_t x1, uint32_t x2) {
+// The hash of counter words (x1, x2) under key words (k1, k2): both output
+// words (prng.threefry2x32). jax.random.split keeps both as the new key.
+__device__ __forceinline__ void hash2(uint32_t k1, uint32_t k2, uint32_t x1,
+                                      uint32_t x2, uint32_t* y1,
+                                      uint32_t* y2) {
   const uint32_t k3 = k1 ^ k2 ^ kParity;
   x1 += k1; x2 += k2;
   rounds(x1, x2, 13, 15, 26, 6);  x1 += k2; x2 += k3 + 1u;
@@ -36,7 +37,16 @@ __device__ __forceinline__ uint32_t bits(uint32_t k1, uint32_t k2,
   rounds(x1, x2, 13, 15, 26, 6);  x1 += k1; x2 += k2 + 3u;
   rounds(x1, x2, 17, 29, 16, 24); x1 += k2; x2 += k3 + 4u;
   rounds(x1, x2, 13, 15, 26, 6);  x1 += k3; x2 += k1 + 5u;
-  return x1 ^ x2;
+  *y1 = x1;
+  *y2 = x2;
+}
+
+// The XOR of the hash's two output words (prng.random_bits).
+__device__ __forceinline__ uint32_t bits(uint32_t k1, uint32_t k2,
+                                         uint32_t x1, uint32_t x2) {
+  uint32_t y1, y2;
+  hash2(k1, k2, x1, x2, &y1, &y2);
+  return y1 ^ y2;
 }
 
 // Element `index` of jax.random.uniform(key, shape, float32) for any shape

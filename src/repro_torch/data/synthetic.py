@@ -1,14 +1,15 @@
 """Deterministic synthetic data (numpy; copied from the JAX package's
 ``data/synthetic.py``): a 10-class Gaussian-mixture "MNIST-like"
 (784-dim) or "CIFAR-like" (32x32x3) dataset whose class means are fixed
-random directions and whose within-class noise sets the difficulty."""
+random directions and whose within-class noise sets the difficulty, and
+a Markov character stream for the char-LM (``char_stream``)."""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
 
-__all__ = ["classification_dataset", "ClassificationData"]
+__all__ = ["classification_dataset", "ClassificationData", "char_stream"]
 
 
 @dataclasses.dataclass
@@ -46,3 +47,26 @@ def classification_dataset(n: int = 12000, *, d: int = 784,
         x = x.astype(np.float32)
     return ClassificationData(x=x, y=y.astype(np.int64),
                               n_classes=n_classes)
+
+
+def char_stream(n_chars: int = 200_000, *, vocab: int = 90, order: float = 4.0,
+                bias_seed: int | None = None, seed: int = 0) -> np.ndarray:
+    """Markov chain over ``vocab`` symbols. ``bias_seed`` perturbs the
+    transition matrix -> per-client distribution shift (non-IID)."""
+    rng = np.random.default_rng(seed)
+    # sharpen the transition rows (temperature 1/order) => low-entropy,
+    # learnable stream; order=1 is near-uniform
+    base = rng.dirichlet(np.full(vocab, 0.5), size=vocab) ** order
+    if bias_seed is not None:
+        brng = np.random.default_rng(bias_seed)
+        base = base * brng.dirichlet(np.full(vocab, 2.0), size=vocab)
+    base /= base.sum(axis=1, keepdims=True)
+    out = np.empty(n_chars, dtype=np.int32)
+    s = int(rng.integers(vocab))
+    cum = np.cumsum(base, axis=1)
+    u = rng.random(n_chars)
+    for i in range(n_chars):
+        s = int(np.searchsorted(cum[s], u[i]))
+        s = min(s, vocab - 1)
+        out[i] = s
+    return out

@@ -30,7 +30,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("quantize_pack", "dequant_mix", "momentum_sgd")
+SOURCES = ("quantize_pack", "dequant_mix", "momentum_sgd", "threefry")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 600
@@ -38,7 +38,8 @@ _INCLUDE = re.compile(r'^#include "([^"]+)"', re.MULTILINE)
 
 KERNELS = ("quantize_pack_buffer", "dequant_mix_buffer", "momentum_sgd",
            "momentum_quantize_pack_buffer", "dequant_mix_momentum_buffer",
-           "quantize_pack", "dequant_mix_plan", "dequant_mix")
+           "quantize_pack", "dequant_mix_plan", "dequant_mix",
+           "threefry_split", "threefry_uniform")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

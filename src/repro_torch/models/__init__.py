@@ -1,1 +1,2 @@
-"""The paper's models, PyTorch port (the 2NN so far)."""
+"""The paper's models, PyTorch port: the 2NN, the CNN, the CharLSTM and
+the MiniResNet (``paper_nets``)."""

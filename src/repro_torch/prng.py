@@ -16,6 +16,10 @@ Partitionable mode: element ``j`` of a draw of shape ``s`` hashes the
 counter pair ``(j >> 32, j & 0xffffffff)`` of its row-major flat index —
 bits depend on (key, index) alone. ``split(key, n)`` keeps both hash
 words as the new key; ``random_bits`` XORs them.
+
+``split`` and ``uniform`` hand CUDA keys to their kernels (T1 and T2,
+``kernels/threefry.py``: one launch a call) and CPU keys to
+``split_plain`` and ``uniform_plain``, the int64 tensor versions here.
 """
 from __future__ import annotations
 
@@ -23,8 +27,8 @@ import math
 
 import torch
 
-__all__ = ["PRNGKey", "split", "threefry2x32", "random_bits", "uniform",
-           "uniform_at"]
+__all__ = ["PRNGKey", "split", "split_plain", "threefry2x32", "random_bits",
+           "uniform", "uniform_plain", "uniform_at"]
 
 MASK32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -69,7 +73,14 @@ def _counters(shape, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): key ``[..., 2]`` ->
-    ``[..., num, 2]``. Leading key dims batch independent splits."""
+    ``[..., num, 2]``. Leading key dims batch independent splits. On the
+    card one T1 launch; on the CPU :func:`split_plain`."""
+    from .kernels import threefry
+    return threefry.split(key.contiguous(), num)
+
+
+def split_plain(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """:func:`split` as int64 tensor operations (T1's plain version)."""
     hi, lo = _counters((num,), key.device)
     k1 = key[..., 0, None]
     k2 = key[..., 1, None]
@@ -98,7 +109,14 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)`` on [0, 1): key
-    ``[..., 2]`` -> f32 ``[..., *shape]``."""
+    ``[..., 2]`` -> f32 ``[..., *shape]``. On the card one T2 launch; on
+    the CPU :func:`uniform_plain`."""
+    from .kernels import threefry
+    return threefry.uniform(key.contiguous(), shape)
+
+
+def uniform_plain(key: torch.Tensor, shape) -> torch.Tensor:
+    """:func:`uniform` as int64 tensor operations (T2's plain version)."""
     return _bits_to_unit_float(random_bits(key, shape))
 
 

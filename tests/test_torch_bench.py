@@ -1,12 +1,13 @@
 """The port's bench runner (``python -m repro_torch.bench.run``) at its
 smoke size on the CPU: it prints the reference benches' CSV header and
 row names (``benchmarks/bench_fig6_compare.py``,
-``benchmarks/bench_quant_epochs.py``), every arm trains to a finite
-accuracy, and the Fig. 6 rows bill exactly the bits of the reference's
-``comm_cost`` at the same m, rounds and d. A failing bench makes the
-runner exit non-zero.
+``benchmarks/bench_quant_epochs.py``, ``bench_cnn.py``,
+``bench_charlm.py``), every arm trains to a finite accuracy or loss, and
+the Fig. 6 rows bill exactly the bits of the reference's ``comm_cost`` at
+the same m, rounds and d. A failing bench makes the runner exit non-zero.
 
-Contract: names and MB strings equal; accuracies finite in [0, 1].
+Contract: names and MB strings equal; accuracies finite in [0, 1], losses
+finite and positive.
 """
 import math
 
@@ -16,7 +17,8 @@ torch = pytest.importorskip("torch")
 
 from repro.core import MixingSpec as JMixingSpec  # noqa: E402
 from repro.core import comm_cost as jcc  # noqa: E402
-from repro_torch.bench import fig6_compare, quant_epochs  # noqa: E402
+from repro_torch.bench import (charlm, cnn, fig6_compare,  # noqa: E402
+                               quant_epochs)
 from repro_torch.bench import run as bench_run  # noqa: E402
 from repro_torch.bench.common import timed, timeit_best  # noqa: E402
 
@@ -31,6 +33,8 @@ def reference_rows():
     for tag in ("iid", "noniid"):
         names += [f"fig2345/{tag}/bits{b}" for b in (32, 16, 8, 4)]
         names += [f"fig2345/{tag}/K{k}" for k in (1, 2, 5)]
+    names += [f"fig8/cnn/K{k}" for k in (1, 2)]
+    names += [f"fig7/charlm/bits{b}" for b in (32, 8)]
     return names
 
 
@@ -60,10 +64,20 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys):
     for name, us, derived in rows:
         assert math.isfinite(float(us)) and float(us) > 0, name
         fields = dict(f.split("=") for f in derived.split(";"))
-        assert 0.0 <= float(fields["acc"]) <= 1.0, name
+        if not name.startswith("fig7/"):
+            assert 0.0 <= float(fields["acc"]) <= 1.0, name
+        if "loss" in fields:
+            assert math.isfinite(float(fields["loss"])), name
+            assert float(fields["loss"]) > 0, name
         if name in want:
-            mb = derived.split(";", 1)[1]
+            acc, mb = derived.split(";", 1)
+            assert acc.startswith("acc="), name
             assert mb == want[name], name
+            assert set(fields) - {"commMB", "bottleneckMB"} == {"acc"}, name
+        elif name.startswith("fig8/"):
+            assert set(fields) == {"acc", "loss"}, name
+        elif name.startswith("fig7/"):
+            assert set(fields) == {"loss"}, name
         else:
             assert set(fields) == {"acc"}, name
 
@@ -77,7 +91,36 @@ def test_arms_report_losses_and_bits():
         assert math.isfinite(r["first_loss"]) and math.isfinite(r["loss"])
         assert r["captured"] is False and r["capture_s"] == 0.0, name
     names = [n for n, _ in quant_epochs.arms(smoke=True, device="cpu")]
-    assert names == reference_rows()[3:]
+    assert names == reference_rows()[3:17]
+
+
+@pytest.mark.parametrize("bench", [cnn, charlm], ids=["fig8", "fig7"])
+def test_paper_model_benches_report_losses(bench):
+    """The CNN (Fig. 8) and char-LM (Fig. 7) arms at smoke size: finite
+    losses from the first round to the last, eager on the CPU."""
+    rows = dict(bench.arms(smoke=True, device="cpu"))
+    assert list(rows) == [n for n in reference_rows()
+                          if n.startswith(("fig8/", "fig7/"))
+                          and n.split("/")[1] == bench.__name__.rsplit(
+                              ".", 1)[1]]
+    for name, r in rows.items():
+        assert math.isfinite(r["first_loss"]) and math.isfinite(r["loss"])
+        assert math.isfinite(r["consensus_dist"]), name
+        assert r["captured"] is False and r["graph"] is None, name
+
+
+def test_charlm_batches_are_the_reference_windows():
+    """Each row of a round's batch is a window of SEQ + 1 characters of
+    its client's stream, at the starts the reference draws."""
+    import numpy as np
+
+    streams = [np.arange(100, dtype=np.int32) + 1000 * i for i in range(3)]
+    t = charlm.lm_batches(streams, 5, K=2, batch=4, seq=6)["t"].numpy()
+    rng = np.random.default_rng(5)
+    for i in range(3):
+        starts = rng.integers(0, 100 - 6 - 1, size=(2, 4))
+        assert np.array_equal(t[i, :, :, 0], starts + 1000 * i)
+        assert np.array_equal(np.diff(t[i], axis=-1), np.ones((2, 4, 6)))
 
 
 def test_only_and_a_failing_bench(monkeypatch, capsys):

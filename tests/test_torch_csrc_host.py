@@ -1,5 +1,5 @@
-"""The CUDA sources of B1-B8, compiled for the host and run on the CPU
-against their plain PyTorch versions.
+"""The CUDA sources of B1-B8, T1 and T2, compiled for the host and run on
+the CPU against their plain PyTorch versions.
 
 ``tests/cuda_host/cuda_runtime.h`` stands in for the CUDA runtime and the
 device intrinsics these kernels use; every ``kernel<<<...>>>(args)`` launch
@@ -9,7 +9,8 @@ keyed noise's leaf lookup, counters and threefry rounds, B2's and B5's
 four columns a thread and their stream gather, keyed B6's counter over
 the whole padded buffer and its key by value or by pointer, B7's streams
 fixed at compile time or in groups, B8's three stream pointers, and the
-flat [n] x of B7 and B8 with its ragged tail and scalar path — called
+flat [n] x of B7 and B8 with its ragged tail and scalar path, T1's
+pair per thread and T2's grid of (blocks of a row, rows) — called
 through
 their C entry points exactly as the wrappers call them. What it cannot show
 (the device compiler, timing, memory coalescing) is left to
@@ -514,3 +515,45 @@ def test_b6_keyed_one_leaf(host_lib, bits, n, form):
                   ptr(out), w, bits, int(noise is not None), None) == 0
     assert np.array_equal(out, ref.quantize_pack_ref(x, s[0], bits,
                                                      noise).numpy())
+
+
+SPLIT_ARGS = [P, ctypes.c_int64, ctypes.c_int64, P, P]
+
+
+def random_keys(rows: int, seed: int) -> torch.Tensor:
+    """int64 [rows, 2] raw keys: both words over the whole uint32 range."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 2 ** 32, size=(rows, 2),
+                                         dtype=np.int64))
+
+
+@pytest.mark.parametrize("rows,num", [(1, 2), (1, 3), (16, 4), (96, 3),
+                                      (7, 96), (3, 300)])
+def test_t1_split_entry(host_lib, rows, num):
+    """T1 (``threefry.cu``), one thread a new key, bitwise against
+    ``prng.split_plain``; counts that are not positive are refused."""
+    fn = entry(host_lib("threefry"), "threefry_split", SPLIT_ARGS)
+    keys = random_keys(rows, rows * 1000 + num)
+    out = np.full((rows, num, 2), -1, np.int64)
+    assert fn(ptr(keys), rows, num, ptr(out), None) == 0
+    assert np.array_equal(out, prng.split_plain(keys, num).numpy())
+    for bad_rows, bad_num in ((0, num), (rows, 0), (-1, num), (rows, -2)):
+        assert fn(ptr(keys), bad_rows, bad_num, ptr(out), None) != 0
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (4, 255), (16, 257), (3, 7005),
+                                    (65535, 3)])
+def test_t2_uniform_entry(host_lib, rows, n):
+    """T2, one thread a draw over a grid of (blocks of a row, rows),
+    bitwise against ``prng.uniform_plain``; counts that are not positive,
+    more rows than one grid holds (65 535) or a row longer than one grid
+    are refused."""
+    fn = entry(host_lib("threefry"), "threefry_uniform", SPLIT_ARGS)
+    keys = random_keys(rows, rows + n)
+    out = np.full((rows, n), np.nan, np.float32)
+    assert fn(ptr(keys), rows, n, ptr(out), None) == 0
+    want = prng.uniform_plain(keys, (n,)).numpy()
+    assert np.array_equal(out.view(np.int32), want.view(np.int32))
+    for bad_rows, bad_n in ((0, n), (rows, 0), (-1, n), (rows, -5),
+                            (65536, n), (1, 256 * 2 ** 31)):
+        assert fn(ptr(keys), bad_rows, bad_n, ptr(out), None) != 0

@@ -250,7 +250,8 @@ def test_local_train_deferred_matches_jax():
         j_loss, p, b, k, eta=ETA, theta=THETA))(stacked, batches, keys)
     y, v, g, losses = local_train_deferred(
         t_loss, convert.params_from_numpy(np_params, stack=M, device="cpu"),
-        t_batches(), prng.split(prng.PRNGKey(4), M), eta=ETA, theta=THETA)
+        t_batches(), prng.split(prng.split(prng.PRNGKey(4), M), K),
+        eta=ETA, theta=THETA)
     assert losses.shape == (M, K - 1)
     np.testing.assert_allclose(losses.numpy(), np.asarray(jl), rtol=1e-6)
     for got, want in ((y, jy), (v, jv), (g, jg)):
@@ -265,7 +266,8 @@ def test_local_train_deferred_needs_two_steps():
     with pytest.raises(ValueError, match="K >= 2"):
         local_train_deferred(t_loss, convert.params_from_numpy(
             np_params, stack=M, device="cpu"), b,
-            prng.split(prng.PRNGKey(0), M), eta=ETA, theta=THETA)
+            prng.split(prng.split(prng.PRNGKey(0), M), 1), eta=ETA,
+            theta=THETA)
 
 
 @pytest.mark.parametrize("qname", list(QUANTS))
@@ -359,11 +361,12 @@ def test_fused_plan_body_matches_fused_dense_reference(qname):
     x = convert.params_from_numpy(np_params, stack=M, device="cpu")
     client_keys = prng.split(prng.PRNGKey(2), M)
     batches = t_batches()
-    y, v, g, _ = local_train_deferred(t_loss, x, batches, client_keys,
+    step_keys = prng.split(client_keys, K)
+    y, v, g, _ = local_train_deferred(t_loss, x, batches, step_keys,
                                       eta=ETA, theta=THETA)
     spec = MixingSpec.ring(M, self_weight=0.5)
     args = (x, y, v, g, {n: b[:, K - 1] for n, b in batches.items()},
-            prng.split(client_keys, K)[:, K - 1], prng.PRNGKey(3))
+            step_keys[:, K - 1], prng.PRNGKey(3))
     outs = [make_fused_tail(t_loss, M, eta=ETA, theta=THETA, quant=quant,
                             plan=plan, W=spec.W, device="cpu")(*args)
             for plan in (spec.gossip_plan(), None)]

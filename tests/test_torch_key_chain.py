@@ -126,3 +126,73 @@ def test_static_buffers_take_only_their_own_shape_and_dtype():
         _load(dst, torch.ones((M, 4)), "w")
     with pytest.raises(ValueError, match="rng: captured for"):
         _load(torch.zeros(2, dtype=torch.int64), torch.zeros(2), "rng")
+
+
+def test_cpu_keys_take_the_plain_versions(monkeypatch):
+    """On the CPU ``prng.split`` / ``prng.uniform`` are exactly their plain
+    versions (also for a key that is not contiguous), which stay bitwise
+    with ``jax.random.split`` / ``uniform``; the kernel wrappers refuse a
+    key that is neither on the CPU nor on a card, and count no launch."""
+    from repro_torch.kernels import native, threefry
+
+    keys = prng.split_plain(prng.PRNGKey(7), 6)[::2]     # [3, 2], strided
+    calls = []
+    for name in ("split_plain", "uniform_plain"):
+        plain = getattr(prng, name)
+        monkeypatch.setattr(prng, name, lambda *a, _f=plain, _n=name:
+                            calls.append(_n) or _f(*a))
+    jkeys = jax.random.split(jax.random.PRNGKey(7), 6)[::2]
+    got = prng.split(keys, 5)
+    assert np.array_equal(
+        got.numpy(), as_i64(jax.vmap(lambda k: jax.random.split(k, 5))(
+            jkeys)))
+    u = prng.uniform(keys, (4, 33))
+    want = jax.vmap(lambda k: jax.random.uniform(k, (4, 33)))(jkeys)
+    assert np.array_equal(u.numpy().view(np.int32),
+                          np.asarray(want).view(np.int32))
+    assert calls == ["split_plain", "uniform_plain"]
+    before = dict(native.LAUNCHES)
+    for fn, arg in ((threefry.split, 2), (threefry.uniform, (3,))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(prng.PRNGKey(1).to("meta"), arg)
+    assert native.LAUNCHES == before
+
+
+def test_fused_round_splits_client_keys_once(monkeypatch):
+    """The fused round splits the client keys into the per-step keys once
+    and hands step K-1's key to its tail: four splits a round (round keys,
+    client keys, per-step keys, per-leaf quantizer keys), and the tail's
+    keys are ``split(client_keys, K)[:, K-1]`` bitwise."""
+    from repro_torch.core import dfedavgm, mixing
+
+    fed = FederatedDataset.make(classification_dataset(n=64, d=D_IN), M)
+    cfg = DFedAvgMConfig(eta=0.05, theta=0.9, local_steps=3,
+                         quant=QuantConfig(bits=8), fuse_round=True)
+    splits, tail_keys = [], []
+    real_split = prng.split
+    monkeypatch.setattr(prng, "split", lambda key, num=2: splits.append(
+        (tuple(key.shape), num)) or real_split(key, num))
+    real_tail = mixing.make_fused_tail
+
+    def spy_tail(*a, **kw):
+        tail = real_tail(*a, **kw)
+
+        def run(x, y, v, g, batch_last, keys_last, key_q):
+            tail_keys.append(keys_last.clone())
+            return tail(x, y, v, g, batch_last, keys_last, key_q)
+        return run
+
+    monkeypatch.setattr(dfedavgm, "make_fused_tail", spy_tail)
+    step = make_round_step(t_loss, cfg, MixingSpec.ring(M, 0.5),
+                           device="cpu")
+    p0 = tnets.init_2nn(0, d_in=D_IN, d_hidden=HID, device="cpu")
+    st = init_round_state({n: t.expand((M,) + t.shape).contiguous()
+                           for n, t in p0.items()}, prng.PRNGKey(1))
+    step(st, fed.round_batches(0, K=3, batch=B, device="cpu"))
+    assert splits == [((2,), 3), ((2,), M), ((M, 2), 3),
+                      ((2,), N_LEAVES * M)]
+    kr = jax.random.split(jax.random.PRNGKey(1), 3)[0]
+    ck = jax.random.split(kr, M)
+    want = jax.vmap(lambda k: jax.random.split(k, 3))(ck)[:, 2]
+    assert len(tail_keys) == 1
+    assert np.array_equal(tail_keys[0].numpy(), as_i64(want))
