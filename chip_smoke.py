@@ -38,7 +38,9 @@ Phases (any failure exits non-zero):
    key chain's threefry split and uniform draw, ``csrc/threefry.cu``)
    bitwise against ``prng.split_plain`` and ``prng.uniform_plain`` (R in
    {1, 16, 96} keys split into 2-96; every 2NN and CNN leaf for 16
-   keys), time them against the floor and T2 against its ALU bound, and
+   keys), and T3 (its 32-bit draw, the sort keys of ``prng.permutation``)
+   against ``prng.random_bits_plain``, time them against the floor and
+   T2 and T3 against their ALU bounds, and
    check by graph capture that a split on the card is one T1 node; time
    B7 through its Pallas-shaped entry at both vectors (``plan_times``,
    which another tree's package can run too);
@@ -69,6 +71,19 @@ Phases (any failure exits non-zero):
    against 12 captured rounds, bitwise; each graph holds exactly B1 = B2
    = 1, B3 = K, T1 = 4 kernel nodes; finite losses, the last
    LOSS_MARGIN below ln(classes) (a model that learns);
+10b. "schedules": the quickstart on every TopologySchedule kind
+   (SCHEDULE_KINDS: constant, ER edge sampling (K = 11), i.i.d., exact
+   (k 10) and capped (k 12) partial participation, a precomputed and a
+   stateful random walk (k 2), a ring/torus cycle), unfused, and the
+   fused round on edge sampling and i.i.d. partial participation: 12
+   eager rounds with exact launch counts derived per kind
+   (``round_launches``: B1 = B2 = 1, B3 = K a round; T1, T2, T3 by the
+   event's draws), ``active_frac`` equal to the schedule's own event, 3
+   rounds against the CPU, 12 captured rounds bitwise with 12 eager (one
+   round's kernel nodes, no host copy, no int64 threefry node), a finite
+   falling loss; B2 with weights gathered from a sampled W_t at K = 5 and
+   11 and 2-16 bits (timed at K = 11); ``bench.topology`` and
+   ``bench.timevarying`` at full size, captured equal to eager;
 11. captured against eager round time by the host clock, in turns in
    this process, with a profile of 5 replays, a replay's device time and
    the cost of the no-alias clones;
@@ -166,6 +181,9 @@ KERNEL_SOURCES = {
                        "src/repro/core/dfedavgm.py:258"),
     "threefry_uniform": ("src/repro_torch/csrc/threefry.cu",
                          "src/repro/core/quantize.py:139"),
+    # jax.random.bits inside jax.random.permutation (the exact cohort).
+    "threefry_bits": ("src/repro_torch/csrc/threefry.cu",
+                      "src/repro/core/topology.py:538"),
 }
 # Further times a row carries where its kernel has them, all measured.
 EXTRA_KEYS = ("clean_ms", "host_ms", "plain_call_ms", "plain_host_ms",
@@ -179,10 +197,18 @@ KERNEL_PATH = {"quantize_pack_buffer": "unfused",
                "momentum_quantize_pack_buffer": "fused",
                "dequant_mix_momentum_buffer": "fused", "quantize_pack": "ops",
                "dequant_mix_plan": "ops", "dequant_mix": "ops",
-               "threefry_split": "unfused", "threefry_uniform": "fig8"}
+               "threefry_split": "unfused", "threefry_uniform": "fig8",
+               "threefry_bits": "schedules"}
 # Splits a round makes (round keys, client keys, per-step keys, and the
 # per-leaf quantizer keys of a quantized wire), the fused round too.
 SPLITS_A_ROUND = 4
+# The "schedules" phase: the quickstart on each TopologySchedule kind
+# (the README's time-varying scenarios), unfused, and the fused round on
+# the two kinds the fused tail gates (sampled W_t, inactive clients).
+SCHEDULE_KINDS = ("constant", "edge_sample", "partial", "partial_exact",
+                  "partial_cap", "walk", "walk_stateful", "cycle")
+FUSED_SCHEDULE_KINDS = ("edge_sample", "partial")
+CPU_ROUNDS = 3               # eager card rounds held against the CPU
 # A graph node of the int64 tensor threefry (prng.split_plain's mask,
 # shifts, or and xor on int64), by its demangled function name.
 INT64_THREEFRY = re.compile(
@@ -855,8 +881,9 @@ def ops_kernel_checks(dev, flush, rec):
 
 
 def threefry_ops(kernel: str, n_draws: int) -> dict:
-    """The operations bound of T1 or T2 (``kernel`` = "threefry_split" or
-    "threefry_uniform") from its compiled code: a thread makes one draw,
+    """The operations bound of T1, T2 or T3 (``kernel`` = "threefry_split",
+    "threefry_uniform" or "threefry_bits") from its compiled code: a thread
+    makes one draw,
     so this run's work is ``n_draws`` times the instructions of one
     thread (by opcode); the bound is its busiest pipe."""
     per = sass_counts(sass_of("threefry"), r"\d" + kernel + r"_kernel")
@@ -867,7 +894,10 @@ def threefry_ops(kernel: str, n_draws: int) -> dict:
 
 
 def keychain_checks(dev, flush) -> dict:
-    """T1 and T2 against their plain versions on the card, bitwise: T1
+    """T1, T2 and T3 against their plain versions on the card, bitwise:
+    T3 (``kernels.threefry.bits``) against ``prng.random_bits_plain`` for
+    R in {1, 16, 96} keys and 1-4099 draws, timed at the exact cohort's
+    permutation of 16 against its plain version and its ALU bound; T1
     (``kernels.threefry.split``) against ``prng.split_plain`` for R keys
     in {1, 16, 96} split into num in {2, 3, 4, 16, 96}; T2
     (``kernels.threefry.uniform``) against ``prng.uniform_plain`` at every
@@ -897,7 +927,7 @@ def keychain_checks(dev, flush) -> dict:
                              dtype=torch.int64).to(dev)
 
     rec = {k: {"max_abs_err": 0.0, "max_ulp": 0, "checks": []}
-           for k in ("threefry_split", "threefry_uniform")}
+           for k in ("threefry_split", "threefry_uniform", "threefry_bits")}
     for rows in (1, 16, 96):
         k = keys(rows)
         for num in (2, 3, 4, 16, 96):
@@ -957,6 +987,22 @@ def keychain_checks(dev, flush) -> dict:
             r.update(t)
         else:
             r[tag.replace("/", "_")] = t
+
+    r = rec["threefry_bits"]
+    for rows in (1, 16, 96):
+        k = keys(rows)
+        for n in (1, 16, 257, 4099):
+            check_words(f"T3 R={rows} n={n}", threefry.bits(k, (n,)),
+                        prng.random_bits_plain(k, (n,)))
+        r["checks"].append(f"R={rows} n=1,16,257,4099 bitwise")
+    key = keys(1)[0]           # permutation(key, 16): one key, 16 draws
+    timed(r, "", lambda: threefry.bits(key, (M,)), flush)
+    timed(r, "plain_", lambda: prng.random_bits_plain(key, (M,)), flush)
+    out = threefry.bits(key, (M,))
+    r["sass"] = threefry_ops("threefry_bits", M)
+    r["bound_ms"], r["bound_by"] = bound(nbytes(key, out), 0,
+                                         r["sass"]["ms"])
+    r["shape"] = [1, M]
 
     # By graph capture: a device key's split is one T1 node and nothing
     # else; the detector of int64 threefry nodes sees the plain chain's.
@@ -1552,8 +1598,9 @@ def reference_checks(dev):
 
 def _kernel_group(name: str) -> str:
     # Longest names first: "quantize_pack_buffer_kernel" is inside
-    # "momentum_quantize_pack_buffer_kernel". T1 and T2 are
-    # "threefry_split_kernel" and "threefry_uniform_kernel".
+    # "momentum_quantize_pack_buffer_kernel". T1, T2 and T3 are
+    # "threefry_split_kernel", "threefry_uniform_kernel" and
+    # "threefry_bits_kernel".
     for kernel in sorted(KERNEL_SOURCES, key=len, reverse=True):
         if f"{kernel}_kernel" in name:
             return kernel
@@ -1726,8 +1773,9 @@ def captured_vs_eager(what: str, step, make_step, s0, batches,
     from host memory and no int64 threefry node. Each round is timed by
     the host clock to a synchronize (the eager rounds with their batch
     on the device, the captured ones copying it into the graph's
-    buffers); the launch counters are read around the eager rounds (a
-    replay launches nothing from the host)."""
+    buffers), and one replay's device time by events (``replay_ms``);
+    the launch counters are read around the eager rounds (a replay
+    launches nothing from the host)."""
     from repro_torch.core import capture_step
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
@@ -1753,15 +1801,19 @@ def captured_vs_eager(what: str, step, make_step, s0, batches,
             states[mode], met = fn(states[mode], b)
             torch.cuda.synchronize()
             round_ms[mode].append((time.perf_counter() - t0) * 1e3)
-            metrics[mode].append([float(met["loss"]),
-                                  float(met["consensus_dist"])])
+            metrics[mode].append([float(met[k]) for k in (
+                "loss", "consensus_dist", "active_frac") if k in met])
         round_ulp.append(max(ulp_diff(states["eager"].params[n],
                                       states["captured"].params[n])
                              for n in s0.params))
         rng_equal &= torch.equal(states["eager"].rng,
                                  states["captured"].rng)
+        if s0.token is not None:      # a stateful schedule's walk token
+            rng_equal &= torch.equal(states["eager"].token,
+                                     states["captured"].token)
     counts = launch_counts()
     nodes = graph_nodes(run.graph)
+    device_ms = replay_ms(run.graph)
     bitwise = (max(round_ulp) == 0 and rng_equal
                and metrics["eager"] == metrics["captured"])
     rep = {"path": what, "rounds": len(batches),
@@ -1770,7 +1822,7 @@ def captured_vs_eager(what: str, step, make_step, s0, batches,
            "loss_consensus": metrics, "eager_launches": counts,
            "round_ms_median": {k: statistics.median(v[1:])
                                for k, v in round_ms.items()},
-           "round_ms": round_ms,
+           "replay_device_ms": device_ms, "round_ms": round_ms,
            **check_round_graph(what, nodes, expect_nodes)}
     if not bitwise:
         rep["first_round_apart"] = next(
@@ -1779,7 +1831,8 @@ def captured_vs_eager(what: str, step, make_step, s0, batches,
     print(json.dumps(rep), flush=True)
     if not rng_equal:
         raise AssertionError(f"{what}: captured key chain differs")
-    for (le, ce), (lc, cc) in zip(metrics["eager"], metrics["captured"]):
+    for (le, ce, *_), (lc, cc, *_) in zip(metrics["eager"],
+                                          metrics["captured"]):
         if abs(lc / le - 1) > 1e-5 or abs(cc / ce - 1) > 1e-3:
             raise AssertionError(f"{what}: captured rounds leave the "
                                  f"trajectory contract: {metrics}")
@@ -2250,6 +2303,305 @@ def bench_path(dev) -> list[dict]:
     return rows
 
 
+def schedule_of(kind: str):
+    """The "schedules" phase's TopologySchedule ``kind`` at m = M: the
+    bench_timevarying schedules and the README's options (exact cohorts,
+    a capped i.i.d. draw, a stateful walk, a ring/torus cycle)."""
+    from repro_torch.core import (MixingSpec, TopologySchedule,
+                                  erdos_renyi_graph, ring_graph)
+    ring = ring_graph(M)
+    return {
+        "constant": lambda: TopologySchedule.constant(
+            MixingSpec.ring(M, self_weight=0.5)),
+        "edge_sample": lambda: TopologySchedule.edge_sample(
+            erdos_renyi_graph(M, 0.4, seed=0), 0.5),
+        "partial": lambda: TopologySchedule.partial(ring, 0.6),
+        "partial_exact": lambda: TopologySchedule.partial(ring, 0.6,
+                                                          exact=True),
+        "partial_cap": lambda: TopologySchedule.partial(ring, 0.6,
+                                                        cap_slack=2),
+        "walk": lambda: TopologySchedule.random_walk(ring, horizon=64,
+                                                     seed=0),
+        "walk_stateful": lambda: TopologySchedule.random_walk(
+            ring, stateful=True),
+        "cycle": lambda: TopologySchedule.cycle(
+            [MixingSpec.ring(M), MixingSpec.torus(4, 4)]),
+    }[kind]()
+
+
+def permutation_rounds(n: int) -> int:
+    """Sort rounds of ``prng.permutation(key, n)`` (jax's ``_shuffle``):
+    one T1 and one T3 launch each."""
+    return int(np.ceil(3 * np.log(max(1, n))
+                       / np.log(np.iinfo(np.uint32).max)))
+
+
+def round_launches(spec, quantized: bool = True, fuse_round: bool = False,
+                   k: int = K) -> dict:
+    """Kernel launches of one plan-realization round on ``spec`` (a
+    MixingSpec or a TopologySchedule), derived from what the round does:
+    the encode and decode (B1 and B2, or fused B4 and B5) on a quantized
+    wire; B3 once an applied local step; T1 once a split
+    (SPLITS_A_ROUND, less the per-leaf quantizer split of an fp32 wire);
+    and the event's draws: a stochastic schedule splits its mixing key
+    (T1), edge sampling and i.i.d. participation draw uniforms (T2, one
+    launch), the stateful walk's ``choice`` one uniform (T2), an exact
+    cohort one ``permutation`` (T1 + T3 a sort round), a cap clamp
+    ``fold_in`` (T1) and one ``permutation``."""
+    per = dict.fromkeys(KERNEL_SOURCES, 0)
+    if quantized and fuse_round:
+        per.update(momentum_quantize_pack_buffer=1,
+                   dequant_mix_momentum_buffer=1, momentum_sgd=k - 2)
+    elif quantized:
+        per.update(quantize_pack_buffer=1, dequant_mix_buffer=1,
+                   momentum_sgd=k)
+    else:
+        per["momentum_sgd"] = k
+    per["threefry_split"] = SPLITS_A_ROUND - (not quantized)
+    if not getattr(spec, "is_stochastic", False):   # static, or no draw
+        return per
+    per["threefry_split"] += 1
+    rounds = permutation_rounds(spec.m)
+    if spec.kind == "edge_sample" or spec.is_stateful:
+        per["threefry_uniform"] += 1
+    elif spec.n_active is not None:
+        per["threefry_split"] += rounds
+        per["threefry_bits"] += rounds
+    else:
+        per["threefry_uniform"] += 1
+        if spec.n_cap is not None and spec.n_cap < spec.m:
+            per["threefry_split"] += 1 + rounds
+            per["threefry_bits"] += rounds
+    return per
+
+
+def schedule_rounds(dev, kind: str, fuse_round: bool, setup) -> dict:
+    """The quickstart on ``schedule_of(kind)`` (plan realization, 8-bit
+    stochastic lemma5): ROUNDS eager rounds with every launch counter
+    read (against :func:`round_launches`), their ``active_frac`` against
+    the schedule's own event from each round's key, CPU_ROUNDS of them
+    against the same rounds on the CPU (the trajectory contract of
+    ``round_vs_cpu``), then ROUNDS captured rounds bitwise with ROUNDS
+    eager ones (:func:`captured_vs_eager`: one round's kernel nodes, no
+    host copy, no int64 threefry node). Losses finite, the last below
+    the first."""
+    from repro_torch import prng
+    from repro_torch.core import (DFedAvgMConfig, QuantConfig,
+                                  init_round_state, make_round_step)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    stacked, batches, loss_fn = setup
+    sched = schedule_of(kind)
+    cfg = DFedAvgMConfig(eta=ETA, theta=THETA, local_steps=K,
+                         quant=QuantConfig(bits=8), fuse_round=fuse_round)
+    name = f"schedule {'fused ' if fuse_round else ''}{kind}"
+
+    def make_step(device=dev):
+        return make_round_step(loss_fn, cfg, sched, device=device)
+
+    def start(device):
+        return init_round_state(
+            {n: t.to(device) for n, t in stacked.items()}, prng.PRNGKey(1),
+            token=sched.init_token() if sched.is_stateful else None)
+
+    per = round_launches(sched, fuse_round=fuse_round)
+    expect = {k: v * ROUNDS for k, v in per.items()}
+    step = make_step()
+    state = s0 = start(dev)
+    keys, mets = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for b in batches:
+        keys.append((state.rng, state.token))
+        state, met = step(state, b)
+        mets.append(met)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = [float(m_["loss"]) for m_ in mets]
+    frac = [float(m_["active_frac"]) for m_ in mets]
+    own = []
+    for t, (rng, token) in enumerate(keys):   # the schedule's own events
+        key_mix = prng.split(rng, 3)[1]
+        active = (sched.token_event(key_mix, token)[1] if sched.is_stateful
+                  else sched.round_event(key_mix, t)[1])
+        own.append(float(active.mean()))
+
+    step_cpu = make_step("cpu")
+    sc, cpu = start("cpu"), []
+    for t in range(CPU_ROUNDS):
+        sc, mc = step_cpu(sc, {n: x.cpu() for n, x in batches[t].items()})
+        cpu.append({k: float(v) for k, v in mc.items()})
+    cpu_rel = [{k: abs(float(mets[t][k]) / v - 1) if v else
+                abs(float(mets[t][k])) for k, v in cpu[t].items()}
+               for t in range(CPU_ROUNDS)]
+
+    rep = captured_vs_eager(name, step, make_step, s0, batches, per)
+    summary = {"path": name, "schedule": sched.name, "rounds": ROUNDS,
+               "loss": losses, "active_frac": frac,
+               "schedule_active_frac": own, "launches": counts,
+               "expected_launches": expect, "vs_cpu_rel": cpu_rel,
+               "round_ms_median": rep["round_ms_median"],
+               "replay_device_ms": rep["replay_device_ms"],
+               "graph_nodes": rep["graph_nodes"],
+               "kernel_nodes": rep["kernel_nodes"],
+               "bitwise": rep["bitwise"]}
+    print(json.dumps(summary), flush=True)
+    if counts != expect:
+        raise AssertionError(f"{name}: launches {counts} != {expect}")
+    if frac != own:
+        raise AssertionError(f"{name}: active_frac {frac} != the "
+                             f"schedule's {own}")
+    for t, rel in enumerate(cpu_rel):
+        if rel["loss"] > 1e-5 or rel["consensus_dist"] > 1e-3 or \
+                rel["active_frac"] != 0:
+            raise AssertionError(f"{name}: round {t} on the card leaves the "
+                                 f"CPU's trajectory: {rel}")
+    if not rep["bitwise"]:
+        raise AssertionError(f"{name}: captured rounds differ from eager")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses {losses}")
+    return summary
+
+
+def schedule_kernel_checks(dev, flush, rec) -> None:
+    """B2 with a round's weights gathered on the card from a sampled W_t
+    (masked edges at weight 0 in the table): the torus support's K = 5
+    and the ER support's K = 11 (``edge_sample`` on each), at 2, 4, 8
+    and 16 bits, bitwise against its plain version; timed at K = 11 (8
+    bits) against its byte bound. Recorded under ``rec["dequant_mix_
+    buffer"]["k11"]``."""
+    from repro_torch import prng
+    from repro_torch.core import (QuantConfig, TopologySchedule,
+                                  WireLayout, torus_graph)
+    from repro_torch.core.mixing import _PlanTables, _quant_leaf_keys
+    from repro_torch.kernels.dequant_mix import (dequant_mix_buffer,
+                                                 dequant_mix_buffer_plain)
+    from repro_torch.kernels.quantize_pack import quantize_pack_buffer
+    from repro_torch.models.paper_nets import init_2nn
+
+    gen = torch.Generator().manual_seed(11)
+    x = {n: (torch.randn((M,) + tuple(t.shape), generator=gen) * 0.05)
+         .to(dev) for n, t in init_2nn(0, device="cpu").items()}
+    z = {n: t + 0.01 * torch.randn(t.shape, generator=gen).to(dev)
+         for n, t in x.items()}
+    r = rec["dequant_mix_buffer"]
+    for sched in (TopologySchedule.edge_sample(torus_graph(4, 4), 0.5),
+                  schedule_of("edge_sample")):
+        tables = _PlanTables(sched.gossip_plan(), dev)
+        W, _, key_q = sched.round_event(prng.PRNGKey(7, device=dev), 0)
+        w, src = tables.weights(W), tables.src
+        k = src.shape[0]
+        zeros = int((w == 0).sum())
+        for bits in (2, 4, 8, 16):
+            quant = QuantConfig(bits=bits)
+            layout = WireLayout.for_tree(x, bits, stacked=True)
+            X = layout.to_planar_stacked(x)
+            delta = layout.to_planar_stacked({n: z[n] - x[n] for n in x})
+            sblk = layout.block_scales(layout.leaf_scales(delta, quant))
+            words = quantize_pack_buffer(
+                delta, sblk, bits, keys=_quant_leaf_keys(
+                    key_q, layout.n_leaves, M), table=layout.noise_table)
+            out = dequant_mix_buffer(X, words, sblk, w, src, bits)
+            want = dequant_mix_buffer_plain(X, words, sblk, w, src, bits)
+            torch.cuda.synchronize()
+            what = f"B2 K={k} gathered from W_t bits={bits}"
+            check_words(what, out.view(torch.int32), want.view(torch.int32))
+            check_floats(r, what, [(out, want)])
+            r["checks"].append(f"K={k} weights gathered from a sampled W_t "
+                               f"({zeros} zeros) bits={bits} bitwise")
+            if k == 11 and bits == 8:
+                t = {"shape": list(X.shape), "K": k, "weight_zeros": zeros}
+                timed(t, "", lambda: dequant_mix_buffer(
+                    X, words, sblk, w, src, bits), flush)
+                timed(t, "plain_", lambda: dequant_mix_buffer_plain(
+                    X, words, sblk, w, src, bits), flush)
+                t["bound_ms"], t["bound_by"] = bound(
+                    nbytes(X, words, sblk, w, src, out), X.numel() * 3 * k)
+                r["k11"] = t
+    print(json.dumps({"check": "dequant_mix_buffer gathered",
+                      "k11": r["k11"]}), flush=True)
+
+
+def schedules_phase(dev) -> dict:
+    """Phase "schedules": every TopologySchedule kind (SCHEDULE_KINDS)
+    through the unfused quickstart round and FUSED_SCHEDULE_KINDS through
+    the fused one (:func:`schedule_rounds`). Returns the summaries and
+    the launches of all of their eager counted rounds together."""
+    data, fed, stacked, _, _, loss_fn, _ = quickstart_setup(dev)
+    batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
+               for t in range(ROUNDS)]
+    setup = (stacked, batches, loss_fn)
+    out = {}
+    for kind in SCHEDULE_KINDS:
+        out[kind] = schedule_rounds(dev, kind, False, setup)
+    for kind in FUSED_SCHEDULE_KINDS:
+        out[f"fused {kind}"] = schedule_rounds(dev, kind, True, setup)
+    launches = {k: sum(r["launches"][k] for r in out.values())
+                for k in KERNEL_SOURCES}
+    return out, launches
+
+
+def schedule_bench_path(dev) -> list[dict]:
+    """``bench.topology`` (lambda rows; ring16 against torus4x4 non-IID
+    accuracy after 30 rounds) and ``bench.timevarying`` (its five
+    schedules, 30 rounds each) at full size, every arm captured and then
+    eagerly: finals (first and last loss, consensus, accuracy) equal
+    bitwise, each graph's kernel nodes those of one fp32 round
+    (:func:`round_launches`), the eager arm's launches those times its
+    rounds, finite losses."""
+    from repro_torch.bench import timevarying, topology
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    print(json.dumps({"topology_lambda_rows": topology.lambda_rows()}),
+          flush=True)
+
+    def arms(capture: bool):
+        yield from topology.arms(device=dev, capture=capture)
+        yield from timevarying.arms(device=dev, capture=capture)
+
+    def finals(r: dict) -> dict:
+        return {f: r[f] for f in ("first_loss", "loss", "consensus_dist",
+                                  "acc")}
+
+    rows = []
+    for name, r in arms(True):
+        nodes = round_launches(r["spec"], quantized=False,
+                               k=topology.K if name.startswith("topology")
+                               else timevarying.K)
+        rows.append({"name": name, "us_per_round": r["us_per_round"],
+                     "derived": r["derived"], **finals(r),
+                     "capture_s": r["capture_s"], "expected_nodes": nodes,
+                     **check_round_graph(name, graph_nodes(r["graph"]),
+                                         nodes)})
+        del r
+    reset_launch_counts()
+    for row, (name, r) in zip(rows, arms(False)):
+        row["eager_launches"] = launch_counts()
+        row["eager_us_per_round"] = r["us_per_round"]
+        row["eager"] = finals(r)
+        row["captured_equals_eager"] = finals(row) == row["eager"]
+        reset_launch_counts()
+    for row in rows:
+        row.pop("expected_nodes")
+        print(json.dumps({"bench_row": row}), flush=True)
+    for row in rows:
+        name = row["name"]
+        rounds = (topology.ROUNDS if name.startswith("topology")
+                  else timevarying.ROUNDS)
+        expect = {k: v * rounds for k, v in row["kernel_nodes"].items()}
+        if not row["captured_equals_eager"]:
+            raise AssertionError(f"{name}: captured {finals(row)} != eager "
+                                 f"{row['eager']}")
+        if row["eager_launches"] != expect:
+            raise AssertionError(f"{name}: eager launches "
+                                 f"{row['eager_launches']} != {expect}")
+        if not (math.isfinite(row["first_loss"])
+                and math.isfinite(row["loss"])):
+            raise AssertionError(f"{name}: non-finite loss {row}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2280,7 +2632,6 @@ def main() -> int:
     rec = kernel_checks(dev, flush)
     rec.update(keychain_checks(dev, flush))
     print(json.dumps(plan_times(dev, flush)), flush=True)
-    del flush
     reference_checks(dev)
     counts = {}
     counts["unfused"], unfused_ms, losses = round_path(dev, False)
@@ -2291,6 +2642,10 @@ def main() -> int:
     captured = {"unfused": captured_rounds(dev, False),
                 "fused": captured_rounds(dev, True)}
     wide = full_width(dev)
+    sched, counts["schedules"] = schedules_phase(dev)
+    captured["schedules"] = sched["partial_exact"]
+    schedule_kernel_checks(dev, flush, rec)
+    sched_rows = schedule_bench_path(dev)
     times = round_times(dev)
     rows = bench_path(dev)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
@@ -2326,7 +2681,18 @@ def main() -> int:
                           k: {f: v[f] for f in ("round_ms_median",
                                                 "graph_nodes",
                                                 "loss_first_last")}
-                          for k, v in wide.items()}}))
+                          for k, v in wide.items()},
+                      "schedules": {
+                          k: {"round_ms_median": v["round_ms_median"],
+                              "graph_nodes": v["graph_nodes"],
+                              "loss_first_last": [v["loss"][0],
+                                                  v["loss"][-1]]}
+                          for k, v in sched.items()},
+                      "schedule_benches": {
+                          r["name"]: [r["us_per_round"],
+                                      r["eager_us_per_round"]]
+                          for r in sched_rows},
+                      "b2_k11": rec["dequant_mix_buffer"]["k11"]}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

@@ -165,7 +165,8 @@ def train_dfedavgm_2nn(*, m=16, K=4, batch=32, rounds=40, eta=0.05,
     """DFedAvgM on the 2NN, the reference's ``train_dfedavgm_2nn`` with
     its defaults; ``device`` (CUDA unless ``"cpu"``) and ``capture``
     (on the card: each round one graph replay) are the port's.
-    ``topology`` overrides the default ring with a static MixingSpec."""
+    ``topology`` overrides the default ring: a static MixingSpec or a
+    TopologySchedule (time-varying gossip)."""
     dev = resolve_device(device)
     data = data if data is not None else classification_dataset(n=8000,
                                                                 seed=0)

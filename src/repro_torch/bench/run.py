@@ -26,6 +26,8 @@ MODULES = [
     "quant_epochs",     # Figs 2-5: bits x local epochs, IID/non-IID
     "cnn",              # Fig 8: the CNN, local epochs
     "charlm",           # Fig 7: the char-LSTM, fp32 vs 8-bit wire
+    "topology",         # ring vs torus: lambda, consensus, non-IID acc
+    "timevarying",      # time-varying schedules vs the static ring
 ]
 
 

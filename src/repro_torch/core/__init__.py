@@ -1,17 +1,23 @@
 """Core: quantized DFedAvgM as PyTorch — the port of the JAX package's
-``repro.core`` for one synchronous round on one device, its FedAvg and
-DSGD baselines, the paper's bit accounting, and ``capture_step``, which
-runs a round as one CUDA graph (the counterpart of ``jax.jit``)."""
-from .topology import (Graph, MixingSpec, ring_graph, complete_graph,  # noqa
-                       lazy_uniform, metropolis_hastings, max_degree_weights,
-                       check_mixing_matrix)
+``repro.core`` for one synchronous round on one device (a static spec
+or a time-varying schedule), its FedAvg and DSGD baselines, the paper's
+bit accounting, and ``capture_step``, which runs a round as one CUDA
+graph (the counterpart of ``jax.jit``)."""
+from .topology import (Graph, MixingSpec, TopologySchedule,  # noqa
+                       ring_graph, chain_graph, torus_graph, complete_graph,
+                       star_graph, erdos_renyi_graph, metropolis_hastings,
+                       max_degree_weights, lazy_uniform, mixing_lambda,
+                       spectral_gap, check_mixing_matrix,
+                       metropolis_weights_from_adjacency)
 from .quantize import (QuantConfig, quantize_int, dequantize_int,  # noqa
                        message_bits, scale_from_amax)
-from .gossip_plan import GossipPlan, plan_from_spec  # noqa
+from .gossip_plan import (GossipPlan, plan_from_spec,  # noqa
+                          plan_from_support, plan_from_matrix)
 from .wire_layout import WireLayout  # noqa
 from .local_sgd import local_train, heavy_ball_update  # noqa
-from .mixing import (MixerConfig, make_mixer, make_plan_mixer,  # noqa
-                     mix_dense, consensus_distance)
+from .mixing import (MixerConfig, make_mixer, make_scheduled_mixer,  # noqa
+                     make_plan_mixer, make_event_mixer, mix_dense,
+                     consensus_distance)
 from .dfedavgm import (DFedAvgMConfig, RoundState, init_round_state,  # noqa
                        make_round_step, average_params, round_comm_bits)
 from .baselines import (FedAvgConfig, make_fedavg_step, DSGDConfig,  # noqa

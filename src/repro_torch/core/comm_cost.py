@@ -1,6 +1,6 @@
 """Communication-cost accounting + the Proposition-3 savings condition —
 the JAX package's ``core/comm_cost.py`` (pure Python) for static specs
-on one device.
+and time-varying schedules on one device.
 
 Paper formulas (§3.2, §5.7):
   unquantized, per round:  32 d * sum_i deg(i)            bits
@@ -14,8 +14,8 @@ epsilon iff   (32 + d b) * 9/4 < 32 d      (and epsilon is not too small:
 epsilon > (1-theta) sqrt(3 L B s) d^{1/4} sqrt(2(f0 - fmin) + 8 sigma_l^2/K
 + 32 sigma_g^2 + 64 theta^2 (sigma_l^2+B^2)/(1-theta)^2) ).
 
-Time-varying schedules (ROADMAP A12) and the block-sharded and placed
-realizations (A17) are not ported: their entry points raise.
+The block-sharded and placed realizations (ROADMAP A17) are not ported:
+their entry points raise.
 """
 from __future__ import annotations
 
@@ -23,15 +23,12 @@ import dataclasses
 import math
 
 from .quantize import QuantConfig, message_bits
-from .topology import Graph, MixingSpec
+from .topology import Graph, MixingSpec, TopologySchedule
 
 __all__ = ["dfedavgm_round_bits", "fedavg_round_bits", "dsgd_round_bits",
            "schedule_round_bits", "plan_round_bits", "async_event_bits",
            "bottleneck_bits", "prop3_quantization_wins",
            "prop3_epsilon_floor", "CommLedger"]
-
-_SCHEDULES = "time-varying schedules are not ported yet (ROADMAP A12)"
-
 
 def dfedavgm_round_bits(graph: Graph, d: int,
                         quant: QuantConfig | None = None) -> int:
@@ -41,11 +38,14 @@ def dfedavgm_round_bits(graph: Graph, d: int,
     return message_bits(d, qc) * graph.num_directed_edges()
 
 
-def schedule_round_bits(schedule, d: int, quant: QuantConfig | None = None,
+def schedule_round_bits(schedule: TopologySchedule, d: int,
+                        quant: QuantConfig | None = None,
                         t: int | None = None) -> float:
-    """Expected bits per round under a time-varying topology: needs
-    ``TopologySchedule``, which is not ported."""
-    raise NotImplementedError(_SCHEDULES)
+    """Expected bits per round under a time-varying topology: only live
+    directed edges pay ``message_bits`` (inactive clients send nothing).
+    Exact for the deterministic kinds; an expectation for sampled ones."""
+    qc = quant if quant is not None else QuantConfig(bits=32)
+    return message_bits(d, qc) * schedule.expected_directed_edges(t)
 
 
 def plan_round_bits(plan, d: int, quant: QuantConfig | None = None,
@@ -144,20 +144,22 @@ def prop3_epsilon_floor(*, theta: float, L: float, B: float, s: float,
 
 @dataclasses.dataclass
 class CommLedger:
-    """Running bit counter attached to a training loop."""
+    """Running bit counter attached to a training loop
+    (``bits_per_round`` may be fractional: a schedule's expectation)."""
 
     bits_per_round: float
     rounds: int = 0
     extra_bits: float = 0.0   # variable per-event bills (async engine)
 
     @staticmethod
-    def for_dfedavgm(spec: MixingSpec, d: int, quant: QuantConfig | None,
-                     plan=None) -> "CommLedger":
-        """The paper's §3.2 live-directed-edge bill of a static spec, for
-        either mixer backend (``plan`` does not change it)."""
+    def for_dfedavgm(spec: MixingSpec | TopologySchedule, d: int,
+                     quant: QuantConfig | None, plan=None) -> "CommLedger":
+        """The paper's §3.2 live-directed-edge bill (exact for a static
+        spec, the expectation for a sampled schedule), for either mixer
+        backend (``plan`` does not change it)."""
         del plan
-        if not isinstance(spec, MixingSpec):
-            raise NotImplementedError(_SCHEDULES)
+        if isinstance(spec, TopologySchedule):
+            return CommLedger(schedule_round_bits(spec, d, quant))
         return CommLedger(dfedavgm_round_bits(spec.graph, d, quant))
 
     @staticmethod

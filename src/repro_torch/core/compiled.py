@@ -10,7 +10,12 @@ device buffers for the parameters, the key and every batch leaf. The
 returned ``run(state, batches)`` copies its inputs into those buffers,
 replays the graph, and returns ``(state', metrics)`` exactly as the step
 does: the key chain, the local steps, the mix and the metrics all run
-inside the graph, and ``state.round`` stays a host int.
+inside the graph. The step sees the round index as a 0-dim int64 device
+buffer that ``run`` fills (a fill kernel, never a copy from the host)
+before each replay, so a schedule that reads it (a cycle's member, a
+precomputed walk's edge) picks the round's event inside the graph; the
+``state.round`` that ``run`` returns stays a host int. A stateful
+schedule's token is a static buffer too.
 
 No aliasing: the graph writes its outputs to the same device memory on
 every replay, so ``run`` hands the caller clones of them. A state the
@@ -19,9 +24,7 @@ reference; the clones cost one device copy of the parameters a round.
 
 A replay launches no kernel from the host, so ``native.LAUNCHES`` does
 not count it: count a captured round's launches from the graph's kernel
-nodes (``graph`` on the returned function). Static mixing specs only:
-the captured step must not read ``state.round`` other than to pass it on
-unused (the static mixers ignore it).
+nodes (``graph`` on the returned function).
 """
 from __future__ import annotations
 
@@ -70,11 +73,13 @@ def capture_step(step: Callable, state: RoundState,
                          f"got {dev}; call the step itself on the CPU")
     params = {n: t.detach().to(dev).clone() for n, t in state.params.items()}
     rng = state.rng.to(dev).clone()
+    round_t = torch.full((), state.round, dtype=torch.int64, device=dev)
+    token = None if state.token is None else state.token.to(dev).clone()
     static_batches = {n: b.to(dev).clone() for n, b in batches.items()}
 
     def call():
-        return step(RoundState(params=params, rng=rng, round=state.round),
-                    static_batches)
+        return step(RoundState(params=params, rng=rng, round=round_t,
+                               token=token), static_batches)
 
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
@@ -91,12 +96,17 @@ def capture_step(step: Callable, state: RoundState,
         for n, t in state.params.items():
             _load(params[n], t, n)
         _load(rng, state.rng, "rng")
+        if token is not None:
+            _load(token, state.token, "token")
         for n, b in batches.items():
             _load(static_batches[n], b, n)
+        round_t.fill_(state.round)
         graph.replay()
         return (RoundState(params={n: t.clone() for n, t in
                                    out_state.params.items()},
-                           rng=out_state.rng.clone(), round=state.round + 1),
+                           rng=out_state.rng.clone(), round=state.round + 1,
+                           token=None if token is None
+                           else out_state.token.clone()),
                 {k: v.clone() for k, v in out_metrics.items()})
 
     run.graph = graph

@@ -12,8 +12,13 @@ Invariants (as in the JAX package):
 
   * EXACT EDGE COVER: every directed support edge appears in exactly one
     step (``_check_exact_cover``), so a gathered weight is applied once.
-  * Ring steps are the two cyclic shifts; any other graph lowers to
-    greedy matchings (involutions).
+  * Ring steps are the two cyclic shifts, torus steps the four axis
+    shifts; any other graph lowers to greedy matchings (involutions).
+
+A static spec bakes its weights into the plan (``plan_from_spec``,
+``plan_from_matrix``); a schedule's plan is structure only
+(``plan_from_support``) and each round gathers its weights from the
+sampled ``W_t`` on the device (``gather_weights``).
 
 Block sharding and placement (``block_plan``, ``placed``, ``Placement``)
 wait for the multi-device slice.
@@ -23,8 +28,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["GossipPlan", "plan_from_spec", "ring_steps", "matching_steps"]
+__all__ = ["GossipPlan", "plan_from_spec", "plan_from_support",
+           "plan_from_matrix", "ring_steps", "torus_steps",
+           "matching_steps"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +42,8 @@ class GossipPlan:
     src:     [n_steps, m] int32 — in step k, client i receives from
              ``src[k, i]``; ``src[k, i] == i`` is an idle slot.
     w_self / w_steps: static weights (diag(W) and W[i, src[k, i]]),
-             present when compiled from a static MixingSpec.
+             present when compiled from a static MixingSpec; None for a
+             schedule's plan, whose weights are gathered each round.
     """
 
     m: int
@@ -78,27 +87,46 @@ class GossipPlan:
         :func:`~repro_torch.core.comm_cost.plan_round_bits` bills."""
         return int((self.src != np.arange(self.m)[None, :]).sum())
 
+    @property
+    def max_degree(self) -> int:
+        return int((self.src != np.arange(self.m)[None, :])
+                   .sum(axis=0).max(initial=0))
+
     def wire_pairs(self, k: int) -> list[tuple[int, int]]:
         """(source, target) pairs step k actually moves (idle slots
         dropped)."""
         return [(int(self.src[k, i]), i) for i in range(self.m)
                 if int(self.src[k, i]) != i]
 
-    def gather_weights(self, W) -> tuple[np.ndarray, np.ndarray]:
-        """W [m, m] -> (w_self [m], w_steps [n_steps, m]) as f32, idle
-        slots forced to weight 0 (W is cast to f32 first, as in JAX)."""
-        Wf = np.asarray(W, np.float32)
-        idx = np.arange(self.m)
-        w_self = Wf[idx, idx]
-        w_steps = Wf[idx[None, :], self.src]
-        w_steps = np.where(self.src == idx[None, :], np.float32(0.0),
-                           w_steps)
+    def gather_weights(self, W) -> tuple[torch.Tensor, torch.Tensor]:
+        """W [m, m] -> (w_self [m], w_steps [n_steps, m]) as f32 on W's
+        device, idle slots forced to weight 0: the per-round weights of a
+        time-varying W_t. ``W`` is a tensor (used where it lies) or numpy
+        (taken to the CPU)."""
+        Wt = torch.as_tensor(W).to(torch.float32)
+        idx = torch.arange(self.m, device=Wt.device)
+        src = torch.as_tensor(self.src, device=Wt.device).to(torch.int64)
+        w_self = Wt[idx, idx]
+        w_steps = Wt[idx[None, :], src]
+        w_steps = torch.where(src == idx[None, :], 0.0, w_steps)
         return w_self, w_steps
 
     def static_weights(self) -> tuple[np.ndarray, np.ndarray]:
         if not self.is_static:
             raise ValueError(f"plan {self.name!r} has no static weights")
         return self.w_self, self.w_steps
+
+    def as_matrix(self) -> np.ndarray:
+        """The dense W a static plan realizes (exact: the weights were
+        gathered from it)."""
+        w_self, w_steps = self.static_weights()
+        W = np.diag(w_self).astype(np.float64)
+        for k in range(self.n_steps):
+            for p in range(self.m):
+                j = int(self.src[k, p])
+                if j != p:
+                    W[p, j] += w_steps[k, p]
+        return W
 
 
 def ring_steps(m: int) -> np.ndarray:
@@ -111,6 +139,27 @@ def ring_steps(m: int) -> np.ndarray:
         return left[None, :]
     right = np.array([(i + 1) % m for i in range(m)], np.int32)
     return np.stack([left, right])
+
+
+def torus_steps(rows: int, cols: int) -> np.ndarray:
+    """Torus decomposition: row shifts then column shifts, +-1 each (a
+    length-2 axis has coinciding +-1 shifts: one step, so every directed
+    edge is covered exactly once)."""
+    m = rows * cols
+
+    def idx(r, c):
+        return (r % rows) * cols + (c % cols)
+
+    steps = []
+    for s in (1, -1) if rows > 2 else ((1,) if rows == 2 else ()):
+        steps.append(np.array([idx(i // cols + s, i % cols)
+                               for i in range(m)], np.int32))
+    for s in (1, -1) if cols > 2 else ((1,) if cols == 2 else ()):
+        steps.append(np.array([idx(i // cols, i % cols + s)
+                               for i in range(m)], np.int32))
+    if not steps:
+        raise ValueError(f"degenerate torus {rows}x{cols}")
+    return np.stack(steps)
 
 
 def matching_steps(adj: np.ndarray) -> np.ndarray:
@@ -149,16 +198,50 @@ def _check_exact_cover(src: np.ndarray, adj: np.ndarray) -> None:
                          "directed edges exactly once")
 
 
-def plan_from_spec(spec) -> GossipPlan:
-    """Static MixingSpec -> plan with baked weights gathered from spec.W
-    (a ring uses its two shifts; any other graph uses matchings)."""
-    src = (ring_steps(spec.m) if spec.kind == "ring"
-           else matching_steps(spec.graph.adj))
-    _check_exact_cover(src, spec.graph.adj)
-    W = np.asarray(spec.W, np.float64)
-    m = spec.m
+def _steps_for_graph(graph, kind: str | None,
+                     torus_shape: tuple[int, int] | None) -> np.ndarray:
+    if kind == "ring":
+        return ring_steps(graph.m)
+    if kind == "torus":
+        return torus_steps(*torus_shape)
+    return matching_steps(graph.adj)
+
+
+def _baked(src: np.ndarray, W: np.ndarray, name: str) -> GossipPlan:
+    """A static plan of ``src`` with its weights gathered from ``W``."""
+    W = np.asarray(W, np.float64)
+    m = W.shape[0]
     w_self = np.diag(W).copy()
     w_steps = W[np.arange(m)[None, :], src].copy()
     w_steps[src == np.arange(m)[None, :]] = 0.0
-    return GossipPlan(m=m, src=src, name=f"plan[{spec.graph.name}]",
-                      w_self=w_self, w_steps=w_steps)
+    return GossipPlan(m=m, src=src, name=name, w_self=w_self,
+                      w_steps=w_steps)
+
+
+def plan_from_spec(spec) -> GossipPlan:
+    """Static MixingSpec -> plan with baked weights gathered from spec.W
+    (ring and torus use their shifts; any other graph uses matchings)."""
+    src = _steps_for_graph(spec.graph, spec.kind, spec.torus_shape)
+    _check_exact_cover(src, spec.graph.adj)
+    return _baked(src, spec.W, f"plan[{spec.graph.name}]")
+
+
+def plan_from_matrix(W: np.ndarray, name: str = "matrix") -> GossipPlan:
+    """Dense mixing matrix -> static plan over its own support
+    (matchings) with baked weights: a cycle's plan for one member."""
+    W = np.asarray(W, np.float64)
+    adj = (W - np.diag(np.diag(W))) != 0
+    src = matching_steps(adj)
+    _check_exact_cover(src, adj)
+    return _baked(src, W, f"plan[{name}]")
+
+
+def plan_from_support(graph, name: str = "support",
+                      kind: str | None = None,
+                      torus_shape: tuple[int, int] | None = None
+                      ) -> GossipPlan:
+    """Support graph (a schedule's union of possible edges) ->
+    structure-only plan; the weights are gathered from each round's W_t."""
+    src = _steps_for_graph(graph, kind, torus_shape)
+    _check_exact_cover(src, graph.adj)
+    return GossipPlan(m=graph.m, src=src, name=f"plan[{name}]")

@@ -11,8 +11,9 @@ dequant_mix   — B2, whole-buffer fused unpack + dequantize + gossip apply,
                 B7, one buffer over a [k, W] stream stack; B8, the ring
                 form over three stream pointers
 momentum_sgd  — B3, fused heavy-ball update
-threefry      — T1 and T2, the key chain's ``jax.random.split`` and
-                ``jax.random.uniform`` (``prng.split`` / ``prng.uniform``
+threefry      — T1, T2 and T3, the key chain's ``jax.random.split``,
+                ``jax.random.uniform`` and ``jax.random.bits``
+                (``prng.split`` / ``prng.uniform`` / ``prng.random_bits``
                 on a CUDA key), which the JAX package leaves to XLA
 
 ``ops`` holds the per-tensor entry points (``encode_delta``,

@@ -39,7 +39,7 @@ _INCLUDE = re.compile(r'^#include "([^"]+)"', re.MULTILINE)
 KERNELS = ("quantize_pack_buffer", "dequant_mix_buffer", "momentum_sgd",
            "momentum_quantize_pack_buffer", "dequant_mix_momentum_buffer",
            "quantize_pack", "dequant_mix_plan", "dequant_mix",
-           "threefry_split", "threefry_uniform")
+           "threefry_split", "threefry_uniform", "threefry_bits")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

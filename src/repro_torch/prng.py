@@ -17,18 +17,22 @@ counter pair ``(j >> 32, j & 0xffffffff)`` of its row-major flat index —
 bits depend on (key, index) alone. ``split(key, n)`` keeps both hash
 words as the new key; ``random_bits`` XORs them.
 
-``split`` and ``uniform`` hand CUDA keys to their kernels (T1 and T2,
-``kernels/threefry.py``: one launch a call) and CPU keys to
-``split_plain`` and ``uniform_plain``, the int64 tensor versions here.
+``split``, ``uniform`` and ``random_bits`` hand CUDA keys to their
+kernels (T1, T2 and T3, ``kernels/threefry.py``: one launch a call) and
+CPU keys to ``split_plain``, ``uniform_plain`` and ``random_bits_plain``,
+the int64 tensor versions here. ``fold_in``, ``permutation`` and
+``choice`` are built from those, as ``jax.random`` builds them (jax 0.9).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "split", "split_plain", "threefry2x32", "random_bits",
-           "uniform", "uniform_plain", "uniform_at"]
+__all__ = ["PRNGKey", "split", "split_plain", "fold_in", "threefry2x32",
+           "random_bits", "random_bits_plain", "uniform", "uniform_plain",
+           "uniform_at", "permutation", "choice"]
 
 MASK32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -88,6 +92,15 @@ def split_plain(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for ``0 <= data < 2^32``: in the
+    partitionable mode it hashes the counter ``(0, data)`` under the key
+    and keeps both words, which is ``split(key, data + 1)[data]``."""
+    if not 0 <= data <= MASK32:
+        raise ValueError(f"data {data} is not a uint32")
+    return split(key, data + 1)[..., data, :]
+
+
 def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     """uint32 bits -> f32 in [0, 1): the top 23 bits become the mantissa
     of a float in [1, 2), minus 1 — ``jax._src.random._uniform``."""
@@ -97,7 +110,15 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """32-bit ``jax.random.bits``: key ``[..., 2]`` -> ``[..., *shape]``
-    int64 values in [0, 2^32)."""
+    int64 values in [0, 2^32). On the card one T3 launch; on the CPU
+    :func:`random_bits_plain`."""
+    from .kernels import threefry
+    return threefry.bits(key.contiguous(), shape)
+
+
+def random_bits_plain(key: torch.Tensor, shape) -> torch.Tensor:
+    """:func:`random_bits` as int64 tensor operations (T3's plain
+    version)."""
     shape = tuple(shape)
     hi, lo = _counters(shape, key.device)
     pad = (None,) * len(shape)
@@ -117,7 +138,7 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
 
 def uniform_plain(key: torch.Tensor, shape) -> torch.Tensor:
     """:func:`uniform` as int64 tensor operations (T2's plain version)."""
-    return _bits_to_unit_float(random_bits(key, shape))
+    return _bits_to_unit_float(random_bits_plain(key, shape))
 
 
 def uniform_at(k1: torch.Tensor, k2: torch.Tensor,
@@ -128,3 +149,30 @@ def uniform_at(k1: torch.Tensor, k2: torch.Tensor,
     one pass with a different key and flat index at every position."""
     b1, b2 = threefry2x32(k1, k2, index >> 32, index & MASK32)
     return _bits_to_unit_float(b1 ^ b2)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (``_shuffle``): ``ceil(3 ln n /
+    ln(2^32 - 1))`` rounds, each splitting the key and stably sorting by
+    32-bit ``random_bits`` of the subkey. Returns int64 ``[n]`` on the
+    key's device; one T1 and one T3 launch a round on the card."""
+    x = torch.arange(n, device=key.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
+def choice(key: torch.Tensor, n: int, p: torch.Tensor) -> torch.Tensor:
+    """``jax.random.choice(key, n, p=p)`` (one draw, with replacement):
+    ``searchsorted(cumsum(p), cumsum(p)[-1] * (1 - uniform(key, ())))``.
+    ``p`` f32 ``[n]`` on the key's device; returns a 0-dim int64 tensor
+    there, with no sync."""
+    if p.shape != (n,):
+        raise ValueError(f"p must have shape ({n},), got {tuple(p.shape)}")
+    p_cuml = torch.cumsum(p, 0)
+    r = p_cuml[-1] * (1 - uniform(key, ()))
+    return torch.searchsorted(p_cuml, r.reshape(1))[0]

@@ -2,12 +2,15 @@
 smoke size on the CPU: it prints the reference benches' CSV header and
 row names (``benchmarks/bench_fig6_compare.py``,
 ``benchmarks/bench_quant_epochs.py``, ``bench_cnn.py``,
-``bench_charlm.py``), every arm trains to a finite accuracy or loss, and
-the Fig. 6 rows bill exactly the bits of the reference's ``comm_cost`` at
-the same m, rounds and d. A failing bench makes the runner exit non-zero.
+``bench_charlm.py``, ``bench_topology.py`` and the in-process rows of
+``bench_timevarying.py``), every arm trains to a finite accuracy or
+loss, the Fig. 6 rows bill exactly the bits of the reference's
+``comm_cost`` at the same m, rounds and d, the topology bench's lambda
+rows are the reference's and the time-varying rows bill the reference's
+schedule bits. A failing bench makes the runner exit non-zero.
 
-Contract: names and MB strings equal; accuracies finite in [0, 1], losses
-finite and positive.
+Contract: names, lambda rows and MB and bit strings equal; accuracies
+finite in [0, 1], losses finite and positive.
 """
 import math
 
@@ -18,7 +21,7 @@ torch = pytest.importorskip("torch")
 from repro.core import MixingSpec as JMixingSpec  # noqa: E402
 from repro.core import comm_cost as jcc  # noqa: E402
 from repro_torch.bench import (charlm, cnn, fig6_compare,  # noqa: E402
-                               quant_epochs)
+                               quant_epochs, timevarying, topology)
 from repro_torch.bench import run as bench_run  # noqa: E402
 from repro_torch.bench.common import timed, timeit_best  # noqa: E402
 
@@ -35,6 +38,12 @@ def reference_rows():
         names += [f"fig2345/{tag}/K{k}" for k in (1, 2, 5)]
     names += [f"fig8/cnn/K{k}" for k in (1, 2)]
     names += [f"fig7/charlm/bits{b}" for b in (32, 8)]
+    names += [f"topology/lambda/{g}" for g in (
+        "ring16", "torus4x4", "ring32", "torus4x8", "complete16")]
+    names += ["topology/noniid_acc/ring4", "topology/noniid_acc/torus2x2"]
+    names += [f"timevarying_{s}" for s in (
+        "static_ring", "constant_sched", "er_edge_sample", "ring_partial",
+        "ring_random_walk")]
     return names
 
 
@@ -53,6 +62,41 @@ def reference_fig6_derived(m, rounds, k):
     return out
 
 
+def reference_topology_lambda_rows():
+    """The reference bench's lambda rows (its ``run`` without the
+    training half): spec.lam and ``_rounds_to_consensus`` of the JAX
+    package's specs."""
+    from benchmarks.bench_topology import _rounds_to_consensus
+    rows = []
+    for name, spec in (("ring16", JMixingSpec.ring(16)),
+                       ("torus4x4", JMixingSpec.torus(4, 4)),
+                       ("ring32", JMixingSpec.ring(32)),
+                       ("torus4x8", JMixingSpec.torus(4, 8)),
+                       ("complete16", JMixingSpec.complete(16))):
+        rows.append((f"topology/lambda/{name}", 0.0,
+                     f"lambda={spec.lam:.4f};"
+                     f"consensus_rounds={_rounds_to_consensus(spec)};"
+                     f"deg={int(spec.graph.degrees().max())}"))
+    return rows
+
+
+def reference_timevarying_bits():
+    """bits_per_round of the reference's schedules at the smoke m."""
+    from benchmarks.bench_timevarying import schedules
+    from repro.core import TopologySchedule as JSched
+    out = {}
+    for name, topo in schedules(timevarying.SMOKE_M, timevarying.SMOKE_ROUNDS):
+        bpr = (jcc.schedule_round_bits(topo, D, None)
+               if isinstance(topo, JSched)
+               else jcc.dfedavgm_round_bits(topo.graph, D, None))
+        out[f"timevarying_{name}"] = f"{bpr:.0f}"
+    return out
+
+
+def test_topology_lambda_rows_equal_the_reference():
+    assert topology.lambda_rows() == reference_topology_lambda_rows()
+
+
 def test_smoke_run_gives_the_reference_rows_and_bits(capsys):
     assert bench_run.main(["--smoke", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
@@ -61,9 +105,14 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys):
     assert [r[0] for r in rows] == reference_rows()
     want = reference_fig6_derived(fig6_compare.SMOKE_M,
                                   fig6_compare.SMOKE_ROUNDS, fig6_compare.K)
+    lam = {n: d for n, _, d in reference_topology_lambda_rows()}
     for name, us, derived in rows:
+        if name in lam:       # numpy rows: no time, as in the reference
+            assert float(us) == 0.0 and derived == lam[name], name
+            continue
         assert math.isfinite(float(us)) and float(us) > 0, name
-        fields = dict(f.split("=") for f in derived.split(";"))
+        fields = dict(f.split("=") for f in derived.replace(
+            "|", ";").split(";"))
         if not name.startswith("fig7/"):
             assert 0.0 <= float(fields["acc"]) <= 1.0, name
         if "loss" in fields:
@@ -78,6 +127,11 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys):
             assert set(fields) == {"acc", "loss"}, name
         elif name.startswith("fig7/"):
             assert set(fields) == {"loss"}, name
+        elif name.startswith("timevarying_"):
+            assert set(fields) == {"loss", "consensus_dist",
+                                   "bits_per_round", "acc"}, name
+            assert fields["bits_per_round"] == \
+                reference_timevarying_bits()[name], name
         else:
             assert set(fields) == {"acc"}, name
 

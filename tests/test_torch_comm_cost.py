@@ -105,10 +105,16 @@ def test_comm_ledger_equals_the_reference(q):
 
 def test_unported_paths_raise_naming_their_roadmap_items():
     spec = MixingSpec.ring(M, 0.5)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tcc.schedule_round_bits(object(), D)
-    with pytest.raises(NotImplementedError, match="A12"):
-        CommLedger.for_dfedavgm(object(), D, None)
+    # Schedules are billed now; what is neither a spec nor a schedule is
+    # refused as in the reference.
+    for sched_bits, ledger in ((tcc.schedule_round_bits,
+                                CommLedger.for_dfedavgm),
+                               (jcc.schedule_round_bits,
+                                jcc.CommLedger.for_dfedavgm)):
+        with pytest.raises(AttributeError):
+            sched_bits(object(), D)
+        with pytest.raises(AttributeError):
+            ledger(object(), D, None)
     with pytest.raises(NotImplementedError, match="A17"):
         tcc.plan_round_bits(spec.gossip_plan(), D, clients_per_shard=4)
     with pytest.raises(NotImplementedError, match="A17"):

@@ -1,4 +1,4 @@
-"""The CUDA sources of B1-B8, T1 and T2, compiled for the host and run on
+"""The CUDA sources of B1-B8 and T1-T3, compiled for the host and run on
 the CPU against their plain PyTorch versions.
 
 ``tests/cuda_host/cuda_runtime.h`` stands in for the CUDA runtime and the
@@ -10,7 +10,7 @@ four columns a thread and their stream gather, keyed B6's counter over
 the whole padded buffer and its key by value or by pointer, B7's streams
 fixed at compile time or in groups, B8's three stream pointers, and the
 flat [n] x of B7 and B8 with its ragged tail and scalar path, T1's
-pair per thread and T2's grid of (blocks of a row, rows) — called
+pair per thread and T2's and T3's grid of (blocks of a row, rows) — called
 through
 their C entry points exactly as the wrappers call them. What it cannot show
 (the device compiler, timing, memory coalescing) is left to
@@ -554,6 +554,22 @@ def test_t2_uniform_entry(host_lib, rows, n):
     assert fn(ptr(keys), rows, n, ptr(out), None) == 0
     want = prng.uniform_plain(keys, (n,)).numpy()
     assert np.array_equal(out.view(np.int32), want.view(np.int32))
+    for bad_rows, bad_n in ((0, n), (rows, 0), (-1, n), (rows, -5),
+                            (65536, n), (1, 256 * 2 ** 31)):
+        assert fn(ptr(keys), bad_rows, bad_n, ptr(out), None) != 0
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (1, 16), (16, 16), (96, 16),
+                                    (4, 257), (65535, 3)])
+def test_t3_bits_entry(host_lib, rows, n):
+    """T3 (T2's kernel without the float), one thread a draw, bitwise
+    against ``prng.random_bits_plain``: int64 values in [0, 2^32); the
+    same refusals as T2."""
+    fn = entry(host_lib("threefry"), "threefry_bits", SPLIT_ARGS)
+    keys = random_keys(rows, 7 * rows + n)
+    out = np.full((rows, n), -1, np.int64)
+    assert fn(ptr(keys), rows, n, ptr(out), None) == 0
+    assert np.array_equal(out, prng.random_bits_plain(keys, (n,)).numpy())
     for bad_rows, bad_n in ((0, n), (rows, 0), (-1, n), (rows, -5),
                             (65536, n), (1, 256 * 2 ** 31)):
         assert fn(ptr(keys), bad_rows, bad_n, ptr(out), None) != 0

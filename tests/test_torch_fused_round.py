@@ -46,7 +46,8 @@ from repro.kernels.quantize_pack import momentum_quantize_pack_buffer_pallas  # 
 from repro.models import paper_nets as jnets  # noqa: E402
 from repro_torch import convert, prng  # noqa: E402
 from repro_torch.core import (DFedAvgMConfig, MixingSpec, QuantConfig,  # noqa: E402,E501
-                              WireLayout, init_round_state, make_round_step)
+                              TopologySchedule, WireLayout, init_round_state,
+                              make_round_step, ring_graph)
 from repro_torch.core.local_sgd import local_train_deferred  # noqa: E402
 from repro_torch.core.mixing import make_fused_tail  # noqa: E402
 from repro_torch.data import FederatedDataset, classification_dataset  # noqa: E402,E501
@@ -408,10 +409,22 @@ def test_fuse_round_config_validation():
         make_round_step(t_loss, DFedAvgMConfig(local_steps=3,
                                                fuse_round=True), spec,
                         device="cpu", skip_inactive_compute=True)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="MixingSpec or a TopologySchedule"):
         make_round_step(t_loss, DFedAvgMConfig(local_steps=3,
                                                fuse_round=True), object(),
                         device="cpu")
+    # The reference's own refusals of a schedule in the fused round.
+    walk = TopologySchedule.random_walk(ring_graph(M), stateful=True)
+    with pytest.raises(ValueError, match="stateful"):
+        make_round_step(t_loss, DFedAvgMConfig(local_steps=3,
+                                               fuse_round=True), walk,
+                        device="cpu")
+    with pytest.raises(ValueError, match="skip_inactive_compute"):
+        make_round_step(t_loss, DFedAvgMConfig(local_steps=3,
+                                               fuse_round=True),
+                        TopologySchedule.partial(ring_graph(M), 0.5,
+                                                 exact=True),
+                        device="cpu", skip_inactive_compute=True)
 
 
 def test_fused_round_without_a_card_the_default_device_raises():

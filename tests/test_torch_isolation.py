@@ -29,6 +29,11 @@ def imported_roots(path: Path) -> set[str]:
 def test_the_port_has_modules_to_check():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/core/dfedavgm.py" in names
+    # The time-varying slice: schedules, their plans, mixers and benches.
+    for mod in ("core/topology.py", "core/gossip_plan.py", "core/mixing.py",
+                "core/compiled.py", "prng.py", "kernels/threefry.py",
+                "bench/topology.py", "bench/timevarying.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and len(names) > 20
 
 

@@ -97,3 +97,59 @@ def test_uniform_at_matches_uniform():
 def test_seed_out_of_range():
     with pytest.raises(ValueError):
         prng.PRNGKey(2 ** 31)
+
+
+KEYS64 = [jax.random.fold_in(jax.random.PRNGKey(11), i) for i in range(64)]
+
+
+def t_key(jkey) -> torch.Tensor:
+    return torch.from_numpy(as_i64(jkey))
+
+
+@pytest.mark.parametrize("d", [0, 1, 5, 1000])
+def test_fold_in_is_split_bitwise(d):
+    """fold_in(k, d) == split(k, d + 1)[d] in the partitionable mode, and
+    the port's fold_in equals jax.random.fold_in over 64 keys."""
+    key = jax.random.PRNGKey(7)
+    assert np.array_equal(as_i64(jax.random.fold_in(key, d)),
+                          as_i64(jax.random.split(key, d + 1)[d]))
+    for jk in KEYS64:
+        assert np.array_equal(as_i64(jax.random.fold_in(jk, d)),
+                              prng.fold_in(t_key(jk), d).numpy())
+
+
+@pytest.mark.parametrize("n", [1, 2, 16, 100])
+def test_permutation_bitwise(n):
+    """jax.random.permutation(key, n) over 64 keys (the exact cohort's
+    draw and the cap_slack clamp's, with fold_in(key, 1))."""
+    for jk in KEYS64:
+        want = np.asarray(jax.random.permutation(jk, n))
+        assert np.array_equal(want, prng.permutation(t_key(jk), n).numpy())
+
+
+def test_random_bits_bitwise():
+    """T3's plain version is jax.random.bits (uint32)."""
+    for jk in KEYS64[:8]:
+        want = np.asarray(jax.random.bits(jk, (3, 16), jnp.uint32))
+        got = prng.random_bits(t_key(jk), (3, 16))
+        assert got.dtype == torch.int64
+        assert np.array_equal(want.astype(np.int64), got.numpy())
+
+
+@pytest.mark.parametrize("row", [
+    [0, 1, 0, 0, 0, 0, 0, 1],              # a ring node: p = 1/2
+    [1, 1, 1, 0, 0, 0, 0, 0],              # degree 3: p = 1/3
+    [0, 1, 0, 1, 1, 0, 1, 1],              # degree 5
+    [1, 1, 1, 1, 1, 1, 0, 1]],             # degree 7
+    ids=["deg2", "deg3", "deg5", "deg7"])
+def test_choice_bitwise(row):
+    """jax.random.choice(key, n, p=row / row.sum()) (the stateful walk's
+    next node) over 64 keys: the cumsum's summation order decides ties at
+    a boundary, so every key must agree."""
+    r = np.asarray(row, np.float32)
+    jp = jnp.asarray(r) / jnp.asarray(r).sum()
+    tp = torch.from_numpy(r) / torch.from_numpy(r).sum()
+    for jk in KEYS64:
+        want = int(jax.random.choice(jk, len(row), p=jp))
+        got = prng.choice(t_key(jk), len(row), tp)
+        assert got.dim() == 0 and int(got) == want

@@ -32,8 +32,9 @@ from repro.kernels.ops import make_fused_momentum_update  # noqa: E402
 from repro.models import paper_nets as jnets  # noqa: E402
 from repro_torch import convert, prng  # noqa: E402
 from repro_torch.core import (DFedAvgMConfig, MixingSpec, QuantConfig,  # noqa: E402,E501
-                              average_params, init_round_state,
-                              make_round_step, round_comm_bits)
+                              TopologySchedule, average_params,
+                              init_round_state, make_round_step,
+                              ring_graph, round_comm_bits)
 from repro_torch.data import FederatedDataset, classification_dataset  # noqa: E402,E501
 from repro_torch.models import paper_nets as tnets  # noqa: E402
 
@@ -138,8 +139,15 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="A14"):
         make_round_step(t_loss, DFedAvgMConfig(), spec, device="cpu",
                         async_cfg=object())
-    with pytest.raises(NotImplementedError, match="A12"):
+    # Neither a MixingSpec nor a schedule: refused, as in the reference.
+    with pytest.raises(TypeError, match="MixingSpec or a TopologySchedule"):
         make_round_step(t_loss, DFedAvgMConfig(), object(), device="cpu")
+    with pytest.raises(AttributeError):
+        j_make_round_step(j_loss, JConfig(), object())
+    # Schedules run now; their telemetry waits for A16.
+    with pytest.raises(NotImplementedError, match="A16"):
+        make_round_step(t_loss, DFedAvgMConfig(), TopologySchedule.partial(
+            ring_graph(M), 0.5), device="cpu", with_telemetry=True)
 
 
 def test_2nn_apply_and_loss_match_jax():
