@@ -84,6 +84,22 @@ Phases (any failure exits non-zero):
    falling loss; B2 with weights gathered from a sampled W_t at K = 5 and
    11 and 2-16 bits (timed at K = 11); ``bench.topology`` and
    ``bench.timevarying`` at full size, captured equal to eager;
+10c. "async": T4 (``jax.random.normal``, ``csrc/threefry.cu``) bitwise
+   against ``prng.normal_plain`` on the card at the event clock's [16]
+   and at 1 048 576 draws (timed, its ALU bound from the SASS), B3's lane
+   entry (an eta a client) bitwise against its plain version at the
+   quickstart's 3 187 360 values; the async engine on the quickstart
+   under a straggler tail (ASYNC_ARMS: the ring, with the eta decay (the
+   lane B3), with ``ready_capacity=1``, on an edge-sampled ring16 at p
+   0.7): 12 eager events through ``make_round_step(..., async_cfg=...)``
+   with launch counts derived per event (``event_launches``: a round's,
+   one more T1 for the clock key, T4 once), 3 against the CPU (the same
+   clients fire), 12 captured events bitwise with 12 eager ones (one
+   event's kernel nodes, no host copy, no int64 threefry node) and the
+   captured engine (``make_async_engine(capture=True)``) bitwise with
+   the event loop; a constant speed model bitwise with the synchronous
+   round (eta decay off and on); ``bench.async_compare`` at full size,
+   captured equal to eager;
 11. captured against eager round time by the host clock, in turns in
    this process, with a profile of 5 replays, a replay's device time and
    the cost of the no-alias clones;
@@ -184,6 +200,13 @@ KERNEL_SOURCES = {
     # jax.random.bits inside jax.random.permutation (the exact cohort).
     "threefry_bits": ("src/repro_torch/csrc/threefry.cu",
                       "src/repro/core/topology.py:538"),
+    # jax.random.normal: the event clock's durations.
+    "threefry_normal": ("src/repro_torch/csrc/threefry.cu",
+                        "src/repro/core/event_clock.py:100"),
+    # B3 with eta a device [m] (the reference vmaps the Pallas kernel's
+    # scalar block over the clients, core/async_gossip.py:326-340).
+    "momentum_sgd_lanes": ("src/repro_torch/csrc/momentum_sgd.cu",
+                           "src/repro/kernels/momentum_sgd.py:45"),
 }
 # Further times a row carries where its kernel has them, all measured.
 EXTRA_KEYS = ("clean_ms", "host_ms", "plain_call_ms", "plain_host_ms",
@@ -198,7 +221,8 @@ KERNEL_PATH = {"quantize_pack_buffer": "unfused",
                "dequant_mix_momentum_buffer": "fused", "quantize_pack": "ops",
                "dequant_mix_plan": "ops", "dequant_mix": "ops",
                "threefry_split": "unfused", "threefry_uniform": "fig8",
-               "threefry_bits": "schedules"}
+               "threefry_bits": "schedules", "threefry_normal": "async",
+               "momentum_sgd_lanes": "async"}
 # Splits a round makes (round keys, client keys, per-step keys, and the
 # per-leaf quantizer keys of a quantized wire), the fused round too.
 SPLITS_A_ROUND = 4
@@ -224,6 +248,10 @@ FULL_WIDTH = {"cnn": dict(m=16, K=4, batch=32, eta=0.01, noise=1.0),
 # How far under ln(classes), the loss of a model that guesses, the last
 # full-width round's loss must come.
 LOSS_MARGIN = 0.2
+# The "async" phase: the quickstart under README's straggler tail (one
+# client in 16 ten times slower), full width, each arm 12 events.
+ASYNC_SPEED = dict(mean=1.0, sigma=0.5, frac=1 / M, factor=10.0)
+ASYNC_ARMS = ("straggler", "decay", "capacity", "edge_sample")
 
 
 def card_line() -> str:
@@ -1766,7 +1794,8 @@ def captured_vs_eager(what: str, step, make_step, s0, batches,
                       expect_nodes: dict) -> dict:
     """len(batches) rounds of ``step`` eagerly and as many through
     ``capture_step`` of a step of its own (``make_step()``) from one
-    state ``s0``, a round of each in turn: parameters, key, ``loss`` and
+    state ``s0``, a round of each in turn: parameters, key (and every
+    other tensor of the state), ``loss`` and
     ``consensus_dist`` must agree bitwise (else within the trajectory
     contract, with the rounds where they part printed); the graph must
     hold exactly ``expect_nodes`` kernel nodes of each kernel, no copy
@@ -1806,11 +1835,13 @@ def captured_vs_eager(what: str, step, make_step, s0, batches,
         round_ulp.append(max(ulp_diff(states["eager"].params[n],
                                       states["captured"].params[n])
                              for n in s0.params))
-        rng_equal &= torch.equal(states["eager"].rng,
-                                 states["captured"].rng)
-        if s0.token is not None:      # a stateful schedule's walk token
-            rng_equal &= torch.equal(states["eager"].token,
-                                     states["captured"].token)
+        # The key and every other tensor of the state: a stateful
+        # schedule's walk token, an async state's clock, versions and
+        # clock key.
+        for f in s0._fields:
+            a, b = getattr(states["eager"], f), getattr(states["captured"], f)
+            if isinstance(a, torch.Tensor):
+                rng_equal &= torch.equal(a, b)
     counts = launch_counts()
     nodes = graph_nodes(run.graph)
     device_ms = replay_ms(run.graph)
@@ -1830,7 +1861,7 @@ def captured_vs_eager(what: str, step, make_step, s0, batches,
              or metrics["eager"][t] != metrics["captured"][t]), None)
     print(json.dumps(rep), flush=True)
     if not rng_equal:
-        raise AssertionError(f"{what}: captured key chain differs")
+        raise AssertionError(f"{what}: captured key chain or state differs")
     for (le, ce, *_), (lc, cc, *_) in zip(metrics["eager"],
                                           metrics["captured"]):
         if abs(lc / le - 1) > 1e-5 or abs(cc / ce - 1) > 1e-3:
@@ -2601,6 +2632,351 @@ def schedule_bench_path(dev) -> list[dict]:
             raise AssertionError(f"{name}: non-finite loss {row}")
     return rows
 
+def async_arm(kind: str):
+    """(spec, AsyncConfig) of the "async" phase's arm ``kind``: the
+    quickstart's ring under ASYNC_SPEED (``max_staleness`` 8, the inverse
+    discount); "decay" adds ``eta_staleness_decay`` 0.5 (B3's lane
+    entry), "capacity" ``ready_capacity`` 1 (one gathered lane an
+    event), "edge_sample" samples the ring's edges at p 0.7 (W_eff from a
+    sampled W_t, the schedule's mask composed with the ready mask)."""
+    from repro_torch.core import (AsyncConfig, MixingSpec, SpeedModel,
+                                  TopologySchedule, ring_graph)
+    spec = (TopologySchedule.edge_sample(ring_graph(M), 0.7)
+            if kind == "edge_sample" else MixingSpec.ring(M, self_weight=0.5))
+    return spec, AsyncConfig(
+        speed=SpeedModel.straggler(**ASYNC_SPEED), max_staleness=8,
+        discount="inverse",
+        eta_staleness_decay=0.5 if kind == "decay" else 0.0,
+        ready_capacity=1 if kind == "capacity" else None)
+
+
+def event_launches(spec, acfg, quantized: bool = True, k: int = K) -> dict:
+    """Kernel launches of one async event, derived from what it does: a
+    synchronous round's (:func:`round_launches`: the encode and decode,
+    B3 a local step, T1 a split, the schedule's draws), one more T1 for
+    the clock key's split, T4 once for the durations unless the speed is
+    constant, and B3's lane entry in place of B3 under the eta decay."""
+    per = round_launches(spec, quantized=quantized, k=k)
+    per["threefry_split"] += 1
+    per["threefry_normal"] += not acfg.speed.is_constant
+    if acfg.eta_staleness_decay > 0.0:
+        per["momentum_sgd_lanes"] = per.pop("momentum_sgd")
+        per["momentum_sgd"] = 0
+    return per
+
+
+def async_rounds(dev, kind: str, setup) -> dict:
+    """The async arm ``kind`` (:func:`async_arm`, 8-bit stochastic lemma5
+    on the plan realization) from one state: ROUNDS eager events through
+    ``make_round_step(..., async_cfg=...)`` with every launch counter
+    read (against :func:`event_launches`), CPU_ROUNDS of them against the
+    same events on the CPU (the same clients fire, the versions agree;
+    clock within rtol 1e-6, loss 1e-5, consensus 1e-3), ROUNDS captured
+    events bitwise with ROUNDS eager ones (:func:`captured_vs_eager`:
+    one event's kernel nodes, no host copy, no int64 threefry node), and
+    the captured engine (``make_async_engine(capture=True)``, one replay
+    an event) over the ROUNDS events bitwise with the eager loop."""
+    from repro_torch import prng
+    from repro_torch.core import (DFedAvgMConfig, QuantConfig,
+                                  init_async_state, make_async_engine,
+                                  make_round_step)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    stacked, batches, loss_fn = setup
+    spec, acfg = async_arm(kind)
+    cfg = DFedAvgMConfig(eta=ETA, theta=THETA, local_steps=K,
+                         quant=QuantConfig(bits=8))
+    name = f"async {kind}"
+
+    def make_step(device=dev):
+        return make_round_step(loss_fn, cfg, spec, device=device,
+                               async_cfg=acfg)
+
+    def start(device):
+        return init_async_state({n: t.to(device) for n, t in stacked.items()},
+                                prng.PRNGKey(1), acfg.speed)
+
+    per = event_launches(spec, acfg)
+    expect = {k: v * ROUNDS for k, v in per.items()}
+    step = make_step()
+    state = s0 = start(dev)
+    mets, versions = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for b in batches:
+        state, met = step(state, b)
+        mets.append(met)
+        versions.append(state.version)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    eager = {k: [float(m_[k]) for m_ in mets] for k in mets[0]}
+
+    step_cpu = make_step("cpu")
+    sc, cpu_rel = start("cpu"), []
+    for t in range(CPU_ROUNDS):
+        sc, mc = step_cpu(sc, {n: x.cpu() for n, x in batches[t].items()})
+        if not torch.equal(sc.version, versions[t].cpu()):
+            raise AssertionError(f"{name}: event {t} fires other clients "
+                                 f"on the CPU: {sc.version.tolist()} != "
+                                 f"{versions[t].tolist()}")
+        cpu_rel.append({k: abs(eager[k][t] / float(v) - 1) if float(v)
+                        else abs(eager[k][t]) for k, v in mc.items()})
+
+    rep = captured_vs_eager(name, step, make_step, s0, batches, per)
+    engine = make_async_engine(loss_fn, cfg, spec, acfg, device=dev,
+                               capture=True)
+    e_state, e_mets = engine(s0, {n: torch.stack([b[n] for b in batches])
+                                  for n in batches[0]})
+    engine_bitwise = (
+        all(torch.equal(e_state.params[n], state.params[n])
+            for n in state.params)
+        and all(torch.equal(getattr(e_state, f), getattr(state, f))
+                for f in s0._fields if f != "params")
+        and all(torch.equal(e_mets[k], torch.stack([m_[k] for m_ in mets]))
+                for k in e_mets))
+    summary = {"path": name, "spec": getattr(spec, "name", spec.kind),
+               "events": ROUNDS, "eager": eager,
+               "versions": versions[-1].tolist(), "launches": counts,
+               "expected_launches": expect, "vs_cpu_rel": cpu_rel,
+               "event_ms_median": rep["round_ms_median"],
+               "replay_device_ms": rep["replay_device_ms"],
+               "engine_replay_device_ms": replay_ms(engine.graph),
+               "graph_nodes": rep["graph_nodes"],
+               "kernel_nodes": rep["kernel_nodes"],
+               "bitwise": rep["bitwise"], "engine_bitwise": engine_bitwise,
+               "state": state}
+    print(json.dumps({k: v for k, v in summary.items() if k != "state"}),
+          flush=True)
+    if counts != expect:
+        raise AssertionError(f"{name}: launches {counts} != {expect}")
+    for t, rel in enumerate(cpu_rel):
+        if rel["clock"] > 1e-6 or rel["loss"] > 1e-5 or \
+                rel["consensus_dist"] > 1e-3 or rel["ready_frac"] != 0:
+            raise AssertionError(f"{name}: event {t} on the card leaves the "
+                                 f"CPU's trajectory: {rel}")
+    if not rep["bitwise"] or not engine_bitwise:
+        raise AssertionError(f"{name}: captured events differ from eager "
+                             f"(step {rep['bitwise']}, engine "
+                             f"{engine_bitwise})")
+    if not all(math.isfinite(v) for v in eager["loss"]
+               + eager["consensus_dist"]) or max(eager["ready_frac"]) <= 0:
+        raise AssertionError(f"{name}: {eager}")
+    return summary
+
+
+def async_kernel_checks(dev, flush, rec) -> None:
+    """T4 (``kernels.threefry.normal``) bitwise against
+    ``prng.normal_plain`` run on the card, at the event clock's [16] (one
+    key, and 16 keys) and at 1 048 576 draws; timed at [16] (the path's
+    shape) and at 1 048 576 against the plain version and its ALU bound
+    from the compiled code (``threefry_ops``). B3's lane entry
+    (``momentum_update`` with an eta [M]) bitwise against
+    ``momentum_sgd_lanes_ref`` over the quickstart's six leaves for 16
+    clients (3 187 360 values) and on a misaligned view, timed against
+    the plain version and its byte bound (B3's bytes and the eta)."""
+    from repro_torch import prng
+    from repro_torch.kernels import momentum_update, threefry
+    from repro_torch.kernels.momentum_sgd import (momentum_sgd_leaves,
+                                                  momentum_sgd_lanes_ref)
+    from repro_torch.models.paper_nets import init_2nn
+
+    gen = torch.Generator().manual_seed(13)
+
+    def keys(rows):
+        return torch.randint(0, 2 ** 32, (rows, 2), generator=gen,
+                             dtype=torch.int64).to(dev)
+
+    r = rec["threefry_normal"]
+    for rows, n in ((1, M), (M, M), (1, 2 ** 20), (3, 4099)):
+        k = keys(rows)
+        check_words(f"T4 R={rows} n={n}",
+                    threefry.normal(k, (n,)).view(torch.int32),
+                    prng.normal_plain(k, (n,)).view(torch.int32))
+        r["checks"].append(f"R={rows} n={n} bitwise")
+    key = keys(1)[0]
+    timed(r, "", lambda: threefry.normal(key, (M,)), flush)
+    timed(r, "plain_", lambda: prng.normal_plain(key, (M,)), flush)
+    out = threefry.normal(key, (M,))
+    r["sass"] = threefry_ops("threefry_normal", M)
+    r["bound_ms"], r["bound_by"] = bound(nbytes(key, out), 0,
+                                         r["sass"]["ms"])
+    r["shape"] = [1, M]
+    big = {"shape": [1, 2 ** 20]}
+    timed(big, "", lambda: threefry.normal(key, (2 ** 20,)), flush)
+    timed(big, "plain_", lambda: prng.normal_plain(key, (2 ** 20,)), flush)
+    ops = threefry_ops("threefry_normal", 2 ** 20)
+    big["bound_ms"], big["bound_by"] = bound(
+        nbytes(key, threefry.normal(key, (2 ** 20,))), 0, ops["ms"])
+    big["sass"] = ops
+    r["n1m"] = big
+
+    r = rec["momentum_sgd_lanes"]
+    shapes = {n: (M,) + tuple(t.shape)
+              for n, t in init_2nn(0, device="cpu").items()}
+    y, v, g = ({n: (torch.randn(sh, generator=gen) * sc).to(dev)
+                for n, sh in shapes.items()} for sc in (0.05, 0.01, 0.1))
+    eta = (ETA / (1.0 + 0.5 * torch.randint(0, 4, (M,), generator=gen)
+                  .to(torch.float32))).to(dev)
+    ys, vs = momentum_update(y, v, g, eta, THETA)
+    pairs = []
+    for n in y:
+        wy, wv = momentum_sgd_lanes_ref(y[n], v[n], g[n], eta, THETA)
+        pairs += [(ys[n], wy), (vs[n], wv)]
+    per = 1031
+    spare = torch.empty(M * per + 1, device=dev)
+    y_mis = spare[1:].copy_(torch.randn(M * per, device=dev)).view(M, per)
+    v_mis, g_mis = (torch.randn(M, per, device=dev) for _ in range(2))
+    (my,), (mv,) = momentum_sgd_leaves([y_mis], [v_mis], [g_mis], eta, THETA)
+    pairs += list(zip((my, mv), momentum_sgd_lanes_ref(y_mis, v_mis, g_mis,
+                                                       eta, THETA)))
+    torch.cuda.synchronize()
+    for a, b in pairs:
+        check_words("B3 lanes vs plain", a.view(torch.int32),
+                    b.view(torch.int32))
+    check_floats(r, "B3 lanes", pairs)
+    n_el = sum(t.numel() for t in y.values())
+    r["checks"].append(f"6 leaves x {M} clients = {n_el} values, an eta a "
+                       f"client, in one launch, and a misaligned [{M}, "
+                       f"{per}] view: bitwise")
+    timed(r, "", lambda: momentum_update(y, v, g, eta, THETA), flush)
+    timed(r, "plain_", lambda: [momentum_sgd_lanes_ref(
+        y[n], v[n], g[n], eta, THETA) for n in y], flush)
+    r["bound_ms"], r["bound_by"] = bound(5 * 4 * n_el + nbytes(eta),
+                                         3 * n_el)
+    r["shape"] = f"one local step: 6 leaves x {M} clients ({n_el} f32)"
+    for name in ("threefry_normal", "momentum_sgd_lanes"):
+        print(json.dumps({"check": name, **rec[name]}), flush=True)
+
+
+def async_constant_vs_sync(dev, setup) -> dict:
+    """A constant speed model fires every client every event: ROUNDS
+    async events (``make_round_step(..., async_cfg=...)``, eta decay off
+    and on: zero lag scales eta by exactly 1, B3's lane entry then
+    carries the scalar's eta) bitwise with ROUNDS synchronous quickstart
+    rounds on the card — parameters, key and loss."""
+    from repro_torch import prng
+    from repro_torch.core import (AsyncConfig, DFedAvgMConfig, MixingSpec,
+                                  QuantConfig, SpeedModel, init_async_state,
+                                  init_round_state, make_round_step)
+
+    stacked, batches, loss_fn = setup
+    spec = MixingSpec.ring(M, self_weight=0.5)
+    cfg = DFedAvgMConfig(eta=ETA, theta=THETA, local_steps=K,
+                         quant=QuantConfig(bits=8))
+    sync_step = make_round_step(loss_fn, cfg, spec, device=dev)
+    s = init_round_state(stacked, prng.PRNGKey(1))
+    sync_loss = []
+    for b in batches:
+        s, met = sync_step(s, b)
+        sync_loss.append(met["loss"])
+    out = {}
+    for decay in (0.0, 0.5):
+        acfg = AsyncConfig(speed=SpeedModel.constant(),
+                           eta_staleness_decay=decay)
+        step = make_round_step(loss_fn, cfg, spec, device=dev,
+                               async_cfg=acfg)
+        a = init_async_state(stacked, prng.PRNGKey(1), acfg.speed)
+        same_loss = True
+        for b, want in zip(batches, sync_loss):
+            a, met = step(a, b)
+            same_loss &= torch.equal(met["loss"], want)
+        bitwise = (same_loss and torch.equal(a.rng, s.rng)
+                   and all(torch.equal(a.params[n], s.params[n])
+                           for n in s.params))
+        out[f"decay={decay}"] = {
+            "bitwise": bitwise, "max_ulp": max(
+                ulp_diff(a.params[n], s.params[n]) for n in s.params),
+            "versions": a.version.tolist()}
+    print(json.dumps({"check": "async constant speed vs sync", **out}),
+          flush=True)
+    for k, r in out.items():
+        if not r["bitwise"]:
+            raise AssertionError(f"async constant speed ({k}) differs from "
+                                 f"the synchronous round: {r}")
+    return out
+
+
+def async_bench_path(dev) -> dict:
+    """``bench.async_compare`` at full size (m 8, K 2, batch 32, 40
+    rounds of 8 events, edge-sampled ring8 at p 0.7, dense fp32),
+    captured and then eagerly: both curves, the times to target and the
+    final async state equal bitwise; the event graph holds one event's
+    kernel nodes (:func:`event_launches`: B3 = K, T1, T2 for the edge
+    draw, T4) and the sync round's graph one round's
+    (:func:`round_launches`)."""
+    from repro_torch.bench import async_compare
+    from repro_torch.core import (AsyncConfig, SpeedModel, TopologySchedule,
+                                  ring_graph)
+
+    m, k = async_compare.M, async_compare.K
+    sched = TopologySchedule.edge_sample(ring_graph(m), 0.7)
+    acfg = AsyncConfig(speed=SpeedModel.straggler(
+        mean=1.0, sigma=0.5, frac=1.0 / m, factor=10.0))
+    res = {}
+    for mode, capture in (("captured", True), ("eager", False)):
+        t0 = time.perf_counter()
+        res[mode] = async_compare.run_compare(device=dev, capture=capture)
+        res[mode]["wall_s"] = time.perf_counter() - t0
+    cap, eag = res["captured"], res["eager"]
+    keys = ("sync_curve", "async_curve", "sync_time_to_target",
+            "async_time_to_target", "target_loss")
+    equal = all(cap[f] == eag[f] for f in keys) and all(
+        torch.equal(cap["async_final_state"].params[n],
+                    eag["async_final_state"].params[n])
+        for n in cap["async_final_state"].params)
+    rep = {"path": "bench async_compare", "captured_equals_eager": equal,
+           **{f"{mode}_{f}": r[f] for mode, r in res.items()
+              for f in ("us_per_event", "wall_s")},
+           **{f: cap[f] for f in ("target_loss", "sync_time_to_target",
+                                  "async_time_to_target",
+                                  "speedup_virtual_wallclock",
+                                  "async_beats_sync", "sync_final",
+                                  "async_final", "device")}}
+    rep["async_graph"] = check_round_graph(
+        "bench async_compare event", graph_nodes(cap["async_graph"]),
+        event_launches(sched, acfg, quantized=False, k=k))
+    rep["sync_graph"] = check_round_graph(
+        "bench async_compare sync round", graph_nodes(cap["sync_graph"]),
+        round_launches(sched, quantized=False, k=k))
+    print(json.dumps(rep), flush=True)
+    if not equal:
+        raise AssertionError("bench async_compare: captured differs from "
+                             "eager")
+    for r in (cap, eag):
+        if not all(math.isfinite(v) for _, v in r["sync_curve"]
+                   + r["async_curve"]):
+            raise AssertionError("bench async_compare: non-finite loss")
+    return rep
+
+
+def async_phase(dev, flush, rec) -> tuple[dict, dict]:
+    """Phase "async": T4 and B3's lane entry against their plain versions
+    (:func:`async_kernel_checks`), the four ASYNC_ARMS at full width
+    (:func:`async_rounds`), constant speed against the synchronous round
+    (:func:`async_constant_vs_sync`) and ``bench.async_compare`` at full
+    size (:func:`async_bench_path`). Returns the summaries and the
+    launches of the arms' eager counted events together."""
+    async_kernel_checks(dev, flush, rec)
+    data, fed, stacked, _, _, loss_fn, _ = quickstart_setup(dev)
+    batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
+               for t in range(ROUNDS)]
+    setup = (stacked, batches, loss_fn)
+    out = {kind: async_rounds(dev, kind, setup) for kind in ASYNC_ARMS}
+    # One gathered lane an event against the full-width straggler arm
+    # (bitwise on the CPU; cuBLAS may pick another algorithm for one lane).
+    full, one = out["straggler"]["state"], out["capacity"]["state"]
+    out["capacity_vs_full"] = {
+        "max_ulp": max(ulp_diff(full.params[n], one.params[n])
+                       for n in full.params),
+        "versions_equal": torch.equal(full.version, one.version)}
+    print(json.dumps({"check": "async capacity 1 vs full width",
+                      **out["capacity_vs_full"]}), flush=True)
+    out["constant_vs_sync"] = async_constant_vs_sync(dev, setup)
+    out["bench"] = async_bench_path(dev)
+    launches = {k: sum(out[a]["launches"][k] for a in ASYNC_ARMS)
+                for k in KERNEL_SOURCES}
+    return out, launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2646,6 +3022,8 @@ def main() -> int:
     captured["schedules"] = sched["partial_exact"]
     schedule_kernel_checks(dev, flush, rec)
     sched_rows = schedule_bench_path(dev)
+    asyn, counts["async"] = async_phase(dev, flush, rec)
+    captured["async"] = asyn["decay"]
     times = round_times(dev)
     rows = bench_path(dev)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
@@ -2692,7 +3070,16 @@ def main() -> int:
                           r["name"]: [r["us_per_round"],
                                       r["eager_us_per_round"]]
                           for r in sched_rows},
-                      "b2_k11": rec["dequant_mix_buffer"]["k11"]}))
+                      "b2_k11": rec["dequant_mix_buffer"]["k11"],
+                      "async": {
+                          k: {"event_ms_median": asyn[k]["event_ms_median"],
+                              "replay_device_ms": asyn[k][
+                                  "replay_device_ms"],
+                              "graph_nodes": asyn[k]["graph_nodes"]}
+                          for k in ASYNC_ARMS},
+                      "async_bench": {k: asyn["bench"][k] for k in (
+                          "captured_us_per_event", "eager_us_per_event",
+                          "speedup_virtual_wallclock")}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

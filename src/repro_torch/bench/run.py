@@ -28,6 +28,7 @@ MODULES = [
     "charlm",           # Fig 7: the char-LSTM, fp32 vs 8-bit wire
     "topology",         # ring vs torus: lambda, consensus, non-IID acc
     "timevarying",      # time-varying schedules vs the static ring
+    "async_compare",    # async vs sync under stragglers (bench_async)
 ]
 
 

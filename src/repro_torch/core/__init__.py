@@ -1,8 +1,9 @@
 """Core: quantized DFedAvgM as PyTorch — the port of the JAX package's
 ``repro.core`` for one synchronous round on one device (a static spec
-or a time-varying schedule), its FedAvg and DSGD baselines, the paper's
-bit accounting, and ``capture_step``, which runs a round as one CUDA
-graph (the counterpart of ``jax.jit``)."""
+or a time-varying schedule), the asynchronous event engine, its FedAvg
+and DSGD baselines, the paper's bit accounting, and ``capture_step``,
+which runs a round or an event as one CUDA graph (the counterpart of
+``jax.jit``)."""
 from .topology import (Graph, MixingSpec, TopologySchedule,  # noqa
                        ring_graph, chain_graph, torus_graph, complete_graph,
                        star_graph, erdos_renyi_graph, metropolis_hastings,
@@ -27,4 +28,9 @@ from .comm_cost import (CommLedger, dfedavgm_round_bits, fedavg_round_bits,  # n
                         plan_round_bits, async_event_bits,
                         prop3_quantization_wins, prop3_epsilon_floor,
                         bottleneck_bits)
+from .event_clock import SpeedModel, next_event  # noqa
+from .async_gossip import (AsyncConfig, AsyncRoundState,  # noqa
+                           init_async_state, staleness_weights,
+                           staleness_eta, make_async_round_step,
+                           make_async_engine)
 from .compiled import capture_step  # noqa

@@ -15,7 +15,10 @@ buffer that ``run`` fills (a fill kernel, never a copy from the host)
 before each replay, so a schedule that reads it (a cycle's member, a
 precomputed walk's edge) picks the round's event inside the graph; the
 ``state.round`` that ``run`` returns stays a host int. A stateful
-schedule's token is a static buffer too.
+schedule's token is a static buffer too. An async event step
+(``core.async_gossip``) is captured the same way: every field of its
+``AsyncRoundState`` gets a buffer, the device event counter included, so
+its engine replays one graph an event.
 
 No aliasing: the graph writes its outputs to the same device memory on
 every replay, so ``run`` hands the caller clones of them. A state the
@@ -28,11 +31,9 @@ nodes (``graph`` on the returned function).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
-
-from .dfedavgm import RoundState
 
 Params = dict[str, torch.Tensor]
 
@@ -52,12 +53,59 @@ def _load(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
         dst.copy_(src)
 
 
-def capture_step(step: Callable, state: RoundState,
-                 batches: Params) -> Callable:
+def _buffer(value, dev: torch.device):
+    """The static device buffer of one state field: a dict of leaves, a
+    tensor, None, or a host int (the round index: an int64 0-dim buffer
+    that ``run`` fills)."""
+    if value is None:
+        return None
+    if isinstance(value, dict):
+        return {n: t.detach().to(dev).clone() for n, t in value.items()}
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(dev).clone()
+    return torch.full((), value, dtype=torch.int64, device=dev)
+
+
+def _fill(buf, value, name: str) -> None:
+    """Load one state field into its static buffer (see :func:`_buffer`)."""
+    if buf is None:
+        return
+    if isinstance(buf, dict):
+        for n, t in value.items():
+            _load(buf[n], t, n)
+    elif isinstance(value, torch.Tensor):
+        _load(buf, value, name)
+    else:
+        buf.fill_(value)
+
+
+def _out(out, value):
+    """A field of the returned state: a clone of the graph's output, or
+    for a host-int round index the next host int."""
+    if out is None:
+        return None
+    if isinstance(out, dict):
+        return {n: t.clone() for n, t in out.items()}
+    if not isinstance(value, torch.Tensor) and not isinstance(value, dict):
+        return value + 1
+    return out.clone()
+
+
+def capture_step(step: Callable, state: NamedTuple,
+                 batches: Params | None) -> Callable:
     """Capture ``step(state, batches) -> (state', metrics)`` — a
     ``make_round_step``, ``make_fedavg_step`` or ``make_dsgd_step`` round
-    — in one CUDA graph, at the shapes and dtypes of ``state`` and
-    ``batches``.
+    on a ``RoundState``, or an async event (``make_async_round_step``) on
+    an ``AsyncRoundState`` — in one CUDA graph, at the shapes and dtypes
+    of ``state`` and ``batches`` (None for an event step with a
+    ``batch_fn``).
+
+    Every field of the state gets a static buffer (the parameters, the
+    key, an async state's clock, next-ready times, versions and clock
+    key, a walk's token); ``run`` loads each before a replay. A host-int
+    round index is filled into its int64 buffer and comes back as the
+    next host int; a device event counter is copied in and its successor
+    cloned out.
 
     Returns ``run(state, batches) -> (state', metrics)`` with the step's
     contract; ``run.graph`` is the ``torch.cuda.CUDAGraph`` (its
@@ -71,15 +119,12 @@ def capture_step(step: Callable, state: RoundState,
     if dev.type != "cuda":
         raise ValueError(f"capture_step needs the round on a CUDA device, "
                          f"got {dev}; call the step itself on the CPU")
-    params = {n: t.detach().to(dev).clone() for n, t in state.params.items()}
-    rng = state.rng.to(dev).clone()
-    round_t = torch.full((), state.round, dtype=torch.int64, device=dev)
-    token = None if state.token is None else state.token.to(dev).clone()
-    static_batches = {n: b.to(dev).clone() for n, b in batches.items()}
+    kind = type(state)
+    static = {f: _buffer(getattr(state, f), dev) for f in kind._fields}
+    static_batches = _buffer(batches, dev)
 
     def call():
-        return step(RoundState(params=params, rng=rng, round=round_t,
-                               token=token), static_batches)
+        return step(kind(**static), static_batches)
 
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
@@ -92,21 +137,13 @@ def capture_step(step: Callable, state: RoundState,
         out_state, out_metrics = call()
     graph.instantiate()
 
-    def run(state: RoundState, batches: Params):
-        for n, t in state.params.items():
-            _load(params[n], t, n)
-        _load(rng, state.rng, "rng")
-        if token is not None:
-            _load(token, state.token, "token")
-        for n, b in batches.items():
-            _load(static_batches[n], b, n)
-        round_t.fill_(state.round)
+    def run(state: NamedTuple, batches: Params | None):
+        for f in kind._fields:
+            _fill(static[f], getattr(state, f), f)
+        _fill(static_batches, batches, "batches")
         graph.replay()
-        return (RoundState(params={n: t.clone() for n, t in
-                                   out_state.params.items()},
-                           rng=out_state.rng.clone(), round=state.round + 1,
-                           token=None if token is None
-                           else out_state.token.clone()),
+        return (kind(**{f: _out(getattr(out_state, f), getattr(state, f))
+                        for f in kind._fields}),
                 {k: v.clone() for k, v in out_metrics.items()})
 
     run.graph = graph

@@ -171,11 +171,21 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     width. Parameters and ``loss`` are the same either way;
     ``local_drift`` then counts only the effective z (with skip off it
     includes inactive lanes' discarded updates).
+
+    ``async_cfg`` (an :class:`~repro_torch.core.async_gossip.AsyncConfig`)
+    returns the async engine's event step instead
+    (``make_async_round_step``, on an ``AsyncRoundState``).
     """
     scheduled = _check_spec(spec)
+    if placement is not None and async_cfg is not None:
+        raise ValueError("placement is not supported with the async "
+                         "engine (its lane bookkeeping is client-order)")
     if async_cfg is not None:
-        raise NotImplementedError("the async engine is not ported yet "
-                                  "(ROADMAP A14)")
+        from .async_gossip import make_async_round_step
+        return make_async_round_step(loss_fn, cfg, spec, async_cfg,
+                                     device=device,
+                                     with_metrics=with_metrics,
+                                     with_telemetry=with_telemetry)
     if placement is not None:
         raise NotImplementedError("client placement is not ported yet "
                                   "(ROADMAP A17)")

@@ -28,9 +28,11 @@ __all__ = ["local_train", "local_train_deferred", "heavy_ball_update",
            "loss_and_grad"]
 
 
-def heavy_ball_update(y: Params, v: Params, g: Params, eta: float,
+def heavy_ball_update(y: Params, v: Params, g: Params,
+                      eta: float | torch.Tensor,
                       theta: float) -> tuple[Params, Params]:
-    """One heavy-ball step on a parameter dict. Returns (y_next, v_next)."""
+    """One heavy-ball step on a parameter dict (``eta`` a float, or f32
+    [m] on the device, one a client). Returns (y_next, v_next)."""
     return momentum_update(y, v, g, eta, theta)
 
 
@@ -45,7 +47,8 @@ def loss_and_grad(loss_fn: LossFn, params: Params, batch: Params,
 
 
 def _steps(loss_fn: LossFn, params: Params, batches: Params,
-           step_keys: torch.Tensor, n_steps: int, eta: float, theta: float
+           step_keys: torch.Tensor, n_steps: int,
+           eta: float | torch.Tensor, theta: float
            ) -> tuple[Params, Params, list]:
     """The first ``n_steps`` heavy-ball steps from v = 0."""
     y = {n: t.detach() for n, t in params.items()}
@@ -61,8 +64,8 @@ def _steps(loss_fn: LossFn, params: Params, batches: Params,
 
 
 def local_train(loss_fn: LossFn, params: Params, batches: Params,
-                keys: torch.Tensor, *, eta: float, theta: float
-                ) -> tuple[Params, torch.Tensor]:
+                keys: torch.Tensor, *, eta: float | torch.Tensor,
+                theta: float) -> tuple[Params, torch.Tensor]:
     """Run K heavy-ball SGD steps on every client.
 
     Args:
@@ -73,7 +76,9 @@ def local_train(loss_fn: LossFn, params: Params, batches: Params,
                client per local step.
       keys:    client PRNG keys [m, 2]; step k of client c gets
                ``split(keys[c], K)[k]``, as in the JAX package.
-      eta, theta: learning rate and momentum of eq. (4).
+      eta, theta: learning rate and momentum of eq. (4); ``eta`` may be
+               an f32 tensor [m] on the parameters' device, one a client
+               (the async engine's staleness-decayed rate).
 
     Returns:
       (y^{t,K} stacked, per-client mean local loss over the K steps [m]).

@@ -7,6 +7,18 @@
 // f32 eta and theta:
 //   v' = theta * v - eta * g ;  y' = y + v'
 //
+// Two entries share the kernel body. momentum_sgd takes eta as a host
+// float (a kernel parameter). momentum_sgd_lanes takes a device f32 eta
+// [m], one per client, for the async engine's staleness-decayed step
+// (the reference vmaps the Pallas kernel's runtime scalar block over the
+// clients, src/repro/core/async_gossip.py:326-340): every leaf is [m,
+// ...], and value i of a leaf belongs to client i / (size / m). A CUDA
+// graph replays a host eta as it was captured; a device eta is read at
+// replay, so a captured event follows each event's decay. The client of a
+// value is a 32-bit division where the leaf fits (one a value; the
+// 2NN's b3 has 10 values a client, so a block spans many clients), the
+// eta a cached 4-byte load; the rounding is the scalar entry's.
+//
 // Bound on the H100: bytes. Three reads and two writes of every value;
 // for one local step of the 2NN main path (16 clients x 199 210 params)
 // ~64 MB, ~19 us at 3.35 TB/s, four steps a round.
@@ -44,7 +56,8 @@ struct LeafTable {
   int chunk_start[kMaxLeaves + 1];
   int n_leaves;
 };
-static_assert(sizeof(LeafTable) + 2 * sizeof(float) <= 4096,
+static_assert(sizeof(LeafTable) + 2 * sizeof(float) + sizeof(void*) +
+                      sizeof(int64_t) <= 4096,
               "kernel parameters must stay under 4 KB");
 
 __device__ __forceinline__ float step_v(float v, float g, float eta,
@@ -60,13 +73,40 @@ __device__ __forceinline__ float4 step_v4(float4 v, float4 g, float eta,
                      step_v(v.w, g.w, eta, theta));
 }
 
+__device__ __forceinline__ float4 step_v4(float4 v, float4 g, float4 eta,
+                                          float theta) {
+  return make_float4(step_v(v.x, g.x, eta.x, theta),
+                     step_v(v.y, g.y, eta.y, theta),
+                     step_v(v.z, g.z, eta.z, theta),
+                     step_v(v.w, g.w, eta.w, theta));
+}
+
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
                      __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
 
-__global__ void __launch_bounds__(kThreads)
-momentum_sgd_kernel(const LeafTable t, float eta, float theta) {
+// The eta of value i of a leaf with `per` values a client: the lane
+// entry's etas[i / per] (32-bit division when the leaf fits).
+struct LaneEta {
+  const float* __restrict__ etas;
+  int64_t per;
+  bool narrow;
+  __device__ __forceinline__ float operator()(int64_t i) const {
+    const int64_t c = narrow ? static_cast<int64_t>(
+                                   static_cast<uint32_t>(i) /
+                                   static_cast<uint32_t>(per))
+                             : i / per;
+    return __ldg(etas + c);
+  }
+};
+
+// The body of both kernels. LANES = false: one eta for every value;
+// true: etas [m] by client.
+template <bool LANES>
+__device__ __forceinline__ void step_leaves(const LeafTable& t, float eta,
+                                            const float* __restrict__ etas,
+                                            int64_t m, float theta) {
   const int b = blockIdx.x;
   int lo = 0, hi = t.n_leaves - 1;   // largest l with chunk_start[l] <= b
   while (lo < hi) {
@@ -87,6 +127,11 @@ momentum_sgd_kernel(const LeafTable t, float eta, float theta) {
                         reinterpret_cast<uintptr_t>(g) |
                         reinterpret_cast<uintptr_t>(y_out) |
                         reinterpret_cast<uintptr_t>(v_out);
+  LaneEta lane{etas, 1, true};
+  if constexpr (LANES) {
+    lane.per = t.size[l] / m;
+    lane.narrow = t.size[l] <= 0xffffffffLL;
+  }
   int64_t scalar_from = begin;
   if ((any & 15) == 0) {
     const int64_t vend = begin + ((end - begin) & ~int64_t{3});
@@ -104,7 +149,15 @@ momentum_sgd_kernel(const LeafTable t, float eta, float theta) {
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t i = begin + 4 * (threadIdx.x + u * kThreads);
       if (i < vend) {
-        const float4 vn = step_v4(vv[u], gv[u], eta, theta);
+        float4 vn;
+        if constexpr (LANES) {
+          vn = step_v4(vv[u], gv[u],
+                       make_float4(lane(i), lane(i + 1), lane(i + 2),
+                                   lane(i + 3)),
+                       theta);
+        } else {
+          vn = step_v4(vv[u], gv[u], eta, theta);
+        }
         *reinterpret_cast<float4*>(v_out + i) = vn;
         *reinterpret_cast<float4*>(y_out + i) = add4(yv[u], vn);
       }
@@ -112,24 +165,36 @@ momentum_sgd_kernel(const LeafTable t, float eta, float theta) {
     scalar_from = vend;
   }
   for (int64_t i = scalar_from + threadIdx.x; i < end; i += kThreads) {
-    const float vn = step_v(v[i], g[i], eta, theta);
+    float e = eta;
+    if constexpr (LANES) e = lane(i);
+    const float vn = step_v(v[i], g[i], e, theta);
     v_out[i] = vn;
     y_out[i] = __fadd_rn(y[i], vn);
   }
 }
 
-}  // namespace
+__global__ void __launch_bounds__(kThreads)
+momentum_sgd_kernel(const LeafTable t, float eta, float theta) {
+  step_leaves<false>(t, eta, nullptr, 1, theta);
+}
 
-// One heavy-ball step over n_leaves leaves. ptrs: host array [n_leaves][5]
-// of device pointers (y, v, g, y_out, v_out), f32; sizes: host int64
-// [n_leaves], each >= 0 (an empty leaf is skipped). One launch per
-// kMaxLeaves leaves; *launches gets the number made. Returns
-// cudaGetLastError() (or cudaErrorInvalidValue for a bad table).
-extern "C" int momentum_sgd(const uint64_t* ptrs, const int64_t* sizes,
-                            int n_leaves, float eta, float theta,
-                            void* stream, int* launches) {
+__global__ void __launch_bounds__(kThreads)
+momentum_sgd_lanes_kernel(const LeafTable t, const float* __restrict__ etas,
+                          int64_t m, float theta) {
+  step_leaves<true>(t, 0.0f, etas, m, theta);
+}
+
+// Both entries: the leaf tables, one launch per kMaxLeaves leaves. With
+// LANES every size must be a multiple of m >= 1 and etas non-null.
+template <bool LANES>
+int launch_steps(const uint64_t* ptrs, const int64_t* sizes, int n_leaves,
+                 float eta, const float* etas, int64_t m, float theta,
+                 void* stream, int* launches) {
   *launches = 0;
   if (n_leaves < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (LANES && (m < 1 || etas == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   for (int first = 0; first < n_leaves; first += kMaxLeaves) {
     const int n = n_leaves - first < kMaxLeaves ? n_leaves - first
                                                 : kMaxLeaves;
@@ -138,7 +203,9 @@ extern "C" int momentum_sgd(const uint64_t* ptrs, const int64_t* sizes,
     for (int j = 0; j < n; ++j) {
       const uint64_t* p = ptrs + 5 * (first + j);
       const int64_t size = sizes[first + j];
-      if (size < 0) return static_cast<int>(cudaErrorInvalidValue);
+      if (size < 0 || (LANES && size % m != 0)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
       t.y[j] = reinterpret_cast<const float*>(p[0]);
       t.v[j] = reinterpret_cast<const float*>(p[1]);
       t.g[j] = reinterpret_cast<const float*>(p[2]);
@@ -152,12 +219,43 @@ extern "C" int momentum_sgd(const uint64_t* ptrs, const int64_t* sizes,
     t.chunk_start[n] = static_cast<int>(blocks);
     t.n_leaves = n;
     if (blocks == 0) continue;
-    momentum_sgd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(t, eta,
-                                                               theta);
+    const unsigned grid = static_cast<unsigned>(blocks);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if constexpr (LANES) {
+      momentum_sgd_lanes_kernel<<<grid, kThreads, 0, s>>>(t, etas, m, theta);
+    } else {
+      momentum_sgd_kernel<<<grid, kThreads, 0, s>>>(t, eta, theta);
+    }
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
     ++*launches;
   }
   return 0;
+}
+
+}  // namespace
+
+// One heavy-ball step over n_leaves leaves. ptrs: host array [n_leaves][5]
+// of device pointers (y, v, g, y_out, v_out), f32; sizes: host int64
+// [n_leaves], each >= 0 (an empty leaf is skipped). One launch per
+// kMaxLeaves leaves; *launches gets the number made. Returns
+// cudaGetLastError() (or cudaErrorInvalidValue for a bad table).
+extern "C" int momentum_sgd(const uint64_t* ptrs, const int64_t* sizes,
+                            int n_leaves, float eta, float theta,
+                            void* stream, int* launches) {
+  return launch_steps<false>(ptrs, sizes, n_leaves, eta, nullptr, 1, theta,
+                             stream, launches);
+}
+
+// The same step with a device f32 eta [m]: every leaf is [m, ...] (its
+// size a multiple of m), and client c's values step with eta[c]. Returns
+// cudaErrorInvalidValue for m < 1, a null eta or a size that m does not
+// divide, as well as for a bad table.
+extern "C" int momentum_sgd_lanes(const uint64_t* ptrs, const int64_t* sizes,
+                                  int n_leaves, const void* eta, int64_t m,
+                                  float theta, void* stream,
+                                  int* launches) {
+  return launch_steps<true>(ptrs, sizes, n_leaves, 0.0f,
+                            static_cast<const float*>(eta), m, theta, stream,
+                            launches);
 }

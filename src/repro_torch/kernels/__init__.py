@@ -10,11 +10,14 @@ dequant_mix   — B2, whole-buffer fused unpack + dequantize + gossip apply,
                 B5, the same fused with the deferred last heavy-ball step;
                 B7, one buffer over a [k, W] stream stack; B8, the ring
                 form over three stream pointers
-momentum_sgd  — B3, fused heavy-ball update
-threefry      — T1, T2 and T3, the key chain's ``jax.random.split``,
-                ``jax.random.uniform`` and ``jax.random.bits``
-                (``prng.split`` / ``prng.uniform`` / ``prng.random_bits``
-                on a CUDA key), which the JAX package leaves to XLA
+momentum_sgd  — B3, fused heavy-ball update, with eta a float or a
+                device [m], one a client (the lane entry)
+threefry      — T1, T2, T3 and T4, the key chain's ``jax.random.split``
+                (and ``fold_in``), ``jax.random.uniform``,
+                ``jax.random.bits`` and ``jax.random.normal``
+                (``prng.split`` / ``fold_in`` / ``uniform`` /
+                ``random_bits`` / ``normal`` on a CUDA key), which the
+                JAX package leaves to XLA
 
 ``ops`` holds the per-tensor entry points (``encode_delta``,
 ``decode_apply_ring``, ``decode_apply_plan``, ``momentum_update_flat``,

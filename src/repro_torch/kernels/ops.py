@@ -89,10 +89,13 @@ def momentum_update_flat(y: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                         g.to(y.dtype).contiguous(), eta, theta)
 
 
-def momentum_update(y: Params, v: Params, g: Params, eta: float,
+def momentum_update(y: Params, v: Params, g: Params,
+                    eta: float | torch.Tensor,
                     theta: float) -> tuple[Params, Params]:
     """(y', v') with ``v' = theta*v - eta*g`` and ``y' = y + v'`` over
-    every leaf, in ``y``'s key order: one B3 launch on CUDA tensors. The
+    every leaf, in ``y``'s key order: one B3 launch on CUDA tensors.
+    ``eta`` is a float, or an f32 tensor [m] on the leaves' device (client
+    c's values step with ``eta[c]``: B3's lane entry, one launch too). The
     outputs are views into one allocation (see
     :func:`~repro_torch.kernels.momentum_sgd.momentum_sgd_leaves`)."""
     names = list(y)

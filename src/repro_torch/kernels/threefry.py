@@ -1,16 +1,20 @@
-"""T1, T2 and T3: the key chain's threefry draws as one launch each.
+"""T1, T2, T3 and T4: the key chain's threefry draws as one launch each.
 
 ``split`` is ``jax.random.split``, ``uniform`` is ``jax.random.uniform``
-(float32) and ``bits`` is ``jax.random.bits`` (32-bit), all in the
-partitionable mode, bitwise. The JAX package leaves them to XLA (no
-Pallas kernel); their plain versions are ``prng.split_plain``,
-``prng.uniform_plain`` and ``prng.random_bits_plain``, threefry written as
-int64 tensor operations, ~180 a draw, which on the card made ~700 tiny
-kernels a round. On CUDA tensors they run ``csrc/threefry.cu``: T1
-(``threefry_split``) one thread an output key, T2 (``threefry_uniform``)
-and T3 (``threefry_bits``, T2's body without the float) one thread a
-draw. ``prng.split``, ``prng.uniform`` and ``prng.random_bits`` call these
-wrappers, so every caller of the key chain takes the kernels on the card.
+(float32), ``bits`` is ``jax.random.bits`` (32-bit) and ``normal`` is
+``jax.random.normal`` (float32), all in the partitionable mode. The JAX
+package leaves them to XLA (no Pallas kernel); their plain versions are
+``prng.split_plain``, ``prng.uniform_plain``, ``prng.random_bits_plain``
+and ``prng.normal_plain``, threefry written as int64 tensor operations,
+~180 a draw, which on the card made ~700 tiny kernels a round. On CUDA
+tensors they run ``csrc/threefry.cu``: T1 (``threefry_split``, and
+``fold_in`` for one counter) one thread an output key, T2
+(``threefry_uniform``), T3 (``threefry_bits``, T2's body without the
+float) and T4 (``threefry_normal``, T2's body, then erf_inv's
+polynomial) one thread a draw, each bitwise with its plain version on
+the card. ``prng.split``, ``prng.uniform``,
+``prng.random_bits`` and ``prng.normal`` call these wrappers, so every
+caller of the key chain takes the kernels on the card.
 """
 from __future__ import annotations
 
@@ -55,9 +59,25 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return out
 
 
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a uint32 ``data``: int64 key
+    ``[..., 2]`` -> ``[..., 2]``. CPU keys take ``prng.fold_in_plain``; a
+    CUDA key (contiguous) launches T1 once, for that one counter."""
+    if key.device.type == "cpu":
+        return prng.fold_in_plain(key, data)
+    rows = _rows(key)
+    out = torch.empty(key.shape, dtype=torch.int64, device=key.device)
+    fn = native.function("threefry", "threefry_fold_in", _ARGS)
+    with torch.cuda.device(key.device):
+        rc = fn(rows.data_ptr(), rows.shape[0], data, out.data_ptr(),
+                native.stream_of(key))
+    native.check_launch(rc, "threefry_split")
+    return out
+
+
 def _draw(key: torch.Tensor, shape, dtype: torch.dtype, symbol: str
           ) -> torch.Tensor:
-    """One T2 or T3 launch: ``[..., *shape]`` draws of ``dtype`` for a
+    """One T2, T3 or T4 launch: ``[..., *shape]`` draws of ``dtype`` for a
     CUDA key (contiguous, at most 65 535 keys)."""
     shape = tuple(shape)
     rows = _rows(key)
@@ -82,6 +102,15 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     if key.device.type == "cpu":
         return prng.uniform_plain(key, shape)
     return _draw(key, shape, torch.float32, "threefry_uniform")
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: int64 key ``[..., 2]``
+    -> f32 ``[..., *shape]``. CPU keys take ``prng.normal_plain``; a CUDA
+    key (contiguous, at most 65 535 keys) launches T4 once."""
+    if key.device.type == "cpu":
+        return prng.normal_plain(key, shape)
+    return _draw(key, shape, torch.float32, "threefry_normal")
 
 
 def bits(key: torch.Tensor, shape) -> torch.Tensor:

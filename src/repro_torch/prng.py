@@ -17,11 +17,13 @@ counter pair ``(j >> 32, j & 0xffffffff)`` of its row-major flat index —
 bits depend on (key, index) alone. ``split(key, n)`` keeps both hash
 words as the new key; ``random_bits`` XORs them.
 
-``split``, ``uniform`` and ``random_bits`` hand CUDA keys to their
-kernels (T1, T2 and T3, ``kernels/threefry.py``: one launch a call) and
-CPU keys to ``split_plain``, ``uniform_plain`` and ``random_bits_plain``,
-the int64 tensor versions here. ``fold_in``, ``permutation`` and
-``choice`` are built from those, as ``jax.random`` builds them (jax 0.9).
+``split``, ``fold_in``, ``uniform``, ``random_bits`` and ``normal`` hand
+CUDA keys to their kernels (T1 for the first two, T2, T3 and T4,
+``kernels/threefry.py``: one launch a call) and CPU keys to
+``split_plain``, ``fold_in_plain``, ``uniform_plain``,
+``random_bits_plain`` and ``normal_plain``, the tensor versions here.
+``permutation`` and ``choice`` are built from those, as ``jax.random``
+builds them (jax 0.9).
 """
 from __future__ import annotations
 
@@ -30,14 +32,27 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "split", "split_plain", "fold_in", "threefry2x32",
+__all__ = ["PRNGKey", "split", "split_plain", "fold_in", "fold_in_plain",
+           "threefry2x32",
            "random_bits", "random_bits_plain", "uniform", "uniform_plain",
-           "uniform_at", "permutation", "choice"]
+           "uniform_at", "normal", "normal_plain", "permutation",
+           "choice"]
 
 MASK32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 _ONE_F32_BITS = 0x3F800000
+# normal: the uniform's lower end, nextafter(-1, 0) in f32, and the f32
+# coefficients of chlo.erf_inv's polynomial (Giles), highest power first:
+# for w = -log1p(-u * u) < 5 in w - 2.5, else in sqrt(w) - 3.
+_NORMAL_LO = float(np.nextafter(np.float32(-1), np.float32(0)))
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+_SQRT2_F32 = float(np.float32(np.sqrt(2)))
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
@@ -95,10 +110,21 @@ def split_plain(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for ``0 <= data < 2^32``: in the
     partitionable mode it hashes the counter ``(0, data)`` under the key
-    and keeps both words, which is ``split(key, data + 1)[data]``."""
+    and keeps both words, which is ``split(key, data + 1)[data]``. On the
+    card one T1 launch for that counter; on the CPU
+    :func:`fold_in_plain`."""
     if not 0 <= data <= MASK32:
         raise ValueError(f"data {data} is not a uint32")
-    return split(key, data + 1)[..., data, :]
+    from .kernels import threefry
+    return threefry.fold_in(key.contiguous(), data)
+
+
+def fold_in_plain(key: torch.Tensor, data: int) -> torch.Tensor:
+    """:func:`fold_in` as int64 tensor operations."""
+    k1, k2 = key[..., 0], key[..., 1]
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(k1),
+                          torch.full_like(k1, data))
+    return torch.stack([b1, b2], dim=-1)
 
 
 def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
@@ -149,6 +175,38 @@ def uniform_at(k1: torch.Tensor, k2: torch.Tensor,
     one pass with a different key and flat index at every position."""
     b1, b2 = threefry2x32(k1, k2, index >> 32, index & MASK32)
     return _bits_to_unit_float(b1 ^ b2)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: key ``[..., 2]`` -> f32
+    ``[..., *shape]``. On the card one T4 launch; on the CPU
+    :func:`normal_plain`."""
+    from .kernels import threefry
+    return threefry.normal(key.contiguous(), shape)
+
+
+def normal_plain(key: torch.Tensor, shape) -> torch.Tensor:
+    """:func:`normal` as tensor operations (T4's plain version), as jax
+    0.9's ``_normal_real`` computes it: ``u = uniform(key, shape, lo, 1)``
+    with ``lo = nextafter(-1, 0)`` (``max(lo, f * 2 + lo)``: the range
+    ``1 - lo`` rounds to 2 in f32, so the product is exact and no FMA can
+    change it), then ``chlo.erf_inv``'s f32 polynomial over ``w =
+    -log1p(-u * u)``, one rounding a multiply or add, times
+    ``sqrt(2)``. ``u`` never reaches -1 or 1, where erf_inv is infinite.
+    The uniform is bitwise with JAX's; erf_inv is not, since XLA's
+    ``log1p`` and its fused multiply-adds round otherwise than torch's
+    (a few ulp, held in ``tests/test_torch_event_clock.py``)."""
+    f = _bits_to_unit_float(random_bits_plain(key, shape))
+    lo = torch.full_like(f, _NORMAL_LO)
+    u = torch.maximum(lo, f * 2.0 + lo)
+    w = -torch.log1p(u * -u)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    p = None
+    for a, b in zip(_ERFINV_W_LT_5, _ERFINV_W_GE_5):
+        c = torch.where(small, a, b)
+        p = c if p is None else c + p * w
+    return (p * u) * _SQRT2_F32
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

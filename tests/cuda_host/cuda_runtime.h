@@ -18,6 +18,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __grid_constant__
+#define __constant__
 
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -40,6 +41,7 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, unsigned s) {
   const uint64_t v = (static_cast<uint64_t>(hi) << 32) | lo;
   return static_cast<uint32_t>((v << (s & 31)) >> 32);

@@ -2,12 +2,13 @@
 smoke size on the CPU: it prints the reference benches' CSV header and
 row names (``benchmarks/bench_fig6_compare.py``,
 ``benchmarks/bench_quant_epochs.py``, ``bench_cnn.py``,
-``bench_charlm.py``, ``bench_topology.py`` and the in-process rows of
-``bench_timevarying.py``), every arm trains to a finite accuracy or
-loss, the Fig. 6 rows bill exactly the bits of the reference's
-``comm_cost`` at the same m, rounds and d, the topology bench's lambda
-rows are the reference's and the time-varying rows bill the reference's
-schedule bits. A failing bench makes the runner exit non-zero.
+``bench_charlm.py``, ``bench_topology.py``, the in-process rows of
+``bench_timevarying.py`` and ``bench_async.py``), every arm trains to a
+finite accuracy or loss, the Fig. 6 rows bill exactly the bits of the
+reference's ``comm_cost`` at the same m, rounds and d, the topology
+bench's lambda rows are the reference's, the time-varying rows bill the
+reference's schedule bits and the async row has the reference's fields.
+A failing bench makes the runner exit non-zero.
 
 Contract: names, lambda rows and MB and bit strings equal; accuracies
 finite in [0, 1], losses finite and positive.
@@ -20,8 +21,9 @@ torch = pytest.importorskip("torch")
 
 from repro.core import MixingSpec as JMixingSpec  # noqa: E402
 from repro.core import comm_cost as jcc  # noqa: E402
-from repro_torch.bench import (charlm, cnn, fig6_compare,  # noqa: E402
-                               quant_epochs, timevarying, topology)
+from repro_torch.bench import (async_compare, charlm, cnn,  # noqa: E402
+                               fig6_compare, quant_epochs, timevarying,
+                               topology)
 from repro_torch.bench import run as bench_run  # noqa: E402
 from repro_torch.bench.common import timed, timeit_best  # noqa: E402
 
@@ -44,6 +46,7 @@ def reference_rows():
     names += [f"timevarying_{s}" for s in (
         "static_ring", "constant_sched", "er_edge_sample", "ring_partial",
         "ring_random_walk")]
+    names.append("async_vs_sync_straggler")
     return names
 
 
@@ -97,7 +100,9 @@ def test_topology_lambda_rows_equal_the_reference():
     assert topology.lambda_rows() == reference_topology_lambda_rows()
 
 
-def test_smoke_run_gives_the_reference_rows_and_bits(capsys):
+def test_smoke_run_gives_the_reference_rows_and_bits(capsys, monkeypatch,
+                                                     tmp_path):
+    monkeypatch.setattr(async_compare, "OUT_JSON", tmp_path / "a.json")
     assert bench_run.main(["--smoke", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "name,us_per_call,derived"
@@ -109,6 +114,11 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys):
     for name, us, derived in rows:
         if name in lam:       # numpy rows: no time, as in the reference
             assert float(us) == 0.0 and derived == lam[name], name
+            continue
+        if name == "async_vs_sync_straggler":   # virtual time to target
+            assert set(dict(f.split("=") for f in derived.split("|"))) == {
+                "target_loss", "sync_t", "async_t", "speedup", "beats_sync",
+                "us_per_event"}, derived
             continue
         assert math.isfinite(float(us)) and float(us) > 0, name
         fields = dict(f.split("=") for f in derived.replace(
@@ -161,6 +171,33 @@ def test_paper_model_benches_report_losses(bench):
         assert math.isfinite(r["first_loss"]) and math.isfinite(r["loss"])
         assert math.isfinite(r["consensus_dist"]), name
         assert r["captured"] is False and r["graph"] is None, name
+
+
+def test_async_compare_smoke_row_and_json(monkeypatch, tmp_path):
+    """``bench.async_compare`` at the reference's smoke size (3 rounds,
+    batch 8) on the CPU: the row parses as the reference's, the curves
+    have a point a round, losses are finite, the async arm's virtual
+    clock runs ahead of the sync arm's rounds, and the JSON is written
+    where ``OUT_JSON`` points."""
+    import json
+
+    out = tmp_path / "BENCH_async_torch.json"
+    monkeypatch.setattr(async_compare, "OUT_JSON", out)
+    [(name, us, derived)] = async_compare.run(smoke=True, device="cpu")
+    assert name == "async_vs_sync_straggler" and us >= 0.0
+    fields = dict(f.split("=") for f in derived.split("|"))
+    assert float(fields["target_loss"]) > 0
+    assert float(fields["us_per_event"]) > 0
+    res = json.loads(out.read_text())
+    assert res["device"] == "cpu" and res["captured"] is False
+    assert res["rounds"] == 3 and res["m"] == 8 and res["K"] == 2
+    for arm in ("sync_curve", "async_curve"):
+        assert len(res[arm]) == 3
+        assert all(math.isfinite(t) and math.isfinite(v) and v > 0
+                   for t, v in res[arm]), arm
+    # A sync round waits for the straggler (~10); an m-event async chunk
+    # advances the clock by the fast clients' durations (~1).
+    assert res["async_curve"][-1][0] < res["sync_curve"][-1][0]
 
 
 def test_charlm_batches_are_the_reference_windows():

@@ -1,4 +1,4 @@
-"""The CUDA sources of B1-B8 and T1-T3, compiled for the host and run on
+"""The CUDA sources of B1-B8 and T1-T4, compiled for the host and run on
 the CPU against their plain PyTorch versions.
 
 ``tests/cuda_host/cuda_runtime.h`` stands in for the CUDA runtime and the
@@ -9,14 +9,20 @@ keyed noise's leaf lookup, counters and threefry rounds, B2's and B5's
 four columns a thread and their stream gather, keyed B6's counter over
 the whole padded buffer and its key by value or by pointer, B7's streams
 fixed at compile time or in groups, B8's three stream pointers, and the
-flat [n] x of B7 and B8 with its ragged tail and scalar path, T1's
-pair per thread and T2's and T3's grid of (blocks of a row, rows) — called
+flat [n] x of B7 and B8 with its ragged tail and scalar path, B3's lane
+entry (a device eta [m], client c's values stepping with eta[c]), T1's
+pair per thread (and its fold_in of one counter) and T2's, T3's and T4's
+grid of (blocks of a row, rows) — called
 through
 their C entry points exactly as the wrappers call them. What it cannot show
 (the device compiler, timing, memory coalescing) is left to
 ``chip_smoke.py`` on the card.
 
-Contracts: words bitwise; float outputs bitwise.
+Contracts: words bitwise; float outputs bitwise, but T4's against
+``prng.normal_plain`` within T4_HOST_ULP where the host's ``log1pf``
+(glibc) and torch's CPU ``log1p`` round apart (3 ulp at most, on 0.7 %
+of the draws; on the card both are the CUDA math library's, and
+``chip_smoke.py`` holds T4 bitwise there).
 """
 import ctypes
 import re
@@ -35,7 +41,8 @@ from repro_torch.core.mixing import _quant_leaf_keys  # noqa: E402
 from repro_torch.kernels import native, ref  # noqa: E402
 from repro_torch.kernels.dequant_mix import (  # noqa: E402
     dequant_mix_buffer_plain, dequant_mix_momentum_buffer_plain)
-from repro_torch.kernels.momentum_sgd import out_offsets  # noqa: E402
+from repro_torch.kernels.momentum_sgd import (  # noqa: E402
+    momentum_sgd_lanes_ref, out_offsets)
 
 torch.set_num_threads(1)
 
@@ -49,6 +56,8 @@ RAGGED = {"a": (33,), "kernel": (4, 9), "bias": (), "z": (3, 7, 5),
 MANY = {f"l{i:02d}": (i % 5 + 1,) if i % 3 else (i + 1, 2)
         for i in range(66)}
 B3_ARGS = [P] * 2 + [ctypes.c_int, ctypes.c_float, ctypes.c_float, P, P]
+B3_LANE_ARGS = [P] * 2 + [ctypes.c_int, P, ctypes.c_int64, ctypes.c_float,
+                          P, P]
 F32 = ctypes.c_float
 TABLE_ARGS = [P] * 3 + [ctypes.c_int] + [P] * 2
 PLAN_ARGS = [P] * 5 + [ctypes.c_int64] + [ctypes.c_int] * 3 + [P]
@@ -58,6 +67,8 @@ RING_ARGS = ([P] * 5 + [F32] * 2 + [P, ctypes.c_int64] + [ctypes.c_int] * 2
 # and one client's 2NN vector.
 FLAT_N = [1, 970, 3000, 199210]
 ETA, THETA = 0.05, 0.9
+cudaErrorInvalidValue = 1     # as tests/cuda_host/cuda_runtime.h has it
+T4_HOST_ULP = 3
 
 
 @pytest.fixture(scope="module")
@@ -129,6 +140,72 @@ def test_b3_one_launch_over_ragged_and_misaligned_leaves(host_lib):
                                         for a in (ys, vs, gs)), 0.05, 0.9)
         assert np.array_equal(out[0, offs[i]:offs[i] + n], wy.numpy()), i
         assert np.array_equal(out[1, offs[i]:offs[i] + n], wv.numpy()), i
+
+
+def b3_lane_step(fn, ys, vs, gs, y_out, v_out, sizes, eta, m):
+    """One call of B3's lane entry over host arrays: (rc, launches)."""
+    ptrs = np.array([[ptr(a) for a in row]
+                     for row in zip(ys, vs, gs, y_out, v_out)], np.uint64)
+    n = np.array(sizes, np.int64)
+    launches = ctypes.c_int(-1)
+    rc = fn(ptr(ptrs), ptr(n), len(sizes), None if eta is None
+            else ptr(eta), m, 0.9, None, ctypes.byref(launches))
+    return rc, launches.value
+
+
+@pytest.mark.parametrize("m", [1, 3, 16])
+def test_b3_lanes_one_launch_over_ragged_and_misaligned_leaves(host_lib, m):
+    """B3's lane entry: leaves [m, per] of ragged sizes — clients smaller
+    than a float4 and than a block (per 1, 3, 10), a leaf over several
+    blocks, a misaligned one (the scalar path) — in one launch, each
+    client's values with its own eta, bitwise against the plain lane
+    update; and with every eta equal, bitwise with the scalar entry."""
+    fn = entry(host_lib("momentum_sgd"), "momentum_sgd_lanes", B3_LANE_ARGS)
+    scalar = entry(host_lib("momentum_sgd"), "momentum_sgd", B3_ARGS)
+    rng = np.random.default_rng(m)
+    per = [0, 1, 3, 10, 1031, 4097, 7]
+    sizes = [m * p for p in per]
+    ys, vs, gs = ([rng.normal(size=n).astype(np.float32) for n in sizes]
+                  for _ in range(3))
+    spare = rng.normal(size=sizes[-1] + 1).astype(np.float32)
+    ys[-1] = spare[1:]                     # 4 bytes past 16: scalar path
+    eta = (0.05 / (1.0 + 0.5 * rng.integers(0, 4, size=m))).astype(
+        np.float32)
+    offs, total, _ = out_offsets(tuple(sizes))
+    out = np.full((2, total), np.nan, np.float32)
+    y_out = [out[0, o:] for o in offs]
+    v_out = [out[1, o:] for o in offs]
+    assert b3_lane_step(fn, ys, vs, gs, y_out, v_out, sizes, eta, m) == (
+        0, 1)
+    for i, (n, p) in enumerate(zip(sizes, per)):
+        wy, wv = momentum_sgd_lanes_ref(
+            *(torch.from_numpy(np.array(a[i]).reshape(m, p))
+              for a in (ys, vs, gs)), torch.from_numpy(eta), 0.9)
+        assert np.array_equal(out[0, offs[i]:offs[i] + n],
+                              wy.reshape(-1).numpy()), i
+        assert np.array_equal(out[1, offs[i]:offs[i] + n],
+                              wv.reshape(-1).numpy()), i
+    same = np.full(m, np.float32(0.05))
+    lane = np.full((2, total), np.nan, np.float32)
+    assert b3_lane_step(fn, ys, vs, gs, [lane[0, o:] for o in offs],
+                        [lane[1, o:] for o in offs], sizes, same, m)[0] == 0
+    assert b3_step(scalar, ys, vs, gs, y_out, v_out, sizes) == (0, 1)
+    for i, (o, n) in enumerate(zip(offs, sizes)):
+        assert np.array_equal(lane[:, o:o + n], out[:, o:o + n]), i
+
+
+def test_b3_lanes_refuses_a_bad_m(host_lib):
+    """The lane entry refuses m < 1, a null eta and a leaf whose size m
+    does not divide; it launches nothing then."""
+    fn = entry(host_lib("momentum_sgd"), "momentum_sgd_lanes", B3_LANE_ARGS)
+    ys, vs, gs = ([np.ones(12, np.float32)] for _ in range(3))
+    eta = np.full(4, np.float32(0.05))
+    out = [np.zeros(12, np.float32)]
+    assert b3_lane_step(fn, ys, vs, gs, out, out, [12], eta, 4) == (0, 1)
+    for sizes, m, e in (([12], 5, eta), ([12], 0, eta), ([12], -4, eta),
+                        ([12], 4, None), ([-4], 4, eta)):
+        assert b3_lane_step(fn, ys, vs, gs, out, out, sizes, e, m) == (
+            cudaErrorInvalidValue, 0)
 
 
 @pytest.mark.parametrize("sizes", [(0, 1, 3, 4097), (4097, 0, 3, 1),
@@ -570,6 +647,45 @@ def test_t3_bits_entry(host_lib, rows, n):
     out = np.full((rows, n), -1, np.int64)
     assert fn(ptr(keys), rows, n, ptr(out), None) == 0
     assert np.array_equal(out, prng.random_bits_plain(keys, (n,)).numpy())
+    for bad_rows, bad_n in ((0, n), (rows, 0), (-1, n), (rows, -5),
+                            (65536, n), (1, 256 * 2 ** 31)):
+        assert fn(ptr(keys), bad_rows, bad_n, ptr(out), None) != 0
+
+
+@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("data", [0, 1, 7, 0x61737963, 2 ** 32 - 1])
+def test_t1_fold_in_entry(host_lib, rows, data):
+    """T1's fold_in entry (one counter a key) bitwise against
+    ``prng.fold_in_plain``, which is ``split(key, data + 1)[data]``; a
+    data outside [0, 2^32) or no rows are refused."""
+    fn = entry(host_lib("threefry"), "threefry_fold_in", SPLIT_ARGS)
+    keys = random_keys(rows, rows + data % 1000)
+    out = np.full((rows, 2), -1, np.int64)
+    assert fn(ptr(keys), rows, data, ptr(out), None) == 0
+    assert np.array_equal(out, prng.fold_in_plain(keys, data).numpy())
+    if data < 1000:
+        assert np.array_equal(out, prng.split_plain(keys, data + 1)[
+            :, data].numpy())
+    for bad_rows, bad_data in ((0, data), (rows, -1), (rows, 2 ** 32)):
+        assert fn(ptr(keys), bad_rows, bad_data, ptr(out), None) != 0
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (1, 16), (16, 16), (4, 257),
+                                    (3, 7005), (65535, 3)])
+def test_t4_normal_entry(host_lib, rows, n):
+    """T4 (T2's draw, then erf_inv's polynomial, times sqrt(2)), one
+    thread a draw, against ``prng.normal_plain``: bitwise but where the
+    host's log1pf rounds apart from torch's (T4_HOST_ULP); the same
+    refusals as T2."""
+    fn = entry(host_lib("threefry"), "threefry_normal", SPLIT_ARGS)
+    keys = random_keys(rows, 11 * rows + n)
+    out = np.full((rows, n), np.nan, np.float32)
+    assert fn(ptr(keys), rows, n, ptr(out), None) == 0
+    want = prng.normal_plain(keys, (n,)).numpy()
+    a = out.view(np.int32).astype(np.int64)
+    b = want.view(np.int32).astype(np.int64)
+    assert np.abs(np.where(a < 0, -(a & 0x7FFFFFFF), a)
+                  - np.where(b < 0, -(b & 0x7FFFFFFF), b)).max() <= T4_HOST_ULP
     for bad_rows, bad_n in ((0, n), (rows, 0), (-1, n), (rows, -5),
                             (65536, n), (1, 256 * 2 ** 31)):
         assert fn(ptr(keys), bad_rows, bad_n, ptr(out), None) != 0

@@ -31,7 +31,8 @@ from repro.data import classification_dataset as j_dataset  # noqa: E402
 from repro.kernels.ops import make_fused_momentum_update  # noqa: E402
 from repro.models import paper_nets as jnets  # noqa: E402
 from repro_torch import convert, prng  # noqa: E402
-from repro_torch.core import (DFedAvgMConfig, MixingSpec, QuantConfig,  # noqa: E402,E501
+from repro_torch.core import (AsyncConfig, DFedAvgMConfig,  # noqa: E402
+                              MixingSpec, QuantConfig,
                               TopologySchedule, average_params,
                               init_round_state, make_round_step,
                               ring_graph, round_comm_bits)
@@ -136,9 +137,11 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="A16"):
         make_round_step(t_loss, DFedAvgMConfig(), spec, device="cpu",
                         with_telemetry=True)
-    with pytest.raises(NotImplementedError, match="A14"):
+    # The async engine runs now (test_torch_async.py); with a placement
+    # it is refused, as in the reference.
+    with pytest.raises(ValueError, match="placement"):
         make_round_step(t_loss, DFedAvgMConfig(), spec, device="cpu",
-                        async_cfg=object())
+                        async_cfg=AsyncConfig(), placement=object())
     # Neither a MixingSpec nor a schedule: refused, as in the reference.
     with pytest.raises(TypeError, match="MixingSpec or a TopologySchedule"):
         make_round_step(t_loss, DFedAvgMConfig(), object(), device="cpu")
