@@ -98,8 +98,28 @@ Phases (any failure exits non-zero):
    event's kernel nodes, no host copy, no int64 threefry node) and the
    captured engine (``make_async_engine(capture=True)``) bitwise with
    the event loop; a constant speed model bitwise with the synchronous
-   round (eta decay off and on); ``bench.async_compare`` at full size,
-   captured equal to eager;
+   round (eta decay off and on); ``ready_capacity=1`` bitwise with full
+   width, with the probe of where a lone lane's training would part
+   (``capacity_probe``); ``bench.async_compare`` at full size, captured
+   equal to eager;
+10d. "pool": the virtual client pool at the README's headline (m
+   100 000 logical clients, a cohort of 64 on the structural ring's
+   exact cohorts, the 2NN, 8-bit stochastic lemma5 on the plan
+   realization, data drawn by ``prng.randint`` from the client and the
+   round): 12 eager rounds through ``PooledRunner.round`` with exact
+   launch counts (``pool_step_launches`` + ``pool_prepare_launches``)
+   against 12 captured ones (the step one CUDA graph, captured once at
+   the cohort width, prefetch through pinned buffers on a side stream),
+   bitwise (the whole store, slots, versions, losses); the step's graph
+   holds B1, B2, B3 x 4 and T1 and no host copy; a save at round 6 and a
+   restore in a new runner bitwise with the uninterrupted run; the
+   round's time by part and the share of the prefetch hidden; 3 rounds
+   against the CPU (fp32 and 8-bit); the structural walk (k 2) the same
+   way; ``PooledAsyncRunner`` at m 100 000 (capacity 12, dense 8-bit)
+   eager against captured; the parity arm (the quickstart's exact k 10:
+   pooled against the resident skip path, plan realization and dense,
+   fp32 and 8-bit) and the async pool against the resident engine;
+   ``bench.pool`` at full size;
 11. captured against eager round time by the host clock, in turns in
    this process, with a profile of 5 replays, a replay's device time and
    the cost of the no-alias clones;
@@ -210,13 +230,13 @@ KERNEL_SOURCES = {
 }
 # Further times a row carries where its kernel has them, all measured.
 EXTRA_KEYS = ("clean_ms", "host_ms", "plain_call_ms", "plain_host_ms",
-              "smollm",
+              "smollm", "quickstart", "fold_in_each",
               "library_call_ms", "library_host_ms", "library_clean_ms",
               "tensor_noise_ms", "tensor_noise_call_ms",
               "tensor_noise_host_ms", "tensor_noise_clean_ms")
 # The path whose launch counts each kernel's row reports.
-KERNEL_PATH = {"quantize_pack_buffer": "unfused",
-               "dequant_mix_buffer": "unfused", "momentum_sgd": "unfused",
+KERNEL_PATH = {"quantize_pack_buffer": "pool",
+               "dequant_mix_buffer": "pool", "momentum_sgd": "pool",
                "momentum_quantize_pack_buffer": "fused",
                "dequant_mix_momentum_buffer": "fused", "quantize_pack": "ops",
                "dequant_mix_plan": "ops", "dequant_mix": "ops",
@@ -252,6 +272,34 @@ LOSS_MARGIN = 0.2
 # client in 16 ten times slower), full width, each arm 12 events.
 ASYNC_SPEED = dict(mean=1.0, sigma=0.5, frac=1 / M, factor=10.0)
 ASYNC_ARMS = ("straggler", "decay", "capacity", "edge_sample")
+# The "pool" phase: the README's virtual-pool headline (``--pool
+# --clients 100000 --schedule partial --resident-lanes 64``) on the 2NN.
+POOL_M, POOL_K = 100_000, 64
+POOL_DATA_N = 8000           # MNIST-like vectors held on the card
+POOL_RESUME_AT = 6           # the round the resume arm saves at
+# Simultaneous ready clients the async pool's capacity covers: a cohort
+# is the ready clients and their two ring neighbours, 3 lanes each.
+POOL_ASYNC_READY = 4
+POOL_PARITY_P = 0.625        # exact k 10 of 16, PR 19's "exact k 10"
+# The async pool (dense, [capacity, capacity]) against the resident
+# engine's dense [16, 16] mix after 12 events: 8 ulp in every call so far
+# (cuBLAS sums the two shapes apart; the training is bitwise).
+POOL_ASYNC_DENSE_ULP = 8
+# The parity arm's dense pooled store against the resident skip path,
+# each leaf's largest difference over its largest value, by wire: 2.4e-7
+# (fp32) and 0.0267 (q8, roundings flipped downstream) in every card run
+# so far; a dropped or misrouted mix leaves a leaf by about its scale.
+# And one dense mix of the same z at [k, k] against [M, M], any leaf: 374
+# ulp (w3; w1 and w2 bitwise).
+POOL_DENSE_REL = {"fp32": 1e-6, "q8": 0.1}
+POOL_DENSE_MIX_ULP = 1536
+# The sync arm's CPU_ROUNDS on the card against the CPU: the share of the
+# store's elements more than 1e-5 apart (0.13 % fp32, 0.053 % q8 read on
+# the card; a dropped mix moves most of them) and the population's
+# consensus distance, relative (3.1e-7 and 4.6e-7 read; a dropped mix
+# moves it by orders of magnitude more).
+POOL_CPU_SHARE = 0.005
+POOL_CPU_CONSENSUS = 2e-6
 
 
 def card_line() -> str:
@@ -2004,6 +2052,28 @@ def replay_ms(graph, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def captured_round_ms(dev) -> dict:
+    """The captured quickstart round, unfused and fused: its host-clock
+    ms (median of rounds 2..ROUNDS, batches on the device), one replay's
+    device ms and the graph's nodes. Public names only, so
+    ``chip_turns.py`` can time another tree's round with it."""
+    from repro_torch import prng
+    from repro_torch.core import capture_step, init_round_state
+
+    out = {}
+    for fuse_round in (False, True):
+        _, fed, stacked, _, _, _, step = quickstart_setup(dev, fuse_round)
+        batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
+                   for t in range(ROUNDS)]
+        s0 = init_round_state(stacked, prng.PRNGKey(1))
+        run = capture_step(step, s0, batches[0])
+        out["fused" if fuse_round else "unfused"] = {
+            "round_ms": median_round_ms(run, s0, batches),
+            "replay_device_ms": replay_ms(run.graph),
+            "graph_nodes": len(graph_nodes(run.graph))}
+    return out
+
+
 def round_times(dev, passes: int = 2) -> dict:
     """Round time by the host clock to a synchronize (median of rounds
     2..ROUNDS), eager against captured, unfused and fused, all in turns
@@ -2949,6 +3019,66 @@ def async_bench_path(dev) -> dict:
     return rep
 
 
+def capacity_probe(dev) -> dict:
+    """Where one gathered lane's local training parts from the same lane
+    trained at full width (``ready_capacity=1`` against all M lanes): the
+    quickstart's K heavy-ball steps on the first round's batches at width
+    M and at width 1 (lane 3 alone) through ``loss_and_grad`` (which runs
+    a lone lane as two), each step's gradient and parameters compared
+    leaf by leaf (flatten order); the first (step, leaf) where they part,
+    or None, and each one's largest ulp."""
+    from repro_torch import prng
+    from repro_torch.core.local_sgd import heavy_ball_update, loss_and_grad
+
+    _, fed, stacked, _, _, loss_fn, _ = quickstart_setup(dev)
+    b = fed.round_batches(0, K=K, batch=BATCH, device=dev)
+    keys = prng.split(prng.PRNGKey(1, device=dev), M)
+    one = slice(3, 4)
+
+    def trajectory(sl):
+        y = {n: t[sl].contiguous() for n, t in stacked.items()}
+        v = {n: torch.zeros_like(t) for n, t in y.items()}
+        step_keys = prng.split(keys[sl].contiguous(), K)
+        out = []
+        for k in range(K):
+            _, g = loss_and_grad(loss_fn, y, {n: t[sl, k] for n, t in
+                                              b.items()}, step_keys[:, k])
+            y, v = heavy_ball_update(y, v, g, ETA, THETA)
+            out.append((g, y))
+        return out
+
+    full, single = trajectory(slice(None)), trajectory(one)
+    first, worst = None, {}
+    for k, ((gf, yf), (g1, y1)) in enumerate(zip(full, single)):
+        for n in sorted(gf):
+            for what, a, c in (("grad", gf[n][one], g1[n]),
+                               ("params", yf[n][one], y1[n])):
+                u = ulp_diff(a, c)
+                worst[f"{what} {n}"] = max(worst.get(f"{what} {n}", 0), u)
+                if u and first is None:
+                    first = {"step": k, "leaf": n, "what": what, "ulp": u}
+    return {"lane": 3, "first_difference": first, "max_ulp": worst}
+
+
+def async_capacity_vs_full(dev, arms: dict) -> dict:
+    """One gathered lane an event (the "capacity" arm) against the
+    full-width "straggler" arm after ROUNDS events, and
+    :func:`capacity_probe`: bitwise (``loss_and_grad`` runs a lone lane
+    as two, so cuBLAS never sees a batch of one)."""
+    full, one = arms["straggler"]["state"], arms["capacity"]["state"]
+    rep = {"max_ulp": max(ulp_diff(full.params[n], one.params[n])
+                          for n in full.params),
+           "versions_equal": torch.equal(full.version, one.version),
+           "probe": capacity_probe(dev)}
+    print(json.dumps({"check": "async capacity 1 vs full width", **rep}),
+          flush=True)
+    if rep["max_ulp"] or not rep["versions_equal"] or rep["probe"][
+            "first_difference"]:
+        raise AssertionError(f"async capacity: ready_capacity=1 is not "
+                             f"bitwise with full width: {rep}")
+    return rep
+
+
 def async_phase(dev, flush, rec) -> tuple[dict, dict]:
     """Phase "async": T4 and B3's lane entry against their plain versions
     (:func:`async_kernel_checks`), the four ASYNC_ARMS at full width
@@ -2962,20 +3092,767 @@ def async_phase(dev, flush, rec) -> tuple[dict, dict]:
                for t in range(ROUNDS)]
     setup = (stacked, batches, loss_fn)
     out = {kind: async_rounds(dev, kind, setup) for kind in ASYNC_ARMS}
-    # One gathered lane an event against the full-width straggler arm
-    # (bitwise on the CPU; cuBLAS may pick another algorithm for one lane).
-    full, one = out["straggler"]["state"], out["capacity"]["state"]
-    out["capacity_vs_full"] = {
-        "max_ulp": max(ulp_diff(full.params[n], one.params[n])
-                       for n in full.params),
-        "versions_equal": torch.equal(full.version, one.version)}
-    print(json.dumps({"check": "async capacity 1 vs full width",
-                      **out["capacity_vs_full"]}), flush=True)
+    out["capacity_vs_full"] = async_capacity_vs_full(dev, out)
     out["constant_vs_sync"] = async_constant_vs_sync(dev, setup)
     out["bench"] = async_bench_path(dev)
     launches = {k: sum(out[a]["launches"][k] for a in ASYNC_ARMS)
                 for k in KERNEL_SOURCES}
     return out, launches
+
+
+def pool_setup(dev):
+    """The pool arms' problem: the 2NN template (``init_2nn(0)``), the
+    MNIST-like set (POOL_DATA_N vectors of 784) held on the device, the
+    loss, the quickstart's config (K 4, batch 32, eta 0.05, theta 0.9,
+    8-bit stochastic lemma5) and ``batch_fn(ids, c)``: client i's K x
+    BATCH rows drawn by ``prng.randint`` from ``fold_in(fold_in(key, i),
+    c)``, ``c`` the round (a host int) or each lane's version (a tensor)."""
+    from repro_torch import prng
+    from repro_torch.core import DFedAvgMConfig, QuantConfig
+    from repro_torch.data import classification_dataset
+    from repro_torch.models.paper_nets import (apply_2nn, init_2nn,
+                                               softmax_xent)
+
+    data = classification_dataset(n=POOL_DATA_N, d=784, seed=0)
+    xs = torch.from_numpy(data.x).to(dev)
+    ys = torch.from_numpy(data.y).to(dev)
+    key = prng.PRNGKey(0, device=dev)
+
+    def batch_fn(ids, c):
+        keys = prng.fold_in(key, ids)
+        keys = prng.fold_in(keys, c.to(torch.int64) if isinstance(
+            c, torch.Tensor) else c)
+        rows = prng.randint(keys, (K, BATCH), 0, xs.shape[0]).long()
+        return {"x": xs[rows], "y": ys[rows]}
+
+    def loss_fn(p, b, rng):
+        return softmax_xent(apply_2nn(p, b["x"]), b["y"])
+
+    cfg = DFedAvgMConfig(eta=ETA, theta=THETA, local_steps=K,
+                         quant=QuantConfig(bits=8))
+    return init_2nn(0, device="cpu"), loss_fn, cfg, batch_fn
+
+
+def pool_step_launches(quantized: bool = True, backend: str = "sparse",
+                       n_leaves: int = 6) -> dict:
+    """Kernel launches of one pooled step (the part a CUDA graph
+    captures): B3 a local step and T1 once (the client keys' step keys);
+    on a quantized wire B1 and B2 at cohort width (the plan realization),
+    or T2 a leaf (the dense mix's noise)."""
+    per = dict.fromkeys(KERNEL_SOURCES, 0)
+    per.update(momentum_sgd=K, threefry_split=1)
+    if quantized and backend == "sparse":
+        per.update(quantize_pack_buffer=1, dequant_mix_buffer=1)
+    elif quantized:
+        per["threefry_uniform"] = n_leaves
+    return per
+
+
+def pool_prepare_launches(psched, quantized: bool = True) -> dict:
+    """Kernel launches of preparing one pooled round: ``inputs`` (T1 for
+    ``split(rng, 3)`` and ``split(key_round, m)``, the schedule's
+    mixing-key split when it draws, the per-leaf quantizer keys at full
+    width on a stochastic wire; an exact cohort's ``permutation``, T1 +
+    T3 a sort round) and :func:`pool_setup`'s batches (T1 for each
+    fold_in and randint's split, T3 for randint's two 32-bit draws)."""
+    per = dict.fromkeys(KERNEL_SOURCES, 0)
+    per["threefry_split"] = 2 + psched.is_stochastic + quantized + 3
+    per["threefry_bits"] = 2
+    if psched.kind == "partial":
+        rounds = permutation_rounds(psched.m)
+        per["threefry_split"] += rounds
+        per["threefry_bits"] += rounds
+    return per
+
+
+def pools_equal(a, b) -> bool:
+    """Two ClientPools hold the same clients in the same slots, with the
+    same versions and the same bits in every materialized row."""
+    n = a.materialized
+    return (n == b.materialized and np.array_equal(a.versions, b.versions)
+            and np.array_equal(a._slot, b._slot)
+            and all(np.array_equal(x[:n + 1].view(np.uint8),
+                                   y[:n + 1].view(np.uint8))
+                    for x, y in zip(a._slabs, b._slabs)))
+
+
+def pool_run(dev, setup, psched, rounds: int, *, capture: bool,
+             backend: str = "sparse", prefetch: bool = True, key: int = 1,
+             runner=None):
+    """``rounds`` rounds of a PooledRunner (a fresh pool unless ``runner``
+    is given): (runner, losses, host ms a round to its return)."""
+    from repro_torch import prng
+    from repro_torch.core import ClientPool, PooledRunner
+
+    template, loss_fn, cfg, batch_fn = setup
+    if runner is None:
+        runner = PooledRunner(ClientPool(template, psched.m), psched,
+                              loss_fn, cfg, batch_fn, key=prng.PRNGKey(key),
+                              backend=backend, device=dev, capture=capture,
+                              prefetch=prefetch)
+    losses, ms = [], []
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else lambda: None)
+    for _ in range(rounds):
+        sync()
+        t0 = time.perf_counter()
+        met = runner.round()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    return runner, losses, ms
+
+
+def pool_arm(dev, setup, psched, name: str, backend: str = "sparse"
+             ) -> dict:
+    """A pooled arm at full width: ROUNDS eager rounds (prefetch on) with
+    every launch counter read (against ROUNDS steps and ROUNDS + 1
+    prepares: the last round prefetches the next), ROUNDS captured rounds
+    from a fresh pool bitwise with them (the whole store, slots and
+    versions, and every round's loss), the step's graph holding exactly
+    its kernel nodes (:func:`pool_step_launches`), no copy from host
+    memory and no int64 threefry node; finite losses (each round trains
+    a cohort of mostly new clients from the template, so the loss stays
+    near its first round's)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    quantized = setup[2].quant is not None and setup[2].quant.enabled
+    step = pool_step_launches(quantized, backend)
+    prep = pool_prepare_launches(psched, quantized)
+    expect = {k: ROUNDS * step[k] + (ROUNDS + 1) * prep[k] for k in step}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    eager, e_loss, e_ms = pool_run(dev, setup, psched, ROUNDS,
+                                   capture=False, backend=backend)
+    eager.close()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    cap, c_loss, c_ms = pool_run(dev, setup, psched, ROUNDS, capture=True,
+                                 backend=backend)
+    wall = time.perf_counter() - t0
+    bitwise = pools_equal(eager.pool, cap.pool) and e_loss == c_loss
+    rep = {"path": name, "m": psched.m, "cohort": psched.cohort_size,
+           "backend": backend, "rounds": ROUNDS, "bitwise": bitwise,
+           "loss": c_loss, "launches": counts, "expected_launches": expect,
+           "round_ms_median": {"eager": statistics.median(e_ms[1:]),
+                               "captured": statistics.median(c_ms[1:])},
+           "round_ms": {"eager": e_ms, "captured": c_ms},
+           "captured_wall_s": wall,
+           "replay_device_ms": replay_ms(cap.graph),
+           "materialized": cap.pool.materialized,
+           "pool_mbytes": cap.pool.nbytes / 2 ** 20,
+           "bits_per_round": cap.bits_per_round,
+           **check_round_graph(f"{name} step", graph_nodes(cap.graph),
+                               step)}
+    print(json.dumps(rep), flush=True)
+    if counts != expect:
+        raise AssertionError(f"{name}: launches {counts} != {expect}")
+    if not bitwise:
+        raise AssertionError(f"{name}: captured rounds differ from eager")
+    if not all(math.isfinite(v) for v in c_loss):
+        raise AssertionError(f"{name}: loss {c_loss}")
+    rep["runner"] = cap
+    return rep
+
+
+class _Inline:
+    """An executor that runs a submitted call at once (the prefetch made
+    serial, for timing each part alone)."""
+
+    def submit(self, fn, *args):
+        from concurrent.futures import Future
+        f = Future()
+        f.set_result(fn(*args))
+        return f
+
+    def shutdown(self, wait: bool = True) -> None:
+        pass
+
+
+def pool_breakdown(dev, setup, psched, rounds: int = ROUNDS) -> dict:
+    """A captured pooled round's time by part, median of rounds 2..: the
+    cohort draw (``inputs`` and the read of the ids), the host gather
+    into the pinned buffer, the copy to the card, the batches, the step's
+    replay (with the graph's input copies), the copy back and the
+    write-back into the slabs, and the overlap patch — each alone, by the
+    host clock to a synchronize, with the prefetch run inline; the copies
+    also by CUDA events; the write-back's host scatter alone, and the
+    same scatter into rows the clients already hold. Then the same rounds
+    pipelined (the prefetch on its worker thread and side stream, under
+    the step and the write-back): the share of the prefetch hidden is
+    (serial round - pipelined round) / the prefetch's parts, unclamped (a
+    negative share: the pipeline costs more than it hides)."""
+    runner, _, _ = pool_run(dev, setup, psched, 0, capture=True)
+    runner.close()
+    runner._exec = _Inline()
+    parts = {p: [] for p in ("draw", "gather", "upload", "batches", "step",
+                             "writeback", "patch")}
+    events = {"upload": [], "copy_back": []}
+
+    def timed_part(part, fn):
+        def call(*args):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize(dev)
+            parts[part].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def evented(what, fn, stream):
+        def call(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record(stream())
+            out = fn(*args)
+            b.record(stream())
+            b.synchronize()
+            events[what].append(a.elapsed_time(b))
+            return out
+        return call
+
+    side = lambda: runner._side              # noqa: E731
+    compute = lambda: torch.cuda.current_stream(dev)  # noqa: E731
+    runner._draw = timed_part("draw", runner._draw)
+    runner._gather = timed_part("gather", runner._gather)
+    runner._upload = timed_part("upload", evented("upload", runner._upload,
+                                                  side))
+    runner.batch_fn = timed_part("batches", runner.batch_fn)
+    runner._step = timed_part("step", runner._step)
+    copy_back = evented("copy_back", runner._copy_back, compute)
+    runner._copy_back = copy_back
+    runner._writeback = timed_part("writeback", runner._writeback)
+    parts["scatter"] = []
+    scatter = runner.pool.writeback
+
+    def timed_scatter(*args, **kw):
+        t0 = time.perf_counter()
+        scatter(*args, **kw)
+        parts["scatter"].append((time.perf_counter() - t0) * 1e3)
+    runner.pool.writeback = timed_scatter
+    runner._patch = timed_part("patch", runner._patch)
+    pool_run(dev, setup, psched, rounds, capture=True, runner=runner)
+    med = {p: statistics.median(v[2:]) for p, v in parts.items()}
+    med_ev = {p: statistics.median(v[2:]) for p, v in events.items()}
+    # The same scatter into rows the clients already hold (no first
+    # touch of new host pages).
+    idx = np.nonzero(runner.pool._slot >= 0)[0][:psched.cohort_size]
+    rows = {n: t.numpy() for n, t in runner.pool.fetch(idx).items()}
+    again = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        scatter(idx, rows)
+        again.append((time.perf_counter() - t0) * 1e3)
+    runner.close()
+    piped_runner, _, piped = pool_run(dev, setup, psched, rounds,
+                                      capture=True)
+    piped_runner.close()
+    pipelined = statistics.median(piped[1:])
+    prefetch = med["draw"] + med["gather"] + med["upload"] + med["batches"]
+    on_path = med["step"] + med["writeback"] + med["patch"]
+    serial = prefetch + on_path
+    nbytes_ = runner.pool.n_params * 4 * psched.cohort_size
+    rep = {"path": "pool breakdown", "m": psched.m,
+           "cohort": psched.cohort_size, "part_ms_median": med,
+           "scatter_into_held_rows_ms_median": statistics.median(again),
+           "copy_event_ms_median": med_ev, "copy_bytes": nbytes_,
+           "copy_gb_per_s": {p: nbytes_ / v / 1e6 for p, v in
+                             med_ev.items()},
+           "gather_gb_per_s": nbytes_ / med["gather"] / 1e6,
+           "serial_round_ms": serial,
+           "pipelined_round_ms_median": pipelined,
+           "prefetch_ms": prefetch, "on_path_ms": on_path,
+           "hidden_share": (serial - pipelined) / prefetch,
+           "side_stream_is_not_compute": runner._side.stream_id
+           != torch.cuda.current_stream(dev).stream_id}
+    print(json.dumps(rep), flush=True)
+    return rep
+
+
+def pool_vs_cpu(dev, setup, psched, rounds: int = CPU_ROUNDS) -> dict:
+    """CPU_ROUNDS rounds of the full-width sync arm on the card (captured)
+    and on the CPU, on the 8-bit wire and on fp32, held as
+    :func:`async_rounds` holds its events: the same cohorts (slots and
+    versions), loss within rtol 1e-5, the whole population's consensus
+    distance within POOL_CPU_CONSENSUS, and at most POOL_CPU_SHARE of the
+    store's elements more than 1e-5 from the CPU's (the two devices'
+    matmuls sum in other orders, which moves a ReLU's or a rounding's
+    decision here and there; the largest difference is reported). A
+    misrouted B2 src cannot show here: a cohort of 64 in 10^5 holds
+    almost no ring edge, so the parity arm and :func:`pool_kernel_checks`
+    hold it."""
+    import dataclasses
+    template, loss_fn, cfg, batch_fn = setup
+    cpu_setup = pool_setup(torch.device("cpu"))
+    out = {}
+    for wire, quant in (("q8", cfg.quant), ("fp32", None)):
+        card, c_loss, _ = pool_run(
+            dev, (template, loss_fn, dataclasses.replace(cfg, quant=quant),
+                  batch_fn), psched, rounds, capture=True)
+        cpu, p_loss, _ = pool_run(
+            torch.device("cpu"), cpu_setup[:2] + (dataclasses.replace(
+                cpu_setup[2], quant=quant), cpu_setup[3]), psched, rounds,
+            capture=False)
+        card.close()
+        cpu.close()
+        n = card.pool.materialized
+        same = (n == cpu.pool.materialized
+                and np.array_equal(card.pool.versions, cpu.pool.versions)
+                and np.array_equal(card.pool._slot, cpu.pool._slot))
+        far, total, worst = 0, 0, 0.0
+        for a, b in zip(card.pool._slabs, cpu.pool._slabs):
+            d = np.abs(a[1:n + 1] - b[1:n + 1])
+            far += int((d > 1e-5).sum())
+            total += d.size
+            worst = max(worst, float(d.max()))
+        expected_edges = psched.expected_directed_edges()
+        out[wire] = {"same_cohorts": same,
+                     "loss_rel": [abs(a / b - 1) for a, b in
+                                  zip(c_loss, p_loss)],
+                     "consensus_rel": abs(card.pool.consensus_distance()
+                                          / cpu.pool.consensus_distance()
+                                          - 1),
+                     "params_off_by_1e-5": far, "params": total,
+                     "share_off": far / total,
+                     "params_max_abs_diff": worst,
+                     "expected_directed_edges": expected_edges}
+    rep = {"path": "pool vs cpu", "rounds": rounds, **out}
+    print(json.dumps(rep), flush=True)
+    for wire, r in out.items():
+        if not r["same_cohorts"] or max(r["loss_rel"]) > 1e-5 or \
+                r["consensus_rel"] > POOL_CPU_CONSENSUS or \
+                r["share_off"] > POOL_CPU_SHARE:
+            raise AssertionError(f"pool {wire} on the card leaves the "
+                                 f"CPU's: {r}")
+    return rep
+
+
+def pool_resume(dev, setup, psched, whole) -> dict:
+    """Save the full-width sync arm at round POOL_RESUME_AT, restore it in
+    a new runner (captured), run to ROUNDS: the store bitwise with the
+    uninterrupted run ``whole``, its key and ledger too."""
+    import tempfile
+    from repro_torch.core import PooledRunner
+    template, loss_fn, cfg, batch_fn = setup
+    first, _, _ = pool_run(dev, setup, psched, POOL_RESUME_AT, capture=True)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        first.save(d)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = PooledRunner.restore(d, template, psched, loss_fn, cfg,
+                                     batch_fn, backend="sparse", device=dev)
+        restore_s = time.perf_counter() - t0
+    first.close()
+    pool_run(dev, setup, psched, ROUNDS - POOL_RESUME_AT, capture=True,
+             runner=again)
+    again.close()
+    ok = (pools_equal(again.pool, whole.pool)
+          and torch.equal(again.rng, whole.rng)
+          and again.comm_bits == whole.comm_bits and again.t == whole.t)
+    rep = {"path": "pool resume", "saved_at": POOL_RESUME_AT,
+           "bitwise": ok, "save_s": save_s, "restore_s": restore_s,
+           "materialized_at_save": first.pool.materialized}
+    print(json.dumps(rep), flush=True)
+    if not ok:
+        raise AssertionError(f"pool resume differs: {rep}")
+    return rep
+
+
+def pool_async(dev, setup) -> dict:
+    """PooledAsyncRunner at m = POOL_M on the structural ring
+    (self-weight 0.5) under ASYNC_SPEED's straggler tail (``max_staleness``
+    8, inverse), dense 8-bit, capacity 3 x POOL_ASYNC_READY (the ready
+    clients and their two neighbours each): ROUNDS eager events with
+    their launch counts, then ROUNDS captured events from a fresh pool
+    bitwise with them (store, versions, clocks, metrics)."""
+    from repro_torch import prng
+    from repro_torch.core import (AsyncConfig, ClientPool, PooledAsyncRunner,
+                                  SpeedModel)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    template, loss_fn, cfg, batch_fn = setup
+    acfg = AsyncConfig(speed=SpeedModel.straggler(**ASYNC_SPEED),
+                       max_staleness=8, discount="inverse")
+    capacity = 3 * POOL_ASYNC_READY
+
+    def make(capture):
+        return PooledAsyncRunner(ClientPool(template, POOL_M), loss_fn, cfg,
+                                 acfg, batch_fn, key=prng.PRNGKey(1),
+                                 capacity=capacity, ring_self_weight=0.5,
+                                 device=dev, capture=capture)
+
+    out = {}
+    for mode in ("eager", "captured"):
+        runner = make(mode == "captured")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        mets, ms = [], []
+        for _ in range(ROUNDS):
+            t0 = time.perf_counter()
+            met = runner.step_event()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            mets.append({k: float(v) for k, v in met.items()})
+        out[mode] = {"runner": runner, "metrics": mets,
+                     "launches": launch_counts(), "ms": ms}
+    e, c = out["eager"], out["captured"]
+    per = pool_step_launches(True, "dense")
+    per["threefry_split"] += 3 + 1 + 3     # keys, clock split, batches
+    per["threefry_normal"] = 1
+    per["threefry_bits"] = 2
+    expect = {k: ROUNDS * v for k, v in per.items()}
+    bitwise = (pools_equal(e["runner"].pool, c["runner"].pool)
+               and e["metrics"] == c["metrics"]
+               and torch.equal(e["runner"].next_ready,
+                               c["runner"].next_ready))
+    rep = {"path": "pool async", "m": POOL_M, "capacity": capacity,
+           "events": ROUNDS, "bitwise": bitwise,
+           "launches": e["launches"], "expected_launches": expect,
+           "event_ms_median": {m_: statistics.median(out[m_]["ms"][1:])
+                               for m_ in out},
+           "replay_device_ms": replay_ms(c["runner"].graph),
+           "ready_frac": [x["ready_frac"] for x in c["metrics"]],
+           "loss": [x["loss"] for x in c["metrics"]],
+           "versions_sum": int(c["runner"].pool.versions.sum()),
+           **check_round_graph("pool async event",
+                               graph_nodes(c["runner"].graph),
+                               pool_step_launches(True, "dense"))}
+    print(json.dumps(rep), flush=True)
+    if e["launches"] != expect:
+        raise AssertionError(f"pool async: launches {e['launches']} != "
+                             f"{expect}")
+    if not bitwise:
+        raise AssertionError("pool async: captured events differ")
+    return rep
+
+
+def pool_parity(dev) -> dict:
+    """The quickstart (m 16) under PR 19's exact k-10 cohort
+    (``partial(ring16, 0.625, exact=True)``): ROUNDS pooled rounds
+    (captured; ``from_schedule`` and ``ring_partial``) against the
+    resident skip path (eager) on the same key and batches, on the plan
+    realization and on the dense mixer, fp32 and 8-bit: the store against
+    the resident parameters, in ulp and relative to each leaf's scale;
+    the plan realization bitwise, the dense arms each leaf within
+    POOL_DENSE_REL of its scale. Then one dense mix of the same z at the
+    cohort's [k, k] against [M, M], the cause where the dense arms part:
+    each leaf within POOL_DENSE_MIX_ULP."""
+    from repro_torch import prng
+    from repro_torch.core import (ClientPool, DFedAvgMConfig, PoolSchedule,
+                                  PooledRunner, QuantConfig, TopologySchedule,
+                                  init_round_state, make_round_step,
+                                  mix_dense, ring_graph)
+
+    _, fed, stacked, _, _, loss_fn, _ = quickstart_setup(dev)
+    batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
+               for t in range(ROUNDS)]
+    sched = TopologySchedule.partial(ring_graph(M), POOL_PARITY_P,
+                                     exact=True)
+    template = {n: t[0].cpu() for n, t in stacked.items()}
+    out = {}
+    for backend in ("sparse", "dense"):
+        for bits in (32, 8):
+            cfg = DFedAvgMConfig(eta=ETA, theta=THETA, local_steps=K,
+                                 quant=QuantConfig(bits=bits),
+                                 mixer_impl=backend)
+            step = make_round_step(loss_fn, cfg, sched, device=dev)
+            st = init_round_state(stacked, prng.PRNGKey(1))
+            for b in batches:
+                st, _ = step(st, b)
+            arm = {}
+            for pname, ps in (
+                    ("from_schedule", PoolSchedule.from_schedule(sched)),
+                    ("ring_partial", PoolSchedule.ring_partial(
+                        M, POOL_PARITY_P))):
+                runner = PooledRunner(
+                    ClientPool(template, M), ps, loss_fn, cfg,
+                    lambda ids, t: {n: x[ids] for n, x in
+                                    batches[t % ROUNDS].items()},
+                    key=prng.PRNGKey(1), backend=backend, device=dev)
+                runner.run(ROUNDS)
+                got = runner.pool.fetch(np.arange(M))
+                arm[pname] = max(ulp_diff(got[n].to(dev), st.params[n])
+                                 for n in got)
+                arm[pname + " rel_to_scale"] = {
+                    n: float((got[n].to(dev) - st.params[n]).abs().max()
+                             / st.params[n].abs().max()) for n in got}
+                runner.close()
+            out[f"{backend} {'fp32' if bits == 32 else 'q8'}"] = arm
+    # The cause, where the dense mix parts: one mix of the same z, leaf by
+    # leaf, at the cohort's [k, k] rows and columns of W_t against the
+    # resident's [M, M].
+    W_t, active, _ = sched.round_event(prng.PRNGKey(3, device=dev), 0)
+    idx = torch.nonzero(active)[:, 0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    z = {n: torch.randn(t.shape, generator=gen, device=dev)
+         for n, t in stacked.items()}
+    full = mix_dense(W_t, z)
+    sub = mix_dense(W_t[idx][:, idx].contiguous(),
+                    {n: t[idx] for n, t in z.items()})
+    out["one dense mix, [k, k] vs [M, M]"] = {
+        n: {"max_ulp": ulp_diff(sub[n], full[n][idx]),
+            "share_apart": float((sub[n] != full[n][idx]).float().mean())}
+        for n in sorted(z)}
+    print(json.dumps({"check": "pool parity (max ulp, pooled vs resident "
+                      "skip path)", "k": sched.n_active, **out}), flush=True)
+    for arm in ("sparse fp32", "sparse q8"):
+        if any(v for k_, v in out[arm].items() if "rel" not in k_):
+            raise AssertionError(f"pool parity: {arm} is not bitwise with "
+                                 f"the resident skip path: {out[arm]}")
+    for wire, limit in POOL_DENSE_REL.items():
+        arm = out[f"dense {wire}"]
+        if any(v > limit for k_, rel in arm.items() if "rel" in k_
+               for v in rel.values()):
+            raise AssertionError(f"pool parity: dense {wire} leaves the "
+                                 f"resident skip path by more than "
+                                 f"POOL_DENSE_REL: {arm}")
+    if any(r["max_ulp"] > POOL_DENSE_MIX_ULP for r in out[
+            "one dense mix, [k, k] vs [M, M]"].values()):
+        raise AssertionError("pool parity: one dense mix at [k, k] parts "
+                             "from [M, M] by more than POOL_DENSE_MIX_ULP")
+    return out
+
+
+def pool_async_parity(dev) -> dict:
+    """The async pool against the resident engine on the card: the
+    quickstart (m 16, the ring at self-weight 0.5) under ASYNC_SPEED's
+    straggler tail, dense 8-bit (the pool's mix), ROUNDS events from one
+    key and the same batches, at capacity M and 6: versions and clocks
+    equal, the store within POOL_ASYNC_DENSE_ULP of the resident
+    parameters."""
+    from repro_torch import prng
+    from repro_torch.core import (AsyncConfig, ClientPool, DFedAvgMConfig,
+                                  MixingSpec, PooledAsyncRunner, QuantConfig,
+                                  SpeedModel, init_async_state,
+                                  make_round_step)
+
+    _, fed, stacked, _, _, loss_fn, _ = quickstart_setup(dev)
+    batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
+               for t in range(ROUNDS)]
+    spec = MixingSpec.ring(M, self_weight=0.5)
+    acfg = AsyncConfig(speed=SpeedModel.straggler(**ASYNC_SPEED),
+                       max_staleness=8, discount="inverse")
+    cfg = DFedAvgMConfig(eta=ETA, theta=THETA, local_steps=K,
+                         quant=QuantConfig(bits=8), mixer_impl="dense")
+    step = make_round_step(loss_fn, cfg, spec, device=dev, async_cfg=acfg)
+    st = init_async_state(stacked, prng.PRNGKey(1), acfg.speed)
+    for b in batches:
+        st, _ = step(st, b)
+    template = {n: t[0].cpu() for n, t in stacked.items()}
+    out = {}
+    for capacity in (M, 6):
+        holder = {}
+        runner = holder["r"] = PooledAsyncRunner(
+            ClientPool(template, M), loss_fn, cfg, acfg,
+            lambda ids, vers: {n: x[ids] for n, x in
+                               batches[holder["r"].round].items()},
+            key=prng.PRNGKey(1), capacity=capacity, spec=spec, device=dev)
+        runner.run(ROUNDS)
+        got = runner.pool.fetch(np.arange(M))
+        out[f"capacity {capacity}"] = {
+            "max_ulp": max(ulp_diff(got[n].to(dev), st.params[n])
+                           for n in got),
+            "versions_equal": torch.equal(runner.version, st.version),
+            "clock_equal": torch.equal(runner.next_ready, st.next_ready)}
+    print(json.dumps({"check": "pool async vs the resident engine",
+                      **out}), flush=True)
+    for k, r in out.items():
+        if not (r["versions_equal"] and r["clock_equal"]):
+            raise AssertionError(f"pool async ({k}) fires other clients "
+                                 f"than the resident engine: {r}")
+        if r["max_ulp"] > POOL_ASYNC_DENSE_ULP:
+            raise AssertionError(f"pool async ({k}) leaves the resident "
+                                 f"engine by more than "
+                                 f"POOL_ASYNC_DENSE_ULP: {r}")
+    return out
+
+
+# The kernels whose rows of the kernels line report the pool path: held
+# against their plain versions at its shapes (:func:`pool_kernel_checks`).
+POOL_KERNELS = ("quantize_pack_buffer", "dequant_mix_buffer", "momentum_sgd")
+
+
+def pool_kernel_checks(dev, flush, rec, setup, psched) -> None:
+    """B1, B2 and B3 at the shapes the pool path gives them, bitwise
+    against their plain versions and timed against their bounds; the
+    kernels line's rows of POOL_KERNELS then report these (their launches
+    are the pool's) and keep the quickstart's times under ``quickstart``
+    (B2's at K = 11 stay under ``k11``).
+    Round 0 of the headline (``psched``, cohort POOL_K of POOL_M) gives
+    the cohort, W_sub and the per-leaf quantizer keys drawn at the full
+    width and gathered ([6, POOL_K, 2]); B1 encodes x [POOL_K, 4, 51 712]
+    under them; B2 decodes K 3 with src the cohort's lane map ([3, POOL_K]:
+    the lane, then the ring plan's two steps remapped onto the cohort, a
+    neighbour outside it read as the lane itself at weight 0); B3 steps
+    the 2NN's six leaves for POOL_K clients. Then T1's batched fold_in
+    (``threefry_fold_in_each``, counted as T1) at the batches' shapes: the
+    cohort's ids into one key, and a counter into each of those POOL_K
+    keys (the async pool's versions), against ``prng.fold_in_plain``;
+    recorded under ``rec["threefry_split"]["fold_in_each"]``."""
+    from repro_torch import prng
+    from repro_torch.core import WireLayout
+    from repro_torch.core.client_pool import (_cohort_lane_map,
+                                              make_pooled_round_step)
+    from repro_torch.kernels import momentum_update, ref, threefry
+    from repro_torch.kernels.dequant_mix import (dequant_mix_buffer,
+                                                 dequant_mix_buffer_plain)
+    from repro_torch.kernels.quantize_pack import quantize_pack_buffer
+
+    template, loss_fn, cfg, _ = setup
+    quant, k = cfg.quant, psched.cohort_size
+    inp = make_pooled_round_step(loss_fn, cfg, psched, template,
+                                 backend="sparse", device=dev).inputs(
+        prng.PRNGKey(1, device=dev), 0)
+    idx, W_sub, keys = inp["idx"], inp["W_sub"], inp["leaf_keys"]
+    src_np = psched.plan_src()
+    live = [j for j in range(src_np.shape[0])
+            if (src_np[j] != np.arange(psched.m)).any()]
+    lane_src, w_steps = _cohort_lane_map(torch.as_tensor(
+        src_np[live].astype(np.int64), device=dev), idx, W_sub)
+    lanes = torch.arange(k, device=dev)
+    src = torch.cat([lanes[None], lane_src]).to(torch.int32)
+    w = torch.cat([torch.diagonal(W_sub)[None], w_steps]).T.contiguous()
+    gen = torch.Generator().manual_seed(21)
+
+    def stacked(scale):
+        return {n: (torch.randn((k,) + tuple(t.shape), generator=gen) * scale)
+                .to(dev) for n, t in template.items()}
+
+    x = stacked(0.05)
+    z = {n: t + 0.01 * torch.randn(t.shape, generator=gen).to(dev)
+         for n, t in x.items()}
+    layout = WireLayout.for_tree(x, quant.bits, stacked=True)
+    X = layout.to_planar_stacked(x)
+    delta = layout.to_planar_stacked({n: z[n] - x[n] for n in x})
+    sblk = layout.block_scales(layout.leaf_scales(delta, quant))
+    table, bits = layout.noise_table, quant.bits
+    words = quantize_pack_buffer(delta, sblk, bits, keys=keys, table=table)
+    check_words("B1 pool", words, ref.quantize_pack_buffer_ref(
+        delta, sblk, bits, layout.noise_stacked(keys)))
+    out = dequant_mix_buffer(X, words, sblk, w, src, bits)
+    out_ref = dequant_mix_buffer_plain(X, words, sblk, w, src, bits)
+    y, v, g = stacked(0.05), stacked(0.01), stacked(0.1)
+    ys, vs = momentum_update(y, v, g, ETA, THETA)
+    want = {n: ref.momentum_sgd_ref(y[n], v[n], g[n], ETA, THETA) for n in y}
+    torch.cuda.synchronize()
+    check_words("B2 pool", out.view(torch.int32), out_ref.view(torch.int32))
+    check_floats(rec["dequant_mix_buffer"], "B2 pool", [(out, out_ref)])
+    b3 = [(ys[n], want[n][0]) for n in y] + [(vs[n], want[n][1]) for n in y]
+    for a, c in b3:
+        check_words("B3 pool", a.view(torch.int32), c.view(torch.int32))
+    check_floats(rec["momentum_sgd"], "B3 pool", b3)
+    reading = int((lane_src != lanes[None]).sum())
+    n_el = sum(t.numel() for t in y.values())
+    r1 = {"shape": f"x f32 {list(delta.shape)}, keys {list(keys.shape)} "
+                   f"gathered from [6, {psched.m}, 2]"}
+    timed(r1, "", lambda: quantize_pack_buffer(delta, sblk, bits, keys=keys,
+                                               table=table), flush)
+    timed(r1, "plain_", lambda: ref.quantize_pack_buffer_ref(
+        delta, sblk, bits, layout.noise_stacked(keys)), flush)
+    r1["sass"] = keyed_ops("quantize_pack_buffer", bits,
+                           delta.shape[0] * delta.shape[2] // 4,
+                           sum(layout.sizes) * k)
+    r1["bound_ms"], r1["bound_by"] = bound(nbytes(delta, sblk, keys, words),
+                                           0, r1["sass"]["ms"])
+    r2 = {"shape": f"base {list(X.shape)}, weights {list(w.shape)}, src "
+                   f"{list(src.shape)} (the lane map: {reading} plan steps "
+                   "read another lane)"}
+    timed(r2, "", lambda: dequant_mix_buffer(X, words, sblk, w, src, bits),
+          flush)
+    timed(r2, "plain_", lambda: dequant_mix_buffer_plain(
+        X, words, sblk, w, src, bits), flush)
+    r2["bound_ms"], r2["bound_by"] = bound(
+        nbytes(X, words, sblk, w, src, out), X.numel() * 3 * src.shape[0])
+    r3 = {"shape": f"one local step: 6 leaves x {k} clients ({n_el} f32)"}
+    timed(r3, "", lambda: momentum_update(y, v, g, ETA, THETA), flush)
+    timed(r3, "plain_", lambda: [ref.momentum_sgd_ref(
+        y[n], v[n], g[n], ETA, THETA) for n in y], flush)
+    params = [t.clone() for t in y.values()]
+    bufs = [t.clone() for t in v.values()]
+    timed(r3, "library_", lambda: torch._fused_sgd_(
+        params, list(g.values()), bufs, weight_decay=0.0, momentum=THETA,
+        lr=ETA, dampening=0.0, nesterov=False, maximize=False,
+        is_first_step=False), flush)
+    r3["bound_ms"], r3["bound_by"] = bound(5 * 4 * n_el, 3 * n_el)
+    for name, new in zip(POOL_KERNELS, (r1, r2, r3)):
+        r = rec[name]
+        r["quickstart"] = {f: r.pop(f) for f in list(r) if f not in (
+            "checks", "max_abs_err", "max_ulp", "k11")}
+        r.update(new)
+        r["checks"].append(f"pool: {new['shape']}: bitwise")
+
+    key = prng.PRNGKey(0, device=dev)
+    data = torch.randint(0, 2 ** 33, (k,), generator=gen).to(dev)
+    one = threefry.fold_in(key, idx)
+    each = threefry.fold_in(one, data)
+    check_words("T1 fold_in_each, one key", one,
+                prng.fold_in_plain(key, idx))
+    check_words("T1 fold_in_each, a key a row", each,
+                prng.fold_in_plain(one, data))
+    f = {"shape": f"key [2] and keys [{k}, 2], data [{k}] -> [{k}, 2]"}
+    timed(f, "", lambda: threefry.fold_in(key, idx), flush)
+    timed(f, "plain_", lambda: prng.fold_in_plain(key, idx), flush)
+    f["sass"] = threefry_ops("threefry_fold_in_each", k)
+    f["bound_ms"], f["bound_by"] = bound(nbytes(key, idx, one), 0,
+                                         f["sass"]["ms"])
+    rec.setdefault("threefry_split", {"checks": []})["fold_in_each"] = f
+    rec["threefry_split"]["checks"].append(
+        f"fold_in_each: one key x [{k}] ids, [{k}] keys x [{k}] counters "
+        "(some >= 2^32): bitwise")
+    print(json.dumps({"check": "pool kernels", **{
+        n: {f_: rec[n][f_] for f_ in ("shape", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "max_ulp")}
+        for n in POOL_KERNELS}, "fold_in_each": f}), flush=True)
+
+
+def pool_phase(dev, flush=None, rec=None) -> tuple[dict, dict]:
+    """Phase "pool": the virtual client pool on the card. The README's
+    headline (m POOL_M, cohort POOL_K, the structural ring's exact
+    cohorts, the 2NN, 8-bit stochastic lemma5 on the plan realization):
+    its kernels at its shapes (:func:`pool_kernel_checks`, into ``rec``;
+    alone, with ``--only pool``, into a record of its own), eager and
+    captured (:func:`pool_arm`), its round's time by part
+    (:func:`pool_breakdown`), CPU_ROUNDS against the CPU
+    (:func:`pool_vs_cpu`), a resume from round POOL_RESUME_AT
+    (:func:`pool_resume`); the structural walk (k 2); the async pool
+    (:func:`pool_async`); the parity arm (:func:`pool_parity`); and
+    ``bench.pool`` at full size. Returns the summaries and the headline
+    arm's eager launches."""
+    from repro_torch.bench import pool as bench_pool
+    from repro_torch.core import PoolSchedule
+
+    if rec is None:
+        flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+        rec = {k: {"max_abs_err": 0.0, "max_ulp": 0, "checks": []}
+               for k in POOL_KERNELS}
+    setup = pool_setup(dev)
+    psched = PoolSchedule.ring_partial(POOL_M, POOL_K / POOL_M)
+    pool_kernel_checks(dev, flush, rec, setup, psched)
+    out = {"sync": pool_arm(dev, setup, psched, "pool sync")}
+    out["resume"] = pool_resume(dev, setup, psched, out["sync"]["runner"])
+    out["breakdown"] = pool_breakdown(dev, setup, psched)
+    out["vs_cpu"] = pool_vs_cpu(dev, setup, psched)
+    out["walk"] = pool_arm(dev, setup, PoolSchedule.ring_random_walk(POOL_M),
+                           "pool walk")
+    out["async"] = pool_async(dev, setup)
+    out["parity"] = pool_parity(dev)
+    out["async_parity"] = pool_async_parity(dev)
+    t0 = time.perf_counter()
+    res, rows = bench_pool.run_pool(device=dev)
+    out["bench"] = {"wall_s": time.perf_counter() - t0, **res}
+    print(json.dumps({"path": "bench pool", **out["bench"]}), flush=True)
+    for f in ("bitwise_equal", "billing_equal", "flops_equal"):
+        if not res["compare"][f]:
+            raise AssertionError(f"bench pool: {f} is false")
+    for k in ("sync", "walk"):
+        out[k].pop("runner").close()
+    return out, out["sync"]["launches"]
+
+
+# Phases ``--only`` can run alone (after the build), for work on one path.
+ONLY = {"pool": pool_phase}
 
 
 def main() -> int:
@@ -2997,6 +3874,14 @@ def main() -> int:
     per_source = native.build()
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": per_source}), flush=True)
+    if "--only" in sys.argv:
+        for name in sys.argv[sys.argv.index("--only") + 1].split(","):
+            t0 = time.perf_counter()
+            ONLY[name](dev)
+            print(json.dumps({"phase": name,
+                              "s": time.perf_counter() - t0}), flush=True)
+        print(card)
+        return 0
 
     # First, while the profiler's traces of a fresh process are whole.
     entry = entry_points(dev)
@@ -3024,6 +3909,8 @@ def main() -> int:
     sched_rows = schedule_bench_path(dev)
     asyn, counts["async"] = async_phase(dev, flush, rec)
     captured["async"] = asyn["decay"]
+    pool, counts["pool"] = pool_phase(dev, flush, rec)
+    captured["pool"] = pool["sync"]
     times = round_times(dev)
     rows = bench_path(dev)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
@@ -3079,7 +3966,22 @@ def main() -> int:
                           for k in ASYNC_ARMS},
                       "async_bench": {k: asyn["bench"][k] for k in (
                           "captured_us_per_event", "eager_us_per_event",
-                          "speedup_virtual_wallclock")}}))
+                          "speedup_virtual_wallclock")},
+                      "pool": {
+                          "sync_round_ms_median": pool["sync"][
+                              "round_ms_median"],
+                          "walk_round_ms_median": pool["walk"][
+                              "round_ms_median"],
+                          "async_event_ms_median": pool["async"][
+                              "event_ms_median"],
+                          "breakdown_ms": pool["breakdown"][
+                              "part_ms_median"],
+                          "hidden_share": pool["breakdown"]["hidden_share"],
+                          "bench_rounds_per_sec": {
+                              r["m"]: r["rounds_per_sec"]
+                              for r in pool["bench"]["pool_scaling"]},
+                          "bench_pooled_over_resident": pool["bench"][
+                              "compare"]["pooled_over_resident_cost"]}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

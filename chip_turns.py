@@ -11,8 +11,10 @@ names, so imported there they time that tree's round. Four turns, one
 process each, in the order parent, change, change, parent; each builds
 its tree's kernels, then prints one JSON line with the tree, the card
 (``nvidia-smi`` name and power limit), the eager round's host-clock ms
-(median of rounds 2-12, unfused and fused, two passes) and its host time
-by group. Exits non-zero if a turn fails.
+(median of rounds 2-12, unfused and fused, two passes), the captured
+round's (``captured_round_ms``: host ms, a replay's device ms, graph
+nodes) and the eager round's host time by group. Exits non-zero if a
+turn fails.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ torch.backends.cudnn.allow_tf32 = False
 native.build()
 dev = torch.device("cuda:0")
 rep = {"tree": sys.argv[1], "card": c.card_line(), **c.eager_round_ms(dev),
+       "captured": c.captured_round_ms(dev),
        "host_ms_by_group": c.host_groups(dev)}
 print("TURN " + json.dumps(rep), flush=True)
 """

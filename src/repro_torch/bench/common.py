@@ -96,9 +96,8 @@ def stacked(p0: Params, m: int) -> Params:
 
 
 def stacked_2nn(m: int, seed: int, device) -> Params:
-    """m copies of the 2NN drawn from ``seed`` (the port's generator; the
-    reference's ``init_2nn(jax.random.PRNGKey(seed))`` is not reproduced
-    bitwise, so accuracies differ from the reference's by the init)."""
+    """m copies of the 2NN drawn from ``prng.PRNGKey(seed)``, as the
+    reference's benches draw ``init_2nn(jax.random.PRNGKey(seed))``."""
     return stacked(init_2nn(seed, device=device), m)
 
 

@@ -29,6 +29,7 @@ MODULES = [
     "topology",         # ring vs torus: lambda, consensus, non-IID acc
     "timevarying",      # time-varying schedules vs the static ring
     "async_compare",    # async vs sync under stragglers (bench_async)
+    "pool",             # virtual client pool: rounds/s vs m (bench_pool)
 ]
 
 

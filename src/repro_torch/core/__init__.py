@@ -1,9 +1,10 @@
 """Core: quantized DFedAvgM as PyTorch — the port of the JAX package's
 ``repro.core`` for one synchronous round on one device (a static spec
-or a time-varying schedule), the asynchronous event engine, its FedAvg
-and DSGD baselines, the paper's bit accounting, and ``capture_step``,
-which runs a round or an event as one CUDA graph (the counterpart of
-``jax.jit``)."""
+or a time-varying schedule), the asynchronous event engine, the virtual
+client pool (a host store of up to 10^6 clients, a cohort of k lanes on
+the card), its FedAvg and DSGD baselines, the paper's bit accounting,
+and ``capture_step``, which runs a round or an event as one CUDA graph
+(the counterpart of ``jax.jit``)."""
 from .topology import (Graph, MixingSpec, TopologySchedule,  # noqa
                        ring_graph, chain_graph, torus_graph, complete_graph,
                        star_graph, erdos_renyi_graph, metropolis_hastings,
@@ -18,7 +19,7 @@ from .wire_layout import WireLayout  # noqa
 from .local_sgd import local_train, heavy_ball_update  # noqa
 from .mixing import (MixerConfig, make_mixer, make_scheduled_mixer,  # noqa
                      make_plan_mixer, make_event_mixer, mix_dense,
-                     consensus_distance)
+                     consensus_distance, execute_plan_reference)
 from .dfedavgm import (DFedAvgMConfig, RoundState, init_round_state,  # noqa
                        make_round_step, average_params, round_comm_bits)
 from .baselines import (FedAvgConfig, make_fedavg_step, DSGDConfig,  # noqa
@@ -33,4 +34,7 @@ from .async_gossip import (AsyncConfig, AsyncRoundState,  # noqa
                            init_async_state, staleness_weights,
                            staleness_eta, make_async_round_step,
                            make_async_engine)
+from .client_pool import (ClientPool, PoolSchedule,  # noqa
+                          PooledRoundStep, make_pooled_round_step,
+                          PooledRunner, PooledAsyncRunner, ring_matching_src)
 from .compiled import capture_step  # noqa

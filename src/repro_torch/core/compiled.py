@@ -31,6 +31,7 @@ nodes (``graph`` on the returned function).
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, NamedTuple
 
 import torch
@@ -133,8 +134,17 @@ def capture_step(step: Callable, state: NamedTuple,
             call()
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        out_state, out_metrics = call()
+    # No cyclic garbage collection while capturing: a collected object
+    # that held a graph of its own (a dropped pooled runner's) would
+    # destroy it mid-capture, which invalidates this capture.
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            out_state, out_metrics = call()
+    finally:
+        if collecting:
+            gc.enable()
     graph.instantiate()
 
     def run(state: NamedTuple, batches: Params | None):

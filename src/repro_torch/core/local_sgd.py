@@ -39,10 +39,23 @@ def heavy_ball_update(y: Params, v: Params, g: Params,
 def loss_and_grad(loss_fn: LossFn, params: Params, batch: Params,
                   keys: torch.Tensor) -> tuple[torch.Tensor, Params]:
     """Per-client losses [m] at ``params`` and each client's gradient:
-    one backward of the summed losses (clients do not interact)."""
+    one backward of the summed losses (clients do not interact).
+
+    One client is run as two (the second a copy whose results are
+    dropped): cuBLAS takes another algorithm for a batched product of
+    batch count 1 than for 2 or more (a split of the inner dimension), so
+    a lone lane (``ready_capacity=1``, a cohort of one) would part from
+    the same lane trained beside others."""
+    lone = next(iter(params.values())).shape[0] == 1
+    if lone:
+        params = {n: torch.cat([t, t]) for n, t in params.items()}
+        batch = {n: torch.cat([t, t]) for n, t in batch.items()}
+        keys = None if keys is None else torch.cat([keys, keys])
     p = {n: t.detach().requires_grad_(True) for n, t in params.items()}
     loss = loss_fn(p, batch, keys)
     grads = torch.autograd.grad(loss.sum(), list(p.values()))
+    if lone:
+        loss, grads = loss[:1], [gr[:1] for gr in grads]
     return loss.detach(), {n: gr.contiguous() for n, gr in zip(p, grads)}
 
 

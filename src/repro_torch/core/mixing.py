@@ -58,7 +58,7 @@ Params = dict[str, torch.Tensor]
 
 __all__ = ["MixerConfig", "make_mixer", "make_scheduled_mixer",
            "make_plan_mixer", "make_event_mixer", "make_fused_tail",
-           "mix_dense", "consensus_distance"]
+           "execute_plan_reference", "mix_dense", "consensus_distance"]
 
 _IMPLS = ("auto", "dense", "ring", "torus", "sparse")
 
@@ -141,16 +141,21 @@ def _quant_leaf_keys(key: torch.Tensor, n_leaves: int, m: int
 
 
 def _mix_dense_quantized(W, x: Params, z: Params, quant: QuantConfig,
-                         key: torch.Tensor | None) -> Params:
+                         key: torch.Tensor | None,
+                         leaf_keys: torch.Tensor | None = None) -> Params:
     """Eq. 7 / Lemma 5 with dense W (numpy, or f32 on the leaves'
-    device), quantizing per client and leaf."""
+    device), quantizing per client and leaf. ``leaf_keys`` [n_leaves, m,
+    2] replaces the keys drawn from ``key``: the pooled cohort draws them
+    at the full logical width and gathers its rows, so a [k, k] sub-mix
+    rounds exactly as the resident [m, m] mix does."""
     names = sorted(x)
     m = x[names[0]].shape[0]
     dev = x[names[0]].device
     Wt = _device_w(W, dev)
     keys = None
     if quant.stochastic and quant.enabled:
-        keys = _quant_leaf_keys(_key_on(key, dev), len(names), m)
+        keys = (_on(leaf_keys, dev, "leaf_keys") if leaf_keys is not None
+                else _quant_leaf_keys(_key_on(key, dev), len(names), m))
     out = {}
     for li, name in enumerate(names):
         xl, zl = x[name], z[name]
@@ -220,13 +225,16 @@ def _plan_tables(plan: GossipPlan, dev: torch.device
 
 
 def _make_plan_exec(m: int, quant: QuantConfig | None) -> Callable:
-    """The plan realization's body: ``ex(x, z, w, src, key) -> x'`` for a
-    weights table w [m, K] and streams src [K, m] on the parameters'
-    device. Quantized: flatten to the planar wire buffer, encode every
-    client in one B1 launch (drawing the stochastic-rounding noise from
-    the per-leaf keys), then one B2 launch that gathers each stream's
-    words and scales through ``src`` and decodes and applies them in
-    stream order."""
+    """The plan realization's body: ``ex(x, z, w, src, key,
+    leaf_keys=None) -> x'`` for a weights table w [m, K] and streams src
+    [K, m] on the parameters' device. Quantized: flatten to the planar
+    wire buffer, encode every client in one B1 launch (drawing the
+    stochastic-rounding noise from the per-leaf keys: ``leaf_keys``
+    [n_leaves, m, 2] when given, else drawn from ``key``), then one B2
+    launch that gathers each stream's words and scales through ``src``
+    and decodes and applies them in stream order. B1 and B2 treat lanes
+    independently, so a cohort's lanes under the full width's gathered
+    keys give the full width's words and values."""
     layouts: dict = {}
 
     def mix_fp32(z: Params, w: torch.Tensor, src: torch.Tensor) -> Params:
@@ -241,7 +249,7 @@ def _make_plan_exec(m: int, quant: QuantConfig | None) -> Callable:
         return out
 
     def ex(x: Params, z: Params, w: torch.Tensor, src: torch.Tensor,
-           key) -> Params:
+           key, leaf_keys: torch.Tensor | None = None) -> Params:
         if quant is None or not quant.enabled:
             return mix_fp32(z, w, src)
         sig = tuple((n, tuple(x[n].shape), x[n].dtype) for n in sorted(x))
@@ -255,8 +263,9 @@ def _make_plan_exec(m: int, quant: QuantConfig | None) -> Callable:
         scales = layout.leaf_scales(delta, quant)              # [m, nl]
         keys = None
         if quant.stochastic:     # B1 draws the noise from the keys
-            keys = _quant_leaf_keys(_key_on(key, X.device),
-                                    layout.n_leaves, m)
+            keys = (_on(leaf_keys, X.device, "leaf_keys")
+                    if leaf_keys is not None else _quant_leaf_keys(
+                        _key_on(key, X.device), layout.n_leaves, m))
         words = layout.encode(delta, scales, quant, keys=keys)
         base = (_weighted_replica_base(X, w, src)
                 if quant.delta_mode == "lemma5" else X)
@@ -285,6 +294,26 @@ def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
         return ex(x, z, tables.static, tables.src, key)
 
     return mixer
+
+
+def execute_plan_reference(plan: GossipPlan, W, stacked: Params,
+                           x: Params | None = None,
+                           quant: QuantConfig | None = None,
+                           key: torch.Tensor | None = None) -> Params:
+    """The plan realization's math as one function, the JAX package's
+    mesh-free ``execute_plan_reference``: the round's weights gathered
+    from ``W`` (numpy, or f32 [m, m] on the leaves' device) over the
+    plan's streams (own stream first, then one a live step, idle slots at
+    weight 0), then the fp32 accumulation, or with ``quant`` the planar
+    wire (B1 encode under ``key``'s per-leaf keys, B2 decode-apply) over
+    the held state ``x``."""
+    dev = next(iter(stacked.values())).device
+    if quant is not None and quant.enabled and x is None:
+        raise ValueError("quantized plan reference needs the held state x")
+    tables = _PlanTables(plan, dev)
+    ex = _make_plan_exec(plan.m, quant)
+    return ex(stacked if x is None else x, stacked,
+              tables.weights(_device_w(W, dev)), tables.src, key)
 
 
 def _gate_z(active: torch.Tensor, z: Params, x: Params) -> Params:

@@ -13,7 +13,10 @@
 // T1 threefry_split: keys int64 [R, 2] (two uint32 words each) -> int64
 // [R, num, 2]. Output pair (r, j) is the hash of the counter (j >> 32,
 // j & 0xffffffff) under key r, both words kept. threefry_fold_in launches
-// the same kernel for the one counter `data` (jax.random.fold_in). One thread a pair. Bound on
+// the same kernel for the one counter `data` (jax.random.fold_in), and
+// threefry_fold_in_each folds a counter of its own into each key (data
+// int64 [n] on the device, one key or n keys): the batched fold_in of the
+// per-client data keys. One thread a pair. Bound on
 // the H100: the launch. A round splits at most a few hundred keys (the
 // per-leaf quantizer keys: n_leaves x m), a few KB and ~60 instructions a
 // pair, far under the floor of one launch.
@@ -77,6 +80,25 @@ __global__ void __launch_bounds__(kThreads)
                   static_cast<uint32_t>(keys[2 * r + 1]),
                   static_cast<uint32_t>(j >> 32), static_cast<uint32_t>(j),
                   &y1, &y2);
+  out[2 * i] = static_cast<int64_t>(y1);
+  out[2 * i + 1] = static_cast<int64_t>(y2);
+}
+
+// Output pair i hashes the counter (0, data[i] mod 2^32) under key
+// i * key_step (key_step 0: one key for every counter; 1: a key each).
+__global__ void __launch_bounds__(kThreads)
+    threefry_fold_in_each_kernel(const int64_t* __restrict__ keys,
+                                 int64_t key_step,
+                                 const int64_t* __restrict__ data, int64_t n,
+                                 int64_t* __restrict__ out) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int64_t r = i * key_step;
+  uint32_t y1, y2;
+  threefry::hash2(static_cast<uint32_t>(keys[2 * r]),
+                  static_cast<uint32_t>(keys[2 * r + 1]), 0u,
+                  static_cast<uint32_t>(data[i]), &y1, &y2);
   out[2 * i] = static_cast<int64_t>(y1);
   out[2 * i + 1] = static_cast<int64_t>(y2);
 }
@@ -213,6 +235,26 @@ extern "C" int threefry_fold_in(const void* keys, int64_t rows, int64_t data,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(keys), 1, data, rows,
       static_cast<int64_t*>(out));
+  return cudaGetLastError();
+}
+
+// T1 as jax.random.fold_in over a vector of data, one launch: keys int64
+// [key_rows, 2] (key_rows 1, or n: a key a counter), data int64 [n] (each
+// taken modulo 2^32, as jax converts fold_in's data to uint32) -> out int64
+// [n, 2]. Returns cudaGetLastError() (or cudaErrorInvalidValue for n not
+// positive or key_rows neither 1 nor n).
+extern "C" int threefry_fold_in_each(const void* keys, int64_t key_rows,
+                                     const void* data, int64_t n, void* out,
+                                     void* stream) {
+  if (n <= 0 || (key_rows != 1 && key_rows != n)) {
+    return cudaErrorInvalidValue;
+  }
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) return cudaErrorInvalidValue;
+  threefry_fold_in_each_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(keys), key_rows == 1 ? 0 : 1,
+      static_cast<const int64_t*>(data), n, static_cast<int64_t*>(out));
   return cudaGetLastError();
 }
 

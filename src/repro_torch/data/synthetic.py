@@ -1,15 +1,22 @@
 """Deterministic synthetic data (numpy; copied from the JAX package's
 ``data/synthetic.py``): a 10-class Gaussian-mixture "MNIST-like"
 (784-dim) or "CIFAR-like" (32x32x3) dataset whose class means are fixed
-random directions and whose within-class noise sets the difficulty, and
-a Markov character stream for the char-LM (``char_stream``)."""
+random directions and whose within-class noise sets the difficulty, a
+Markov character stream for the char-LM (``char_stream``), and the
+key-derived next-token batches (``lm_round_batches``, keyed on a round;
+``lm_client_batches``, keyed on each client's own version), drawn with
+``prng`` on the key's device."""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["classification_dataset", "ClassificationData", "char_stream"]
+from .. import prng
+
+__all__ = ["classification_dataset", "ClassificationData", "char_stream",
+           "lm_round_batches", "lm_client_batches"]
 
 
 @dataclasses.dataclass
@@ -70,3 +77,40 @@ def char_stream(n_chars: int = 200_000, *, vocab: int = 90, order: float = 4.0,
         s = min(s, vocab - 1)
         out[i] = s
     return out
+
+
+def _tokens(start: torch.Tensor, seq: int, vocab: int) -> dict:
+    """Tokens and targets of the sequences ``t+1 = (t*5 + c) % vocab``
+    from their first tokens ``start`` [..., 1] (int32)."""
+    ar = torch.arange(seq + 1, dtype=torch.int32, device=start.device)
+    tokens = (start + 5 * ar) % vocab
+    return {"tokens": tokens[..., :seq].contiguous(),
+            "targets": tokens[..., 1:].contiguous()}
+
+
+def lm_round_batches(key: torch.Tensor, round_idx: int, *, m: int, K: int,
+                     batch: int, seq: int, vocab: int) -> dict:
+    """Synthetic next-token batches [m, K, batch, seq] (int32) for one
+    round, deterministic in (key, round_idx): ``randint(fold_in(key,
+    round_idx), (m, K, batch, 1), 0, vocab)`` starts each sequence, as in
+    the JAX package, on the key's device."""
+    k = prng.fold_in(key, round_idx)
+    return _tokens(prng.randint(k, (m, K, batch, 1), 0, vocab), seq, vocab)
+
+
+def lm_client_batches(key: torch.Tensor, client_ids, versions, *, K: int,
+                      batch: int, seq: int, vocab: int) -> dict:
+    """Per-client next-token batches [n, K, batch, seq] (int32), batch
+    ``i`` a pure function of ``(key, client_ids[i], versions[i])``: the
+    key ``fold_in(fold_in(key, client_ids[i]), versions[i])`` draws
+    ``randint(.., (K, batch, 1), 0, vocab)``, the JAX package's ``vmap``
+    over the clients. A client's stream advances only when its own version
+    does, so its data does not depend on how events interleave across the
+    fleet. ``client_ids`` and ``versions`` are int tensors [n] (or
+    sequences) taken to the key's device; two T1 launches fold them in,
+    one for the ids and one for the versions, then ``randint``."""
+    dev = key.device
+    ids = torch.as_tensor(client_ids).to(device=dev, dtype=torch.int64)
+    ver = torch.as_tensor(versions).to(device=dev, dtype=torch.int64)
+    keys = prng.fold_in(prng.fold_in(key, ids), ver)
+    return _tokens(prng.randint(keys, (K, batch, 1), 0, vocab), seq, vocab)

@@ -8,7 +8,8 @@ package leaves them to XLA (no Pallas kernel); their plain versions are
 and ``prng.normal_plain``, threefry written as int64 tensor operations,
 ~180 a draw, which on the card made ~700 tiny kernels a round. On CUDA
 tensors they run ``csrc/threefry.cu``: T1 (``threefry_split``, and
-``fold_in`` for one counter) one thread an output key, T2
+``fold_in`` for one counter or a counter a row) one thread an output
+key, T2
 (``threefry_uniform``), T3 (``threefry_bits``, T2's body without the
 float) and T4 (``threefry_normal``, T2's body, then erf_inv's
 polynomial) one thread a draw, each bitwise with its plain version on
@@ -59,18 +60,45 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return out
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a uint32 ``data``: int64 key
     ``[..., 2]`` -> ``[..., 2]``. CPU keys take ``prng.fold_in_plain``; a
-    CUDA key (contiguous) launches T1 once, for that one counter."""
+    CUDA key (contiguous) launches T1 once, for that one counter. A
+    ``data`` tensor (int64 ``[n]`` on the key's device) folds a counter a
+    row into one key ``[2]`` or into ``n`` keys ``[n, 2]``: one launch of
+    T1's ``threefry_fold_in_each``, out ``[n, 2]``."""
     if key.device.type == "cpu":
         return prng.fold_in_plain(key, data)
+    if isinstance(data, torch.Tensor):
+        return _fold_in_each(key, data)
     rows = _rows(key)
     out = torch.empty(key.shape, dtype=torch.int64, device=key.device)
     fn = native.function("threefry", "threefry_fold_in", _ARGS)
     with torch.cuda.device(key.device):
         rc = fn(rows.data_ptr(), rows.shape[0], data, out.data_ptr(),
                 native.stream_of(key))
+    native.check_launch(rc, "threefry_split")
+    return out
+
+
+def _fold_in_each(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    rows = _rows(key)
+    native.require(data, "data", torch.int64, device=key.device)
+    if data.dim() != 1 or rows.shape[0] not in (1, data.shape[0]) or (
+            key.dim() != 1 and key.dim() != 2):
+        raise ValueError(f"fold_in over data [n] needs a key [2] or [n, 2], "
+                         f"got key {tuple(key.shape)}, data "
+                         f"{tuple(data.shape)}")
+    n = data.shape[0]
+    out = torch.empty((n, 2), dtype=torch.int64, device=key.device)
+    if n == 0:
+        return out
+    fn = native.function("threefry", "threefry_fold_in_each",
+                         [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                          ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(key.device):
+        rc = fn(rows.data_ptr(), rows.shape[0], data.data_ptr(), n,
+                out.data_ptr(), native.stream_of(key))
     native.check_launch(rc, "threefry_split")
     return out
 

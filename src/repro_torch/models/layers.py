@@ -5,12 +5,15 @@ import math
 
 import torch
 
+from .. import prng
 
-def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
+
+def dense_init(key: torch.Tensor, shape, dtype=torch.float32,
                fan_in: int | None = None) -> torch.Tensor:
-    """Normal(0, 1/fan_in) weights from an explicit generator — the same
-    distribution as the JAX package's ``dense_init`` (not its bits)."""
+    """Normal(0, 1/fan_in) weights drawn from a port PRNG key, the JAX
+    package's ``dense_init``: ``prng.normal(key, shape)`` (the bits of
+    ``jax.random.normal``, within a few ulp) times ``1 / sqrt(max(fan_in,
+    1))`` in double, applied to the f32 draw, then cast to ``dtype``."""
     fi = fan_in if fan_in is not None else shape[0]
     std = 1.0 / math.sqrt(max(fi, 1))
-    w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32)
-    return (w * std).to(dtype)
+    return (prng.normal(key, tuple(shape)) * std).to(dtype)

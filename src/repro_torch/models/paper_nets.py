@@ -24,16 +24,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import prng
 from ..device import resolve_device
 from .layers import dense_init
 
 Params = dict[str, torch.Tensor]
+Key = torch.Tensor | int
 
 
-def _generator(generator: torch.Generator | int) -> torch.Generator:
-    if isinstance(generator, int):
-        return torch.Generator().manual_seed(generator)
-    return generator
+def _keys(key: Key, n: int) -> list[torch.Tensor]:
+    """``split(key, n)`` on the CPU, as the reference's inits split their
+    key; an int seed means ``prng.PRNGKey(seed)``."""
+    if isinstance(key, int):
+        key = prng.PRNGKey(key)
+    return list(prng.split(key.to("cpu"), n))
 
 
 def _placed(params: Params, device) -> Params:
@@ -51,18 +55,20 @@ def _per_client(apply, params: Params, x: torch.Tensor, probe: str,
     return apply(one, x.unsqueeze(0), **kw)[0]
 
 
-def init_2nn(generator: torch.Generator | int, *, d_in: int = 784,
-             d_hidden: int = 200, n_classes: int = 10,
-             dtype=torch.float32, device=None) -> Params:
-    """2NN parameters drawn from ``generator`` (or a seed) on the CPU,
-    then placed on ``device`` (CUDA unless ``"cpu"`` is given)."""
-    generator = _generator(generator)
+def init_2nn(key: Key, *, d_in: int = 784, d_hidden: int = 200,
+             n_classes: int = 10, dtype=torch.float32, device=None
+             ) -> Params:
+    """2NN parameters drawn from ``key`` (a port PRNG key, or a seed) on
+    the CPU as the reference's ``init_2nn`` draws them (``split(key,
+    3)``, one key a weight), then placed on ``device`` (CUDA unless
+    ``"cpu"`` is given)."""
+    k1, k2, k3 = _keys(key, 3)
     params = {
-        "w1": dense_init(generator, (d_in, d_hidden), dtype),
+        "w1": dense_init(k1, (d_in, d_hidden), dtype),
         "b1": torch.zeros((d_hidden,), dtype=dtype),
-        "w2": dense_init(generator, (d_hidden, d_hidden), dtype),
+        "w2": dense_init(k2, (d_hidden, d_hidden), dtype),
         "b2": torch.zeros((d_hidden,), dtype=dtype),
-        "w3": dense_init(generator, (d_hidden, n_classes), dtype),
+        "w3": dense_init(k3, (d_hidden, n_classes), dtype),
         "b3": torch.zeros((n_classes,), dtype=dtype),
     }
     return _placed(params, device)
@@ -126,21 +132,21 @@ def _ungrouped(h: torch.Tensor, m: int) -> torch.Tensor:
 # CNN (paper's MNIST CNN)
 # ---------------------------------------------------------------------------
 
-def init_cnn(generator: torch.Generator | int, *, in_ch: int = 1,
-             n_classes: int = 10, img: int = 28, dtype=torch.float32,
-             device=None) -> Params:
-    """CNN parameters (HWIO convolutions) drawn from ``generator`` (or a
-    seed) on the CPU, then placed on ``device`` (CUDA unless ``"cpu"``)."""
-    g = _generator(generator)
+def init_cnn(key: Key, *, in_ch: int = 1, n_classes: int = 10,
+             img: int = 28, dtype=torch.float32, device=None) -> Params:
+    """CNN parameters (HWIO convolutions) drawn from ``key`` (or a seed)
+    on the CPU in the reference's order (``split(key, 4)``), then placed
+    on ``device`` (CUDA unless ``"cpu"``)."""
+    k1, k2, k3, k4 = _keys(key, 4)
     side = img // 4            # two 2x2 maxpools
     return _placed({
-        "c1": dense_init(g, (5, 5, in_ch, 32), dtype, fan_in=25 * in_ch),
+        "c1": dense_init(k1, (5, 5, in_ch, 32), dtype, fan_in=25 * in_ch),
         "cb1": torch.zeros((32,), dtype=dtype),
-        "c2": dense_init(g, (5, 5, 32, 64), dtype, fan_in=25 * 32),
+        "c2": dense_init(k2, (5, 5, 32, 64), dtype, fan_in=25 * 32),
         "cb2": torch.zeros((64,), dtype=dtype),
-        "w1": dense_init(g, (side * side * 64, 512), dtype),
+        "w1": dense_init(k3, (side * side * 64, 512), dtype),
         "b1": torch.zeros((512,), dtype=dtype),
-        "w2": dense_init(g, (512, n_classes), dtype),
+        "w2": dense_init(k4, (512, n_classes), dtype),
         "b2": torch.zeros((n_classes,), dtype=dtype),
     }, device)
 
@@ -165,12 +171,13 @@ def apply_cnn(params: Params, x: torch.Tensor) -> torch.Tensor:
 # Char-LSTM (paper's Shakespeare model)
 # ---------------------------------------------------------------------------
 
-def init_lstm_cell(generator: torch.Generator, d_in: int, d_h: int,
-                   dtype=torch.float32, prefix: str = "") -> Params:
+def init_lstm_cell(key: Key, d_in: int, d_h: int, dtype=torch.float32,
+                   prefix: str = "") -> Params:
     """One cell's leaves ``wx``, ``wh``, ``b`` (gates i, f, g, o), named
-    ``prefix + leaf``."""
-    return {prefix + "wx": dense_init(generator, (d_in, 4 * d_h), dtype),
-            prefix + "wh": dense_init(generator, (d_h, 4 * d_h), dtype,
+    ``prefix + leaf``, from ``split(key, 2)``."""
+    k1, k2 = _keys(key, 2)
+    return {prefix + "wx": dense_init(k1, (d_in, 4 * d_h), dtype),
+            prefix + "wh": dense_init(k2, (d_h, 4 * d_h), dtype,
                                       fan_in=d_h),
             prefix + "b": torch.zeros((4 * d_h,), dtype=dtype)}
 
@@ -189,17 +196,18 @@ def lstm_cell(params: Params, carry, xw: torch.Tensor, prefix: str = ""):
     return (h, c), h
 
 
-def init_charlstm(generator: torch.Generator | int, *, vocab: int = 90,
-                  d_embed: int = 8, d_h: int = 256, dtype=torch.float32,
-                  device=None) -> Params:
-    """CharLSTM parameters, the cells' leaves named ``l1/...``, ``l2/...``
-    (the flat names of the JAX package's nested tree)."""
-    g = _generator(generator)
+def init_charlstm(key: Key, *, vocab: int = 90, d_embed: int = 8,
+                  d_h: int = 256, dtype=torch.float32, device=None
+                  ) -> Params:
+    """CharLSTM parameters from ``split(key, 4)`` (embedding, the two
+    cells, the head), the cells' leaves named ``l1/...``, ``l2/...`` (the
+    flat names of the JAX package's nested tree)."""
+    k1, k2, k3, k4 = _keys(key, 4)
     return _placed({
-        "embed": dense_init(g, (vocab, d_embed), dtype, fan_in=d_embed),
-        **init_lstm_cell(g, d_embed, d_h, dtype, "l1/"),
-        **init_lstm_cell(g, d_h, d_h, dtype, "l2/"),
-        "out": dense_init(g, (d_h, vocab), dtype),
+        "embed": dense_init(k1, (vocab, d_embed), dtype, fan_in=d_embed),
+        **init_lstm_cell(k2, d_embed, d_h, dtype, "l1/"),
+        **init_lstm_cell(k3, d_h, d_h, dtype, "l2/"),
+        "out": dense_init(k4, (d_h, vocab), dtype),
         "out_b": torch.zeros((vocab,), dtype=dtype),
     }, device)
 
@@ -246,13 +254,14 @@ def apply_charlstm(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 # Mini ResNet (CIFAR-like bench; ResNet20-family, narrower)
 # ---------------------------------------------------------------------------
 
-def init_miniresnet(generator: torch.Generator | int, *, in_ch: int = 3,
-                    width: int = 8, n_classes: int = 10, blocks: int = 2,
+def init_miniresnet(key: Key, *, in_ch: int = 3, width: int = 8,
+                    n_classes: int = 10, blocks: int = 2,
                     dtype=torch.float32, device=None) -> Params:
     """MiniResNet parameters (HWIO convolutions; a 1x1 shortcut where a
-    block changes stride or width), drawn in the JAX package's order."""
-    g = _generator(generator)
-    p = {"stem": dense_init(g, (3, 3, in_ch, width), dtype,
+    block changes stride or width), drawn in the JAX package's order:
+    ``split(key, 4 + 4 * blocks * 3)``, taken one a weight."""
+    ks = iter(_keys(key, 4 + 4 * blocks * 3))
+    p = {"stem": dense_init(next(ks), (3, 3, in_ch, width), dtype,
                             fan_in=9 * in_ch),
          "stem_b": torch.zeros((width,), dtype=dtype)}
     ch = width
@@ -261,17 +270,17 @@ def init_miniresnet(generator: torch.Generator | int, *, in_ch: int = 3,
         for bl in range(blocks):
             pref = f"s{s}b{bl}"
             st = stride if bl == 0 else 1
-            p[pref + "_c1"] = dense_init(g, (3, 3, ch, out_ch), dtype,
-                                         fan_in=9 * ch)
+            p[pref + "_c1"] = dense_init(next(ks), (3, 3, ch, out_ch),
+                                         dtype, fan_in=9 * ch)
             p[pref + "_b1"] = torch.zeros((out_ch,), dtype=dtype)
-            p[pref + "_c2"] = dense_init(g, (3, 3, out_ch, out_ch), dtype,
-                                         fan_in=9 * out_ch)
+            p[pref + "_c2"] = dense_init(next(ks), (3, 3, out_ch, out_ch),
+                                         dtype, fan_in=9 * out_ch)
             p[pref + "_b2"] = torch.zeros((out_ch,), dtype=dtype)
             if st != 1 or ch != out_ch:
-                p[pref + "_sc"] = dense_init(g, (1, 1, ch, out_ch), dtype,
-                                             fan_in=ch)
+                p[pref + "_sc"] = dense_init(next(ks), (1, 1, ch, out_ch),
+                                             dtype, fan_in=ch)
             ch = out_ch
-    p["head"] = dense_init(g, (ch, n_classes), dtype)
+    p["head"] = dense_init(next(ks), (ch, n_classes), dtype)
     p["head_b"] = torch.zeros((n_classes,), dtype=dtype)
     return _placed(p, device)
 

@@ -22,8 +22,8 @@ CUDA keys to their kernels (T1 for the first two, T2, T3 and T4,
 ``kernels/threefry.py``: one launch a call) and CPU keys to
 ``split_plain``, ``fold_in_plain``, ``uniform_plain``,
 ``random_bits_plain`` and ``normal_plain``, the tensor versions here.
-``permutation`` and ``choice`` are built from those, as ``jax.random``
-builds them (jax 0.9).
+``randint``, ``permutation`` and ``choice`` are built from those, as
+``jax.random`` builds them (jax 0.9).
 """
 from __future__ import annotations
 
@@ -35,8 +35,8 @@ import torch
 __all__ = ["PRNGKey", "split", "split_plain", "fold_in", "fold_in_plain",
            "threefry2x32",
            "random_bits", "random_bits_plain", "uniform", "uniform_plain",
-           "uniform_at", "normal", "normal_plain", "permutation",
-           "choice"]
+           "uniform_at", "normal", "normal_plain", "randint",
+           "permutation", "choice"]
 
 MASK32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -107,23 +107,36 @@ def split_plain(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for ``0 <= data < 2^32``: in the
     partitionable mode it hashes the counter ``(0, data)`` under the key
     and keeps both words, which is ``split(key, data + 1)[data]``. On the
     card one T1 launch for that counter; on the CPU
-    :func:`fold_in_plain`."""
+    :func:`fold_in_plain`.
+
+    ``data`` may be an int64 tensor ``[n]`` on the key's device (values
+    taken modulo 2^32, as jax's uint32 conversion does): one key ``[2]``
+    or ``n`` keys ``[n, 2]`` -> ``[n, 2]``, the ``vmap`` of ``fold_in``
+    over the data (and the keys) in one T1 launch."""
+    from .kernels import threefry
+    if isinstance(data, torch.Tensor):
+        return threefry.fold_in(key.contiguous(), data.contiguous())
     if not 0 <= data <= MASK32:
         raise ValueError(f"data {data} is not a uint32")
-    from .kernels import threefry
     return threefry.fold_in(key.contiguous(), data)
 
 
-def fold_in_plain(key: torch.Tensor, data: int) -> torch.Tensor:
-    """:func:`fold_in` as int64 tensor operations."""
+def fold_in_plain(key: torch.Tensor, data) -> torch.Tensor:
+    """:func:`fold_in` as int64 tensor operations (``data`` an int, or an
+    int64 tensor ``[n]`` against a key ``[2]`` or ``[n, 2]``)."""
     k1, k2 = key[..., 0], key[..., 1]
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(k1),
-                          torch.full_like(k1, data))
+    if isinstance(data, torch.Tensor):
+        d = (data & MASK32).to(key.device)
+        k1, k2 = torch.broadcast_tensors(k1, k2, d)[:2]
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
+    else:
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(k1),
+                              torch.full_like(k1, data))
     return torch.stack([b1, b2], dim=-1)
 
 
@@ -207,6 +220,49 @@ def normal_plain(key: torch.Tensor, shape) -> torch.Tensor:
         c = torch.where(small, a, b)
         p = c if p is None else c + p * w
     return (p * u) * _SQRT2_F32
+
+
+def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` as jax
+    0.9's ``_randint`` computes it: key ``[..., 2]`` -> int32 ``[...,
+    *shape]`` in ``[minval, maxval)``.
+
+    ``minval`` and ``maxval`` (ints, or int tensors broadcastable to
+    ``shape``) are clipped to the int32 range; ``split(key)`` gives two
+    keys whose 32-bit draws are the high and low words; ``span = maxval -
+    minval`` as a uint32 (1 where ``maxval <= minval``, one more where
+    ``maxval`` was out of range), ``multiplier = (2^16 % span)^2 %
+    span``, and the offset ``((hi % span) * multiplier + lo % span) %
+    span``. The uint32 products wrap modulo 2^32, so each is masked to
+    32 bits here, where the words are carried in int64; a span that
+    wraps to 0 leaves ``x % 0 = x``, XLA's unsigned remainder. On the
+    card one T1 and two T3 launches."""
+    shape = tuple(shape)
+    dev = key.device
+    lo32, hi32 = -2 ** 31, 2 ** 31 - 1
+    minv = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    maxv = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    out_of_range = maxv > hi32
+    minv = minv.clamp(lo32, hi32)
+    maxv = maxv.clamp(lo32, hi32)
+    k = split(key)
+    higher = random_bits(k[..., 0, :], shape)
+    lower = random_bits(k[..., 1, :], shape)
+    span = (maxv - minv) & MASK32
+    span = torch.where(maxv <= minv, torch.ones_like(span), span)
+    span = torch.where(out_of_range & (maxv > minv), (span + 1) & MASK32,
+                       span)
+
+    def rem(a, b):          # XLA's unsigned remainder: a % 0 = a
+        return torch.where(b == 0, a, a % torch.where(b == 0, 1, b))
+
+    mult = rem(torch.full_like(span, 2 ** 16), span)
+    mult = rem((mult * mult) & MASK32, span)
+    off = ((rem(higher, span) * mult) & MASK32) + rem(lower, span)
+    off = rem(off & MASK32, span)
+    # minval + int32(offset), wrapping as int32 does.
+    val = (minv + off + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return val.to(torch.int32)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -7,11 +7,16 @@ row names (``benchmarks/bench_fig6_compare.py``,
 finite accuracy or loss, the Fig. 6 rows bill exactly the bits of the
 reference's ``comm_cost`` at the same m, rounds and d, the topology
 bench's lambda rows are the reference's, the time-varying rows bill the
-reference's schedule bits and the async row has the reference's fields.
-A failing bench makes the runner exit non-zero.
+reference's schedule bits, the async row has the reference's fields and
+the pool bench (``bench_pool.py``) reports its pooled arm bitwise with
+the resident one, billed and FLOP-counted equal; a two-round Fig. 6
+DFedAvgM arm tracks the reference's. A failing bench makes the runner
+exit non-zero.
 
 Contract: names, lambda rows and MB and bit strings equal; accuracies
-finite in [0, 1], losses finite and positive.
+finite in [0, 1], losses finite and positive; the Fig. 6 arm's loss,
+consensus distance and accuracy within rtol 1e-4 of the reference's (the
+same keyed init and data).
 """
 import math
 
@@ -22,7 +27,7 @@ torch = pytest.importorskip("torch")
 from repro.core import MixingSpec as JMixingSpec  # noqa: E402
 from repro.core import comm_cost as jcc  # noqa: E402
 from repro_torch.bench import (async_compare, charlm, cnn,  # noqa: E402
-                               fig6_compare, quant_epochs, timevarying,
+                               fig6_compare, pool, quant_epochs, timevarying,
                                topology)
 from repro_torch.bench import run as bench_run  # noqa: E402
 from repro_torch.bench.common import timed, timeit_best  # noqa: E402
@@ -47,6 +52,7 @@ def reference_rows():
         "static_ring", "constant_sched", "er_edge_sample", "ring_partial",
         "ring_random_walk")]
     names.append("async_vs_sync_straggler")
+    names += ["pool/m=4096", "pool/compare"]
     return names
 
 
@@ -103,6 +109,7 @@ def test_topology_lambda_rows_equal_the_reference():
 def test_smoke_run_gives_the_reference_rows_and_bits(capsys, monkeypatch,
                                                      tmp_path):
     monkeypatch.setattr(async_compare, "OUT_JSON", tmp_path / "a.json")
+    monkeypatch.setattr(pool, "OUT_JSON", tmp_path / "p.json")
     assert bench_run.main(["--smoke", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "name,us_per_call,derived"
@@ -119,6 +126,12 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys, monkeypatch,
             assert set(dict(f.split("=") for f in derived.split("|"))) == {
                 "target_loss", "sync_t", "async_t", "speedup", "beats_sync",
                 "us_per_event"}, derived
+            continue
+        if name.startswith("pool/"):       # space-separated fields
+            fields = dict(f.split("=") for f in derived.split(" "))
+            assert set(fields) == ({"rps", "k"} if name != "pool/compare"
+                                   else {"pooled", "resident",
+                                         "cost_ratio", "bitwise"}), name
             continue
         assert math.isfinite(float(us)) and float(us) > 0, name
         fields = dict(f.split("=") for f in derived.replace(
@@ -198,6 +211,50 @@ def test_async_compare_smoke_row_and_json(monkeypatch, tmp_path):
     # A sync round waits for the straggler (~10); an m-event async chunk
     # advances the clock by the fast clients' durations (~1).
     assert res["async_curve"][-1][0] < res["sync_curve"][-1][0]
+
+
+def test_pool_smoke_rows_and_json(monkeypatch, tmp_path):
+    """``bench.pool`` at the reference's smoke size on the CPU (one m =
+    4 096 arm at k 64; the comparison at m 64, k 16): the rows parse as
+    the reference's, and the pooled run is bitwise with the resident one,
+    bills its schedule's bits and counts the resident skip round's
+    FLOPs."""
+    import json
+
+    out = tmp_path / "BENCH_pool_torch.json"
+    monkeypatch.setattr(pool, "OUT_JSON", out)
+    rows = pool.run(smoke=True, device="cpu")
+    assert [r[0] for r in rows] == ["pool/m=4096", "pool/compare"]
+    rps = dict(f.split("=") for f in rows[0][2].split(" "))
+    assert float(rps["rps"]) > 0 and rps["k"] == "64"
+    cmp = dict(f.split("=") for f in rows[1][2].split(" "))
+    assert cmp["bitwise"] == "True"
+    res = json.loads(out.read_text())
+    assert res["smoke"] is True and res["device"] == "cpu"
+    [arm] = res["pool_scaling"]
+    assert arm["m"] == 4096 and arm["cohort"] == 64
+    c = res["compare"]
+    assert (c["m"], c["cohort"]) == (64, 16)
+    assert c["bitwise_equal"] and c["billing_equal"] and c["flops_equal"]
+    assert c["pooled_round_flops"] == c["resident_round_flops"] > 0
+    assert c["billing_bits_per_round"] > 0
+
+
+def test_fig6_dfedavgm_arm_tracks_the_reference():
+    """Two rounds of the Fig. 6 DFedAvgM arm at the smoke size (m 4, K 4,
+    batch 32), seeded as the reference's bench seeds it
+    (``init_2nn(PRNGKey(0))``, the state's key ``PRNGKey(1)``): loss,
+    consensus distance and accuracy within rtol 1e-4 of the reference's
+    ``train_dfedavgm_2nn`` on the same data."""
+    from benchmarks.common import train_dfedavgm_2nn as j_train
+    from repro.data import classification_dataset as j_data
+
+    r = next(fig6_compare.arms(smoke=True, device="cpu"))[1]
+    want = j_train(m=fig6_compare.SMOKE_M, K=fig6_compare.K,
+                   batch=fig6_compare.B, rounds=fig6_compare.SMOKE_ROUNDS,
+                   data=j_data(n=8000, seed=0))
+    for f in ("loss", "consensus_dist", "acc"):
+        assert r[f] == pytest.approx(want[f], rel=1e-4), f
 
 
 def test_charlm_batches_are_the_reference_windows():

@@ -11,7 +11,8 @@ the whole padded buffer and its key by value or by pointer, B7's streams
 fixed at compile time or in groups, B8's three stream pointers, and the
 flat [n] x of B7 and B8 with its ragged tail and scalar path, B3's lane
 entry (a device eta [m], client c's values stepping with eta[c]), T1's
-pair per thread (and its fold_in of one counter) and T2's, T3's and T4's
+pair per thread (its fold_in of one counter, and of a counter a row)
+and T2's, T3's and T4's
 grid of (blocks of a row, rows) — called
 through
 their C entry points exactly as the wrappers call them. What it cannot show
@@ -668,6 +669,35 @@ def test_t1_fold_in_entry(host_lib, rows, data):
             :, data].numpy())
     for bad_rows, bad_data in ((0, data), (rows, -1), (rows, 2 ** 32)):
         assert fn(ptr(keys), bad_rows, bad_data, ptr(out), None) != 0
+
+
+@pytest.mark.parametrize("n", [1, 64, 300])
+@pytest.mark.parametrize("key_rows", ["one", "each"])
+def test_t1_fold_in_each_entry(host_lib, n, key_rows):
+    """T1's batched fold_in (a counter a row, into one key or a key a
+    row) bitwise against ``prng.fold_in_plain`` over a data tensor, and
+    against the one-counter fold_in row by row; the data is taken modulo
+    2^32 (negative and wide values included). No rows, or a key count
+    neither 1 nor n, is refused."""
+    fn = entry(host_lib("threefry"), "threefry_fold_in_each",
+               [P, ctypes.c_int64, P, ctypes.c_int64, P, P])
+    rows = 1 if key_rows == "one" else n
+    keys = random_keys(rows, 3 * n + rows)
+    rng = np.random.default_rng(n)
+    data = torch.from_numpy(rng.integers(-2 ** 33, 2 ** 33, size=n,
+                                         dtype=np.int64))
+    data[0] = 0x61737963
+    out = np.full((n, 2), -1, np.int64)
+    assert fn(ptr(keys), rows, ptr(data), n, ptr(out), None) == 0
+    want = prng.fold_in_plain(keys[0] if rows == 1 else keys, data)
+    assert np.array_equal(out, want.numpy())
+    for i in (0, n - 1):
+        one = prng.fold_in_plain(keys[0 if rows == 1 else i],
+                                 int(data[i]) % 2 ** 32)
+        assert out[i].tolist() == one.tolist()
+    for bad_rows, bad_n in ((rows, 0), (rows, -1), (2, n + 2)):
+        assert fn(ptr(keys), bad_rows, ptr(data), bad_n, ptr(out),
+                  None) != 0
 
 
 @pytest.mark.parametrize("rows,n", [(1, 1), (1, 16), (16, 16), (4, 257),

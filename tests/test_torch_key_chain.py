@@ -188,6 +188,7 @@ def test_fused_round_splits_client_keys_once(monkeypatch):
     p0 = tnets.init_2nn(0, d_in=D_IN, d_hidden=HID, device="cpu")
     st = init_round_state({n: t.expand((M,) + t.shape).contiguous()
                            for n, t in p0.items()}, prng.PRNGKey(1))
+    splits.clear()          # the keyed init's own splits
     step(st, fed.round_batches(0, K=3, batch=B, device="cpu"))
     assert splits == [((2,), 3), ((2,), M), ((M, 2), 3),
                       ((2,), N_LEAVES * M)]

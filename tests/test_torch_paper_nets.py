@@ -188,6 +188,64 @@ def test_leaf_order_is_jax_flatten_order(model):
         a.shape for a in jax.tree.leaves(jtree)]
 
 
+# A leaf is f32(std) times a normal draw; the port's draw is within 3 ulp
+# of jax.random.normal's (test_torch_event_clock.py), and the product's
+# rounding can add one more where the two draws straddle a rounding
+# boundary of the scaled value. The cases below read 4 on the 2NN's w1
+# and w2 (seeds 0 and 7), the CNN's c1 and c2 and some MiniResNet
+# convolutions, 3 on the others.
+INIT_ULP = 3 + 1
+
+
+def max_ulp(a: np.ndarray, b: np.ndarray) -> int:
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(
+            np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.abs(ordered(a) - ordered(b)).max()) if a.size else 0
+
+
+@pytest.mark.parametrize("model,kw", [
+    ("2nn", {}), ("2nn", dict(d_in=32, d_hidden=16)),
+    ("cnn", dict(in_ch=3, img=8)), ("charlstm", LSTM),
+    ("miniresnet", RESNET), ("miniresnet", dict(in_ch=3, width=4,
+                                                blocks=1))])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_keyed_init_matches_the_reference(model, kw, seed):
+    """Every ``init_*`` draws the reference's parameters from the same
+    key, leaf by leaf: ``split`` in the reference's order, then
+    ``prng.normal`` times the reference's std (within INIT_ULP of the
+    reference's leaf); an int seed means ``prng.PRNGKey(seed)``; the
+    zero-initialized biases exactly."""
+    j_init_fn = getattr(jnets, f"init_{model}")
+    t_init_fn = getattr(tnets, f"init_{model}")
+    want = convert._flatten(jax.tree.map(np.asarray, jax.jit(
+        functools.partial(j_init_fn, **kw))(jax.random.PRNGKey(seed))))
+    got = t_init_fn(prng.PRNGKey(seed), device="cpu", **kw)
+    by_seed = t_init_fn(seed, device="cpu", **kw)
+    assert sorted(got) == sorted(want)
+    for n in want:
+        assert got[n].dtype == torch.float32, n
+        assert tuple(got[n].shape) == want[n].shape, n
+        assert max_ulp(got[n].numpy(), want[n]) <= INIT_ULP, n
+        assert torch.equal(by_seed[n], got[n]), n
+        if not want[n].any():
+            assert not got[n].any(), n
+
+
+def test_dense_init_is_the_scaled_normal_draw():
+    """``dense_init`` is ``prng.normal(key, shape)`` times ``1 /
+    sqrt(max(fan_in, 1))`` (rounded to f32), bit for bit."""
+    from repro_torch.models.layers import dense_init
+    key = prng.PRNGKey(3)
+    for shape, fan_in in (((7, 5), None), ((3, 3, 2, 4), 18), ((4, 1), 0)):
+        std = np.float32(1.0 / np.sqrt(max(fan_in if fan_in is not None
+                                           else shape[0], 1)))
+        want = prng.normal(key, shape).numpy() * std
+        got = dense_init(key, shape, fan_in=fan_in).numpy()
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def test_paper_sizes():
     counts = {m: tnets.count_params(init(0, device="cpu", **PAPER_MODELS[m]))
               for m, init in (("cnn", tnets.init_cnn),
