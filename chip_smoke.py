@@ -120,6 +120,22 @@ Phases (any failure exits non-zero):
    pooled against the resident skip path, plan realization and dense,
    fp32 and 8-bit) and the async pool against the resident engine;
    ``bench.pool`` at full size;
+10e. "telemetry": the quickstart on the static ring, an edge-sampled
+   ring (p 0.5) and an exact cohort (p 0.6), unfused and fused, with
+   ``with_telemetry`` off and on, eager and captured, 12 rounds each:
+   launches exact (the replay adds one T1 and a T2 a leaf unfused),
+   telemetry on bitwise with off, captured bitwise with eager (the
+   Telemetry too), each graph's kernel nodes exact, the static ring's
+   off graph OFF_GRAPH_NODES, the on graph's extra nodes by group, one
+   round's Telemetry against the CPU's (TEL_CPU_RTOL, TEL_CPU_EQUAL);
+   the async decay arm's captured events with telemetry (histogram sums
+   to m, live + dropped edges == the base's on the ready rows, the
+   captured engine's stacked Telemetry the loop's); the pool's headline
+   with telemetry and an enabled Tracer (bitwise with telemetry off, a
+   RunLog JSONL that ``check_schema`` passes and ``launch.report``
+   renders, the span totals beside ``pool_breakdown``'s parts); and
+   ``bench.timevarying.telemetry_overhead_compare`` captured and eager,
+   its on/off ratios beside the reference's 1.10;
 11. captured against eager round time by the host clock, in turns in
    this process, with a profile of 5 replays, a replay's device time and
    the cost of the no-alias clones;
@@ -3851,8 +3867,493 @@ def pool_phase(dev, flush=None, rec=None) -> tuple[dict, dict]:
     return out, out["sync"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# The "telemetry" phase: the in-graph Telemetry of the sync, fused, async
+# and pooled steps on the card, the tracer, the run log and its report.
+# ---------------------------------------------------------------------------
+
+# The quickstart on the static ring and two schedules whose telemetry
+# differs: sampled edges (live edges change every round) and an exact
+# cohort (compute-skip gathers; the replay is weighted by ``active``).
+TELEMETRY_SPECS = ("ring", "edge_sample", "partial_exact")
+# Nodes of a captured quickstart round on the static ring with telemetry
+# off, what this phase's off graph must keep: read on the card from the
+# tree before the telemetry slice (``captured_rounds``; 284 and 333 in
+# PR 18, one node more since).
+OFF_GRAPH_NODES = {"unfused": 285, "fused": 334}
+# One telemetry round on the card against the same round on the CPU
+# (from the card's state after TEL_CPU_ROUND rounds): relative
+# tolerances, and the fields that must be equal.
+TEL_CPU_RTOL = {"consensus_dist": 1e-5, "local_drift": 1e-5,
+                "quant_err_sq": 1e-4, "quant_bound": 1e-4}
+TEL_CPU_EQUAL = ("live_edges", "wire_bits", "quant_sat_frac")
+TEL_CPU_ROUND = 3
+# The JAX package's gate on with_telemetry's wall clock (its CPU runner):
+# printed beside the card's ratios, not a gate here.
+REFERENCE_OVERHEAD = 1.10
+N_LEAVES_2NN = 6
+
+
+def telemetry_spec(kind: str):
+    """The telemetry phase's spec ``kind`` at m = M (the quickstart's)."""
+    from repro_torch.core import MixingSpec, TopologySchedule, ring_graph
+    return {"ring": lambda: MixingSpec.ring(M, self_weight=0.5),
+            "edge_sample": lambda: TopologySchedule.edge_sample(
+                ring_graph(M), 0.5),
+            "partial_exact": lambda: TopologySchedule.partial(
+                ring_graph(M), 0.6, exact=True)}[kind]()
+
+
+def telemetry_extra_launches(fuse_round: bool, lanes: int = 1) -> dict:
+    """Launches telemetry adds to a quantized round or event: the
+    replay's per-leaf keys (one T1 split) and its noise, one T2 launch a
+    leaf over the replayed lanes' keys; the fused round replays nothing.
+    ``lanes`` 0: the keys are given (the pooled step's gathered keys)."""
+    extra = dict.fromkeys(KERNEL_SOURCES, 0)
+    if not fuse_round:
+        extra["threefry_split"] = 1 if lanes else 0
+        extra["threefry_uniform"] = N_LEAVES_2NN
+    return extra
+
+
+def node_label(op: str, name: str) -> str:
+    """A graph node's group for the extra-node count: the port's kernels
+    and matmuls by :func:`_kernel_group`, any other kernel by its
+    demangled function and first template argument, else its operation."""
+    if op != "kernel":
+        return op
+    g = _kernel_group(name)
+    if g in KERNEL_SOURCES or g == "matmul":
+        return g
+    text = demangle(name)
+    text = re.sub(r"^void ", "", text).split("(")[0]
+    return text[:120]
+
+
+def extra_nodes(on, off) -> dict:
+    """The nodes of graph ``on`` beyond graph ``off``'s, by label."""
+    from collections import Counter
+    diff = Counter(node_label(*n) for n in on) - Counter(
+        node_label(*n) for n in off)
+    return dict(sorted(diff.items(), key=lambda kv: -kv[1]))
+
+
+def tel_host(met) -> dict:
+    from repro_torch.telemetry import telemetry_host
+    return telemetry_host(met["telemetry"])
+
+
+def telemetry_equal(a, b) -> bool:
+    """Two Telemetry of device tensors equal field by field (None too)."""
+    return all((x is None and y is None) or (
+        x is not None and y is not None and torch.equal(x, y))
+        for x, y in zip(a, b))
+
+
+def timed_rounds(fn, state, batches, keep: bool = False):
+    """Rounds of ``fn`` from ``state``: (final state, metrics by round,
+    host ms by round, states by round when ``keep``)."""
+    mets, ms, states = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = fn(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        mets.append(met)
+        if keep:
+            states.append(state)
+    return state, mets, ms, states
+
+
+def telemetry_rounds(dev, kind: str, fuse_round: bool, setup) -> dict:
+    """The quickstart on ``telemetry_spec(kind)``, unfused or fused,
+    telemetry off and on, eager and captured, ROUNDS rounds each from one
+    state: launches exact (a round's, plus :func:`telemetry_extra_launches`
+    on); on bitwise with off (parameters, key, every metric) eager and
+    captured; captured on bitwise with eager on (the Telemetry too); each
+    graph's kernel nodes exact, the static ring's off graph
+    OFF_GRAPH_NODES; the on graph's extra nodes by group; round
+    TEL_CPU_ROUND against the CPU (TEL_CPU_RTOL, TEL_CPU_EQUAL)."""
+    from repro_torch import prng
+    from repro_torch.core import (DFedAvgMConfig, QuantConfig, capture_step,
+                                  init_round_state, make_round_step)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    stacked, batches, loss_fn = setup
+    spec = telemetry_spec(kind)
+    cfg = DFedAvgMConfig(eta=ETA, theta=THETA, local_steps=K,
+                         quant=QuantConfig(bits=8), fuse_round=fuse_round)
+    variant = "fused" if fuse_round else "unfused"
+    name = f"telemetry {variant} {kind}"
+
+    def make(on: bool, device=dev):
+        return make_round_step(loss_fn, cfg, spec, device=device,
+                               with_telemetry=on)
+
+    s0 = init_round_state(stacked, prng.PRNGKey(1))
+    per = round_launches(spec, fuse_round=fuse_round)
+    extra = telemetry_extra_launches(fuse_round)
+    per_on = {k: per[k] + extra[k] for k in per}
+    eager, counts, ms = {}, {}, {}
+    for on in (False, True):
+        step = make(on)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        fin, mets, ms[f"eager_{on}"], states = timed_rounds(
+            step, s0, batches, keep=True)
+        counts[on] = launch_counts()
+        eager[on] = (fin, mets, states)
+    rep = {"path": name, "rounds": ROUNDS, "launches_on": counts[True],
+           "expected_launches_on": {k: ROUNDS * v for k, v in per_on.items()},
+           "launches_off": counts[False]}
+    if counts[False] != {k: ROUNDS * v for k, v in per.items()}:
+        raise AssertionError(f"{name}: off launches {counts[False]}")
+    if counts[True] != rep["expected_launches_on"]:
+        raise AssertionError(f"{name}: on launches {counts[True]} != "
+                             f"{rep['expected_launches_on']}")
+
+    def same_state(a, b) -> bool:
+        return torch.equal(a.rng, b.rng) and all(
+            torch.equal(a.params[n], b.params[n]) for n in a.params)
+
+    rep["eager_on_equals_off"] = all(
+        same_state(a, b) and all(torch.equal(ma[k], mb[k]) for k in ma)
+        for a, b, ma, mb in zip(eager[False][2], eager[True][2],
+                                eager[False][1], eager[True][1]))
+
+    runs = {on: capture_step(make(on), s0, batches[0]) for on in (False,
+                                                                  True)}
+    cap = {}
+    for on in (False, True):
+        fin, mets, ms[f"captured_{on}"], states = timed_rounds(
+            runs[on], s0, batches, keep=True)
+        cap[on] = (fin, mets, states)
+    rep["captured_off_equals_eager_off"] = all(
+        same_state(a, b) for a, b in zip(cap[False][2], eager[False][2]))
+    rep["captured_on_equals_eager_on"] = all(
+        same_state(a, b) and telemetry_equal(ma["telemetry"], mb["telemetry"])
+        for a, b, ma, mb in zip(cap[True][2], eager[True][2],
+                                cap[True][1], eager[True][1]))
+    nodes = {on: graph_nodes(runs[on].graph) for on in (False, True)}
+    rep["graph_nodes"] = {"off": len(nodes[False]), "on": len(nodes[True])}
+    rep["extra_nodes"] = extra_nodes(nodes[True], nodes[False])
+    rep["replay_device_ms"] = {"off": replay_ms(runs[False].graph),
+                               "on": replay_ms(runs[True].graph)}
+    rep["round_ms_median"] = {k: statistics.median(v[1:])
+                              for k, v in ms.items()}
+    graph_off = check_round_graph(f"{name} off", nodes[False], per)
+    graph_on = check_round_graph(f"{name} on", nodes[True], per_on)
+    rep["kernel_nodes_on"] = graph_on["kernel_nodes"]
+    rep["telemetry_last"] = tel_host(eager[True][1][-1])
+
+    # One round against the CPU, from the card's state after
+    # TEL_CPU_ROUND rounds.
+    st = eager[True][2][TEL_CPU_ROUND - 1]
+    s_cpu = init_round_state({n: t.cpu() for n, t in st.params.items()},
+                             st.rng.cpu())._replace(round=st.round)
+    _, m_cpu = make(True, "cpu")(s_cpu, {n: t.cpu() for n, t in
+                                         batches[TEL_CPU_ROUND].items()})
+    got = tel_host(eager[True][1][TEL_CPU_ROUND])
+    want = tel_host(m_cpu)
+    rep["vs_cpu_rel"] = {k: abs(got[k] / want[k] - 1) if want[k] else
+                         abs(got[k]) for k in TEL_CPU_RTOL if k in want}
+    rep["vs_cpu_equal"] = {k: got[k] == want[k] for k in TEL_CPU_EQUAL
+                           if k in want}
+    rep["vs_cpu"] = {"card": got, "cpu": want}
+    print(json.dumps(rep), flush=True)
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: fields {sorted(got)} on the card, "
+                             f"{sorted(want)} on the CPU")
+    for k, rel in rep["vs_cpu_rel"].items():
+        if rel > TEL_CPU_RTOL[k]:
+            raise AssertionError(f"{name}: {k} {got[k]} on the card, "
+                                 f"{want[k]} on the CPU")
+    if not all(rep["vs_cpu_equal"].values()):
+        raise AssertionError(f"{name}: card and CPU differ: "
+                             f"{rep['vs_cpu_equal']}")
+    for f in ("eager_on_equals_off", "captured_off_equals_eager_off",
+              "captured_on_equals_eager_on"):
+        if not rep[f]:
+            raise AssertionError(f"{name}: {f} is false")
+    if kind == "ring" and len(nodes[False]) != OFF_GRAPH_NODES[variant]:
+        raise AssertionError(f"{name}: the off graph has {len(nodes[False])}"
+                             f" nodes, not {OFF_GRAPH_NODES[variant]}")
+    if graph_off["host_copies"] or graph_on["host_copies"]:
+        raise AssertionError(f"{name}: a graph copies from the host")
+    if not all(math.isfinite(v) for v in got.values()):
+        raise AssertionError(f"{name}: telemetry {got}")
+    return rep
+
+
+def telemetry_async(dev, setup) -> dict:
+    """The async phase's decay arm with telemetry: ROUNDS eager events
+    (launches: :func:`event_launches` plus the replay's over every lane)
+    bitwise with the events without it, ROUNDS captured events bitwise
+    with the eager ones (the Telemetry too); each event's histogram sums
+    to M, and ``live_edges + dropped_edges`` equals the base matrix's
+    live edges on the ready rows; the captured engine's stacked
+    Telemetry equals the event loop's."""
+    from repro_torch import prng
+    from repro_torch.core import (DFedAvgMConfig, QuantConfig, capture_step,
+                                  init_async_state, make_async_engine,
+                                  make_round_step, next_event)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.telemetry import live_edge_count
+
+    stacked, batches, loss_fn = setup
+    spec, acfg = async_arm("decay")
+    cfg = DFedAvgMConfig(eta=ETA, theta=THETA, local_steps=K,
+                         quant=QuantConfig(bits=8))
+    name = "telemetry async decay"
+
+    def make(on: bool):
+        return make_round_step(loss_fn, cfg, spec, device=dev,
+                               async_cfg=acfg, with_telemetry=on)
+
+    s0 = init_async_state(stacked, prng.PRNGKey(1), acfg.speed)
+    per = event_launches(spec, acfg)
+    extra = telemetry_extra_launches(False)
+    expect = {k: ROUNDS * (per[k] + extra[k]) for k in per}
+    off_fin, _, _, off_states = timed_rounds(make(False), s0, batches,
+                                             keep=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    on_fin, on_mets, on_ms, on_states = timed_rounds(make(True), s0,
+                                                     batches, keep=True)
+    counts = launch_counts()
+    run = capture_step(make(True), s0, batches[0])
+    W = torch.as_tensor(spec.W, dtype=torch.float32, device=dev)
+    state, hist_ok, invariant, cap_equal, cap_ms = s0, True, True, True, []
+    for t, b in enumerate(batches):
+        pre = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = run(state, b)
+        torch.cuda.synchronize()
+        cap_ms.append((time.perf_counter() - t0) * 1e3)
+        tel = met["telemetry"]
+        hist_ok &= int(tel.staleness_hist.sum()) == M
+        _, ready = next_event(pre.next_ready)
+        base = live_edge_count(W * ready[:, None])
+        invariant &= float(tel.live_edges + tel.dropped_edges) == float(base)
+        cap_equal &= (telemetry_equal(tel, on_mets[t]["telemetry"])
+                      and all(torch.equal(state.params[n],
+                                          on_states[t].params[n])
+                              for n in state.params))
+    engine = make_async_engine(loss_fn, cfg, spec, acfg, device=dev,
+                               with_telemetry=True, capture=True)
+    _, e_mets = engine(s0, {n: torch.stack([b[n] for b in batches])
+                            for n in batches[0]})
+    stacked_loop = type(on_mets[0]["telemetry"])(*(
+        None if f is None else torch.stack([m_["telemetry"][i]
+                                            for m_ in on_mets])
+        for i, f in enumerate(on_mets[0]["telemetry"])))
+    nodes_on = graph_nodes(run.graph)
+    off_run = capture_step(make(False), s0, batches[0])
+    nodes_off = graph_nodes(off_run.graph)
+    graph_on = check_round_graph(f"{name} on", nodes_on,
+                                 {k: per[k] + extra[k] for k in per})
+    rep = {"path": name, "events": ROUNDS, "launches": counts,
+           "expected_launches": expect,
+           "on_equals_off": all(
+               torch.equal(a.params[n], b.params[n]) and torch.equal(
+                   a.version, b.version)
+               for a, b in zip(on_states, off_states) for n in a.params),
+           "captured_equals_eager": cap_equal, "hist_sums_to_m": hist_ok,
+           "live_plus_dropped_is_base": invariant,
+           "engine_equals_loop": telemetry_equal(e_mets["telemetry"],
+                                                 stacked_loop),
+           "graph_nodes": {"off": len(nodes_off), "on": len(nodes_on)},
+           "extra_nodes": extra_nodes(nodes_on, nodes_off),
+           "replay_device_ms": {"off": replay_ms(off_run.graph),
+                                "on": replay_ms(run.graph)},
+           "event_ms_median": {"eager_on": statistics.median(on_ms[1:]),
+                               "captured_on": statistics.median(cap_ms[1:])},
+           "kernel_nodes_on": graph_on["kernel_nodes"],
+           "telemetry_last": tel_host(on_mets[-1])}
+    print(json.dumps(rep), flush=True)
+    if counts != expect:
+        raise AssertionError(f"{name}: launches {counts} != {expect}")
+    for f in ("on_equals_off", "captured_equals_eager", "hist_sums_to_m",
+              "live_plus_dropped_is_base", "engine_equals_loop"):
+        if not rep[f]:
+            raise AssertionError(f"{name}: {f} is false")
+    return rep
+
+
+def telemetry_pool(dev, breakdown: dict | None = None) -> dict:
+    """The pool at the README's headline (POOL_M, POOL_K, the 2NN, q8):
+    ROUNDS captured rounds with telemetry off, ROUNDS with telemetry on
+    and no tracer, ROUNDS with telemetry and an enabled Tracer, each from
+    a fresh pool: the stores bitwise; the host fields (cohort size, pool
+    hits and misses, the realized bill); the step graph's kernel nodes
+    (the replay's T2 a leaf); the traced rounds written through RunLog
+    to a JSONL in a temporary directory with the trace saved beside it,
+    the log schema-valid (``check_schema``) and rendered by
+    ``launch.report``; the span totals beside ``pool_breakdown``'s parts
+    (``breakdown``, when the pool phase ran)."""
+    import tempfile
+    from repro_torch import prng
+    from repro_torch.core import ClientPool, PoolSchedule, PooledRunner
+    from repro_torch.core.quantize import message_bits
+    from repro_torch.launch import report
+    from repro_torch.telemetry import RunLog, Tracer, check_schema
+
+    setup = pool_setup(dev)
+    template, loss_fn, cfg, batch_fn = setup
+    psched = PoolSchedule.ring_partial(POOL_M, POOL_K / POOL_M)
+    off, off_loss, off_ms = pool_run(dev, setup, psched, ROUNDS,
+                                     capture=True)
+    off.close()
+
+    def runner(tracer=None):
+        return PooledRunner(ClientPool(template, POOL_M), psched, loss_fn,
+                            cfg, batch_fn, key=prng.PRNGKey(1),
+                            backend="sparse", device=dev, capture=True,
+                            telemetry=True, tracer=tracer)
+
+    plain, plain_loss, plain_ms = pool_run(dev, setup, psched, ROUNDS,
+                                           capture=True, runner=runner())
+    plain.close()
+    tracer = Tracer()
+    traced = runner(tracer)
+    rounds, ms = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path, trace_path = f"{tmp}/run.jsonl", f"{tmp}/trace.json"
+        with RunLog(jsonl=log_path, console=False) as log:
+            log.start(config={"m": POOL_M, "k": POOL_K, "bits": 8,
+                              "rounds": ROUNDS})
+            for t in range(ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                met = traced.round()
+                loss = float(met.pop("loss"))
+                frac = float(met.pop("active_frac"))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                rounds.append(dict(met, loss=loss))
+                log.round(t, loss, console=False, active_frac=frac,
+                          comm_bits=traced.comm_bits, **met)
+            log.end(ROUNDS, comm_bits=traced.comm_bits, final_loss=loss,
+                    final_consensus_dist=rounds[-1]["consensus_dist"])
+        tracer.save(trace_path)
+        schema_rc = check_schema.main([log_path])
+        text = report.telemetry_report(log_path, trace_path)
+        log_lines = sum(1 for _ in open(log_path))
+    traced.close()
+    print(text, flush=True)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        traced.pool.consensus_distance()
+    consensus_ms = (time.perf_counter() - t0) / 3 * 1e3
+    spans = tracer.durations()
+    n_spans = {}
+    for ev in tracer.events:
+        if ev["ph"] == "X":
+            n_spans[ev["name"]] = n_spans.get(ev["name"], 0) + 1
+    step = pool_step_launches()
+    extra = telemetry_extra_launches(False, lanes=0)
+    nodes_on = graph_nodes(traced.graph)
+    nodes_off = graph_nodes(off.graph)
+    d = traced.pool.n_params
+    rep = {"path": "telemetry pool", "m": POOL_M, "cohort": POOL_K,
+           "rounds": ROUNDS,
+           "bitwise_with_off": pools_equal(off.pool, traced.pool)
+           and pools_equal(off.pool, plain.pool)
+           and off_loss == plain_loss == [r["loss"] for r in rounds],
+           "round_ms_median": {"off": statistics.median(off_ms[1:]),
+                               "on": statistics.median(plain_ms[1:]),
+                               "on_traced": statistics.median(ms[1:])},
+           "consensus_distance_ms": consensus_ms,
+           "span_ms_per_round": {k: v / n_spans[k] * 1e3
+                                 for k, v in spans.items()},
+           "span_counts": n_spans,
+           "pool_breakdown_part_ms": (breakdown or {}).get("part_ms_median"),
+           "graph_nodes": {"off": len(nodes_off), "on": len(nodes_on)},
+           "extra_nodes": extra_nodes(nodes_on, nodes_off),
+           "replay_device_ms": {"off": replay_ms(off.graph),
+                                "on": replay_ms(traced.graph)},
+           "schema_rc": schema_rc, "log_lines": log_lines,
+           "last_round": rounds[-1]}
+    rep.update(kernel_nodes_on=check_round_graph(
+        "telemetry pool step", nodes_on,
+        {k: step[k] + extra[k] for k in step})["kernel_nodes"])
+    print(json.dumps(rep), flush=True)
+    if not rep["bitwise_with_off"]:
+        raise AssertionError("telemetry pool: telemetry changed the pool")
+    if schema_rc != 0 or log_lines != ROUNDS + 2:
+        raise AssertionError(f"telemetry pool: the run log fails its check "
+                             f"(rc {schema_rc}, {log_lines} lines)")
+    if set(n_spans) != {"pool/prepare", "pool/step", "pool/writeback",
+                        "pool/join", "pool/patch"}:
+        raise AssertionError(f"telemetry pool: spans {n_spans}")
+    for r in rounds:
+        if (r["cohort_size"] != POOL_K
+                or r["pool_hit"] + r["pool_miss"] != POOL_K
+                or r["wire_bits"] != float(np.float32(
+                    message_bits(d, cfg.quant)) * np.float32(
+                        r["live_edges"]))
+                or not all(math.isfinite(v) for v in r.values()
+                           if isinstance(v, float))):
+            raise AssertionError(f"telemetry pool: round {r}")
+    return rep
+
+
+def telemetry_overhead(dev) -> dict:
+    """``bench.timevarying.telemetry_overhead_compare`` captured and
+    eager: the on/off ratios beside the reference's REFERENCE_OVERHEAD,
+    and the captured arms' graph nodes and extra nodes by group."""
+    from repro_torch.bench.timevarying import telemetry_overhead_compare
+
+    out = {}
+    for mode, capture in (("captured", True), ("eager", False)):
+        r = telemetry_overhead_compare(device=dev, capture=capture)
+        graphs = r.pop("graphs")
+        if capture:
+            nodes = {k: graph_nodes(g) for k, g in graphs.items()}
+            r["graph_nodes"] = {k: len(v) for k, v in nodes.items()}
+            r["extra_nodes"] = extra_nodes(nodes["on"], nodes["off"])
+            r["replay_device_ms"] = {k: replay_ms(g)
+                                     for k, g in graphs.items()}
+        out[mode] = r
+    print(json.dumps({"path": "telemetry overhead",
+                      "reference_gate": REFERENCE_OVERHEAD, **out}),
+          flush=True)
+    for mode, r in out.items():
+        if not (math.isfinite(r["overhead_ratio"])
+                and r["overhead_ratio"] > 0):
+            raise AssertionError(f"telemetry overhead {mode}: {r}")
+    return out
+
+
+def telemetry_phase(dev, breakdown: dict | None = None
+                    ) -> tuple[dict, dict]:
+    """Phase "telemetry": the quickstart's rounds with telemetry off and
+    on on each of TELEMETRY_SPECS, unfused and fused
+    (:func:`telemetry_rounds`), the async decay arm
+    (:func:`telemetry_async`), the pool with its tracer and run log
+    (:func:`telemetry_pool`), and the overhead ratios
+    (:func:`telemetry_overhead`). Returns the summaries and the eager
+    telemetry rounds' launches together."""
+    data, fed, stacked, _, _, loss_fn, _ = quickstart_setup(dev)
+    batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
+               for t in range(ROUNDS)]
+    setup = (stacked, batches, loss_fn)
+    out = {f"{'fused' if fuse else 'unfused'} {kind}":
+           telemetry_rounds(dev, kind, fuse, setup)
+           for fuse in (False, True) for kind in TELEMETRY_SPECS}
+    launches = {k: sum(r["launches_on"][k] for r in out.values())
+                for k in KERNEL_SOURCES}
+    out["async"] = telemetry_async(dev, setup)
+    for k in KERNEL_SOURCES:
+        launches[k] += out["async"]["launches"][k]
+    out["pool"] = telemetry_pool(dev, breakdown)
+    out["overhead"] = telemetry_overhead(dev)
+    return out, launches
+
+
 # Phases ``--only`` can run alone (after the build), for work on one path.
-ONLY = {"pool": pool_phase}
+ONLY = {"pool": pool_phase, "telemetry": telemetry_phase}
 
 
 def main() -> int:
@@ -3911,6 +4412,7 @@ def main() -> int:
     captured["async"] = asyn["decay"]
     pool, counts["pool"] = pool_phase(dev, flush, rec)
     captured["pool"] = pool["sync"]
+    tel, counts["telemetry"] = telemetry_phase(dev, pool["breakdown"])
     times = round_times(dev)
     rows = bench_path(dev)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
@@ -3932,6 +4434,7 @@ def main() -> int:
                       "max_ulp": r["max_ulp"], "shape": r["shape"],
                       "captured_round_nodes": captured[path]["kernel_nodes"][
                           name] if path in captured else None,
+                      "telemetry_launches": counts["telemetry"][name],
                       **{k: r[k] for k in EXTRA_KEYS if k in r}})
     print(json.dumps({"round_ms_median": {"unfused": unfused_ms,
                                           "fused": fused_ms},
@@ -3981,7 +4484,18 @@ def main() -> int:
                               r["m"]: r["rounds_per_sec"]
                               for r in pool["bench"]["pool_scaling"]},
                           "bench_pooled_over_resident": pool["bench"][
-                              "compare"]["pooled_over_resident_cost"]}}))
+                              "compare"]["pooled_over_resident_cost"]},
+                      "telemetry": {
+                          "graph_nodes": {k: tel[k]["graph_nodes"]
+                                          for k in tel if k != "overhead"},
+                          "overhead_ratio": {
+                              k: v["overhead_ratio"]
+                              for k, v in tel["overhead"].items()},
+                          "reference_gate": REFERENCE_OVERHEAD,
+                          "pool_round_ms_median": tel["pool"][
+                              "round_ms_median"],
+                          "pool_span_ms_per_round": tel["pool"][
+                              "span_ms_per_round"]}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

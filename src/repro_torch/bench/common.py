@@ -54,25 +54,30 @@ def timed(fn, *args, warmup: int = 1, iters: int = 5,
 
 
 def timeit_best(body, carry=None, *, iters: int = 1, reps: int = 3,
-                warmup: int = 0, device=None):
+                warmup: int = 0, device=None, tracer=None,
+                label: str = "timeit"):
     """Best-of-``reps`` wall time of a stateful loop body, as the
-    reference's ``timeit_best`` (without its tracer, which needs the
-    telemetry of ROADMAP A16): ``body(i, carry) -> carry`` with a global
+    reference's ``timeit_best``: ``body(i, carry) -> carry`` with a global
     call index ``i``; each rep times ``iters`` calls ended by a
-    synchronize of ``device``. Returns ``(best_us_per_call, carry)``."""
+    synchronize of ``device``. ``tracer`` (a
+    :class:`~repro_torch.telemetry.Tracer`) wraps each rep in a ``label``
+    span. Returns ``(best_us_per_call, carry)``."""
+    if tracer is None:
+        from ..telemetry import NULL_TRACER as tracer
     i = 0
     for _ in range(warmup):
         carry = body(i, carry)
         i += 1
     sync(device)
     best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            carry = body(i, carry)
-            i += 1
-        sync(device)
-        best = min(best, (time.perf_counter() - t0) / iters * 1e6)
+    for rep in range(reps):
+        with tracer.span(label, rep=rep, iters=iters):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                carry = body(i, carry)
+                i += 1
+            sync(device)
+            best = min(best, (time.perf_counter() - t0) / iters * 1e6)
     return best, carry
 
 

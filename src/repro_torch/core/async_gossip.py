@@ -31,13 +31,14 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import prng
 from ..device import resolve_device
 from .dfedavgm import DFedAvgMConfig, _active_lanes, _check_spec
 from .event_clock import SpeedModel, next_event
 from .local_sgd import local_train
-from .mixing import consensus_distance, make_event_mixer
+from .mixing import _gate_z, consensus_distance, make_event_mixer
 from .topology import MixingSpec, TopologySchedule
 
 Params = dict[str, torch.Tensor]
@@ -191,15 +192,20 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     fired, ``clock``, ``ready_frac``, ``live_edges`` and, with
     ``with_metrics``, ``mean_staleness``, ``max_staleness`` and
     ``consensus_dist``.
+
+    ``with_telemetry`` adds ``metrics["telemetry"]``, a
+    :class:`~repro_torch.telemetry.Telemetry`: consensus and drift, the
+    event's live and wire bits, the staleness histogram over the
+    post-event versions, the edges the hard cutoff dropped and, on a
+    quantized wire, the quantizer replay over every lane weighted by the
+    lanes that published — all on the device, inside the event's graph
+    when captured.
     """
     scheduled = _check_spec(spec)
     if scheduled and spec.is_stateful:
         raise ValueError("async gossip needs a data-independent schedule; "
                          "use random_walk(stateful=False) whose path does "
                          "not depend on the event clock")
-    if with_telemetry:
-        raise NotImplementedError("telemetry is not ported yet "
-                                  "(ROADMAP A16)")
     dev = resolve_device(device)
     m = spec.m
     impl = cfg.mixer_config().resolved_impl(spec)
@@ -219,6 +225,12 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     skip = cap is not None and cap < m
     client_ids = torch.arange(m, dtype=torch.int32, device=dev)
     off_diag = 1.0 - torch.eye(m, dtype=torch.float32, device=dev)
+    quant_on = cfg.quant is not None and cfg.quant.enabled
+    if with_telemetry:
+        from ..telemetry.metrics import (Telemetry, client_dim,
+                                         dropped_edge_count,
+                                         quant_round_telemetry,
+                                         staleness_histogram, wire_bits_for)
 
     def event_step(state: AsyncRoundState, batches: Params | None = None):
         key_round, key_mix, key_next = prng.split(state.rng, 3)
@@ -270,11 +282,36 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         metrics = {"loss": (losses * ready).sum() / ready.sum(),
                    "clock": t_now, "ready_frac": ready_eff.mean(),
                    "live_edges": ((W_eff * off_diag) != 0.0).sum()}
+        if with_metrics or with_telemetry:
+            cdist = consensus_distance(x_next)
         if with_metrics:
             lag = version_next.max() - version_next
             metrics["mean_staleness"] = lag.to(torch.float32).mean()
             metrics["max_staleness"] = lag.max()
-            metrics["consensus_dist"] = consensus_distance(x_next)
+            metrics["consensus_dist"] = cdist
+        if with_telemetry:
+            with record_function("round/telemetry"):
+                S = async_cfg.max_staleness
+                live = metrics["live_edges"]
+                fields = dict(
+                    consensus_dist=cdist,
+                    local_drift=consensus_distance(z), live_edges=live,
+                    wire_bits=wire_bits_for(client_dim(state.params),
+                                            cfg.quant, live),
+                    staleness_hist=staleness_histogram(version_next, S),
+                    dropped_edges=dropped_edge_count(W_t, version_next,
+                                                     ready_eff, S))
+                if quant_on:
+                    # The codec saw z gated to x on lanes that did not
+                    # publish; every lane is replayed (an event's ready
+                    # set is sparse, a strided sample would miss it) and
+                    # the means are over the ready lanes.
+                    qe, qb, qs = quant_round_telemetry(
+                        state.params, _gate_z(ready_eff, z, state.params),
+                        cfg.quant, key_q, lane_weight=ready_eff)
+                    fields.update(quant_err_sq=qe, quant_bound=qb,
+                                  quant_sat_frac=qs)
+                metrics["telemetry"] = Telemetry(**fields)
         return AsyncRoundState(
             params=x_next, rng=key_next, round=state.round + 1, clock=t_now,
             next_ready=next_ready, version=version_next,
@@ -294,8 +331,8 @@ def make_async_engine(loss_fn: LossFn, cfg: DFedAvgMConfig,
     :func:`make_async_round_step` over a leading event axis (leaves
     [n_events, m, K, ...]), or ``run(state, n_events=N)`` with a
     version-keyed ``batch_fn``, and returns ``(state', metrics)`` with
-    every metric stacked [n_events] — the reference's ``lax.scan``, with
-    no host sync between events.
+    every metric stacked [n_events] (a ``Telemetry`` field by field) —
+    the reference's ``lax.scan``, with no host sync between events.
 
     ``capture=True`` (on the card) captures the event step in one CUDA
     graph at the first call's shapes (``capture_step``) and replays it
@@ -330,8 +367,21 @@ def make_async_engine(loss_fn: LossFn, cfg: DFedAvgMConfig,
             history.append(met)
         if not history:
             return state, {}
-        return state, {k: torch.stack([h[k] for h in history])
+        return state, {k: _stack([h[k] for h in history])
                        for k in history[0]}
 
     run.graph = None
     return run
+
+
+def _stack(values: list):
+    """Stack one metric over the events: a tensor, or a ``Telemetry``
+    field by field (``None`` stays ``None``), as ``lax.scan`` stacks a
+    pytree."""
+    first = values[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(
+            None if f is None else torch.stack([getattr(v, name)
+                                                for v in values])
+            for name, f in zip(first._fields, first)))
+    return torch.stack(values)

@@ -50,6 +50,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import prng
 from ..device import resolve_device
@@ -575,12 +576,17 @@ def make_pooled_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     lanes on the device — one B1 encode and one B2 decode-apply at cohort
     width on a quantized wire, each lane's words those of the full width
     under the gathered keys. Local SGD is ``local_train`` (B3 a step).
+
+    ``with_telemetry`` adds ``metrics["telemetry"]`` (a
+    :class:`~repro_torch.telemetry.Telemetry`): the cohort's live edges
+    and wire bits, ``cohort_size`` and, on a quantized wire, the
+    quantizer's observed error against the Assumption-4 bound, replayed
+    over ``QUANT_SAMPLE_LANES`` strided lanes under the same gathered
+    keys. Whole-population fields need the host store and are the
+    runner's (:meth:`PooledRunner.round` with ``telemetry=True``).
     """
     if backend not in ("dense", "sparse"):
         raise ValueError(f"unknown pooled backend {backend!r}")
-    if with_telemetry:
-        raise NotImplementedError("pool telemetry is not ported yet "
-                                  "(ROADMAP A16)")
     dev = resolve_device(device)
     m, k = psched.m, psched.cohort_size
     quant = cfg.quant
@@ -599,6 +605,17 @@ def make_pooled_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     active = torch.zeros(m, dtype=torch.float32, device=dev)
     active[:k] = 1.0
     active_frac = active.mean()
+    quant_on = quant is not None and quant.enabled
+    if with_telemetry:
+        from ..telemetry.metrics import (QUANT_SAMPLE_LANES, Telemetry,
+                                         live_edge_count,
+                                         quant_round_telemetry,
+                                         sample_lane_ids, wire_bits_for)
+        d_client = int(sum(t.numel() for t in template.values()))
+        cohort_size = torch.full((), float(k), dtype=torch.float32,
+                                 device=dev)
+        sampled = (sample_lane_ids(k, QUANT_SAMPLE_LANES, dev) if quant_on
+                   else None)
 
     def inputs(rng: torch.Tensor, t) -> dict:
         key_round, key_mix, key_next = prng.split(rng, 3)
@@ -630,8 +647,24 @@ def make_pooled_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             x_next = _mix_dense_quantized(W_sub, x_sub, z_sub, quant, key_q,
                                           leaf_keys=leaf_keys)
         # The resident skip path's formulas with every slot valid.
-        return x_next, {"loss": _weighted_mean(losses, ones),
-                        "active_frac": active_frac}
+        metrics = {"loss": _weighted_mean(losses, ones),
+                   "active_frac": active_frac}
+        if with_telemetry:
+            with record_function("round/telemetry"):
+                live = live_edge_count(W_sub)
+                fields = dict(live_edges=live,
+                              wire_bits=wire_bits_for(d_client, quant, live),
+                              cohort_size=cohort_size)
+                if quant_on:
+                    # Every cohort lane participates (no gate); the
+                    # gathered keys replay the cohort mixer's draws.
+                    qe, qb, qs = quant_round_telemetry(
+                        x_sub, z_sub, quant, key_q, leaf_keys=leaf_keys,
+                        sample_lanes=sampled)
+                    fields.update(quant_err_sq=qe, quant_bound=qb,
+                                  quant_sat_frac=qs)
+                metrics["telemetry"] = Telemetry(**fields)
+        return x_next, metrics
 
     return PooledRoundStep(inputs=inputs, step=step)
 
@@ -688,12 +721,6 @@ class _EventState(NamedTuple):
     etas: torch.Tensor | None = None
 
 
-def _no_tracing(telemetry: bool, tracer) -> None:
-    if telemetry or tracer is not None:
-        raise NotImplementedError("pool telemetry and tracing are not "
-                                  "ported yet (ROADMAP A16)")
-
-
 def _leaf_shapes(pool: ClientPool) -> dict:
     return {n: (tuple(t.shape), pool._dtypes[n])
             for n, t in zip(pool.names, pool._template)}
@@ -734,6 +761,16 @@ class PooledRunner:
     tensor [k] on the device (ascending) and returns leaves [k, K, ...]
     on the device. Key it on (client, t), never on the pool's versions:
     the prefetch of round t+1 runs while round t's write-back bumps them.
+
+    ``telemetry=True`` builds the step with its in-graph telemetry and
+    adds to each round's metrics its fields as host floats (one transfer)
+    and the host's own: the whole population's ``consensus_dist``,
+    ``pool_hit`` / ``pool_miss`` (cohort rows already held / read from
+    the template), ``pool_materialized`` and ``pool_mbytes``. ``tracer``
+    (a :class:`~repro_torch.telemetry.Tracer`) records the spans
+    ``pool/prepare`` (on the thread that prepares), ``pool/step``,
+    ``pool/writeback``, ``pool/join`` and ``pool/patch``; the step's span
+    waits for the card only when the tracer is enabled.
     """
 
     def __init__(self, pool: ClientPool, psched: PoolSchedule,
@@ -741,13 +778,17 @@ class PooledRunner:
                  *, key: torch.Tensor, backend: str = "dense",
                  prefetch: bool = True, telemetry: bool = False,
                  tracer=None, device=None, capture: bool = True):
-        _no_tracing(telemetry, tracer)
         if pool.m != psched.m:
             raise ValueError(f"pool has m={pool.m}, schedule {psched.m}")
         self.device = dev = resolve_device(device)
         self.pool, self.psched, self.cfg = pool, psched, cfg
+        self.telemetry = bool(telemetry)
+        if tracer is None:
+            from ..telemetry.tracer import NULL_TRACER as tracer
+        self.tracer = tracer
         self._rs = make_pooled_round_step(loss_fn, cfg, psched,
                                           pool.template, backend=backend,
+                                          with_telemetry=self.telemetry,
                                           device=dev)
         self.rng = key.to(dev)
         self.t = 0
@@ -807,7 +848,7 @@ class PooledRunner:
         card all on the side stream, ending in an event."""
         slot = t % 2
         k = self.psched.cohort_size
-        with self._stream():
+        with self.tracer.span("pool/prepare", t=t), self._stream():
             inp, idx = self._draw(rng, t)
             self._gather(idx, slot)
             self._upload(slot)
@@ -881,7 +922,8 @@ class PooledRunner:
 
     def round(self) -> dict:
         """Run one pooled round; returns its metrics (0-dim tensors on the
-        device)."""
+        device; with ``telemetry`` also the host fields of the class
+        docstring)."""
         cur = self._pending if self._pending is not None \
             else self._prepare(self.rng, self.t)
         self._pending = None
@@ -892,21 +934,43 @@ class PooledRunner:
             torch.cuda.current_stream(self.device).wait_event(cur["ready"])
             self._run = capture_step(self._state_step, self._step_args(cur),
                                      cur["batches"])
+        if self.telemetry:     # before the slots the write-back reserves
+            pool_hit = int((self.pool._slot[cur["idx"]] >= 0).sum())
         fut = None
         if self._exec is not None:
             self.pool._reserve(cur["idx"])
             fut = self._exec.submit(self._prepare, cur["inp"]["key_next"],
                                     self.t + 1)
-        x_next, metrics = self._step(cur)
-        done = self._copy_back(x_next)
-        self._writeback(cur, x_next, done)
-        nxt = fut.result() if fut is not None else None
+        with self.tracer.span("pool/step", t=self.t):
+            x_next, metrics = self._step(cur)
+            if self.tracer.enabled and self._cuda:
+                # Only when tracing: the span then covers the step's
+                # device work (else the host runs ahead, as it does).
+                torch.cuda.current_stream(self.device).synchronize()
+        with self.tracer.span("pool/writeback"):
+            done = self._copy_back(x_next)
+            self._writeback(cur, x_next, done)
+        with self.tracer.span("pool/join"):
+            nxt = fut.result() if fut is not None else None
         if nxt is not None:
-            self._patch(cur, nxt, x_next)
+            with self.tracer.span("pool/patch"):
+                self._patch(cur, nxt, x_next)
             self._pending = nxt
         self.rng = cur["inp"]["key_next"]
         self.t += 1
         self.comm_bits += self.bits_per_round
+        if self.telemetry:
+            from ..telemetry.metrics import telemetry_host
+            metrics = dict(metrics)
+            tel = metrics.pop("telemetry", None)
+            if tel is not None:
+                metrics.update(telemetry_host(tel))
+            metrics.update(
+                consensus_dist=self.pool.consensus_distance(),
+                pool_hit=pool_hit,
+                pool_miss=self.psched.cohort_size - pool_hit,
+                pool_materialized=self.pool.materialized,
+                pool_mbytes=self.pool.nbytes / 2**20)
         return metrics
 
     def run(self, n_rounds: int) -> list:
@@ -975,6 +1039,13 @@ class PooledAsyncRunner:
     on the device (padded lanes repeat client m-1) and must key on the
     versions: padded and neighbour lanes train throwaway copies, as the
     resident engine trains busy lanes.
+
+    ``telemetry=True`` adds the host's event telemetry to each event's
+    metrics: ``cohort_size``, ``wire_bits``, the ``staleness_hist`` of
+    the post-event versions, ``mean_staleness`` / ``max_staleness``,
+    ``pool_materialized`` and ``pool_mbytes``. ``tracer`` records the
+    spans ``pool/fetch``, ``pool/step`` (waiting for the card only when
+    enabled) and ``pool/writeback``.
     """
 
     def __init__(self, pool: ClientPool, loss_fn: LossFn,
@@ -984,12 +1055,15 @@ class PooledAsyncRunner:
                  ring_self_weight: float | None = None,
                  telemetry: bool = False, tracer=None, device=None,
                  capture: bool = True):
-        _no_tracing(telemetry, tracer)
         if (spec is None) == (ring_self_weight is None):
             raise ValueError("pass exactly one of spec / ring_self_weight")
         self.device = dev = resolve_device(device)
         self.pool, self.cfg, self.async_cfg = pool, cfg, async_cfg
         self.batch_fn = batch_fn
+        self.telemetry = bool(telemetry)
+        if tracer is None:
+            from ..telemetry.tracer import NULL_TRACER as tracer
+        self.tracer = tracer
         m = self.m = pool.m
         C = self.capacity = int(capacity)
         self._spec_W = (torch.as_tensor(spec.W, dtype=torch.float32,
@@ -1096,13 +1170,14 @@ class PooledAsyncRunner:
         idx[:cohort.size] = cohort
         safe = np.minimum(idx, m - 1)
 
-        self.pool.fetch_into(safe, self._host.host)
-        self._ids.numpy()[:] = idx
-        if dev.type == "cuda":
-            self._dev.buf.copy_(self._host.buf, non_blocking=True)
-            idx_d = self._ids.to(dev, non_blocking=True)
-        else:
-            idx_d = self._ids.clone()
+        with self.tracer.span("pool/fetch", event=self.round):
+            self.pool.fetch_into(safe, self._host.host)
+            self._ids.numpy()[:] = idx
+            if dev.type == "cuda":
+                self._dev.buf.copy_(self._host.buf, non_blocking=True)
+                idx_d = self._ids.to(dev, non_blocking=True)
+            else:
+                idx_d = self._ids.clone()
         safe_d = torch.clamp(idx_d, max=m - 1)
         valid = (idx_d < m).to(torch.float32)
         ready_sub = ready[safe_d] * valid
@@ -1124,7 +1199,10 @@ class PooledAsyncRunner:
         if self._capture and self._run is None:
             from .compiled import capture_step
             self._run = capture_step(self._body, s, batches)
-        out, metrics = (self._run or self._body)(s, batches)
+        with self.tracer.span("pool/step", event=self.round):
+            out, metrics = (self._run or self._body)(s, batches)
+            if self.tracer.enabled and dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
         # advance the full-width clock state (the resident chain)
         self.version = self.version + ready.to(torch.int32)
@@ -1133,21 +1211,43 @@ class PooledAsyncRunner:
         self.next_ready = torch.where(ready > 0, t_now + durations,
                                       self.next_ready)
 
-        if dev.type == "cuda":
-            for n, v in out.params.items():
-                self._out.leaves[n].copy_(v, non_blocking=True)
-            torch.cuda.current_stream(dev).synchronize()
-            rows = self._out.host
-        else:
-            rows = out.params
-        wmask = np.isin(safe, ready_ids) & (idx < m)
-        self.pool.writeback(idx, rows, mask=wmask)
+        with self.tracer.span("pool/writeback"):
+            if dev.type == "cuda":
+                for n, v in out.params.items():
+                    self._out.leaves[n].copy_(v, non_blocking=True)
+                torch.cuda.current_stream(dev).synchronize()
+                rows = self._out.host
+            else:
+                rows = out.params
+            wmask = np.isin(safe, ready_ids) & (idx < m)
+            self.pool.writeback(idx, rows, mask=wmask)
         self.clock = float(t_now)
         self.rng = key_next
         self.round += 1
         metrics = dict(metrics)
         metrics["clock"] = t_now
         metrics["ready_frac"] = float(ready_ids.size / m)
+        if self.telemetry:
+            # The host-side event telemetry (the clock and versions live
+            # outside the captured body): one transfer of the versions
+            # and the event's live-edge count.
+            S = self.async_cfg.max_staleness
+            host = torch.cat([self.version.to(torch.int64),
+                              metrics["live_edges"].reshape(1).to(
+                                  torch.int64)]).cpu().numpy()
+            version, live = host[:-1], float(host[-1])
+            lag = version.max() - version
+            metrics.update(
+                cohort_size=int(cohort.size),
+                wire_bits=float(message_bits(
+                    self.pool.n_params,
+                    self.cfg.quant or QuantConfig(bits=32)) * live),
+                staleness_hist=[int(c) for c in np.bincount(
+                    np.clip(lag, 0, S + 1), minlength=S + 2)],
+                mean_staleness=float(lag.mean()),
+                max_staleness=int(lag.max()),
+                pool_materialized=self.pool.materialized,
+                pool_mbytes=self.pool.nbytes / 2**20)
         return metrics
 
     def run(self, n_events: int) -> list:

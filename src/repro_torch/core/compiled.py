@@ -21,9 +21,10 @@ schedule's token is a static buffer too. An async event step
 its engine replays one graph an event.
 
 No aliasing: the graph writes its outputs to the same device memory on
-every replay, so ``run`` hands the caller clones of them. A state the
-caller holds never changes under a later call, as in the functional
-reference; the clones cost one device copy of the parameters a round.
+every replay, so ``run`` hands the caller clones of them (a round's
+``Telemetry`` field by field). A state the caller holds never changes
+under a later call, as in the functional reference; the clones cost one
+device copy of the parameters a round.
 
 A replay launches no kernel from the host, so ``native.LAUNCHES`` does
 not count it: count a captured round's launches from the graph's kernel
@@ -92,6 +93,15 @@ def _out(out, value):
     return out.clone()
 
 
+def _clone(metric):
+    """A fresh copy of one metric the graph wrote: a tensor, or a
+    ``Telemetry`` (a NamedTuple of tensors and Nones) field by field."""
+    if isinstance(metric, tuple):
+        return type(metric)(*(None if f is None else f.clone()
+                              for f in metric))
+    return metric.clone()
+
+
 def capture_step(step: Callable, state: NamedTuple,
                  batches: Params | None) -> Callable:
     """Capture ``step(state, batches) -> (state', metrics)`` — a
@@ -154,7 +164,7 @@ def capture_step(step: Callable, state: NamedTuple,
         graph.replay()
         return (kind(**{f: _out(getattr(out_state, f), getattr(state, f))
                         for f in kind._fields}),
-                {k: v.clone() for k, v in out_metrics.items()})
+                {k: _clone(v) for k, v in out_metrics.items()})
 
     run.graph = graph
     run.static_batches = static_batches

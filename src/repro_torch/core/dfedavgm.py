@@ -30,13 +30,15 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import prng
 from ..device import resolve_device
 from .comm_cost import dfedavgm_round_bits, schedule_round_bits
 from .local_sgd import local_train, local_train_deferred
-from .mixing import (MixerConfig, _schedule_plan, consensus_distance,
-                     make_event_mixer, make_fused_tail, make_mixer)
+from .mixing import (MixerConfig, _gate_z, _schedule_plan,
+                     consensus_distance, make_event_mixer, make_fused_tail,
+                     make_mixer)
 from .quantize import QuantConfig
 from .topology import MixingSpec, TopologySchedule
 
@@ -161,6 +163,18 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     with ``with_metrics`` ``consensus_dist`` of x^{t+1}, ``local_drift``
     of z^t and, for a schedule, ``active_frac``.
 
+    ``with_telemetry`` adds ``metrics["telemetry"]``, a
+    :class:`~repro_torch.telemetry.Telemetry` of device tensors computed
+    inside the round (inside its graph when captured): consensus and
+    drift, the round's live edges and wire bits (of W_t on a schedule),
+    and on a quantized wire the quantizer's observed error, its
+    Assumption-4 bound and saturated share, replayed over
+    ``QUANT_SAMPLE_LANES`` strided lanes (weighted by ``active`` on a
+    gated schedule; the fused round leaves these three None). The
+    parameters are bitwise those of the step built without it. The
+    stages carry ``torch.profiler`` ranges: ``round/local_sgd``,
+    ``round/mix``, ``round/telemetry``.
+
     ``spec`` may be a :class:`TopologySchedule`: the round index picks
     the event, inactive clients are held exactly, and a stateful walk
     threads its token (``init_round_state(..., token=spec.init_token())``).
@@ -189,12 +203,10 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     if placement is not None:
         raise NotImplementedError("client placement is not ported yet "
                                   "(ROADMAP A17)")
-    if with_telemetry:
-        raise NotImplementedError("telemetry is not ported yet "
-                                  "(ROADMAP A16)")
     if cfg.fuse_round:
         return _make_fused_round_step(
             loss_fn, cfg, spec, device=device, with_metrics=with_metrics,
+            with_telemetry=with_telemetry,
             skip_inactive_compute=skip_inactive_compute)
     dev = resolve_device(device)
     m = spec.m
@@ -213,15 +225,25 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                 f"{getattr(spec, 'name', spec)!r}")
         skip = skip and k_active < m
     mcfg = cfg.mixer_config()
-    if stateful or skip:
+    plan = _schedule_plan(spec, mcfg) if scheduled else None
+    # Telemetry reads the round's W_t and quantizer key: the round draws
+    # its event and hands it to the event mixer (the scheduled mixer's own
+    # two halves, so the parameters are bitwise the same), one draw. A
+    # cycle on its plans keeps its mixer; its event is an index, no draw.
+    event_first = stateful or skip or (
+        scheduled and with_telemetry
+        and not (spec.kind == "cycle" and plan is not None))
+    if event_first:
         # The event is sampled before local training (it gates compute)
         # and handed to the event mixer: one draw a round.
         spec.tables(dev)
         event_mixer = make_event_mixer(
-            m, quant=cfg.quant, plan=_schedule_plan(spec, mcfg),
+            m, quant=cfg.quant, plan=plan,
             gate=stateful or spec.gates_participation, device=dev)
     else:
         mixer = make_mixer(spec, mcfg, device=dev)
+    if with_telemetry:
+        tel = _telemetry_parts(spec, cfg, m, dev)
 
     def round_step(state: RoundState, batches: Params):
         key_round, key_mix, key_next = prng.split(state.rng, 3)
@@ -235,50 +257,112 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                     "init_round_state(..., token=spec.init_token())")
             W_t, active, key_q, token_next = spec.token_event(key_mix,
                                                               state.token)
-        elif skip:
+        elif event_first:
             W_t, active, key_q = spec.round_event(key_mix, state.round)
-        if skip:
-            idx, safe, valid = _active_lanes(active, k_active)
-            z_sub, losses = local_train(
-                loss_fn, {n: p[safe] for n, p in state.params.items()},
-                {n: b[safe] for n, b in batches.items()}, client_keys[safe],
-                eta=cfg.eta, theta=cfg.theta)
-            # Inactive lanes never trained: their z is their held x. Padded
-            # slots (index m) land in the spare last row, which is dropped.
-            z = {}
-            for n, xl in state.params.items():
-                buf = torch.cat([xl, xl[-1:]])
-                z[n] = buf.index_copy_(0, idx, z_sub[n])[:m]
-        else:
-            z, losses = local_train(loss_fn, state.params, batches,
-                                    client_keys, eta=cfg.eta,
-                                    theta=cfg.theta)
-        if stateful or skip:
-            x_next = event_mixer(state.params, z, W_t, active, key_q)
-        elif scheduled:
-            x_next, active = mixer(state.params, z, key_mix, state.round)
-        else:
-            x_next = mixer(state.params, z, key_mix, state.round)
+        elif scheduled and with_telemetry:
+            W_t, _, key_q = spec.round_event(key_mix, state.round)
+        with record_function("round/local_sgd"):
+            if skip:
+                idx, safe, valid = _active_lanes(active, k_active)
+                z_sub, losses = local_train(
+                    loss_fn, {n: p[safe] for n, p in state.params.items()},
+                    {n: b[safe] for n, b in batches.items()},
+                    client_keys[safe], eta=cfg.eta, theta=cfg.theta)
+                # Inactive lanes never trained: their z is their held x.
+                # Padded slots (index m) land in the spare last row, which
+                # is dropped.
+                z = {}
+                for n, xl in state.params.items():
+                    buf = torch.cat([xl, xl[-1:]])
+                    z[n] = buf.index_copy_(0, idx, z_sub[n])[:m]
+            else:
+                z, losses = local_train(loss_fn, state.params, batches,
+                                        client_keys, eta=cfg.eta,
+                                        theta=cfg.theta)
+        with record_function("round/mix"):
+            if event_first:
+                x_next = event_mixer(state.params, z, W_t, active, key_q)
+            elif scheduled:
+                x_next, active = mixer(state.params, z, key_mix,
+                                       state.round)
+            else:
+                x_next = mixer(state.params, z, key_mix, state.round)
         if skip:
             metrics = {"loss": _weighted_mean(losses, valid)}
         elif scheduled and spec.gates_participation:
             metrics = {"loss": _weighted_mean(losses, active)}
         else:
             metrics = {"loss": losses.mean()}
+        if with_metrics and scheduled:
+            metrics["active_frac"] = active.mean()
+        if with_metrics or with_telemetry:
+            cdist = consensus_distance(x_next)
+            drift = consensus_distance(z)
         if with_metrics:
-            if scheduled:
-                metrics["active_frac"] = active.mean()
-            metrics["consensus_dist"] = consensus_distance(x_next)
-            metrics["local_drift"] = consensus_distance(z)
+            metrics["consensus_dist"] = cdist
+            metrics["local_drift"] = drift
+        if with_telemetry:
+            with record_function("round/telemetry"):
+                # The effective published z the codec saw: inactive lanes
+                # gate to x (the compute-skip scatter already holds them
+                # at x); the replay averages over participating lanes.
+                z_eff, lane_w = z, None
+                if scheduled and spec.gates_participation:
+                    lane_w = active
+                    if not skip:
+                        z_eff = _gate_z(active, z, state.params)
+                metrics["telemetry"] = tel(
+                    state.params, z_eff, cdist, drift,
+                    W_t if scheduled else None,
+                    key_q if scheduled else key_mix, lane_w)
         return RoundState(params=x_next, rng=key_next,
                           round=state.round + 1, token=token_next), metrics
 
     return round_step
 
 
+def _telemetry_parts(spec, cfg: DFedAvgMConfig, m: int, dev: torch.device,
+                     replay: bool = True) -> Callable:
+    """The round's telemetry, built with the step: ``tel(x, z_eff, cdist,
+    drift, W_t, key_q, lane_w) -> Telemetry``. Its constants live on the
+    device from the start (a static spec's live-edge count, the strided
+    lane sample of the quantizer replay), so a captured round reads them
+    and copies nothing from the host. ``W_t`` None means the static
+    spec's graph; ``replay=False`` (the fused round) leaves the quantizer
+    fields None."""
+    from ..telemetry.metrics import (QUANT_SAMPLE_LANES, Telemetry,
+                                     client_dim, live_edge_count,
+                                     quant_round_telemetry, sample_lane_ids,
+                                     wire_bits_for)
+    static_live = None
+    if not isinstance(spec, TopologySchedule):
+        static_live = torch.full((), float(spec.graph.num_directed_edges()),
+                                 dtype=torch.float32, device=dev)
+    quant_on = replay and cfg.quant is not None and cfg.quant.enabled
+    lane_ids = (sample_lane_ids(m, QUANT_SAMPLE_LANES, dev) if quant_on
+                else None)
+
+    def tel(x, z_eff, cdist, drift, W_t, key_q, lane_w):
+        live = static_live if W_t is None else live_edge_count(W_t)
+        fields = dict(consensus_dist=cdist, local_drift=drift,
+                      live_edges=live,
+                      wire_bits=wire_bits_for(client_dim(x), cfg.quant,
+                                              live))
+        if quant_on:
+            qe, qb, qs = quant_round_telemetry(
+                x, z_eff, cfg.quant, key_q, lane_weight=lane_w,
+                sample_lanes=lane_ids)
+            fields.update(quant_err_sq=qe, quant_bound=qb,
+                          quant_sat_frac=qs)
+        return Telemetry(**fields)
+
+    return tel
+
+
 def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                            spec: MixingSpec | TopologySchedule, *,
                            device=None, with_metrics: bool = True,
+                           with_telemetry: bool = False,
                            skip_inactive_compute: bool | str = "auto"
                            ) -> Callable:
     """The ``cfg.fuse_round`` realization of :func:`make_round_step`: K-2
@@ -319,6 +403,10 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                            quant=cfg.quant, plan=plan,
                            W=None if scheduled else spec.W, device=dev,
                            gate=gate)
+    if with_telemetry:
+        # No quantizer fields: the fused tail's wire delta (y' - x, formed
+        # inside B4) never exists as a tensor to replay against.
+        tel = _telemetry_parts(spec, cfg, m, dev, replay=False)
 
     def round_step(state: RoundState, batches: Params):
         key_round, key_mix, key_next = prng.split(state.rng, 3)
@@ -342,11 +430,19 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                            dim=1).mean(dim=1)
         metrics = {"loss": _weighted_mean(losses, active) if gate
                    else losses.mean()}
+        if with_metrics and scheduled:
+            metrics["active_frac"] = active.mean()
+        if with_metrics or with_telemetry:
+            cdist = consensus_distance(x_next)
+            drift = consensus_distance(y_pub)
         if with_metrics:
-            if scheduled:
-                metrics["active_frac"] = active.mean()
-            metrics["consensus_dist"] = consensus_distance(x_next)
-            metrics["local_drift"] = consensus_distance(y_pub)
+            metrics["consensus_dist"] = cdist
+            metrics["local_drift"] = drift
+        if with_telemetry:
+            with record_function("round/telemetry"):
+                metrics["telemetry"] = tel(state.params, None, cdist, drift,
+                                           W_t if scheduled else None,
+                                           None, None)
         return RoundState(params=x_next, rng=key_next,
                           round=state.round + 1, token=state.token), metrics
 

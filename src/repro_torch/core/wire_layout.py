@@ -20,14 +20,19 @@ Invariants (as in the JAX package):
     ``max|x| * (1/qmax)`` (0 -> 1.0) as the dense path.
   * Padding is zero, its noise is zero, and it encodes to the zero
     level's field: it never rounds up.
+
+The codec's entries carry ``torch.profiler`` ranges named as the
+reference's scopes: ``wire/encode`` and ``wire/decode``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from .. import prng
 from ..kernels.dequant_mix import (dequant_mix_buffer,
@@ -40,6 +45,18 @@ from .quantize import scale_from_amax
 Params = dict[str, torch.Tensor]
 
 __all__ = ["WireLayout", "LANE_BLOCK"]
+
+
+def _ranged(name: str):
+    """Run the method inside a ``torch.profiler`` range ``name`` (the
+    reference's ``jax.named_scope``; a host marker, no device work)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return inner
+    return wrap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,6 +243,7 @@ class WireLayout:
 
     # -- codec --------------------------------------------------------------
 
+    @_ranged("wire/encode")
     def encode(self, delta: torch.Tensor, scales: torch.Tensor, quant,
                keys: torch.Tensor | None = None) -> torch.Tensor:
         """Quantize + planar-pack every client's buffer in one pass (B1):
@@ -242,6 +260,7 @@ class WireLayout:
                                     keys=keys.contiguous(),
                                     table=self.noise_table)
 
+    @_ranged("wire/decode")
     def decode_apply(self, base: torch.Tensor, words: torch.Tensor,
                      scales: torch.Tensor, weights: torch.Tensor,
                      src: torch.Tensor, quant) -> torch.Tensor:
@@ -253,6 +272,7 @@ class WireLayout:
                                   self.block_scales(scales), weights, src,
                                   quant.bits)
 
+    @_ranged("wire/encode")
     def encode_momentum(self, y2d: torch.Tensor, v2d: torch.Tensor,
                         g2d: torch.Tensor, x2d: torch.Tensor,
                         scales: torch.Tensor, et, quant,
@@ -280,6 +300,7 @@ class WireLayout:
                                              keys=keys.contiguous(),
                                              table=self.noise_table)
 
+    @_ranged("wire/decode")
     def decode_apply_momentum(self, base: torch.Tensor, words: torch.Tensor,
                               scales: torch.Tensor, weights: torch.Tensor,
                               src: torch.Tensor, v2d: torch.Tensor,

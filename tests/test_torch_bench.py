@@ -51,6 +51,7 @@ def reference_rows():
     names += [f"timevarying_{s}" for s in (
         "static_ring", "constant_sched", "er_edge_sample", "ring_partial",
         "ring_random_walk")]
+    names.append("round_telemetry_on_vs_off")
     names.append("async_vs_sync_straggler")
     names += ["pool/m=4096", "pool/compare"]
     return names
@@ -121,6 +122,11 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys, monkeypatch,
     for name, us, derived in rows:
         if name in lam:       # numpy rows: no time, as in the reference
             assert float(us) == 0.0 and derived == lam[name], name
+            continue
+        if name == "round_telemetry_on_vs_off":   # on / off, us a round
+            fields = dict(f.split("=") for f in derived.split("|"))
+            assert set(fields) == {"off_us", "overhead_ratio"}, derived
+            assert float(us) > 0 and float(fields["overhead_ratio"]) > 0
             continue
         if name == "async_vs_sync_straggler":   # virtual time to target
             assert set(dict(f.split("=") for f in derived.split("|"))) == {

@@ -386,15 +386,22 @@ def test_pooled_async_capacity_overflow_raises():
 
 
 def test_telemetry_and_tracer_are_refused():
+    """Telemetry and a tracer were refused until the telemetry slice;
+    now the runner takes both and a round carries the telemetry's fields
+    (``test_torch_telemetry.py`` holds their values)."""
+    from repro_torch.telemetry import Tracer
     psched = T.PoolSchedule.ring_partial(M, 0.34)
-    for kw in (dict(telemetry=True), dict(tracer=object())):
-        with pytest.raises(NotImplementedError, match="A16"):
-            T.PooledRunner(T.ClientPool(TEMPLATE, M), psched, loss_fn,
-                           cfg_of(T), batch_rows, key=prng.PRNGKey(7),
-                           device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A16"):
-        T.make_pooled_round_step(loss_fn, cfg_of(T), psched, TEMPLATE,
-                                 with_telemetry=True, device="cpu")
+    tracer = Tracer()
+    runner = T.PooledRunner(T.ClientPool(TEMPLATE, M), psched, loss_fn,
+                            cfg_of(T), batch_rows, key=prng.PRNGKey(7),
+                            device="cpu", telemetry=True, tracer=tracer)
+    met = runner.round()
+    runner.close()
+    assert met["cohort_size"] == psched.cohort_size
+    assert "pool/step" in tracer.durations()
+    step = T.make_pooled_round_step(loss_fn, cfg_of(T), psched, TEMPLATE,
+                                    with_telemetry=True, device="cpu")
+    assert step.step is not None
 
 
 def test_cohort_lane_map_keeps_in_cohort_sources():

@@ -34,6 +34,12 @@ def test_the_port_has_modules_to_check():
                 "core/compiled.py", "prng.py", "kernels/threefry.py",
                 "bench/topology.py", "bench/timevarying.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+    # The telemetry slice: metrics, tracer, run log, schema and its
+    # check, and the report.
+    for mod in ("telemetry/metrics.py", "telemetry/tracer.py",
+                "telemetry/sink.py", "telemetry/schema.py",
+                "telemetry/check_schema.py", "launch/report.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and len(names) > 20
 
 

@@ -134,9 +134,10 @@ def test_unported_branches_raise():
         make_round_step(t_loss, DFedAvgMConfig(fuse_round=True,
                                                local_steps=1), spec,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
+    # Client placement waits for the multi-device slice.
+    with pytest.raises(NotImplementedError, match="A17"):
         make_round_step(t_loss, DFedAvgMConfig(), spec, device="cpu",
-                        with_telemetry=True)
+                        placement=object())
     # The async engine runs now (test_torch_async.py); with a placement
     # it is refused, as in the reference.
     with pytest.raises(ValueError, match="placement"):
@@ -147,10 +148,9 @@ def test_unported_branches_raise():
         make_round_step(t_loss, DFedAvgMConfig(), object(), device="cpu")
     with pytest.raises(AttributeError):
         j_make_round_step(j_loss, JConfig(), object())
-    # Schedules run now; their telemetry waits for A16.
-    with pytest.raises(NotImplementedError, match="A16"):
-        make_round_step(t_loss, DFedAvgMConfig(), TopologySchedule.partial(
-            ring_graph(M), 0.5), device="cpu", with_telemetry=True)
+    # Schedules and their telemetry run now (test_torch_telemetry.py).
+    make_round_step(t_loss, DFedAvgMConfig(), TopologySchedule.partial(
+        ring_graph(M), 0.5), device="cpu", with_telemetry=True)
 
 
 def test_2nn_apply_and_loss_match_jax():
