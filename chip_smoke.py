@@ -146,8 +146,24 @@ Phases (any failure exits non-zero):
    commMB from ``comm_cost`` against the paper's formula, each graph's
    kernel nodes (B3, T1 and, on a dense quantized mix, T2 a leaf) and
    the eager arm's launches;
-13. print the kernel table (with the floor) as one JSON line, then the
-   card again, then ``{"ok": true, "device": {...}}`` as the last line.
+13. "production": SmolLM-135M at its registered width (bf16, 134 515 008
+   params a client, m 8, K 4, batch 4, seq 128) through the LM driver's
+   ``launch.train._run_resident`` with the unreduced config, three arms
+   (fp32 wire; 8 bits: B1, B2, B3 bf16; 8 bits fused: B4, B5, B3), 5
+   rounds each: exact launch counts, finite losses and bf16 leaves, the
+   median round, the peak memory, the last round profiled; the 8-bit
+   arm's consensus served (batch 4, prompt 32, 16 tokens) and the
+   reduced SmolLM's cached decode against a full forward; B1, B2 and B3
+   (bf16, f32, its lane entry, a mixed f32/bf16 table: 2 launches)
+   bitwise with their plain versions at those shapes and timed; 3
+   captured full-width rounds against 3 eager (the largest difference
+   reported); the nine other archs reduced, one 8-bit round on the card
+   against the CPU (PROD_CPU_RTOL) and 4 greedy tokens; the driver's
+   --pool, --async-gossip, partial, --telemetry, --trace and --ckpt-dir
+   modes, their JSONL logs held to the schema;
+14. print the kernel table (with the floor; B1-B3 with their full-width
+   times, and a B3 bf16 row) as one JSON line, then the card again, then
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs one CUDA card and exits non-zero without one.
 """
@@ -158,6 +174,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -336,7 +353,8 @@ def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-def time_ms(fn, flush: torch.Tensor) -> tuple[float, float, float, float]:
+def time_ms(fn, flush: torch.Tensor, reps: int = REPS,
+            host_runs: int = HOST_RUNS) -> tuple[float, float, float, float]:
     """(device ms, call ms, host ms, clean device ms) of one call.
 
     Device: the L2 is flushed by writing a 128 MB buffer, then the stream
@@ -356,7 +374,7 @@ def time_ms(fn, flush: torch.Tensor) -> tuple[float, float, float, float]:
     for _ in range(WARMUP):
         fn()
     dev, call, clean = [], [], []
-    for _ in range(REPS):
+    for _ in range(reps):
         for held, dirty, out in ((True, True, dev), (False, True, call),
                                  (True, False, clean)):
             if dirty:
@@ -373,7 +391,7 @@ def time_ms(fn, flush: torch.Tensor) -> tuple[float, float, float, float]:
             end.synchronize()
             out.append(start.elapsed_time(end))
     host = []
-    for _ in range(HOST_RUNS):
+    for _ in range(host_runs):
         torch.cuda.synchronize()
         for i in range(HOST_RUN):
             t0 = time.perf_counter()
@@ -385,11 +403,11 @@ def time_ms(fn, flush: torch.Tensor) -> tuple[float, float, float, float]:
             statistics.median(host), statistics.median(clean))
 
 
-def timed(r: dict, prefix: str, fn, flush: torch.Tensor) -> None:
+def timed(r: dict, prefix: str, fn, flush: torch.Tensor, **reps) -> None:
     """Store ``time_ms(fn)`` in r as <prefix>ms, <prefix>call_ms,
-    <prefix>host_ms and <prefix>clean_ms."""
+    <prefix>host_ms and <prefix>clean_ms (``reps``: time_ms's counts)."""
     (r[f"{prefix}ms"], r[f"{prefix}call_ms"], r[f"{prefix}host_ms"],
-     r[f"{prefix}clean_ms"]) = time_ms(fn, flush)
+     r[f"{prefix}clean_ms"]) = time_ms(fn, flush, **reps)
 
 
 def nbytes(*ts) -> int:
@@ -1696,7 +1714,7 @@ def _kernel_group(name: str) -> str:
     for kernel in sorted(KERNEL_SOURCES, key=len, reverse=True):
         if f"{kernel}_kernel" in name:
             return kernel
-    if "gemm" in name or "xmma" in name:
+    if any(k in name for k in ("gemm", "xmma", "nvjet", "cutlass")):
         return "matmul"
     if "<long" in name or "long," in name:
         return "int64 elementwise"
@@ -4352,11 +4370,788 @@ def telemetry_phase(dev, breakdown: dict | None = None
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# The "production" phase: SmolLM-135M at its registered width through the
+# LM driver, its kernels at those shapes, serving, the other registered
+# architectures and the driver's other modes.
+# ---------------------------------------------------------------------------
+
+PROD_ARCH = "smollm-135m"
+# The driver's defaults (m 8, K 4, batch 4, seq 128, eta 3e-2, theta 0.9,
+# a static ring at self weight 0.5, lm_round_batches): PROD_ROUNDS rounds
+# an arm, the last one profiled, the round time the median of rounds 2
+# to PROD_ROUNDS - 1.
+PROD_ROUNDS = 5
+PROD_ARMS = {"fp32": ["--bits", "32"], "q8": ["--bits", "8"],
+             "q8_fused": ["--bits", "8", "--fuse-round"]}
+PROD_CAPTURED_ROUNDS = 3
+# Serving at the reference serve.py's defaults: batch 4, prompt 32, 16
+# tokens, caches of 48.
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 16
+DECODE_RTOL = 1e-4           # cached decode vs a full forward, reduced f32
+PROD_CPU_RTOL = 1e-4         # a reduced arch's round, card vs CPU
+PROD_CPU_ARGV = ["--clients", "4", "--local-steps", "2", "--batch", "2",
+                 "--seq", "16", "--rounds", "1", "--bits", "8"]
+PROD_MODES = {"pool": ["--pool", "--resident-lanes", "4"],
+              "async": ["--async-gossip", "--speed-model", "straggler"],
+              "partial_exact": ["--schedule", "partial", "--exact-partial",
+                                "--bits", "8"],
+              "telemetry": ["--telemetry", "--bits", "8"],
+              "trace": ["--bits", "8"], "ckpt": ["--ckpt-every", "1"]}
+PROD_OUT = ROOT / "chiprun_out" / "production"
+# Full-width kernels take milliseconds: fewer repetitions of each timing.
+PROD_REPS = dict(reps=5, host_runs=5)
+# The profiler mirrors record_function ranges onto the device timeline;
+# they are not device work.
+RANGE_PREFIXES = ("round/", "wire/", "pool/", "model/")
+
+
+def production_config(reduced_: bool = False):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(PROD_ARCH)
+    return dataclasses.replace(reduced(cfg) if reduced_ else cfg,
+                               remat=False)
+
+
+def device_profile(prof) -> dict:
+    """The device side of a finished ``torch.profiler`` run, read from the
+    raw trace (a full-width round launches ~28 000 kernels, and building
+    the profiler's event tree for them takes seconds): busy ms (the union
+    of the operations' intervals), operations, device ms by kernel group
+    and the top kernels by device ms."""
+    groups: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or e.name().startswith(RANGE_PREFIXES)):
+            continue
+        ms = e.duration_ns() / 1e6
+        g = _kernel_group(e.name())
+        groups[g] = groups.get(g, 0.0) + ms
+        key = e.name()[:240]
+        by_name[key] = by_name.get(key, 0.0) + ms
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    busy, reach = 0.0, -math.inf
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += (end - max(start, reach)) / 1e6
+            reach = end
+    return {"device_busy_ms": busy, "device_ops": len(spans),
+            "top_device_ms": dict(sorted(by_name.items(),
+                                         key=lambda kv: -kv[1])[:16]),
+            "device_ms_by_group": dict(sorted(groups.items(),
+                                              key=lambda kv: -kv[1]))}
+
+
+class ProfilingTracer:
+    """A driver tracer (``telemetry.Tracer``) that runs the profiler over
+    one round's ``round/step`` span: its device busy share and device time
+    by kernel group."""
+
+    def __init__(self, profile_t: int):
+        from repro_torch.telemetry import Tracer
+        self.tracer = Tracer(enabled=True)
+        self.enabled = True
+        self.profile_t = profile_t
+        self.profile = None
+
+    def __getattr__(self, name):
+        return getattr(self.tracer, name)
+
+    def span(self, name: str, **args):
+        import contextlib
+        if name != "round/step" or args.get("t") != self.profile_t:
+            return self.tracer.span(name, **args)
+
+        @contextlib.contextmanager
+        def profiled():
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            # Device activity only (device_profile).
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                with self.tracer.span(name, **args):
+                    yield
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            rec = device_profile(prof)
+            self.profile = {"wall_ms": wall_ms, **rec,
+                            "device_busy_share":
+                                rec["device_busy_ms"] / wall_ms}
+        return profiled()
+
+    def step_ms(self) -> list[float]:
+        return [ev["dur"] / 1e3 for ev in self.tracer.events
+                if ev.get("name") == "round/step"]
+
+
+def prod_expected(extra: list, rounds: int, K: int) -> dict:
+    """B1-B5 launches of ``rounds`` full-width rounds of one arm (every
+    SmolLM leaf bf16: B3 one launch a local step)."""
+    quant = "--bits" in extra and extra[extra.index("--bits") + 1] != "32"
+    fused = "--fuse-round" in extra
+    exp = {k: 0 for k in ("quantize_pack_buffer", "dequant_mix_buffer",
+                          "momentum_sgd", "momentum_quantize_pack_buffer",
+                          "dequant_mix_momentum_buffer")}
+    exp["momentum_sgd"] = rounds * (K - 2 if fused else K)
+    if quant and fused:
+        exp["momentum_quantize_pack_buffer"] = rounds
+        exp["dequant_mix_momentum_buffer"] = rounds
+    elif quant:
+        exp["quantize_pack_buffer"] = exp["dequant_mix_buffer"] = rounds
+    return exp
+
+
+def production_arm(dev, name: str, extra: list) -> tuple[dict, object]:
+    """One arm at full width through ``launch.train._run_resident`` with
+    the unreduced config: round ms (eager, median of rounds 2 to
+    PROD_ROUNDS - 1), the last round profiled, exact launch counts, every
+    round's loss, the consensus distance and the memory peak. Returns
+    (record, final state)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as TT
+    from repro_torch.telemetry import RunLog
+
+    cfg = production_config()
+    args = TT.build_parser().parse_args(
+        ["--rounds", str(PROD_ROUNDS), "--device", str(dev)] + extra)
+    PROD_OUT.mkdir(parents=True, exist_ok=True)
+    path = PROD_OUT / f"{name}.jsonl"
+    log = RunLog(jsonl=str(path), console=False)
+    tracer = ProfilingTracer(PROD_ROUNDS - 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        state, metrics = TT._run_resident(args, cfg, log, tracer)
+        torch.cuda.synchronize()
+    finally:
+        log.close()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    expect = prod_expected(extra, PROD_ROUNDS, args.local_steps)
+    got = {k: counts[k] for k in expect}
+    if got != expect:
+        raise AssertionError(f"production {name}: launches {got}, "
+                             f"expected {expect}")
+    rounds = [json.loads(line) for line in path.read_text().splitlines()
+              if '"round"' in line]
+    losses = [r["loss"] for r in rounds if r.get("kind") == "round"]
+    cdist = float(metrics["consensus_dist"])
+    if len(losses) != PROD_ROUNDS or not all(
+            math.isfinite(v) for v in losses + [cdist]):
+        raise AssertionError(f"production {name}: losses {losses}, "
+                             f"consensus {cdist}")
+    for n, t in state.params.items():
+        if t.dtype != torch.bfloat16 or not torch.isfinite(t).all():
+            raise AssertionError(f"production {name}: leaf {n} is "
+                                 f"{t.dtype} or not finite")
+    steps = tracer.step_ms()
+    rec = {"arm": name, "argv": extra, "m": args.clients,
+           "K": args.local_steps, "batch": args.batch, "seq": args.seq,
+           "round_ms_median": statistics.median(steps[1:-1]),
+           "round_ms": steps, "profiled_round": tracer.profile,
+           "launches": got, "loss": losses, "consensus_dist": cdist,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "arm_s": seconds}
+    print(json.dumps({"production_arm": rec}), flush=True)
+    return rec, state
+
+
+def production_attention(dev, reps: int = 20) -> dict:
+    """Attention's device time in a full-width round: one layer's
+    streaming attention (``models.attention.attend``) forward and
+    backward at the round's shapes (8 clients x batch 4 folded, 128
+    tokens, 9 heads over 3 KV heads, head_dim 64, bf16) captured in a CUDA
+    graph. ``reps`` replays back to back, timed by CUDA events, give its
+    device ms with no host gaps; ``reps`` more under the profiler give
+    its kernel ms by group. A round runs it 30 layers x 4 local steps
+    times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.attention import attend
+
+    cfg = production_config()
+    calls = cfg.n_layers * 4
+    gen = torch.Generator(device=dev).manual_seed(29)
+    b, length, hd = 32, 128, cfg.head_dim
+    q, k, v = (torch.randn((b, length, n, hd), device=dev, generator=gen,
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    pos = torch.arange(length, dtype=torch.int32, device=dev)
+    grad = torch.randn((b, length, cfg.n_heads, hd), device=dev,
+                       generator=gen, dtype=torch.bfloat16)
+
+    def once():
+        out = attend(q, k, v, pos, pos, causal=True)
+        return torch.autograd.grad(out, (q, k, v), grad)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            once()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        once()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    layer_ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    p = device_profile(prof)
+    rec = {"layer_fwd_bwd_ms": layer_ms, "calls_a_round": calls,
+           "round_ms": layer_ms * calls,
+           "layer_device_ms_by_group": {
+               g: ms / reps for g, ms in p["device_ms_by_group"].items()},
+           "layer_device_ops": p["device_ops"] / reps}
+    print(json.dumps({"production_attention": rec}), flush=True)
+    del graph
+    return rec
+
+
+def production_breakdown(captured: dict, attention: dict) -> dict:
+    """Where a captured full-width round's device time goes: the profiled
+    replay's kernel ms split into attention (its captured layer's kernel
+    ms by group, times its calls a round), the other matmuls, our kernels
+    and the rest. The four add up to the replay's kernel ms; the replay's
+    ms beyond its busy ms is the device idle inside the graph."""
+    groups = captured["replay_profile"]["device_ms_by_group"]
+    layer = attention["layer_device_ms_by_group"]
+    calls = attention["calls_a_round"]
+    att_mm = calls * layer.get("matmul", 0.0)
+    att_rest = calls * sum(ms for g, ms in layer.items() if g != "matmul")
+    ours = {g: ms for g, ms in groups.items() if g in KERNEL_SOURCES}
+    rest = sum(ms for g, ms in groups.items()
+               if g not in ours and g != "matmul")
+    rec = {"attention_ms": att_mm + att_rest,
+           "attention_matmul_ms": att_mm,
+           "matmul_ms": groups.get("matmul", 0.0) - att_mm,
+           "ours_ms": sum(ours.values()), "ours": ours,
+           "other_ms": rest - att_rest,
+           "kernel_ms": sum(groups.values()),
+           "busy_ms": captured["replay_profile"]["device_busy_ms"],
+           "replay_ms": captured["replay_profile"]["wall_ms"]}
+    print(json.dumps({"production_breakdown": rec}), flush=True)
+    return rec
+
+
+def production_captured(dev) -> dict:
+    """Full-width rounds at 8 bits, unfused: PROD_CAPTURED_ROUNDS eager
+    rounds of the driver's step (``core.make_round_step`` on the model's
+    loss, built as ``_run_resident`` builds it) against as many replays
+    of its CUDA graph (``capture_step``). Not gated bitwise: the backward
+    of the loss's target gather and of the embedding run through
+    scatter-adds; the largest difference of any leaf is reported."""
+    from repro_torch import prng
+    from repro_torch.core import (DFedAvgMConfig, MixingSpec, QuantConfig,
+                                  capture_step, init_round_state,
+                                  make_round_step)
+    from repro_torch.data.synthetic import lm_round_batches
+    from repro_torch.models import model as M
+
+    cfg = production_config()
+    m, K, b, seq = 8, 4, 4, 128
+    key = prng.PRNGKey(0, device=dev)
+    k_init, k_state, k_data = prng.split(key, 3)
+    p = M.init_model(k_init, cfg, device=dev)
+    stacked = {n: t.unsqueeze(0).expand((m,) + tuple(t.shape)).contiguous()
+               for n, t in p.items()}
+    del p
+    step = make_round_step(lambda p_, b_, r: M.loss_fn(p_, cfg, b_, r),
+                           DFedAvgMConfig(eta=3e-2, theta=0.9,
+                                          local_steps=K,
+                                          quant=QuantConfig(bits=8)),
+                           MixingSpec.ring(m, self_weight=0.5), device=dev)
+    batches = [lm_round_batches(k_data, t, m=m, K=K, batch=b, seq=seq,
+                                vocab=cfg.vocab_size)
+               for t in range(PROD_CAPTURED_ROUNDS)]
+    s_eager = init_round_state(stacked, k_state)
+    eager_ms, losses = [], []
+    for bt in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_eager, met = step(s_eager, bt)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    eager_params = s_eager.params
+    del s_eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_round_state(stacked, k_state)
+    run = capture_step(step, state, batches[0])
+    replay_ms, cap_losses = [], []
+    for bt in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = run(state, bt)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        cap_losses.append(float(met["loss"]))
+    diff = max(float((state.params[n].float() - eager_params[n].float())
+                     .abs().max()) for n in eager_params)
+    if not all(math.isfinite(v) for v in cap_losses):
+        raise AssertionError(f"captured full width: losses {cap_losses}")
+    # One more replay under the profiler: the round's device ms by group.
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = run(state, batches[0])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_rec = {"wall_ms": wall_ms, **device_profile(prof)}
+    rec = {"rounds": PROD_CAPTURED_ROUNDS, "eager_ms": eager_ms,
+           "replay_ms": replay_ms, "eager_loss": losses,
+           "captured_loss": cap_losses, "max_abs_diff_vs_eager": diff,
+           "bitwise": diff == 0.0, "replay_profile": prof_rec,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    print(json.dumps({"production_captured": rec}), flush=True)
+    del run, state, eager_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def production_kernel_checks(dev, flush, state) -> dict:
+    """B1, B2 and B3 (f32 and bf16) at the full-width shapes of the 8-bit
+    arm: the wire layout of the final state's bf16 leaves (m 8), its
+    planar delta and scales, the per-leaf keys of a mixing key, the ring
+    plan's streams. Each kernel bitwise against its plain version (B1 and
+    B2 lane by lane, B3 leaf by leaf) and timed. Returns the rows'
+    records."""
+    from repro_torch import prng
+    from repro_torch.core import MixingSpec, QuantConfig, WireLayout
+    from repro_torch.core.mixing import _plan_tables, _quant_leaf_keys
+    from repro_torch.kernels import momentum_update, ref
+    from repro_torch.kernels.dequant_mix import dequant_mix_buffer
+    from repro_torch.kernels.momentum_sgd import momentum_sgd_lanes_ref
+    from repro_torch.kernels.quantize_pack import quantize_pack_buffer
+
+    quant = QuantConfig(bits=8)
+    bits = quant.bits
+    x = state.params
+    m = next(iter(x.values())).shape[0]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    layout = WireLayout.for_tree(x, bits, stacked=True)
+    X = layout.to_planar_stacked(x)
+    z = {n: (t.float() + 1e-3 * torch.randn(t.shape, device=dev,
+                                            generator=gen)).to(t.dtype)
+         for n, t in x.items()}
+    delta = layout.to_planar_stacked({n: z[n] - x[n] for n in x})
+    del z
+    sblk = layout.block_scales(layout.leaf_scales(delta, quant))
+    keys = _quant_leaf_keys(prng.PRNGKey(5, device=dev), layout.n_leaves, m)
+    table = layout.noise_table
+    words = quantize_pack_buffer(delta, sblk, bits, keys=keys, table=table)
+    # The plain version lane by lane (its noise for all lanes at once
+    # would take tens of GB): each lane's words of the one launch over
+    # all lanes, its key rows and its offsets into the buffer.
+    for c in range(m):
+        want = ref.quantize_pack_buffer_ref(
+            delta[c:c + 1], sblk[c:c + 1], bits,
+            layout.noise_stacked(keys[:, c:c + 1].contiguous()))
+        check_words(f"B1 full width lane {c}", words[c:c + 1], want)
+        del want
+    r1 = {"shape": f"x f32 {list(delta.shape)}, keys {list(keys.shape)}",
+          "checks": [f"full width: x f32 {list(delta.shape)}: every lane "
+                     "of the launch over all lanes bitwise with the "
+                     "plain version"]}
+    timed(r1, "", lambda: quantize_pack_buffer(delta, sblk, bits, keys=keys,
+                                               table=table), flush,
+          **PROD_REPS)
+    r1["sass"] = keyed_ops("quantize_pack_buffer", bits,
+                           delta.shape[0] * delta.shape[2] // 4,
+                           sum(layout.sizes) * m)
+    r1["bound_ms"], r1["bound_by"] = bound(nbytes(delta, sblk, keys, words),
+                                           0, r1["sass"]["ms"])
+    del delta
+    gc.collect()
+
+    src, w = _plan_tables(MixingSpec.ring(m, self_weight=0.5).gossip_plan(),
+                          dev)
+    out = dequant_mix_buffer(X, words, sblk, w, src, bits)
+    for c in range(m):
+        s = src[:, c].long()
+        want = ref.dequant_mix_buffer_ref(X[c], words[s], sblk[s], w[c],
+                                          bits)
+        check_words(f"B2 full width lane {c}", out[c].view(torch.int32),
+                    want.view(torch.int32))
+    del want
+    r2 = {"shape": f"base {list(X.shape)}, K {src.shape[0]}",
+          "checks": [f"full width: base {list(X.shape)}, K "
+                     f"{src.shape[0]}: every lane bitwise"]}
+    timed(r2, "", lambda: dequant_mix_buffer(X, words, sblk, w, src, bits),
+          flush, **PROD_REPS)
+    r2["bound_ms"], r2["bound_by"] = bound(
+        nbytes(X, words, sblk, w, src, out), X.numel() * 3 * src.shape[0])
+    del X, out, words
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = {"quantize_pack_buffer": r1, "dequant_mix_buffer": r2}
+    for dtype, name in ((torch.bfloat16, "momentum_sgd_bf16"),
+                        (torch.float32, "momentum_sgd_f32")):
+        y = {n: t.to(dtype) for n, t in x.items()}
+        v = {n: (0.01 * torch.randn(t.shape, device=dev, generator=gen))
+             .to(dtype) for n, t in x.items()}
+        g = {n: (0.1 * torch.randn(t.shape, device=dev, generator=gen))
+             .to(dtype) for n, t in x.items()}
+        ys, vs = momentum_update(y, v, g, 3e-2, 0.9)
+        for n in y:
+            wy, wv = ref.momentum_sgd_ref(y[n], v[n], g[n], 3e-2, 0.9)
+            check_words(f"B3 {name} {n}", ys[n].view(torch.int16),
+                        wy.view(torch.int16))
+            check_words(f"B3 {name} {n} v", vs[n].view(torch.int16),
+                        wv.view(torch.int16))
+        del ys, vs, wy, wv
+        n_el = sum(t.numel() for t in y.values())
+        size = torch.empty((), dtype=dtype).element_size()
+        r = {"shape": f"one local step: {len(y)} leaves x {m} clients "
+                      f"({n_el} {str(dtype)[6:]})",
+             "checks": [f"full width, {len(y)} {str(dtype)[6:]} leaves x "
+                        f"{m} clients: bitwise"]}
+        timed(r, "", lambda: momentum_update(y, v, g, 3e-2, 0.9), flush,
+              **PROD_REPS)
+        timed(r, "plain_", lambda: [ref.momentum_sgd_ref(
+            y[n], v[n], g[n], 3e-2, 0.9) for n in y], flush, **PROD_REPS)
+        r["bound_ms"], r["bound_by"] = bound(5 * size * n_el, 3 * n_el)
+        r["max_abs_err"], r["max_ulp"] = 0.0, 0
+        # The library's multi-tensor SGD step over the same leaves (in
+        # place, buf' = theta*buf + g; p' = p - eta*buf'): timed only.
+        params = [t.clone() for t in y.values()]
+        bufs = [t.clone() for t in v.values()]
+        timed(r, "library_", lambda: torch._fused_sgd_(
+            params, list(g.values()), bufs, weight_decay=0.0,
+            momentum=0.9, lr=3e-2, dampening=0.0, nesterov=False,
+            maximize=False, is_first_step=False), flush, **PROD_REPS)
+        del params, bufs
+        rows[name] = r
+        del y, v, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    # B3's lane entry on the bf16 leaves (an eta a client), and a table
+    # mixing bf16 and f32 leaves: one launch a dtype.
+    from repro_torch.kernels import launch_counts
+    y = dict(x)
+    v = {n: (0.01 * torch.randn(t.shape, device=dev, generator=gen))
+         .to(t.dtype) for n, t in x.items()}
+    g = {n: (0.1 * torch.randn(t.shape, device=dev, generator=gen))
+         .to(t.dtype) for n, t in x.items()}
+    eta = torch.linspace(0.01, 0.05, m, device=dev)
+    ys, vs = momentum_update(y, v, g, eta, 0.9)
+    for n in y:
+        wy, wv = momentum_sgd_lanes_ref(y[n], v[n], g[n], eta, 0.9)
+        check_words(f"B3 lanes bf16 {n}", ys[n].view(torch.int16),
+                    wy.view(torch.int16))
+        check_words(f"B3 lanes bf16 {n} v", vs[n].view(torch.int16),
+                    wv.view(torch.int16))
+    del ys, vs
+    mixed = {"a_f32": torch.randn(m, 1031, device=dev, generator=gen),
+             **{n: t for n, t in list(x.items())[:3]}}
+    mv = {n: 0.01 * torch.randn(t.shape, device=dev, generator=gen)
+          .to(t.dtype) for n, t in mixed.items()}
+    mg = {n: 0.1 * torch.randn(t.shape, device=dev, generator=gen)
+          .to(t.dtype) for n, t in mixed.items()}
+    before = launch_counts()["momentum_sgd"]
+    ys, vs = momentum_update(mixed, mv, mg, 3e-2, 0.9)
+    torch.cuda.synchronize()
+    if launch_counts()["momentum_sgd"] - before != 2:
+        raise AssertionError("B3 on a mixed f32/bf16 table: "
+                             f"{launch_counts()['momentum_sgd'] - before} "
+                             "launches, expected 2")
+    for n in mixed:
+        wy, wv = ref.momentum_sgd_ref(mixed[n], mv[n], mg[n], 3e-2, 0.9)
+        if not (torch.equal(ys[n], wy) and torch.equal(vs[n], wv)
+                and ys[n].dtype == mixed[n].dtype):
+            raise AssertionError(f"B3 mixed table: leaf {n}")
+    rows["momentum_sgd_bf16"]["checks"] += [
+        f"lane entry (eta [{m}]) on the {len(y)} bf16 leaves: bitwise",
+        "a table of 1 f32 and 3 bf16 leaves: 2 launches, bitwise"]
+    del y, v, g, ys, vs, mixed, mv, mg
+    print(json.dumps({"production_kernels": {
+        k: {f: r[f] for f in ("shape", "ms", "clean_ms", "call_ms",
+                              "host_ms", "bound_ms", "bound_by") + (
+            ("plain_ms", "library_ms") if "plain_ms" in r else ())}
+        for k, r in rows.items()}}), flush=True)
+    return rows
+
+
+def production_serve(dev, params) -> dict:
+    """``serve.greedy_generate`` on the consensus model at the reference
+    serve.py's defaults: prefill ms, decode ms a token, tokens a second.
+    Then the reduced SmolLM in f32 on the card: the cached decode's logits
+    against a full no-cache forward of the same tokens."""
+    from repro_torch import prng
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import model as M
+
+    cfg = production_config()
+    prompts = prng.randint(prng.PRNGKey(1, device=dev),
+                           (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+    s_alloc = SERVE_PROMPT + SERVE_GEN
+    greedy_generate(params, cfg, prompts, gen=2, s_alloc=s_alloc)  # warm
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        caches = M.init_decode_caches(cfg, SERVE_BATCH, s_alloc, device=dev)
+        M.prefill(params, cfg, prompts, caches)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    toks = greedy_generate(params, cfg, prompts, gen=SERVE_GEN,
+                           s_alloc=s_alloc)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(toks.shape) != (SERVE_BATCH, SERVE_GEN) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"serving: tokens {tuple(toks.shape)}")
+    rcfg = production_config(reduced_=True)
+    rp = M.init_model(prng.PRNGKey(4), rcfg, device=dev)
+    tok = prng.randint(prng.PRNGKey(6, device=dev), (2, 24), 0,
+                       rcfg.vocab_size)
+    worst = 0.0
+    with torch.no_grad():
+        full, _, _ = M.forward(rp, rcfg, tok)
+        caches = M.init_decode_caches(rcfg, 2, 24, device=dev)
+        last, caches = M.prefill(rp, rcfg, tok[:, :16], caches)
+        pairs = [(last, full[:, 15])]
+        for i in range(16, 24):
+            step, caches = M.decode_step(rp, rcfg, tok[:, i],
+                                         torch.tensor(i, device=dev),
+                                         caches)
+            pairs.append((step, full[:, i]))
+        for a, b in pairs:
+            worst = max(worst, float((a - b).abs().max()
+                                     / b.abs().max()))
+    if not worst <= DECODE_RTOL:
+        raise AssertionError(f"reduced decode vs forward: {worst}")
+    rec = {"batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+           "prefill_ms": prefill_ms,
+           "decode_ms_per_token": (total_ms - prefill_ms) / (SERVE_GEN - 1),
+           "total_ms": total_ms,
+           "tok_per_s": SERVE_BATCH * SERVE_GEN / total_ms * 1e3,
+           "sample": toks[0, :8].tolist(),
+           "reduced_decode_vs_forward_rel": worst}
+    print(json.dumps({"production_serve": rec}), flush=True)
+    return rec
+
+
+def prod_cpu_archs(path: str) -> None:
+    """The CPU side of :func:`production_archs`, run in a process of its
+    own (``chip_smoke.py --prod-cpu-archs PATH``) while the card works:
+    each arch's round on the CPU, (loss, consensus) written to PATH."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import train as TT
+
+    torch.set_num_threads(4)
+    out = {}
+    for arch in list_archs():
+        if arch != PROD_ARCH:
+            _, met = TT.main(["--arch", arch, "--device", "cpu"]
+                             + PROD_CPU_ARGV)
+            out[arch] = (float(met["loss"]), float(met["consensus_dist"]))
+    Path(path).write_text(json.dumps(out))
+
+
+def start_cpu_archs() -> tuple[subprocess.Popen, Path]:
+    PROD_OUT.mkdir(parents=True, exist_ok=True)
+    path = PROD_OUT / "cpu_archs.json"
+    path.unlink(missing_ok=True)
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--prod-cpu-archs", str(path)],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, path
+
+
+def production_archs(dev, cpu=None) -> dict:
+    """Every other registered arch, reduced, f32: one driver round at 8
+    bits on the card against the same run on the CPU (loss and consensus
+    within PROD_CPU_RTOL, TF32 off; the CPU runs in a process of its own,
+    ``cpu`` = :func:`start_cpu_archs`), and ``greedy_generate`` of 4
+    tokens, in the vocabulary."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config, list_archs, reduced
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import model as M
+    from repro_torch.models.frontends import stub_frontend_embeddings
+
+    proc, path = cpu if cpu is not None else start_cpu_archs()
+    out = {}
+    try:
+        for arch in list_archs():
+            if arch == PROD_ARCH:
+                continue
+            t0 = time.perf_counter()
+            _, met = TT.main(["--arch", arch, "--device", str(dev)]
+                             + PROD_CPU_ARGV)
+            card = (float(met["loss"]), float(met["consensus_dist"]))
+            cfg = reduced(get_config(arch))
+            p = M.init_model(prng.PRNGKey(0), cfg, device=dev)
+            cross = None
+            if cfg.frontend is not None:
+                cross = M.cross_states(p, cfg, stub_frontend_embeddings(
+                    cfg, 2, device=dev))
+            prompts = prng.randint(prng.PRNGKey(1, device=dev), (2, 8), 0,
+                                   cfg.vocab_size)
+            toks = greedy_generate(p, cfg, prompts, gen=4, s_alloc=12,
+                                   cross_states=cross)
+            if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+                raise AssertionError(f"{arch}: tokens {toks.tolist()}")
+            out[arch] = {"card": card, "tokens": toks[0].tolist(),
+                         "card_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"the CPU runs failed:\n{err[-3000:]}")
+    cpu_runs = json.loads(path.read_text())
+    for arch, rec in out.items():
+        rec["cpu"] = c = tuple(cpu_runs[arch])
+        d = rec["card"]
+        rec["rel"] = {"loss": abs(d[0] - c[0]) / abs(c[0]),
+                      "consensus_dist": abs(d[1] - c[1]) / abs(c[1])}
+        if not all(math.isfinite(v) for v in d) or max(
+                rec["rel"].values()) > PROD_CPU_RTOL:
+            raise AssertionError(f"{arch}: card {d}, cpu {c}")
+    print(json.dumps({"production_archs": out,
+                      "cpu_wait_s": time.perf_counter() - t0}), flush=True)
+    return out
+
+
+def production_modes(dev) -> dict:
+    """The driver's other modes on the reduced SmolLM, PROD_MODES, 3
+    rounds each: every JSONL log passes ``check_schema``; the trace and
+    the checkpoints are written."""
+    from repro_torch.launch import train as TT
+    from repro_torch.telemetry.check_schema import check_file
+
+    out = {}
+    PROD_OUT.mkdir(parents=True, exist_ok=True)
+    for name, extra in PROD_MODES.items():
+        log = PROD_OUT / f"mode_{name}.jsonl"
+        argv = ["--clients", "8", "--local-steps", "2", "--batch", "2",
+                "--seq", "32", "--rounds", "3", "--device", str(dev),
+                "--log-jsonl", str(log)] + extra
+        if name == "trace":
+            argv += ["--trace", str(PROD_OUT / "trace.json")]
+        if name == "ckpt":
+            argv += ["--ckpt-dir", str(PROD_OUT / "ckpt")]
+        t0 = time.perf_counter()
+        _, met = TT.main(argv)
+        problems = check_file(log)
+        if problems or not math.isfinite(float(met["loss"])):
+            raise AssertionError(f"mode {name}: {problems[:3]}, loss "
+                                 f"{met['loss']}")
+        out[name] = {"loss": float(met["loss"]),
+                     "s": time.perf_counter() - t0}
+    steps = sorted(p.name for p in (PROD_OUT / "ckpt").iterdir())
+    if not (PROD_OUT / "trace.json").exists() or not steps:
+        raise AssertionError("the trace or the checkpoints are missing")
+    out["ckpt"]["steps"] = steps
+    shutil.rmtree(PROD_OUT / "ckpt")      # tens of MB: not brought back
+    print(json.dumps({"production_modes": out}), flush=True)
+    return out
+
+
+def production_phase(dev, flush=None) -> dict:
+    """Phase "production": SmolLM-135M at its registered width (30 layers,
+    d 576, 9 heads / 3 KV heads, d_ff 1536, vocab 49 152, tied, bf16)
+    through the LM driver's ``_run_resident`` in PROD_ARMS (fp32 wire:
+    the plan realization's f32 gathers and B3 bf16; 8 bits unfused: B1,
+    B2, B3; fused: B4, B5, B3) with exact launch counts; B1, B2 and B3
+    (bf16 and f32) at those shapes against their plain versions, timed;
+    captured full-width rounds; serving the consensus; the other archs
+    reduced against the CPU; the driver's other modes. A failure kills the
+    CPU side's process, which runs from the captured rounds on (before
+    them its threads would slow the eager arms). bf16 products may
+    reduce in reduced precision in cuBLAS
+    (``allow_bf16_reduced_precision_reduction`` stays at torch's default,
+    printed)."""
+    from repro_torch.core import average_params
+    if flush is None:
+        flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    cpu = None
+    try:
+        info = {"bf16_reduced_precision_reduction": torch.backends.cuda.matmul
+                .allow_bf16_reduced_precision_reduction,
+                "tf32": torch.backends.cuda.matmul.allow_tf32}
+        arms, state, parts = {}, None, {}
+        for name, extra in PROD_ARMS.items():
+            arms[name], st = production_arm(dev, name, extra)
+            if name == "q8":
+                state = st
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+        parts["arms"] = time.perf_counter() - t0
+        serve = production_serve(dev, average_params(state.params))
+        attention = production_attention(dev)
+        parts["serve"] = time.perf_counter() - t0
+        # The CPU side of the archs' check runs beside the card's work from
+        # here on (its host threads would slow the eager arms and serving).
+        cpu = start_cpu_archs()
+        kernels = production_kernel_checks(dev, flush, state)
+        parts["kernels"] = time.perf_counter() - t0
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        captured = production_captured(dev)
+        captured["attention"] = attention
+        captured["breakdown"] = production_breakdown(captured, attention)
+        parts["captured"] = time.perf_counter() - t0
+        archs = production_archs(dev, cpu)
+        parts["archs"] = time.perf_counter() - t0
+        modes = production_modes(dev)
+        parts["modes"] = time.perf_counter() - t0
+    finally:
+        if cpu is not None and cpu[0].poll() is None:   # a failure before
+            cpu[0].kill()
+            cpu[0].wait()
+    rec = {"info": info, "arms": arms, "kernels": kernels,
+           "serve": serve, "captured": captured, "archs": archs,
+           "modes": modes, "phase_s": time.perf_counter() - t0,
+           "parts_s": parts}
+    print(json.dumps({"production": {
+        "phase_s": rec["phase_s"], "s_at_end_of": parts, **info,
+        "round_ms_median": {k: v["round_ms_median"] for k, v in arms.items()},
+        "device_busy_share": {k: v["profiled_round"]["device_busy_share"]
+                              for k, v in arms.items()},
+        "peak_gib": {k: v["peak_gib"] for k, v in arms.items()}}}),
+        flush=True)
+    return rec
+
+
 # Phases ``--only`` can run alone (after the build), for work on one path.
-ONLY = {"pool": pool_phase, "telemetry": telemetry_phase}
+ONLY = {"pool": pool_phase, "telemetry": telemetry_phase,
+        "production": production_phase}
 
 
 def main() -> int:
+    if "--prod-cpu-archs" in sys.argv:      # production_archs' CPU side
+        prod_cpu_archs(sys.argv[sys.argv.index("--prod-cpu-archs") + 1])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4415,6 +5210,7 @@ def main() -> int:
     tel, counts["telemetry"] = telemetry_phase(dev, pool["breakdown"])
     times = round_times(dev)
     rows = bench_path(dev)
+    prod = production_phase(dev, flush)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
     counts["fig8"] = {k: sum(r["eager_launches"][k] for r in fig8)
                       for k in KERNEL_SOURCES}
@@ -4436,6 +5232,29 @@ def main() -> int:
                           name] if path in captured else None,
                       "telemetry_launches": counts["telemetry"][name],
                       **{k: r[k] for k in EXTRA_KEYS if k in r}})
+        full = prod["kernels"].get({"momentum_sgd": "momentum_sgd_f32"}.get(
+            name, name))
+        if full is not None:
+            table[-1]["smollm_full_width"] = {
+                f: full[f] for f in ("shape", "ms", "clean_ms", "call_ms",
+                                     "host_ms", "bound_ms", "bound_by")}
+            table[-1]["production_launches"] = prod["arms"]["q8"][
+                "launches"][name]
+    b3 = prod["kernels"]["momentum_sgd_bf16"]
+    # B3 on bf16 leaves: the same kernel source, its bf16 instantiation;
+    # its launches are the 8-bit full-width arm's (every leaf bf16).
+    table.append({"name": "momentum_sgd_bf16", "route": "cuda",
+                  "source": KERNEL_SOURCES["momentum_sgd"][0],
+                  "replaces": KERNEL_SOURCES["momentum_sgd"][1],
+                  "launches": prod["arms"]["q8"]["launches"]["momentum_sgd"],
+                  "path": "production", "max_abs_err": b3["max_abs_err"],
+                  "ms": b3["ms"], "plain_ms": b3["plain_ms"],
+                  "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
+                  "library_ms": b3["library_ms"], "call_ms": b3["call_ms"],
+                  "max_ulp": b3["max_ulp"], "shape": b3["shape"],
+                  "clean_ms": b3["clean_ms"], "host_ms": b3["host_ms"],
+                  "plain_call_ms": b3["plain_call_ms"],
+                  "library_clean_ms": b3["library_clean_ms"]})
     print(json.dumps({"round_ms_median": {"unfused": unfused_ms,
                                           "fused": fused_ms},
                       "round_ms_median_in_turns": times[
@@ -4495,7 +5314,22 @@ def main() -> int:
                           "pool_round_ms_median": tel["pool"][
                               "round_ms_median"],
                           "pool_span_ms_per_round": tel["pool"][
-                              "span_ms_per_round"]}}))
+                              "span_ms_per_round"]},
+                      "production": {
+                          "round_ms_median": {
+                              k: v["round_ms_median"]
+                              for k, v in prod["arms"].items()},
+                          "device_busy_share": {
+                              k: v["profiled_round"]["device_busy_share"]
+                              for k, v in prod["arms"].items()},
+                          "loss": {k: v["loss"]
+                                   for k, v in prod["arms"].items()},
+                          "serve": {k: prod["serve"][k] for k in (
+                              "prefill_ms", "decode_ms_per_token",
+                              "tok_per_s")},
+                          "captured_max_abs_diff": prod["captured"][
+                              "max_abs_diff_vs_eager"],
+                          "phase_s": prod["phase_s"]}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

@@ -53,7 +53,10 @@ def loss_and_grad(loss_fn: LossFn, params: Params, batch: Params,
         keys = None if keys is None else torch.cat([keys, keys])
     p = {n: t.detach().requires_grad_(True) for n, t in params.items()}
     loss = loss_fn(p, batch, keys)
-    grads = torch.autograd.grad(loss.sum(), list(p.values()))
+    # A leaf the loss does not reach (a model's encoder when the batch
+    # carries no frontend) gets a zero gradient, as under jax.grad.
+    grads = torch.autograd.grad(loss.sum(), list(p.values()),
+                                allow_unused=True, materialize_grads=True)
     if lone:
         loss, grads = loss[:1], [gr[:1] for gr in grads]
     return loss.detach(), {n: gr.contiguous() for n, gr in zip(p, grads)}

@@ -246,6 +246,10 @@ def momentum_sgd_ref(y: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     """Heavy-ball (paper eq. 4, velocity form) with f32 eta/theta:
 
         v' = theta*v - eta*g ;  y' = y + v'
+
+    computed in f32 from the widened operands, each result then rounded
+    to its leaf's dtype (to nearest even for bf16): y' adds the unrounded
+    f32 v', as the Pallas body does.
     """
     eta, theta = _f32(eta), _f32(theta)
     v_next = theta * v.to(torch.float32) - eta * g.to(torch.float32)

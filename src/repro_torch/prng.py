@@ -63,24 +63,26 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
 
 
-def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
-    return ((x << d) & MASK32) | (x >> (32 - d))
-
-
 def threefry2x32(k1, k2, x1, x2) -> tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash (20 rounds) of counter words (x1, x2) under
     key words (k1, k2). All operands are broadcastable ``int64`` tensors
-    with values in [0, 2^32); returns the two output words likewise."""
+    with values in [0, 2^32); returns the two output words likewise, at
+    the operands' broadcast shape. The rounds update two buffers in
+    place: on the CPU the hash is bound by memory traffic."""
     k3 = k1 ^ k2 ^ _PARITY
     ks = (k1, k2, k3)
-    x1 = (x1 + k1) & MASK32
-    x2 = (x2 + k2) & MASK32
+    x1, x2 = torch.broadcast_tensors(torch.add(x1, k1), torch.add(x2, k2))
+    x1 = x1.contiguous().bitwise_and_(MASK32)
+    x2 = x2.contiguous().bitwise_and_(MASK32)
+    rot = torch.empty_like(x2)
     for i in range(5):
         for r in _ROT[i % 2]:
-            x1 = (x1 + x2) & MASK32
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & MASK32
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+            x1.add_(x2).bitwise_and_(MASK32)
+            # x2 = rotl32(x2, r) ^ x1
+            torch.bitwise_left_shift(x2, r, out=rot).bitwise_and_(MASK32)
+            x2.bitwise_right_shift_(32 - r).bitwise_or_(rot).bitwise_xor_(x1)
+        x1.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
+        x2.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(MASK32)
     return x1, x2
 
 

@@ -30,9 +30,11 @@ struct dim3 {
 };
 struct float4 { float x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
+struct uint2 { unsigned x, y; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
@@ -50,6 +52,11 @@ inline float __uint_as_float(uint32_t u) {
   float f;
   std::memcpy(&f, &u, sizeof f);
   return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
 }
 
 namespace emu {

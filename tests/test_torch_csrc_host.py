@@ -5,7 +5,9 @@ the CPU against their plain PyTorch versions.
 device intrinsics these kernels use; every ``kernel<<<...>>>(args)`` launch
 is rewritten into a loop over blocks and threads. So the kernels' own index
 arithmetic runs here — block-to-leaf search, float4 and scalar paths, the
-keyed noise's leaf lookup, counters and threefry rounds, B2's and B5's
+keyed noise's leaf lookup, counters and threefry rounds, B3's bf16
+entries (the f32 arithmetic, the round-to-nearest-even store, a table
+mixing f32 and bf16 leaves through the wrapper's grouping), B2's and B5's
 four columns a thread and their stream gather, keyed B6's counter over
 the whole padded buffer and its key by value or by pointer, B7's streams
 fixed at compile time or in groups, B8's three stream pointers, and the
@@ -207,6 +209,120 @@ def test_b3_lanes_refuses_a_bad_m(host_lib):
                         ([12], 4, None), ([-4], 4, eta)):
         assert b3_lane_step(fn, ys, vs, gs, out, out, sizes, e, m) == (
             cudaErrorInvalidValue, 0)
+
+
+def bf16_leaves(rng, sizes, misalign_last=True):
+    """bf16 host tensors of ``sizes`` (normal values, some exactly on a
+    bf16 rounding tie after the step is not controlled: random); the last
+    starts 2 bytes past a 16-byte boundary (the scalar path)."""
+    out = [torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(
+        torch.bfloat16) for n in sizes]
+    if misalign_last:
+        spare = torch.from_numpy(rng.normal(size=sizes[-1] + 1).astype(
+            np.float32)).to(torch.bfloat16)
+        out[-1] = spare[1:]
+    return out
+
+
+@pytest.mark.parametrize("lanes", [False, True], ids=["scalar", "lanes"])
+def test_b3_bf16_leaves_bitwise(host_lib, lanes):
+    """B3's bf16 entries (scalar eta and a device eta [m]) over ragged
+    bf16 leaves — empty, smaller than four values, several blocks, one
+    misaligned (its scalar loop) — in one launch, bitwise against the
+    plain version, which computes in f32 and rounds to nearest even."""
+    m = 4
+    lib = host_lib("momentum_sgd")
+    fn = (entry(lib, "momentum_sgd_lanes_bf16", B3_LANE_ARGS) if lanes
+          else entry(lib, "momentum_sgd_bf16", B3_ARGS))
+    rng = np.random.default_rng(7 + lanes)
+    sizes = [m * p for p in (0, 1, 3, 10, 1031, 4097, 7)]
+    ys, vs, gs = (bf16_leaves(rng, sizes) for _ in range(3))
+    eta = (0.05 / (1.0 + 0.5 * rng.integers(0, 4, size=m))).astype(
+        np.float32)
+    offs, total, _ = out_offsets(tuple(sizes), 8)
+    out = torch.full((2, total), float("nan"), dtype=torch.bfloat16)
+    y_out = [out[0, o:] for o in offs]
+    v_out = [out[1, o:] for o in offs]
+    if lanes:
+        got = b3_lane_step(fn, ys, vs, gs, y_out, v_out, sizes, eta, m)
+    else:
+        got = b3_step(fn, ys, vs, gs, y_out, v_out, sizes)
+    assert got == (0, 1)
+    for i, (o, n) in enumerate(zip(offs, sizes)):
+        args = [a[i].reshape(m, -1) for a in (ys, vs, gs)]
+        wy, wv = (momentum_sgd_lanes_ref(*args, torch.from_numpy(eta), 0.9)
+                  if lanes else ref.momentum_sgd_ref(*args, 0.05, 0.9))
+        assert torch.equal(out[0, o:o + n].view(torch.int16),
+                           wy.reshape(-1).view(torch.int16)), i
+        assert torch.equal(out[1, o:o + n].view(torch.int16),
+                           wv.reshape(-1).view(torch.int16)), i
+
+
+def test_b3_bf16_rounding_ties_and_nan(host_lib):
+    """The bf16 store rounds to nearest even on exact ties and carries
+    infinities, zeros and subnormals, as ``Tensor.to(bfloat16)``: with y
+    and g zero, y' = v' = theta * v, whose products with theta = 1 + 2^-8
+    land on ties and beside them. NaN stays NaN (its payload is the
+    platform's: torch's CPU conversion and the kernel's 0x7fc0 differ)."""
+    fn = entry(host_lib("momentum_sgd"), "momentum_sgd_bf16", B3_ARGS)
+    # bf16 values whose product with theta = 1 + 2^-8 lands on ties and
+    # around them, plus the specials.
+    v = torch.tensor([1.0, 1.0078125, 3.0, -5.0, 255.0, float("inf"),
+                      float("-inf"), float("nan"), 0.0, -0.0, 1e-40, 7.0],
+                     dtype=torch.float32).to(torch.bfloat16)
+    y = torch.zeros_like(v)
+    g = torch.zeros_like(v)
+    theta = 1.0 + 2.0 ** -8
+    n = v.numel()
+    out = torch.zeros((2, -(-n // 8) * 8), dtype=torch.bfloat16)
+    ptrs = np.array([[ptr(y), ptr(v), ptr(g), ptr(out[0]), ptr(out[1])]],
+                    np.uint64)
+    launches = ctypes.c_int(-1)
+    assert fn(ptr(ptrs), ptr(np.array([n], np.int64)), 1, 0.05, theta,
+              None, ctypes.byref(launches)) == 0
+    wy, wv = ref.momentum_sgd_ref(y, v, g, 0.05, theta)
+    nan = torch.isnan(v)
+    for got, want in ((out[0, :n], wy), (out[1, :n], wv)):
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int16),
+                           want[~nan].view(torch.int16))
+
+
+def test_b3_mixed_table_one_launch_a_dtype(host_lib, monkeypatch):
+    """The wrapper's own grouping (``_launch_groups``) over a table that
+    mixes f32 and bf16 leaves, run through the host build: one launch a
+    dtype (two in all, counted in ``LAUNCHES["momentum_sgd"]``), every
+    output in its leaf's dtype and bitwise with the plain version."""
+    import importlib
+    b3 = importlib.import_module("repro_torch.kernels.momentum_sgd")
+    lib = host_lib("momentum_sgd")
+    monkeypatch.setattr(native, "function",
+                        lambda _lib, sym, args: entry(lib, sym, args))
+    monkeypatch.setattr(native, "stream_of", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: __import__("contextlib").nullcontext())
+    rng = np.random.default_rng(3)
+    shapes = [(4, 33), (4, 1031), (4, 7), (4, 2), (4, 4097)]
+    dtypes = [torch.float32, torch.bfloat16, torch.bfloat16, torch.float32,
+              torch.bfloat16]
+    ys, vs, gs = ([torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to(d) for s, d in zip(shapes, dtypes)]
+                  for _ in range(3))
+    before = native.LAUNCHES["momentum_sgd"]
+    y_out, v_out = b3._launch_groups(ys, vs, gs, 0.05, 0.9,
+                                     torch.device("cpu"))
+    assert native.LAUNCHES["momentum_sgd"] - before == 2
+    for i in range(len(shapes)):
+        wy, wv = ref.momentum_sgd_ref(ys[i], vs[i], gs[i], 0.05, 0.9)
+        assert y_out[i].dtype == dtypes[i] and v_out[i].dtype == dtypes[i]
+        assert torch.equal(y_out[i], wy) and torch.equal(v_out[i], wv), i
+    eta = torch.full((4,), 0.05)
+    y_out, v_out = b3._launch_groups(ys, vs, gs, eta, 0.9,
+                                     torch.device("cpu"))
+    assert native.LAUNCHES["momentum_sgd_lanes"] >= 2
+    for i in range(len(shapes)):
+        wy, wv = momentum_sgd_lanes_ref(ys[i], vs[i], gs[i], eta, 0.9)
+        assert torch.equal(y_out[i], wy) and torch.equal(v_out[i], wv), i
 
 
 @pytest.mark.parametrize("sizes", [(0, 1, 3, 4097), (4097, 0, 3, 1),

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and none of
-``chip_smoke.py``, ``chip_b7_variants.py`` and ``chip_turns.py`` imports
-JAX or the JAX package (``repro``). Only the parity tests import both.
+``chip_smoke.py``, ``chip_b7_variants.py``, ``chip_turns.py`` and the
+port's examples (``examples/*_torch.py``) imports JAX or the JAX package
+(``repro``). Only the parity tests import both.
 The check walks each file's syntax tree, so an import inside a function
 counts too."""
 import ast
@@ -12,7 +13,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro")
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_b7_variants.py",
-    ROOT / "chip_turns.py"]
+    ROOT / "chip_turns.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def imported_roots(path: Path) -> set[str]:
@@ -40,6 +41,16 @@ def test_the_port_has_modules_to_check():
                 "telemetry/sink.py", "telemetry/schema.py",
                 "telemetry/check_schema.py", "launch/report.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+    # The production models and the LM driver: configs, the models, the
+    # training and serving drivers and their examples.
+    for mod in ("configs/base.py", "configs/smollm_135m.py",
+                "models/layers.py", "models/attention.py",
+                "models/transformer.py", "models/moe.py", "models/ssm.py",
+                "models/frontends.py", "models/model.py", "launch/mesh.py",
+                "launch/train.py", "launch/serve.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    for ex in ("train_dfedavgm_lm_torch.py", "serve_consensus_torch.py"):
+        assert f"examples/{ex}" in names, ex
     assert "chip_smoke.py" in names and len(names) > 20
 
 

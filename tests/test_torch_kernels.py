@@ -186,6 +186,48 @@ def test_momentum_plain_vs_pallas(shape, eta):
     assert_within_ulp(got[0].numpy(), want[0], np.abs(y) + v_scale, 2)
 
 
+def _bf16_bits(a) -> np.ndarray:
+    return (torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+            .view(torch.int16).numpy())
+
+
+@pytest.mark.parametrize("shape,eta", [((3, 700), 0.05), ((8, 512), 0.1),
+                                       ((17, 33), 0.013), ((64, 96), 3e-2)])
+def test_momentum_plain_vs_pallas_bf16(shape, eta):
+    """On bf16 leaves the plain B3 and the Pallas kernel in interpret mode
+    both widen to f32, compute there and round each result to bf16 at the
+    store (y' from the unrounded f32 v'). They differ only where XLA's CPU
+    backend contracts ``theta*v - eta*g`` into ``fma(theta, v, -(eta*g))``
+    (the slack the f32 test above allows as 2 ulp): the Pallas output is
+    bitwise that contracted form rounded to bf16, the plain output bitwise
+    the separately rounded form (B3's ``_rn`` arithmetic, which nvcc does
+    not contract), and the elements where the two outputs differ are
+    exactly those where the two forms round to different bf16 values."""
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1] + 7)
+    y, v, g = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    want = momentum_sgd_pallas(*(jnp.asarray(a.float().numpy(), jnp.bfloat16)
+                                 for a in (y, v, g)),
+                               eta=jnp.float32(eta), theta=0.9,
+                               interpret=True)
+    got = momentum_sgd(y, v, g, eta, 0.9)
+    theta32, eta32 = np.float32(0.9), np.float32(eta)
+    yf, vf, gf = (a.float().numpy() for a in (y, v, g))
+    # theta * v is exact in f64 (24 + 8 significant bits): one rounding.
+    v_fma = (np.float64(theta32) * vf.astype(np.float64)
+             - (eta32 * gf).astype(np.float64)).astype(np.float32)
+    v_sep = (theta32 * vf - eta32 * gf).astype(np.float32)
+    forms = {"fma": (yf + v_fma, v_fma), "sep": (yf + v_sep, v_sep)}
+    for i, (gt, w) in enumerate(zip(got, want)):
+        assert gt.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        got_bits = gt.view(torch.int16).numpy()
+        want_bits = np.asarray(w).view(np.int16)
+        fma_bits, sep_bits = (_bf16_bits(forms[k][i]) for k in forms)
+        assert np.array_equal(got_bits, sep_bits)
+        assert np.array_equal(want_bits, fma_bits)
+        assert np.array_equal(got_bits != want_bits, sep_bits != fma_bits)
+
+
 def test_cuda_operand_checks_reject_cpu_tensors():
     from repro_torch.kernels import native
     with pytest.raises(ValueError):
