@@ -148,7 +148,7 @@ Phases (any failure exits non-zero):
    the eager arm's launches;
 13. "production": SmolLM-135M at its registered width (bf16, 134 515 008
    params a client, m 8, K 4, batch 4, seq 128) through the LM driver's
-   ``launch.train._run_resident`` with the unreduced config, three arms
+   ``launch.train.run_resident`` with the unreduced config, three arms
    (fp32 wire; 8 bits: B1, B2, B3 bf16; 8 bits fused: B4, B5, B3), 5
    rounds each: exact launch counts, finite losses and bf16 leaves, the
    median round, the peak memory, the last round profiled; the 8-bit
@@ -161,9 +161,28 @@ Phases (any failure exits non-zero):
    against the CPU (PROD_CPU_RTOL) and 4 greedy tokens; the driver's
    --pool, --async-gossip, partial, --telemetry, --trace and --ckpt-dir
    modes, their JSONL logs held to the schema;
-14. print the kernel table (with the floor; B1-B3 with their full-width
-   times, and a B3 bf16 row) as one JSON line, then the card again, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+14. "mesh": the 1D client mesh, 4 shards sharing cuda:0
+   (``launch.mesh.make_test_mesh``; every boundary transfer a device
+   copy on the card): the quickstart unfused and fused, 12 rounds each
+   in turns with the one-device plan realization — the sharded mixer
+   (fused: the tail at eta 0) fed the same x and z bitwise, the rounds
+   bitwise (or, only where local SGD alone parts at the shard's batch
+   count, within rtol 1e-5), exact launches (B1 = B2 = 4 a round, B4 =
+   B5 = 4 fused), 12 captured rounds bitwise with 12 eager ones and the
+   graph's kernel nodes one round's; the boundary lanes moved equal to
+   ``comm_cost``'s block bill's lane slots (bytes beside the bill's);
+   the placement arm on ER(64, 0.06, seed 2) over 8 shards (placed
+   bitwise with contiguous, lane slots at most half); SmolLM-135M as
+   registered through the driver's ``run_resident`` on the mesh
+   (``--clients-per-shard 2``, 8 bits, 2 rounds) against the one
+   device; B2 and B5 at a shard's extended-table shapes bitwise with
+   their plain versions and timed (``--only mesh`` runs it alone;
+   ``--only cards``, on a machine with 4 cards, runs the quickstart on
+   ``make_client_mesh`` with one card a shard, eagerly);
+15. print the kernel table (with the floor; B1-B3 with their full-width
+   times, B1-B5 with their mesh launches, B2 and B5 at the mesh's
+   extended table, and a B3 bf16 row) as one JSON line, then the card
+   again, then ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs one CUDA card and exits non-zero without one.
 """
@@ -4505,7 +4524,7 @@ def prod_expected(extra: list, rounds: int, K: int) -> dict:
 
 
 def production_arm(dev, name: str, extra: list) -> tuple[dict, object]:
-    """One arm at full width through ``launch.train._run_resident`` with
+    """One arm at full width through ``launch.train.run_resident`` with
     the unreduced config: round ms (eager, median of rounds 2 to
     PROD_ROUNDS - 1), the last round profiled, exact launch counts, every
     round's loss, the consensus distance and the memory peak. Returns
@@ -4527,7 +4546,7 @@ def production_arm(dev, name: str, extra: list) -> tuple[dict, object]:
     reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        state, metrics = TT._run_resident(args, cfg, log, tracer)
+        state, metrics = TT.run_resident(args, cfg, log, tracer)
         torch.cuda.synchronize()
     finally:
         log.close()
@@ -4653,7 +4672,7 @@ def production_breakdown(captured: dict, attention: dict) -> dict:
 def production_captured(dev) -> dict:
     """Full-width rounds at 8 bits, unfused: PROD_CAPTURED_ROUNDS eager
     rounds of the driver's step (``core.make_round_step`` on the model's
-    loss, built as ``_run_resident`` builds it) against as many replays
+    loss, built as ``run_resident`` builds it) against as many replays
     of its CUDA graph (``capture_step``). Not gated bitwise: the backward
     of the loss's target gather and of the embedding run through
     scatter-adds; the largest difference of any leaf is reported."""
@@ -5077,7 +5096,7 @@ def production_modes(dev) -> dict:
 def production_phase(dev, flush=None) -> dict:
     """Phase "production": SmolLM-135M at its registered width (30 layers,
     d 576, 9 heads / 3 KV heads, d_ff 1536, vocab 49 152, tied, bf16)
-    through the LM driver's ``_run_resident`` in PROD_ARMS (fp32 wire:
+    through the LM driver's ``run_resident`` in PROD_ARMS (fp32 wire:
     the plan realization's f32 gathers and B3 bf16; 8 bits unfused: B1,
     B2, B3; fused: B4, B5, B3) with exact launch counts; B1, B2 and B3
     (bf16 and f32) at those shapes against their plain versions, timed;
@@ -5143,9 +5162,542 @@ def production_phase(dev, flush=None) -> dict:
     return rec
 
 
+# The "mesh" phase: the 1D client mesh on one card, its shards sharing
+# cuda:0 (``launch.mesh.make_test_mesh``): every transfer is a device copy
+# on the card, not NVLink or network traffic.
+MESH_SHARDS = 4
+MESH_PLACED = dict(m=64, p=0.06, seed=2, shards=8, rounds=4)
+MESH_DRIVER_ROUNDS = 2
+MESH_DRIVER_ARGV = ["--bits", "8", "--clients", "8",
+                    "--clients-per-shard", "2"]
+
+
+def lanes_of(params) -> dict:
+    """A state's parameters as one stacked dict (a mesh's shards joined
+    in lane order on the first shard's device, ``join_lanes``)."""
+    from repro_torch.core import join_lanes
+    if isinstance(params, dict):
+        return params
+    return join_lanes(params, next(iter(params[0].values())).device)
+
+
+def sync_all() -> None:
+    """Wait for every card (a mesh over several cards runs on all)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_expected(fuse_round: bool, shards: int = MESH_SHARDS,
+                  rounds: int = 1) -> dict:
+    """Launches of ``rounds`` quickstart rounds on a mesh of ``shards``:
+    B1 and B2 (fused: B4 and B5) once a shard, B3 once a local step a
+    shard; T1 for the round and client keys, the quantizer's per-leaf
+    keys, and the per-step split once a shard unfused (``local_train``
+    splits its shard's keys), once for all lanes fused."""
+    e = {k: 0 for k in KERNEL_SOURCES}
+    if fuse_round:
+        e.update(momentum_quantize_pack_buffer=shards,
+                 dequant_mix_momentum_buffer=shards,
+                 momentum_sgd=(K - 2) * shards, threefry_split=4)
+    else:
+        e.update(quantize_pack_buffer=shards, dequant_mix_buffer=shards,
+                 momentum_sgd=K * shards, threefry_split=3 + shards)
+    return {k: v * rounds for k, v in e.items()}
+
+
+def mesh_mixer_gate(dev, mesh, setup, batch, fuse_round: bool) -> dict:
+    """The sharded mixer (fused: the sharded fused tail at eta 0, whose
+    output does not read the last gradient) fed the one-device round's x
+    and z from one round of training: bitwise the one-device mixer's x'."""
+    from repro_torch import prng
+    from repro_torch.core import (MixerConfig, local_train, make_fused_tail,
+                                  make_mixer, split_lanes)
+    from repro_torch.core.local_sgd import local_train_deferred
+    data, fed, stacked, spec, cfg, loss_fn, _ = setup
+    x = {n: t + 0.01 * torch.randn_like(t) for n, t in stacked.items()}
+    key_round, key_mix, _ = prng.split(prng.PRNGKey(3, device=dev), 3)
+    keys = prng.split(key_round, M)
+    if not fuse_round:
+        z, _ = local_train(loss_fn, x, batch, keys, eta=ETA, theta=THETA)
+        mcfg = MixerConfig(quant=cfg.quant)
+        want = make_mixer(spec, mcfg, device=dev)(x, z, key_mix)
+        mixer = make_mixer(spec, mcfg, mesh=mesh)
+        got = lanes_of(mixer(mesh.shard(x), mesh.shard(z), key_mix))
+        tables = mixer.tables
+    else:
+        step_keys = prng.split(keys, K)
+        y, v, g, _ = local_train_deferred(loss_fn, x, batch, step_keys,
+                                          eta=ETA, theta=THETA)
+        bl = {n: b[:, K - 1] for n, b in batch.items()}
+        kl = step_keys[:, K - 1]
+        kw = dict(eta=0.0, theta=THETA, quant=cfg.quant,
+                  plan=spec.gossip_plan(), W=spec.W)
+        want = make_fused_tail(loss_fn, M, device=dev, **kw)(
+            x, y, v, g, bl, kl, key_mix)[0]
+        tail = make_fused_tail(loss_fn, M, mesh=mesh, **kw)
+        got = lanes_of(tail(*(mesh.shard(t) for t in (x, y, v, g)),
+                            mesh.shard(bl),
+                            split_lanes(kl, list(mesh.devices)),
+                            key_mix)[0])
+        tables = tail.tables
+    ulp = max(ulp_diff(got[n], want[n]) for n in want)
+    if ulp:
+        raise AssertionError(f"mesh mixer {'fused' if fuse_round else ''}: "
+                             f"{ulp} ulp from the one-device mixer")
+    return {"bitwise": True, "tables": tables}
+
+
+def mesh_boundary(tables, layout_of, quant, spec) -> dict:
+    """A round's boundary transfers against ``comm_cost``'s block bill
+    (lemma5 replicas counted). ``shipped_bytes``, the bytes of the
+    payloads the round's exchange sent (counted from the payloads), must
+    be exactly the bill's lane slots times the reference's stream of a
+    lane: the words (4 W bytes), the per-leaf scales (4 n_leaves) and,
+    for lemma5, the f32 replica row (4 per W); the lanes moved must be
+    the bill's lane slots. The ratio to the bill's bytes (which count d
+    parameters, not W padded words) is printed."""
+    from repro_torch.core import WireLayout, plan_round_bits
+    from repro_torch.core.quantize import message_bits
+    layout = WireLayout.for_tree(layout_of, quant.bits, stacked=True)
+    d = int(sum(layout.sizes))
+    bill_bits = plan_round_bits(spec.gossip_plan(), d, quant, True,
+                                clients_per_shard=M // MESH_SHARDS)
+    per_edge = message_bits(d, quant) + 32 * d
+    slots = bill_bits / per_edge
+    stream = 4 * (layout.total_words + layout.n_leaves
+                  + (layout.per * layout.total_words
+                     if quant.delta_mode == "lemma5" else 0))
+    rec = {"lanes_moved": tables.lanes_moved, "bill_lane_slots": slots,
+           "shipped_bytes": tables.shipped_bytes,
+           "expected_bytes": slots * stream, "stream_bytes_a_lane": stream,
+           "bill_bytes": bill_bits / 8, "copies": len(tables.transfers)}
+    rec["shipped_over_bill"] = rec["shipped_bytes"] / rec["bill_bytes"]
+    if (rec["lanes_moved"] != slots
+            or rec["shipped_bytes"] != rec["expected_bytes"]):
+        raise AssertionError(f"mesh boundary: {rec}")
+    return rec
+
+
+def mesh_rounds(dev, fuse_round: bool, mesh=None) -> dict:
+    """The quickstart (2NN 784-200-200-10, m 16, ring 0.5, K 4, batch 32,
+    8-bit stochastic lemma5) on MESH_SHARDS shards of cuda:0 (or on
+    ``mesh``, one card a shard) against the one-device plan realization:
+    the mixer gate, ROUNDS eager rounds of each in turns (exact launches
+    of the mesh arm; bitwise, else the first round and leaf apart and
+    whether local SGD alone parts), then, on a mesh that shares a card,
+    ROUNDS captured rounds of each in turns (the mesh's graph: one
+    round's kernel nodes, no host copy; captured bitwise with eager;
+    over several cards ``capture_step`` must refuse), round ms, graph
+    nodes and replay ms of both, and the boundary bill."""
+    from repro_torch import prng
+    from repro_torch.core import (capture_step, init_round_state,
+                                  local_train, make_round_step, split_lanes)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_test_mesh
+
+    name = "fused" if fuse_round else "unfused"
+    if mesh is None:
+        mesh = make_test_mesh(MESH_SHARDS, dev)
+    else:
+        name += f" on {mesh.n_shards} cards"
+    setup = quickstart_setup(dev, fuse_round)
+    data, fed, stacked, spec, cfg, loss_fn, one = setup
+    batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
+               for t in range(ROUNDS)]
+    gate = mesh_mixer_gate(dev, mesh, setup, batches[0], fuse_round)
+    boundary = mesh_boundary(gate.pop("tables"), stacked, cfg.quant, spec)
+
+    def make_mesh_step():
+        return make_round_step(loss_fn, cfg, spec, mesh=mesh)
+
+    sharded = make_mesh_step()
+    s0 = init_round_state(stacked, prng.PRNGKey(1))
+    m0 = init_round_state(stacked, prng.PRNGKey(1), mesh=mesh)
+    states = {"one": s0, "mesh": m0}
+    steps = {"one": one, "mesh": sharded}
+    ms = {k: [] for k in ("one", "mesh", "one_captured", "mesh_captured")}
+    losses, apart, counts = [], None, None
+    total = {k: 0 for k in KERNEL_SOURCES}
+    for t, b in enumerate(batches):
+        for arm in ("one", "mesh"):
+            sync_all()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            states[arm], met = steps[arm](states[arm], b)
+            sync_all()
+            ms[arm].append((time.perf_counter() - t0) * 1e3)
+            if arm == "mesh":
+                counts = launch_counts()
+                total = {k: total[k] + counts[k] for k in total}
+                losses.append(float(met["loss"]))
+        got, want = lanes_of(states["mesh"].params), states["one"].params
+        diff = {n: ulp_diff(got[n], want[n]) for n in want}
+        if apart is None and any(diff.values()):
+            apart = {"round": t, "leaf": next(n for n in diff if diff[n]),
+                     "ulp": diff}
+    expect = mesh_expected(fuse_round, rounds=ROUNDS)
+    if total != expect:
+        raise AssertionError(f"mesh {name}: launches {total} != {expect}")
+    local_equal = None
+    if apart is not None:
+        # Does local SGD alone part at the shard's batch count?
+        keys = prng.split(prng.PRNGKey(5, device=dev), M)
+        z1, _ = local_train(loss_fn, stacked, batches[0], keys, eta=ETA,
+                            theta=THETA)
+        devs = [dev] * MESH_SHARDS
+        z4 = [local_train(loss_fn, x, b, k, eta=ETA, theta=THETA)[0]
+              for x, b, k in zip(split_lanes(stacked, devs),
+                                 split_lanes(batches[0], devs),
+                                 split_lanes(keys, devs))]
+        local_equal = all(torch.equal(lanes_of(z4)[n], z1[n]) for n in z1)
+        rel = max(float(((got[n] - want[n]).abs()
+                         / want[n].abs().clamp_min(1e-30)).max())
+                  for n in want)
+        if local_equal or rel > 1e-5:
+            raise AssertionError(f"mesh {name}: rounds part from the "
+                                 f"one-device rounds at {apart}, local SGD "
+                                 f"bitwise: {local_equal}, rel {rel}")
+    rec = {"path": f"mesh {name}", "shards": mesh.n_shards,
+           "rounds": ROUNDS, "mixer_bitwise": gate["bitwise"],
+           "rounds_bitwise": apart is None, "first_apart": apart,
+           "local_sgd_bitwise": local_equal, "launches": total,
+           "loss": losses, "boundary": boundary}
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"mesh {name}: non-finite loss")
+    if not mesh.shared:
+        try:
+            capture_step(sharded, m0, batches[0])
+        except ValueError as e:
+            rec["capture_refused"] = str(e)
+        else:
+            raise AssertionError(f"mesh {name}: captured over several "
+                                 "cards")
+        rec["round_ms_median"] = {k: statistics.median(v[1:])
+                                  for k, v in ms.items() if v}
+        print(json.dumps(rec), flush=True)
+        return rec
+    # Captured, in turns: each arm from the same state and key.
+    runs = {"one": capture_step(quickstart_setup(dev, fuse_round)[-1],
+                                s0, batches[0]),
+            "mesh": capture_step(make_mesh_step(), m0, batches[0])}
+    cap = {"one": s0, "mesh": m0}
+    eager_m = m0
+    cap_equal = True
+    for b in batches:
+        for arm in ("one", "mesh"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cap[arm], _ = runs[arm](cap[arm], b)
+            torch.cuda.synchronize()
+            ms[f"{arm}_captured"].append((time.perf_counter() - t0) * 1e3)
+        eager_m, _ = sharded(eager_m, b)
+        g, e = lanes_of(cap["mesh"].params), lanes_of(eager_m.params)
+        cap_equal &= all(torch.equal(g[n], e[n]) for n in e)
+        cap_equal &= torch.equal(cap["mesh"].rng, eager_m.rng)
+    if not cap_equal:
+        raise AssertionError(f"mesh {name}: captured rounds differ from "
+                             "eager ones")
+    graph = check_round_graph(f"mesh {name}",
+                              graph_nodes(runs["mesh"].graph),
+                              mesh_expected(fuse_round))
+    rec.update({"captured_bitwise": cap_equal,
+                "round_ms_median": {k: statistics.median(v[1:])
+                                    for k, v in ms.items()},
+                "graph_nodes": graph["graph_nodes"],
+                "one_graph_nodes": len(graph_nodes(runs["one"].graph)),
+                "kernel_nodes": graph["kernel_nodes"],
+                "replay_device_ms": {k: replay_ms(r.graph)
+                                     for k, r in runs.items()},
+                "replay_profile": {k: replay_profile(r.graph)
+                                   for k, r in runs.items()}})
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def replay_profile(graph) -> dict:
+    """One replay of ``graph`` under the profiler: its device busy ms,
+    operations and device ms by kernel group (``device_profile``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    rec = device_profile(prof)
+    return {k: rec[k] for k in ("device_busy_ms", "device_ops",
+                                "device_ms_by_group")}
+
+
+def mesh_placed(dev) -> dict:
+    """The reference's placement arm: ER(64, 0.06, seed 2) over 8 shards
+    of cuda:0 (m_local 8), the 2NN at 8-bit stochastic lemma5; the
+    placed round (``compute_placement``) against the contiguous one,
+    eagerly for MESH_PLACED["rounds"] rounds: the placed parameters,
+    gathered back to client order, bitwise the unplaced ones; the placed
+    lane slots at most half the contiguous ones."""
+    from repro_torch import prng
+    from repro_torch.core import (DFedAvgMConfig, MixingSpec, QuantConfig,
+                                  compute_placement, erdos_renyi_graph,
+                                  init_round_state, make_round_step)
+    from repro_torch.data import FederatedDataset, classification_dataset
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.paper_nets import (apply_2nn, init_2nn,
+                                               softmax_xent)
+
+    p = MESH_PLACED
+    m, n = p["m"], p["shards"]
+    g = erdos_renyi_graph(m, p["p"], seed=p["seed"])
+    spec = MixingSpec.dense(g)
+    pl = compute_placement(g, n)
+    plan = spec.gossip_plan()
+    slots = {"contiguous": plan.block_plan(n).num_wire_lane_slots,
+             "placed": plan.block_plan(n, placement=pl).num_wire_lane_slots}
+    if 2 * slots["placed"] > slots["contiguous"]:
+        raise AssertionError(f"mesh placement: lane slots {slots}")
+    fed = FederatedDataset.make(classification_dataset(n=8000, d=784,
+                                                       seed=0), m, iid=True)
+    params = init_2nn(0, device=dev)
+    stacked = {k: t.unsqueeze(0).expand((m,) + t.shape).contiguous()
+               + 0.01 * torch.randn((m,) + t.shape, device=dev)
+               for k, t in params.items()}
+    cfg = DFedAvgMConfig(eta=ETA, theta=THETA, local_steps=K,
+                         quant=QuantConfig(bits=8))
+
+    def loss_fn(p_, b, rng):
+        return softmax_xent(apply_2nn(p_, b["x"]), b["y"])
+
+    mesh = make_test_mesh(n, dev)
+    perm = torch.as_tensor(pl.perm.astype(np.int64), device=dev)
+    arms = {"contiguous": (make_round_step(loss_fn, cfg, spec, mesh=mesh),
+                           init_round_state(stacked, prng.PRNGKey(1),
+                                            mesh=mesh)),
+            "placed": (make_round_step(loss_fn, cfg, spec, mesh=mesh,
+                                       placement=pl),
+                       init_round_state({k: v[perm] for k, v in
+                                         stacked.items()},
+                                        prng.PRNGKey(1), mesh=mesh))}
+    states = {k: v[1] for k, v in arms.items()}
+    ms = {k: [] for k in arms}
+    for t in range(p["rounds"]):
+        b = fed.round_batches(t, K=K, batch=BATCH, device=dev)
+        for arm, (step, _) in arms.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[arm], met = step(states[arm], b)
+            torch.cuda.synchronize()
+            ms[arm].append((time.perf_counter() - t0) * 1e3)
+    inv = torch.as_tensor(pl.inv.astype(np.int64), device=dev)
+    placed = {k: v[inv]
+              for k, v in lanes_of(states["placed"].params).items()}
+    plain = lanes_of(states["contiguous"].params)
+    ulp = max(ulp_diff(placed[k], plain[k]) for k in plain)
+    rec = {"path": "mesh placement", "m": m, "shards": n,
+           "lane_slots": slots, "rounds": p["rounds"],
+           "placed_bitwise": ulp == 0,
+           "boundary_edges": {"contiguous": g.block_boundary_edges(m // n),
+                              "placed": g.block_boundary_edges(m // n,
+                                                               perm=pl)},
+           "round_ms_median": {k: statistics.median(v[1:])
+                               for k, v in ms.items()}}
+    print(json.dumps(rec), flush=True)
+    if ulp:
+        raise AssertionError(f"mesh placement: placed {ulp} ulp from "
+                             "unplaced")
+    return rec
+
+
+def mesh_driver(dev) -> dict:
+    """SmolLM-135M as registered (bf16, m 8, K 4, batch 4, seq 128, 8
+    bits) for MESH_DRIVER_ROUNDS rounds through the LM driver's
+    ``run_resident`` on a MESH_SHARDS-shard mesh of cuda:0
+    (``--clients-per-shard 2``) and on the one device at the same seed:
+    finite losses, B1 = B2 = MESH_SHARDS a round, the same JSONL record
+    kinds with the same fields; round ms, peak GiB and the largest
+    difference of loss and consensus printed."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.telemetry import RunLog, Tracer
+
+    cfg = production_config()
+    PROD_OUT.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for arm in ("one", "mesh"):
+        argv = ["--rounds", str(MESH_DRIVER_ROUNDS), "--device", str(dev)]
+        argv += MESH_DRIVER_ARGV if arm == "mesh" else ["--bits", "8"]
+        args = TT.build_parser().parse_args(argv)
+        path = PROD_OUT / f"mesh_driver_{arm}.jsonl"
+        log = RunLog(jsonl=str(path), console=False)
+        tracer = Tracer(enabled=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        try:
+            state, met = TT.run_resident(
+                args, cfg, log, tracer,
+                mesh=make_test_mesh(MESH_SHARDS, dev) if arm == "mesh"
+                else None)
+            torch.cuda.synchronize()
+        finally:
+            log.close()
+        recs = [json.loads(line) for line in open(path)]
+        out[arm] = {
+            "launches": launch_counts(),
+            "round_ms": [ev["dur"] / 1e3 for ev in tracer.events
+                         if ev.get("name") == "round/step"],
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "records": [r for r in recs if r["kind"] != "info"],
+            "loss": [r["loss"] for r in recs if r["kind"] == "round"],
+            "consensus": [r.get("consensus_dist") for r in recs
+                          if r["kind"] == "round"]}
+        del state, met
+    one, mesh = out["one"], out["mesh"]
+    for k in ("quantize_pack_buffer", "dequant_mix_buffer"):
+        if mesh["launches"][k] != MESH_SHARDS * MESH_DRIVER_ROUNDS:
+            raise AssertionError(f"mesh driver: {k} {mesh['launches'][k]}")
+    if not all(math.isfinite(v) for v in mesh["loss"]):
+        raise AssertionError(f"mesh driver: losses {mesh['loss']}")
+    kinds = [(r["kind"], sorted(r)) for r in one["records"]
+             if r["kind"] != "run_start"]
+    if kinds != [(r["kind"], sorted(r)) for r in mesh["records"]
+                 if r["kind"] != "run_start"]:
+        raise AssertionError("mesh driver: records differ in kind or field")
+    rec = {"path": "mesh driver", "arch": PROD_ARCH,
+           "argv": MESH_DRIVER_ARGV,
+           "round_ms": {k: v["round_ms"] for k, v in out.items()},
+           "peak_gib": {k: v["peak_gib"] for k, v in out.items()},
+           "loss": {k: v["loss"] for k, v in out.items()},
+           "max_loss_diff": max(abs(a - b) for a, b in zip(one["loss"],
+                                                           mesh["loss"])),
+           "max_consensus_diff": max(
+               abs(a - b) for a, b in zip(one["consensus"],
+                                          mesh["consensus"])),
+           "launches": {k: v for k, v in mesh["launches"].items() if v}}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def mesh_kernel_checks(dev, flush, tables) -> dict:
+    """B2 and B5 at a quickstart shard's extended-table shapes (its 4 own
+    rows and the 2 it receives on the ring, K 3, [4, 4, 51 712] at 8
+    bits: the table and src of shard 1 of the mesh's plan), bitwise with
+    their plain versions on the card and timed against their bounds."""
+    from repro_torch.kernels.dequant_mix import (
+        dequant_mix_buffer, dequant_mix_buffer_plain,
+        dequant_mix_momentum_buffer, dequant_mix_momentum_buffer_plain)
+    from repro_torch.kernels.ref import LANE_BLOCK
+    gen = torch.Generator().manual_seed(31)
+    s, bits, W = 1, 8, 51_712
+    src = tables.src[s]
+    ml, R, k = tables.m_local, tables.rows[s], src.shape[0]
+    per = 32 // bits
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    base, v, g = rand(ml, per, W), rand(ml, per, W, scale=0.01), rand(
+        ml, per, W, scale=0.1)
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (R, W), generator=gen,
+                          dtype=torch.int32).to(dev)
+    sblk = (torch.rand(R, W // LANE_BLOCK, generator=gen) * 1e-2).to(dev)
+    w = torch.rand(ml, k, generator=gen).to(dev)
+    et = (ETA, THETA)
+    rows = int(torch.unique(src).numel())
+    out = {}
+    for name, fn, plain, extra in (
+            ("dequant_mix_buffer", dequant_mix_buffer,
+             dequant_mix_buffer_plain, ()),
+            ("dequant_mix_momentum_buffer", dequant_mix_momentum_buffer,
+             dequant_mix_momentum_buffer_plain, (v, g, et))):
+        got = fn(base, words, sblk, w, src, *extra, bits)
+        want = plain(base, words, sblk, w, src, *extra, bits)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"mesh {name}: kernel != plain")
+        r = {"shape": {"base": [ml, per, W], "rows": R, "K": k,
+                       "bits": bits}, "max_abs_err": 0.0}
+        timed(r, "", lambda: fn(base, words, sblk, w, src, *extra, bits),
+              flush)
+        timed(r, "plain_", lambda: plain(base, words, sblk, w, src, *extra,
+                                         bits), flush, reps=5, host_runs=3)
+        moved = (nbytes(base, got, sblk, w, src) + rows * W * 4
+                 + (nbytes(v, g) if extra else 0))
+        r["bound_ms"], r["bound_by"] = bound(moved, 2 * k * ml * per * W)
+        out[name] = r
+    print(json.dumps({"mesh_kernels": out}), flush=True)
+    return out
+
+
+def mesh_phase(dev, flush=None) -> dict:
+    """Phase "mesh": the 1D client mesh of MESH_SHARDS shards sharing
+    cuda:0 — the quickstart unfused and fused against the one-device
+    realization (:func:`mesh_rounds`), the placement arm
+    (:func:`mesh_placed`), SmolLM-135M through the driver on the mesh
+    (:func:`mesh_driver`) and B2 / B5 at a shard's extended-table shapes
+    (:func:`mesh_kernel_checks`). Returns the phase's record, with its
+    launches by arm."""
+    from repro_torch.core import MixerConfig, make_mixer
+    from repro_torch.core import MixingSpec
+    from repro_torch.launch.mesh import make_test_mesh
+    if flush is None:
+        flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    rounds = {"unfused": mesh_rounds(dev, False),
+              "fused": mesh_rounds(dev, True)}
+    placed = mesh_placed(dev)
+    driver = mesh_driver(dev)
+    tables = make_mixer(MixingSpec.ring(M, 0.5), MixerConfig(),
+                        mesh=make_test_mesh(MESH_SHARDS, dev)).tables
+    kernels = mesh_kernel_checks(dev, flush, tables)
+    rec = {"rounds": rounds, "placed": placed, "driver": driver,
+           "kernels": kernels, "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"mesh": {
+        "phase_s": rec["phase_s"],
+        "round_ms_median": {k: v["round_ms_median"]
+                            for k, v in rounds.items()},
+        "replay_device_ms": {k: v["replay_device_ms"]
+                             for k, v in rounds.items()},
+        "graph_nodes": {k: [v["graph_nodes"], v["one_graph_nodes"]]
+                        for k, v in rounds.items()},
+        "boundary": rounds["unfused"]["boundary"],
+        "placed": {k: placed[k] for k in ("lane_slots", "round_ms_median")},
+        "driver": {k: driver[k] for k in ("round_ms", "peak_gib",
+                                          "max_loss_diff",
+                                          "max_consensus_diff")}}}),
+        flush=True)
+    return rec
+
+
+def cards_phase(dev, flush=None) -> dict:
+    """Phase "cards" (``--only cards``, on a machine with MESH_SHARDS
+    cards or more; not in the default run, which needs one card): the
+    quickstart unfused and fused on ``make_client_mesh(16,
+    clients_per_shard=4)``, one card a shard, so every boundary transfer
+    is a copy between two cards, against the one-device round on cuda:0
+    (:func:`mesh_rounds`: bitwise, exact launches; eager, since
+    ``capture_step`` refuses a mesh over several cards)."""
+    from repro_torch.launch.mesh import make_client_mesh
+    del flush
+    mesh = make_client_mesh(M, clients_per_shard=M // MESH_SHARDS)
+    if mesh is None:
+        raise AssertionError(f"cards phase: needs {MESH_SHARDS} cards, "
+                             f"found {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    rec = {arm: mesh_rounds(dev, arm == "fused", mesh=mesh)
+           for arm in ("unfused", "fused")}
+    rec["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"cards": {
+        "devices": [torch.cuda.get_device_name(i)
+                    for i in range(torch.cuda.device_count())],
+        "round_ms_median": {k: rec[k]["round_ms_median"]
+                            for k in ("unfused", "fused")},
+        "phase_s": rec["phase_s"]}}), flush=True)
+    return rec
+
+
 # Phases ``--only`` can run alone (after the build), for work on one path.
 ONLY = {"pool": pool_phase, "telemetry": telemetry_phase,
-        "production": production_phase}
+        "production": production_phase, "mesh": mesh_phase,
+        "cards": cards_phase}
 
 
 def main() -> int:
@@ -5211,6 +5763,7 @@ def main() -> int:
     times = round_times(dev)
     rows = bench_path(dev)
     prod = production_phase(dev, flush)
+    mesh = mesh_phase(dev, flush)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
     counts["fig8"] = {k: sum(r["eager_launches"][k] for r in fig8)
                       for k in KERNEL_SOURCES}
@@ -5240,6 +5793,16 @@ def main() -> int:
                                      "host_ms", "bound_ms", "bound_by")}
             table[-1]["production_launches"] = prod["arms"]["q8"][
                 "launches"][name]
+        # The mesh phase's eager quickstart rounds (4 shards of cuda:0).
+        mesh_counts = {arm: mesh["rounds"][arm]["launches"][name]
+                       for arm in ("unfused", "fused")}
+        if any(mesh_counts.values()):
+            table[-1]["mesh_launches"] = mesh_counts
+        if name in mesh["kernels"]:
+            table[-1]["mesh_extended"] = {
+                f: mesh["kernels"][name][f] for f in (
+                    "shape", "ms", "clean_ms", "call_ms", "plain_ms",
+                    "bound_ms", "bound_by")}
     b3 = prod["kernels"]["momentum_sgd_bf16"]
     # B3 on bf16 leaves: the same kernel source, its bf16 instantiation;
     # its launches are the 8-bit full-width arm's (every leaf bf16).
@@ -5329,7 +5892,16 @@ def main() -> int:
                               "tok_per_s")},
                           "captured_max_abs_diff": prod["captured"][
                               "max_abs_diff_vs_eager"],
-                          "phase_s": prod["phase_s"]}}))
+                          "phase_s": prod["phase_s"]},
+                      "mesh": {
+                          "round_ms_median": {
+                              k: v["round_ms_median"]
+                              for k, v in mesh["rounds"].items()},
+                          "placed_round_ms_median": mesh["placed"][
+                              "round_ms_median"],
+                          "lane_slots": mesh["placed"]["lane_slots"],
+                          "driver_round_ms": mesh["driver"]["round_ms"],
+                          "phase_s": mesh["phase_s"]}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

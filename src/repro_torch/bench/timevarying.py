@@ -8,8 +8,8 @@ round and accuracy of the 2NN on the synthetic task.
 round with ``with_telemetry=True`` against the plain round (row
 ``round_telemetry_on_vs_off``). The reference's mesh and subprocess
 comparisons (dense against sparse backend bytes, block, 2D-mesh, fused
-and placement arms) need the multi-device slice (ROADMAP A17) and are
-not run here.
+and placement arms) wait for the 2D mesh, A17's next slice (ROADMAP),
+and are not run here.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Core: quantized DFedAvgM as PyTorch — the port of the JAX package's
-``repro.core`` for one synchronous round on one device (a static spec
-or a time-varying schedule), the asynchronous event engine, the virtual
+``repro.core`` for one synchronous round (a static spec or a
+time-varying schedule) on one device or a 1D client mesh (block plans,
+placement, the sharded executor), the asynchronous event engine, the virtual
 client pool (a host store of up to 10^6 clients, a cohort of k lanes on
 the card), its FedAvg and DSGD baselines, the paper's bit accounting,
 and ``capture_step``, which runs a round or an event as one CUDA graph
@@ -14,12 +15,15 @@ from .topology import (Graph, MixingSpec, TopologySchedule,  # noqa
 from .quantize import (QuantConfig, quantize_int, dequantize_int,  # noqa
                        message_bits, scale_from_amax)
 from .gossip_plan import (GossipPlan, plan_from_spec,  # noqa
-                          plan_from_support, plan_from_matrix)
+                          plan_from_support, plan_from_matrix, BlockPlan,
+                          BlockSubStep, Placement, compile_block_plan,
+                          compute_placement)
 from .wire_layout import WireLayout  # noqa
 from .local_sgd import local_train, heavy_ball_update  # noqa
 from .mixing import (MixerConfig, make_mixer, make_scheduled_mixer,  # noqa
                      make_plan_mixer, make_event_mixer, mix_dense,
-                     consensus_distance, execute_plan_reference)
+                     consensus_distance, execute_plan_reference,
+                     make_fused_tail, split_lanes, join_lanes)
 from .dfedavgm import (DFedAvgMConfig, RoundState, init_round_state,  # noqa
                        make_round_step, average_params, round_comm_bits)
 from .baselines import (FedAvgConfig, make_fedavg_step, DSGDConfig,  # noqa

@@ -35,10 +35,11 @@ from torch.profiler import record_function
 
 from .. import prng
 from ..device import resolve_device
-from .dfedavgm import DFedAvgMConfig, _active_lanes, _check_spec
+from .dfedavgm import (DFedAvgMConfig, _active_lanes, _check_spec, _Lanes,
+                       _params_device, _train_active)
 from .event_clock import SpeedModel, next_event
 from .local_sgd import local_train
-from .mixing import _gate_z, consensus_distance, make_event_mixer
+from .mixing import _mesh_devices, consensus_distance, make_event_mixer
 from .topology import MixingSpec, TopologySchedule
 
 Params = dict[str, torch.Tensor]
@@ -108,13 +109,20 @@ class AsyncRoundState(NamedTuple):
     clock_rng: torch.Tensor    # the durations' key chain, int64 [2]
 
 
-def init_async_state(params_stacked: Params, key: torch.Tensor,
-                     speed: SpeedModel) -> AsyncRoundState:
+def init_async_state(params_stacked: Params | list[Params],
+                     key: torch.Tensor, speed: SpeedModel,
+                     mesh=None) -> AsyncRoundState:
     """``key`` seeds the model chain as ``init_round_state`` does (so a
     constant-speed run is the synchronous run from the same key); the
-    clock chain is ``split(fold_in(key, "asyc"))``."""
-    first = next(iter(params_stacked.values()))
-    dev, m = first.device, first.shape[0]
+    clock chain is ``split(fold_in(key, "asyc"))``. On a client mesh the
+    parameters are a list of shard dicts (or a stacked dict ``mesh``
+    shards here) and the clock lives on the first shard's device."""
+    if mesh is not None and isinstance(params_stacked, dict):
+        params_stacked = mesh.shard(params_stacked)
+    shards = (params_stacked if isinstance(params_stacked, list)
+              else [params_stacked])
+    dev = _params_device(params_stacked)
+    m = sum(next(iter(s.values())).shape[0] for s in shards)
     key = key.to(dev)
     k_dur, clock_rng = prng.split(prng.fold_in(key, _CLOCK_SALT))
     return AsyncRoundState(
@@ -166,10 +174,15 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                           async_cfg: AsyncConfig, *, device=None,
                           with_metrics: bool = True,
                           with_telemetry: bool = False,
-                          batch_fn: Callable | None = None) -> Callable:
+                          batch_fn: Callable | None = None,
+                          mesh=None) -> Callable:
     """Build event_step(state: AsyncRoundState, batches) -> (state',
     metrics): ONE event of the asynchronous engine, on ``device`` (CUDA
-    unless ``"cpu"``).
+    unless ``"cpu"``), or on a 1D client ``mesh`` (the parameters a list
+    of shard dicts; the clock, versions and metrics on the first shard's
+    device; each shard trains its lanes, and with ``ready_capacity`` the
+    first ``ready_capacity`` ready lanes of the whole mesh, each shard
+    those of its block).
 
     ``batches`` has the synchronous layout (leaves [m, K, ...]). Every
     lane trains each event and the ready mask picks whose fresh ``z``
@@ -206,12 +219,14 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         raise ValueError("async gossip needs a data-independent schedule; "
                          "use random_walk(stateful=False) whose path does "
                          "not depend on the event clock")
-    dev = resolve_device(device)
     m = spec.m
-    impl = cfg.mixer_config().resolved_impl(spec)
+    dev = (_mesh_devices(mesh)[0] if mesh is not None
+           else resolve_device(device))
+    lanes = _Lanes(mesh, m, None, dev)
+    impl = cfg.mixer_config().resolved_impl(spec, mesh)
     plan = spec.gossip_plan() if impl in ("ring", "torus", "sparse") else None
     ev = make_event_mixer(m, quant=cfg.quant, plan=plan, gate=True,
-                          device=dev)
+                          device=dev, mesh=mesh)
     if scheduled:
         spec.tables(dev)
         W_static = None
@@ -243,7 +258,11 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         t_now, ready = next_event(state.next_ready)
         eta = (staleness_eta(cfg.eta, state.version, decay) if decay > 0.0
                else cfg.eta)
-        if skip:
+        if skip and mesh is not None:
+            z, losses, ready = _train_ready_shards(
+                loss_fn, cfg, lanes, state.params, batches, client_keys,
+                ready, eta, cap)
+        elif skip:
             # Train the first `cap` ready lanes; the padded slots (index m)
             # land in the spare last row of each scatter and are dropped.
             # Ready lanes past the capacity keep their clocks (`ready` is
@@ -260,6 +279,15 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             spare = ready.new_zeros(m + 1)
             losses = spare.index_copy(0, idx, losses_sub * valid)[:m]
             ready = ready * spare.index_copy(0, idx, valid)[:m]
+        elif mesh is not None:
+            etas = (lanes.split(eta) if decay > 0.0
+                    else [eta] * len(state.params))
+            out = [local_train(loss_fn, x, b, k, eta=e, theta=cfg.theta)
+                   for x, b, k, e in zip(state.params,
+                                         lanes.split(batches),
+                                         lanes.split(client_keys), etas)]
+            z = [o[0] for o in out]
+            losses = lanes.cat([o[1] for o in out])
         else:
             z, losses = local_train(loss_fn, state.params, batches,
                                     client_keys, eta=eta, theta=cfg.theta)
@@ -296,8 +324,9 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                 fields = dict(
                     consensus_dist=cdist,
                     local_drift=consensus_distance(z), live_edges=live,
-                    wire_bits=wire_bits_for(client_dim(state.params),
-                                            cfg.quant, live),
+                    wire_bits=wire_bits_for(
+                        client_dim(lanes.shards(state.params)[0]),
+                        cfg.quant, live),
                     staleness_hist=staleness_histogram(version_next, S),
                     dropped_edges=dropped_edge_count(W_t, version_next,
                                                      ready_eff, S))
@@ -305,9 +334,10 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                     # The codec saw z gated to x on lanes that did not
                     # publish; every lane is replayed (an event's ready
                     # set is sparse, a strided sample would miss it) and
-                    # the means are over the ready lanes.
+                    # the means are over the ready lanes, each shard
+                    # replaying its own.
                     qe, qb, qs = quant_round_telemetry(
-                        state.params, _gate_z(ready_eff, z, state.params),
+                        state.params, lanes.gate(ready_eff, z, state.params),
                         cfg.quant, key_q, lane_weight=ready_eff)
                     fields.update(quant_err_sq=qe, quant_bound=qb,
                                   quant_sat_frac=qs)
@@ -326,7 +356,7 @@ def make_async_engine(loss_fn: LossFn, cfg: DFedAvgMConfig,
                       with_metrics: bool = True,
                       with_telemetry: bool = False,
                       batch_fn: Callable | None = None,
-                      capture: bool = False) -> Callable:
+                      capture: bool = False, mesh=None) -> Callable:
     """A queue of events: ``run(state, batches)`` steps
     :func:`make_async_round_step` over a leading event axis (leaves
     [n_events, m, K, ...]), or ``run(state, n_events=N)`` with a
@@ -337,11 +367,12 @@ def make_async_engine(loss_fn: LossFn, cfg: DFedAvgMConfig,
     ``capture=True`` (on the card) captures the event step in one CUDA
     graph at the first call's shapes (``capture_step``) and replays it
     once an event, bitwise with the eager loop; ``run.graph`` is then the
-    graph. Eager otherwise, and always on the CPU."""
+    graph. Eager otherwise, and always on the CPU. ``mesh`` runs the
+    events on a 1D client mesh (:func:`make_async_round_step`)."""
     step = make_async_round_step(loss_fn, cfg, spec, async_cfg,
                                  device=device, with_metrics=with_metrics,
                                  with_telemetry=with_telemetry,
-                                 batch_fn=batch_fn)
+                                 batch_fn=batch_fn, mesh=mesh)
     captured: list = []
 
     def run(state: AsyncRoundState, batches: Params | None = None,
@@ -372,6 +403,30 @@ def make_async_engine(loss_fn: LossFn, cfg: DFedAvgMConfig,
 
     run.graph = None
     return run
+
+
+def _train_ready_shards(loss_fn, cfg, lanes: _Lanes, xs, batches,
+                        client_keys, ready, eta, cap: int):
+    """``ready_capacity`` on a mesh: the first ``cap`` ready lanes of the
+    whole mesh train (``ready`` is clamped to them, as on one device),
+    each shard those of its block — at most ``min(cap, m_local)``, a
+    fixed-size gather — and scatters them back. Returns (z shards,
+    losses [m], clamped ready)."""
+    m = ready.shape[0]
+    idx, _, valid = _active_lanes(ready, cap)
+    ready = ready * ready.new_zeros(m + 1).index_copy(0, idx, valid)[:m]
+    etas = (lanes.split(eta) if isinstance(eta, torch.Tensor)
+            else [eta] * len(xs))
+    zs, losses = [], []
+    for x, b, k, r, e in zip(xs, lanes.split(batches),
+                             lanes.split(client_keys), lanes.split(ready),
+                             etas):
+        z, l_sub, ok, i = _train_active(loss_fn, x, b, k, r, cap, e,
+                                        cfg.theta)
+        zs.append(z)
+        losses.append(r.new_zeros(r.shape[0] + 1).index_copy(
+            0, i, l_sub * ok)[:r.shape[0]])
+    return zs, lanes.cat(losses), ready
 
 
 def _stack(values: list):

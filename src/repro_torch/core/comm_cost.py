@@ -1,6 +1,6 @@
 """Communication-cost accounting + the Proposition-3 savings condition —
 the JAX package's ``core/comm_cost.py`` (pure Python) for static specs
-and time-varying schedules on one device.
+and time-varying schedules, on one device or on a 1D client mesh.
 
 Paper formulas (§3.2, §5.7):
   unquantized, per round:  32 d * sum_i deg(i)            bits
@@ -13,9 +13,6 @@ quantized DFedAvgM beats 32-bit DFedAvgM in total bits to reach error
 epsilon iff   (32 + d b) * 9/4 < 32 d      (and epsilon is not too small:
 epsilon > (1-theta) sqrt(3 L B s) d^{1/4} sqrt(2(f0 - fmin) + 8 sigma_l^2/K
 + 32 sigma_g^2 + 64 theta^2 (sigma_l^2+B^2)/(1-theta)^2) ).
-
-The block-sharded and placed realizations (ROADMAP A17) are not ported:
-their entry points raise.
 """
 from __future__ import annotations
 
@@ -55,35 +52,43 @@ def plan_round_bits(plan, d: int, quant: QuantConfig | None = None,
                     placement=None,
                     model_parallel: int = 1) -> float:
     """REALIZED wire diagnostic of a compiled
-    :class:`~repro_torch.core.gossip_plan.GossipPlan` on one shard: one
-    round moves ``message_bits`` across every directed *plan* edge. The
-    algorithm's bill is :func:`dfedavgm_round_bits`; this is the wire the
-    plan executes.
+    :class:`~repro_torch.core.gossip_plan.GossipPlan`: one round moves
+    ``message_bits`` across every directed *plan* edge. The algorithm's
+    bill is :func:`dfedavgm_round_bits`; this is the wire the plan
+    executes.
 
     ``plan`` may be a sequence of plans (a cycle schedule's members):
     round ``t`` moves member ``t mod n``'s edges, ``t=None`` averages.
     ``count_lemma5_replicas`` adds the 32-bit replica row the ``lemma5``
-    recursion ships beside the words on a mesh. ``model_parallel`` > 1
-    bills one device column of a 2D mesh (1/model_parallel of the wire).
-    The block-sharded (``clients_per_shard`` > 1) and placed
-    (``placement``) realizations need the block plans of ROADMAP A17.
+    recursion ships beside the words on a mesh. ``clients_per_shard`` > 1
+    bills the block-sharded realization instead: only the plan's boundary
+    lane slots cross (padded slots included; intra-block edges are lane
+    gathers and cost nothing); ``placement`` bills the placed block
+    realization. ``model_parallel`` > 1 bills one device column of a 2D
+    mesh (1/model_parallel of the wire).
     """
     if model_parallel < 1:
         raise ValueError(f"model_parallel={model_parallel} must be >= 1")
-    if clients_per_shard > 1 or placement is not None:
-        raise NotImplementedError("block-sharded and placed plans are not "
-                                  "ported yet (ROADMAP A17)")
     if isinstance(plan, (list, tuple)):
         plans = list(plan)
         if t is not None:
             plans = [plans[int(t) % len(plans)]]
         return sum(plan_round_bits(p, d, quant, count_lemma5_replicas,
+                                   clients_per_shard=clients_per_shard,
+                                   placement=placement,
                                    model_parallel=model_parallel)
                    for p in plans) / len(plans)
     qc = quant if quant is not None else QuantConfig(bits=32)
     per_edge = message_bits(d, qc)
     if count_lemma5_replicas and qc.enabled and qc.delta_mode == "lemma5":
         per_edge += 32 * d
+    if clients_per_shard > 1:
+        if plan.m % clients_per_shard:
+            raise ValueError(f"clients_per_shard={clients_per_shard} "
+                             f"must divide m={plan.m}")
+        bp = plan.block_plan(plan.m // clients_per_shard,
+                             placement=placement)
+        return per_edge * bp.num_wire_lane_slots / model_parallel
     return per_edge * plan.num_directed_wire_edges / model_parallel
 
 

@@ -29,6 +29,11 @@ device copy of the parameters a round.
 A replay launches no kernel from the host, so ``native.LAUNCHES`` does
 not count it: count a captured round's launches from the graph's kernel
 nodes (``graph`` on the returned function).
+
+A round on a client mesh whose shards share one card (``make_test_mesh``)
+is captured the same way, every shard's leaves a static buffer, and its
+transfers are device copies inside the graph. A mesh over several cards
+raises: a CUDA graph is captured on one device's stream.
 """
 from __future__ import annotations
 
@@ -56,11 +61,13 @@ def _load(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
 
 
 def _buffer(value, dev: torch.device):
-    """The static device buffer of one state field: a dict of leaves, a
-    tensor, None, or a host int (the round index: an int64 0-dim buffer
-    that ``run`` fills)."""
+    """The static device buffer of one state field: a dict of leaves (a
+    list of them on a client mesh), a tensor, None, or a host int (the
+    round index: an int64 0-dim buffer that ``run`` fills)."""
     if value is None:
         return None
+    if isinstance(value, list):
+        return [_buffer(v, dev) for v in value]
     if isinstance(value, dict):
         return {n: t.detach().to(dev).clone() for n, t in value.items()}
     if isinstance(value, torch.Tensor):
@@ -72,7 +79,10 @@ def _fill(buf, value, name: str) -> None:
     """Load one state field into its static buffer (see :func:`_buffer`)."""
     if buf is None:
         return
-    if isinstance(buf, dict):
+    if isinstance(buf, list):
+        for b, v in zip(buf, value):
+            _fill(b, v, name)
+    elif isinstance(buf, dict):
         for n, t in value.items():
             _load(buf[n], t, n)
     elif isinstance(value, torch.Tensor):
@@ -86,6 +96,8 @@ def _out(out, value):
     for a host-int round index the next host int."""
     if out is None:
         return None
+    if isinstance(out, list):
+        return [_out(o, v) for o, v in zip(out, value)]
     if isinstance(out, dict):
         return {n: t.clone() for n, t in out.items()}
     if not isinstance(value, torch.Tensor) and not isinstance(value, dict):
@@ -124,9 +136,18 @@ def capture_step(step: Callable, state: NamedTuple,
     batch buffers (a caller that fills them in place skips the copy) and
     ``run.step`` the step, kept alive with the graph.
     Raises on a CPU state: a CUDA graph needs the card, and the step
-    runs eagerly on the CPU as it is.
+    runs eagerly on the CPU as it is; raises on a client mesh whose shards
+    lie on more than one device.
     """
-    dev = next(iter(state.params.values())).device
+    shards = (state.params if isinstance(state.params, list)
+              else [state.params])
+    devs = {t.device for s in shards for t in s.values()}
+    dev = next(iter(shards[0].values())).device
+    if len(devs) > 1:
+        raise ValueError(
+            "capture_step captures one device's stream; this state's "
+            f"shards lie on {sorted(str(d) for d in devs)} (a mesh over "
+            "several cards runs its rounds eagerly)")
     if dev.type != "cuda":
         raise ValueError(f"capture_step needs the round on a CUDA device, "
                          f"got {dev}; call the step itself on the CPU")

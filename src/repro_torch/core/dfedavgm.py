@@ -23,12 +23,23 @@ the mixing key and the round index (a host int, or in a captured round a
 trains only the active lanes (``skip_inactive_compute``): a fixed-size
 gather and a scatter into an [m + 1] buffer whose last row takes the
 padded slots, with no host sync.
+
+On a 1D client mesh (``mesh=``, a ``launch.mesh.ClientMesh``) the
+parameters are a list of dicts, one a shard (``mesh.shard``): local SGD
+runs per shard on its device with the same ``local_train`` (B3 one launch
+a step a shard, a compute-skip round gathering each shard's active lanes),
+the client keys come from the full-width split sliced by block, and the
+mixer is the block realization (``core.mixing``). With a ``placement``
+the state is in lane order: each round gathers the batches, the client
+keys and a schedule's active mask through ``placement.perm``, so placed
+training is bitwise unplaced training with its lanes permuted.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -36,9 +47,10 @@ from .. import prng
 from ..device import resolve_device
 from .comm_cost import dfedavgm_round_bits, schedule_round_bits
 from .local_sgd import local_train, local_train_deferred
-from .mixing import (MixerConfig, _gate_z, _schedule_plan,
-                     consensus_distance, make_event_mixer, make_fused_tail,
-                     make_mixer)
+from .mixing import (MixerConfig, _clients_per_shard, _gate_z,
+                     _mesh_devices, _quant_leaf_keys, _schedule_plan,
+                     consensus_distance, join_lanes, make_event_mixer,
+                     make_fused_tail, make_mixer, split_lanes)
 from .quantize import QuantConfig
 from .topology import MixingSpec, TopologySchedule
 
@@ -80,8 +92,8 @@ class DFedAvgMConfig:
 
 class RoundState(NamedTuple):
     """Carried state of the synchronous round loop: stacked client
-    params, the key chain, the round counter and, for a stateful
-    schedule, the walk token."""
+    params (a list of shard dicts on a client mesh), the key chain, the
+    round counter and, for a stateful schedule, the walk token."""
 
     params: Params        # stacked client copies, leaves [m, ...]
     rng: torch.Tensor     # round-level key, int64 [2], on the params' device
@@ -89,20 +101,83 @@ class RoundState(NamedTuple):
     token: torch.Tensor | None = None   # stateful walk: int64 0-dim
 
 
-def init_round_state(params_stacked: Params, key: torch.Tensor,
-                     token: torch.Tensor | None = None) -> RoundState:
+def init_round_state(params_stacked: Params | list[Params],
+                     key: torch.Tensor, token: torch.Tensor | None = None,
+                     mesh=None) -> RoundState:
     """The round loop's first state; the key (and a stateful schedule's
     ``token``, ``schedule.init_token()``) move to the parameters' device,
-    where the whole key chain then runs."""
-    dev = next(iter(params_stacked.values())).device
+    where the whole key chain then runs. On a client mesh the parameters
+    are a list of shard dicts (or a stacked dict that ``mesh`` shards
+    here, in lane order) and the key chain runs on the first shard's
+    device."""
+    if mesh is not None and isinstance(params_stacked, dict):
+        params_stacked = mesh.shard(params_stacked)
+    dev = _params_device(params_stacked)
     return RoundState(params=params_stacked, rng=key.to(dev), round=0,
                       token=None if token is None else token.to(dev))
 
 
-def average_params(stacked: Params) -> Params:
-    """Consensus/average model xbar = (1/m) sum_i x(i)."""
+def _params_device(params: Params | list[Params]) -> torch.device:
+    """The device of the parameters (of the first shard on a mesh)."""
+    first = params[0] if isinstance(params, list) else params
+    return next(iter(first.values())).device
+
+
+def average_params(stacked: Params | list[Params]) -> Params:
+    """Consensus/average model xbar = (1/m) sum_i x(i) (shards gathered
+    to the first shard's device)."""
+    if isinstance(stacked, list):
+        stacked = join_lanes(stacked, _params_device(stacked))
     return {n: z.to(torch.float32).mean(dim=0).to(z.dtype)
             for n, z in stacked.items()}
+
+
+def _placed_boundary_lane_slots(plan, mesh) -> float | None:
+    """Wire lane slots of ``plan``'s block realization on this mesh — the
+    telemetry's ``placement_boundary_lanes`` (None without a mesh that
+    fits)."""
+    m_local = _clients_per_shard(mesh, plan.m)
+    if m_local is None:
+        return None
+    return float(plan.block_plan(plan.m // m_local).num_wire_lane_slots)
+
+
+class _Lanes:
+    """How a round's client-indexed inputs reach the lanes: on one device
+    as they are; on a client mesh gathered to lane order through
+    ``placement.perm`` and cut into the shards' blocks
+    (``core.mixing.split_lanes``). Every table is on the device from the
+    step's build."""
+
+    def __init__(self, mesh, m: int, placement, dev: torch.device):
+        self.devs = None if mesh is None else _mesh_devices(mesh)
+        self.perm = (None if placement is None or placement.is_identity
+                     else torch.as_tensor(placement.perm.astype(np.int64),
+                                          device=dev))
+        self.dev = dev
+
+    def order(self, t: torch.Tensor) -> torch.Tensor:
+        """A client-order [m, ...] tensor in lane order."""
+        return t if self.perm is None else t[self.perm]
+
+    def split(self, x) -> list:
+        """A [m, ...] tensor or a dict of them -> one a shard."""
+        return [x] if self.devs is None else split_lanes(x, self.devs)
+
+    def shards(self, params) -> list[Params]:
+        return params if self.devs is not None else [params]
+
+    def join(self, shards: list[Params]):
+        return shards if self.devs is not None else shards[0]
+
+    def cat(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        return join_lanes(parts, self.dev)
+
+    def gate(self, active: torch.Tensor, z, x):
+        """``_gate_z`` over the lanes (lane-order ``active`` on the first
+        device), shard by shard."""
+        return self.join([_gate_z(a, zz, xx) for a, zz, xx in zip(
+            self.split(active), self.shards(z), self.shards(x))])
 
 
 def round_comm_bits(spec: MixingSpec | TopologySchedule, n_params: int,
@@ -152,11 +227,13 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                     *, device=None, with_metrics: bool = True,
                     with_telemetry: bool = False,
                     skip_inactive_compute: bool | str = "auto",
-                    async_cfg=None, placement=None) -> Callable:
+                    async_cfg=None, placement=None,
+                    mesh=None) -> Callable:
     """Build round_step(state, batches) -> (state', metrics).
 
-    ``batches``: dict with leaves [m, K, ...] on ``device``. ``loss_fn``
-    (params, batch, rng) returns the per-client losses [m]. ``device``
+    ``batches``: dict with leaves [m, K, ...] on ``device`` (client
+    order; on a client mesh on its first device). ``loss_fn`` (params,
+    batch, rng) returns the per-client losses [m]. ``device``
     defaults to CUDA; pass ``"cpu"`` to run the plain versions of the
     kernels on the CPU. Metrics are 0-dim tensors on the device: ``loss``
     (mean over the participating clients of the mean local loss), and
@@ -170,10 +247,11 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     and on a quantized wire the quantizer's observed error, its
     Assumption-4 bound and saturated share, replayed over
     ``QUANT_SAMPLE_LANES`` strided lanes (weighted by ``active`` on a
-    gated schedule; the fused round leaves these three None). The
-    parameters are bitwise those of the step built without it. The
-    stages carry ``torch.profiler`` ranges: ``round/local_sgd``,
-    ``round/mix``, ``round/telemetry``.
+    gated schedule; the fused round leaves these three None); on a client
+    mesh also ``placement_boundary_lanes``, the block realization's wire
+    lane slots. The parameters are bitwise those of the step built
+    without it. The stages carry ``torch.profiler`` ranges:
+    ``round/local_sgd``, ``round/mix``, ``round/telemetry``.
 
     ``spec`` may be a :class:`TopologySchedule`: the round index picks
     the event, inactive clients are held exactly, and a stateful walk
@@ -184,7 +262,17 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     whenever the bound is below m, True insists, False keeps the full
     width. Parameters and ``loss`` are the same either way;
     ``local_drift`` then counts only the effective z (with skip off it
-    includes inactive lanes' discarded updates).
+    includes inactive lanes' discarded updates). On a mesh each shard
+    trains its own active lanes, at most ``min(bound, m_local)``.
+
+    ``mesh`` (a 1D client mesh) runs the round on its shards: the state
+    is a list of shard dicts (``init_round_state(..., mesh=mesh)``).
+    ``placement`` (a ``gossip_plan.Placement``, sparse impls on a mesh
+    only) runs the plan placed: the state is in lane order, each round's
+    batches, client keys and active mask are gathered through
+    ``placement.perm``. Metrics need no shard's lanes elsewhere:
+    consensus and drift meet as partial sums (``consensus_distance``) and
+    the telemetry's quantizer replay runs on each shard's sampled lanes.
 
     ``async_cfg`` (an :class:`~repro_torch.core.async_gossip.AsyncConfig`)
     returns the async engine's event step instead
@@ -199,17 +287,21 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         return make_async_round_step(loss_fn, cfg, spec, async_cfg,
                                      device=device,
                                      with_metrics=with_metrics,
-                                     with_telemetry=with_telemetry)
-    if placement is not None:
-        raise NotImplementedError("client placement is not ported yet "
-                                  "(ROADMAP A17)")
+                                     with_telemetry=with_telemetry,
+                                     mesh=mesh)
+    if placement is not None and mesh is None:
+        raise ValueError("placement needs a usable client mesh (the lanes "
+                         "it relabels are a mesh's shard blocks)")
     if cfg.fuse_round:
         return _make_fused_round_step(
             loss_fn, cfg, spec, device=device, with_metrics=with_metrics,
             with_telemetry=with_telemetry,
-            skip_inactive_compute=skip_inactive_compute)
-    dev = resolve_device(device)
+            skip_inactive_compute=skip_inactive_compute,
+            placement=placement, mesh=mesh)
     m = spec.m
+    dev = (_mesh_devices(mesh)[0] if mesh is not None
+           else resolve_device(device))
+    lanes = _Lanes(mesh, m, placement, dev)
     stateful = scheduled and spec.is_stateful
     k_active = spec.static_active_count if scheduled else None
     if skip_inactive_compute == "auto":
@@ -225,7 +317,13 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                 f"{getattr(spec, 'name', spec)!r}")
         skip = skip and k_active < m
     mcfg = cfg.mixer_config()
-    plan = _schedule_plan(spec, mcfg) if scheduled else None
+    plan = _schedule_plan(spec, mcfg, mesh) if scheduled else None
+    if plan is not None and placement is not None:
+        plan = plan.placed(placement)
+    if placement is not None and scheduled and plan is None:
+        impl = mcfg.resolved_impl(spec, mesh)
+        raise ValueError(f"placement requires the sparse backend, got "
+                         f"impl={impl!r}")
     # Telemetry reads the round's W_t and quantizer key: the round draws
     # its event and hands it to the event mixer (the scheduled mixer's own
     # two halves, so the parameters are bitwise the same), one draw. A
@@ -239,15 +337,21 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         spec.tables(dev)
         event_mixer = make_event_mixer(
             m, quant=cfg.quant, plan=plan,
-            gate=stateful or spec.gates_participation, device=dev)
+            gate=stateful or spec.gates_participation, device=dev,
+            mesh=mesh)
     else:
-        mixer = make_mixer(spec, mcfg, device=dev)
+        mixer = make_mixer(spec, mcfg, device=dev, placement=placement,
+                           mesh=mesh)
     if with_telemetry:
-        tel = _telemetry_parts(spec, cfg, m, dev)
+        tel = _telemetry_parts(spec, cfg, m, dev, lanes=lanes,
+                               boundary=_boundary_lanes(
+                                   spec, mcfg, placement, mesh))
 
     def round_step(state: RoundState, batches: Params):
         key_round, key_mix, key_next = prng.split(state.rng, 3)
-        client_keys = prng.split(key_round, m)
+        client_keys = lanes.order(prng.split(key_round, m))
+        if lanes.perm is not None:
+            batches = {n: lanes.order(b) for n, b in batches.items()}
         token_next = state.token
         active = None
         if stateful:
@@ -261,24 +365,26 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             W_t, active, key_q = spec.round_event(key_mix, state.round)
         elif scheduled and with_telemetry:
             W_t, _, key_q = spec.round_event(key_mix, state.round)
+        if active is not None:
+            active = lanes.order(active)
+        xs = lanes.shards(state.params)
         with record_function("round/local_sgd"):
-            if skip:
-                idx, safe, valid = _active_lanes(active, k_active)
-                z_sub, losses = local_train(
-                    loss_fn, {n: p[safe] for n, p in state.params.items()},
-                    {n: b[safe] for n, b in batches.items()},
-                    client_keys[safe], eta=cfg.eta, theta=cfg.theta)
-                # Inactive lanes never trained: their z is their held x.
-                # Padded slots (index m) land in the spare last row, which
-                # is dropped.
-                z = {}
-                for n, xl in state.params.items():
-                    buf = torch.cat([xl, xl[-1:]])
-                    z[n] = buf.index_copy_(0, idx, z_sub[n])[:m]
-            else:
-                z, losses = local_train(loss_fn, state.params, batches,
-                                        client_keys, eta=cfg.eta,
-                                        theta=cfg.theta)
+            zs, losses, valid = [], [], []
+            acts = lanes.split(active) if skip else [None] * len(xs)
+            for x, b, k, a in zip(xs, lanes.split(batches),
+                                  lanes.split(client_keys), acts):
+                if skip:
+                    z, loss, ok, _ = _train_active(loss_fn, x, b, k, a,
+                                                   k_active, cfg.eta,
+                                                   cfg.theta)
+                    valid.append(ok)
+                else:
+                    z, loss = local_train(loss_fn, x, b, k, eta=cfg.eta,
+                                          theta=cfg.theta)
+                zs.append(z)
+                losses.append(loss)
+            losses = lanes.cat(losses)
+            z = lanes.join(zs)
         with record_function("round/mix"):
             if event_first:
                 x_next = event_mixer(state.params, z, W_t, active, key_q)
@@ -288,7 +394,7 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             else:
                 x_next = mixer(state.params, z, key_mix, state.round)
         if skip:
-            metrics = {"loss": _weighted_mean(losses, valid)}
+            metrics = {"loss": _weighted_mean(losses, lanes.cat(valid))}
         elif scheduled and spec.gates_participation:
             metrics = {"loss": _weighted_mean(losses, active)}
         else:
@@ -310,7 +416,7 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                 if scheduled and spec.gates_participation:
                     lane_w = active
                     if not skip:
-                        z_eff = _gate_z(active, z, state.params)
+                        z_eff = lanes.gate(active, z, state.params)
                 metrics["telemetry"] = tel(
                     state.params, z_eff, cdist, drift,
                     W_t if scheduled else None,
@@ -321,37 +427,92 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     return round_step
 
 
+def _train_active(loss_fn, x: Params, batches: Params, keys: torch.Tensor,
+                  active: torch.Tensor, k_active: int, eta, theta: float):
+    """The compute-skip local step of one shard (or the one device): train
+    the first ``min(k_active, lanes)`` active lanes (a fixed-size gather;
+    ``eta`` a float or a per-lane [lanes] tensor), then scatter them back;
+    inactive lanes keep x as their z, padded slots (index ``lanes``) land
+    in a spare last row that is dropped. Returns (z, losses of the slots,
+    valid slots f32, the slots' lanes)."""
+    m = active.shape[0]
+    idx, safe, valid = _active_lanes(active, min(k_active, m))
+    z_sub, losses = local_train(
+        loss_fn, {n: p[safe] for n, p in x.items()},
+        {n: b[safe] for n, b in batches.items()}, keys[safe],
+        eta=eta[safe] if isinstance(eta, torch.Tensor) else eta,
+        theta=theta)
+    z = {}
+    for n, xl in x.items():
+        buf = torch.cat([xl, xl[-1:]])
+        z[n] = buf.index_copy_(0, idx, z_sub[n])[:m]
+    return z, losses, valid, idx
+
+
+def _boundary_lanes(spec, mcfg: MixerConfig, placement, mesh
+                    ) -> float | None:
+    """The telemetry's ``placement_boundary_lanes``: the wire lane slots of
+    the (placed) plan's block realization on this mesh, for a sparse impl
+    other than a cycle's switch; None without a mesh."""
+    if mesh is None:
+        return None
+    impl = mcfg.resolved_impl(spec, mesh)
+    if impl not in ("ring", "torus", "sparse") or (
+            isinstance(spec, TopologySchedule) and spec.kind == "cycle"):
+        return None
+    plan = spec.gossip_plan()
+    if placement is not None:
+        plan = plan.placed(placement)
+    return _placed_boundary_lane_slots(plan, mesh)
+
+
 def _telemetry_parts(spec, cfg: DFedAvgMConfig, m: int, dev: torch.device,
-                     replay: bool = True) -> Callable:
+                     replay: bool = True, lanes: _Lanes | None = None,
+                     boundary: float | None = None) -> Callable:
     """The round's telemetry, built with the step: ``tel(x, z_eff, cdist,
-    drift, W_t, key_q, lane_w) -> Telemetry``. Its constants live on the
-    device from the start (a static spec's live-edge count, the strided
-    lane sample of the quantizer replay), so a captured round reads them
-    and copies nothing from the host. ``W_t`` None means the static
-    spec's graph; ``replay=False`` (the fused round) leaves the quantizer
-    fields None."""
+    drift, W_t, key_q, lane_w) -> Telemetry`` over stacked dicts (a
+    mesh's lists of shard dicts, in lane order: each shard replays its
+    own sampled lanes). Its constants live on the device from the start
+    (a static spec's live-edge count, the strided lane sample of the
+    quantizer replay, a mesh's boundary lane slots), so a captured round
+    reads them and copies nothing from the host. ``W_t`` None means the
+    static spec's graph; ``replay=False`` (the fused round) leaves the
+    quantizer fields None. A placed run replays lane p with client
+    ``perm[p]``'s keys, as the wire draws them."""
     from ..telemetry.metrics import (QUANT_SAMPLE_LANES, Telemetry,
                                      client_dim, live_edge_count,
                                      quant_round_telemetry, sample_lane_ids,
-                                     wire_bits_for)
+                                     shard_sample_ids, wire_bits_for)
     static_live = None
     if not isinstance(spec, TopologySchedule):
         static_live = torch.full((), float(spec.graph.num_directed_edges()),
                                  dtype=torch.float32, device=dev)
     quant_on = replay and cfg.quant is not None and cfg.quant.enabled
-    lane_ids = (sample_lane_ids(m, QUANT_SAMPLE_LANES, dev) if quant_on
-                else None)
+    lane_ids = None
+    if quant_on:
+        lane_ids = (sample_lane_ids(m, QUANT_SAMPLE_LANES, dev)
+                    if lanes is None or lanes.devs is None else
+                    shard_sample_ids(m, QUANT_SAMPLE_LANES, lanes.devs))
+    pbl = (None if boundary is None else
+           torch.full((), boundary, dtype=torch.float32, device=dev))
+    perm = None if lanes is None else lanes.perm
 
     def tel(x, z_eff, cdist, drift, W_t, key_q, lane_w):
+        first = x[0] if isinstance(x, list) else x
         live = static_live if W_t is None else live_edge_count(W_t)
         fields = dict(consensus_dist=cdist, local_drift=drift,
                       live_edges=live,
-                      wire_bits=wire_bits_for(client_dim(x), cfg.quant,
+                      wire_bits=wire_bits_for(client_dim(first), cfg.quant,
                                               live))
+        if pbl is not None:
+            fields["placement_boundary_lanes"] = pbl
         if quant_on:
+            leaf_keys = None
+            if perm is not None and cfg.quant.stochastic:
+                leaf_keys = _quant_leaf_keys(key_q, len(first), m)[:, perm]
             qe, qb, qs = quant_round_telemetry(
-                x, z_eff, cfg.quant, key_q, lane_weight=lane_w,
-                sample_lanes=lane_ids)
+                x, z_eff, cfg.quant, key_q, leaf_keys=leaf_keys,
+                lane_weight=lane_w, sample_lanes=lane_ids)
             fields.update(quant_err_sq=qe, quant_bound=qb,
                           quant_sat_frac=qs)
         return Telemetry(**fields)
@@ -363,8 +524,8 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                            spec: MixingSpec | TopologySchedule, *,
                            device=None, with_metrics: bool = True,
                            with_telemetry: bool = False,
-                           skip_inactive_compute: bool | str = "auto"
-                           ) -> Callable:
+                           skip_inactive_compute: bool | str = "auto",
+                           placement=None, mesh=None) -> Callable:
     """The ``cfg.fuse_round`` realization of :func:`make_round_step`: K-2
     local steps (``local_train_deferred``), then the fused tail
     (``core.mixing.make_fused_tail``) — penultimate update + encode in
@@ -374,7 +535,9 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     ``local_drift`` is taken of the published z = y_{K-1}. Not
     bit-compatible with the unfused round except at ``eta == 0``. A
     schedule runs at full width (no compute-skip) with its event's W_t
-    and active mask; a cycle takes the dense tail, as in the reference."""
+    and active mask; a cycle takes the dense tail, as in the reference.
+    On a client mesh the head runs per shard and the tail is the block
+    realization's (placed as :func:`make_round_step` describes)."""
     scheduled = _check_spec(spec)
     if scheduled and spec.is_stateful:
         raise ValueError("fuse_round does not support stateful schedules "
@@ -386,9 +549,11 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         raise ValueError(
             f"fuse_round needs local_steps >= 2 (one step is deferred "
             f"past the mix), got {cfg.local_steps}")
-    dev = resolve_device(device)
     m = spec.m
-    impl = cfg.mixer_config().resolved_impl(spec)
+    dev = (_mesh_devices(mesh)[0] if mesh is not None
+           else resolve_device(device))
+    lanes = _Lanes(mesh, m, placement, dev)
+    impl = cfg.mixer_config().resolved_impl(spec, mesh)
     if impl == "ring" and not scheduled and spec.kind not in ("ring",
                                                               "torus"):
         raise ValueError(f"ring mixer needs a ring MixingSpec, got "
@@ -396,30 +561,48 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     sparse = impl in ("ring", "torus", "sparse") and not (
         scheduled and spec.kind == "cycle")
     plan = spec.gossip_plan() if sparse else None
+    if placement is not None:
+        if plan is None:
+            raise ValueError("placement requires the sparse backend, "
+                             f"got impl={impl!r}")
+        plan = plan.placed(placement)
     if scheduled:
         spec.tables(dev)
     gate = scheduled and spec.gates_participation
     tail = make_fused_tail(loss_fn, m, eta=cfg.eta, theta=cfg.theta,
                            quant=cfg.quant, plan=plan,
                            W=None if scheduled else spec.W, device=dev,
-                           gate=gate)
+                           gate=gate, mesh=mesh)
     if with_telemetry:
         # No quantizer fields: the fused tail's wire delta (y' - x, formed
         # inside B4) never exists as a tensor to replay against.
-        tel = _telemetry_parts(spec, cfg, m, dev, replay=False)
+        tel = _telemetry_parts(
+            spec, cfg, m, dev, replay=False, lanes=lanes,
+            boundary=None if plan is None else _placed_boundary_lane_slots(
+                plan, mesh))
 
     def round_step(state: RoundState, batches: Params):
         key_round, key_mix, key_next = prng.split(state.rng, 3)
-        client_keys = prng.split(key_round, m)
+        client_keys = lanes.order(prng.split(key_round, m))
+        if lanes.perm is not None:
+            batches = {n: lanes.order(b) for n, b in batches.items()}
         K = next(iter(batches.values())).shape[1]
         step_keys = prng.split(client_keys, K)           # [m, K, 2], once
-        y, v, g, losses_head = local_train_deferred(
-            loss_fn, state.params, batches, step_keys, eta=cfg.eta,
-            theta=cfg.theta)                             # losses [m, K-1]
+        heads = [local_train_deferred(loss_fn, x, b, k, eta=cfg.eta,
+                                      theta=cfg.theta)
+                 for x, b, k in zip(lanes.shards(state.params),
+                                    lanes.split(batches),
+                                    lanes.split(step_keys))]
+        y, v, g = (lanes.join([h[i] for h in heads]) for i in range(3))
+        losses_head = lanes.cat([h[3] for h in heads])   # [m, K-1]
         batch_last = {n: b[:, K - 1] for n, b in batches.items()}
         keys_last = step_keys[:, K - 1]
+        if mesh is not None:
+            batch_last = lanes.split(batch_last)
+            keys_last = lanes.split(keys_last)
         if scheduled:
             W_t, active, key_q = spec.round_event(key_mix, state.round)
+            active = lanes.order(active)
             x_next, y_pub, loss_last = tail(state.params, y, v, g,
                                             batch_last, keys_last, key_q,
                                             active, W_t)
@@ -440,7 +623,8 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             metrics["local_drift"] = drift
         if with_telemetry:
             with record_function("round/telemetry"):
-                metrics["telemetry"] = tel(state.params, None, cdist, drift,
+                metrics["telemetry"] = tel(state.params, None,
+                                           cdist, drift,
                                            W_t if scheduled else None,
                                            None, None)
         return RoundState(params=x_next, rng=key_next,

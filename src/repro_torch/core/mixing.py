@@ -1,6 +1,6 @@
 """Gossip mixing x^{t+1}(i) = sum_l w_{i,l} z^t(l)  (paper eqs. 5 and 7) —
-the single-device part of the JAX package's ``core/mixing.py``, for a
-static ``MixingSpec`` and a time-varying ``TopologySchedule``.
+the JAX package's ``core/mixing.py`` for a static ``MixingSpec`` and a
+time-varying ``TopologySchedule``, on one device or on a 1D client mesh.
 
 Client copies are stacked: every leaf of a parameter dict carries a
 leading client axis of size m. Two backends:
@@ -10,14 +10,31 @@ leading client axis of size m. Two backends:
 
   * the PLAN realization (``impl="ring"`` / ``"torus"`` for those specs,
     ``"sparse"`` for any other bounded-degree graph and every schedule)
-    — the JAX package's sparse executor
-    on a one-device client mesh, whose mesh-free spec is
+    — the JAX package's sparse executor, whose mesh-free spec is
     ``execute_plan_reference``. Quantized, one round is: flatten to the
     planar wire buffer, encode every client in one B1 launch (which draws
     the stochastic-rounding noise itself from the per-leaf keys), then one
     B2 launch that gathers each plan step's words and scales through the
-    plan's ``src`` table (the index gather that stands in for the
-    ``ppermute``) and decodes and applies them, own stream first.
+    plan's ``src`` table and decodes and applies them, own stream first.
+
+Every plan compiles to the reference's ``BlockPlan`` over lane blocks
+(``_ShardTables``), and one executor (``_make_exec``) runs it. On a 1D
+client mesh (``launch.mesh.ClientMesh``: shard ``s`` holds lanes
+``[s*m_local, (s+1)*m_local)`` on ``devices[s]``; the state is a list of
+dicts, one a shard, :func:`split_lanes` / :func:`join_lanes`) an edge
+inside a block is a lane gather on the shard, an edge that crosses
+blocks is a transfer of the crossing lanes — one device copy a sub-step
+and (src, dst) pair, all of a round's issued before the first decode —
+that ships the reference's stream: the words, the per-leaf scales and,
+for ``lemma5``, the f32 replica row. Each shard then runs B1 and B2 over
+its own lanes, B2 reading a table of its own rows followed by the rows it
+received, in the reference's stream order. Without a mesh the one
+device is a one-shard mesh: no transfer, and a plan step's ``ppermute``
+is an index gather inside B2. A
+``Placement`` relabels lanes so that fewer edges cross; the callers hold
+state in lane order and the quantizer keys are drawn in client order
+and gathered through ``lane_to_client``, so placed runs are bitwise
+unplaced ones.
 
 A schedule's round samples ``(W_t, active)`` on the device
 (``TopologySchedule.round_event``); the plan realization then gathers
@@ -41,7 +58,8 @@ Semantics, as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import warnings
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -58,9 +76,23 @@ Params = dict[str, torch.Tensor]
 
 __all__ = ["MixerConfig", "make_mixer", "make_scheduled_mixer",
            "make_plan_mixer", "make_event_mixer", "make_fused_tail",
-           "execute_plan_reference", "mix_dense", "consensus_distance"]
+           "execute_plan_reference", "mix_dense", "consensus_distance",
+           "split_lanes", "join_lanes"]
 
 _IMPLS = ("auto", "dense", "ring", "torus", "sparse")
+
+
+def _clients_per_shard(mesh, m: int) -> int | None:
+    """Lanes a shard of the 1D client ``mesh`` holds (``m_local``) when
+    its shards — the devices along its one axis, ``mesh.axis_names[0]``
+    — divide ``m``, else None (the mesh does not fit); None for no
+    mesh."""
+    if mesh is None:
+        return None
+    n_shards = int(np.asarray(mesh.devices).size)
+    if m % n_shards:
+        return None
+    return m // n_shards
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,8 +103,9 @@ class MixerConfig:
            the tensordot reference; "ring"/"torus"/"sparse" run the
            compiled GossipPlan (the plan realization); "auto" picks the
            plan realization for every schedule and every static graph
-           but a complete one, as the JAX package does on a one-device
-           client mesh.
+           but a complete one — on one device always, on a client mesh
+           when the mesh fits (its shards divide m), as the JAX package
+           does.
     quant: None disables Algorithm 2.
     """
 
@@ -85,9 +118,12 @@ class MixerConfig:
                 f"unknown mixer impl {self.impl!r}; allowed impls: "
                 + " | ".join(repr(i) for i in _IMPLS))
 
-    def resolved_impl(self, spec: MixingSpec | TopologySchedule) -> str:
+    def resolved_impl(self, spec: MixingSpec | TopologySchedule,
+                      mesh=None) -> str:
         if self.impl != "auto":
             return self.impl
+        if mesh is not None and _clients_per_shard(mesh, spec.m) is None:
+            return "dense"
         if isinstance(spec, TopologySchedule):
             return "sparse"
         if spec.kind in ("ring", "torus"):
@@ -186,24 +222,36 @@ def _weighted_replica_base(X: torch.Tensor, weights: torch.Tensor,
     return base
 
 
+def _live_steps(plan: GossipPlan) -> list[int]:
+    """The plan steps that move anything, in order: a client's streams
+    are its own, then one a live step."""
+    return [k for k in range(plan.n_steps) if plan.wire_pairs(k)]
+
+
 class _PlanTables:
-    """A plan's streams on one device: ``src`` int32 [K, m] — row 0 the
-    identity (a client's own stream), then one row per live plan step —
-    and, for a static plan, its weights f32 [m, K]. :meth:`weights`
-    gathers a round's table from a sampled ``W_t`` on the device: column
-    0 ``W[c, c]``, column k ``W[c, src[k, c]]``, idle slots 0, the
-    reference's ``gather_weights`` over the same live steps."""
+    """A plan's streams over all m lanes: ``src`` int32 [K, m] — row 0
+    the identity (a client's own stream), then one row per live plan
+    step — and, for a static plan, its weights f32 [m, K].
+    :meth:`weights` gathers a round's table from a sampled ``W_t`` on the
+    device: column 0 ``W[c, c]``, column k ``W[c, src[k, c]]``, idle
+    slots 0, the reference's ``gather_weights`` over the same live steps.
+    A placed plan's lanes read the client-space ``W_t`` through
+    ``lane_to_client`` at both ends."""
 
     def __init__(self, plan: GossipPlan, dev: torch.device):
-        live = [k for k in range(plan.n_steps) if plan.wire_pairs(k)]
+        live = _live_steps(plan)
         ident = np.arange(plan.m)
         src = np.stack([ident] + [plan.src[k] for k in live])
         idle = np.ascontiguousarray(src.T == ident[:, None])
         idle[:, 0] = False
         self.src = torch.as_tensor(src.astype(np.int32), device=dev)
+        lane = plan.lane_to_client
         # Row-major, as B2 reads the table the gather writes.
-        self._idx = torch.as_tensor(np.ascontiguousarray(src.T, np.int64),
+        idx = src.T if lane is None else lane[src.T]
+        self._idx = torch.as_tensor(np.ascontiguousarray(idx, np.int64),
                                     device=dev)
+        self._rows = (None if lane is None else
+                      torch.as_tensor(lane.astype(np.int64), device=dev))
         self._idle = torch.as_tensor(idle, device=dev)
         self.static = None
         if plan.is_static:
@@ -212,6 +260,8 @@ class _PlanTables:
             self.static = torch.as_tensor(w.astype(np.float32), device=dev)
 
     def weights(self, W: torch.Tensor) -> torch.Tensor:
+        if self._rows is not None:
+            W = W.index_select(0, self._rows)
         return torch.where(self._idle, 0.0, W.gather(1, self._idx))
 
 
@@ -224,75 +274,399 @@ def _plan_tables(plan: GossipPlan, dev: torch.device
     return tables.src, tables.static
 
 
-def _make_plan_exec(m: int, quant: QuantConfig | None) -> Callable:
-    """The plan realization's body: ``ex(x, z, w, src, key,
-    leaf_keys=None) -> x'`` for a weights table w [m, K] and streams src
-    [K, m] on the parameters' device. Quantized: flatten to the planar
-    wire buffer, encode every client in one B1 launch (drawing the
-    stochastic-rounding noise from the per-leaf keys: ``leaf_keys``
-    [n_leaves, m, 2] when given, else drawn from ``key``), then one B2
-    launch that gathers each stream's words and scales through ``src``
-    and decodes and applies them in stream order. B1 and B2 treat lanes
+def _encode_lanes(layout: WireLayout, x: Params, z: Params,
+                  quant: QuantConfig, keys: torch.Tensor | None):
+    """The quantized wire's send side over stacked lanes: the planar
+    buffer X [lanes, per, W], the delta's per-leaf scales [lanes, nl]
+    and its words (one B1 launch, drawing the noise from ``keys`` [nl,
+    lanes, 2] when stochastic). Returns (X, words, scales)."""
+    X = layout.to_planar_stacked(x)
+    # Leaf-dtype subtraction before the f32 cast, as in the reference.
+    delta = layout.to_planar_stacked({n: z[n] - x[n] for n in x})
+    scales = layout.leaf_scales(delta, quant)
+    return X, layout.encode(delta, scales, quant, keys=keys), scales
+
+
+def _combine_rows(w: torch.Tensor, own: torch.Tensor, rows: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """The fp32 wire's mix over flat rows: ``w[:, 0] * own + sum_j w[:, j]
+    * rows[src[j]]`` in stream order (``rows`` the table ``src`` indexes:
+    the own rows, then on a mesh shard the received ones)."""
+    acc = w[:, 0, None] * own
+    for j in range(1, src.shape[0]):
+        acc = acc + w[:, j, None] * rows[src[j].long()]
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Lane blocks: one block a shard of a client mesh, one block on one device
+# ---------------------------------------------------------------------------
+
+def _mesh_devices(mesh) -> list[torch.device]:
+    return [torch.device(d) for d in np.asarray(mesh.devices).flat]
+
+
+def _blocks(devs: Sequence[torch.device], m: int
+            ) -> list[tuple[int, int, torch.device]]:
+    """(lo, hi, device) of every shard's lane block: shard s holds lanes
+    ``[s * m_local, (s+1) * m_local)`` on ``devs[s]``."""
+    ml = m // len(devs)
+    return [(s * ml, (s + 1) * ml, d) for s, d in enumerate(devs)]
+
+
+def split_lanes(x, devs: Sequence[torch.device]) -> list:
+    """A [m, ...] tensor, or a dict of them, -> its lane blocks, one a
+    shard on the shard's device (views where a shard lies on ``x``'s
+    device: a caller that needs its own storage clones)."""
+    if isinstance(x, dict):
+        parts = {n: split_lanes(t, devs) for n, t in x.items()}
+        return [{n: p[s] for n, p in parts.items()}
+                for s in range(len(devs))]
+    return [x[lo:hi].to(d) for lo, hi, d in _blocks(devs, x.shape[0])]
+
+
+def join_lanes(parts: list, dev: torch.device):
+    """The inverse of :func:`split_lanes`: shards (tensors, or dicts of
+    them) -> one, lane blocks in order, on ``dev``; a lone shard already
+    on ``dev`` comes back as it is."""
+    if isinstance(parts[0], dict):
+        return {n: join_lanes([p[n] for p in parts], dev) for n in parts[0]}
+    if len(parts) == 1 and parts[0].device == dev:
+        return parts[0]
+    return torch.cat([p.to(dev) for p in parts])
+
+
+def _shards(mesh, device, m: int, what: str
+            ) -> tuple[list[torch.device], int]:
+    """The devices of a realization's lane blocks and their width: the
+    mesh's shards, or the one device (a one-shard mesh) without one."""
+    if mesh is None:
+        return [resolve_device(device)], m
+    m_local = _clients_per_shard(mesh, m)
+    if m_local is None:
+        raise ValueError(
+            f"{what} needs a mesh carrying a client block per shard: m={m} "
+            f"does not block over {np.asarray(mesh.devices).size} shards")
+    return _mesh_devices(mesh), m_local
+
+
+def _as_shards(mesh, x) -> list:
+    """A mixer's argument as shards: on one device a one-element list."""
+    return x if mesh is not None else [x]
+
+
+def _from_shards(mesh, xs: list):
+    return xs if mesh is not None else xs[0]
+
+
+class _Wire:
+    """The lane blocks an executor runs over and the transfers between
+    them (none on one device). ``transfers``: ``(s_src, s_dst, lanes)``,
+    ``lanes`` the source's local lanes that cross, int64 on its device;
+    ``shipped_bytes`` the bytes of the payloads the last round's
+    :func:`_exchange` sent, counted from the payloads themselves."""
+
+    def __init__(self, devs: Sequence[torch.device], m_local: int):
+        self.devs, self.m_local = list(devs), m_local
+        self.blocks = _blocks(self.devs, m_local * len(self.devs))
+        self.transfers: list = []
+        self.shipped_bytes = 0
+
+
+class _ShardTables(_Wire):
+    """A plan's block realization over lane blocks (a client mesh's, or
+    the one device's single block), built once on the host and uploaded
+    once.
+
+    For shard ``s``: ``rows[s]`` = R_s, its m_local own lanes followed
+    by the boundary lanes it receives in transfer order; ``src[s]`` int32
+    [K, m_local], the extended table B2 reads — row 0 the identity (own
+    stream), row j the source row of live plan step j, an intra-block
+    edge pointing at an own row and a crossing edge at a received row —
+    so the streams combine in the reference's order whatever row a lane
+    landed in; ``static[s]`` f32 [m_local, K], a static plan's weights.
+    One transfer a sub-step and (src, dst) pair of the reference's
+    ``BlockPlan`` ships the real lanes only (padded slots are dropped, as
+    the reference drops them). On one block there is no transfer and
+    ``src[0]`` is :class:`_PlanTables`'s.
+
+    A list of plans (a cycle's members) lays every member's transfers out
+    side by side, their received rows in ranges of their own: ``src[s]``
+    is then [n, K, m_local] and ``static[s]`` [n, m_local, K], each member
+    padded to one K (``k_pad``) with identity streams of weight 0."""
+
+    def __init__(self, plans: list[GossipPlan], devs: Sequence[torch.device],
+                 m_local: int, k_pad: int | None = None):
+        super().__init__(devs, m_local)
+        n_shards, ml = len(self.devs), m_local
+        n_recv = [0] * n_shards
+        exts, statics, moves = [], [], []
+        for plan in plans:
+            bp = plan.block_plan(n_shards)
+            live = _live_steps(plan)
+            ext = np.tile(np.arange(ml, dtype=np.int64),
+                          (n_shards, len(live) + 1, 1))
+            for j, k in enumerate(live, 1):
+                ext[:, j] = bp.intra_src[k]
+                for sub in bp.substeps[k]:
+                    for s_src, s_dst in sub.pairs:
+                        real = sub.recv_lanes[s_dst] < ml
+                        send = sub.send_lanes[s_src][real]
+                        recv = sub.recv_lanes[s_dst][real]
+                        ext[s_dst, j, recv] = (ml + n_recv[s_dst]
+                                               + np.arange(len(recv)))
+                        n_recv[s_dst] += len(recv)
+                        moves.append((s_src, s_dst, send))
+            exts.append(ext)
+            if plan.is_static:
+                w_self, w_steps = plan.static_weights()
+                statics.append(np.stack([w_self] + [w_steps[k]
+                                                    for k in live], axis=1))
+        self.rows = [ml + r for r in n_recv]
+        self.lanes_moved = int(sum(len(t[2]) for t in moves))
+        self.transfers = [(s_src, s_dst, torch.as_tensor(
+            lanes.astype(np.int64), device=self.devs[s_src]))
+            for s_src, s_dst, lanes in moves]
+        k_max = max([e.shape[1] for e in exts] + [k_pad or 0])
+        ident = np.arange(ml, dtype=np.int64)
+        src = np.stack([np.concatenate(
+            [e, np.broadcast_to(ident, (n_shards, k_max - e.shape[1], ml))],
+            axis=1) for e in exts], axis=1)          # [S, n, K, ml]
+        for s in range(n_shards):   # the host check of B2's row bound
+            if src[s].min() < 0 or src[s].max() >= self.rows[s]:
+                raise ValueError(f"shard {s}: a stream row outside its "
+                                 f"{self.rows[s]} rows")
+        single = len(plans) == 1
+        self.src = [torch.as_tensor(
+            (src[s, 0] if single else src[s]).astype(np.int32),
+            device=self.devs[s]) for s in range(n_shards)]
+        self.static = None
+        if len(statics) == len(plans):
+            w = np.stack([np.pad(x, ((0, 0), (0, k_max - x.shape[1])))
+                          for x in statics]).astype(np.float32)  # [n, m, K]
+            self.static = [torch.as_tensor(
+                w[0, s * ml:(s + 1) * ml] if single
+                else w[:, s * ml:(s + 1) * ml], device=self.devs[s])
+                for s in range(n_shards)]
+        # The round's weights gathered from a sampled W (one plan only).
+        self._glob = _PlanTables(plans[0], self.devs[0]) if single else None
+
+    def weights(self, W) -> list[torch.Tensor]:
+        """A round's client-space ``W`` (f32 [m, m] on the first device)
+        -> each shard's block of the lane-order weights table [m_local,
+        K]."""
+        return split_lanes(self._glob.weights(_device_w(W, self.devs[0])),
+                           self.devs)
+
+
+def _exchange(wire: _Wire, streams: list[list[torch.Tensor]]
+              ) -> list[list[torch.Tensor]]:
+    """Issue every transfer of a round: ``streams[s]`` holds shard s's
+    stream as row-aligned parts ([m_local, L_i] each; int32 on the
+    quantized wire: the words, the per-leaf scales' bits and, for
+    ``lemma5``, the f32 replica row's bits — the reference's stream).
+    Returns each shard's received rows [n, sum L_i], in its table's row
+    order. A transfer gathers only its crossing lanes on the source into
+    one payload and, when the shards lie on two devices, copies that
+    payload once between them; ``wire.shipped_bytes`` is set to the
+    payloads' bytes."""
+    got: list[list[torch.Tensor]] = [[] for _ in wire.devs]
+    shipped = 0
+    for s_src, s_dst, idx in wire.transfers:
+        parts = [p.index_select(0, idx) for p in streams[s_src]]
+        payload = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        shipped += payload.numel() * payload.element_size()
+        got[s_dst].append(payload.to(wire.devs[s_dst], non_blocking=True))
+    wire.shipped_bytes = shipped
+    return got
+
+
+def _shard_keys(key, n_leaves: int, m: int, lane: torch.Tensor | None,
+                blocks, leaf_keys: torch.Tensor | None = None
+                ) -> list[torch.Tensor]:
+    """The stochastic-rounding keys of every shard: drawn full width in
+    client space (``_quant_leaf_keys``; ``leaf_keys`` [n_leaves, m, 2]
+    replaces that draw), gathered to lane order through
+    ``lane_to_client`` for a placed plan, sliced by block: [n_leaves,
+    m_local, 2] each (on one block the keys themselves)."""
+    keys = (_quant_leaf_keys(key, n_leaves, m) if leaf_keys is None
+            else _on(leaf_keys, blocks[0][2], "leaf_keys"))
+    if lane is not None:
+        keys = keys.index_select(1, lane)
+    return [keys[:, lo:hi].to(d).contiguous() for lo, hi, d in blocks]
+
+
+def _stream_parts(words: torch.Tensor, scales: torch.Tensor,
+                  X: torch.Tensor | None) -> list[torch.Tensor]:
+    """One shard's wire stream as row-aligned int32 views (no copy): the
+    words, the per-leaf scales' bits and, for ``lemma5``, the f32
+    replica row's bits."""
+    parts = [words, scales.view(torch.int32)]
+    if X is not None:
+        parts.append(X.reshape(X.shape[0], -1).view(torch.int32))
+    return parts
+
+
+def _unpack_rows(own_words, own_scales, own_X, got, layout: WireLayout):
+    """A shard's R-row tables from its own rows and the streams it
+    received: words [R, W], per-leaf scales [R, n_leaves] and (``lemma5``)
+    replicas [R, per, W]."""
+    if not got:
+        return own_words, own_scales, own_X
+    Wd, nl = layout.total_words, layout.n_leaves
+    words = torch.cat([own_words] + [g[:, :Wd] for g in got])
+    scales = torch.cat([own_scales]
+                       + [g[:, Wd:Wd + nl].view(torch.float32) for g in got])
+    X = None
+    if own_X is not None:
+        X = torch.cat([own_X.reshape(own_X.shape[0], -1)]
+                      + [g[:, Wd + nl:].view(torch.float32) for g in got]
+                      ).reshape(-1, layout.per, Wd)
+    return words, scales, X
+
+
+def _layouts(quant: QuantConfig | None) -> Callable:
+    """``layout_for(x)``: the planar wire layout of a stacked dict's
+    leaves (whatever its lane count), built once a leaf signature."""
+    layouts: dict = {}
+    bits = quant.bits if quant is not None and quant.enabled else 32
+
+    def layout_for(x: Params) -> WireLayout:
+        sig = tuple((n, tuple(x[n].shape[1:]), x[n].dtype) for n in sorted(x))
+        if sig not in layouts:
+            layouts[sig] = WireLayout.for_tree(x, bits, stacked=True)
+        return layouts[sig]
+
+    return layout_for
+
+
+def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
+               lane: torch.Tensor | None = None) -> Callable:
+    """The sparse executor over lane blocks: ``ex(xs, zs, ws, srcs, key,
+    leaf_keys=None) -> xs'`` over one dict a shard (one dict on one
+    device), ``ws[s]`` [m_local, K] and ``srcs[s]`` the shard's table.
+    Quantized, per shard: the planar buffer and one B1 launch over its
+    lanes (drawing the noise from the full-width per-leaf keys:
+    ``leaf_keys`` [n_leaves, m, 2] when given, else drawn from ``key``);
+    then every transfer; then per shard one B2 launch that gathers each
+    stream's words and scales through its table (own rows, then received
+    ones) and decodes and applies them in stream order. The fp32 wire
+    ships the f32 rows and accumulates leaf by leaf in the same order.
+    Each lane's arithmetic is the same on every block layout, so a mesh's
+    result is bitwise the one device's; B1 and B2 treat lanes
     independently, so a cohort's lanes under the full width's gathered
     keys give the full width's words and values."""
-    layouts: dict = {}
+    layout_for = _layouts(quant)
+    quant_on = quant is not None and quant.enabled
+    lemma5 = quant_on and quant.delta_mode == "lemma5"
 
-    def mix_fp32(z: Params, w: torch.Tensor, src: torch.Tensor) -> Params:
-        out = {}
-        for name, zl in z.items():
-            zf = zl.to(torch.float32)
-            bshape = (-1,) + (1,) * (zf.dim() - 1)
-            acc = w[:, 0].reshape(bshape) * zf
-            for j in range(1, src.shape[0]):
-                acc = acc + w[:, j].reshape(bshape) * zf[src[j].long()]
-            out[name] = acc.to(zl.dtype)
+    def mix_fp32(zs, ws, srcs):
+        names = list(zs[0])
+        rows = [[z[n].to(torch.float32).reshape(z[n].shape[0], -1)
+                 for n in names] for z in zs]                # [m_local, d_l]
+        got = _exchange(wire, rows)
+        out = []
+        for z, parts, g, w, src in zip(zs, rows, got, ws, srcs):
+            res, off = {}, 0
+            for n, zf in zip(names, parts):
+                d = zf.shape[1]
+                table = (torch.cat([zf] + [r[:, off:off + d] for r in g])
+                         if g else zf)
+                off += d
+                acc = _combine_rows(w, zf, table, src)
+                res[n] = acc.reshape(z[n].shape).to(z[n].dtype)
+            out.append(res)
         return out
 
-    def ex(x: Params, z: Params, w: torch.Tensor, src: torch.Tensor,
-           key, leaf_keys: torch.Tensor | None = None) -> Params:
-        if quant is None or not quant.enabled:
-            return mix_fp32(z, w, src)
-        sig = tuple((n, tuple(x[n].shape), x[n].dtype) for n in sorted(x))
-        layout = layouts.get(sig)
-        if layout is None:
-            layout = layouts[sig] = WireLayout.for_tree(x, quant.bits,
-                                                        stacked=True)
-        X = layout.to_planar_stacked(x)                        # [m, per, W]
-        # Leaf-dtype subtraction before the f32 cast, as in the reference.
-        delta = layout.to_planar_stacked({n: z[n] - x[n] for n in x})
-        scales = layout.leaf_scales(delta, quant)              # [m, nl]
-        keys = None
+    def ex(xs: list[Params], zs: list[Params], ws, srcs, key,
+           leaf_keys: torch.Tensor | None = None) -> list[Params]:
+        if not quant_on:
+            return mix_fp32(zs, ws, srcs)
+        layout = layout_for(xs[0])
+        keys = [None] * len(xs)
         if quant.stochastic:     # B1 draws the noise from the keys
-            keys = (_on(leaf_keys, X.device, "leaf_keys")
-                    if leaf_keys is not None else _quant_leaf_keys(
-                        _key_on(key, X.device), layout.n_leaves, m))
-        words = layout.encode(delta, scales, quant, keys=keys)
-        base = (_weighted_replica_base(X, w, src)
-                if quant.delta_mode == "lemma5" else X)
-        out = layout.decode_apply(base, words, scales, w, src, quant)
-        return layout.from_planar_stacked(out)
+            keys = _shard_keys(
+                None if leaf_keys is not None
+                else _key_on(key, wire.devs[0]), layout.n_leaves, m, lane,
+                wire.blocks, leaf_keys=leaf_keys)
+        own = [_encode_lanes(layout, x, z, quant, k)
+               for x, z, k in zip(xs, zs, keys)]
+        got = _exchange(wire, [_stream_parts(w, sc, X if lemma5 else None)
+                               for X, w, sc in own])
+        out = []
+        for (X, words, scales), g, w, src in zip(own, got, ws, srcs):
+            words_r, scales_r, X_r = _unpack_rows(
+                words, scales, X if lemma5 else None, g, layout)
+            base = _weighted_replica_base(X_r, w, src) if lemma5 else X
+            res = layout.decode_apply(base, words_r, scales_r, w, src, quant)
+            out.append(layout.from_planar_stacked(res))
+        return out
 
     return ex
 
 
+def _make_plan_exec(m: int, quant: QuantConfig | None,
+                    dev: torch.device) -> Callable:
+    """:func:`_make_exec` on one device's m lanes: ``ex(x, z, w, src, key,
+    leaf_keys=None) -> x'`` over stacked dicts, for any table ``src``
+    [K, m] (the pooled cohort's, built each round)."""
+    ex = _make_exec(_Wire([dev], m), m, quant)
+
+    def one(x: Params, z: Params, w: torch.Tensor, src: torch.Tensor, key,
+            leaf_keys: torch.Tensor | None = None) -> Params:
+        return ex([x], [z], [w], [src], key, leaf_keys)[0]
+
+    return one
+
+
+def _lane_tensor(plan: GossipPlan, dev: torch.device):
+    return (None if plan.lane_to_client is None else torch.as_tensor(
+        plan.lane_to_client.astype(np.int64), device=dev))
+
+
+def _refuse_placed(plan: GossipPlan, mesh) -> None:
+    if mesh is None and plan.lane_to_client is not None:
+        raise ValueError("a placed plan needs a client mesh (placement "
+                         "relabels the lanes of shard blocks)")
+
+
+def _dense_on_mesh(mixer: Callable, mesh) -> Callable:
+    """A one-device mixer over a mesh's lanes: gather the shards to the
+    first device, mix there, hand each shard its block back (the dense
+    reference's all-gather)."""
+    devs = _mesh_devices(mesh)
+
+    def mixed(xs, zs, *args, **kw):
+        return split_lanes(mixer(join_lanes(xs, devs[0]),
+                                 join_lanes(zs, devs[0]), *args, **kw), devs)
+
+    return mixed
+
+
 def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
-                    device=None) -> Callable:
+                    device=None, *, mesh=None) -> Callable:
     """Static plan (baked weights) -> mixer(x, z, key=None, t=None) -> x'.
 
-    The single-device realization of the JAX package's sparse executor:
-    the streams a client combines are its own followed by one per live
-    plan step, and every step's ``ppermute`` becomes an index gather on
-    the device (inside B2 for the quantized wire).
+    The JAX package's sparse executor: the streams a client combines are
+    its own followed by one per live plan step. Without a mesh every
+    step's ``ppermute`` is an index gather on the device (inside B2 for
+    the quantized wire); on a client ``mesh`` it is the block
+    realization (x and z lists of shard dicts, in lane order for a placed
+    plan). ``mixer.tables`` is its :class:`_ShardTables`.
     """
-    tables = _PlanTables(plan, resolve_device(device))
-    if tables.static is None:
+    _refuse_placed(plan, mesh)
+    devs, m_local = _shards(mesh, device, plan.m, "sparse mixer")
+    tabs = _ShardTables([plan], devs, m_local)
+    if tabs.static is None:
         raise ValueError(f"plan {plan.name!r} has no static weights")
-    ex = _make_plan_exec(plan.m, quant)
+    ex = _make_exec(tabs, plan.m, quant, _lane_tensor(plan, devs[0]))
 
-    def mixer(x: Params, z: Params, key=None, t=None) -> Params:
+    def mixer(x, z, key=None, t=None):
         del t
-        return ex(x, z, tables.static, tables.src, key)
+        return _from_shards(mesh, ex(_as_shards(mesh, x), _as_shards(mesh, z),
+                                     tabs.static, tabs.src, key))
 
+    mixer.tables = tabs
     return mixer
 
 
@@ -311,7 +685,7 @@ def execute_plan_reference(plan: GossipPlan, W, stacked: Params,
     if quant is not None and quant.enabled and x is None:
         raise ValueError("quantized plan reference needs the held state x")
     tables = _PlanTables(plan, dev)
-    ex = _make_plan_exec(plan.m, quant)
+    ex = _make_plan_exec(plan.m, quant, dev)
     return ex(stacked if x is None else x, stacked,
               tables.weights(_device_w(W, dev)), tables.src, key)
 
@@ -324,7 +698,7 @@ def _gate_z(active: torch.Tensor, z: Params, x: Params) -> Params:
 
 def make_event_mixer(m: int, quant: QuantConfig | None = None,
                      plan: GossipPlan | None = None, gate: bool = True,
-                     device=None) -> Callable:
+                     device=None, *, mesh=None) -> Callable:
     """Build mix_event(x, z, W, active, key=None) -> x' for a mixing
     event sampled outside the mixer: ``W`` [m, m] f32 and ``active`` [m]
     f32, both on the device (another device is refused, never copied).
@@ -334,28 +708,41 @@ def make_event_mixer(m: int, quant: QuantConfig | None = None,
     ``plan=None`` runs the dense reference (any W); a plan (its support
     covering W's off-diagonal) runs the plan realization with the round's
     weights gathered from ``W``. ``gate=False`` skips the inactive-client
-    z gate (events that never sideline a client)."""
-    dev = resolve_device(device)
-    if plan is not None:
-        if plan.m != m:
-            raise ValueError(f"plan has m={plan.m}, expected {m}")
-        tables = _PlanTables(plan, dev)
-        ex = _make_plan_exec(m, quant)
+    z gate (events that never sideline a client). On a client ``mesh``, x
+    and z are lists of shard dicts, ``W`` (client space) and ``active``
+    (lane order) lie on the mesh's first device, and a placed plan reads
+    ``W`` through its ``lane_to_client``."""
+    if plan is None:
+        if mesh is not None:
+            return _dense_on_mesh(make_event_mixer(
+                m, quant=quant, gate=gate,
+                device=_mesh_devices(mesh)[0]), mesh)
+        dev = resolve_device(device)
 
-        def mix_event(x, z, W, active, key=None):
+        def mix_dense_event(x, z, W, active, key=None):
             z_eff = _gate_z(_on(active, dev, "active"), z, x) if gate else z
-            return ex(x, z_eff, tables.weights(_device_w(W, dev)),
-                      tables.src, key)
+            W = _device_w(W, dev)
+            if quant is None or not quant.enabled:
+                return mix_dense(W, z_eff)
+            return _mix_dense_quantized(W, x, z_eff, quant, key)
 
-        return mix_event
+        return mix_dense_event
+    if plan.m != m:
+        raise ValueError(f"plan has m={plan.m}, expected {m}")
+    _refuse_placed(plan, mesh)
+    devs, m_local = _shards(mesh, device, m, "sparse mixer")
+    tabs = _ShardTables([plan], devs, m_local)
+    ex = _make_exec(tabs, m, quant, _lane_tensor(plan, devs[0]))
 
     def mix_event(x, z, W, active, key=None):
-        z_eff = _gate_z(_on(active, dev, "active"), z, x) if gate else z
-        W = _device_w(W, dev)
-        if quant is None or not quant.enabled:
-            return mix_dense(W, z_eff)
-        return _mix_dense_quantized(W, x, z_eff, quant, key)
+        xs, zs = _as_shards(mesh, x), _as_shards(mesh, z)
+        if gate:
+            acts = split_lanes(_on(active, devs[0], "active"), devs)
+            zs = [_gate_z(a, zz, xx) for a, zz, xx in zip(acts, zs, xs)]
+        return _from_shards(mesh, ex(xs, zs, tabs.weights(W), tabs.src,
+                                     key))
 
+    mix_event.tables = tabs
     return mix_event
 
 
@@ -375,10 +762,11 @@ def _scale_by(tree: Params, active: torch.Tensor) -> Params:
 def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
                     quant: QuantConfig | None = None,
                     plan: GossipPlan | None = None,
-                    W=None, device=None, gate: bool = False) -> Callable:
-    """Fused-round tail on one device: the round's last two local steps,
-    the wire encode and the combined decode-apply — the single-device
-    counterpart of the JAX package's ``make_fused_tail``.
+                    W=None, device=None, gate: bool = False,
+                    mesh=None) -> Callable:
+    """Fused-round tail: the round's last two local steps, the wire
+    encode and the combined decode-apply — the JAX package's
+    ``make_fused_tail``.
 
     The returned ``tail(x, y, v, g, batch_last, keys_last, key_q,
     active=None, W=None)`` consumes
@@ -405,167 +793,263 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
     clients (``active`` [m] f32) gate to ``y = x, v = g = 0`` before the
     encode, so they publish ``Q(0)``, apply a zero deferred update and
     are held exactly.
+
+    On a client ``mesh`` x, y, v, g and the published z are lists of
+    shard dicts, ``batch_last`` a list of shard batches and
+    ``keys_last`` a list of shard keys; per shard B4 encodes, every
+    boundary transfer is issued, then the shard's last gradient and B5
+    (its own and received rows). ``loss_last`` comes back [m] on the
+    first device; ``active`` lies there in lane order. Without a plan the
+    dense tail runs on the gathered lanes.
     """
-    dev = resolve_device(device)
     eta_f, theta_f = float(np.float32(eta)), float(np.float32(theta))
+    et = (eta_f, theta_f)
     quant_on = quant is not None and quant.enabled
-
-    def penultimate(y: Params, v: Params, g: Params):
-        v1 = {n: theta_f * v[n].to(torch.float32)
-              - eta_f * g[n].to(torch.float32) for n in y}
-        y1 = {n: (y[n].to(torch.float32) + v1[n]).to(y[n].dtype) for n in y}
-        return y1, v1
-
-    def deferred(mixed: Params, v1: Params, gK: Params) -> Params:
-        return {n: (mixed[n].to(torch.float32) + theta_f * v1[n]
-                    - eta_f * gK[n].to(torch.float32)).to(mixed[n].dtype)
-                for n in mixed}
-
-    def gated(active):
-        if not gate:
-            return None
-        if active is None:
-            raise ValueError("a gated tail needs the round's active mask")
-        return _on(active, dev, "active")
-
+    lemma5 = quant_on and quant.delta_mode == "lemma5"
+    layout_for = _layouts(quant)
     if plan is None:
-        W0 = None if W is None else _device_w(W, dev)
-
-        def dense_tail(x, y, v, g, batch_last, keys_last, key_q,
-                       active=None, W=None):
-            Wr = W0 if W is None else _device_w(W, dev)
-            if Wr is None:
-                raise ValueError("the dense fused tail needs W")
-            act = gated(active)
-            if act is not None:
-                y, v, g = _gate_tail(act, x, y, v, g)
-            y1, v1 = penultimate(y, v, g)
-            loss_last, gK = loss_and_grad(loss_fn, y1, batch_last, keys_last)
-            if act is not None:
-                gK = _scale_by(gK, act)
-            mixed = (_mix_dense_quantized(Wr, x, y1, quant, key_q)
-                     if quant_on else mix_dense(Wr, y1))
-            return deferred(mixed, v1, gK), y1, loss_last
-
-        return dense_tail
-
+        return _dense_fused_tail(loss_fn, quant, W, device, gate, mesh, et)
     if plan.m != m:
         raise ValueError(f"plan has m={plan.m}, expected {m}")
-    tables = _PlanTables(plan, dev)
-    src_t = tables.src
-    et = (eta_f, theta_f)
-    layouts: dict = {}
+    _refuse_placed(plan, mesh)
+    devs, m_local = _shards(mesh, device, m, "fused sparse tail")
+    dev0 = devs[0]
+    tabs = _ShardTables([plan], devs, m_local)
+    lane = _lane_tensor(plan, dev0)
 
-    def weights_of(W):
+    def shard_weights(W):
         if W is not None:
-            return tables.weights(_device_w(W, dev))
-        if tables.static is None:
+            return tabs.weights(W)
+        if tabs.static is None:
             raise ValueError(f"plan {plan.name!r} has no static weights: "
                              "pass the round's W")
-        return tables.static
+        return tabs.static
 
-    def layout_for(x: Params) -> WireLayout:
-        sig = tuple((n, tuple(x[n].shape), x[n].dtype) for n in sorted(x))
-        if sig not in layouts:
-            layouts[sig] = WireLayout.for_tree(
-                x, quant.bits if quant_on else 32, stacked=True)
-        return layouts[sig]
+    def gated(active) -> list:
+        if not gate:
+            return [None] * len(devs)
+        if active is None:
+            raise ValueError("a gated tail needs the round's active mask")
+        return split_lanes(_on(active, dev0, "active"), devs)
 
-    def fp32_tail(x, y, v, g, batch_last, keys_last, key_q, active=None,
-                  W=None):
+    def fp32_tail(xs, ys, vs, gs, batch_last, keys_last, key_q, acts, ws):
         del key_q
-        w_t = weights_of(W)
-        act = gated(active)
-        if act is not None:
+        layout = layout_for(xs[0])
+        staged = []
+        for x, y, v, g, a in zip(xs, ys, vs, gs, acts):
+            if a is not None:
+                y, v, g = _gate_tail(a, x, y, v, g)
+            y1, v1 = _penultimate(y, v, g, et)
+            staged.append((y1, v1, layout.flatten_f32(y1)))
+        got = _exchange(tabs, [[z] for _, _, z in staged])
+        out, pubs, losses = [], [], []
+        for (y1, v1, z), rows, w, src, bl, kl, a in zip(
+                staged, got, ws, tabs.src, batch_last, keys_last, acts):
+            loss_last, gK = loss_and_grad(loss_fn, y1, bl, kl)
+            if a is not None:
+                gK = _scale_by(gK, a)
+            acc = _combine_rows(w, z, torch.cat([z] + rows) if rows else z,
+                                src)
+            out.append(_deferred(layout.unflatten(acc), v1, gK, et))
+            pubs.append(y1)
+            losses.append(loss_last)
+        return out, pubs, join_lanes(losses, dev0)
+
+    def quant_tail(xs, ys, vs, gs, batch_last, keys_last, key_q, acts, ws):
+        layout = layout_for(xs[0])
+        keys = [None] * len(xs)
+        if quant.stochastic:     # B4 draws the noise from the keys
+            keys = _shard_keys(_key_on(key_q, dev0), layout.n_leaves, m,
+                               lane, tabs.blocks)
+        enc = [_encode_tail(layout, x, y, v, g, a, quant, et, k)
+               for x, y, v, g, a, k in zip(xs, ys, vs, gs, acts, keys)]
+        got = _exchange(tabs, [_stream_parts(wd, sc, X if lemma5 else None)
+                               for X, wd, sc, _, _ in enc])
+        out, pubs, losses = [], [], []
+        for (X, words, scales, y_out, v_out), rows, w, src, bl, kl, a in zip(
+                enc, got, ws, tabs.src, batch_last, keys_last, acts):
+            words_r, scales_r, X_r = _unpack_rows(
+                words, scales, X if lemma5 else None, rows, layout)
+            base = _weighted_replica_base(X_r, w, src) if lemma5 else X
+            x_next, y_pub, loss_last = _decode_tail(
+                layout, loss_fn, y_out, v_out, a, bl, kl, base, words_r,
+                scales_r, w, src, quant, et)
+            out.append(x_next)
+            pubs.append(y_pub)
+            losses.append(loss_last)
+        return out, pubs, join_lanes(losses, dev0)
+
+    body = quant_tail if quant_on else fp32_tail
+
+    def tail(x, y, v, g, batch_last, keys_last, key_q, active=None, W=None):
+        ws = shard_weights(W)
+        out, pubs, loss_last = body(
+            *(_as_shards(mesh, t) for t in (x, y, v, g, batch_last,
+                                            keys_last)),
+            key_q, gated(active), ws)
+        return _from_shards(mesh, out), _from_shards(mesh, pubs), loss_last
+
+    tail.tables = tabs
+    return tail
+
+
+def _penultimate(y: Params, v: Params, g: Params, et):
+    v1 = {n: et[1] * v[n].to(torch.float32)
+          - et[0] * g[n].to(torch.float32) for n in y}
+    y1 = {n: (y[n].to(torch.float32) + v1[n]).to(y[n].dtype) for n in y}
+    return y1, v1
+
+
+def _deferred(mixed: Params, v1: Params, gK: Params, et) -> Params:
+    return {n: (mixed[n].to(torch.float32) + et[1] * v1[n]
+                - et[0] * gK[n].to(torch.float32)).to(mixed[n].dtype)
+            for n in mixed}
+
+
+def _dense_fused_tail(loss_fn, quant, W, device, gate, mesh, et) -> Callable:
+    """:func:`make_fused_tail` without a plan: the dense reference, on the
+    gathered lanes of a mesh."""
+    quant_on = quant is not None and quant.enabled
+    devs = _mesh_devices(mesh) if mesh is not None else [
+        resolve_device(device)]
+    dev = devs[0]
+    W0 = None if W is None else _device_w(W, dev)
+
+    def dense_tail(x, y, v, g, batch_last, keys_last, key_q, active=None,
+                   W=None):
+        Wr = W0 if W is None else _device_w(W, dev)
+        if Wr is None:
+            raise ValueError("the dense fused tail needs W")
+        act = None
+        if gate:
+            if active is None:
+                raise ValueError("a gated tail needs the round's active "
+                                 "mask")
+            act = _on(active, dev, "active")
             y, v, g = _gate_tail(act, x, y, v, g)
-        layout = layout_for(x)
-        y1, v1 = penultimate(y, v, g)
-        z = layout.flatten_f32(y1)               # [m, n]
+        y1, v1 = _penultimate(y, v, g, et)
         loss_last, gK = loss_and_grad(loss_fn, y1, batch_last, keys_last)
         if act is not None:
             gK = _scale_by(gK, act)
-        acc = w_t[:, 0, None] * z
-        for j in range(1, src_t.shape[0]):
-            acc = acc + w_t[:, j, None] * z[src_t[j].long()]
-        return deferred(layout.unflatten(acc), v1, gK), y1, loss_last
+        mixed = (_mix_dense_quantized(Wr, x, y1, quant, key_q)
+                 if quant_on else mix_dense(Wr, y1))
+        return _deferred(mixed, v1, gK, et), y1, loss_last
 
-    def quant_tail(x, y, v, g, batch_last, keys_last, key_q, active=None,
-                   W=None):
-        w_t = weights_of(W)
-        act = gated(active)
-        layout = layout_for(x)
-        X = layout.to_planar_stacked(x)                  # [m, per, W]
-        y2d = layout.to_planar_stacked(y)
-        v2d = layout.to_planar_stacked(v)
-        g2d = layout.to_planar_stacked(g)
-        if act is not None:
-            am = act[:, None, None]
-            y2d = torch.where(am > 0, y2d, X)
-            v2d = v2d * am
-            g2d = g2d * am
-        # Scales of the RESULTING delta, in B4's expression order.
-        delta = (y2d + (theta_f * v2d - eta_f * g2d)) - X
-        scales = layout.leaf_scales(delta, quant)        # [m, n_leaves]
-        keys = None
-        if quant.stochastic:     # B4 draws the noise from the keys
-            keys = _quant_leaf_keys(_key_on(key_q, X.device),
-                                    layout.n_leaves, m)
-        y_out, v_out, words = layout.encode_momentum(
-            y2d, v2d, g2d, X, scales, et, quant, keys=keys)
-        y_pub = layout.from_planar_stacked(y_out)
-        loss_last, gK = loss_and_grad(loss_fn, y_pub, batch_last, keys_last)
-        gK2d = layout.to_planar_stacked(gK)
-        if act is not None:
-            gK2d = gK2d * act[:, None, None]
-        base = (_weighted_replica_base(X, w_t, src_t)
-                if quant.delta_mode == "lemma5" else X)
-        out = layout.decode_apply_momentum(base, words, scales, w_t, src_t,
-                                           v_out, gK2d, et, quant)
-        return layout.from_planar_stacked(out), y_pub, loss_last
+    if mesh is None:
+        return dense_tail
 
-    return quant_tail if quant_on else fp32_tail
+    def dense_mesh_tail(xs, ys, vs, gs, batch_last, keys_last, key_q,
+                        active=None, W=None):
+        x_next, y_pub, loss_last = dense_tail(
+            *(join_lanes(t, dev) for t in (xs, ys, vs, gs, batch_last,
+                                           keys_last)),
+            key_q, active, W)
+        return (split_lanes(x_next, devs), split_lanes(y_pub, devs),
+                loss_last)
+
+    return dense_mesh_tail
+
+
+def _encode_tail(layout: WireLayout, x: Params, y: Params, v: Params,
+                 g: Params, act: torch.Tensor | None, quant: QuantConfig,
+                 et, keys: torch.Tensor | None):
+    """The fused tail's send side over stacked lanes (B4): inactive lanes
+    (``act`` [lanes] f32, None for none) gated to y = x, v = g = 0, the
+    scales of the resulting delta in B4's expression order, then the
+    penultimate step applied and the words emitted in one pass. Returns
+    (X, words, scales, y', v')."""
+    X = layout.to_planar_stacked(x)                      # [lanes, per, W]
+    y2d = layout.to_planar_stacked(y)
+    v2d = layout.to_planar_stacked(v)
+    g2d = layout.to_planar_stacked(g)
+    if act is not None:
+        am = act[:, None, None]
+        y2d = torch.where(am > 0, y2d, X)
+        v2d = v2d * am
+        g2d = g2d * am
+    delta = (y2d + (et[1] * v2d - et[0] * g2d)) - X
+    scales = layout.leaf_scales(delta, quant)            # [lanes, nl]
+    y_out, v_out, words = layout.encode_momentum(
+        y2d, v2d, g2d, X, scales, et, quant, keys=keys)
+    return X, words, scales, y_out, v_out
+
+
+def _decode_tail(layout: WireLayout, loss_fn, y_out, v_out, act, batch,
+                 keys_last, base, words, scales, w, src, quant, et):
+    """The fused tail's receive side over stacked lanes: the last
+    gradient at the published y' (zero on inactive lanes), then B5 mixes
+    the streams of ``words``/``scales`` (the rows ``src`` indexes) onto
+    ``base`` and applies the deferred step. Returns (x', y', losses)."""
+    y_pub = layout.from_planar_stacked(y_out)
+    loss_last, gK = loss_and_grad(loss_fn, y_pub, batch, keys_last)
+    gK2d = layout.to_planar_stacked(gK)
+    if act is not None:
+        gK2d = gK2d * act[:, None, None]
+    out = layout.decode_apply_momentum(base, words, scales, w, src, v_out,
+                                       gK2d, et, quant)
+    return layout.from_planar_stacked(out), y_pub, loss_last
 
 
 def _make_cycle_mixer(schedule: TopologySchedule, quant: QuantConfig | None,
-                      dev: torch.device) -> Callable:
+                      dev: torch.device, mesh=None,
+                      placement=None) -> Callable:
     """The plan realization of a cycle: each member's static plan (its
     own support, baked weights), their tables stacked and padded to the
     largest K with identity streams of weight 0 (after the member's own
     streams, so its combination order is its plan's), and the member
     picked by ``t mod n`` — a host int, or a device tensor in a captured
     round: one graph holds every member, where the reference switches
-    between per-member programs."""
-    tables = [_PlanTables(p, dev) for p in schedule.gossip_plans()]
-    k_max = max(t.src.shape[0] for t in tables)
+    between per-member programs.
+
+    On a client mesh (members placed alike when ``placement`` is given)
+    a host-int round runs its member's own transfers only, as the
+    reference's switch does; a device-tensor round (a captured graph)
+    issues every member's transfers, each into rows of its own, and reads
+    only its member's rows, so the result is the same."""
+    plans = schedule.gossip_plans()
+    if placement is not None:
+        plans = [p.placed(placement) for p in plans]
     m = schedule.m
-    ident = torch.arange(m, dtype=torch.int32, device=dev)
-    src_all = torch.stack([torch.cat([t.src, ident.expand(
-        k_max - t.src.shape[0], m)]) for t in tables])       # [n, K, m]
-    w_all = torch.stack([torch.cat([t.static, t.static.new_zeros(
-        m, k_max - t.static.shape[1])], dim=1) for t in tables])
-    n = len(tables)
     ones = schedule.tables(dev)["ones"]
-    ex = _make_plan_exec(m, quant)
+    n = len(plans)
+    devs, m_local = _shards(mesh, dev, m, "sparse mixer")
+    k_max = max(len(_live_steps(p)) + 1 for p in plans)
+    union = _ShardTables(plans, devs, m_local)
+    lane = _lane_tensor(plans[0], devs[0])
+    ex_union = _make_exec(union, m, quant, lane)
+    each = ex_each = None
+    if union.transfers:
+        each = [_ShardTables([p], devs, m_local, k_pad=k_max) for p in plans]
+        ex_each = [_make_exec(t, m, quant, lane) for t in each]
 
-    def mixer(x: Params, z: Params, key, t):
-        return ex(x, z, _at(w_all, t, n), _at(src_all, t, n), key), ones
+    def mixer(x, z, key, t):
+        xs, zs = _as_shards(mesh, x), _as_shards(mesh, z)
+        if each is None or isinstance(t, torch.Tensor):
+            out = ex_union(xs, zs, [_at(w, t, n) for w in union.static],
+                           [_at(s, t, n) for s in union.src], key)
+        else:
+            i = int(t) % n
+            out = ex_each[i](xs, zs, each[i].static, each[i].src, key)
+        return _from_shards(mesh, out), ones
 
+    mixer.tables = union
     return mixer
 
 
-def _schedule_plan(schedule: TopologySchedule, cfg: MixerConfig
-                  ) -> GossipPlan | None:
+def _schedule_plan(schedule: TopologySchedule, cfg: MixerConfig, mesh=None
+                   ) -> GossipPlan | None:
     """The support plan a schedule's rounds run on (impl ``"sparse"``,
     which ``"auto"`` picks), or None for the dense reference."""
     if cfg.impl not in ("auto", "dense", "sparse"):
         raise ValueError("time-varying schedules support impl 'dense', "
                          f"'sparse' or 'auto', got impl={cfg.impl!r}")
-    return (schedule.gossip_plan() if cfg.resolved_impl(schedule) == "sparse"
-            else None)
+    return (schedule.gossip_plan()
+            if cfg.resolved_impl(schedule, mesh) == "sparse" else None)
 
 
 def make_scheduled_mixer(schedule: TopologySchedule, cfg: MixerConfig,
-                         device=None) -> Callable:
+                         device=None, *, mesh=None,
+                         placement=None) -> Callable:
     """Build mixer(x, z, key, t) -> (x', active) for a time-varying
     topology: ``(W_t, active, key_q) = schedule.round_event(key, t)`` on
     the device, inactive clients' z gated back to x, then gossip with
@@ -575,47 +1059,113 @@ def make_scheduled_mixer(schedule: TopologySchedule, cfg: MixerConfig,
     int or a 0-dim device tensor. The schedule's tables go to the device
     here, once.
 
+    On a client ``mesh`` x and z are lists of shard dicts and the device
+    is the mesh's first. ``placement`` (a ``gossip_plan.Placement``,
+    sparse only) runs the support plan placed: client state lives in lane
+    order, so the schedule's client-order ``active`` is gathered to lane
+    order, for the gate and in the returned pair.
+
     As in the reference, the ``eq7`` recursion is only stable for PSD
     W_t, which a sampled Metropolis W_t need not be: prefer ``lemma5``.
     """
-    dev = resolve_device(device)
+    dev = (_mesh_devices(mesh)[0] if mesh is not None
+           else resolve_device(device))
     schedule.tables(dev)
-    plan = _schedule_plan(schedule, cfg)
+    plan = _schedule_plan(schedule, cfg, mesh)
+    if placement is not None and plan is None:
+        impl = cfg.resolved_impl(schedule, mesh)
+        raise ValueError(f"placement requires the sparse backend, got "
+                         f"impl={impl!r}")
+    if placement is not None and mesh is None:
+        raise ValueError("placement needs a usable client mesh (the dense "
+                         "fallback has no lanes to place)")
     if plan is not None and schedule.kind == "cycle":
-        return _make_cycle_mixer(schedule, cfg.quant, dev)
+        return _make_cycle_mixer(schedule, cfg.quant, dev, mesh=mesh,
+                                 placement=placement)
+    if plan is not None and placement is not None:
+        plan = plan.placed(placement)
     ev = make_event_mixer(schedule.m, quant=cfg.quant, plan=plan,
-                          gate=schedule.gates_participation, device=dev)
+                          gate=schedule.gates_participation, device=dev,
+                          mesh=mesh)
+    perm = (None if placement is None or placement.is_identity else
+            torch.as_tensor(placement.perm.astype(np.int64), device=dev))
 
-    def mixer(x: Params, z: Params, key: torch.Tensor, t):
+    def mixer(x, z, key: torch.Tensor, t):
         W_t, active, key_q = schedule.round_event(_key_on(key, dev), t)
+        if perm is not None:
+            active = active[perm]
         return ev(x, z, W_t, active, key_q), active
 
+    mixer.tables = getattr(ev, "tables", None)
     return mixer
 
 
 def make_mixer(spec: MixingSpec | TopologySchedule, cfg: MixerConfig,
-               device=None) -> Callable:
+               device=None, *, mesh=None, placement=None) -> Callable:
     """Return mixer(x_stacked, z_stacked, key=None, t=None) -> x_next for
-    a static spec. The one device is a one-shard client mesh: ``"auto"``
-    on a ring (a torus) resolves to ``"ring"`` (``"torus"``), the plan
-    realization; ``"dense"`` stays available as the second oracle.
+    a static spec. Without a mesh the one device is a one-shard client
+    mesh: ``"auto"`` on a ring (a torus) resolves to ``"ring"``
+    (``"torus"``), the plan realization; ``"dense"`` stays available as
+    the second oracle.
+
+    On a client ``mesh`` (x and z lists of shard dicts) the sparse impls
+    run the block realization, and ``placement`` (from
+    ``compute_placement``, sparse impls only) runs the plan placed, with
+    the callers holding state in lane order. As in the reference, a
+    sparse impl on a mesh that does not fit raises, but an explicit
+    quantized torus falls back to the dense reference with a warning.
 
     A :class:`TopologySchedule` returns the time-varying mixer(x, z, key,
     t) -> (x', active) of :func:`make_scheduled_mixer`."""
     if isinstance(spec, TopologySchedule):
-        return make_scheduled_mixer(spec, cfg, device=device)
+        return make_scheduled_mixer(spec, cfg, device=device, mesh=mesh,
+                                    placement=placement)
     if not isinstance(spec, MixingSpec):
         raise TypeError(f"expected a MixingSpec or a TopologySchedule, got "
                         f"{type(spec).__name__}")
-    impl = cfg.resolved_impl(spec)
+    impl = cfg.resolved_impl(spec, mesh)
+    quant = cfg.quant
+    if placement is not None and impl not in ("ring", "torus", "sparse"):
+        raise ValueError(
+            f"placement requires a sparse backend, got impl={impl!r}")
     if impl == "ring" and spec.kind == "torus":
         impl = "torus"   # the reference's alias: ring impl on a torus
-    quant = cfg.quant
     if impl in ("ring", "torus", "sparse"):
+        if mesh is not None and _clients_per_shard(mesh, spec.m) is None:
+            if placement is not None:
+                raise ValueError(
+                    "placement needs a usable client mesh (the dense "
+                    f"fallback has no lanes to place): m={spec.m}")
+            if impl == "torus" and quant is not None and quant.enabled:
+                warnings.warn(
+                    "quantized torus mixer without a usable client mesh "
+                    "falls back to the DENSE reference path (all-gather "
+                    "traffic, not 4 transfers); pass a mesh whose shards "
+                    "divide m (a client block per shard) for the sparse "
+                    "backend", UserWarning, stacklevel=2)
+                Wq = _device_w(spec.W, _mesh_devices(mesh)[0])
+
+                def mixer(x, z, key=None, t=None):
+                    return _mix_dense_quantized(Wq, x, z, quant, key)
+                return mixer
+            raise ValueError(
+                f"mixer impl {impl!r} needs a mesh with one client block "
+                f"per shard (m={spec.m}, "
+                f"{np.asarray(mesh.devices).size} shards)")
+        if placement is not None and mesh is None:
+            raise ValueError("placement needs a usable client mesh (the "
+                             "dense fallback has no lanes to place)")
         if impl != "sparse" and spec.kind != impl:
             raise ValueError(f"{impl} mixer needs a {impl} MixingSpec, got "
                              f"kind={spec.kind!r}")
-        return make_plan_mixer(spec.gossip_plan(), quant, device=device)
+        plan = spec.gossip_plan()
+        if placement is not None:
+            plan = plan.placed(placement)
+        return make_plan_mixer(plan, quant, device=device, mesh=mesh)
+    if mesh is not None:
+        return _dense_on_mesh(make_mixer(spec, MixerConfig("dense", quant),
+                                         device=_mesh_devices(mesh)[0]),
+                              mesh)
     Wt = _device_w(spec.W, resolve_device(device))   # once, not per round
     if quant is None or not quant.enabled:
         def mixer(x, z, key=None, t=None):
@@ -629,13 +1179,38 @@ def make_mixer(spec: MixingSpec | TopologySchedule, cfg: MixerConfig,
     return mixer
 
 
-def consensus_distance(stacked: Params) -> torch.Tensor:
+def consensus_distance(stacked: Params | list[Params]) -> torch.Tensor:
     """(1/m) sum_i ||x(i) - xbar||^2 — Lemma 4's left-hand side, summed
-    over leaves in sorted-key order."""
+    over leaves in sorted-key order.
+
+    On a client mesh (a list of shard dicts) no shard's lanes leave it:
+    each shard's f32 lane sum (one model-sized row) goes to the first
+    shard's device, the mean comes back to every shard, and only the
+    shards' scalar sums of squares meet again, as the reference's
+    sharded mean lowers to an all-reduce of partial sums. It agrees with
+    the one-device value to f32 rounding (the sums are grouped by
+    shard), not bitwise; one shard is the one-device computation."""
+    if isinstance(stacked, list) and len(stacked) == 1:
+        stacked = stacked[0]
+    if isinstance(stacked, dict):
+        total = None
+        for name in sorted(stacked):
+            z = stacked[name]
+            zb = z.mean(dim=0, keepdim=True)
+            d = ((z.to(torch.float32) - zb) ** 2).sum() / z.shape[0]
+            total = d if total is None else total + d
+        return total
+    dev0 = next(iter(stacked[0].values())).device
+    m = sum(next(iter(s.values())).shape[0] for s in stacked)
     total = None
-    for name in sorted(stacked):
-        z = stacked[name]
-        zb = z.mean(dim=0, keepdim=True)
-        d = ((z.to(torch.float32) - zb) ** 2).sum() / z.shape[0]
+    for name in sorted(stacked[0]):
+        parts = [s[name] for s in stacked]
+        lane_sum = join_lanes([p.to(torch.float32).sum(dim=0, keepdim=True)
+                               for p in parts], dev0).sum(dim=0,
+                                                          keepdim=True)
+        zb = (lane_sum / m).to(parts[0].dtype)
+        sq = join_lanes([((p.to(torch.float32) - zb.to(p.device)) ** 2)
+                         .sum().reshape(1) for p in parts], dev0).sum()
+        d = sq / m
         total = d if total is None else total + d
     return total

@@ -77,6 +77,35 @@ class Graph:
         """sum_i deg(i) — what the paper's comm-cost formulas count."""
         return int(self.adj.sum())
 
+    def block_boundary_edges(self, clients_per_shard: int,
+                             perm=None) -> int:
+        """Directed edges that CROSS a contiguous client-block boundary
+        when client ``c`` lives on shard ``c // clients_per_shard`` — the
+        only edges the block-sharded sparse backend ships over the wire
+        (intra-block edges are on-device lane gathers). For a ring this
+        is ``2 * n_shards`` regardless of ``m``: the O(n_shards *
+        boundary_degree) scaling that lets ``m`` grow past the device
+        count.
+
+        ``perm`` bills a PLACED layout instead: a lane->client
+        permutation (or a ``gossip_plan.Placement``, whose ``.perm`` is
+        used) under which client ``perm[p]`` occupies lane ``p``, i.e.
+        shard ``p // clients_per_shard`` — the cut ``--placement
+        partition`` actually ships."""
+        if clients_per_shard < 1 or self.m % clients_per_shard:
+            raise ValueError(f"clients_per_shard={clients_per_shard} "
+                             f"must divide m={self.m}")
+        if perm is None:
+            shard = np.arange(self.m) // clients_per_shard
+        else:
+            p = np.asarray(getattr(perm, "perm", perm), dtype=np.int64)
+            if not np.array_equal(np.sort(p), np.arange(self.m)):
+                raise ValueError("perm must be a permutation of "
+                                 f"range({self.m})")
+            shard = np.empty(self.m, dtype=np.int64)
+            shard[p] = np.arange(self.m) // clients_per_shard
+        return int((self.adj & (shard[:, None] != shard[None, :])).sum())
+
     def is_connected(self) -> bool:
         m = self.m
         seen = np.zeros(m, dtype=bool)

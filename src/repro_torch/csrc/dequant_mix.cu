@@ -18,9 +18,15 @@
 //              + sum_k weight[c,k] * (field_i(words[src[k,c], w]) - 2^(b-1))
 //                                   * sblk[src[k,c], w / 512]
 // in f32, own stream first (src row 0 is the identity), then the plan
-// steps in order — the accumulation order of the JAX kernel. B5 adds the
-// round's deferred heavy-ball step (theta * v - eta * g) to the f32
-// accumulator before the store. B7 is the per-tensor form over one
+// steps in order — the accumulation order of the JAX kernel. words and
+// sblk hold R >= m rows: on one device R = m (every client's own
+// stream); on a shard of a client mesh the shard's m_local own rows come
+// first, then the boundary rows it received, and src indexes the whole
+// table, so the intra-shard gathers and the received lanes are entries
+// of one table. A src entry outside [0, R) is never read: that client's
+// output is NaN (the host checks its tables; a kernel cannot raise). B5
+// adds the round's deferred heavy-ball step (theta * v - eta * g) to the
+// f32 accumulator before the store. B7 is the per-tensor form over one
 // client: out = x + sum_k weight[k] * (field_k - 2^(b-1)) * scale[k] over
 // a [k, W] stream stack. B8 is the ring's k = 3 with the weights (w_self,
 // w_nb, w_nb): own, then left, then right. B7 and B8 read x as the flat
@@ -238,8 +244,8 @@ __device__ __forceinline__ void mix_columns(
     const float* __restrict__ base, const uint32_t* __restrict__ words,
     const float* __restrict__ sblk, const float* __restrict__ weights,
     const int* __restrict__ src, const float* __restrict__ v,
-    const float* __restrict__ g, float* __restrict__ out, int m, int K,
-    int W, float eta, float theta) {
+    const float* __restrict__ g, float* __restrict__ out, int m, int R,
+    int K, int W, float eta, float theta) {
   constexpr int PER = 32 / BITS;
   const int c = blockIdx.y;
   const int w = kCols * (blockIdx.x * kThreads + threadIdx.x);
@@ -257,13 +263,18 @@ __device__ __forceinline__ void mix_columns(
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc[j][i] = b[j];
   }
+  bool bad = false;
   for (int k0 = 0; k0 < K; k0 += kStreams) {
     uint4 wd[kStreams];
     float s[kStreams], wk[kStreams];
 #pragma unroll
     for (int q = 0; q < kStreams; ++q) {
       if (k0 + q < K) {
-        const int sc = src[(k0 + q) * m + c];
+        int sc = src[(k0 + q) * m + c];
+        if (sc < 0 || sc >= R) {
+          bad = true;
+          sc = 0;
+        }
         wd[q] = *reinterpret_cast<const uint4*>(
             words + static_cast<size_t>(sc) * W + w);
         s[q] = sblk[static_cast<size_t>(sc) * n_blocks + blk];
@@ -284,6 +295,10 @@ __device__ __forceinline__ void mix_columns(
   for (int i = 0; i < PER; ++i) {
     const size_t ai = at + static_cast<size_t>(i) * W;
     float r[kCols] = {acc[0][i], acc[1][i], acc[2][i], acc[3][i]};
+    if (bad) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) r[j] = __uint_as_float(0x7fc00000u);
+    }
     if (MOMENTUM) {
       float vs[kCols], gs[kCols];
       unpack4(*reinterpret_cast<const float4*>(v + ai), vs);
@@ -305,9 +320,9 @@ __global__ void dequant_mix_buffer_kernel(const float* __restrict__ base,
                                           const float* __restrict__ weights,
                                           const int* __restrict__ src,
                                           float* __restrict__ out, int m,
-                                          int K, int W) {
+                                          int R, int K, int W) {
   mix_columns<BITS, false>(base, words, sblk, weights, src, nullptr,
-                           nullptr, out, m, K, W, 0.0f, 0.0f);
+                           nullptr, out, m, R, K, W, 0.0f, 0.0f);
 }
 
 template <int BITS>
@@ -315,10 +330,10 @@ __global__ void dequant_mix_momentum_buffer_kernel(
     const float* __restrict__ base, const uint32_t* __restrict__ words,
     const float* __restrict__ sblk, const float* __restrict__ weights,
     const int* __restrict__ src, const float* __restrict__ v,
-    const float* __restrict__ g, float* __restrict__ out, int m, int K,
-    int W, float eta, float theta) {
-  mix_columns<BITS, true>(base, words, sblk, weights, src, v, g, out, m, K,
-                          W, eta, theta);
+    const float* __restrict__ g, float* __restrict__ out, int m, int R,
+    int K, int W, float eta, float theta) {
+  mix_columns<BITS, true>(base, words, sblk, weights, src, v, g, out, m, R,
+                          K, W, eta, theta);
 }
 
 // B7 streams [k0, k0 + g) for one thread's 4 columns [w, w + 4), g <= G:
@@ -441,22 +456,22 @@ dequant_mix_ring_kernel(const float* __restrict__ x,
 template <int BITS>
 void launch(const float* base, const uint32_t* words, const float* sblk,
             const float* weights, const int* src, const float* v,
-            const float* g, float* out, int m, int K, int W, float eta,
-            float theta, cudaStream_t stream) {
+            const float* g, float* out, int m, int R, int K, int W,
+            float eta, float theta, cudaStream_t stream) {
   const dim3 grid((W / kCols + kThreads - 1) / kThreads, m);
   if (v == nullptr) {
     dequant_mix_buffer_kernel<BITS><<<grid, kThreads, 0, stream>>>(
-        base, words, sblk, weights, src, out, m, K, W);
+        base, words, sblk, weights, src, out, m, R, K, W);
   } else {
     dequant_mix_momentum_buffer_kernel<BITS><<<grid, kThreads, 0, stream>>>(
-        base, words, sblk, weights, src, v, g, out, m, K, W, eta, theta);
+        base, words, sblk, weights, src, v, g, out, m, R, K, W, eta, theta);
   }
 }
 
 int dispatch_buffer(const void* base, const void* words, const void* sblk,
                     const void* weights, const void* src, const void* v,
-                    const void* g, void* out, int m, int K, int W, int bits,
-                    float eta, float theta, void* stream) {
+                    const void* g, void* out, int m, int R, int K, int W,
+                    int bits, float eta, float theta, void* stream) {
   const float* b = static_cast<const float*>(base);
   const uint32_t* wd = static_cast<const uint32_t*>(words);
   const float* s = static_cast<const float*>(sblk);
@@ -466,20 +481,21 @@ int dispatch_buffer(const void* base, const void* words, const void* sblk,
   const float* gf = static_cast<const float*>(g);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (W % kLaneBlock || W < kLaneBlock || m < 1 || K < 1)
+  if (W % kLaneBlock || W < kLaneBlock || m < 1 || m > 65535 || R < m ||
+      K < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (bits) {
     case 2:
-      launch<2>(b, wd, s, wt, sr, vf, gf, o, m, K, W, eta, theta, st);
+      launch<2>(b, wd, s, wt, sr, vf, gf, o, m, R, K, W, eta, theta, st);
       break;
     case 4:
-      launch<4>(b, wd, s, wt, sr, vf, gf, o, m, K, W, eta, theta, st);
+      launch<4>(b, wd, s, wt, sr, vf, gf, o, m, R, K, W, eta, theta, st);
       break;
     case 8:
-      launch<8>(b, wd, s, wt, sr, vf, gf, o, m, K, W, eta, theta, st);
+      launch<8>(b, wd, s, wt, sr, vf, gf, o, m, R, K, W, eta, theta, st);
       break;
     case 16:
-      launch<16>(b, wd, s, wt, sr, vf, gf, o, m, K, W, eta, theta, st);
+      launch<16>(b, wd, s, wt, sr, vf, gf, o, m, R, K, W, eta, theta, st);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -521,32 +537,36 @@ void launch_plan(unsigned grid, cudaStream_t st,
 
 }  // namespace
 
-// B2. base, out: f32 [m, 32/bits, W] and words: u32 [m, W], each 16-byte
-// aligned, W a multiple of 512; sblk: f32 [m, W/512]; weights: f32 [m, K];
-// src: int32 [K, m]. Returns cudaGetLastError().
+// B2. base, out: f32 [m, 32/bits, W] and words: u32 [R, W], each 16-byte
+// aligned, W a multiple of 512; sblk: f32 [R, W/512]; weights: f32 [m, K];
+// src: int32 [K, m] with entries in [0, R), R >= m rows of words and
+// scales. Returns cudaGetLastError() (cudaErrorInvalidValue for a bad
+// shape: W, m outside [1, 65535], R < m, K < 1, or bits).
 extern "C" int dequant_mix_buffer(const void* base, const void* words,
                                   const void* sblk, const void* weights,
-                                  const void* src, void* out, int m, int K,
-                                  int W, int bits, void* stream) {
+                                  const void* src, void* out, int m, int R,
+                                  int K, int W, int bits, void* stream) {
   return dispatch_buffer(base, words, sblk, weights, src, nullptr, nullptr,
-                         out, m, K, W, bits, 0.0f, 0.0f, stream);
+                         out, m, R, K, W, bits, 0.0f, 0.0f, stream);
 }
 
-// B5. As B2, plus v, g: f32 [m, 32/bits, W], 16-byte aligned (the
-// deferred step) and runtime eta, theta. Returns cudaGetLastError().
+// B5. As B2 (R rows of words and scales), plus v, g: f32 [m, 32/bits, W],
+// 16-byte aligned (the deferred step) and runtime eta, theta. Returns
+// cudaGetLastError().
 extern "C" int dequant_mix_momentum_buffer(const void* base,
                                            const void* words,
                                            const void* sblk,
                                            const void* weights,
                                            const void* src, const void* v,
                                            const void* g, void* out, int m,
-                                           int K, int W, int bits, float eta,
-                                           float theta, void* stream) {
+                                           int R, int K, int W, int bits,
+                                           float eta, float theta,
+                                           void* stream) {
   if (v == nullptr || g == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch_buffer(base, words, sblk, weights, src, v, g, out, m, K, W,
-                         bits, eta, theta, stream);
+  return dispatch_buffer(base, words, sblk, weights, src, v, g, out, m, R, K,
+                         W, bits, eta, theta, stream);
 }
 
 // B7. x: f32 [n], any 4-byte alignment, read as its planar [32/bits, W]

@@ -19,11 +19,16 @@ launch with no pad and no slice; the Pallas-shaped wrappers call the
 same C entries with n = per * W.
 
 Unlike the Pallas kernels, which take an already gathered ``[k, W]``
-stream stack per client, B2 and B5 take every client's own words once plus
-the plan's ``src`` table and gather neighbours' words and scales
-themselves — the index gather that stands in for the ``ppermute`` on one
-device. On CPU tensors a wrapper runs its plain version; on CUDA tensors
-it launches its kernel or raises.
+stream stack per client, B2 and B5 take a table of R >= m rows of words
+and scales plus the plan's ``src`` table [K, m] into it, and gather each
+client's streams themselves: on one device the table is every client's
+own words (R = m) and the gather stands in for the ``ppermute``; on a
+shard of a client mesh it is the shard's own rows followed by the
+boundary rows it received, so no combine scatter is needed. An entry of
+``src`` outside [0, R) is refused on the host where the table is built
+(and by the plain versions); the kernel never reads it and writes NaN for
+that client instead. On CPU tensors a wrapper runs its plain version; on
+CUDA tensors it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -37,8 +42,8 @@ from .ref import (LANE_BLOCK, dequant_mix_buffer_ref,
                   dequant_mix_momentum_buffer_ref, dequant_mix_plan_ref,
                   dequant_mix_ref, pad_planar, planar_pad_len)
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_ARGTYPES_MOMENTUM = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES_MOMENTUM = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 _ARGTYPES_PLAN = ([ctypes.c_void_p] * 5 + [ctypes.c_int64]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -47,12 +52,27 @@ _ARGTYPES_RING = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2
                   + [ctypes.c_void_p])
 
 
+def check_rows(src: torch.Tensor, rows: int, m: int) -> None:
+    """Refuse a table of fewer than m rows, or a ``src`` [K, m] entry
+    outside [0, rows) — read on the host, so only for a CPU tensor (the
+    mixers check their numpy tables once, where they build them)."""
+    if rows < m:
+        raise ValueError(f"words and scales need R >= m rows: R={rows}, "
+                         f"m={m}")
+    if src.device.type == "cpu" and src.numel() and (
+            int(src.min()) < 0 or int(src.max()) >= rows):
+        raise ValueError(f"src entries must lie in [0, {rows}), got "
+                         f"[{int(src.min())}, {int(src.max())}]")
+
+
 def dequant_mix_buffer_plain(base: torch.Tensor, words: torch.Tensor,
                              block_scales: torch.Tensor,
                              weights: torch.Tensor, src: torch.Tensor,
                              bits: int) -> torch.Tensor:
     """Plain version of :func:`dequant_mix_buffer`: gather the streams
-    through ``src``, then ``ref.dequant_mix_buffer_ref``."""
+    through ``src`` from the R-row table, then
+    ``ref.dequant_mix_buffer_ref``."""
+    check_rows(src, words.shape[0], base.shape[0])
     idx = src.to(torch.int64).t()                      # [m, K]
     return dequant_mix_buffer_ref(base, words[idx], block_scales[idx],
                                   weights, bits)
@@ -70,11 +90,15 @@ def _check_operands(base, words, block_scales, weights, src, bits) -> None:
     if not 0 < m < 65536:
         raise ValueError(f"client count {m} out of range")
     k = src.shape[0]
+    rows = words.shape[0] if words.dim() == 2 else -1
+    if not m <= rows < 2 ** 31:
+        raise ValueError(f"words need R >= m = {m} rows, got "
+                         f"{tuple(words.shape)}")
     dev = base.device
     native.require(base, "base", torch.float32)
-    native.require(words, "words", torch.int32, (m, w), dev)
+    native.require(words, "words", torch.int32, (rows, w), dev)
     native.require(block_scales, "block_scales", torch.float32,
-                   (m, w // LANE_BLOCK), dev)
+                   (rows, w // LANE_BLOCK), dev)
     native.require(weights, "weights", torch.float32, (m, k), dev)
     native.require(src, "src", torch.int32, (k, m), dev)
     native.require_aligned(base, "base")
@@ -87,11 +111,12 @@ def dequant_mix_buffer(base: torch.Tensor, words: torch.Tensor,
     """out[c] = base[c] + sum_k weights[c, k] * deq(words[src[k, c]],
     block_scales[src[k, c]]), accumulated in f32 in k order.
 
-    base: f32 [m, per, W]; words: int32 [m, W] (every client's own
-    packed stream); block_scales: f32 [m, W // 512]; weights: f32 [m, K];
-    src: int32 [K, m] — row 0 is the identity (own stream first), row k
-    the plan step client c receives from. On CUDA, base and words must be
-    16-byte aligned. Returns f32 [m, per, W].
+    base: f32 [m, per, W]; words: int32 [R, W], R >= m (every client's
+    own packed stream, then on a mesh shard the received boundary rows);
+    block_scales: f32 [R, W // 512]; weights: f32 [m, K]; src: int32
+    [K, m] into the R rows — row 0 the client's own stream, row k the
+    stream of plan step k. On CUDA, base and words must be 16-byte
+    aligned. Returns f32 [m, per, W].
     """
     if base.device.type == "cpu":
         return dequant_mix_buffer_plain(base, words, block_scales, weights,
@@ -103,8 +128,8 @@ def dequant_mix_buffer(base: torch.Tensor, words: torch.Tensor,
     fn = native.function("dequant_mix", "dequant_mix_buffer", _ARGTYPES)
     with torch.cuda.device(base.device):
         rc = fn(base.data_ptr(), words.data_ptr(), block_scales.data_ptr(),
-                weights.data_ptr(), src.data_ptr(), out.data_ptr(), m, k, w,
-                bits, native.stream_of(base))
+                weights.data_ptr(), src.data_ptr(), out.data_ptr(), m,
+                words.shape[0], k, w, bits, native.stream_of(base))
     native.check_launch(rc, "dequant_mix_buffer")
     return out
 
@@ -115,7 +140,9 @@ def dequant_mix_momentum_buffer_plain(base: torch.Tensor, words: torch.Tensor,
                                       v: torch.Tensor, g: torch.Tensor, et,
                                       bits: int) -> torch.Tensor:
     """Plain version of :func:`dequant_mix_momentum_buffer`: gather the
-    streams through ``src``, then ``ref.dequant_mix_momentum_buffer_ref``."""
+    streams through ``src`` from the R-row table, then
+    ``ref.dequant_mix_momentum_buffer_ref``."""
+    check_rows(src, words.shape[0], base.shape[0])
     idx = src.to(torch.int64).t()                      # [m, K]
     return dequant_mix_momentum_buffer_ref(base, words[idx], block_scales[idx],
                                            weights, v, g, et, bits)
@@ -129,7 +156,8 @@ def dequant_mix_momentum_buffer(base: torch.Tensor, words: torch.Tensor,
     """:func:`dequant_mix_buffer` plus the deferred heavy-ball step:
     ``out[c] = [base[c] + sum_k weights[c, k] * deq(words[src[k, c]])]
     + (theta*v[c] - eta*g[c])``, the momentum term added last to the f32
-    accumulator. v, g: f32 [m, per, W]; et = (eta, theta)."""
+    accumulator. words and block_scales hold R >= m rows, as for B2. v,
+    g: f32 [m, per, W]; et = (eta, theta)."""
     if base.device.type == "cpu":
         return dequant_mix_momentum_buffer_plain(base, words, block_scales,
                                                  weights, src, v, g, et, bits)
@@ -145,7 +173,7 @@ def dequant_mix_momentum_buffer(base: torch.Tensor, words: torch.Tensor,
     with torch.cuda.device(base.device):
         rc = fn(base.data_ptr(), words.data_ptr(), block_scales.data_ptr(),
                 weights.data_ptr(), src.data_ptr(), v.data_ptr(),
-                g.data_ptr(), out.data_ptr(), m, k, w, bits,
+                g.data_ptr(), out.data_ptr(), m, words.shape[0], k, w, bits,
                 float(np.float32(et[0])), float(np.float32(et[1])),
                 native.stream_of(base))
     native.check_launch(rc, "dequant_mix_momentum_buffer")

@@ -6,18 +6,26 @@
 
 It trains a registered architecture on synthetic LM data (the reduced
 config: as in the reference, ``--reduced`` is always on; the full-width
-config goes through the same ``_run_resident`` / ``run_pooled`` with an
-unreduced ``ArchConfig``, as ``chip_smoke.py`` does). On one card every
-client lane lives on the one device: ``--mixer-impl auto`` and ``sparse``
-run the plan realization (the reference's sparse executor on a one-shard
-client mesh, ``--clients-per-shard m``: B1/B2 on the quantized wire),
-``dense`` the tensordot reference. A layout over more than one shard
-(``--clients-per-shard`` below m, ``--model-parallel > 1``) and
-``--placement partition`` are the multi-card port's (ROADMAP A17) and
-raise. ``--wire`` is kept for the reference's CLI: ``auto`` and
-``planar`` run the planar buffer kernels (B1/B2), the card's one codec,
-and ``seq`` (the reference's XLA lowering of the same math) raises.
-``--device`` picks the card (the default) or ``cpu``.
+config goes through the same ``run_resident`` / ``run_pooled`` with an
+unreduced ``ArchConfig``, as ``chip_smoke.py`` does).
+
+By default every client lane lives on the one device: ``--mixer-impl
+auto`` and ``sparse`` run the plan realization (the reference's sparse
+executor on a one-shard client mesh: B1/B2 on the quantized wire),
+``dense`` the tensordot reference. ``--clients-per-shard`` below
+``--clients`` asks for a 1D client mesh of ``m / clients_per_shard``
+cards (``launch.mesh.make_client_mesh``), as the reference asks for
+devices: with too few cards ``auto`` falls back to the dense reference
+with the reference's warning and ``sparse`` exits. ``--placement
+partition`` relabels lanes by ``compute_placement`` on such a mesh.
+``run_resident(args, cfg, log, tracer, mesh=...)`` takes a mesh already
+built — one whose shards share a card (``make_test_mesh``), as the
+tests and ``chip_smoke.py`` run it. ``--model-parallel > 1`` (the 2D
+mesh) is the next slice and raises. ``--wire`` is kept for the
+reference's CLI: ``auto`` and ``planar`` run the planar buffer kernels
+(B1/B2), the card's one codec, and ``seq`` (the reference's XLA lowering
+of the same math) raises. ``--device`` picks the card (the default) or
+``cpu``.
 """
 from __future__ import annotations
 
@@ -227,16 +235,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "plan realization (auto and sparse: the sparse "
                          "executor on one device)")
     ap.add_argument("--clients-per-shard", type=int, default=None,
-                    help="clients per device shard; one card holds one "
-                         "shard, so the only layout is all --clients "
-                         "(the default); fewer is ROADMAP A17")
+                    help="clients per device shard of the sparse backend's "
+                         "client mesh (must divide --clients); the default "
+                         "is all clients on one device; fewer asks for "
+                         "m / clients_per_shard cards")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="model-parallel degree of a 2D (clients, model) "
-                         "mesh; only 1 on one card (ROADMAP A17)")
+                         "mesh; only 1 is ported (the 2D mesh is the next "
+                         "slice)")
     ap.add_argument("--placement", default="contiguous",
                     choices=["contiguous", "partition"],
-                    help="client -> lane placement; partition needs "
-                         "several shards (ROADMAP A17)")
+                    help="client -> lane placement for the sparse backend: "
+                         "contiguous keeps client c on shard "
+                         "c // clients_per_shard; partition runs the "
+                         "graph-partition pass (compute_placement) to cut "
+                         "the boundary edges")
     ap.add_argument("--wire", default="auto",
                     choices=["auto", "seq", "planar"],
                     help="wire codec of the sparse mixer: auto and planar "
@@ -306,23 +319,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args, m: int) -> None:
-    """The layouts one card cannot hold raise, naming the port's item, and
-    so does the reference's second wire codec."""
+    """The 2D mesh raises, naming the next slice, and so does the
+    reference's second wire codec; a shard size that does not divide m
+    exits, as in the reference."""
     if args.model_parallel != 1:
         raise SystemExit(f"--model-parallel {args.model_parallel}: the 2D "
-                         "(clients, model) mesh is not ported yet (ROADMAP "
-                         "A17); one card runs --model-parallel 1")
+                         "(clients, model) mesh is not ported yet (ROADMAP, "
+                         "the next slice); the port runs --model-parallel 1")
     cps = args.clients_per_shard
     if cps is not None and (cps < 1 or m % cps):
         raise SystemExit(f"--clients-per-shard {cps} must be >= 1 and "
                          f"divide --clients {m}")
-    if cps is not None and m // cps > 1:
-        raise SystemExit(f"--clients-per-shard {cps} asks for {m // cps} "
-                         "client shards; one card holds one (all clients), "
-                         "the multi-shard mesh is ROADMAP A17")
-    if args.placement == "partition":
-        raise SystemExit("--placement partition places client blocks over "
-                         "several shards, which is ROADMAP A17")
     if args.wire == "seq":
         raise SystemExit("--wire seq is the reference's XLA lowering of the "
                          "wire codec; the port has one codec, the planar "
@@ -341,38 +348,126 @@ def main(argv=None):
     log.start(config={k: v for k, v in vars(args).items()})
     try:
         if args.pool:
+            if args.placement == "partition":
+                raise SystemExit(
+                    "--placement partition is incompatible with --pool "
+                    "(pooled lanes are cohort slots, not fixed clients, "
+                    "and no O(m^2) support adjacency exists)")
             return run_pooled(args, cfg, log, tracer)
-        return _run_resident(args, cfg, log, tracer)
+        return run_resident(args, cfg, log, tracer,
+                            mesh=_client_mesh(args, args.clients))
     finally:
         if args.trace:
             tracer.save(args.trace)
         log.close()
 
 
-def _run_resident(args, cfg, log, tracer):
-    """Every client resident on the one device: the round step
-    (``core.make_round_step``, or the async engine's event step) on
-    stacked client copies. Returns (state, metrics)."""
+_MESH_FALLBACK = object()    # a mesh was asked for; too few cards
+
+
+def _client_mesh(args, m: int):
+    """The reference's mesh resolution: ``--clients-per-shard`` below m
+    with ``--mixer-impl auto`` or ``sparse`` asks for one card a shard
+    (``make_client_mesh``; none on ``--device cpu``). Returns the mesh,
+    None for the one-device layout, or ``_MESH_FALLBACK`` when ``auto``
+    found too few cards (the run then takes the dense reference, as the
+    reference's does); ``sparse`` with too few cards exits."""
+    cps = args.clients_per_shard
+    if cps is None or m // cps == 1 or args.mixer_impl == "dense":
+        return None
+    from .mesh import make_client_mesh
     dev = resolve_device(args.device)
+    cards = ([torch.device("cuda", i) for i in range(
+        torch.cuda.device_count())] if dev.type == "cuda" else [])
+    mesh = make_client_mesh(m, clients_per_shard=cps,
+                            model_parallel=args.model_parallel,
+                            devices=cards)
+    if mesh is not None:
+        return mesh
+    if args.mixer_impl == "sparse":
+        have = len(cards)
+        raise SystemExit(
+            f"this run needs >= {m // cps} devices ({m // cps} client "
+            f"shards x {args.model_parallel} model columns), this host has "
+            f"{have}; raise --clients-per-shard or lower --model-parallel "
+            "to fit")
+    return _MESH_FALLBACK
+
+
+def run_resident(args, cfg, log, tracer, mesh=None):
+    """Every client resident: the round step (``core.make_round_step``,
+    or the async engine's event step) on stacked client copies, on one
+    device, or on the 1D client ``mesh`` given (its shards may share a
+    card: ``launch.mesh.make_test_mesh``). Returns (state, metrics); on a
+    mesh the state's parameters are a list of shard dicts (lane order
+    under ``--placement partition``)."""
     m = args.clients
+    fallback = mesh is _MESH_FALLBACK
+    if fallback:
+        mesh = None
+    if mesh is not None:
+        if args.mixer_impl == "dense":
+            raise SystemExit("a client mesh runs the sparse backend; drop "
+                             "--mixer-impl dense or the mesh")
+        n_shards = mesh.devices.size
+        if m % n_shards:
+            raise SystemExit(f"--clients {m} does not block over the "
+                             f"mesh's {n_shards} shards")
+        if args.clients_per_shard not in (None, m // n_shards):
+            raise SystemExit(f"--clients-per-shard {args.clients_per_shard}"
+                             f" disagrees with the mesh ({n_shards} shards "
+                             f"of {m // n_shards})")
+        dev = mesh.devices[0]
+    else:
+        dev = resolve_device(args.device)
+    cps = m // mesh.devices.size if mesh is not None else m
     quant = QuantConfig(bits=args.bits) if args.bits < 32 else None
     spec = build_topology(args, m)
     scheduled = isinstance(spec, TopologySchedule)
-    impl = args.mixer_impl
+    impl = ("sparse" if mesh is not None else "dense" if fallback
+            else args.mixer_impl)
     dfed = DFedAvgMConfig(eta=args.eta, theta=args.theta,
                           local_steps=args.local_steps, quant=quant,
                           mixer_impl=impl, fuse_round=args.fuse_round)
+    sparse = dfed.mixer_config().resolved_impl(spec) != "dense"
+    placement = None
+    if args.placement == "partition":
+        if mesh is None:
+            raise SystemExit(
+                "--placement partition needs the sparse backend on a "
+                "client mesh (this run resolved to "
+                f"{'the dense reference' if not sparse else 'one device'}"
+                "); see --mixer-impl / --clients-per-shard")
+        if args.async_gossip:
+            raise SystemExit("--placement partition is incompatible with "
+                             "--async-gossip (client-order lane "
+                             "bookkeeping)")
+        from ..core.gossip_plan import compute_placement
+        support = spec.support_graph() if scheduled else spec.graph
+        placement = compute_placement(support, m // cps)
+        cut0 = support.block_boundary_edges(cps)
+        cut1 = support.block_boundary_edges(cps, perm=placement)
+        log.info(f"placement: partition over {m // cps} shards — directed "
+                 f"boundary edges {cut0} (contiguous) -> {cut1} (placed)")
     if scheduled:
         log.info(f"topology schedule: {spec.name} "
                  f"(E[directed edges/round] = "
                  f"{spec.expected_directed_edges():.1f})")
-    if dfed.mixer_config().resolved_impl(spec) != "dense":
+    if sparse:
         plans = spec.gossip_plans() if scheduled else [spec.gossip_plan()]
         for p in plans:
-            log.info(f"mixer backend: sparse ({p.name}: the plan "
-                     f"realization, {p.n_steps} streams gathered on one "
-                     f"device, {p.num_directed_wire_edges} realized wire "
-                     f"edges per round)")
+            if mesh is not None:
+                bp = p.block_plan(m // cps, placement=placement)
+                log.info(f"mixer backend: sparse ({p.name}: {cps} "
+                         f"clients/shard over {bp.n_shards} shards, "
+                         f"{bp.num_collectives} transfer sub-steps, "
+                         f"{bp.num_wire_lane_slots} boundary wire lanes "
+                         f"per round)")
+            else:
+                log.info(f"mixer backend: sparse ({p.name}: the plan "
+                         f"realization, {p.n_steps} streams gathered on "
+                         f"one device, {p.num_directed_wire_edges} "
+                         f"realized wire edges per round)")
     else:
         log.info("mixer backend: dense (tensordot reference)")
 
@@ -393,13 +488,14 @@ def _run_resident(args, cfg, log, tracer):
                  f"eta_staleness_decay={args.eta_staleness_decay} "
                  f"(rounds are EVENTS)")
     step = make_round_step(loss, dfed, spec, device=dev, async_cfg=acfg,
-                           with_telemetry=args.telemetry)
+                           with_telemetry=args.telemetry, mesh=mesh,
+                           placement=placement)
     if acfg is not None:
-        state = init_async_state(stacked, k_state, acfg.speed)
+        state = init_async_state(stacked, k_state, acfg.speed, mesh=mesh)
     else:
         token = (spec.init_token()
                  if scheduled and spec.is_stateful else None)
-        state = init_round_state(stacked, k_state, token=token)
+        state = init_round_state(stacked, k_state, token=token, mesh=mesh)
     del stacked
 
     d = cfg.n_params()
@@ -437,7 +533,9 @@ def _run_resident(args, cfg, log, tracer):
         if args.ckpt_dir and (t + 1) % args.ckpt_every == 0:
             from ..checkpoint import save_checkpoint
             with tracer.span("round/checkpoint", t=t):
-                save_checkpoint(args.ckpt_dir, t + 1, state)
+                save_checkpoint(args.ckpt_dir, t + 1, state if mesh is None
+                                else state._replace(
+                                    params=mesh.gather(state.params)))
         cadence = t % max(1, args.rounds // 10) == 0 or t == args.rounds - 1
         if log.jsonl is not None or cadence:
             with tracer.span("round/d2h", t=t):

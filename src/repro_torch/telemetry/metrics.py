@@ -60,7 +60,8 @@ Params = dict[str, torch.Tensor]
 
 __all__ = ["QUANT_SAMPLE_LANES", "Telemetry", "client_dim",
            "live_edge_count", "wire_bits_for", "quant_round_telemetry",
-           "sample_lane_ids", "staleness_histogram", "dropped_edge_count",
+           "sample_lane_ids", "shard_sample_ids", "staleness_histogram",
+           "dropped_edge_count",
            "telemetry_host"]
 
 # Lane-sample size the round steps pass to ``quant_round_telemetry``: the
@@ -135,13 +136,60 @@ def sample_lane_ids(m: int, sample_lanes: int | None, device
     """The strided lane sample ``arange(0, m, max(1, m // s))[:s]`` as an
     int64 index tensor on ``device`` (None: every lane). A round step
     builds it once, when it is built: a captured graph reads it."""
+    ids = _sample_ids(m, sample_lanes)
+    return None if ids is None else torch.as_tensor(ids, device=device)
+
+
+def _sample_ids(m: int, sample_lanes: int | None) -> np.ndarray | None:
     if sample_lanes is None or sample_lanes >= m:
         return None
-    ids = np.arange(0, m, max(1, m // sample_lanes))[:sample_lanes]
-    return torch.as_tensor(ids, dtype=torch.int64, device=device)
+    return np.arange(0, m, max(1, m // sample_lanes))[:sample_lanes]
 
 
-def quant_round_telemetry(x: Params, z_eff: Params, quant: QuantConfig,
+def shard_sample_ids(m: int, sample_lanes: int | None, devs
+                     ) -> dict[int, torch.Tensor | None]:
+    """:func:`sample_lane_ids` over a client mesh of ``len(devs)`` shards:
+    {shard: its sampled lanes as local int64 indices on its device},
+    shards without a sampled lane left out; every shard maps to None
+    (all its lanes) when the sample covers m. Built once with the step."""
+    ids = _sample_ids(m, sample_lanes)
+    ml = m // len(devs)
+    if ids is None:
+        return {s: None for s in range(len(devs))}
+    return {s: torch.as_tensor(ids[ids // ml == s] - s * ml, device=d)
+            for s, d in enumerate(devs) if (ids // ml == s).any()}
+
+
+def _lane_stats(x: Params, z_eff: Params, quant: QuantConfig,
+                leaf_keys: torch.Tensor | None, ids: torch.Tensor | None):
+    """The replay of the lanes ``ids`` of stacked ``x`` (every lane for
+    None): per lane the squared error, the Assumption-4 bound and the
+    saturated codes, [n] each, and d."""
+    names = sorted(x)
+    m = x[names[0]].shape[0]
+    err = bound = sat = None
+    d_total = 0
+    for li, name in enumerate(names):
+        delta = (z_eff[name] - x[name]).to(torch.float32).reshape(m, -1)
+        d_l = delta.shape[1]
+        d_total += d_l
+        keys_l = leaf_keys[li] if quant.stochastic else None
+        if ids is not None:
+            delta = delta[ids]
+            keys_l = None if keys_l is None else keys_l[ids]
+        code, s = quantize_int(delta, quant, keys_l)
+        e_l = ((dequantize_int(code, s) - delta) ** 2).sum(dim=-1)
+        sat_l = ((code == quant.qmin) | (code == quant.qmax)).to(
+            torch.float32).sum(dim=-1)
+        b_l = float(np.float32(d_l / 4.0)) * s * s
+        err = e_l if err is None else err + e_l
+        bound = b_l if bound is None else bound + b_l
+        sat = sat_l if sat is None else sat + sat_l
+    return err, bound, sat, d_total
+
+
+def quant_round_telemetry(x: Params | list[Params],
+                          z_eff: Params | list[Params], quant: QuantConfig,
                           key_q: torch.Tensor | None,
                           leaf_keys: torch.Tensor | None = None,
                           lane_weight: torch.Tensor | None = None,
@@ -164,41 +212,50 @@ def quant_round_telemetry(x: Params, z_eff: Params, quant: QuantConfig,
     active mask). ``sample_lanes`` replays only a strided sample of the
     lanes: an int (the ids built here) or the index tensor of
     :func:`sample_lane_ids` (what the round steps pass, built once).
+
+    On a client mesh ``x`` and ``z_eff`` are lists of shard dicts (lane
+    order; ``leaf_keys`` and ``lane_weight`` then in lane order on the
+    first shard's device) and ``sample_lanes`` is None or
+    :func:`shard_sample_ids`'s map: each shard replays its own lanes on
+    its device and only the per-lane sums meet on the first shard's,
+    so the result is bitwise the one device's.
     """
-    names = sorted(x)
-    m = x[names[0]].shape[0]
-    dev = x[names[0]].device
+    shards = x if isinstance(x, list) else [x]
+    z_shards = z_eff if isinstance(z_eff, list) else [z_eff]
+    names = sorted(shards[0])
+    dev = shards[0][names[0]].device
+    widths = [s[names[0]].shape[0] for s in shards]
+    m = sum(widths)
     if leaf_keys is None and quant.stochastic:
         leaf_keys = _quant_leaf_keys(key_q, len(names), m)
-    ids = (sample_lane_ids(m, sample_lanes, dev)
-           if isinstance(sample_lanes, int) else sample_lanes)
-    if ids is not None and lane_weight is not None:
-        lane_weight = lane_weight[ids]
-    m_eff = m if ids is None else ids.shape[0]
-
-    err = bound = sat = None
-    d_total = 0
-    for li, name in enumerate(names):
-        delta = (z_eff[name] - x[name]).to(torch.float32).reshape(m, -1)
-        d_l = delta.shape[1]
-        d_total += d_l
-        keys_l = leaf_keys[li] if quant.stochastic else None
-        if ids is not None:
-            delta = delta[ids]
-            keys_l = None if keys_l is None else keys_l[ids]
-        code, s = quantize_int(delta, quant, keys_l)
-        e_l = ((dequantize_int(code, s) - delta) ** 2).sum(dim=-1)
-        sat_l = ((code == quant.qmin) | (code == quant.qmax)).to(
-            torch.float32).sum(dim=-1)
-        b_l = float(np.float32(d_l / 4.0)) * s * s
-        err = e_l if err is None else err + e_l
-        bound = b_l if bound is None else bound + b_l
-        sat = sat_l if sat is None else sat + sat_l
+    if isinstance(x, list):
+        picks = ({s: None for s in range(len(shards))} if sample_lanes is None
+                 else sample_lanes)
+    else:
+        ids = (sample_lane_ids(m, sample_lanes, dev)
+               if isinstance(sample_lanes, int) else sample_lanes)
+        picks = {0: ids}
+    stats, weights = [], []
+    for s, ids in picks.items():
+        lo = sum(widths[:s])
+        sdev = shards[s][names[0]].device
+        keys = (None if leaf_keys is None else
+                leaf_keys[:, lo:lo + widths[s]].to(sdev))
+        stats.append([t.to(dev) for t in _lane_stats(
+            shards[s], z_shards[s], quant, keys, ids)[:3]])
+        if lane_weight is not None:
+            w = lane_weight[lo:lo + widths[s]]
+            weights.append(w if ids is None else w[ids.to(dev)])
+    d_total = sum(int(math.prod(t.shape[1:])) for t in shards[0].values())
+    err, bound, sat = (stats[0][i] if len(stats) == 1 else
+                       torch.cat([p[i] for p in stats]) for i in range(3))
+    m_eff = err.shape[0]
 
     # Divisions by device tensors: the same IEEE division on the card and
     # on the CPU (a host divisor is a reciprocal multiply on the card).
     if lane_weight is not None:
-        w = lane_weight.to(torch.float32)
+        w = (weights[0] if len(weights) == 1
+             else torch.cat(weights)).to(torch.float32)
         denom = torch.clamp(w.sum(), min=1.0)
         return ((err * w).sum() / denom, (bound * w).sum() / denom,
                 (sat * w).sum() / (denom * float(d_total)))

@@ -1,8 +1,9 @@
 """Port parity: ``repro_torch.core.comm_cost`` against the JAX package's
 ``core/comm_cost.py`` — every bill, the bottleneck, Proposition 3 and the
 ledger, on ring and complete graphs at the 2NN's d = 199 210 and no, 8-
-and 4-bit quantization; the unported schedule (A12) and block-sharded
-(A17) paths raise naming their ROADMAP items.
+and 4-bit quantization; what is neither a spec nor a schedule, a shard
+size that does not divide m, a model-parallel degree below 1 and an
+async bill without its live edges are refused.
 
 Contract: equal (integers, and floats computed by the same expressions).
 """
@@ -115,10 +116,11 @@ def test_unported_paths_raise_naming_their_roadmap_items():
             sched_bits(object(), D)
         with pytest.raises(AttributeError):
             ledger(object(), D, None)
-    with pytest.raises(NotImplementedError, match="A17"):
-        tcc.plan_round_bits(spec.gossip_plan(), D, clients_per_shard=4)
-    with pytest.raises(NotImplementedError, match="A17"):
-        tcc.plan_round_bits(spec.gossip_plan(), D, placement=object())
+    # The block and placed bills are ported (test_torch_placement.py
+    # holds them against the reference's); a shard size that does not
+    # divide m is refused as there.
+    with pytest.raises(ValueError, match="must divide"):
+        tcc.plan_round_bits(spec.gossip_plan(), D, clients_per_shard=5)
     with pytest.raises(ValueError, match="model_parallel"):
         tcc.plan_round_bits(spec.gossip_plan(), D, model_parallel=0)
     with pytest.raises(ValueError, match="live_edges"):

@@ -524,23 +524,98 @@ def test_b2_b5_four_columns_a_thread(host_lib, bits, K, momentum):
     args = (ptr(base), ptr(words), ptr(sblk), ptr(weights), ptr(src))
     if momentum:
         fn = entry(lib, "dequant_mix_momentum_buffer",
-                   [P] * 8 + [ctypes.c_int] * 4 + [F32] * 2 + [P])
-        assert fn(*args, ptr(v), ptr(g), ptr(out), m, K, w, bits, ETA,
+                   [P] * 8 + [ctypes.c_int] * 5 + [F32] * 2 + [P])
+        assert fn(*args, ptr(v), ptr(g), ptr(out), m, m, K, w, bits, ETA,
                   THETA, None) == 0
         want = dequant_mix_momentum_buffer_plain(
             base, words, sblk, weights, src, v, g, (ETA, THETA), bits)
         # W must be a multiple of 512
-        assert fn(*args, ptr(v), ptr(g), ptr(out), m, K, w - 4, bits, ETA,
-                  THETA, None) != 0
+        assert fn(*args, ptr(v), ptr(g), ptr(out), m, m, K, w - 4, bits,
+                  ETA, THETA, None) != 0
     else:
         fn = entry(lib, "dequant_mix_buffer",
-                   [P] * 6 + [ctypes.c_int] * 4 + [P])
-        assert fn(*args, ptr(out), m, K, w, bits, None) == 0
+                   [P] * 6 + [ctypes.c_int] * 5 + [P])
+        assert fn(*args, ptr(out), m, m, K, w, bits, None) == 0
         want = dequant_mix_buffer_plain(base, words, sblk, weights, src,
                                         bits)
-        assert fn(*args, ptr(out), m, K, w - 4, bits, None) != 0
+        assert fn(*args, ptr(out), m, m, K, w - 4, bits, None) != 0
     assert np.array_equal(as_bits(out), as_bits(want))
 
+
+
+def b2_b5_entry(lib, momentum: bool):
+    """B2's or B5's C entry with its argument types (the row count R
+    after m)."""
+    if momentum:
+        return entry(lib, "dequant_mix_momentum_buffer",
+                     [P] * 8 + [ctypes.c_int] * 5 + [F32] * 2 + [P])
+    return entry(lib, "dequant_mix_buffer",
+                 [P] * 6 + [ctypes.c_int] * 5 + [P])
+
+
+@pytest.mark.parametrize("momentum", [False, True], ids=["B2", "B5"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_b2_b5_extended_rows(host_lib, bits, momentum):
+    """A mesh shard's table: its m own rows, then R - m received rows
+    (here copies of other rows, so the same result comes from the m-row
+    table with ``src`` pointing at the originals) — bitwise with the plain
+    version on both tables. The host side refuses R < m (entry and plain
+    version) and a src entry >= R (plain version); the kernel reads no
+    row past R and writes NaN for exactly the clients such an entry
+    feeds."""
+    lib = host_lib("dequant_mix")
+    m, per, w, K = 3, 32 // bits, 2 * ref.LANE_BLOCK, 3
+    rng = np.random.default_rng(7 * bits + momentum)
+    base, v, g = (torch.from_numpy(
+        (sc * rng.normal(size=(m, per, w))).astype(np.float32))
+        for sc in (0.5, 0.01, 0.1))
+    words = random_words(rng, (m, w))
+    sblk = torch.from_numpy(rng.uniform(1e-4, 1e-2, (m, w // ref.LANE_BLOCK))
+                            .astype(np.float32))
+    weights = torch.from_numpy(rng.uniform(0, 0.5, (m, K)).astype(
+        np.float32))
+    picks = np.array([2, 0, 1, 2])            # received rows m .. m + 3
+    words_ext = torch.cat([words, words[picks]])
+    sblk_ext = torch.cat([sblk, sblk[picks]])
+    R = m + len(picks)
+    src_ext = torch.tensor([[0, 1, 2], [3, 4, 1], [5, 0, 6]],
+                           dtype=torch.int32)
+    src_m = torch.tensor([[0, 1, 2], [2, 0, 1], [1, 0, 2]],
+                         dtype=torch.int32)
+    fn = b2_b5_entry(lib, momentum)
+    extra = (ptr(v), ptr(g)) if momentum else ()
+    tail = (ETA, THETA) if momentum else ()
+
+    def call(wd, sb, src, rows, out):
+        return fn(ptr(base), ptr(wd), ptr(sb), ptr(weights), ptr(src),
+                  *extra, ptr(out), m, rows, K, w, bits, *tail, None)
+
+    def plain(wd, sb, src):
+        if momentum:
+            return dequant_mix_momentum_buffer_plain(
+                base, wd, sb, weights, src, v, g, (ETA, THETA), bits)
+        return dequant_mix_buffer_plain(base, wd, sb, weights, src, bits)
+
+    out = np.full((m, per, w), np.nan, np.float32)
+    assert call(words_ext, sblk_ext, src_ext, R, out) == 0
+    want = plain(words, sblk, src_m)
+    assert np.array_equal(as_bits(out), as_bits(want))
+    assert torch.equal(plain(words_ext, sblk_ext, src_ext), want)
+    # R < m: refused by the entry and by the plain version.
+    assert call(words, sblk, src_m, m - 1, out) != 0
+    with pytest.raises(ValueError, match="R >= m"):
+        plain(words[:m - 1], sblk[:m - 1], src_m)
+    # An entry >= R: refused on the host; the kernel feeds client 1 none
+    # of it (no read past R rows) and writes NaN there only.
+    bad = src_ext.clone()
+    bad[2, 1] = R
+    with pytest.raises(ValueError, match="src entries"):
+        plain(words_ext, sblk_ext, bad)
+    out = np.zeros((m, per, w), np.float32)
+    assert call(words_ext, sblk_ext, bad, R, out) == 0
+    assert np.isnan(out[1]).all()
+    keep = [0, 2]
+    assert np.array_equal(as_bits(out[keep]), as_bits(want[keep]))
 
 
 def random_words(rng, shape) -> torch.Tensor:

@@ -51,6 +51,13 @@ def test_the_port_has_modules_to_check():
         assert f"src/repro_torch/{mod}" in names, mod
     for ex in ("train_dfedavgm_lm_torch.py", "serve_consensus_torch.py"):
         assert f"examples/{ex}" in names, ex
+    # The 1D client mesh: block plans and placement, the mesh, the
+    # sharded executor and its callers, the bills, the B2/B5 row count.
+    for mod in ("core/gossip_plan.py", "core/topology.py", "launch/mesh.py",
+                "core/mixing.py", "core/dfedavgm.py", "core/compiled.py",
+                "core/async_gossip.py", "core/comm_cost.py",
+                "launch/train.py", "kernels/dequant_mix.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and len(names) > 20
 
 

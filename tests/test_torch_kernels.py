@@ -23,12 +23,14 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from repro.kernels.dequant_mix import dequant_mix_buffer_pallas  # noqa: E402
+from repro.kernels.dequant_mix import (  # noqa: E402
+    dequant_mix_buffer_pallas, dequant_mix_momentum_buffer_pallas)
 from repro.kernels.momentum_sgd import momentum_sgd_pallas  # noqa: E402
 from repro.kernels.quantize_pack import quantize_pack_buffer_pallas  # noqa: E402,E501
 from repro_torch.kernels import (dequant_mix_buffer, launch_counts,  # noqa: E402,E501
                                  momentum_sgd, quantize_pack_buffer, ref)
-from repro_torch.kernels.dequant_mix import dequant_mix_buffer_plain  # noqa: E402,E501
+from repro_torch.kernels.dequant_mix import (  # noqa: E402
+    dequant_mix_buffer_plain, dequant_mix_momentum_buffer_plain)
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -167,6 +169,51 @@ def test_dequant_mix_plain_is_the_gathered_ref():
         base[c], words[src[:, c].long()], sblk[src[:, c].long()],
         weights[c], bits) for c in range(m)])
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("momentum", [False, True], ids=["B2", "B5"])
+def test_extended_table_plain_vs_pallas(momentum):
+    """B2's and B5's plain versions on a mesh shard's table — its m own
+    rows, then received rows (here copies of own rows stacked below) —
+    against the Pallas kernels in interpret mode fed each client's
+    streams gathered from the m own rows: the same streams in the same
+    order, within one ulp a term."""
+    rng = np.random.default_rng(11 + momentum)
+    m, bits, nb, eta, theta = 3, 8, 2, 0.05, 0.9
+    per, w = 32 // bits, nb * LB
+    base, v, g = (rng.normal(size=(m, per, w)).astype(np.float32)
+                  for _ in range(3))
+    words = rng.integers(0, 2 ** 32, size=(m, w), dtype=np.uint64).astype(
+        np.uint32)
+    sblk = rng.uniform(1e-3, 1e-1, size=(m, nb)).astype(np.float32)
+    weights = rng.uniform(0.1, 0.6, size=(m, 3)).astype(np.float32)
+    picks = np.array([2, 0, 1, 2])                 # rows m .. m + 3
+    src_ext = np.array([[0, 1, 2], [3, 4, 1], [5, 0, 6]], np.int32)
+    src_m = np.concatenate([np.arange(m), picks])[src_ext]
+    t = torch.from_numpy
+    args = (t(base), t(np.concatenate([words, words[picks]]).view(np.int32)),
+            t(np.concatenate([sblk, sblk[picks]])), t(weights), t(src_ext))
+    got = (dequant_mix_momentum_buffer_plain(*args, t(v), t(g),
+                                             (eta, theta), bits)
+           if momentum else dequant_mix_buffer_plain(*args, bits)).numpy()
+    et = jnp.asarray([eta, theta], jnp.float32)
+    for c in range(m):
+        rows = src_m[:, c]
+        jargs = (jnp.asarray(base[c]), jnp.asarray(words[rows]),
+                 jnp.asarray(sblk[rows]), jnp.asarray(weights[c]))
+        scale = mix_scale(base[c], words[rows], sblk[rows], weights[c],
+                          bits)
+        if momentum:
+            want = dequant_mix_momentum_buffer_pallas(
+                *jargs, jnp.asarray(v[c]), jnp.asarray(g[c]), et,
+                bits=bits, interpret=True)
+            scale = (scale + np.abs(theta * v[c].astype(np.float64))
+                     + np.abs(eta * g[c].astype(np.float64)))
+        else:
+            want = dequant_mix_buffer_pallas(*jargs, bits=bits,
+                                             interpret=True)
+        assert_within_ulp(got[c], np.asarray(want), scale,
+                          src_ext.shape[0] + 1 + 2 * momentum)
 
 
 @pytest.mark.parametrize("shape,eta", [((3, 700), 0.05), ((8, 512), 0.1),

@@ -134,8 +134,9 @@ def test_unported_branches_raise():
         make_round_step(t_loss, DFedAvgMConfig(fuse_round=True,
                                                local_steps=1), spec,
                         device="cpu")
-    # Client placement waits for the multi-device slice.
-    with pytest.raises(NotImplementedError, match="A17"):
+    # Client placement relabels a client mesh's lanes: without a mesh it
+    # is refused (test_torch_placement.py runs it on one).
+    with pytest.raises(ValueError, match="client mesh"):
         make_round_step(t_loss, DFedAvgMConfig(), spec, device="cpu",
                         placement=object())
     # The async engine runs now (test_torch_async.py); with a placement
