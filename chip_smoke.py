@@ -178,11 +178,29 @@ Phases (any failure exits non-zero):
    device; B2 and B5 at a shard's extended-table shapes bitwise with
    their plain versions and timed (``--only mesh`` runs it alone;
    ``--only cards``, on a machine with 4 cards, runs the quickstart on
-   ``make_client_mesh`` with one card a shard, eagerly);
-15. print the kernel table (with the floor; B1-B3 with their full-width
+   ``make_client_mesh`` with one card a shard, eagerly, then its 2D arm:
+   ``make_client_mesh(16, clients_per_shard=8, model_parallel=2)``, one
+   card a cell, against the 1D mesh of 2 shards on cuda:0);
+15. "mesh2d": the 2D (clients, model) mesh, 4 shards x 2 columns sharing
+   cuda:0, under the reference's 2NN hand specs: its predictions first;
+   the mixer bitwise with the 1D mesh and the one device in fp32, q8
+   lemma5, q8 eq7 and q8 stochastic; 12 unfused 8-bit stochastic rounds
+   bitwise with the 1D mesh's, eager and captured (B1 = B2 = 8, B3 = 4 K,
+   T2 = 6, T1 = 7 a round, exactly), graph nodes and replay ms of both,
+   a column's shipped bytes exactly the bill's lane slots times a cell's
+   stream; ``bench.timevarying.mesh2d_compare`` at d 65 536 (fp32 ratio
+   exactly 4.0, q8 >= 3.0); SmolLM-135M as registered through the
+   driver on a (2, 2) mesh (``--model-parallel 2``: its log lines,
+   losses bitwise with the 1D run's, peak GiB); B1 through its
+   tensor-noise entry and B2 at a cell's shapes and T2 at SmolLM-135M's
+   largest leaf for 8 keys, bitwise with their plain versions and timed
+   (``--only mesh2d`` runs it alone);
+16. print the kernel table (with the floor; B1-B3 with their full-width
    times, B1-B5 with their mesh launches, B2 and B5 at the mesh's
-   extended table, and a B3 bf16 row) as one JSON line, then the card
-   again, then ``{"ok": true, "device": {...}}`` as the last line.
+   extended table, a B3 bf16 row, and the 2D rows: B1 tensor noise and
+   B2 at a cell, T2 at SmolLM-135M's largest leaf) as one JSON line,
+   then the card again, then ``{"ok": true, "device": {...}}`` as the
+   last line.
 
 It needs one CUDA card and exits non-zero without one.
 """
@@ -5674,8 +5692,12 @@ def cards_phase(dev, flush=None) -> dict:
     clients_per_shard=4)``, one card a shard, so every boundary transfer
     is a copy between two cards, against the one-device round on cuda:0
     (:func:`mesh_rounds`: bitwise, exact launches; eager, since
-    ``capture_step`` refuses a mesh over several cards)."""
-    from repro_torch.launch.mesh import make_client_mesh
+    ``capture_step`` refuses a mesh over several cards); then the 2D arm
+    on ``make_client_mesh(16, clients_per_shard=8, model_parallel=2)``,
+    one card a cell, against the 1D mesh of 2 shards on cuda:0 alone
+    (:func:`mesh2d_rounds`: bitwise, exact launches, eager,
+    ``capture_step`` refused)."""
+    from repro_torch.launch.mesh import make_client_mesh, make_test_mesh
     del flush
     mesh = make_client_mesh(M, clients_per_shard=M // MESH_SHARDS)
     if mesh is None:
@@ -5684,20 +5706,476 @@ def cards_phase(dev, flush=None) -> dict:
     t0 = time.perf_counter()
     rec = {arm: mesh_rounds(dev, arm == "fused", mesh=mesh)
            for arm in ("unfused", "fused")}
+    mesh2 = make_client_mesh(M, clients_per_shard=M // 2, model_parallel=2)
+    rec["2d"] = mesh2d_rounds(dev, mesh2=mesh2, mesh1=make_test_mesh(2, dev))
     rec["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"cards": {
         "devices": [torch.cuda.get_device_name(i)
                     for i in range(torch.cuda.device_count())],
         "round_ms_median": {k: rec[k]["round_ms_median"]
-                            for k in ("unfused", "fused")},
+                            for k in ("unfused", "fused", "2d")},
+        "capture_refused_2d": "capture_refused" in rec["2d"],
         "phase_s": rec["phase_s"]}}), flush=True)
+    return rec
+
+
+# The "mesh2d" phase: the 2D (clients, model) mesh on one card, its cells
+# sharing cuda:0 (``launch.mesh.make_test_mesh(n, model_parallel=mp)``).
+MESH2D_SHARDS, MESH2D_MP = 4, 2
+MESH2D_QUANTS = {"fp32": None,
+                 "q8_lemma5": dict(bits=8, stochastic=False,
+                                   delta_mode="lemma5"),
+                 "q8_eq7": dict(bits=8, stochastic=False, delta_mode="eq7"),
+                 "q8_stoch": dict(bits=8)}
+MESH2D_DRIVER_ROUNDS = 2
+MESH2D_DRIVER_ARGV = ["--bits", "8", "--clients", "8",
+                      "--clients-per-shard", "4"]
+MESH2D_CONSENSUS_RTOL = 1e-5
+MESH2D_T2_KEYS = 8
+# What this PR's PERF.md predicted before the first run on the card.
+MESH2D_PREDICTION = {
+    "eager_round_ms": [45, 60], "replay_ms": [4.0, 5.0],
+    "graph_nodes": [1600, 1900], "column_bytes_a_round": 4341952,
+    "wire_ratio_1d_over_2d": {"32": 4.0, "8": 3.9993},
+    "driver_round_ms": [2500, 3500], "driver_peak_gib": [35, 40],
+    "b1_tensor_noise_cell_us": [6, 10], "b2_cell_us": [6, 10],
+    "t2_smollm_leaf_8_keys_ms": [1.0, 1.5]}
+
+
+def mesh2d_specs() -> dict:
+    """The reference's 2NN hand specs (``tests/test_mesh2d.py``): w1's
+    columns, w2's and w3's rows and the biases cut over ``"model"``."""
+    from repro_torch.sharding import P
+    return {"w1": P("clients", None, "model"), "b1": P("clients", "model"),
+            "w2": P("clients", "model", None), "b2": P("clients", "model"),
+            "w3": P("clients", "model", None), "b3": P("clients", "model")}
+
+
+def mesh2d_expected(shards: int = MESH2D_SHARDS, mp: int = MESH2D_MP,
+                    rounds: int = 1, n_leaves: int = 6) -> dict:
+    """Launches of ``rounds`` unfused quickstart rounds at 8-bit
+    stochastic lemma5 on a (shards, mp) mesh: B1 and B2 once a cell, B3
+    once a local step a shard (on its joined lanes), T2 once a leaf (the
+    full leaf's noise over the m keys), T1 as on the 1D mesh of the same
+    shards (round and client keys, the per-leaf keys, a split a shard)."""
+    e = {k: 0 for k in KERNEL_SOURCES}
+    e.update(quantize_pack_buffer=shards * mp,
+             dequant_mix_buffer=shards * mp, momentum_sgd=K * shards,
+             threefry_split=3 + shards, threefry_uniform=n_leaves)
+    return {k: v * rounds for k, v in e.items()}
+
+
+def mesh2d_mixer_gate(dev, mesh2, mesh1, setup, batch) -> dict:
+    """The 2D mixer against the 1D mesh of the same shards and the one
+    device, fed one round's x and z, in fp32, q8 lemma5, q8 eq7 and q8
+    stochastic: bitwise. Returns the q8 stochastic 2D mixer's tables
+    after its call (the round's shipped bytes)."""
+    from repro_torch import prng
+    from repro_torch.core import MixerConfig, QuantConfig, local_train
+    from repro_torch.core import make_mixer
+    data, fed, stacked, spec, cfg, loss_fn, _ = setup
+    specs = mesh2d_specs()
+    x = {n: t + 0.01 * torch.randn_like(t) for n, t in stacked.items()}
+    key_round, key_mix, _ = prng.split(prng.PRNGKey(3, device=dev), 3)
+    z, _ = local_train(loss_fn, x, batch, prng.split(key_round, M),
+                       eta=ETA, theta=THETA)
+    out = {}
+    for name, q in MESH2D_QUANTS.items():
+        mcfg = MixerConfig(quant=None if q is None else QuantConfig(**q))
+        want = make_mixer(spec, mcfg, device=dev)(x, z, key_mix)
+        one_d = make_mixer(spec, mcfg, mesh=mesh1)
+        two_d = make_mixer(spec, mcfg, mesh=mesh2, param_specs=specs)
+        got1 = mesh1.gather(one_d(mesh1.shard(x), mesh1.shard(z), key_mix))
+        got2 = mesh2.gather(two_d(mesh2.shard(x, specs),
+                                  mesh2.shard(z, specs), key_mix), specs)
+        ulp = max(max(ulp_diff(got2[n], want[n]), ulp_diff(got2[n],
+                                                           got1[n]))
+                  for n in want)
+        if ulp:
+            raise AssertionError(f"mesh2d mixer {name}: {ulp} ulp from the "
+                                 "1D mesh / one device")
+        out[name] = {"bitwise": True,
+                     "column_bytes": list(two_d.tables.column_bytes),
+                     "shipped_1d": one_d.tables.shipped_bytes}
+        tables = two_d.tables
+    out["tables"] = tables
+    return out
+
+
+def mesh2d_boundary(tables, stacked, quant, spec, mp: int) -> dict:
+    """A round's per-column shipped bytes against ``plan_round_bits(...,
+    model_parallel=mp)`` (lemma5 replicas counted): a column ships the
+    bill's lane slots times a cell's stream (its slices' words, the
+    per-leaf scales, the lemma5 replica row), exactly; the ratio to the
+    per-column bill (which counts d / mp parameters, not a cell's padded
+    words) is printed."""
+    from repro_torch.core import WireLayout, plan_round_bits
+    specs = mesh2d_specs()
+    cps = M // tables.n_shards
+    cell = {n: t[:cps] for n, t in stacked.items()}
+    for n, spec_ in specs.items():
+        d = next(i for i in range(len(spec_)) if "model" in spec_.names(i))
+        cell[n] = cell[n].narrow(d, 0, cell[n].shape[d] // mp)
+    layout = WireLayout.for_tree(cell, quant.bits, stacked=True)
+    d_full = sum(t[0].numel() for t in stacked.values())
+    bill = plan_round_bits(spec.gossip_plan(), d_full, quant, True,
+                           clients_per_shard=cps, model_parallel=mp) / 8
+    slots = tables.lanes_moved
+    stream = 4 * (layout.total_words + layout.n_leaves
+                  + (layout.per * layout.total_words
+                     if quant.delta_mode == "lemma5" else 0))
+    rec = {"lanes_moved": slots, "column_bytes": list(tables.column_bytes),
+           "expected_column_bytes": slots * stream,
+           "stream_bytes_a_lane": stream, "bill_bytes_a_column": bill}
+    rec["column_over_bill"] = tables.column_bytes[0] / bill
+    if any(b != slots * stream for b in tables.column_bytes):
+        raise AssertionError(f"mesh2d boundary: {rec}")
+    return rec
+
+
+def mesh2d_rounds(dev, mesh2=None, mesh1=None) -> dict:
+    """The quickstart (2NN, m 16, ring 0.5, K 4, batch 32, 8-bit
+    stochastic lemma5) on a (MESH2D_SHARDS, MESH2D_MP) mesh of cuda:0 (or
+    ``mesh2``, one card a cell, against ``mesh1`` on cuda:0) under the
+    hand specs: the mixer gate in four modes, ROUNDS eager rounds in
+    turns with the 1D mesh of the same shards (bitwise each round, exact
+    launches of the 2D arm), then on a shared card ROUNDS captured rounds
+    of each in turns (captured bitwise with eager; the 2D graph holds
+    one round's kernel nodes), graph nodes and replay ms of both, and the
+    per-column bytes against the bill; over several cards
+    ``capture_step`` must refuse."""
+    from repro_torch import prng
+    from repro_torch.core import (capture_step, init_round_state,
+                                  make_round_step)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_test_mesh
+
+    if mesh2 is None:
+        mesh2 = make_test_mesh(MESH2D_SHARDS, model_parallel=MESH2D_MP,
+                               device=dev)
+    if mesh1 is None:
+        mesh1 = make_test_mesh(mesh2.n_shards, dev)
+    name = "2d" if mesh2.shared else f"2d on {mesh2.devices.size} cards"
+    specs = mesh2d_specs()
+    setup = quickstart_setup(dev)
+    data, fed, stacked, spec, cfg, loss_fn, _ = setup
+    batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
+               for t in range(ROUNDS)]
+    gate = mesh2d_mixer_gate(dev, mesh2, mesh1, setup, batches[0])
+    boundary = mesh2d_boundary(gate.pop("tables"), stacked, cfg.quant, spec,
+                               mesh2.model_parallel)
+
+    def step_2d():
+        return make_round_step(loss_fn, cfg, spec, mesh=mesh2,
+                               param_specs=specs)
+
+    def step_1d():
+        return make_round_step(loss_fn, cfg, spec, mesh=mesh1)
+
+    steps = {"1d": step_1d(), "2d": step_2d()}
+    s0 = {"1d": init_round_state(stacked, prng.PRNGKey(1), mesh=mesh1),
+          "2d": init_round_state(stacked, prng.PRNGKey(1), mesh=mesh2,
+                                 param_specs=specs)}
+    states = dict(s0)
+    ms = {k: [] for k in ("1d", "2d")}
+    total = {k: 0 for k in KERNEL_SOURCES}
+    losses, apart = [], None
+    for t, b in enumerate(batches):
+        for arm in ("1d", "2d"):
+            sync_all()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            states[arm], met = steps[arm](states[arm], b)
+            sync_all()
+            ms[arm].append((time.perf_counter() - t0) * 1e3)
+            if arm == "2d":
+                counts = launch_counts()
+                total = {k: total[k] + counts[k] for k in total}
+                losses.append(float(met["loss"]))
+        got = mesh2.gather(states["2d"].params, specs)
+        want = mesh1.gather(states["1d"].params)
+        diff = {n: ulp_diff(got[n], want[n]) for n in want}
+        if apart is None and any(diff.values()):
+            apart = {"round": t, "ulp": diff}
+    expect = mesh2d_expected(mesh2.n_shards, mesh2.model_parallel,
+                             rounds=ROUNDS)
+    if total != expect:
+        raise AssertionError(f"mesh {name}: launches {total} != {expect}")
+    if apart is not None:
+        raise AssertionError(f"mesh {name}: rounds part from the 1D mesh's "
+                             f"at {apart}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"mesh {name}: non-finite loss {losses}")
+    rec = {"path": f"mesh {name}", "cells": list(mesh2.devices.shape),
+           "rounds": ROUNDS, "mixer": gate, "rounds_bitwise": True,
+           "launches": total, "loss": losses, "boundary": boundary}
+    if not mesh2.shared:
+        try:
+            capture_step(steps["2d"], s0["2d"], batches[0])
+        except ValueError as e:
+            rec["capture_refused"] = str(e)
+        else:
+            raise AssertionError(f"mesh {name}: captured over several cards")
+        rec["round_ms_median"] = {k: statistics.median(v[1:])
+                                  for k, v in ms.items()}
+        print(json.dumps(rec), flush=True)
+        return rec
+    runs = {"1d": capture_step(step_1d(), s0["1d"], batches[0]),
+            "2d": capture_step(step_2d(), s0["2d"], batches[0])}
+    cap = dict(s0)
+    eager = s0["2d"]
+    cap_ms = {k: [] for k in runs}
+    for b in batches:
+        for arm in ("1d", "2d"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cap[arm], _ = runs[arm](cap[arm], b)
+            torch.cuda.synchronize()
+            cap_ms[arm].append((time.perf_counter() - t0) * 1e3)
+        eager, _ = steps["2d"](eager, b)
+        g = mesh2.gather(cap["2d"].params, specs)
+        e = mesh2.gather(eager.params, specs)
+        o = mesh1.gather(cap["1d"].params)
+        if not all(torch.equal(g[n], e[n]) and torch.equal(g[n], o[n])
+                   for n in e):
+            raise AssertionError(f"mesh {name}: captured rounds differ from "
+                                 "eager ones or from the 1D mesh's")
+    graph = check_round_graph(f"mesh {name}", graph_nodes(runs["2d"].graph),
+                              mesh2d_expected(mesh2.n_shards,
+                                              mesh2.model_parallel))
+    rec.update({"captured_bitwise": True,
+                "round_ms_median": {k: statistics.median(v[1:])
+                                    for k, v in ms.items()},
+                "captured_round_ms_median": {
+                    k: statistics.median(v[1:]) for k, v in cap_ms.items()},
+                "graph_nodes": graph["graph_nodes"],
+                "graph_nodes_1d": len(graph_nodes(runs["1d"].graph)),
+                "kernel_nodes": graph["kernel_nodes"],
+                "replay_device_ms": {k: replay_ms(r.graph)
+                                     for k, r in runs.items()}})
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def mesh2d_driver(dev) -> dict:
+    """SmolLM-135M as registered (bf16, m 8, K 4, batch 4, seq 128, 8
+    bits) for MESH2D_DRIVER_ROUNDS rounds through ``run_resident`` on a
+    (2, 2) mesh of cuda:0 (``--clients-per-shard 4 --model-parallel 2``,
+    RULES_A) and on the 1D mesh of the same 2 shards: the 2D run's "2D
+    mesh:" and per-column wire lines, B1 = B2 = 4 a round, losses bitwise
+    the 1D run's, consensus within MESH2D_CONSENSUS_RTOL; round ms, peak
+    GiB and its T2 launches printed."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.telemetry import RunLog, Tracer
+
+    cfg = production_config()
+    PROD_OUT.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for arm in ("1d", "2d"):
+        argv = ["--rounds", str(MESH2D_DRIVER_ROUNDS), "--device", str(dev)]
+        argv += MESH2D_DRIVER_ARGV
+        mesh = make_test_mesh(2, dev)
+        if arm == "2d":
+            argv += ["--model-parallel", "2"]
+            mesh = make_test_mesh(2, model_parallel=2, device=dev)
+        args = TT.build_parser().parse_args(argv)
+        path = PROD_OUT / f"mesh2d_driver_{arm}.jsonl"
+        log = RunLog(jsonl=str(path), console=False)
+        tracer = Tracer(enabled=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        try:
+            state, met = TT.run_resident(args, cfg, log, tracer, mesh=mesh)
+            torch.cuda.synchronize()
+        finally:
+            log.close()
+        recs = [json.loads(line) for line in open(path)]
+        path.unlink()
+        out[arm] = {
+            "launches": launch_counts(),
+            "round_ms": [ev["dur"] / 1e3 for ev in tracer.events
+                         if ev.get("name") == "round/step"],
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "loss": [r["loss"] for r in recs if r["kind"] == "round"],
+            "consensus": [r.get("consensus_dist") for r in recs
+                          if r["kind"] == "round"],
+            "info": [r.get("msg", "") for r in recs if r["kind"] == "info"]}
+        del state, met
+    one, two = out["1d"], out["2d"]
+    lines = {k: next((m for m in two["info"] if m.startswith(k)), None)
+             for k in ("2D mesh:", "per-device wire:")}
+    if None in lines.values():
+        raise AssertionError(f"mesh2d driver: log lines {two['info']}")
+    for k in ("quantize_pack_buffer", "dequant_mix_buffer"):
+        if two["launches"][k] != 4 * MESH2D_DRIVER_ROUNDS:
+            raise AssertionError(f"mesh2d driver: {k} {two['launches'][k]}")
+    if two["loss"] != one["loss"] or not all(
+            math.isfinite(v) for v in two["loss"]):
+        raise AssertionError(f"mesh2d driver: losses {two['loss']} != "
+                             f"{one['loss']}")
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(two["consensus"], one["consensus"]))
+    if rel > MESH2D_CONSENSUS_RTOL:
+        raise AssertionError(f"mesh2d driver: consensus rel {rel}")
+    rec = {"path": "mesh2d driver", "arch": PROD_ARCH,
+           "argv": MESH2D_DRIVER_ARGV + ["--model-parallel", "2"],
+           "log_lines": lines,
+           "round_ms": {k: v["round_ms"] for k, v in out.items()},
+           "peak_gib": {k: v["peak_gib"] for k, v in out.items()},
+           "loss": two["loss"], "losses_bitwise": True,
+           "consensus_rel_diff": rel,
+           "launches": {k: v for k, v in two["launches"].items() if v}}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def mesh2d_kernel_checks(dev, flush, tables) -> dict:
+    """B1 through its tensor-noise entry and B2 at a 2D quickstart cell's
+    shapes (cell (1, 0) of the (4, 2) mesh: 4 lanes, the 2NN's slices,
+    8 bits; B2 over the cell's R-row table of ``tables``), and T2 at
+    SmolLM-135M's largest leaf for MESH2D_T2_KEYS keys (the 2D mesh's
+    full-leaf draw): bitwise with their plain versions on the card (T2
+    key by key), timed against their bounds."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantConfig, WireLayout
+    from repro_torch.kernels import ref, threefry
+    from repro_torch.kernels.dequant_mix import (dequant_mix_buffer,
+                                                 dequant_mix_buffer_plain)
+    from repro_torch.kernels.quantize_pack import quantize_pack_buffer
+    from repro_torch.models.model import init_model
+    from repro_torch.models.paper_nets import init_2nn
+
+    gen = torch.Generator().manual_seed(41)
+    bits, quant = 8, QuantConfig(bits=8)
+    cell_i = 1 * MESH2D_MP
+    ml = tables.m_local
+    cell = {}
+    for n, t in init_2nn(0, device="cpu").items():
+        spec = mesh2d_specs()[n]
+        d = next(i for i in range(len(spec)) if "model" in spec.names(i))
+        shape = [ml] + list(t.shape)
+        shape[d] //= MESH2D_MP
+        cell[n] = (torch.randn(shape, generator=gen) * 0.01).to(dev)
+    layout = WireLayout.for_tree(cell, bits, stacked=True)
+    delta = layout.to_planar_stacked(cell)
+    sblk = layout.block_scales(layout.leaf_scales(delta, quant))
+    noise = layout.to_planar_stacked(
+        {n: torch.rand(t.shape, generator=gen).to(dev)
+         for n, t in cell.items()})
+    out = {}
+    r = {"max_abs_err": 0.0, "max_ulp": 0,
+         "shape": {"x": list(delta.shape), "bits": bits}}
+    words = quantize_pack_buffer(delta, sblk, bits, noise)
+    check_words("mesh2d B1 tensor noise", words,
+                ref.quantize_pack_buffer_ref(delta, sblk, bits, noise))
+    timed(r, "", lambda: quantize_pack_buffer(delta, sblk, bits, noise),
+          flush)
+    timed(r, "plain_", lambda: ref.quantize_pack_buffer_ref(
+        delta, sblk, bits, noise), flush, reps=5, host_runs=3)
+    r["bound_ms"], r["bound_by"] = bound(nbytes(delta, sblk, noise, words),
+                                         8 * delta.numel())
+    out["quantize_pack_buffer"] = r
+
+    src = tables.src[cell_i]
+    R, k, W = tables.rows[cell_i], src.shape[0], layout.total_words
+    per = 32 // bits
+    base = (torch.randn(ml, per, W, generator=gen)).to(dev)
+    wrows = torch.randint(-2 ** 31, 2 ** 31 - 1, (R, W), generator=gen,
+                          dtype=torch.int32).to(dev)
+    rblk = (torch.rand(R, layout.n_blocks, generator=gen) * 1e-2).to(dev)
+    w = torch.rand(ml, k, generator=gen).to(dev)
+    got = dequant_mix_buffer(base, wrows, rblk, w, src, bits)
+    want = dequant_mix_buffer_plain(base, wrows, rblk, w, src, bits)
+    check_words("mesh2d B2", got.view(torch.int32), want.view(torch.int32))
+    r = {"max_abs_err": 0.0, "max_ulp": 0,
+         "shape": {"base": [ml, per, W], "rows": R, "K": k, "bits": bits}}
+    timed(r, "", lambda: dequant_mix_buffer(base, wrows, rblk, w, src,
+                                            bits), flush)
+    timed(r, "plain_", lambda: dequant_mix_buffer_plain(
+        base, wrows, rblk, w, src, bits), flush, reps=5, host_runs=3)
+    rows = int(torch.unique(src).numel())
+    r["bound_ms"], r["bound_by"] = bound(
+        nbytes(base, rblk, w, src, got) + rows * W * 4, 2 * k * ml * per * W)
+    out["dequant_mix_buffer"] = r
+
+    meta = init_model(torch.zeros(2, dtype=torch.int64, device="meta"),
+                      get_config(PROD_ARCH), device="meta")
+    leaf = max(meta, key=lambda n: meta[n].numel())
+    n = meta[leaf].numel()
+    keys = torch.randint(0, 2 ** 32, (MESH2D_T2_KEYS, 2), generator=gen,
+                         dtype=torch.int64).to(dev)
+    u = threefry.uniform(keys, (n,))
+    for i in range(MESH2D_T2_KEYS):
+        check_words(f"mesh2d T2 {leaf} key {i}", u[i].view(torch.int32),
+                    prng.uniform_plain(keys[i:i + 1], (n,))[0]
+                    .view(torch.int32))
+    del u
+    r = {"max_abs_err": 0.0, "max_ulp": 0,
+         "shape": {"keys": MESH2D_T2_KEYS, "draws": n, "leaf": leaf}}
+    timed(r, "", lambda: threefry.uniform(keys, (n,)), flush)
+    timed(r, "plain_", lambda: [prng.uniform_plain(keys[i:i + 1], (n,))
+                                for i in range(MESH2D_T2_KEYS)],
+          flush, reps=3, host_runs=1)
+    r["sass"] = threefry_ops("threefry_uniform", MESH2D_T2_KEYS * n)
+    r["bound_ms"], r["bound_by"] = bound(4 * MESH2D_T2_KEYS * n
+                                         + nbytes(keys), 0, r["sass"]["ms"])
+    out["threefry_uniform"] = r
+    torch.cuda.empty_cache()
+    print(json.dumps({"mesh2d_kernels": out}), flush=True)
+    return out
+
+
+def mesh2d_phase(dev, flush=None) -> dict:
+    """Phase "mesh2d": the 2D (clients, model) mesh sharing cuda:0 — the
+    predictions, the quickstart's mixer gate and rounds against the 1D
+    mesh (:func:`mesh2d_rounds`), the bytes arm
+    (``bench.timevarying.mesh2d_compare`` at d 65 536: fp32 exactly 4.0,
+    q8 >= 3.0), SmolLM-135M through the driver on a (2, 2) mesh
+    (:func:`mesh2d_driver`), and B1 (tensor noise), B2 and T2 at the
+    phase's shapes (:func:`mesh2d_kernel_checks`)."""
+    from repro_torch.bench.timevarying import mesh2d_compare
+    from repro_torch.core import MixerConfig, MixingSpec, make_mixer
+    from repro_torch.launch.mesh import make_test_mesh
+    if flush is None:
+        flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+    print(json.dumps({"mesh2d_prediction": MESH2D_PREDICTION}), flush=True)
+    t0 = time.perf_counter()
+    rounds = mesh2d_rounds(dev)
+    compare = mesh2d_compare(smoke=False, device=dev)
+    print(json.dumps({"mesh2d_compare": compare}), flush=True)
+    driver = mesh2d_driver(dev)
+    mesh = make_test_mesh(MESH2D_SHARDS, model_parallel=MESH2D_MP,
+                          device=dev)
+    tables = make_mixer(MixingSpec.ring(M, 0.5), MixerConfig(),
+                        mesh=mesh, param_specs=mesh2d_specs()).tables
+    kernels = mesh2d_kernel_checks(dev, flush, tables)
+    rec = {"rounds": rounds, "compare": compare, "driver": driver,
+           "kernels": kernels, "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"mesh2d": {
+        "phase_s": rec["phase_s"],
+        "round_ms_median": rounds["round_ms_median"],
+        "captured_round_ms_median": rounds["captured_round_ms_median"],
+        "replay_device_ms": rounds["replay_device_ms"],
+        "graph_nodes": [rounds["graph_nodes"], rounds["graph_nodes_1d"]],
+        "boundary": rounds["boundary"],
+        "wire_ratio_1d_over_2d": {
+            b: compare[f"wire_ratio_1d_over_2d_b{b}"] for b in (32, 8)},
+        "driver": {k: driver[k] for k in ("round_ms", "peak_gib",
+                                          "log_lines",
+                                          "consensus_rel_diff")}}}),
+        flush=True)
     return rec
 
 
 # Phases ``--only`` can run alone (after the build), for work on one path.
 ONLY = {"pool": pool_phase, "telemetry": telemetry_phase,
         "production": production_phase, "mesh": mesh_phase,
-        "cards": cards_phase}
+        "mesh2d": mesh2d_phase, "cards": cards_phase}
 
 
 def main() -> int:
@@ -5764,6 +6242,7 @@ def main() -> int:
     rows = bench_path(dev)
     prod = production_phase(dev, flush)
     mesh = mesh_phase(dev, flush)
+    mesh2d = mesh2d_phase(dev, flush)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
     counts["fig8"] = {k: sum(r["eager_launches"][k] for r in fig8)
                       for k in KERNEL_SOURCES}
@@ -5803,6 +6282,32 @@ def main() -> int:
                 f: mesh["kernels"][name][f] for f in (
                     "shape", "ms", "clean_ms", "call_ms", "plain_ms",
                     "bound_ms", "bound_by")}
+        mesh2d_counts = mesh2d["rounds"]["launches"][name]
+        if mesh2d_counts:
+            table[-1]["mesh2d_launches"] = mesh2d_counts
+    # The 2D mesh's shapes (the mesh2d phase): B1 through its tensor-noise
+    # entry and B2 at a quickstart cell, their launches the 2D rounds';
+    # T2 at SmolLM-135M's largest leaf for 8 keys, its launches the 2D
+    # driver run's.
+    for name, kernel, launches in (
+            ("quantize_pack_buffer_noise_2d_cell", "quantize_pack_buffer",
+             mesh2d["rounds"]["launches"]["quantize_pack_buffer"]),
+            ("dequant_mix_buffer_2d_cell", "dequant_mix_buffer",
+             mesh2d["rounds"]["launches"]["dequant_mix_buffer"]),
+            ("threefry_uniform_smollm_leaf", "threefry_uniform",
+             mesh2d["driver"]["launches"].get("threefry_uniform", 0))):
+        r = mesh2d["kernels"][kernel]
+        table.append({"name": name, "route": "cuda",
+                      "source": KERNEL_SOURCES[kernel][0],
+                      "replaces": KERNEL_SOURCES[kernel][1],
+                      "launches": launches, "path": "mesh2d",
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"], "library_ms": None,
+                      "call_ms": r["call_ms"], "max_ulp": r["max_ulp"],
+                      "shape": r["shape"], "clean_ms": r["clean_ms"],
+                      "host_ms": r["host_ms"],
+                      "plain_call_ms": r["plain_call_ms"]})
     b3 = prod["kernels"]["momentum_sgd_bf16"]
     # B3 on bf16 leaves: the same kernel source, its bf16 instantiation;
     # its launches are the 8-bit full-width arm's (every leaf bf16).
@@ -5901,7 +6406,15 @@ def main() -> int:
                               "round_ms_median"],
                           "lane_slots": mesh["placed"]["lane_slots"],
                           "driver_round_ms": mesh["driver"]["round_ms"],
-                          "phase_s": mesh["phase_s"]}}))
+                          "phase_s": mesh["phase_s"]},
+                      "mesh2d": {
+                          "round_ms_median": mesh2d["rounds"][
+                              "round_ms_median"],
+                          "replay_device_ms": mesh2d["rounds"][
+                              "replay_device_ms"],
+                          "graph_nodes": mesh2d["rounds"]["graph_nodes"],
+                          "driver_peak_gib": mesh2d["driver"]["peak_gib"],
+                          "phase_s": mesh2d["phase_s"]}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

@@ -23,7 +23,8 @@ from .local_sgd import local_train, heavy_ball_update  # noqa
 from .mixing import (MixerConfig, make_mixer, make_scheduled_mixer,  # noqa
                      make_plan_mixer, make_event_mixer, mix_dense,
                      consensus_distance, execute_plan_reference,
-                     make_fused_tail, split_lanes, join_lanes)
+                     make_fused_tail, split_lanes, join_lanes,
+                     cut_columns, join_columns)
 from .dfedavgm import (DFedAvgMConfig, RoundState, init_round_state,  # noqa
                        make_round_step, average_params, round_comm_bits)
 from .baselines import (FedAvgConfig, make_fedavg_step, DSGDConfig,  # noqa

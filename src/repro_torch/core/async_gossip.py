@@ -111,18 +111,20 @@ class AsyncRoundState(NamedTuple):
 
 def init_async_state(params_stacked: Params | list[Params],
                      key: torch.Tensor, speed: SpeedModel,
-                     mesh=None) -> AsyncRoundState:
+                     mesh=None, param_specs=None) -> AsyncRoundState:
     """``key`` seeds the model chain as ``init_round_state`` does (so a
     constant-speed run is the synchronous run from the same key); the
     clock chain is ``split(fold_in(key, "asyc"))``. On a client mesh the
     parameters are a list of shard dicts (or a stacked dict ``mesh``
-    shards here) and the clock lives on the first shard's device."""
+    shards here; cells cut by ``param_specs`` on a 2D mesh) and the
+    clock lives on the first cell's device."""
     if mesh is not None and isinstance(params_stacked, dict):
-        params_stacked = mesh.shard(params_stacked)
+        params_stacked = mesh.shard(params_stacked, param_specs)
     shards = (params_stacked if isinstance(params_stacked, list)
               else [params_stacked])
     dev = _params_device(params_stacked)
-    m = sum(next(iter(s.values())).shape[0] for s in shards)
+    mp = 1 if mesh is None else mesh.model_parallel
+    m = sum(next(iter(s.values())).shape[0] for s in shards) // mp
     key = key.to(dev)
     k_dur, clock_rng = prng.split(prng.fold_in(key, _CLOCK_SALT))
     return AsyncRoundState(
@@ -175,14 +177,17 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                           with_metrics: bool = True,
                           with_telemetry: bool = False,
                           batch_fn: Callable | None = None,
-                          mesh=None) -> Callable:
+                          mesh=None, param_specs=None) -> Callable:
     """Build event_step(state: AsyncRoundState, batches) -> (state',
     metrics): ONE event of the asynchronous engine, on ``device`` (CUDA
-    unless ``"cpu"``), or on a 1D client ``mesh`` (the parameters a list
+    unless ``"cpu"``), or on a client ``mesh`` (the parameters a list
     of shard dicts; the clock, versions and metrics on the first shard's
     device; each shard trains its lanes, and with ``ready_capacity`` the
     first ``ready_capacity`` ready lanes of the whole mesh, each shard
-    those of its block).
+    those of its block). On a 2D mesh the parameters are cells cut by
+    ``param_specs``, and an event trains as the synchronous round does
+    there (``make_round_step``): each shard's cells joined on its
+    column-0 device, z cut back for the mixer.
 
     ``batches`` has the synchronous layout (leaves [m, K, ...]). Every
     lane trains each event and the ready mask picks whose fresh ``z``
@@ -222,11 +227,11 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     m = spec.m
     dev = (_mesh_devices(mesh)[0] if mesh is not None
            else resolve_device(device))
-    lanes = _Lanes(mesh, m, None, dev)
+    lanes = _Lanes(mesh, m, None, dev, param_specs)
     impl = cfg.mixer_config().resolved_impl(spec, mesh)
     plan = spec.gossip_plan() if impl in ("ring", "torus", "sparse") else None
     ev = make_event_mixer(m, quant=cfg.quant, plan=plan, gate=True,
-                          device=dev, mesh=mesh)
+                          device=dev, mesh=mesh, param_specs=param_specs)
     if scheduled:
         spec.tables(dev)
         W_static = None
@@ -258,9 +263,10 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         t_now, ready = next_event(state.next_ready)
         eta = (staleness_eta(cfg.eta, state.version, decay) if decay > 0.0
                else cfg.eta)
+        x_rows = lanes.join(lanes.rows(state.params))
         if skip and mesh is not None:
             z, losses, ready = _train_ready_shards(
-                loss_fn, cfg, lanes, state.params, batches, client_keys,
+                loss_fn, cfg, lanes, x_rows, batches, client_keys,
                 ready, eta, cap)
         elif skip:
             # Train the first `cap` ready lanes; the padded slots (index m)
@@ -281,9 +287,9 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             ready = ready * spare.index_copy(0, idx, valid)[:m]
         elif mesh is not None:
             etas = (lanes.split(eta) if decay > 0.0
-                    else [eta] * len(state.params))
+                    else [eta] * len(x_rows))
             out = [local_train(loss_fn, x, b, k, eta=e, theta=cfg.theta)
-                   for x, b, k, e in zip(state.params,
+                   for x, b, k, e in zip(x_rows,
                                          lanes.split(batches),
                                          lanes.split(client_keys), etas)]
             z = [o[0] for o in out]
@@ -299,7 +305,8 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             W_t, key_q, ready_eff = W_static, key_mix, ready
         version_next = state.version + ready_eff.to(torch.int32)
         W_eff = staleness_weights(W_t, version_next, ready_eff, async_cfg)
-        x_next = ev(state.params, z, W_eff, ready_eff, key_q)
+        x_next = ev(state.params, lanes.cells(lanes.shards(z)), W_eff,
+                    ready_eff, key_q)
 
         k_dur, clock_rng = prng.split(state.clock_rng)
         durations = speed.draw(k_dur, m)
@@ -311,7 +318,7 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                    "clock": t_now, "ready_frac": ready_eff.mean(),
                    "live_edges": ((W_eff * off_diag) != 0.0).sum()}
         if with_metrics or with_telemetry:
-            cdist = consensus_distance(x_next)
+            cdist = consensus_distance(lanes.join(lanes.rows(x_next)))
         if with_metrics:
             lag = version_next.max() - version_next
             metrics["mean_staleness"] = lag.to(torch.float32).mean()
@@ -325,8 +332,8 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                     consensus_dist=cdist,
                     local_drift=consensus_distance(z), live_edges=live,
                     wire_bits=wire_bits_for(
-                        client_dim(lanes.shards(state.params)[0]),
-                        cfg.quant, live),
+                        client_dim(lanes.shards(x_rows)[0]),
+                        cfg.quant, live, model_parallel=lanes.mp),
                     staleness_hist=staleness_histogram(version_next, S),
                     dropped_edges=dropped_edge_count(W_t, version_next,
                                                      ready_eff, S))
@@ -337,7 +344,7 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                     # the means are over the ready lanes, each shard
                     # replaying its own.
                     qe, qb, qs = quant_round_telemetry(
-                        state.params, lanes.gate(ready_eff, z, state.params),
+                        x_rows, lanes.gate(ready_eff, z, x_rows),
                         cfg.quant, key_q, lane_weight=ready_eff)
                     fields.update(quant_err_sq=qe, quant_bound=qb,
                                   quant_sat_frac=qs)
@@ -356,7 +363,8 @@ def make_async_engine(loss_fn: LossFn, cfg: DFedAvgMConfig,
                       with_metrics: bool = True,
                       with_telemetry: bool = False,
                       batch_fn: Callable | None = None,
-                      capture: bool = False, mesh=None) -> Callable:
+                      capture: bool = False, mesh=None,
+                      param_specs=None) -> Callable:
     """A queue of events: ``run(state, batches)`` steps
     :func:`make_async_round_step` over a leading event axis (leaves
     [n_events, m, K, ...]), or ``run(state, n_events=N)`` with a
@@ -368,11 +376,13 @@ def make_async_engine(loss_fn: LossFn, cfg: DFedAvgMConfig,
     graph at the first call's shapes (``capture_step``) and replays it
     once an event, bitwise with the eager loop; ``run.graph`` is then the
     graph. Eager otherwise, and always on the CPU. ``mesh`` runs the
-    events on a 1D client mesh (:func:`make_async_round_step`)."""
+    events on a client mesh, ``param_specs`` cutting a 2D one's cells
+    (:func:`make_async_round_step`)."""
     step = make_async_round_step(loss_fn, cfg, spec, async_cfg,
                                  device=device, with_metrics=with_metrics,
                                  with_telemetry=with_telemetry,
-                                 batch_fn=batch_fn, mesh=mesh)
+                                 batch_fn=batch_fn, mesh=mesh,
+                                 param_specs=param_specs)
     captured: list = []
 
     def run(state: AsyncRoundState, batches: Params | None = None,

@@ -30,10 +30,11 @@ A replay launches no kernel from the host, so ``native.LAUNCHES`` does
 not count it: count a captured round's launches from the graph's kernel
 nodes (``graph`` on the returned function).
 
-A round on a client mesh whose shards share one card (``make_test_mesh``)
-is captured the same way, every shard's leaves a static buffer, and its
-transfers are device copies inside the graph. A mesh over several cards
-raises: a CUDA graph is captured on one device's stream.
+A round on a client mesh whose shards share one card (``make_test_mesh``;
+a 2D mesh's cells alike) is captured the same way, every shard's (cell's)
+leaves a static buffer, and its transfers are device copies inside the
+graph. A mesh over several cards raises: a CUDA graph is captured on one
+device's stream.
 """
 from __future__ import annotations
 

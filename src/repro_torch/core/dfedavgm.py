@@ -33,6 +33,12 @@ mixer is the block realization (``core.mixing``). With a ``placement``
 the state is in lane order: each round gathers the batches, the client
 keys and a schedule's active mask through ``placement.perm``, so placed
 training is bitwise unplaced training with its lanes permuted.
+
+On a 2D ``(clients, model)`` mesh (``param_specs``) the state is a list
+of cells: each shard's local SGD joins its cells into the shard's full
+lanes on its column-0 device and runs the 1D ``local_train`` there, so
+the round is bitwise the 1D mesh's; the reference leaves that step to
+GSPMD's partitioner, which the port has not (``make_round_step``).
 """
 from __future__ import annotations
 
@@ -47,9 +53,10 @@ from .. import prng
 from ..device import resolve_device
 from .comm_cost import dfedavgm_round_bits, schedule_round_bits
 from .local_sgd import local_train, local_train_deferred
-from .mixing import (MixerConfig, _clients_per_shard, _gate_z,
-                     _mesh_devices, _quant_leaf_keys, _schedule_plan,
-                     consensus_distance, join_lanes, make_event_mixer,
+from .mixing import (MixerConfig, _clients_per_shard, _column_dims,
+                     _gate_z, _mesh_devices, _mesh_grid, _quant_leaf_keys,
+                     _schedule_plan, consensus_distance, cut_columns,
+                     join_columns, join_lanes, make_event_mixer,
                      make_fused_tail, make_mixer, split_lanes)
 from .quantize import QuantConfig
 from .topology import MixingSpec, TopologySchedule
@@ -103,15 +110,16 @@ class RoundState(NamedTuple):
 
 def init_round_state(params_stacked: Params | list[Params],
                      key: torch.Tensor, token: torch.Tensor | None = None,
-                     mesh=None) -> RoundState:
+                     mesh=None, param_specs=None) -> RoundState:
     """The round loop's first state; the key (and a stateful schedule's
     ``token``, ``schedule.init_token()``) move to the parameters' device,
     where the whole key chain then runs. On a client mesh the parameters
     are a list of shard dicts (or a stacked dict that ``mesh`` shards
-    here, in lane order) and the key chain runs on the first shard's
+    here, in lane order; on a 2D mesh into cells, cut by
+    ``param_specs``) and the key chain runs on the first cell's
     device."""
     if mesh is not None and isinstance(params_stacked, dict):
-        params_stacked = mesh.shard(params_stacked)
+        params_stacked = mesh.shard(params_stacked, param_specs)
     dev = _params_device(params_stacked)
     return RoundState(params=params_stacked, rng=key.to(dev), round=0,
                       token=None if token is None else token.to(dev))
@@ -147,14 +155,38 @@ class _Lanes:
     as they are; on a client mesh gathered to lane order through
     ``placement.perm`` and cut into the shards' blocks
     (``core.mixing.split_lanes``). Every table is on the device from the
-    step's build."""
+    step's build.
 
-    def __init__(self, mesh, m: int, placement, dev: torch.device):
-        self.devs = None if mesh is None else _mesh_devices(mesh)
+    On a 2D mesh the state is a list of cells (``mp`` a shard): ``rows``
+    joins each shard's cells on its first column's device, where local
+    SGD runs and the metrics meet as on the 1D mesh, and ``cells`` cuts a
+    shard-level result back for the mixer (``cut_columns``). On a 1D mesh
+    both hand their argument through."""
+
+    def __init__(self, mesh, m: int, placement, dev: torch.device,
+                 param_specs=None):
+        self.devs = None
+        self.grid = self.dims = None
+        self.mp = 1
+        if mesh is not None:
+            self.grid = _mesh_grid(mesh)
+            self.devs = list(self.grid[:, 0])
+            self.mp = int(self.grid.shape[1])
+            self.dims = _column_dims(mesh, param_specs)
         self.perm = (None if placement is None or placement.is_identity
                      else torch.as_tensor(placement.perm.astype(np.int64),
                                           device=dev))
         self.dev = dev
+
+    def rows(self, params) -> list[Params]:
+        """The state's parameters as one dict a shard (a one-element list
+        on one device)."""
+        return join_columns(self.shards(params), self.dims, self.grid)
+
+    def cells(self, rows: list[Params]):
+        """Shard dicts -> the state's layout: cells on a 2D mesh, the
+        list on a 1D one, the one dict on one device."""
+        return self.join(cut_columns(rows, self.dims, self.grid))
 
     def order(self, t: torch.Tensor) -> torch.Tensor:
         """A client-order [m, ...] tensor in lane order."""
@@ -228,7 +260,7 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                     with_telemetry: bool = False,
                     skip_inactive_compute: bool | str = "auto",
                     async_cfg=None, placement=None,
-                    mesh=None) -> Callable:
+                    mesh=None, param_specs=None) -> Callable:
     """Build round_step(state, batches) -> (state', metrics).
 
     ``batches``: dict with leaves [m, K, ...] on ``device`` (client
@@ -274,6 +306,23 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     consensus and drift meet as partial sums (``consensus_distance``) and
     the telemetry's quantizer replay runs on each shard's sampled lanes.
 
+    On a 2D ``(clients, model)`` mesh the state is a list of cells cut
+    by ``param_specs`` (flat name -> ``sharding.PartitionSpec``;
+    ``init_round_state(..., mesh=mesh, param_specs=specs)``). The
+    reference leaves its local step there to GSPMD's partitioner; the
+    port has none, so a shard's local SGD joins the shard's cells into
+    its full lanes on the device of its column-0 cell, runs the 1D
+    ``local_train`` there unchanged (B3 once a step), and cuts z back
+    into the cells for the mixer, whose wire, scales and noise keep the
+    1D codes. The round is therefore bitwise the 1D mesh's; params at
+    rest, the wire and the mix are 1/mp a cell, but the local step's
+    working set is a shard's full lanes on column 0 (a model one card
+    cannot hold does not train: that needs a tensor-parallel local
+    step). The metrics meet on the joined rows as on the 1D mesh, and
+    the telemetry's ``wire_bits`` is the per-column bill
+    (``model_parallel`` = mp). The fused round refuses model-sharded
+    specs.
+
     ``async_cfg`` (an :class:`~repro_torch.core.async_gossip.AsyncConfig`)
     returns the async engine's event step instead
     (``make_async_round_step``, on an ``AsyncRoundState``).
@@ -288,7 +337,7 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                                      device=device,
                                      with_metrics=with_metrics,
                                      with_telemetry=with_telemetry,
-                                     mesh=mesh)
+                                     mesh=mesh, param_specs=param_specs)
     if placement is not None and mesh is None:
         raise ValueError("placement needs a usable client mesh (the lanes "
                          "it relabels are a mesh's shard blocks)")
@@ -297,11 +346,11 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             loss_fn, cfg, spec, device=device, with_metrics=with_metrics,
             with_telemetry=with_telemetry,
             skip_inactive_compute=skip_inactive_compute,
-            placement=placement, mesh=mesh)
+            placement=placement, mesh=mesh, param_specs=param_specs)
     m = spec.m
     dev = (_mesh_devices(mesh)[0] if mesh is not None
            else resolve_device(device))
-    lanes = _Lanes(mesh, m, placement, dev)
+    lanes = _Lanes(mesh, m, placement, dev, param_specs)
     stateful = scheduled and spec.is_stateful
     k_active = spec.static_active_count if scheduled else None
     if skip_inactive_compute == "auto":
@@ -338,10 +387,10 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         event_mixer = make_event_mixer(
             m, quant=cfg.quant, plan=plan,
             gate=stateful or spec.gates_participation, device=dev,
-            mesh=mesh)
+            mesh=mesh, param_specs=param_specs)
     else:
         mixer = make_mixer(spec, mcfg, device=dev, placement=placement,
-                           mesh=mesh)
+                           mesh=mesh, param_specs=param_specs)
     if with_telemetry:
         tel = _telemetry_parts(spec, cfg, m, dev, lanes=lanes,
                                boundary=_boundary_lanes(
@@ -367,7 +416,8 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             W_t, _, key_q = spec.round_event(key_mix, state.round)
         if active is not None:
             active = lanes.order(active)
-        xs = lanes.shards(state.params)
+        xs = lanes.rows(state.params)
+        x_rows = lanes.join(xs)
         with record_function("round/local_sgd"):
             zs, losses, valid = [], [], []
             acts = lanes.split(active) if skip else [None] * len(xs)
@@ -385,14 +435,16 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                 losses.append(loss)
             losses = lanes.cat(losses)
             z = lanes.join(zs)
+            z_cells = lanes.cells(zs)
         with record_function("round/mix"):
             if event_first:
-                x_next = event_mixer(state.params, z, W_t, active, key_q)
+                x_next = event_mixer(state.params, z_cells, W_t, active,
+                                     key_q)
             elif scheduled:
-                x_next, active = mixer(state.params, z, key_mix,
+                x_next, active = mixer(state.params, z_cells, key_mix,
                                        state.round)
             else:
-                x_next = mixer(state.params, z, key_mix, state.round)
+                x_next = mixer(state.params, z_cells, key_mix, state.round)
         if skip:
             metrics = {"loss": _weighted_mean(losses, lanes.cat(valid))}
         elif scheduled and spec.gates_participation:
@@ -402,7 +454,7 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         if with_metrics and scheduled:
             metrics["active_frac"] = active.mean()
         if with_metrics or with_telemetry:
-            cdist = consensus_distance(x_next)
+            cdist = consensus_distance(lanes.join(lanes.rows(x_next)))
             drift = consensus_distance(z)
         if with_metrics:
             metrics["consensus_dist"] = cdist
@@ -416,9 +468,9 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                 if scheduled and spec.gates_participation:
                     lane_w = active
                     if not skip:
-                        z_eff = lanes.gate(active, z, state.params)
+                        z_eff = lanes.gate(active, z, x_rows)
                 metrics["telemetry"] = tel(
-                    state.params, z_eff, cdist, drift,
+                    x_rows, z_eff, cdist, drift,
                     W_t if scheduled else None,
                     key_q if scheduled else key_mix, lane_w)
         return RoundState(params=x_next, rng=key_next,
@@ -472,7 +524,8 @@ def _telemetry_parts(spec, cfg: DFedAvgMConfig, m: int, dev: torch.device,
     """The round's telemetry, built with the step: ``tel(x, z_eff, cdist,
     drift, W_t, key_q, lane_w) -> Telemetry`` over stacked dicts (a
     mesh's lists of shard dicts, in lane order: each shard replays its
-    own sampled lanes). Its constants live on the device from the start
+    own sampled lanes; a 2D mesh's joined rows, its wire bits the
+    per-column bill). Its constants live on the device from the start
     (a static spec's live-edge count, the strided lane sample of the
     quantizer replay, a mesh's boundary lane slots), so a captured round
     reads them and copies nothing from the host. ``W_t`` None means the
@@ -497,13 +550,15 @@ def _telemetry_parts(spec, cfg: DFedAvgMConfig, m: int, dev: torch.device,
            torch.full((), boundary, dtype=torch.float32, device=dev))
     perm = None if lanes is None else lanes.perm
 
+    mp = 1 if lanes is None else lanes.mp
+
     def tel(x, z_eff, cdist, drift, W_t, key_q, lane_w):
         first = x[0] if isinstance(x, list) else x
         live = static_live if W_t is None else live_edge_count(W_t)
         fields = dict(consensus_dist=cdist, local_drift=drift,
                       live_edges=live,
                       wire_bits=wire_bits_for(client_dim(first), cfg.quant,
-                                              live))
+                                              live, model_parallel=mp))
         if pbl is not None:
             fields["placement_boundary_lanes"] = pbl
         if quant_on:
@@ -525,7 +580,8 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                            device=None, with_metrics: bool = True,
                            with_telemetry: bool = False,
                            skip_inactive_compute: bool | str = "auto",
-                           placement=None, mesh=None) -> Callable:
+                           placement=None, mesh=None,
+                           param_specs=None) -> Callable:
     """The ``cfg.fuse_round`` realization of :func:`make_round_step`: K-2
     local steps (``local_train_deferred``), then the fused tail
     (``core.mixing.make_fused_tail``) — penultimate update + encode in
@@ -572,7 +628,7 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     tail = make_fused_tail(loss_fn, m, eta=cfg.eta, theta=cfg.theta,
                            quant=cfg.quant, plan=plan,
                            W=None if scheduled else spec.W, device=dev,
-                           gate=gate, mesh=mesh)
+                           gate=gate, mesh=mesh, param_specs=param_specs)
     if with_telemetry:
         # No quantizer fields: the fused tail's wire delta (y' - x, formed
         # inside B4) never exists as a tensor to replay against.

@@ -1,6 +1,7 @@
 """Gossip mixing x^{t+1}(i) = sum_l w_{i,l} z^t(l)  (paper eqs. 5 and 7) —
 the JAX package's ``core/mixing.py`` for a static ``MixingSpec`` and a
-time-varying ``TopologySchedule``, on one device or on a 1D client mesh.
+time-varying ``TopologySchedule``, on one device, on a 1D client mesh or
+on a 2D ``(clients, model)`` mesh.
 
 Client copies are stacked: every leaf of a parameter dict carries a
 leading client axis of size m. Two backends:
@@ -35,6 +36,19 @@ is an index gather inside B2. A
 state in lane order and the quantizer keys are drawn in client order
 and gathered through ``lane_to_client``, so placed runs are bitwise
 unplaced ones.
+
+On a 2D mesh (``[n_shards, mp]`` cells; ``param_specs``, flat name ->
+``sharding.PartitionSpec``, say which leaves the ``"model"`` axis cuts)
+the state is a list of cells, row-major (:func:`cut_columns` /
+:func:`join_columns`): cell ``(s, c)`` holds shard s's lanes with every
+cut leaf narrowed to column c's block. The same executor runs on every
+cell; a transfer moves between the cells of one column only and ships
+that cell's slice. Two fixups keep the codes the 1D layout's: the
+per-leaf amaxes meet over the row (their max, order-exact, so the scales
+are bitwise the 1D ones), and stochastic rounding takes the full leaf's
+draw (one T2 launch a leaf over the m keys), cut as the params are and
+handed to B1's tensor-noise entry. A 1D mesh is a 2D mesh of one
+column, one device a one-cell mesh.
 
 A schedule's round samples ``(W_t, active)`` on the device
 (``TopologySchedule.round_event``); the plan realization then gathers
@@ -77,19 +91,18 @@ Params = dict[str, torch.Tensor]
 __all__ = ["MixerConfig", "make_mixer", "make_scheduled_mixer",
            "make_plan_mixer", "make_event_mixer", "make_fused_tail",
            "execute_plan_reference", "mix_dense", "consensus_distance",
-           "split_lanes", "join_lanes"]
+           "split_lanes", "join_lanes", "cut_columns", "join_columns"]
 
 _IMPLS = ("auto", "dense", "ring", "torus", "sparse")
 
 
 def _clients_per_shard(mesh, m: int) -> int | None:
-    """Lanes a shard of the 1D client ``mesh`` holds (``m_local``) when
-    its shards — the devices along its one axis, ``mesh.axis_names[0]``
-    — divide ``m``, else None (the mesh does not fit); None for no
-    mesh."""
+    """Lanes a shard of the client ``mesh`` holds (``m_local``) when its
+    shards — the rows along its client axis, ``mesh.axis_names[0]`` —
+    divide ``m``, else None (the mesh does not fit); None for no mesh."""
     if mesh is None:
         return None
-    n_shards = int(np.asarray(mesh.devices).size)
+    n_shards = int(np.asarray(mesh.devices).shape[0])
     if m % n_shards:
         return None
     return m // n_shards
@@ -274,17 +287,55 @@ def _plan_tables(plan: GossipPlan, dev: torch.device
     return tables.src, tables.static
 
 
+def _planar_delta(layout: WireLayout, x: Params, z: Params
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The planar buffer X [lanes, per, W] and the planar delta z - x
+    (the leaf-dtype subtraction before the f32 cast, as in the
+    reference)."""
+    return (layout.to_planar_stacked(x),
+            layout.to_planar_stacked({n: z[n] - x[n] for n in x}))
+
+
 def _encode_lanes(layout: WireLayout, x: Params, z: Params,
                   quant: QuantConfig, keys: torch.Tensor | None):
     """The quantized wire's send side over stacked lanes: the planar
     buffer X [lanes, per, W], the delta's per-leaf scales [lanes, nl]
     and its words (one B1 launch, drawing the noise from ``keys`` [nl,
     lanes, 2] when stochastic). Returns (X, words, scales)."""
-    X = layout.to_planar_stacked(x)
-    # Leaf-dtype subtraction before the f32 cast, as in the reference.
-    delta = layout.to_planar_stacked({n: z[n] - x[n] for n in x})
+    X, delta = _planar_delta(layout, x, z)
     scales = layout.leaf_scales(delta, quant)
     return X, layout.encode(delta, scales, quant, keys=keys), scales
+
+
+def _column_noise(layout: WireLayout, xs: list[Params],
+                  keys: list[torch.Tensor], dims: dict, wire: "_Wire"
+                  ) -> list[torch.Tensor]:
+    """The stochastic-rounding noise of a 2D mesh's cells, planar [lanes,
+    per, W] each: for every leaf (``layout`` order, which picks its key
+    row) the FULL leaf's ``uniform(key[leaf, lane], (n,))`` over the m
+    lanes — one T2 launch a leaf, on the first device, the keys already
+    in lane order (``keys`` the cells' [n_leaves, m_local, 2], row s's
+    first cell holding shard s's) — reshaped to the leaf's geometry, cut
+    as the params are cut (``cut_columns``) and staged planar per cell.
+    A cut leaf's element keeps the noise of its flat index in the full
+    leaf, so the codes are the 1D keyed B1's position by position."""
+    mp, dev0 = wire.mp, wire.devs[0]
+    full = torch.cat([keys[s * mp].to(dev0) for s in range(wire.n_shards)],
+                     dim=1)                                # [nl, m, 2]
+    rows = [{} for _ in range(wire.n_shards)]
+    for li, name in enumerate(layout.names):
+        shape = list(xs[0][name].shape[1:])
+        d = dims.get(name)
+        if d is not None:
+            shape[d - 1] *= mp
+        n = int(np.prod(shape)) if shape else 1
+        u = prng.uniform(full[li].contiguous(), (n,))       # [m, n]
+        u = u.reshape([-1] + shape)
+        for s, row in enumerate(rows):
+            row[name] = u[s * wire.m_local:(s + 1) * wire.m_local]
+    grid = np.array(wire.devs, dtype=object).reshape(wire.n_shards, mp)
+    return [layout.to_planar_stacked(c)
+            for c in cut_columns(rows, dims, grid)]
 
 
 def _combine_rows(w: torch.Tensor, own: torch.Tensor, rows: torch.Tensor,
@@ -303,7 +354,74 @@ def _combine_rows(w: torch.Tensor, own: torch.Tensor, rows: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _mesh_devices(mesh) -> list[torch.device]:
+    """Every cell's device, row-major (a 1D mesh: its shards')."""
     return [torch.device(d) for d in np.asarray(mesh.devices).flat]
+
+
+def _mesh_grid(mesh) -> np.ndarray:
+    """The mesh's devices as an [n_shards, model_parallel] object array
+    (one column on a 1D mesh)."""
+    devs = np.asarray(mesh.devices)
+    return devs.reshape(devs.shape[0], -1)
+
+
+def _model_parallel(mesh) -> int:
+    return 1 if mesh is None else int(_mesh_grid(mesh).shape[1])
+
+
+def _column_dims(mesh, param_specs) -> dict | None:
+    """Flat name -> the stacked leaf's dim that a 2D mesh's model axis
+    cuts (None: the leaf is whole on every column); None itself without
+    a mesh or on a 1D one. ``param_specs`` None replicates every leaf."""
+    if _model_parallel(mesh) == 1:
+        return None
+    from ..sharding.rules import model_sharded_dims
+    return model_sharded_dims(param_specs or {}, mesh.axis_names[1])
+
+
+def _any_cut(dims: dict | None) -> bool:
+    return dims is not None and any(d is not None for d in dims.values())
+
+
+def cut_columns(rows: list[Params], dims: dict | None, grid: np.ndarray
+                ) -> list[Params]:
+    """One dict a client shard -> one dict a cell of the ``[n_shards,
+    mp]`` device ``grid``, row-major: cell ``(s, c)`` holds shard s's
+    lanes with every leaf that ``dims`` cuts narrowed to column c's
+    contiguous block (made contiguous) and every other leaf whole, on
+    ``grid[s, c]``. A 1D grid (``dims`` None) returns ``rows``."""
+    if dims is None:
+        return rows
+    mp = grid.shape[1]
+    cells = []
+    for s, row in enumerate(rows):
+        for c in range(mp):
+            cell = {}
+            for n, t in row.items():
+                d = dims.get(n)
+                if d is not None:
+                    w = t.shape[d] // mp
+                    t = t.narrow(d, c * w, w)
+                cell[n] = t.to(grid[s, c]).contiguous()
+            cells.append(cell)
+    return cells
+
+
+def join_columns(cells: list[Params], dims: dict | None, grid: np.ndarray
+                 ) -> list[Params]:
+    """The inverse of :func:`cut_columns`: each row's cells joined into
+    the shard's full lanes on its first cell's device ``grid[s, 0]`` (a
+    cut leaf concatenated along its dim, a whole one taken from column
+    0). A 1D grid returns ``cells``."""
+    if dims is None:
+        return cells
+    mp = grid.shape[1]
+    rows = []
+    for s in range(grid.shape[0]):
+        row, dev = cells[s * mp:(s + 1) * mp], grid[s, 0]
+        rows.append({n: row[0][n] if dims.get(n) is None else torch.cat(
+            [c[n].to(dev) for c in row], dim=dims[n]) for n in row[0]})
+    return rows
 
 
 def _blocks(devs: Sequence[torch.device], m: int
@@ -314,6 +432,12 @@ def _blocks(devs: Sequence[torch.device], m: int
     return [(s * ml, (s + 1) * ml, d) for s, d in enumerate(devs)]
 
 
+def _split_blocks(x: torch.Tensor, blocks) -> list[torch.Tensor]:
+    """A lane-order [m, ...] tensor -> one piece a block (cell), on the
+    block's device."""
+    return [x[lo:hi].to(d) for lo, hi, d in blocks]
+
+
 def split_lanes(x, devs: Sequence[torch.device]) -> list:
     """A [m, ...] tensor, or a dict of them, -> its lane blocks, one a
     shard on the shard's device (views where a shard lies on ``x``'s
@@ -322,7 +446,7 @@ def split_lanes(x, devs: Sequence[torch.device]) -> list:
         parts = {n: split_lanes(t, devs) for n, t in x.items()}
         return [{n: p[s] for n, p in parts.items()}
                 for s in range(len(devs))]
-    return [x[lo:hi].to(d) for lo, hi, d in _blocks(devs, x.shape[0])]
+    return _split_blocks(x, _blocks(devs, x.shape[0]))
 
 
 def join_lanes(parts: list, dev: torch.device):
@@ -338,15 +462,15 @@ def join_lanes(parts: list, dev: torch.device):
 
 def _shards(mesh, device, m: int, what: str
             ) -> tuple[list[torch.device], int]:
-    """The devices of a realization's lane blocks and their width: the
-    mesh's shards, or the one device (a one-shard mesh) without one."""
+    """The devices of a realization's cells (row-major; on a 1D mesh its
+    shards, one device without a mesh) and the lanes of each."""
     if mesh is None:
         return [resolve_device(device)], m
     m_local = _clients_per_shard(mesh, m)
     if m_local is None:
         raise ValueError(
             f"{what} needs a mesh carrying a client block per shard: m={m} "
-            f"does not block over {np.asarray(mesh.devices).size} shards")
+            f"does not block over {_mesh_grid(mesh).shape[0]} shards")
     return _mesh_devices(mesh), m_local
 
 
@@ -360,17 +484,26 @@ def _from_shards(mesh, xs: list):
 
 
 class _Wire:
-    """The lane blocks an executor runs over and the transfers between
-    them (none on one device). ``transfers``: ``(s_src, s_dst, lanes)``,
-    ``lanes`` the source's local lanes that cross, int64 on its device;
-    ``shipped_bytes`` the bytes of the payloads the last round's
-    :func:`_exchange` sent, counted from the payloads themselves."""
+    """The cells an executor runs over and the transfers between them
+    (none on one device). ``devs`` holds every cell's device row-major
+    over ``[n_shards, mp]`` (``mp`` = 1: a 1D mesh's shards, or the one
+    device); ``blocks[i]`` is cell i's ``(lo, hi, device)``: the lanes of
+    its shard. ``transfers``: ``(i_src, i_dst, lanes)`` between two cells
+    of one column, ``lanes`` the source's local lanes that cross, int64
+    on its device; ``shipped_bytes`` the bytes of the payloads the last
+    round's :func:`_exchange` sent, counted from the payloads
+    themselves, and ``column_bytes`` the same bytes by column (a device
+    column's wire on a 2D mesh)."""
 
-    def __init__(self, devs: Sequence[torch.device], m_local: int):
-        self.devs, self.m_local = list(devs), m_local
-        self.blocks = _blocks(self.devs, m_local * len(self.devs))
+    def __init__(self, devs: Sequence[torch.device], m_local: int,
+                 mp: int = 1):
+        self.devs, self.m_local, self.mp = list(devs), m_local, mp
+        self.n_shards = len(self.devs) // mp
+        self.blocks = [(s * m_local, (s + 1) * m_local, self.devs[s * mp + c])
+                       for s in range(self.n_shards) for c in range(mp)]
         self.transfers: list = []
         self.shipped_bytes = 0
+        self.column_bytes = [0] * mp
 
 
 class _ShardTables(_Wire):
@@ -393,12 +526,18 @@ class _ShardTables(_Wire):
     A list of plans (a cycle's members) lays every member's transfers out
     side by side, their received rows in ranges of their own: ``src[s]``
     is then [n, K, m_local] and ``static[s]`` [n, m_local, K], each member
-    padded to one K (``k_pad``) with identity streams of weight 0."""
+    padded to one K (``k_pad``) with identity streams of weight 0.
+
+    On a 2D mesh (``mp`` columns, ``devs`` its cells row-major) every
+    column is a copy of the 1D realization: each shard's transfer runs
+    once a column, from cell ``(s, c)`` to cell ``(s', c)``, and each
+    cell holds its shard's tables (``rows``, ``src`` and ``static`` are
+    indexed by cell)."""
 
     def __init__(self, plans: list[GossipPlan], devs: Sequence[torch.device],
-                 m_local: int, k_pad: int | None = None):
-        super().__init__(devs, m_local)
-        n_shards, ml = len(self.devs), m_local
+                 m_local: int, k_pad: int | None = None, mp: int = 1):
+        super().__init__(devs, m_local, mp)
+        n_shards, ml = self.n_shards, m_local
         n_recv = [0] * n_shards
         exts, statics, moves = [], [], []
         for plan in plans:
@@ -422,41 +561,41 @@ class _ShardTables(_Wire):
                 w_self, w_steps = plan.static_weights()
                 statics.append(np.stack([w_self] + [w_steps[k]
                                                     for k in live], axis=1))
-        self.rows = [ml + r for r in n_recv]
+        self.rows = [ml + n_recv[i // mp] for i in range(len(self.devs))]
         self.lanes_moved = int(sum(len(t[2]) for t in moves))
-        self.transfers = [(s_src, s_dst, torch.as_tensor(
-            lanes.astype(np.int64), device=self.devs[s_src]))
-            for s_src, s_dst, lanes in moves]
+        self.transfers = [(s_src * mp + c, s_dst * mp + c, torch.as_tensor(
+            lanes.astype(np.int64), device=self.devs[s_src * mp + c]))
+            for s_src, s_dst, lanes in moves for c in range(mp)]
         k_max = max([e.shape[1] for e in exts] + [k_pad or 0])
         ident = np.arange(ml, dtype=np.int64)
         src = np.stack([np.concatenate(
             [e, np.broadcast_to(ident, (n_shards, k_max - e.shape[1], ml))],
             axis=1) for e in exts], axis=1)          # [S, n, K, ml]
         for s in range(n_shards):   # the host check of B2's row bound
-            if src[s].min() < 0 or src[s].max() >= self.rows[s]:
+            if src[s].min() < 0 or src[s].max() >= ml + n_recv[s]:
                 raise ValueError(f"shard {s}: a stream row outside its "
-                                 f"{self.rows[s]} rows")
+                                 f"{ml + n_recv[s]} rows")
         single = len(plans) == 1
+        cells = [(i // mp, d) for i, d in enumerate(self.devs)]
         self.src = [torch.as_tensor(
-            (src[s, 0] if single else src[s]).astype(np.int32),
-            device=self.devs[s]) for s in range(n_shards)]
+            (src[s, 0] if single else src[s]).astype(np.int32), device=d)
+            for s, d in cells]
         self.static = None
         if len(statics) == len(plans):
             w = np.stack([np.pad(x, ((0, 0), (0, k_max - x.shape[1])))
                           for x in statics]).astype(np.float32)  # [n, m, K]
             self.static = [torch.as_tensor(
                 w[0, s * ml:(s + 1) * ml] if single
-                else w[:, s * ml:(s + 1) * ml], device=self.devs[s])
-                for s in range(n_shards)]
+                else w[:, s * ml:(s + 1) * ml], device=d) for s, d in cells]
         # The round's weights gathered from a sampled W (one plan only).
         self._glob = _PlanTables(plans[0], self.devs[0]) if single else None
 
     def weights(self, W) -> list[torch.Tensor]:
         """A round's client-space ``W`` (f32 [m, m] on the first device)
-        -> each shard's block of the lane-order weights table [m_local,
-        K]."""
-        return split_lanes(self._glob.weights(_device_w(W, self.devs[0])),
-                           self.devs)
+        -> each cell's block of the lane-order weights table [m_local,
+        K] (its shard's)."""
+        return _split_blocks(self._glob.weights(_device_w(W, self.devs[0])),
+                             self.blocks)
 
 
 def _exchange(wire: _Wire, streams: list[list[torch.Tensor]]
@@ -471,13 +610,13 @@ def _exchange(wire: _Wire, streams: list[list[torch.Tensor]]
     payload once between them; ``wire.shipped_bytes`` is set to the
     payloads' bytes."""
     got: list[list[torch.Tensor]] = [[] for _ in wire.devs]
-    shipped = 0
+    column = [0] * wire.mp
     for s_src, s_dst, idx in wire.transfers:
         parts = [p.index_select(0, idx) for p in streams[s_src]]
         payload = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-        shipped += payload.numel() * payload.element_size()
+        column[s_src % wire.mp] += payload.numel() * payload.element_size()
         got[s_dst].append(payload.to(wire.devs[s_dst], non_blocking=True))
-    wire.shipped_bytes = shipped
+    wire.shipped_bytes, wire.column_bytes = sum(column), column
     return got
 
 
@@ -541,10 +680,12 @@ def _layouts(quant: QuantConfig | None) -> Callable:
 
 
 def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
-               lane: torch.Tensor | None = None) -> Callable:
+               lane: torch.Tensor | None = None,
+               dims: dict | None = None) -> Callable:
     """The sparse executor over lane blocks: ``ex(xs, zs, ws, srcs, key,
-    leaf_keys=None) -> xs'`` over one dict a shard (one dict on one
-    device), ``ws[s]`` [m_local, K] and ``srcs[s]`` the shard's table.
+    leaf_keys=None) -> xs'`` over one dict a cell (a 1D mesh's shards;
+    one dict on one device), ``ws[i]`` [m_local, K] and ``srcs[i]`` the
+    cell's table.
     Quantized, per shard: the planar buffer and one B1 launch over its
     lanes (drawing the noise from the full-width per-leaf keys:
     ``leaf_keys`` [n_leaves, m, 2] when given, else drawn from ``key``);
@@ -555,10 +696,24 @@ def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
     Each lane's arithmetic is the same on every block layout, so a mesh's
     result is bitwise the one device's; B1 and B2 treat lanes
     independently, so a cohort's lanes under the full width's gathered
-    keys give the full width's words and values."""
+    keys give the full width's words and values.
+
+    On a 2D mesh (``wire.mp`` columns; ``dims`` from
+    :func:`_column_dims`, some leaf cut) every cell holds its model slice
+    and runs the same code over it; the transfers stay within a column.
+    Two fixups keep the codes the 1D layout's position by position: a
+    cell's per-leaf amaxes meet their row's (a device copy each to the
+    row's first cell, their max, the scales copied back: max is
+    order-exact, so the scales are the 1D ones bitwise), and stochastic
+    rounding takes a noise tensor (:func:`_column_noise`: each leaf's
+    full draw, cut as the params are) through B1's tensor-noise entry.
+    The fp32 wire, the ``lemma5`` replicas and B2 work elementwise on the
+    slices as they are."""
     layout_for = _layouts(quant)
     quant_on = quant is not None and quant.enabled
     lemma5 = quant_on and quant.delta_mode == "lemma5"
+    cut = _any_cut(dims)
+    mp = wire.mp
 
     def mix_fp32(zs, ws, srcs):
         names = list(zs[0])
@@ -578,19 +733,45 @@ def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
             out.append(res)
         return out
 
+    def row_scales(layout: WireLayout, deltas) -> list[torch.Tensor]:
+        """Each cell's per-leaf scales from its row's amaxes (their max
+        on the row's first cell, copied back to the others)."""
+        amax = [layout.leaf_amax(d) for d in deltas]
+        out = []
+        for s in range(wire.n_shards):
+            row = amax[s * mp:(s + 1) * mp]
+            top = row[0]
+            for a in row[1:]:
+                top = torch.maximum(top, a.to(top.device))
+            sc = layout.scales_from_amax(top, quant)
+            out += [sc.to(wire.devs[s * mp + c]) for c in range(mp)]
+        return out
+
     def ex(xs: list[Params], zs: list[Params], ws, srcs, key,
            leaf_keys: torch.Tensor | None = None) -> list[Params]:
         if not quant_on:
             return mix_fp32(zs, ws, srcs)
         layout = layout_for(xs[0])
-        keys = [None] * len(xs)
+        keys = noise = [None] * len(xs)
         if quant.stochastic:     # B1 draws the noise from the keys
             keys = _shard_keys(
                 None if leaf_keys is not None
                 else _key_on(key, wire.devs[0]), layout.n_leaves, m, lane,
                 wire.blocks, leaf_keys=leaf_keys)
-        own = [_encode_lanes(layout, x, z, quant, k)
-               for x, z, k in zip(xs, zs, keys)]
+        if quant.stochastic and cut:   # ... or takes it cut to the cells
+            noise = _column_noise(layout, xs, keys, dims, wire)
+            keys = [None] * len(xs)
+        if cut:
+            staged = [_planar_delta(layout, x, z) for x, z in zip(xs, zs)]
+            deltas = [d for _, d in staged]
+            scales = (row_scales(layout, deltas)
+                      if quant.scale_mode != "fixed" else
+                      [layout.leaf_scales(d, quant) for d in deltas])
+            own = [(X, layout.encode(d, sc, quant, noise=nz), sc)
+                   for (X, d), sc, nz in zip(staged, scales, noise)]
+        else:
+            own = [_encode_lanes(layout, x, z, quant, k)
+                   for x, z, k in zip(xs, zs, keys)]
         got = _exchange(wire, [_stream_parts(w, sc, X if lemma5 else None)
                                for X, w, sc in own])
         out = []
@@ -630,21 +811,37 @@ def _refuse_placed(plan: GossipPlan, mesh) -> None:
                          "relabels the lanes of shard blocks)")
 
 
-def _dense_on_mesh(mixer: Callable, mesh) -> Callable:
-    """A one-device mixer over a mesh's lanes: gather the shards to the
-    first device, mix there, hand each shard its block back (the dense
-    reference's all-gather)."""
-    devs = _mesh_devices(mesh)
+def _dense_on_mesh(mixer: Callable, mesh, param_specs=None) -> Callable:
+    """A one-device mixer over a mesh's lanes: gather the cells to the
+    first device, mix there, hand each cell its block back (the dense
+    reference's all-gather). ``mixed.tables.shipped_bytes`` counts the
+    bytes of every other cell's x, z and x' that the last call moved."""
+    grid = _mesh_grid(mesh)
+    dims = _column_dims(mesh, param_specs)
+    devs = list(grid[:, 0])
+    wire = _Wire(list(grid.flat), 1, grid.shape[1])
+
+    def whole(cells):
+        return join_lanes(join_columns(cells, dims, grid), devs[0])
 
     def mixed(xs, zs, *args, **kw):
-        return split_lanes(mixer(join_lanes(xs, devs[0]),
-                                 join_lanes(zs, devs[0]), *args, **kw), devs)
+        out = cut_columns(split_lanes(mixer(whole(xs), whole(zs), *args,
+                                            **kw), devs), dims, grid)
+        # What leaves a cell other than the first and comes back to it.
+        column = [0] * wire.mp
+        for i in range(1, len(out)):
+            column[i % wire.mp] += sum(
+                t.numel() * t.element_size()
+                for c in (xs[i], zs[i], out[i]) for t in c.values())
+        wire.shipped_bytes, wire.column_bytes = sum(column), column
+        return out
 
+    mixed.tables = wire
     return mixed
 
 
 def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
-                    device=None, *, mesh=None) -> Callable:
+                    device=None, *, mesh=None, param_specs=None) -> Callable:
     """Static plan (baked weights) -> mixer(x, z, key=None, t=None) -> x'.
 
     The JAX package's sparse executor: the streams a client combines are
@@ -652,14 +849,18 @@ def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
     step's ``ppermute`` is an index gather on the device (inside B2 for
     the quantized wire); on a client ``mesh`` it is the block
     realization (x and z lists of shard dicts, in lane order for a placed
-    plan). ``mixer.tables`` is its :class:`_ShardTables`.
+    plan). On a 2D ``(clients, model)`` mesh x and z are lists of cell
+    dicts (``ClientMesh.shard(tree, param_specs)``) and ``param_specs``
+    (flat name -> ``sharding.PartitionSpec``) says which leaves are cut
+    over the model axis. ``mixer.tables`` is its :class:`_ShardTables`.
     """
     _refuse_placed(plan, mesh)
     devs, m_local = _shards(mesh, device, plan.m, "sparse mixer")
-    tabs = _ShardTables([plan], devs, m_local)
+    tabs = _ShardTables([plan], devs, m_local, mp=_model_parallel(mesh))
     if tabs.static is None:
         raise ValueError(f"plan {plan.name!r} has no static weights")
-    ex = _make_exec(tabs, plan.m, quant, _lane_tensor(plan, devs[0]))
+    ex = _make_exec(tabs, plan.m, quant, _lane_tensor(plan, devs[0]),
+                    _column_dims(mesh, param_specs))
 
     def mixer(x, z, key=None, t=None):
         del t
@@ -698,7 +899,8 @@ def _gate_z(active: torch.Tensor, z: Params, x: Params) -> Params:
 
 def make_event_mixer(m: int, quant: QuantConfig | None = None,
                      plan: GossipPlan | None = None, gate: bool = True,
-                     device=None, *, mesh=None) -> Callable:
+                     device=None, *, mesh=None, param_specs=None
+                     ) -> Callable:
     """Build mix_event(x, z, W, active, key=None) -> x' for a mixing
     event sampled outside the mixer: ``W`` [m, m] f32 and ``active`` [m]
     f32, both on the device (another device is refused, never copied).
@@ -709,14 +911,15 @@ def make_event_mixer(m: int, quant: QuantConfig | None = None,
     covering W's off-diagonal) runs the plan realization with the round's
     weights gathered from ``W``. ``gate=False`` skips the inactive-client
     z gate (events that never sideline a client). On a client ``mesh``, x
-    and z are lists of shard dicts, ``W`` (client space) and ``active``
-    (lane order) lie on the mesh's first device, and a placed plan reads
-    ``W`` through its ``lane_to_client``."""
+    and z are lists of shard dicts (of cell dicts on a 2D mesh, cut by
+    ``param_specs``), ``W`` (client space) and ``active`` (lane order)
+    lie on the mesh's first device, and a placed plan reads ``W`` through
+    its ``lane_to_client``."""
     if plan is None:
         if mesh is not None:
             return _dense_on_mesh(make_event_mixer(
                 m, quant=quant, gate=gate,
-                device=_mesh_devices(mesh)[0]), mesh)
+                device=_mesh_devices(mesh)[0]), mesh, param_specs)
         dev = resolve_device(device)
 
         def mix_dense_event(x, z, W, active, key=None):
@@ -731,13 +934,15 @@ def make_event_mixer(m: int, quant: QuantConfig | None = None,
         raise ValueError(f"plan has m={plan.m}, expected {m}")
     _refuse_placed(plan, mesh)
     devs, m_local = _shards(mesh, device, m, "sparse mixer")
-    tabs = _ShardTables([plan], devs, m_local)
-    ex = _make_exec(tabs, m, quant, _lane_tensor(plan, devs[0]))
+    tabs = _ShardTables([plan], devs, m_local, mp=_model_parallel(mesh))
+    ex = _make_exec(tabs, m, quant, _lane_tensor(plan, devs[0]),
+                    _column_dims(mesh, param_specs))
 
     def mix_event(x, z, W, active, key=None):
         xs, zs = _as_shards(mesh, x), _as_shards(mesh, z)
         if gate:
-            acts = split_lanes(_on(active, devs[0], "active"), devs)
+            acts = _split_blocks(_on(active, devs[0], "active"),
+                                 tabs.blocks)
             zs = [_gate_z(a, zz, xx) for a, zz, xx in zip(acts, zs, xs)]
         return _from_shards(mesh, ex(xs, zs, tabs.weights(W), tabs.src,
                                      key))
@@ -763,7 +968,7 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
                     quant: QuantConfig | None = None,
                     plan: GossipPlan | None = None,
                     W=None, device=None, gate: bool = False,
-                    mesh=None) -> Callable:
+                    mesh=None, param_specs=None) -> Callable:
     """Fused-round tail: the round's last two local steps, the wire
     encode and the combined decode-apply — the JAX package's
     ``make_fused_tail``.
@@ -801,7 +1006,24 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
     (its own and received rows). ``loss_last`` comes back [m] on the
     first device; ``active`` lies there in lane order. Without a plan the
     dense tail runs on the gathered lanes.
+
+    A 2D ``(clients, model)`` mesh is refused, as in the reference when
+    ``param_specs`` cut a leaf over the model axis: the tail's last
+    gradient would see one column's slice of the parameters.
     """
+    if _any_cut(_column_dims(mesh, param_specs)):
+        raise ValueError(
+            "fuse_round is not supported with model-sharded params on a "
+            "2D (clients, model) mesh: the fused tail computes the round's "
+            "last gradient inside the mixer, where a cell holds only its "
+            "model slice of the params. Run the unfused round "
+            "(fuse_round=False), whose local step joins each shard's "
+            "cells.")
+    if _model_parallel(mesh) > 1:
+        raise ValueError(
+            "fuse_round on a 2D (clients, model) mesh whose specs cut no "
+            "leaf: every column would hold the whole model; run it on the "
+            "1D client mesh")
     eta_f, theta_f = float(np.float32(eta)), float(np.float32(theta))
     et = (eta_f, theta_f)
     quant_on = quant is not None and quant.enabled
@@ -992,7 +1214,7 @@ def _decode_tail(layout: WireLayout, loss_fn, y_out, v_out, act, batch,
 
 def _make_cycle_mixer(schedule: TopologySchedule, quant: QuantConfig | None,
                       dev: torch.device, mesh=None,
-                      placement=None) -> Callable:
+                      placement=None, param_specs=None) -> Callable:
     """The plan realization of a cycle: each member's static plan (its
     own support, baked weights), their tables stacked and padded to the
     largest K with identity streams of weight 0 (after the member's own
@@ -1013,14 +1235,16 @@ def _make_cycle_mixer(schedule: TopologySchedule, quant: QuantConfig | None,
     ones = schedule.tables(dev)["ones"]
     n = len(plans)
     devs, m_local = _shards(mesh, dev, m, "sparse mixer")
+    mp, dims = _model_parallel(mesh), _column_dims(mesh, param_specs)
     k_max = max(len(_live_steps(p)) + 1 for p in plans)
-    union = _ShardTables(plans, devs, m_local)
+    union = _ShardTables(plans, devs, m_local, mp=mp)
     lane = _lane_tensor(plans[0], devs[0])
-    ex_union = _make_exec(union, m, quant, lane)
+    ex_union = _make_exec(union, m, quant, lane, dims)
     each = ex_each = None
     if union.transfers:
-        each = [_ShardTables([p], devs, m_local, k_pad=k_max) for p in plans]
-        ex_each = [_make_exec(t, m, quant, lane) for t in each]
+        each = [_ShardTables([p], devs, m_local, k_pad=k_max, mp=mp)
+                for p in plans]
+        ex_each = [_make_exec(t, m, quant, lane, dims) for t in each]
 
     def mixer(x, z, key, t):
         xs, zs = _as_shards(mesh, x), _as_shards(mesh, z)
@@ -1049,7 +1273,7 @@ def _schedule_plan(schedule: TopologySchedule, cfg: MixerConfig, mesh=None
 
 def make_scheduled_mixer(schedule: TopologySchedule, cfg: MixerConfig,
                          device=None, *, mesh=None,
-                         placement=None) -> Callable:
+                         placement=None, param_specs=None) -> Callable:
     """Build mixer(x, z, key, t) -> (x', active) for a time-varying
     topology: ``(W_t, active, key_q) = schedule.round_event(key, t)`` on
     the device, inactive clients' z gated back to x, then gossip with
@@ -1059,8 +1283,9 @@ def make_scheduled_mixer(schedule: TopologySchedule, cfg: MixerConfig,
     int or a 0-dim device tensor. The schedule's tables go to the device
     here, once.
 
-    On a client ``mesh`` x and z are lists of shard dicts and the device
-    is the mesh's first. ``placement`` (a ``gossip_plan.Placement``,
+    On a client ``mesh`` x and z are lists of shard dicts (cell dicts on
+    a 2D mesh, cut by ``param_specs``) and the device is the mesh's
+    first. ``placement`` (a ``gossip_plan.Placement``,
     sparse only) runs the support plan placed: client state lives in lane
     order, so the schedule's client-order ``active`` is gathered to lane
     order, for the gate and in the returned pair.
@@ -1081,12 +1306,13 @@ def make_scheduled_mixer(schedule: TopologySchedule, cfg: MixerConfig,
                          "fallback has no lanes to place)")
     if plan is not None and schedule.kind == "cycle":
         return _make_cycle_mixer(schedule, cfg.quant, dev, mesh=mesh,
-                                 placement=placement)
+                                 placement=placement,
+                                 param_specs=param_specs)
     if plan is not None and placement is not None:
         plan = plan.placed(placement)
     ev = make_event_mixer(schedule.m, quant=cfg.quant, plan=plan,
                           gate=schedule.gates_participation, device=dev,
-                          mesh=mesh)
+                          mesh=mesh, param_specs=param_specs)
     perm = (None if placement is None or placement.is_identity else
             torch.as_tensor(placement.perm.astype(np.int64), device=dev))
 
@@ -1101,7 +1327,8 @@ def make_scheduled_mixer(schedule: TopologySchedule, cfg: MixerConfig,
 
 
 def make_mixer(spec: MixingSpec | TopologySchedule, cfg: MixerConfig,
-               device=None, *, mesh=None, placement=None) -> Callable:
+               device=None, *, mesh=None, placement=None,
+               param_specs=None) -> Callable:
     """Return mixer(x_stacked, z_stacked, key=None, t=None) -> x_next for
     a static spec. Without a mesh the one device is a one-shard client
     mesh: ``"auto"`` on a ring (a torus) resolves to ``"ring"``
@@ -1115,11 +1342,16 @@ def make_mixer(spec: MixingSpec | TopologySchedule, cfg: MixerConfig,
     sparse impl on a mesh that does not fit raises, but an explicit
     quantized torus falls back to the dense reference with a warning.
 
+    On a 2D ``(clients, model)`` mesh x and z are lists of cell dicts
+    and ``param_specs`` (flat name -> ``sharding.PartitionSpec``) says
+    which leaves the model axis cuts (:func:`make_plan_mixer`).
+
     A :class:`TopologySchedule` returns the time-varying mixer(x, z, key,
     t) -> (x', active) of :func:`make_scheduled_mixer`."""
     if isinstance(spec, TopologySchedule):
         return make_scheduled_mixer(spec, cfg, device=device, mesh=mesh,
-                                    placement=placement)
+                                    placement=placement,
+                                    param_specs=param_specs)
     if not isinstance(spec, MixingSpec):
         raise TypeError(f"expected a MixingSpec or a TopologySchedule, got "
                         f"{type(spec).__name__}")
@@ -1161,11 +1393,12 @@ def make_mixer(spec: MixingSpec | TopologySchedule, cfg: MixerConfig,
         plan = spec.gossip_plan()
         if placement is not None:
             plan = plan.placed(placement)
-        return make_plan_mixer(plan, quant, device=device, mesh=mesh)
+        return make_plan_mixer(plan, quant, device=device, mesh=mesh,
+                               param_specs=param_specs)
     if mesh is not None:
         return _dense_on_mesh(make_mixer(spec, MixerConfig("dense", quant),
                                          device=_mesh_devices(mesh)[0]),
-                              mesh)
+                              mesh, param_specs)
     Wt = _device_w(spec.W, resolve_device(device))   # once, not per round
     if quant is None or not quant.enabled:
         def mixer(x, z, key=None, t=None):

@@ -245,15 +245,23 @@ class WireLayout:
 
     @_ranged("wire/encode")
     def encode(self, delta: torch.Tensor, scales: torch.Tensor, quant,
-               keys: torch.Tensor | None = None) -> torch.Tensor:
+               keys: torch.Tensor | None = None,
+               noise: torch.Tensor | None = None) -> torch.Tensor:
         """Quantize + planar-pack every client's buffer in one pass (B1):
         delta [m, per, W] f32, scales [m, n_leaves]. Stochastic rounding
         takes ``keys`` [n_leaves, m, 2] (the raw ``_quant_leaf_keys``
         output): B1 draws :meth:`noise_stacked`'s noise itself, so it is
-        never written out. Returns int32 words [m, W]."""
+        never written out. Or it takes ``noise`` [m, per, W] f32 (a 2D
+        mesh's cut noise, zero on the padding): B1's tensor-noise entry.
+        Returns int32 words [m, W]."""
         sblk = self.block_scales(scales)
         if not quant.stochastic:
             return quantize_pack_buffer(delta.contiguous(), sblk, quant.bits)
+        if noise is not None:
+            if keys is not None:
+                raise ValueError("encode takes keys or noise, not both")
+            return quantize_pack_buffer(delta.contiguous(), sblk, quant.bits,
+                                        noise.contiguous())
         if keys is None:
             raise ValueError("stochastic encode needs keys")
         return quantize_pack_buffer(delta.contiguous(), sblk, quant.bits,

@@ -20,8 +20,17 @@ with the reference's warning and ``sparse`` exits. ``--placement
 partition`` relabels lanes by ``compute_placement`` on such a mesh.
 ``run_resident(args, cfg, log, tracer, mesh=...)`` takes a mesh already
 built — one whose shards share a card (``make_test_mesh``), as the
-tests and ``chip_smoke.py`` run it. ``--model-parallel > 1`` (the 2D
-mesh) is the next slice and raises. ``--wire`` is kept for the
+tests and ``chip_smoke.py`` run it. ``--model-parallel > 1`` asks for a
+2D ``(clients, model)`` mesh of ``n_shards x model_parallel`` cards (the
+default ``--clients-per-shard`` then puts every client in one shard):
+the strategy-A rules (``sharding.RULES_A``) cut each leaf's
+``mlp``/``vocab``/``heads``/... dim over the model columns when it
+divides, and the run logs the reference's "2D mesh:" and per-column
+wire lines. Each shard's local step joins its cells on its first
+column's card (``core.dfedavgm``: the reference leaves that step to
+GSPMD), so the losses are bitwise the 1D mesh's; ``--pool``,
+``--mixer-impl dense`` and ``--fuse-round`` refuse it, as in the
+reference. ``--wire`` is kept for the
 reference's CLI: ``auto`` and ``planar`` run the planar buffer kernels
 (B1/B2), the card's one codec, and ``seq`` (the reference's XLA lowering
 of the same math) raises. ``--device`` picks the card (the default) or
@@ -241,8 +250,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "m / clients_per_shard cards")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="model-parallel degree of a 2D (clients, model) "
-                         "mesh; only 1 is ported (the 2D mesh is the next "
-                         "slice)")
+                         "mesh: each of the model_parallel device columns "
+                         "holds and ships only its 1/model_parallel slice "
+                         "of every model-sharded leaf; needs n_shards x "
+                         "model_parallel cards and the sparse backend; "
+                         "each shard's local step joins its cells on its "
+                         "first column")
     ap.add_argument("--placement", default="contiguous",
                     choices=["contiguous", "partition"],
                     help="client -> lane placement for the sparse backend: "
@@ -319,13 +332,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args, m: int) -> None:
-    """The 2D mesh raises, naming the next slice, and so does the
-    reference's second wire codec; a shard size that does not divide m
-    exits, as in the reference."""
-    if args.model_parallel != 1:
-        raise SystemExit(f"--model-parallel {args.model_parallel}: the 2D "
-                         "(clients, model) mesh is not ported yet (ROADMAP, "
-                         "the next slice); the port runs --model-parallel 1")
+    """The reference's second wire codec raises; a shard size that does
+    not divide m exits, and so do the 2D mesh's refusals, as in the
+    reference."""
+    _refuse_2d(args)
     cps = args.clients_per_shard
     if cps is not None and (cps < 1 or m % cps):
         raise SystemExit(f"--clients-per-shard {cps} must be >= 1 and "
@@ -334,6 +344,28 @@ def _refuse_unported(args, m: int) -> None:
         raise SystemExit("--wire seq is the reference's XLA lowering of the "
                          "wire codec; the port has one codec, the planar "
                          "buffer kernels (--wire auto or planar)")
+
+
+def _refuse_2d(args) -> None:
+    """The reference's refusals of ``--model-parallel``."""
+    mp = args.model_parallel
+    if mp < 1:
+        raise SystemExit(f"--model-parallel {mp} must be >= 1")
+    if mp > 1 and args.pool:
+        raise SystemExit(
+            "--model-parallel > 1 is incompatible with --pool (pooled lanes "
+            "hold full replicas in the host store; the 2D mesh is a "
+            "resident-execution layout)")
+    if mp > 1 and args.mixer_impl == "dense":
+        raise SystemExit("--model-parallel > 1 needs the sparse backend "
+                         "(the dense tensordot reference mixes full "
+                         "replicas); drop --mixer-impl dense")
+    if mp > 1 and args.fuse_round:
+        raise SystemExit(
+            "--fuse-round is incompatible with --model-parallel > 1: the "
+            "fused tail computes the last gradient inside the mixer, where "
+            "a cell holds only a 1/model_parallel slice of the params; run "
+            "the unfused round (its local step joins each shard's cells)")
 
 
 def main(argv=None):
@@ -373,7 +405,9 @@ def _client_mesh(args, m: int):
     found too few cards (the run then takes the dense reference, as the
     reference's does); ``sparse`` with too few cards exits."""
     cps = args.clients_per_shard
-    if cps is None or m // cps == 1 or args.mixer_impl == "dense":
+    if args.model_parallel > 1:
+        cps = m if cps is None else cps
+    elif cps is None or m // cps == 1 or args.mixer_impl == "dense":
         return None
     from .mesh import make_client_mesh
     dev = resolve_device(args.device)
@@ -384,32 +418,37 @@ def _client_mesh(args, m: int):
                             devices=cards)
     if mesh is not None:
         return mesh
-    if args.mixer_impl == "sparse":
+    if args.mixer_impl == "sparse" or args.model_parallel > 1:
         have = len(cards)
         raise SystemExit(
-            f"this run needs >= {m // cps} devices ({m // cps} client "
-            f"shards x {args.model_parallel} model columns), this host has "
-            f"{have}; raise --clients-per-shard or lower --model-parallel "
-            "to fit")
+            f"this run needs >= {m // cps * args.model_parallel} devices "
+            f"({m // cps} client shards x {args.model_parallel} model "
+            f"columns), this host has {have}; raise --clients-per-shard or "
+            "lower --model-parallel to fit")
     return _MESH_FALLBACK
 
 
 def run_resident(args, cfg, log, tracer, mesh=None):
     """Every client resident: the round step (``core.make_round_step``,
     or the async engine's event step) on stacked client copies, on one
-    device, or on the 1D client ``mesh`` given (its shards may share a
-    card: ``launch.mesh.make_test_mesh``). Returns (state, metrics); on a
-    mesh the state's parameters are a list of shard dicts (lane order
-    under ``--placement partition``)."""
+    device, or on the client ``mesh`` given (its cells may share a card:
+    ``launch.mesh.make_test_mesh``; a 2D one's ``model_parallel`` must be
+    ``--model-parallel``). Returns (state, metrics); on a mesh the
+    state's parameters are a list of shard dicts (lane order under
+    ``--placement partition``), of cell dicts on a 2D mesh."""
     m = args.clients
     fallback = mesh is _MESH_FALLBACK
     if fallback:
         mesh = None
+    _refuse_2d(args)
+    if (1 if mesh is None else mesh.model_parallel) != args.model_parallel:
+        raise SystemExit(f"--model-parallel {args.model_parallel} needs a "
+                         "client mesh of that many model columns")
     if mesh is not None:
         if args.mixer_impl == "dense":
             raise SystemExit("a client mesh runs the sparse backend; drop "
                              "--mixer-impl dense or the mesh")
-        n_shards = mesh.devices.size
+        n_shards = mesh.n_shards
         if m % n_shards:
             raise SystemExit(f"--clients {m} does not block over the "
                              f"mesh's {n_shards} shards")
@@ -417,10 +456,10 @@ def run_resident(args, cfg, log, tracer, mesh=None):
             raise SystemExit(f"--clients-per-shard {args.clients_per_shard}"
                              f" disagrees with the mesh ({n_shards} shards "
                              f"of {m // n_shards})")
-        dev = mesh.devices[0]
+        dev = mesh.devices.flat[0]
     else:
         dev = resolve_device(args.device)
-    cps = m // mesh.devices.size if mesh is not None else m
+    cps = m // mesh.n_shards if mesh is not None else m
     quant = QuantConfig(bits=args.bits) if args.bits < 32 else None
     spec = build_topology(args, m)
     scheduled = isinstance(spec, TopologySchedule)
@@ -477,6 +516,20 @@ def run_resident(args, cfg, log, tracer, mesh=None):
     stacked = {n: t.unsqueeze(0).expand((m,) + tuple(t.shape)).contiguous()
                for n, t in params.items()}
     del params
+    specs = None
+    if args.model_parallel > 1:
+        # 2D (clients, model) mesh: shard each leaf's inner dims over the
+        # model axis (strategy-A rules; leaves whose dims do not divide
+        # stay replicated), the cells cut once at init.
+        from ..sharding.rules import RULES_A, specs_for_tree
+        specs = specs_for_tree(M.model_axes(cfg), stacked, RULES_A, mesh,
+                               leading_client=("clients",))
+        n_sharded = sum(
+            any("model" in spec.names(i) for i in range(len(spec)))
+            for spec in specs.values())
+        log.info(f"2D mesh: model_parallel={args.model_parallel}, "
+                 f"{n_sharded}/{len(specs)} param leaves model-sharded "
+                 f"(the rest replicate per column)")
     loss = _model_loss(cfg)
     acfg = None
     if args.async_gossip:
@@ -489,16 +542,29 @@ def run_resident(args, cfg, log, tracer, mesh=None):
                  f"(rounds are EVENTS)")
     step = make_round_step(loss, dfed, spec, device=dev, async_cfg=acfg,
                            with_telemetry=args.telemetry, mesh=mesh,
-                           placement=placement)
+                           placement=placement, param_specs=specs)
     if acfg is not None:
-        state = init_async_state(stacked, k_state, acfg.speed, mesh=mesh)
+        state = init_async_state(stacked, k_state, acfg.speed, mesh=mesh,
+                                 param_specs=specs)
     else:
         token = (spec.init_token()
                  if scheduled and spec.is_stateful else None)
-        state = init_round_state(stacked, k_state, token=token, mesh=mesh)
+        state = init_round_state(stacked, k_state, token=token, mesh=mesh,
+                                 param_specs=specs)
     del stacked
 
     d = cfg.n_params()
+    if sparse and args.model_parallel > 1:
+        from ..core.comm_cost import plan_round_bits
+        plan = plans if len(plans) > 1 else plans[0]
+        wire_1d = plan_round_bits(plan, d, quant, clients_per_shard=cps,
+                                  placement=placement)
+        wire_col = plan_round_bits(plan, d, quant, clients_per_shard=cps,
+                                   placement=placement,
+                                   model_parallel=args.model_parallel)
+        log.info(f"per-device wire: {wire_col / 8 / 1e6:.2f} MB/round "
+                 f"per model column (1D bill {wire_1d / 8 / 1e6:.2f} MB, "
+                 f"{wire_1d / max(wire_col, 1e-9):.1f}x reduction)")
     # One billing convention for both backends: the live-directed-edge
     # expectation (paper §3.2). Async: realized live edges are billed per
     # event below (the set varies with readiness and staleness).
@@ -535,7 +601,8 @@ def run_resident(args, cfg, log, tracer, mesh=None):
             with tracer.span("round/checkpoint", t=t):
                 save_checkpoint(args.ckpt_dir, t + 1, state if mesh is None
                                 else state._replace(
-                                    params=mesh.gather(state.params)))
+                                    params=mesh.gather(state.params,
+                                                       specs)))
         cadence = t % max(1, args.rounds // 10) == 0 or t == args.rounds - 1
         if log.jsonl is not None or cadence:
             with tracer.span("round/d2h", t=t):
@@ -545,7 +612,8 @@ def run_resident(args, cfg, log, tracer, mesh=None):
                     fields.setdefault("clock", float(state.clock))
                 log.round(t, float(metrics["loss"]), console=cadence,
                           **fields)
-    avg = average_params(state.params)
+    avg = average_params(state.params if specs is None
+                         else mesh.gather(state.params, specs))
     log.info(f"done; consensus model leaves: {len(avg)}")
     log.end(args.rounds, comm_bits=float(ledger.total_bits),
             final_loss=float(metrics["loss"]) if metrics else None,

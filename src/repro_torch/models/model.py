@@ -4,6 +4,7 @@
 Public functional API (everything is (params, cfg)-explicit):
 
   init_model(key, cfg, device=None)       -> params (flat dict)
+  model_axes(cfg)                         -> flat name -> logical axes
   forward(params, cfg, tokens, ...)       -> (logits, new_caches, aux)
   loss_fn(params, cfg, batch, rng)        -> next-token CE + moe aux
   init_decode_caches(cfg, batch, s, ...)  -> caches (stage-aligned list)
@@ -89,6 +90,81 @@ def init_model(key: Key, cfg: ArchConfig, device=None) -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(keys[7], (d, cfg.vocab_size), dtype)
     return {n: p[n] for n in sorted(p)}
+
+
+# ---------------------------------------------------------------------------
+# Logical axes (what sharding.rules maps onto a mesh)
+# ---------------------------------------------------------------------------
+
+_MLP = {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"),
+        "wd": ("mlp", "embed")}
+_ATTN = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed"),
+         "q_norm": ("head_dim",), "k_norm": ("head_dim",)}
+# A block's leaves (a stage's carry a leading "layers" dim), by the name
+# inside the block, as the reference's init_block returns them.
+_BLOCK_AXES = {
+    **{f"attn/{n}": a for n, a in _ATTN.items()},
+    **{f"xattn/{n}": a for n, a in _ATTN.items()},
+    **{f"mlp/{n}": a for n, a in _MLP.items()},
+    **{f"{ln}/{p}": ("embed",) for ln in ("ln", "ln1", "ln2", "lnx")
+       for p in ("scale", "bias")},
+    "moe/router": ("embed", "experts"),
+    "moe/wg": ("experts", "embed", "mlp"),
+    "moe/wu": ("experts", "embed", "mlp"),
+    "moe/wd": ("experts", "mlp", "embed"),
+    "mixer/wz": ("embed", "ssm_inner"), "mixer/wx": ("embed", "ssm_inner"),
+    "mixer/wB": ("embed", "ssm_state"), "mixer/wC": ("embed", "ssm_state"),
+    "mixer/wdt": ("embed", "ssm_heads"),
+    "mixer/conv_x": ("conv", "ssm_inner"),
+    "mixer/conv_B": ("conv", "ssm_state"),
+    "mixer/conv_C": ("conv", "ssm_state"),
+    "mixer/dt_bias": ("ssm_heads",), "mixer/A_log": ("ssm_heads",),
+    "mixer/D": ("ssm_heads",), "mixer/norm_scale": ("ssm_inner",),
+    "mixer/wo": ("ssm_inner", "embed"),
+    "gate_attn": (None,), "gate_mlp": (None,),
+    "down": ("embed2", "embed"),
+}
+_TOP_AXES = {
+    "embed/table": ("vocab", "embed"), "pos_embed": ("seq", "embed"),
+    "enc_pos": ("seq", "embed"), "lm_head": ("embed", "vocab"),
+    "vis_proj": ("embed", "embed_out"),
+    **{f"{ln}/{p}": ("embed",) for ln in ("final_norm", "enc_norm")
+       for p in ("scale", "bias")},
+}
+
+
+def _leaf_axes(name: str) -> tuple:
+    if name in _TOP_AXES:
+        return _TOP_AXES[name]
+    parts = name.split("/")
+    if parts[0] == "stages":
+        return ("layers",) + _BLOCK_AXES["/".join(parts[2:])]
+    if parts[0] == "enc_stage":
+        return ("layers",) + _BLOCK_AXES["/".join(parts[1:])]
+    if parts[0] == "shared_attn":
+        return _BLOCK_AXES["/".join(parts[1:])]
+    raise KeyError(f"no logical axes for leaf {name!r}")
+
+
+def model_axes(cfg: ArchConfig) -> dict[str, tuple]:
+    """Flat name -> the leaf's logical dim names (``"layers"`` leading a
+    stage's leaves), in :func:`init_model`'s names: the reference's
+    ``init_model(key, cfg)[1]`` flattened. The names come from an init on
+    the ``meta`` device (nothing is allocated); every tuple has its
+    leaf's rank."""
+    meta = init_model(torch.zeros(2, dtype=torch.int64, device="meta"), cfg,
+                      device="meta")
+    out = {}
+    for name, t in meta.items():
+        axes = _leaf_axes(name)
+        if len(axes) != t.dim():
+            raise ValueError(f"{name}: axes {axes} for a rank-{t.dim()} "
+                             "leaf")
+        out[name] = axes
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -51,10 +51,30 @@ def reference_rows():
     names += [f"timevarying_{s}" for s in (
         "static_ring", "constant_sched", "er_edge_sample", "ring_partial",
         "ring_random_walk")]
-    names.append("round_telemetry_on_vs_off")
+    names += ["gossip_sparse_vs_dense_b32", "gossip_sparse_vs_dense_b8",
+              "gossip_block64_sparse_vs_dense_b8", "gossip_mesh2d_vs_1d_b8",
+              "round_fused_vs_unfused_b8", "round_telemetry_on_vs_off",
+              "placement_er_partition_vs_contiguous",
+              "placement_ring_chords_partition_vs_contiguous"]
     names.append("async_vs_sync_straggler")
     names += ["pool/m=4096", "pool/compare"]
     return names
+
+
+_WIRE = {"sparse_wireB", "dense_wireB", "ratio", "dense_us", "billed_bits",
+         "realized_wire_bits"}
+_LANES = {"graph", "contig_lanes", "part_lanes", "ratio", "contig_q8B",
+          "part_q8B"}
+MESH_ROW_FIELDS = {
+    "gossip_sparse_vs_dense_b32": _WIRE, "gossip_sparse_vs_dense_b8": _WIRE,
+    "gossip_block64_sparse_vs_dense_b8": {
+        "m", "shards", "block_wireB", "dense_wireB", "ratio",
+        "boundary_lanes", "realized_wire_bits"},
+    "gossip_mesh2d_vs_1d_b8": {"mp", "wire2dB", "wire1dB", "ratio",
+                               "fp32_ratio"},
+    "round_fused_vs_unfused_b8": {"unfused_us", "speedup", "bytes_min"},
+    "placement_er_partition_vs_contiguous": _LANES,
+    "placement_ring_chords_partition_vs_contiguous": _LANES}
 
 
 def reference_fig6_derived(m, rounds, k):
@@ -111,6 +131,7 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys, monkeypatch,
                                                      tmp_path):
     monkeypatch.setattr(async_compare, "OUT_JSON", tmp_path / "a.json")
     monkeypatch.setattr(pool, "OUT_JSON", tmp_path / "p.json")
+    monkeypatch.setattr(timevarying, "GOSSIP_JSON", tmp_path / "g.json")
     assert bench_run.main(["--smoke", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "name,us_per_call,derived"
@@ -127,6 +148,11 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys, monkeypatch,
             fields = dict(f.split("=") for f in derived.split("|"))
             assert set(fields) == {"off_us", "overhead_ratio"}, derived
             assert float(us) > 0 and float(fields["overhead_ratio"]) > 0
+            continue
+        if name in MESH_ROW_FIELDS:      # the mesh halves' rows
+            fields = dict(f.split("=") for f in derived.split("|"))
+            assert set(fields) == MESH_ROW_FIELDS[name], derived
+            assert (float(us) == 0.0) == name.startswith("placement_"), name
             continue
         if name == "async_vs_sync_straggler":   # virtual time to target
             assert set(dict(f.split("=") for f in derived.split("|"))) == {

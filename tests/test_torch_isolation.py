@@ -58,6 +58,11 @@ def test_the_port_has_modules_to_check():
                 "core/async_gossip.py", "core/comm_cost.py",
                 "launch/train.py", "kernels/dequant_mix.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+    # The 2D (clients, model) mesh: the sharding rules and the models'
+    # logical axes.
+    for mod in ("sharding/__init__.py", "sharding/rules.py",
+                "models/model.py", "launch/mesh.py", "bench/timevarying.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and len(names) > 20
 
 

@@ -344,14 +344,14 @@ def test_client_mesh_shards_and_refusals():
     with pytest.raises(ValueError, match="does not block"):
         mesh.shard({"a": torch.zeros(6, 2)})
     # No card here: a client mesh of cards is None with the reference's
-    # warning (once a shape), and the 2D mesh is the next slice.
+    # warning (once a shape), the 2D mesh's too (8 shards x 2 columns).
     with pytest.warns(UserWarning, match="FALL BACK TO THE DENSE MIXER"):
         assert make_client_mesh(8, clients_per_shard=2) is None
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert make_client_mesh(8, clients_per_shard=2) is None
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_client_mesh(8, model_parallel=2)
+    with pytest.warns(UserWarning, match="needs 16 devices"):
+        assert make_client_mesh(8, model_parallel=2) is None
     with pytest.raises(ValueError, match="divide"):
         make_client_mesh(8, clients_per_shard=3)
     with pytest.raises(ValueError, match="1D"):

@@ -363,6 +363,12 @@ def test_resident_lane_capacity():
     assert resident_lane_capacity(1 << 20, budget_bytes=64 << 20) == 16
     assert resident_lane_capacity(1 << 30, device="cpu") == 1
     assert resident_lane_capacity(1 << 20, device="cpu") == 512
-    with pytest.raises(NotImplementedError, match="A17"):
+    # A 2D mesh's device holds 1/model_parallel of a lane at rest (the
+    # reference's ceil(bytes / model_parallel)).
+    assert resident_lane_capacity(1 << 20, budget_bytes=1 << 30,
+                                  model_parallel=2) == 512
+    assert resident_lane_capacity(3, budget_bytes=64,
+                                  model_parallel=2) == 8
+    with pytest.raises(ValueError, match="model_parallel"):
         resident_lane_capacity(1 << 20, budget_bytes=1 << 30,
-                               model_parallel=2)
+                               model_parallel=0)

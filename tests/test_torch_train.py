@@ -214,13 +214,15 @@ def test_other_modes_run_one_round(tmp_path, mode):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--model-parallel", "2"], "next slice"),
+    (["--model-parallel", "2"], "needs >= 2 devices"),
     (["--placement", "partition"], "sparse backend"),
     (["--wire", "seq"], "one codec")],
     ids=["model-parallel", "partition", "wire-seq"])
 def test_unported_layouts_and_codec_raise(argv, match):
-    """The 2D mesh and the second wire codec raise; ``--placement
-    partition`` without a client mesh exits as the reference's does (the
-    multi-shard layouts run now: ``tests/test_torch_mesh.py``)."""
+    """The second wire codec raises; ``--placement partition`` without a
+    client mesh exits as the reference's does, and so does ``--model-
+    parallel 2`` on a host without the 1 x 2 cards of its 2D mesh (the
+    multi-shard layouts run on test meshes: ``tests/test_torch_mesh.py``
+    and ``tests/test_torch_mesh2d.py``)."""
     with pytest.raises(SystemExit, match=match):
         TT.main(BASE + ["--device", "cpu"] + argv)
