@@ -193,14 +193,35 @@ Phases (any failure exits non-zero):
    driver on a (2, 2) mesh (``--model-parallel 2``: its log lines,
    losses bitwise with the 1D run's, peak GiB); B1 through its
    tensor-noise entry and B2 at a cell's shapes and T2 at SmolLM-135M's
-   largest leaf for 8 keys, bitwise with their plain versions and timed
-   (``--only mesh2d`` runs it alone);
-16. print the kernel table (with the floor; B1-B3 with their full-width
+   largest leaf for 8 keys, bitwise with their plain versions and timed;
+   and the fused round on 4 x 2 cells with no specs (every column the
+   whole model): 12 rounds bitwise with the 1D mesh's fused round,
+   eager and captured, B4 = B5 = 8 a round exactly, graph nodes and
+   replay ms beside the 1D fused graph's (``--only mesh2d`` runs it
+   alone);
+16. "mia": ``bench.mia`` at the reference's sizes (m 8, K 4, batch 16,
+   the ring, fp32 gossip, rounds 5 and 60), captured: B3 exactly K
+   launches a round (eager) and K nodes a round graph, 5 captured rounds
+   bitwise with 5 eager ones, the 5-round shadow and target models
+   within MIA_CPU_RTOL of the port's CPU run, the AUCs finite in [0, 1]
+   and printed beside the CPU's; ``quantize_pytree`` on the 2NN at 8 and
+   4 bits (T1, T2) bitwise with the CPU; the attack model's init (T1,
+   T4) bitwise with its plain version on the card (``--only mia``);
+17. "bench_kernels": ``bench.kernels`` on the card (its rows and the
+   entry points' twins), then B6, B8 and B3 at N =
+   1 048 576 bitwise and timed against their bounds, B3 beside
+   ``torch._fused_sgd_`` (``--only bench_kernels``);
+18. "wire": the quickstart's 12 rounds at each of the reference's wire
+   codecs (``"auto"``, ``"seq"``, ``"planar"``): every one launches B1
+   and B2 12 times, params, losses and consensus bitwise; the driver's
+   ``--wire seq`` for 2 rounds against ``--wire planar``, B1 and B2
+   twice each, losses equal (``--only wire``);
+19. print the kernel table (with the floor; B1-B3 with their full-width
    times, B1-B5 with their mesh launches, B2 and B5 at the mesh's
-   extended table, a B3 bf16 row, and the 2D rows: B1 tensor noise and
-   B2 at a cell, T2 at SmolLM-135M's largest leaf) as one JSON line,
-   then the card again, then ``{"ok": true, "device": {...}}`` as the
-   last line.
+   extended table, a B3 bf16 row, the 2D rows: B1 tensor noise and B2
+   at a cell, T2 at SmolLM-135M's largest leaf, and ``bench.kernels``'
+   B6, B8 and B3 at 1M) as one JSON line, then the card again, then
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs one CUDA card and exits non-zero without one.
 """
@@ -5957,6 +5978,105 @@ def mesh2d_rounds(dev, mesh2=None, mesh1=None) -> dict:
     return rec
 
 
+def mesh2d_fused(dev) -> dict:
+    """The fused quickstart round (8-bit stochastic lemma5, B4 and B5) on
+    a (MESH2D_SHARDS, MESH2D_MP) mesh of cuda:0 with no specs, every
+    column the whole model, against the 1D mesh of the same shards:
+    ROUNDS eager rounds in turns (bitwise every round, every column's
+    cells equal, launches exactly B4 = B5 once a cell a round), then
+    ROUNDS captured rounds of each (bitwise with eager and with the 1D
+    mesh; the graph one round's kernel nodes), graph nodes and replay ms
+    of both."""
+    from repro_torch import prng
+    from repro_torch.core import (capture_step, init_round_state,
+                                  make_round_step)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh2 = make_test_mesh(MESH2D_SHARDS, model_parallel=MESH2D_MP,
+                           device=dev)
+    mesh1 = make_test_mesh(MESH2D_SHARDS, dev)
+    data, fed, stacked, spec, cfg, loss_fn, _ = quickstart_setup(
+        dev, fuse_round=True)
+    batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
+               for t in range(ROUNDS)]
+    meshes = {"1d": mesh1, "2d": mesh2}
+
+    def step(arm):
+        return make_round_step(loss_fn, cfg, spec, mesh=meshes[arm])
+
+    steps = {arm: step(arm) for arm in meshes}
+    s0 = {arm: init_round_state(stacked, prng.PRNGKey(1), mesh=m)
+          for arm, m in meshes.items()}
+    states = dict(s0)
+    ms = {arm: [] for arm in meshes}
+    total = {k: 0 for k in KERNEL_SOURCES}
+    for t, b in enumerate(batches):
+        for arm in meshes:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            states[arm], _ = steps[arm](states[arm], b)
+            torch.cuda.synchronize()
+            ms[arm].append((time.perf_counter() - t0) * 1e3)
+            if arm == "2d":
+                counts = launch_counts()
+                total = {k: total[k] + counts[k] for k in total}
+        cells = states["2d"].params
+        for i, cell in enumerate(cells):
+            first = cells[i - i % MESH2D_MP]
+            if not all(torch.equal(cell[n], first[n]) for n in cell):
+                raise AssertionError(f"mesh2d fused: round {t}, cell {i} "
+                                     "differs from its row's column 0")
+        got = mesh2.gather(cells)
+        want = mesh1.gather(states["1d"].params)
+        if not all(torch.equal(got[n], want[n]) for n in want):
+            raise AssertionError(f"mesh2d fused: round {t} differs from "
+                                 "the 1D mesh's fused round")
+    one = mesh_expected(True, MESH2D_SHARDS)
+    expect = dict(one, momentum_quantize_pack_buffer=MESH2D_SHARDS
+                  * MESH2D_MP, dequant_mix_momentum_buffer=MESH2D_SHARDS
+                  * MESH2D_MP)
+    if total != {k: v * ROUNDS for k, v in expect.items()}:
+        raise AssertionError(f"mesh2d fused: launches {total} != "
+                             f"{ROUNDS} x {expect}")
+    runs = {arm: capture_step(step(arm), s0[arm], batches[0])
+            for arm in meshes}
+    cap, eager = dict(s0), s0["2d"]
+    cap_ms = {arm: [] for arm in meshes}
+    for b in batches:
+        for arm in meshes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cap[arm], _ = runs[arm](cap[arm], b)
+            torch.cuda.synchronize()
+            cap_ms[arm].append((time.perf_counter() - t0) * 1e3)
+        eager, _ = steps["2d"](eager, b)
+        g, e = mesh2.gather(cap["2d"].params), mesh2.gather(eager.params)
+        o = mesh1.gather(cap["1d"].params)
+        if not all(torch.equal(g[n], e[n]) and torch.equal(g[n], o[n])
+                   for n in e):
+            raise AssertionError("mesh2d fused: captured rounds differ "
+                                 "from eager ones or from the 1D mesh's")
+    graph = check_round_graph("mesh2d fused", graph_nodes(runs["2d"].graph),
+                              expect)
+    rec = {"path": "mesh2d fused, no specs", "cells": [MESH2D_SHARDS,
+                                                       MESH2D_MP],
+           "rounds": ROUNDS, "rounds_bitwise": True,
+           "captured_bitwise": True, "launches": total,
+           "round_ms_median": {k: statistics.median(v[1:])
+                               for k, v in ms.items()},
+           "captured_round_ms_median": {k: statistics.median(v[1:])
+                                        for k, v in cap_ms.items()},
+           "graph_nodes": graph["graph_nodes"],
+           "graph_nodes_1d": len(graph_nodes(runs["1d"].graph)),
+           "kernel_nodes": graph["kernel_nodes"],
+           "replay_device_ms": {k: replay_ms(r.graph)
+                                for k, r in runs.items()}}
+    print(json.dumps({"mesh2d_fused": rec}), flush=True)
+    return rec
+
+
 def mesh2d_driver(dev) -> dict:
     """SmolLM-135M as registered (bf16, m 8, K 4, batch 4, seq 128, 8
     bits) for MESH2D_DRIVER_ROUNDS rounds through ``run_resident`` on a
@@ -6146,6 +6266,7 @@ def mesh2d_phase(dev, flush=None) -> dict:
     print(json.dumps({"mesh2d_prediction": MESH2D_PREDICTION}), flush=True)
     t0 = time.perf_counter()
     rounds = mesh2d_rounds(dev)
+    fused = mesh2d_fused(dev)
     compare = mesh2d_compare(smoke=False, device=dev)
     print(json.dumps({"mesh2d_compare": compare}), flush=True)
     driver = mesh2d_driver(dev)
@@ -6154,14 +6275,18 @@ def mesh2d_phase(dev, flush=None) -> dict:
     tables = make_mixer(MixingSpec.ring(M, 0.5), MixerConfig(),
                         mesh=mesh, param_specs=mesh2d_specs()).tables
     kernels = mesh2d_kernel_checks(dev, flush, tables)
-    rec = {"rounds": rounds, "compare": compare, "driver": driver,
-           "kernels": kernels, "phase_s": time.perf_counter() - t0}
+    rec = {"rounds": rounds, "fused": fused, "compare": compare,
+           "driver": driver, "kernels": kernels,
+           "phase_s": time.perf_counter() - t0}
     print(json.dumps({"mesh2d": {
         "phase_s": rec["phase_s"],
         "round_ms_median": rounds["round_ms_median"],
         "captured_round_ms_median": rounds["captured_round_ms_median"],
         "replay_device_ms": rounds["replay_device_ms"],
         "graph_nodes": [rounds["graph_nodes"], rounds["graph_nodes_1d"]],
+        "fused_graph_nodes": [fused["graph_nodes"],
+                              fused["graph_nodes_1d"]],
+        "fused_replay_device_ms": fused["replay_device_ms"],
         "boundary": rounds["boundary"],
         "wire_ratio_1d_over_2d": {
             b: compare[f"wire_ratio_1d_over_2d_b{b}"] for b in (32, 8)},
@@ -6172,10 +6297,333 @@ def mesh2d_phase(dev, flush=None) -> dict:
     return rec
 
 
+# The "mia" phase: the membership-inference probe at the reference's
+# sizes (``repro_torch.bench.mia``), ``quantize_pytree`` and the attack
+# model's init.
+MIA_CPU_ROUNDS = 5
+# The card's 5-round shadow and target models against the port's CPU run
+# of the same rounds: the card's matmuls reduce in another order.
+MIA_CPU_RTOL, MIA_CPU_ATOL = 1e-4, 1e-6
+MIA_ATTACK_D = 3             # the attack model's input: top-3 probabilities
+# What PERF.md predicted before the phase's first run on the card.
+MIA_PREDICTION = {
+    "b3_launches_a_round": 4, "b3_nodes_a_round_graph": 4,
+    "cpu_max_rel_diff": [1e-7, 1e-5], "auc_rounds5": [0.63, 0.65],
+    "auc_rounds60": [0.93, 0.95], "auc_card_minus_cpu": [0.0, 0.01],
+    "captured_round_ms": [0.4, 1.0], "phase_s": [20, 60]}
+# The "bench_kernels" phase: bench.kernels' vector, and its predictions.
+KBENCH_PREDICTION = {
+    "b6_us": {"8": [4.5, 7.0], "4": [4.5, 7.0]},
+    "b8_us": {"8": [4.5, 8.0], "4": [4.5, 8.0]},
+    "b3_us": [8.0, 10.0], "b3_library_us": [9.0, 14.0]}
+# The "wire" phase: the seq codec against planar on the quickstart.
+WIRES = ("auto", "seq", "planar")
+WIRE_PREDICTION = {"b1_b2_launches_each_codec": 12, "bitwise": True,
+                   "round_ms_each_codec": [7.5, 9.5]}
+WIRE_DRIVER_ARGV = ["--rounds", "2", "--bits", "8", "--clients", "4",
+                    "--local-steps", "2", "--batch", "2", "--seq", "16"]
+
+
+def mia_phase(dev, flush=None) -> dict:
+    """Phase "mia": :mod:`repro_torch.bench.mia` on the card, its gates
+    and its neighbours: MIA_CPU_ROUNDS eager shadow rounds with their
+    launches (B3 exactly K a round, no wire kernel: fp32 gossip) against
+    as many captured rounds (bitwise; the graph K B3 nodes a round); the
+    captured shadow and target models after MIA_CPU_ROUNDS rounds within
+    MIA_CPU_RTOL of the port's CPU run; the bench's two AUC rows at the
+    reference's sizes (rounds 5 and 60, captured), finite in [0, 1],
+    beside the CPU's; ``quantize_pytree`` on the 2NN at 8 and 4 bits
+    bitwise with the CPU; the attack model's init (T1, T4) bitwise with
+    its plain version on the card."""
+    from repro_torch import prng
+    from repro_torch.bench import mia as bmia
+    from repro_torch.core import QuantConfig, average_params, quantize_pytree
+    from repro_torch.data import classification_dataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.paper_nets import init_2nn
+    from repro_torch.privacy import mia_split
+    from repro_torch.privacy.mia import attack_init
+    print(json.dumps({"mia_prediction": MIA_PREDICTION}), flush=True)
+    t_phase = time.perf_counter()
+    data = classification_dataset(n=bmia.N, d=bmia.D, noise=bmia.NOISE,
+                                  seed=bmia.DATA_SEED)
+    split = mia_split(len(data.y), seed=0)
+    rounds = MIA_CPU_ROUNDS
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    eager = bmia.train_run(data, split.shadow_train, rounds, 0, device=dev,
+                           capture=False)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want_b3 = bmia.K * rounds
+    wire = sum(launches[k] for k in (
+        "quantize_pack_buffer", "dequant_mix_buffer",
+        "momentum_quantize_pack_buffer", "dequant_mix_momentum_buffer"))
+    if launches["momentum_sgd"] != want_b3 or wire:
+        raise AssertionError(f"mia: {rounds} eager rounds launched "
+                             f"{launches}, B3 != {want_b3} or a wire kernel")
+    models, graph = {}, None
+    for role, seed, idx in (("shadow", 0, split.shadow_train),
+                            ("target", 1, split.target_train)):
+        run = bmia.train_run(data, idx, rounds, seed, device=dev)
+        card = average_params(run["state"].params)
+        if role == "shadow":
+            graph = kernel_nodes(graph_nodes(run["graph"]))
+            if graph["momentum_sgd"] != bmia.K:
+                raise AssertionError(f"mia: the round graph holds "
+                                     f"{graph['momentum_sgd']} B3 nodes, "
+                                     f"not {bmia.K}")
+            e = average_params(eager["state"].params)
+            if not all(torch.equal(card[n], e[n]) for n in e):
+                raise AssertionError("mia: captured rounds differ from "
+                                     "eager ones")
+        cpu = bmia._train_on(data, idx, rounds, seed, device="cpu")
+        rel = max(float((card[n].cpu() - cpu[n]).abs().max()
+                        / cpu[n].abs().max().clamp(min=1e-30)) for n in cpu)
+        close = all(torch.allclose(card[n].cpu(), cpu[n], rtol=MIA_CPU_RTOL,
+                                   atol=MIA_CPU_ATOL) for n in cpu)
+        models[role] = {"max_rel_diff_vs_cpu": rel, "within_rtol": close,
+                        "us_per_round": run["us_per_round"],
+                        "capture_s": run["capture_s"]}
+        if not close:
+            raise AssertionError(f"mia: the {role} model is {rel} from the "
+                                 f"CPU's after {rounds} rounds")
+    t0 = time.perf_counter()
+    card_aucs = {r: auc for r, auc, _, _ in bmia.aucs(device=dev)}
+    bench_s = time.perf_counter() - t0
+    cpu_aucs = {r: auc for r, auc, _, _ in bmia.aucs(device="cpu")}
+    for r, auc in card_aucs.items():
+        if not (math.isfinite(auc) and 0.0 <= auc <= 1.0):
+            raise AssertionError(f"mia: AUC {auc} at {r} rounds")
+        print(f"mia/dfedavgm/rounds{r},0.0,auc={auc:.3f}", flush=True)
+    # quantize_pytree on the 2NN, stochastic: T1 splits the key a leaf,
+    # T2 draws each leaf's noise; the CPU runs the plain versions.
+    p = init_2nn(0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    delta = {n: t + 0.01 * torch.randn(t.shape, device=dev, generator=gen)
+             for n, t in p.items()}
+    pytree = {}
+    for bits in (8, 4):
+        cfg = QuantConfig(bits=bits)
+        reset_launch_counts()
+        wc, sc = quantize_pytree(delta, cfg, prng.PRNGKey(9, device=dev))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        wp, sp = quantize_pytree({n: t.cpu() for n, t in delta.items()},
+                                 cfg, prng.PRNGKey(9))
+        same = all(torch.equal(wc[n].cpu(), wp[n])
+                   and torch.equal(sc[n].cpu(), sp[n]) for n in wp)
+        if not same or counts["threefry_uniform"] != len(p):
+            raise AssertionError(f"mia: quantize_pytree at {bits} bits: "
+                                 f"bitwise {same}, launches {counts}")
+        pytree[bits] = {"bitwise": True, "t1": counts["threefry_split"],
+                        "t2": counts["threefry_uniform"]}
+    reset_launch_counts()
+    init = attack_init(MIA_ATTACK_D, seed=0, device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    k1, k2 = prng.split_plain(prng.PRNGKey(0, device=dev))
+    plain = {"w1": prng.normal_plain(k1, (MIA_ATTACK_D, 64))
+             * float(np.float32(1 / np.sqrt(MIA_ATTACK_D))),
+             "w2": prng.normal_plain(k2, (64, 2))
+             * float(np.float32(1 / np.sqrt(64)))}
+    if not all(torch.equal(init[n], plain[n]) for n in plain) or (
+            counts["threefry_normal"] != 2):
+        raise AssertionError(f"mia: the attack init differs from its plain "
+                             f"version or launched {counts}")
+    rec = {"eager_launches": {k: v for k, v in launches.items() if v},
+           "graph_kernel_nodes": {k: v for k, v in graph.items() if v},
+           "models": models, "auc_card": card_aucs, "auc_cpu": cpu_aucs,
+           "bench_s": bench_s, "quantize_pytree": pytree,
+           "attack_init": {"bitwise": True,
+                           "launches": {k: v for k, v in counts.items()
+                                        if v}},
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"mia": rec}), flush=True)
+    return rec
+
+
+def bench_kernels_phase(dev, flush=None) -> dict:
+    """Phase "bench_kernels": :mod:`repro_torch.bench.kernels` on the card
+    (its rows printed, the reference's and the entry points' twins), its
+    launches counted, then its three kernels at
+    its N = 1 048 576: B6 (``quantize_pack``, deterministic) at 8 and 4
+    bits on the padded planar view, B8 (``decode_apply_ring``, the flat
+    entry: one launch) at 8 and 4 bits, B3 (``momentum_update_flat``),
+    each bitwise with its plain version and timed (``timed``) against its
+    bound; B3 beside ``torch._fused_sgd_`` on the same vector."""
+    from repro_torch.bench import kernels as bk
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import (decode_apply_ring, encode_delta,
+                                         momentum_update_flat)
+    from repro_torch.kernels.quantize_pack import quantize_pack
+    from repro_torch.kernels.ref import (momentum_sgd_ref, pad_planar,
+                                         quantize_pack_ref)
+    if flush is None:
+        flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+    print(json.dumps({"bench_kernels_prediction": KBENCH_PREDICTION}),
+          flush=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rows = bk.run(device=dev)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for name, us, derived in rows:
+        print(f"{name},{us:.1f},{derived}", flush=True)
+    x, v, g = bk.operands(bk.N, dev)
+    n = x.numel()
+    out = {}
+
+    def new():
+        return {"max_abs_err": 0.0, "max_ulp": 0, "checks": []}
+
+    for bits in (8, 4):
+        r = new()
+        x2d = pad_planar(x, bits)
+        _, s = encode_delta(x, bits, stochastic=False)
+        words = quantize_pack(x2d, s, bits)
+        check_words(f"B6 1M b{bits}", words, quantize_pack_ref(x2d, s, bits))
+        timed(r, "", lambda: quantize_pack(x2d, s, bits), flush)
+        timed(r, "plain_", lambda: quantize_pack_ref(x2d, s, bits), flush)
+        r["bound_ms"], r["bound_by"] = bound(nbytes(x2d, words, s), 4 * n)
+        r["library_ms"] = None
+        r["shape"] = f"x f32 [{x2d.shape[0]}, {x2d.shape[1]}] ({n}), one " \
+                     f"scale -> words [{words.numel()}], {bits} bits"
+        r["launches"] = launches["quantize_pack"]
+        out[f"quantize_pack_1m_b{bits}"] = r
+        r = new()
+        sc = torch.stack([s, 0.5 * s, 2 * s])
+        got = decode_apply_ring(x, words, words, words, sc, bits=bits,
+                                w_self=bk.W_SELF, w_nb=bk.W_NB)
+        check_floats(r, f"B8 1M b{bits}",
+                     [(got, bk.ring_plain(x, words, sc, bits))])
+        if r["max_ulp"]:
+            raise AssertionError(f"B8 1M b{bits}: {r['max_ulp']} ulp")
+
+        def ring(b=bits, w=words, c=sc):
+            return decode_apply_ring(x, w, w, w, c, bits=b,
+                                     w_self=bk.W_SELF, w_nb=bk.W_NB)
+        timed(r, "", ring, flush)
+        timed(r, "plain_", lambda b=bits, w=words, c=sc: bk.ring_plain(
+            x, w, c, b), flush)
+        r["bound_ms"], r["bound_by"] = bound(
+            nbytes(x, words, words, words, sc, got), 12 * n)
+        r["library_ms"] = None
+        r["shape"] = f"x f32 [{n}], three streams [{words.numel()}], " \
+                     f"{bits} bits -> [{n}]"
+        r["launches"] = launches["dequant_mix"]
+        out[f"dequant_mix_1m_b{bits}"] = r
+    r = new()
+    y2, v2 = momentum_update_flat(x, v, g, 0.01, 0.9)
+    y_ref, v_ref = momentum_sgd_ref(x, v, g, 0.01, 0.9)
+    check_words("B3 1M", torch.cat([y2, v2]).view(torch.int32),
+                torch.cat([y_ref, v_ref]).view(torch.int32))
+    check_floats(r, "B3 1M", [(y2, y_ref), (v2, v_ref)])
+    timed(r, "", lambda: momentum_update_flat(x, v, g, 0.01, 0.9), flush)
+    timed(r, "plain_", lambda: momentum_sgd_ref(x, v, g, 0.01, 0.9), flush)
+    params, bufs = [x.clone()], [v.clone()]
+    timed(r, "library_", lambda: torch._fused_sgd_(
+        params, [g], bufs, weight_decay=0.0, momentum=0.9, lr=0.01,
+        dampening=0.0, nesterov=False, maximize=False, is_first_step=False),
+        flush)
+    r["bound_ms"], r["bound_by"] = bound(nbytes(x, v, g, y2, v2), 3 * n)
+    r["shape"] = f"y, v, g f32 [{n}] -> y', v'"
+    r["launches"] = launches["momentum_sgd"]
+    out["momentum_sgd_1m"] = r
+    rec = {"rows": rows, "launches": {k: c for k, c in launches.items()
+                                      if c}, "kernels": out}
+    print(json.dumps({"bench_kernels": {
+        k: {f: r[f] for f in ("ms", "clean_ms", "call_ms", "host_ms",
+                              "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "max_ulp", "launches")}
+        for k, r in out.items()}}), flush=True)
+    return rec
+
+
+def wire_phase(dev, flush=None) -> dict:
+    """Phase "wire": the codec option on the quickstart (8-bit stochastic
+    lemma5 on the ring plan). The port has one codec, so ROUNDS eager
+    rounds at each of the reference's values (``"auto"``, ``"seq"``,
+    ``"planar"``) from one state launch B1 and B2 once a round each and
+    give bitwise the same params, losses and consensus every round; then
+    the driver (``launch.train.main``, reduced SmolLM-135M) for 2 rounds
+    at ``--wire seq`` and ``--wire planar``: B1 and B2 twice each, the
+    same losses."""
+    import dataclasses
+    from repro_torch import prng
+    from repro_torch.core import init_round_state, make_round_step
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    del flush
+    print(json.dumps({"wire_prediction": WIRE_PREDICTION}), flush=True)
+    t_phase = time.perf_counter()
+    data, fed, stacked, spec, cfg, loss_fn, _ = quickstart_setup(dev)
+    batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
+               for t in range(ROUNDS)]
+    wire_kernels = ("quantize_pack_buffer", "dequant_mix_buffer")
+    arms = {}
+    for wire in WIRES:
+        step = make_round_step(loss_fn, dataclasses.replace(cfg, wire=wire),
+                               spec, device=dev)
+        st = init_round_state(stacked, prng.PRNGKey(1))
+        losses, cons, ms, params = [], [], [], []
+        total = {k: 0 for k in KERNEL_SOURCES}
+        for b in batches:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            st, met = step(st, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts = launch_counts()
+            total = {k: total[k] + counts[k] for k in total}
+            losses.append(met["loss"])
+            cons.append(met["consensus_dist"])
+            params.append(st.params)
+        if any(total[k] != ROUNDS for k in wire_kernels):
+            raise AssertionError(f"wire {wire!r}: launches {total}")
+        arms[wire] = {"losses": torch.stack(losses), "cons": torch.stack(cons),
+                      "params": params, "launches": total,
+                      "round_ms_median": statistics.median(ms[1:])}
+    ref = arms["planar"]
+    for wire, a in arms.items():
+        if not (torch.equal(a["losses"], ref["losses"])
+                and torch.equal(a["cons"], ref["cons"])
+                and all(torch.equal(x[n], y[n]) for x, y in zip(
+                    a["params"], ref["params"]) for n in x)):
+            raise AssertionError(f"wire: the {wire!r} rounds differ from "
+                                 "the planar ones")
+    driver = {}
+    for wire in ("seq", "planar"):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, met = train.main(WIRE_DRIVER_ARGV + ["--wire", wire])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        driver[wire] = {"loss": float(met["loss"]),
+                        "consensus_dist": float(met["consensus_dist"]),
+                        "s": time.perf_counter() - t0,
+                        "b1_b2": [counts[k] for k in wire_kernels]}
+    if any(d["b1_b2"] != [2, 2] for d in driver.values()) or (
+            driver["seq"]["loss"] != driver["planar"]["loss"]):
+        raise AssertionError(f"wire: the driver's runs {driver}")
+    rec = {"rounds_bitwise": True,
+           "launches": {w: {k: a["launches"][k] for k in wire_kernels}
+                        for w, a in arms.items()},
+           "round_ms_median": {w: a["round_ms_median"]
+                               for w, a in arms.items()},
+           "loss_last": float(ref["losses"][-1]), "driver": driver,
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"wire": rec}), flush=True)
+    return rec
+
+
 # Phases ``--only`` can run alone (after the build), for work on one path.
 ONLY = {"pool": pool_phase, "telemetry": telemetry_phase,
         "production": production_phase, "mesh": mesh_phase,
-        "mesh2d": mesh2d_phase, "cards": cards_phase}
+        "mesh2d": mesh2d_phase, "cards": cards_phase, "mia": mia_phase,
+        "bench_kernels": bench_kernels_phase, "wire": wire_phase}
 
 
 def main() -> int:
@@ -6243,6 +6691,9 @@ def main() -> int:
     prod = production_phase(dev, flush)
     mesh = mesh_phase(dev, flush)
     mesh2d = mesh2d_phase(dev, flush)
+    mia = mia_phase(dev, flush)
+    kbench = bench_kernels_phase(dev, flush)
+    wire = wire_phase(dev)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
     counts["fig8"] = {k: sum(r["eager_launches"][k] for r in fig8)
                       for k in KERNEL_SOURCES}
@@ -6285,6 +6736,9 @@ def main() -> int:
         mesh2d_counts = mesh2d["rounds"]["launches"][name]
         if mesh2d_counts:
             table[-1]["mesh2d_launches"] = mesh2d_counts
+        if mesh2d["fused"]["launches"][name]:
+            table[-1]["mesh2d_fused_launches"] = mesh2d["fused"][
+                "launches"][name]
     # The 2D mesh's shapes (the mesh2d phase): B1 through its tensor-noise
     # entry and B2 at a quickstart cell, their launches the 2D rounds';
     # T2 at SmolLM-135M's largest leaf for 8 keys, its launches the 2D
@@ -6308,6 +6762,23 @@ def main() -> int:
                       "shape": r["shape"], "clean_ms": r["clean_ms"],
                       "host_ms": r["host_ms"],
                       "plain_call_ms": r["plain_call_ms"]})
+    # bench.kernels' vector (N = 1 048 576): B6 and B8 at 8 and 4 bits, B3;
+    # their launches the bench's run on the card.
+    for name, kernel in (("quantize_pack_1m_b8", "quantize_pack"),
+                         ("quantize_pack_1m_b4", "quantize_pack"),
+                         ("dequant_mix_1m_b8", "dequant_mix"),
+                         ("dequant_mix_1m_b4", "dequant_mix"),
+                         ("momentum_sgd_1m", "momentum_sgd")):
+        r = kbench["kernels"][name]
+        table.append({"name": name, "route": "cuda",
+                      "source": KERNEL_SOURCES[kernel][0],
+                      "replaces": KERNEL_SOURCES[kernel][1],
+                      "launches": r["launches"], "path": "bench_kernels",
+                      **{f: r.get(f) for f in (
+                          "max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms", "call_ms", "max_ulp",
+                          "shape", "clean_ms", "host_ms", "plain_call_ms",
+                          "library_clean_ms")}})
     b3 = prod["kernels"]["momentum_sgd_bf16"]
     # B3 on bf16 leaves: the same kernel source, its bf16 instantiation;
     # its launches are the 8-bit full-width arm's (every leaf bf16).
@@ -6414,7 +6885,15 @@ def main() -> int:
                               "replay_device_ms"],
                           "graph_nodes": mesh2d["rounds"]["graph_nodes"],
                           "driver_peak_gib": mesh2d["driver"]["peak_gib"],
-                          "phase_s": mesh2d["phase_s"]}}))
+                          "fused_graph_nodes": mesh2d["fused"][
+                              "graph_nodes"],
+                          "fused_replay_device_ms": mesh2d["fused"][
+                              "replay_device_ms"],
+                          "phase_s": mesh2d["phase_s"]},
+                      "mia": {k: mia[k] for k in ("auc_card", "auc_cpu",
+                                                  "phase_s")},
+                      "wire": {k: wire[k] for k in ("round_ms_median",
+                                                    "phase_s")}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

@@ -30,6 +30,9 @@ MODULES = [
     "timevarying",      # time-varying schedules vs the static ring
     "async_compare",    # async vs sync under stragglers (bench_async)
     "pool",             # virtual client pool: rounds/s vs m (bench_pool)
+    "mia",              # §6 MIA privacy probe (bench_mia)
+    "comm_cost",        # Prop 3 table per assigned arch (bench_comm_cost)
+    "kernels",          # kernel microbench (bench_kernels)
 ]
 
 

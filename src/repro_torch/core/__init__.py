@@ -12,8 +12,10 @@ from .topology import (Graph, MixingSpec, TopologySchedule,  # noqa
                        max_degree_weights, lazy_uniform, mixing_lambda,
                        spectral_gap, check_mixing_matrix,
                        metropolis_weights_from_adjacency)
-from .quantize import (QuantConfig, quantize_int, dequantize_int,  # noqa
-                       message_bits, scale_from_amax)
+from .quantize import (QuantConfig, quantize, quantize_int,  # noqa
+                       dequantize_int, pack_bits, unpack_bits,
+                       quantize_pytree, dequantize_pytree, message_bits,
+                       scale_from_amax)
 from .gossip_plan import (GossipPlan, plan_from_spec,  # noqa
                           plan_from_support, plan_from_matrix, BlockPlan,
                           BlockSubStep, Placement, compile_block_plan,

@@ -55,9 +55,10 @@ from .comm_cost import dfedavgm_round_bits, schedule_round_bits
 from .local_sgd import local_train, local_train_deferred
 from .mixing import (MixerConfig, _clients_per_shard, _column_dims,
                      _gate_z, _mesh_devices, _mesh_grid, _quant_leaf_keys,
-                     _schedule_plan, consensus_distance, cut_columns,
-                     join_columns, join_lanes, make_event_mixer,
-                     make_fused_tail, make_mixer, split_lanes)
+                     _schedule_plan, _split_blocks, check_wire,
+                     consensus_distance, cut_columns, join_columns,
+                     join_lanes, make_event_mixer, make_fused_tail,
+                     make_mixer, split_lanes)
 from .quantize import QuantConfig
 from .topology import MixingSpec, TopologySchedule
 
@@ -78,6 +79,8 @@ class DFedAvgMConfig:
     quant: None -> Algorithm 1; QuantConfig -> Algorithm 2
     mixer_impl: "auto" | "dense" | "ring" | "torus" | "sparse" (see
            MixerConfig)
+    wire:  "auto" | "seq" | "planar", the reference's codec choice (see
+           MixerConfig: every value runs the same kernels)
     fuse_round: the fused round (``core.mixing.make_fused_tail``): the
            last two local steps fold into the wire encode (B4) and decode
            (B5) kernels. An algorithm variant — neighbours see y_{K-1},
@@ -91,10 +94,15 @@ class DFedAvgMConfig:
     local_steps: int = 4
     quant: QuantConfig | None = None
     mixer_impl: str = "auto"
+    wire: str = "auto"
     fuse_round: bool = False
 
+    def __post_init__(self):
+        check_wire(self.wire)
+
     def mixer_config(self) -> MixerConfig:
-        return MixerConfig(impl=self.mixer_impl, quant=self.quant)
+        return MixerConfig(impl=self.mixer_impl, quant=self.quant,
+                           wire=self.wire)
 
 
 class RoundState(NamedTuple):
@@ -161,18 +169,22 @@ class _Lanes:
     joins each shard's cells on its first column's device, where local
     SGD runs and the metrics meet as on the 1D mesh, and ``cells`` cuts a
     shard-level result back for the mixer (``cut_columns``). On a 1D mesh
-    both hand their argument through."""
+    both hand their argument through. ``blocks`` holds every cell's
+    ``(lo, hi, device)`` lane block, row-major (``_split_blocks``)."""
 
     def __init__(self, mesh, m: int, placement, dev: torch.device,
                  param_specs=None):
         self.devs = None
-        self.grid = self.dims = None
+        self.grid = self.dims = self.blocks = None
         self.mp = 1
         if mesh is not None:
             self.grid = _mesh_grid(mesh)
             self.devs = list(self.grid[:, 0])
             self.mp = int(self.grid.shape[1])
             self.dims = _column_dims(mesh, param_specs)
+            ml = m // len(self.devs)
+            self.blocks = [(s * ml, (s + 1) * ml, d)
+                           for s, row in enumerate(self.grid) for d in row]
         self.perm = (None if placement is None or placement.is_identity
                      else torch.as_tensor(placement.perm.astype(np.int64),
                                           device=dev))
@@ -321,7 +333,8 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     step). The metrics meet on the joined rows as on the 1D mesh, and
     the telemetry's ``wire_bits`` is the per-column bill
     (``model_parallel`` = mp). The fused round refuses model-sharded
-    specs.
+    specs; with specs that cut no leaf (or none) each column runs the 1D
+    fused tail on the whole model (``make_fused_tail``).
 
     ``async_cfg`` (an :class:`~repro_torch.core.async_gossip.AsyncConfig`)
     returns the async engine's event step instead
@@ -608,7 +621,7 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     m = spec.m
     dev = (_mesh_devices(mesh)[0] if mesh is not None
            else resolve_device(device))
-    lanes = _Lanes(mesh, m, placement, dev)
+    lanes = _Lanes(mesh, m, placement, dev, param_specs)
     impl = cfg.mixer_config().resolved_impl(spec, mesh)
     if impl == "ring" and not scheduled and spec.kind not in ("ring",
                                                               "torus"):
@@ -644,18 +657,19 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             batches = {n: lanes.order(b) for n, b in batches.items()}
         K = next(iter(batches.values())).shape[1]
         step_keys = prng.split(client_keys, K)           # [m, K, 2], once
+        x_rows = lanes.rows(state.params)
         heads = [local_train_deferred(loss_fn, x, b, k, eta=cfg.eta,
                                       theta=cfg.theta)
-                 for x, b, k in zip(lanes.shards(state.params),
-                                    lanes.split(batches),
+                 for x, b, k in zip(x_rows, lanes.split(batches),
                                     lanes.split(step_keys))]
-        y, v, g = (lanes.join([h[i] for h in heads]) for i in range(3))
+        y, v, g = (lanes.cells([h[i] for h in heads]) for i in range(3))
         losses_head = lanes.cat([h[3] for h in heads])   # [m, K-1]
         batch_last = {n: b[:, K - 1] for n, b in batches.items()}
         keys_last = step_keys[:, K - 1]
         if mesh is not None:
-            batch_last = lanes.split(batch_last)
-            keys_last = lanes.split(keys_last)
+            batch_last = cut_columns(lanes.split(batch_last), lanes.dims,
+                                     lanes.grid)
+            keys_last = _split_blocks(keys_last, lanes.blocks)
         if scheduled:
             W_t, active, key_q = spec.round_event(key_mix, state.round)
             active = lanes.order(active)
@@ -672,14 +686,14 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         if with_metrics and scheduled:
             metrics["active_frac"] = active.mean()
         if with_metrics or with_telemetry:
-            cdist = consensus_distance(x_next)
-            drift = consensus_distance(y_pub)
+            cdist = consensus_distance(lanes.join(lanes.rows(x_next)))
+            drift = consensus_distance(lanes.join(lanes.rows(y_pub)))
         if with_metrics:
             metrics["consensus_dist"] = cdist
             metrics["local_drift"] = drift
         if with_telemetry:
             with record_function("round/telemetry"):
-                metrics["telemetry"] = tel(state.params, None,
+                metrics["telemetry"] = tel(lanes.join(x_rows), None,
                                            cdist, drift,
                                            W_t if scheduled else None,
                                            None, None)

@@ -94,6 +94,7 @@ __all__ = ["MixerConfig", "make_mixer", "make_scheduled_mixer",
            "split_lanes", "join_lanes", "cut_columns", "join_columns"]
 
 _IMPLS = ("auto", "dense", "ring", "torus", "sparse")
+_WIRES = ("auto", "seq", "planar")
 
 
 def _clients_per_shard(mesh, m: int) -> int | None:
@@ -120,16 +121,23 @@ class MixerConfig:
            when the mesh fits (its shards divide m), as the JAX package
            does.
     quant: None disables Algorithm 2.
+    wire:  "auto" | "seq" | "planar", the reference's codec choice. The
+           reference's "seq" is the pure-XLA lowering of its Pallas
+           kernels; the port has one codec, so every value runs the same
+           path: the CUDA kernels (B1 and B2; B4 and B5 in the fused
+           tail) on CUDA tensors, their plain versions on CPU tensors.
     """
 
     impl: str = "auto"
     quant: QuantConfig | None = None
+    wire: str = "auto"
 
     def __post_init__(self):
         if self.impl not in _IMPLS:
             raise ValueError(
                 f"unknown mixer impl {self.impl!r}; allowed impls: "
                 + " | ".join(repr(i) for i in _IMPLS))
+        check_wire(self.wire)
 
     def resolved_impl(self, spec: MixingSpec | TopologySchedule,
                       mesh=None) -> str:
@@ -144,6 +152,14 @@ class MixerConfig:
         if int(spec.graph.degrees().max()) < spec.m - 1:
             return "sparse"
         return "dense"
+
+
+def check_wire(wire: str) -> None:
+    """Refuse a wire codec other than ``_WIRES``, with the reference's
+    message."""
+    if wire not in _WIRES:
+        raise ValueError(f"unknown wire codec {wire!r}; allowed: "
+                         + " | ".join(repr(w) for w in _WIRES))
 
 
 def mix_dense(W, stacked: Params) -> Params:
@@ -301,7 +317,8 @@ def _encode_lanes(layout: WireLayout, x: Params, z: Params,
     """The quantized wire's send side over stacked lanes: the planar
     buffer X [lanes, per, W], the delta's per-leaf scales [lanes, nl]
     and its words (one B1 launch, drawing the noise from ``keys`` [nl,
-    lanes, 2] when stochastic). Returns (X, words, scales)."""
+    lanes, 2] when stochastic).
+    Returns (X, words, scales)."""
     X, delta = _planar_delta(layout, x, z)
     scales = layout.leaf_scales(delta, quant)
     return X, layout.encode(delta, scales, quant, keys=keys), scales
@@ -1007,9 +1024,22 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
     first device; ``active`` lies there in lane order. Without a plan the
     dense tail runs on the gathered lanes.
 
-    A 2D ``(clients, model)`` mesh is refused, as in the reference when
-    ``param_specs`` cut a leaf over the model axis: the tail's last
-    gradient would see one column's slice of the parameters.
+    On a 2D ``(clients, model)`` mesh whose ``param_specs`` cut no leaf
+    every column holds the whole model, and each column runs a copy of
+    the 1D realization: x, y, v, g, ``batch_last``, ``keys_last`` and the
+    results are lists of cells (row-major), each cell encodes its shard's
+    lanes (B4, the shard's keys drawn as on the 1D mesh, the same in
+    every column), exchanges within its column, takes the last gradient
+    and decodes (B5), so every column's result is bitwise the 1D mesh's;
+    ``loss_last`` comes from column 0. The plan tail repeats its work on
+    every column because each column is the 1D realization on cards of
+    its own: on distinct cards the columns run side by side, and a cell
+    keeps its state without a copy from another column. The dense tail
+    (no plan) is the reference fallback, as ``_dense_on_mesh`` is for the
+    unfused mixer: it gathers column 0's lanes on the first card, runs
+    once and copies its results to every column. As in the reference,
+    specs that cut a leaf over the model axis are refused: the tail's
+    last gradient would see one column's slice of the parameters.
     """
     if _any_cut(_column_dims(mesh, param_specs)):
         raise ValueError(
@@ -1019,11 +1049,7 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
             "model slice of the params. Run the unfused round "
             "(fuse_round=False), whose local step joins each shard's "
             "cells.")
-    if _model_parallel(mesh) > 1:
-        raise ValueError(
-            "fuse_round on a 2D (clients, model) mesh whose specs cut no "
-            "leaf: every column would hold the whole model; run it on the "
-            "1D client mesh")
+    mp = _model_parallel(mesh)
     eta_f, theta_f = float(np.float32(eta)), float(np.float32(theta))
     et = (eta_f, theta_f)
     quant_on = quant is not None and quant.enabled
@@ -1036,7 +1062,7 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
     _refuse_placed(plan, mesh)
     devs, m_local = _shards(mesh, device, m, "fused sparse tail")
     dev0 = devs[0]
-    tabs = _ShardTables([plan], devs, m_local)
+    tabs = _ShardTables([plan], devs, m_local, mp=mp)
     lane = _lane_tensor(plan, dev0)
 
     def shard_weights(W):
@@ -1052,7 +1078,7 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
             return [None] * len(devs)
         if active is None:
             raise ValueError("a gated tail needs the round's active mask")
-        return split_lanes(_on(active, dev0, "active"), devs)
+        return _split_blocks(_on(active, dev0, "active"), tabs.blocks)
 
     def fp32_tail(xs, ys, vs, gs, batch_last, keys_last, key_q, acts, ws):
         del key_q
@@ -1075,7 +1101,7 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
             out.append(_deferred(layout.unflatten(acc), v1, gK, et))
             pubs.append(y1)
             losses.append(loss_last)
-        return out, pubs, join_lanes(losses, dev0)
+        return out, pubs, join_lanes(losses[::mp], dev0)
 
     def quant_tail(xs, ys, vs, gs, batch_last, keys_last, key_q, acts, ws):
         layout = layout_for(xs[0])
@@ -1099,7 +1125,7 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
             out.append(x_next)
             pubs.append(y_pub)
             losses.append(loss_last)
-        return out, pubs, join_lanes(losses, dev0)
+        return out, pubs, join_lanes(losses[::mp], dev0)
 
     body = quant_tail if quant_on else fp32_tail
 
@@ -1130,10 +1156,13 @@ def _deferred(mixed: Params, v1: Params, gK: Params, et) -> Params:
 
 def _dense_fused_tail(loss_fn, quant, W, device, gate, mesh, et) -> Callable:
     """:func:`make_fused_tail` without a plan: the dense reference, on the
-    gathered lanes of a mesh."""
+    gathered lanes of a mesh (a 2D mesh's column 0, its results handed
+    to every column)."""
     quant_on = quant is not None and quant.enabled
-    devs = _mesh_devices(mesh) if mesh is not None else [
-        resolve_device(device)]
+    grid = (_mesh_grid(mesh) if mesh is not None else
+            np.array([[resolve_device(device)]], dtype=object))
+    devs, mp = list(grid[:, 0]), grid.shape[1]
+    dims = {} if mp > 1 else None
     dev = devs[0]
     W0 = None if W is None else _device_w(W, dev)
 
@@ -1163,11 +1192,11 @@ def _dense_fused_tail(loss_fn, quant, W, device, gate, mesh, et) -> Callable:
     def dense_mesh_tail(xs, ys, vs, gs, batch_last, keys_last, key_q,
                         active=None, W=None):
         x_next, y_pub, loss_last = dense_tail(
-            *(join_lanes(t, dev) for t in (xs, ys, vs, gs, batch_last,
-                                           keys_last)),
+            *(join_lanes(t[::mp], dev) for t in (xs, ys, vs, gs, batch_last,
+                                                 keys_last)),
             key_q, active, W)
-        return (split_lanes(x_next, devs), split_lanes(y_pub, devs),
-                loss_last)
+        return (cut_columns(split_lanes(x_next, devs), dims, grid),
+                cut_columns(split_lanes(y_pub, devs), dims, grid), loss_last)
 
     return dense_mesh_tail
 

@@ -1,5 +1,7 @@
 """b-bit quantizers (paper §3.2, Assumption 4), PyTorch port of the JAX
-package's ``core/quantize.py`` — the part the main path uses.
+package's ``core/quantize.py``: the quantizer, the sequential bit packing
+of a 1-D code vector and the per-leaf pytree helpers. Packed u32 words
+travel as int32 bit patterns, as everywhere in the port.
 
 The grid is ``{-2^{b-1} s, ..., (2^{b-1}-1) s}``:
 
@@ -18,7 +20,11 @@ import torch
 from .. import prng
 
 __all__ = ["QuantConfig", "scale_from_amax", "quantize_int",
-           "dequantize_int", "message_bits"]
+           "dequantize_int", "quantize", "packed_len", "pack_bits",
+           "unpack_bits", "quantize_pytree", "dequantize_pytree",
+           "message_bits"]
+
+Params = dict[str, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +110,94 @@ def quantize_int(x: torch.Tensor, cfg: QuantConfig,
 def dequantize_int(k: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_int`: levels k [..., n], s [...]."""
     return k.to(torch.float32) * s[..., None]
+
+
+def quantize(x: torch.Tensor, cfg: QuantConfig,
+             key: torch.Tensor | None = None) -> torch.Tensor:
+    """Round-trip quantize: Q(x) as f32 (paper's Q operator, eq. 6), one
+    per-tensor scale over all of ``x``; stochastic rounding draws
+    ``uniform(key, x.shape)`` (flat, as the reference's partitionable
+    threefry orders it)."""
+    if not cfg.enabled:
+        return x.to(torch.float32)
+    k, s = quantize_int(x.reshape(-1), cfg, key)
+    return dequantize_int(k, s).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Bit packing: int32 in [qmin, qmax] -> offset b-bit fields in u32 words
+# ---------------------------------------------------------------------------
+
+def packed_len(n: int, bits: int) -> int:
+    """u32 words needed to pack n ``bits``-wide fields (ceil division)."""
+    per = 32 // bits
+    return -(-n // per)  # ceil
+
+
+def _shifts(bits: int, device) -> torch.Tensor:
+    return torch.arange(32 // bits, dtype=torch.int64, device=device) * bits
+
+
+def pack_bits(k: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack signed ints (1-D, any length) into a u32 word array (int32
+    bit patterns): ``k + 2^{b-1}`` offset-encoded, 32/b fields a word,
+    field i of a word shifted by ``b * i``. 32 bits is a bit-cast."""
+    if bits == 32:
+        return k.to(torch.int32)
+    per = 32 // bits
+    n = k.shape[0]
+    off = k.to(torch.int64) + (1 << (bits - 1))
+    off = torch.nn.functional.pad(off, (0, packed_len(n, bits) * per - n))
+    words = (off.reshape(-1, per) << _shifts(bits, k.device)).sum(dim=1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits` -> int32 of length n."""
+    if bits == 32:
+        return words.to(torch.int32)[:n]
+    u = words.to(torch.int64) & 0xFFFFFFFF
+    fields = (u[:, None] >> _shifts(bits, words.device)) & ((1 << bits) - 1)
+    return (fields.reshape(-1) - (1 << (bits - 1))).to(torch.int32)[:n]
+
+
+# ---------------------------------------------------------------------------
+# Pytree helpers — quantize every leaf of a model delta
+# ---------------------------------------------------------------------------
+
+def quantize_pytree(tree: Params, cfg: QuantConfig,
+                    key: torch.Tensor | None = None,
+                    pack: bool = True) -> tuple[Params, Params]:
+    """Quantize every leaf of a flat dict, in ``jax.tree.flatten`` order
+    (sorted names): one key a leaf from ``split(key, n_leaves)``, each
+    leaf's noise ``uniform(key_i, (n_i,))`` (T2 on the card). Returns
+    (wire, scales): packed words (int32 bit patterns; ``pack=False``:
+    the int32 codes) and 0-dim f32 scales, by name."""
+    names = sorted(tree)
+    if cfg.stochastic and cfg.enabled:
+        if key is None:
+            raise ValueError("stochastic quantization needs a PRNG key")
+        keys = list(prng.split(key, len(names)))
+    else:
+        keys = [None] * len(names)
+    wire, scales = {}, {}
+    for name, k in zip(names, keys):
+        code, s = quantize_int(tree[name].reshape(-1), cfg, k)
+        wire[name] = pack_bits(code, cfg.bits) if pack else code
+        scales[name] = s
+    return wire, scales
+
+
+def dequantize_pytree(wire: Params, scales: Params, like: Params,
+                      cfg: QuantConfig, packed: bool = True) -> Params:
+    """Inverse of :func:`quantize_pytree`; ``like`` supplies shapes."""
+    out = {}
+    for name, ref in like.items():
+        n = ref.numel()
+        code = unpack_bits(wire[name], cfg.bits, n) if packed else wire[name]
+        out[name] = dequantize_int(code, scales[name]).reshape(ref.shape)
+    return out
 
 
 def message_bits(d: int, cfg: QuantConfig) -> int:

@@ -60,6 +60,18 @@ def _shifts(bits: int, device) -> torch.Tensor:
             * bits)[:, None]
 
 
+def unpack_dequant_ref(words: torch.Tensor, bits: int, s: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """Inverse of the planar pack of one flat tensor (up to the
+    quantization itself): int32 words [W] and its scale ``s`` -> f32 [n],
+    element ``i * W + w`` from field i of word w."""
+    per = 32 // bits
+    fields = (i32_to_u32(words)[None, :] >> _shifts(bits, words.device)) \
+        & ((1 << bits) - 1)
+    k = (fields - (1 << (bits - 1))).to(torch.float32)
+    return (k * s.to(torch.float32)).reshape(per * words.shape[0])[:n]
+
+
 def quantize_pack_buffer_ref(x: torch.Tensor, block_scales: torch.Tensor,
                              bits: int, noise: torch.Tensor | None = None
                              ) -> torch.Tensor:

@@ -30,11 +30,10 @@ wire lines. Each shard's local step joins its cells on its first
 column's card (``core.dfedavgm``: the reference leaves that step to
 GSPMD), so the losses are bitwise the 1D mesh's; ``--pool``,
 ``--mixer-impl dense`` and ``--fuse-round`` refuse it, as in the
-reference. ``--wire`` is kept for the
-reference's CLI: ``auto`` and ``planar`` run the planar buffer kernels
-(B1/B2), the card's one codec, and ``seq`` (the reference's XLA lowering
-of the same math) raises. ``--device`` picks the card (the default) or
-``cpu``.
+reference. ``--wire`` takes the reference's codec names; the port has
+one codec, so ``auto``, ``seq`` and ``planar`` all run the planar buffer
+kernels (B1/B2, B4/B5 fused).
+``--device`` picks the card (the default) or ``cpu``.
 """
 from __future__ import annotations
 
@@ -265,9 +264,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "the boundary edges")
     ap.add_argument("--wire", default="auto",
                     choices=["auto", "seq", "planar"],
-                    help="wire codec of the sparse mixer: auto and planar "
-                         "both run the planar buffer kernels (B1/B2), the "
-                         "port's one codec; seq raises")
+                    help="wire codec of the sparse mixer, as the "
+                         "reference names them; every value runs the "
+                         "planar buffer kernels (B1/B2)")
     ap.add_argument("--self-weight", type=float, default=0.5,
                     help="ring self weight (0.5 => PSD W, safe for Alg. 2)")
     ap.add_argument("--fuse-round", action="store_true",
@@ -332,18 +331,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args, m: int) -> None:
-    """The reference's second wire codec raises; a shard size that does
-    not divide m exits, and so do the 2D mesh's refusals, as in the
-    reference."""
+    """A shard size that does not divide m exits, and so do the 2D
+    mesh's refusals, as in the reference."""
     _refuse_2d(args)
     cps = args.clients_per_shard
     if cps is not None and (cps < 1 or m % cps):
         raise SystemExit(f"--clients-per-shard {cps} must be >= 1 and "
                          f"divide --clients {m}")
-    if args.wire == "seq":
-        raise SystemExit("--wire seq is the reference's XLA lowering of the "
-                         "wire codec; the port has one codec, the planar "
-                         "buffer kernels (--wire auto or planar)")
 
 
 def _refuse_2d(args) -> None:
@@ -467,7 +461,8 @@ def run_resident(args, cfg, log, tracer, mesh=None):
             else args.mixer_impl)
     dfed = DFedAvgMConfig(eta=args.eta, theta=args.theta,
                           local_steps=args.local_steps, quant=quant,
-                          mixer_impl=impl, fuse_round=args.fuse_round)
+                          mixer_impl=impl, wire=args.wire,
+                          fuse_round=args.fuse_round)
     sparse = dfed.mixer_config().resolved_impl(spec) != "dense"
     placement = None
     if args.placement == "partition":

@@ -9,7 +9,10 @@ reference's ``comm_cost`` at the same m, rounds and d, the topology
 bench's lambda rows are the reference's, the time-varying rows bill the
 reference's schedule bits, the async row has the reference's fields and
 the pool bench (``bench_pool.py``) reports its pooled arm bitwise with
-the resident one, billed and FLOP-counted equal; a two-round Fig. 6
+the resident one, billed and FLOP-counted equal, and the rows of
+``bench_mia.py``, ``bench_comm_cost.py`` and ``bench_kernels.py``
+(``tests/test_torch_bench_ride_alongs.py`` holds their values); a
+two-round Fig. 6
 DFedAvgM arm tracks the reference's. A failing bench makes the runner
 exit non-zero.
 
@@ -24,6 +27,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.configs import list_archs as j_list_archs  # noqa: E402
 from repro.core import MixingSpec as JMixingSpec  # noqa: E402
 from repro.core import comm_cost as jcc  # noqa: E402
 from repro_torch.bench import (async_compare, charlm, cnn,  # noqa: E402
@@ -58,6 +62,14 @@ def reference_rows():
               "placement_ring_chords_partition_vs_contiguous"]
     names.append("async_vs_sync_straggler")
     names += ["pool/m=4096", "pool/compare"]
+    # bench_mia at the port's smoke size (2 rounds), bench_comm_cost's
+    # Prop. 3 table and bench_kernels' rows of the plain versions (the
+    # card adds one row for each entry point; the CPU runs none).
+    names.append("mia/dfedavgm/rounds2")
+    names += [f"prop3/{a}/b{b}" for a in j_list_archs() for b in (8, 4)]
+    names += [f"kernels/{k}" for k in (
+        "encode_ref/b8", "dequant_mix_ref/b8", "encode_ref/b4",
+        "dequant_mix_ref/b4", "momentum_ref")]
     return names
 
 
@@ -164,6 +176,20 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys, monkeypatch,
             assert set(fields) == ({"rps", "k"} if name != "pool/compare"
                                    else {"pooled", "resident",
                                          "cost_ratio", "bitwise"}), name
+            continue
+        if name.startswith(("mia/", "prop3/")):  # no time, as the reference
+            fields = dict(f.split("=") for f in derived.split(";"))
+            assert float(us) == 0.0, name
+            assert set(fields) == ({"auc"} if name.startswith("mia/") else
+                                   {"wins", "roundGB32", "roundGBq",
+                                    "saving"}), name
+            if name.startswith("mia/"):
+                assert 0.0 <= float(fields["auc"]) <= 1.0, name
+            continue
+        if name.startswith("kernels/"):   # the plain versions, timed
+            assert float(us) > 0 and derived in {
+                "wire_saving=4x", "wire_saving=8x", "fused=1pass",
+                "hbm_traffic=5N"}, name
             continue
         assert math.isfinite(float(us)) and float(us) > 0, name
         fields = dict(f.split("=") for f in derived.replace(

@@ -63,6 +63,11 @@ def test_the_port_has_modules_to_check():
     for mod in ("sharding/__init__.py", "sharding/rules.py",
                 "models/model.py", "launch/mesh.py", "bench/timevarying.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+    # The membership-inference probe and its ride-alongs.
+    for mod in ("privacy/__init__.py", "privacy/mia.py", "bench/mia.py",
+                "bench/kernels.py", "bench/comm_cost.py", "core/quantize.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    assert "examples/nonIID_vs_IID_torch.py" in names
     assert "chip_smoke.py" in names and len(names) > 20
 
 

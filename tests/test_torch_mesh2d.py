@@ -495,9 +495,54 @@ def test_fused_tail_refuses_model_sharded_specs():
         T.make_fused_tail(loss_fn, M, eta=0.05, theta=0.5,
                           plan=sched.gossip_plan(), mesh=mesh,
                           param_specs={"w": P("clients", None, "model")})
-    with pytest.raises(ValueError, match="1D client mesh"):
-        T.make_fused_tail(loss_fn, M, eta=0.05, theta=0.5,
-                          plan=sched.gossip_plan(), mesh=mesh)
+    # Specs that cut no leaf: every column holds the whole model and runs
+    # the 1D fused tail (test_fused_2d_mesh_without_a_cut_is_the_1d_round).
+    tail = T.make_fused_tail(loss_fn, M, eta=0.05, theta=0.5,
+                             plan=sched.gossip_plan(), mesh=mesh)
+    assert tail.tables.mp == 4 and len(tail.tables.src) == 8
+
+
+@pytest.mark.parametrize("kind, qname, specs", [
+    ("ring", "q8_stoch", None), ("ring", "fp32", None),
+    ("edge_sample", "q8_stoch", {"w1": P("clients", None, None)}),
+    ("cycle", "q8_stoch", None)],
+    ids=["ring-q8", "ring-fp32", "edge_sample-q8-replicated-spec",
+         "cycle-q8-dense-tail"])
+def test_fused_2d_mesh_without_a_cut_is_the_1d_round(kind, qname, specs):
+    """Three fused rounds on a (2, 4) mesh whose specs cut no leaf (none,
+    or replicated only) are bitwise the 1D mesh's fused rounds, which
+    ``tests/test_torch_mesh.py`` holds against the reference; every
+    column's cells hold the same values, and the metrics are the 1D
+    mesh's. A cycle takes the dense tail (column 0's lanes gathered)."""
+    stacked, batches = _2nn()
+    spec = {"ring": T.MixingSpec.ring(M, 0.5),
+            "edge_sample": T.TopologySchedule.edge_sample(T.ring_graph(M),
+                                                          0.7),
+            "cycle": T.TopologySchedule.cycle([T.MixingSpec.ring(M, 0.5),
+                                               T.MixingSpec.ring(M, 1 / 3)])
+            }[kind]
+    cfg = T.DFedAvgMConfig(eta=0.1, theta=0.9, local_steps=2,
+                           quant=quant(qname), mixer_impl="sparse",
+                           fuse_round=True)
+    mesh2 = make_test_mesh(2, model_parallel=4, device="cpu")
+    step = T.make_round_step(_loss_2nn, cfg, spec, device="cpu", mesh=mesh2,
+                             param_specs=specs)
+    st = T.init_round_state(stacked, prng.PRNGKey(11), mesh=mesh2,
+                            param_specs=specs)
+    mets = []
+    for _ in range(3):
+        st, mt = step(st, batches)
+        mets.append(mt)
+    want, want_mets = _run_rounds(spec, cfg, make_test_mesh(2, "cpu"), None,
+                                  stacked, batches)
+    assert len(st.params) == 8
+    for s in range(2):
+        for c in range(4):
+            equal(st.params[s * 4 + c], st.params[s * 4], f"cell {s},{c}")
+    equal(mesh2.gather(st.params, specs), want, "2d fused vs 1d fused")
+    for a, b in zip(mets, want_mets):
+        for k in b:
+            assert torch.equal(a[k], b[k]), k
 
 
 @pytest.mark.parametrize("extra, match", [

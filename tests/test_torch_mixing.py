@@ -187,3 +187,126 @@ def test_without_a_card_the_default_device_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_mixer(MixingSpec.ring(M), MixerConfig(quant=QuantConfig()))
+
+
+# ---------------------------------------------------------------------------
+# The wire codec option: "auto" | "seq" | "planar"
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("wire", ["auto", "seq", "planar", "bogus"])
+def test_wire_codec_values_and_message(wire):
+    """``MixerConfig(wire=)`` and ``DFedAvgMConfig(wire=)`` take the
+    reference's three codecs and refuse any other with its message (the
+    reference's ``DFedAvgMConfig`` refuses it when it builds its
+    ``MixerConfig``)."""
+    from repro.core import DFedAvgMConfig as JDFedAvgMConfig
+    from repro.core import MixerConfig as JMixerConfig
+    from repro_torch.core import DFedAvgMConfig
+    if wire != "bogus":
+        assert MixerConfig(wire=wire).wire == JMixerConfig(wire=wire).wire
+        assert DFedAvgMConfig(wire=wire).mixer_config().wire == wire
+        return
+    with pytest.raises(ValueError) as want:
+        JMixerConfig(wire=wire)
+    with pytest.raises(ValueError) as want_cfg:
+        JDFedAvgMConfig(wire=wire).mixer_config()
+    assert str(want.value) == str(want_cfg.value)
+    for make in (MixerConfig, DFedAvgMConfig):
+        with pytest.raises(ValueError) as got:
+            make(wire=wire)
+        assert str(got.value) == str(want.value)
+
+
+KERNEL_WRAPPERS = ("quantize_pack_buffer", "dequant_mix_buffer",
+                   "momentum_quantize_pack_buffer",
+                   "dequant_mix_momentum_buffer")
+# Every realization the reference's ``wire`` reaches: the plan mixer, the
+# scheduled (event) mixer, a cycle, the async event step, the block
+# executor on a 1D and a 2D mesh, and the fused tail (one device, mesh).
+WIRE_PATHS = ("ring", "edge_sample", "cycle", "async", "mesh1d",
+              "mesh2d", "fused", "fused_mesh1d", "fused_mesh2d")
+
+
+def _wire_round(path: str, wire: str):
+    """Two 8-bit stochastic rounds of a small 2NN over ``path`` with the
+    given codec; returns the gathered params and the kernel wrappers'
+    calls counted by name."""
+    import repro_torch.core.wire_layout as WL
+    from repro_torch.core import (AsyncConfig, DFedAvgMConfig, SpeedModel,
+                                  TopologySchedule, init_async_state,
+                                  init_round_state, make_round_step,
+                                  ring_graph)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.paper_nets import apply_2nn, init_2nn
+    from repro_torch.sharding import P
+    m = 8
+    p0 = init_2nn(0, d_in=32, d_hidden=16, n_classes=8, device="cpu")
+    stacked = {n: v[None].expand((m,) + tuple(v.shape)).contiguous()
+               for n, v in p0.items()}
+    rng = np.random.default_rng(3)
+    batches = {"x": torch.tensor(rng.normal(size=(m, 2, 4, 32)),
+                                 dtype=torch.float32),
+               "y": torch.tensor(rng.integers(0, 8, size=(m, 2, 4)))}
+
+    def loss(p, b, r):
+        logp = torch.log_softmax(apply_2nn(p, b["x"]), dim=-1)
+        return -logp.gather(-1, b["y"][..., None])[..., 0].mean(dim=-1)
+
+    spec = {"edge_sample": TopologySchedule.edge_sample(ring_graph(m), 0.7),
+            "cycle": TopologySchedule.cycle([MixingSpec.ring(m, 0.5),
+                                             MixingSpec.ring(m, 1 / 3)])
+            }.get(path, MixingSpec.ring(m, 0.5))
+    mesh = specs = None
+    if path.endswith("mesh1d"):
+        mesh = make_test_mesh(2, "cpu")
+    elif path.endswith("mesh2d"):
+        mesh = make_test_mesh(2, model_parallel=2, device="cpu")
+        if not path.startswith("fused"):
+            specs = {"w1": P("clients", None, "model"),
+                     "b1": P("clients", "model")}
+    cfg = DFedAvgMConfig(eta=0.1, theta=0.9, local_steps=2,
+                         quant=QuantConfig(bits=8), mixer_impl="sparse",
+                         wire=wire, fuse_round=path.startswith("fused"))
+    calls = dict.fromkeys(KERNEL_WRAPPERS, 0)
+    saved = {n: getattr(WL, n) for n in KERNEL_WRAPPERS}
+
+    def counted(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return saved[name](*a, **kw)
+        return fn
+
+    for n in KERNEL_WRAPPERS:
+        setattr(WL, n, counted(n))
+    try:
+        if path == "async":
+            speed = SpeedModel.lognormal(1.0, 0.5)
+            step = make_round_step(loss, cfg, spec, device="cpu",
+                                   async_cfg=AsyncConfig(speed=speed))
+            st = init_async_state(stacked, prng.PRNGKey(11), speed)
+        else:
+            step = make_round_step(loss, cfg, spec, device="cpu", mesh=mesh,
+                                   param_specs=specs)
+            st = init_round_state(stacked, prng.PRNGKey(11), mesh=mesh,
+                                  param_specs=specs)
+        for _ in range(2):
+            st, _ = step(st, batches)
+    finally:
+        for n, f in saved.items():
+            setattr(WL, n, f)
+    params = st.params if mesh is None else mesh.gather(st.params, specs)
+    return params, calls
+
+
+@pytest.mark.parametrize("path", WIRE_PATHS)
+def test_every_wire_codec_runs_the_kernels_on_every_path(path):
+    """The port has one codec: ``wire="seq"`` is accepted on every
+    realization and calls the kernel wrappers (B1, B2, B4, B5) exactly as
+    ``"planar"`` does (on CPU tensors they run their plain versions, on
+    CUDA tensors their kernels), so the params are bitwise."""
+    seq, seq_calls = _wire_round(path, "seq")
+    planar, planar_calls = _wire_round(path, "planar")
+    assert sum(planar_calls.values()) > 0, planar_calls
+    assert seq_calls == planar_calls
+    for n in planar:
+        assert torch.equal(seq[n], planar[n]), n

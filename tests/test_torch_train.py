@@ -15,8 +15,9 @@ round and end record's fields equal (floats within rtol 1e-5; ``wall_s``
 and ``time`` are the clock's). Then one bf16 round against the JAX round
 built with the Pallas update in interpret mode (its bf16 semantics), the
 pooled, async and telemetry paths one round each, and the refusals of
-the 2D mesh, of ``--placement partition`` without a client mesh and of
-the reference's second wire codec.
+the 2D mesh and of ``--placement partition`` without a client mesh, and
+the reference's second wire codec (``--wire seq``) held to ``--wire
+auto``.
 """
 import dataclasses
 import json
@@ -216,13 +217,21 @@ def test_other_modes_run_one_round(tmp_path, mode):
 @pytest.mark.parametrize("argv, match", [
     (["--model-parallel", "2"], "needs >= 2 devices"),
     (["--placement", "partition"], "sparse backend"),
-    (["--wire", "seq"], "one codec")],
+    (["--wire", "seq"], None)],
     ids=["model-parallel", "partition", "wire-seq"])
 def test_unported_layouts_and_codec_raise(argv, match):
-    """The second wire codec raises; ``--placement partition`` without a
-    client mesh exits as the reference's does, and so does ``--model-
-    parallel 2`` on a host without the 1 x 2 cards of its 2D mesh (the
-    multi-shard layouts run on test meshes: ``tests/test_torch_mesh.py``
-    and ``tests/test_torch_mesh2d.py``)."""
+    """``--placement partition`` without a client mesh exits as the
+    reference's does, and so does ``--model-parallel 2`` on a host
+    without the 1 x 2 cards of its 2D mesh (the multi-shard layouts run
+    on test meshes: ``tests/test_torch_mesh.py`` and
+    ``tests/test_torch_mesh2d.py``). The reference's second wire codec
+    (``--wire seq``) runs the port's one codec: its 8-bit run's losses
+    and consensus equal ``--wire auto``'s."""
+    if match is None:
+        runs = [TT.main(BASE + ["--device", "cpu", "--bits", "8"] + a)[1]
+                for a in (argv, ["--wire", "auto"])]
+        for k in ("loss", "consensus_dist"):
+            assert float(runs[0][k]) == float(runs[1][k]), k
+        return
     with pytest.raises(SystemExit, match=match):
         TT.main(BASE + ["--device", "cpu"] + argv)
