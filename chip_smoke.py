@@ -5713,11 +5713,13 @@ def cards_phase(dev, flush=None) -> dict:
     clients_per_shard=4)``, one card a shard, so every boundary transfer
     is a copy between two cards, against the one-device round on cuda:0
     (:func:`mesh_rounds`: bitwise, exact launches; eager, since
-    ``capture_step`` refuses a mesh over several cards); then the 2D arm
+    ``capture_step`` refuses a mesh over several cards); then the 2D arms
     on ``make_client_mesh(16, clients_per_shard=8, model_parallel=2)``,
     one card a cell, against the 1D mesh of 2 shards on cuda:0 alone
-    (:func:`mesh2d_rounds`: bitwise, exact launches, eager,
-    ``capture_step`` refused)."""
+    (:func:`mesh2d_rounds`: the joined step bitwise, the tensor-parallel
+    step's losses within its tolerances of it, its broadcasts and sums
+    copies between cards; exact launches, eager, ``capture_step``
+    refused)."""
     from repro_torch.launch.mesh import make_client_mesh, make_test_mesh
     del flush
     mesh = make_client_mesh(M, clients_per_shard=M // MESH_SHARDS)
@@ -5735,6 +5737,7 @@ def cards_phase(dev, flush=None) -> dict:
                     for i in range(torch.cuda.device_count())],
         "round_ms_median": {k: rec[k]["round_ms_median"]
                             for k in ("unfused", "fused", "2d")},
+        "tp_loss_rel_diff_max": rec["2d"]["tp"]["loss_rel_diff_max"],
         "capture_refused_2d": "capture_refused" in rec["2d"],
         "phase_s": rec["phase_s"]}}), flush=True)
     return rec
@@ -5753,14 +5756,50 @@ MESH2D_DRIVER_ARGV = ["--bits", "8", "--clients", "8",
                       "--clients-per-shard", "4"]
 MESH2D_CONSENSUS_RTOL = 1e-5
 MESH2D_T2_KEYS = 8
-# What this PR's PERF.md predicted before the first run on the card.
+# The tensor-parallel quickstart's losses against the joined arm's: the
+# first MESH2D_TP_LOSS_ROUNDS rounds within the CPU tests' tolerance
+# (tests/test_torch_tensor_parallel.py holds 3 q8 stochastic rounds to
+# 1e-5), every round within MESH2D_TP_LOSS_DRIFT. Past a few rounds the
+# float-order differences of the row- and column-parallel sums have
+# flipped some stochastic-rounding decisions of the 8-bit wire, each a
+# parameter moved by one quantizer level, and the two trajectories
+# separate: the CPU run of these 12 rounds drifts to 1.4e-4 relative.
+MESH2D_TP_LOSS_RTOL, MESH2D_TP_LOSS_ROUNDS = 1e-5, 3
+MESH2D_TP_LOSS_DRIFT = 1e-3
+# The driver's arms on SmolLM-135M, in turns: (name, model_parallel, the
+# local step it must log); the 1D run of the same 2 shards is the oracle.
+MESH2D_DRIVER_ORDER = ("1d", "joined22", "tp22", "tp23", "tp22",
+                       "joined22")
+MESH2D_DRIVER_ARMS = {"1d": (1, "whole"), "joined22": (2, "joined"),
+                      "tp22": (2, "tensor_parallel"),
+                      "tp23": (3, "tensor_parallel")}
+# What PERF.md predicted before the first run on the card: the joined
+# arms, then the tensor-parallel arms (the "tp_" and "driver_tp" keys).
+# ``driver_tp_loss_rel_bound`` is a gate: the tensor-parallel driver's
+# losses against the 1D run's, relative, each round. Derivation: every
+# activation and weight is bf16, whose unit roundoff is 2^-9; a
+# row-parallel product rounds each column's partial to bf16 before the
+# f32 sum (one extra rounding a product), and the vocabulary's
+# log-softmax sums in another order. Those are independent errors of
+# relative size 2^-9 on each logit; averaged over 4 x 128 tokens a lane
+# and 8 lanes they move the mean loss by ~2^-9 / 64 ~ 3e-5 relative.
+# The bound is one bf16 ulp of the loss itself, 2^-8 (rounded up from
+# 2 x 2^-9): two orders above that estimate, and far below what a
+# missing, doubled or misplaced column costs (O(1) in the loss).
 MESH2D_PREDICTION = {
     "eager_round_ms": [45, 60], "replay_ms": [4.0, 5.0],
     "graph_nodes": [1600, 1900], "column_bytes_a_round": 4341952,
     "wire_ratio_1d_over_2d": {"32": 4.0, "8": 3.9993},
     "driver_round_ms": [2500, 3500], "driver_peak_gib": [35, 40],
     "b1_tensor_noise_cell_us": [6, 10], "b2_cell_us": [6, 10],
-    "t2_smollm_leaf_8_keys_ms": [1.0, 1.5]}
+    "t2_smollm_leaf_8_keys_ms": [1.0, 1.5],
+    "tp_eager_round_ms": [60, 80], "tp_replay_ms": [5.0, 7.5],
+    "tp_graph_nodes": [2000, 2700], "tp_b3_a_round": 32,
+    "tp_loss_rel_to_joined": [0, 1e-5],
+    "driver_tp22_round_ms": [1800, 2600],
+    "driver_tp23_round_ms": [2000, 3000],
+    "driver_tp22_peak_gib": [29, 35], "driver_tp23_peak_gib": [29, 36],
+    "driver_tp_loss_rel_bound": 2 ** -8}
 
 
 def mesh2d_specs() -> dict:
@@ -5773,15 +5812,19 @@ def mesh2d_specs() -> dict:
 
 
 def mesh2d_expected(shards: int = MESH2D_SHARDS, mp: int = MESH2D_MP,
-                    rounds: int = 1, n_leaves: int = 6) -> dict:
+                    rounds: int = 1, n_leaves: int = 6,
+                    tp: bool = False) -> dict:
     """Launches of ``rounds`` unfused quickstart rounds at 8-bit
     stochastic lemma5 on a (shards, mp) mesh: B1 and B2 once a cell, B3
-    once a local step a shard (on its joined lanes), T2 once a leaf (the
-    full leaf's noise over the m keys), T1 as on the 1D mesh of the same
-    shards (round and client keys, the per-leaf keys, a split a shard)."""
+    once a local step a shard on the joined step (its joined lanes) and
+    once a local step a cell on the tensor-parallel step (``tp``), T2
+    once a leaf (the full leaf's noise over the m keys), T1 as on the 1D
+    mesh of the same shards (round and client keys, the per-leaf keys, a
+    split a shard)."""
     e = {k: 0 for k in KERNEL_SOURCES}
     e.update(quantize_pack_buffer=shards * mp,
-             dequant_mix_buffer=shards * mp, momentum_sgd=K * shards,
+             dequant_mix_buffer=shards * mp,
+             momentum_sgd=K * shards * (mp if tp else 1),
              threefry_split=3 + shards, threefry_uniform=n_leaves)
     return {k: v * rounds for k, v in e.items()}
 
@@ -5858,18 +5901,25 @@ def mesh2d_rounds(dev, mesh2=None, mesh1=None) -> dict:
     """The quickstart (2NN, m 16, ring 0.5, K 4, batch 32, 8-bit
     stochastic lemma5) on a (MESH2D_SHARDS, MESH2D_MP) mesh of cuda:0 (or
     ``mesh2``, one card a cell, against ``mesh1`` on cuda:0) under the
-    hand specs: the mixer gate in four modes, ROUNDS eager rounds in
-    turns with the 1D mesh of the same shards (bitwise each round, exact
-    launches of the 2D arm), then on a shared card ROUNDS captured rounds
-    of each in turns (captured bitwise with eager; the 2D graph holds
-    one round's kernel nodes), graph nodes and replay ms of both, and the
-    per-column bytes against the bill; over several cards
-    ``capture_step`` must refuse."""
+    hand specs: the mixer gate in four modes, then ROUNDS eager rounds of
+    three arms in turns — the 1D mesh of the same shards, the joined
+    step (the quickstart's opaque loss: bitwise with the 1D mesh each
+    round, exact launches) and the tensor-parallel step
+    (``paper_nets.make_2nn_loss``: exact launches, B3 once a step a
+    cell, its losses within MESH2D_TP_LOSS_RTOL of the joined arm's for
+    MESH2D_TP_LOSS_ROUNDS rounds and within MESH2D_TP_LOSS_DRIFT after)
+    — then on a shared card ROUNDS captured rounds of each
+    in turns (captured bitwise with eager, the joined arm also with the
+    1D mesh; each 2D graph holds one round's kernel nodes), graph nodes
+    and replay ms of all three, and the per-column bytes against the
+    bill; over several cards ``capture_step`` must refuse both 2D
+    steps."""
     from repro_torch import prng
     from repro_torch.core import (capture_step, init_round_state,
                                   make_round_step)
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.paper_nets import make_2nn_loss
 
     if mesh2 is None:
         mesh2 = make_test_mesh(MESH2D_SHARDS, model_parallel=MESH2D_MP,
@@ -5880,90 +5930,126 @@ def mesh2d_rounds(dev, mesh2=None, mesh1=None) -> dict:
     specs = mesh2d_specs()
     setup = quickstart_setup(dev)
     data, fed, stacked, spec, cfg, loss_fn, _ = setup
+    tp_loss = make_2nn_loss()
     batches = [fed.round_batches(t, K=K, batch=BATCH, device=dev)
                for t in range(ROUNDS)]
     gate = mesh2d_mixer_gate(dev, mesh2, mesh1, setup, batches[0])
     boundary = mesh2d_boundary(gate.pop("tables"), stacked, cfg.quant, spec,
                                mesh2.model_parallel)
+    arms = ("1d", "2d", "tp")
 
-    def step_2d():
-        return make_round_step(loss_fn, cfg, spec, mesh=mesh2,
-                               param_specs=specs)
+    def step_of(arm):
+        if arm == "1d":
+            return make_round_step(loss_fn, cfg, spec, mesh=mesh1)
+        return make_round_step(tp_loss if arm == "tp" else loss_fn, cfg,
+                               spec, mesh=mesh2, param_specs=specs)
 
-    def step_1d():
-        return make_round_step(loss_fn, cfg, spec, mesh=mesh1)
-
-    steps = {"1d": step_1d(), "2d": step_2d()}
-    s0 = {"1d": init_round_state(stacked, prng.PRNGKey(1), mesh=mesh1),
-          "2d": init_round_state(stacked, prng.PRNGKey(1), mesh=mesh2,
-                                 param_specs=specs)}
+    steps = {arm: step_of(arm) for arm in arms}
+    kinds = {arm: steps[arm].local_step for arm in arms}
+    if kinds != {"1d": "whole", "2d": "joined", "tp": "tensor_parallel"}:
+        raise AssertionError(f"mesh {name}: local steps {kinds}")
+    s0 = {arm: init_round_state(stacked, prng.PRNGKey(1), mesh=mesh1)
+          if arm == "1d" else init_round_state(
+              stacked, prng.PRNGKey(1), mesh=mesh2, param_specs=specs)
+          for arm in arms}
     states = dict(s0)
-    ms = {k: [] for k in ("1d", "2d")}
-    total = {k: 0 for k in KERNEL_SOURCES}
-    losses, apart = [], None
+    ms = {arm: [] for arm in arms}
+    total = {arm: {k: 0 for k in KERNEL_SOURCES} for arm in ("2d", "tp")}
+    losses = {arm: [] for arm in arms}
+    consensus = {arm: [] for arm in arms}
+    apart = None
     for t, b in enumerate(batches):
-        for arm in ("1d", "2d"):
+        for arm in arms:
             sync_all()
             reset_launch_counts()
             t0 = time.perf_counter()
             states[arm], met = steps[arm](states[arm], b)
             sync_all()
             ms[arm].append((time.perf_counter() - t0) * 1e3)
-            if arm == "2d":
+            if arm != "1d":
                 counts = launch_counts()
-                total = {k: total[k] + counts[k] for k in total}
-                losses.append(float(met["loss"]))
+                total[arm] = {k: total[arm][k] + counts[k]
+                              for k in total[arm]}
+            losses[arm].append(float(met["loss"]))
+            consensus[arm].append(float(met["consensus_dist"]))
         got = mesh2.gather(states["2d"].params, specs)
         want = mesh1.gather(states["1d"].params)
         diff = {n: ulp_diff(got[n], want[n]) for n in want}
         if apart is None and any(diff.values()):
             apart = {"round": t, "ulp": diff}
-    expect = mesh2d_expected(mesh2.n_shards, mesh2.model_parallel,
-                             rounds=ROUNDS)
-    if total != expect:
-        raise AssertionError(f"mesh {name}: launches {total} != {expect}")
+    for arm in ("2d", "tp"):
+        expect = mesh2d_expected(mesh2.n_shards, mesh2.model_parallel,
+                                 rounds=ROUNDS, tp=arm == "tp")
+        if total[arm] != expect:
+            raise AssertionError(f"mesh {name} {arm}: launches "
+                                 f"{total[arm]} != {expect}")
     if apart is not None:
         raise AssertionError(f"mesh {name}: rounds part from the 1D mesh's "
                              f"at {apart}")
-    if not all(math.isfinite(v) for v in losses):
+    if not all(math.isfinite(v) for arm in arms for v in losses[arm]):
         raise AssertionError(f"mesh {name}: non-finite loss {losses}")
+    tp_rel = [abs(a - b) / abs(b) for a, b in zip(losses["tp"],
+                                                   losses["2d"])]
+    if (max(tp_rel[:MESH2D_TP_LOSS_ROUNDS]) > MESH2D_TP_LOSS_RTOL
+            or max(tp_rel) > MESH2D_TP_LOSS_DRIFT):
+        raise AssertionError(f"mesh {name}: tensor-parallel losses "
+                             f"{losses['tp']} against joined "
+                             f"{losses['2d']} (rel {tp_rel})")
+    tp = {"launches": total["tp"], "loss": losses["tp"],
+          "loss_rel_diff": tp_rel, "loss_rel_diff_max": max(tp_rel),
+          "consensus_rel_diff_max": max(
+              abs(a - b) / abs(b) for a, b in zip(consensus["tp"],
+                                                  consensus["2d"]))}
     rec = {"path": f"mesh {name}", "cells": list(mesh2.devices.shape),
            "rounds": ROUNDS, "mixer": gate, "rounds_bitwise": True,
-           "launches": total, "loss": losses, "boundary": boundary}
+           "launches": total["2d"], "loss": losses["2d"],
+           "boundary": boundary, "tp": tp}
     if not mesh2.shared:
-        try:
-            capture_step(steps["2d"], s0["2d"], batches[0])
-        except ValueError as e:
-            rec["capture_refused"] = str(e)
-        else:
-            raise AssertionError(f"mesh {name}: captured over several cards")
+        for arm in ("2d", "tp"):
+            try:
+                capture_step(steps[arm], s0[arm], batches[0])
+            except ValueError as e:
+                rec["capture_refused"] = str(e)
+            else:
+                raise AssertionError(f"mesh {name} {arm}: captured over "
+                                     "several cards")
         rec["round_ms_median"] = {k: statistics.median(v[1:])
                                   for k, v in ms.items()}
         print(json.dumps(rec), flush=True)
         return rec
-    runs = {"1d": capture_step(step_1d(), s0["1d"], batches[0]),
-            "2d": capture_step(step_2d(), s0["2d"], batches[0])}
+    runs = {arm: capture_step(step_of(arm), s0[arm], batches[0])
+            for arm in arms}
     cap = dict(s0)
-    eager = s0["2d"]
-    cap_ms = {k: [] for k in runs}
+    eager = {arm: s0[arm] for arm in ("2d", "tp")}
+    cap_ms = {arm: [] for arm in runs}
     for b in batches:
-        for arm in ("1d", "2d"):
+        for arm in arms:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             cap[arm], _ = runs[arm](cap[arm], b)
             torch.cuda.synchronize()
             cap_ms[arm].append((time.perf_counter() - t0) * 1e3)
-        eager, _ = steps["2d"](eager, b)
+        for arm in eager:
+            eager[arm], _ = steps[arm](eager[arm], b)
         g = mesh2.gather(cap["2d"].params, specs)
-        e = mesh2.gather(eager.params, specs)
+        e = mesh2.gather(eager["2d"].params, specs)
         o = mesh1.gather(cap["1d"].params)
         if not all(torch.equal(g[n], e[n]) and torch.equal(g[n], o[n])
                    for n in e):
             raise AssertionError(f"mesh {name}: captured rounds differ from "
                                  "eager ones or from the 1D mesh's")
+        if not all(torch.equal(c[n], x[n]) for c, x in zip(
+                cap["tp"].params, eager["tp"].params) for n in c):
+            raise AssertionError(f"mesh {name}: captured tensor-parallel "
+                                 "rounds differ from eager ones")
     graph = check_round_graph(f"mesh {name}", graph_nodes(runs["2d"].graph),
                               mesh2d_expected(mesh2.n_shards,
                                               mesh2.model_parallel))
+    tp_graph = check_round_graph(
+        f"mesh {name} tensor-parallel", graph_nodes(runs["tp"].graph),
+        mesh2d_expected(mesh2.n_shards, mesh2.model_parallel, tp=True))
+    tp.update(captured_bitwise=True, graph_nodes=tp_graph["graph_nodes"],
+              kernel_nodes=tp_graph["kernel_nodes"])
     rec.update({"captured_bitwise": True,
                 "round_ms_median": {k: statistics.median(v[1:])
                                     for k, v in ms.items()},
@@ -6077,78 +6163,200 @@ def mesh2d_fused(dev) -> dict:
     return rec
 
 
-def mesh2d_driver(dev) -> dict:
-    """SmolLM-135M as registered (bf16, m 8, K 4, batch 4, seq 128, 8
-    bits) for MESH2D_DRIVER_ROUNDS rounds through ``run_resident`` on a
-    (2, 2) mesh of cuda:0 (``--clients-per-shard 4 --model-parallel 2``,
-    RULES_A) and on the 1D mesh of the same 2 shards: the 2D run's "2D
-    mesh:" and per-column wire lines, B1 = B2 = 4 a round, losses bitwise
-    the 1D run's, consensus within MESH2D_CONSENSUS_RTOL; round ms, peak
-    GiB and its T2 launches printed."""
+class StagePeaks:
+    """Peak device memory of a round's stages: while active, the round
+    step's ``local_train`` (one call a shard) and its mixer are wrapped
+    so that the allocator's peak is read and reset at each one's start
+    and end. ``peaks`` maps "local_sgd", "mix" and "other" (between
+    them) to the largest peak GiB seen; their max is the run's peak."""
+
+    def __init__(self, dev):
+        from repro_torch.core import dfedavgm
+        self.dev, self.mod = dev, dfedavgm
+        self.peaks = {"local_sgd": 0.0, "mix": 0.0, "other": 0.0}
+
+    def _mark(self, label: str) -> None:
+        gib = torch.cuda.max_memory_allocated(self.dev) / 2 ** 30
+        self.peaks[label] = max(self.peaks[label], gib)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+
+    def _wrap(self, fn, label: str):
+        def staged(*a, **k):
+            self._mark("other")
+            out = fn(*a, **k)
+            self._mark(label)
+            return out
+        return staged
+
+    def __enter__(self):
+        self.saved = (self.mod.local_train, self.mod.make_mixer)
+        train, make_mixer = self.saved
+        self.mod.local_train = self._wrap(train, "local_sgd")
+        self.mod.make_mixer = lambda *a, **k: self._wrap(
+            make_mixer(*a, **k), "mix")
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.local_train, self.mod.make_mixer = self.saved
+        self._mark("other")
+
+
+def mesh2d_driver_arm(dev, cfg, arm: str) -> dict:
+    """One run of SmolLM-135M through ``run_resident`` for
+    MESH2D_DRIVER_ROUNDS rounds on arm ``arm`` of MESH2D_DRIVER_ARMS: the
+    1D mesh of 2 shards, or (2, mp) cells of cuda:0 with the model's loss
+    (the tensor-parallel step) or, for the joined arm, an opaque loss
+    (the driver's ``_model_loss`` patched to a plain lambda). Returns its
+    launches, round ms, peak GiB (and by stage, :class:`StagePeaks`),
+    losses, consensus, info lines and whether every replicated leaf's
+    copies are bitwise equal across a shard's columns at the end."""
+    from repro_torch.core.mixing import _column_dims
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as TT
     from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.sharding import RULES_A, specs_for_tree, stack_shapes
     from repro_torch.telemetry import RunLog, Tracer
 
-    cfg = production_config()
-    PROD_OUT.mkdir(parents=True, exist_ok=True)
-    out = {}
-    for arm in ("1d", "2d"):
-        argv = ["--rounds", str(MESH2D_DRIVER_ROUNDS), "--device", str(dev)]
-        argv += MESH2D_DRIVER_ARGV
-        mesh = make_test_mesh(2, dev)
-        if arm == "2d":
-            argv += ["--model-parallel", "2"]
-            mesh = make_test_mesh(2, model_parallel=2, device=dev)
-        args = TT.build_parser().parse_args(argv)
-        path = PROD_OUT / f"mesh2d_driver_{arm}.jsonl"
-        log = RunLog(jsonl=str(path), console=False)
-        tracer = Tracer(enabled=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_launch_counts()
-        try:
+    mp, _ = MESH2D_DRIVER_ARMS[arm]
+    argv = ["--rounds", str(MESH2D_DRIVER_ROUNDS), "--device", str(dev)]
+    argv += MESH2D_DRIVER_ARGV
+    mesh = make_test_mesh(2, dev)
+    if mp > 1:
+        argv += ["--model-parallel", str(mp)]
+        mesh = make_test_mesh(2, model_parallel=mp, device=dev)
+    args = TT.build_parser().parse_args(argv)
+    path = PROD_OUT / f"mesh2d_driver_{arm}.jsonl"
+    log = RunLog(jsonl=str(path), console=False)
+    tracer = Tracer(enabled=True)
+    model_loss = TT._model_loss
+    if arm.startswith("joined"):
+        TT._model_loss = lambda c: (lambda p, b, r: TM.loss_fn(p, c, b, r))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    try:
+        with StagePeaks(dev) as stages:
             state, met = TT.run_resident(args, cfg, log, tracer, mesh=mesh)
             torch.cuda.synchronize()
-        finally:
-            log.close()
-        recs = [json.loads(line) for line in open(path)]
-        path.unlink()
-        out[arm] = {
-            "launches": launch_counts(),
-            "round_ms": [ev["dur"] / 1e3 for ev in tracer.events
-                         if ev.get("name") == "round/step"],
-            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-            "loss": [r["loss"] for r in recs if r["kind"] == "round"],
-            "consensus": [r.get("consensus_dist") for r in recs
-                          if r["kind"] == "round"],
-            "info": [r.get("msg", "") for r in recs if r["kind"] == "info"]}
-        del state, met
-    one, two = out["1d"], out["2d"]
-    lines = {k: next((m for m in two["info"] if m.startswith(k)), None)
-             for k in ("2D mesh:", "per-device wire:")}
-    if None in lines.values():
-        raise AssertionError(f"mesh2d driver: log lines {two['info']}")
-    for k in ("quantize_pack_buffer", "dequant_mix_buffer"):
-        if two["launches"][k] != 4 * MESH2D_DRIVER_ROUNDS:
-            raise AssertionError(f"mesh2d driver: {k} {two['launches'][k]}")
-    if two["loss"] != one["loss"] or not all(
-            math.isfinite(v) for v in two["loss"]):
-        raise AssertionError(f"mesh2d driver: losses {two['loss']} != "
-                             f"{one['loss']}")
-    rel = max(abs(a - b) / max(abs(b), 1e-30)
-              for a, b in zip(two["consensus"], one["consensus"]))
-    if rel > MESH2D_CONSENSUS_RTOL:
-        raise AssertionError(f"mesh2d driver: consensus rel {rel}")
+    finally:
+        TT._model_loss = model_loss
+        log.close()
+    recs = [json.loads(line) for line in open(path)]
+    path.unlink()
+    out = {"launches": launch_counts(),
+           "round_ms": [ev["dur"] / 1e3 for ev in tracer.events
+                        if ev.get("name") == "round/step"],
+           "peak_gib": max(stages.peaks.values()),
+           "stage_peak_gib": stages.peaks,
+           "loss": [r["loss"] for r in recs if r["kind"] == "round"],
+           "consensus": [r.get("consensus_dist") for r in recs
+                         if r["kind"] == "round"],
+           "info": [r.get("msg", "") for r in recs if r["kind"] == "info"],
+           "local_steps": args.local_steps}
+    if mp > 1:
+        meta = TM.init_model(torch.zeros(2, dtype=torch.int64,
+                                         device="meta"), cfg, device="meta")
+        specs = specs_for_tree(TM.model_axes(cfg),
+                               stack_shapes(meta, args.clients), RULES_A,
+                               mesh, leading_client=("clients",))
+        dims = _column_dims(mesh, specs)
+        cells = state.params
+        out["replicated_leaves"] = sum(d is None for d in dims.values())
+        out["replicas_equal"] = all(
+            torch.equal(cells[s * mp + c][n], cells[s * mp][n])
+            for s in range(2) for c in range(1, mp) for n, d in dims.items()
+            if d is None)
+    del state, met
+    return out
+
+
+def mesh2d_driver(dev) -> dict:
+    """SmolLM-135M as registered (bf16, m 8, K 4, batch 4, seq 128, 8
+    bits) for MESH2D_DRIVER_ROUNDS rounds through ``run_resident``, the
+    arms of MESH2D_DRIVER_ORDER in turns (:func:`mesh2d_driver_arm`): the
+    1D mesh of 2 shards; the joined step on (2, 2) cells (an opaque
+    loss): its "2D mesh:", per-column wire and "local step: joined" lines,
+    B1 = B2 = 4 a round, B3 = 2 x K, losses bitwise the 1D run's,
+    consensus within MESH2D_CONSENSUS_RTOL; the tensor-parallel step
+    (the model's loss) on (2, 2) and (2, 3) cells: "local step:
+    tensor_parallel", B1 = B2 = mp x 2 a round, B3 = mp x 2 x K, the
+    replicated leaves' copies bitwise equal across columns, losses
+    within MESH2D_PREDICTION's bf16 bound of the 1D run's. Round ms,
+    peak GiB and T2 launches printed for every run."""
+    cfg = production_config()
+    PROD_OUT.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for arm in MESH2D_DRIVER_ORDER:
+        runs.setdefault(arm, []).append(mesh2d_driver_arm(dev, cfg, arm))
+    one = runs["1d"][0]
+    bound = MESH2D_PREDICTION["driver_tp_loss_rel_bound"]
+    rel = {}
+    for arm, (mp, kind) in MESH2D_DRIVER_ARMS.items():
+        if mp == 1:
+            continue
+        two = runs[arm][0]
+        lines = {k: next((m for m in two["info"] if m.startswith(k)), None)
+                 for k in ("2D mesh:", "per-device wire:",
+                           f"local step: {kind}")}
+        if None in lines.values():
+            raise AssertionError(f"mesh2d driver {arm}: log lines "
+                                 f"{two['info']}")
+        b3 = 2 * two["local_steps"] * MESH2D_DRIVER_ROUNDS * (
+            mp if kind == "tensor_parallel" else 1)
+        for k, want in (("quantize_pack_buffer",
+                         2 * mp * MESH2D_DRIVER_ROUNDS),
+                        ("dequant_mix_buffer",
+                         2 * mp * MESH2D_DRIVER_ROUNDS),
+                        ("momentum_sgd", b3)):
+            if two["launches"][k] != want:
+                raise AssertionError(f"mesh2d driver {arm}: {k} "
+                                     f"{two['launches'][k]} != {want}")
+        if not all(math.isfinite(v) for v in two["loss"]):
+            raise AssertionError(f"mesh2d driver {arm}: losses "
+                                 f"{two['loss']}")
+        if not two["replicas_equal"]:
+            raise AssertionError(f"mesh2d driver {arm}: replicated leaves "
+                                 "differ across columns")
+        rel[arm] = max(abs(a - b) / abs(b)
+                       for a, b in zip(two["loss"], one["loss"]))
+        if kind == "joined":
+            if two["loss"] != one["loss"]:
+                raise AssertionError(f"mesh2d driver {arm}: losses "
+                                     f"{two['loss']} != {one['loss']}")
+            crel = max(abs(a - b) / max(abs(b), 1e-30)
+                       for a, b in zip(two["consensus"], one["consensus"]))
+            if crel > MESH2D_CONSENSUS_RTOL:
+                raise AssertionError(f"mesh2d driver {arm}: consensus rel "
+                                     f"{crel}")
+        elif rel[arm] > bound:
+            raise AssertionError(f"mesh2d driver {arm}: losses "
+                                 f"{two['loss']} against the 1D run's "
+                                 f"{one['loss']}: rel {rel[arm]} > {bound}")
+        if arm == "joined22":
+            log_lines = lines
+    joined = runs["joined22"][0]
     rec = {"path": "mesh2d driver", "arch": PROD_ARCH,
            "argv": MESH2D_DRIVER_ARGV + ["--model-parallel", "2"],
-           "log_lines": lines,
-           "round_ms": {k: v["round_ms"] for k, v in out.items()},
-           "peak_gib": {k: v["peak_gib"] for k, v in out.items()},
-           "loss": two["loss"], "losses_bitwise": True,
-           "consensus_rel_diff": rel,
-           "launches": {k: v for k, v in two["launches"].items() if v}}
+           "order": list(MESH2D_DRIVER_ORDER), "log_lines": log_lines,
+           "round_ms": {k: [r["round_ms"] for r in v]
+                        for k, v in runs.items()},
+           "peak_gib": {k: [r["peak_gib"] for r in v]
+                        for k, v in runs.items()},
+           "stage_peak_gib": {k: v[0]["stage_peak_gib"]
+                              for k, v in runs.items()},
+           "loss": {k: v[0]["loss"] for k, v in runs.items()},
+           "losses_bitwise": True, "loss_rel_diff_max": rel,
+           "consensus": {k: v[0]["consensus"] for k, v in runs.items()},
+           "consensus_rel_diff": max(
+               abs(a - b) / max(abs(b), 1e-30)
+               for a, b in zip(joined["consensus"], one["consensus"])),
+           "replicated_leaves": {k: v[0].get("replicated_leaves")
+                                 for k, v in runs.items()},
+           "launches": {k: v for k, v in joined["launches"].items() if v},
+           "launches_by_arm": {k: {n: c for n, c in v[0]["launches"].items()
+                                   if c} for k, v in runs.items()}}
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -6253,11 +6461,13 @@ def mesh2d_kernel_checks(dev, flush, tables) -> dict:
 def mesh2d_phase(dev, flush=None) -> dict:
     """Phase "mesh2d": the 2D (clients, model) mesh sharing cuda:0 — the
     predictions, the quickstart's mixer gate and rounds against the 1D
-    mesh (:func:`mesh2d_rounds`), the bytes arm
-    (``bench.timevarying.mesh2d_compare`` at d 65 536: fp32 exactly 4.0,
-    q8 >= 3.0), SmolLM-135M through the driver on a (2, 2) mesh
-    (:func:`mesh2d_driver`), and B1 (tensor noise), B2 and T2 at the
-    phase's shapes (:func:`mesh2d_kernel_checks`)."""
+    mesh and the tensor-parallel arm (:func:`mesh2d_rounds`), the bytes
+    arm (``bench.timevarying.mesh2d_compare`` at d 65 536: fp32 exactly
+    4.0, q8 >= 3.0), SmolLM-135M through the driver, joined on (2, 2)
+    and tensor-parallel on (2, 2) and (2, 3) (:func:`mesh2d_driver`), B1
+    (tensor noise), B2 and T2 at the phase's shapes
+    (:func:`mesh2d_kernel_checks`), and a line saying that the four-card
+    tensor-parallel arm did not run when there are fewer cards."""
     from repro_torch.bench.timevarying import mesh2d_compare
     from repro_torch.core import MixerConfig, MixingSpec, make_mixer
     from repro_torch.launch.mesh import make_test_mesh
@@ -6275,6 +6485,11 @@ def mesh2d_phase(dev, flush=None) -> dict:
     tables = make_mixer(MixingSpec.ring(M, 0.5), MixerConfig(),
                         mesh=mesh, param_specs=mesh2d_specs()).tables
     kernels = mesh2d_kernel_checks(dev, flush, tables)
+    if torch.cuda.device_count() < MESH_SHARDS:
+        print(json.dumps({"cards_tp": (
+            f"not run: the tensor-parallel quickstart on a (2, 2) mesh of "
+            f"cards (cards_phase, --only cards) needs {MESH_SHARDS} cards, "
+            f"found {torch.cuda.device_count()}")}), flush=True)
     rec = {"rounds": rounds, "fused": fused, "compare": compare,
            "driver": driver, "kernels": kernels,
            "phase_s": time.perf_counter() - t0}
@@ -6284,6 +6499,8 @@ def mesh2d_phase(dev, flush=None) -> dict:
         "captured_round_ms_median": rounds["captured_round_ms_median"],
         "replay_device_ms": rounds["replay_device_ms"],
         "graph_nodes": [rounds["graph_nodes"], rounds["graph_nodes_1d"]],
+        "tp_graph_nodes": rounds["tp"]["graph_nodes"],
+        "tp_loss_rel_diff_max": rounds["tp"]["loss_rel_diff_max"],
         "fused_graph_nodes": [fused["graph_nodes"],
                               fused["graph_nodes_1d"]],
         "fused_replay_device_ms": fused["replay_device_ms"],
@@ -6291,7 +6508,7 @@ def mesh2d_phase(dev, flush=None) -> dict:
         "wire_ratio_1d_over_2d": {
             b: compare[f"wire_ratio_1d_over_2d_b{b}"] for b in (32, 8)},
         "driver": {k: driver[k] for k in ("round_ms", "peak_gib",
-                                          "log_lines",
+                                          "log_lines", "loss_rel_diff_max",
                                           "consensus_rel_diff")}}}),
         flush=True)
     return rec
@@ -6736,6 +6953,9 @@ def main() -> int:
         mesh2d_counts = mesh2d["rounds"]["launches"][name]
         if mesh2d_counts:
             table[-1]["mesh2d_launches"] = mesh2d_counts
+        tp_counts = mesh2d["rounds"]["tp"]["launches"][name]
+        if tp_counts:
+            table[-1]["mesh2d_tp_launches"] = tp_counts
         if mesh2d["fused"]["launches"][name]:
             table[-1]["mesh2d_fused_launches"] = mesh2d["fused"][
                 "launches"][name]

@@ -28,6 +28,7 @@ staleness develops, and the engine reproduces the synchronous
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -186,8 +187,11 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     first ``ready_capacity`` ready lanes of the whole mesh, each shard
     those of its block). On a 2D mesh the parameters are cells cut by
     ``param_specs``, and an event trains as the synchronous round does
-    there (``make_round_step``): each shard's cells joined on its
-    column-0 device, z cut back for the mixer.
+    there (``make_round_step``): tensor-parallel on each shard's row of
+    cells for a loss with a column-parallel form (the dense decoder
+    archs, the 2NN), else each shard's cells joined on its column-0
+    device and z cut back for the mixer; ``event_step.local_step`` says
+    which.
 
     ``batches`` has the synchronous layout (leaves [m, K, ...]). Every
     lane trains each event and the ready mask picks whose fresh ``z``
@@ -227,7 +231,7 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     m = spec.m
     dev = (_mesh_devices(mesh)[0] if mesh is not None
            else resolve_device(device))
-    lanes = _Lanes(mesh, m, None, dev, param_specs)
+    lanes = _Lanes(mesh, m, None, dev, param_specs, loss_fn)
     impl = cfg.mixer_config().resolved_impl(spec, mesh)
     plan = spec.gossip_plan() if impl in ("ring", "torus", "sparse") else None
     ev = make_event_mixer(m, quant=cfg.quant, plan=plan, gate=True,
@@ -263,10 +267,10 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         t_now, ready = next_event(state.next_ready)
         eta = (staleness_eta(cfg.eta, state.version, decay) if decay > 0.0
                else cfg.eta)
-        x_rows = lanes.join(lanes.rows(state.params))
+        xs = lanes.train_rows(state.params)
         if skip and mesh is not None:
             z, losses, ready = _train_ready_shards(
-                loss_fn, cfg, lanes, x_rows, batches, client_keys,
+                loss_fn, cfg, lanes, xs, batches, client_keys,
                 ready, eta, cap)
         elif skip:
             # Train the first `cap` ready lanes; the padded slots (index m)
@@ -287,16 +291,17 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             ready = ready * spare.index_copy(0, idx, valid)[:m]
         elif mesh is not None:
             etas = (lanes.split(eta) if decay > 0.0
-                    else [eta] * len(x_rows))
-            out = [local_train(loss_fn, x, b, k, eta=e, theta=cfg.theta)
-                   for x, b, k, e in zip(x_rows,
-                                         lanes.split(batches),
-                                         lanes.split(client_keys), etas)]
+                    else [eta] * len(xs))
+            out = [lanes.train(loss_fn, s, x, b, k, eta=e, theta=cfg.theta)
+                   for s, (x, b, k, e) in enumerate(zip(
+                       xs, lanes.split(batches), lanes.split(client_keys),
+                       etas))]
             z = [o[0] for o in out]
             losses = lanes.cat([o[1] for o in out])
         else:
             z, losses = local_train(loss_fn, state.params, batches,
                                     client_keys, eta=eta, theta=cfg.theta)
+        z_cells = lanes.trained(lanes.shards(z))
 
         if scheduled:
             W_t, active, key_q = spec.round_event(key_mix, state.round)
@@ -305,8 +310,7 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             W_t, key_q, ready_eff = W_static, key_mix, ready
         version_next = state.version + ready_eff.to(torch.int32)
         W_eff = staleness_weights(W_t, version_next, ready_eff, async_cfg)
-        x_next = ev(state.params, lanes.cells(lanes.shards(z)), W_eff,
-                    ready_eff, key_q)
+        x_next = ev(state.params, z_cells, W_eff, ready_eff, key_q)
 
         k_dur, clock_rng = prng.split(state.clock_rng)
         durations = speed.draw(k_dur, m)
@@ -318,7 +322,7 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                    "clock": t_now, "ready_frac": ready_eff.mean(),
                    "live_edges": ((W_eff * off_diag) != 0.0).sum()}
         if with_metrics or with_telemetry:
-            cdist = consensus_distance(lanes.join(lanes.rows(x_next)))
+            cdist = lanes.consensus(x_next)
         if with_metrics:
             lag = version_next.max() - version_next
             metrics["mean_staleness"] = lag.to(torch.float32).mean()
@@ -326,11 +330,20 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             metrics["consensus_dist"] = cdist
         if with_telemetry:
             with record_function("round/telemetry"):
+                if lanes.tp:
+                    # The quantizer replay reads whole rows: the
+                    # tensor-parallel step joins them here, for it alone.
+                    x_rows = lanes.join(lanes.rows(state.params))
+                    drift = lanes.consensus(z_cells)
+                    z = lanes.join(lanes.rows(z_cells))
+                else:
+                    x_rows = lanes.join(xs)
+                    drift = consensus_distance(z)
                 S = async_cfg.max_staleness
                 live = metrics["live_edges"]
                 fields = dict(
                     consensus_dist=cdist,
-                    local_drift=consensus_distance(z), live_edges=live,
+                    local_drift=drift, live_edges=live,
                     wire_bits=wire_bits_for(
                         client_dim(lanes.shards(x_rows)[0]),
                         cfg.quant, live, model_parallel=lanes.mp),
@@ -354,6 +367,7 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             next_ready=next_ready, version=version_next,
             clock_rng=clock_rng), metrics
 
+    event_step.local_step = lanes.local_step
     return event_step
 
 
@@ -412,6 +426,7 @@ def make_async_engine(loss_fn: LossFn, cfg: DFedAvgMConfig,
                        for k in history[0]}
 
     run.graph = None
+    run.local_step = step.local_step
     return run
 
 
@@ -420,19 +435,20 @@ def _train_ready_shards(loss_fn, cfg, lanes: _Lanes, xs, batches,
     """``ready_capacity`` on a mesh: the first ``cap`` ready lanes of the
     whole mesh train (``ready`` is clamped to them, as on one device),
     each shard those of its block — at most ``min(cap, m_local)``, a
-    fixed-size gather — and scatters them back. Returns (z shards,
-    losses [m], clamped ready)."""
+    fixed-size gather — and scatters them back (a 2D shard's row of
+    cells on the tensor-parallel step). Returns (z shards, losses [m],
+    clamped ready)."""
     m = ready.shape[0]
     idx, _, valid = _active_lanes(ready, cap)
     ready = ready * ready.new_zeros(m + 1).index_copy(0, idx, valid)[:m]
     etas = (lanes.split(eta) if isinstance(eta, torch.Tensor)
             else [eta] * len(xs))
     zs, losses = [], []
-    for x, b, k, r, e in zip(xs, lanes.split(batches),
-                             lanes.split(client_keys), lanes.split(ready),
-                             etas):
-        z, l_sub, ok, i = _train_active(loss_fn, x, b, k, r, cap, e,
-                                        cfg.theta)
+    for s, (x, b, k, r, e) in enumerate(zip(
+            xs, lanes.split(batches), lanes.split(client_keys),
+            lanes.split(ready), etas)):
+        train = functools.partial(lanes.train, loss_fn, s, theta=cfg.theta)
+        z, l_sub, ok, i = _train_active(train, x, b, k, r, cap, e)
         zs.append(z)
         losses.append(r.new_zeros(r.shape[0] + 1).index_copy(
             0, i, l_sub * ok)[:r.shape[0]])

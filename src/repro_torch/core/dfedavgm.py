@@ -35,14 +35,18 @@ keys and a schedule's active mask through ``placement.perm``, so placed
 training is bitwise unplaced training with its lanes permuted.
 
 On a 2D ``(clients, model)`` mesh (``param_specs``) the state is a list
-of cells: each shard's local SGD joins its cells into the shard's full
-lanes on its column-0 device and runs the 1D ``local_train`` there, so
-the round is bitwise the 1D mesh's; the reference leaves that step to
-GSPMD's partitioner, which the port has not (``make_round_step``).
+of cells. A loss with a column-parallel form whose form covers every
+cut leaf (``models.model.make_loss`` for the dense decoder archs,
+``models.paper_nets.make_2nn_loss``) trains each shard's row of cells
+tensor-parallel (``sharding.tensor_parallel``), as the reference's
+GSPMD partitions its step; any other loss joins each shard's cells into
+its full lanes on its column-0 device and runs the 1D ``local_train``
+there, bitwise the 1D mesh's round (``make_round_step``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -51,6 +55,7 @@ from torch.profiler import record_function
 
 from .. import prng
 from ..device import resolve_device
+from ..sharding.tensor_parallel import ColumnGroup, local_step_kind
 from .comm_cost import dfedavgm_round_bits, schedule_round_bits
 from .local_sgd import local_train, local_train_deferred
 from .mixing import (MixerConfig, _clients_per_shard, _column_dims,
@@ -165,18 +170,26 @@ class _Lanes:
     (``core.mixing.split_lanes``). Every table is on the device from the
     step's build.
 
-    On a 2D mesh the state is a list of cells (``mp`` a shard): ``rows``
-    joins each shard's cells on its first column's device, where local
-    SGD runs and the metrics meet as on the 1D mesh, and ``cells`` cuts a
-    shard-level result back for the mixer (``cut_columns``). On a 1D mesh
-    both hand their argument through. ``blocks`` holds every cell's
-    ``(lo, hi, device)`` lane block, row-major (``_split_blocks``)."""
+    On a 2D mesh the state is a list of cells (``mp`` a shard) and
+    ``local_step`` says how a shard trains them
+    (``sharding.tensor_parallel.local_step_kind``). ``"tensor_parallel"``
+    (a loss whose column-parallel form covers every cut leaf):
+    :meth:`train_rows` hands each shard its row of cells, ``local_train``
+    runs on the row's :class:`ColumnGroup`, z stays in cells and the
+    metrics meet as partial sums over the cells. ``"joined"`` (any other
+    loss): ``rows`` joins each shard's cells on its first column's
+    device, where local SGD runs and the metrics meet as on the 1D mesh,
+    and ``cells`` cuts a shard-level result back for the mixer
+    (``cut_columns``). On a 1D mesh (``"whole"``) both hand their
+    argument through. ``blocks`` holds every cell's ``(lo, hi, device)``
+    lane block, row-major (``_split_blocks``)."""
 
     def __init__(self, mesh, m: int, placement, dev: torch.device,
-                 param_specs=None):
+                 param_specs=None, loss_fn=None):
         self.devs = None
         self.grid = self.dims = self.blocks = None
         self.mp = 1
+        self.groups = None
         if mesh is not None:
             self.grid = _mesh_grid(mesh)
             self.devs = list(self.grid[:, 0])
@@ -185,10 +198,17 @@ class _Lanes:
             ml = m // len(self.devs)
             self.blocks = [(s * ml, (s + 1) * ml, d)
                            for s, row in enumerate(self.grid) for d in row]
+        self.local_step = local_step_kind(loss_fn, self.dims)
+        if self.tp:
+            self.groups = [ColumnGroup(row, self.dims) for row in self.grid]
         self.perm = (None if placement is None or placement.is_identity
                      else torch.as_tensor(placement.perm.astype(np.int64),
                                           device=dev))
         self.dev = dev
+
+    @property
+    def tp(self) -> bool:
+        return self.local_step == "tensor_parallel"
 
     def rows(self, params) -> list[Params]:
         """The state's parameters as one dict a shard (a one-element list
@@ -199,6 +219,35 @@ class _Lanes:
         """Shard dicts -> the state's layout: cells on a 2D mesh, the
         list on a 1D one, the one dict on one device."""
         return self.join(cut_columns(rows, self.dims, self.grid))
+
+    def train_rows(self, params) -> list:
+        """What each shard's local step trains: its row of cells on the
+        tensor-parallel step, else its (joined) lanes."""
+        if self.tp:
+            return [params[s * self.mp:(s + 1) * self.mp]
+                    for s in range(len(self.devs))]
+        return self.rows(params)
+
+    def trained(self, zs: list):
+        """The shards' local-step results -> the state's layout."""
+        if self.tp:
+            return [c for row in zs for c in row]
+        return self.cells(zs)
+
+    def train(self, loss_fn, s: int, x, batches: Params, keys, *, eta,
+              theta: float):
+        """``local_train`` of shard s (its row's group on the
+        tensor-parallel step)."""
+        return local_train(loss_fn, x, batches, keys, eta=eta, theta=theta,
+                           group=None if self.groups is None
+                           else self.groups[s])
+
+    def consensus(self, params) -> torch.Tensor:
+        """``consensus_distance`` of a state-layout tree: per cell on the
+        tensor-parallel step, else on the joined rows."""
+        if self.tp:
+            return consensus_distance(params, dims=self.dims, mp=self.mp)
+        return consensus_distance(self.join(self.rows(params)))
 
     def order(self, t: torch.Tensor) -> torch.Tensor:
         """A client-order [m, ...] tensor in lane order."""
@@ -321,20 +370,31 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     On a 2D ``(clients, model)`` mesh the state is a list of cells cut
     by ``param_specs`` (flat name -> ``sharding.PartitionSpec``;
     ``init_round_state(..., mesh=mesh, param_specs=specs)``). The
-    reference leaves its local step there to GSPMD's partitioner; the
-    port has none, so a shard's local SGD joins the shard's cells into
-    its full lanes on the device of its column-0 cell, runs the 1D
-    ``local_train`` there unchanged (B3 once a step), and cuts z back
-    into the cells for the mixer, whose wire, scales and noise keep the
-    1D codes. The round is therefore bitwise the 1D mesh's; params at
-    rest, the wire and the mix are 1/mp a cell, but the local step's
-    working set is a shard's full lanes on column 0 (a model one card
-    cannot hold does not train: that needs a tensor-parallel local
-    step). The metrics meet on the joined rows as on the 1D mesh, and
-    the telemetry's ``wire_bits`` is the per-column bill
-    (``model_parallel`` = mp). The fused round refuses model-sharded
-    specs; with specs that cut no leaf (or none) each column runs the 1D
-    fused tail on the whole model (``make_fused_tail``).
+    reference leaves its local step there to GSPMD's partitioner. The
+    port's step is ``round_step.local_step``:
+
+    * ``"tensor_parallel"`` when ``loss_fn`` carries a column-parallel
+      form covering every cut leaf (``models.model.make_loss`` for the
+      dense decoder archs, ``models.paper_nets.make_2nn_loss``): each
+      shard's row of cells trains on its own slices (``local_train(...,
+      group=)``; B3 once a step a cell), z goes to the mixer as cells,
+      and ``consensus_dist`` and ``local_drift`` meet as partial sums
+      over the cells. Row- and column-parallel sums change float order,
+      so the round is within rounding of the 1D mesh's, not bitwise.
+    * ``"joined"`` for any other loss (an opaque callable, an MoE, SSM,
+      hybrid, encoder-decoder or VLM arch): a shard's local SGD joins its
+      cells into its full lanes on column 0's device, runs the 1D
+      ``local_train`` there (B3 once a step), and cuts z back into the
+      cells; the round and its metrics are bitwise the 1D mesh's, but the
+      working set is a shard's full lanes on column 0.
+
+    Either way the mixer's wire, scales and noise keep the 1D codes, the
+    telemetry's quantizer replay reads joined rows, and its
+    ``wire_bits`` is the per-column bill (``model_parallel`` = mp). Off a
+    2D mesh ``local_step`` is ``"whole"``. The fused round refuses
+    model-sharded specs; with specs that cut no leaf (or none) each
+    column runs the 1D fused tail on the whole model
+    (``make_fused_tail``).
 
     ``async_cfg`` (an :class:`~repro_torch.core.async_gossip.AsyncConfig`)
     returns the async engine's event step instead
@@ -363,7 +423,7 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     m = spec.m
     dev = (_mesh_devices(mesh)[0] if mesh is not None
            else resolve_device(device))
-    lanes = _Lanes(mesh, m, placement, dev, param_specs)
+    lanes = _Lanes(mesh, m, placement, dev, param_specs, loss_fn)
     stateful = scheduled and spec.is_stateful
     k_active = spec.static_active_count if scheduled else None
     if skip_inactive_compute == "auto":
@@ -429,26 +489,25 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             W_t, _, key_q = spec.round_event(key_mix, state.round)
         if active is not None:
             active = lanes.order(active)
-        xs = lanes.rows(state.params)
-        x_rows = lanes.join(xs)
+        xs = lanes.train_rows(state.params)
         with record_function("round/local_sgd"):
             zs, losses, valid = [], [], []
             acts = lanes.split(active) if skip else [None] * len(xs)
-            for x, b, k, a in zip(xs, lanes.split(batches),
-                                  lanes.split(client_keys), acts):
+            for s, (x, b, k, a) in enumerate(zip(
+                    xs, lanes.split(batches), lanes.split(client_keys),
+                    acts)):
+                train = functools.partial(lanes.train, loss_fn, s,
+                                          theta=cfg.theta)
                 if skip:
-                    z, loss, ok, _ = _train_active(loss_fn, x, b, k, a,
-                                                   k_active, cfg.eta,
-                                                   cfg.theta)
+                    z, loss, ok, _ = _train_active(train, x, b, k, a,
+                                                   k_active, cfg.eta)
                     valid.append(ok)
                 else:
-                    z, loss = local_train(loss_fn, x, b, k, eta=cfg.eta,
-                                          theta=cfg.theta)
+                    z, loss = train(x, b, k, eta=cfg.eta)
                 zs.append(z)
                 losses.append(loss)
             losses = lanes.cat(losses)
-            z = lanes.join(zs)
-            z_cells = lanes.cells(zs)
+            z_cells = lanes.trained(zs)
         with record_function("round/mix"):
             if event_first:
                 x_next = event_mixer(state.params, z_cells, W_t, active,
@@ -467,13 +526,19 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         if with_metrics and scheduled:
             metrics["active_frac"] = active.mean()
         if with_metrics or with_telemetry:
-            cdist = consensus_distance(lanes.join(lanes.rows(x_next)))
-            drift = consensus_distance(z)
+            cdist = lanes.consensus(x_next)
+            drift = (lanes.consensus(z_cells) if lanes.tp
+                     else consensus_distance(lanes.join(zs)))
         if with_metrics:
             metrics["consensus_dist"] = cdist
             metrics["local_drift"] = drift
         if with_telemetry:
             with record_function("round/telemetry"):
+                # The quantizer replay reads whole rows: the
+                # tensor-parallel step joins them here, for it alone.
+                x_rows = lanes.join(lanes.rows(state.params) if lanes.tp
+                                    else xs)
+                z = lanes.join(lanes.rows(z_cells) if lanes.tp else zs)
                 # The effective published z the codec saw: inactive lanes
                 # gate to x (the compute-skip scatter already holds them
                 # at x); the replay averages over participating lanes.
@@ -489,29 +554,39 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         return RoundState(params=x_next, rng=key_next,
                           round=state.round + 1, token=token_next), metrics
 
+    round_step.local_step = lanes.local_step
     return round_step
 
 
-def _train_active(loss_fn, x: Params, batches: Params, keys: torch.Tensor,
-                  active: torch.Tensor, k_active: int, eta, theta: float):
+def _train_active(train: Callable, x, batches: Params, keys: torch.Tensor,
+                  active: torch.Tensor, k_active: int, eta):
     """The compute-skip local step of one shard (or the one device): train
     the first ``min(k_active, lanes)`` active lanes (a fixed-size gather;
-    ``eta`` a float or a per-lane [lanes] tensor), then scatter them back;
-    inactive lanes keep x as their z, padded slots (index ``lanes``) land
-    in a spare last row that is dropped. Returns (z, losses of the slots,
-    valid slots f32, the slots' lanes)."""
+    ``eta`` a float or a per-lane [lanes] tensor; ``train(x, batches,
+    keys, eta=) -> (z, losses)``), then scatter them back; inactive lanes
+    keep x as their z, padded slots (index ``lanes``) land in a spare
+    last row that is dropped. ``x`` is a dict, or a shard's row of cells
+    (each gathered and scattered on its own device). Returns (z, losses
+    of the slots, valid slots f32, the slots' lanes)."""
     m = active.shape[0]
     idx, safe, valid = _active_lanes(active, min(k_active, m))
-    z_sub, losses = local_train(
-        loss_fn, {n: p[safe] for n, p in x.items()},
+    cells = x if isinstance(x, list) else [x]
+    on = [next(iter(c.values())).device for c in cells]
+    sub = [{n: p[safe.to(d)] for n, p in c.items()}
+           for c, d in zip(cells, on)]
+    z_sub, losses = train(
+        sub if isinstance(x, list) else sub[0],
         {n: b[safe] for n, b in batches.items()}, keys[safe],
-        eta=eta[safe] if isinstance(eta, torch.Tensor) else eta,
-        theta=theta)
-    z = {}
-    for n, xl in x.items():
-        buf = torch.cat([xl, xl[-1:]])
-        z[n] = buf.index_copy_(0, idx, z_sub[n])[:m]
-    return z, losses, valid, idx
+        eta=eta[safe] if isinstance(eta, torch.Tensor) else eta)
+    z = []
+    for c, zc, d in zip(cells, z_sub if isinstance(x, list) else [z_sub],
+                        on):
+        out, ix = {}, idx.to(d)
+        for n, xl in c.items():
+            buf = torch.cat([xl, xl[-1:]])
+            out[n] = buf.index_copy_(0, ix, zc[n])[:m]
+        z.append(out)
+    return (z if isinstance(x, list) else z[0]), losses, valid, idx
 
 
 def _boundary_lanes(spec, mcfg: MixerConfig, placement, mesh
@@ -700,4 +775,5 @@ def _make_fused_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         return RoundState(params=x_next, rng=key_next,
                           round=state.round + 1, token=state.token), metrics
 
+    round_step.local_step = lanes.local_step
     return round_step

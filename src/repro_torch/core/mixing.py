@@ -1047,8 +1047,9 @@ def make_fused_tail(loss_fn: Callable, m: int, *, eta: float, theta: float,
             "2D (clients, model) mesh: the fused tail computes the round's "
             "last gradient inside the mixer, where a cell holds only its "
             "model slice of the params. Run the unfused round "
-            "(fuse_round=False), whose local step joins each shard's "
-            "cells.")
+            "(fuse_round=False): its local step trains each shard's "
+            "cells tensor-parallel for a loss with a column-parallel "
+            "form, joined on the first column otherwise.")
     mp = _model_parallel(mesh)
     eta_f, theta_f = float(np.float32(eta)), float(np.float32(theta))
     et = (eta_f, theta_f)
@@ -1441,7 +1442,9 @@ def make_mixer(spec: MixingSpec | TopologySchedule, cfg: MixerConfig,
     return mixer
 
 
-def consensus_distance(stacked: Params | list[Params]) -> torch.Tensor:
+def consensus_distance(stacked: Params | list[Params],
+                       dims: dict | None = None,
+                       mp: int = 1) -> torch.Tensor:
     """(1/m) sum_i ||x(i) - xbar||^2 — Lemma 4's left-hand side, summed
     over leaves in sorted-key order.
 
@@ -1451,7 +1454,14 @@ def consensus_distance(stacked: Params | list[Params]) -> torch.Tensor:
     shards' scalar sums of squares meet again, as the reference's
     sharded mean lowers to an all-reduce of partial sums. It agrees with
     the one-device value to f32 rounding (the sums are grouped by
-    shard), not bitwise; one shard is the one-device computation."""
+    shard), not bitwise; one shard is the one-device computation.
+
+    On a 2D mesh (a list of cells, ``mp`` a shard, row-major; ``dims``
+    from ``_column_dims``) no row is joined: a leaf that ``dims`` cuts
+    contributes every column's slice, each column's lane sums meeting on
+    its first cell's device; a replicated leaf counts once, from column
+    0. The columns' sums of squares meet on the first cell's device, in
+    column order."""
     if isinstance(stacked, list) and len(stacked) == 1:
         stacked = stacked[0]
     if isinstance(stacked, dict):
@@ -1463,16 +1473,21 @@ def consensus_distance(stacked: Params | list[Params]) -> torch.Tensor:
             total = d if total is None else total + d
         return total
     dev0 = next(iter(stacked[0].values())).device
-    m = sum(next(iter(s.values())).shape[0] for s in stacked)
+    rows = stacked[::mp]
+    m = sum(next(iter(s.values())).shape[0] for s in rows)
     total = None
     for name in sorted(stacked[0]):
-        parts = [s[name] for s in stacked]
-        lane_sum = join_lanes([p.to(torch.float32).sum(dim=0, keepdim=True)
-                               for p in parts], dev0).sum(dim=0,
-                                                          keepdim=True)
-        zb = (lane_sum / m).to(parts[0].dtype)
-        sq = join_lanes([((p.to(torch.float32) - zb.to(p.device)) ** 2)
-                         .sum().reshape(1) for p in parts], dev0).sum()
-        d = sq / m
+        cols = range(mp) if (dims or {}).get(name) is not None else [0]
+        sq = []
+        for c in cols:
+            parts = [s[name] for s in stacked[c::mp]]
+            at = parts[0].device
+            lane_sum = join_lanes(
+                [p.to(torch.float32).sum(dim=0, keepdim=True)
+                 for p in parts], at).sum(dim=0, keepdim=True)
+            zb = (lane_sum / m).to(parts[0].dtype)
+            sq += [((p.to(torch.float32) - zb.to(p.device)) ** 2)
+                   .sum().reshape(1) for p in parts]
+        d = join_lanes(sq, dev0).sum() / m
         total = d if total is None else total + d
     return total

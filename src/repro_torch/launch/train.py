@@ -26,13 +26,16 @@ default ``--clients-per-shard`` then puts every client in one shard):
 the strategy-A rules (``sharding.RULES_A``) cut each leaf's
 ``mlp``/``vocab``/``heads``/... dim over the model columns when it
 divides, and the run logs the reference's "2D mesh:" and per-column
-wire lines. Each shard's local step joins its cells on its first
-column's card (``core.dfedavgm``: the reference leaves that step to
-GSPMD), so the losses are bitwise the 1D mesh's; ``--pool``,
-``--mixer-impl dense`` and ``--fuse-round`` refuse it, as in the
-reference. ``--wire`` takes the reference's codec names; the port has
-one codec, so ``auto``, ``seq`` and ``planar`` all run the planar buffer
-kernels (B1/B2, B4/B5 fused).
+wire lines, and a "local step:" line. The dense decoder archs (SmolLM,
+OLMo, Gemma, Qwen3: ``models.model.make_loss`` carries a column-parallel
+form) train each shard's row of cells tensor-parallel (the reference's
+GSPMD-partitioned step, within float rounding of the 1D mesh's losses);
+the other families (MoE, SSM, hybrid, encoder-decoder, VLM) join each
+shard's cells on its first column's card, bitwise the 1D mesh's losses
+(``core.dfedavgm``). ``--pool``, ``--mixer-impl dense`` and
+``--fuse-round`` refuse it, as in the reference. ``--wire`` takes the
+reference's codec names; the port has one codec, so ``auto``, ``seq``
+and ``planar`` all run the planar buffer kernels (B1/B2, B4/B5 fused).
 ``--device`` picks the card (the default) or ``cpu``.
 """
 from __future__ import annotations
@@ -122,7 +125,7 @@ def _speed(args) -> SpeedModel:
 
 
 def _model_loss(cfg):
-    return lambda p, b, r: M.loss_fn(p, cfg, b, r)
+    return M.make_loss(cfg)
 
 
 def run_pooled(args, cfg, log, tracer):
@@ -253,8 +256,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "holds and ships only its 1/model_parallel slice "
                          "of every model-sharded leaf; needs n_shards x "
                          "model_parallel cards and the sparse backend; "
-                         "each shard's local step joins its cells on its "
-                         "first column")
+                         "the dense decoder archs train tensor-parallel "
+                         "over the columns, the others join each shard's "
+                         "cells on its first column")
     ap.add_argument("--placement", default="contiguous",
                     choices=["contiguous", "partition"],
                     help="client -> lane placement for the sparse backend: "
@@ -359,7 +363,7 @@ def _refuse_2d(args) -> None:
             "--fuse-round is incompatible with --model-parallel > 1: the "
             "fused tail computes the last gradient inside the mixer, where "
             "a cell holds only a 1/model_parallel slice of the params; run "
-            "the unfused round (its local step joins each shard's cells)")
+            "the unfused round")
 
 
 def main(argv=None):
@@ -538,6 +542,11 @@ def run_resident(args, cfg, log, tracer, mesh=None):
     step = make_round_step(loss, dfed, spec, device=dev, async_cfg=acfg,
                            with_telemetry=args.telemetry, mesh=mesh,
                            placement=placement, param_specs=specs)
+    if args.model_parallel > 1:
+        log.info(f"local step: {step.local_step} (" + (
+            "each shard's row of cells, column-parallel products"
+            if step.local_step == "tensor_parallel" else
+            "each shard's cells joined on its first column") + ")")
     if acfg is not None:
         state = init_async_state(stacked, k_state, acfg.speed, mesh=mesh,
                                  param_specs=specs)

@@ -15,6 +15,13 @@ streaming core folds it into the batch (the clients never interact), and
 the projections are one batched product over the clients
 (``layers.mm``).
 
+With a column group ``tp`` (``sharding.tensor_parallel``) and ``wq`` cut
+by heads, self-attention runs tensor-parallel: each column projects,
+norms, rotates and attends over its query heads (the KV heads cut with
+them, or, when the model axis does not divide the KV heads, the
+replicated ``wk``/``wv`` narrowed to the KV heads its query heads read),
+and ``wo`` is row-parallel, its partials summed at home.
+
 KV cache layout (decode), per client and layer:
   {"k": [m, b, S_alloc, KV, hd], "v": same, "kpos": [S_alloc] int32}
 ``kpos`` stores the absolute position held in each slot (-2^30 = empty),
@@ -167,13 +174,23 @@ def apply_attention(params: Params, x: torch.Tensor, *, n_heads: int,
                     positions: torch.Tensor, causal: bool = True,
                     window: int = 0, cache: Params | None = None,
                     cross_kv: torch.Tensor | None = None,
-                    kv_positions: torch.Tensor | None = None
-                    ) -> tuple[torch.Tensor, Params | None]:
+                    kv_positions: torch.Tensor | None = None,
+                    tp=None) -> tuple[torch.Tensor, Params | None]:
     """x: [m, b, Lq, d_model]; positions: [Lq] absolute positions of x.
 
     cross_kv: encoder states [m, b, S_enc, kd] for cross-attention.
+    tp: a column group; with ``wq`` cut by heads the (uncached) self-
+    attention runs tensor-parallel (:func:`_attention_columns`).
     Returns (out [m, b, Lq, d_model], updated cache or None).
     """
+    if tp is not None and isinstance(params["wq"], list):
+        if cache is not None or cross_kv is not None:
+            raise ValueError("tensor-parallel attention is uncached "
+                             "self-attention (the training step)")
+        return _attention_columns(
+            tp, params, x, n_heads=n_heads, n_kv=n_kv, qk_norm=qk_norm,
+            rope_theta=rope_theta, positions=positions, causal=causal,
+            window=window), None
     m, b, lq, _ = x.shape
     q = mm(x, params["wq"])
     if qk_norm:
@@ -219,3 +236,60 @@ def apply_attention(params: Params, x: torch.Tensor, *, n_heads: int,
     wo = params["wo"]
     y = mm(out, wo.reshape(m, -1, wo.shape[-1]))
     return y, new_cache
+
+
+def _kv_heads_of(c: int, hc: int, rep: int) -> tuple[int, int, list[int]]:
+    """Column c's query heads ``[c*hc, (c+1)*hc)`` read the KV heads
+    ``[lo, hi)``; local query head j reads ``lo + idx[j]``."""
+    lo, hi = c * hc // rep, ((c + 1) * hc - 1) // rep + 1
+    return lo, hi, [(c * hc + j) // rep - lo for j in range(hc)]
+
+
+def _attention_columns(tp, params: Params, x: torch.Tensor, *, n_heads: int,
+                       n_kv: int, qk_norm: bool, rope_theta: float,
+                       positions: torch.Tensor, causal: bool,
+                       window: int) -> torch.Tensor:
+    """Self-attention with ``wq``/``wo`` cut by heads over ``tp``'s
+    columns (``wk``/``wv`` cut with them, or replicated), the replicated
+    leaves read from column 0's copies; returns [m, b, Lq, d_model] at
+    home."""
+    m, b, lq, _ = x.shape
+    kv_cut = isinstance(params["wk"], list)
+    rep = n_heads // n_kv
+
+    def per_column(name):
+        return params[name] if isinstance(params[name], list) \
+            else tp.broadcast(params[name])
+
+    wk, wv = per_column("wk"), per_column("wv")
+    qn = per_column("q_norm") if qk_norm else None
+    kn = per_column("k_norm") if qk_norm else None
+    ys = []
+    for c, xc in enumerate(tp.broadcast(x)):
+        pos = positions.to(xc.device)
+        wq = params["wq"][c]
+        hc = wq.shape[2]
+        wkc, wvc, idx = wk[c], wv[c], None
+        if not kv_cut:
+            lo, hi, idx = _kv_heads_of(c, hc, rep)
+            wkc, wvc = wkc.narrow(2, lo, hi - lo), wvc.narrow(2, lo, hi - lo)
+            if hc % (hi - lo) == 0 and idx == [j // (hc // (hi - lo))
+                                               for j in range(hc)]:
+                idx = None      # a uniform grouping: attend's own GQA
+        q = mm(xc, wq)
+        if qk_norm:
+            q = rms_norm_headdim(q, qn[c])
+        k, v = mm(xc, wkc), mm(xc, wvc)
+        if qk_norm:
+            k = rms_norm_headdim(k, kn[c])
+        if rope_theta > 0:
+            q = apply_rope(q, pos, rope_theta)
+            k = apply_rope(k, pos, rope_theta)
+        if idx is not None:     # one KV head a query head
+            k = torch.cat([k.narrow(-2, i, 1) for i in idx], dim=-2)
+            v = torch.cat([v.narrow(-2, i, 1) for i in idx], dim=-2)
+        out = attend(_fold(q), _fold(k), _fold(v), pos, pos, causal=causal,
+                     window=window).reshape(m, b, lq, -1)
+        wo = params["wo"][c]
+        ys.append(mm(out, wo.reshape(m, -1, wo.shape[-1])))
+    return tp.reduce_sum(ys)

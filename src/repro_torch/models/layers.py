@@ -7,6 +7,16 @@ a client; ``models.model`` adds an axis of 1 for an unstacked model): a
 weight ``[m, d_in, d_out]`` applies to activations ``[m, ..., d_in]`` as
 one batched product over the clients (:func:`mm`), every client's tokens
 folded into the rows. Norms run in f32 (eps 1e-6) and cast back.
+
+With a column group ``tp`` (``sharding.tensor_parallel.ColumnGroup``)
+the parameters are a 2D mesh row's view: a leaf that the model axis cuts
+is the list of its column slices. :func:`apply_mlp` then runs
+column-parallel (``wg``/``wu``) and row-parallel (``wd``) products with
+one cross-column sum, :func:`embed_tokens` looks tokens up in each
+column's vocabulary range, and :func:`vocab_logits` /
+:func:`vocab_parallel_nll` give the cut vocabulary's logits and their f32
+log-softmax without joining them. With no group, or a replicated leaf,
+every function is what it is on one device.
 """
 from __future__ import annotations
 
@@ -141,7 +151,19 @@ def init_mlp(key: torch.Tensor, d_model: int, d_ff: int, kind: str,
     raise ValueError(f"unknown mlp {kind!r}")
 
 
-def apply_mlp(kind: str, params: Params, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(kind: str, params: Params, x: torch.Tensor,
+              tp=None) -> torch.Tensor:
+    """The MLP on x [m, ..., d]; with ``tp`` and a cut ``mlp`` dim each
+    column computes its hidden slice and its partial of ``wd``'s
+    product, and the partials meet at home."""
+    if tp is not None and isinstance(params["wd"], list):
+        parts = [_mlp(kind, {n: w[c] for n, w in params.items()}, xc)
+                 for c, xc in enumerate(tp.broadcast(x))]
+        return tp.reduce_sum(parts)
+    return _mlp(kind, params, x)
+
+
+def _mlp(kind: str, params: Params, x: torch.Tensor) -> torch.Tensor:
     if kind == "swiglu":
         h = F.silu(mm(x, params["wg"])) * mm(x, params["wu"])
     elif kind == "geglu":
@@ -164,11 +186,23 @@ def init_embedding(key: torch.Tensor, vocab: int, d_model: int,
                                 fan_in=d_model)}
 
 
-def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Params, tokens: torch.Tensor,
+                 tp=None) -> torch.Tensor:
     """tokens ``[m, ...]`` -> rows of each client's table ``[m, V, d]``:
     one ``F.embedding`` over the stacked tables (client c's row t is row
-    c*V + t), whose backward on the card sorts the indices (no atomics)."""
+    c*V + t), whose backward on the card sorts the indices (no atomics).
+    With ``tp`` and a cut vocabulary each column looks up the tokens in
+    its range, zeroes the rest, and the columns' rows meet at home (one
+    column holds each token, so the sum is its row exactly)."""
     table = params["table"]
+    if tp is not None and isinstance(table, list):
+        parts = []
+        for c, (tab, d) in enumerate(zip(table, tp.devices)):
+            local = tokens.to(d).long() - c * tab.shape[1]
+            ok = (local >= 0) & (local < tab.shape[1])
+            rows = embed_tokens({"table": tab}, torch.where(ok, local, 0))
+            parts.append(rows.masked_fill(~ok[..., None], 0.0))
+        return tp.reduce_sum(parts)
     m, vocab, d = table.shape
     offset = (torch.arange(m, device=tokens.device) * vocab).reshape(
         (m,) + (1,) * (tokens.dim() - 1))
@@ -177,3 +211,33 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def logits_from_embedding(params: Params, h: torch.Tensor) -> torch.Tensor:
     return mm(h, params["table"].transpose(1, 2))
+
+
+def vocab_logits(tp, parts: list[torch.Tensor], h: torch.Tensor,
+                 tied: bool) -> list[torch.Tensor]:
+    """Each column's logits ``[m, ..., V / mp]`` of its vocabulary slice
+    (``parts`` the tied table's ``[m, V / mp, d]`` slices, or
+    ``lm_head``'s ``[m, d, V / mp]``), on the column's device."""
+    return [mm(hc, w.transpose(1, 2) if tied else w)
+            for hc, w in zip(tp.broadcast(h), parts)]
+
+
+def vocab_parallel_nll(tp, parts: list[torch.Tensor],
+                       targets: torch.Tensor) -> torch.Tensor:
+    """``-log_softmax(logits)[target]`` in f32 from the columns' logit
+    slices, at home: the max of the columns' maxima, the columns' sums
+    of ``exp`` rescaled to it, and the target's logit as a masked sum
+    (one column holds it). The max carries no gradient, as in
+    ``log_softmax``'s own backward."""
+    lf = [p.to(torch.float32) for p in parts]
+    top = torch.stack([p.amax(dim=-1).to(tp.home) for p in lf]).amax(
+        dim=0).detach()
+    total = tp.reduce_sum([torch.exp(p - top.to(p.device)[..., None])
+                           .sum(dim=-1) for p in lf])
+    picked = []
+    for c, p in enumerate(lf):
+        local = targets.to(p.device).long() - c * p.shape[-1]
+        ok = (local >= 0) & (local < p.shape[-1])
+        val = p.gather(-1, torch.where(ok, local, 0)[..., None])[..., 0]
+        picked.append(torch.where(ok, val, 0.0))
+    return top + torch.log(total) - tp.reduce_sum(picked)

@@ -20,6 +20,14 @@ embeddings ``[m, b, T, d]``, caches' per-client leaves), one model a
 client, or none (one model, as the reference takes it): ``loss_fn`` then
 returns the per-client losses ``[m]``, so ``core.local_sgd`` runs every
 client in one backward.
+
+:func:`make_loss` is the training loss the round steps take. For the
+dense decoder family (every block ``dense``, no frontend) it carries a
+column-parallel form (``sharding.tensor_parallel``): ``loss_fn(...,
+tp=group)`` on a 2D mesh row's view, with the vocabulary-parallel
+embedding and logits, heads-cut attention and the cut MLP, so the round
+trains that row's cells tensor-parallel. The other families keep the
+joined step.
 """
 from __future__ import annotations
 
@@ -31,10 +39,11 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from .layers import (Params, apply_norm, dense_init, embed_tokens,
                      init_embedding, init_norm, logits_from_embedding, mm,
-                     prefixed, sub)
+                     prefixed, sub, vocab_logits, vocab_parallel_nll)
 from .transformer import (apply_stage, init_block, init_stage,
                           init_stage_cache, torch_dtype)
 from ..convert import index_key
+from ..sharding.tensor_parallel import with_column_parallel
 
 MOE_AUX_WEIGHT = 0.01
 Key = torch.Tensor | int
@@ -173,8 +182,9 @@ def model_axes(cfg: ArchConfig) -> dict[str, tuple]:
 
 def _stacked(params: Params) -> bool:
     """Whether the parameters carry a client axis (the embedding table is
-    [V, d] without one)."""
-    return params["embed/table"].dim() == 3
+    [V, d] without one; a cut table's column slices always carry it)."""
+    table = params["embed/table"]
+    return isinstance(table, list) or table.dim() == 3
 
 
 def _add_axis(params: Params, *inputs):
@@ -242,11 +252,12 @@ def cross_states(params: Params, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 def _forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-             positions, frontend_embeds, caches, cross_kv, last_only):
+             positions, frontend_embeds, caches, cross_kv, last_only,
+             tp=None):
     m, b, l = tokens.shape
     if positions is None:
         positions = torch.arange(l, dtype=torch.int32, device=tokens.device)
-    x = embed_tokens(sub(params, "embed"), tokens)
+    x = embed_tokens(sub(params, "embed"), tokens, tp=tp)
     if cfg.embed_scale:
         # The scale rounded to x's dtype first, as jnp.asarray(.., dtype);
         # a fill on the device, no copy from the host.
@@ -267,13 +278,16 @@ def _forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
         x, nc, a = apply_stage(
             sub(params, stage_name(cfg, si)), x, cfg=cfg, kind=kind, n=n,
             positions=positions, cache=cache_i, cross_kv=cross_kv,
-            x_first=x_first, shared_params=shared)
+            x_first=x_first, shared_params=shared, tp=tp)
         new_caches.append(nc)
         aux = aux + a
     if last_only:
         x = x[:, :, -1:]
     x = apply_norm(cfg.norm, sub(params, "final_norm"), x)
-    if cfg.tie_embeddings:
+    head = params["embed/table" if cfg.tie_embeddings else "lm_head"]
+    if isinstance(head, list):
+        logits = vocab_logits(tp, head, x, cfg.tie_embeddings)
+    elif cfg.tie_embeddings:
         logits = logits_from_embedding(sub(params, "embed"), x)
     else:
         logits = mm(x, params["lm_head"])
@@ -285,14 +299,16 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             frontend_embeds: torch.Tensor | None = None,
             caches: list | None = None,
             cross_states: torch.Tensor | None = None,
-            last_only: bool = False):
+            last_only: bool = False, tp=None):
     """tokens [(m,) b, l]. Returns (logits [(m,) b, l, vocab], caches',
     aux [(m)]). last_only: logits for the final position only (the
-    prefill serving path)."""
+    prefill serving path). ``tp``: a column group, ``params`` a 2D mesh
+    row's view (``ColumnGroup.view``, stacked); with a cut vocabulary
+    the logits are the columns' slices, a list."""
     kw = dict(positions=positions, last_only=last_only)
     if _stacked(params):
         return _forward(params, cfg, tokens, frontend_embeds=frontend_embeds,
-                        caches=caches, cross_kv=cross_states, **kw)
+                        caches=caches, cross_kv=cross_states, tp=tp, **kw)
     p, tok, fe, cs, cc = _add_axis(params, tokens, frontend_embeds,
                                    cross_states, caches)
     logits, nc, aux = _forward(p, cfg, tok, frontend_embeds=fe, caches=cc,
@@ -307,17 +323,22 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: dict,
-            rng=None) -> torch.Tensor:
+            rng=None, tp=None) -> torch.Tensor:
     """batch: {"tokens": [(m,) b, l], "targets": same, "frontend"?:
     [(m,) b, T, d], "mask"?}. Mean next-token cross-entropy (log-softmax
     in f32) plus ``MOE_AUX_WEIGHT`` times the MoE balance loss: one a
-    client ([m]) with a client axis, else a scalar."""
+    client ([m]) with a client axis, else a scalar. With a column group
+    ``tp`` (``params`` a 2D mesh row's view) a cut vocabulary's
+    log-softmax runs across the columns (``layers.vocab_parallel_nll``)."""
     del rng
     logits, _, aux = forward(params, cfg, batch["tokens"],
-                             frontend_embeds=batch.get("frontend"))
-    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+                             frontend_embeds=batch.get("frontend"), tp=tp)
     tgt = batch["targets"]
-    nll = -logp.gather(-1, tgt.long().unsqueeze(-1)).squeeze(-1)
+    if isinstance(logits, list):
+        nll = vocab_parallel_nll(tp, logits, tgt)
+    else:
+        logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -logp.gather(-1, tgt.long().unsqueeze(-1)).squeeze(-1)
     dims = (-2, -1)
     mask = batch.get("mask")
     if mask is not None:
@@ -326,6 +347,39 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict,
     else:
         loss = nll.mean(dim=dims)
     return loss + MOE_AUX_WEIGHT * aux
+
+
+_TP_LEAVES = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/wg",
+              "mlp/wu", "mlp/wd")
+
+
+def _tp_covers(name: str) -> bool:
+    """The leaves the column-parallel form takes cut: the vocabulary's
+    (the table, ``lm_head``), the attention projections and the MLP."""
+    return name in ("embed/table", "lm_head") or (
+        name.startswith("stages/")
+        and "/".join(name.split("/")[2:]) in _TP_LEAVES)
+
+
+def has_column_parallel_form(cfg: ArchConfig) -> bool:
+    """Whether :func:`make_loss` carries a column-parallel form: the
+    dense decoder family (every block dense, no frontend)."""
+    return (all(kind == "dense" for kind, _ in cfg.stages())
+            and cfg.frontend is None and not cfg.is_encoder_decoder)
+
+
+def make_loss(cfg: ArchConfig):
+    """The round's ``loss(params, batch, rng) -> [m]`` (:func:`loss_fn`),
+    carrying its column-parallel form for the dense decoder family
+    (:func:`has_column_parallel_form`)."""
+    def loss(p, b, r):
+        return loss_fn(p, cfg, b, r)
+
+    if not has_column_parallel_form(cfg):
+        return loss
+    return with_column_parallel(
+        loss, lambda g, view, b, r: loss_fn(view, cfg, b, r, tp=g),
+        _tp_covers)
 
 
 # ---------------------------------------------------------------------------

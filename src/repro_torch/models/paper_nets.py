@@ -18,6 +18,10 @@ clients into the channels: input ``[B, m*C, H, W]``, weight ``[m*O, C,
 kh, kw]``, ``groups=m`` — one launch a layer for all clients; the
 NHWC/HWIO transposes happen inside ``apply``. The LSTM's ``lax.scan`` is
 a Python loop over time.
+
+:func:`make_2nn_loss` is the 2NN's cross-entropy with a column-parallel
+form (:func:`apply_2nn_columns`), which a round on a 2D ``(clients,
+model)`` mesh trains tensor-parallel under any cut of the 2NN's leaves.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 
 from .. import prng
 from ..device import resolve_device
+from ..sharding.tensor_parallel import with_column_parallel
 from .layers import dense_init
 
 Params = dict[str, torch.Tensor]
@@ -80,6 +85,62 @@ def apply_2nn(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.relu(x @ params["w1"] + params["b1"].unsqueeze(-2))
     h = F.relu(h @ params["w2"] + params["b2"].unsqueeze(-2))
     return h @ params["w3"] + params["b3"].unsqueeze(-2)
+
+
+def _dense_columns(group, h, w, b, dim):
+    """``h @ w + b`` of one 2NN layer over ``group``'s columns, ``dim``
+    the stacked weight's cut dim (None: replicated): a column-cut w
+    (dim 2) gives each column its output slice (a list; a whole bias
+    narrowed to it), a row-cut w (dim 1) sums the columns' partials at
+    home, a replicated w runs at home. ``h`` is a home tensor or the
+    columns' slices of its features; a cut bias that meets a home sum
+    is gathered."""
+    full = h if not isinstance(h, list) else group.gather(h, -1)
+    if dim == 2:
+        out = []
+        bs = b if isinstance(b, list) else group.broadcast(b)
+        for c, hc in enumerate(group.broadcast(full)):
+            bc = bs[c] if isinstance(b, list) else bs[c].narrow(
+                -1, c * w[c].shape[-1], w[c].shape[-1])
+            out.append(hc @ w[c] + bc.unsqueeze(-2))
+        return out
+    bias = group.gather(b, -1) if isinstance(b, list) else b
+    if dim == 1:
+        parts = h if isinstance(h, list) else group.slice(h, -1)
+        y = group.reduce_sum([hc @ wc for hc, wc in zip(parts, w)])
+    else:
+        y = full @ w
+    return y + bias.unsqueeze(-2)
+
+
+def apply_2nn_columns(group, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """:func:`apply_2nn` on a 2D mesh row's view (``ColumnGroup.view``;
+    ``group.dims`` says how each leaf is cut): x [m, B, d_in] and the
+    logits at home. Under the hand specs (w1's columns, w2's and w3's
+    rows, the biases cut) w1 is column-parallel with b1 and the ReLU on
+    the cut, w2 row-parallel, its sum plus the gathered b2, and w3
+    row-parallel over the sliced h2, plus the gathered b3."""
+    h = x
+    for i in (1, 2, 3):
+        h = _dense_columns(group, h, params[f"w{i}"], params[f"b{i}"],
+                           group.dims.get(f"w{i}"))
+        if i < 3:
+            h = [F.relu(p) for p in h] if isinstance(h, list) else F.relu(h)
+    return group.gather(h, -1) if isinstance(h, list) else h
+
+
+_2NN_LEAVES = ("b1", "b2", "b3", "w1", "w2", "w3")
+
+
+def make_2nn_loss():
+    """The 2NN's mean cross-entropy ``(params, {"x", "y"}, rng) -> [m]``
+    carrying its column-parallel form (:func:`apply_2nn_columns`)."""
+    return with_column_parallel(
+        lambda p, b, r: softmax_xent(apply_2nn(p, b["x"]), b["y"]),
+        lambda g, view, b, r: softmax_xent(apply_2nn_columns(g, view,
+                                                             b["x"]),
+                                           b["y"]),
+        lambda name: name in _2NN_LEAVES)
 
 
 # ---------------------------------------------------------------------------

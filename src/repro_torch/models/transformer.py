@@ -21,6 +21,11 @@ allocation. ``cfg.remat`` wraps a block in
 recomputes the forward in the backward and does not change the numbers.
 A stage's decode cache is stacked on a leading layer axis: ``[n, m, ...]``
 (``kpos`` ``[n, S]``).
+
+A column group ``tp`` (``sharding.tensor_parallel``) reaches the dense
+block's attention and MLP, whose cut leaves are lists of column slices
+(a stage leaf's slices each carry the layer axis); norms and residuals
+run once, at home. The other kinds take no group.
 """
 from __future__ import annotations
 
@@ -119,9 +124,11 @@ def apply_block(params: Params, x: torch.Tensor, *, cfg: ArchConfig,
                 kind: str, positions: torch.Tensor,
                 cache: Params | None = None,
                 cross_kv: torch.Tensor | None = None,
-                x_first: torch.Tensor | None = None
+                x_first: torch.Tensor | None = None, tp=None
                 ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """x [m, b, l, d]. Returns (x_out, new_cache, aux_loss [m])."""
+    if tp is not None and kind != "dense":
+        raise ValueError(f"a {kind!r} block has no tensor-parallel form")
     rope = cfg.rope_theta if cfg.pos == "rope" else 0.0
     zero = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
 
@@ -131,7 +138,7 @@ def apply_block(params: Params, x: torch.Tensor, *, cfg: ArchConfig,
             qk_norm=cfg.qk_norm, rope_theta=rope, positions=positions,
             causal=causal,
             window=cfg.sliding_window if window is None else window,
-            cache=cache)
+            cache=cache, tp=tp)
 
     def norm(name, h):
         return apply_norm(cfg.norm, sub(params, name), h)
@@ -140,7 +147,8 @@ def apply_block(params: Params, x: torch.Tensor, *, cfg: ArchConfig,
         h, nc = self_attn(sub(params, "attn"), norm("ln1", x), cache,
                           causal=(kind == "dense"))
         x = x + h
-        x = x + apply_mlp(cfg.mlp, sub(params, "mlp"), norm("ln2", x))
+        x = x + apply_mlp(cfg.mlp, sub(params, "mlp"), norm("ln2", x),
+                          tp=tp)
         return x, nc, zero
 
     if kind == "moe":
@@ -203,6 +211,14 @@ def init_stage(key: torch.Tensor, cfg: ArchConfig, kind: str, n: int
             for name in blocks[0]}
 
 
+def _layers_of(t) -> list:
+    """A stage leaf [m, n, ...] as its n layers; a cut leaf's column
+    slices as one list of slices a layer."""
+    if isinstance(t, list):
+        return [list(layer) for layer in zip(*(p.unbind(1) for p in t))]
+    return t.unbind(1)
+
+
 def _layer_caches(cache: Params | None, n: int) -> list:
     if cache is None:
         return [None] * n
@@ -215,7 +231,7 @@ def apply_stage(stage_params: Params, x: torch.Tensor, *, cfg: ArchConfig,
                 cache: Params | None = None,
                 cross_kv: torch.Tensor | None = None,
                 x_first: torch.Tensor | None = None,
-                shared_params: Params | None = None
+                shared_params: Params | None = None, tp=None
                 ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """Run a stage of n identical blocks (leaves [m, n, ...]). cache:
     stacked [n, ...] or None. Returns (x, new_cache_stacked, aux [m])."""
@@ -226,9 +242,10 @@ def apply_stage(stage_params: Params, x: torch.Tensor, *, cfg: ArchConfig,
 
     def block(p, h, c):
         return apply_block(p, h, cfg=cfg, kind=kind, positions=positions,
-                           cross_kv=cross_kv, x_first=x_first, cache=c)
+                           cross_kv=cross_kv, x_first=x_first, cache=c,
+                           tp=tp)
 
-    layers = {name: t.unbind(1) for name, t in stage_params.items()}
+    layers = {name: _layers_of(t) for name, t in stage_params.items()}
     caches = _layer_caches(cache, n)
     aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
     new = []

@@ -1,0 +1,142 @@
+"""Column groups: the cross-column operations of the tensor-parallel
+local step on a 2D ``(clients, model)`` mesh.
+
+A shard's row of ``mp`` cells (``grid[s, :]``, ``core.mixing._mesh_grid``)
+forms a :class:`ColumnGroup`. Its home is column 0's device, where the
+batch, the replicated activations and the loss live. A loss's
+column-parallel form (:class:`ColumnParallel`) reads the row's cells as
+they are at rest, through :meth:`ColumnGroup.view`: a leaf that the
+model axis cuts is the list of its mp slices, one a column on the
+column's device; a replicated leaf is column 0's copy. Nothing gathers a
+cut weight whole. The operations are torch compositions, so autograd
+carries gradients across devices:
+
+  * :meth:`~ColumnGroup.broadcast` copies a home tensor to every column;
+    its backward sums the columns' gradients at home in column order;
+  * :meth:`~ColumnGroup.reduce_sum` adds the columns' partials at home in
+    column order 0..mp-1, so a round is deterministic;
+  * :meth:`~ColumnGroup.gather` concatenates cut slices at home (a cut
+    bias that meets a full activation);
+  * :meth:`~ColumnGroup.slice` cuts a home activation into the columns'
+    parts.
+
+The reference leaves this step to GSPMD, which partitions the whole
+model's step over the ``"model"`` axis (``launch/train.py``); the port
+writes the partition by hand for the losses that carry a form.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import torch
+
+Params = dict[str, torch.Tensor]
+
+__all__ = ["ColumnGroup", "ColumnParallel", "with_column_parallel",
+           "local_step_kind"]
+
+
+class _Broadcast(torch.autograd.Function):
+    """x on its device -> one copy a device (a view where the device is
+    x's own); the gradient is the sum of the copies' gradients, added on
+    x's device in the order of the devices."""
+
+    @staticmethod
+    def forward(ctx, x, devs):
+        ctx.home = x.device
+        return tuple(x.view_as(x) if torch.device(d) == x.device
+                     else x.to(d) for d in devs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        acc = grads[0].to(ctx.home)
+        for g in grads[1:]:
+            acc = acc + g.to(ctx.home)
+        return acc, None
+
+
+class ColumnGroup:
+    """One shard's row of cells: ``devices`` one a column (column 0 the
+    home) and ``dims``, flat name -> the stacked leaf's dim the model
+    axis cuts (None: replicated), as ``core.mixing._column_dims`` gives
+    it."""
+
+    def __init__(self, devices: Sequence, dims: dict):
+        self.devices = [torch.device(d) for d in devices]
+        self.dims = dict(dims)
+        self.mp = len(self.devices)
+        self.home = self.devices[0]
+
+    def view(self, cells: list[Params]) -> dict:
+        """The row's cells as one dict: a cut leaf the list of its slices
+        (column order), a replicated leaf column 0's copy (the other
+        columns' copies are not read)."""
+        return {n: [c[n] for c in cells] if self.dims.get(n) is not None
+                else t for n, t in cells[0].items()}
+
+    def broadcast(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """A home tensor on every column (its backward sums the columns'
+        gradients at home, in column order)."""
+        return list(_Broadcast.apply(x, tuple(self.devices)))
+
+    def reduce_sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The columns' partials added at home in column order (in f32
+        for a narrower float type, rounded once at the end)."""
+        dtype = parts[0].dtype
+        narrow = dtype in (torch.bfloat16, torch.float16)
+        acc = parts[0].to(self.home)
+        acc = acc.to(torch.float32) if narrow else acc
+        for p in parts[1:]:
+            acc = acc + p.to(self.home)
+        return acc.to(dtype) if narrow else acc
+
+    def gather(self, parts: Sequence[torch.Tensor], dim: int
+               ) -> torch.Tensor:
+        """Cut slices concatenated along ``dim`` at home."""
+        return torch.cat([p.to(self.home) for p in parts], dim=dim)
+
+    def slice(self, x: torch.Tensor, dim: int) -> list[torch.Tensor]:
+        """A home tensor cut along ``dim`` into mp equal parts, part c on
+        column c's device."""
+        w = x.shape[dim] // self.mp
+        return [p.to(d) for p, d in zip(torch.split(x, w, dim=dim),
+                                        self.devices)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnParallel:
+    """A loss's column-parallel form: ``fn(group, view, batch, rng) ->
+    losses [m]`` on the group's home, computing the loss of the row's
+    cells (``view`` from :meth:`ColumnGroup.view`) without joining them;
+    ``covers(name)`` says whether the form handles leaf ``name`` cut."""
+
+    fn: Callable
+    covers: Callable[[str], bool]
+
+
+def with_column_parallel(loss_fn: Callable, fn: Callable,
+                         covers: Callable[[str], bool]) -> Callable:
+    """``loss_fn`` carrying the column-parallel form ``fn`` (the callable
+    the round calls on one device and on a 1D mesh is ``loss_fn``
+    itself)."""
+    def loss(params, batch, rng):
+        return loss_fn(params, batch, rng)
+
+    loss.column_parallel = ColumnParallel(fn, covers)
+    return loss
+
+
+def local_step_kind(loss_fn: Callable, dims: dict | None) -> str:
+    """Which local step a round runs: ``"whole"`` without a 2D mesh
+    (``dims`` None: every lane's whole model on its shard's device),
+    ``"tensor_parallel"`` when the loss carries a column-parallel form
+    that covers every leaf ``dims`` cuts, else ``"joined"`` (the row's
+    cells joined on column 0's device)."""
+    if dims is None:
+        return "whole"
+    form = getattr(loss_fn, "column_parallel", None)
+    if form is not None and all(form.covers(n) for n, d in dims.items()
+                                if d is not None):
+        return "tensor_parallel"
+    return "joined"

@@ -21,8 +21,9 @@ own 2D mixer, its dense trajectory, and the port's 1D mesh and one device.
   ``--pool``, ``--mixer-impl dense``, ``--fuse-round`` and
   ``--model-parallel 0``), the gemma-7b reduced driver run on a CPU test
   mesh of 2 shards x 4 columns (the reference's three log lines, losses
-  falling, bitwise with the 1D mesh run, within 1e-5 of one device),
-  and the ``mesh2d_compare`` smoke's byte gates.
+  falling; its tensor-parallel step within rtol 1e-5 of the 1D mesh run,
+  its joined step with an opaque loss bitwise with it; both within 1e-5
+  of one device), and the ``mesh2d_compare`` smoke's byte gates.
 """
 import math
 import os
@@ -560,12 +561,10 @@ def test_driver_refuses_what_the_reference_refuses(extra, match):
         TT.main(argv[:-1] + ["0"])
 
 
-def test_driver_gemma_reduced_on_a_2d_cpu_mesh(capsys):
-    """The reference's ``test_2d_train_driver_production_config``:
-    gemma-7b reduced, ``--clients 2 --model-parallel 4 --rounds 3 --bits
-    8``, here through ``run_resident`` on a CPU test mesh of 2 shards x 4
-    columns: the three log lines, losses finite and falling, bitwise
-    with the 1D mesh run and within 1e-5 of the one-device run."""
+def _driver_gemma_runs(capsys):
+    """gemma-7b reduced through ``run_resident`` on a (2, 4) CPU test
+    mesh, the 1D mesh of its 2 shards and one device: the runs, the 2D
+    run's console and the 2D specs."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
@@ -587,17 +586,6 @@ def test_driver_gemma_reduced_on_a_2d_cpu_mesh(capsys):
         runs[name] = (st, met)
         if name == "2d":
             out = capsys.readouterr().out
-    assert "2D mesh: model_parallel=4" in out
-    assert "8/11 param leaves model-sharded" in out
-    assert "4.0x reduction" in out
-    losses = [float(ln.split("loss=")[1].split()[0])
-              for ln in out.splitlines() if "loss=" in ln]
-    assert len(losses) == 3 and all(math.isfinite(v) for v in losses)
-    assert losses[-1] < losses[0]
-    for k in ("loss", "consensus_dist"):
-        assert torch.equal(runs["2d"][1][k], runs["1d"][1][k]), k
-        assert float(runs["2d"][1][k]) == pytest.approx(
-            float(runs["one"][1][k]), rel=1e-5)
     mesh2 = make_test_mesh(2, model_parallel=4, device="cpu")
     from repro_torch.models.model import model_axes
     from repro_torch.sharding import RULES_A, specs_for_tree
@@ -606,6 +594,60 @@ def test_driver_gemma_reduced_on_a_2d_cpu_mesh(capsys):
                                          device="meta")
                           for n, t in runs["1d"][0].params[0].items()},
         RULES_A, mesh2, leading_client=("clients",))
+    return runs, out, mesh2, specs
+
+
+def test_driver_gemma_reduced_on_a_2d_cpu_mesh(capsys):
+    """The reference's ``test_2d_train_driver_production_config``:
+    gemma-7b reduced, ``--clients 2 --model-parallel 4 --rounds 3 --bits
+    8``, here through ``run_resident`` on a CPU test mesh of 2 shards x 4
+    columns: the three log lines and the tensor-parallel local step (gemma
+    is dense), losses finite and falling, loss, consensus and parameters
+    within rtol 1e-5 of the 1D mesh run (the row- and column-parallel
+    sums change float order) and loss and consensus of the one-device
+    run."""
+    runs, out, mesh2, specs = _driver_gemma_runs(capsys)
+    assert "2D mesh: model_parallel=4" in out
+    assert "8/11 param leaves model-sharded" in out
+    assert "4.0x reduction" in out
+    assert "local step: tensor_parallel" in out
+    losses = [float(ln.split("loss=")[1].split()[0])
+              for ln in out.splitlines() if "loss=" in ln]
+    assert len(losses) == 3 and all(math.isfinite(v) for v in losses)
+    assert losses[-1] < losses[0]
+    for k in ("loss", "consensus_dist"):
+        assert float(runs["2d"][1][k]) == pytest.approx(
+            float(runs["1d"][1][k]), rel=1e-5), k
+        assert float(runs["2d"][1][k]) == pytest.approx(
+            float(runs["one"][1][k]), rel=1e-5)
+    # The parameters within rtol 1e-5 of the 1D run's in each leaf's L2
+    # norm. Elementwise, a float-order difference of a few ulp flips a
+    # few stochastic-rounding decisions of the 8-bit wire; a flip moves
+    # a value by one quantizer level, at most the leaf's largest
+    # magnitude over qmax (127).
+    got = mesh2.gather(runs["2d"][0].params, specs)
+    want = make_test_mesh(2, "cpu").gather(runs["1d"][0].params)
+    for n in want:
+        err = got[n] - want[n]
+        assert float(err.norm()) <= 1e-5 * float(want[n].norm()), n
+        assert float(err.abs().max()) <= float(want[n].abs().max()) / 127, n
+
+
+def test_driver_gemma_reduced_joined_step_bitwise_with_1d(capsys,
+                                                          monkeypatch):
+    """The same driver run with an opaque loss (no column-parallel
+    form): the 2D run takes the joined local step and its losses,
+    consensus and parameters are bitwise the 1D mesh run's."""
+    from repro_torch.launch import train as TT
+    from repro_torch.models import model as TM
+    monkeypatch.setattr(TT, "_model_loss", lambda cfg: (
+        lambda p, b, r: TM.loss_fn(p, cfg, b, r)))
+    runs, out, mesh2, specs = _driver_gemma_runs(capsys)
+    assert "local step: joined" in out
+    for k in ("loss", "consensus_dist"):
+        assert torch.equal(runs["2d"][1][k], runs["1d"][1][k]), k
+        assert float(runs["2d"][1][k]) == pytest.approx(
+            float(runs["one"][1][k]), rel=1e-5)
     equal(mesh2.gather(runs["2d"][0].params, specs),
           make_test_mesh(2, "cpu").gather(runs["1d"][0].params), "driver")
 
