@@ -197,8 +197,16 @@ Phases (any failure exits non-zero):
    and the fused round on 4 x 2 cells with no specs (every column the
    whole model): 12 rounds bitwise with the 1D mesh's fused round,
    eager and captured, B4 = B5 = 8 a round exactly, graph nodes and
-   replay ms beside the 1D fused graph's (``--only mesh2d`` runs it
-   alone);
+   replay ms beside the 1D fused graph's; Whisper-tiny as registered
+   with 1 500 stub frames a sequence through the driver, 1D, joined
+   (2, 2) and tensor-parallel (2, 2) / (2, 3), gated as SmolLM-135M's
+   (its bf16 bound in FAMILY_PREDICTION); each other family's reduced
+   config (MoE, Mixtral, Mamba2, Zamba2, VLM) in f32 on (2, 2), the
+   tensor-parallel losses within 1e-5 of the joined arm's, the joined
+   bitwise with 1D, B3 once a step a cell (``--only mesh2d`` runs it
+   alone; ``--only cards`` ends with Qwen3-MoE-30B-A3B at its widths,
+   2 layers, m 2: 1D on two cards against tensor-parallel (2, 2) on
+   four, each card's peak);
 16. "mia": ``bench.mia`` at the reference's sizes (m 8, K 4, batch 16,
    the ring, fp32 gossip, rounds 5 and 60), captured: B3 exactly K
    launches a round (eager) and K nodes a round graph, 5 captured rounds
@@ -231,6 +239,7 @@ import ctypes
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -5719,7 +5728,8 @@ def cards_phase(dev, flush=None) -> dict:
     (:func:`mesh2d_rounds`: the joined step bitwise, the tensor-parallel
     step's losses within its tolerances of it, its broadcasts and sums
     copies between cards; exact launches, eager, ``capture_step``
-    refused)."""
+    refused); then Qwen3-MoE-30B-A3B's tensor-parallel step on four
+    cards against its 1D run on two (:func:`cards_moe`)."""
     from repro_torch.launch.mesh import make_client_mesh, make_test_mesh
     del flush
     mesh = make_client_mesh(M, clients_per_shard=M // MESH_SHARDS)
@@ -5731,6 +5741,7 @@ def cards_phase(dev, flush=None) -> dict:
            for arm in ("unfused", "fused")}
     mesh2 = make_client_mesh(M, clients_per_shard=M // 2, model_parallel=2)
     rec["2d"] = mesh2d_rounds(dev, mesh2=mesh2, mesh1=make_test_mesh(2, dev))
+    rec["moe"] = cards_moe(dev)
     rec["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"cards": {
         "devices": [torch.cuda.get_device_name(i)
@@ -5739,7 +5750,75 @@ def cards_phase(dev, flush=None) -> dict:
                             for k in ("unfused", "fused", "2d")},
         "tp_loss_rel_diff_max": rec["2d"]["tp"]["loss_rel_diff_max"],
         "capture_refused_2d": "capture_refused" in rec["2d"],
+        "moe_card_peak_gib": rec["moe"]["card_peak_gib"],
         "phase_s": rec["phase_s"]}}), flush=True)
+    return rec
+
+
+# The four-card MoE arm of the "cards" phase: Qwen3-MoE-30B-A3B at its
+# registered widths (128 experts of moe_d_ff 768, d 2 048, 32 / 4 heads,
+# vocab 151 936, bf16) with the cuts CARDS_MOE_CUTS, through the driver
+# (8 bits, K 4, batch 4, seq 128): the 1D run of 2 shards, one card a
+# shard, against the tensor-parallel step on (2, 2), one card a cell.
+CARDS_MOE_ARCH = "qwen3-moe-30b-a3b"
+CARDS_MOE_CUTS = {"n_layers": 2, "clients": 2}
+CARDS_MOE_ARMS = {"1d": (1, "whole"), "tp22": (2, "tensor_parallel")}
+# Predicted before the first run: a column holds half the vocabulary, half
+# the experts and half the query heads (the 4 KV heads cut too), ~0.94 G
+# values against ~1.87 G for a whole client; a card's peak then about
+# halves with them (params, momentum, gradient and the lone lane run as
+# two all scale with the cell), and the losses stay within the bf16 bound.
+CARDS_MOE_PREDICTION = {"cell_values_a_lane": 0.94e9,
+                        "client_values": 1.87e9,
+                        "peak_gib_1d_card": [18, 30],
+                        "peak_gib_tp_card": [9, 17],
+                        "tp_loss_rel_bound": 2 ** -8}
+
+
+def cards_moe(dev) -> dict:
+    """Qwen3-MoE-30B-A3B (CARDS_MOE_CUTS) through ``run_resident``: the
+    1D mesh of 2 shards on two cards and the tensor-parallel (2, 2) mesh
+    on four (:func:`mesh2d_driver_arm` with ``meshes``), gated as the
+    one-card arms (:func:`driver_gates`, the losses within
+    CARDS_MOE_PREDICTION's bf16 bound of the 1D run's); each card's peak
+    beside the 1D run's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_client_mesh
+    print(json.dumps({"cards_moe_prediction": CARDS_MOE_PREDICTION}),
+          flush=True)
+    cfg = dataclasses.replace(get_config(CARDS_MOE_ARCH),
+                              n_layers=CARDS_MOE_CUTS["n_layers"])
+    m = CARDS_MOE_CUTS["clients"]
+    meshes = {1: make_client_mesh(m, clients_per_shard=1),
+              2: make_client_mesh(m, clients_per_shard=1, model_parallel=2)}
+    argv = ["--bits", "8", "--clients", str(m), "--clients-per-shard", "1"]
+    PROD_OUT.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for arm in CARDS_MOE_ARMS:
+        runs[arm] = [mesh2d_driver_arm(dev, cfg, arm, arms=CARDS_MOE_ARMS,
+                                       argv=argv, tag="moe_cards_",
+                                       meshes=meshes)]
+        print(json.dumps({"cards_moe_run": arm, **{
+            k: runs[arm][0][k] for k in ("round_ms", "card_peak_gib",
+                                         "stage_peak_gib", "loss",
+                                         "launches")}}), flush=True)
+    gates = driver_gates("cards moe", runs, CARDS_MOE_ARMS,
+                         CARDS_MOE_PREDICTION["tp_loss_rel_bound"])
+    two = runs["tp22"][0]
+    rec = {"path": "cards moe", "arch": CARDS_MOE_ARCH,
+           "cuts": CARDS_MOE_CUTS, "argv": argv, **gates,
+           "cell_values_a_lane": two["cell_values_a_lane"],
+           "client_values": two["client_values"],
+           "card_peak_gib": {k: v[0]["card_peak_gib"]
+                             for k, v in runs.items()},
+           "stage_peak_gib": {k: v[0]["stage_peak_gib"]
+                              for k, v in runs.items()},
+           "round_ms": {k: v[0]["round_ms"] for k, v in runs.items()},
+           "loss": {k: v[0]["loss"] for k, v in runs.items()},
+           "local_step_line": next(m for m in two["info"]
+                                   if m.startswith("local step:"))}
+    print(json.dumps(rec), flush=True)
     return rec
 
 
@@ -6201,75 +6280,166 @@ class StagePeaks:
         self._mark("other")
 
 
-def mesh2d_driver_arm(dev, cfg, arm: str) -> dict:
-    """One run of SmolLM-135M through ``run_resident`` for
-    MESH2D_DRIVER_ROUNDS rounds on arm ``arm`` of MESH2D_DRIVER_ARMS: the
-    1D mesh of 2 shards, or (2, mp) cells of cuda:0 with the model's loss
-    (the tensor-parallel step) or, for the joined arm, an opaque loss
-    (the driver's ``_model_loss`` patched to a plain lambda). Returns its
-    launches, round ms, peak GiB (and by stage, :class:`StagePeaks`),
-    losses, consensus, info lines and whether every replicated leaf's
-    copies are bitwise equal across a shard's columns at the end."""
+def mesh2d_driver_arm(dev, cfg, arm: str, arms: dict = MESH2D_DRIVER_ARMS,
+                      argv: list = MESH2D_DRIVER_ARGV, tag: str = "",
+                      meshes=None, frontend: bool = False) -> dict:
+    """One run of ``cfg`` (SmolLM-135M by default) through
+    ``run_resident`` for MESH2D_DRIVER_ROUNDS rounds on arm ``arm`` of
+    ``arms``: the 1D mesh of 2 shards, or (2, mp) cells of cuda:0 with
+    the model's loss (the tensor-parallel step) or, for the joined arm,
+    an opaque loss (the driver's ``_model_loss`` patched to a plain
+    lambda). ``meshes`` maps mp to the mesh to run on instead (cards of
+    their own); ``frontend`` adds the stub's frame embeddings to the
+    driver's batches (``lm_round_batches`` wrapped; the driver feeds
+    none). Returns its launches, round ms, peak GiB (and by stage on
+    ``dev``, :class:`StagePeaks`; on every card), losses, consensus,
+    info lines and whether every replicated leaf's copies are bitwise
+    equal across a shard's columns at the end."""
     from repro_torch.core.mixing import _column_dims
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as TT
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import model as TM
+    from repro_torch.models.frontends import stub_frontend_embeddings
     from repro_torch.sharding import RULES_A, specs_for_tree, stack_shapes
     from repro_torch.telemetry import RunLog, Tracer
 
-    mp, _ = MESH2D_DRIVER_ARMS[arm]
-    argv = ["--rounds", str(MESH2D_DRIVER_ROUNDS), "--device", str(dev)]
-    argv += MESH2D_DRIVER_ARGV
-    mesh = make_test_mesh(2, dev)
+    mp, _ = arms[arm]
+    argv = ["--rounds", str(MESH2D_DRIVER_ROUNDS), "--device", str(dev)
+            ] + list(argv)
     if mp > 1:
         argv += ["--model-parallel", str(mp)]
-        mesh = make_test_mesh(2, model_parallel=mp, device=dev)
+    mesh = (meshes[mp] if meshes is not None else
+            make_test_mesh(2, model_parallel=mp, device=dev) if mp > 1
+            else make_test_mesh(2, dev))
     args = TT.build_parser().parse_args(argv)
-    path = PROD_OUT / f"mesh2d_driver_{arm}.jsonl"
+    path = PROD_OUT / f"mesh2d_driver_{tag}{arm}.jsonl"
     log = RunLog(jsonl=str(path), console=False)
     tracer = Tracer(enabled=True)
-    model_loss = TT._model_loss
+    model_loss, batches = TT._model_loss, TT.lm_round_batches
     if arm.startswith("joined"):
         TT._model_loss = lambda c: (lambda p, b, r: TM.loss_fn(p, c, b, r))
+    if frontend:
+        def with_frames(key, t, *, m, K, batch, **kw):
+            out = batches(key, t, m=m, K=K, batch=batch, **kw)
+            fe = stub_frontend_embeddings(cfg, m * K * batch, seed=t,
+                                          device=key.device)
+            out["frontend"] = fe.reshape((m, K, batch) + fe.shape[1:])
+            return out
+        TT.lm_round_batches = with_frames
+    cards = range(torch.cuda.device_count())
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
     reset_launch_counts()
     try:
         with StagePeaks(dev) as stages:
             state, met = TT.run_resident(args, cfg, log, tracer, mesh=mesh)
             torch.cuda.synchronize()
     finally:
-        TT._model_loss = model_loss
+        TT._model_loss, TT.lm_round_batches = model_loss, batches
         log.close()
     recs = [json.loads(line) for line in open(path)]
     path.unlink()
+    peak = max(stages.peaks.values())
     out = {"launches": launch_counts(),
            "round_ms": [ev["dur"] / 1e3 for ev in tracer.events
                         if ev.get("name") == "round/step"],
-           "peak_gib": max(stages.peaks.values()),
+           "peak_gib": peak,
            "stage_peak_gib": stages.peaks,
+           "card_peak_gib": [peak if i == dev.index else
+                             torch.cuda.max_memory_allocated(i) / 2 ** 30
+                             for i in cards],
            "loss": [r["loss"] for r in recs if r["kind"] == "round"],
            "consensus": [r.get("consensus_dist") for r in recs
                          if r["kind"] == "round"],
            "info": [r.get("msg", "") for r in recs if r["kind"] == "info"],
            "local_steps": args.local_steps}
+    meta = TM.init_model(torch.zeros(2, dtype=torch.int64, device="meta"),
+                         cfg, device="meta")
+    # B3 launches once a dtype of the leaves a step (Qwen3-MoE's f32
+    # router beside its bf16 leaves: two).
+    out["dtype_groups"] = len({t.dtype for t in meta.values()})
     if mp > 1:
-        meta = TM.init_model(torch.zeros(2, dtype=torch.int64,
-                                         device="meta"), cfg, device="meta")
         specs = specs_for_tree(TM.model_axes(cfg),
                                stack_shapes(meta, args.clients), RULES_A,
                                mesh, leading_client=("clients",))
         dims = _column_dims(mesh, specs)
         cells = state.params
+        n_shards = len(cells) // mp
         out["replicated_leaves"] = sum(d is None for d in dims.values())
+        out["cut_leaves"] = len(dims) - out["replicated_leaves"]
+        out["client_values"] = sum(t.numel() for t in meta.values())
+        out["cell_values_a_lane"] = sum(
+            t.numel() // (1 if dims[n] is None else mp)
+            for n, t in meta.items())
         out["replicas_equal"] = all(
-            torch.equal(cells[s * mp + c][n], cells[s * mp][n])
-            for s in range(2) for c in range(1, mp) for n, d in dims.items()
-            if d is None)
+            torch.equal(cells[s * mp + c][n],
+                        cells[s * mp][n].to(cells[s * mp + c][n].device))
+            for s in range(n_shards) for c in range(1, mp)
+            for n, d in dims.items() if d is None)
     del state, met
     return out
+
+
+def driver_gates(what: str, runs: dict, arms: dict, bound: float,
+                 rounds: int = MESH2D_DRIVER_ROUNDS,
+                 shards: int = 2) -> dict:
+    """The 2D driver's gates on its runs (arm -> its runs in turns; each
+    arm's first run is gated, the first "1d" the oracle): each 2D arm's
+    "2D mesh:", per-column wire and "local step: <kind>" lines; B1 = B2
+    = shards x mp a round and B3 = shards x K a round a dtype of the
+    leaves, x mp on the tensor-parallel step; finite losses;
+    replicated leaves bitwise equal across a shard's columns; the joined
+    arm's losses bitwise the 1D run's and its consensus within
+    MESH2D_CONSENSUS_RTOL; the tensor-parallel losses within ``bound``
+    relative of the 1D run's. Returns each arm's largest relative loss
+    difference from the 1D run and the joined arm's log lines."""
+    one = runs["1d"][0]
+    rel, log_lines = {}, None
+    for arm, (mp, kind) in arms.items():
+        if mp == 1:
+            continue
+        two = runs[arm][0]
+        lines = {k: next((m for m in two["info"] if m.startswith(k)),
+                         None)
+                 for k in ("2D mesh:", "per-device wire:",
+                           f"local step: {kind}")}
+        if None in lines.values():
+            raise AssertionError(f"{what} {arm}: log lines "
+                                 f"{two['info']}")
+        b3 = shards * two["local_steps"] * rounds * two["dtype_groups"] * (
+            mp if kind == "tensor_parallel" else 1)
+        for k, want in (("quantize_pack_buffer", shards * mp * rounds),
+                        ("dequant_mix_buffer", shards * mp * rounds),
+                        ("momentum_sgd", b3)):
+            if two["launches"][k] != want:
+                raise AssertionError(f"{what} {arm}: {k} "
+                                     f"{two['launches'][k]} != {want}")
+        if not all(math.isfinite(v) for v in two["loss"]):
+            raise AssertionError(f"{what} {arm}: losses {two['loss']}")
+        if not two["replicas_equal"]:
+            raise AssertionError(f"{what} {arm}: replicated leaves "
+                                 "differ across columns")
+        rel[arm] = r = max(abs(a - b) / abs(b)
+                           for a, b in zip(two["loss"], one["loss"]))
+        if kind == "joined":
+            if two["loss"] != one["loss"]:
+                raise AssertionError(f"{what} {arm}: losses "
+                                     f"{two['loss']} != {one['loss']}")
+            crel = max(abs(a - b) / max(abs(b), 1e-30)
+                       for a, b in zip(two["consensus"],
+                                       one["consensus"]))
+            if crel > MESH2D_CONSENSUS_RTOL:
+                raise AssertionError(f"{what} {arm}: consensus rel "
+                                     f"{crel}")
+            log_lines = lines
+        elif r > bound:
+            raise AssertionError(f"{what} {arm}: losses {two['loss']} "
+                                 f"against the 1D run's {one['loss']}:"
+                                 f" rel {r} > {bound}")
+    return {"loss_rel_diff_max": rel, "log_lines": log_lines}
 
 
 def mesh2d_driver(dev) -> dict:
@@ -6291,51 +6461,9 @@ def mesh2d_driver(dev) -> dict:
     for arm in MESH2D_DRIVER_ORDER:
         runs.setdefault(arm, []).append(mesh2d_driver_arm(dev, cfg, arm))
     one = runs["1d"][0]
-    bound = MESH2D_PREDICTION["driver_tp_loss_rel_bound"]
-    rel = {}
-    for arm, (mp, kind) in MESH2D_DRIVER_ARMS.items():
-        if mp == 1:
-            continue
-        two = runs[arm][0]
-        lines = {k: next((m for m in two["info"] if m.startswith(k)), None)
-                 for k in ("2D mesh:", "per-device wire:",
-                           f"local step: {kind}")}
-        if None in lines.values():
-            raise AssertionError(f"mesh2d driver {arm}: log lines "
-                                 f"{two['info']}")
-        b3 = 2 * two["local_steps"] * MESH2D_DRIVER_ROUNDS * (
-            mp if kind == "tensor_parallel" else 1)
-        for k, want in (("quantize_pack_buffer",
-                         2 * mp * MESH2D_DRIVER_ROUNDS),
-                        ("dequant_mix_buffer",
-                         2 * mp * MESH2D_DRIVER_ROUNDS),
-                        ("momentum_sgd", b3)):
-            if two["launches"][k] != want:
-                raise AssertionError(f"mesh2d driver {arm}: {k} "
-                                     f"{two['launches'][k]} != {want}")
-        if not all(math.isfinite(v) for v in two["loss"]):
-            raise AssertionError(f"mesh2d driver {arm}: losses "
-                                 f"{two['loss']}")
-        if not two["replicas_equal"]:
-            raise AssertionError(f"mesh2d driver {arm}: replicated leaves "
-                                 "differ across columns")
-        rel[arm] = max(abs(a - b) / abs(b)
-                       for a, b in zip(two["loss"], one["loss"]))
-        if kind == "joined":
-            if two["loss"] != one["loss"]:
-                raise AssertionError(f"mesh2d driver {arm}: losses "
-                                     f"{two['loss']} != {one['loss']}")
-            crel = max(abs(a - b) / max(abs(b), 1e-30)
-                       for a, b in zip(two["consensus"], one["consensus"]))
-            if crel > MESH2D_CONSENSUS_RTOL:
-                raise AssertionError(f"mesh2d driver {arm}: consensus rel "
-                                     f"{crel}")
-        elif rel[arm] > bound:
-            raise AssertionError(f"mesh2d driver {arm}: losses "
-                                 f"{two['loss']} against the 1D run's "
-                                 f"{one['loss']}: rel {rel[arm]} > {bound}")
-        if arm == "joined22":
-            log_lines = lines
+    gates = driver_gates("mesh2d driver", runs, MESH2D_DRIVER_ARMS,
+                         MESH2D_PREDICTION["driver_tp_loss_rel_bound"])
+    rel, log_lines = gates["loss_rel_diff_max"], gates["log_lines"]
     joined = runs["joined22"][0]
     rec = {"path": "mesh2d driver", "arch": PROD_ARCH,
            "argv": MESH2D_DRIVER_ARGV + ["--model-parallel", "2"],
@@ -6359,6 +6487,116 @@ def mesh2d_driver(dev) -> dict:
                                    if c} for k, v in runs.items()}}
     print(json.dumps(rec), flush=True)
     return rec
+
+
+# The other families' tensor-parallel step (A20b). Whisper-tiny as
+# registered (bf16, 4 encoder + 4 decoder layers, d 384, 6 heads, d_ff
+# 1 536, vocab 51 865, remat) through the driver at its defaults, with the
+# stub's 1 500 frame embeddings a sequence (the driver feeds none, so
+# without them the encoder would not run): the 1D run of 2 shards the
+# oracle, the joined (2, 2) arm, and the tensor-parallel (2, 2) and (2, 3)
+# arms, in turns. RULES_A cuts heads, MLP and the cross-attention at mp 2
+# and 3 and leaves the vocabulary whole (51 865 divides by neither).
+FAMILY_ARCH = "whisper-tiny"
+FAMILY_DRIVER_ORDER = ("1d", "joined22", "tp22", "tp23", "tp22")
+# Every other registered family's reduced config in f32 on (2, 2) cells
+# of cuda:0, the driver's defaults otherwise: 1D, joined, tensor-parallel.
+FAMILY_REDUCED = ("qwen3-moe-30b-a3b", "mixtral-8x22b", "mamba2-780m",
+                  "zamba2-1.2b", "llama-3.2-vision-11b")
+FAMILY_REDUCED_ARMS = {"1d": (1, "whole"), "joined22": (2, "joined"),
+                       "tp22": (2, "tensor_parallel")}
+FAMILY_REDUCED_RTOL = 1e-5
+# What PERF.md predicted before this code's first run on the card.
+# ``whisper_tp_loss_rel_bound`` is a gate, derived as MESH2D_PREDICTION's
+# bound: bf16 everywhere (unit roundoff 2^-9), a row-parallel product
+# rounds each column's partial to bf16 before the f32 sum, independent
+# errors of relative size 2^-9 a value; the vocabulary is replicated,
+# so the log-softmax runs in the 1D order. Averaged over 8 lanes x 4 x
+# 128 tokens they move the mean loss by ~2^-9 / 64 ~ 3e-5 relative, and
+# the encoder's 1 500 frames reach the loss only through the
+# cross-attention's softmax average. The bound is one bf16 ulp of the
+# loss, 2^-8; a missing or doubled column moves it by O(1).
+FAMILY_PREDICTION = {
+    "whisper_round_ms": {"1d": [600, 1500], "joined22": [650, 1600],
+                         "tp22": [800, 2000], "tp23": [1000, 2600]},
+    "whisper_peak_gib": {"1d": [8, 16], "joined22": [9, 18],
+                         "tp22": [8, 16], "tp23": [8, 16]},
+    "whisper_tp_loss_rel": [0, 1e-4],
+    "whisper_tp_loss_rel_bound": 2 ** -8,
+    "reduced_round_ms": [80, 600],
+    "reduced_tp_loss_rel_to_joined": [0, 1e-6],
+    "phase_growth_s": [60, 120]}
+
+
+def mesh2d_whisper(dev) -> dict:
+    """Whisper-tiny at full width through the driver on the arms of
+    FAMILY_DRIVER_ORDER (:func:`mesh2d_driver_arm`, its frames on), gated
+    as SmolLM-135M's (:func:`driver_gates`, the tensor-parallel losses
+    within FAMILY_PREDICTION's bf16 bound of the 1D run's). Round ms,
+    peak GiB and peak by stage for every run."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(FAMILY_ARCH)
+    arms = dict(MESH2D_DRIVER_ARMS)
+    runs = {}
+    for arm in FAMILY_DRIVER_ORDER:
+        runs.setdefault(arm, []).append(mesh2d_driver_arm(
+            dev, cfg, arm, arms=arms, tag="whisper_", frontend=True))
+    gates = driver_gates("mesh2d whisper", runs, arms,
+                         FAMILY_PREDICTION["whisper_tp_loss_rel_bound"])
+    rec = {"path": "mesh2d whisper", "arch": FAMILY_ARCH,
+           "config": {k: v for k, v in dataclasses.asdict(cfg).items()
+                      if k in ("d_model", "n_heads", "d_ff", "n_layers",
+                               "encoder_layers", "frontend_tokens",
+                               "vocab_size", "dtype", "remat")},
+           "argv": MESH2D_DRIVER_ARGV, "frontend": "stub frames",
+           "order": list(FAMILY_DRIVER_ORDER), **gates,
+           "round_ms": {k: [r["round_ms"] for r in v]
+                        for k, v in runs.items()},
+           "peak_gib": {k: [r["peak_gib"] for r in v]
+                        for k, v in runs.items()},
+           "stage_peak_gib": {k: v[0]["stage_peak_gib"]
+                              for k, v in runs.items()},
+           "loss": {k: v[0]["loss"] for k, v in runs.items()},
+           "consensus": {k: v[0]["consensus"] for k, v in runs.items()},
+           "cut_leaves": {k: v[0].get("cut_leaves")
+                          for k, v in runs.items()},
+           "local_step_lines": {k: next(m for m in v[0]["info"]
+                                        if m.startswith("local step:"))
+                                for k, v in runs.items() if k != "1d"},
+           "launches_by_arm": {k: {n: c for n, c in v[0]["launches"].items()
+                                   if c} for k, v in runs.items()}}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def mesh2d_reduced_families(dev) -> dict:
+    """Each arch of FAMILY_REDUCED at its reduced config (f32, TF32 off)
+    through the driver on the arms of FAMILY_REDUCED_ARMS: the joined
+    arm bitwise the 1D run's, the tensor-parallel losses within
+    FAMILY_REDUCED_RTOL of it, B3 once a step a cell
+    (:func:`driver_gates`). Round ms and the local step's line an arch."""
+    from repro_torch.configs import get_config, reduced
+    out = {}
+    for arch in FAMILY_REDUCED:
+        cfg = reduced(get_config(arch))
+        runs = {arm: [mesh2d_driver_arm(dev, cfg, arm,
+                                        arms=FAMILY_REDUCED_ARMS,
+                                        tag=f"{arch}_")]
+                for arm in FAMILY_REDUCED_ARMS}
+        gates = driver_gates(f"mesh2d {arch}", runs, FAMILY_REDUCED_ARMS,
+                             FAMILY_REDUCED_RTOL)
+        out[arch] = {
+            "loss_rel_diff_max": gates["loss_rel_diff_max"],
+            "round_ms": {k: v[0]["round_ms"] for k, v in runs.items()},
+            "peak_gib": {k: v[0]["peak_gib"] for k, v in runs.items()},
+            "cut_leaves": runs["tp22"][0]["cut_leaves"],
+            "local_step_line": next(m for m in runs["tp22"][0]["info"]
+                                    if m.startswith("local step:")),
+            "launches_tp22": {n: c for n, c in runs["tp22"][0][
+                "launches"].items() if c}}
+    print(json.dumps({"mesh2d_reduced_families": out}), flush=True)
+    return out
 
 
 def mesh2d_kernel_checks(dev, flush, tables) -> dict:
@@ -6474,12 +6712,18 @@ def mesh2d_phase(dev, flush=None) -> dict:
     if flush is None:
         flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
     print(json.dumps({"mesh2d_prediction": MESH2D_PREDICTION}), flush=True)
+    print(json.dumps({"mesh2d_family_prediction": FAMILY_PREDICTION}),
+          flush=True)
     t0 = time.perf_counter()
     rounds = mesh2d_rounds(dev)
     fused = mesh2d_fused(dev)
     compare = mesh2d_compare(smoke=False, device=dev)
     print(json.dumps({"mesh2d_compare": compare}), flush=True)
     driver = mesh2d_driver(dev)
+    t1 = time.perf_counter()
+    whisper = mesh2d_whisper(dev)
+    families = mesh2d_reduced_families(dev)
+    families_s = time.perf_counter() - t1
     mesh = make_test_mesh(MESH2D_SHARDS, model_parallel=MESH2D_MP,
                           device=dev)
     tables = make_mixer(MixingSpec.ring(M, 0.5), MixerConfig(),
@@ -6491,7 +6735,8 @@ def mesh2d_phase(dev, flush=None) -> dict:
             f"cards (cards_phase, --only cards) needs {MESH_SHARDS} cards, "
             f"found {torch.cuda.device_count()}")}), flush=True)
     rec = {"rounds": rounds, "fused": fused, "compare": compare,
-           "driver": driver, "kernels": kernels,
+           "driver": driver, "whisper": whisper, "families": families,
+           "families_s": families_s, "kernels": kernels,
            "phase_s": time.perf_counter() - t0}
     print(json.dumps({"mesh2d": {
         "phase_s": rec["phase_s"],
@@ -6509,8 +6754,14 @@ def mesh2d_phase(dev, flush=None) -> dict:
             b: compare[f"wire_ratio_1d_over_2d_b{b}"] for b in (32, 8)},
         "driver": {k: driver[k] for k in ("round_ms", "peak_gib",
                                           "log_lines", "loss_rel_diff_max",
-                                          "consensus_rel_diff")}}}),
-        flush=True)
+                                          "consensus_rel_diff")},
+        "whisper": {k: whisper[k] for k in ("round_ms", "peak_gib",
+                                            "stage_peak_gib",
+                                            "loss_rel_diff_max")},
+        "families": {a: {k: v[k] for k in ("round_ms",
+                                           "loss_rel_diff_max")}
+                     for a, v in families.items()},
+        "families_s": families_s}}), flush=True)
     return rec
 
 
@@ -6847,6 +7098,14 @@ def main() -> int:
     if "--prod-cpu-archs" in sys.argv:      # production_archs' CPU side
         prod_cpu_archs(sys.argv[sys.argv.index("--prod-cpu-archs") + 1])
         return 0
+    if "--only" in sys.argv and "cards" in sys.argv[
+            sys.argv.index("--only") + 1].split(","):
+        # cards_moe's 1D run holds a whole Qwen3-MoE client (1.87 G
+        # values) and its mix's f32 staging on one card: without
+        # expandable segments the allocator's fragments leave it short.
+        # Read at the allocator's first use, so set before any.
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2

@@ -188,10 +188,10 @@ def make_async_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     those of its block). On a 2D mesh the parameters are cells cut by
     ``param_specs``, and an event trains as the synchronous round does
     there (``make_round_step``): tensor-parallel on each shard's row of
-    cells for a loss with a column-parallel form (the dense decoder
-    archs, the 2NN), else each shard's cells joined on its column-0
-    device and z cut back for the mixer; ``event_step.local_step`` says
-    which.
+    cells for a loss with a column-parallel form that takes every cut
+    leaf (``models.model.make_loss``, the 2NN's), else each shard's
+    cells joined on its column-0 device and z cut back for the mixer;
+    ``event_step.local_step`` says which.
 
     ``batches`` has the synchronous layout (leaves [m, K, ...]). Every
     lane trains each event and the ready mask picks whose fresh ``z``

@@ -36,7 +36,7 @@ training is bitwise unplaced training with its lanes permuted.
 
 On a 2D ``(clients, model)`` mesh (``param_specs``) the state is a list
 of cells. A loss with a column-parallel form whose form covers every
-cut leaf (``models.model.make_loss`` for the dense decoder archs,
+cut leaf (``models.model.make_loss`` for every registered arch,
 ``models.paper_nets.make_2nn_loss``) trains each shard's row of cells
 tensor-parallel (``sharding.tensor_parallel``), as the reference's
 GSPMD partitions its step; any other loss joins each shard's cells into
@@ -374,15 +374,16 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     port's step is ``round_step.local_step``:
 
     * ``"tensor_parallel"`` when ``loss_fn`` carries a column-parallel
-      form covering every cut leaf (``models.model.make_loss`` for the
-      dense decoder archs, ``models.paper_nets.make_2nn_loss``): each
+      form covering every cut leaf (``models.model.make_loss`` for every
+      registered arch, ``models.paper_nets.make_2nn_loss``): each
       shard's row of cells trains on its own slices (``local_train(...,
       group=)``; B3 once a step a cell), z goes to the mixer as cells,
       and ``consensus_dist`` and ``local_drift`` meet as partial sums
       over the cells. Row- and column-parallel sums change float order,
       so the round is within rounding of the 1D mesh's, not bitwise.
-    * ``"joined"`` for any other loss (an opaque callable, an MoE, SSM,
-      hybrid, encoder-decoder or VLM arch): a shard's local SGD joins its
+    * ``"joined"`` for any other loss (an opaque callable, or a cut the
+      form declines: an SSM inner dim cut across heads): a shard's local
+      SGD joins its
       cells into its full lanes on column 0's device, runs the 1D
       ``local_train`` there (B3 once a step), and cuts z back into the
       cells; the round and its metrics are bitwise the 1D mesh's, but the

@@ -86,7 +86,14 @@ def loss_and_grad_columns(group: ColumnGroup, loss_fn: LossFn,
     on the group's home and each cell's gradients, from one
     ``autograd.grad`` over column 0's leaves and every cut leaf. A
     replicated leaf's gradient is column 0's, copied to each column (the
-    copies are not read by the form). A lone lane runs as two."""
+    copies are not read by the form). A lone lane runs as two.
+
+    The backward runs on the calling thread alone: with the columns on
+    several cards the autograd engine would otherwise run each card's
+    nodes on a thread of its own, and two of them may unpack a
+    recomputed (``cfg.remat``) block's saved tensors at once, each
+    starting the block's recomputation (``torch.utils.checkpoint`` takes
+    no lock), which it then refuses as a mismatch."""
     lone = next(iter(cells[0].values())).shape[0] == 1
     if lone:
         cells = [_twice(c) for c in cells]
@@ -96,8 +103,10 @@ def loss_and_grad_columns(group: ColumnGroup, loss_fn: LossFn,
          for c, cell in enumerate(cells)]
     loss = loss_fn.column_parallel.fn(group, group.view(p), batch, keys)
     leaves = [t for cell in p for t in cell.values()]
-    flat = iter(torch.autograd.grad(loss.sum(), leaves, allow_unused=True,
-                                    materialize_grads=True))
+    with torch.autograd.set_multithreading_enabled(False):
+        flat = iter(torch.autograd.grad(loss.sum(), leaves,
+                                        allow_unused=True,
+                                        materialize_grads=True))
     got = [{n: next(flat) for n in cell} for cell in p]
     grads = [{n: (got[c][n] if n in got[c] else got[0][n].to(d))
               for n in cell}

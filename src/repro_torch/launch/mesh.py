@@ -204,11 +204,11 @@ def resident_lane_capacity(bytes_per_client: int,
     ``"cpu"``), or 2 GiB on the CPU. On a 2D ``(clients, model)`` mesh
     each device holds only ``1/model_parallel`` of every lane's params
     at rest, so a lane bills ``ceil(bytes / model_parallel)`` (the
-    reference's sizing: a tensor-parallel local step — the dense decoder
-    archs' and the 2NN's — keeps each cell's working set to its slice;
-    the joined step of the other families holds a shard's full lanes on
-    its first column, which this does not bill). Always returns at least
-    1.
+    reference's sizing: a tensor-parallel local step — every registered
+    arch's and the 2NN's — keeps each cell's working set to its slice;
+    the joined step of an opaque loss or a declined cut holds a shard's
+    full lanes on its first column, which this does not bill). Always
+    returns at least 1.
     """
     if model_parallel < 1:
         raise ValueError(f"model_parallel={model_parallel} must be >= 1")

@@ -26,13 +26,16 @@ default ``--clients-per-shard`` then puts every client in one shard):
 the strategy-A rules (``sharding.RULES_A``) cut each leaf's
 ``mlp``/``vocab``/``heads``/... dim over the model columns when it
 divides, and the run logs the reference's "2D mesh:" and per-column
-wire lines, and a "local step:" line. The dense decoder archs (SmolLM,
-OLMo, Gemma, Qwen3: ``models.model.make_loss`` carries a column-parallel
-form) train each shard's row of cells tensor-parallel (the reference's
-GSPMD-partitioned step, within float rounding of the 1D mesh's losses);
-the other families (MoE, SSM, hybrid, encoder-decoder, VLM) join each
-shard's cells on its first column's card, bitwise the 1D mesh's losses
-(``core.dfedavgm``). ``--pool``, ``--mixer-impl dense`` and
+wire lines, and a "local step:" line. Every registered arch trains
+each shard's row of cells tensor-parallel (``models.model.make_loss``
+carries a column-parallel form for the dense decoders, the MoE with its
+experts or their ``moe_d_ff`` cut, the SSM, the hybrid, Whisper's
+encoder and decoder and the VLM: the reference's GSPMD-partitioned
+step, within float rounding of the 1D mesh's losses); where the form
+declines a cut (an SSM inner dim that ``--model-parallel`` cuts across
+heads) the step joins each shard's cells on its first column's card,
+bitwise the 1D mesh's losses (``core.dfedavgm``), and the line says
+"joined". ``--pool``, ``--mixer-impl dense`` and
 ``--fuse-round`` refuse it, as in the reference. ``--wire`` takes the
 reference's codec names; the port has one codec, so ``auto``, ``seq``
 and ``planar`` all run the planar buffer kernels (B1/B2, B4/B5 fused).
@@ -126,6 +129,24 @@ def _speed(args) -> SpeedModel:
 
 def _model_loss(cfg):
     return M.make_loss(cfg)
+
+
+def _local_step_why(loss, mesh, specs, kind: str) -> str:
+    """The "local step:" line's reason: the tensor-parallel step, or why
+    the step joins (an opaque loss, or the cut leaves its form
+    declines)."""
+    if kind == "tensor_parallel":
+        return "each shard's row of cells, column-parallel products"
+    from ..core.mixing import _column_dims
+    dims = _column_dims(mesh, specs)
+    form = getattr(loss, "column_parallel", None)
+    declined = [n for n, d in dims.items()
+                if d is not None and form is not None
+                and not form.covers(n, dims)]
+    why = ("the loss has no column-parallel form" if form is None else
+           f"its form declines {len(declined)} cut leaves, e.g. "
+           f"{declined[0]}")
+    return f"each shard's cells joined on its first column; {why}"
 
 
 def run_pooled(args, cfg, log, tracer):
@@ -256,9 +277,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "holds and ships only its 1/model_parallel slice "
                          "of every model-sharded leaf; needs n_shards x "
                          "model_parallel cards and the sparse backend; "
-                         "the dense decoder archs train tensor-parallel "
-                         "over the columns, the others join each shard's "
-                         "cells on its first column")
+                         "every arch trains tensor-parallel over the "
+                         "columns, but where its form declines a cut (an "
+                         "SSM inner dim cut across heads): then each "
+                         "shard's cells join on its first column")
     ap.add_argument("--placement", default="contiguous",
                     choices=["contiguous", "partition"],
                     help="client -> lane placement for the sparse backend: "
@@ -543,10 +565,8 @@ def run_resident(args, cfg, log, tracer, mesh=None):
                            with_telemetry=args.telemetry, mesh=mesh,
                            placement=placement, param_specs=specs)
     if args.model_parallel > 1:
-        log.info(f"local step: {step.local_step} (" + (
-            "each shard's row of cells, column-parallel products"
-            if step.local_step == "tensor_parallel" else
-            "each shard's cells joined on its first column") + ")")
+        log.info(f"local step: {step.local_step} ({cfg.arch_type} family: "
+                 + _local_step_why(loss, mesh, specs, step.local_step) + ")")
     if acfg is not None:
         state = init_async_state(stacked, k_state, acfg.speed, mesh=mesh,
                                  param_specs=specs)

@@ -16,11 +16,12 @@ the projections are one batched product over the clients
 (``layers.mm``).
 
 With a column group ``tp`` (``sharding.tensor_parallel``) and ``wq`` cut
-by heads, self-attention runs tensor-parallel: each column projects,
-norms, rotates and attends over its query heads (the KV heads cut with
-them, or, when the model axis does not divide the KV heads, the
-replicated ``wk``/``wv`` narrowed to the KV heads its query heads read),
-and ``wo`` is row-parallel, its partials summed at home.
+by heads, attention runs tensor-parallel: each column projects, norms,
+rotates and attends over its query heads (the KV heads cut with them,
+or, when the model axis does not divide the KV heads, the replicated
+``wk``/``wv`` narrowed to the KV heads its query heads read), and ``wo``
+is row-parallel, its partials summed at home. Cross-attention projects
+the home's encoder states through each column's slice of ``wk``/``wv``.
 
 KV cache layout (decode), per client and layer:
   {"k": [m, b, S_alloc, KV, hd], "v": same, "kpos": [S_alloc] int32}
@@ -180,17 +181,18 @@ def apply_attention(params: Params, x: torch.Tensor, *, n_heads: int,
 
     cross_kv: encoder states [m, b, S_enc, kd] for cross-attention.
     tp: a column group; with ``wq`` cut by heads the (uncached) self-
-    attention runs tensor-parallel (:func:`_attention_columns`).
+    or cross-attention runs tensor-parallel (:func:`_attention_columns`).
     Returns (out [m, b, Lq, d_model], updated cache or None).
     """
     if tp is not None and isinstance(params["wq"], list):
-        if cache is not None or cross_kv is not None:
+        if cache is not None:
             raise ValueError("tensor-parallel attention is uncached "
-                             "self-attention (the training step)")
+                             "(the training step)")
         return _attention_columns(
             tp, params, x, n_heads=n_heads, n_kv=n_kv, qk_norm=qk_norm,
             rope_theta=rope_theta, positions=positions, causal=causal,
-            window=window), None
+            window=window, cross_kv=cross_kv,
+            kv_positions=kv_positions), None
     m, b, lq, _ = x.shape
     q = mm(x, params["wq"])
     if qk_norm:
@@ -248,11 +250,15 @@ def _kv_heads_of(c: int, hc: int, rep: int) -> tuple[int, int, list[int]]:
 def _attention_columns(tp, params: Params, x: torch.Tensor, *, n_heads: int,
                        n_kv: int, qk_norm: bool, rope_theta: float,
                        positions: torch.Tensor, causal: bool,
-                       window: int) -> torch.Tensor:
-    """Self-attention with ``wq``/``wo`` cut by heads over ``tp``'s
-    columns (``wk``/``wv`` cut with them, or replicated), the replicated
-    leaves read from column 0's copies; returns [m, b, Lq, d_model] at
-    home."""
+                       window: int, cross_kv: torch.Tensor | None = None,
+                       kv_positions: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Attention with ``wq``/``wo`` cut by heads over ``tp``'s columns
+    (``wk``/``wv`` cut with them, or replicated), the replicated leaves
+    read from column 0's copies: self-attention, or with ``cross_kv``
+    (the home's encoder states) cross-attention as the unsharded path
+    runs it (no rotation, no mask but the empty slots); returns [m, b,
+    Lq, d_model] at home."""
     m, b, lq, _ = x.shape
     kv_cut = isinstance(params["wk"], list)
     rep = n_heads // n_kv
@@ -264,8 +270,10 @@ def _attention_columns(tp, params: Params, x: torch.Tensor, *, n_heads: int,
     wk, wv = per_column("wk"), per_column("wv")
     qn = per_column("q_norm") if qk_norm else None
     kn = per_column("k_norm") if qk_norm else None
+    xs = tp.broadcast(x)
+    srcs = xs if cross_kv is None else tp.broadcast(cross_kv)
     ys = []
-    for c, xc in enumerate(tp.broadcast(x)):
+    for c, (xc, src) in enumerate(zip(xs, srcs)):
         pos = positions.to(xc.device)
         wq = params["wq"][c]
         hc = wq.shape[2]
@@ -279,17 +287,25 @@ def _attention_columns(tp, params: Params, x: torch.Tensor, *, n_heads: int,
         q = mm(xc, wq)
         if qk_norm:
             q = rms_norm_headdim(q, qn[c])
-        k, v = mm(xc, wkc), mm(xc, wvc)
+        k, v = mm(src, wkc), mm(src, wvc)
         if qk_norm:
             k = rms_norm_headdim(k, kn[c])
-        if rope_theta > 0:
-            q = apply_rope(q, pos, rope_theta)
-            k = apply_rope(k, pos, rope_theta)
+        if cross_kv is not None:
+            kpos = (kv_positions.to(xc.device) if kv_positions is not None
+                    else torch.arange(src.shape[2], dtype=torch.int32,
+                                      device=xc.device))
+        else:
+            kpos = pos
+            if rope_theta > 0:
+                q = apply_rope(q, pos, rope_theta)
+                k = apply_rope(k, pos, rope_theta)
         if idx is not None:     # one KV head a query head
             k = torch.cat([k.narrow(-2, i, 1) for i in idx], dim=-2)
             v = torch.cat([v.narrow(-2, i, 1) for i in idx], dim=-2)
-        out = attend(_fold(q), _fold(k), _fold(v), pos, pos, causal=causal,
-                     window=window).reshape(m, b, lq, -1)
+        out = attend(_fold(q), _fold(k), _fold(v), pos, kpos,
+                     causal=causal and cross_kv is None,
+                     window=window if cross_kv is None else 0
+                     ).reshape(m, b, lq, -1)
         wo = params["wo"][c]
         ys.append(mm(out, wo.reshape(m, -1, wo.shape[-1])))
     return tp.reduce_sum(ys)

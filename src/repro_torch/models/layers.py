@@ -12,7 +12,9 @@ With a column group ``tp`` (``sharding.tensor_parallel.ColumnGroup``)
 the parameters are a 2D mesh row's view: a leaf that the model axis cuts
 is the list of its column slices. :func:`apply_mlp` then runs
 column-parallel (``wg``/``wu``) and row-parallel (``wd``) products with
-one cross-column sum, :func:`embed_tokens` looks tokens up in each
+one cross-column sum, :func:`mm_rows` is a row-parallel product over a
+home activation cut into the columns' parts, :func:`embed_tokens` looks
+tokens up in each
 column's vocabulary range, and :func:`vocab_logits` /
 :func:`vocab_parallel_nll` give the cut vocabulary's logits and their f32
 log-softmax without joining them. With no group, or a replicated leaf,
@@ -66,6 +68,15 @@ def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = w.shape[2:]
     y = torch.bmm(x.reshape(m, -1, d_in), w.reshape(m, d_in, -1))
     return y.reshape(x.shape[:-1] + out)
+
+
+def mm_rows(tp, h: torch.Tensor, w) -> torch.Tensor:
+    """``mm(h, w)`` at home; with ``tp`` and ``w``'s input dim cut (a
+    list), row-parallel: column c multiplies its slice of h's last dim
+    by its rows of w, and the partials meet at home."""
+    if tp is None or not isinstance(w, list):
+        return mm(h, w)
+    return tp.reduce_sum([mm(hc, wc) for hc, wc in zip(tp.slice(h, -1), w)])
 
 
 # ---------------------------------------------------------------------------

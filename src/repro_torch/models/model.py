@@ -21,13 +21,16 @@ client, or none (one model, as the reference takes it): ``loss_fn`` then
 returns the per-client losses ``[m]``, so ``core.local_sgd`` runs every
 client in one backward.
 
-:func:`make_loss` is the training loss the round steps take. For the
-dense decoder family (every block ``dense``, no frontend) it carries a
-column-parallel form (``sharding.tensor_parallel``): ``loss_fn(...,
-tp=group)`` on a 2D mesh row's view, with the vocabulary-parallel
-embedding and logits, heads-cut attention and the cut MLP, so the round
-trains that row's cells tensor-parallel. The other families keep the
-joined step.
+:func:`make_loss` is the training loss the round steps take. It carries
+a column-parallel form (``sharding.tensor_parallel``) for every
+registered architecture: ``loss_fn(..., tp=group)`` on a 2D mesh row's
+view, with the vocabulary-parallel embedding and logits, heads-cut
+self- and cross-attention, the cut MLP, the MoE with its experts or
+their ``moe_d_ff`` cut, the Mamba2 mixer with its inner dim and heads
+cut, the hybrid's shared block (``down`` row-parallel) and the encoder,
+so the round trains that row's cells tensor-parallel. The form declines
+one cut (:func:`_tp_covers`): an SSM inner dim cut across heads, which
+keeps the joined step.
 """
 from __future__ import annotations
 
@@ -213,32 +216,35 @@ def _cache_axis(cache: Params, drop: int) -> Params:
 # ---------------------------------------------------------------------------
 
 def _encode(params: Params, cfg: ArchConfig,
-            frontend_embeds: torch.Tensor) -> torch.Tensor:
+            frontend_embeds: torch.Tensor, tp=None) -> torch.Tensor:
     t = frontend_embeds.shape[2]
     x = frontend_embeds + params["enc_pos"][:, None, :t]
     pos = torch.arange(t, dtype=torch.int32, device=x.device)
     x, _, _ = apply_stage(sub(params, "enc_stage"), x, cfg=cfg, kind="enc",
-                          n=cfg.encoder_layers, positions=pos)
+                          n=cfg.encoder_layers, positions=pos, tp=tp)
     return apply_norm(cfg.norm, sub(params, "enc_norm"), x)
 
 
 def encode(params: Params, cfg: ArchConfig,
-           frontend_embeds: torch.Tensor) -> torch.Tensor:
-    """Audio stub embeddings [(m,) b, T, d] -> encoder states."""
+           frontend_embeds: torch.Tensor, tp=None) -> torch.Tensor:
+    """Audio stub embeddings [(m,) b, T, d] -> encoder states. ``tp``: a
+    column group, ``params`` a 2D mesh row's view (the states at
+    home)."""
     if _stacked(params):
-        return _encode(params, cfg, frontend_embeds)
+        return _encode(params, cfg, frontend_embeds, tp)
     p, fe = _add_axis(params, frontend_embeds)
     return _encode(p, cfg, fe)[0]
 
 
 def cross_states(params: Params, cfg: ArchConfig,
-                 frontend_embeds: torch.Tensor | None):
+                 frontend_embeds: torch.Tensor | None, tp=None):
     """What the cross-attention layers read: the encoder's states
-    (whisper), the projected patch embeddings (vlm), or None."""
+    (whisper), the projected patch embeddings (vlm), or None; with a
+    column group ``tp``, at home."""
     if frontend_embeds is None:
         return None
     if cfg.is_encoder_decoder:
-        return encode(params, cfg, frontend_embeds)
+        return encode(params, cfg, frontend_embeds, tp)
     if cfg.frontend == "vision":
         w = params["vis_proj"]
         if w.dim() == 2:
@@ -267,7 +273,7 @@ def _forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
         x = x + params["pos_embed"][:, positions.long()][:, None]
     x_first = x
     if cross_kv is None and frontend_embeds is not None:
-        cross_kv = cross_states(params, cfg, frontend_embeds)
+        cross_kv = cross_states(params, cfg, frontend_embeds, tp)
     stages = cfg.stages()
     shared = (sub(params, "shared_attn")
               if any(k == "shared" for k, _ in stages) else None)
@@ -349,34 +355,50 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict,
     return loss + MOE_AUX_WEIGHT * aux
 
 
-_TP_LEAVES = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/wg",
-              "mlp/wu", "mlp/wd")
+# The block leaves the column-parallel form takes cut (the strategy-A
+# rules cut each where its dim divides by the model axis), by their name
+# inside the block: attention's projections (self and cross), the MLP,
+# the MoE's router and experts, the Mamba2 mixer's inner dim and heads,
+# and the shared block's ``down``.
+_SSM_INNER = ("wz", "wx", "conv_x", "norm_scale", "wo")
+_TP_LEAVES = frozenset(
+    [f"{a}/{w}" for a in ("attn", "xattn")
+     for w in ("wq", "wk", "wv", "wo")]
+    + [f"mlp/{w}" for w in ("wg", "wu", "wd")]
+    + [f"moe/{w}" for w in ("router", "wg", "wu", "wd")]
+    + [f"mixer/{w}" for w in _SSM_INNER + ("wdt", "dt_bias", "A_log", "D")]
+    + ["down"])
+# A flat name's block prefix: a stage's leaves carry its index.
+_BLOCK_DEPTH = {"stages": 2, "enc_stage": 1, "shared_attn": 1}
 
 
-def _tp_covers(name: str) -> bool:
-    """The leaves the column-parallel form takes cut: the vocabulary's
-    (the table, ``lm_head``), the attention projections and the MLP."""
-    return name in ("embed/table", "lm_head") or (
-        name.startswith("stages/")
-        and "/".join(name.split("/")[2:]) in _TP_LEAVES)
-
-
-def has_column_parallel_form(cfg: ArchConfig) -> bool:
-    """Whether :func:`make_loss` carries a column-parallel form: the
-    dense decoder family (every block dense, no frontend)."""
-    return (all(kind == "dense" for kind, _ in cfg.stages())
-            and cfg.frontend is None and not cfg.is_encoder_decoder)
+def _tp_covers(name: str, dims: dict) -> bool:
+    """Whether the column-parallel form takes leaf ``name`` cut (``dims``
+    every leaf's cut dim): the vocabulary's (the table, ``lm_head``) and
+    the block leaves of ``_TP_LEAVES``, under a stage, the encoder's
+    stage or the shared block. A leaf cut on the SSM's inner dim only
+    where its mixer's heads are cut too: where mp divides ``ssm_inner``
+    but not ``ssm_heads`` a column's slice would cross heads, and the
+    form declines."""
+    if name in ("embed/table", "lm_head"):
+        return True
+    parts = name.split("/")
+    depth = _BLOCK_DEPTH.get(parts[0])
+    if depth is None or "/".join(parts[depth:]) not in _TP_LEAVES:
+        return False
+    if parts[depth] == "mixer" and parts[-1] in _SSM_INNER:
+        heads = "/".join(parts[:depth] + ["mixer", "A_log"])
+        return dims.get(heads) is not None
+    return True
 
 
 def make_loss(cfg: ArchConfig):
     """The round's ``loss(params, batch, rng) -> [m]`` (:func:`loss_fn`),
-    carrying its column-parallel form for the dense decoder family
-    (:func:`has_column_parallel_form`)."""
+    carrying its column-parallel form (``loss_fn(..., tp=group)``, the
+    leaves it takes cut :func:`_tp_covers`)."""
     def loss(p, b, r):
         return loss_fn(p, cfg, b, r)
 
-    if not has_column_parallel_form(cfg):
-        return loss
     return with_column_parallel(
         loss, lambda g, view, b, r: loss_fn(view, cfg, b, r, tp=g),
         _tp_covers)

@@ -18,6 +18,19 @@ The reference's ``MOE_GROUPS`` (GShard-style dispatch groups) and
 
 Load-balance auxiliary loss: Switch-style ``E * sum_e f_e * p_e``, one a
 client.
+
+With a column group ``tp`` (``sharding.tensor_parallel``) the experts'
+weights arrive cut over the model columns, in one of the two ways the
+strategy-A rules cut them. **Experts cut** (the count divides mp): each
+column computes its slice of the router logits, the ``[g, tg, e]``
+logits meet at home, where the softmax, the top-k, the aux loss and the
+capacity ranking run as above; each column then gathers the tokens
+routed to its own experts into its ``[g, e / mp, cap, d]`` buffer, runs
+its SwiGLU and combines its slots, gated, into a partial output, and the
+partials are summed at home. **mlp cut** (it does not, ``moe_d_ff``
+does): the router is replicated, routing and dispatch run at home, each
+column runs the column/row-parallel SwiGLU on its ``moe_d_ff`` slice,
+and the buffers' partials are summed at home before the combine.
 """
 from __future__ import annotations
 
@@ -49,12 +62,13 @@ def router_top_k(probs: torch.Tensor, k: int
 
 
 def apply_moe(params: Params, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25
+              capacity_factor: float = 1.25, tp=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: [m, b, l, d]. Returns (out [m, b, l, d], load-balance loss [m])."""
+    """x: [m, b, l, d]. Returns (out [m, b, l, d], load-balance loss [m]).
+    ``tp``: a column group, the experts' leaves cut (module docstring)."""
     m, b, l, d = x.shape
     out, aux = moe_grouped(params, x.reshape(m, b * l, d), top_k=top_k,
-                           capacity_factor=capacity_factor)
+                           capacity_factor=capacity_factor, tp=tp)
     return out.reshape(m, b, l, d), aux
 
 
@@ -64,16 +78,65 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[:, :, None].expand(-1, -1, x.shape[-1]))
 
 
+def _router_logits(xg: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("gtd,gde->gte", xg.to(torch.float32),
+                        router.to(torch.float32))
+
+
+def _experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+             wd: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU, batched over groups x experts: buf [g, e,
+    cap, d] -> [g, e, cap, d]."""
+    hg = torch.einsum("gecd,gedf->gecf", buf, wg)
+    hu = torch.einsum("gecd,gedf->gecf", buf, wu)
+    return torch.einsum("gecf,gefd->gecd", F.silu(hg) * hu, wd)
+
+
+def _dispatch(xg: torch.Tensor, src_tok: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """The tokens ``src_tok`` [g, e * cap] gathered into [g, e, cap, d],
+    the slots past an expert's tokens (``valid`` [g, e, cap] false)
+    zero."""
+    g, e, cap = valid.shape
+    buf = _gather_rows(xg, src_tok).reshape(g, e, cap, xg.shape[-1])
+    return torch.where(valid[..., None], buf,
+                       torch.zeros((), dtype=buf.dtype, device=buf.device))
+
+
+def _combine(out_buf: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+             gate_vals: torch.Tensor, tg: int) -> torch.Tensor:
+    """Each token's kept slots of ``out_buf`` [g, e, cap, d] (``slot`` and
+    ``keep`` [g, tg * k]) gated by ``gate_vals`` [g, tg, k] and summed
+    over k in token order -> [g, tg, d]."""
+    g, e, cap, d = out_buf.shape
+    gathered = _gather_rows(out_buf.reshape(g, e * cap, d), slot)
+    gathered = torch.where(keep[..., None], gathered,
+                           torch.zeros((), dtype=gathered.dtype,
+                                       device=gathered.device))
+    weighted = gathered * gate_vals.reshape(g, -1, 1).to(gathered.dtype)
+    return weighted.reshape(g, tg, -1, d).sum(dim=2)
+
+
 def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
-                capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Route grouped tokens. xg: [g, tg, d] -> ([g, tg, d], aux [g])."""
+                capacity_factor: float, tp=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Route grouped tokens. xg: [g, tg, d] -> ([g, tg, d], aux [g]).
+    ``tp``: a column group, the experts' leaves cut (module docstring)."""
     g, tg, d = xg.shape
-    e = params["router"].shape[-1]
     k = top_k
     dev = xg.device
+    router = params["router"]
+    # The strategy-A rules cut the router exactly where they cut the
+    # experts' own dim (both "experts").
+    experts_cut = isinstance(router, list)
+    xs = tp.broadcast(xg) if experts_cut else None
 
-    logits = torch.einsum("gtd,gde->gte", xg.to(torch.float32),
-                          params["router"].to(torch.float32))
+    if experts_cut:                   # each column its experts' logits
+        logits = tp.gather([_router_logits(xc, r)
+                            for xc, r in zip(xs, router)], dim=-1)
+    else:
+        logits = _router_logits(xg, router)
+    e = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1)                     # [g, tg, e]
     gate_vals, idx = router_top_k(probs, k)                  # [g, tg, k]
     gate_vals = gate_vals / torch.clamp(
@@ -105,21 +168,31 @@ def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
     valid = pos < grp_end[:, :, None]                         # [g, e, cap]
     pos_flat = torch.clamp(pos.reshape(g, e * cap), 0, tk - 1)
     src_tok = order.gather(1, pos_flat) // k                  # token ids
-    buf = _gather_rows(xg, src_tok).reshape(g, e, cap, d)
-    buf = torch.where(valid[..., None], buf,
-                      torch.zeros((), dtype=buf.dtype, device=dev))
-
-    # ---- expert FFN (batched over groups x experts; SwiGLU) -------------
-    hg = torch.einsum("gecd,gedf->gecf", buf, params["wg"])
-    hu = torch.einsum("gecd,gedf->gecf", buf, params["wu"])
-    hidden = F.silu(hg) * hu
-    out_buf = torch.einsum("gecf,gefd->gecd", hidden, params["wd"])
-
-    # ---- combine: batched gather; token-ordered reshape+sum -------------
     slot = flat_e * cap + safe_rank                           # [g, tk]
-    gathered = _gather_rows(out_buf.reshape(g, e * cap, d), slot)
-    gathered = torch.where(keep[..., None], gathered,
-                           torch.zeros((), dtype=gathered.dtype, device=dev))
-    weighted = gathered * gate_vals.reshape(g, tk, 1).to(gathered.dtype)
-    out = weighted.reshape(g, tg, k, d).sum(dim=2)
+
+    if experts_cut:
+        # Experts cut: column c holds experts [lo, lo + el).
+        parts = []
+        for c, (xc, gv) in enumerate(zip(xs, tp.broadcast(gate_vals))):
+            w = [params[n][c] for n in ("wg", "wu", "wd")]
+            el = w[0].shape[1]
+            lo, cd = c * el, xc.device
+            buf = _dispatch(xc, src_tok[:, lo * cap:(lo + el) * cap].to(cd),
+                            valid[:, lo:lo + el].to(cd))
+            mine = (flat_e >= lo) & (flat_e < lo + el)
+            parts.append(_combine(
+                _experts(buf, *w), torch.where(mine, slot - lo * cap,
+                                               0).to(cd),
+                (keep & mine).to(cd), gv, tg))
+        out = tp.reduce_sum(parts)
+    else:
+        buf = _dispatch(xg, src_tok, valid)
+        if tp is not None and isinstance(params["wd"], list):
+            # moe_d_ff cut: column-parallel wg / wu, row-parallel wd
+            out_buf = tp.reduce_sum([
+                _experts(bc, *(params[n][c] for n in ("wg", "wu", "wd")))
+                for c, bc in enumerate(tp.broadcast(buf))])
+        else:
+            out_buf = _experts(buf, params["wg"], params["wu"], params["wd"])
+        out = _combine(out_buf, slot, keep, gate_vals, tg)
     return out.to(xg.dtype), aux

@@ -140,7 +140,7 @@ def make_2nn_loss():
         lambda g, view, b, r: softmax_xent(apply_2nn_columns(g, view,
                                                              b["x"]),
                                            b["y"]),
-        lambda name: name in _2NN_LEAVES)
+        lambda name, dims: name in _2NN_LEAVES)
 
 
 # ---------------------------------------------------------------------------

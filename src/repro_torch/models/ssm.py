@@ -13,6 +13,16 @@ reference. Shapes: d_inner = expand * d_model; nheads = d_inner /
 head_dim; activations carry the client axis m in front: x [m, b, l, h,
 p]; B, C: [m, b, l, n] (ngroups = 1); dt: [m, b, l, h]. The SSD core has
 no weights, so it folds the clients into its batch.
+
+With a column group ``tp`` (``sharding.tensor_parallel``) and the inner
+dim cut over the model columns together with the heads (a column's
+``ssm_inner`` slice is exactly its heads' slice), the training forward
+runs tensor-parallel: B and C (the replicated ``ssm_state`` leaves) are
+computed at home and broadcast, each column projects z, x and dt for
+its heads, convolves, runs ``ssd_chunked`` over them and gates; the
+gated RMSNorm's ``mean(g * g)`` over the whole ``d_inner`` is the
+columns' partial sums of squares added at home and broadcast back; and
+``wo`` is row-parallel, its partials summed at home.
 """
 from __future__ import annotations
 
@@ -66,12 +76,19 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 def _segsum_decay(da_cs: torch.Tensor) -> torch.Tensor:
     """Intra-chunk decay matrix L[q, k] = exp(sum_{j=k+1..q} dA_j) for
-    q >= k else 0.  da_cs: [..., Q] inclusive cumsum of dA."""
+    q >= k else 0.  da_cs: [..., Q] inclusive cumsum of dA.
+
+    The entries above the diagonal are masked to -inf *before* the exp
+    (the reference exponentiates every entry, then selects): there diff
+    is a positive sum of |dA| that overflows f32 once a chunk's decay
+    passes ~88, and the exp's backward then multiplies the masked zero
+    gradient by inf, NaN in every gradient (a 128-token chunk of the
+    reduced Mamba2 does). The values are the reference's bit for bit."""
     diff = da_cs[..., :, None] - da_cs[..., None, :]   # [..., Q, Q]
     q = da_cs.shape[-1]
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                 device=da_cs.device))
-    return torch.where(tri, torch.exp(diff), 0.0)
+    return torch.exp(torch.where(tri, diff, -torch.inf))
 
 
 def ssd_chunked(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
@@ -129,12 +146,65 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _heads_gated(params: Params, x: torch.Tensor, Bc: torch.Tensor,
+                 Cc: torch.Tensor, *, head_dim: int, chunk: int
+                 ) -> torch.Tensor:
+    """The uncached mixer up to its gated norm, over the heads of
+    ``params`` (the whole mixer, or one column's heads): ``y * silu(z)``
+    in f32, [m, b, l, d_inner of these heads]."""
+    m, b, l, _ = x.shape
+    f32 = torch.float32
+    z = mm(x, params["wz"])
+    xc = _causal_conv(mm(x, params["wx"]), params["conv_x"])
+    dt = _softplus(mm(x.to(f32), params["wdt"].to(f32))
+                   + bcast(params["dt_bias"], x))      # [m,b,l,h]
+    h = dt.shape[-1]
+    xh = xc.reshape(m, b, l, h, head_dim)
+    x_dt = xh.to(f32) * dt[..., None]
+    dA = dt * -torch.exp(params["A_log"])[:, None, None, :]
+    y, _ = ssd_chunked(x_dt.reshape(m * b, l, h, head_dim),
+                       dA.reshape(m * b, l, h), Bc.reshape(m * b, l, -1),
+                       Cc.reshape(m * b, l, -1), chunk=chunk)
+    y = y.reshape(m, b, l, h, head_dim)
+    y = y + params["D"][:, None, None, :, None] * xh.to(f32)
+    return y.reshape(m, b, l, h * head_dim) * F.silu(z.to(f32))
+
+
+def _mamba2_columns(tp, params: Params, x: torch.Tensor, *, head_dim: int,
+                    chunk: int) -> torch.Tensor:
+    """The uncached mixer with its inner dim and heads cut over ``tp``'s
+    columns (module docstring); returns [m, b, l, d_model] at home."""
+    f32 = torch.float32
+    Bc = _causal_conv(mm(x, params["wB"]), params["conv_B"])
+    Cc = _causal_conv(mm(x, params["wC"]), params["conv_C"])
+    cols = [{n: t[c] for n, t in params.items() if isinstance(t, list)}
+            for c in range(tp.mp)]
+    gs = [_heads_gated(p, xc, bc, cc, head_dim=head_dim, chunk=chunk)
+          for p, xc, bc, cc in zip(cols, tp.broadcast(x), tp.broadcast(Bc),
+                                   tp.broadcast(Cc))]
+    d_inner = sum(g.shape[-1] for g in gs)
+    ms = tp.all_sum([(g * g).sum(dim=-1, keepdim=True) for g in gs])
+    outs = []
+    for p, g, sq in zip(cols, gs, ms):
+        g = g * torch.rsqrt(sq / d_inner + 1e-6)
+        g = g * bcast(p["norm_scale"].to(f32), g)
+        outs.append(mm(g.to(x.dtype), p["wo"]))
+    return tp.reduce_sum(outs)
+
+
 def apply_mamba2(params: Params, x: torch.Tensor, *, head_dim: int = 64,
-                 chunk: int = DEFAULT_CHUNK, cache: Params | None = None
-                 ) -> tuple[torch.Tensor, Params | None]:
+                 chunk: int = DEFAULT_CHUNK, cache: Params | None = None,
+                 tp=None) -> tuple[torch.Tensor, Params | None]:
     """x: [m, b, l, d_model]. cache (decode): {"conv_x","conv_B","conv_C":
-    [m, b, D_CONV-1, *], "ssm": [m, b, h, n, p]}. Returns (y,
-    new_cache|None)."""
+    [m, b, D_CONV-1, *], "ssm": [m, b, h, n, p]}. ``tp``: a column group,
+    the inner dim and heads cut (the uncached training forward). Returns
+    (y, new_cache|None)."""
+    if tp is not None and isinstance(params["wx"], list):
+        if cache is not None:
+            raise ValueError("the tensor-parallel mixer is uncached (the "
+                             "training step)")
+        return _mamba2_columns(tp, params, x, head_dim=head_dim,
+                               chunk=chunk), None
     m, b, l, d = x.shape
     d_inner = params["wx"].shape[-1]
     h = d_inner // head_dim

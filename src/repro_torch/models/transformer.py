@@ -22,10 +22,12 @@ recomputes the forward in the backward and does not change the numbers.
 A stage's decode cache is stacked on a leading layer axis: ``[n, m, ...]``
 (``kpos`` ``[n, S]``).
 
-A column group ``tp`` (``sharding.tensor_parallel``) reaches the dense
-block's attention and MLP, whose cut leaves are lists of column slices
-(a stage leaf's slices each carry the layer axis); norms and residuals
-run once, at home. The other kinds take no group.
+A column group ``tp`` (``sharding.tensor_parallel``) reaches every
+block's attention (self and cross), MLP, MoE and Mamba2 mixer, whose cut
+leaves are lists of column slices (a stage leaf's slices each carry the
+layer axis), and the shared block's ``down``, row-parallel over
+``concat(x, x_first)`` sliced across the columns; norms, residuals and
+the gates run once, at home.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from .. import prng
 from ..configs.base import ArchConfig
 from .attention import apply_attention, init_attention, init_kv_cache
 from .layers import (Params, apply_mlp, apply_norm, dense_init, init_mlp,
-                     init_norm, mm, prefixed, sub)
+                     init_norm, mm_rows, prefixed, sub)
 from .moe import apply_moe, init_moe
 from .ssm import apply_mamba2, init_mamba2, init_mamba2_cache
 
@@ -127,8 +129,6 @@ def apply_block(params: Params, x: torch.Tensor, *, cfg: ArchConfig,
                 x_first: torch.Tensor | None = None, tp=None
                 ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """x [m, b, l, d]. Returns (x_out, new_cache, aux_loss [m])."""
-    if tp is not None and kind != "dense":
-        raise ValueError(f"a {kind!r} block has no tensor-parallel form")
     rope = cfg.rope_theta if cfg.pos == "rope" else 0.0
     zero = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
 
@@ -143,12 +143,20 @@ def apply_block(params: Params, x: torch.Tensor, *, cfg: ArchConfig,
     def norm(name, h):
         return apply_norm(cfg.norm, sub(params, name), h)
 
+    def cross_attn(h):
+        return apply_attention(
+            sub(params, "xattn"), h, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, qk_norm=cfg.qk_norm, rope_theta=0.0,
+            positions=positions, cross_kv=cross_kv, tp=tp)[0]
+
+    def mlp(h):
+        return apply_mlp(cfg.mlp, sub(params, "mlp"), h, tp=tp)
+
     if kind in ("dense", "enc"):
         h, nc = self_attn(sub(params, "attn"), norm("ln1", x), cache,
                           causal=(kind == "dense"))
         x = x + h
-        x = x + apply_mlp(cfg.mlp, sub(params, "mlp"), norm("ln2", x),
-                          tp=tp)
+        x = x + mlp(norm("ln2", x))
         return x, nc, zero
 
     if kind == "moe":
@@ -156,33 +164,24 @@ def apply_block(params: Params, x: torch.Tensor, *, cfg: ArchConfig,
         x = x + h
         mo, aux = apply_moe(sub(params, "moe"), norm("ln2", x),
                             top_k=cfg.experts_per_token,
-                            capacity_factor=cfg.moe_capacity_factor)
+                            capacity_factor=cfg.moe_capacity_factor, tp=tp)
         return x + mo, nc, aux
 
     if kind == "ssm":
         h, nc = apply_mamba2(sub(params, "mixer"), norm("ln", x),
-                             head_dim=cfg.ssm_head_dim, cache=cache)
+                             head_dim=cfg.ssm_head_dim, cache=cache, tp=tp)
         return x + h, nc, zero
 
     if kind == "xattn":
-        h, _ = apply_attention(
-            sub(params, "xattn"), norm("ln1", x), n_heads=cfg.n_heads,
-            n_kv=cfg.n_kv_heads, qk_norm=cfg.qk_norm, rope_theta=0.0,
-            positions=positions, cross_kv=cross_kv)
-        x = x + _gate(params["gate_attn"], x) * h
-        mo = apply_mlp(cfg.mlp, sub(params, "mlp"), norm("ln2", x))
-        x = x + _gate(params["gate_mlp"], x) * mo
+        x = x + _gate(params["gate_attn"], x) * cross_attn(norm("ln1", x))
+        x = x + _gate(params["gate_mlp"], x) * mlp(norm("ln2", x))
         return x, cache, zero   # cache passes through untouched
 
     if kind == "cross":
         h, nc = self_attn(sub(params, "attn"), norm("ln1", x), cache)
         x = x + h
-        hx, _ = apply_attention(
-            sub(params, "xattn"), norm("lnx", x), n_heads=cfg.n_heads,
-            n_kv=cfg.n_kv_heads, qk_norm=cfg.qk_norm, rope_theta=0.0,
-            positions=positions, cross_kv=cross_kv)
-        x = x + hx
-        x = x + apply_mlp(cfg.mlp, sub(params, "mlp"), norm("ln2", x))
+        x = x + cross_attn(norm("lnx", x))
+        x = x + mlp(norm("ln2", x))
         return x, nc, zero
 
     if kind == "shared":
@@ -190,8 +189,8 @@ def apply_block(params: Params, x: torch.Tensor, *, cfg: ArchConfig,
         a_out, nc = self_attn(sub(params, "attn"), norm("ln1", h2), cache,
                               window=0)
         h2 = h2 + a_out
-        h2 = h2 + apply_mlp(cfg.mlp, sub(params, "mlp"), norm("ln2", h2))
-        return x + mm(h2, params["down"]), nc, zero
+        h2 = h2 + mlp(norm("ln2", h2))
+        return x + mm_rows(tp, h2, params["down"]), nc, zero
 
     raise ValueError(kind)
 
@@ -238,7 +237,7 @@ def apply_stage(stage_params: Params, x: torch.Tensor, *, cfg: ArchConfig,
     if kind == "shared":
         return apply_block(shared_params, x, cfg=cfg, kind=kind,
                            positions=positions, cache=cache,
-                           cross_kv=cross_kv, x_first=x_first)
+                           cross_kv=cross_kv, x_first=x_first, tp=tp)
 
     def block(p, h, c):
         return apply_block(p, h, cfg=cfg, kind=kind, positions=positions,

@@ -15,6 +15,8 @@ carries gradients across devices:
     its backward sums the columns' gradients at home in column order;
   * :meth:`~ColumnGroup.reduce_sum` adds the columns' partials at home in
     column order 0..mp-1, so a round is deterministic;
+    :meth:`~ColumnGroup.all_sum` broadcasts that sum back to every column
+    (a statistic over a cut dim, such as the SSM's gated norm);
   * :meth:`~ColumnGroup.gather` concatenates cut slices at home (a cut
     bias that meets a full activation);
   * :meth:`~ColumnGroup.slice` cuts a home activation into the columns'
@@ -91,6 +93,10 @@ class ColumnGroup:
             acc = acc + p.to(self.home)
         return acc.to(dtype) if narrow else acc
 
+    def all_sum(self, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """:meth:`reduce_sum` of the columns' partials, on every column."""
+        return self.broadcast(self.reduce_sum(parts))
+
     def gather(self, parts: Sequence[torch.Tensor], dim: int
                ) -> torch.Tensor:
         """Cut slices concatenated along ``dim`` at home."""
@@ -109,14 +115,17 @@ class ColumnParallel:
     """A loss's column-parallel form: ``fn(group, view, batch, rng) ->
     losses [m]`` on the group's home, computing the loss of the row's
     cells (``view`` from :meth:`ColumnGroup.view`) without joining them;
-    ``covers(name)`` says whether the form handles leaf ``name`` cut."""
+    ``covers(name, dims)`` says whether the form handles leaf ``name``
+    cut, given every leaf's cut dim ``dims`` (a form may take a leaf
+    only together with others, as the SSM's inner dim with its
+    heads)."""
 
     fn: Callable
-    covers: Callable[[str], bool]
+    covers: Callable[[str, dict], bool]
 
 
 def with_column_parallel(loss_fn: Callable, fn: Callable,
-                         covers: Callable[[str], bool]) -> Callable:
+                         covers: Callable[[str, dict], bool]) -> Callable:
     """``loss_fn`` carrying the column-parallel form ``fn`` (the callable
     the round calls on one device and on a 1D mesh is ``loss_fn``
     itself)."""
@@ -136,7 +145,7 @@ def local_step_kind(loss_fn: Callable, dims: dict | None) -> str:
     if dims is None:
         return "whole"
     form = getattr(loss_fn, "column_parallel", None)
-    if form is not None and all(form.covers(n) for n, d in dims.items()
-                                if d is not None):
+    if form is not None and all(form.covers(n, dims)
+                                for n, d in dims.items() if d is not None):
         return "tensor_parallel"
     return "joined"

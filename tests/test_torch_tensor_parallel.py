@@ -628,8 +628,9 @@ def test_b3_runs_once_a_step_a_cell(monkeypatch):
 
 def test_local_step_names_the_path():
     """``local_step`` on the round and the async step: tensor-parallel for
-    a loss whose form covers every cut leaf, joined for an opaque loss
-    or an arch without a form (MoE), whole off a 2D mesh."""
+    a loss whose form covers every cut leaf (the MoE's experts cut too),
+    joined for an opaque loss or a cut the form declines (an SSM inner
+    dim cut without its heads), whole off a 2D mesh."""
     mesh = make_test_mesh(2, model_parallel=2, device="cpu")
     cfg = T.DFedAvgMConfig(mixer_impl="sparse")
     spec = T.MixingSpec.ring(M, 0.5)
@@ -648,13 +649,20 @@ def test_local_step_names_the_path():
     assert kind(LOSS_2NN, make_test_mesh(2, "cpu"), None) == "whole"
     assert kind(LOSS_2NN, None, None) == "whole"
     moe = tcfg.reduced(tcfg.get_config("qwen3-moe-30b-a3b"))
-    assert not hasattr(TM.make_loss(moe), "column_parallel")
+    moe_form = TM.make_loss(moe).column_parallel
+    assert moe_form.covers("stages/0/moe/wg", {})
+    assert moe_form.covers("stages/0/moe/router", {})
     dense = tcfg.reduced(tcfg.get_config("smollm-135m"))
     form = TM.make_loss(dense).column_parallel
-    assert form.covers("stages/0/attn/wq") and form.covers("lm_head")
-    assert not form.covers("stages/0/ln1/scale")
-    assert kind(TM.make_loss(moe), specs={
-        "stages/0/moe/wg": P("clients", None, "model")}) == "joined"
+    assert form.covers("stages/0/attn/wq", {}) and form.covers("lm_head", {})
+    assert not form.covers("stages/0/ln1/scale", {})
+    wg_cut = {"stages/0/moe/wg": P("clients", None, "model")}
+    assert kind(TM.make_loss(moe), specs=wg_cut) == "tensor_parallel"
+    assert kind(lambda p, b, r: TM.loss_fn(p, moe, b, r),
+                specs=wg_cut) == "joined"
+    ssm = tcfg.reduced(tcfg.get_config("mamba2-780m"))
+    assert kind(TM.make_loss(ssm), specs={
+        "stages/0/mixer/wx": P("clients", None, None, "model")}) == "joined"
 
 
 def test_lone_lane_shards_run_as_two():
