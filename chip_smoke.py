@@ -224,7 +224,21 @@ Phases (any failure exits non-zero):
    and B2 12 times, params, losses and consensus bitwise; the driver's
    ``--wire seq`` for 2 rounds against ``--wire planar``, B1 and B2
    twice each, losses equal (``--only wire``);
-19. print the kernel table (with the floor; B1-B3 with their full-width
+19. "dryrun": the counting tools and the build layer (``launch.cost_model``,
+   ``launch.hlo_stats``, ``launch.build``, ``launch.dryrun``): the
+   quickstart's unfused and fused round counted on the card, its kernel
+   records (B1, B2 once, B3 K times; fused B3 K - 2 times, B4, B5 once;
+   T1 four times) equal to the same round's on ``meta`` and each
+   kernel's bytes a call equal to the bytes its kernel-table bound
+   divides by; ``build_train_step`` of SmolLM-135M as registered on the
+   (4, 2) ("data", "model") mesh of cuda:0 cells (8-bit ring): 2 rounds,
+   finite losses, B1, B2, B3 as ``prod_expected`` a cell, one more round
+   counted with FLOPs, kernel records and recorded collectives equal to
+   the ``meta`` build's, the median of 4 more rounds beside the build's
+   roofline terms at one chip; the built prefill and decode steps
+   against ``greedy_generate``'s tokens; one ``run_one`` (SmolLM-135M x
+   train_4k x 16x16) on ``meta``, timed (``--only dryrun``);
+20. print the kernel table (with the floor; B1-B3 with their full-width
    times, B1-B5 with their mesh launches, B2 and B5 at the mesh's
    extended table, a B3 bf16 row, the 2D rows: B1 tensor noise and B2
    at a cell, T2 at SmolLM-135M's largest leaf, and ``bench.kernels``'
@@ -747,6 +761,7 @@ def kernel_checks(dev, flush):
                 nbytes(delta, sblk, keys, words), 0, r["sass"]["ms"])
             r["bound_bytes_ms"] = bound(nbytes(delta, sblk, keys, words),
                                         0)[0]
+            r["bound_bytes"] = nbytes(delta, sblk, keys, words)
             timed(r, "tensor_noise_", lambda: quantize_pack_buffer(
                 delta, sblk, bits, noise), flush)
             r["tensor_noise_bound_ms"] = bound(
@@ -770,6 +785,7 @@ def kernel_checks(dev, flush):
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes(X, words, sblk, w, src, out),
                 X.numel() * 3 * src.shape[0])
+            r["bound_bytes"] = nbytes(X, words, sblk, w, src, out)
             r["shape"] = list(X.shape)
             # What the card's memory gives a plain streaming pass under
             # the same timing: base copied into out (B2 less its words).
@@ -828,6 +844,7 @@ def momentum_checks(dev, flush, r, stacked_randn):
         dampening=0.0, nesterov=False, maximize=False, is_first_step=False),
         flush)
     r["bound_ms"], r["bound_by"] = bound(5 * 4 * n_el, 3 * n_el)
+    r["bound_bytes"] = 5 * 4 * n_el
     r["shape"] = f"one local step: 6 leaves x {M} clients ({n_el} f32)"
 
 
@@ -918,6 +935,7 @@ def fused_kernel_checks(dev, flush, rec, x, stacked_randn):
                                   Y.shape[0] * Y.shape[2] // 4, n_real)
             r["bound_ms"], r["bound_by"] = bound(moved, 0, r["sass"]["ms"])
             r["bound_bytes_ms"] = bound(moved, 0)[0]
+            r["bound_bytes"] = moved
             r["tensor_noise_bound_ms"] = bound(
                 nbytes(Y, V, G, X, noise, sblk, y_out, v_out, words),
                 10 * Y.numel())[0]
@@ -945,6 +963,8 @@ def fused_kernel_checks(dev, flush, rec, x, stacked_randn):
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes(base, words, sblk, w, src, v_out, GK, out),
                 base.numel() * (3 * src.shape[0] + 4))
+            r["bound_bytes"] = nbytes(base, words, sblk, w, src, v_out, GK,
+                                      out)
             r["shape"] = list(X.shape)
 
 
@@ -7087,16 +7107,361 @@ def wire_phase(dev, flush=None) -> dict:
     return rec
 
 
+# The "dryrun" phase: the counting tools (launch.cost_model,
+# launch.hlo_stats) and the build layer (launch.build, launch.dryrun) on
+# the card.
+DRYRUN_ARCH = "smollm-135m"
+DRYRUN_MESH = ((4, 2), ("data", "model"))   # the reference tests' mesh
+DRYRUN_TRAIN = ("t", 128, 8, "train")       # InputShape fields
+DRYRUN_DECODE = ("d", 128, 8, "decode")
+DRYRUN_PREFILL = ("p", 32, 8, "prefill")    # 8 prompts of 32 tokens
+DRYRUN_GEN = 4                              # tokens a prompt
+DRYRUN_ROUNDS = 2                           # launch-gated rounds
+DRYRUN_TIMED = 4                            # eager rounds timed after them
+DRYRUN_ONE = ("smollm-135m", "train_4k")    # one production-mesh row
+
+
+def quickstart_bound_bytes(fuse_round: bool) -> dict:
+    """The bytes ``bound`` divides by for each wire and update kernel at
+    the quickstart's shapes (2NN, M clients, ring, 8-bit keyed wire), one
+    call: ``kernel_checks``' B1 (delta, scales, keys, words) and B2 (base,
+    words, scales, weights, src, out), ``momentum_checks``' B3 (5 f32
+    passes of every leaf), ``fused_kernel_checks``' B4 and B5."""
+    from repro_torch.core import WireLayout
+    from repro_torch.models.paper_nets import init_2nn
+
+    shapes = {n: t.shape for n, t in init_2nn(0, device="cpu").items()}
+    layout = WireLayout.for_tree(
+        {n: torch.empty(s, device="meta") for n, s in shapes.items()}, 8)
+    f4, streams = 4, 3                      # f32 / int32 bytes; own + 2
+    planar = M * layout.per * layout.total_words * f4
+    words = M * layout.total_words * f4
+    scales = M * (layout.total_words // 512) * f4
+    keys = layout.n_leaves * M * 2 * 8
+    table = M * streams * f4 + streams * M * f4          # weights, src
+    out = {"momentum_sgd": 5 * f4 * M * FLAT_2NN}
+    if fuse_round:
+        out["momentum_quantize_pack_buffer"] = (
+            4 * planar + scales + keys + 2 * planar + words)
+        out["dequant_mix_momentum_buffer"] = (
+            planar + words + scales + table + 2 * planar + planar)
+    else:
+        out["quantize_pack_buffer"] = planar + scales + keys + words
+        out["dequant_mix_buffer"] = planar + words + scales + table + planar
+    return out
+
+
+def _meta_copy(tree):
+    return {n: torch.empty(t.shape, dtype=t.dtype, device="meta")
+            for n, t in tree.items()}
+
+
+def dryrun_counter(dev, rec=None) -> dict:
+    """(a) The quickstart's unfused and fused round on the card under
+    ``structural_costs``: its kernel records B1, B2 once and B3 K times
+    (fused: B3 K - 2 times, B4, B5 once), T1 SPLITS_A_ROUND times, the
+    same records (calls, launches, bytes) as the round's count on
+    ``meta``, and each kernel's bytes a call equal to the bytes the
+    kernel table's bound divides by (``quickstart_bound_bytes``; with the
+    kernel checks' records ``rec``, also their ``bound_bytes``)."""
+    from repro_torch import prng
+    from repro_torch.core import init_round_state, make_round_step
+    from repro_torch.launch.cost_model import structural_costs
+
+    out = {}
+    for fuse in (False, True):
+        name = "fused" if fuse else "unfused"
+        _, fed, stacked, spec, cfg, loss_fn, step = quickstart_setup(dev,
+                                                                     fuse)
+        batches = fed.round_batches(0, K=K, batch=BATCH, device=dev)
+        state = init_round_state(stacked, prng.PRNGKey(1, device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = structural_costs(step, state, batches)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        mstep = make_round_step(loss_fn, cfg, spec, device="meta")
+        t0 = time.perf_counter()
+        meta = structural_costs(
+            mstep, init_round_state(_meta_copy(stacked), torch.empty(
+                2, dtype=torch.int64, device="meta")), _meta_copy(batches))
+        meta_s = time.perf_counter() - t0
+        calls = {k: v["calls"] for k, v in card.kernels.items()}
+        want = ({"momentum_quantize_pack_buffer": 1,
+                 "dequant_mix_momentum_buffer": 1, "momentum_sgd": K - 2}
+                if fuse else {"quantize_pack_buffer": 1,
+                              "dequant_mix_buffer": 1, "momentum_sgd": K})
+        want["threefry_split"] = SPLITS_A_ROUND
+        if calls != want:
+            raise AssertionError(f"dryrun {name}: kernel records {calls} "
+                                 f"!= {want}")
+        if card.kernels != meta.kernels:
+            raise AssertionError(f"dryrun {name}: card records "
+                                 f"{card.kernels} != meta {meta.kernels}")
+        bound = quickstart_bound_bytes(fuse)
+        per_call = {}
+        for k, b in bound.items():
+            got = card.kernels[k]["bytes"] / card.kernels[k]["calls"]
+            # The pool phase moves B1-B3's quickstart fields under
+            # "quickstart" (its own shapes take the row).
+            table = b if rec is None else rec[k].get("quickstart",
+                                                      rec[k])["bound_bytes"]
+            if not got == b == table:
+                raise AssertionError(f"dryrun {name} {k}: {got} bytes a "
+                                     f"call counted, bound {b}, kernel "
+                                     f"table {table}")
+            per_call[k] = {"counted": got, "bound": b, "kernel_table": table}
+        out[name] = {"kernels": card.kernels, "bytes_a_call": per_call,
+                     "card_equals_meta": True,
+                     "card": {"flops": card.flops,
+                              "matmul_flops": card.matmul_flops,
+                              "bytes": card.bytes, "s": card_s},
+                     "meta": {"flops": meta.flops,
+                              "matmul_flops": meta.matmul_flops,
+                              "bytes": meta.bytes, "s": meta_s}}
+    return out
+
+
+def _costs_record(c) -> dict:
+    return {"flops": c.flops, "matmul_flops": c.matmul_flops,
+            "bytes": c.bytes, "kernel_bytes": c.kernel_bytes,
+            "coll_bytes": c.coll_bytes, "coll_by_kind": c.coll_by_kind,
+            "kernels": c.kernels}
+
+
+def dryrun_built(dev) -> dict:
+    """(b) ``build_train_step`` of SmolLM-135M as registered on the
+    (4, 2) ("data", "model") mesh, its 8 cells on ``dev``, at
+    DRYRUN_TRAIN with an 8-bit ring wire: DRYRUN_ROUNDS rounds with
+    finite losses and B1, B2, B3 launched as ``prod_expected`` a cell;
+    one more round under the counter, its FLOPs, kernel records and
+    recorded collectives equal to the ``meta`` build's second call (both
+    past the first call's table building); then
+    DRYRUN_TIMED eager rounds, their median beside ``roofline_terms`` of
+    the same build at one chip."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import DFedAvgMConfig, QuantConfig, RoundState
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.build import build_train_step
+    from repro_torch.launch.mesh import make_named_mesh
+    from repro_torch.launch.cost_model import structural_costs
+    from repro_torch.launch.dryrun import roofline_terms
+    from repro_torch.models import model as TM
+
+    cfg = get_config(DRYRUN_ARCH)
+    shape = InputShape(*DRYRUN_TRAIN)
+    dfed = DFedAvgMConfig(eta=1e-3, theta=0.9, local_steps=2,
+                          quant=QuantConfig(bits=8), mixer_impl="ring")
+    built = build_train_step(cfg, make_named_mesh(*DRYRUN_MESH, device=dev),
+                             shape, dfed=dfed)
+    on_meta = build_train_step(cfg, make_named_mesh(*DRYRUN_MESH), shape,
+                               dfed=dfed)
+    meta = built.meta
+    m, k_steps, bs, seq = meta["m"], meta["K"], meta["local_bs"], meta["seq"]
+    cells = int(np.prod(DRYRUN_MESH[0]))
+    one = TM.init_model(prng.PRNGKey(0, device=dev), cfg, device=dev)
+    params = {n: t.unsqueeze(0).expand((m,) + t.shape).contiguous()
+              for n, t in one.items()}
+    del one
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tok = torch.randint(0, cfg.vocab_size, (m, k_steps, bs, seq + 1),
+                        generator=gen, device=dev, dtype=torch.int32)
+    batches = {"tokens": tok[..., :-1].contiguous(),
+               "targets": tok[..., 1:].contiguous()}
+    state = RoundState(params=params, rng=prng.PRNGKey(1, device=dev),
+                       round=torch.zeros((), dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = []
+    for _ in range(DRYRUN_ROUNDS):
+        state, met = built.fn(state, batches)
+        losses.append(float(met["loss"]))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: v * cells for k, v in prod_expected(
+        ["--bits", "8"], DRYRUN_ROUNDS, k_steps).items()}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"dryrun built step launches {got} != {want}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"dryrun built step losses {losses}")
+    t0 = time.perf_counter()
+    out = []
+    card = structural_costs(lambda s, b: out.append(built.fn(s, b)), state,
+                            batches)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    state = out[0][0]
+    # A step's first call builds its tables (its plan's on the device):
+    # count the meta build's second call, as the card's third round.
+    on_meta.fn(*on_meta.args)
+    t0 = time.perf_counter()
+    mc = structural_costs(on_meta.fn, *on_meta.args)
+    meta_s = time.perf_counter() - t0
+    for f in ("flops", "matmul_flops", "bytes", "kernel_bytes",
+              "coll_bytes", "coll_by_kind", "kernels"):
+        if getattr(card, f) != getattr(mc, f):
+            raise AssertionError(f"dryrun built step {f}: card "
+                                 f"{getattr(card, f)} != meta "
+                                 f"{getattr(mc, f)}")
+    times = []
+    for _ in range(DRYRUN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = built.fn(state, batches)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    round_ms = statistics.median(times)
+    terms, dom = roofline_terms(cfg, meta, mc, 1)
+    bound_ms = terms[dom] * 1e3
+    rec = {"arch": DRYRUN_ARCH, "mesh": list(DRYRUN_MESH),
+           "shape": list(DRYRUN_TRAIN), "meta": meta, "launches": got,
+           "losses": losses, "round_ms": times, "round_ms_median": round_ms,
+           "roofline_1chip": terms, "dominant": dom,
+           "roofline_share": bound_ms / round_ms,
+           "local_step": built.fn.step.local_step,
+           "counted_round_s": card_s, "meta_count_s": meta_s,
+           "card_equals_meta": True, "costs": _costs_record(mc)}
+    del state, params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dryrun_serve(dev) -> dict:
+    """(c) The built prefill and decode steps of SmolLM-135M (its
+    consensus-model params from one seed): the prefill's argmax and
+    DRYRUN_GEN - 1 built decode steps from the prompts' prefilled caches
+    give ``launch.serve.greedy_generate``'s tokens exactly."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.build import (build_decode_step,
+                                          build_prefill_step)
+    from repro_torch.launch.mesh import make_named_mesh
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import model as TM
+
+    cfg = get_config(DRYRUN_ARCH)
+    mesh = make_named_mesh(*DRYRUN_MESH, device=dev)
+    dshape, pshape = InputShape(*DRYRUN_DECODE), InputShape(*DRYRUN_PREFILL)
+    dec = build_decode_step(cfg, mesh, dshape)
+    pre = build_prefill_step(cfg, mesh, pshape)
+    b, lp = pshape.global_batch, pshape.seq_len
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        params = TM.init_model(prng.PRNGKey(0, device=dev), cfg, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (b, lp), generator=gen,
+                                device=dev, dtype=torch.int32)
+        want = greedy_generate(params, cfg, prompts, gen=DRYRUN_GEN,
+                               s_alloc=dshape.seq_len)
+        toks = [torch.argmax(pre.fn(params, prompts), dim=-1)]
+        caches = TM.init_decode_caches(cfg, b, dshape.seq_len, device=dev)
+        _, caches = TM.prefill(params, cfg, prompts, caches)
+        pos = torch.tensor(lp, dtype=torch.int32, device=dev)
+        for _ in range(DRYRUN_GEN - 1):
+            logits, caches = dec.fn(params, toks[-1], pos, caches)
+            toks.append(torch.argmax(logits, dim=-1))
+            pos = pos + 1
+        got = torch.stack(toks, dim=1)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"dryrun serve: built tokens {got.tolist()} != "
+                             f"greedy_generate's {want.tolist()}")
+    rec = {"decode_meta": dec.meta, "prefill_meta": pre.meta,
+           "tokens": got.tolist()}
+    del params, caches
+    torch.cuda.empty_cache()
+    return rec
+
+
+DRYRUN_ONE_JSON = ROOT / "chiprun_out" / "dryrun_one.json"
+DRYRUN_ONE_TIMEOUT_S = 900
+
+
+def dryrun_one_cli(path: str) -> None:
+    """(d)'s own process (``--dryrun-one PATH``): one production-mesh
+    dry-run row on ``meta`` (``run_one``), timed, its record to PATH."""
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    rec = dryrun.run_one(*DRYRUN_ONE, multi_pod=False, save=True)
+    rec["wall_s"] = time.perf_counter() - t0
+    Path(path).write_text(json.dumps(rec, default=str))
+
+
+def start_dryrun_one():
+    """Start (d) in a process of its own: the row is host work on ``meta``
+    tensors and runs beside the card's phases (stopped at exit if it is
+    still running)."""
+    import atexit
+
+    DRYRUN_ONE_JSON.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_ONE_JSON.unlink(missing_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / Path(__file__).name), "--dryrun-one",
+         str(DRYRUN_ONE_JSON)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def dryrun_one(proc) -> dict:
+    """(d) The row's record from its process (:func:`start_dryrun_one`):
+    a record with its three terms, the collective one recorded."""
+    try:
+        log, _ = proc.communicate(timeout=DRYRUN_ONE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or not DRYRUN_ONE_JSON.exists():
+        raise AssertionError(f"dryrun {DRYRUN_ONE} failed "
+                             f"(rc={proc.returncode}):\n{log[-4000:]}")
+    rec = json.loads(DRYRUN_ONE_JSON.read_text())
+    if rec.get("skipped") or rec["roofline"]["collective_s"] is None:
+        raise AssertionError(f"dryrun {DRYRUN_ONE}: {rec}")
+    return rec
+
+
+def dryrun_phase(dev, flush=None, rec=None, one=None) -> dict:
+    """The counting tools and the build layer on the card: (a)
+    :func:`dryrun_counter`, (b) :func:`dryrun_built`, (c)
+    :func:`dryrun_serve`, (d) :func:`dryrun_one` (its process ``one``,
+    started here unless given)."""
+    del flush
+    t_phase = time.perf_counter()
+    one = one if one is not None else start_dryrun_one()
+    out = {"counter": dryrun_counter(dev, rec)}
+    print(json.dumps({"dryrun_counter": out["counter"]}), flush=True)
+    out["built"] = dryrun_built(dev)
+    print(json.dumps({"dryrun_built": out["built"]}), flush=True)
+    out["serve"] = dryrun_serve(dev)
+    print(json.dumps({"dryrun_serve": out["serve"]}), flush=True)
+    out["one"] = dryrun_one(one)
+    print(json.dumps({"dryrun_one": out["one"]}), flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # Phases ``--only`` can run alone (after the build), for work on one path.
 ONLY = {"pool": pool_phase, "telemetry": telemetry_phase,
         "production": production_phase, "mesh": mesh_phase,
         "mesh2d": mesh2d_phase, "cards": cards_phase, "mia": mia_phase,
-        "bench_kernels": bench_kernels_phase, "wire": wire_phase}
+        "bench_kernels": bench_kernels_phase, "wire": wire_phase,
+        "dryrun": dryrun_phase}
 
 
 def main() -> int:
     if "--prod-cpu-archs" in sys.argv:      # production_archs' CPU side
         prod_cpu_archs(sys.argv[sys.argv.index("--prod-cpu-archs") + 1])
+        return 0
+    if "--dryrun-one" in sys.argv:          # the dryrun phase's (d)
+        dryrun_one_cli(sys.argv[sys.argv.index("--dryrun-one") + 1])
         return 0
     if "--only" in sys.argv and "cards" in sys.argv[
             sys.argv.index("--only") + 1].split(","):
@@ -7164,12 +7529,18 @@ def main() -> int:
     tel, counts["telemetry"] = telemetry_phase(dev, pool["breakdown"])
     times = round_times(dev)
     rows = bench_path(dev)
+    # The dryrun phase's production-mesh row: host work on meta tensors,
+    # in a process of its own beside the card's later phases (the
+    # production phase runs its CPU side beside them too), so the kernel
+    # and round timings above run alone.
+    one = start_dryrun_one()
     prod = production_phase(dev, flush)
     mesh = mesh_phase(dev, flush)
     mesh2d = mesh2d_phase(dev, flush)
     mia = mia_phase(dev, flush)
     kbench = bench_kernels_phase(dev, flush)
     wire = wire_phase(dev)
+    dry = dryrun_phase(dev, flush, rec, one)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
     counts["fig8"] = {k: sum(r["eager_launches"][k] for r in fig8)
                       for k in KERNEL_SOURCES}
@@ -7372,7 +7743,16 @@ def main() -> int:
                       "mia": {k: mia[k] for k in ("auc_card", "auc_cpu",
                                                   "phase_s")},
                       "wire": {k: wire[k] for k in ("round_ms_median",
-                                                    "phase_s")}}))
+                                                    "phase_s")},
+                      "dryrun": {
+                          "built_round_ms_median": dry["built"][
+                              "round_ms_median"],
+                          "built_roofline_1chip": dry["built"][
+                              "roofline_1chip"],
+                          "built_roofline_share": dry["built"][
+                              "roofline_share"],
+                          "one_row_wall_s": dry["one"]["wall_s"],
+                          "phase_s": dry["phase_s"]}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

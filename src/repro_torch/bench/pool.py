@@ -17,7 +17,7 @@ batches keyed ``fold_in(fold_in(key, client), t)``):
     run the plan realization (``backend="sparse"``, the resident
     schedule's ``"auto"``), where the two mixes are term for term equal.
   * billing — the pooled round bills ``schedule_round_bits`` and its
-    matmul FLOPs (``torch.utils.flop_counter.FlopCounterMode``) equal the
+    matmul FLOPs (``launch.hlo_stats.traced_flops``) equal the
     resident skip round's: the pool moves where parameters live, never
     the compute or the wire the algorithm is billed for.
 
@@ -33,7 +33,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
 from .. import prng
 from ..core import (ClientPool, DFedAvgMConfig, PoolSchedule, PooledRunner,
@@ -41,6 +40,7 @@ from ..core import (ClientPool, DFedAvgMConfig, PoolSchedule, PooledRunner,
                     make_round_step, schedule_round_bits)
 from ..core.topology import ring_graph
 from ..device import resolve_device
+from ..launch.hlo_stats import traced_flops
 from .common import timeit_best
 
 OUT_JSON = (Path(__file__).resolve().parents[3] / "chiprun_out"
@@ -80,9 +80,9 @@ def _rounds_per_sec(runner: PooledRunner, n_rounds: int, dev,
 
 
 def _step_flops(fn, *args) -> int:
-    with FlopCounterMode(display=False) as fc:
-        fn(*args)
-    return int(fc.get_total_flops())
+    """The matmul FLOPs one call of the step runs (the elementwise work
+    of a pooled round's gathers is not the algorithm's bill)."""
+    return int(traced_flops(fn, *args, matmul_only=True))
 
 
 def run_pool(smoke: bool = False, device=None) -> tuple[dict, list]:

@@ -33,6 +33,7 @@ MODULES = [
     "mia",              # §6 MIA privacy probe (bench_mia)
     "comm_cost",        # Prop 3 table per assigned arch (bench_comm_cost)
     "kernels",          # kernel microbench (bench_kernels)
+    "roofline",         # dry-run roofline table (bench_roofline)
 ]
 
 

@@ -31,6 +31,7 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .. import prng
 from ..core import (DFedAvgMConfig, MixerConfig, MixingSpec, QuantConfig,
@@ -43,6 +44,7 @@ from ..core.mixing import make_plan_mixer
 from ..core.topology import Graph, erdos_renyi_graph, ring_graph
 from ..data import FederatedDataset, classification_dataset
 from ..device import resolve_device
+from ..launch.cost_model import structural_costs
 from ..sharding import P
 from .common import loss_2nn, stacked_2nn, timeit_best, train_dfedavgm_2nn
 
@@ -268,14 +270,58 @@ def _quadratic_loss(p, b, r):
     return 0.5 * ((p["w"] - b["c"]) ** 2).sum(dim=-1)
 
 
+def tail_kernel_bytes(d: int) -> dict:
+    """The bytes of the kernels of the stage the fusion rewrote, for one
+    client at the reference's shapes (a [per, W] planar buffer of d f32
+    values at 8 bits, the own stream and two ring neighbours'): the
+    unfused tail's two B3 steps, B1 and B2 against the fused tail's B4
+    and B5, from the kernel entries' byte records
+    (``cost_model.structural_costs`` on ``meta`` tensors: nothing runs).
+    The port's B2 and B5 take the streams as a three-row table and the
+    plan's ``src`` [3, 1] into it; eta and theta go by value."""
+    from ..core.wire_layout import WireLayout
+    from ..kernels import (dequant_mix_buffer, dequant_mix_momentum_buffer,
+                           momentum_quantize_pack_buffer, momentum_sgd,
+                           quantize_pack_buffer)
+
+    lay = WireLayout.for_tree({"w": torch.empty(d, device="meta")}, bits=8)
+    per, wd, ks = 4, lay.total_words, 3
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    buf = meta(1, per, wd)
+    words, sblk = meta(ks, wd, dtype=torch.int32), meta(ks, wd // 512)
+    w, src = meta(1, ks), meta(ks, 1, dtype=torch.int32)
+    et = (0.05, 0.9)
+
+    def tail_unfused(y, v, g, x):
+        y, v = momentum_sgd(y, v, g, *et)
+        y, v = momentum_sgd(y, v, g, *et)
+        own = quantize_pack_buffer(y - x, sblk[:1], 8, torch.zeros_like(y))
+        return dequant_mix_buffer(x, words, sblk, w, src, 8), own
+
+    def tail_fused(y, v, g, x):
+        _, v1, own = momentum_quantize_pack_buffer(
+            y, v, g, x, sblk[:1], 8, et, torch.zeros_like(y))
+        return dequant_mix_momentum_buffer(x, words, sblk, w, src, v1, g,
+                                           et, 8), own
+
+    return {arm: structural_costs(fn, buf, buf, buf, buf).kernel_bytes
+            for arm, fn in (("unfused", tail_unfused),
+                            ("fused", tail_fused))}
+
+
 def fused_round_compare(smoke: bool = False, device=None) -> dict:
     """The fused round against the unfused one on a mesh of 8 shards
     (one client each): ring of 8, q8 deterministic ``eq7``, K 4, a
     quadratic loss on w [8, d]. Interleaved best-of-5 us a round, and
-    the reference's paper-minimum bill: K heavy-ball steps reading y, v,
-    g and writing y', v' (5 f32 passes of m*d) plus the realized wire
-    bytes. The reference's per-kernel traced bytes (its
-    ``structural_costs``) are not ported."""
+    the reference's roofline columns: the paper-minimum bill (K
+    heavy-ball steps reading y, v, g and writing y', v', 5 f32 passes of
+    m*d, plus the realized wire bytes), each arm's structural bytes of
+    its first round (``cost_model.structural_costs``: every aten
+    operation's operands and outputs, each kernel's buffers once) over
+    that bill, and the tail's kernel bytes (:func:`tail_kernel_bytes`)."""
     dev = resolve_device(device)
     m, K = 8, 4
     d = 16384 if smoke else 65536
@@ -288,17 +334,26 @@ def fused_round_compare(smoke: bool = False, device=None) -> dict:
     params = {"w": prng.normal(k0, (m, d))}
     batches = {"c": prng.normal(k1, (m, K, d))}
     wire_bytes = plan_round_bits(plan, d, q) / 8.0
+    bytes_min = K * 5 * 4 * (m * d) + wire_bytes
     out = {"m": m, "d": d, "K": K, "bits": 8,
-           "bytes_min_per_round": K * 5 * 4 * (m * d) + wire_bytes,
+           "bytes_min_per_round": bytes_min,
            "realized_wire_bytes": wire_bytes}
+    tb = tail_kernel_bytes(d)
+    out["tail_kernel_bytes"] = tb
+    out["tail_kernel_bytes_saved_frac"] = 1.0 - tb["fused"] / tb["unfused"]
     arms_ = {}
     for arm, fuse in (("unfused", False), ("fused", True)):
         cfg = DFedAvgMConfig(eta=0.05, theta=0.9, local_steps=K, quant=q,
                              fuse_round=fuse)
         step = make_round_step(_quadratic_loss, cfg, spec, mesh=mesh,
                                with_metrics=False)
-        st, _ = step(init_round_state(params, k2, mesh=mesh), batches)
-        arms_[arm] = {"step": step, "st": st, "us": float("inf")}
+        first = []
+        costs = structural_costs(lambda s, b: first.append(step(s, b)),
+                                 init_round_state(params, k2, mesh=mesh),
+                                 batches)
+        arms_[arm] = {"step": step, "st": first[0][0], "us": float("inf")}
+        out[arm] = {"bytes_moved_per_round": costs.bytes,
+                    "roofline_ratio": costs.bytes / bytes_min}
     for _ in range(5):
         for arm in ("unfused", "fused"):
             a = arms_[arm]
@@ -307,9 +362,12 @@ def fused_round_compare(smoke: bool = False, device=None) -> dict:
                 a["st"], iters=iters, reps=1, device=dev)
             a["us"] = min(a["us"], us)
     for arm in ("unfused", "fused"):
-        out[arm] = {"us_per_round": arms_[arm]["us"]}
+        out[arm]["us_per_round"] = arms_[arm]["us"]
     out["fused_speedup"] = (out["unfused"]["us_per_round"]
                             / out["fused"]["us_per_round"])
+    out["fused_bytes_saved_frac"] = (
+        1.0 - out["fused"]["bytes_moved_per_round"]
+        / out["unfused"]["bytes_moved_per_round"])
     return out
 
 
@@ -444,6 +502,9 @@ def gossip_backend_compare(smoke: bool = False, device=None,
         "round_fused_vs_unfused_b8", fz["fused"]["us_per_round"],
         f"unfused_us={fz['unfused']['us_per_round']:.1f}|"
         f"speedup={fz['fused_speedup']:.2f}|"
+        f"fused_roofline={fz['fused']['roofline_ratio']:.2f}|"
+        f"unfused_roofline={fz['unfused']['roofline_ratio']:.2f}|"
+        f"bytes_saved_frac={fz['fused_bytes_saved_frac']:.3f}|"
         f"bytes_min={fz['bytes_min_per_round']:.0f}"))
     rows.append((
         "round_telemetry_on_vs_off", tl["us_on"],

@@ -28,6 +28,7 @@ import torch
 
 from .. import prng
 from ..kernels.ops import momentum_update
+from ..launch.cost_model import repeats_on_meta
 from ..sharding.tensor_parallel import ColumnGroup
 
 Params = dict[str, torch.Tensor]
@@ -150,6 +151,7 @@ def _steps(loss_fn: LossFn, params: Params | list[Params],
     return y, v, losses
 
 
+@repeats_on_meta
 def local_train(loss_fn: LossFn, params: Params | list[Params],
                 batches: Params, keys: torch.Tensor, *,
                 eta: float | torch.Tensor, theta: float,

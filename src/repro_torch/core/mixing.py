@@ -80,6 +80,7 @@ import torch
 
 from .. import prng
 from ..device import resolve_device
+from ..launch import hlo_stats
 from .gossip_plan import GossipPlan
 from .local_sgd import loss_and_grad
 from .quantize import QuantConfig, dequantize_int, quantize_int
@@ -625,13 +626,16 @@ def _exchange(wire: _Wire, streams: list[list[torch.Tensor]]
     order. A transfer gathers only its crossing lanes on the source into
     one payload and, when the shards lie on two devices, copies that
     payload once between them; ``wire.shipped_bytes`` is set to the
-    payloads' bytes."""
+    payloads' bytes, each payload recorded as a ``collective-permute``
+    (``launch.hlo_stats``)."""
     got: list[list[torch.Tensor]] = [[] for _ in wire.devs]
     column = [0] * wire.mp
     for s_src, s_dst, idx in wire.transfers:
         parts = [p.index_select(0, idx) for p in streams[s_src]]
         payload = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-        column[s_src % wire.mp] += payload.numel() * payload.element_size()
+        size = payload.numel() * payload.element_size()
+        column[s_src % wire.mp] += size
+        hlo_stats.record("collective-permute", size, 2)
         got[s_dst].append(payload.to(wire.devs[s_dst], non_blocking=True))
     wire.shipped_bytes, wire.column_bytes = sum(column), column
     return got

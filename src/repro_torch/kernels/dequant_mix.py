@@ -28,7 +28,9 @@ boundary rows it received, so no combine scatter is needed. An entry of
 ``src`` outside [0, R) is refused on the host where the table is built
 (and by the plain versions); the kernel never reads it and writes NaN for
 that client instead. On CPU tensors a wrapper runs its plain version; on
-CUDA tensors it launches its kernel or raises.
+CUDA tensors it launches its kernel or raises; on ``meta`` tensors it
+returns an empty ``meta`` output of the kernel's shape. Each reports its
+byte record (``native.report``) on all three.
 """
 from __future__ import annotations
 
@@ -78,6 +80,15 @@ def dequant_mix_buffer_plain(base: torch.Tensor, words: torch.Tensor,
                                   weights, bits)
 
 
+def _plain(kernel: str, fn, x: torch.Tensor, operands) -> torch.Tensor:
+    """A wrapper's CPU or meta path: the plain version ``fn()`` (an empty
+    ``meta`` output like x on meta), reported as one call of
+    ``kernel``."""
+    out = torch.empty_like(x) if native.is_meta(x) else fn()
+    native.report(kernel, (x, *operands), (out,))
+    return out
+
+
 def _check_operands(base, words, block_scales, weights, src, bits) -> None:
     if bits not in (2, 4, 8, 16):
         raise ValueError(f"bits must be in (2, 4, 8, 16), got {bits}")
@@ -105,6 +116,7 @@ def _check_operands(base, words, block_scales, weights, src, bits) -> None:
     native.require_aligned(words, "words")
 
 
+@native.kernel_entry
 def dequant_mix_buffer(base: torch.Tensor, words: torch.Tensor,
                        block_scales: torch.Tensor, weights: torch.Tensor,
                        src: torch.Tensor, bits: int) -> torch.Tensor:
@@ -118,9 +130,10 @@ def dequant_mix_buffer(base: torch.Tensor, words: torch.Tensor,
     stream of plan step k. On CUDA, base and words must be 16-byte
     aligned. Returns f32 [m, per, W].
     """
-    if base.device.type == "cpu":
-        return dequant_mix_buffer_plain(base, words, block_scales, weights,
-                                        src, bits)
+    if base.device.type in ("cpu", "meta"):
+        return _plain("dequant_mix_buffer", lambda: dequant_mix_buffer_plain(
+            base, words, block_scales, weights, src, bits), base,
+            (words, block_scales, weights, src))
     _check_operands(base, words, block_scales, weights, src, bits)
     m, _, w = base.shape
     k = src.shape[0]
@@ -131,6 +144,8 @@ def dequant_mix_buffer(base: torch.Tensor, words: torch.Tensor,
                 weights.data_ptr(), src.data_ptr(), out.data_ptr(), m,
                 words.shape[0], k, w, bits, native.stream_of(base))
     native.check_launch(rc, "dequant_mix_buffer")
+    native.report("dequant_mix_buffer",
+                  (base, words, block_scales, weights, src), (out,))
     return out
 
 
@@ -148,6 +163,7 @@ def dequant_mix_momentum_buffer_plain(base: torch.Tensor, words: torch.Tensor,
                                            weights, v, g, et, bits)
 
 
+@native.kernel_entry
 def dequant_mix_momentum_buffer(base: torch.Tensor, words: torch.Tensor,
                                 block_scales: torch.Tensor,
                                 weights: torch.Tensor, src: torch.Tensor,
@@ -158,9 +174,12 @@ def dequant_mix_momentum_buffer(base: torch.Tensor, words: torch.Tensor,
     + (theta*v[c] - eta*g[c])``, the momentum term added last to the f32
     accumulator. words and block_scales hold R >= m rows, as for B2. v,
     g: f32 [m, per, W]; et = (eta, theta)."""
-    if base.device.type == "cpu":
-        return dequant_mix_momentum_buffer_plain(base, words, block_scales,
-                                                 weights, src, v, g, et, bits)
+    operands = (words, block_scales, weights, src, v, g)
+    if base.device.type in ("cpu", "meta"):
+        return _plain("dequant_mix_momentum_buffer",
+                      lambda: dequant_mix_momentum_buffer_plain(
+                          base, words, block_scales, weights, src, v, g, et,
+                          bits), base, operands)
     _check_operands(base, words, block_scales, weights, src, bits)
     for t, name in ((v, "v"), (g, "g")):
         native.require(t, name, torch.float32, base.shape, base.device)
@@ -177,6 +196,7 @@ def dequant_mix_momentum_buffer(base: torch.Tensor, words: torch.Tensor,
                 float(np.float32(et[0])), float(np.float32(et[1])),
                 native.stream_of(base))
     native.check_launch(rc, "dequant_mix_momentum_buffer")
+    native.report("dequant_mix_momentum_buffer", (base, *operands), (out,))
     return out
 
 
@@ -224,9 +244,11 @@ def _launch_plan(x: torch.Tensor, streams: torch.Tensor, scales: torch.Tensor,
                 weights.data_ptr(), out.data_ptr(), x.shape[0], k, w, bits,
                 native.stream_of(x))
     native.check_launch(rc, "dequant_mix_plan")
+    native.report("dequant_mix_plan", (x, streams, scales, weights), (out,))
     return out
 
 
+@native.kernel_entry
 def dequant_mix_plan(x: torch.Tensor, streams: torch.Tensor,
                      scales: torch.Tensor, weights: torch.Tensor,
                      bits: int) -> torch.Tensor:
@@ -234,13 +256,16 @@ def dequant_mix_plan(x: torch.Tensor, streams: torch.Tensor,
     order: x f32 [per, W]; streams int32 [k, W]; scales, weights f32 [k]
     (runtime). Returns f32 [per, W]. On CUDA, streams must be 16-byte
     aligned."""
-    if x.device.type == "cpu":
-        return dequant_mix_plan_ref(x, streams, scales, weights, bits)
+    if x.device.type in ("cpu", "meta"):
+        return _plain("dequant_mix_plan", lambda: dequant_mix_plan_ref(
+            x, streams, scales, weights, bits), x,
+            (streams, scales, weights))
     _check_one(x, bits)
     return _launch_plan(x.reshape(-1), streams, scales, weights,
                         bits).view(x.shape)
 
 
+@native.kernel_entry
 def dequant_mix_plan_flat(x: torch.Tensor, streams: torch.Tensor,
                           scales: torch.Tensor, weights: torch.Tensor,
                           bits: int) -> torch.Tensor:
@@ -249,9 +274,11 @@ def dequant_mix_plan_flat(x: torch.Tensor, streams: torch.Tensor,
     ``planar_pad_len(n, bits)[1]``. Returns f32 [n]. On CUDA the call is
     one launch and allocates only its output; x may start at any 4-byte
     boundary, streams on a 16-byte one."""
-    if x.device.type == "cpu":
-        return _on_planar(lambda x2d: dequant_mix_plan_ref(
-            x2d, streams, scales, weights, bits), x, bits)
+    if x.device.type in ("cpu", "meta"):
+        return _plain("dequant_mix_plan", lambda: _on_planar(
+            lambda x2d: dequant_mix_plan_ref(x2d, streams, scales, weights,
+                                             bits), x, bits), x,
+            (streams, scales, weights))
     return _launch_plan(x, streams, scales, weights, bits)
 
 
@@ -274,9 +301,11 @@ def _launch_ring(x: torch.Tensor, q_own: torch.Tensor, q_left: torch.Tensor,
                 float(np.float32(w_self)), float(np.float32(w_nb)),
                 out.data_ptr(), x.shape[0], w, bits, native.stream_of(x))
     native.check_launch(rc, "dequant_mix")
+    native.report("dequant_mix", (x, q_own, q_left, q_right, scales), (out,))
     return out
 
 
+@native.kernel_entry
 def dequant_mix(x: torch.Tensor, q_own: torch.Tensor, q_left: torch.Tensor,
                 q_right: torch.Tensor, scales: torch.Tensor, bits: int,
                 w_self: float, w_nb: float) -> torch.Tensor:
@@ -286,14 +315,16 @@ def dequant_mix(x: torch.Tensor, q_own: torch.Tensor, q_left: torch.Tensor,
     the three streams must be 16-byte aligned; the call is one launch of
     ``csrc/dequant_mix.cu:dequant_mix_ring`` and allocates only its
     output."""
-    if x.device.type == "cpu":
-        return dequant_mix_ref(x, q_own, q_left, q_right, scales, bits,
-                               w_self, w_nb)
+    if x.device.type in ("cpu", "meta"):
+        return _plain("dequant_mix", lambda: dequant_mix_ref(
+            x, q_own, q_left, q_right, scales, bits, w_self, w_nb), x,
+            (q_own, q_left, q_right, scales))
     _check_one(x, bits)
     return _launch_ring(x.reshape(-1), q_own, q_left, q_right, scales, bits,
                         w_self, w_nb).view(x.shape)
 
 
+@native.kernel_entry
 def dequant_mix_flat(x: torch.Tensor, q_own: torch.Tensor,
                      q_left: torch.Tensor, q_right: torch.Tensor,
                      scales: torch.Tensor, bits: int, w_self: float,
@@ -302,8 +333,10 @@ def dequant_mix_flat(x: torch.Tensor, q_own: torch.Tensor,
     planar view; q_* int32 [W] with W = ``planar_pad_len(n, bits)[1]``.
     Returns f32 [n]. On CUDA the call is one launch and allocates only its
     output; x may start at any 4-byte boundary."""
-    if x.device.type == "cpu":
-        return _on_planar(lambda x2d: dequant_mix_ref(
-            x2d, q_own, q_left, q_right, scales, bits, w_self, w_nb), x, bits)
+    if x.device.type in ("cpu", "meta"):
+        return _plain("dequant_mix", lambda: _on_planar(
+            lambda x2d: dequant_mix_ref(x2d, q_own, q_left, q_right, scales,
+                                        bits, w_self, w_nb), x, bits), x,
+            (q_own, q_left, q_right, scales))
     return _launch_ring(x, q_own, q_left, q_right, scales, bits, w_self,
                         w_nb)

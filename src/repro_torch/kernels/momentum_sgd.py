@@ -15,6 +15,10 @@ eta is a host float (one value, a kernel parameter) or a device f32
 tensor [m], one per client of leaves [m, ...] (the async engine's
 staleness-decayed step): the lane entry ``momentum_sgd_lanes`` reads it at
 launch, so a captured graph follows its changes.
+
+On CPU tensors the step runs its plain version, on ``meta`` tensors it
+returns empty ``meta`` outputs; on all three each dtype group reports one
+byte record (``native.report``: y, v, g, a lane eta, then y', v').
 """
 from __future__ import annotations
 
@@ -63,6 +67,34 @@ def momentum_sgd_lanes_ref(y: torch.Tensor, v: torch.Tensor,
         y, v, g, eta.reshape((-1,) + (1,) * (y.dim() - 1)), theta)
 
 
+def _dtype_groups(ys) -> dict:
+    """Leaf indices by the dtype of B3's entry that takes them, in order
+    of first appearance."""
+    groups: dict = {}
+    for i, y in enumerate(ys):
+        dtype = y.dtype if y.dtype in _ENTRY_SUFFIX else torch.float32
+        groups.setdefault(dtype, []).append(i)
+    return groups
+
+
+def _report_groups(ys, vs, gs, y_out, v_out, eta) -> None:
+    """The byte records of a CPU or meta step: one a dtype group, with
+    the launches its C entry would make (one per 64 leaves of which one
+    is not empty)."""
+    if not native.RECORDERS:
+        return
+    kernel = ("momentum_sgd_lanes" if isinstance(eta, torch.Tensor)
+              else "momentum_sgd")
+    lane_eta = eta if isinstance(eta, torch.Tensor) else None
+    for idx in _dtype_groups(ys).values():
+        sizes = [ys[i].numel() for i in idx]
+        launches = sum(any(sizes[j:j + 64]) for j in range(0, len(idx), 64))
+        native.report(kernel, [t[i] for t in (ys, vs, gs) for i in idx]
+                      + [lane_eta],
+                      [t[i] for t in (y_out, v_out) for i in idx], launches)
+
+
+@native.kernel_entry
 def momentum_sgd_leaves(ys: Sequence[torch.Tensor],
                         vs: Sequence[torch.Tensor],
                         gs: Sequence[torch.Tensor],
@@ -80,10 +112,17 @@ def momentum_sgd_leaves(ys: Sequence[torch.Tensor],
     starting on a 16-byte boundary: every y' and v' is contiguous in its
     leaf's shape, but they share storage."""
     lanes = isinstance(eta, torch.Tensor)
-    if not ys or ys[0].device.type == "cpu":
-        plain = momentum_sgd_lanes_ref if lanes else momentum_sgd_ref
-        outs = [plain(y, v, g, eta, theta) for y, v, g in zip(ys, vs, gs)]
-        return [o[0] for o in outs], [o[1] for o in outs]
+    if not ys or ys[0].device.type in ("cpu", "meta"):
+        if ys and native.is_meta(ys[0]):
+            outs = [(torch.empty_like(y), torch.empty_like(v))
+                    for y, v in zip(ys, vs)]
+        else:
+            plain = momentum_sgd_lanes_ref if lanes else momentum_sgd_ref
+            outs = [plain(y, v, g, eta, theta)
+                    for y, v, g in zip(ys, vs, gs)]
+        y_out, v_out = [o[0] for o in outs], [o[1] for o in outs]
+        _report_groups(ys, vs, gs, y_out, v_out, eta)
+        return y_out, v_out
     dev = ys[0].device
     if lanes:
         native.require(eta, "eta", torch.float32, device=dev)
@@ -98,15 +137,15 @@ def _launch_groups(ys, vs, gs, eta, theta: float, dev: torch.device
                    ) -> tuple[list, list]:
     """Check every leaf, group the leaves by dtype (in order of first
     appearance) and run B3 on each group: (y', v') in the leaves' order."""
-    groups: dict = {}
-    for i, (y, v, g) in enumerate(zip(ys, vs, gs)):
-        dtype = y.dtype if y.dtype in _ENTRY_SUFFIX else torch.float32
-        for t, name in ((y, "y"), (v, "v"), (g, "g")):
-            # One cheap test per tensor; require() names the fault.
-            if (t.dtype is not dtype or t.shape != y.shape
-                    or not t.is_contiguous() or t.device != dev):
-                native.require(t, f"{name}[{i}]", dtype, y.shape, dev)
-        groups.setdefault(dtype, []).append(i)
+    groups = _dtype_groups(ys)
+    for dtype, idx in groups.items():
+        for i in idx:
+            y = ys[i]
+            for t, name in ((y, "y"), (vs[i], "v"), (gs[i], "g")):
+                # One cheap test per tensor; require() names the fault.
+                if (t.dtype is not dtype or t.shape != y.shape
+                        or not t.is_contiguous() or t.device != dev):
+                    native.require(t, f"{name}[{i}]", dtype, y.shape, dev)
     y_out, v_out = [None] * len(ys), [None] * len(ys)
     for dtype, idx in groups.items():
         yo, vo = _step_group([ys[i] for i in idx], [vs[i] for i in idx],
@@ -151,6 +190,9 @@ def _step_group(ys, vs, gs, eta, theta: float, dtype: torch.dtype,
                 float(np.float32(eta)), theta32, native.stream_of(ys[0]),
                 ctypes.byref(launches))
     native.check_launch(rc, kernel, launches.value)
+    if native.RECORDERS:
+        native.report(kernel, [*ys, *vs, *gs, eta if isinstance(
+            eta, torch.Tensor) else None], [*y_out, *v_out], launches.value)
     return y_out, v_out
 
 

@@ -13,10 +13,22 @@ Every wrapper adds to ``LAUNCHES[name]`` the launches its C entry point
 reports (one, or one per 64 leaves of a leaf table) where it launches its
 kernel and nowhere else, so a run can show that it went through the
 kernels.
+
+Every wrapper is also a kernel entry (:func:`kernel_entry`): it reports
+one :class:`KernelRecord` (its kernel's name, the bytes of its tensor
+operands and outputs, the launches) to each active recorder
+(``launch.cost_model.structural_costs``) where it launches its kernel,
+where it runs the plain version on a CPU tensor, and where it answers a
+``meta`` tensor with empty ``meta`` outputs of the kernel's shapes. While
+an entry runs, the aten operations inside it and the entries it calls
+are not counted again: a kernel's HBM traffic is its operand and output
+buffers, as the reference's cost model counts a ``pallas_call``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import re
@@ -42,6 +54,11 @@ KERNELS = ("quantize_pack_buffer", "dequant_mix_buffer", "momentum_sgd",
            "threefry_split", "threefry_uniform", "threefry_bits",
            "threefry_normal", "momentum_sgd_lanes")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
+
+# The active byte recorders (callables taking a KernelRecord) and the
+# depth of nested kernel entries on the stack.
+RECORDERS: list = []
+_DEPTH = [0]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -162,3 +179,56 @@ def require_aligned(t: torch.Tensor, name: str) -> None:
     a 16-byte boundary (its rows follow, W being a multiple of 512)."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelRecord:
+    """One kernel entry's call: its kernel (a ``LAUNCHES`` key), the
+    bytes of its tensor operands and of its outputs (scalars passed by
+    value and host tables are not HBM traffic), and its launches."""
+
+    name: str
+    operand_bytes: int
+    output_bytes: int
+    launches: int
+
+    @property
+    def bytes(self) -> int:
+        return self.operand_bytes + self.output_bytes
+
+
+def nbytes(*ts) -> int:
+    """Bytes of the tensors given (None skipped)."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def kernel_entry(fn):
+    """Mark ``fn`` as a kernel entry: while it runs, recorders skip the
+    aten operations it makes and the records of entries it calls."""
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        _DEPTH[0] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _DEPTH[0] -= 1
+    return entry
+
+
+def in_kernel_entry() -> bool:
+    return _DEPTH[0] > 0
+
+
+def report(kernel: str, operands, outputs, launches: int = 1) -> None:
+    """Give every active recorder the record of one call of ``kernel``
+    (only the outermost entry's: a plain version that calls another
+    entry reports once)."""
+    if RECORDERS and _DEPTH[0] <= 1:
+        rec = KernelRecord(kernel, nbytes(*operands), nbytes(*outputs),
+                           launches)
+        for r in RECORDERS:
+            r(rec)
+
+
+def is_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"

@@ -15,7 +15,9 @@ B6 ``quantize_pack`` — one [per, W] buffer with one scale
    the kernel from one key as ``uniform(key, (per, W))``.
 
 On CPU tensors a wrapper runs its plain version (``ref``); on CUDA tensors
-it launches its kernel or raises.
+it launches its kernel or raises; on ``meta`` tensors it returns empty
+``meta`` outputs of the kernel's shapes. Each reports its byte record
+(``native.report``) on all three.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ def _check_planar(x: torch.Tensor, bits: int, name: str = "x") -> None:
         raise ValueError(f"client count {m} out of range")
 
 
+@native.kernel_entry
 def quantize_pack_buffer(x: torch.Tensor, block_scales: torch.Tensor,
                          bits: int, noise: torch.Tensor | None = None, *,
                          keys: torch.Tensor | None = None,
@@ -70,10 +73,20 @@ def quantize_pack_buffer(x: torch.Tensor, block_scales: torch.Tensor,
     = deterministic floor. On CUDA, x (and noise) must be 16-byte aligned.
     Returns int32 [m, W] (u32 bit patterns)."""
     _check_noise_source(noise, keys, table)
+    operands = (x, noise if keys is None else keys, block_scales)
+    launches = _keyed_launches(table) if keys is not None else 1
+    if native.is_meta(x):
+        _check_planar(x, bits)
+        out = torch.empty((x.shape[0], x.shape[2]), dtype=torch.int32,
+                          device=x.device)
+        native.report("quantize_pack_buffer", operands, (out,), launches)
+        return out
     if x.device.type == "cpu":
         if keys is not None:
             noise = keyed_noise_ref(keys, table, x.shape[1], x.shape[2])
-        return quantize_pack_buffer_ref(x, block_scales, bits, noise)
+        out = quantize_pack_buffer_ref(x, block_scales, bits, noise)
+        native.report("quantize_pack_buffer", operands, (out,), launches)
+        return out
     _check_planar(x, bits)
     m, _, w = x.shape
     native.require(x, "x", torch.float32)
@@ -89,6 +102,7 @@ def quantize_pack_buffer(x: torch.Tensor, block_scales: torch.Tensor,
                       "quantize_pack_buffer", keys, table, x,
                       x.data_ptr(), keys.data_ptr(), block_scales.data_ptr(),
                       out.data_ptr(), m, w, bits)
+        native.report("quantize_pack_buffer", operands, (out,), launches)
         return out
     fn = native.function("quantize_pack", "quantize_pack_buffer", _ARGTYPES)
     with torch.cuda.device(x.device):
@@ -96,12 +110,18 @@ def quantize_pack_buffer(x: torch.Tensor, block_scales: torch.Tensor,
                 block_scales.data_ptr(), out.data_ptr(), m, w, bits,
                 int(noise is not None), native.stream_of(x))
     native.check_launch(rc, "quantize_pack_buffer")
+    native.report("quantize_pack_buffer", operands, (out,))
     return out
 
 
 def _check_noise_source(noise, keys, table) -> None:
     if keys is not None and (noise is not None or table is None):
         raise ValueError("keyed encode takes keys and a table, not noise")
+
+
+def _keyed_launches(table: NoiseTable) -> int:
+    """A keyed entry's launches: one per 64 leaves of its table."""
+    return -(-len(table.sizes) // 64)
 
 
 def _launch_keyed(symbol: str, argtypes: list, kernel: str,
@@ -131,6 +151,7 @@ def _table_arrays(table: NoiseTable) -> tuple:
             np.asarray(table.sizes, np.int64))
 
 
+@native.kernel_entry
 def momentum_quantize_pack_buffer(y: torch.Tensor, v: torch.Tensor,
                                   g: torch.Tensor, x: torch.Tensor,
                                   block_scales: torch.Tensor, bits: int,
@@ -151,11 +172,24 @@ def momentum_quantize_pack_buffer(y: torch.Tensor, v: torch.Tensor,
     int32 [m, W]).
     """
     _check_noise_source(noise, keys, table)
+    operands = (y, v, g, x, noise if keys is None else keys, block_scales)
+    launches = _keyed_launches(table) if keys is not None else 1
+    if native.is_meta(y):
+        _check_planar(y, bits, "y")
+        outs = (torch.empty_like(y), torch.empty_like(v),
+                torch.empty((y.shape[0], y.shape[2]), dtype=torch.int32,
+                            device=y.device))
+        native.report("momentum_quantize_pack_buffer", operands, outs,
+                      launches)
+        return outs
     if y.device.type == "cpu":
         if keys is not None:
             noise = keyed_noise_ref(keys, table, y.shape[1], y.shape[2])
-        return momentum_quantize_pack_buffer_ref(y, v, g, x, block_scales,
+        outs = momentum_quantize_pack_buffer_ref(y, v, g, x, block_scales,
                                                  bits, et, noise)
+        native.report("momentum_quantize_pack_buffer", operands, outs,
+                      launches)
+        return outs
     _check_planar(y, bits, "y")
     m, _, w = y.shape
     for t, name in ((y, "y"), (v, "v"), (g, "g"), (x, "x"), (noise, "noise")):
@@ -176,6 +210,8 @@ def momentum_quantize_pack_buffer(y: torch.Tensor, v: torch.Tensor,
                       _ARGTYPES_MOMENTUM_KEYED,
                       "momentum_quantize_pack_buffer", keys, table, y,
                       *lead, keys.data_ptr(), *tail)
+        native.report("momentum_quantize_pack_buffer", operands,
+                      (y_out, v_out, out), launches)
         return y_out, v_out, out
     fn = native.function("quantize_pack", "momentum_quantize_pack_buffer",
                          _ARGTYPES_MOMENTUM)
@@ -183,9 +219,12 @@ def momentum_quantize_pack_buffer(y: torch.Tensor, v: torch.Tensor,
         rc = fn(*lead, None if noise is None else noise.data_ptr(), *tail,
                 int(noise is not None), native.stream_of(y))
     native.check_launch(rc, "momentum_quantize_pack_buffer")
+    native.report("momentum_quantize_pack_buffer", operands,
+                  (y_out, v_out, out))
     return y_out, v_out, out
 
 
+@native.kernel_entry
 def quantize_pack(x: torch.Tensor, s: torch.Tensor, bits: int,
                   noise: torch.Tensor | None = None, *,
                   key: torch.Tensor | None = None) -> torch.Tensor:
@@ -198,10 +237,20 @@ def quantize_pack(x: torch.Tensor, s: torch.Tensor, bits: int,
     Returns int32 [W]."""
     if key is not None and noise is not None:
         raise ValueError("keyed encode takes a key, not noise")
+    # A key in x's device memory is an operand; a host key reaches the
+    # kernel by value.
+    operands = (x, s, noise if key is None
+                else key if key.device == x.device else None)
+    if native.is_meta(x):
+        out = torch.empty((x.shape[1],), dtype=torch.int32, device=x.device)
+        native.report("quantize_pack", operands, (out,))
+        return out
     if x.device.type == "cpu":
         if key is not None:
             noise = prng.uniform(key.to(x.device), x.shape)
-        return quantize_pack_ref(x, s, bits, noise)
+        out = quantize_pack_ref(x, s, bits, noise)
+        native.report("quantize_pack", operands, (out,))
+        return out
     if x.dim() != 2:
         raise ValueError(f"x must be [per, W], got {tuple(x.shape)}")
     _check_planar(x[None], bits)
@@ -213,6 +262,7 @@ def quantize_pack(x: torch.Tensor, s: torch.Tensor, bits: int,
     out = torch.empty((w,), dtype=torch.int32, device=x.device)
     if key is not None:
         _launch_one_keyed(x, s, bits, key, out)
+        native.report("quantize_pack", operands, (out,))
         return out
     fn = native.function("quantize_pack", "quantize_pack", _ARGTYPES_ONE)
     with torch.cuda.device(x.device):
@@ -220,6 +270,7 @@ def quantize_pack(x: torch.Tensor, s: torch.Tensor, bits: int,
                 s.data_ptr(), out.data_ptr(), w, bits, int(noise is not None),
                 native.stream_of(x))
     native.check_launch(rc, "quantize_pack")
+    native.report("quantize_pack", operands, (out,))
     return out
 
 

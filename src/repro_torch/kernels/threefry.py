@@ -15,7 +15,11 @@ float) and T4 (``threefry_normal``, T2's body, then erf_inv's
 polynomial) one thread a draw, each bitwise with its plain version on
 the card. ``prng.split``, ``prng.uniform``,
 ``prng.random_bits`` and ``prng.normal`` call these wrappers, so every
-caller of the key chain takes the kernels on the card.
+caller of the key chain takes the kernels on the card. A ``meta`` key
+draws empty ``meta`` tensors of the outputs' shapes (how
+``sharding.shapes_and_axes`` evaluates an init). Every call that makes
+an output reports its byte record (``native.report``: the key, a data
+tensor, the output) on the card, on the CPU and on ``meta``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,18 @@ _ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                ctypes.c_void_p, ctypes.c_void_p]
 
 
+def _host(kernel: str, key: torch.Tensor, out_shape, dtype, plain,
+          *operands) -> torch.Tensor:
+    """A CPU or meta key's call: ``plain()`` (an empty ``meta`` tensor of
+    ``out_shape`` on meta), reported as one launch of ``kernel`` when it
+    has an output, as the card's call is."""
+    out = (torch.empty(tuple(out_shape), dtype=dtype, device=key.device)
+           if key.device.type == "meta" else plain())
+    if out.numel():
+        native.report(kernel, (key, *operands), (out,))
+    return out
+
+
 def _rows(key: torch.Tensor) -> torch.Tensor:
     """A CUDA key ``[..., 2]`` checked and viewed as ``[R, 2]``."""
     native.require(key, "key", torch.int64)
@@ -39,12 +55,14 @@ def _rows(key: torch.Tensor) -> torch.Tensor:
     return key.reshape(-1, 2)
 
 
+@native.kernel_entry
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): int64 key ``[..., 2]`` ->
     ``[..., num, 2]``. CPU keys take ``prng.split_plain``; a CUDA key
     (contiguous) launches T1 once."""
-    if key.device.type == "cpu":
-        return prng.split_plain(key, num)
+    if key.device.type in ("cpu", "meta"):
+        return _host("threefry_split", key, (*key.shape[:-1], num, 2),
+                     torch.int64, lambda: prng.split_plain(key, num))
     if num < 0:
         raise ValueError(f"num must be >= 0, got {num}")
     rows = _rows(key)
@@ -57,9 +75,11 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
         rc = fn(rows.data_ptr(), rows.shape[0], num, out.data_ptr(),
                 native.stream_of(key))
     native.check_launch(rc, "threefry_split")
+    native.report("threefry_split", (key,), (out,))
     return out
 
 
+@native.kernel_entry
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a uint32 ``data``: int64 key
     ``[..., 2]`` -> ``[..., 2]``. CPU keys take ``prng.fold_in_plain``; a
@@ -67,8 +87,12 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     ``data`` tensor (int64 ``[n]`` on the key's device) folds a counter a
     row into one key ``[2]`` or into ``n`` keys ``[n, 2]``: one launch of
     T1's ``threefry_fold_in_each``, out ``[n, 2]``."""
-    if key.device.type == "cpu":
-        return prng.fold_in_plain(key, data)
+    if key.device.type in ("cpu", "meta"):
+        each = isinstance(data, torch.Tensor)
+        lead = data.shape if each and key.dim() == 1 else key.shape[:-1]
+        return _host("threefry_split", key, (*lead, 2), torch.int64,
+                     lambda: prng.fold_in_plain(key, data),
+                     *((data,) if each else ()))
     if isinstance(data, torch.Tensor):
         return _fold_in_each(key, data)
     rows = _rows(key)
@@ -78,6 +102,7 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
         rc = fn(rows.data_ptr(), rows.shape[0], data, out.data_ptr(),
                 native.stream_of(key))
     native.check_launch(rc, "threefry_split")
+    native.report("threefry_split", (key,), (out,))
     return out
 
 
@@ -100,6 +125,7 @@ def _fold_in_each(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
         rc = fn(rows.data_ptr(), rows.shape[0], data.data_ptr(), n,
                 out.data_ptr(), native.stream_of(key))
     native.check_launch(rc, "threefry_split")
+    native.report("threefry_split", (key, data), (out,))
     return out
 
 
@@ -119,33 +145,46 @@ def _draw(key: torch.Tensor, shape, dtype: torch.dtype, symbol: str
         rc = fn(rows.data_ptr(), rows.shape[0], n, out.data_ptr(),
                 native.stream_of(key))
     native.check_launch(rc, symbol)
+    native.report(symbol, (key,), (out,))
     return out
 
 
+def _draw_host(symbol: str, key: torch.Tensor, shape, dtype, plain
+               ) -> torch.Tensor:
+    return _host(symbol, key, (*key.shape[:-1], *shape), dtype,
+                 lambda: plain(key, shape))
+
+
+@native.kernel_entry
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)`` on [0, 1): int64 key
     ``[..., 2]`` -> f32 ``[..., *shape]``. CPU keys take
     ``prng.uniform_plain``; a CUDA key (contiguous, at most 65 535 keys)
     launches T2 once."""
-    if key.device.type == "cpu":
-        return prng.uniform_plain(key, shape)
+    if key.device.type in ("cpu", "meta"):
+        return _draw_host("threefry_uniform", key, shape, torch.float32,
+                          prng.uniform_plain)
     return _draw(key, shape, torch.float32, "threefry_uniform")
 
 
+@native.kernel_entry
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: int64 key ``[..., 2]``
     -> f32 ``[..., *shape]``. CPU keys take ``prng.normal_plain``; a CUDA
     key (contiguous, at most 65 535 keys) launches T4 once."""
-    if key.device.type == "cpu":
-        return prng.normal_plain(key, shape)
+    if key.device.type in ("cpu", "meta"):
+        return _draw_host("threefry_normal", key, shape, torch.float32,
+                          prng.normal_plain)
     return _draw(key, shape, torch.float32, "threefry_normal")
 
 
+@native.kernel_entry
 def bits(key: torch.Tensor, shape) -> torch.Tensor:
     """32-bit ``jax.random.bits(key, shape)``: int64 key ``[..., 2]`` ->
     int64 ``[..., *shape]`` with values in [0, 2^32), the layout of
     ``prng.random_bits_plain``, which CPU keys take; a CUDA key
     (contiguous, at most 65 535 keys) launches T3 once."""
-    if key.device.type == "cpu":
-        return prng.random_bits_plain(key, shape)
+    if key.device.type in ("cpu", "meta"):
+        return _draw_host("threefry_bits", key, shape, torch.int64,
+                          prng.random_bits_plain)
     return _draw(key, shape, torch.int64, "threefry_bits")

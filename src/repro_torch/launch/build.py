@@ -1,0 +1,350 @@
+"""Builders shared by the dry-run and the chip checks: a step function,
+its ``meta`` inputs and its shardings for every (arch x input-shape x
+mesh) combination — the port of the JAX package's ``launch/build.py``.
+
+A mesh here is anything with ``axis_names`` and ``devices.shape``: the
+production stand-in (``launch.mesh.make_production_mesh``, ``meta``
+cells) or ``launch.mesh.make_named_mesh`` of real devices (``(4, 2)``
+``("data", "model")`` cells of one card). The train step runs on a
+``ClientMesh`` mapped from the mesh's client axes (the strategy's, one
+shard a client-axis cell) by its ``"model"`` axis, the parameters laid
+out by the strategy's specs (``sharding.rules``). Strategies B, B2 and B3
+cut weights over the data axis as well, which a ``ClientMesh`` does not
+realize: their step runs as the one global program on the mesh's first
+device (``Built.mesh`` None). The serving steps run as one program too:
+the port has no model-sharded decode. ``Built.args`` are ``meta``
+tensors of the reference's ``ShapeDtypeStruct`` shapes and dtypes (PRNG
+keys int64 ``[2]``, the port's layout of the reference's uint32 key),
+so evaluating ``fn`` on them allocates nothing; the same builders on a
+mesh of real devices take real tensors of those shapes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..configs.base import INPUT_SHAPES, ArchConfig, InputShape
+from ..core import DFedAvgMConfig, MixingSpec, RoundState, make_round_step
+from ..models import model as M
+from ..models.transformer import torch_dtype
+from ..sharding.rules import (RULES_SERVE, RULES_SERVE_2D, P,
+                              ShardingStrategy, shapes_and_axes,
+                              specs_for_tree, stack_shapes)
+from . import cost_model
+from .mesh import ClientMesh
+
+__all__ = ["Built", "build_train_step",
+           "build_decode_step", "build_prefill_step", "build_step",
+           "skip_reason"]
+
+
+def _sizes(mesh) -> dict[str, int]:
+    return dict(zip(mesh.axis_names, np.asarray(mesh.devices).shape))
+
+
+def _device(mesh) -> torch.device:
+    return torch.device(np.asarray(mesh.devices).flat[0])
+
+
+def _dp_axes(mesh, batch: int) -> tuple[str, ...]:
+    sizes = _sizes(mesh)
+    cands = [a for a in ("pod", "data") if a in sizes]
+    total = int(np.prod([sizes[a] for a in cands])) if cands else 1
+    if cands and batch % total == 0:
+        return tuple(cands)
+    if "data" in sizes and batch % sizes["data"] == 0:
+        return ("data",)
+    return ()
+
+
+def _dp_spec(axes: tuple[str, ...]):
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+@dataclasses.dataclass
+class Built:
+    fn: Any                       # the step: fn(*args)
+    args: tuple                   # meta tensors (lower(*args) in the reference)
+    meta: dict
+    # The client mesh fn runs the train step on (None: one program on
+    # the mesh's first device), and (in_specs, out_specs): the
+    # reference's in_shardings / out_shardings as PartitionSpecs.
+    mesh: ClientMesh | None = None
+    specs: Any = None
+
+
+def _meta_like(t: torch.Tensor, device) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device=device)
+
+
+def _client_mesh(mesh, client_axes: tuple[str, ...]) -> ClientMesh:
+    """The ``ClientMesh`` of ``mesh``'s client axes (their cells
+    row-major, one shard each) by its ``"model"`` axis, on the mesh's
+    first device."""
+    sizes = _sizes(mesh)
+    n_shards = int(np.prod([sizes[a] for a in client_axes]))
+    mp = sizes.get("model", 1)
+    grid = np.empty((n_shards, mp), dtype=object)
+    for i in np.ndindex(grid.shape):
+        grid[i] = _device(mesh)
+    if mp == 1:
+        return ClientMesh(devices=grid[:, 0])
+    return ClientMesh(devices=grid, axis_names=("clients", "model"))
+
+
+def _model_shapes(cfg: ArchConfig) -> tuple[dict, dict]:
+    return shapes_and_axes(lambda k: (M.init_model(k, cfg, device="meta"),
+                                      M.model_axes(cfg)))
+
+
+# ---------------------------------------------------------------------------
+# Training round step (DFedAvgM over the model)
+# ---------------------------------------------------------------------------
+
+def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
+                     strategy: str | None = None,
+                     dfed: DFedAvgMConfig | None = None) -> Built:
+    strat = ShardingStrategy.for_arch(cfg.name, mesh, strategy=strategy)
+    m = strat.num_clients
+    if dfed is None:
+        dfed = DFedAvgMConfig(eta=1e-3, theta=0.9, local_steps=2,
+                              mixer_impl="ring" if strat.client_axes
+                              else "dense")
+    elif not strat.client_axes and dfed.mixer_impl != "dense":
+        # strategy B on a single pod: no client mesh axis -> dense mixer
+        dfed = dataclasses.replace(dfed, mixer_impl="dense")
+    K = dfed.local_steps
+    local_bs = max(1, shape.global_batch // m)
+    seq = shape.seq_len
+    dev = _device(mesh)
+
+    shapes, axes = _model_shapes(cfg)
+    stacked = stack_shapes(shapes, m)
+    pspecs = specs_for_tree(axes, stacked, strat.rules, mesh,
+                            leading_client=strat.client_axes)
+
+    # Strategy A's clients lie on the mesh's client axes; B, B2 and B3
+    # cut weights over "data" too, which a ClientMesh does not realize:
+    # their step is the global program on one device.
+    cmesh = _client_mesh(mesh, strat.client_axes) if strat.name == "A" \
+        else None
+    spec = MixingSpec.ring(m)
+    step = make_round_step(M.make_loss(cfg), dfed, spec, device=dev,
+                           mesh=cmesh,
+                           param_specs=pspecs if cmesh is not None else None,
+                           with_metrics=True)
+
+    sizes = _sizes(mesh)
+    ba = tuple(a for a in strat.batch_axes if a in sizes)
+    smap = None
+    if cfg.n_experts > 0 and ba:
+        # The reference's shard_map'd MoE for a data-sharded batch: one
+        # dispatch group a data shard (models.moe.MOE_SHARD_MAP).
+        smap = (mesh, ba, tuple(a for a in ("model",) if a in sizes))
+
+    def fn(state: RoundState, batches: dict):
+        if cmesh is not None and isinstance(state.params, dict):
+            with cost_model.uncounted():
+                state = state._replace(
+                    params=cmesh.shard(state.params, pspecs))
+        if smap is None:
+            return step(state, batches)
+        from ..models.moe import MOE_SHARD_MAP
+        tok = MOE_SHARD_MAP.set(smap)
+        try:
+            return step(state, batches)
+        finally:
+            MOE_SHARD_MAP.reset(tok)
+
+    fn.step = step              # the round step (its ``local_step`` kind)
+
+    tok_sds = torch.empty((m, K, local_bs, seq), dtype=torch.int32,
+                          device=dev)
+    batch_sds = {"tokens": tok_sds, "targets": _meta_like(tok_sds, dev)}
+    ca = _dp_spec(strat.client_axes)
+    if ba and local_bs % int(np.prod([sizes[a] for a in ba])) != 0:
+        ba = ()
+    bspec = _dp_spec(ba)
+    tok_spec = P(ca, None, bspec, None)
+    batch_specs = {"tokens": tok_spec, "targets": tok_spec}
+    if cfg.frontend is not None:
+        batch_sds["frontend"] = torch.empty(
+            (m, K, local_bs, cfg.frontend_tokens, cfg.d_model),
+            dtype=torch_dtype(cfg.dtype), device=dev)
+        batch_specs["frontend"] = P(ca, None, bspec, None, None)
+
+    state_sds = RoundState(
+        params={n: _meta_like(t, dev) for n, t in stacked.items()},
+        rng=torch.empty((2,), dtype=torch.int64, device=dev),
+        round=torch.empty((), dtype=torch.int32, device=dev))
+    state_specs = RoundState(params=pspecs, rng=P(), round=P())
+    metrics_specs = {"loss": P(), "consensus_dist": P(), "local_drift": P()}
+    meta = dict(kind="train", m=m, K=K, local_bs=local_bs, seq=seq,
+                strategy=strat.name, client_axes=strat.client_axes,
+                tokens_per_step=m * K * local_bs * seq,
+                mixer=(dfed.mixer_config().resolved_impl(spec, cmesh)
+                       if strat.client_axes else "dense"),
+                quant_bits=(dfed.quant.bits if dfed.quant else 32))
+    return Built(fn=fn, args=(state_sds, batch_sds), meta=meta, mesh=cmesh,
+                 specs=((state_specs, batch_specs),
+                        (state_specs, metrics_specs)))
+
+
+# ---------------------------------------------------------------------------
+# Serving: consensus-model prefill / decode
+# ---------------------------------------------------------------------------
+
+def _serve_param_specs(cfg: ArchConfig, mesh, shapes, axes):
+    rules = RULES_SERVE_2D if cfg.name.startswith("mixtral") else RULES_SERVE
+    return specs_for_tree(axes, shapes, rules, mesh, leading_client=None)
+
+
+def _cache_specs(caches_shapes: list, mesh, dp, *,
+                 kv_fallback_headdim: bool = True) -> list:
+    """Stage-aligned cache sharding by leaf name (a stage without a cache
+    keeps None).
+
+    kv_fallback_headdim: when kv_heads doesn't divide the model axis (GQA
+    kv < 16), shard the cache on head_dim instead of replicating it —
+    contraction-dim sharding turns cache-sized all-gathers into
+    score-sized all-reduces.
+    """
+    dps = _dp_spec(dp)
+    model_sz = _sizes(mesh).get("model", 1)
+
+    def by_name(name, leaf):
+        shp = leaf.shape
+        if name == "kpos":
+            return P(*([None] * len(shp)))
+        if name in ("k", "v"):          # [n, b, S, kv, hd] or [b, S, kv, hd]
+            kv, hd = shp[-2], shp[-1]
+            if kv % model_sz == 0:
+                kvs, hds = "model", None
+            elif kv_fallback_headdim and hd % model_sz == 0:
+                kvs, hds = None, "model"
+            else:
+                kvs, hds = None, None
+            if len(shp) == 5:
+                return P(None, dps, None, kvs, hds)
+            return P(dps, None, kvs, hds)   # shared block: unstacked
+        if name in ("conv_x", "conv_B", "conv_C"):   # [n, b, 3, c]
+            c = shp[-1]
+            return P(None, dps, None,
+                     "model" if c % model_sz == 0 else None)
+        if name == "ssm":               # [n, b, h, n_state, p]
+            h = shp[-3]
+            return P(None, dps,
+                     "model" if h % model_sz == 0 else None, None, None)
+        return P(*([None] * len(shp)))
+
+    return [None if c is None else {n: by_name(n, t) for n, t in c.items()}
+            for c in caches_shapes]
+
+
+def _nbytes(caches: list) -> int:
+    return sum(t.numel() * t.element_size() for c in caches
+               if c is not None for t in c.values())
+
+
+def build_decode_step(cfg: ArchConfig, mesh, shape: InputShape, *,
+                      cache_headdim: bool = True) -> Built:
+    from ..models.attention import DECODE_Q_SPEC
+
+    b = shape.global_batch
+    s_alloc = shape.seq_len
+    dp = _dp_axes(mesh, b)
+    dps = _dp_spec(dp)
+    dev = _device(mesh)
+
+    shapes, axes = _model_shapes(cfg)
+    pspecs = _serve_param_specs(cfg, mesh, shapes, axes)
+    params = {n: _meta_like(t, dev) for n, t in shapes.items()}
+
+    caches_shapes = M.init_decode_caches(cfg, b, s_alloc, device="meta")
+    total_cache_bytes = _nbytes(caches_shapes)
+    # hd-sharding only pays when the cache is big (replicating a small
+    # cache is free; hd-sharding it adds score all-reduces).
+    cache_headdim = cache_headdim and total_cache_bytes > 1 << 30
+    cspecs = _cache_specs(caches_shapes, mesh, dp,
+                          kv_fallback_headdim=cache_headdim)
+    caches = [None if c is None else {n: _meta_like(t, dev)
+                                      for n, t in c.items()}
+              for c in caches_shapes]
+
+    needs_cross = cfg.frontend is not None
+    model_sz = _sizes(mesh).get("model", 1)
+    hd_fallback = (cache_headdim and cfg.n_kv_heads
+                   and cfg.n_kv_heads % model_sz != 0
+                   and cfg.head_dim % model_sz == 0)
+    q_hint = P(dps, None, None, None) if hd_fallback else None
+
+    def fn(params, token, pos, caches, cross=None):
+        tok = DECODE_Q_SPEC.set(q_hint)
+        try:
+            return M.decode_step(params, cfg, token, pos, caches,
+                                 cross_states=cross)
+        finally:
+            DECODE_Q_SPEC.reset(tok)
+
+    args = (params, torch.empty((b,), dtype=torch.int32, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev), caches)
+    in_specs = (pspecs, P(dps), P(), cspecs)
+    if needs_cross:
+        args += (torch.empty((b, cfg.frontend_tokens, cfg.d_model),
+                             dtype=torch_dtype(cfg.dtype), device=dev),)
+        in_specs += (P(dps, None, None),)
+    meta = dict(kind="decode", batch=b, s_alloc=s_alloc, dp=dp,
+                tokens_per_step=b, cache_bytes=total_cache_bytes)
+    return Built(fn=fn, args=args, meta=meta,
+                 specs=(in_specs, (P(dps, None), cspecs)))
+
+
+def build_prefill_step(cfg: ArchConfig, mesh, shape: InputShape) -> Built:
+    b = shape.global_batch
+    seq = shape.seq_len
+    dp = _dp_axes(mesh, b)
+    dps = _dp_spec(dp)
+    dev = _device(mesh)
+
+    shapes, axes = _model_shapes(cfg)
+    pspecs = _serve_param_specs(cfg, mesh, shapes, axes)
+    params = {n: _meta_like(t, dev) for n, t in shapes.items()}
+
+    def fn(params, tokens, fe=None):
+        logits, _, _ = M.forward(params, cfg, tokens, frontend_embeds=fe,
+                                 last_only=True)
+        return logits[:, 0]
+
+    args = (params, torch.empty((b, seq), dtype=torch.int32, device=dev))
+    in_specs = (pspecs, P(dps, None))
+    if cfg.frontend is not None:
+        args += (torch.empty((b, cfg.frontend_tokens, cfg.d_model),
+                             dtype=torch_dtype(cfg.dtype), device=dev),)
+        in_specs += (P(dps, None, None),)
+    meta = dict(kind="prefill", batch=b, seq=seq, dp=dp,
+                tokens_per_step=b * seq)
+    return Built(fn=fn, args=args, meta=meta,
+                 specs=(in_specs, P(dps, None)))
+
+
+def build_step(cfg: ArchConfig, mesh, shape_name: str, **kw) -> Built:
+    shape = INPUT_SHAPES[shape_name]
+    if shape.kind == "train":
+        return build_train_step(cfg, mesh, shape, **kw)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, mesh, shape)
+    return build_decode_step(cfg, mesh, shape)
+
+
+def skip_reason(cfg: ArchConfig, shape_name: str) -> str | None:
+    """The reference's skips (its DESIGN.md §5)."""
+    shape = INPUT_SHAPES[shape_name]
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return ("full-attention arch: 512k dense KV decode has no "
+                "sub-quadratic path (DESIGN.md §5)")
+    return None

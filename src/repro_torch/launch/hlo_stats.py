@@ -1,0 +1,117 @@
+"""Collective traffic of a port program (the roofline's collective term)
+— the port of the JAX package's ``launch/hlo_stats.py``.
+
+The reference parses the compiled, SPMD-partitioned HLO text for its
+collectives and reads loop trip counts from the ``while`` conditions.
+The port has no HLO: its cross-device transfers are explicit, and each
+reports itself, while it runs, to every recorder that
+:func:`collect_collectives` holds open:
+
+  * each payload of a gossip round (``core.mixing._exchange``) as a
+    ``collective-permute`` of its bytes;
+  * the column group's operations of the tensor-parallel local step
+    (``sharding.tensor_parallel.ColumnGroup``): ``broadcast`` and
+    ``gather`` as an ``all-gather`` of the tensor every column ends with,
+    ``reduce_sum`` and ``all_sum`` as an ``all-reduce`` of one partial,
+    each with its group size; their backward passes as the adjoint
+    collective (``all-reduce`` for a broadcast's, ``all-gather`` for a
+    ``reduce_sum``'s, ``all-reduce`` for an ``all_sum``'s,
+    ``reduce-scatter`` of a slice for a gather's).
+
+A recorder sees every trip of every loop, so no trip-count pass (the
+reference's ``collect_collectives_looped``) has a counterpart, and the
+text parser is not ported. Each op is sized by the reference's ring
+formulas (:func:`_wire_bytes`, per participating device) and recorded
+as the bytes all its participants send: ``g`` times the formula for a
+group op, the payload once for a permute. ``wire_bytes`` is therefore
+the whole mesh's send volume; a device's share is ``wire_bytes /
+n_devices``. Transfers the port makes outside these (joining a row's
+cells for an opaque loss, a metric's mean over the shards) are not
+recorded.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from collections import defaultdict
+
+__all__ = ["CollectiveStats", "collect_collectives", "record",
+           "traced_flops"]
+
+# The open recorders (CollectiveStats), innermost last.
+RECORDERS: list = []
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    wire_bytes: float = 0.0
+    by_kind: dict = dataclasses.field(
+        default_factory=lambda: defaultdict(float))
+    counts: dict = dataclasses.field(
+        default_factory=lambda: defaultdict(int))
+    per_op: list = dataclasses.field(default_factory=list)
+    # (kind, wire_bytes) per op in program order — lets callers separate
+    # payload-sized permutes from small ones
+
+
+def _wire_bytes(kind: str, result_bytes: int, g: int) -> float:
+    g = max(g, 1)
+    if kind == "all-gather":
+        return result_bytes * (g - 1) / g
+    if kind == "reduce-scatter":
+        return result_bytes * (g - 1)
+    if kind == "all-reduce":
+        return 2.0 * result_bytes * (g - 1) / g
+    if kind == "all-to-all":
+        return result_bytes * (g - 1) / g
+    if kind == "collective-permute":
+        return float(result_bytes)
+    return float(result_bytes)
+
+
+def record(kind: str, result_bytes: int, g: int) -> None:
+    """Record one collective of ``kind`` over ``g`` devices whose result
+    (per device) is ``result_bytes``, in every open recorder."""
+    if not RECORDERS:
+        return
+    senders = 1 if kind == "collective-permute" else max(g, 1)
+    wb = senders * _wire_bytes(kind, result_bytes, g)
+    for stats in RECORDERS:
+        stats.wire_bytes += wb
+        stats.by_kind[kind] += wb
+        stats.counts[kind] += 1
+        stats.per_op.append((kind, wb))
+
+
+def replay(kind: str, wire_bytes: float) -> None:
+    """Record again an op an open recorder saw (``per_op``'s ``(kind,
+    wire_bytes)``): ``cost_model.repeats_on_meta``'s replay of a call."""
+    for stats in RECORDERS:
+        stats.wire_bytes += wire_bytes
+        stats.by_kind[kind] += wire_bytes
+        stats.counts[kind] += 1
+        stats.per_op.append((kind, wire_bytes))
+
+
+@contextlib.contextmanager
+def collect_collectives():
+    """Record the collectives run inside the ``with`` block; yields the
+    :class:`CollectiveStats` they fill."""
+    stats = CollectiveStats()
+    RECORDERS.append(stats)
+    try:
+        yield stats
+    finally:                          # by identity: equal stats may be open
+        RECORDERS[:] = [r for r in RECORDERS if r is not stats]
+
+
+def traced_flops(fn, *args, matmul_only: bool = False) -> float:
+    """FLOP count of ``fn(*args)`` (args may be tensors or ``meta``
+    tensors); ``matmul_only``: its matmul and convolution FLOPs alone.
+    Thin forwarding of ``cost_model.structural_costs`` so compute-skip
+    assertions live next to the other accounting — e.g. gating inactive
+    clients' local SGD out of the round step must show up here as a
+    ~k/m FLOP reduction."""
+    from .cost_model import structural_costs
+    costs = structural_costs(fn, *args)
+    return costs.matmul_flops if matmul_only else costs.flops

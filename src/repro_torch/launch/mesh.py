@@ -19,8 +19,13 @@ cell, row-major (one a shard on a 1D mesh): :meth:`ClientMesh.shard` and
 reference takes distinct accelerators; ``make_test_mesh`` builds a mesh
 whose cells may repeat one device (the CPU in tests, one card in
 ``chip_smoke.py``) — the port's counterpart of the reference tests'
-``--xla_force_host_platform_device_count``. The TPU roofline constants
-are not ported.
+``--xla_force_host_platform_device_count``.
+
+``make_production_mesh`` is the reference's 256- and 512-chip
+deployment meshes as a stand-in of ``meta`` cells (``launch.build``
+maps its client axes onto a ``ClientMesh``), and the roofline constants
+are the H100's (NVIDIA H100 80GB HBM3, SXM, 700 W), not the reference's
+v5e numbers.
 """
 from __future__ import annotations
 
@@ -38,8 +43,18 @@ CPU_BUDGET_BYTES = 2 << 30
 
 Params = dict[str, torch.Tensor]
 
-__all__ = ["ClientMesh", "make_client_mesh", "make_test_mesh",
-           "resident_lane_capacity"]
+__all__ = ["ClientMesh", "ProductionMesh", "make_client_mesh",
+           "make_named_mesh", "make_production_mesh", "make_test_mesh",
+           "resident_lane_capacity",
+           "HBM_BW", "PEAK_FLOPS_BF16", "NVLINK_BW"]
+
+# NVIDIA H100 80GB HBM3 (SXM, 700 W) roofline constants, from NVIDIA's
+# H100 datasheet: per card, and per direction of its NVLink 4 links. The
+# reference's ``ICI_BW`` (a v5e ICI link) is the constant NVLINK_BW
+# stands for in the collective term.
+HBM_BW = 3.35e12                # B/s
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense
+NVLINK_BW = 450e9               # B/s, one direction
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -108,6 +123,35 @@ class ClientMesh:
         grid = _mesh_grid(self)
         return join_lanes(join_columns(cells, _column_dims(self, specs),
                                        grid), grid[0, 0])
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProductionMesh:
+    """A deployment mesh's shape without its chips: ``devices`` an object
+    array of ``meta`` devices, ``axis_names`` the reference's names. Read
+    as the reference reads a ``jax.sharding.Mesh`` (``devices.shape``,
+    ``axis_names``, ``devices.size``)."""
+
+    devices: np.ndarray
+    axis_names: tuple
+
+
+def make_named_mesh(shape, axes, device="meta") -> ProductionMesh:
+    """A mesh of ``shape`` under ``axes`` whose cells all lie on
+    ``device`` (the reference's host-device test mesh, ``(4, 2)``
+    ``("data", "model")``, on one card or on ``meta``)."""
+    devs = np.empty(tuple(shape), dtype=object)
+    for i in np.ndindex(devs.shape):
+        devs[i] = torch.device(device)
+    return ProductionMesh(devices=devs, axis_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """Single pod: 256 chips (16, 16) ("data", "model").
+    Multi-pod: 2 pods = 512 chips (2, 16, 16) ("pod", "data", "model")."""
+    if multi_pod:
+        return make_named_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_named_mesh((16, 16), ("data", "model"))
 
 
 def make_test_mesh(n_shards: int, device=None,

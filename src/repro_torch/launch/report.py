@@ -12,8 +12,14 @@ reference):
              error vs the Assumption-4 bound, staleness P50/P99, and the
              host-stage wall-time breakdown from the trace. Every record
              is validated against the schema on the way in.
-  roofline   the roofline table from the dry-run's JSONs, which need
-             ``launch/dryrun.py``: not ported yet (ROADMAP A19).
+  roofline   the roofline table from the dry-run's records
+             (``experiments/dryrun_torch/*.json``, written by
+             ``python -m repro_torch.launch.dryrun``):
+               python -m repro_torch.launch.report \\
+                   [--tag baseline] [--mesh 16x16]
+             A null collective term (``launch.dryrun``) shows as a dash;
+             the note column gives the structural evaluation's seconds
+             (a record with the reference's ``compile_s`` shows that).
 """
 from __future__ import annotations
 
@@ -21,7 +27,51 @@ import argparse
 import json
 from pathlib import Path
 
-__all__ = ["telemetry_report", "main"]
+__all__ = ["load", "markdown_table", "telemetry_report", "main"]
+
+OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
+
+
+def load(tag: str | None = None, mesh: str | None = None) -> list[dict]:
+    recs = []
+    for f in sorted(OUT_DIR.glob("*.json")):
+        r = json.loads(f.read_text())
+        if tag and r.get("tag") != tag:
+            continue
+        if mesh and r.get("mesh") != mesh:
+            continue
+        recs.append(r)
+    return recs
+
+
+def fmt_ms(s: float | None) -> str:
+    return "—" if s is None else f"{s*1e3:.1f}"
+
+
+def markdown_table(recs: list[dict]) -> str:
+    hdr = ("| arch | shape | mesh | tag | compute ms | memory ms | "
+           "collective ms | dominant | useful | wire GB/dev | note |")
+    sep = "|" + "---|" * 11
+    lines = [hdr, sep]
+    for r in recs:
+        if r.get("skipped"):
+            lines.append(
+                f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                f"{r.get('tag','')} | — | — | — | — | — | — | "
+                f"SKIP: {r['skipped'][:60]} |")
+            continue
+        t = r["roofline"]
+        uf = r.get("useful_flops_ratio")
+        coll = r.get("collective_looped")
+        wire = "—" if coll is None else f"{coll['wire_bytes'] / 1e9:.2f}"
+        note = (f"compile {r['compile_s']}s" if "compile_s" in r
+                else f"struct {r.get('struct_s')}s")
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['tag']} | "
+            f"{fmt_ms(t['compute_s'])} | {fmt_ms(t['memory_s'])} | "
+            f"{fmt_ms(t['collective_s'])} | {r['dominant'][:-2]} | "
+            f"{uf and round(uf, 2)} | {wire} | {note} |")
+    return "\n".join(lines)
 
 
 def _percentile(sorted_vals: list[float], q: float) -> float:
@@ -123,13 +173,12 @@ def main(argv=None):
     ap.add_argument("--trace", default=None,
                     help="telemetry mode: the run's Chrome trace")
     args = ap.parse_args(argv)
-    if args.mode == "roofline":
-        raise NotImplementedError("the roofline report reads the dry-run's "
-                                  "outputs (launch/dryrun.py), not ported "
-                                  "yet (ROADMAP A19)")
-    if not args.jsonl:
-        ap.error("telemetry mode needs --jsonl")
-    print(telemetry_report(args.jsonl, args.trace))
+    if args.mode == "telemetry":
+        if not args.jsonl:
+            ap.error("telemetry mode needs --jsonl")
+        print(telemetry_report(args.jsonl, args.trace))
+    else:
+        print(markdown_table(load(args.tag, args.mesh)))
 
 
 if __name__ == "__main__":

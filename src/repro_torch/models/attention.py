@@ -6,9 +6,10 @@ The score computation is *streaming*: an online softmax over KV chunks of
 queries in blocks of ``Q_CHUNK``, so peak memory is bounded by chunk-sized
 buffers instead of an [L, L] score matrix. The math is the reference's,
 written with ``torch.einsum``; a fused attention kernel is later work.
-The reference's ``DECODE_Q_SPEC`` is a sharding hint for a head_dim-
-sharded cache on a mesh (ROADMAP A17): one card has no mesh, so it has
-no counterpart here.
+``DECODE_Q_SPEC`` is the reference's sharding hint for the decode query
+of a head_dim-sharded cache (``launch.build.build_decode_step`` sets it,
+as the reference's does). It is a layout that changes no value: the port
+accepts it and reads it nowhere.
 
 Activations carry the client axis m in front (``[m, b, L, ...]``); the
 streaming core folds it into the batch (the clients never interact), and
@@ -33,6 +34,7 @@ decode in step, so one ``kpos`` serves them all.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 
 import torch
@@ -40,6 +42,9 @@ import torch.nn.functional as F
 
 from .. import prng
 from .layers import Params, apply_rope, dense_init, mm, rms_norm_headdim
+
+DECODE_Q_SPEC: contextvars.ContextVar = contextvars.ContextVar(
+    "DECODE_Q_SPEC", default=None)
 
 _EMPTY = -(2 ** 30)
 KV_CHUNK = 1024

@@ -12,9 +12,25 @@ Tie rule: ``jax.lax.top_k`` breaks ties towards the lower expert index;
 here a stable descending sort of the router probabilities does the same
 on the CPU and the card (``torch.topk`` promises no order among ties).
 
-The reference's ``MOE_GROUPS`` (GShard-style dispatch groups) and
-``MOE_SHARD_MAP`` (the shard_map MoE) are mesh layouts set by
-``launch/build.py`` (ROADMAP A17); one card runs the one-group path.
+Two context variables change the grouping, as the reference's do:
+
+* ``MOE_GROUPS`` ``(g, hint)``: each client's t tokens route in g
+  GShard-style dispatch groups of t/g (capacity and ranking per group;
+  the load-balance loss pools a client's tokens over its groups, as the
+  reference's mean over ``(0, 1)`` does). ``hint`` is the reference's
+  sharding constraint on the grouped tokens, a layout that changes no
+  value; it is accepted and not used. Nothing sets it in the reference
+  (its docstring says ``launch.build`` does); ``launch.build`` does not
+  here either.
+* ``MOE_SHARD_MAP`` ``(mesh, data_axes, model_axes)``: the grouping the
+  reference's ``shard_map`` MoE computes, one dispatch group a data
+  shard (g the data axes' size), each group's load-balance loss its own
+  and the client's the mean of its groups' (the reference's ``pmean``).
+  It applies where the reference's does (g > 1, g divides t, the model
+  axes divide ``moe_d_ff``), else the path above runs.
+  ``launch.build`` sets it for a train step with a data-sharded batch
+  (strategies B2 and B3). The port has no data-sharded batch to run it
+  on, so it realizes the numerics on the one program it runs.
 
 Load-balance auxiliary loss: Switch-style ``E * sum_e f_e * p_e``, one a
 client.
@@ -34,11 +50,19 @@ and the buffers' partials are summed at home before the combine.
 """
 from __future__ import annotations
 
+import contextvars
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import prng
 from .layers import Params, dense_init
+
+MOE_GROUPS: contextvars.ContextVar = contextvars.ContextVar(
+    "MOE_GROUPS", default=None)
+MOE_SHARD_MAP: contextvars.ContextVar = contextvars.ContextVar(
+    "MOE_SHARD_MAP", default=None)
 
 
 def init_moe(key: torch.Tensor, d_model: int, n_experts: int, d_ff: int,
@@ -67,9 +91,47 @@ def apply_moe(params: Params, x: torch.Tensor, *, top_k: int,
     """x: [m, b, l, d]. Returns (out [m, b, l, d], load-balance loss [m]).
     ``tp``: a column group, the experts' leaves cut (module docstring)."""
     m, b, l, d = x.shape
-    out, aux = moe_grouped(params, x.reshape(m, b * l, d), top_k=top_k,
-                           capacity_factor=capacity_factor, tp=tp)
+    t = b * l
+    g, pooled = _grouping(params, t)
+    out, aux = moe_grouped(params, x.reshape(m * g, t // g, d), top_k=top_k,
+                           capacity_factor=capacity_factor, tp=tp, groups=g,
+                           pool_aux=pooled)
     return out.reshape(m, b, l, d), aux
+
+
+def _moe_d_ff(params: Params) -> int:
+    """The experts' full hidden width, also from a column group's view
+    (``wg`` a list of slices: cut on the experts or on ``moe_d_ff``)."""
+    wg = params["wg"]
+    if not isinstance(wg, list):
+        return wg.shape[-1]
+    router = params["router"]
+    e = (sum(r.shape[-1] for r in router) if isinstance(router, list)
+         else router.shape[-1])
+    return (sum(w.shape[-1] for w in wg) if wg[0].shape[1] == e
+            else wg[0].shape[-1])
+
+
+def _grouping(params: Params, t: int) -> tuple[int, bool]:
+    """The dispatch groups a client's t tokens route in, and whether its
+    load-balance loss pools its groups (``MOE_GROUPS``) or averages
+    their own (``MOE_SHARD_MAP``): (1, True) when neither applies."""
+    smap = MOE_SHARD_MAP.get()
+    if smap is not None:
+        mesh, data_axes, model_axes = smap
+        sizes = dict(zip(mesh.axis_names, np.asarray(mesh.devices).shape))
+        g = int(np.prod([sizes[a] for a in data_axes])) if data_axes else 1
+        msz = int(np.prod([sizes[a] for a in model_axes])) \
+            if model_axes else 1
+        f = _moe_d_ff(params)
+        if g > 1 and t % g == 0 and f % msz == 0:
+            return g, False
+    grouping = MOE_GROUPS.get()
+    if grouping is not None:
+        gg, _hint = grouping
+        if t % gg == 0 and t // gg > 0:
+            return gg, True
+    return 1, True
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -78,18 +140,32 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[:, :, None].expand(-1, -1, x.shape[-1]))
 
 
-def _router_logits(xg: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("gtd,gde->gte", xg.to(torch.float32),
-                        router.to(torch.float32))
+def _router_logits(xg: torch.Tensor, router: torch.Tensor,
+                   groups: int = 1) -> torch.Tensor:
+    """xg [m * groups, tg, d] against each client's router [m, d, e]."""
+    g, tg, d = xg.shape
+    x = xg.reshape(-1, groups * tg, d) if groups > 1 else xg
+    logits = torch.einsum("gtd,gde->gte", x.to(torch.float32),
+                          router.to(torch.float32))
+    return logits.reshape(g, tg, -1) if groups > 1 else logits
 
 
 def _experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-             wd: torch.Tensor) -> torch.Tensor:
-    """The experts' SwiGLU, batched over groups x experts: buf [g, e,
-    cap, d] -> [g, e, cap, d]."""
+             wd: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """The experts' SwiGLU, batched over groups x experts: buf [m *
+    groups, e, cap, d] -> the same shape, each client's groups through
+    its own experts (w* [m, e, ...])."""
+    g, e, cap, d = buf.shape
+    if groups > 1:        # a client's groups side by side in its slots
+        buf = buf.reshape(-1, groups, e, cap, d).transpose(1, 2).reshape(
+            -1, e, groups * cap, d)
     hg = torch.einsum("gecd,gedf->gecf", buf, wg)
     hu = torch.einsum("gecd,gedf->gecf", buf, wu)
-    return torch.einsum("gecf,gefd->gecd", F.silu(hg) * hu, wd)
+    out = torch.einsum("gecf,gefd->gecd", F.silu(hg) * hu, wd)
+    if groups > 1:
+        out = out.reshape(-1, e, groups, cap, d).transpose(1, 2).reshape(
+            g, e, cap, d)
+    return out
 
 
 def _dispatch(xg: torch.Tensor, src_tok: torch.Tensor,
@@ -118,9 +194,13 @@ def _combine(out_buf: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
 
 
 def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
-                capacity_factor: float, tp=None
+                capacity_factor: float, tp=None, groups: int = 1,
+                pool_aux: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Route grouped tokens. xg: [g, tg, d] -> ([g, tg, d], aux [g]).
+    """Route grouped tokens. xg: [m * groups, tg, d], each client's
+    ``groups`` dispatch groups in a row, the params one a client ->
+    ([m * groups, tg, d], aux [m]): a client's load-balance loss pools
+    its groups' tokens (``pool_aux``) or is the mean of its groups' own.
     ``tp``: a column group, the experts' leaves cut (module docstring)."""
     g, tg, d = xg.shape
     k = top_k
@@ -132,10 +212,10 @@ def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
     xs = tp.broadcast(xg) if experts_cut else None
 
     if experts_cut:                   # each column its experts' logits
-        logits = tp.gather([_router_logits(xc, r)
+        logits = tp.gather([_router_logits(xc, r, groups)
                             for xc, r in zip(xs, router)], dim=-1)
     else:
-        logits = _router_logits(xg, router)
+        logits = _router_logits(xg, router, groups)
     e = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1)                     # [g, tg, e]
     gate_vals, idx = router_top_k(probs, k)                  # [g, tg, k]
@@ -143,9 +223,13 @@ def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
         gate_vals.sum(-1, keepdim=True), min=1e-9)
 
     # ---- load-balance loss (Switch): E * sum_e f_e * p_e ---------------
-    me = probs.mean(dim=1)                                    # [g, e]
-    ce = F.one_hot(idx[..., 0], e).to(torch.float32).mean(dim=1)
+    pool = groups if pool_aux else 1
+    me = probs.reshape(-1, pool * tg, e).mean(dim=1)
+    ce = F.one_hot(idx[..., 0], e).to(torch.float32).reshape(
+        -1, pool * tg, e).mean(dim=1)
     aux = e * (me * ce).sum(dim=-1)
+    if not pool_aux and groups > 1:
+        aux = aux.reshape(-1, groups).mean(dim=1)
 
     # ---- capacity & ranking (per group) ---------------------------------
     cap = max(1, int(capacity_factor * k * tg / e))
@@ -181,7 +265,7 @@ def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
                             valid[:, lo:lo + el].to(cd))
             mine = (flat_e >= lo) & (flat_e < lo + el)
             parts.append(_combine(
-                _experts(buf, *w), torch.where(mine, slot - lo * cap,
+                _experts(buf, *w, groups), torch.where(mine, slot - lo * cap,
                                                0).to(cd),
                 (keep & mine).to(cd), gv, tg))
         out = tp.reduce_sum(parts)
@@ -190,9 +274,11 @@ def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
         if tp is not None and isinstance(params["wd"], list):
             # moe_d_ff cut: column-parallel wg / wu, row-parallel wd
             out_buf = tp.reduce_sum([
-                _experts(bc, *(params[n][c] for n in ("wg", "wu", "wd")))
+                _experts(bc, *(params[n][c] for n in ("wg", "wu", "wd")),
+                         groups)
                 for c, bc in enumerate(tp.broadcast(buf))])
         else:
-            out_buf = _experts(buf, params["wg"], params["wu"], params["wd"])
+            out_buf = _experts(buf, params["wg"], params["wu"], params["wd"],
+                               groups)
         out = _combine(out_buf, slot, keep, gate_vals, tg)
     return out.to(xg.dtype), aux

@@ -94,8 +94,8 @@ def _dense_columns(group, h, w, b, dim):
     narrowed to it), a row-cut w (dim 1) sums the columns' partials at
     home, a replicated w runs at home. ``h`` is a home tensor or the
     columns' slices of its features; a cut bias that meets a home sum
-    is gathered."""
-    full = h if not isinstance(h, list) else group.gather(h, -1)
+    is gathered (a row-cut w reads h's slices, and gathers nothing)."""
+    full = group.gather(h, -1) if isinstance(h, list) and dim != 1 else h
     if dim == 2:
         out = []
         bs = b if isinstance(b, list) else group.broadcast(b)

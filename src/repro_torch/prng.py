@@ -92,26 +92,12 @@ def _counters(shape, device) -> tuple[torch.Tensor, torch.Tensor]:
     return idx >> 32, idx & MASK32
 
 
-def _meta(key: torch.Tensor) -> bool:
-    """A key on the ``meta`` device: its draws are empty ``meta`` tensors
-    of their shapes and dtypes (:func:`_shaped`; no kernel, no plain
-    version, nothing allocated) — how ``sharding.shapes_and_axes``
-    evaluates an init."""
-    return key.device.type == "meta"
-
-
-def _shaped(lead, shape, dtype=torch.int64) -> torch.Tensor:
-    return torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
-                       device="meta")
-
-
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): key ``[..., 2]`` ->
     ``[..., num, 2]``. Leading key dims batch independent splits. On the
     card one T1 launch; on the CPU :func:`split_plain` (a ``meta`` key:
-    the shape alone, :func:`_meta`)."""
-    if _meta(key):
-        return _shaped(key.shape[:-1], (num, 2))
+    an empty ``meta`` tensor of the shape, no kernel and no plain
+    version; so for every draw below)."""
     from .kernels import threefry
     return threefry.split(key.contiguous(), num)
 
@@ -136,11 +122,6 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     taken modulo 2^32, as jax's uint32 conversion does): one key ``[2]``
     or ``n`` keys ``[n, 2]`` -> ``[n, 2]``, the ``vmap`` of ``fold_in``
     over the data (and the keys) in one T1 launch."""
-    if _meta(key):
-        lead = key.shape[:-1]
-        if isinstance(data, torch.Tensor) and key.dim() == 1:
-            lead = data.shape
-        return _shaped(lead, (2,))
     from .kernels import threefry
     if isinstance(data, torch.Tensor):
         return threefry.fold_in(key.contiguous(), data.contiguous())
@@ -174,8 +155,6 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """32-bit ``jax.random.bits``: key ``[..., 2]`` -> ``[..., *shape]``
     int64 values in [0, 2^32). On the card one T3 launch; on the CPU
     :func:`random_bits_plain`."""
-    if _meta(key):
-        return _shaped(key.shape[:-1], shape)
     from .kernels import threefry
     return threefry.bits(key.contiguous(), shape)
 
@@ -196,8 +175,6 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)`` on [0, 1): key
     ``[..., 2]`` -> f32 ``[..., *shape]``. On the card one T2 launch; on
     the CPU :func:`uniform_plain`."""
-    if _meta(key):
-        return _shaped(key.shape[:-1], shape, torch.float32)
     from .kernels import threefry
     return threefry.uniform(key.contiguous(), shape)
 
@@ -221,8 +198,6 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: key ``[..., 2]`` -> f32
     ``[..., *shape]``. On the card one T4 launch; on the CPU
     :func:`normal_plain`."""
-    if _meta(key):
-        return _shaped(key.shape[:-1], shape, torch.float32)
     from .kernels import threefry
     return threefry.normal(key.contiguous(), shape)
 

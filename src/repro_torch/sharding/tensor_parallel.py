@@ -24,7 +24,10 @@ carries gradients across devices:
 
 The reference leaves this step to GSPMD, which partitions the whole
 model's step over the ``"model"`` axis (``launch/train.py``); the port
-writes the partition by hand for the losses that carry a form.
+writes the partition by hand for the losses that carry a form. Each
+operation but ``slice`` (whose home tensor the reference's program holds
+replicated, with no collective) records the collective it stands for,
+and its backward pass the adjoint one, in ``launch.hlo_stats``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ import dataclasses
 from typing import Callable, Sequence
 
 import torch
+
+from ..launch import hlo_stats
 
 Params = dict[str, torch.Tensor]
 
@@ -45,17 +50,34 @@ class _Broadcast(torch.autograd.Function):
     x's device in the order of the devices."""
 
     @staticmethod
-    def forward(ctx, x, devs):
+    def forward(ctx, x, devs, record):
         ctx.home = x.device
+        ctx.record = record
         return tuple(x.view_as(x) if torch.device(d) == x.device
                      else x.to(d) for d in devs)
 
     @staticmethod
     def backward(ctx, *grads):
+        if ctx.record:
+            hlo_stats.record("all-reduce", _nbytes(grads[0]), len(grads))
         acc = grads[0].to(ctx.home)
         for g in grads[1:]:
             acc = acc + g.to(ctx.home)
-        return acc, None
+        return acc, None, None
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _on_backward(t: torch.Tensor, kind: str, result_bytes: int, g: int
+                 ) -> torch.Tensor:
+    """Record ``kind`` when the gradient of ``t`` passes (a no-op for a
+    tensor that needs none)."""
+    if t.requires_grad and hlo_stats.RECORDERS:
+        t.register_hook(lambda grad: hlo_stats.record(kind, result_bytes,
+                                                      g))
+    return t
 
 
 class ColumnGroup:
@@ -79,12 +101,20 @@ class ColumnGroup:
 
     def broadcast(self, x: torch.Tensor) -> list[torch.Tensor]:
         """A home tensor on every column (its backward sums the columns'
-        gradients at home, in column order)."""
-        return list(_Broadcast.apply(x, tuple(self.devices)))
+        gradients at home, in column order): an ``all-gather`` of x, its
+        backward an ``all-reduce``."""
+        hlo_stats.record("all-gather", _nbytes(x), self.mp)
+        return list(_Broadcast.apply(x, tuple(self.devices), True))
 
     def reduce_sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The columns' partials added at home in column order (in f32
-        for a narrower float type, rounded once at the end)."""
+        for a narrower float type, rounded once at the end): an
+        ``all-reduce`` of one partial, its backward an ``all-gather``."""
+        hlo_stats.record("all-reduce", _nbytes(parts[0]), self.mp)
+        return _on_backward(self._sum(parts), "all-gather",
+                            _nbytes(parts[0]), self.mp)
+
+    def _sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         dtype = parts[0].dtype
         narrow = dtype in (torch.bfloat16, torch.float16)
         acc = parts[0].to(self.home)
@@ -94,13 +124,22 @@ class ColumnGroup:
         return acc.to(dtype) if narrow else acc
 
     def all_sum(self, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        """:meth:`reduce_sum` of the columns' partials, on every column."""
-        return self.broadcast(self.reduce_sum(parts))
+        """:meth:`reduce_sum` of the columns' partials, on every column:
+        one ``all-reduce``, its backward one more."""
+        hlo_stats.record("all-reduce", _nbytes(parts[0]), self.mp)
+        total = _on_backward(self._sum(parts), "all-reduce",
+                             _nbytes(parts[0]), self.mp)
+        return list(_Broadcast.apply(total, tuple(self.devices), False))
 
     def gather(self, parts: Sequence[torch.Tensor], dim: int
                ) -> torch.Tensor:
-        """Cut slices concatenated along ``dim`` at home."""
-        return torch.cat([p.to(self.home) for p in parts], dim=dim)
+        """Cut slices concatenated along ``dim`` at home: an
+        ``all-gather`` of the whole, its backward a ``reduce-scatter`` of
+        one slice."""
+        out = torch.cat([p.to(self.home) for p in parts], dim=dim)
+        hlo_stats.record("all-gather", _nbytes(out), self.mp)
+        return _on_backward(out, "reduce-scatter", _nbytes(parts[0]),
+                            self.mp)
 
     def slice(self, x: torch.Tensor, dim: int) -> list[torch.Tensor]:
         """A home tensor cut along ``dim`` into mp equal parts, part c on

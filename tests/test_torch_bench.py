@@ -10,8 +10,9 @@ bench's lambda rows are the reference's, the time-varying rows bill the
 reference's schedule bits, the async row has the reference's fields and
 the pool bench (``bench_pool.py``) reports its pooled arm bitwise with
 the resident one, billed and FLOP-counted equal, and the rows of
-``bench_mia.py``, ``bench_comm_cost.py`` and ``bench_kernels.py``
-(``tests/test_torch_bench_ride_alongs.py`` holds their values); a
+``bench_mia.py``, ``bench_comm_cost.py``, ``bench_kernels.py``
+(``tests/test_torch_bench_ride_alongs.py`` holds their values) and
+``bench_roofline.py`` (``tests/test_torch_dryrun.py`` holds its rows); a
 two-round Fig. 6
 DFedAvgM arm tracks the reference's. A failing bench makes the runner
 exit non-zero.
@@ -31,8 +32,8 @@ from repro.configs import list_archs as j_list_archs  # noqa: E402
 from repro.core import MixingSpec as JMixingSpec  # noqa: E402
 from repro.core import comm_cost as jcc  # noqa: E402
 from repro_torch.bench import (async_compare, charlm, cnn,  # noqa: E402
-                               fig6_compare, pool, quant_epochs, timevarying,
-                               topology)
+                               fig6_compare, pool, quant_epochs, roofline,
+                               timevarying, topology)
 from repro_torch.bench import run as bench_run  # noqa: E402
 from repro_torch.bench.common import timed, timeit_best  # noqa: E402
 
@@ -70,6 +71,11 @@ def reference_rows():
     names += [f"kernels/{k}" for k in (
         "encode_ref/b8", "dequant_mix_ref/b8", "encode_ref/b4",
         "dequant_mix_ref/b4", "momentum_ref")]
+    # bench_roofline: the fused round's rows from the gossip JSON the
+    # smoke run wrote, then (no dry-run records) its pointer row.
+    names += ["roofline/round_unfused_b8", "roofline/round_fused_b8",
+              "roofline/round_tail_kernels_fused_vs_unfused",
+              "roofline/no-dryrun-data"]
     return names
 
 
@@ -84,7 +90,9 @@ MESH_ROW_FIELDS = {
         "boundary_lanes", "realized_wire_bits"},
     "gossip_mesh2d_vs_1d_b8": {"mp", "wire2dB", "wire1dB", "ratio",
                                "fp32_ratio"},
-    "round_fused_vs_unfused_b8": {"unfused_us", "speedup", "bytes_min"},
+    "round_fused_vs_unfused_b8": {"unfused_us", "speedup", "fused_roofline",
+                                  "unfused_roofline", "bytes_saved_frac",
+                                  "bytes_min"},
     "placement_er_partition_vs_contiguous": _LANES,
     "placement_ring_chords_partition_vs_contiguous": _LANES}
 
@@ -144,6 +152,7 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys, monkeypatch,
     monkeypatch.setattr(async_compare, "OUT_JSON", tmp_path / "a.json")
     monkeypatch.setattr(pool, "OUT_JSON", tmp_path / "p.json")
     monkeypatch.setattr(timevarying, "GOSSIP_JSON", tmp_path / "g.json")
+    monkeypatch.setattr(roofline, "OUT", tmp_path / "dryrun_torch")
     assert bench_run.main(["--smoke", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "name,us_per_call,derived"
@@ -185,6 +194,16 @@ def test_smoke_run_gives_the_reference_rows_and_bits(capsys, monkeypatch,
                                     "saving"}), name
             if name.startswith("mia/"):
                 assert 0.0 <= float(fields["auc"]) <= 1.0, name
+            continue
+        if name.startswith("roofline/"):  # bench_roofline's rows
+            if name == "roofline/no-dryrun-data":
+                assert float(us) == 0.0, derived
+                continue
+            fields = dict(f.split("=") for f in derived.split(";"))
+            assert float(us) > 0, name
+            assert set(fields) == (
+                {"unfused_bytes", "saved_frac"} if "tail" in name
+                else {"bytes_moved", "bytes_min", "us"}), name
             continue
         if name.startswith("kernels/"):   # the plain versions, timed
             assert float(us) > 0 and derived in {

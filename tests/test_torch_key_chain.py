@@ -131,8 +131,9 @@ def test_static_buffers_take_only_their_own_shape_and_dtype():
 def test_cpu_keys_take_the_plain_versions(monkeypatch):
     """On the CPU ``prng.split`` / ``prng.uniform`` are exactly their plain
     versions (also for a key that is not contiguous), which stay bitwise
-    with ``jax.random.split`` / ``uniform``; the kernel wrappers refuse a
-    key that is neither on the CPU nor on a card, and count no launch."""
+    with ``jax.random.split`` / ``uniform``; the kernel wrappers answer a
+    ``meta`` key (the dry-run's) with empty ``meta`` outputs of their
+    kernels' shapes and dtypes, and count no launch."""
     from repro_torch.kernels import native, threefry
 
     keys = prng.split_plain(prng.PRNGKey(7), 6)[::2]     # [3, 2], strided
@@ -152,9 +153,13 @@ def test_cpu_keys_take_the_plain_versions(monkeypatch):
                           np.asarray(want).view(np.int32))
     assert calls == ["split_plain", "uniform_plain"]
     before = dict(native.LAUNCHES)
-    for fn, arg in ((threefry.split, 2), (threefry.uniform, (3,))):
-        with pytest.raises(ValueError, match="CUDA"):
-            fn(prng.PRNGKey(1).to("meta"), arg)
+    key = prng.PRNGKey(1).to("meta")
+    for fn, arg, shape, dtype in (
+            (threefry.split, 2, (2, 2), torch.int64),
+            (threefry.uniform, (3,), (3,), torch.float32)):
+        out = fn(key, arg)
+        assert (out.device.type, tuple(out.shape), out.dtype) == (
+            "meta", shape, dtype)
     assert native.LAUNCHES == before
 
 

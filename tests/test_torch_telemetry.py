@@ -507,10 +507,12 @@ def test_timeit_best_call_index_and_carry():
 
 # -- the run log's check and report ---------------------------------------
 
-def test_check_schema_and_report(tmp_path, capsys):
+def test_check_schema_and_report(tmp_path, capsys, monkeypatch):
     """A pooled run written through RunLog with an enabled tracer: the
     log passes ``check_schema`` (exit 0), the report renders it with the
-    trace's stage breakdown; a broken log exits 1, no log 2."""
+    trace's stage breakdown; a broken log exits 1, no log 2; the
+    roofline mode renders the dry-run's table (no records: its
+    header)."""
     from repro_torch.launch import report
     from repro_torch.telemetry import check_schema
 
@@ -544,8 +546,13 @@ def test_check_schema_and_report(tmp_path, capsys):
     bad.write_text(path.read_text().splitlines()[1] + "\n")
     assert check_schema.main([str(bad)]) == 1
     assert check_schema.main([]) == 2
-    with pytest.raises(NotImplementedError, match="A19"):
-        report.main(["roofline"])
+    monkeypatch.setattr(report, "OUT_DIR", tmp_path / "dryrun_torch")
+    capsys.readouterr()
+    report.main(["roofline"])
+    assert capsys.readouterr().out.splitlines() == [
+        "| arch | shape | mesh | tag | compute ms | memory ms | "
+        "collective ms | dominant | useful | wire GB/dev | note |",
+        "|" + "---|" * 11]
 
 
 # ---------------------------------------------------------------------------
