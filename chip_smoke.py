@@ -235,9 +235,18 @@ Phases (any failure exits non-zero):
    finite losses, B1, B2, B3 as ``prod_expected`` a cell, one more round
    counted with FLOPs, kernel records and recorded collectives equal to
    the ``meta`` build's, the median of 4 more rounds beside the build's
-   roofline terms at one chip; the built prefill and decode steps
-   against ``greedy_generate``'s tokens; one ``run_one`` (SmolLM-135M x
-   train_4k x 16x16) on ``meta``, timed (``--only dryrun``);
+   roofline terms at one chip; the serving mesh: SmolLM-135M's built
+   prefill, filling prefill and decode steps model-sharded on those
+   cells with a replicated (128 slots) and a head_dim-cut (8 192 slots)
+   cache, teacher-forced against the one program (``greedy_generate``'s
+   tokens): in f32 within 1e-5, every token equal (bf16 reported beside
+   its floor), a decode step's recorded collectives equal to the
+   ``meta`` build's, then each other family reduced in f32 on (2, 2)
+   cells within 1e-5 of its one program; one ``run_one``
+   (SmolLM-135M x train_4k x 16x16) on ``meta``, timed (``--only
+   dryrun``; ``--only cards`` ends with Qwen3-32B served at 64 layers on
+   four cards, (1, 4), and its 4-layer and Mixtral-8x22B's 4-layer runs
+   against one card);
 20. print the kernel table (with the floor; B1-B3 with their full-width
    times, B1-B5 with their mesh launches, B2 and B5 at the mesh's
    extended table, a B3 bf16 row, the 2D rows: B1 tensor noise and B2
@@ -5749,7 +5758,8 @@ def cards_phase(dev, flush=None) -> dict:
     step's losses within its tolerances of it, its broadcasts and sums
     copies between cards; exact launches, eager, ``capture_step``
     refused); then Qwen3-MoE-30B-A3B's tensor-parallel step on four
-    cards against its 1D run on two (:func:`cards_moe`)."""
+    cards against its 1D run on two (:func:`cards_moe`); then serving
+    model-sharded on four cards (:func:`cards_serve`)."""
     from repro_torch.launch.mesh import make_client_mesh, make_test_mesh
     del flush
     mesh = make_client_mesh(M, clients_per_shard=M // MESH_SHARDS)
@@ -5762,6 +5772,7 @@ def cards_phase(dev, flush=None) -> dict:
     mesh2 = make_client_mesh(M, clients_per_shard=M // 2, model_parallel=2)
     rec["2d"] = mesh2d_rounds(dev, mesh2=mesh2, mesh1=make_test_mesh(2, dev))
     rec["moe"] = cards_moe(dev)
+    rec["serve"] = cards_serve(dev)
     rec["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"cards": {
         "devices": [torch.cuda.get_device_name(i)
@@ -5771,6 +5782,10 @@ def cards_phase(dev, flush=None) -> dict:
         "tp_loss_rel_diff_max": rec["2d"]["tp"]["loss_rel_diff_max"],
         "capture_refused_2d": "capture_refused" in rec["2d"],
         "moe_card_peak_gib": rec["moe"]["card_peak_gib"],
+        "serve_prefill_ms": rec["serve"]["full"]["prefill_ms"],
+        "serve_token_ms_median": rec["serve"]["full"]["token_ms_median"],
+        "serve_decode_bound_ms": rec["serve"]["full"]["decode_bound_ms"],
+        "serve_card_peak_gib": rec["serve"]["full"]["card_peak_gib"],
         "phase_s": rec["phase_s"]}}), flush=True)
     return rec
 
@@ -5839,6 +5854,226 @@ def cards_moe(dev) -> dict:
            "local_step_line": next(m for m in two["info"]
                                    if m.startswith("local step:"))}
     print(json.dumps(rec), flush=True)
+    return rec
+
+
+# The four-card serving arm of the "cards" phase: Qwen3-32B as registered
+# (64 layers, d 5 120, 64 / 8 heads, head_dim 128, d_ff 25 600, vocab
+# 151 936, bf16: ~65.5 GB of weights) on (1, 4) ("data", "model"), one
+# card a cell: batch 32, prompts of 2 048 tokens, 8 192 slots a request
+# (a 68.7 GB KV cache), 16 decode tokens; the prompts prefilled
+# CARDS_SERVE_PREFILL_ROWS requests at a time. Weights random (normal,
+# std 0.02, from one seed a card; norms 1), made on each card's cells.
+# Then the same steps at 4 layers against the one program on one card,
+# and Mixtral-8x22B at its widths, 4 of its 56 layers, on (2, 2) under
+# RULES_SERVE_2D (weights over "data" and "model"), batch 8, each in f32
+# (the gate: :func:`serve_gate`) and in bf16 (reported beside its floor:
+# a one-ulp nudge of Mixtral's inputs moves its routing and its logits
+# by ~30 %).
+CARDS_SERVE_ARCH = "qwen3-32b"
+CARDS_SERVE_SHAPE = (32, 2048, 8192, 16)     # batch, prompt, slots, tokens
+CARDS_SERVE_PREFILL_ROWS = 8
+CARDS_SERVE_CHECK_LAYERS = 4
+CARDS_SERVE_MIXTRAL = ("mixtral-8x22b", 4, (8, 128, 256, 4))
+CARDS_SERVE_PEAK_GIB = 40                    # a gate, every card
+CARDS_SERVE_BYTES_RTOL = 0.02                # weights and cache a card
+# Predicted before the first run on four cards. A card holds a quarter of
+# every cut weight (vocab, heads, 2 of the 8 KV heads, d_ff) and of the
+# cache: 16.4 GB + 17.2 GB, so one decode step moves at least 33.6 GB a
+# card, 10.0 ms at 3.35 TB/s. The prefill's transients at 8 requests (a
+# KV chunk's f32 scores, 0.54 GB; the MLP's hidden slices) keep the peak
+# near 34 GiB. The port's decode is host-bound (a Python loop of ~45 000
+# operations a token over 4 columns and 8 KV chunks a layer): 0.3-0.8 s a
+# token; the prefill runs its f32 attention over all 8 192 slots:
+# 10-40 s for 32 x 2 048 tokens.
+CARDS_SERVE_PREDICTION = {"weight_gb_card": 16.4, "cache_gb_card": 17.2,
+                          "peak_gib_card": [32, 36],
+                          "decode_bound_ms": 10.0,
+                          "token_ms": [300, 800],
+                          "prefill_ms": [10000, 40000],
+                          "check_bound": 2 ** -6}
+# Predicted before the f32 checks' first run: the 4-layer Qwen3-32B and
+# Mixtral-8x22B sharded in f32 move their logits by 1e-6 to 6e-6 of the
+# largest (Mixtral read 5.5e-6 before), every token equal.
+CARDS_SERVE_F32_PREDICTION = {"qwen3_4l_f32_rel": [1e-6, 6e-6],
+                              "mixtral_4l_f32_rel": [1e-6, 6e-6]}
+
+
+def _random_cells(cells, seed: int):
+    """Each cell's weights filled in place: norm scales 1, the rest
+    normal with std 0.02, from one generator a device."""
+    gens = {}
+    for cell in cells:
+        for name, t in cell.items():
+            if name.endswith(("/scale", "q_norm", "k_norm")):
+                t.fill_(1.0)
+                continue
+            g = gens.get(t.device)
+            if g is None:
+                g = gens[t.device] = torch.Generator(
+                    device=t.device).manual_seed(seed + len(gens))
+            t.normal_(0.0, 0.02, generator=g)
+    return cells
+
+
+def _empty_caches(cells):
+    """Cache cells emptied in place: k, v and the SSM states zero, every
+    ``kpos`` slot empty."""
+    from repro_torch.models import attention as TA
+    for cell in cells:
+        for stage in cell:
+            for k, t in (stage or {}).items():
+                t.fill_(TA._EMPTY) if k == "kpos" else t.zero_()
+    return cells
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(t) for t in tree)
+    return 0
+
+
+def cards_serve(dev) -> dict:
+    """Serving on four cards (CARDS_SERVE_*): Qwen3-32B at its registered
+    width and depth, its filling prefill and decode steps model-sharded
+    on (1, 4), with each card's weight and cache bytes (gated against
+    the prediction), peak (gated under CARDS_SERVE_PEAK_GIB), the
+    prefill's ms, each token's ms and the token's bound; then the 4-layer
+    Qwen3-32B on (1, 4) and the 4-layer Mixtral-8x22B on (2, 2) against
+    their one programs on cuda:0, teacher-forced, in f32 and bf16
+    (:func:`serve_gate`), each card's peak beside them."""
+    import dataclasses
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.build import build_decode_step
+    from repro_torch.launch.mesh import make_named_mesh
+    from repro_torch.models import model as TM
+
+    print(json.dumps({"cards_serve_prediction": CARDS_SERVE_PREDICTION,
+                      "f32": CARDS_SERVE_F32_PREDICTION}), flush=True)
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(4)]
+    b, lp, s_alloc, steps = CARDS_SERVE_SHAPE
+    rec = {"arch": CARDS_SERVE_ARCH, "shape": list(CARDS_SERVE_SHAPE)}
+
+    def peaks():
+        return [torch.cuda.max_memory_allocated(i) / 2 ** 30
+                for i in range(n)]
+
+    def reset():
+        gc.collect()
+        for i in range(n):
+            torch.cuda.synchronize(i)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(i)
+
+    # (a) Qwen3-32B at its registered width and depth.
+    cfg = get_config(CARDS_SERVE_ARCH)
+    mesh = make_named_mesh((1, 4), devices=cards)
+    dec = build_decode_step(cfg, mesh, InputShape("d", s_alloc, b, "decode"))
+    reset()
+    with torch.no_grad():
+        pcells = _random_cells(mesh.empty(dec.args[0], dec.specs[0][0]), 7)
+        cells = _empty_caches(mesh.empty(dec.args[3], dec.specs[0][3]))
+        gen = torch.Generator(device=dev).manual_seed(3)
+        prompts = torch.randint(0, cfg.vocab_size, (b, lp), generator=gen,
+                                device=dev, dtype=torch.int32)
+        weight = [_tree_bytes([c for c, d in zip(pcells, mesh.devices.flat)
+                               if d == card]) for card in cards]
+        cache = [_tree_bytes([c for c, d in zip(cells, mesh.devices.flat)
+                              if d == card]) for card in cards]
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        t0 = time.perf_counter()
+        parts = [dec.prefill(pcells, prompts[r:r + CARDS_SERVE_PREFILL_ROWS],
+                             _batch_cells(cells, r,
+                                          CARDS_SERVE_PREFILL_ROWS))[0]
+                 for r in range(0, b, CARDS_SERVE_PREFILL_ROWS)]
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        logits = torch.cat(parts, dim=0)
+        finite = [bool(torch.isfinite(logits).all())]
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        token_ms = []
+        for i in range(steps):
+            pos = torch.tensor(lp + i, dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            logits, cells = dec.fn(pcells, tok, pos, cells)
+            for j in range(n):
+                torch.cuda.synchronize(j)
+            token_ms.append((time.perf_counter() - t0) * 1e3)
+            finite.append(bool(torch.isfinite(logits).all()))
+            tok = torch.argmax(logits, -1).to(torch.int32)
+    full = {"weight_gb_card": [w / 1e9 for w in weight],
+            "cache_gb_card": [c / 1e9 for c in cache],
+            "decode_bound_ms": max(w + c for w, c in zip(weight, cache))
+            / 3.35e12 * 1e3,
+            "prefill_ms": prefill_ms, "token_ms": token_ms,
+            "token_ms_median": statistics.median(token_ms),
+            "card_peak_gib": peaks(), "logits_shape": list(logits.shape),
+            "finite": all(finite), "dp": list(dec.meta["dp"]),
+            "cache_layout": repr(dec.specs[0][3][0]["k"])}
+    print(json.dumps({"cards_serve_full": full}), flush=True)
+    del pcells, cells, parts, logits
+    if not full["finite"]:
+        raise AssertionError("cards serve: logits not finite")
+    for what, got in (("weight_gb_card", full["weight_gb_card"]),
+                      ("cache_gb_card", full["cache_gb_card"])):
+        want = CARDS_SERVE_PREDICTION[what]
+        if any(abs(g - want) > CARDS_SERVE_BYTES_RTOL * want for g in got):
+            raise AssertionError(f"cards serve {what} {got} != ~{want}")
+    if max(full["card_peak_gib"]) >= CARDS_SERVE_PEAK_GIB:
+        raise AssertionError(f"cards serve peak {full['card_peak_gib']} "
+                             f"GiB >= {CARDS_SERVE_PEAK_GIB}")
+    rec["full"] = full
+
+    # (b) 4 layers against the one program on cuda:0; (c) Mixtral.
+    arch_m, layers_m, (bm, lpm, sm, gm) = CARDS_SERVE_MIXTRAL
+    cases = []
+    for dtype, tag in (("float32", "_f32"), ("bfloat16", "")):
+        cases += [
+            ("qwen3_4l" + tag, dataclasses.replace(
+                cfg, n_layers=CARDS_SERVE_CHECK_LAYERS, dtype=dtype),
+             (1, 4), (b, lp, s_alloc, steps + 1),
+             {"prefill_rows": CARDS_SERVE_PREFILL_ROWS}),
+            ("mixtral_4l" + tag, dataclasses.replace(
+                get_config(arch_m), n_layers=layers_m, dtype=dtype),
+             (2, 2), (bm, lpm, sm, gm), {})]
+    for name, c, shape, grid, kw in cases:
+        reset()
+        bb, ll, ss, gg = grid
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            params = TM.init_model(prng.PRNGKey(5, device=dev), c,
+                                   device=dev)
+            prompts = torch.randint(0, c.vocab_size, (bb, ll),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32)
+        f32 = c.dtype == "float32"
+        r = serve_compare(c, make_named_mesh(shape, devices=cards), params,
+                          prompts, gg, ss, nudge=not f32, **kw)
+        one = {"mesh": list(shape), "batch": bb, "prompt": ll,
+               "s_alloc": ss, "tokens": gg,
+               "prefill_rel": r["prefill_rel"], "step_rel": r["step_rel"],
+               "floor_rel": r["floor_rel"], "agree": r["agree"],
+               "of": r["of"], "margins": r["margins"],
+               "card_peak_gib": peaks(),
+               "weights_over_data": any(
+                   "data" in sp.names(k)
+                   for sp in r["built"].specs[0][0].values()
+                   for k in range(len(sp))),
+               "s": time.perf_counter() - t0}
+        print(json.dumps({"cards_serve_check": name, **one}), flush=True)
+        one.update(serve_gate(f"cards {name}", r, f32))
+        rec[name] = one
+        del params, r
+    reset()
     return rec
 
 
@@ -7256,8 +7491,8 @@ def dryrun_built(dev) -> dict:
                           quant=QuantConfig(bits=8), mixer_impl="ring")
     built = build_train_step(cfg, make_named_mesh(*DRYRUN_MESH, device=dev),
                              shape, dfed=dfed)
-    on_meta = build_train_step(cfg, make_named_mesh(*DRYRUN_MESH), shape,
-                               dfed=dfed)
+    on_meta = build_train_step(
+        cfg, make_named_mesh(*DRYRUN_MESH, device="meta"), shape, dfed=dfed)
     meta = built.meta
     m, k_steps, bs, seq = meta["m"], meta["K"], meta["local_bs"], meta["seq"]
     cells = int(np.prod(DRYRUN_MESH[0]))
@@ -7331,51 +7566,343 @@ def dryrun_built(dev) -> dict:
     return rec
 
 
-def dryrun_serve(dev) -> dict:
-    """(c) The built prefill and decode steps of SmolLM-135M (its
-    consensus-model params from one seed): the prefill's argmax and
-    DRYRUN_GEN - 1 built decode steps from the prompts' prefilled caches
-    give ``launch.serve.greedy_generate``'s tokens exactly."""
-    from repro_torch import prng
-    from repro_torch.configs import get_config
+# The serving mesh (launch.build's prefill and decode model-sharded on
+# the mesh's cells). SmolLM-135M as registered on DRYRUN_MESH's cuda:0
+# cells in the two layouts the reference's gate picks for it: at
+# DRYRUN_DECODE's 128 slots the cache (47 MB in f32, 24 MB in bf16) is
+# replicated (kv 3 does not divide 2); at SERVE_HD_DECODE's 8 192 slots
+# (3.02 GB in f32, 1.51 GB in bf16, over the 1 GiB gate) it is cut on
+# head_dim, DECODE_Q_SPEC set.
+SERVE_HD_DECODE = ("d", 8192, 8, "decode")
+# Each configuration runs in f32 and in bf16, teacher-forced (both fed
+# the one program's tokens). f32 is the gate: every step's logits within
+# SERVE_FAMILY_RTOL of the one program's largest |logit|, and the sharded
+# argmax equal to the one program's token at every step. bf16 is
+# reported, not gated: its move against the one program beside its
+# floor, the one program's own move when the first embedding row of
+# each prompt is nudged by one bf16 ulp in one element
+# (serve_compare(nudge=True)). Random bf16 weights over 30 layers
+# amplify any rounding difference (one such nudge moves SmolLM-135M's
+# logits by 1.5-2.4 % of the largest), so a bf16 bound below that floor
+# holds no layout to anything, and one above it separates nothing.
+SERVE_DTYPES = ("float32", "bfloat16")
+SERVE_FAMILIES = ("olmo-1b", "gemma-7b", "qwen3-32b", "qwen3-moe-30b-a3b",
+                  "mixtral-8x22b", "mamba2-780m", "zamba2-1.2b",
+                  "whisper-tiny", "llama-3.2-vision-11b")
+SERVE_FAMILY_MESH = ((2, 2), ("data", "model"))
+SERVE_FAMILY_RTOL = 1e-5            # f32, against the one program
+SERVE_FAMILY_SHAPE = (4, 8, 16, 4)  # batch, prompt, slots, tokens
+
+
+def serve_compare(cfg, mesh, params, prompts, gen: int, s_alloc: int, *,
+                  fe=None, prefill_rows: int | None = None,
+                  nudge: bool = False) -> dict:
+    """The one program (``model.forward(last_only=True)``, ``prefill``,
+    ``gen - 1`` ``decode_step``s on the prompts' device) against the
+    built steps on ``mesh``: the
+    built prefill, the filling prefill on the decode's layout (in
+    ``prefill_rows`` requests at a time) and the decode steps fed the one
+    program's tokens. Returns each step's max |difference| over the one
+    program's largest |logit|, the tokens, the sharded argmax's agreement
+    with them and the one program's margin where they differ (over its
+    largest |logit|), and the built decode (``built``, its laid-out ``pcells`` and ``cells``).
+    ``prefill_rows`` splits both prefills into blocks of requests, only
+    on a mesh of one data row (a cell's cache then holds every
+    request). ``nudge``: the one program again, teacher-forced, with the
+    prompts' first tokens' embedding rows nudged by one bf16 ulp in
+    their first element; ``floor_rel`` is its largest move a step (the
+    bf16 floor)."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch.build import (build_decode_step,
                                           build_prefill_step)
+    from repro_torch.models import model as TM
+
+    b, lp = prompts.shape
+    dev = prompts.device
+    pre = build_prefill_step(cfg, mesh, InputShape("p", lp, b, "prefill"))
+    dec = build_decode_step(cfg, mesh, InputShape("d", s_alloc, b, "decode"))
+    sizes = dict(zip(mesh.axis_names, np.asarray(mesh.devices).shape))
+    rows = int(np.prod([sizes[a] for a in dec.meta["dp"]]))
+    if prefill_rows and rows > 1:
+        raise ValueError("prefill_rows splits a one-row mesh's prefill")
+    pos = [torch.tensor(lp + i, dtype=torch.int32, device=dev)
+           for i in range(gen - 1)]
+    step = prefill_rows or b
+
+    def one_program(p, toks=None):
+        """The one program's prefill logits (last position), its
+        filling prefill's and its decode steps', fed ``toks`` (its own
+        argmax when None)."""
+        pres, fills, filled = [], [], []
+        for r in range(0, b, step):
+            sl = slice(r, r + step)
+            pres.append(TM.forward(
+                p, cfg, prompts[sl], last_only=True,
+                frontend_embeds=None if fe is None else fe[sl])[0][:, 0])
+            logits, c = TM.prefill(
+                p, cfg, prompts[sl],
+                TM.init_decode_caches(cfg, step, s_alloc, device=dev),
+                cross_states=None if cross is None else cross[sl])
+            fills.append(logits)
+            filled.append(c)
+        caches = _cat_caches(filled)
+        del filled
+        out = [torch.cat(fills)]
+        mine = [torch.argmax(out[0], -1)] if toks is None else toks
+        for i, q in enumerate(pos):
+            logits, caches = TM.decode_step(p, cfg, mine[i], q, caches,
+                                            cross_states=cross)
+            out.append(logits)
+            if toks is None:
+                mine.append(torch.argmax(logits, -1))
+        return torch.cat(pres), out, mine
+
+    with torch.no_grad():
+        cross = TM.cross_states(params, cfg, fe)
+        want_pre, want, toks = one_program(params)
+        floor = None
+        if nudge:
+            table = params["embed/table"].clone()
+            first = prompts[:, 0].long().unique()
+            table[first, 0] = (table[first, 0].float()
+                               * (1 + 2 ** -7)).to(table.dtype)
+            _, moved, _ = one_program({**params, "embed/table": table},
+                                      toks)
+            floor = [float((a.float() - w.float()).abs().max()
+                           / w.float().abs().max())
+                     for a, w in zip(moved, want)]
+            del table, moved
+        pcells = dec.mesh.shard(params, dec.specs[0][0])
+        got_pre = pre.fn(pcells, prompts, fe)
+        cells = dec.mesh.shard(TM.init_decode_caches(cfg, b, s_alloc,
+                                                     device=dev),
+                               dec.specs[0][3])
+        parts = []
+        for r in range(0, b, step):
+            out, _ = dec.prefill(pcells, prompts[r:r + step],
+                                 _batch_cells(cells, r, step)
+                                 if prefill_rows else cells,
+                                 None if cross is None
+                                 else cross[r:r + step])
+            parts.append(out)
+        got = [torch.cat(parts, dim=0)]
+        for t, p in zip(toks, pos):
+            out, cells = dec.fn(pcells, t.to(torch.int32), p, cells, cross)
+            got.append(out)
+    torch.cuda.synchronize()
+
+    def rel(a, w):
+        return float((a.float() - w.float()).abs().max()
+                     / w.float().abs().max())
+
+    agree, margins = [], []
+    for g, w, t in zip(got, want, toks):
+        a = torch.argmax(g, -1)
+        agree.append(int((a == t).sum()))
+        wf = w.float()
+        for i in torch.nonzero(a != t).flatten().tolist():
+            margins.append(float(wf[i, t[i]] - wf[i, a[i]])
+                           / float(wf.abs().max()))
+    return {"prefill_rel": rel(got_pre, want_pre),
+            "step_rel": [rel(g, w) for g, w in zip(got, want)],
+            "floor_rel": floor,
+            "tokens": torch.stack(toks, 1), "agree": agree,
+            "of": b, "margins": margins, "built": dec, "pcells": pcells,
+            "cells": cells, "prefill_built": pre}
+
+
+def serve_worst(r: dict) -> float:
+    """A comparison's largest move, prefill and steps, over the one
+    program's largest |logit|."""
+    return max([r["prefill_rel"]] + r["step_rel"])
+
+
+def serve_gate(name: str, r: dict, f32: bool) -> dict:
+    """A comparison's record: in f32 a gate (within SERVE_FAMILY_RTOL,
+    every sharded argmax the one program's token), in bf16 its move
+    against its floor, reported."""
+    worst = serve_worst(r)
+    floor = max(r["floor_rel"]) if r["floor_rel"] else None
+    out = {"dtype": "float32" if f32 else "bfloat16", "worst_rel": worst,
+           "gated": f32,
+           "bound": SERVE_FAMILY_RTOL if f32 else None,
+           "over_floor": None if f32 or not floor else worst / floor,
+           "tokens_equal": all(a == r["of"] for a in r["agree"])}
+    if f32 and (worst > SERVE_FAMILY_RTOL or not out["tokens_equal"]):
+        raise AssertionError(f"serve {name}: sharded logits {worst} of the "
+                             f"largest (bound {SERVE_FAMILY_RTOL}), argmax "
+                             f"agreement {r['agree']} of {r['of']}")
+    return out
+
+
+def _cat_caches(caches: list) -> list:
+    """Request blocks' caches (each a list of stage caches) joined along
+    the batch (``kpos``, the same in every block, kept once)."""
+    def stage(cs):
+        if cs[0] is None:
+            return None
+        shared = cs[0]["kpos"].dim() == 1 if "kpos" in cs[0] else False
+        return {k: cs[0][k] if k == "kpos" else
+                torch.cat([c[k] for c in cs], dim=0 if shared else 1)
+                for k in cs[0]}
+    return [stage(list(cs)) for cs in zip(*caches)]
+
+
+def _batch_cells(cells, start: int, n: int):
+    """Cache cells narrowed to the requests [start, start + n) (a stage's
+    k / v and conv / ssm leaves carry the batch on dim 1, a shared
+    block's on dim 0; ``kpos`` none): views, filled in place."""
+    from repro_torch.launch.mesh import Cells
+
+    def stage(c):
+        if c is None:
+            return None
+        shared = c["kpos"].dim() == 1 if "kpos" in c else False
+        return {k: t if k == "kpos" else
+                t.narrow(0 if shared else 1, start, n)
+                for k, t in c.items()}
+    return Cells([[stage(c) for c in cell] for cell in cells])
+
+
+def dryrun_serve(dev) -> dict:
+    """(c) The serving mesh on the card. SmolLM-135M at its registered
+    widths and depth (params from one seed) in each of SERVE_DTYPES on
+    the (4, 2) cells of ``dev``: the built prefill, the filling prefill
+    and DRYRUN_GEN - 1 decode steps, model-sharded, at DRYRUN_DECODE
+    (replicated cache) and SERVE_HD_DECODE (head_dim-cut cache), teacher-
+    forced against the one program, whose tokens equal
+    ``greedy_generate``'s (:func:`serve_gate`: f32 within
+    SERVE_FAMILY_RTOL with every token equal, bf16 reported beside its
+    floor); one more decode step counted on the card records the
+    collective bytes of the same build on ``meta``. Then each other
+    family's reduced config in f32 on (2, 2) cells: every step within
+    SERVE_FAMILY_RTOL of its one program."""
+    import dataclasses
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.build import build_decode_step
+    from repro_torch.launch.cost_model import structural_costs
     from repro_torch.launch.mesh import make_named_mesh
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import model as TM
 
-    cfg = get_config(DRYRUN_ARCH)
     mesh = make_named_mesh(*DRYRUN_MESH, device=dev)
-    dshape, pshape = InputShape(*DRYRUN_DECODE), InputShape(*DRYRUN_PREFILL)
-    dec = build_decode_step(cfg, mesh, dshape)
-    pre = build_prefill_step(cfg, mesh, pshape)
+    pshape = InputShape(*DRYRUN_PREFILL)
     b, lp = pshape.global_batch, pshape.seq_len
-    gen = torch.Generator(device=dev).manual_seed(1)
-    with torch.no_grad():
-        params = TM.init_model(prng.PRNGKey(0, device=dev), cfg, device=dev)
-        prompts = torch.randint(0, cfg.vocab_size, (b, lp), generator=gen,
-                                device=dev, dtype=torch.int32)
-        want = greedy_generate(params, cfg, prompts, gen=DRYRUN_GEN,
-                               s_alloc=dshape.seq_len)
-        toks = [torch.argmax(pre.fn(params, prompts), dim=-1)]
-        caches = TM.init_decode_caches(cfg, b, dshape.seq_len, device=dev)
-        _, caches = TM.prefill(params, cfg, prompts, caches)
-        pos = torch.tensor(lp, dtype=torch.int32, device=dev)
-        for _ in range(DRYRUN_GEN - 1):
-            logits, caches = dec.fn(params, toks[-1], pos, caches)
-            toks.append(torch.argmax(logits, dim=-1))
-            pos = pos + 1
-        got = torch.stack(toks, dim=1)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"dryrun serve: built tokens {got.tolist()} != "
-                             f"greedy_generate's {want.tolist()}")
-    rec = {"decode_meta": dec.meta, "prefill_meta": pre.meta,
-           "tokens": got.tolist()}
-    del params, caches
+    rec = {"arch": DRYRUN_ARCH, "mesh": list(DRYRUN_MESH), "layouts": {}}
+    for dtype in SERVE_DTYPES:
+        cfg = dataclasses.replace(get_config(DRYRUN_ARCH), dtype=dtype)
+        f32 = dtype == "float32"
+        gen = torch.Generator(device=dev).manual_seed(1)
+        with torch.no_grad():
+            params = TM.init_model(prng.PRNGKey(0, device=dev), cfg,
+                                   device=dev)
+            prompts = torch.randint(0, cfg.vocab_size, (b, lp),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32)
+        for name, dshape in (("replicated", DRYRUN_DECODE),
+                             ("head_dim", SERVE_HD_DECODE)):
+            s_alloc = dshape[1]
+            t0 = time.perf_counter()
+            r = serve_compare(cfg, mesh, params, prompts, DRYRUN_GEN,
+                              s_alloc, nudge=not f32)
+            with torch.no_grad():
+                want = greedy_generate(params, cfg, prompts, gen=DRYRUN_GEN,
+                                       s_alloc=s_alloc)
+            dec = r["built"]
+            kspec = dec.specs[0][3][0]["k"]
+            layout = ("head_dim" if "model" in kspec.names(4) else
+                      "kv_heads" if "model" in kspec.names(3) else
+                      "replicated")
+            # One more decode step counted on the card, and the same
+            # build's step on meta cells.
+            tok = r["tokens"][:, -1].to(torch.int32)
+            pos = torch.tensor(lp + DRYRUN_GEN - 1, dtype=torch.int32,
+                               device=dev)
+            card = structural_costs(dec.fn, r["pcells"], tok, pos,
+                                    r["cells"])
+            on_meta = build_decode_step(
+                cfg, make_named_mesh(*DRYRUN_MESH, device="meta"),
+                InputShape(*dshape))
+            mc = structural_costs(on_meta.fn, *on_meta.args)
+            torch.cuda.synchronize()
+            one = {"layout": layout, "s_alloc": s_alloc,
+                   "cache_bytes": dec.meta["cache_bytes"],
+                   "prefill_rel": r["prefill_rel"],
+                   "step_rel": r["step_rel"], "floor_rel": r["floor_rel"],
+                   "agree": r["agree"], "of": r["of"],
+                   "margins": r["margins"], "tokens": r["tokens"].tolist(),
+                   "greedy_generate_equal": bool(torch.equal(r["tokens"],
+                                                             want)),
+                   "decode_coll_bytes_card": card.coll_bytes,
+                   "decode_coll_bytes_meta": mc.coll_bytes,
+                   "decode_coll_by_kind": card.coll_by_kind,
+                   "s": time.perf_counter() - t0}
+            key = f"{name}_{'f32' if f32 else 'bf16'}"
+            print(json.dumps({"dryrun_serve_layout": key, **one}),
+                  flush=True)
+            if layout != name:
+                raise AssertionError(f"dryrun serve: {name} built {layout}")
+            if not one["greedy_generate_equal"]:
+                raise AssertionError(
+                    f"dryrun serve {key}: one program "
+                    f"{r['tokens'].tolist()} != greedy_generate "
+                    f"{want.tolist()}")
+            if card.coll_by_kind != mc.coll_by_kind or card.coll_bytes <= 0:
+                raise AssertionError(f"dryrun serve {key}: card collectives "
+                                     f"{card.coll_by_kind} != meta "
+                                     f"{mc.coll_by_kind}")
+            one.update(serve_gate(f"dryrun {key}", r, f32))
+            rec["layouts"][key] = one
+            del r, dec
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+    rec["families"] = serve_families(dev)
     torch.cuda.empty_cache()
     return rec
+
+
+def serve_families(dev) -> dict:
+    """Each of SERVE_FAMILIES reduced, f32, on SERVE_FAMILY_MESH's cuda:0
+    cells (Mixtral under RULES_SERVE_2D: weights over "data" too): the
+    built prefill, the filling prefill and 3 decode steps within
+    SERVE_FAMILY_RTOL of the one program's, relative to its largest
+    |logit|."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_named_mesh
+    from repro_torch.models import model as TM
+
+    mesh = make_named_mesh(*SERVE_FAMILY_MESH, device=dev)
+    b, lp, s_alloc, steps = SERVE_FAMILY_SHAPE
+    out = {}
+    for i, arch in enumerate(SERVE_FAMILIES):
+        cfg = reduced(get_config(arch))
+        gen = torch.Generator(device=dev).manual_seed(10 + i)
+        with torch.no_grad():
+            params = TM.init_model(prng.PRNGKey(i, device=dev), cfg,
+                                   device=dev)
+            prompts = torch.randint(0, cfg.vocab_size, (b, lp),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32)
+            fe = None if cfg.frontend is None else torch.randn(
+                (b, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                device=dev)
+        r = serve_compare(cfg, mesh, params, prompts, steps, s_alloc, fe=fe)
+        worst = max([r["prefill_rel"]] + r["step_rel"])
+        out[arch] = {"prefill_rel": r["prefill_rel"],
+                     "step_rel": r["step_rel"], "agree": r["agree"],
+                     "weights_over_data": any(
+                         "data" in s.names(k)
+                         for s in r["built"].specs[0][0].values()
+                         for k in range(len(s)))}
+        if worst > SERVE_FAMILY_RTOL:
+            raise AssertionError(f"serve family {arch}: {worst} > "
+                                 f"{SERVE_FAMILY_RTOL} ({out[arch]})")
+    print(json.dumps({"serve_families": out}), flush=True)
+    return out
 
 
 DRYRUN_ONE_JSON = ROOT / "chiprun_out" / "dryrun_one.json"

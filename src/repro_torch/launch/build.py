@@ -2,21 +2,38 @@
 its ``meta`` inputs and its shardings for every (arch x input-shape x
 mesh) combination — the port of the JAX package's ``launch/build.py``.
 
-A mesh here is anything with ``axis_names`` and ``devices.shape``: the
-production stand-in (``launch.mesh.make_production_mesh``, ``meta``
-cells) or ``launch.mesh.make_named_mesh`` of real devices (``(4, 2)``
-``("data", "model")`` cells of one card). The train step runs on a
-``ClientMesh`` mapped from the mesh's client axes (the strategy's, one
-shard a client-axis cell) by its ``"model"`` axis, the parameters laid
-out by the strategy's specs (``sharding.rules``). Strategies B, B2 and B3
-cut weights over the data axis as well, which a ``ClientMesh`` does not
+A mesh here is a ``launch.mesh.ServeMesh``: the production stand-in
+(``launch.mesh.make_production_mesh``, ``meta`` cells) or
+``launch.mesh.make_named_mesh`` of real devices (``(4, 2)`` ``("data",
+"model")`` cells of one card, or distinct cards, one a cell). The train
+step runs on a ``ClientMesh``
+mapped from the mesh's client axes (the strategy's, one shard a
+client-axis cell) by its ``"model"`` axis, the parameters laid out by
+the strategy's specs (``sharding.rules``). Strategies B, B2 and B3 cut
+weights over the data axis as well, which a ``ClientMesh`` does not
 realize: their step runs as the one global program on the mesh's first
-device (``Built.mesh`` None). The serving steps run as one program too:
-the port has no model-sharded decode. ``Built.args`` are ``meta``
+device (``Built.mesh`` None; ROADMAP A21b).
+
+The serving steps run model-sharded on the mesh's cells (a
+``ServeMesh``; ``Built.mesh``), laid out exactly as the reference's
+specs say: the params by ``_serve_param_specs`` (``RULES_SERVE``, or
+``RULES_SERVE_2D`` for Mixtral: weights cut over ``"data"`` too), the
+caches by ``_cache_specs`` and the tokens by ``_dp_axes``. ``fn`` runs
+every data row as a column group (``sharding.tensor_parallel``): the
+row's batch rows, its weights' model columns (a data-cut weight gathered
+at its use, layer by layer) and its caches' columns, which it updates in
+place and returns; rows never exchange activations. It takes the whole
+param dict and cache tree (laid out on each call, uncounted: the
+reference's ``in_shardings``) or their ``Cells`` (``Built.mesh.shard``;
+what it returns). ``build_decode_step``'s ``Built.prefill`` is the
+cache-filling prefill on the decode's layout (``model.prefill(...,
+tp=)``, the last position's logits only), which the reference gets from
+GSPMD on sharded inputs. On ``meta`` cells every row repeats the first
+one's work, which ``cost_model`` replays. ``Built.args`` are ``meta``
 tensors of the reference's ``ShapeDtypeStruct`` shapes and dtypes (PRNG
-keys int64 ``[2]``, the port's layout of the reference's uint32 key),
-so evaluating ``fn`` on them allocates nothing; the same builders on a
-mesh of real devices take real tensors of those shapes.
+keys int64 ``[2]``, the port's layout of the reference's uint32 key), so
+evaluating ``fn`` on them allocates nothing; on a mesh of real devices
+``fn`` takes real tensors of those shapes.
 """
 from __future__ import annotations
 
@@ -29,12 +46,13 @@ import torch
 from ..configs.base import INPUT_SHAPES, ArchConfig, InputShape
 from ..core import DFedAvgMConfig, MixingSpec, RoundState, make_round_step
 from ..models import model as M
+from ..models.moe import MOE_ROWS, RowRouting
 from ..models.transformer import torch_dtype
 from ..sharding.rules import (RULES_SERVE, RULES_SERVE_2D, P,
-                              ShardingStrategy, shapes_and_axes,
-                              specs_for_tree, stack_shapes)
+                              ShardingStrategy, model_sharded_dims,
+                              shapes_and_axes, specs_for_tree, stack_shapes)
 from . import cost_model
-from .mesh import ClientMesh
+from .mesh import Cells, ClientMesh, ServeMesh
 
 __all__ = ["Built", "build_train_step",
            "build_decode_step", "build_prefill_step", "build_step",
@@ -71,11 +89,15 @@ class Built:
     fn: Any                       # the step: fn(*args)
     args: tuple                   # meta tensors (lower(*args) in the reference)
     meta: dict
-    # The client mesh fn runs the train step on (None: one program on
-    # the mesh's first device), and (in_specs, out_specs): the
-    # reference's in_shardings / out_shardings as PartitionSpecs.
-    mesh: ClientMesh | None = None
+    # The mesh fn runs on (a train step's ClientMesh, None for the one
+    # program on the mesh's first device; a serving step's ServeMesh),
+    # and (in_specs, out_specs): the reference's in_shardings /
+    # out_shardings as PartitionSpecs.
+    mesh: ClientMesh | ServeMesh | None = None
     specs: Any = None
+    # build_decode_step's cache-filling prefill on the decode's layout:
+    # prefill(params, tokens, caches, cross=None) -> (last logits, Cells).
+    prefill: Any = None
 
 
 def _meta_like(t: torch.Tensor, device) -> torch.Tensor:
@@ -251,6 +273,72 @@ def _nbytes(caches: list) -> int:
                if c is not None for t in c.values())
 
 
+@cost_model.repeats_on_meta
+def _serve_row(kind: str, cfg: ArchConfig, group, view: dict, tokens,
+               pos, caches, cross):
+    """One serving row's step on its column group: ``"prefill"`` the last
+    position's logits of a whole forward, ``"fill"`` a cache-filling
+    prefill's, ``"decode"`` one token's (the row's caches updated in
+    place). Returns [b_row, vocab] at the row's home."""
+    if kind == "prefill":
+        logits, _, _ = M.forward(view, cfg, tokens, frontend_embeds=cross,
+                                 last_only=True, tp=group)
+        return logits[:, 0]
+    if kind == "fill":
+        return M.prefill(view, cfg, tokens, caches, cross_states=cross,
+                         tp=group)[0]
+    return M.decode_step(view, cfg, tokens, pos, caches, cross_states=cross,
+                         tp=group)[0]
+
+
+def _run_rows(smesh: ServeMesh, kind: str, cfg: ArchConfig, dp: tuple,
+              pcells: Cells, pspecs: dict, tokens, pos=None,
+              ccells: Cells | None = None, cspecs=None, cross=None):
+    """``kind`` on every row of ``smesh`` (its batch rows by ``dp``; the
+    whole batch on every row when ``dp`` is empty) -> the logits of the
+    whole batch on the first cell's device. A MoE routes the rows'
+    blocks as the one dispatch group of the whole batch
+    (``models.moe.MOE_ROWS``)."""
+    dims = model_sharded_dims(pspecs, "model")
+    b = tokens.shape[0]
+    starts = sorted({smesh.batch_rows(r, dp, b).start for r in smesh.rows()})
+    routing = (RowRouting(len(starts)) if cfg.n_experts and len(starts) > 1
+               else None)
+    outs = {}
+    reset = MOE_ROWS.set(routing)
+    try:
+        with torch.no_grad():
+            for row in smesh.rows():
+                group = smesh.row_group(row, dims)
+                rows = smesh.batch_rows(row, dp, b)
+                if routing is not None:
+                    routing.enter(starts.index(rows.start))
+                with cost_model.uncounted():
+                    tok = tokens[rows].to(group.home)
+                    cr = (None if cross is None
+                          else cross[rows].to(group.home))
+                    p = None if pos is None else pos.to(group.home)
+                view = smesh.row_view(pcells, pspecs, row)
+                cv = (None if ccells is None else
+                      smesh.row_view(ccells, cspecs, row, every_column=True))
+                out = _serve_row(kind, cfg, group, view, tok, p, cv, cr)
+                outs.setdefault(rows.start, out)
+    finally:
+        MOE_ROWS.reset(reset)
+    with cost_model.uncounted():
+        home = smesh.devices.flat[0]
+        return torch.cat([outs[s].to(home) for s in starts], dim=0)
+
+
+def _laid_out(smesh: ServeMesh, tree, specs) -> Cells:
+    """``tree`` as cells: as given when it is already, else laid out
+    (uncounted: the reference's in_shardings)."""
+    if isinstance(tree, Cells):
+        return tree
+    with cost_model.uncounted():
+        return smesh.shard(tree, specs)
+
+
 def build_decode_step(cfg: ArchConfig, mesh, shape: InputShape, *,
                       cache_headdim: bool = True) -> Built:
     from ..models.attention import DECODE_Q_SPEC
@@ -259,11 +347,10 @@ def build_decode_step(cfg: ArchConfig, mesh, shape: InputShape, *,
     s_alloc = shape.seq_len
     dp = _dp_axes(mesh, b)
     dps = _dp_spec(dp)
-    dev = _device(mesh)
 
     shapes, axes = _model_shapes(cfg)
     pspecs = _serve_param_specs(cfg, mesh, shapes, axes)
-    params = {n: _meta_like(t, dev) for n, t in shapes.items()}
+    params = dict(shapes)
 
     caches_shapes = M.init_decode_caches(cfg, b, s_alloc, device="meta")
     total_cache_bytes = _nbytes(caches_shapes)
@@ -272,9 +359,6 @@ def build_decode_step(cfg: ArchConfig, mesh, shape: InputShape, *,
     cache_headdim = cache_headdim and total_cache_bytes > 1 << 30
     cspecs = _cache_specs(caches_shapes, mesh, dp,
                           kv_fallback_headdim=cache_headdim)
-    caches = [None if c is None else {n: _meta_like(t, dev)
-                                      for n, t in c.items()}
-              for c in caches_shapes]
 
     needs_cross = cfg.frontend is not None
     model_sz = _sizes(mesh).get("model", 1)
@@ -283,25 +367,35 @@ def build_decode_step(cfg: ArchConfig, mesh, shape: InputShape, *,
                    and cfg.head_dim % model_sz == 0)
     q_hint = P(dps, None, None, None) if hd_fallback else None
 
-    def fn(params, token, pos, caches, cross=None):
+    def hinted(kind, params, tokens, pos, caches, cross):
+        pc = _laid_out(mesh, params, pspecs)
+        cc = _laid_out(mesh, caches, cspecs)
         tok = DECODE_Q_SPEC.set(q_hint)
         try:
-            return M.decode_step(params, cfg, token, pos, caches,
-                                 cross_states=cross)
+            logits = _run_rows(mesh, kind, cfg, dp, pc, pspecs, tokens,
+                               pos, cc, cspecs, cross)
         finally:
             DECODE_Q_SPEC.reset(tok)
+        return logits, cc
 
-    args = (params, torch.empty((b,), dtype=torch.int32, device=dev),
-            torch.empty((), dtype=torch.int32, device=dev), caches)
+    def fn(params, token, pos, caches, cross=None):
+        return hinted("decode", params, token, pos, caches, cross)
+
+    def fill(params, tokens, caches, cross=None):
+        return hinted("fill", params, tokens, None, caches, cross)
+
+    args = (params, torch.empty((b,), dtype=torch.int32, device="meta"),
+            torch.empty((), dtype=torch.int32, device="meta"),
+            caches_shapes)
     in_specs = (pspecs, P(dps), P(), cspecs)
     if needs_cross:
         args += (torch.empty((b, cfg.frontend_tokens, cfg.d_model),
-                             dtype=torch_dtype(cfg.dtype), device=dev),)
+                             dtype=torch_dtype(cfg.dtype), device="meta"),)
         in_specs += (P(dps, None, None),)
     meta = dict(kind="decode", batch=b, s_alloc=s_alloc, dp=dp,
                 tokens_per_step=b, cache_bytes=total_cache_bytes)
-    return Built(fn=fn, args=args, meta=meta,
-                 specs=(in_specs, (P(dps, None), cspecs)))
+    return Built(fn=fn, args=args, meta=meta, mesh=mesh,
+                 specs=(in_specs, (P(dps, None), cspecs)), prefill=fill)
 
 
 def build_prefill_step(cfg: ArchConfig, mesh, shape: InputShape) -> Built:
@@ -309,26 +403,25 @@ def build_prefill_step(cfg: ArchConfig, mesh, shape: InputShape) -> Built:
     seq = shape.seq_len
     dp = _dp_axes(mesh, b)
     dps = _dp_spec(dp)
-    dev = _device(mesh)
 
     shapes, axes = _model_shapes(cfg)
     pspecs = _serve_param_specs(cfg, mesh, shapes, axes)
-    params = {n: _meta_like(t, dev) for n, t in shapes.items()}
+    params = dict(shapes)
 
     def fn(params, tokens, fe=None):
-        logits, _, _ = M.forward(params, cfg, tokens, frontend_embeds=fe,
-                                 last_only=True)
-        return logits[:, 0]
+        return _run_rows(mesh, "prefill", cfg, dp,
+                         _laid_out(mesh, params, pspecs), pspecs, tokens,
+                         cross=fe)
 
-    args = (params, torch.empty((b, seq), dtype=torch.int32, device=dev))
+    args = (params, torch.empty((b, seq), dtype=torch.int32, device="meta"))
     in_specs = (pspecs, P(dps, None))
     if cfg.frontend is not None:
         args += (torch.empty((b, cfg.frontend_tokens, cfg.d_model),
-                             dtype=torch_dtype(cfg.dtype), device=dev),)
+                             dtype=torch_dtype(cfg.dtype), device="meta"),)
         in_specs += (P(dps, None, None),)
     meta = dict(kind="prefill", batch=b, seq=seq, dp=dp,
                 tokens_per_step=b * seq)
-    return Built(fn=fn, args=args, meta=meta,
+    return Built(fn=fn, args=args, meta=meta, mesh=mesh,
                  specs=(in_specs, P(dps, None)))
 
 

@@ -41,8 +41,8 @@ On ``meta`` tensors a mesh's cells and shards repeat the same work on
 the same shapes, and the evaluation is Python dispatch, op by op. Two
 memos keep the counts and cut the time: a functional operation's output
 metadata (its meta kernel skipped on a repeat), and, for a function
-marked :func:`repeats_on_meta` (a shard's local training), a whole
-call's counts, kernel records, recorded collectives and outputs, replayed
+marked :func:`repeats_on_meta` (a shard's local training, a serving
+row's step), a whole call's counts, kernel records, recorded collectives and outputs, replayed
 when a later call's arguments have the same metadata. Both are exact:
 on ``meta`` the outputs and the costs depend on the arguments' metadata
 alone.
@@ -222,11 +222,15 @@ class _Counter(TorchDispatchMode):
 
 def _call_key(x):
     """A hashable key of a call's arguments: tensors by their metadata,
-    a column group by its devices and cuts, containers by their items,
-    anything else as itself (functions by identity)."""
-    from ..sharding.tensor_parallel import ColumnGroup
+    a column group by its devices and cuts, a data-cut weight by its
+    blocks and its cut, containers by their items, anything else as
+    itself (functions by identity)."""
+    from ..sharding.tensor_parallel import ColumnGroup, DataCut
     if isinstance(x, torch.Tensor):
         return _meta_key(x)
+    if isinstance(x, DataCut):
+        return ("datacut", x.axis, str(x.device),
+                tuple(_meta_key(p) for p in x.parts))
     if isinstance(x, dict):
         return tuple((k, _call_key(v)) for k, v in x.items())
     if isinstance(x, (list, tuple)):
@@ -238,8 +242,11 @@ def _call_key(x):
 
 
 def _nested_tensors(x) -> list:
+    from ..sharding.tensor_parallel import DataCut
     if isinstance(x, torch.Tensor):
         return [x]
+    if isinstance(x, DataCut):
+        return list(x.parts)
     if isinstance(x, dict):
         x = list(x.values())
     if isinstance(x, (list, tuple)):
@@ -277,7 +284,8 @@ def repeats_on_meta(fn):
             return fn(*args, **kwargs)
         counter = _COUNTERS[-1]
         try:
-            key = (fn, _call_key(args), _call_key(kwargs))
+            key = (fn, torch.is_grad_enabled(), _call_key(args),
+                   _call_key(kwargs))
             hit = counter.calls.get(key)
         except TypeError:                 # an unhashable argument
             return fn(*args, **kwargs)

@@ -9,8 +9,11 @@ under ``cost_model.structural_costs`` and ``hlo_stats`` 's recorder: a
 strategy-A train step runs on the ``ClientMesh`` of the production
 mesh's cells (every cell's work, Python loop by loop), so its FLOPs,
 bytes, kernel records and collective bytes are the whole program's.
-Nothing is allocated. The roofline terms use the H100's constants
-(``launch.mesh``):
+The serving steps (prefill, decode, long_500k) run model-sharded on the
+mesh's ``meta`` cells (``launch.build``, a ``launch.mesh.ServeMesh``),
+every data row a column group, the rows after the first replayed from
+its counts. Nothing is allocated. The roofline terms use the H100's
+constants (``launch.mesh``):
 
   compute    = FLOPs / (chips * PEAK_FLOPS_BF16)   [structural, global]
   memory     = bytes / (chips * HBM_BW)            [analytic HBM model;
@@ -18,11 +21,14 @@ Nothing is allocated. The roofline terms use the H100's constants
                reported beside it]
   collective = (recorded wire bytes / chips) / NVLINK_BW
 
-Strategies B, B2 and B3 cut weights over the data and model axes, and
-the serving steps run model-sharded in the reference; a ``ClientMesh``
-realizes neither (ROADMAP A21), so those steps run as the one global
-program: their FLOPs and bytes are the program's, and their collective
-term is null with the reason in ``collective_null_reason``. The fields
+A serving row's collective term is the port's own transfers (the
+column sums, the logits join, the head_dim-cut cache's score sums, the
+data-axis weight gathers), not the reference's GSPMD choices. Strategies
+B, B2 and B3 cut training weights over the data and model axes, which
+the train step's ``ClientMesh`` does not realize (ROADMAP A21b), so
+their step runs as the one global program: its FLOPs and bytes are the
+program's, and its collective term is null with the reason in
+``collective_null_reason``. The fields
 only XLA gives are left out: ``xla_flops_per_device_loops_x1``,
 ``xla_bytes_per_device_loops_x1``, ``collective_flat`` (the flat HLO
 pass) and ``compile_s`` / ``lower_s``. ``memory_analysis`` gives the
@@ -168,15 +174,12 @@ def _nbytes(tree) -> int:
 
 
 def _collective_null_reason(built) -> str | None:
-    if built.meta["kind"] != "train":
-        return ("the reference runs serving model-sharded; the port has "
-                "no model-sharded decode or prefill, so its serving step "
-                "is one program and records no collective (ROADMAP A21)")
     if built.mesh is None:
-        return (f"strategy {built.meta['strategy']} cuts weights over the "
-                "data and model axes, which the port's ClientMesh does not "
-                "realize: the step runs as the global program, whose "
-                "transfers are not the deployment's (ROADMAP A21)")
+        return (f"strategy {built.meta['strategy']} cuts training weights "
+                "over the data and model axes, which the train step's "
+                "ClientMesh does not realize: the step runs as the global "
+                "program, whose transfers are not the deployment's "
+                "(ROADMAP A21b)")
     return None
 
 

@@ -16,7 +16,14 @@ reports itself, while it runs, to every recorder that
     each with its group size; their backward passes as the adjoint
     collective (``all-reduce`` for a broadcast's, ``all-gather`` for a
     ``reduce_sum``'s, ``all-reduce`` for an ``all_sum``'s,
-    ``reduce-scatter`` of a slice for a gather's).
+    ``reduce-scatter`` of a slice for a gather's);
+  * a serving row's transfers (``launch.build``'s prefill and decode on a
+    ``launch.mesh.ServeMesh``): its column group's operations as above
+    (the cached attention's partial scores summed across a head_dim-cut
+    cache, the vocabulary-cut logits joined at home), and each weight
+    cut over the data axis gathered at its use
+    (``sharding.tensor_parallel.gather_data``) as an ``all-gather`` over
+    its data column, each row recording its own cell's share.
 
 A recorder sees every trip of every loop, so no trip-count pass (the
 reference's ``collect_collectives_looped``) has a counterpart, and the
@@ -69,12 +76,18 @@ def _wire_bytes(kind: str, result_bytes: int, g: int) -> float:
     return float(result_bytes)
 
 
-def record(kind: str, result_bytes: int, g: int) -> None:
+def record(kind: str, result_bytes: int, g: int,
+           senders: int | None = None) -> None:
     """Record one collective of ``kind`` over ``g`` devices whose result
-    (per device) is ``result_bytes``, in every open recorder."""
+    (per device) is ``result_bytes``, in every open recorder. ``senders``
+    (default: 1 for a permute, else g) is how many of its participants'
+    shares the record covers: a serving row's gather of a weight over its
+    data column records its own cell's share (1), so that the rows of
+    the column together record the whole op."""
     if not RECORDERS:
         return
-    senders = 1 if kind == "collective-permute" else max(g, 1)
+    if senders is None:
+        senders = 1 if kind == "collective-permute" else max(g, 1)
     wb = senders * _wire_bytes(kind, result_bytes, g)
     for stats in RECORDERS:
         stats.wire_bytes += wb

@@ -21,11 +21,21 @@ whose cells may repeat one device (the CPU in tests, one card in
 ``chip_smoke.py``) — the port's counterpart of the reference tests'
 ``--xla_force_host_platform_device_count``.
 
-``make_production_mesh`` is the reference's 256- and 512-chip
-deployment meshes as a stand-in of ``meta`` cells (``launch.build``
-maps its client axes onto a ``ClientMesh``), and the roofline constants
-are the H100's (NVIDIA H100 80GB HBM3, SXM, 700 W), not the reference's
-v5e numbers.
+A :class:`ServeMesh` is a mesh of the reference's deployment axes,
+``("data", "model")`` or ``("pod", "data", "model")`` (``make_named_mesh``),
+whose cells are distinct cards, one device repeated (the CPU in tests,
+cuda:0 in ``chip_smoke.py``) or ``meta``. ``make_production_mesh`` is the
+reference's 256- and 512-chip deployment meshes of ``meta`` cells
+(``launch.build`` maps a train step's client axes onto a ``ClientMesh``),
+and the roofline constants are the H100's (NVIDIA H100 80GB HBM3, SXM,
+700 W), not the reference's v5e numbers. A ``ServeMesh`` lays an
+*unstacked* parameter dict and the list-of-stages cache tree out by
+``PartitionSpec``s that cut a dim over ``"model"``, over ``"data"`` (and
+``"pod"``), or over both (:meth:`ServeMesh.shard`, a :class:`Cells`
+list, row-major; :meth:`ServeMesh.gather` the inverse), and gives each
+row of cells (every axis but ``"model"``) as a column group with its
+view (:meth:`ServeMesh.row_view`). ``launch.build``'s serving steps run
+on ``meta`` cells and on real ones alike.
 """
 from __future__ import annotations
 
@@ -38,13 +48,15 @@ import torch
 from ..core.mixing import (_column_dims, _mesh_grid, cut_columns,
                            join_columns, join_lanes, split_lanes)
 from ..device import resolve_device
+from ..sharding.tensor_parallel import ColumnGroup, DataCut
 
 CPU_BUDGET_BYTES = 2 << 30
 
 Params = dict[str, torch.Tensor]
 
-__all__ = ["ClientMesh", "ProductionMesh", "make_client_mesh",
-           "make_named_mesh", "make_production_mesh", "make_test_mesh",
+__all__ = ["Cells", "ClientMesh", "ServeMesh",
+           "make_client_mesh", "make_named_mesh", "make_production_mesh",
+           "make_test_mesh",
            "resident_lane_capacity",
            "HBM_BW", "PEAK_FLOPS_BF16", "NVLINK_BW"]
 
@@ -125,33 +137,240 @@ class ClientMesh:
                                        grid), grid[0, 0])
 
 
+class Cells(list):
+    """A tree laid out on a :class:`ServeMesh`: one entry a cell (the
+    tree's nest, each leaf that cell's block), row-major over the mesh's
+    devices."""
+
+
+_SERVE_AXES = ("pod", "data", "model")
+
+
+def _nest_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a dict (name -> tensor) or a list of them
+    (None entries kept), ``specs`` of the same nest."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {n: fn(t, specs[n]) for n, t in tree.items()}
+    return [_nest_map(fn, t, s) for t, s in zip(tree, specs)]
+
+
+def _paths(fn, tree, path=()):
+    """``fn(path)`` for every leaf of a nest like :func:`_nest_map`'s, a
+    leaf's path its keys and list indices from the root."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {n: fn(path + (n,)) for n in tree}
+    return [_paths(fn, t, path + (i,)) for i, t in enumerate(tree)]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
-class ProductionMesh:
-    """A deployment mesh's shape without its chips: ``devices`` an object
-    array of ``meta`` devices, ``axis_names`` the reference's names. Read
-    as the reference reads a ``jax.sharding.Mesh`` (``devices.shape``,
-    ``axis_names``, ``devices.size``)."""
+class ServeMesh:
+    """A deployment mesh: ``devices`` an object array of ``torch.device``
+    over ``axis_names``, a subsequence of ``("pod", "data", "model")``
+    ending in ``"model"`` (the reference's ``("data", "model")`` and
+    ``("pod", "data", "model")``), read as the reference reads a
+    ``jax.sharding.Mesh`` (``devices.shape``, ``axis_names``,
+    ``devices.size``). A *row* is a cell's coordinates on every axis but
+    ``"model"``; its cells, one a model column, form a
+    :class:`~repro_torch.sharding.tensor_parallel.ColumnGroup`."""
 
     devices: np.ndarray
-    axis_names: tuple
+    axis_names: tuple = ("data", "model")
+
+    def __post_init__(self):
+        names = tuple(self.axis_names)
+        grid = np.asarray(self.devices, dtype=object)
+        if (not names or names[-1] != "model"
+                or names != tuple(a for a in _SERVE_AXES if a in names)
+                or grid.ndim != len(names)):
+            raise ValueError(
+                f"a serving mesh's axes are ('data', 'model') or ('pod', "
+                f"'data', 'model'), one a devices dim; got devices of "
+                f"shape {grid.shape} under {names}")
+        devs = np.empty(grid.shape, dtype=object)
+        for i, d in np.ndenumerate(grid):
+            devs[i] = torch.device(d)
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "axis_names", names)
+
+    @property
+    def sizes(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def model_parallel(self) -> int:
+        return self.sizes["model"]
+
+    def rows(self) -> list[tuple]:
+        """Every row's coordinates (all axes but ``"model"``), row-major."""
+        return list(np.ndindex(self.devices.shape[:-1]))
+
+    def _block(self, t: torch.Tensor, spec, coord: tuple) -> torch.Tensor:
+        """Cell ``coord``'s block of ``t`` under ``spec``: each dim cut
+        into the product of its axes' sizes, its block index row-major
+        over them (``jax.sharding``'s order)."""
+        index = dict(zip(self.axis_names, coord))
+        for i in range(t.dim()):
+            names = spec.names(i)
+            if not names:
+                continue
+            k, total = 0, 1
+            for a in names:
+                k, total = k * self.sizes[a] + index[a], total * self.sizes[a]
+            if t.shape[i] % total:
+                raise ValueError(f"dim {i} of {tuple(t.shape)} does not "
+                                 f"divide over {names}")
+            w = t.shape[i] // total
+            t = t.narrow(i, k * w, w)
+        return t
+
+    def shard(self, tree, specs) -> Cells:
+        """A tree (a dict name -> tensor, or the list-of-stages cache
+        tree) -> one copy a cell, its leaves that cell's blocks on its
+        device, each with its own storage (the counterpart of
+        ``device_put(NamedSharding)``)."""
+        def cell(coord, dev):
+            def one(t, spec):
+                b = self._block(t, spec, coord)
+                return b.clone() if b.device == dev else b.to(dev)
+            return _nest_map(one, tree, specs)
+        return Cells(cell(c, d) for c, d in np.ndenumerate(self.devices))
+
+    def empty(self, tree, specs) -> Cells:
+        """Like :meth:`shard` for a tree of shapes (``meta`` leaves, say):
+        each cell's blocks allocated, uninitialized, on its device."""
+        def cell(coord, dev):
+            return _nest_map(
+                lambda t, spec: torch.empty(
+                    self._block(t, spec, coord).shape, dtype=t.dtype,
+                    device=dev), tree, specs)
+        return Cells(cell(c, d) for c, d in np.ndenumerate(self.devices))
+
+    def gather(self, cells: Cells, specs):
+        """The inverse of :meth:`shard`: the whole tree on the first
+        cell's device (each block from the cells at index 0 of the axes
+        its spec does not cut)."""
+        coords = list(np.ndindex(self.devices.shape))
+
+        def leaf(path):
+            first, spec = _at(cells[0], path), _at(specs, path)
+            used = {a for i in range(len(spec)) for a in spec.names(i)}
+            shape = [first.shape[i] * int(np.prod(
+                [self.sizes[a] for a in spec.names(i)] or [1]))
+                for i in range(first.dim())]
+            out = torch.empty(shape, dtype=first.dtype,
+                              device=self.devices.flat[0])
+            for coord, cell in zip(coords, cells):
+                index = dict(zip(self.axis_names, coord))
+                if not any(index[a] for a in self.axis_names
+                           if a not in used):
+                    self._block(out, spec, coord).copy_(_at(cell, path))
+            return out
+        return _paths(leaf, cells[0])
+
+    def _cell(self, cells: Cells, row: tuple, column: int):
+        return cells[int(np.ravel_multi_index(row + (column,),
+                                              self.devices.shape))]
+
+    def row_group(self, row: tuple, dims: dict) -> ColumnGroup:
+        """Row ``row``'s cells as a column group (``dims``: flat name ->
+        the dim the model axis cuts, None when replicated)."""
+        return ColumnGroup([self.devices[row + (c,)]
+                            for c in range(self.model_parallel)], dims)
+
+    def row_view(self, cells: Cells, specs, row: tuple, *,
+                 every_column: bool = False):
+        """Row ``row``'s view of a laid-out tree, as the model's
+        column-parallel code reads it: a leaf the model axis cuts the
+        list of its columns' blocks, a replicated one column 0's block,
+        and a weight cut over the data (or pod) axis a :class:`DataCut`
+        of its data column's blocks, joined at its use.
+        ``every_column`` (a cache tree): every leaf the list of the
+        row's own blocks, one a column (a copy where the model axis does
+        not cut it), which each column updates; its data-cut dim is the
+        row's batch rows."""
+        sizes = self.sizes
+        mp = self.model_parallel
+
+        def view(path):
+            spec = _at(specs, path)
+            cut = [] if every_column else [
+                i for i in range(len(spec))
+                if any(a != "model" for a in spec.names(i))]
+
+            def at(c):
+                if not cut:
+                    return _at(self._cell(cells, row, c), path)
+                if len(cut) > 1 or "model" in spec.names(cut[0]):
+                    raise ValueError(
+                        f"{'/'.join(map(str, path))}: {spec!r} cuts the "
+                        "data axis together with another, which a "
+                        "serving row does not gather")
+                axes = spec.names(cut[0])
+                pos = [self.axis_names.index(a) for a in axes]
+                parts = []
+                for k in np.ndindex(*[sizes[a] for a in axes]):
+                    r = list(row)
+                    for p, v in zip(pos, k):
+                        r[p] = v
+                    parts.append(_at(self._cell(cells, tuple(r), c), path))
+                return DataCut(parts, cut[0], self.devices[row + (c,)])
+
+            if every_column or any("model" in spec.names(i)
+                                   for i in range(len(spec))):
+                return [at(c) for c in range(mp)]
+            return at(0)
+        return _paths(view, cells[0])
+
+    def batch_rows(self, row: tuple, dp: tuple, batch: int) -> slice:
+        """The batch rows ``row`` serves: its block over the batch's mesh
+        axes ``dp`` (the whole batch when ``dp`` is empty)."""
+        index = dict(zip(self.axis_names, row + (0,)))
+        k, total = 0, 1
+        for a in dp:
+            k, total = k * self.sizes[a] + index[a], total * self.sizes[a]
+        w = batch // total
+        return slice(k * w, (k + 1) * w)
 
 
-def make_named_mesh(shape, axes, device="meta") -> ProductionMesh:
-    """A mesh of ``shape`` under ``axes`` whose cells all lie on
-    ``device`` (the reference's host-device test mesh, ``(4, 2)``
-    ``("data", "model")``, on one card or on ``meta``)."""
-    devs = np.empty(tuple(shape), dtype=object)
-    for i in np.ndindex(devs.shape):
-        devs[i] = torch.device(device)
-    return ProductionMesh(devices=devs, axis_names=tuple(axes))
+def make_named_mesh(shape, axes=("data", "model"), device=None,
+                    devices=None) -> ServeMesh:
+    """A mesh of ``shape`` under ``axes``: its cells ``devices`` (distinct
+    cards, row-major, one a cell) when given, else ``device`` repeated
+    (the reference's host-device test mesh, ``(4, 2)`` ``("data",
+    "model")``): the card when None (raises without one), else as named
+    (``"cpu"``, ``"meta"``)."""
+    shape = tuple(shape)
+    grid = np.empty(shape, dtype=object)
+    if devices is not None:
+        if len(devices) != grid.size:
+            raise ValueError(f"a {shape} mesh needs {grid.size} devices, "
+                             f"got {len(devices)}")
+        grid.flat[:] = [torch.device(d) for d in devices]
+    else:
+        dev = resolve_device(device)
+        for i in np.ndindex(shape):
+            grid[i] = dev
+    return ServeMesh(devices=grid, axis_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+def make_production_mesh(*, multi_pod: bool = False) -> ServeMesh:
     """Single pod: 256 chips (16, 16) ("data", "model").
-    Multi-pod: 2 pods = 512 chips (2, 16, 16) ("pod", "data", "model")."""
+    Multi-pod: 2 pods = 512 chips (2, 16, 16) ("pod", "data", "model"),
+    their cells ``meta``."""
     if multi_pod:
-        return make_named_mesh((2, 16, 16), ("pod", "data", "model"))
-    return make_named_mesh((16, 16), ("data", "model"))
+        return make_named_mesh((2, 16, 16), ("pod", "data", "model"),
+                               device="meta")
+    return make_named_mesh((16, 16), device="meta")
 
 
 def make_test_mesh(n_shards: int, device=None,

@@ -31,6 +31,15 @@ cut, the hybrid's shared block (``down`` row-parallel) and the encoder,
 so the round trains that row's cells tensor-parallel. The form declines
 one cut (:func:`_tp_covers`): an SSM inner dim cut across heads, which
 keeps the joined step.
+
+Serving on a mesh (``launch.build``'s prefill and decode on a
+``launch.mesh.ServeMesh``): ``forward(..., caches=, tp=)``,
+``prefill(..., tp=)`` and ``decode_step(..., tp=)`` take a serving row's
+view (``ServeMesh.row_view``: unstacked leaves, a model-cut leaf the list
+of its columns' blocks, a data-cut one a ``DataCut``) and its caches
+(one copy or slice a column, updated in place); a data-cut leaf is
+gathered at its use, and a vocabulary-cut head's logits are joined at
+home for ``last_only`` and for a cached forward.
 """
 from __future__ import annotations
 
@@ -46,7 +55,7 @@ from .layers import (Params, apply_norm, dense_init, embed_tokens,
 from .transformer import (apply_stage, init_block, init_stage,
                           init_stage_cache, torch_dtype)
 from ..convert import index_key
-from ..sharding.tensor_parallel import with_column_parallel
+from ..sharding.tensor_parallel import gather_data, with_column_parallel
 
 MOE_AUX_WEIGHT = 0.01
 Key = torch.Tensor | int
@@ -183,17 +192,27 @@ def model_axes(cfg: ArchConfig) -> dict[str, tuple]:
 # The client axis
 # ---------------------------------------------------------------------------
 
+def _first(t):
+    """A leaf, or the first column's block of a list-valued one."""
+    return t[0] if isinstance(t, list) else t
+
+
 def _stacked(params: Params) -> bool:
     """Whether the parameters carry a client axis (the embedding table is
-    [V, d] without one; a cut table's column slices always carry it)."""
-    table = params["embed/table"]
-    return isinstance(table, list) or table.dim() == 3
+    [V, d] without one, also in a column's block)."""
+    return _first(params["embed/table"]).dim() == 3
+
+
+def _each(fn, t):
+    """``fn`` on a leaf, or on each column's block of a list-valued one."""
+    return [fn(c) for c in t] if isinstance(t, list) else fn(t)
 
 
 def _add_axis(params: Params, *inputs):
     """One model as a client axis of 1: params, inputs and caches (every
     cache leaf but the shared ``kpos``)."""
-    out = [{n: t.unsqueeze(0) for n, t in params.items()}]
+    out = [{n: _each(lambda t: t.unsqueeze(0), t)
+            for n, t in params.items()}]
     for x in inputs:
         out.append(None if x is None else
                    [None if c is None else _cache_axis(c, 0) for c in x]
@@ -205,9 +224,9 @@ def _cache_axis(cache: Params, drop: int) -> Params:
     """Add (``drop`` 0) or drop (1) the client axis of a stage cache: it
     follows the layer axis of a stacked stage (``kpos`` [n, S], or an ssm
     stage's leaves) and leads a shared block's (``kpos`` [S])."""
-    at = 0 if "kpos" in cache and cache["kpos"].dim() == 1 else 1
+    at = 0 if "kpos" in cache and _first(cache["kpos"]).dim() == 1 else 1
     return {name: t if name == "kpos" else
-            (t.squeeze(at) if drop else t.unsqueeze(at))
+            _each(lambda c: c.squeeze(at) if drop else c.unsqueeze(at), t)
             for name, t in cache.items()}
 
 
@@ -257,13 +276,24 @@ def cross_states(params: Params, cfg: ArchConfig,
 # Forward
 # ---------------------------------------------------------------------------
 
+# The leaves a stage gathers layer by layer (transformer.apply_stage).
+_LAYERED = ("stages/", "enc_stage/", "shared_attn/")
+
+
 def _forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
              positions, frontend_embeds, caches, cross_kv, last_only,
              tp=None):
     m, b, l = tokens.shape
     if positions is None:
         positions = torch.arange(l, dtype=torch.int32, device=tokens.device)
-    x = embed_tokens(sub(params, "embed"), tokens, tp=tp)
+    if tp is not None:
+        # A serving row's data-cut leaves: the small top-level ones
+        # gathered now, the table and the head at their use.
+        params = {n: t if n.startswith(_LAYERED)
+                  or n in ("embed/table", "lm_head") else gather_data(t)
+                  for n, t in params.items()}
+    x = embed_tokens({"table": gather_data(params["embed/table"])}, tokens,
+                     tp=tp)
     if cfg.embed_scale:
         # The scale rounded to x's dtype first, as jnp.asarray(.., dtype);
         # a fill on the device, no copy from the host.
@@ -290,13 +320,16 @@ def _forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     if last_only:
         x = x[:, :, -1:]
     x = apply_norm(cfg.norm, sub(params, "final_norm"), x)
-    head = params["embed/table" if cfg.tie_embeddings else "lm_head"]
+    head = gather_data(params["embed/table" if cfg.tie_embeddings
+                              else "lm_head"])
     if isinstance(head, list):
         logits = vocab_logits(tp, head, x, cfg.tie_embeddings)
+        if last_only or caches is not None:     # serving: joined at home
+            logits = tp.gather(logits, dim=-1)
     elif cfg.tie_embeddings:
-        logits = logits_from_embedding(sub(params, "embed"), x)
+        logits = logits_from_embedding({"table": head}, x)
     else:
-        logits = mm(x, params["lm_head"])
+        logits = mm(x, head)
     return logits, (new_caches if caches is not None else None), aux
 
 
@@ -309,8 +342,11 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     """tokens [(m,) b, l]. Returns (logits [(m,) b, l, vocab], caches',
     aux [(m)]). last_only: logits for the final position only (the
     prefill serving path). ``tp``: a column group, ``params`` a 2D mesh
-    row's view (``ColumnGroup.view``, stacked); with a cut vocabulary
-    the logits are the columns' slices, a list."""
+    row's view (``ColumnGroup.view``, stacked), or a serving row's
+    (``launch.mesh.ServeMesh.row_view``, unstacked, its ``caches`` one
+    copy or slice a column, updated in place); with a cut vocabulary the
+    logits are the columns' slices, a list, joined at home for
+    ``last_only`` and for a cached forward."""
     kw = dict(positions=positions, last_only=last_only)
     if _stacked(params):
         return _forward(params, cfg, tokens, frontend_embeds=frontend_embeds,
@@ -318,7 +354,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     p, tok, fe, cs, cc = _add_axis(params, tokens, frontend_embeds,
                                    cross_states, caches)
     logits, nc, aux = _forward(p, cfg, tok, frontend_embeds=fe, caches=cc,
-                               cross_kv=cs, **kw)
+                               cross_kv=cs, tp=tp, **kw)
     if nc is not None:
         nc = [None if c is None else _cache_axis(c, 1) for c in nc]
     return logits[0], nc, aux[0]
@@ -426,23 +462,29 @@ def init_decode_caches(cfg: ArchConfig, batch: int, s_alloc: int,
 
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                 pos, caches: list, *,
-                cross_states: torch.Tensor | None = None):
+                cross_states: torch.Tensor | None = None, tp=None):
     """One-token decode. token: [(m,) b]; pos: the position (an int, or
     a 0-dim int tensor on the device, which a captured step reads),
-    the same for the batch. Returns (logits [(m,) b, vocab], caches)."""
+    the same for the batch. ``tp``: a column group, ``params`` and
+    ``caches`` a serving row's view (:func:`forward`). Returns (logits
+    [(m,) b, vocab], caches)."""
     positions = torch.as_tensor(pos, dtype=torch.int32,
                                 device=token.device).reshape(1)
     logits, new_caches, _ = forward(params, cfg, token[..., None],
                                     positions=positions, caches=caches,
-                                    cross_states=cross_states)
+                                    cross_states=cross_states, tp=tp)
     return logits[..., 0, :], new_caches
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            caches: list, *, cross_states: torch.Tensor | None = None):
-    """Prefill a request into the caches; returns (last logits, caches)."""
+            caches: list, *, cross_states: torch.Tensor | None = None,
+            tp=None):
+    """Prefill a request into the caches; returns (last logits, caches).
+    ``tp``: as :func:`decode_step`'s; only the last position's logits
+    are computed then (the reference's ``last_only``)."""
     l = tokens.shape[-1]
     positions = torch.arange(l, dtype=torch.int32, device=tokens.device)
     logits, new_caches, _ = forward(params, cfg, tokens, positions=positions,
-                                    caches=caches, cross_states=cross_states)
+                                    caches=caches, cross_states=cross_states,
+                                    last_only=tp is not None, tp=tp)
     return logits[..., -1, :], new_caches

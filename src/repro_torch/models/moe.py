@@ -32,6 +32,18 @@ Two context variables change the grouping, as the reference's do:
   (strategies B2 and B3). The port has no data-sharded batch to run it
   on, so it realizes the numerics on the one program it runs.
 
+A serving step on a mesh (``launch.build`` on a
+``launch.mesh.ServeMesh``) runs its batch as blocks, one a data row, and
+the reference's serving routes the whole batch as one dispatch group.
+``MOE_ROWS`` (a :class:`RowRouting`, which ``launch.build`` sets) keeps
+that grouping: the capacity is the whole batch's, and a block's tokens
+rank in an expert after every earlier block's, so a block learns, at
+each MoE layer, the earlier blocks' per-expert counts (an all-gather of
+``[e]`` counts over its data column; no activations move). A row's
+buffer holds min(capacity, its tokens) slots an expert, the most of its
+own tokens an expert can keep, so the rows of a long prefill together
+compute up to their count times the whole batch's expert slots.
+
 Load-balance auxiliary loss: Switch-style ``E * sum_e f_e * p_e``, one a
 client.
 
@@ -57,12 +69,55 @@ import torch
 import torch.nn.functional as F
 
 from .. import prng
+from ..launch import hlo_stats
 from .layers import Params, dense_init
 
 MOE_GROUPS: contextvars.ContextVar = contextvars.ContextVar(
     "MOE_GROUPS", default=None)
 MOE_SHARD_MAP: contextvars.ContextVar = contextvars.ContextVar(
     "MOE_SHARD_MAP", default=None)
+MOE_ROWS: contextvars.ContextVar = contextvars.ContextVar(
+    "MOE_ROWS", default=None)
+
+
+class RowRouting:
+    """A serving batch's ``n_blocks`` blocks (in batch order, one a data
+    row) routed as one dispatch group (module docstring). The rows run
+    their steps one after another, each announced by :meth:`enter`; a
+    block's routing reads only the blocks before it, so the rows run in
+    batch order."""
+
+    def __init__(self, n_blocks: int):
+        self.n_blocks = n_blocks
+        self.block = 0
+        self._layer = 0
+        self._counts: list[dict] = []   # a MoE layer's: block -> [1, e]
+
+    def enter(self, block: int) -> None:
+        """A row serving block ``block`` starts its step."""
+        self.block, self._layer = block, 0
+
+    def offsets(self, counts: torch.Tensor) -> torch.Tensor:
+        """The row's per-expert counts [1, e] at its next MoE layer ->
+        the earlier blocks' sums there, [1, e] on its device: the row's
+        share of an all-gather of every block's counts."""
+        layer = self._layer
+        self._layer += 1
+        if layer == len(self._counts):
+            self._counts.append({})
+        seen = self._counts[layer]
+        seen.setdefault(self.block, counts)
+        earlier = [c for blk, c in seen.items() if blk < self.block]
+        if len(earlier) != self.block:
+            raise ValueError("the rows of a MoE serving step run in batch "
+                             "order")
+        hlo_stats.record("all-gather",
+                         counts.numel() * counts.element_size()
+                         * self.n_blocks, self.n_blocks, senders=1)
+        off = torch.zeros_like(counts)
+        for c in earlier:
+            off = off + c.to(off.device)
+        return off
 
 
 def init_moe(key: torch.Tensor, d_model: int, n_experts: int, d_ff: int,
@@ -232,7 +287,14 @@ def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
         aux = aux.reshape(-1, groups).mean(dim=1)
 
     # ---- capacity & ranking (per group) ---------------------------------
-    cap = max(1, int(capacity_factor * k * tg / e))
+    rows = MOE_ROWS.get()
+    if rows is not None and g != 1:
+        raise ValueError("a serving row routes one group of one client")
+    t_all = tg if rows is None else tg * rows.n_blocks
+    cap = max(1, int(capacity_factor * k * t_all / e))
+    # A buffer's slots an expert: a serving row's own tokens only, of
+    # which an expert takes at most tg.
+    width = cap if rows is None else min(cap, tg)
     tk = tg * k
     flat_e = idx.reshape(g, tk)                               # [g, tk]
     order = torch.argsort(flat_e, dim=-1, stable=True)
@@ -244,15 +306,21 @@ def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
                    - grp_start.gather(1, sorted_e))
     inv = torch.argsort(order, dim=-1, stable=True)
     rank = rank_sorted.gather(1, inv)
-    keep = rank < cap                                         # [g, tk]
+    # A serving row's slots of an expert follow the earlier blocks'.
+    off = None if rows is None else rows.offsets(grp_end - grp_start)
+    keep = (rank if off is None
+            else rank + off.gather(1, flat_e)) < cap          # [g, tk]
     safe_rank = torch.where(keep, rank, 0)
 
-    # ---- dispatch: batched gather into [g, e, cap, d] -------------------
-    pos = grp_start[:, :, None] + torch.arange(cap, device=dev)[None, None]
-    valid = pos < grp_end[:, :, None]                         # [g, e, cap]
-    pos_flat = torch.clamp(pos.reshape(g, e * cap), 0, tk - 1)
+    # ---- dispatch: batched gather into [g, e, width, d] -----------------
+    slots = torch.arange(width, device=dev)[None, None]
+    pos = grp_start[:, :, None] + slots
+    valid = pos < grp_end[:, :, None]                       # [g, e, width]
+    if off is not None:
+        valid = valid & (slots + off[:, :, None] < cap)
+    pos_flat = torch.clamp(pos.reshape(g, e * width), 0, tk - 1)
     src_tok = order.gather(1, pos_flat) // k                  # token ids
-    slot = flat_e * cap + safe_rank                           # [g, tk]
+    slot = flat_e * width + safe_rank                         # [g, tk]
 
     if experts_cut:
         # Experts cut: column c holds experts [lo, lo + el).
@@ -261,12 +329,13 @@ def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
             w = [params[n][c] for n in ("wg", "wu", "wd")]
             el = w[0].shape[1]
             lo, cd = c * el, xc.device
-            buf = _dispatch(xc, src_tok[:, lo * cap:(lo + el) * cap].to(cd),
+            buf = _dispatch(xc,
+                            src_tok[:, lo * width:(lo + el) * width].to(cd),
                             valid[:, lo:lo + el].to(cd))
             mine = (flat_e >= lo) & (flat_e < lo + el)
             parts.append(_combine(
-                _experts(buf, *w, groups), torch.where(mine, slot - lo * cap,
-                                               0).to(cd),
+                _experts(buf, *w, groups),
+                torch.where(mine, slot - lo * width, 0).to(cd),
                 (keep & mine).to(cd), gv, tg))
         out = tp.reduce_sum(parts)
     else:

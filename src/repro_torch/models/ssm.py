@@ -23,6 +23,20 @@ its heads, convolves, runs ``ssd_chunked`` over them and gates; the
 gated RMSNorm's ``mean(g * g)`` over the whole ``d_inner`` is the
 columns' partial sums of squares added at home and broadcast back; and
 ``wo`` is row-parallel, its partials summed at home.
+
+A serving row (``launch.build`` on a ``launch.mesh.ServeMesh``) passes
+its cache as one copy or slice a column (every leaf a list), laid out by
+the reference's ``_cache_specs``: ``conv_x`` cut by channel with the
+inner dim, the ``ssm`` state ``[b, h, n_state, p]`` by heads, and
+``conv_B`` / ``conv_C`` by channel where the model axis divides
+``ssm_state`` (else each column holds a copy). The cached mixer then runs
+one decode step's recurrence (or a prompt's chunked scan from the state)
+per column over its heads, as the training form does; B and C's
+convolutions run at home over their whole state (a cut state's slices
+gathered there, and the new state sliced back); every column's cache is
+updated in place. With the inner dim and heads replicated the mixer runs
+at home and every column's copy takes the new state. An inner dim cut
+across heads (ROADMAP A20c) is refused.
 """
 from __future__ import annotations
 
@@ -147,49 +161,133 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _heads_gated(params: Params, x: torch.Tensor, Bc: torch.Tensor,
-                 Cc: torch.Tensor, *, head_dim: int, chunk: int
-                 ) -> torch.Tensor:
-    """The uncached mixer up to its gated norm, over the heads of
-    ``params`` (the whole mixer, or one column's heads): ``y * silu(z)``
-    in f32, [m, b, l, d_inner of these heads]."""
+                 Cc: torch.Tensor, *, head_dim: int, chunk: int,
+                 state: Params | None = None
+                 ) -> tuple[torch.Tensor, Params | None]:
+    """The mixer up to its gated norm, over the heads of ``params`` (the
+    whole mixer, or one column's heads): ``y * silu(z)`` in f32, [m, b,
+    l, d_inner of these heads], and the new state. ``state`` (``conv_x``
+    and ``ssm`` of these heads) is read as the conv's trailing context
+    and the scan's initial state (one recurrence step for one token);
+    the new one is returned (None without a state), not written."""
     m, b, l, _ = x.shape
     f32 = torch.float32
     z = mm(x, params["wz"])
-    xc = _causal_conv(mm(x, params["wx"]), params["conv_x"])
+    xin = mm(x, params["wx"])
+    xc = _causal_conv(xin, params["conv_x"],
+                      None if state is None else state["conv_x"])
     dt = _softplus(mm(x.to(f32), params["wdt"].to(f32))
                    + bcast(params["dt_bias"], x))      # [m,b,l,h]
     h = dt.shape[-1]
     xh = xc.reshape(m, b, l, h, head_dim)
     x_dt = xh.to(f32) * dt[..., None]
     dA = dt * -torch.exp(params["A_log"])[:, None, None, :]
-    y, _ = ssd_chunked(x_dt.reshape(m * b, l, h, head_dim),
-                       dA.reshape(m * b, l, h), Bc.reshape(m * b, l, -1),
-                       Cc.reshape(m * b, l, -1), chunk=chunk)
-    y = y.reshape(m, b, l, h, head_dim)
+    if state is not None and l == 1:
+        s_new = state["ssm"].to(f32) * torch.exp(dA[:, :, 0])[
+            ..., None, None] + torch.einsum(
+            "mbn,mbhp->mbhnp", Bc[:, :, 0].to(f32), x_dt[:, :, 0])
+        y = torch.einsum("mbn,mbhnp->mbhp", Cc[:, :, 0].to(f32),
+                         s_new)[:, :, None]
+    else:
+        init = None if state is None else state["ssm"].reshape(
+            (m * b,) + tuple(state["ssm"].shape[2:]))
+        y, s_new = ssd_chunked(x_dt.reshape(m * b, l, h, head_dim),
+                               dA.reshape(m * b, l, h),
+                               Bc.reshape(m * b, l, -1),
+                               Cc.reshape(m * b, l, -1), chunk=chunk,
+                               init_state=init)
+        y = y.reshape(m, b, l, h, head_dim)
+    new = None if state is None else {
+        "conv_x": _conv_state(state["conv_x"], xin),
+        "ssm": s_new.reshape(state["ssm"].shape).to(state["ssm"].dtype)}
     y = y + params["D"][:, None, None, :, None] * xh.to(f32)
-    return y.reshape(m, b, l, h * head_dim) * F.silu(z.to(f32))
+    return y.reshape(m, b, l, h * head_dim) * F.silu(z.to(f32)), new
+
+
+def _conv_state(state: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+    """The conv's trailing context after ``raw`` [m, b, l, c]: the last
+    D_CONV - 1 inputs, in the state's dtype."""
+    return torch.cat([state, raw.to(state.dtype)],
+                     dim=2)[:, :, -(D_CONV - 1):]
+
+
+def _conv_at_home(tp, raw: torch.Tensor, w: torch.Tensor,
+                  states: list) -> torch.Tensor:
+    """B's or C's depthwise conv at home over its whole cached state (the
+    columns' channel slices gathered, or column 0's copy); the new state
+    sliced back to the columns, or into every copy, in place."""
+    cut = states[0].shape[-1] < raw.shape[-1]
+    st = tp.gather(states, dim=-1) if cut else states[0]
+    out = _causal_conv(raw, w, st)
+    new = _conv_state(st, raw)
+    for s, n in zip(states, tp.slice(new, -1) if cut else tp.broadcast(new)):
+        s.copy_(n)
+    return out
+
+
+def _mamba2_cached_columns(tp, params: Params, x: torch.Tensor,
+                           cache: dict, *, head_dim: int, chunk: int
+                           ) -> torch.Tensor:
+    """The cached mixer over a serving row (module docstring); updates
+    every column's cache in place and returns [m, b, l, d_model] at
+    home."""
+    cols = [{n: t[c] for n, t in cache.items()} for c in range(tp.mp)]
+    if not isinstance(params["wx"], list):
+        y, new = apply_mamba2(params, x, head_dim=head_dim, chunk=chunk,
+                              cache=cols[0])
+        for name, t in new.items():
+            for col, tc in zip(cols, tp.broadcast(t)):
+                col[name].copy_(tc)
+        return y
+    if not isinstance(params["A_log"], list):
+        raise ValueError(
+            "the cached tensor-parallel mixer needs its heads cut with "
+            "its inner dim; this model axis cuts the inner dim across "
+            "heads (ROADMAP A20c)")
+    Bc = _conv_at_home(tp, mm(x, params["wB"]), params["conv_B"],
+                       [c["conv_B"] for c in cols])
+    Cc = _conv_at_home(tp, mm(x, params["wC"]), params["conv_C"],
+                       [c["conv_C"] for c in cols])
+    per = [{n: t[c] for n, t in params.items() if isinstance(t, list)}
+           for c in range(tp.mp)]
+    gs = []
+    for p, xc, bc, cc, col in zip(per, tp.broadcast(x), tp.broadcast(Bc),
+                                  tp.broadcast(Cc), cols):
+        g, new = _heads_gated(p, xc, bc, cc, head_dim=head_dim, chunk=chunk,
+                              state=col)
+        for name, t in new.items():
+            col[name].copy_(t)
+        gs.append(g)
+    return _gated_out(tp, per, gs, x.dtype)
+
+
+def _gated_out(tp, per: list, gs: list, dtype) -> torch.Tensor:
+    """The gated RMSNorm over the columns' ``g`` (the mean of g * g over
+    the whole inner dim from the columns' partial sums) and the
+    row-parallel ``wo``, summed at home."""
+    f32 = torch.float32
+    d_inner = sum(g.shape[-1] for g in gs)
+    ms = tp.all_sum([(g * g).sum(dim=-1, keepdim=True) for g in gs])
+    outs = []
+    for p, g, sq in zip(per, gs, ms):
+        g = g * torch.rsqrt(sq / d_inner + 1e-6)
+        g = g * bcast(p["norm_scale"].to(f32), g)
+        outs.append(mm(g.to(dtype), p["wo"]))
+    return tp.reduce_sum(outs)
 
 
 def _mamba2_columns(tp, params: Params, x: torch.Tensor, *, head_dim: int,
                     chunk: int) -> torch.Tensor:
     """The uncached mixer with its inner dim and heads cut over ``tp``'s
     columns (module docstring); returns [m, b, l, d_model] at home."""
-    f32 = torch.float32
     Bc = _causal_conv(mm(x, params["wB"]), params["conv_B"])
     Cc = _causal_conv(mm(x, params["wC"]), params["conv_C"])
-    cols = [{n: t[c] for n, t in params.items() if isinstance(t, list)}
-            for c in range(tp.mp)]
-    gs = [_heads_gated(p, xc, bc, cc, head_dim=head_dim, chunk=chunk)
-          for p, xc, bc, cc in zip(cols, tp.broadcast(x), tp.broadcast(Bc),
+    per = [{n: t[c] for n, t in params.items() if isinstance(t, list)}
+           for c in range(tp.mp)]
+    gs = [_heads_gated(p, xc, bc, cc, head_dim=head_dim, chunk=chunk)[0]
+          for p, xc, bc, cc in zip(per, tp.broadcast(x), tp.broadcast(Bc),
                                    tp.broadcast(Cc))]
-    d_inner = sum(g.shape[-1] for g in gs)
-    ms = tp.all_sum([(g * g).sum(dim=-1, keepdim=True) for g in gs])
-    outs = []
-    for p, g, sq in zip(cols, gs, ms):
-        g = g * torch.rsqrt(sq / d_inner + 1e-6)
-        g = g * bcast(p["norm_scale"].to(f32), g)
-        outs.append(mm(g.to(x.dtype), p["wo"]))
-    return tp.reduce_sum(outs)
+    return _gated_out(tp, per, gs, x.dtype)
 
 
 def apply_mamba2(params: Params, x: torch.Tensor, *, head_dim: int = 64,
@@ -197,74 +295,27 @@ def apply_mamba2(params: Params, x: torch.Tensor, *, head_dim: int = 64,
                  tp=None) -> tuple[torch.Tensor, Params | None]:
     """x: [m, b, l, d_model]. cache (decode): {"conv_x","conv_B","conv_C":
     [m, b, D_CONV-1, *], "ssm": [m, b, h, n, p]}. ``tp``: a column group,
-    the inner dim and heads cut (the uncached training forward). Returns
-    (y, new_cache|None)."""
+    the inner dim and heads cut (the uncached training forward), or with
+    a cache (a serving row's, a list a leaf) the cached mixer, which
+    updates it in place (:func:`_mamba2_cached_columns`). Returns (y,
+    new_cache|None)."""
+    if tp is not None and cache is not None:
+        return _mamba2_cached_columns(tp, params, x, cache,
+                                      head_dim=head_dim, chunk=chunk), cache
     if tp is not None and isinstance(params["wx"], list):
-        if cache is not None:
-            raise ValueError("the tensor-parallel mixer is uncached (the "
-                             "training step)")
         return _mamba2_columns(tp, params, x, head_dim=head_dim,
                                chunk=chunk), None
-    m, b, l, d = x.shape
-    d_inner = params["wx"].shape[-1]
-    h = d_inner // head_dim
     f32 = torch.float32
-
-    z = mm(x, params["wz"])                            # [m,b,l,di]
-    xin = mm(x, params["wx"])
-    Braw = mm(x, params["wB"])
-    Craw = mm(x, params["wC"])
-    dt = _softplus(mm(x.to(f32), params["wdt"].to(f32))
-                   + bcast(params["dt_bias"], x))      # [m,b,l,h]
-    A = -torch.exp(params["A_log"])                    # [m,h]
-
-    decode = cache is not None and l == 1
+    Braw, Craw = mm(x, params["wB"]), mm(x, params["wC"])
     cstate = cache if cache is not None else {}
-    xc = _causal_conv(xin, params["conv_x"], cstate.get("conv_x"))
     Bc = _causal_conv(Braw, params["conv_B"], cstate.get("conv_B"))
     Cc = _causal_conv(Craw, params["conv_C"], cstate.get("conv_C"))
-
-    xh = xc.reshape(m, b, l, h, head_dim)
-    x_dt = xh.to(f32) * dt[..., None]
-    dA = dt * A[:, None, None, :]
-
-    if decode:
-        s = cstate["ssm"].to(f32)                      # [m,b,h,n,p]
-        da1 = torch.exp(dA[:, :, 0])                   # [m,b,h]
-        s_new = s * da1[..., None, None] + torch.einsum(
-            "mbn,mbhp->mbhnp", Bc[:, :, 0].to(f32), x_dt[:, :, 0])
-        y = torch.einsum("mbn,mbhnp->mbhp", Cc[:, :, 0].to(f32), s_new)
-        y = y[:, :, None]                              # [m,b,1,h,p]
-        new_cache = {
-            "conv_x": torch.cat([cstate["conv_x"][:, :, 1:], xin], dim=2),
-            "conv_B": torch.cat([cstate["conv_B"][:, :, 1:], Braw], dim=2),
-            "conv_C": torch.cat([cstate["conv_C"][:, :, 1:], Craw], dim=2),
-            "ssm": s_new.to(cstate["ssm"].dtype),
-        }
-    else:
-        init = cstate.get("ssm")
-        y, s_final = ssd_chunked(
-            x_dt.reshape(m * b, l, h, head_dim), dA.reshape(m * b, l, h),
-            Bc.reshape(m * b, l, -1), Cc.reshape(m * b, l, -1), chunk=chunk,
-            init_state=None if init is None else init.reshape(
-                (m * b,) + tuple(init.shape[2:])))
-        y = y.reshape(m, b, l, h, head_dim)
-        new_cache = None
-        if cache is not None:   # chunked prefill into state
-            new_cache = {
-                "conv_x": torch.cat([cstate["conv_x"], xin],
-                                    dim=2)[:, :, -(D_CONV - 1):],
-                "conv_B": torch.cat([cstate["conv_B"], Braw],
-                                    dim=2)[:, :, -(D_CONV - 1):],
-                "conv_C": torch.cat([cstate["conv_C"], Craw],
-                                    dim=2)[:, :, -(D_CONV - 1):],
-                "ssm": s_final.reshape(init.shape).to(cstate["ssm"].dtype),
-            }
-
-    y = y + params["D"][:, None, None, :, None] * xh.to(f32)
-    y = y.reshape(m, b, l, d_inner)
+    g, state = _heads_gated(params, x, Bc, Cc, head_dim=head_dim,
+                            chunk=chunk, state=cache)
+    new_cache = None if cache is None else {
+        **state, "conv_B": _conv_state(cache["conv_B"], Braw),
+        "conv_C": _conv_state(cache["conv_C"], Craw)}
     # gated RMSNorm (Mamba2): norm(y * silu(z))
-    g = y * F.silu(z.to(f32))
     g = g * torch.rsqrt((g * g).mean(dim=-1, keepdim=True) + 1e-6)
     g = g * bcast(params["norm_scale"].to(f32), g)
     out = mm(g.to(x.dtype), params["wo"])

@@ -27,7 +27,11 @@ block's attention (self and cross), MLP, MoE and Mamba2 mixer, whose cut
 leaves are lists of column slices (a stage leaf's slices each carry the
 layer axis), and the shared block's ``down``, row-parallel over
 ``concat(x, x_first)`` sliced across the columns; norms, residuals and
-the gates run once, at home.
+the gates run once, at home. A serving row's view may hold weights cut
+over the data axis (``sharding.tensor_parallel.DataCut``): each layer's
+are gathered just before it runs and dropped after it, and its cache (a
+list a leaf, one copy or slice a column) is updated in place by its
+attention or mixer, so a stage returns the cache it was given.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from .layers import (Params, apply_mlp, apply_norm, dense_init, init_mlp,
                      init_norm, mm_rows, prefixed, sub)
 from .moe import apply_moe, init_moe
 from .ssm import apply_mamba2, init_mamba2, init_mamba2_cache
+from ..sharding.tensor_parallel import gather_data
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -219,9 +224,14 @@ def _layers_of(t) -> list:
 
 
 def _layer_caches(cache: Params | None, n: int) -> list:
+    """A stage cache [n, ...] as its n layers' caches (views); a serving
+    row's list-valued leaves as one list of column views a layer."""
     if cache is None:
         return [None] * n
-    parts = {name: t.unbind(0) for name, t in cache.items()}
+    parts = {name: [list(layer) for layer in zip(*(c.unbind(0)
+                                                   for c in t))]
+             if isinstance(t, list) else t.unbind(0)
+             for name, t in cache.items()}
     return [{name: parts[name][i] for name in parts} for i in range(n)]
 
 
@@ -233,8 +243,12 @@ def apply_stage(stage_params: Params, x: torch.Tensor, *, cfg: ArchConfig,
                 shared_params: Params | None = None, tp=None
                 ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """Run a stage of n identical blocks (leaves [m, n, ...]). cache:
-    stacked [n, ...] or None. Returns (x, new_cache_stacked, aux [m])."""
+    stacked [n, ...] or None. Returns (x, new_cache_stacked, aux [m]);
+    with ``tp`` and a cache, the cache given, updated in place."""
     if kind == "shared":
+        if tp is not None:
+            shared_params = {k: gather_data(t)
+                             for k, t in shared_params.items()}
         return apply_block(shared_params, x, cfg=cfg, kind=kind,
                            positions=positions, cache=cache,
                            cross_kv=cross_kv, x_first=x_first, tp=tp)
@@ -250,6 +264,8 @@ def apply_stage(stage_params: Params, x: torch.Tensor, *, cfg: ArchConfig,
     new = []
     for i in range(n):
         p = {name: layers[name][i] for name in layers}
+        if tp is not None:
+            p = {name: gather_data(t) for name, t in p.items()}
         if cfg.remat and cache is None:
             x, nc, a = checkpoint(block, p, x, None, use_reentrant=False)
         else:
@@ -258,6 +274,8 @@ def apply_stage(stage_params: Params, x: torch.Tensor, *, cfg: ArchConfig,
         new.append(nc)
     if cache is None:
         return x, None, aux
+    if tp is not None:
+        return x, cache, aux
     return x, {name: torch.stack([c[name] for c in new])
                for name in new[0]}, aux
 

@@ -20,7 +20,19 @@ carries gradients across devices:
   * :meth:`~ColumnGroup.gather` concatenates cut slices at home (a cut
     bias that meets a full activation);
   * :meth:`~ColumnGroup.slice` cuts a home activation into the columns'
-    parts.
+    parts;
+  * :meth:`~ColumnGroup.all_gather` concatenates cut slices on every
+    column (a serving row's query heads, or a head_dim-cut cache's
+    slices, where every column reads them whole).
+
+A serving row (``launch.build``'s prefill and decode on a
+``launch.mesh.ServeMesh``) is a column group too. Under the reference's
+``RULES_SERVE_2D`` its weights are also cut over the data axis (their
+``"embed"`` dim): its view holds such a leaf as a :class:`DataCut`, the
+blocks of its data column, which :func:`gather_data` concatenates on the
+column's device at its use (the FSDP-style all-gather those rules
+imply), layer by layer, so a gathered weight lives as long as its layer.
+The rows never exchange activations.
 
 The reference leaves this step to GSPMD, which partitions the whole
 model's step over the ``"model"`` axis (``launch/train.py``); the port
@@ -40,8 +52,8 @@ from ..launch import hlo_stats
 
 Params = dict[str, torch.Tensor]
 
-__all__ = ["ColumnGroup", "ColumnParallel", "with_column_parallel",
-           "local_step_kind"]
+__all__ = ["ColumnGroup", "ColumnParallel", "DataCut", "gather_data",
+           "with_column_parallel", "local_step_kind"]
 
 
 class _Broadcast(torch.autograd.Function):
@@ -147,6 +159,60 @@ class ColumnGroup:
         w = x.shape[dim] // self.mp
         return [p.to(d) for p, d in zip(torch.split(x, w, dim=dim),
                                         self.devices)]
+
+    def all_gather(self, parts: Sequence[torch.Tensor], dim: int
+                   ) -> list[torch.Tensor]:
+        """Cut slices concatenated along ``dim`` on every column: one
+        ``all-gather`` of the whole (the serving step's; no backward
+        collective is recorded)."""
+        out = torch.cat([p.to(self.home) for p in parts], dim=dim)
+        hlo_stats.record("all-gather", _nbytes(out), self.mp)
+        return list(_Broadcast.apply(out, tuple(self.devices), False))
+
+
+class DataCut:
+    """A weight cut over the data axis in a serving row's view: its blocks
+    along ``axis``, one a data cell of the column (in the order of the
+    data axis), to be joined on ``device`` (the row's cell of that
+    column) at its use by :func:`gather_data`. ``unbind`` and
+    ``unsqueeze`` act on the blocks, so a stage's leaf splits into its
+    layers, and ``dim`` is the rank a block has, as a tensor's."""
+
+    __slots__ = ("parts", "axis", "device")
+
+    def __init__(self, parts: Sequence[torch.Tensor], axis: int, device):
+        self.parts = list(parts)
+        self.axis = axis
+        self.device = torch.device(device)
+
+    def dim(self) -> int:
+        return self.parts[0].dim()
+
+    def unbind(self, dim: int) -> list["DataCut"]:
+        if dim == self.axis:
+            raise ValueError("a DataCut unbinds a dim the data axis does "
+                             "not cut")
+        axis = self.axis - (self.axis > dim)
+        return [DataCut(ps, axis, self.device)
+                for ps in zip(*(p.unbind(dim) for p in self.parts))]
+
+    def unsqueeze(self, dim: int) -> "DataCut":
+        return DataCut([p.unsqueeze(dim) for p in self.parts],
+                       self.axis + (dim <= self.axis), self.device)
+
+
+def gather_data(x):
+    """A serving view's leaf as its layer reads it: a :class:`DataCut`
+    joined on its device (an ``all-gather`` over its data column, of
+    which this row records its own cell's share), a list of them column
+    by column; any other value as it is."""
+    if isinstance(x, list):
+        return [gather_data(t) for t in x]
+    if not isinstance(x, DataCut):
+        return x
+    out = torch.cat([p.to(x.device) for p in x.parts], dim=x.axis)
+    hlo_stats.record("all-gather", _nbytes(out), len(x.parts), senders=1)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

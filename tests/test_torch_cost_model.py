@@ -498,7 +498,7 @@ def test_meta_memos_keep_the_counts(monkeypatch):
     def count():
         built = build.build_train_step(
             reduced(get_config("smollm-135m")),
-            make_named_mesh((4, 2), ("data", "model")),
+            make_named_mesh((4, 2), ("data", "model"), device="meta"),
             InputShape("t", 64, 8, "train"))
         c = structural_costs(built.fn, *built.args)
         return (c.flops, c.matmul_flops, c.bytes, c.kernel_bytes, c.kernels,

@@ -21,7 +21,8 @@ compile); the port builds on the same mesh of ``meta`` cells.
   exactly twice the reference's ``dot_general`` FLOPs (jaxpr, scans
   multiplied): a shard's one client runs as two lanes; its strategy-B
   build (no lone lane) within 2 %; its recorded permutes exact;
-* ``run_one`` records: the H100 terms from the record's own counts, a
+* ``run_one`` records: the H100 terms from the record's own counts (a
+  model-sharded decode row's collective term from its recorded bytes), a
   strategy-B row with a null collective term and its reason;
 * ``bench.roofline.run`` and the report's table give the reference's
   rows from the same two JSON records.
@@ -174,7 +175,7 @@ def _flat(tree, prefix=""):
     return out
 
 
-MESH = make_named_mesh((4, 2), ("data", "model"))
+MESH = make_named_mesh((4, 2), ("data", "model"), device="meta")
 
 
 def _port_build(arch, kind):
@@ -322,10 +323,11 @@ def test_skips_and_analytic_models_equal_the_reference():
 
 
 def test_run_one_records(tmp_path, monkeypatch):
-    """A strategy-A decode row and mixtral's strategy-B train row (one
-    layer) on the production mesh: the H100 terms from the record's own
-    counts, the dominant term, the null collective term and its reason,
-    the memory analysis's scope, and the saved JSON."""
+    """A decode row (model-sharded on the production mesh's cells) and
+    mixtral's strategy-B train row (one layer): the H100 terms from the
+    record's own counts, the decode's collective term from its recorded
+    bytes, the dominant term, the train row's null collective term and
+    its reason, the memory analysis's scope, and the saved JSON."""
     from repro_torch.launch import mesh as LM
     monkeypatch.setattr(dryrun, "OUT_DIR", tmp_path)
     rec = dryrun.run_one("smollm-135m", "decode_32k", multi_pod=False,
@@ -336,9 +338,11 @@ def test_run_one_records(tmp_path, monkeypatch):
         256 * LM.PEAK_FLOPS_BF16)
     assert t["memory_s"] == rec["analytic_hbm_bytes_global"] / (
         256 * LM.HBM_BW)
-    assert t["collective_s"] is None and "serving" in \
-        rec["collective_null_reason"]
-    assert rec["dominant"] == max(("compute_s", "memory_s"), key=t.get)
+    assert rec["collective_null_reason"] is None
+    assert rec["struct_coll_bytes_per_dev"] > 0
+    assert t["collective_s"] == rec["struct_coll_bytes_per_dev"] / \
+        LM.NVLINK_BW
+    assert rec["dominant"] == max(t, key=t.get)
     assert rec["memory_analysis"]["temp_size_in_bytes"] is None
     saved = json.loads((tmp_path / "smollm-135m__decode_32k__16x16__"
                         "baseline.json").read_text())
@@ -348,6 +352,7 @@ def test_run_one_records(tmp_path, monkeypatch):
     assert b["meta"]["strategy"] == "B" and b["meta"]["mixer"] == "dense"
     assert b["roofline"]["collective_s"] is None
     assert "strategy B" in b["collective_null_reason"]
+    assert "A21b" in b["collective_null_reason"]
     assert b["struct_flops_global"] > 0 and b["useful_flops_ratio"] > 0
     skip = dryrun.run_one("smollm-135m", "long_500k", multi_pod=False,
                           save=False)
