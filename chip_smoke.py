@@ -235,7 +235,16 @@ Phases (any failure exits non-zero):
    finite losses, B1, B2, B3 as ``prod_expected`` a cell, one more round
    counted with FLOPs, kernel records and recorded collectives equal to
    the ``meta`` build's, the median of 4 more rounds beside the build's
-   roofline terms at one chip; the serving mesh: SmolLM-135M's built
+   roofline terms at one chip; the train step of strategies B, B2 and B3
+   on those cells (SmolLM-135M in f32, the build's default fp32 dense
+   round, ``dryrun_strategies``): 2 rounds each against 2 of the global
+   program on cuda:0 (losses within 5e-5, every leaf within 1e-5 of its
+   largest value, every replicated block bitwise across its cells),
+   exactly 8 B3 launches a local step, one more round's recorded
+   collectives and kernel records equal to the ``meta`` build's, the
+   rounds' ms beside the roofline terms; B3 at a (data, model) cell's
+   blocks bitwise with its plain version, timed (``--only
+   strategies`` runs these alone); the serving mesh: SmolLM-135M's built
    prefill, filling prefill and decode steps model-sharded on those
    cells with a replicated (128 slots) and a head_dim-cut (8 192 slots)
    cache, teacher-forced against the one program (``greedy_generate``'s
@@ -246,12 +255,17 @@ Phases (any failure exits non-zero):
    (SmolLM-135M x train_4k x 16x16) on ``meta``, timed (``--only
    dryrun``; ``--only cards`` ends with Qwen3-32B served at 64 layers on
    four cards, (1, 4), and its 4-layer and Mixtral-8x22B's 4-layer runs
-   against one card);
+   against one card, then the strategies' train step on four cards'
+   cells: Qwen3-MoE-30B-A3B's 2 layers in f32 on (2, 2) under B, B2 and
+   B3 against the global program on cuda:0, and Mixtral-8x22B's 2
+   layers in bf16 under B; ``--only cards_serve`` and ``--only
+   cards_strategies`` run the serving and the strategies' arms alone);
 20. print the kernel table (with the floor; B1-B3 with their full-width
    times, B1-B5 with their mesh launches, B2 and B5 at the mesh's
    extended table, a B3 bf16 row, the 2D rows: B1 tensor noise and B2
-   at a cell, T2 at SmolLM-135M's largest leaf, and ``bench.kernels``'
-   B6, B8 and B3 at 1M) as one JSON line, then the card again, then
+   at a cell, T2 at SmolLM-135M's largest leaf, ``bench.kernels``' B6,
+   B8 and B3 at 1M, and B3 at a (data, model) cell) as one JSON line,
+   then the card again, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs one CUDA card and exits non-zero without one.
@@ -5759,7 +5773,9 @@ def cards_phase(dev, flush=None) -> dict:
     copies between cards; exact launches, eager, ``capture_step``
     refused); then Qwen3-MoE-30B-A3B's tensor-parallel step on four
     cards against its 1D run on two (:func:`cards_moe`); then serving
-    model-sharded on four cards (:func:`cards_serve`)."""
+    model-sharded on four cards (:func:`cards_serve`); then the train step
+    of strategies B, B2 and B3 on four cards' cells
+    (:func:`cards_strategies`)."""
     from repro_torch.launch.mesh import make_client_mesh, make_test_mesh
     del flush
     mesh = make_client_mesh(M, clients_per_shard=M // MESH_SHARDS)
@@ -5773,6 +5789,7 @@ def cards_phase(dev, flush=None) -> dict:
     rec["2d"] = mesh2d_rounds(dev, mesh2=mesh2, mesh1=make_test_mesh(2, dev))
     rec["moe"] = cards_moe(dev)
     rec["serve"] = cards_serve(dev)
+    rec["strategies"] = cards_strategies(dev)
     rec["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"cards": {
         "devices": [torch.cuda.get_device_name(i)
@@ -5857,6 +5874,235 @@ def cards_moe(dev) -> dict:
     return rec
 
 
+# The four-card arms of the strategies' train step on cells. (b)
+# Qwen3-MoE-30B-A3B at its registered widths (128 experts of moe_d_ff
+# 768, d 2 048, 32 / 4 heads, vocab 151 936), 2 of 48 layers, in f32, on
+# (2, 2) ("data", "model") cells, one card a cell, under B, B2 and B3,
+# each against the global program on cuda:0 (B2 and B3 share one, with
+# the reference's grouping for a data-sharded batch: one dispatch group
+# a data shard; B's routes the whole batch). K = 1: the global program
+# of two f32 clients holds x, v, g and B3's y', v' (5 x 15 GB) at its
+# peak, and a second local step would add a sixth. Batch 4 (2 a
+# client), seq 128: one sequence a data row under B2 and B3.
+CARDS_STRAT_ARCH = "qwen3-moe-30b-a3b"
+CARDS_STRAT_CUTS = {"n_layers": 2, "dtype": "float32"}
+CARDS_STRAT_SHAPE = ("t", 128, 4, "train")
+CARDS_STRAT_K = 1
+# (c) Mixtral-8x22B at its registered widths (bf16), 2 of 56 layers,
+# under B (its default) on (2, 2), the build's default dfed (fp32 dense,
+# K 2), batch 4, seq 128; weights random (normal, std 0.02; norm scales
+# 1) from a seed a block, made on each card's cells.
+CARDS_MIXTRAL = ("mixtral-8x22b", 2, ("t", 128, 4, "train"))
+CARDS_MIXTRAL_PEAK_GIB = 45          # a gate, every card
+# Predicted before the first run (PERF.md §6).
+CARDS_STRAT_PREDICTION = {
+    "qwen_loss_rel_diff": [1e-7, 2e-5], "qwen_leaf_rel_diff": [1e-8, 1e-6],
+    "qwen_row_tokens": {"B": 256, "B2": 128, "B3": 128},
+    "qwen_card_peak_gib": {"B": [15, 30], "B2": [15, 30], "B3": [30, 45]},
+    "qwen_global_peak_gib": [65, 75],
+    "mixtral_gb_card": {"weights": 5.4, "momentum": 5.4, "gradient": 5.4},
+    "mixtral_card_peak_gib": [25, 35], "mixtral_round_ms": [2000, 10000]}
+
+
+def _seeded_cells(mesh, shapes: dict, specs: dict, seed: int):
+    """Cells of the stacked ``shapes`` laid out by ``specs`` on ``mesh``,
+    each block drawn on its card from a generator seeded by the leaf and
+    the block's index over the axes that cut it (so the copies of a
+    replicated block are equal): normal with std 0.02, norm scales 1."""
+    from repro_torch.launch.mesh import Cells
+
+    cells = mesh.empty(shapes, specs)
+    names = sorted(shapes)
+    for coord, cell in zip(np.ndindex(mesh.devices.shape), cells):
+        for li, n in enumerate(names):
+            t = cell[n]
+            if n.endswith(("/scale", "q_norm", "k_norm")):
+                t.fill_(1.0)
+                continue
+            used = {a for i in range(len(specs[n]))
+                    for a in specs[n].names(i)}
+            block = [v for a, v in zip(mesh.axis_names, coord) if a in used]
+            g = torch.Generator(device=t.device).manual_seed(
+                seed + 1000 * li + int(np.ravel_multi_index(
+                    block, [mesh.sizes[a] for a in mesh.axis_names
+                            if a in used])) if block else seed + 1000 * li)
+            t.normal_(0.0, 0.02, generator=g)
+    return Cells(cells)
+
+
+def four_cards() -> list:
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def _card_peaks() -> list:
+    """Each card's peak allocation since :func:`_reset_cards`, GiB."""
+    return [torch.cuda.max_memory_allocated(i) / 2 ** 30
+            for i in range(torch.cuda.device_count())]
+
+
+def _reset_cards() -> None:
+    """Every card synchronized, its free cached blocks released and its
+    peak reset."""
+    gc.collect()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+        with torch.cuda.device(i):
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def cards_strategies_qwen(dev) -> dict:
+    """(b) Qwen3-MoE-30B-A3B (CARDS_STRAT_*) under B, B2 and B3 on four
+    cards against the global program on cuda:0 (run first, its results
+    kept on the host, then freed): the gates of (a)
+    (:func:`strategy_gates`), every MoE call of B2 and B3 one row's
+    tokens (a client's one group), B's the whole batch; each card's peak
+    beside the global program's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import DFedAvgMConfig
+    from repro_torch.launch.build import build_train_step
+    from repro_torch.launch.mesh import make_named_mesh
+    from repro_torch.models import moe as TMOE
+
+    cfg = dataclasses.replace(get_config(CARDS_STRAT_ARCH),
+                              **CARDS_STRAT_CUTS)
+    devs = four_cards()
+    mesh = make_named_mesh((2, 2), devices=devs)
+    shape = InputShape(*CARDS_STRAT_SHAPE)
+    dfed = DFedAvgMConfig(eta=1e-3, theta=0.9, local_steps=CARDS_STRAT_K,
+                          mixer_impl="dense")
+    params = {n: t.to("cpu") for n, t in _stacked_init(
+        cfg, 2, dev, seed=30).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    meta0 = build_train_step(cfg, mesh, shape, strategy="B",
+                             dfed=dfed).meta
+    batches = _token_batches(cfg, meta0, dev, seed=31)
+    glob = {}
+    for key, smap in (("whole", None),
+                      ("groups", (mesh, ("data",), ("model",)))):
+        _reset_cards()
+        t0 = time.perf_counter()
+        glob[key] = global_rounds(cfg, dfed, params, batches, STRAT_ROUNDS,
+                                  dev, smap=smap)
+        glob[f"{key}_peak_gib"] = _card_peaks()[0]
+        glob[f"{key}_s"] = time.perf_counter() - t0
+    out = {"global_peak_gib": {k: glob[f"{k}_peak_gib"]
+                               for k in ("whole", "groups")}}
+    seen = []
+    real = TMOE.moe_grouped
+
+    def spy(p, xg, **kw):
+        seen.append(tuple(xg.shape[:2]))
+        return real(p, xg, **kw)
+
+    for s in STRATEGIES:
+        built = build_train_step(cfg, mesh, shape, strategy=s, dfed=dfed)
+        _reset_cards()
+        seen.clear()
+        TMOE.moe_grouped = spy
+        try:
+            run = strategy_rounds(built, params, batches, STRAT_ROUNDS,
+                                  dev)
+        finally:
+            TMOE.moe_grouped = real
+        want_loss, want = glob["whole" if s == "B" else "groups"]
+        rec = strategy_gates(f"cards strategy {s}", run, want_loss, want,
+                             built)
+        tokens = meta0["local_bs"] * meta0["seq"] // (1 if s == "B" else 2)
+        if set(seen) != {(2, tokens)}:
+            raise AssertionError(f"cards strategy {s}: MoE calls route "
+                                 f"{sorted(set(seen))}, not one group of "
+                                 f"{tokens} tokens a client")
+        rec["moe_calls"] = {"count": len(seen), "group_tokens": tokens}
+        rec["card_peak_gib"] = _card_peaks()
+        out[s] = rec
+        print(json.dumps({"cards_strategy": s, **{
+            k: rec[k] for k in ("loss_rel_diff", "leaf_rel_diff_max",
+                                "replicated_copies_bitwise", "moe_calls",
+                                "card_peak_gib", "round_ms")}}), flush=True)
+        del run, built
+    out.update({"arch": CARDS_STRAT_ARCH, "cuts": CARDS_STRAT_CUTS,
+                "shape": list(CARDS_STRAT_SHAPE), "K": CARDS_STRAT_K,
+                "global_loss": {k: glob[k][0] for k in ("whole", "groups")},
+                "global_s": {k: glob[f"{k}_s"] for k in ("whole", "groups")}})
+    return out
+
+
+def cards_strategies_mixtral(dev) -> dict:
+    """(c) Mixtral-8x22B (CARDS_MIXTRAL) under B on four cards: finite
+    losses, every replicated block bitwise across the cells, each card's
+    peak under CARDS_MIXTRAL_PEAK_GIB; the weight bytes a card (its
+    cells' blocks; the step's momentum and gradient are one block of the
+    same shape and dtype each, so as many bytes by construction) and the
+    eager rounds' ms."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.build import build_train_step
+    from repro_torch.launch.mesh import make_named_mesh
+
+    arch, layers, shp = CARDS_MIXTRAL
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    devs = four_cards()
+    mesh = make_named_mesh((2, 2), devices=devs)
+    built = build_train_step(cfg, mesh, InputShape(*shp))
+    specs = built.specs[0][0].params
+    if built.meta["strategy"] != "B" or built.mesh is not mesh:
+        raise AssertionError(f"mixtral's default build: {built.meta}")
+    cells = _seeded_cells(mesh, built.args[0].params, specs, seed=50)
+    per_card = [0] * len(devs)
+    for coord, cell in zip(np.ndindex(mesh.devices.shape), cells):
+        per_card[int(np.ravel_multi_index(coord, mesh.devices.shape))] += \
+            _tree_bytes(cell)
+    batches = _token_batches(cfg, built.meta, dev, seed=51)
+    _reset_cards()
+    run = strategy_rounds(built, cells, batches, STRAT_ROUNDS, dev)
+    peaks = _card_peaks()
+    if not all(math.isfinite(v) for v in run["loss"]):
+        raise AssertionError(f"mixtral B: losses {run['loss']}")
+    copies = replicas_bitwise(mesh, specs, run["state"].params)
+    if max(peaks[:4]) > CARDS_MIXTRAL_PEAK_GIB:
+        raise AssertionError(f"mixtral B: card peaks {peaks} GiB > "
+                             f"{CARDS_MIXTRAL_PEAK_GIB}")
+    rec = {"arch": arch, "layers": layers, "shape": list(shp),
+           "meta": built.meta, "loss": run["loss"],
+           "round_ms": run["round_ms"], "metrics": run["metrics"],
+           "replicated_copies_bitwise": copies, "card_peak_gib": peaks,
+           "weight_gb_card": [b / 1e9 for b in per_card],
+           "peak_gate_gib": CARDS_MIXTRAL_PEAK_GIB}
+    print(json.dumps({"cards_mixtral_b": rec}), flush=True)
+    del run, cells, built
+    _reset_cards()
+    return rec
+
+
+def cards_strategies(dev) -> dict:
+    """The strategies' train step on four cards (``--only
+    cards_strategies``; the cards phase's last arm): (b)
+    :func:`cards_strategies_qwen`, (c) :func:`cards_strategies_mixtral`."""
+    if torch.cuda.device_count() < 4:
+        raise AssertionError("cards strategies: needs 4 cards, found "
+                             f"{torch.cuda.device_count()}")
+    print(json.dumps({"cards_strategies_prediction":
+                      CARDS_STRAT_PREDICTION}), flush=True)
+    t0 = time.perf_counter()
+    out = {"qwen": cards_strategies_qwen(dev),
+           "mixtral": cards_strategies_mixtral(dev)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"cards_strategies": {
+        "qwen": {s: {k: out["qwen"][s][k] for k in (
+            "loss_rel_diff", "leaf_rel_diff_max", "card_peak_gib")}
+            for s in STRATEGIES},
+        "qwen_global_peak_gib": out["qwen"]["global_peak_gib"],
+        "mixtral": {k: out["mixtral"][k] for k in (
+            "loss", "round_ms", "card_peak_gib", "weight_gb_card")},
+        "phase_s": out["phase_s"]}}), flush=True)
+    return out
+
+
 # The four-card serving arm of the "cards" phase: Qwen3-32B as registered
 # (64 layers, d 5 120, 64 / 8 heads, head_dim 128, d_ff 25 600, vocab
 # 151 936, bf16: ~65.5 GB of weights) on (1, 4) ("data", "model"), one
@@ -5897,23 +6143,6 @@ CARDS_SERVE_PREDICTION = {"weight_gb_card": 16.4, "cache_gb_card": 17.2,
 # largest (Mixtral read 5.5e-6 before), every token equal.
 CARDS_SERVE_F32_PREDICTION = {"qwen3_4l_f32_rel": [1e-6, 6e-6],
                               "mixtral_4l_f32_rel": [1e-6, 6e-6]}
-
-
-def _random_cells(cells, seed: int):
-    """Each cell's weights filled in place: norm scales 1, the rest
-    normal with std 0.02, from one generator a device."""
-    gens = {}
-    for cell in cells:
-        for name, t in cell.items():
-            if name.endswith(("/scale", "q_norm", "k_norm")):
-                t.fill_(1.0)
-                continue
-            g = gens.get(t.device)
-            if g is None:
-                g = gens[t.device] = torch.Generator(
-                    device=t.device).manual_seed(seed + len(gens))
-            t.normal_(0.0, 0.02, generator=g)
-    return cells
 
 
 def _empty_caches(cells):
@@ -5957,28 +6186,17 @@ def cards_serve(dev) -> dict:
     print(json.dumps({"cards_serve_prediction": CARDS_SERVE_PREDICTION,
                       "f32": CARDS_SERVE_F32_PREDICTION}), flush=True)
     n = torch.cuda.device_count()
-    cards = [torch.device("cuda", i) for i in range(4)]
+    cards = four_cards()
     b, lp, s_alloc, steps = CARDS_SERVE_SHAPE
     rec = {"arch": CARDS_SERVE_ARCH, "shape": list(CARDS_SERVE_SHAPE)}
-
-    def peaks():
-        return [torch.cuda.max_memory_allocated(i) / 2 ** 30
-                for i in range(n)]
-
-    def reset():
-        gc.collect()
-        for i in range(n):
-            torch.cuda.synchronize(i)
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(i)
 
     # (a) Qwen3-32B at its registered width and depth.
     cfg = get_config(CARDS_SERVE_ARCH)
     mesh = make_named_mesh((1, 4), devices=cards)
     dec = build_decode_step(cfg, mesh, InputShape("d", s_alloc, b, "decode"))
-    reset()
+    _reset_cards()
     with torch.no_grad():
-        pcells = _random_cells(mesh.empty(dec.args[0], dec.specs[0][0]), 7)
+        pcells = _seeded_cells(mesh, dec.args[0], dec.specs[0][0], 7)
         cells = _empty_caches(mesh.empty(dec.args[3], dec.specs[0][3]))
         gen = torch.Generator(device=dev).manual_seed(3)
         prompts = torch.randint(0, cfg.vocab_size, (b, lp), generator=gen,
@@ -6016,7 +6234,7 @@ def cards_serve(dev) -> dict:
             / 3.35e12 * 1e3,
             "prefill_ms": prefill_ms, "token_ms": token_ms,
             "token_ms_median": statistics.median(token_ms),
-            "card_peak_gib": peaks(), "logits_shape": list(logits.shape),
+            "card_peak_gib": _card_peaks(), "logits_shape": list(logits.shape),
             "finite": all(finite), "dp": list(dec.meta["dp"]),
             "cache_layout": repr(dec.specs[0][3][0]["k"])}
     print(json.dumps({"cards_serve_full": full}), flush=True)
@@ -6046,7 +6264,7 @@ def cards_serve(dev) -> dict:
                 get_config(arch_m), n_layers=layers_m, dtype=dtype),
              (2, 2), (bm, lpm, sm, gm), {})]
     for name, c, shape, grid, kw in cases:
-        reset()
+        _reset_cards()
         bb, ll, ss, gg = grid
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -6063,7 +6281,7 @@ def cards_serve(dev) -> dict:
                "prefill_rel": r["prefill_rel"], "step_rel": r["step_rel"],
                "floor_rel": r["floor_rel"], "agree": r["agree"],
                "of": r["of"], "margins": r["margins"],
-               "card_peak_gib": peaks(),
+               "card_peak_gib": _card_peaks(),
                "weights_over_data": any(
                    "data" in sp.names(k)
                    for sp in r["built"].specs[0][0].values()
@@ -6073,7 +6291,7 @@ def cards_serve(dev) -> dict:
         one.update(serve_gate(f"cards {name}", r, f32))
         rec[name] = one
         del params, r
-    reset()
+    _reset_cards()
     return rec
 
 
@@ -7955,18 +8173,336 @@ def dryrun_one(proc) -> dict:
     return rec
 
 
+# The train step of strategies B, B2 and B3 on ("data", "model") cells
+# (launch.build on a ServeMesh; core.local_sgd.local_train_rows). (a)
+# SmolLM-135M as registered but in f32 on DRYRUN_MESH's cuda:0 cells at
+# DRYRUN_TRAIN with the build's default dfed (fp32, dense, K 2): each
+# strategy against the global program on cuda:0.
+STRATEGIES = ("B", "B2", "B3")
+STRAT_ROUNDS = 2                     # gated rounds, each timed
+STRAT_LOSS_RTOL = 5e-5               # loss against the global program's
+STRAT_LEAF_RTOL = 1e-5               # a leaf, x its largest |value|
+# Predicted before the first chip run (PERF.md §6).
+STRAT_PREDICTION = {
+    "loss_rel_diff": [1e-7, 1e-5], "leaf_rel_diff": [1e-8, 1e-6],
+    "b3_launches_a_local_step": 8, "round_ms": [2000, 8000],
+    "card_coll_equals_meta": True}
+
+
+def _stacked_init(cfg, m: int, dev, seed: int) -> dict:
+    """m clients' parameters (``init_model`` from keys seed, seed + 1,
+    ...) stacked on ``dev``, client by client into one buffer a leaf."""
+    from repro_torch import prng
+    from repro_torch.models import model as TM
+
+    out = None
+    for i in range(m):
+        one = TM.init_model(prng.PRNGKey(seed + i, device=dev), cfg,
+                            device=dev)
+        if out is None:
+            out = {n: torch.empty((m,) + tuple(t.shape), dtype=t.dtype,
+                                  device=dev) for n, t in one.items()}
+        for n, t in one.items():
+            out[n][i].copy_(t)
+        del one
+    return out
+
+
+def _token_batches(cfg, meta: dict, dev, seed: int) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (meta["m"], meta["K"],
+                                            meta["local_bs"],
+                                            meta["seq"] + 1),
+                        generator=gen, device=dev, dtype=torch.int32)
+    return {"tokens": tok[..., :-1].contiguous(),
+            "targets": tok[..., 1:].contiguous()}
+
+
+def replicas_bitwise(mesh, specs: dict, cells) -> int:
+    """Every block that no cut tells apart (a leaf the data axis, or the
+    model axis, does not cut) bitwise equal on every cell that holds it;
+    returns how many copies were held against their first."""
+    coords = list(np.ndindex(mesh.devices.shape))
+    checked = 0
+    for n, spec in specs.items():
+        used = {a for i in range(len(spec)) for a in spec.names(i)}
+        groups = {}
+        for coord, cell in zip(coords, cells):
+            key = tuple(v for a, v in zip(mesh.axis_names, coord)
+                        if a in used)
+            groups.setdefault(key, []).append(cell[n])
+        for blocks in groups.values():
+            first = blocks[0].to("cpu")
+            for b in blocks[1:]:
+                if not torch.equal(b.to("cpu"), first):
+                    raise AssertionError(f"replicated block of {n} "
+                                         "differs across its cells")
+                checked += 1
+    return checked
+
+
+def leaf_worst(got: dict, want: dict) -> tuple[float, str]:
+    """The largest |got - want| of a leaf over its largest |want|, and
+    that leaf (each compared on the CPU)."""
+    worst, at = 0.0, ""
+    for n, w in want.items():
+        w = w.to("cpu", torch.float32)
+        g = got[n].to("cpu", torch.float32)
+        d = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if d > worst:
+            worst, at = d, n
+    return worst, at
+
+
+def global_rounds(cfg, dfed, params: dict, batches: dict, rounds: int,
+                  dev, smap=None) -> tuple[list, dict]:
+    """The global program (``make_round_step`` with no mesh) on ``dev``
+    from ``params`` (anywhere): each round's loss and the last state's
+    params on the host. ``smap``: ``MOE_SHARD_MAP``'s value (the
+    reference's grouping for a data-sharded batch)."""
+    from repro_torch import prng
+    from repro_torch.core import MixingSpec, RoundState, make_round_step
+    from repro_torch.models import model as TM
+    from repro_torch.models.moe import MOE_SHARD_MAP
+
+    step = make_round_step(TM.make_loss(cfg), dfed, MixingSpec.ring(2),
+                           device=dev)
+    state = RoundState(params={n: t.to(dev, copy=True)
+                               for n, t in params.items()},
+                       rng=prng.PRNGKey(1, device=dev), round=0)
+    losses = []
+    tok = MOE_SHARD_MAP.set(smap) if smap is not None else None
+    try:
+        for _ in range(rounds):
+            state, met = step(state, batches)
+            losses.append(float(met["loss"]))
+    finally:
+        if tok is not None:
+            MOE_SHARD_MAP.reset(tok)
+    out = {n: t.to("cpu") for n, t in state.params.items()}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, out
+
+
+def strategy_rounds(built, params: dict, batches: dict, rounds: int,
+                    dev) -> dict:
+    """``rounds`` rounds of a built step on its cells from ``params``
+    (laid out by the step's first call): each round's ms (host clock to
+    every card's synchronize), loss and metrics, and the final cells."""
+    from repro_torch import prng
+    from repro_torch.core import RoundState
+
+    state = RoundState(params=params, rng=prng.PRNGKey(1, device=dev),
+                       round=0)
+    losses, ms, mets = [], [], []
+    for _ in range(rounds):
+        sync_all()
+        t0 = time.perf_counter()
+        state, met = built.fn(state, batches)
+        sync_all()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        mets.append({k: float(v) for k, v in met.items()})
+    return {"state": state, "loss": losses, "round_ms": ms, "metrics": mets}
+
+
+def strategy_gates(name: str, run: dict, want_losses: list,
+                   want_params: dict, built) -> dict:
+    """(a)'s and (b)'s gates: each round's loss within STRAT_LOSS_RTOL
+    of the global program's, every leaf within STRAT_LEAF_RTOL of its
+    largest |value|, every replicated block bitwise."""
+    specs = built.specs[0][0].params
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["loss"], want_losses)]
+    if not all(math.isfinite(v) for v in run["loss"]) or max(rel) > \
+            STRAT_LOSS_RTOL:
+        raise AssertionError(f"{name}: losses {run['loss']} against "
+                             f"{want_losses} (rel {rel})")
+    got = built.mesh.gather(run["state"].params, specs)
+    worst, at = leaf_worst(got, want_params)
+    del got
+    if worst > STRAT_LEAF_RTOL:
+        raise AssertionError(f"{name}: {at} {worst} of its largest value "
+                             f"> {STRAT_LEAF_RTOL}")
+    copies = replicas_bitwise(built.mesh, specs, run["state"].params)
+    return {"loss": run["loss"], "global_loss": want_losses,
+            "loss_rel_diff": rel, "leaf_rel_diff_max": worst,
+            "leaf_worst": at, "replicated_copies_bitwise": copies,
+            "round_ms": run["round_ms"], "metrics": run["metrics"]}
+
+
+def dryrun_strategies(dev) -> dict:
+    """(a) B, B2 and B3 on the (4, 2) cells of ``dev``, SmolLM-135M in
+    f32 (see STRATEGIES): STRAT_ROUNDS rounds each against STRAT_ROUNDS
+    of the global program (:func:`strategy_gates`), exactly 8 B3
+    launches a local step; one more round under the counter, its
+    recorded collectives and kernel records equal to the ``meta``
+    build's; the rounds' ms beside ``roofline_terms`` at one chip.
+    Returns the records and a B cell's blocks for the kernel check."""
+    import dataclasses
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import DFedAvgMConfig, RoundState
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.build import build_train_step
+    from repro_torch.launch.cost_model import structural_costs
+    from repro_torch.launch.dryrun import roofline_terms
+    from repro_torch.launch.mesh import make_named_mesh
+
+    print(json.dumps({"strategies_prediction": STRAT_PREDICTION}),
+          flush=True)
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH), dtype="float32")
+    shape = InputShape(*DRYRUN_TRAIN)
+    mesh = make_named_mesh(*DRYRUN_MESH, device=dev)
+    cells_n = int(np.prod(DRYRUN_MESH[0]))
+    dfed = DFedAvgMConfig(eta=1e-3, theta=0.9, local_steps=2,
+                          mixer_impl="dense")   # the build's default here
+    params = _stacked_init(cfg, 2, dev, seed=20)
+    out, block = {}, None
+    for s in STRATEGIES:
+        built = build_train_step(cfg, mesh, shape, strategy=s)
+        if built.mesh is not mesh:
+            raise AssertionError(f"strategy {s}: Built.mesh "
+                                 f"{built.mesh!r} is not the mesh")
+        meta = built.meta
+        batches = _token_batches(cfg, meta, dev, seed=21)
+        want_loss, want = global_rounds(cfg, dfed, params, batches,
+                                        STRAT_ROUNDS, dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        run = strategy_rounds(built, params, batches, STRAT_ROUNDS, dev)
+        counts = launch_counts()
+        b3 = counts["momentum_sgd"]
+        if b3 != cells_n * meta["K"] * STRAT_ROUNDS:
+            raise AssertionError(f"strategy {s}: {b3} B3 launches, not "
+                                 f"{cells_n} a local step")
+        rec = strategy_gates(f"strategy {s}", run, want_loss, want, built)
+        rec["launches"] = {k: v for k, v in counts.items() if v}
+        state = run["state"]
+        t0 = time.perf_counter()
+        card = structural_costs(built.fn, state, batches)
+        torch.cuda.synchronize()
+        rec["counted_round_s"] = time.perf_counter() - t0
+        on_meta = build_train_step(
+            cfg, make_named_mesh(*DRYRUN_MESH, device="meta"), shape,
+            strategy=s)
+        t0 = time.perf_counter()
+        mc = structural_costs(on_meta.fn, *on_meta.args)
+        rec["meta_count_s"] = time.perf_counter() - t0
+        for f in ("coll_bytes", "coll_by_kind", "kernels"):
+            if getattr(card, f) != getattr(mc, f):
+                raise AssertionError(f"strategy {s} {f}: card "
+                                     f"{getattr(card, f)} != meta "
+                                     f"{getattr(mc, f)}")
+        rec["card_equals_meta"] = {
+            f: getattr(card, f) == getattr(mc, f)
+            for f in ("flops", "matmul_flops", "bytes", "kernel_bytes",
+                      "coll_bytes", "coll_by_kind", "kernels")}
+        rec["card_costs"] = {f: getattr(card, f) for f in (
+            "flops", "matmul_flops", "bytes", "kernel_bytes")}
+        terms, dom = roofline_terms(cfg, meta, mc, 1)
+        rec.update({"meta": meta, "roofline_1chip": terms, "dominant": dom,
+                    "round_ms_median": statistics.median(run["round_ms"]),
+                    "roofline_share": terms[dom] * 1e3 / statistics.median(
+                        run["round_ms"]),
+                    "costs": _costs_record(mc)})
+        if s == "B":
+            block = {n: t.clone() for n, t in state.params[0].items()}
+        out[s] = rec
+        print(json.dumps({"dryrun_strategy": s, **{
+            k: rec[k] for k in ("loss_rel_diff", "leaf_rel_diff_max",
+                                "replicated_copies_bitwise", "launches",
+                                "round_ms", "roofline_1chip",
+                                "card_equals_meta", "card_costs")},
+            "meta_costs": {f: rec["costs"][f] for f in rec["card_costs"]}}),
+            flush=True)
+        del run, state, built, on_meta, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arms": out, "arch": DRYRUN_ARCH, "dtype": "float32",
+            "mesh": list(DRYRUN_MESH), "shape": list(DRYRUN_TRAIN)}, block
+
+
+def strategies_kernel_check(dev, flush, block: dict) -> dict:
+    """B3 at a (data, model) cell: one local step's update over cell
+    (0, 0)'s blocks of SmolLM-135M's two f32 clients under strategy B
+    (the (4, 2) cells of (a)), one launch, bitwise against the plain
+    step leaf by leaf; timed against the plain step and
+    ``torch._fused_sgd_`` over the same blocks."""
+    from repro_torch.kernels import momentum_update, ref
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    y = block
+    v = {n: torch.randn(t.shape, generator=gen, device=dev) * 0.01
+         for n, t in y.items()}
+    g = {n: torch.randn(t.shape, generator=gen, device=dev) * 0.1
+         for n, t in y.items()}
+    r = {"max_abs_err": 0.0, "max_ulp": 0, "checks": []}
+    ys, vs = momentum_update(y, v, g, 1e-3, 0.9)
+    torch.cuda.synchronize()
+    pairs = []
+    for n in y:
+        ry, rv = ref.momentum_sgd_ref(y[n], v[n], g[n], 1e-3, 0.9)
+        pairs += [(ys[n], ry), (vs[n], rv)]
+    for a, b in pairs:
+        check_words("B3 at a (data, model) cell", a.view(torch.int32),
+                    b.view(torch.int32))
+    check_floats(r, "B3 at a (data, model) cell", pairs)
+    del pairs, ys, vs
+    n_el = sum(t.numel() for t in y.values())
+    timed(r, "", lambda: momentum_update(y, v, g, 1e-3, 0.9), flush)
+    timed(r, "plain_", lambda: [ref.momentum_sgd_ref(
+        y[n], v[n], g[n], 1e-3, 0.9) for n in y], flush)
+    params = [t.clone() for t in y.values()]
+    bufs = [t.clone() for t in v.values()]
+    grads = list(g.values())
+    timed(r, "library_", lambda: torch._fused_sgd_(
+        params, grads, bufs, weight_decay=0.0, momentum=0.9, lr=1e-3,
+        dampening=0.0, nesterov=False, maximize=False, is_first_step=False),
+        flush)
+    r["bound_ms"], r["bound_by"] = bound(5 * 4 * n_el, 3 * n_el)
+    r["bound_bytes"] = 5 * 4 * n_el
+    r["shape"] = (f"cell (0, 0) of (4, 2) under B: {len(y)} leaves x 2 "
+                  f"clients ({n_el} f32)")
+    r["checks"].append(f"{len(y)} leaves, {n_el} values in one launch: "
+                       "bitwise")
+    del params, bufs, grads, v, g
+    torch.cuda.empty_cache()
+    print(json.dumps({"strategies_kernel": r}), flush=True)
+    return r
+
+
+def strategies_phase(dev, flush=None) -> dict:
+    """Phase "strategies" (``--only strategies``): (a)
+    :func:`dryrun_strategies` and B3 at a (data, model) cell
+    (:func:`strategies_kernel_check`); the dryrun phase runs both."""
+    if flush is None:
+        flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    rec, block = dryrun_strategies(dev)
+    rec["kernel"] = strategies_kernel_check(dev, flush, block)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def dryrun_phase(dev, flush=None, rec=None, one=None) -> dict:
     """The counting tools and the build layer on the card: (a)
-    :func:`dryrun_counter`, (b) :func:`dryrun_built`, (c)
-    :func:`dryrun_serve`, (d) :func:`dryrun_one` (its process ``one``,
-    started here unless given)."""
-    del flush
+    :func:`dryrun_counter`, (b) :func:`dryrun_built`, the strategies' train
+    step on cells (:func:`strategies_phase`), (c) :func:`dryrun_serve`,
+    (d) :func:`dryrun_one` (its process ``one``, started here unless
+    given)."""
     t_phase = time.perf_counter()
     one = one if one is not None else start_dryrun_one()
     out = {"counter": dryrun_counter(dev, rec)}
     print(json.dumps({"dryrun_counter": out["counter"]}), flush=True)
     out["built"] = dryrun_built(dev)
     print(json.dumps({"dryrun_built": out["built"]}), flush=True)
+    out["strategies"] = strategies_phase(dev, flush)
     out["serve"] = dryrun_serve(dev)
     print(json.dumps({"dryrun_serve": out["serve"]}), flush=True)
     out["one"] = dryrun_one(one)
@@ -7980,7 +8516,8 @@ ONLY = {"pool": pool_phase, "telemetry": telemetry_phase,
         "production": production_phase, "mesh": mesh_phase,
         "mesh2d": mesh2d_phase, "cards": cards_phase, "mia": mia_phase,
         "bench_kernels": bench_kernels_phase, "wire": wire_phase,
-        "dryrun": dryrun_phase}
+        "dryrun": dryrun_phase, "strategies": strategies_phase,
+        "cards_serve": cards_serve, "cards_strategies": cards_strategies}
 
 
 def main() -> int:
@@ -7990,8 +8527,9 @@ def main() -> int:
     if "--dryrun-one" in sys.argv:          # the dryrun phase's (d)
         dryrun_one_cli(sys.argv[sys.argv.index("--dryrun-one") + 1])
         return 0
-    if "--only" in sys.argv and "cards" in sys.argv[
-            sys.argv.index("--only") + 1].split(","):
+    if "--only" in sys.argv and {"cards", "cards_serve",
+                                 "cards_strategies"} & set(
+            sys.argv[sys.argv.index("--only") + 1].split(",")):
         # cards_moe's 1D run holds a whole Qwen3-MoE client (1.87 G
         # values) and its mix's f32 staging on one card: without
         # expandable segments the allocator's fragments leave it short.
@@ -8156,6 +8694,20 @@ def main() -> int:
                           "bound_by", "library_ms", "call_ms", "max_ulp",
                           "shape", "clean_ms", "host_ms", "plain_call_ms",
                           "library_clean_ms")}})
+    # B3 at a (data, model) cell (the dryrun phase's strategies): its
+    # launches the strategy-B arm's rounds on the (4, 2) cells.
+    r = dry["strategies"]["kernel"]
+    table.append({"name": "momentum_sgd_data_model_cell", "route": "cuda",
+                  "source": KERNEL_SOURCES["momentum_sgd"][0],
+                  "replaces": KERNEL_SOURCES["momentum_sgd"][1],
+                  "launches": dry["strategies"]["arms"]["B"]["launches"][
+                      "momentum_sgd"],
+                  "path": "dryrun_strategies",
+                  **{f: r.get(f) for f in (
+                      "max_abs_err", "ms", "plain_ms", "bound_ms",
+                      "bound_by", "library_ms", "call_ms", "max_ulp",
+                      "shape", "clean_ms", "host_ms", "plain_call_ms",
+                      "library_clean_ms")}})
     b3 = prod["kernels"]["momentum_sgd_bf16"]
     # B3 on bf16 leaves: the same kernel source, its bf16 instantiation;
     # its launches are the 8-bit full-width arm's (every leaf bf16).
@@ -8279,6 +8831,11 @@ def main() -> int:
                           "built_roofline_share": dry["built"][
                               "roofline_share"],
                           "one_row_wall_s": dry["one"]["wall_s"],
+                          "strategies": {
+                              k: {f: v[f] for f in (
+                                  "loss_rel_diff", "leaf_rel_diff_max",
+                                  "round_ms_median", "roofline_1chip")}
+                              for k, v in dry["strategies"]["arms"].items()},
                           "phase_s": dry["phase_s"]}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],

@@ -28,7 +28,8 @@ from .mixing import (MixerConfig, make_mixer, make_scheduled_mixer,  # noqa
                      make_fused_tail, split_lanes, join_lanes,
                      cut_columns, join_columns)
 from .dfedavgm import (DFedAvgMConfig, RoundState, init_round_state,  # noqa
-                       make_round_step, average_params, round_comm_bits)
+                       make_round_step, make_cells_round_step,
+                       average_params, round_comm_bits)
 from .baselines import (FedAvgConfig, make_fedavg_step, DSGDConfig,  # noqa
                         make_dsgd_step)
 from .comm_cost import (CommLedger, dfedavgm_round_bits, fedavg_round_bits,  # noqa

@@ -42,6 +42,15 @@ tensor-parallel (``sharding.tensor_parallel``), as the reference's
 GSPMD partitions its step; any other loss joins each shard's cells into
 its full lanes on its column-0 device and runs the 1D ``local_train``
 there, bitwise the 1D mesh's round (``make_round_step``).
+
+On a ``launch.mesh.ServeMesh`` of ``("data", "model")`` cells
+(:func:`make_cells_round_step`: the reference's strategies B, B2 and B3
+on one pod, ``launch.build``'s train step) the state is one dict a cell,
+every cell holding both clients' blocks of each leaf as the strategy's
+specs cut it. Local SGD runs every cell (``local_sgd.local_train_rows``),
+the fp32 dense mix runs on each cell with no transfer, the key chain
+once on the first cell's device, and the metrics meet as partial sums
+over the cells.
 """
 from __future__ import annotations
 
@@ -57,12 +66,13 @@ from .. import prng
 from ..device import resolve_device
 from ..sharding.tensor_parallel import ColumnGroup, local_step_kind
 from .comm_cost import dfedavgm_round_bits, schedule_round_bits
-from .local_sgd import local_train, local_train_deferred
+from .local_sgd import local_train, local_train_deferred, local_train_rows
 from .mixing import (MixerConfig, _clients_per_shard, _column_dims,
                      _gate_z, _mesh_devices, _mesh_grid, _quant_leaf_keys,
                      _schedule_plan, _split_blocks, check_wire,
-                     consensus_distance, cut_columns, join_columns,
-                     join_lanes, make_event_mixer, make_fused_tail,
+                     consensus_distance, consensus_distance_cells,
+                     cut_columns, join_columns, join_lanes,
+                     make_cells_mixer, make_event_mixer, make_fused_tail,
                      make_mixer, split_lanes)
 from .quantize import QuantConfig
 from .topology import MixingSpec, TopologySchedule
@@ -71,7 +81,8 @@ Params = dict[str, torch.Tensor]
 LossFn = Callable[..., torch.Tensor]
 
 __all__ = ["DFedAvgMConfig", "RoundState", "init_round_state",
-           "make_round_step", "average_params", "round_comm_bits"]
+           "make_round_step", "make_cells_round_step", "average_params",
+           "round_comm_bits"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -556,6 +567,49 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                           round=state.round + 1, token=token_next), metrics
 
     round_step.local_step = lanes.local_step
+    return round_step
+
+
+def make_cells_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
+                          spec: MixingSpec, mesh, param_specs: dict, *,
+                          batch_axes: tuple = ()) -> Callable:
+    """Build round_step(state, batches) -> (state', metrics) on the cells
+    of a ``launch.mesh.ServeMesh`` (module docstring): ``state.params``
+    one dict a cell (``mesh.shard(stacked, param_specs)``), row-major,
+    its key on the first cell's device; ``batches`` leaves [m, K, b, ...]
+    whole, cut over ``batch_axes`` by the rows (``local_train_rows``).
+    Algorithm 1 with the dense mixer of the static ``spec``: a quantized
+    wire and the fused round are refused (ROADMAP A21c).
+    Metrics as :func:`make_round_step`'s: ``loss`` the mean over the
+    clients, ``consensus_dist`` and ``local_drift`` from the cells'
+    partial sums (``consensus_distance_cells``)."""
+    if (cfg.quant is not None and cfg.quant.enabled) or cfg.fuse_round:
+        raise ValueError("the round on (data, model) cells runs Algorithm "
+                         "1 unfused (a quantized wire or the fused round "
+                         "on these cells is ROADMAP A21c)")
+    m = spec.m
+    mixer = make_cells_mixer(spec, list(mesh.devices.flat))
+
+    def round_step(state: RoundState, batches: Params):
+        key_round, key_mix, key_next = prng.split(state.rng, 3)
+        del key_mix
+        client_keys = prng.split(key_round, m)
+        with record_function("round/local_sgd"):
+            z, losses = local_train_rows(
+                loss_fn, mesh, state.params, param_specs, batches,
+                client_keys, eta=cfg.eta, theta=cfg.theta,
+                batch_axes=batch_axes)
+        with record_function("round/mix"):
+            x_next = mixer(z)
+        metrics = {"loss": losses.mean(),
+                   "consensus_dist": consensus_distance_cells(
+                       x_next, mesh, param_specs),
+                   "local_drift": consensus_distance_cells(
+                       z, mesh, param_specs)}
+        return RoundState(params=type(state.params)(x_next), rng=key_next,
+                          round=state.round + 1), metrics
+
+    round_step.local_step = "cells"
     return round_step
 
 

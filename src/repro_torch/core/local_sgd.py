@@ -19,23 +19,45 @@ one shard's row of cells tensor-parallel: each step is one
 leaf takes column 0's gradient on every column (so its copies stay
 bitwise equal, which the 2D mixer relies on), and B3 runs once a cell on
 the cell's device.
+
+On a ``launch.mesh.ServeMesh`` of ``("data", "model")`` cells (the
+reference's strategies B, B2 and B3, whose specs cut weights over the
+data axis too), :func:`local_train_rows` trains every cell: each data
+row is a column group that reads its weights' data-cut blocks as
+``DataCut`` gathers (``sharding.tensor_parallel.gather_data``) and
+computes its loss on its batch block (B2, B3) or on the whole batch
+(B). Each row runs its own backward (rows share no activation; one
+backward a row bounds the live activations to one row's and lets a
+count on ``meta`` replay a row); the rows' gradients then meet in
+data-row order (:func:`_reduce_rows`): with a cut batch a data-cut
+block sums every row's slice of it (a reduce-scatter) and any other
+block every row's gradient of it (an all-reduce over the data column,
+the same value on every row's cell); with the whole batch on every row a
+data-cut block keeps its own row's slice and any other block row 0's
+gradient, so the replicated blocks stay bitwise equal. Each row's loss
+is weighted by its share of the batch's tokens in the backward (1/dp
+without a mask), so no gradient is counted twice. B3 then runs once a
+cell.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from .. import prng
 from ..kernels.ops import momentum_update
-from ..launch.cost_model import repeats_on_meta
-from ..sharding.tensor_parallel import ColumnGroup
+from ..launch import hlo_stats
+from ..launch.cost_model import repeats_on_meta, uncounted
+from ..sharding.rules import cuts_data, model_sharded_dims
+from ..sharding.tensor_parallel import ColumnGroup, DataCut, ordered_sum
 
 Params = dict[str, torch.Tensor]
 LossFn = Callable[..., torch.Tensor]  # (params, batch, rng [m, 2]) -> [m]
 
-__all__ = ["local_train", "local_train_deferred", "heavy_ball_update",
-           "loss_and_grad", "loss_and_grad_columns"]
+__all__ = ["local_train", "local_train_deferred", "local_train_rows",
+           "heavy_ball_update", "loss_and_grad", "loss_and_grad_columns"]
 
 
 def heavy_ball_update(y: Params, v: Params, g: Params,
@@ -47,10 +69,13 @@ def heavy_ball_update(y: Params, v: Params, g: Params,
 
 
 def _twice(x):
-    """Every leaf of a dict, or a tensor (None stays None), with its lane
-    axis doubled: a lone lane run as two (:func:`loss_and_grad`)."""
+    """Every leaf of a dict (a data-cut one block by block), or a tensor
+    (None stays None), with its lane axis doubled: a lone lane run as
+    two (:func:`loss_and_grad`)."""
     if isinstance(x, dict):
-        return {n: torch.cat([t, t]) for n, t in x.items()}
+        return {n: _twice(t) for n, t in x.items()}
+    if isinstance(x, DataCut):
+        return x.with_parts([torch.cat([t, t]) for t in x.parts])
     return None if x is None else torch.cat([x, x])
 
 
@@ -78,16 +103,67 @@ def loss_and_grad(loss_fn: LossFn, params: Params, batch: Params,
     return loss.detach(), {n: gr.contiguous() for n, gr in zip(p, grads)}
 
 
+def _leaf(x):
+    """A cell's entry as the backward's leaf: a tensor, or a
+    ``DataCut`` whose own block alone (every row computing the whole
+    batch) or every block (each row its own batch block) needs a
+    gradient."""
+    if isinstance(x, DataCut):
+        return x.with_parts([
+            t.detach().requires_grad_(x.own is None or i == x.own)
+            for i, t in enumerate(x.parts)])
+    return x.detach().requires_grad_(True)
+
+
+def _needing(x) -> list:
+    if isinstance(x, DataCut):
+        return [t for t in x.parts if t.requires_grad]
+    return [x]
+
+
+def _grad_of(x, flat):
+    """The gradient of one entry from the backward's ``flat`` results (a
+    leaf the loss does not reach gets zeros, as under ``jax.grad``): a
+    tensor, a ``DataCut``'s own block's, or its blocks' list."""
+    def one(t):
+        g = next(flat)
+        return torch.zeros_like(t) if g is None else g
+    if not isinstance(x, DataCut):
+        return one(x)
+    if x.own is not None:
+        return one(x.parts[x.own])
+    return [one(t) for t in x.parts]
+
+
+def _copy_to(g, entry):
+    """A replicated leaf's gradient (column 0's) on another column's
+    entry's devices."""
+    if isinstance(g, list):
+        return [gi.to(t.device) for gi, t in zip(g, entry.parts)]
+    t = entry if not isinstance(entry, DataCut) else entry.parts[entry.own]
+    return g.to(t.device)
+
+
+def _each(fn, g):
+    return [fn(t) for t in g] if isinstance(g, list) else fn(g)
+
+
 def loss_and_grad_columns(group: ColumnGroup, loss_fn: LossFn,
                           cells: list[Params], batch: Params,
-                          keys: torch.Tensor
+                          keys: torch.Tensor, weight=None
                           ) -> tuple[torch.Tensor, list[Params]]:
-    """:func:`loss_and_grad` of one shard's row of cells (``group``'s
-    columns) through ``loss_fn.column_parallel``: the losses [m_local]
-    on the group's home and each cell's gradients, from one
-    ``autograd.grad`` over column 0's leaves and every cut leaf. A
-    replicated leaf's gradient is column 0's, copied to each column (the
-    copies are not read by the form). A lone lane runs as two.
+    """:func:`loss_and_grad` of a row of cells (``group``'s columns)
+    through ``loss_fn.column_parallel``: the losses [m_local] on the
+    group's home and each cell's gradients, from one ``autograd.grad``
+    over column 0's leaves and every cut leaf. A replicated leaf's
+    gradient is column 0's, copied to each column (the copies are not
+    read by the form). A lone lane runs as two.
+
+    An entry may be a ``DataCut`` (a row of a ``launch.mesh.ServeMesh``,
+    :func:`local_train_rows`): its gradient is its own block's where its
+    ``own`` is set, else the list of every block's, each on its block's
+    device. ``weight`` (a float, or [m_local] on the home) scales each
+    client's loss in the backward; the losses return unscaled.
 
     The backward runs on the calling thread alone: with the columns on
     several cards the autograd engine would otherwise run each card's
@@ -95,28 +171,33 @@ def loss_and_grad_columns(group: ColumnGroup, loss_fn: LossFn,
     recomputed (``cfg.remat``) block's saved tensors at once, each
     starting the block's recomputation (``torch.utils.checkpoint`` takes
     no lock), which it then refuses as a mismatch."""
-    lone = next(iter(cells[0].values())).shape[0] == 1
+    first = next(iter(cells[0].values()))
+    lanes = (first.parts[0] if isinstance(first, DataCut) else first).shape[0]
+    lone = lanes == 1
     if lone:
         cells = [_twice(c) for c in cells]
         batch, keys = _twice(batch), _twice(keys)
-    p = [{n: t.detach().requires_grad_(True) for n, t in cell.items()
+        if isinstance(weight, torch.Tensor):
+            weight = _twice(weight)
+    p = [{n: _leaf(t) for n, t in cell.items()
           if c == 0 or group.dims.get(n) is not None}
          for c, cell in enumerate(cells)]
     loss = loss_fn.column_parallel.fn(group, group.view(p), batch, keys)
-    leaves = [t for cell in p for t in cell.values()]
+    seed = loss if weight is None else loss * weight
+    leaves = [t for cell in p for x in cell.values() for t in _needing(x)]
     with torch.autograd.set_multithreading_enabled(False):
-        flat = iter(torch.autograd.grad(loss.sum(), leaves,
-                                        allow_unused=True,
-                                        materialize_grads=True))
-    got = [{n: next(flat) for n in cell} for cell in p]
-    grads = [{n: (got[c][n] if n in got[c] else got[0][n].to(d))
-              for n in cell}
-             for c, (cell, d) in enumerate(zip(cells, group.devices))]
+        flat = iter(torch.autograd.grad(seed.sum(), leaves,
+                                        allow_unused=True))
+    got = [{n: _grad_of(x, flat) for n, x in cell.items()} for cell in p]
+    grads = [{n: (got[c][n] if n in got[c] else _copy_to(got[0][n], t))
+              for n, t in cell.items()}
+             for c, cell in enumerate(cells)]
     if lone:
         loss = loss[:1]
-        grads = [{n: gr[:1] for n, gr in g.items()} for g in grads]
-    return loss.detach(), [{n: gr.contiguous() for n, gr in g.items()}
-                           for g in grads]
+        grads = [{n: _each(lambda t: t[:1], gr) for n, gr in g.items()}
+                 for g in grads]
+    return loss.detach(), [{n: _each(lambda t: t.contiguous(), gr)
+                            for n, gr in g.items()} for g in grads]
 
 
 def _on(eta: float | torch.Tensor, dev: torch.device):
@@ -182,6 +263,154 @@ def local_train(loss_fn: LossFn, params: Params | list[Params],
     K = next(iter(batches.values())).shape[1]
     y, _, losses = _steps(loss_fn, params, batches, prng.split(keys, K), K,
                           eta, theta, group)
+    return y, torch.stack(losses, dim=1).mean(dim=1)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+@repeats_on_meta
+def _row_loss_and_grad(group, loss_fn, entries, batch, keys, weight):
+    """One mesh row's losses and gradients (a function of its arguments'
+    shapes alone on ``meta``, so a count replays the rows after the
+    first)."""
+    return loss_and_grad_columns(group, loss_fn, entries, batch, keys,
+                                 weight=weight)
+
+
+def _row_weights(batches: Params, slices: list, scatter: bool) -> list:
+    """Each row's share of a client's loss in the backward, one a local
+    step: 1 with the whole batch on every row; with a cut batch the
+    share of the batch's tokens its block holds, 1/dp without a mask
+    (``[m, K]`` on the mask's device with one)."""
+    if not scatter:
+        return [1.0] * len(slices)
+    mask = batches.get("mask")
+    if mask is None:
+        return [1.0 / len(slices)] * len(slices)
+    dims = tuple(range(2, mask.dim()))
+    total = torch.clamp(mask.sum(dim=dims), min=1).to(torch.float32)
+    return [mask[:, :, sl].sum(dim=dims).to(torch.float32) / total
+            for sl in slices]
+
+
+def _reduce_rows(mesh, rows: list, per_row: list, specs: dict,
+                 scatter: bool, weights: list, k: int
+                 ) -> tuple[torch.Tensor, list[Params]]:
+    """The rows' (losses, column gradients) of one local step -> the
+    clients' losses [m] on the first cell's device and every cell's
+    gradients, in the module docstring's order; records the data
+    column's all-reduces (the reduce-scatters record themselves in the
+    gathers' backward) and B's row-0 broadcasts."""
+    home = mesh.devices.flat[0]
+    dp = len(rows)
+    if scatter:
+        loss = None
+        for (ls, _), w in zip(per_row, weights):
+            w = w[:, k].to(home) if isinstance(w, torch.Tensor) else w
+            part = ls.to(home) * w
+            loss = part if loss is None else loss + part
+    else:
+        loss = per_row[0][0].to(home)
+    data_cut = {n: cuts_data(specs[n]) for n in per_row[0][1][0]}
+    summed: dict = {}
+    out = []
+    for coord, dev in np.ndenumerate(mesh.devices):
+        r, c = rows.index(coord[:-1]), coord[-1]
+        cell = {}
+        for n, cut in data_cut.items():
+            g = per_row[r][1][c][n]
+            if cut and scatter:           # reduce-scatter: block r's sum
+                cell[n] = ordered_sum([q[1][c][n][r] for q in per_row],
+                                       dev)
+            elif cut:                     # the row's own slice
+                cell[n] = g
+            elif scatter:                 # all-reduce over the data column
+                if (c, n) not in summed:
+                    parts = [q[1][c][n] for q in per_row]
+                    hlo_stats.record("all-reduce", _nbytes(parts[0]), dp)
+                    summed[c, n] = ordered_sum(parts, parts[0].device)
+                cell[n] = summed[c, n].to(dev)
+            else:                         # row 0's, on every row
+                if r:
+                    hlo_stats.record("collective-permute", _nbytes(g), dp)
+                cell[n] = per_row[0][1][c][n].to(dev)
+        out.append(cell)
+    return loss, out
+
+
+def local_train_rows(loss_fn: LossFn, mesh, cells: list[Params],
+                     specs: dict, batches: Params, keys: torch.Tensor, *,
+                     eta: float, theta: float,
+                     batch_axes: tuple = ()) -> tuple[list[Params],
+                                                      torch.Tensor]:
+    """K heavy-ball steps on every cell of a ``launch.mesh.ServeMesh``
+    of ``("data", "model")`` cells (module docstring).
+
+    Args:
+      loss_fn:  a loss carrying a column-parallel form
+                (``models.model.make_loss``) that covers every leaf the
+                model axis cuts.
+      cells:    the stacked client parameters laid out by ``specs`` (flat
+                name -> ``PartitionSpec``), one dict a cell, row-major.
+      batches:  dict of [m, K, b, ...] leaves, the whole batch (on any
+                device; each row takes its block to its home).
+      keys:     client PRNG keys [m, 2] (``split(keys[c], K)[k]`` for
+                step k, as :func:`local_train`).
+      batch_axes: the mesh axes that cut the batch's dim 2 (``("data",)``
+                under B2 and B3; empty under B: every row the whole
+                batch).
+
+    Returns:
+      (y^{t,K} as cells, each client's mean local loss over the K steps
+      [m] on the first cell's device).
+    """
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise ValueError(f"the train step on cells runs on ('data', "
+                         f"'model'), got {tuple(mesh.axis_names)} (the pod "
+                         "axis is ROADMAP A21c)")
+    if getattr(loss_fn, "column_parallel", None) is None:
+        raise ValueError("the train step on (data, model) cells needs a "
+                         "loss with a column-parallel form "
+                         "(models.model.make_loss)")
+    dims = model_sharded_dims(specs, "model")
+    declined = [n for n, d in dims.items() if d is not None
+                and not loss_fn.column_parallel.covers(n, dims)]
+    if declined:
+        raise ValueError(f"the loss's column-parallel form declines "
+                         f"{len(declined)} cut leaves, e.g. {declined[0]}")
+    K = next(iter(batches.values())).shape[1]
+    step_keys = prng.split(keys, K)
+    rows = mesh.rows()
+    groups = [mesh.row_group(r, dims) for r in rows]
+    scatter = bool(batch_axes)
+    b = next(iter(batches.values())).shape[2]
+    slices = [mesh.batch_rows(r, tuple(batch_axes), b) for r in rows]
+    weights = _row_weights(batches, slices, scatter)
+    devs = list(mesh.devices.flat)
+    y = [{n: t.detach() for n, t in c.items()} for c in cells]
+    v = [{n: torch.zeros_like(t) for n, t in c.items()} for c in y]
+    etas = [_on(eta, d) for d in devs]
+    losses = []
+    for k in range(K):
+        per_row = []
+        for row, group, sl, w in zip(rows, groups, slices, weights):
+            with uncounted():
+                batch = {n: t[:, k, sl].to(group.home)
+                         for n, t in batches.items()}
+                kk = step_keys[:, k].to(group.home)
+                w = w[:, k].to(group.home) if isinstance(
+                    w, torch.Tensor) else w
+            entries = mesh.row_cells(y, specs, row, scatter=scatter)
+            per_row.append(_row_loss_and_grad(group, loss_fn, entries,
+                                              batch, kk, w))
+        loss, g = _reduce_rows(mesh, rows, per_row, specs, scatter,
+                               weights, k)
+        del per_row
+        yv = [heavy_ball_update(*a, theta) for a in zip(y, v, g, etas)]
+        y, v = [a for a, _ in yv], [c for _, c in yv]
+        losses.append(loss)
     return y, torch.stack(losses, dim=1).mean(dim=1)
 
 

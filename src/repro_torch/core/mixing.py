@@ -60,6 +60,13 @@ K with identity streams of weight 0, and picks its member by the round
 index, a host int or a device tensor, so one CUDA graph holds every
 member.
 
+On a ``launch.mesh.ServeMesh`` of ``("data", "model")`` cells (the
+reference's strategies B, B2 and B3 on one pod: two clients, no client
+axis, every cell holding both clients' block of each leaf) the fp32
+dense mix runs on each cell alone (:func:`make_cells_mixer`: gossip is
+linear, so mixing a block is mixing the leaf restricted to it), and
+:func:`consensus_distance_cells` counts each distinct block once.
+
 ``make_fused_tail`` is the fused round's tail over the same two backends
 (B4 encodes, drawing its noise from the keys as B1 does; B5 decodes and
 applies the deferred last step).
@@ -92,6 +99,7 @@ Params = dict[str, torch.Tensor]
 __all__ = ["MixerConfig", "make_mixer", "make_scheduled_mixer",
            "make_plan_mixer", "make_event_mixer", "make_fused_tail",
            "execute_plan_reference", "mix_dense", "consensus_distance",
+           "make_cells_mixer", "consensus_distance_cells",
            "split_lanes", "join_lanes", "cut_columns", "join_columns"]
 
 _IMPLS = ("auto", "dense", "ring", "torus", "sparse")
@@ -1492,6 +1500,52 @@ def consensus_distance(stacked: Params | list[Params],
             zb = (lane_sum / m).to(parts[0].dtype)
             sq += [((p.to(torch.float32) - zb.to(p.device)) ** 2)
                    .sum().reshape(1) for p in parts]
+        d = join_lanes(sq, dev0).sum() / m
+        total = d if total is None else total + d
+    return total
+
+
+def make_cells_mixer(spec: MixingSpec, devices) -> Callable:
+    """The fp32 dense mix ``x' = W @ z`` on cells: ``mixer(cells) ->
+    cells``, each cell's blocks mixed on its device over the client axis
+    (every cell holds all m clients' blocks), W built once a device."""
+    ws = {}
+    for d in devices:
+        d = torch.device(d)
+        if str(d) not in ws:
+            ws[str(d)] = _device_w(spec.W, d)
+
+    def mixer(cells: list[Params]) -> list[Params]:
+        return [mix_dense(ws[str(next(iter(c.values())).device)], c)
+                for c in cells]
+    return mixer
+
+
+def consensus_distance_cells(cells: list[Params], mesh, specs: dict
+                             ) -> torch.Tensor:
+    """:func:`consensus_distance` of a tree laid out on a ``ServeMesh``'s
+    cells (every cell all m clients' blocks), from partial sums over the
+    cells that count each distinct block once: a leaf the data axis does
+    not cut from data row 0 only, one the model axis does not cut from
+    column 0 only. Summed on the first cell's device, leaf by leaf in
+    sorted-key order, the cells row-major."""
+    from ..sharding.rules import cuts_data
+    coords = list(np.ndindex(mesh.devices.shape))
+    dev0 = mesh.devices.flat[0]
+    m = next(iter(cells[0].values())).shape[0]
+    total = None
+    for name in sorted(cells[0]):
+        data_cut = cuts_data(specs[name])
+        model_cut = any("model" in specs[name].names(i)
+                        for i in range(len(specs[name])))
+        sq = []
+        for coord, cell in zip(coords, cells):
+            if (not data_cut and any(coord[:-1])) or (
+                    not model_cut and coord[-1]):
+                continue
+            z = cell[name]
+            zb = z.mean(dim=0, keepdim=True)
+            sq.append(((z.to(torch.float32) - zb) ** 2).sum().reshape(1))
         d = join_lanes(sq, dev0).sum() / m
         total = d if total is None else total + d
     return total

@@ -5,14 +5,28 @@ mesh) combination — the port of the JAX package's ``launch/build.py``.
 A mesh here is a ``launch.mesh.ServeMesh``: the production stand-in
 (``launch.mesh.make_production_mesh``, ``meta`` cells) or
 ``launch.mesh.make_named_mesh`` of real devices (``(4, 2)`` ``("data",
-"model")`` cells of one card, or distinct cards, one a cell). The train
-step runs on a ``ClientMesh``
-mapped from the mesh's client axes (the strategy's, one shard a
-client-axis cell) by its ``"model"`` axis, the parameters laid out by
-the strategy's specs (``sharding.rules``). Strategies B, B2 and B3 cut
-weights over the data axis as well, which a ``ClientMesh`` does not
-realize: their step runs as the one global program on the mesh's first
-device (``Built.mesh`` None; ROADMAP A21b).
+"model")`` cells of one card, or distinct cards, one a cell).
+
+The train step under strategy A runs on a ``ClientMesh`` mapped from the
+mesh's client axes (the strategy's, one shard a client-axis cell) by its
+``"model"`` axis, the parameters laid out by the strategy's specs
+(``sharding.rules``). Under strategies B, B2 and B3 on one pod (two
+clients, no client axis) it runs on the mesh's own cells (``Built.mesh``
+the ``ServeMesh``; ``core.make_cells_round_step``), the stacked params
+laid out exactly as the reference's specs say: B cuts ``"embed"`` over
+``"data"`` and the batch is whole on every data row; B2 cuts ``"mlp"``
+and ``"ssm_inner"`` over ``("data", "model")`` and the batch over
+``"data"``; B3 cuts weights over ``"model"`` alone and the batch over
+``"data"``. Every data row trains as a column group on its batch block
+(``core.local_sgd.local_train_rows``: data-cut weights gathered at their
+use, their gradients reduce-scattered, or kept as the row's own slice
+under B; the other gradients all-reduced over the data column under B2
+and B3), B3 runs once a local step a cell and the fp32 dense mix runs
+on each cell. A MoE's data rows route their own tokens, one dispatch
+group a row, as the reference's ``shard_map``'d MoE does. The multi-pod
+mesh (its clients on ``"pod"``) and a quantized wire under B, B2 and B3
+still run the one global program on the mesh's first device
+(``Built.mesh`` None; ROADMAP A21c); the fused round there is refused.
 
 The serving steps run model-sharded on the mesh's cells (a
 ``ServeMesh``; ``Built.mesh``), laid out exactly as the reference's
@@ -25,7 +39,8 @@ at its use, layer by layer) and its caches' columns, which it updates in
 place and returns; rows never exchange activations. It takes the whole
 param dict and cache tree (laid out on each call, uncounted: the
 reference's ``in_shardings``) or their ``Cells`` (``Built.mesh.shard``;
-what it returns). ``build_decode_step``'s ``Built.prefill`` is the
+what it returns); so does a train step on cells, its state's params.
+``build_decode_step``'s ``Built.prefill`` is the
 cache-filling prefill on the decode's layout (``model.prefill(...,
 tp=)``, the last position's logits only), which the reference gets from
 GSPMD on sharded inputs. On ``meta`` cells every row repeats the first
@@ -44,7 +59,8 @@ import numpy as np
 import torch
 
 from ..configs.base import INPUT_SHAPES, ArchConfig, InputShape
-from ..core import DFedAvgMConfig, MixingSpec, RoundState, make_round_step
+from ..core import (DFedAvgMConfig, MixingSpec, RoundState,
+                    make_cells_round_step, make_round_step)
 from ..models import model as M
 from ..models.moe import MOE_ROWS, RowRouting
 from ..models.transformer import torch_dtype
@@ -89,8 +105,9 @@ class Built:
     fn: Any                       # the step: fn(*args)
     args: tuple                   # meta tensors (lower(*args) in the reference)
     meta: dict
-    # The mesh fn runs on (a train step's ClientMesh, None for the one
-    # program on the mesh's first device; a serving step's ServeMesh),
+    # The mesh fn runs on (a strategy-A train step's ClientMesh; a B, B2
+    # or B3 train step's ServeMesh on one pod, None for the one program on
+    # the mesh's first device; a serving step's ServeMesh),
     # and (in_specs, out_specs): the reference's in_shardings /
     # out_shardings as PartitionSpecs.
     mesh: ClientMesh | ServeMesh | None = None
@@ -128,6 +145,42 @@ def _model_shapes(cfg: ArchConfig) -> tuple[dict, dict]:
 # Training round step (DFedAvgM over the model)
 # ---------------------------------------------------------------------------
 
+def _check_cells_layout(cfg: ArchConfig, strat, pspecs: dict,
+                        axes: dict, mp: int, batch_cut: bool) -> None:
+    """Refuse a layout the train step on cells would compute otherwise
+    than the reference: a Mamba2 inner dim cut over ``("data",
+    "model")`` (strided across the columns, which crosses the heads its
+    column-parallel form cuts contiguously), an MLP or expert block
+    whose gate, up and down weights cut their ``"mlp"`` dim unalike (a
+    strided partition of the hidden dim is exact only when all three
+    share it), and a MoE whose ``moe_d_ff`` does not divide the model
+    axis under a cut batch (the reference then routes the whole batch
+    as one group, not one a data shard)."""
+    by_block: dict = {}
+    for name, names in axes.items():
+        spec = pspecs[name]
+        for i, logical in enumerate(names):
+            entry = spec.names(i + 1)
+            if logical == "ssm_inner" and "data" in entry \
+                    and "model" in entry:
+                raise ValueError(
+                    f"strategy {strat.name} cuts {name}'s inner dim over "
+                    f"{entry}, strided across the columns, which crosses "
+                    "the Mamba2 heads that its column-parallel form cuts "
+                    "contiguously (ROADMAP A21c)")
+            if logical == "mlp":
+                by_block.setdefault(name.rsplit("/", 1)[0], set()).add(entry)
+    for block, entries in by_block.items():
+        if len(entries) > 1:
+            raise ValueError(f"{block}: its weights cut the mlp dim "
+                             f"unalike ({sorted(entries)})")
+    if cfg.n_experts and batch_cut and cfg.moe_d_ff % mp:
+        raise ValueError(
+            f"moe_d_ff={cfg.moe_d_ff} does not divide the model axis "
+            f"({mp}): the reference routes the whole batch as one group, "
+            "which the rows of a cut batch do not (ROADMAP A21c)")
+
+
 def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
                      strategy: str | None = None,
                      dfed: DFedAvgMConfig | None = None) -> Built:
@@ -150,30 +203,45 @@ def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
     pspecs = specs_for_tree(axes, stacked, strat.rules, mesh,
                             leading_client=strat.client_axes)
 
-    # Strategy A's clients lie on the mesh's client axes; B, B2 and B3
-    # cut weights over "data" too, which a ClientMesh does not realize:
-    # their step is the global program on one device.
-    cmesh = _client_mesh(mesh, strat.client_axes) if strat.name == "A" \
-        else None
-    spec = MixingSpec.ring(m)
-    step = make_round_step(M.make_loss(cfg), dfed, spec, device=dev,
-                           mesh=cmesh,
-                           param_specs=pspecs if cmesh is not None else None,
-                           with_metrics=True)
-
     sizes = _sizes(mesh)
-    ba = tuple(a for a in strat.batch_axes if a in sizes)
+    ba0 = tuple(a for a in strat.batch_axes if a in sizes)
+    ba = ba0
+    if ba and local_bs % int(np.prod([sizes[a] for a in ba])) != 0:
+        ba = ()
+    spec = MixingSpec.ring(m)
+    loss = M.make_loss(cfg)
+    quantized = dfed.quant is not None and dfed.quant.enabled
+    # Strategy A's clients lie on the mesh's client axes; B, B2 and B3 on
+    # one pod train on the mesh's own cells. Their multi-pod mesh and a
+    # quantized wire are the global program on one device (A21c).
+    on_cells = strat.name != "A" and not strat.client_axes and not quantized
+    cmesh = None
+    if on_cells:
+        _check_cells_layout(cfg, strat, pspecs, axes, sizes["model"],
+                            bool(ba))
+        step = make_cells_round_step(loss, dfed, spec, mesh, pspecs,
+                                     batch_axes=ba)
+    else:
+        cmesh = (_client_mesh(mesh, strat.client_axes)
+                 if strat.name == "A" else None)
+        step = make_round_step(loss, dfed, spec, device=dev, mesh=cmesh,
+                               param_specs=(pspecs if cmesh is not None
+                                            else None),
+                               with_metrics=True)
+    lay = mesh if on_cells else cmesh       # where the params are laid out
+
     smap = None
-    if cfg.n_experts > 0 and ba:
+    if cfg.n_experts > 0 and ba0 and not (on_cells and ba):
         # The reference's shard_map'd MoE for a data-sharded batch: one
-        # dispatch group a data shard (models.moe.MOE_SHARD_MAP).
-        smap = (mesh, ba, tuple(a for a in ("model",) if a in sizes))
+        # dispatch group a data shard (models.moe.MOE_SHARD_MAP). On
+        # cells a cut batch's rows are those groups already.
+        smap = (mesh, ba0, tuple(a for a in ("model",) if a in sizes))
 
     def fn(state: RoundState, batches: dict):
-        if cmesh is not None and isinstance(state.params, dict):
+        if lay is not None and isinstance(state.params, dict):
             with cost_model.uncounted():
-                state = state._replace(
-                    params=cmesh.shard(state.params, pspecs))
+                state = state._replace(params=lay.shard(state.params,
+                                                        pspecs))
         if smap is None:
             return step(state, batches)
         from ..models.moe import MOE_SHARD_MAP
@@ -186,24 +254,22 @@ def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
     fn.step = step              # the round step (its ``local_step`` kind)
 
     tok_sds = torch.empty((m, K, local_bs, seq), dtype=torch.int32,
-                          device=dev)
-    batch_sds = {"tokens": tok_sds, "targets": _meta_like(tok_sds, dev)}
+                          device="meta")
+    batch_sds = {"tokens": tok_sds, "targets": _meta_like(tok_sds, "meta")}
     ca = _dp_spec(strat.client_axes)
-    if ba and local_bs % int(np.prod([sizes[a] for a in ba])) != 0:
-        ba = ()
     bspec = _dp_spec(ba)
     tok_spec = P(ca, None, bspec, None)
     batch_specs = {"tokens": tok_spec, "targets": tok_spec}
     if cfg.frontend is not None:
         batch_sds["frontend"] = torch.empty(
             (m, K, local_bs, cfg.frontend_tokens, cfg.d_model),
-            dtype=torch_dtype(cfg.dtype), device=dev)
+            dtype=torch_dtype(cfg.dtype), device="meta")
         batch_specs["frontend"] = P(ca, None, bspec, None, None)
 
     state_sds = RoundState(
-        params={n: _meta_like(t, dev) for n, t in stacked.items()},
-        rng=torch.empty((2,), dtype=torch.int64, device=dev),
-        round=torch.empty((), dtype=torch.int32, device=dev))
+        params={n: _meta_like(t, "meta") for n, t in stacked.items()},
+        rng=torch.empty((2,), dtype=torch.int64, device="meta"),
+        round=torch.empty((), dtype=torch.int32, device="meta"))
     state_specs = RoundState(params=pspecs, rng=P(), round=P())
     metrics_specs = {"loss": P(), "consensus_dist": P(), "local_drift": P()}
     meta = dict(kind="train", m=m, K=K, local_bs=local_bs, seq=seq,
@@ -212,7 +278,7 @@ def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
                 mixer=(dfed.mixer_config().resolved_impl(spec, cmesh)
                        if strat.client_axes else "dense"),
                 quant_bits=(dfed.quant.bits if dfed.quant else 32))
-    return Built(fn=fn, args=(state_sds, batch_sds), meta=meta, mesh=cmesh,
+    return Built(fn=fn, args=(state_sds, batch_sds), meta=meta, mesh=lay,
                  specs=((state_specs, batch_specs),
                         (state_specs, metrics_specs)))
 

@@ -223,13 +223,14 @@ class _Counter(TorchDispatchMode):
 def _call_key(x):
     """A hashable key of a call's arguments: tensors by their metadata,
     a column group by its devices and cuts, a data-cut weight by its
-    blocks and its cut, containers by their items, anything else as
+    blocks, its cut and whether its gradient keeps one block (which one
+    changes no count), containers by their items, anything else as
     itself (functions by identity)."""
     from ..sharding.tensor_parallel import ColumnGroup, DataCut
     if isinstance(x, torch.Tensor):
         return _meta_key(x)
     if isinstance(x, DataCut):
-        return ("datacut", x.axis, str(x.device),
+        return ("datacut", x.axis, str(x.device), x.own is None,
                 tuple(_meta_key(p) for p in x.parts))
     if isinstance(x, dict):
         return tuple((k, _call_key(v)) for k, v in x.items())

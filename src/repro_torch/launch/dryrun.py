@@ -23,12 +23,16 @@ constants (``launch.mesh``):
 
 A serving row's collective term is the port's own transfers (the
 column sums, the logits join, the head_dim-cut cache's score sums, the
-data-axis weight gathers), not the reference's GSPMD choices. Strategies
-B, B2 and B3 cut training weights over the data and model axes, which
-the train step's ``ClientMesh`` does not realize (ROADMAP A21b), so
-their step runs as the one global program: its FLOPs and bytes are the
-program's, and its collective term is null with the reason in
-``collective_null_reason``. The fields
+data-axis weight gathers), not the reference's GSPMD choices. A train
+step under strategies B, B2 and B3 runs on the single-pod mesh's
+``meta`` cells too (``core.local_sgd.local_train_rows``: each data row
+a column group, the rows after the first replayed), its collective
+term the port's transfers: the data-axis weight gathers, their
+backward's reduce-scatters, the data column's all-reduces of the other
+gradients and the column groups' operations. Their multi-pod mesh and
+a quantized wire still run the one global program (ROADMAP A21c): its
+FLOPs and bytes are the program's, and its collective term is null
+with the reason in ``collective_null_reason``. The fields
 only XLA gives are left out: ``xla_flops_per_device_loops_x1``,
 ``xla_bytes_per_device_loops_x1``, ``collective_flat`` (the flat HLO
 pass) and ``compile_s`` / ``lower_s``. ``memory_analysis`` gives the
@@ -175,11 +179,12 @@ def _nbytes(tree) -> int:
 
 def _collective_null_reason(built) -> str | None:
     if built.mesh is None:
-        return (f"strategy {built.meta['strategy']} cuts training weights "
-                "over the data and model axes, which the train step's "
-                "ClientMesh does not realize: the step runs as the global "
-                "program, whose transfers are not the deployment's "
-                "(ROADMAP A21b)")
+        meta = built.meta
+        where = ("its clients on the pod axis" if meta["client_axes"]
+                 else f"a {meta['quant_bits']}-bit wire")
+        return (f"strategy {meta['strategy']} with {where} runs as the "
+                "global program on one device, whose transfers are not "
+                "the deployment's (ROADMAP A21c)")
     return None
 
 

@@ -23,7 +23,15 @@ reports itself, while it runs, to every recorder that
     cache, the vocabulary-cut logits joined at home), and each weight
     cut over the data axis gathered at its use
     (``sharding.tensor_parallel.gather_data``) as an ``all-gather`` over
-    its data column, each row recording its own cell's share.
+    its data column, each row recording its own cell's share;
+  * the train step of strategies B, B2 and B3 on a ``ServeMesh``
+    (``core.local_sgd.local_train_rows``): its rows' column-group
+    operations and data gathers as above, a gather's backward under a
+    cut batch as a ``reduce-scatter`` of one cell's block (the row's
+    share), the data column's sum of every other gradient as an
+    ``all-reduce`` of a cell's block a column, and under B the copy of
+    row 0's gradient of a leaf the data axis does not cut to each other
+    row as a ``collective-permute``.
 
 A recorder sees every trip of every loop, so no trip-count pass (the
 reference's ``collect_collectives_looped``) has a counterpart, and the

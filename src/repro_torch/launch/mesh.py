@@ -26,7 +26,8 @@ A :class:`ServeMesh` is a mesh of the reference's deployment axes,
 whose cells are distinct cards, one device repeated (the CPU in tests,
 cuda:0 in ``chip_smoke.py``) or ``meta``. ``make_production_mesh`` is the
 reference's 256- and 512-chip deployment meshes of ``meta`` cells
-(``launch.build`` maps a train step's client axes onto a ``ClientMesh``),
+(``launch.build`` maps a strategy-A train step's client axes onto a
+``ClientMesh``; B, B2 and B3 train on the cells themselves),
 and the roofline constants are the H100's (NVIDIA H100 80GB HBM3, SXM,
 700 W), not the reference's v5e numbers. A ``ServeMesh`` lays an
 *unstacked* parameter dict and the list-of-stages cache tree out by
@@ -34,8 +35,10 @@ and the roofline constants are the H100's (NVIDIA H100 80GB HBM3, SXM,
 ``"pod"``), or over both (:meth:`ServeMesh.shard`, a :class:`Cells`
 list, row-major; :meth:`ServeMesh.gather` the inverse), and gives each
 row of cells (every axis but ``"model"``) as a column group with its
-view (:meth:`ServeMesh.row_view`). ``launch.build``'s serving steps run
-on ``meta`` cells and on real ones alike.
+view (:meth:`ServeMesh.row_view`, or :meth:`ServeMesh.row_cells` one
+column at a time for the train step). ``launch.build``'s serving steps
+and its B, B2 and B3 train steps run on ``meta`` cells and on real ones
+alike.
 """
 from __future__ import annotations
 
@@ -287,57 +290,88 @@ class ServeMesh:
         return ColumnGroup([self.devices[row + (c,)]
                             for c in range(self.model_parallel)], dims)
 
+    def _data_cut(self, cells: Cells, path: tuple, spec, row: tuple,
+                  c: int, scatter: bool):
+        """Column ``c``'s entry of the leaf at ``path`` for row ``row``:
+        the cell's block, or, where ``spec`` cuts a dim over the data (or
+        pod) axes, a :class:`DataCut` of that column's blocks over those
+        axes, in their order. A dim cut over ``("data", "model")``
+        (``RULES_B2``'s ``"mlp"``) is cut data-major, as ``jax.sharding``
+        orders it: column c's blocks are then the sub-blocks at positions
+        ``d * mp + c`` of the full dim, strided, joined in data order
+        (a partition across the columns that a product summed over that
+        dim takes as exactly as a contiguous one, when every weight it
+        meets is cut alike). ``scatter``: each row holds its own batch
+        block (the gradient goes back to every block), else the cut's
+        ``own`` is the row's block."""
+        cut = [i for i in range(len(spec))
+               if any(a != "model" for a in spec.names(i))]
+        if not cut:
+            return _at(self._cell(cells, row, c), path)
+        names = spec.names(cut[0])
+        if len(cut) > 1 or ("model" in names and names[-1] != "model"):
+            raise ValueError(
+                f"{'/'.join(map(str, path))}: {spec!r} cuts the data axis "
+                "over two dims, or ahead of the model axis in one, which a "
+                "mesh row does not gather")
+        axes = [a for a in names if a != "model"]
+        pos = [self.axis_names.index(a) for a in axes]
+        parts, own = [], None
+        for i, k in enumerate(np.ndindex(*[self.sizes[a] for a in axes])):
+            r = list(row)
+            for p, v in zip(pos, k):
+                r[p] = v
+            if tuple(r) == tuple(row):
+                own = i
+            parts.append(_at(self._cell(cells, tuple(r), c), path))
+        return DataCut(parts, cut[0], self.devices[row + (c,)],
+                       None if scatter else own)
+
     def row_view(self, cells: Cells, specs, row: tuple, *,
                  every_column: bool = False):
         """Row ``row``'s view of a laid-out tree, as the model's
         column-parallel code reads it: a leaf the model axis cuts the
         list of its columns' blocks, a replicated one column 0's block,
         and a weight cut over the data (or pod) axis a :class:`DataCut`
-        of its data column's blocks, joined at its use.
+        of its data column's blocks, joined at its use
+        (:meth:`_data_cut`, its ``own`` the row's block).
         ``every_column`` (a cache tree): every leaf the list of the
         row's own blocks, one a column (a copy where the model axis does
         not cut it), which each column updates; its data-cut dim is the
         row's batch rows."""
-        sizes = self.sizes
         mp = self.model_parallel
 
         def view(path):
             spec = _at(specs, path)
-            cut = [] if every_column else [
-                i for i in range(len(spec))
-                if any(a != "model" for a in spec.names(i))]
-
-            def at(c):
-                if not cut:
-                    return _at(self._cell(cells, row, c), path)
-                if len(cut) > 1 or "model" in spec.names(cut[0]):
-                    raise ValueError(
-                        f"{'/'.join(map(str, path))}: {spec!r} cuts the "
-                        "data axis together with another, which a "
-                        "serving row does not gather")
-                axes = spec.names(cut[0])
-                pos = [self.axis_names.index(a) for a in axes]
-                parts = []
-                for k in np.ndindex(*[sizes[a] for a in axes]):
-                    r = list(row)
-                    for p, v in zip(pos, k):
-                        r[p] = v
-                    parts.append(_at(self._cell(cells, tuple(r), c), path))
-                return DataCut(parts, cut[0], self.devices[row + (c,)])
-
-            if every_column or any("model" in spec.names(i)
-                                   for i in range(len(spec))):
-                return [at(c) for c in range(mp)]
-            return at(0)
+            if every_column:
+                return [_at(self._cell(cells, row, c), path)
+                        for c in range(mp)]
+            if any("model" in spec.names(i) for i in range(len(spec))):
+                return [self._data_cut(cells, path, spec, row, c, False)
+                        for c in range(mp)]
+            return self._data_cut(cells, path, spec, row, 0, False)
         return _paths(view, cells[0])
+
+    def row_cells(self, cells: Cells, specs: dict, row: tuple, *,
+                  scatter: bool = False) -> list[dict]:
+        """Row ``row``'s entries of a laid-out flat dict, one dict a
+        column (:meth:`_data_cut`'s: a block, or a :class:`DataCut`),
+        as ``ColumnGroup.view`` reads a row's cells: the train step's
+        (``core.local_sgd.loss_and_grad_columns``)."""
+        return [{n: self._data_cut(cells, (n,), specs[n], row, c, scatter)
+                 for n in cells[0]} for c in range(self.model_parallel)]
 
     def batch_rows(self, row: tuple, dp: tuple, batch: int) -> slice:
         """The batch rows ``row`` serves: its block over the batch's mesh
-        axes ``dp`` (the whole batch when ``dp`` is empty)."""
+        axes ``dp`` (the whole batch when ``dp`` is empty). Raises when
+        the axes do not divide the batch."""
         index = dict(zip(self.axis_names, row + (0,)))
         k, total = 0, 1
         for a in dp:
             k, total = k * self.sizes[a] + index[a], total * self.sizes[a]
+        if batch % total:
+            raise ValueError(f"a batch of {batch} does not divide over "
+                             f"{dp} ({total} rows)")
         w = batch // total
         return slice(k * w, (k + 1) * w)
 

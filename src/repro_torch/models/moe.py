@@ -23,14 +23,23 @@ Two context variables change the grouping, as the reference's do:
   (its docstring says ``launch.build`` does); ``launch.build`` does not
   here either.
 * ``MOE_SHARD_MAP`` ``(mesh, data_axes, model_axes)``: the grouping the
-  reference's ``shard_map`` MoE computes, one dispatch group a data
-  shard (g the data axes' size), each group's load-balance loss its own
-  and the client's the mean of its groups' (the reference's ``pmean``).
-  It applies where the reference's does (g > 1, g divides t, the model
-  axes divide ``moe_d_ff``), else the path above runs.
-  ``launch.build`` sets it for a train step with a data-sharded batch
-  (strategies B2 and B3). The port has no data-sharded batch to run it
-  on, so it realizes the numerics on the one program it runs.
+  reference's ``shard_map`` MoE computes (``_moe_shard_mapped``), one
+  dispatch group a data shard (g the data axes' size), each group's
+  load-balance loss its own and the client's the mean of its groups'
+  (the reference's ``pmean``). It applies where the reference's does
+  (g > 1, g divides t, the model axes divide ``moe_d_ff``), else the
+  path above runs. On the cells of ``launch.build``'s train step under
+  B2 and B3 each data row holds only its own shard of the batch and
+  routes it as the one dispatch group it is, with no variable set: the
+  rows are the groups, each row's load-balance loss is its own, the
+  client's loss their mean through the step's weighting of the rows,
+  and the reference's ``psum`` over the model axes is the column
+  group's sum. The variable is set where one program holds more than
+  one shard's tokens: ``launch.build``'s global program (the A21c
+  layouts) and its rows of a batch the data axis does not divide (each
+  routing the whole batch), and the global program the cells are held
+  against. Under B the batch is not cut: every row routes the whole
+  batch as one group, the global program's routing.
 
 A serving step on a mesh (``launch.build`` on a
 ``launch.mesh.ServeMesh``) runs its batch as blocks, one a data row, and

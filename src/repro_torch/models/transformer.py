@@ -18,7 +18,8 @@ loops over the layers where the reference runs ``lax.scan``; it unbinds
 each leaf once, so the backward stacks the layers' gradients in one
 allocation. ``cfg.remat`` wraps a block in
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which
-recomputes the forward in the backward and does not change the numbers.
+recomputes the forward in the backward, in the forward's context
+variables, and does not change the numbers.
 A stage's decode cache is stacked on a leading layer axis: ``[n, m, ...]``
 (``kpos`` ``[n, S]``).
 
@@ -27,13 +28,16 @@ block's attention (self and cross), MLP, MoE and Mamba2 mixer, whose cut
 leaves are lists of column slices (a stage leaf's slices each carry the
 layer axis), and the shared block's ``down``, row-parallel over
 ``concat(x, x_first)`` sliced across the columns; norms, residuals and
-the gates run once, at home. A serving row's view may hold weights cut
+the gates run once, at home. A mesh row's view may hold weights cut
 over the data axis (``sharding.tensor_parallel.DataCut``): each layer's
-are gathered just before it runs and dropped after it, and its cache (a
+are gathered just before it runs and dropped after it (inside a remat'd
+block, so its backward gathers them again), and its cache (a
 list a leaf, one copy or slice a column) is updated in place by its
 attention or mixer, so a stage returns the cache it was given.
 """
 from __future__ import annotations
+
+import contextvars
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -258,18 +262,29 @@ def apply_stage(stage_params: Params, x: torch.Tensor, *, cfg: ArchConfig,
                            cross_kv=cross_kv, x_first=x_first, cache=c,
                            tp=tp)
 
+    def gathered(p, h, c):
+        # A data-cut layer's weights gathered inside the (recomputed)
+        # block: the backward of a remat'd block gathers them again
+        # rather than keeping them from the forward.
+        if tp is not None:
+            p = {name: gather_data(t) for name, t in p.items()}
+        return block(p, h, c)
+
     layers = {name: _layers_of(t) for name, t in stage_params.items()}
     caches = _layer_caches(cache, n)
     aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
     new = []
     for i in range(n):
         p = {name: layers[name][i] for name in layers}
-        if tp is not None:
-            p = {name: gather_data(t) for name, t in p.items()}
         if cfg.remat and cache is None:
-            x, nc, a = checkpoint(block, p, x, None, use_reentrant=False)
+            # The backward may recompute the block on autograd's device
+            # thread, which does not see this one's context variables
+            # (the MoE's grouping): it recomputes in the forward's.
+            ctx = contextvars.copy_context()
+            x, nc, a = checkpoint(lambda *args: ctx.run(gathered, *args),
+                                  p, x, None, use_reentrant=False)
         else:
-            x, nc, a = block(p, x, caches[i])
+            x, nc, a = gathered(p, x, caches[i])
         aux = aux + a
         new.append(nc)
     if cache is None:

@@ -1,4 +1,5 @@
 from .rules import (RULES_A, RULES_B, RULES_B2, RULES_B3,  # noqa: F401
                     RULES_SERVE, RULES_SERVE_2D, P, PartitionSpec,
-                    ShardingStrategy, model_sharded_dims, shapes_and_axes,
+                    ShardingStrategy, cuts_data, model_sharded_dims,
+                    shapes_and_axes,
                     spec_for_leaf, specs_for_tree, stack_shapes)

@@ -29,7 +29,8 @@ import torch
 
 __all__ = ["PartitionSpec", "P", "ShardingStrategy", "spec_for_leaf",
            "specs_for_tree", "stack_shapes", "shapes_and_axes",
-           "model_sharded_dims", "RULES_A", "RULES_B", "RULES_B2",
+           "model_sharded_dims", "cuts_data", "RULES_A", "RULES_B",
+           "RULES_B2",
            "RULES_B3", "RULES_SERVE", "RULES_SERVE_2D"]
 
 
@@ -255,3 +256,10 @@ def model_sharded_dims(specs: dict[str, PartitionSpec], model_axis: str
                              f"{model_axis!r}")
         out[n] = dims[0] if dims else None
     return out
+
+
+def cuts_data(spec: PartitionSpec) -> bool:
+    """Whether ``spec`` cuts a dim over an axis other than ``"model"``
+    (``"data"`` or ``"pod"``): a leaf whose blocks differ across a
+    mesh's rows."""
+    return any(a != "model" for i in range(len(spec)) for a in spec.names(i))

@@ -25,13 +25,19 @@ carries gradients across devices:
     column (a serving row's query heads, or a head_dim-cut cache's
     slices, where every column reads them whole).
 
-A serving row (``launch.build``'s prefill and decode on a
-``launch.mesh.ServeMesh``) is a column group too. Under the reference's
-``RULES_SERVE_2D`` its weights are also cut over the data axis (their
-``"embed"`` dim): its view holds such a leaf as a :class:`DataCut`, the
-blocks of its data column, which :func:`gather_data` concatenates on the
-column's device at its use (the FSDP-style all-gather those rules
-imply), layer by layer, so a gathered weight lives as long as its layer.
+A row of a ``launch.mesh.ServeMesh`` (``launch.build``'s prefill and
+decode, and its train step under strategies B, B2 and B3) is a column
+group too. Where the specs also cut a weight over the data axis (the
+reference's ``RULES_SERVE_2D`` and ``RULES_B`` cut ``"embed"``,
+``RULES_B2`` cuts ``"mlp"`` over ``("data", "model")``) the row's view
+holds it as a :class:`DataCut`, the blocks of its data column, which
+:func:`gather_data` concatenates on the column's device at its use (the
+FSDP-style all-gather those rules imply), layer by layer, so a gathered
+weight lives as long as its layer. Its backward returns the gradient to
+the data column's cells: where every row computes the whole batch (B,
+serving) each row keeps its own block's slice, no collective; where each
+row holds its own batch block (B2, B3) every block goes back to its cell
+(a ``reduce-scatter``, which ``core.local_sgd`` sums in data-row order).
 The rows never exchange activations.
 
 The reference leaves this step to GSPMD, which partitions the whole
@@ -53,7 +59,7 @@ from ..launch import hlo_stats
 Params = dict[str, torch.Tensor]
 
 __all__ = ["ColumnGroup", "ColumnParallel", "DataCut", "gather_data",
-           "with_column_parallel", "local_step_kind"]
+           "ordered_sum", "with_column_parallel", "local_step_kind"]
 
 
 class _Broadcast(torch.autograd.Function):
@@ -92,6 +98,19 @@ def _on_backward(t: torch.Tensor, kind: str, result_bytes: int, g: int
     return t
 
 
+def ordered_sum(parts: Sequence[torch.Tensor], dev) -> torch.Tensor:
+    """``parts`` added on ``dev`` in their order (in f32 for a narrower
+    float type, rounded once at the end), so a sum across devices is
+    deterministic."""
+    dtype = parts[0].dtype
+    narrow = dtype in (torch.bfloat16, torch.float16)
+    acc = parts[0].to(dev)
+    acc = acc.to(torch.float32) if narrow else acc
+    for p in parts[1:]:
+        acc = acc + p.to(dev)
+    return acc.to(dtype) if narrow else acc
+
+
 class ColumnGroup:
     """One shard's row of cells: ``devices`` one a column (column 0 the
     home) and ``dims``, flat name -> the stacked leaf's dim the model
@@ -127,13 +146,7 @@ class ColumnGroup:
                             _nbytes(parts[0]), self.mp)
 
     def _sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-        dtype = parts[0].dtype
-        narrow = dtype in (torch.bfloat16, torch.float16)
-        acc = parts[0].to(self.home)
-        acc = acc.to(torch.float32) if narrow else acc
-        for p in parts[1:]:
-            acc = acc + p.to(self.home)
-        return acc.to(dtype) if narrow else acc
+        return ordered_sum(parts, self.home)
 
     def all_sum(self, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """:meth:`reduce_sum` of the columns' partials, on every column:
@@ -171,46 +184,88 @@ class ColumnGroup:
 
 
 class DataCut:
-    """A weight cut over the data axis in a serving row's view: its blocks
+    """A weight cut over the data axis in a mesh row's view: its blocks
     along ``axis``, one a data cell of the column (in the order of the
     data axis), to be joined on ``device`` (the row's cell of that
-    column) at its use by :func:`gather_data`. ``unbind`` and
-    ``unsqueeze`` act on the blocks, so a stage's leaf splits into its
-    layers, and ``dim`` is the rank a block has, as a tensor's."""
+    column) at its use by :func:`gather_data`. ``own``: the index of the
+    row's own block where every row computes the whole batch (the
+    gradient keeps that block's slice), None where each row holds its
+    own batch block (the gradient of every block goes back to its cell).
+    ``unbind`` and ``unsqueeze`` act on the blocks, so a stage's leaf
+    splits into its layers, and ``dim`` is the rank a block has, as a
+    tensor's."""
 
-    __slots__ = ("parts", "axis", "device")
+    __slots__ = ("parts", "axis", "device", "own")
 
-    def __init__(self, parts: Sequence[torch.Tensor], axis: int, device):
+    def __init__(self, parts: Sequence[torch.Tensor], axis: int, device,
+                 own: int | None = None):
         self.parts = list(parts)
         self.axis = axis
         self.device = torch.device(device)
+        self.own = own
 
     def dim(self) -> int:
         return self.parts[0].dim()
+
+    def with_parts(self, parts: Sequence[torch.Tensor]) -> "DataCut":
+        """The same cut over other blocks (of the same shapes)."""
+        return DataCut(parts, self.axis, self.device, self.own)
 
     def unbind(self, dim: int) -> list["DataCut"]:
         if dim == self.axis:
             raise ValueError("a DataCut unbinds a dim the data axis does "
                              "not cut")
         axis = self.axis - (self.axis > dim)
-        return [DataCut(ps, axis, self.device)
+        return [DataCut(ps, axis, self.device, self.own)
                 for ps in zip(*(p.unbind(dim) for p in self.parts))]
 
     def unsqueeze(self, dim: int) -> "DataCut":
         return DataCut([p.unsqueeze(dim) for p in self.parts],
-                       self.axis + (dim <= self.axis), self.device)
+                       self.axis + (dim <= self.axis), self.device,
+                       self.own)
+
+
+class _GatherData(torch.autograd.Function):
+    """A :class:`DataCut`'s blocks concatenated on its device. The
+    backward cuts the gradient into the blocks' slices: with ``own`` set
+    only that block's (a copy of its own, so the whole gradient can be
+    freed), else every block's, each on its block's device (a
+    ``reduce-scatter``: the caller sums the rows' slices)."""
+
+    @staticmethod
+    def forward(ctx, axis, device, own, *parts):
+        ctx.axis, ctx.own = axis, own
+        ctx.sizes = [p.shape[axis] for p in parts]
+        ctx.devices = [p.device for p in parts]
+        return torch.cat([p.to(device) for p in parts], dim=axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        slices = torch.split(grad, ctx.sizes, dim=ctx.axis)
+        if ctx.own is not None:
+            out = [None] * len(slices)
+            out[ctx.own] = slices[ctx.own].to(
+                ctx.devices[ctx.own], copy=True,
+                memory_format=torch.contiguous_format)
+            return (None, None, None, *out)
+        hlo_stats.record("reduce-scatter", _nbytes(slices[0]),
+                         len(slices), senders=1)
+        return (None, None, None,
+                *(s.to(d).contiguous() for s, d in zip(slices,
+                                                      ctx.devices)))
 
 
 def gather_data(x):
-    """A serving view's leaf as its layer reads it: a :class:`DataCut`
-    joined on its device (an ``all-gather`` over its data column, of
-    which this row records its own cell's share), a list of them column
-    by column; any other value as it is."""
+    """A mesh row's view of a leaf as its layer reads it: a
+    :class:`DataCut` joined on its device (an ``all-gather`` over its
+    data column, of which this row records its own cell's share; its
+    backward :class:`_GatherData`'s), a list of them column by column;
+    any other value as it is."""
     if isinstance(x, list):
         return [gather_data(t) for t in x]
     if not isinstance(x, DataCut):
         return x
-    out = torch.cat([p.to(x.device) for p in x.parts], dim=x.axis)
+    out = _GatherData.apply(x.axis, x.device, x.own, *x.parts)
     hlo_stats.record("all-gather", _nbytes(out), len(x.parts), senders=1)
     return out
 

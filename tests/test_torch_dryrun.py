@@ -20,10 +20,13 @@ compile); the port builds on the same mesh of ``meta`` cells.
 * the reduced SmolLM train step's matmul FLOPs (structural, on ``meta``)
   exactly twice the reference's ``dot_general`` FLOPs (jaxpr, scans
   multiplied): a shard's one client runs as two lanes; its strategy-B
-  build (no lone lane) within 2 %; its recorded permutes exact;
+  build on the mesh's cells (no lone lane; every one of the dp = 4 data
+  rows runs the whole batch) within 2 % of dp times them; its recorded
+  permutes exact;
 * ``run_one`` records: the H100 terms from the record's own counts (a
-  model-sharded decode row's collective term from its recorded bytes), a
-  strategy-B row with a null collective term and its reason;
+  model-sharded decode row's and a strategy-B train row's collective
+  term from its recorded bytes), a multi-pod strategy-B row with a null
+  collective term and its reason;
 * ``bench.roofline.run`` and the report's table give the reference's
   rows from the same two JSON records.
 """
@@ -204,21 +207,26 @@ def test_reduced_smollm_train_step_counts_against_the_reference(reference):
     client a shard): matmul FLOPs exactly twice the reference's
     dot_general FLOPs, since the port runs a lone lane as two
     (``core.local_sgd.loss_and_grad``: cuBLAS splits a batch of one
-    differently); the strategy-B build of the same step (two clients on
-    one device, the same tokens, no lone lane) within 2 % of the
-    reference's; its kernel records (B3 once a local step a cell) and
-    its recorded permutes (each cell's fp32 stream to its column's two
-    ring neighbours)."""
+    differently); the strategy-B build of the same step (two clients, the
+    same tokens, no lone lane) on the mesh's cells within 2 % of dp = 4
+    times the reference's: under B the batch is not cut, so each of the
+    4 data rows runs the whole batch on its column group (the rows'
+    products are column-parallel splits of the one program's, so each
+    row's FLOPs are the reference's); its kernel records (B3 once a
+    local step a cell) and its recorded permutes (each cell's fp32
+    stream to its column's two ring neighbours)."""
     built = _port_build("smollm-135m", "train")
     costs = structural_costs(built.fn, *built.args)
     want = reference["smollm-135m/train"]["dot_flops"]
     assert costs.matmul_flops == 2 * want, (costs.matmul_flops, want)
-    glob = B.build_train_step(reduced(get_config("smollm-135m")), MESH,
-                              InputShape(*SHAPES["train"]), strategy="B")
-    assert glob.meta["tokens_per_step"] == built.meta["tokens_per_step"]
-    g_costs = structural_costs(glob.fn, *glob.args)
-    assert abs(g_costs.matmul_flops - want) / want < 0.02, (
-        g_costs.matmul_flops, want)
+    cells = B.build_train_step(reduced(get_config("smollm-135m")), MESH,
+                               InputShape(*SHAPES["train"]), strategy="B")
+    assert cells.meta["tokens_per_step"] == built.meta["tokens_per_step"]
+    assert cells.mesh is MESH
+    dp = MESH.sizes["data"]
+    c_costs = structural_costs(cells.fn, *cells.args)
+    assert abs(c_costs.matmul_flops - dp * want) / (dp * want) < 0.02, (
+        c_costs.matmul_flops, want)
     n_shards, mp = 4, 2
     assert costs.kernels["momentum_sgd"]["calls"] == n_shards * mp * 2
     # The fp32 ring: every cell ships its whole stream (its leaves, cut
@@ -324,10 +332,11 @@ def test_skips_and_analytic_models_equal_the_reference():
 
 def test_run_one_records(tmp_path, monkeypatch):
     """A decode row (model-sharded on the production mesh's cells) and
-    mixtral's strategy-B train row (one layer): the H100 terms from the
-    record's own counts, the decode's collective term from its recorded
-    bytes, the dominant term, the train row's null collective term and
-    its reason, the memory analysis's scope, and the saved JSON."""
+    mixtral's strategy-B train row (one layer, on the mesh's cells): the
+    H100 terms from the record's own counts, each row's collective term
+    from its recorded bytes, the dominant term, the memory analysis's
+    scope, and the saved JSON; the multi-pod strategy-B train row (the
+    global program) with a null collective term and its reason."""
     from repro_torch.launch import mesh as LM
     monkeypatch.setattr(dryrun, "OUT_DIR", tmp_path)
     rec = dryrun.run_one("smollm-135m", "decode_32k", multi_pod=False,
@@ -350,10 +359,18 @@ def test_run_one_records(tmp_path, monkeypatch):
     b = dryrun.run_one("mixtral-8x22b", "train_4k", multi_pod=False,
                        save=False, cfg_overrides={"n_layers": 1})
     assert b["meta"]["strategy"] == "B" and b["meta"]["mixer"] == "dense"
-    assert b["roofline"]["collective_s"] is None
-    assert "strategy B" in b["collective_null_reason"]
-    assert "A21b" in b["collective_null_reason"]
+    assert b["collective_null_reason"] is None
+    assert b["struct_coll_bytes_per_dev"] > 0
+    assert b["roofline"]["collective_s"] == b["struct_coll_bytes_per_dev"] \
+        / LM.NVLINK_BW
+    assert b["struct_coll_by_kind"]["all-gather"] > 0
     assert b["struct_flops_global"] > 0 and b["useful_flops_ratio"] > 0
+    pods = dryrun.run_one("mixtral-8x22b", "train_4k", multi_pod=True,
+                          save=False, cfg_overrides={"n_layers": 1})
+    assert tuple(pods["meta"]["client_axes"]) == ("pod",)
+    assert pods["roofline"]["collective_s"] is None
+    assert "strategy B" in pods["collective_null_reason"]
+    assert "A21c" in pods["collective_null_reason"]
     skip = dryrun.run_one("smollm-135m", "long_500k", multi_pod=False,
                           save=False)
     assert skip["skipped"].startswith("full-attention arch")
