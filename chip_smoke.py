@@ -260,12 +260,33 @@ Phases (any failure exits non-zero):
    B3 against the global program on cuda:0, and Mixtral-8x22B's 2
    layers in bf16 under B; ``--only cards_serve`` and ``--only
    cards_strategies`` run the serving and the strategies' arms alone);
-20. print the kernel table (with the floor; B1-B3 with their full-width
+20. "pods": strategies B, B2 and B3 on the multi-pod mesh, a quantized
+   wire and the fused round on one pod's cells (SmolLM-135M at its
+   widths, PODS_LAYERS layers, f32, m 2, K 2, batch 8 x seq 128): the
+   8-bit wire given the same z, on the (2, 2, 2) ("pod", "data",
+   "model") ring (B and B2 specs) and the (4, 2) dense mix, its
+   dequantized deltas and scales bitwise the global program's on
+   cuda:0; B, B2 and B3 on (2, 2, 2), each with the fp32 ring over
+   "pod" and with the 8-bit lemma5 ring, then B3 with 8 bits and B2
+   fused on (4, 2), 2 rounds each against 2 of the global program
+   (fp32: losses within 5e-5, leaves within 1e-5 of their largest
+   value; 8 bits: losses so, leaves within one quantizer step; every
+   replicated block bitwise), B3 once a local step a cell, B1 = B2 = 8
+   a round on the 8-bit pod ring and none elsewhere, one more round's
+   recorded collectives (the ring's payloads over "pod" included) and
+   kernel records equal to the ``meta`` build's; B1 (tensor noise) and
+   B2 at a pod cell bitwise with their plain versions, timed (``--only
+   pods``; ``--only cards`` ends with Qwen3-MoE-30B-A3B's 2 layers in
+   f32 on (2, 1, 2) pods of two cards each under B3, the fp32 ring
+   against the global program on cuda:0 and the 8-bit ring, each card's
+   peak and the ring's transfers between cards timed alone; ``--only
+   cards_pods`` runs that arm alone);
+21. print the kernel table (with the floor; B1-B3 with their full-width
    times, B1-B5 with their mesh launches, B2 and B5 at the mesh's
    extended table, a B3 bf16 row, the 2D rows: B1 tensor noise and B2
    at a cell, T2 at SmolLM-135M's largest leaf, ``bench.kernels``' B6,
-   B8 and B3 at 1M, and B3 at a (data, model) cell) as one JSON line,
-   then the card again, then
+   B8 and B3 at 1M, B3 at a (data, model) cell, and B1 tensor noise
+   and B2 at a pod cell) as one JSON line, then the card again, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 It needs one CUDA card and exits non-zero without one.
@@ -5775,7 +5796,8 @@ def cards_phase(dev, flush=None) -> dict:
     cards against its 1D run on two (:func:`cards_moe`); then serving
     model-sharded on four cards (:func:`cards_serve`); then the train step
     of strategies B, B2 and B3 on four cards' cells
-    (:func:`cards_strategies`)."""
+    (:func:`cards_strategies`); then B3 on the pod mesh of four cards
+    (:func:`cards_pods`)."""
     from repro_torch.launch.mesh import make_client_mesh, make_test_mesh
     del flush
     mesh = make_client_mesh(M, clients_per_shard=M // MESH_SHARDS)
@@ -5790,6 +5812,7 @@ def cards_phase(dev, flush=None) -> dict:
     rec["moe"] = cards_moe(dev)
     rec["serve"] = cards_serve(dev)
     rec["strategies"] = cards_strategies(dev)
+    rec["pods"] = cards_pods(dev)
     rec["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"cards": {
         "devices": [torch.cuda.get_device_name(i)
@@ -5803,6 +5826,8 @@ def cards_phase(dev, flush=None) -> dict:
         "serve_token_ms_median": rec["serve"]["full"]["token_ms_median"],
         "serve_decode_bound_ms": rec["serve"]["full"]["decode_bound_ms"],
         "serve_card_peak_gib": rec["serve"]["full"]["card_peak_gib"],
+        "pods_card_peak_gib": rec["pods"]["fp32"]["card_peak_gib"],
+        "pods_transfer_gb_per_s": rec["pods"]["transfer"]["gb_per_s"],
         "phase_s": rec["phase_s"]}}), flush=True)
     return rec
 
@@ -8490,6 +8515,556 @@ def strategies_phase(dev, flush=None) -> dict:
     return rec
 
 
+# The "pods" phase: strategies B, B2 and B3 on the multi-pod mesh, a
+# quantized wire and the fused round on one pod's cells.
+# SmolLM-135M at its registered widths, PODS_LAYERS of its 30
+# layers (depth cut so the phase fits the script's time), f32, on the
+# (2, 2, 2) ("pod", "data", "model") cells of cuda:0 (m 2, one client a
+# pod, K 2, DRYRUN_TRAIN's batch 8 x seq 128): each strategy with the
+# fp32 ring over "pod" and with the 8-bit lemma5 ring, PODS_ROUNDS rounds
+# against as many of the global program on cuda:0 (the ring plan on one
+# device); then B3 with 8 bits (the dense quantized mix) and B2 fused on
+# the (4, 2) cells. Weights random from seed 40 (``init_model``).
+PODS_MESH = ((2, 2, 2), ("pod", "data", "model"))
+PODS_LAYERS = 8
+PODS_ROUNDS = 2
+PODS_ARMS = [(s, "2x2x2", w, False) for s in STRATEGIES
+             for w in ("fp32", "q8")] + [("B3", "4x2", "q8", False),
+                                          ("B2", "4x2", "fp32", True)]
+# Predicted before the first chip run (PERF.md §6).
+PODS_PREDICTION = {
+    "fp32_loss_rel_diff": [1e-8, 1e-5], "fp32_leaf_rel_diff": [1e-8, 1e-6],
+    "q8_dequantized_deltas_and_scales_bitwise": True,
+    "q8_leaf_err_over_step": [0.0, 1.0],
+    "b3_launches_a_local_step_a_cell": 8,
+    "b1_b2_launches_a_round_pod_ring_q8": 8,
+    "card_coll_equals_meta": True, "round_ms_2x2x2": [800, 4000],
+    "b1_pod_cell_us": [50, 90], "b2_pod_cell_us": [50, 90]}
+# Four cards: Qwen3-MoE-30B-A3B at its widths, 2 of 48 layers, f32, on
+# (2, 1, 2) ("pod", "data", "model") of four cards (pod p on cards 2p,
+# 2p + 1, so the ring over "pod" copies between cards), K 1, batch 4 x
+# seq 128 (CARDS_STRAT_SHAPE), under B3 with the fp32 ring and with 8
+# bits; the fp32 arm against the global program on cuda:0 (the ring plan
+# on one device).
+CARDS_PODS_ARCH = "qwen3-moe-30b-a3b"
+CARDS_PODS_CUTS = {"n_layers": 2, "dtype": "float32"}
+CARDS_PODS_MESH = ((2, 1, 2), ("pod", "data", "model"))
+CARDS_PODS_TRANSFER_REPS = 5
+CARDS_PODS_PREDICTION = {
+    "fp32_loss_rel_diff": [1e-8, 2e-5], "fp32_leaf_rel_diff": [1e-8, 1e-6],
+    "q8_losses_finite": True, "card_peak_gib_fp32": [20, 40],
+    "card0_peak_gib_q8": [30, 60], "transfer_gb": 14.95,
+    "transfer_gb_per_s": [200, 1200]}
+
+
+def _pods_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(DRYRUN_ARCH), dtype="float32",
+                               n_layers=PODS_LAYERS)
+
+
+def _pods_dfed(mesh_name: str, wire: str, fused: bool, K: int = 2):
+    from repro_torch.core import DFedAvgMConfig, QuantConfig
+    return DFedAvgMConfig(
+        eta=1e-3, theta=0.9, local_steps=K,
+        quant=QuantConfig(bits=8) if wire == "q8" else None,
+        fuse_round=fused,
+        mixer_impl="ring" if mesh_name == "2x2x2" else "dense")
+
+
+def _scale_spy():
+    """Record the largest per-leaf scale the wire derives (by leaf name)
+    while installed; returns (seen, undo)."""
+    from repro_torch.core.wire_layout import WireLayout
+
+    seen: dict = {}
+    real = WireLayout.scales_from_amax
+
+    def spy(self, amax, quant):
+        s = real(self, amax, quant)
+        top = s.reshape(-1, s.shape[-1]).amax(dim=0).tolist()
+        for n, v in zip(self.names, top):
+            seen[n] = max(seen.get(n, 0.0), v)
+        return s
+
+    WireLayout.scales_from_amax = spy
+
+    def undo():
+        WireLayout.scales_from_amax = real
+    return seen, undo
+
+
+def _deq_spy(dense: bool):
+    """Capture the 8-bit wire's dequantized deltas and scales while
+    installed: the plan wire's words decoded at weight 1 (B2 of one
+    stream: 0 + 1 * deq, exact) in leaf geometry, with the encode's
+    per-leaf scales; or the dense mix's ``levels * s`` (cells:
+    ``mixing.quantize_levels``; one device: ``mixing.dequantize_int``).
+    Returns (records, undo)."""
+    from repro_torch.core import mixing as TMX
+    from repro_torch.core.wire_layout import WireLayout
+
+    recs: list = []
+    if not dense:
+        real = WireLayout.encode
+
+        def spy(self, delta, scales, quant, keys=None, noise=None):
+            words = real(self, delta, scales, quant, keys=keys, noise=noise)
+            lanes = delta.shape[0]
+            one = torch.ones((lanes, 1), device=delta.device)
+            src = torch.arange(lanes, dtype=torch.int32,
+                               device=delta.device)[None]
+            recs.append((self.from_planar_stacked(self.decode_apply(
+                torch.zeros_like(delta), words, scales, one, src, quant)),
+                dict(zip(self.names, scales.unbind(-1)))))
+            return words
+
+        WireLayout.encode = spy
+
+        def undo():
+            WireLayout.encode = real
+        return recs, undo
+    real_l, real_d = TMX.quantize_levels, TMX.dequantize_int
+
+    def spy_l(d, s, quant, u=None):
+        k = real_l(d, s, quant, u)
+        recs.append((k * s, s.reshape(-1)))
+        return k
+
+    def spy_d(k, s):
+        q = real_d(k, s)
+        recs.append((q, s.reshape(-1)))
+        return q
+
+    TMX.quantize_levels, TMX.dequantize_int = spy_l, spy_d
+
+    def undo():
+        TMX.quantize_levels, TMX.dequantize_int = real_l, real_d
+    return recs, undo
+
+
+def pods_mix_gate(dev, mesh, specs: dict, params: dict, dense: bool
+                  ) -> dict:
+    """The 8-bit lemma5 wire given the same x and z (x = ``params``, z =
+    x + 1e-3 seeded noise, on the card): the cells' mix (the pod ring
+    through ``make_plan_mixer`` on the mesh, or the dense mix on one
+    pod's cells) against the global program's (the ring plan on one
+    device, keyed B1; or ``_mix_dense_quantized``): every dequantized
+    delta and every per-leaf scale bitwise; the outputs' largest
+    difference over the leaf's largest value reported."""
+    from repro_torch import prng
+    from repro_torch.core import MixingSpec, QuantConfig
+    from repro_torch.core import mixing as TMX
+    from repro_torch.launch.mesh import Cells
+
+    quant = QuantConfig(bits=8)
+    spec = MixingSpec.ring(2)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    x = {n: t.to(dev) for n, t in params.items()}
+    z = {n: t + 1e-3 * torch.randn(t.shape, generator=gen, device=dev)
+         for n, t in x.items()}
+    names = sorted(x)
+    key = prng.PRNGKey(5, device=dev)
+    xs, zs = mesh.shard(x, specs), mesh.shard(z, specs)
+    recs, undo = _deq_spy(dense)
+    try:
+        if dense:
+            out = TMX.make_cells_mixer(spec, mesh, specs, quant)(xs, zs, key)
+        else:
+            out = TMX.make_plan_mixer(spec.gossip_plan(), quant, mesh=mesh,
+                                      param_specs=specs)(xs, zs, key)
+        torch.cuda.synchronize()
+        cell_recs = list(recs)
+        recs.clear()
+        if dense:
+            want = TMX._mix_dense_quantized(spec.W, x, z, quant, key)
+        else:
+            want = TMX.make_mixer(spec, TMX.MixerConfig("ring", quant),
+                                  device=dev)(x, z, key)
+        torch.cuda.synchronize()
+        glob_recs = list(recs)
+    finally:
+        undo()
+    if dense:
+        per = len(names)
+        deq_cells = [dict(zip(names, [q for q, _ in cell_recs[i * per:
+                                                              (i + 1) * per]]))
+                     for i in range(len(xs))]
+        sc_cells = [dict(zip(names, [s for _, s in cell_recs[i * per:
+                                                             (i + 1) * per]]))
+                    for i in range(len(xs))]
+        deq_glob = {n: q.reshape(x[n].shape) for n, (q, _) in
+                    zip(names, glob_recs)}
+        sc_glob = {n: s for n, (_, s) in zip(names, glob_recs)}
+    else:
+        deq_cells = [d for d, _ in cell_recs]
+        sc_cells = [s for _, s in cell_recs]
+        (deq_glob, sc_glob), = glob_recs
+    if len(deq_cells) != len(xs):
+        raise AssertionError(f"pods mix gate: {len(deq_cells)} cell "
+                             f"encodes for {len(xs)} cells")
+    deq = mesh.gather(Cells(deq_cells), specs)
+    for n in names:
+        if not torch.equal(deq[n], deq_glob[n]):
+            bad = int((deq[n] != deq_glob[n]).sum())
+            raise AssertionError(f"pods mix gate: {n}: {bad} dequantized "
+                                 "deltas differ from the global program's")
+    pods = mesh.n_pods
+    per_pod = len(xs) // pods
+    for i, sc in enumerate(sc_cells):
+        for n in names:
+            want_s = (sc_glob[n] if dense else
+                      sc_glob[n][i // per_pod:i // per_pod + 1])
+            if not torch.equal(sc[n].to(want_s.device), want_s):
+                raise AssertionError(f"pods mix gate: cell {i} {n}: scale "
+                                     f"{sc[n].tolist()} != "
+                                     f"{want_s.tolist()}")
+    got = mesh.gather(Cells(out), specs)
+    worst, at = leaf_worst(got, want)
+    del xs, zs, out, got, want, x, z
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dequantized_deltas_bitwise": True, "scales_bitwise": True,
+            "cells": len(deq_cells), "leaves": len(names),
+            "out_rel_diff_max": worst, "out_worst": at}
+
+
+def pods_arm(dev, cfg, mesh_name: str, strategy: str, wire: str,
+             fused: bool, params: dict, want: tuple) -> dict:
+    """One arm of the pods phase: PODS_ROUNDS rounds of the built step on
+    the mesh's cells of cuda:0 against the global program's ``want``
+    (losses, last params); the B3 / B1 / B2 launches; one more round
+    counted, card against ``meta``."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.build import build_train_step
+    from repro_torch.launch.cost_model import structural_costs
+    from repro_torch.launch.mesh import make_named_mesh
+
+    shape, axes = (PODS_MESH if mesh_name == "2x2x2"
+                   else DRYRUN_MESH)
+    mesh = make_named_mesh(shape, axes, device=dev)
+    dfed = _pods_dfed(mesh_name, wire, fused)
+    built = build_train_step(cfg, mesh, InputShape(*DRYRUN_TRAIN),
+                             strategy=strategy, dfed=dfed)
+    name = f"pods {strategy} {mesh_name} {wire}{' fused' if fused else ''}"
+    if built.mesh is not mesh:
+        raise AssertionError(f"{name}: Built.mesh {built.mesh!r}")
+    meta = built.meta
+    batches = _token_batches(cfg, meta, dev, seed=41)
+    seen, undo = _scale_spy() if wire == "q8" else ({}, lambda: None)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    try:
+        run = strategy_rounds(built, params, batches, PODS_ROUNDS, dev)
+    finally:
+        undo()
+    counts = launch_counts()
+    cells_n = int(np.prod(shape))
+    K = meta["K"]
+    want_b3 = cells_n * (K - 2 if fused else K) * PODS_ROUNDS
+    ring_q8 = mesh_name == "2x2x2" and wire == "q8"
+    want_wire = cells_n * PODS_ROUNDS if ring_q8 else 0
+    got = {k: counts[k] for k in ("momentum_sgd", "quantize_pack_buffer",
+                                  "dequant_mix_buffer")}
+    if got != {"momentum_sgd": want_b3, "quantize_pack_buffer": want_wire,
+               "dequant_mix_buffer": want_wire}:
+        raise AssertionError(f"{name}: launches {got}, not B3 {want_b3}, "
+                             f"B1 = B2 = {want_wire}")
+    specs = built.specs[0][0].params
+    if wire == "fp32":
+        rec = strategy_gates(name, run, *want, built)
+    else:
+        want_loss, want_params = want
+        rel = [abs(a - b) / abs(b) for a, b in zip(run["loss"], want_loss)]
+        if not all(math.isfinite(v) for v in run["loss"]) or max(rel) > \
+                STRAT_LOSS_RTOL:
+            raise AssertionError(f"{name}: losses {run['loss']} against "
+                                 f"{want_loss}")
+        cells = built.mesh.gather(run["state"].params, specs)
+        over = 0.0
+        for n, w in want_params.items():
+            err = float((cells[n].to("cpu") - w).abs().max())
+            over = max(over, err / seen[n])
+        if over > 1.0:
+            raise AssertionError(f"{name}: a leaf {over} quantizer steps "
+                                 "from the global program's")
+        rec = {"loss": run["loss"], "global_loss": want_loss,
+               "loss_rel_diff": rel, "leaf_err_over_step_max": over,
+               "replicated_copies_bitwise": replicas_bitwise(
+                   built.mesh, specs, run["state"].params),
+               "round_ms": run["round_ms"], "metrics": run["metrics"]}
+        del cells
+    rec["launches"] = {k: v for k, v in counts.items() if v}
+    state = run["state"]
+    card = structural_costs(built.fn, state, batches)
+    torch.cuda.synchronize()
+    on_meta = build_train_step(cfg, make_named_mesh(shape, axes,
+                                                    device="meta"),
+                               InputShape(*DRYRUN_TRAIN), strategy=strategy,
+                               dfed=dfed)
+    mc = structural_costs(on_meta.fn, *on_meta.args)
+    for f in ("coll_bytes", "coll_by_kind", "kernels"):
+        if getattr(card, f) != getattr(mc, f):
+            raise AssertionError(f"{name} {f}: card {getattr(card, f)} != "
+                                 f"meta {getattr(mc, f)}")
+    rec.update({"meta": meta, "card_equals_meta": True,
+                "coll_by_kind": card.coll_by_kind,
+                "round_ms_median": statistics.median(run["round_ms"])})
+    block = None
+    if ring_q8 and strategy == "B":
+        block = {n: t.clone() for n, t in state.params[0].items()}
+    print(json.dumps({"pods_arm": name, **{
+        k: rec[k] for k in ("loss_rel_diff", "launches", "round_ms",
+                            "card_equals_meta", "coll_by_kind")},
+        **{k: rec[k] for k in ("leaf_rel_diff_max", "leaf_err_over_step_max",
+                               "replicated_copies_bitwise") if k in rec}}),
+        flush=True)
+    del run, state, built, on_meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, block
+
+
+def pods_kernel_check(dev, flush, block: dict) -> dict:
+    """B1 through its tensor-noise entry and B2 at a pod cell: cell (0,
+    0, 0)'s blocks of the pods phase's strategy-B 8-bit arm (one lane,
+    its planar buffer), its delta from seeded noise, the cut noise a
+    uniform tensor; B2 over the cell's R-row table of the pod ring (its
+    own row and the one it receives; K 2: the ring of 2 has one live
+    plan step). Bitwise with their plain versions, timed against their
+    bounds."""
+    from repro_torch.core import MixingSpec, QuantConfig, WireLayout
+    from repro_torch.core.mixing import _ShardTables
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_mix import (dequant_mix_buffer,
+                                                 dequant_mix_buffer_plain)
+    from repro_torch.kernels.quantize_pack import quantize_pack_buffer
+
+    gen = torch.Generator(device=dev).manual_seed(45)
+    bits, quant = 8, QuantConfig(bits=8)
+    cell = {n: 1e-3 * torch.randn(t.shape, generator=gen, device=dev)
+            for n, t in block.items()}
+    layout = WireLayout.for_tree(cell, bits, stacked=True)
+    delta = layout.to_planar_stacked(cell)
+    sblk = layout.block_scales(layout.leaf_scales(delta, quant))
+    noise = layout.to_planar_stacked(
+        {n: torch.rand(t.shape, generator=gen, device=dev)
+         for n, t in cell.items()})
+    out = {}
+    r = {"max_abs_err": 0.0, "max_ulp": 0,
+         "shape": {"x": list(delta.shape), "bits": bits,
+                   "cell": "(0, 0, 0) of (2, 2, 2) under B, "
+                           f"SmolLM-135M at {PODS_LAYERS} layers"}}
+    words = quantize_pack_buffer(delta, sblk, bits, noise)
+    check_words("pods B1 tensor noise", words,
+                ref.quantize_pack_buffer_ref(delta, sblk, bits, noise))
+    timed(r, "", lambda: quantize_pack_buffer(delta, sblk, bits, noise),
+          flush)
+    timed(r, "plain_", lambda: ref.quantize_pack_buffer_ref(
+        delta, sblk, bits, noise), flush, reps=5, host_runs=3)
+    r["bound_ms"], r["bound_by"] = bound(nbytes(delta, sblk, noise, words),
+                                         8 * delta.numel())
+    out["quantize_pack_buffer"] = r
+
+    devs = [dev] * int(np.prod(PODS_MESH[0]))
+    tables = _ShardTables([MixingSpec.ring(2).gossip_plan()], devs, 1,
+                          mp=len(devs) // 2)
+    src = tables.src[0]
+    R, k, W = tables.rows[0], src.shape[0], layout.total_words
+    per = 32 // bits
+    base = torch.randn(1, per, W, generator=gen, device=dev)
+    wrows = torch.randint(-2 ** 31, 2 ** 31 - 1, (R, W), generator=gen,
+                          dtype=torch.int32, device=dev)
+    rblk = torch.rand(R, layout.n_blocks, generator=gen, device=dev) * 1e-2
+    w = tables.static[0]
+    got = dequant_mix_buffer(base, wrows, rblk, w, src, bits)
+    want = dequant_mix_buffer_plain(base, wrows, rblk, w, src, bits)
+    check_words("pods B2", got.view(torch.int32), want.view(torch.int32))
+    r = {"max_abs_err": 0.0, "max_ulp": 0,
+         "shape": {"base": [1, per, W], "rows": R, "K": k, "bits": bits}}
+    timed(r, "", lambda: dequant_mix_buffer(base, wrows, rblk, w, src,
+                                            bits), flush)
+    timed(r, "plain_", lambda: dequant_mix_buffer_plain(
+        base, wrows, rblk, w, src, bits), flush, reps=5, host_runs=3)
+    rows = int(torch.unique(src).numel())
+    r["bound_ms"], r["bound_by"] = bound(
+        nbytes(base, rblk, w, src, got) + rows * W * 4, 2 * k * per * W)
+    out["dequant_mix_buffer"] = r
+    del delta, noise, words, base, wrows, got, want, cell
+    torch.cuda.empty_cache()
+    print(json.dumps({"pods_kernels": out}), flush=True)
+    return out
+
+
+def pods_phase(dev, flush=None) -> dict:
+    """Phase "pods" (``--only pods``; in the full run after the dryrun
+    phase): the 8-bit wire's gates given the same z on the pod ring and
+    on the dense mix (:func:`pods_mix_gate`), every arm of PODS_ARMS
+    against the global program on cuda:0 (:func:`pods_arm`), and B1 /
+    B2 at a pod cell (:func:`pods_kernel_check`)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.build import build_train_step
+    from repro_torch.launch.mesh import make_named_mesh
+
+    if flush is None:
+        flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    print(json.dumps({"pods_prediction": PODS_PREDICTION}), flush=True)
+    cfg = _pods_cfg()
+    params = _stacked_init(cfg, 2, dev, seed=40)
+    out = {"mix": {}}
+    for s, mesh_name, dense in (("B", "2x2x2", False),
+                                ("B2", "2x2x2", False),
+                                ("B3", "4x2", True)):
+        shape, axes = PODS_MESH if mesh_name == "2x2x2" else DRYRUN_MESH
+        mesh = make_named_mesh(shape, axes, device=dev)
+        specs = build_train_step(cfg, mesh, InputShape(*DRYRUN_TRAIN),
+                                 strategy=s).specs[0][0].params
+        out["mix"][f"{s} {mesh_name}"] = pods_mix_gate(dev, mesh, specs,
+                                                       params, dense)
+    print(json.dumps({"pods_mix": out["mix"]}), flush=True)
+    meta = {"m": 2, "K": 2, "local_bs": DRYRUN_TRAIN[2] // 2,
+            "seq": DRYRUN_TRAIN[1]}
+    batches = _token_batches(cfg, meta, dev, seed=41)
+    glob = {}
+    for _, mesh_name, wire, fused in PODS_ARMS:
+        k = (mesh_name, wire, fused)
+        if k not in glob:
+            glob[k] = global_rounds(cfg, _pods_dfed(mesh_name, wire, fused),
+                                    params, batches, PODS_ROUNDS, dev)
+    del batches
+    out["arms"], block = {}, None
+    for s, mesh_name, wire, fused in PODS_ARMS:
+        name = f"{s} {mesh_name} {wire}{' fused' if fused else ''}"
+        out["arms"][name], b = pods_arm(dev, cfg, mesh_name, s, wire, fused,
+                                        params, glob[mesh_name, wire, fused])
+        block = block if b is None else b
+    out["kernels"] = pods_kernel_check(dev, flush, block)
+    out["launches"] = {
+        k: sum(out["arms"][f"{s} 2x2x2 q8"]["launches"].get(k, 0)
+               for s in STRATEGIES)
+        for k in ("quantize_pack_buffer", "dequant_mix_buffer")}
+    out["phase_s"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"pods": {
+        "arms": {k: {f: v.get(f) for f in (
+            "loss_rel_diff", "leaf_rel_diff_max", "leaf_err_over_step_max",
+            "round_ms_median")} for k, v in out["arms"].items()},
+        "launches": out["launches"], "phase_s": out["phase_s"]}}),
+        flush=True)
+    return out
+
+
+def cards_pods(dev) -> dict:
+    """The pod mesh on four cards (``--only cards_pods``; the cards
+    phase's last arm): Qwen3-MoE-30B-A3B (CARDS_PODS_*) under B3 with the
+    fp32 ring over "pod" against the global program on cuda:0 (run first,
+    its results kept on the host; :func:`strategy_gates`), then with 8
+    bits (finite losses, replicas bitwise); each card's peak; and the
+    ring's transfers timed alone (each (data, model) position's payload,
+    a pod's half of the client's f32 rows, copied between the pods'
+    cards; host clock to every card's synchronize, median of
+    CARDS_PODS_TRANSFER_REPS) with their bytes and GB/s."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import MixingSpec
+    from repro_torch.core.mixing import make_plan_mixer
+    from repro_torch.launch.build import build_train_step
+    from repro_torch.launch.mesh import make_named_mesh
+
+    if torch.cuda.device_count() < 4:
+        raise AssertionError("cards pods: needs 4 cards, found "
+                             f"{torch.cuda.device_count()}")
+    print(json.dumps({"cards_pods_prediction": CARDS_PODS_PREDICTION}),
+          flush=True)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(CARDS_PODS_ARCH),
+                              **CARDS_PODS_CUTS)
+    mesh = make_named_mesh(*CARDS_PODS_MESH, devices=four_cards())
+    shape = InputShape(*CARDS_STRAT_SHAPE)
+    params = {n: t.to("cpu") for n, t in _stacked_init(
+        cfg, 2, dev, seed=60).items()}
+    _reset_cards()
+    dfeds = {w: _pods_dfed("2x2x2", w, False, K=CARDS_STRAT_K)
+             for w in ("fp32", "q8")}
+    meta0 = build_train_step(cfg, mesh, shape, strategy="B3",
+                             dfed=dfeds["fp32"]).meta
+    batches = _token_batches(cfg, meta0, dev, seed=61)
+    _reset_cards()
+    want = global_rounds(cfg, dfeds["fp32"], params, batches, STRAT_ROUNDS,
+                         dev)
+    out = {"global_peak_gib": _card_peaks()[0]}
+    for wire in ("fp32", "q8"):
+        built = build_train_step(cfg, mesh, shape, strategy="B3",
+                                 dfed=dfeds[wire])
+        if built.mesh is not mesh or built.meta["mixer"] != "ring":
+            raise AssertionError(f"cards pods {wire}: {built.meta}")
+        _reset_cards()
+        run = strategy_rounds(built, params, batches, STRAT_ROUNDS, dev)
+        peaks = _card_peaks()
+        specs = built.specs[0][0].params
+        if wire == "fp32":
+            rec = strategy_gates("cards pods fp32", run, *want, built)
+        else:
+            if not all(math.isfinite(v) for v in run["loss"]):
+                raise AssertionError(f"cards pods q8: losses {run['loss']}")
+            rec = {"loss": run["loss"], "round_ms": run["round_ms"],
+                   "metrics": run["metrics"],
+                   "replicated_copies_bitwise": replicas_bitwise(
+                       mesh, specs, run["state"].params)}
+        rec["card_peak_gib"] = peaks
+        out[wire] = rec
+        print(json.dumps({"cards_pods": wire, **{
+            k: rec.get(k) for k in ("loss", "loss_rel_diff",
+                                    "leaf_rel_diff_max", "card_peak_gib",
+                                    "round_ms")}}), flush=True)
+        if wire == "fp32":
+            cells = run["state"].params
+            ring = make_plan_mixer(MixingSpec.ring(2).gossip_plan(), None,
+                                   mesh=mesh, param_specs=specs)
+            tabs = ring.tables
+            rows = [torch.cat([t.reshape(t.shape[0], -1) for t in
+                               c.values()], dim=1) for c in cells]
+            payloads = [(rows[i].index_select(0, idx), tabs.devs[j])
+                        for i, j, idx in tabs.transfers]
+            sync_all()
+            ms = []
+            for _ in range(CARDS_PODS_TRANSFER_REPS):
+                t1 = time.perf_counter()
+                got = [p.to(d, non_blocking=True) for p, d in payloads]
+                sync_all()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                del got
+            size = sum(nbytes(p) for p, _ in payloads)
+            med = statistics.median(ms)
+            out["transfer"] = {
+                "payloads": len(payloads), "bytes": size, "ms": ms,
+                "ms_median": med, "gb_per_s": size / med / 1e6,
+                "pairs": [[str(p.device), str(d)] for p, d in payloads],
+                "clock": "host, every card synchronized"}
+            print(json.dumps({"cards_pods_transfer": out["transfer"]}),
+                  flush=True)
+            del rows, payloads, cells, ring
+        del run, built
+        _reset_cards()
+    out.update({"arch": CARDS_PODS_ARCH, "cuts": CARDS_PODS_CUTS,
+                "mesh": list(CARDS_PODS_MESH), "K": CARDS_STRAT_K,
+                "shape": list(CARDS_STRAT_SHAPE),
+                "phase_s": time.perf_counter() - t0})
+    print(json.dumps({"cards_pods_summary": {
+        "global_peak_gib": out["global_peak_gib"],
+        "card_peak_gib": {w: out[w]["card_peak_gib"]
+                          for w in ("fp32", "q8")},
+        "transfer_gb_per_s": out["transfer"]["gb_per_s"],
+        "phase_s": out["phase_s"]}}), flush=True)
+    return out
+
+
 def dryrun_phase(dev, flush=None, rec=None, one=None) -> dict:
     """The counting tools and the build layer on the card: (a)
     :func:`dryrun_counter`, (b) :func:`dryrun_built`, the strategies' train
@@ -8517,7 +9092,8 @@ ONLY = {"pool": pool_phase, "telemetry": telemetry_phase,
         "mesh2d": mesh2d_phase, "cards": cards_phase, "mia": mia_phase,
         "bench_kernels": bench_kernels_phase, "wire": wire_phase,
         "dryrun": dryrun_phase, "strategies": strategies_phase,
-        "cards_serve": cards_serve, "cards_strategies": cards_strategies}
+        "cards_serve": cards_serve, "cards_strategies": cards_strategies,
+        "pods": pods_phase, "cards_pods": cards_pods}
 
 
 def main() -> int:
@@ -8528,7 +9104,7 @@ def main() -> int:
         dryrun_one_cli(sys.argv[sys.argv.index("--dryrun-one") + 1])
         return 0
     if "--only" in sys.argv and {"cards", "cards_serve",
-                                 "cards_strategies"} & set(
+                                 "cards_strategies", "cards_pods"} & set(
             sys.argv[sys.argv.index("--only") + 1].split(",")):
         # cards_moe's 1D run holds a whole Qwen3-MoE client (1.87 G
         # values) and its mix's f32 staging on one card: without
@@ -8606,6 +9182,7 @@ def main() -> int:
     kbench = bench_kernels_phase(dev, flush)
     wire = wire_phase(dev)
     dry = dryrun_phase(dev, flush, rec, one)
+    pods = pods_phase(dev, flush)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
     counts["fig8"] = {k: sum(r["eager_launches"][k] for r in fig8)
                       for k in KERNEL_SOURCES}
@@ -8708,6 +9285,22 @@ def main() -> int:
                       "bound_by", "library_ms", "call_ms", "max_ulp",
                       "shape", "clean_ms", "host_ms", "plain_call_ms",
                       "library_clean_ms")}})
+    # B1 (tensor noise) and B2 at a pod cell (the pods phase): their
+    # launches the pod ring's 8-bit arms (B, B2, B3 on (2, 2, 2)).
+    for name, kernel in (("quantize_pack_buffer_noise_pod_cell",
+                          "quantize_pack_buffer"),
+                         ("dequant_mix_buffer_pod_cell",
+                          "dequant_mix_buffer")):
+        r = pods["kernels"][kernel]
+        table.append({"name": name, "route": "cuda",
+                      "source": KERNEL_SOURCES[kernel][0],
+                      "replaces": KERNEL_SOURCES[kernel][1],
+                      "launches": pods["launches"][kernel], "path": "pods",
+                      "library_ms": None,
+                      **{f: r.get(f) for f in (
+                          "max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "call_ms", "max_ulp", "shape",
+                          "clean_ms", "host_ms", "plain_call_ms")}})
     b3 = prod["kernels"]["momentum_sgd_bf16"]
     # B3 on bf16 leaves: the same kernel source, its bf16 instantiation;
     # its launches are the 8-bit full-width arm's (every leaf bf16).
@@ -8836,7 +9429,13 @@ def main() -> int:
                                   "loss_rel_diff", "leaf_rel_diff_max",
                                   "round_ms_median", "roofline_1chip")}
                               for k, v in dry["strategies"]["arms"].items()},
-                          "phase_s": dry["phase_s"]}}))
+                          "phase_s": dry["phase_s"]},
+                      "pods": {
+                          "arms": {k: {f: v.get(f) for f in (
+                              "loss_rel_diff", "leaf_rel_diff_max",
+                              "leaf_err_over_step_max", "round_ms_median")}
+                              for k, v in pods["arms"].items()},
+                          "mix": pods["mix"], "phase_s": pods["phase_s"]}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

@@ -141,6 +141,9 @@ def run_compare(m=M, K=K, batch=B, rounds=ROUNDS, eta=0.05, theta=0.9,
 
 
 def run(*, smoke: bool = False, device=None):
+    """The runner's entry: the async-against-sync comparison at full size
+    (smoke: small), its record written to ``OUT_JSON``; returns the CSV rows
+    (name, us_per_call, derived)."""
     res = run_compare(rounds=SMOKE_ROUNDS if smoke else ROUNDS,
                       K=SMOKE_K if smoke else K,
                       batch=SMOKE_B if smoke else B, device=device)

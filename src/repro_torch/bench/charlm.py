@@ -60,5 +60,7 @@ def arms(*, smoke: bool = False, device=None, capture: bool = True):
 
 
 def run(*, smoke: bool = False, device=None):
+    """The runner's entry: Fig. 7's CharLSTM arms as CSV rows (name, us a
+    round, derived); ``smoke`` runs them small."""
     return [(name, r["us_per_round"], r["derived"])
             for name, r in arms(smoke=smoke, device=device)]

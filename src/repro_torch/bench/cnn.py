@@ -45,5 +45,7 @@ def arms(*, smoke: bool = False, device=None, capture: bool = True):
 
 
 def run(*, smoke: bool = False, device=None):
+    """The runner's entry: Fig. 8's CNN arms as CSV rows (name, us a round,
+    derived); ``smoke`` runs them small."""
     return [(name, r["us_per_round"], r["derived"])
             for name, r in arms(smoke=smoke, device=device)]

@@ -12,6 +12,9 @@ from ..core.topology import ring_graph
 
 
 def run(*, smoke: bool = False, device=None):
+    """The runner's entry: every registered arch's wire bits a round on the
+    ring of 16 at 8 and 4 bits against 32 (``comm_cost``'s formulas), as CSV
+    rows; nothing runs on a device."""
     del smoke, device
     rows = []
     g = ring_graph(16)

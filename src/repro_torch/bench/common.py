@@ -82,6 +82,8 @@ def timeit_best(body, carry=None, *, iters: int = 1, reps: int = 3,
 
 
 def loss_2nn(p, batch, rng):
+    """The 2NN's per-client softmax cross-entropy [m] of a batch ``{"x", "y"}``
+    (``rng`` unused), the round's loss."""
     return softmax_xent(apply_2nn(p, batch["x"]), batch["y"])
 
 
@@ -107,6 +109,8 @@ def stacked_2nn(m: int, seed: int, device) -> Params:
 
 
 def loss_cnn(p, batch, rng):
+    """The paper CNN's per-client softmax cross-entropy [m] of a batch ``{"x",
+    "y"}`` (``rng`` unused), the round's loss."""
     return softmax_xent(apply_cnn(p, batch["x"]), batch["y"])
 
 

@@ -56,6 +56,9 @@ def operands(n: int, dev: torch.device):
 
 
 def run(*, smoke: bool = False, device=None):
+    """The runner's entry: the per-tensor entry points (B6, B8) and B3 on the
+    bench's vector, timed on the card (the plain versions on the CPU), as CSV
+    rows."""
     dev = resolve_device(device)
     card = dev.type == "cuda"
     x, v, g = operands(SMOKE_N if smoke else N, dev)

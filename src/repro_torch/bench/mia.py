@@ -68,5 +68,7 @@ def aucs(*, smoke: bool = False, device=None, capture: bool = True):
 
 
 def run(*, smoke: bool = False, device=None):
+    """The runner's entry: the membership probe's AUC after each row's rounds,
+    as CSV rows (name, 0, auc)."""
     return [(f"mia/dfedavgm/rounds{rounds}", 0.0, f"auc={auc:.3f}")
             for rounds, auc, _, _ in aucs(smoke=smoke, device=device)]

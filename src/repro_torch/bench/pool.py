@@ -189,6 +189,8 @@ def run_pool(smoke: bool = False, device=None) -> tuple[dict, list]:
 
 
 def run(*, smoke: bool = False, device=None):
+    """The runner's entry: the pooled runner's scaling and pooled-against-
+    resident rows, the record written to ``OUT_JSON``; returns the CSV rows."""
     res, out = run_pool(smoke=smoke, device=device)
     OUT_JSON.parent.mkdir(parents=True, exist_ok=True)
     OUT_JSON.write_text(json.dumps(res, indent=2))

@@ -38,6 +38,9 @@ MODULES = [
 
 
 def main(argv=None) -> int:
+    """Run the benches named by ``--only`` (every module by default) on
+    ``--device``, captured on the card, printing ``name,us_per_call,derived``
+    rows; returns the exit code."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None,
                     help="comma-separated bench module suffixes")

@@ -56,6 +56,9 @@ SMOKE_M, SMOKE_K, SMOKE_B, SMOKE_ROUNDS = 4, 2, 8, 2
 
 
 def schedules(m: int, rounds: int, seed: int = 0):
+    """The bench's topologies over ``m`` clients: the static ring and one
+    ``TopologySchedule`` of each kind (constant, edge-sampled, partial, random
+    walk, cycle), as (name, spec) pairs."""
     ring = MixingSpec.ring(m, self_weight=0.5)
     er = erdos_renyi_graph(m, 0.4, seed=seed)
     return [
@@ -524,6 +527,8 @@ def gossip_backend_compare(smoke: bool = False, device=None,
 
 
 def run(*, smoke: bool = False, device=None):
+    """The runner's entry: every schedule's arm and the gossip backends'
+    comparison, as CSV rows (name, us a round, derived)."""
     rows = [(name, r["us_per_round"], r["derived"])
             for name, r in arms(smoke=smoke, device=device)]
     rows.extend(gossip_backend_compare(smoke=smoke, device=device))

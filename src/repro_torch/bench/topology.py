@@ -64,5 +64,7 @@ def arms(*, smoke: bool = False, device=None, capture: bool = True):
 
 
 def run(*, smoke: bool = False, device=None):
+    """The runner's entry: the spectral-gap rows of each topology, then its
+    training arms, as CSV rows."""
     return lambda_rows() + [(name, r["us_per_round"], r["derived"])
                             for name, r in arms(smoke=smoke, device=device)]

@@ -115,6 +115,9 @@ def _to_numpy(path: tuple, v) -> np.ndarray:
 
 def save_checkpoint(ckpt_dir: str | Path, step: int, tree: Tree, *,
                     keep: int = 3) -> Path:
+    """Write ``tree`` as ``ckpt_dir/step_<step>`` (written to a temporary
+    directory, then renamed into place) and keep the newest ``keep`` steps;
+    returns the step's directory."""
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
@@ -143,6 +146,8 @@ def save_checkpoint(ckpt_dir: str | Path, step: int, tree: Tree, *,
 
 
 def list_checkpoints(ckpt_dir: str | Path) -> list[int]:
+    """The steps saved under ``ckpt_dir``, ascending (empty when it does not
+    exist)."""
     ckpt_dir = Path(ckpt_dir)
     if not ckpt_dir.exists():
         return []
@@ -154,6 +159,7 @@ def list_checkpoints(ckpt_dir: str | Path) -> list[int]:
 
 
 def latest_step(ckpt_dir: str | Path) -> int | None:
+    """The newest step saved under ``ckpt_dir``, or None."""
     steps = list_checkpoints(ckpt_dir)
     return steps[-1] if steps else None
 

@@ -18,6 +18,9 @@ __all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "register",
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
+    """One registered architecture: its family, depth, widths, attention, MLP,
+    MoE, SSM and frontend settings and dtype, as the reference's ``ArchConfig``
+    holds them (``n_params`` counts its parameters)."""
     name: str
     arch_type: str                 # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
@@ -165,6 +168,8 @@ class ArchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class InputShape:
+    """A named input shape of the dry-run: sequence length, global batch and
+    kind (``train``, ``prefill`` or ``decode``)."""
     name: str
     seq_len: int
     global_batch: int
@@ -183,11 +188,14 @@ _REGISTRY: dict[str, ArchConfig] = {}
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
+    """Add ``cfg`` to the registry under its name; returns it."""
     _REGISTRY[cfg.name] = cfg
     return cfg
 
 
 def get_config(name: str) -> ArchConfig:
+    """The registered config named ``name`` (the registry filled on first use);
+    raises KeyError naming the known archs."""
     if not _REGISTRY:
         _load_all()
     if name not in _REGISTRY:
@@ -196,6 +204,7 @@ def get_config(name: str) -> ArchConfig:
 
 
 def list_archs() -> list[str]:
+    """Every registered arch's name, sorted."""
     if not _REGISTRY:
         _load_all()
     return sorted(_REGISTRY)

@@ -60,7 +60,7 @@ from .dfedavgm import DFedAvgMConfig, _weighted_mean
 from .event_clock import next_event
 from .gossip_plan import matching_steps
 from .local_sgd import local_train
-from .mixing import (_make_plan_exec, _mix_dense_quantized, _quant_leaf_keys,
+from .mixing import (_make_lanes_mixer, _mix_dense_quantized, _quant_leaf_keys,
                      mix_dense)
 from .quantize import QuantConfig, message_bits
 from .topology import (MixingSpec, TopologySchedule,
@@ -598,7 +598,7 @@ def make_pooled_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         live = [s for s in range(src_np.shape[0]) if (src_np[s] != ar).any()]
         src_full = torch.as_tensor(src_np[live].astype(np.int64), device=dev)
         lane_ids = torch.arange(k, device=dev)[None]
-        ex = _make_plan_exec(k, quant, dev)
+        ex = _make_lanes_mixer(k, quant, dev)
     ones = torch.ones(k, dtype=torch.float32, device=dev)
     # The resident ``active.mean()`` of k ones among m, computed once as
     # the resident computes it (the card's mean multiplies by 1/m).

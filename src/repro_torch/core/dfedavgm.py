@@ -66,14 +66,16 @@ from .. import prng
 from ..device import resolve_device
 from ..sharding.tensor_parallel import ColumnGroup, local_step_kind
 from .comm_cost import dfedavgm_round_bits, schedule_round_bits
-from .local_sgd import local_train, local_train_deferred, local_train_rows
+from .local_sgd import (local_train, local_train_deferred, local_train_rows,
+                        rows_loss_and_grad)
 from .mixing import (MixerConfig, _clients_per_shard, _column_dims,
-                     _gate_z, _mesh_devices, _mesh_grid, _quant_leaf_keys,
+                     _deferred, _gate_z, _mesh_devices, _mesh_grid,
+                     _penultimate, _quant_leaf_keys,
                      _schedule_plan, _split_blocks, check_wire,
                      consensus_distance, consensus_distance_cells,
                      cut_columns, join_columns, join_lanes,
                      make_cells_mixer, make_event_mixer, make_fused_tail,
-                     make_mixer, split_lanes)
+                     make_mixer, make_plan_mixer, split_lanes)
 from .quantize import QuantConfig
 from .topology import MixingSpec, TopologySchedule
 
@@ -570,6 +572,15 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     return round_step
 
 
+_POD_FUSED_REFUSAL = (
+    "fuse_round is not supported with model-sharded params on a 2D "
+    "(clients, model) mesh: the fused tail computes the round's last "
+    "gradient INSIDE the client shard_map body, which would see only "
+    "this device's model slice of the params. Run the unfused round "
+    "(fuse_round=False) — its local SGD runs outside the mixer under "
+    "GSPMD, which partitions the loss over the model axis automatically.")
+
+
 def make_cells_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                           spec: MixingSpec, mesh, param_specs: dict, *,
                           batch_axes: tuple = ()) -> Callable:
@@ -578,29 +589,80 @@ def make_cells_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     one dict a cell (``mesh.shard(stacked, param_specs)``), row-major,
     its key on the first cell's device; ``batches`` leaves [m, K, b, ...]
     whole, cut over ``batch_axes`` by the rows (``local_train_rows``).
-    Algorithm 1 with the dense mixer of the static ``spec``: a quantized
-    wire and the fused round are refused (ROADMAP A21c).
+    The key chain is :func:`make_round_step`'s (the mixing key feeds a
+    quantized wire).
+
+    On one pod (``("data", "model")``: every cell all m clients' blocks)
+    the mix is the dense one on each cell (``make_cells_mixer``: fp32, or
+    the reference's quantized dense mix), and ``cfg.fuse_round`` runs the
+    reference's dense fused tail per cell: K-2 steps and step K-2's
+    gradient (``local_train_rows(..., deferred=True)``), the penultimate
+    update, the last gradient at y' from the rows
+    (``rows_loss_and_grad``), the mix of y', then the deferred update.
+    On the pod mesh (``("pod", "data", "model")``: a pod's clients on its
+    cells) each pod trains its own clients and the ring gossips over
+    ``"pod"`` through the plan realization (``make_plan_mixer`` on the
+    mesh: a pod's cells its columns, fp32 rows or B1 / B2 with the
+    pod's amax and the cut noise); the fused round is refused there, as
+    the reference refuses it.
     Metrics as :func:`make_round_step`'s: ``loss`` the mean over the
     clients, ``consensus_dist`` and ``local_drift`` from the cells'
     partial sums (``consensus_distance_cells``)."""
-    if (cfg.quant is not None and cfg.quant.enabled) or cfg.fuse_round:
-        raise ValueError("the round on (data, model) cells runs Algorithm "
-                         "1 unfused (a quantized wire or the fused round "
-                         "on these cells is ROADMAP A21c)")
     m = spec.m
-    mixer = make_cells_mixer(spec, list(mesh.devices.flat))
+    pods = mesh.n_pods > 1
+    if pods and cfg.fuse_round:
+        raise ValueError(_POD_FUSED_REFUSAL)
+    if cfg.fuse_round and cfg.local_steps < 2:
+        raise ValueError(
+            f"fuse_round needs local_steps >= 2 (one step is deferred "
+            f"past the mix), got {cfg.local_steps}")
+    if pods:
+        impl = cfg.mixer_config().resolved_impl(spec, mesh)
+        if impl not in ("ring", "sparse") or spec.kind != "ring":
+            raise ValueError(f"the pod mesh gossips a ring over 'pod' "
+                             f"(mixer 'ring'), got {impl!r} on "
+                             f"{spec.kind!r}")
+        mix = make_plan_mixer(spec.gossip_plan(), cfg.quant, mesh=mesh,
+                              param_specs=param_specs)
+    else:
+        mix = make_cells_mixer(spec, mesh, param_specs, cfg.quant)
+    et = (float(np.float32(cfg.eta)), float(np.float32(cfg.theta)))
 
-    def round_step(state: RoundState, batches: Params):
-        key_round, key_mix, key_next = prng.split(state.rng, 3)
-        del key_mix
-        client_keys = prng.split(key_round, m)
+    def unfused(state, batches, client_keys, key_mix):
         with record_function("round/local_sgd"):
             z, losses = local_train_rows(
                 loss_fn, mesh, state.params, param_specs, batches,
                 client_keys, eta=cfg.eta, theta=cfg.theta,
                 batch_axes=batch_axes)
         with record_function("round/mix"):
-            x_next = mixer(z)
+            x_next = mix(state.params, z, key_mix)
+        return x_next, z, losses
+
+    def fused(state, batches, client_keys, key_mix):
+        K = next(iter(batches.values())).shape[1]
+        with record_function("round/local_sgd"):
+            y, v, g, head = local_train_rows(
+                loss_fn, mesh, state.params, param_specs, batches,
+                client_keys, eta=cfg.eta, theta=cfg.theta, deferred=True,
+                batch_axes=batch_axes)
+            y1, v1 = map(list, zip(*(_penultimate(*a, et)
+                                     for a in zip(y, v, g))))
+            last, gK = rows_loss_and_grad(
+                loss_fn, mesh, y1, param_specs,
+                {n: b[:, K - 1] for n, b in batches.items()},
+                prng.split(client_keys, K)[:, K - 1], batch_axes=batch_axes)
+        with record_function("round/mix"):
+            mixed = mix(state.params, y1, key_mix)
+            x_next = [_deferred(*a, et) for a in zip(mixed, v1, gK)]
+        losses = torch.cat([head, last[:, None]], dim=1).mean(dim=1)
+        return x_next, y1, losses
+
+    body = fused if cfg.fuse_round else unfused
+
+    def round_step(state: RoundState, batches: Params):
+        key_round, key_mix, key_next = prng.split(state.rng, 3)
+        client_keys = prng.split(key_round, m)
+        x_next, z, losses = body(state, batches, client_keys, key_mix)
         metrics = {"loss": losses.mean(),
                    "consensus_dist": consensus_distance_cells(
                        x_next, mesh, param_specs),

@@ -37,7 +37,15 @@ data-cut block keeps its own row's slice and any other block row 0's
 gradient, so the replicated blocks stay bitwise equal. Each row's loss
 is weighted by its share of the batch's tokens in the backward (1/dp
 without a mask), so no gradient is counted twice. B3 then runs once a
-cell.
+cell. A leaf the loss's form reads on head boundaries (an SSM's inner
+dim) but whose dim the specs cut over ``("data", "model")`` is gathered
+from the cells that hold its column's heads (``ServeMesh.row_cells(...,
+heads=)``) and its gradient returned to them. On the pod mesh
+``("pod", "data", "model")`` every pod trains its own clients on its
+``("data", "model")`` cells (``ServeMesh.pod``); nothing crosses pods.
+:func:`local_train_rows` can stop as :func:`local_train_deferred` does,
+and :func:`rows_loss_and_grad` gives one step's gradient on the rows
+(the fused round's head and last gradient on cells).
 """
 from __future__ import annotations
 
@@ -50,14 +58,15 @@ from .. import prng
 from ..kernels.ops import momentum_update
 from ..launch import hlo_stats
 from ..launch.cost_model import repeats_on_meta, uncounted
-from ..sharding.rules import cuts_data, model_sharded_dims
+from ..sharding.rules import cuts_data, model_sharded_dims, pod_specs
 from ..sharding.tensor_parallel import ColumnGroup, DataCut, ordered_sum
 
 Params = dict[str, torch.Tensor]
 LossFn = Callable[..., torch.Tensor]  # (params, batch, rng [m, 2]) -> [m]
 
 __all__ = ["local_train", "local_train_deferred", "local_train_rows",
-           "heavy_ball_update", "loss_and_grad", "loss_and_grad_columns"]
+           "rows_loss_and_grad", "heavy_ball_update", "loss_and_grad",
+           "loss_and_grad_columns"]
 
 
 def heavy_ball_update(y: Params, v: Params, g: Params,
@@ -150,14 +159,18 @@ def _each(fn, g):
 
 def loss_and_grad_columns(group: ColumnGroup, loss_fn: LossFn,
                           cells: list[Params], batch: Params,
-                          keys: torch.Tensor, weight=None
+                          keys: torch.Tensor, weight=None,
+                          pair_lone: bool = True
                           ) -> tuple[torch.Tensor, list[Params]]:
     """:func:`loss_and_grad` of a row of cells (``group``'s columns)
     through ``loss_fn.column_parallel``: the losses [m_local] on the
     group's home and each cell's gradients, from one ``autograd.grad``
     over column 0's leaves and every cut leaf. A replicated leaf's
     gradient is column 0's, copied to each column (the copies are not
-    read by the form). A lone lane runs as two.
+    read by the form). A lone lane runs as two unless ``pair_lone`` is
+    False (a pod's one client, held against the reference within
+    tolerance, not bitwise against a batch of two: its pair would double
+    the pod's work).
 
     An entry may be a ``DataCut`` (a row of a ``launch.mesh.ServeMesh``,
     :func:`local_train_rows`): its gradient is its own block's where its
@@ -173,7 +186,7 @@ def loss_and_grad_columns(group: ColumnGroup, loss_fn: LossFn,
     no lock), which it then refuses as a mismatch."""
     first = next(iter(cells[0].values()))
     lanes = (first.parts[0] if isinstance(first, DataCut) else first).shape[0]
-    lone = lanes == 1
+    lone = lanes == 1 and pair_lone
     if lone:
         cells = [_twice(c) for c in cells]
         batch, keys = _twice(batch), _twice(keys)
@@ -274,9 +287,9 @@ def _nbytes(t: torch.Tensor) -> int:
 def _row_loss_and_grad(group, loss_fn, entries, batch, keys, weight):
     """One mesh row's losses and gradients (a function of its arguments'
     shapes alone on ``meta``, so a count replays the rows after the
-    first)."""
+    first); a lone lane runs alone."""
     return loss_and_grad_columns(group, loss_fn, entries, batch, keys,
-                                 weight=weight)
+                                 weight=weight, pair_lone=False)
 
 
 def _row_weights(batches: Params, slices: list, scatter: bool) -> list:
@@ -296,15 +309,20 @@ def _row_weights(batches: Params, slices: list, scatter: bool) -> list:
 
 
 def _reduce_rows(mesh, rows: list, per_row: list, specs: dict,
-                 scatter: bool, weights: list, k: int
+                 scatter: bool, weights: list, k: int,
+                 heads: frozenset = frozenset()
                  ) -> tuple[torch.Tensor, list[Params]]:
     """The rows' (losses, column gradients) of one local step -> the
     clients' losses [m] on the first cell's device and every cell's
     gradients, in the module docstring's order; records the data
     column's all-reduces (the reduce-scatters record themselves in the
-    gathers' backward) and B's row-0 broadcasts."""
+    gathers' backward) and B's row-0 broadcasts. A leaf of ``heads``
+    (re-cut on head boundaries, ``ServeMesh.row_cells``) finds cell
+    ``(r, c)``'s block as part ``i`` of column ``c'``'s entry, ``(c',
+    i) = divmod(r * mp + c, dp)``: every row's slice summed under a cut
+    batch, row r's own otherwise."""
     home = mesh.devices.flat[0]
-    dp = len(rows)
+    dp, mp = len(rows), mesh.model_parallel
     if scatter:
         loss = None
         for (ls, _), w in zip(per_row, weights):
@@ -321,7 +339,12 @@ def _reduce_rows(mesh, rows: list, per_row: list, specs: dict,
         cell = {}
         for n, cut in data_cut.items():
             g = per_row[r][1][c][n]
-            if cut and scatter:           # reduce-scatter: block r's sum
+            if n in heads:                # a block of another column
+                cc, i = divmod(r * mp + c, dp)
+                cell[n] = (ordered_sum([q[1][cc][n][i] for q in per_row],
+                                       dev) if scatter
+                           else per_row[r][1][cc][n][i].to(dev))
+            elif cut and scatter:         # reduce-scatter: block r's sum
                 cell[n] = ordered_sum([q[1][c][n][r] for q in per_row],
                                        dev)
             elif cut:                     # the row's own slice
@@ -340,13 +363,118 @@ def _reduce_rows(mesh, rows: list, per_row: list, specs: dict,
     return loss, out
 
 
+class _PodRows:
+    """One pod's rows for :func:`local_train_rows`: its ``("data",
+    "model")`` mesh, specs, column groups, batch blocks and the leaves
+    its loss's form reads on head boundaries."""
+
+    def __init__(self, loss_fn: LossFn, mesh, specs: dict,
+                 batch_axes: tuple, b: int):
+        self.mesh, self.specs = mesh, specs
+        dims = model_sharded_dims(specs, "model")
+        form = loss_fn.column_parallel
+        declined = [n for n, d in dims.items() if d is not None
+                    and not form.covers(n, dims)]
+        if declined:
+            raise ValueError(f"the loss's column-parallel form declines "
+                             f"{len(declined)} cut leaves, e.g. "
+                             f"{declined[0]}")
+        self.heads = frozenset(
+            n for n, spec in specs.items() if form.heads(n) and any(
+                {"data", "model"} <= set(spec.names(i))
+                for i in range(len(spec))))
+        self.rows = mesh.rows()
+        self.groups = [mesh.row_group(r, dims) for r in self.rows]
+        self.scatter = bool(batch_axes)
+        self.slices = [mesh.batch_rows(r, tuple(batch_axes), b)
+                       for r in self.rows]
+
+    def step(self, loss_fn: LossFn, y: list[Params], batches: Params,
+             step_keys: torch.Tensor, k: int
+             ) -> tuple[torch.Tensor, list[Params]]:
+        """Local step ``k``'s losses [m] and every cell's gradient at
+        ``y``."""
+        weights = _row_weights(batches, self.slices, self.scatter)
+        per_row = []
+        for row, group, sl, w in zip(self.rows, self.groups, self.slices,
+                                     weights):
+            with uncounted():
+                batch = {n: t[:, k, sl].to(group.home)
+                         for n, t in batches.items()}
+                kk = step_keys[:, k].to(group.home)
+                w = w[:, k].to(group.home) if isinstance(
+                    w, torch.Tensor) else w
+            entries = self.mesh.row_cells(y, self.specs, row,
+                                          scatter=self.scatter,
+                                          heads=self.heads)
+            per_row.append(_row_loss_and_grad(group, loss_fn, entries,
+                                              batch, kk, w))
+        return _reduce_rows(self.mesh, self.rows, per_row, self.specs,
+                            self.scatter, weights, k, self.heads)
+
+    def train(self, loss_fn: LossFn, cells: list[Params], batches: Params,
+              step_keys: torch.Tensor, n_steps: int, eta, theta: float,
+              deferred: bool) -> tuple:
+        """``n_steps`` heavy-ball steps from v = 0 -> (y, losses [m,
+        n_steps]); ``deferred``: one step more whose gradient g is
+        returned unapplied -> (y, v, g, losses [m, n_steps + 1])."""
+        devs = list(self.mesh.devices.flat)
+        y = [{n: t.detach() for n, t in c.items()} for c in cells]
+        v = [{n: torch.zeros_like(t) for n, t in c.items()} for c in y]
+        etas = [_on(eta, d) for d in devs]
+        losses = []
+        for k in range(n_steps):
+            loss, g = self.step(loss_fn, y, batches, step_keys, k)
+            yv = [heavy_ball_update(*a, theta) for a in zip(y, v, g, etas)]
+            y, v = [a for a, _ in yv], [c for _, c in yv]
+            losses.append(loss)
+        if not deferred:
+            return y, torch.stack(losses, dim=1)
+        loss, g = self.step(loss_fn, y, batches, step_keys, n_steps)
+        losses.append(loss)
+        return y, v, g, torch.stack(losses, dim=1)
+
+
+def _pods(loss_fn: LossFn, mesh, cells: list[Params], specs: dict,
+          batches: Params, keys: torch.Tensor, batch_axes: tuple) -> list:
+    """Per pod of ``mesh`` (one without a pod axis): its
+    :class:`_PodRows`, its cells, its clients' batches and keys (the
+    clients the ``"pod"`` axis gives it, a contiguous block)."""
+    if tuple(mesh.axis_names)[-2:] != ("data", "model"):
+        raise ValueError(f"the train step on cells runs on ('data', "
+                         f"'model') or ('pod', 'data', 'model'), got "
+                         f"{tuple(mesh.axis_names)}")
+    if getattr(loss_fn, "column_parallel", None) is None:
+        raise ValueError("the train step on (data, model) cells needs a "
+                         "loss with a column-parallel form "
+                         "(models.model.make_loss)")
+    n = mesh.n_pods
+    m = keys.shape[0]
+    if m % n:
+        raise ValueError(f"{m} clients do not block over {n} pods")
+    ml = m // n
+    sp = pod_specs(specs)
+    b = next(iter(batches.values())).shape[2]
+    out = []
+    for p in range(n):
+        lanes = slice(p * ml, (p + 1) * ml)
+        out.append((_PodRows(loss_fn, mesh.pod(p), sp, batch_axes, b),
+                    mesh.pod_cells(cells, p),
+                    {k: t[lanes] for k, t in batches.items()}, keys[lanes]))
+    return out
+
+
 def local_train_rows(loss_fn: LossFn, mesh, cells: list[Params],
                      specs: dict, batches: Params, keys: torch.Tensor, *,
                      eta: float, theta: float,
-                     batch_axes: tuple = ()) -> tuple[list[Params],
-                                                      torch.Tensor]:
+                     batch_axes: tuple = (), deferred: bool = False
+                     ) -> tuple:
     """K heavy-ball steps on every cell of a ``launch.mesh.ServeMesh``
-    of ``("data", "model")`` cells (module docstring).
+    of ``("data", "model")`` or ``("pod", "data", "model")`` cells
+    (module docstring). On the pod mesh each pod trains its own clients
+    (the ``"pod"`` axis cuts the client dim) on its ``("data",
+    "model")`` cells (``ServeMesh.pod``), with those clients' batches
+    and keys; nothing crosses pods.
 
     Args:
       loss_fn:  a loss carrying a column-parallel form
@@ -361,57 +489,53 @@ def local_train_rows(loss_fn: LossFn, mesh, cells: list[Params],
       batch_axes: the mesh axes that cut the batch's dim 2 (``("data",)``
                 under B2 and B3; empty under B: every row the whole
                 batch).
+      deferred: stop as :func:`local_train_deferred` does: K-2 steps
+                applied and step K-2's gradient computed, not applied
+                (the fused round's head; K >= 2).
 
     Returns:
       (y^{t,K} as cells, each client's mean local loss over the K steps
-      [m] on the first cell's device).
+      [m] on the first cell's device); ``deferred``: (y_{K-2}, v_{K-2},
+      g_{K-2} as cells, the losses of steps 0..K-2 [m, K-1]).
     """
-    if tuple(mesh.axis_names) != ("data", "model"):
-        raise ValueError(f"the train step on cells runs on ('data', "
-                         f"'model'), got {tuple(mesh.axis_names)} (the pod "
-                         "axis is ROADMAP A21c)")
-    if getattr(loss_fn, "column_parallel", None) is None:
-        raise ValueError("the train step on (data, model) cells needs a "
-                         "loss with a column-parallel form "
-                         "(models.model.make_loss)")
-    dims = model_sharded_dims(specs, "model")
-    declined = [n for n, d in dims.items() if d is not None
-                and not loss_fn.column_parallel.covers(n, dims)]
-    if declined:
-        raise ValueError(f"the loss's column-parallel form declines "
-                         f"{len(declined)} cut leaves, e.g. {declined[0]}")
     K = next(iter(batches.values())).shape[1]
-    step_keys = prng.split(keys, K)
-    rows = mesh.rows()
-    groups = [mesh.row_group(r, dims) for r in rows]
-    scatter = bool(batch_axes)
-    b = next(iter(batches.values())).shape[2]
-    slices = [mesh.batch_rows(r, tuple(batch_axes), b) for r in rows]
-    weights = _row_weights(batches, slices, scatter)
-    devs = list(mesh.devices.flat)
-    y = [{n: t.detach() for n, t in c.items()} for c in cells]
-    v = [{n: torch.zeros_like(t) for n, t in c.items()} for c in y]
-    etas = [_on(eta, d) for d in devs]
-    losses = []
-    for k in range(K):
-        per_row = []
-        for row, group, sl, w in zip(rows, groups, slices, weights):
-            with uncounted():
-                batch = {n: t[:, k, sl].to(group.home)
-                         for n, t in batches.items()}
-                kk = step_keys[:, k].to(group.home)
-                w = w[:, k].to(group.home) if isinstance(
-                    w, torch.Tensor) else w
-            entries = mesh.row_cells(y, specs, row, scatter=scatter)
-            per_row.append(_row_loss_and_grad(group, loss_fn, entries,
-                                              batch, kk, w))
-        loss, g = _reduce_rows(mesh, rows, per_row, specs, scatter,
-                               weights, k)
-        del per_row
-        yv = [heavy_ball_update(*a, theta) for a in zip(y, v, g, etas)]
-        y, v = [a for a, _ in yv], [c for _, c in yv]
-        losses.append(loss)
-    return y, torch.stack(losses, dim=1).mean(dim=1)
+    if deferred and K < 2:
+        raise ValueError(f"deferred local training needs K >= 2, got {K}")
+    home = mesh.devices.flat[0]
+    parts = []
+    for rows, pc, pb, pk in _pods(loss_fn, mesh, cells, specs, batches,
+                                  keys, tuple(batch_axes)):
+        parts.append(rows.train(loss_fn, pc, pb, prng.split(pk, K),
+                                K - 2 if deferred else K, eta, theta,
+                                deferred))
+    losses = torch.cat([p[-1].to(home) for p in parts])
+    outs = ([mesh.join_pods([p[i] for p in parts])
+             for i in range(len(parts[0]) - 1)] if mesh.n_pods > 1
+            else list(parts[0][:-1]))
+    if deferred:
+        return (*outs, losses)
+    return outs[0], losses.mean(dim=1)
+
+
+def rows_loss_and_grad(loss_fn: LossFn, mesh, cells: list[Params],
+                       specs: dict, batch: Params, keys: torch.Tensor, *,
+                       batch_axes: tuple = ()
+                       ) -> tuple[torch.Tensor, list[Params]]:
+    """One step's losses [m] (on the first cell's device) and every
+    cell's gradient at ``cells``, the rows' as :func:`local_train_rows`
+    takes them: ``batch`` leaves [m, b, ...], ``keys`` the step's [m,
+    2]. The fused round's last gradient."""
+    home = mesh.devices.flat[0]
+    batches = {n: t[:, None] for n, t in batch.items()}
+    losses, grads = [], []
+    for rows, pc, pb, pk in _pods(loss_fn, mesh, cells, specs, batches,
+                                  keys, tuple(batch_axes)):
+        loss, g = rows.step(loss_fn, pc, pb, pk[:, None], 0)
+        losses.append(loss.to(home))
+        grads.append(g)
+    if mesh.n_pods > 1:
+        return torch.cat(losses), mesh.join_pods(grads)
+    return losses[0], grads[0]
 
 
 def local_train_deferred(loss_fn: LossFn, params: Params, batches: Params,

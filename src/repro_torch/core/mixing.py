@@ -62,10 +62,17 @@ member.
 
 On a ``launch.mesh.ServeMesh`` of ``("data", "model")`` cells (the
 reference's strategies B, B2 and B3 on one pod: two clients, no client
-axis, every cell holding both clients' block of each leaf) the fp32
-dense mix runs on each cell alone (:func:`make_cells_mixer`: gossip is
-linear, so mixing a block is mixing the leaf restricted to it), and
-:func:`consensus_distance_cells` counts each distinct block once.
+axis, every cell holding both clients' block of each leaf) the dense mix
+runs on each cell alone (:func:`make_cells_mixer`: gossip is linear, so
+mixing a block is mixing the leaf restricted to it; the quantized one is
+``_make_exec``'s dense mode: each client's amax met over the cells, its
+full-leaf noise cut to the cell). On the pod mesh ``("pod", "data",
+"model")`` (one client a pod) the ring gossips over ``"pod"`` through
+the plan realization: the pods are its shards, a pod's cells its
+columns, each cell's block cut by the specs in any of their forms (a dim
+over ``"data"``, ``"model"`` or both, two dims by different axes:
+``_MeshCut``). :func:`consensus_distance_cells` counts each distinct
+block once.
 
 ``make_fused_tail`` is the fused round's tail over the same two backends
 (B4 encodes, drawing its noise from the keys as B1 does; B5 decodes and
@@ -90,7 +97,8 @@ from ..device import resolve_device
 from ..launch import hlo_stats
 from .gossip_plan import GossipPlan
 from .local_sgd import loss_and_grad
-from .quantize import QuantConfig, dequantize_int, quantize_int
+from .quantize import (QuantConfig, dequantize_int, quantize_int,
+                       quantize_levels)
 from .topology import MixingSpec, TopologySchedule, _at, _on
 from .wire_layout import WireLayout
 
@@ -333,35 +341,27 @@ def _encode_lanes(layout: WireLayout, x: Params, z: Params,
     return X, layout.encode(delta, scales, quant, keys=keys), scales
 
 
-def _column_noise(layout: WireLayout, xs: list[Params],
-                  keys: list[torch.Tensor], dims: dict, wire: "_Wire"
-                  ) -> list[torch.Tensor]:
-    """The stochastic-rounding noise of a 2D mesh's cells, planar [lanes,
-    per, W] each: for every leaf (``layout`` order, which picks its key
-    row) the FULL leaf's ``uniform(key[leaf, lane], (n,))`` over the m
-    lanes — one T2 launch a leaf, on the first device, the keys already
-    in lane order (``keys`` the cells' [n_leaves, m_local, 2], row s's
-    first cell holding shard s's) — reshaped to the leaf's geometry, cut
-    as the params are cut (``cut_columns``) and staged planar per cell.
-    A cut leaf's element keeps the noise of its flat index in the full
-    leaf, so the codes are the 1D keyed B1's position by position."""
-    mp, dev0 = wire.mp, wire.devs[0]
-    full = torch.cat([keys[s * mp].to(dev0) for s in range(wire.n_shards)],
-                     dim=1)                                # [nl, m, 2]
+def _column_noise(names: Sequence[str], xs: list[Params],
+                  keys: torch.Tensor, cut: "_ColumnCut | _MeshCut",
+                  wire: "_Wire") -> list[Params]:
+    """The stochastic-rounding noise of a mesh's cells, in leaf geometry
+    (one dict a cell, each leaf its block of [lanes, ...]): for every
+    leaf (``names``, the layout's order, which picks its key row) the
+    FULL leaf's ``uniform(keys[leaf, lane], (n,))`` over the m lanes —
+    one T2 launch a leaf, on the first device, ``keys`` [n_leaves, m, 2]
+    in lane order — reshaped to the leaf's geometry and cut as the
+    params are cut (``cut.blocks``). A cut leaf's element keeps the
+    noise of its flat index in the full leaf, so the codes are the one
+    device's position by position."""
     rows = [{} for _ in range(wire.n_shards)]
-    for li, name in enumerate(layout.names):
-        shape = list(xs[0][name].shape[1:])
-        d = dims.get(name)
-        if d is not None:
-            shape[d - 1] *= mp
+    for li, name in enumerate(names):
+        shape = cut.full_shape(name, tuple(xs[0][name].shape[1:]))
         n = int(np.prod(shape)) if shape else 1
-        u = prng.uniform(full[li].contiguous(), (n,))       # [m, n]
-        u = u.reshape([-1] + shape)
+        u = prng.uniform(keys[li].contiguous(), (n,))       # [m, n]
+        u = u.reshape([-1] + list(shape))
         for s, row in enumerate(rows):
             row[name] = u[s * wire.m_local:(s + 1) * wire.m_local]
-    grid = np.array(wire.devs, dtype=object).reshape(wire.n_shards, mp)
-    return [layout.to_planar_stacked(c)
-            for c in cut_columns(rows, dims, grid)]
+    return cut.blocks(rows)
 
 
 def _combine_rows(w: torch.Tensor, own: torch.Tensor, rows: torch.Tensor,
@@ -448,6 +448,64 @@ def join_columns(cells: list[Params], dims: dict | None, grid: np.ndarray
         rows.append({n: row[0][n] if dims.get(n) is None else torch.cat(
             [c[n].to(dev) for c in row], dim=dims[n]) for n in row[0]})
     return rows
+
+
+class _ColumnCut:
+    """How a 2D ``(clients, model)`` mesh's cells hold the leaves:
+    ``dims`` (:func:`_column_dims`) over the ``[n_shards, mp]`` device
+    ``grid``. ``full_shape(name, shape)`` is the whole leaf's shape of a
+    cell block's (no lane dim); ``blocks(rows)`` cuts one dict of whole
+    leaves a shard into the cells' dicts (:func:`cut_columns`)."""
+
+    def __init__(self, dims: dict, grid: np.ndarray):
+        self.dims, self.grid, self.any = dims, grid, _any_cut(dims)
+
+    def full_shape(self, name: str, shape: tuple) -> tuple:
+        shape, d = list(shape), self.dims.get(name)
+        if d is not None:
+            shape[d - 1] *= self.grid.shape[1]
+        return tuple(shape)
+
+    def blocks(self, rows: list[Params]) -> list[Params]:
+        return cut_columns(rows, self.dims, self.grid)
+
+
+class _MeshCut:
+    """:class:`_ColumnCut` for a ``launch.mesh.ServeMesh`` laid out by
+    ``specs`` (strategies B, B2 and B3): its shards are its pods (one on
+    a ``("data", "model")`` mesh), a pod's cells its columns, and a
+    cell's block of a leaf the one ``ServeMesh`` gives it under the
+    pod's specs (``sharding.rules.pod_specs``) — a dim cut over
+    ``"data"``, over ``"model"``, over both (data-major), or two dims cut
+    by different axes."""
+
+    def __init__(self, mesh, specs: dict):
+        from ..sharding.rules import pod_specs
+        self.pods = [mesh.pod(p) for p in range(mesh.n_pods)]
+        self.specs = pod_specs(specs)
+        self.sizes = self.pods[0].sizes
+        self.any = any(spec.names(i) for spec in self.specs.values()
+                       for i in range(1, len(spec)))
+
+    def full_shape(self, name: str, shape: tuple) -> tuple:
+        spec = self.specs[name]
+        return tuple(d * int(np.prod([self.sizes[a]
+                                      for a in spec.names(i + 1)] or [1]))
+                     for i, d in enumerate(shape))
+
+    def blocks(self, rows: list[Params]) -> list[Params]:
+        return [c for pod, row in zip(self.pods, rows)
+                for c in pod.shard(row, self.specs)]
+
+
+def _cut_of(mesh, param_specs) -> "_ColumnCut | _MeshCut | None":
+    """The cut of a realization's cells: a ``ServeMesh``'s by its specs,
+    a 2D client mesh's by its model columns, None on a 1D mesh or one
+    device."""
+    if mesh is not None and hasattr(mesh, "pod"):
+        return _MeshCut(mesh, param_specs)
+    dims = _column_dims(mesh, param_specs)
+    return None if dims is None else _ColumnCut(dims, _mesh_grid(mesh))
 
 
 def _blocks(devs: Sequence[torch.device], m: int
@@ -649,18 +707,24 @@ def _exchange(wire: _Wire, streams: list[list[torch.Tensor]]
     return got
 
 
+def _lane_keys(key, n_leaves: int, m: int, lane: torch.Tensor | None,
+               dev: torch.device, leaf_keys: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """The stochastic-rounding keys of every lane, [n_leaves, m, 2] on
+    ``dev``: drawn full width in client space (``_quant_leaf_keys``;
+    ``leaf_keys`` replaces that draw), gathered to lane order through
+    ``lane_to_client`` for a placed plan."""
+    keys = (_quant_leaf_keys(key, n_leaves, m) if leaf_keys is None
+            else _on(leaf_keys, dev, "leaf_keys"))
+    return keys if lane is None else keys.index_select(1, lane)
+
+
 def _shard_keys(key, n_leaves: int, m: int, lane: torch.Tensor | None,
                 blocks, leaf_keys: torch.Tensor | None = None
                 ) -> list[torch.Tensor]:
-    """The stochastic-rounding keys of every shard: drawn full width in
-    client space (``_quant_leaf_keys``; ``leaf_keys`` [n_leaves, m, 2]
-    replaces that draw), gathered to lane order through
-    ``lane_to_client`` for a placed plan, sliced by block: [n_leaves,
-    m_local, 2] each (on one block the keys themselves)."""
-    keys = (_quant_leaf_keys(key, n_leaves, m) if leaf_keys is None
-            else _on(leaf_keys, blocks[0][2], "leaf_keys"))
-    if lane is not None:
-        keys = keys.index_select(1, lane)
+    """:func:`_lane_keys` sliced by block: [n_leaves, m_local, 2] each
+    (on one block the keys themselves)."""
+    keys = _lane_keys(key, n_leaves, m, lane, blocks[0][2], leaf_keys)
     return [keys[:, lo:hi].to(d).contiguous() for lo, hi, d in blocks]
 
 
@@ -710,7 +774,8 @@ def _layouts(quant: QuantConfig | None) -> Callable:
 
 def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
                lane: torch.Tensor | None = None,
-               dims: dict | None = None) -> Callable:
+               cut: "_ColumnCut | _MeshCut | None" = None,
+               W=None) -> Callable:
     """The sparse executor over lane blocks: ``ex(xs, zs, ws, srcs, key,
     leaf_keys=None) -> xs'`` over one dict a cell (a 1D mesh's shards;
     one dict on one device), ``ws[i]`` [m_local, K] and ``srcs[i]`` the
@@ -727,22 +792,53 @@ def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
     independently, so a cohort's lanes under the full width's gathered
     keys give the full width's words and values.
 
-    On a 2D mesh (``wire.mp`` columns; ``dims`` from
-    :func:`_column_dims`, some leaf cut) every cell holds its model slice
-    and runs the same code over it; the transfers stay within a column.
-    Two fixups keep the codes the 1D layout's position by position: a
-    cell's per-leaf amaxes meet their row's (a device copy each to the
-    row's first cell, their max, the scales copied back: max is
-    order-exact, so the scales are the 1D ones bitwise), and stochastic
-    rounding takes a noise tensor (:func:`_column_noise`: each leaf's
-    full draw, cut as the params are) through B1's tensor-noise entry.
-    The fp32 wire, the ``lemma5`` replicas and B2 work elementwise on the
-    slices as they are."""
+    On a mesh whose cells hold slices (``wire.mp`` columns a shard;
+    ``cut`` from :func:`_cut_of`, some leaf cut: a 2D client mesh's
+    model columns, or a ``ServeMesh``'s pods, each pod's ``(data,
+    model)`` cells its columns) every cell holds its slice and runs the
+    same code over it; the transfers stay within a column (one ``(data,
+    model)`` coordinate of the pods). Two fixups keep the codes the one
+    device's position by position: a cell's per-leaf amaxes meet their
+    shard's (a device copy each to the shard's first cell, their max,
+    the result copied back: max is order-exact, so the scales are the
+    one device's bitwise), and stochastic rounding takes a noise tensor
+    (:func:`_column_noise`: each leaf's full draw, cut as the params
+    are) through B1's tensor-noise entry. The fp32 wire, the ``lemma5``
+    replicas and B2 work elementwise on the slices as they are.
+
+    With ``W`` (the dense mix of one ``ServeMesh`` pod's cells: one
+    shard of all m lanes, no transfer) ``ex(xs, zs, key=None,
+    leaf_keys=None)`` is the
+    reference's ``mix_dense`` / ``_mix_dense_quantized`` on every cell's
+    blocks: each client's per-leaf amax met over the cells as above, the
+    noise that client's full-leaf draw cut to the cell, ``q = deq(Q(z -
+    x))`` elementwise, then ``W @ (x + q)`` (``lemma5``) or ``x + W @
+    q`` (``eq7``), or ``W @ z`` on the fp32 wire."""
     layout_for = _layouts(quant)
     quant_on = quant is not None and quant.enabled
     lemma5 = quant_on and quant.delta_mode == "lemma5"
-    cut = _any_cut(dims)
+    cutting = cut is not None and cut.any
     mp = wire.mp
+    dev0 = wire.devs[0]
+
+    def meet(amax: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each cell's per-leaf amaxes -> their max over its shard's
+        cells (on the shard's first cell, copied back to the others)."""
+        out = []
+        for s in range(wire.n_shards):
+            row = amax[s * mp:(s + 1) * mp]
+            top = row[0]
+            for a in row[1:]:
+                top = torch.maximum(top, a.to(top.device))
+            out += [top.to(wire.devs[s * mp + c]) for c in range(mp)]
+        return out
+
+    def noise_of(layout, xs, key, leaf_keys):
+        """Each cell's noise in leaf geometry (the full draw, cut)."""
+        keys = _lane_keys(None if leaf_keys is not None
+                          else _key_on(key, dev0), layout.n_leaves, m,
+                          lane, dev0, leaf_keys)
+        return _column_noise(layout.names, xs, keys, cut, wire)
 
     def mix_fp32(zs, ws, srcs):
         names = list(zs[0])
@@ -762,19 +858,45 @@ def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
             out.append(res)
         return out
 
-    def row_scales(layout: WireLayout, deltas) -> list[torch.Tensor]:
-        """Each cell's per-leaf scales from its row's amaxes (their max
-        on the row's first cell, copied back to the others)."""
-        amax = [layout.leaf_amax(d) for d in deltas]
+    def scales_of(layout, amax):
+        """Each cell's per-leaf scales from its amaxes [lanes, nl], met
+        over its shard's cells (a fixed step needs no meeting)."""
+        if quant.scale_mode != "fixed":
+            amax = meet(amax)
+        return [layout.scales_from_amax(a, quant) for a in amax]
+
+    def dense(xs, zs, key=None, leaf_keys=None):
+        Ws = [_device_w(W, next(iter(z.values())).device) for z in zs]
+        if not quant_on:
+            return [mix_dense(Wc, z) for Wc, z in zip(Ws, zs)]
+        layout = layout_for(xs[0])
+        names = layout.names
+        deltas = [{n: (z[n] - x[n]).to(torch.float32) for n in names}
+                  for x, z in zip(xs, zs)]
+        scales = scales_of(layout, [
+            torch.stack([d[n].abs().reshape(m, -1).amax(dim=1)
+                         for n in names], dim=-1) for d in deltas])
+        noise = (noise_of(layout, xs, key, leaf_keys) if quant.stochastic
+                 else [None] * len(xs))
         out = []
-        for s in range(wire.n_shards):
-            row = amax[s * mp:(s + 1) * mp]
-            top = row[0]
-            for a in row[1:]:
-                top = torch.maximum(top, a.to(top.device))
-            sc = layout.scales_from_amax(top, quant)
-            out += [sc.to(wire.devs[s * mp + c]) for c in range(mp)]
+        for x, d, sc, nz, Wc in zip(xs, deltas, scales, noise, Ws):
+            res = {}
+            for li, n in enumerate(names):
+                sl = sc[:, li].reshape((m,) + (1,) * (d[n].dim() - 1))
+                q = quantize_levels(d[n], sl, quant,
+                                    None if nz is None else nz[n]) * sl
+                xl = x[n]
+                if lemma5:
+                    res[n] = torch.tensordot(Wc, xl.to(torch.float32) + q,
+                                             dims=([1], [0])).to(xl.dtype)
+                else:
+                    res[n] = (xl.to(torch.float32) + torch.tensordot(
+                        Wc, q, dims=([1], [0]))).to(xl.dtype)
+            out.append(res)
         return out
+
+    if W is not None:
+        return dense
 
     def ex(xs: list[Params], zs: list[Params], ws, srcs, key,
            leaf_keys: torch.Tensor | None = None) -> list[Params]:
@@ -782,20 +904,19 @@ def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
             return mix_fp32(zs, ws, srcs)
         layout = layout_for(xs[0])
         keys = noise = [None] * len(xs)
-        if quant.stochastic:     # B1 draws the noise from the keys
+        if quant.stochastic and cutting:   # the noise cut to the cells
+            noise = [layout.to_planar_stacked(c)
+                     for c in noise_of(layout, xs, key, leaf_keys)]
+        elif quant.stochastic:   # B1 draws the noise from the keys
             keys = _shard_keys(
                 None if leaf_keys is not None
-                else _key_on(key, wire.devs[0]), layout.n_leaves, m, lane,
+                else _key_on(key, dev0), layout.n_leaves, m, lane,
                 wire.blocks, leaf_keys=leaf_keys)
-        if quant.stochastic and cut:   # ... or takes it cut to the cells
-            noise = _column_noise(layout, xs, keys, dims, wire)
-            keys = [None] * len(xs)
-        if cut:
+        if cutting:
             staged = [_planar_delta(layout, x, z) for x, z in zip(xs, zs)]
             deltas = [d for _, d in staged]
-            scales = (row_scales(layout, deltas)
-                      if quant.scale_mode != "fixed" else
-                      [layout.leaf_scales(d, quant) for d in deltas])
+            scales = scales_of(layout, [layout.leaf_amax(d)
+                                        for d in deltas])
             own = [(X, layout.encode(d, sc, quant, noise=nz), sc)
                    for (X, d), sc, nz in zip(staged, scales, noise)]
         else:
@@ -815,8 +936,8 @@ def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
     return ex
 
 
-def _make_plan_exec(m: int, quant: QuantConfig | None,
-                    dev: torch.device) -> Callable:
+def _make_lanes_mixer(m: int, quant: QuantConfig | None,
+                      dev: torch.device) -> Callable:
     """:func:`_make_exec` on one device's m lanes: ``ex(x, z, w, src, key,
     leaf_keys=None) -> x'`` over stacked dicts, for any table ``src``
     [K, m] (the pooled cohort's, built each round)."""
@@ -889,7 +1010,7 @@ def make_plan_mixer(plan: GossipPlan, quant: QuantConfig | None = None,
     if tabs.static is None:
         raise ValueError(f"plan {plan.name!r} has no static weights")
     ex = _make_exec(tabs, plan.m, quant, _lane_tensor(plan, devs[0]),
-                    _column_dims(mesh, param_specs))
+                    _cut_of(mesh, param_specs))
 
     def mixer(x, z, key=None, t=None):
         del t
@@ -915,7 +1036,7 @@ def execute_plan_reference(plan: GossipPlan, W, stacked: Params,
     if quant is not None and quant.enabled and x is None:
         raise ValueError("quantized plan reference needs the held state x")
     tables = _PlanTables(plan, dev)
-    ex = _make_plan_exec(plan.m, quant, dev)
+    ex = _make_lanes_mixer(plan.m, quant, dev)
     return ex(stacked if x is None else x, stacked,
               tables.weights(_device_w(W, dev)), tables.src, key)
 
@@ -965,7 +1086,7 @@ def make_event_mixer(m: int, quant: QuantConfig | None = None,
     devs, m_local = _shards(mesh, device, m, "sparse mixer")
     tabs = _ShardTables([plan], devs, m_local, mp=_model_parallel(mesh))
     ex = _make_exec(tabs, m, quant, _lane_tensor(plan, devs[0]),
-                    _column_dims(mesh, param_specs))
+                    _cut_of(mesh, param_specs))
 
     def mix_event(x, z, W, active, key=None):
         xs, zs = _as_shards(mesh, x), _as_shards(mesh, z)
@@ -1277,16 +1398,16 @@ def _make_cycle_mixer(schedule: TopologySchedule, quant: QuantConfig | None,
     ones = schedule.tables(dev)["ones"]
     n = len(plans)
     devs, m_local = _shards(mesh, dev, m, "sparse mixer")
-    mp, dims = _model_parallel(mesh), _column_dims(mesh, param_specs)
+    mp, cut = _model_parallel(mesh), _cut_of(mesh, param_specs)
     k_max = max(len(_live_steps(p)) + 1 for p in plans)
     union = _ShardTables(plans, devs, m_local, mp=mp)
     lane = _lane_tensor(plans[0], devs[0])
-    ex_union = _make_exec(union, m, quant, lane, dims)
+    ex_union = _make_exec(union, m, quant, lane, cut)
     each = ex_each = None
     if union.transfers:
         each = [_ShardTables([p], devs, m_local, k_pad=k_max, mp=mp)
                 for p in plans]
-        ex_each = [_make_exec(t, m, quant, lane, dims) for t in each]
+        ex_each = [_make_exec(t, m, quant, lane, cut) for t in each]
 
     def mixer(x, z, key, t):
         xs, zs = _as_shards(mesh, x), _as_shards(mesh, z)
@@ -1505,45 +1626,61 @@ def consensus_distance(stacked: Params | list[Params],
     return total
 
 
-def make_cells_mixer(spec: MixingSpec, devices) -> Callable:
-    """The fp32 dense mix ``x' = W @ z`` on cells: ``mixer(cells) ->
-    cells``, each cell's blocks mixed on its device over the client axis
-    (every cell holds all m clients' blocks), W built once a device."""
-    ws = {}
-    for d in devices:
-        d = torch.device(d)
-        if str(d) not in ws:
-            ws[str(d)] = _device_w(spec.W, d)
+def make_cells_mixer(spec: MixingSpec, mesh, specs: dict,
+                     quant: QuantConfig | None = None) -> Callable:
+    """The dense mix on one pod's cells of a ``launch.mesh.ServeMesh``
+    (every cell holding all m clients' blocks, laid out by ``specs``):
+    ``mixer(xs, zs, key=None) -> cells``, each cell's blocks mixed on
+    its device over the client axis (gossip is linear, so mixing a block
+    is mixing the leaf restricted to it). fp32: ``W @ z``; a quantized
+    wire: the reference's ``_mix_dense_quantized`` (``_make_exec``'s
+    dense mode: each client's per-leaf scale from its amax over every
+    cell, its noise its full-leaf draw from ``key`` cut to the cell)."""
+    if mesh.n_pods != 1:
+        raise ValueError("the dense mix on cells runs on one pod's cells "
+                         "(a pod mesh gossips over 'pod': make_plan_mixer)")
+    devs = list(mesh.devices.flat)
+    ex = _make_exec(_Wire(devs, spec.m, len(devs)), spec.m, quant,
+                    cut=_MeshCut(mesh, specs), W=spec.W)
 
-    def mixer(cells: list[Params]) -> list[Params]:
-        return [mix_dense(ws[str(next(iter(c.values())).device)], c)
-                for c in cells]
+    def mixer(xs: list[Params], zs: list[Params], key=None
+              ) -> list[Params]:
+        return ex(xs, zs, key=key)
     return mixer
 
 
 def consensus_distance_cells(cells: list[Params], mesh, specs: dict
                              ) -> torch.Tensor:
     """:func:`consensus_distance` of a tree laid out on a ``ServeMesh``'s
-    cells (every cell all m clients' blocks), from partial sums over the
-    cells that count each distinct block once: a leaf the data axis does
-    not cut from data row 0 only, one the model axis does not cut from
-    column 0 only. Summed on the first cell's device, leaf by leaf in
-    sorted-key order, the cells row-major."""
-    from ..sharding.rules import cuts_data
-    coords = list(np.ndindex(mesh.devices.shape))
+    cells, from partial sums over the cells that count each distinct
+    block once: a leaf the data axis does not cut from data row 0 only,
+    one the model axis does not cut from column 0 only. On the pod mesh
+    a client's blocks lie in its own pod: each (data, model) position's
+    blocks of every pod meet on its first pod's cell (the clients'
+    mean there). Summed on the first cell's device, leaf by leaf in
+    sorted-key order, the positions row-major."""
+    from ..sharding.rules import pod_specs
+    n_pods = mesh.n_pods
+    pod = mesh.pod(0)
+    ps = pod_specs(specs)
+    per_pod = len(cells) // n_pods
+    coords = list(np.ndindex(pod.devices.shape))
     dev0 = mesh.devices.flat[0]
-    m = next(iter(cells[0].values())).shape[0]
+    m = sum(next(iter(cells[p * per_pod].values())).shape[0]
+            for p in range(n_pods))
     total = None
     for name in sorted(cells[0]):
-        data_cut = cuts_data(specs[name])
-        model_cut = any("model" in specs[name].names(i)
-                        for i in range(len(specs[name])))
+        spec = ps[name]
+        data_cut = any(a != "model" for i in range(1, len(spec))
+                       for a in spec.names(i))
+        model_cut = any("model" in spec.names(i) for i in range(len(spec)))
         sq = []
-        for coord, cell in zip(coords, cells):
+        for k, coord in enumerate(coords):
             if (not data_cut and any(coord[:-1])) or (
                     not model_cut and coord[-1]):
                 continue
-            z = cell[name]
+            z = join_lanes([cells[p * per_pod + k][name]
+                            for p in range(n_pods)], cells[k][name].device)
             zb = z.mean(dim=0, keepdim=True)
             sq.append(((z.to(torch.float32) - zb) ** 2).sum().reshape(1))
         d = join_lanes(sq, dev0).sum() / m

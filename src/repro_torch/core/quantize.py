@@ -19,7 +19,7 @@ import torch
 
 from .. import prng
 
-__all__ = ["QuantConfig", "scale_from_amax", "quantize_int",
+__all__ = ["QuantConfig", "scale_from_amax", "quantize_int", "quantize_levels",
            "dequantize_int", "quantize", "packed_len", "pack_bits",
            "unpack_bits", "quantize_pytree", "dequantize_pytree",
            "message_bits"]
@@ -96,15 +96,28 @@ def quantize_int(x: torch.Tensor, cfg: QuantConfig,
     each row, like ``jax.random.uniform(key, (n,))``."""
     x = x.to(torch.float32)
     s = _scale_for(x, cfg, dim=-1)
-    a = x / s[..., None]
-    k = torch.floor(a)
+    u = None
     if cfg.stochastic:
         if key is None:
             raise ValueError("stochastic quantization needs a PRNG key")
         u = prng.uniform(key.to(x.device), (x.shape[-1],))
+    return quantize_levels(x, s[..., None], cfg, u).to(torch.int32), s
+
+
+def quantize_levels(x: torch.Tensor, s: torch.Tensor, cfg: QuantConfig,
+                    u: torch.Tensor | None = None) -> torch.Tensor:
+    """The levels of ``x`` (f32) on the grid of step ``s`` (broadcast
+    against x), as f32 in [qmin, qmax]: ``floor(x / s)``, plus one where
+    the uniform ``u`` (same shape as x; stochastic rounding only) falls
+    below the remainder. Elementwise, so a block of x with its block of
+    the noise gives the whole tensor's levels there."""
+    a = x / s
+    k = torch.floor(a)
+    if cfg.stochastic:
+        if u is None:
+            raise ValueError("stochastic quantization needs its noise")
         k = k + (u < (a - k)).to(torch.float32)
-    k = k.clamp(cfg.qmin, cfg.qmax).to(torch.int32)
-    return k, s
+    return k.clamp(cfg.qmin, cfg.qmax)
 
 
 def dequantize_int(k: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,8 @@ __all__ = ["partition_iid", "partition_noniid_shards", "FederatedDataset"]
 
 def partition_iid(data: ClassificationData, m: int, *, seed: int = 0
                   ) -> list[np.ndarray]:
+    """The paper's IID split: a seeded permutation of the examples cut into
+    ``m`` near-equal index arrays, each sorted."""
     rng = np.random.default_rng(seed)
     idx = rng.permutation(len(data.y))
     return [np.sort(s) for s in np.array_split(idx, m)]

@@ -21,6 +21,8 @@ __all__ = ["classification_dataset", "ClassificationData", "char_stream",
 
 @dataclasses.dataclass
 class ClassificationData:
+    """A labelled dataset: features ``x`` [n, ...], integer labels ``y`` [n]
+    and the class count."""
     x: np.ndarray          # [n, ...features]
     y: np.ndarray          # [n] int
     n_classes: int

@@ -216,6 +216,8 @@ def kernel_entry(fn):
 
 
 def in_kernel_entry() -> bool:
+    """Whether a kernel entry is running on this thread (a plain version called
+    inside another entry reports nothing of its own)."""
     return _DEPTH[0] > 0
 
 
@@ -231,4 +233,6 @@ def report(kernel: str, operands, outputs, launches: int = 1) -> None:
 
 
 def is_meta(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the ``meta`` device (an entry then returns empty
+    ``meta`` outputs and does no arithmetic)."""
     return t.device.type == "meta"

@@ -118,5 +118,6 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Set every kernel's launch count (``native.LAUNCHES``) to zero."""
     for k in native.LAUNCHES:
         native.LAUNCHES[k] = 0

@@ -10,23 +10,27 @@ A mesh here is a ``launch.mesh.ServeMesh``: the production stand-in
 The train step under strategy A runs on a ``ClientMesh`` mapped from the
 mesh's client axes (the strategy's, one shard a client-axis cell) by its
 ``"model"`` axis, the parameters laid out by the strategy's specs
-(``sharding.rules``). Under strategies B, B2 and B3 on one pod (two
-clients, no client axis) it runs on the mesh's own cells (``Built.mesh``
-the ``ServeMesh``; ``core.make_cells_round_step``), the stacked params
-laid out exactly as the reference's specs say: B cuts ``"embed"`` over
-``"data"`` and the batch is whole on every data row; B2 cuts ``"mlp"``
-and ``"ssm_inner"`` over ``("data", "model")`` and the batch over
-``"data"``; B3 cuts weights over ``"model"`` alone and the batch over
-``"data"``. Every data row trains as a column group on its batch block
+(``sharding.rules``). Under strategies B, B2 and B3 it runs on the
+mesh's own cells (``Built.mesh`` the ``ServeMesh``;
+``core.make_cells_round_step``), the stacked params laid out exactly as
+the reference's specs say: B cuts ``"embed"`` over ``"data"`` and the
+batch is whole on every data row; B2 cuts ``"mlp"`` and ``"ssm_inner"``
+over ``("data", "model")`` and the batch over ``"data"``; B3 cuts
+weights over ``"model"`` alone and the batch over ``"data"``. Every data
+row trains as a column group on its batch block
 (``core.local_sgd.local_train_rows``: data-cut weights gathered at their
-use, their gradients reduce-scattered, or kept as the row's own slice
-under B; the other gradients all-reduced over the data column under B2
-and B3), B3 runs once a local step a cell and the fp32 dense mix runs
-on each cell. A MoE's data rows route their own tokens, one dispatch
-group a row, as the reference's ``shard_map``'d MoE does. The multi-pod
-mesh (its clients on ``"pod"``) and a quantized wire under B, B2 and B3
-still run the one global program on the mesh's first device
-(``Built.mesh`` None; ROADMAP A21c); the fused round there is refused.
+use, an SSM's inner dim re-cut on head boundaries there, their gradients
+reduce-scattered, or kept as the row's own slice under B; the other
+gradients all-reduced over the data column under B2 and B3), B3 runs
+once a local step a cell. On one pod (two clients, no client axis) the
+dense mix runs on each cell, fp32 or quantized, and the fused round is
+the reference's dense fused tail on the cells; on the multi-pod mesh
+(its clients on ``"pod"``, one a pod) each pod trains its client on its
+cells and the ring gossips over ``"pod"`` within each ``(data, model)``
+position (``meta["mixer"]`` ``"ring"``), fp32 or quantized; the fused
+round there is refused with the reference's reason. A MoE's data rows
+route their own tokens, one dispatch group a row, as the reference's
+``shard_map``'d MoE does.
 
 The serving steps run model-sharded on the mesh's cells (a
 ``ServeMesh``; ``Built.mesh``), laid out exactly as the reference's
@@ -102,12 +106,14 @@ def _dp_spec(axes: tuple[str, ...]):
 
 @dataclasses.dataclass
 class Built:
+    """A built step: ``fn(*args)``, its ``meta`` arguments of the reference's
+    shapes, the reference's meta dict, the mesh ``fn`` runs on, the (in, out)
+    ``PartitionSpec``s and, for a decode step, its cache-filling prefill."""
     fn: Any                       # the step: fn(*args)
     args: tuple                   # meta tensors (lower(*args) in the reference)
     meta: dict
     # The mesh fn runs on (a strategy-A train step's ClientMesh; a B, B2
-    # or B3 train step's ServeMesh on one pod, None for the one program on
-    # the mesh's first device; a serving step's ServeMesh),
+    # or B3 train step's ServeMesh; a serving step's ServeMesh),
     # and (in_specs, out_specs): the reference's in_shardings /
     # out_shardings as PartitionSpecs.
     mesh: ClientMesh | ServeMesh | None = None
@@ -148,26 +154,19 @@ def _model_shapes(cfg: ArchConfig) -> tuple[dict, dict]:
 def _check_cells_layout(cfg: ArchConfig, strat, pspecs: dict,
                         axes: dict, mp: int, batch_cut: bool) -> None:
     """Refuse a layout the train step on cells would compute otherwise
-    than the reference: a Mamba2 inner dim cut over ``("data",
-    "model")`` (strided across the columns, which crosses the heads its
-    column-parallel form cuts contiguously), an MLP or expert block
-    whose gate, up and down weights cut their ``"mlp"`` dim unalike (a
-    strided partition of the hidden dim is exact only when all three
-    share it), and a MoE whose ``moe_d_ff`` does not divide the model
-    axis under a cut batch (the reference then routes the whole batch
-    as one group, not one a data shard)."""
+    than the reference: an MLP or expert block whose gate, up and down
+    weights cut their ``"mlp"`` dim unalike (a strided partition of the
+    hidden dim is exact only when all three share it), and a MoE whose
+    ``moe_d_ff`` does not divide the model axis under a cut batch (the
+    reference then routes the whole batch as one group, not one a data
+    shard). An SSM inner dim cut over ``("data", "model")`` is re-cut on
+    head boundaries at its row's gather
+    (``launch.mesh.ServeMesh.row_cells``)."""
     by_block: dict = {}
     for name, names in axes.items():
         spec = pspecs[name]
         for i, logical in enumerate(names):
             entry = spec.names(i + 1)
-            if logical == "ssm_inner" and "data" in entry \
-                    and "model" in entry:
-                raise ValueError(
-                    f"strategy {strat.name} cuts {name}'s inner dim over "
-                    f"{entry}, strided across the columns, which crosses "
-                    "the Mamba2 heads that its column-parallel form cuts "
-                    "contiguously (ROADMAP A21c)")
             if logical == "mlp":
                 by_block.setdefault(name.rsplit("/", 1)[0], set()).add(entry)
     for block, entries in by_block.items():
@@ -178,12 +177,18 @@ def _check_cells_layout(cfg: ArchConfig, strat, pspecs: dict,
         raise ValueError(
             f"moe_d_ff={cfg.moe_d_ff} does not divide the model axis "
             f"({mp}): the reference routes the whole batch as one group, "
-            "which the rows of a cut batch do not (ROADMAP A21c)")
+            "which the rows of a cut batch do not")
 
 
 def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
                      strategy: str | None = None,
                      dfed: DFedAvgMConfig | None = None) -> Built:
+    """The DFedAvgM round of ``cfg`` over ``mesh`` under the strategy
+    (``ShardingStrategy.for_arch``; module docstring): strategy A on a
+    ``ClientMesh`` of the mesh's client axes, B, B2 and B3 on the mesh's
+    own cells, on one pod or on the pod mesh, fp32 or quantized, unfused
+    or (one pod) fused. ``Built.args`` are ``meta`` (state, batches) of
+    the reference's shapes."""
     strat = ShardingStrategy.for_arch(cfg.name, mesh, strategy=strategy)
     m = strat.num_clients
     if dfed is None:
@@ -210,11 +215,9 @@ def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
         ba = ()
     spec = MixingSpec.ring(m)
     loss = M.make_loss(cfg)
-    quantized = dfed.quant is not None and dfed.quant.enabled
-    # Strategy A's clients lie on the mesh's client axes; B, B2 and B3 on
-    # one pod train on the mesh's own cells. Their multi-pod mesh and a
-    # quantized wire are the global program on one device (A21c).
-    on_cells = strat.name != "A" and not strat.client_axes and not quantized
+    # Strategy A's clients lie on the mesh's client axes; B, B2 and B3
+    # train on the mesh's own cells (their clients on "pod", if any).
+    on_cells = strat.name != "A"
     cmesh = None
     if on_cells:
         _check_cells_layout(cfg, strat, pspecs, axes, sizes["model"],
@@ -222,12 +225,9 @@ def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
         step = make_cells_round_step(loss, dfed, spec, mesh, pspecs,
                                      batch_axes=ba)
     else:
-        cmesh = (_client_mesh(mesh, strat.client_axes)
-                 if strat.name == "A" else None)
+        cmesh = _client_mesh(mesh, strat.client_axes)
         step = make_round_step(loss, dfed, spec, device=dev, mesh=cmesh,
-                               param_specs=(pspecs if cmesh is not None
-                                            else None),
-                               with_metrics=True)
+                               param_specs=pspecs, with_metrics=True)
     lay = mesh if on_cells else cmesh       # where the params are laid out
 
     smap = None
@@ -275,7 +275,7 @@ def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
     meta = dict(kind="train", m=m, K=K, local_bs=local_bs, seq=seq,
                 strategy=strat.name, client_axes=strat.client_axes,
                 tokens_per_step=m * K * local_bs * seq,
-                mixer=(dfed.mixer_config().resolved_impl(spec, cmesh)
+                mixer=(dfed.mixer_config().resolved_impl(spec, lay)
                        if strat.client_axes else "dense"),
                 quant_bits=(dfed.quant.bits if dfed.quant else 32))
     return Built(fn=fn, args=(state_sds, batch_sds), meta=meta, mesh=lay,
@@ -407,6 +407,9 @@ def _laid_out(smesh: ServeMesh, tree, specs) -> Cells:
 
 def build_decode_step(cfg: ArchConfig, mesh, shape: InputShape, *,
                       cache_headdim: bool = True) -> Built:
+    """One decode step of ``cfg`` on ``mesh``'s cells (module docstring):
+    params by the serving rules, caches by ``_cache_specs``, tokens by the
+    data axes; ``Built.prefill`` fills the caches on the same layout."""
     from ..models.attention import DECODE_Q_SPEC
 
     b = shape.global_batch
@@ -465,6 +468,8 @@ def build_decode_step(cfg: ArchConfig, mesh, shape: InputShape, *,
 
 
 def build_prefill_step(cfg: ArchConfig, mesh, shape: InputShape) -> Built:
+    """The prefill of ``cfg`` on ``mesh``'s cells: every data row's prompts
+    through a column-parallel forward, the last position's logits."""
     b = shape.global_batch
     seq = shape.seq_len
     dp = _dp_axes(mesh, b)
@@ -492,6 +497,8 @@ def build_prefill_step(cfg: ArchConfig, mesh, shape: InputShape) -> Built:
 
 
 def build_step(cfg: ArchConfig, mesh, shape_name: str, **kw) -> Built:
+    """The step of input shape ``shape_name`` (``INPUT_SHAPES``): a train,
+    prefill or decode build (``kw`` to the train build)."""
     shape = INPUT_SHAPES[shape_name]
     if shape.kind == "train":
         return build_train_step(cfg, mesh, shape, **kw)

@@ -93,6 +93,9 @@ def uncounted():
 class Costs:
     # Integer counts (exact in any order, past 2^53); coll_bytes and
     # coll_by_kind are the recorder's float ring formulas.
+    """A step's structural costs: FLOPs and bytes of every operation, matmul
+    FLOPs, kernel bytes and records, and the recorded collectives' wire bytes
+    (total and by kind)."""
     flops: int = 0
     bytes: int = 0
     coll_bytes: float = 0.0

@@ -24,15 +24,14 @@ constants (``launch.mesh``):
 A serving row's collective term is the port's own transfers (the
 column sums, the logits join, the head_dim-cut cache's score sums, the
 data-axis weight gathers), not the reference's GSPMD choices. A train
-step under strategies B, B2 and B3 runs on the single-pod mesh's
-``meta`` cells too (``core.local_sgd.local_train_rows``: each data row
-a column group, the rows after the first replayed), its collective
-term the port's transfers: the data-axis weight gathers, their
-backward's reduce-scatters, the data column's all-reduces of the other
-gradients and the column groups' operations. Their multi-pod mesh and
-a quantized wire still run the one global program (ROADMAP A21c): its
-FLOPs and bytes are the program's, and its collective term is null
-with the reason in ``collective_null_reason``. The fields
+step under strategies B, B2 and B3 runs on the mesh's ``meta`` cells too
+(``core.local_sgd.local_train_rows``: each data row a column group, the
+rows after the first replayed), its collective term the port's
+transfers: the data-axis weight gathers, their backward's
+reduce-scatters, the data column's all-reduces of the other gradients
+and the column groups' operations, and on the multi-pod mesh the ring's
+payloads over ``"pod"`` (f32 rows, or words, scales and ``lemma5``
+replicas: ``core.mixing._exchange``), fp32 or quantized. The fields
 only XLA gives are left out: ``xla_flops_per_device_loops_x1``,
 ``xla_bytes_per_device_loops_x1``, ``collective_flat`` (the flat HLO
 pass) and ``compile_s`` / ``lower_s``. ``memory_analysis`` gives the
@@ -148,20 +147,18 @@ def model_flops(cfg, meta) -> float:
     return (6.0 if meta["kind"] == "train" else 2.0) * n * d
 
 
-def roofline_terms(cfg, meta: dict, struct, n_chips: int,
-                   collective: bool = True) -> tuple[dict, str]:
+def roofline_terms(cfg, meta: dict, struct, n_chips: int
+                   ) -> tuple[dict, str]:
     """The three roofline terms (seconds) of one step from its
     structural costs on ``n_chips`` H100s, and the dominant one: compute
     = FLOPs / (chips * PEAK_FLOPS_BF16), memory = the analytic HBM bytes
     / (chips * HBM_BW), collective = a device's share of the recorded
-    wire bytes / NVLINK_BW (None when ``collective`` is False: a program
-    whose transfers are not the deployment's)."""
+    wire bytes / NVLINK_BW."""
     hbm_bytes = analytic_hbm_bytes(cfg, meta, n_chips)
     terms = {"compute_s": struct.flops / (n_chips * PEAK_FLOPS_BF16),
              "memory_s": hbm_bytes / (n_chips * HBM_BW),
-             "collective_s": (struct.coll_bytes / n_chips / NVLINK_BW
-                              if collective else None)}
-    dom = max((k for k in terms if terms[k] is not None), key=terms.get)
+             "collective_s": struct.coll_bytes / n_chips / NVLINK_BW}
+    dom = max(terms, key=terms.get)
     return terms, dom
 
 
@@ -177,17 +174,6 @@ def _nbytes(tree) -> int:
     return 0
 
 
-def _collective_null_reason(built) -> str | None:
-    if built.mesh is None:
-        meta = built.meta
-        where = ("its clients on the pod axis" if meta["client_axes"]
-                 else f"a {meta['quant_bits']}-bit wire")
-        return (f"strategy {meta['strategy']} with {where} runs as the "
-                "global program on one device, whose transfers are not "
-                "the deployment's (ROADMAP A21c)")
-    return None
-
-
 def _save(rec: dict) -> None:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     out = OUT_DIR / (f"{rec['arch']}__{rec['shape']}__{rec['mesh']}__"
@@ -199,6 +185,10 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
             strategy: str | None = None, tag: str = "baseline",
             dfed=None, save: bool = True,
             cfg_overrides: dict | None = None) -> dict:
+    """Build one (arch, shape, mesh) row on ``meta`` cells, count one
+    evaluation's costs and collectives, and return (and save, unless
+    ``save`` is False) its record with the H100 roofline terms; a skipped
+    row records the reason."""
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
@@ -232,9 +222,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
 
     mf = model_flops(cfg, built.meta)
     hbm_bytes = analytic_hbm_bytes(cfg, built.meta, n_chips)
-    null_reason = _collective_null_reason(built)
-    terms, dom = roofline_terms(cfg, built.meta, struct, n_chips,
-                                collective=null_reason is None)
+    terms, dom = roofline_terms(cfg, built.meta, struct, n_chips)
     compute_t, memory_t, coll_t = (terms["compute_s"], terms["memory_s"],
                                    terms["collective_s"])
     wire_per_dev = struct.coll_bytes / n_chips
@@ -250,14 +238,13 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
         "struct_kernel_bytes_global": struct.kernel_bytes,
         "struct_kernels": struct.kernels,
         "analytic_hbm_bytes_global": hbm_bytes,
-        "struct_coll_bytes_per_dev": None if null_reason else wire_per_dev,
-        "struct_coll_by_kind": None if null_reason else {
+        "struct_coll_bytes_per_dev": wire_per_dev,
+        "struct_coll_by_kind": {
             k: v / n_chips for k, v in struct.coll_by_kind.items()},
-        "collective_looped": None if null_reason else {
+        "collective_looped": {
             "wire_bytes": wire_per_dev,
             "by_kind": {k: v / n_chips
                         for k, v in struct.coll_by_kind.items()}},
-        "collective_null_reason": null_reason,
         "memory_analysis": {
             "argument_size_in_bytes": _nbytes(built.args),
             "output_size_in_bytes": _nbytes(outs[0]),
@@ -273,7 +260,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
     })
     if save:
         _save(rec)
-    coll_ms = "null" if coll_t is None else f"{coll_t * 1e3:.1f}"
+    coll_ms = f"{coll_t * 1e3:.1f}"
     print(f"[ok] {arch} x {shape_name} x {mesh_name} ({tag}): "
           f"struct={t_struct:.1f}s "
           f"Gflops/dev={struct.flops / n_chips / 1e9:.1f} "
@@ -287,6 +274,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
 
 
 def main(argv=None):
+    """The dry-run's command line: every selected (arch, shape, mesh) row
+    through :func:`run_one`, records under ``OUT_DIR``."""
     ap = argparse.ArgumentParser(description="multi-pod dry-run")
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")

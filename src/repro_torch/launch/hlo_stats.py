@@ -31,7 +31,12 @@ reports itself, while it runs, to every recorder that
     share), the data column's sum of every other gradient as an
     ``all-reduce`` of a cell's block a column, and under B the copy of
     row 0's gradient of a leaf the data axis does not cut to each other
-    row as a ``collective-permute``.
+    row as a ``collective-permute``; an SSM inner dim cut over ``("data",
+    "model")`` and re-cut on head boundaries is gathered from the cells
+    that hold its column's heads, recorded as the same ``all-gather``
+    (and its backward's ``reduce-scatter``) over dp blocks; on the pod
+    mesh the ring's payloads over ``"pod"`` as above, one a cell (f32
+    rows, or words, scales and ``lemma5`` replicas).
 
 A recorder sees every trip of every loop, so no trip-count pass (the
 reference's ``collect_collectives_looped``) has a counterpart, and the
@@ -59,6 +64,8 @@ RECORDERS: list = []
 
 @dataclasses.dataclass
 class CollectiveStats:
+    """The collectives a recorder saw: total wire bytes, wire bytes and counts
+    by kind, and each operation's record."""
     wire_bytes: float = 0.0
     by_kind: dict = dataclasses.field(
         default_factory=lambda: defaultdict(float))

@@ -51,6 +51,7 @@ import torch
 from ..core.mixing import (_column_dims, _mesh_grid, cut_columns,
                            join_columns, join_lanes, split_lanes)
 from ..device import resolve_device
+from ..sharding.rules import pod_specs
 from ..sharding.tensor_parallel import ColumnGroup, DataCut
 
 CPU_BUDGET_BYTES = 2 << 30
@@ -217,6 +218,37 @@ class ServeMesh:
         """Every row's coordinates (all axes but ``"model"``), row-major."""
         return list(np.ndindex(self.devices.shape[:-1]))
 
+    @property
+    def n_pods(self) -> int:
+        return self.sizes.get("pod", 1)
+
+    def pod(self, p: int) -> "ServeMesh":
+        """Pod ``p``'s cells as a ``("data", "model")`` mesh (the mesh
+        itself when it has no pod axis)."""
+        if not 0 <= p < self.n_pods:
+            raise ValueError(f"pod {p} of {self.n_pods}")
+        if "pod" not in self.axis_names:
+            return self
+        return ServeMesh(devices=self.devices[p],
+                         axis_names=self.axis_names[1:])
+
+    def pod_cells(self, cells: Cells, p: int) -> Cells:
+        """Pod ``p``'s entries of a tree laid out on this mesh, row-major
+        over its ``("data", "model")`` cells: the tree as :meth:`pod`
+        lays it out by :func:`pod_specs` (a leaf's client dim, cut over
+        ``"pod"``, holds that pod's clients)."""
+        if not 0 <= p < self.n_pods:
+            raise ValueError(f"pod {p} of {self.n_pods}")
+        n = self.devices.size // self.n_pods
+        return Cells(cells[p * n:(p + 1) * n])
+
+    def join_pods(self, parts: list) -> Cells:
+        """The inverse of :meth:`pod_cells`: every pod's cells, in pod
+        order, as one laid-out tree."""
+        if len(parts) != self.n_pods:
+            raise ValueError(f"{len(parts)} pods' cells for {self.n_pods}")
+        return Cells(c for part in parts for c in part)
+
     def _block(self, t: torch.Tensor, spec, coord: tuple) -> torch.Tensor:
         """Cell ``coord``'s block of ``t`` under ``spec``: each dim cut
         into the product of its axes' sizes, its block index row-major
@@ -291,7 +323,7 @@ class ServeMesh:
                             for c in range(self.model_parallel)], dims)
 
     def _data_cut(self, cells: Cells, path: tuple, spec, row: tuple,
-                  c: int, scatter: bool):
+                  c: int, scatter: bool, heads: bool = False):
         """Column ``c``'s entry of the leaf at ``path`` for row ``row``:
         the cell's block, or, where ``spec`` cuts a dim over the data (or
         pod) axes, a :class:`DataCut` of that column's blocks over those
@@ -301,9 +333,15 @@ class ServeMesh:
         ``d * mp + c`` of the full dim, strided, joined in data order
         (a partition across the columns that a product summed over that
         dim takes as exactly as a contiguous one, when every weight it
-        meets is cut alike). ``scatter``: each row holds its own batch
-        block (the gradient goes back to every block), else the cut's
-        ``own`` is the row's block."""
+        meets is cut alike). ``heads`` (such a dim, read on head
+        boundaries: an SSM's inner dim) re-cuts it contiguously instead:
+        column c's entry holds the sub-blocks ``c * dp .. (c+1) * dp - 1``
+        of the full dim, sub-block k from cell ``(k // mp, k % mp)``, so
+        the column holds its heads' slice, as a cut over ``"model"``
+        alone gives it; its gradient goes back to every block (``own``
+        None). ``scatter``: each row holds its own batch block (the
+        gradient goes back to every block), else the cut's ``own`` is
+        the row's block."""
         cut = [i for i in range(len(spec))
                if any(a != "model" for a in spec.names(i))]
         if not cut:
@@ -314,6 +352,16 @@ class ServeMesh:
                 f"{'/'.join(map(str, path))}: {spec!r} cuts the data axis "
                 "over two dims, or ahead of the model axis in one, which a "
                 "mesh row does not gather")
+        if heads and "model" in names:
+            if tuple(self.axis_names) != ("data", "model") or \
+                    names != ("data", "model"):
+                raise ValueError(f"{'/'.join(map(str, path))}: a re-cut on "
+                                 f"head boundaries takes a dim cut over "
+                                 f"('data', 'model'), got {spec!r}")
+            dp, mp = self.sizes["data"], self.model_parallel
+            parts = [_at(self._cell(cells, (k // mp,), k % mp), path)
+                     for k in range(c * dp, (c + 1) * dp)]
+            return DataCut(parts, cut[0], self.devices[row + (c,)], None)
         axes = [a for a in names if a != "model"]
         pos = [self.axis_names.index(a) for a in axes]
         parts, own = [], None
@@ -353,12 +401,15 @@ class ServeMesh:
         return _paths(view, cells[0])
 
     def row_cells(self, cells: Cells, specs: dict, row: tuple, *,
-                  scatter: bool = False) -> list[dict]:
+                  scatter: bool = False,
+                  heads: frozenset = frozenset()) -> list[dict]:
         """Row ``row``'s entries of a laid-out flat dict, one dict a
-        column (:meth:`_data_cut`'s: a block, or a :class:`DataCut`),
-        as ``ColumnGroup.view`` reads a row's cells: the train step's
+        column (:meth:`_data_cut`'s: a block, or a :class:`DataCut`; the
+        leaves named in ``heads`` re-cut on head boundaries), as
+        ``ColumnGroup.view`` reads a row's cells: the train step's
         (``core.local_sgd.loss_and_grad_columns``)."""
-        return [{n: self._data_cut(cells, (n,), specs[n], row, c, scatter)
+        return [{n: self._data_cut(cells, (n,), specs[n], row, c, scatter,
+                                   n in heads)
                  for n in cells[0]} for c in range(self.model_parallel)]
 
     def batch_rows(self, row: tuple, dp: tuple, batch: int) -> slice:

@@ -33,6 +33,7 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
 
 def load(tag: str | None = None, mesh: str | None = None) -> list[dict]:
+    """The dry-run records under ``OUT_DIR``, filtered by tag and mesh."""
     recs = []
     for f in sorted(OUT_DIR.glob("*.json")):
         r = json.loads(f.read_text())
@@ -45,10 +46,14 @@ def load(tag: str | None = None, mesh: str | None = None) -> list[dict]:
 
 
 def fmt_ms(s: float | None) -> str:
+    """Seconds as milliseconds with one decimal, a dash for None."""
     return "—" if s is None else f"{s*1e3:.1f}"
 
 
 def markdown_table(recs: list[dict]) -> str:
+    """The dry-run records as a markdown table: each row's three terms, the
+    dominant one, the useful-FLOPs ratio and wire bytes a device (a skipped row
+    its reason)."""
     hdr = ("| arch | shape | mesh | tag | compute ms | memory ms | "
            "collective ms | dominant | useful | wire GB/dev | note |")
     sep = "|" + "---|" * 11
@@ -163,6 +168,8 @@ def telemetry_report(jsonl_path, trace_path=None) -> str:
 
 
 def main(argv=None):
+    """The report's command line: the roofline table of the dry-run records, or
+    a telemetry run log's summary (``--jsonl``, ``--trace``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", nargs="?", default="roofline",
                     choices=["roofline", "telemetry"])

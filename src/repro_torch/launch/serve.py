@@ -49,6 +49,8 @@ def greedy_generate(params, cfg, prompts: torch.Tensor, *, gen: int,
 
 
 def main(argv=None):
+    """The serving command line: a registered arch's consensus model greedily
+    decoding ``--gen`` tokens after random prompts, printed with its time."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--batch", type=int, default=4)

@@ -389,6 +389,9 @@ def _refuse_2d(args) -> None:
 
 
 def main(argv=None):
+    """The LM driver's command line (the reference's flags plus ``--device``):
+    DFedAvgM rounds of a registered arch, a line of loss, consensus and wire MB
+    a round."""
     args = build_parser().parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:

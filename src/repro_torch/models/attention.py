@@ -207,6 +207,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def init_kv_cache(batch: int, s_alloc: int, n_kv: int, head_dim: int,
                   dtype, m: int = 1, device=None) -> Params:
+    """Zeroed key and value caches ``[m, batch, s_alloc, n_kv, head_dim]`` and
+    the slot positions ``kpos``, on ``device``."""
     return {
         "k": torch.zeros((m, batch, s_alloc, n_kv, head_dim), dtype=dtype,
                          device=device),

@@ -24,6 +24,8 @@ from .transformer import torch_dtype
 
 
 def frontend_shape(cfg: ArchConfig, batch: int) -> tuple[int, int, int]:
+    """The frontend embeddings' shape ``(batch, frontend_tokens, d_model)`` of
+    an arch with a frontend (raises without one)."""
     if cfg.frontend is None:
         raise ValueError(f"{cfg.name} has no frontend")
     return (batch, cfg.frontend_tokens, cfg.d_model)

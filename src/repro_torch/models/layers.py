@@ -51,6 +51,7 @@ def sub(params: Params, prefix: str) -> Params:
 
 
 def prefixed(prefix: str, params: Params) -> Params:
+    """``params`` with every name under ``prefix/``."""
     return {f"{prefix}/{n}": t for n, t in params.items()}
 
 
@@ -84,6 +85,8 @@ def mm_rows(tp, h: torch.Tensor, w) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_norm(kind: str, d: int, dtype) -> Params:
+    """A norm's parameters: a scale (and a bias for layernorm), none for OLMo's
+    non-parametric layernorm."""
     if kind == "nonparam_ln":      # OLMo: LayerNorm without scale/bias
         return {}
     if kind in ("rmsnorm", "layernorm"):
@@ -100,6 +103,8 @@ def _rms(xf: torch.Tensor, eps: float) -> torch.Tensor:
 
 def apply_norm(kind: str, params: Params, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm or layernorm of ``x`` over its last dim in f32, scaled (and
+    shifted) by ``params``, in x's dtype."""
     xf = x.to(torch.float32)
     if kind == "rmsnorm":
         y = _rms(xf, eps) * bcast(params["scale"].to(torch.float32), x)
@@ -128,6 +133,8 @@ def rms_norm_headdim(x: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """RoPE's inverse frequencies ``theta ** (-2i / head_dim)`` [head_dim / 2],
+    f32."""
     ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
     return 1.0 / (theta ** (ar / head_dim))
 
@@ -151,6 +158,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def init_mlp(key: torch.Tensor, d_model: int, d_ff: int, kind: str,
              dtype) -> Params:
+    """An MLP's weights: gate, up and down for SwiGLU / GeGLU, up and down
+    otherwise, from ``key``."""
     k1, k2, k3 = prng.split(key, 3)
     if kind in ("swiglu", "geglu"):
         return {"wg": dense_init(k1, (d_model, d_ff), dtype),
@@ -193,6 +202,7 @@ def _mlp(kind: str, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def init_embedding(key: torch.Tensor, vocab: int, d_model: int,
                    dtype) -> Params:
+    """The token embedding table [vocab, d_model] from ``key``."""
     return {"table": dense_init(key, (vocab, d_model), dtype,
                                 fan_in=d_model)}
 
@@ -221,6 +231,7 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
 
 
 def logits_from_embedding(params: Params, h: torch.Tensor) -> torch.Tensor:
+    """Tied logits ``h @ table^T`` (the embedding table as the output head)."""
     return mm(h, params["table"].transpose(1, 2))
 
 

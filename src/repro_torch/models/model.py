@@ -428,6 +428,17 @@ def _tp_covers(name: str, dims: dict) -> bool:
     return True
 
 
+def _tp_heads(name: str) -> bool:
+    """Whether the column-parallel form reads leaf ``name``'s column as
+    its heads' contiguous block: an SSM mixer's inner-dim leaves (a cut
+    over ``("data", "model")``, strided across the columns, is re-cut on
+    head boundaries at the row's gather)."""
+    parts = name.split("/")
+    depth = _BLOCK_DEPTH.get(parts[0])
+    return (depth is not None and len(parts) == depth + 2
+            and parts[depth] == "mixer" and parts[-1] in _SSM_INNER)
+
+
 def make_loss(cfg: ArchConfig):
     """The round's ``loss(params, batch, rng) -> [m]`` (:func:`loss_fn`),
     carrying its column-parallel form (``loss_fn(..., tp=group)``, the
@@ -437,7 +448,7 @@ def make_loss(cfg: ArchConfig):
 
     return with_column_parallel(
         loss, lambda g, view, b, r: loss_fn(view, cfg, b, r, tp=g),
-        _tp_covers)
+        _tp_covers, _tp_heads)
 
 
 # ---------------------------------------------------------------------------

@@ -35,11 +35,11 @@ Two context variables change the grouping, as the reference's do:
   client's loss their mean through the step's weighting of the rows,
   and the reference's ``psum`` over the model axes is the column
   group's sum. The variable is set where one program holds more than
-  one shard's tokens: ``launch.build``'s global program (the A21c
-  layouts) and its rows of a batch the data axis does not divide (each
-  routing the whole batch), and the global program the cells are held
-  against. Under B the batch is not cut: every row routes the whole
-  batch as one group, the global program's routing.
+  one shard's tokens: ``launch.build``'s rows of a batch the data axis
+  does not divide (each routing the whole batch), and the global
+  program the cells are held against. Under B the batch is not cut:
+  every row routes the whole batch as one group, the global program's
+  routing.
 
 A serving step on a mesh (``launch.build`` on a
 ``launch.mesh.ServeMesh``) runs its batch as blocks, one a data row, and
@@ -131,6 +131,8 @@ class RowRouting:
 
 def init_moe(key: torch.Tensor, d_model: int, n_experts: int, d_ff: int,
              dtype) -> Params:
+    """A MoE layer's weights from ``key``: the f32 router [d_model, n_experts]
+    and each expert's gate, up and down."""
     k1, k2, k3, k4 = prng.split(key, 4)
     return {
         "router": dense_init(k1, (d_model, n_experts), torch.float32),

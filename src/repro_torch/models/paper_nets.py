@@ -387,4 +387,5 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def count_params(params: Params) -> int:
+    """The number of values in a parameter dict."""
     return sum(int(p.numel()) for p in params.values())

@@ -53,6 +53,9 @@ DEFAULT_CHUNK = 128
 def init_mamba2(key: torch.Tensor, d_model: int, d_state: int, *,
                 expand: int = 2, head_dim: int = 64,
                 dtype=torch.float32) -> Params:
+    """A Mamba2 mixer's weights from ``key``: the z, x, B, C and dt
+    projections, the three depthwise convs, ``A_log``, ``D``, ``dt_bias``,
+    the gated norm's scale and the output projection."""
     d_inner = expand * d_model
     nheads = d_inner // head_dim
     ks = prng.split(key, 9)
@@ -326,6 +329,9 @@ def init_mamba2_cache(batch: int, d_model: int, d_state: int, *,
                       expand: int = 2, head_dim: int = 64,
                       dtype=torch.float32, m: int = 1,
                       device=None) -> Params:
+    """A Mamba2 decode cache of zeros: the three convs' trailing context ``[m,
+    batch, D_CONV - 1, *]`` and the SSM state ``[m, batch, heads, d_state,
+    head_dim]``."""
     d_inner = expand * d_model
     h = d_inner // head_dim
     z = lambda *s: torch.zeros((m, batch) + s, dtype=dtype, device=device)

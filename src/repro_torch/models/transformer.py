@@ -56,6 +56,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name (``"float32"``,
+    ``"bfloat16"``)."""
     return _DTYPES[name]
 
 

@@ -37,6 +37,8 @@ __all__ = ["mia_split", "attack_features", "train_attack_model",
 
 @dataclasses.dataclass
 class MIASplit:
+    """The membership probe's index split: the shadow model's training and
+    held-out examples, and the target's."""
     shadow_train: np.ndarray
     shadow_out: np.ndarray
     target_train: np.ndarray
@@ -44,6 +46,8 @@ class MIASplit:
 
 
 def mia_split(n: int, *, seed: int = 0) -> MIASplit:
+    """A seeded split of ``n`` examples into halves for the shadow and target
+    models, each half into training and held-out quarters."""
     rng = np.random.default_rng(seed)
     idx = rng.permutation(n)
     shadow, target = idx[:n // 2], idx[n // 2:]

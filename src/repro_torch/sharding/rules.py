@@ -29,7 +29,8 @@ import torch
 
 __all__ = ["PartitionSpec", "P", "ShardingStrategy", "spec_for_leaf",
            "specs_for_tree", "stack_shapes", "shapes_and_axes",
-           "model_sharded_dims", "cuts_data", "RULES_A", "RULES_B",
+           "model_sharded_dims", "cuts_data", "pod_specs", "RULES_A",
+           "RULES_B",
            "RULES_B2",
            "RULES_B3", "RULES_SERVE", "RULES_SERVE_2D"]
 
@@ -263,3 +264,20 @@ def cuts_data(spec: PartitionSpec) -> bool:
     (``"data"`` or ``"pod"``): a leaf whose blocks differ across a
     mesh's rows."""
     return any(a != "model" for i in range(len(spec)) for a in spec.names(i))
+
+
+def pod_specs(specs):
+    """Specs of a tree laid out on a ``("pod", "data", "model")`` mesh ->
+    the specs one pod's cells hold it by (``ServeMesh.pod``): every
+    ``"pod"`` dropped from the entries (a dim it cut alone replicated:
+    the pod's own clients)."""
+    def one(spec):
+        out = []
+        for i in range(len(spec)):
+            names = tuple(a for a in spec.names(i) if a != "pod")
+            out.append(None if not names else
+                       names[0] if len(names) == 1 else names)
+        return type(spec)(*out)
+    if isinstance(specs, dict):
+        return {n: one(s) for n, s in specs.items()}
+    return one(specs)

@@ -270,6 +270,10 @@ def gather_data(x):
     return out
 
 
+def _no_heads(name: str) -> bool:
+    return False
+
+
 @dataclasses.dataclass(frozen=True)
 class ColumnParallel:
     """A loss's column-parallel form: ``fn(group, view, batch, rng) ->
@@ -277,22 +281,28 @@ class ColumnParallel:
     cells (``view`` from :meth:`ColumnGroup.view`) without joining them;
     ``covers(name, dims)`` says whether the form handles leaf ``name``
     cut, given every leaf's cut dim ``dims`` (a form may take a leaf
-    only together with others, as the SSM's inner dim with its
-    heads)."""
+    only together with others, as the SSM's inner dim with its heads);
+    ``heads(name)`` whether it reads leaf ``name``'s column as the
+    contiguous block of its heads, so that a dim cut over ``("data",
+    "model")`` (strided across the columns) is re-cut on head
+    boundaries at the row's gather (``launch.mesh.ServeMesh.row_cells``)."""
 
     fn: Callable
     covers: Callable[[str, dict], bool]
+    heads: Callable[[str], bool] = _no_heads
 
 
 def with_column_parallel(loss_fn: Callable, fn: Callable,
-                         covers: Callable[[str, dict], bool]) -> Callable:
+                         covers: Callable[[str, dict], bool],
+                         heads: Callable[[str], bool] = _no_heads
+                         ) -> Callable:
     """``loss_fn`` carrying the column-parallel form ``fn`` (the callable
     the round calls on one device and on a 1D mesh is ``loss_fn``
     itself)."""
     def loss(params, batch, rng):
         return loss_fn(params, batch, rng)
 
-    loss.column_parallel = ColumnParallel(fn, covers)
+    loss.column_parallel = ColumnParallel(fn, covers, heads)
     return loss
 
 

@@ -61,6 +61,8 @@ def check_file(path: Path) -> list[str]:
 
 
 def main(argv: list[str]) -> int:
+    """Check every run log named in ``argv`` against the schema; print each
+    problem and return 1 when any, 0 when clean (2 without arguments)."""
     if not argv:
         print(__doc__)
         return 2

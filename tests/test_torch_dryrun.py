@@ -335,8 +335,9 @@ def test_run_one_records(tmp_path, monkeypatch):
     mixtral's strategy-B train row (one layer, on the mesh's cells): the
     H100 terms from the record's own counts, each row's collective term
     from its recorded bytes, the dominant term, the memory analysis's
-    scope, and the saved JSON; the multi-pod strategy-B train row (the
-    global program) with a null collective term and its reason."""
+    scope, and the saved JSON; the multi-pod strategy-B train row (on
+    the pod mesh's cells) with its ring's payloads over "pod" in its
+    collective term."""
     from repro_torch.launch import mesh as LM
     monkeypatch.setattr(dryrun, "OUT_DIR", tmp_path)
     rec = dryrun.run_one("smollm-135m", "decode_32k", multi_pod=False,
@@ -347,7 +348,6 @@ def test_run_one_records(tmp_path, monkeypatch):
         256 * LM.PEAK_FLOPS_BF16)
     assert t["memory_s"] == rec["analytic_hbm_bytes_global"] / (
         256 * LM.HBM_BW)
-    assert rec["collective_null_reason"] is None
     assert rec["struct_coll_bytes_per_dev"] > 0
     assert t["collective_s"] == rec["struct_coll_bytes_per_dev"] / \
         LM.NVLINK_BW
@@ -359,7 +359,6 @@ def test_run_one_records(tmp_path, monkeypatch):
     b = dryrun.run_one("mixtral-8x22b", "train_4k", multi_pod=False,
                        save=False, cfg_overrides={"n_layers": 1})
     assert b["meta"]["strategy"] == "B" and b["meta"]["mixer"] == "dense"
-    assert b["collective_null_reason"] is None
     assert b["struct_coll_bytes_per_dev"] > 0
     assert b["roofline"]["collective_s"] == b["struct_coll_bytes_per_dev"] \
         / LM.NVLINK_BW
@@ -368,9 +367,10 @@ def test_run_one_records(tmp_path, monkeypatch):
     pods = dryrun.run_one("mixtral-8x22b", "train_4k", multi_pod=True,
                           save=False, cfg_overrides={"n_layers": 1})
     assert tuple(pods["meta"]["client_axes"]) == ("pod",)
-    assert pods["roofline"]["collective_s"] is None
-    assert "strategy B" in pods["collective_null_reason"]
-    assert "A21c" in pods["collective_null_reason"]
+    assert pods["meta"]["mixer"] == "ring" and pods["n_chips"] == 512
+    assert pods["struct_coll_by_kind"]["collective-permute"] > 0
+    assert pods["roofline"]["collective_s"] == \
+        pods["struct_coll_bytes_per_dev"] / LM.NVLINK_BW
     skip = dryrun.run_one("smollm-135m", "long_500k", multi_pod=False,
                           save=False)
     assert skip["skipped"].startswith("full-attention arch")

@@ -14,7 +14,7 @@ the CPU.
   program (``make_round_step`` with no mesh; for a MoE under B2 and B3
   with ``MOE_SHARD_MAP``'s grouping, one dispatch group a data shard).
 * Every registered family reduced on (2, 2) against the global program
-  (with its frontend embeddings; B2 not for the SSMs, which refuse it),
+  (with its frontend embeddings),
   two rounds of the two models above and one of the others, and every
   block that a cut does not tell apart bitwise across the rows and
   columns that hold it; a cut batch the data rows do not divide is
@@ -26,9 +26,12 @@ the CPU.
 * ``ServeMesh.row_cells`` of a dim cut over ("data", "model"): column
   c's blocks at positions d * mp + c, in data order; the MoE rows route
   their own tokens under B2 and B3 and the whole batch under B; the
-  refusals (a Mamba2 inner dim strided across its heads, the fused
-  round), and the layouts that keep the global program (a quantized
-  wire, the multi-pod mesh: ROADMAP A21c).
+  layouts that ran the global program or were refused before (a
+  quantized wire, the multi-pod mesh, B2 on Mamba2, the fused round on
+  one pod) build on the cells, and the refusals that remain (the fused
+  round on the pod mesh, a MoE's moe_d_ff the model axis does not
+  divide under a cut batch). ``tests/test_torch_pods.py`` holds those
+  layouts' rounds against the reference.
 """
 import contextlib
 import os
@@ -123,11 +126,9 @@ _REFERENCE = textwrap.dedent("""
 """)
 
 CASES = [(a, s) for a in ARCHS for s in STRATEGIES]
-# Every registered family on (2, 2) cells; B2 cuts the SSMs' inner dim
-# across the heads and is refused for them (test_refusals_...).
-B2_REFUSED = ("mamba2-780m", "zamba2-1.2b")
-FAMILY_CASES = [(a, s) for a in list_archs() for s in STRATEGIES
-                if not (s == "B2" and a in B2_REFUSED)]
+# Every registered family on (2, 2) cells (B2 cuts the SSMs' inner dim
+# over ("data", "model"), re-cut on head boundaries at the row's gather).
+FAMILY_CASES = [(a, s) for a in list_archs() for s in STRATEGIES]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -538,32 +539,45 @@ def test_moe_rows_route_their_own_tokens(monkeypatch):
 
 
 def test_refusals_and_the_global_program_of_a21c():
-    """B2 cuts Mamba2's inner dim over ("data", "model"), strided across
-    the heads its form cuts contiguously: refused. The fused round on
-    cells is refused. A quantized wire under B and the multi-pod mesh
-    keep the one global program (Built.mesh None)."""
+    """The layouts that ran the one global program (a quantized wire, the
+    multi-pod mesh) and those that were refused (B2 on Mamba2, the fused
+    round on one pod) now build on the mesh's own cells; what stays
+    refused: the fused round on the pod mesh (the reference's reason), an
+    MLP whose weights cut their hidden dim unalike, and a MoE whose
+    moe_d_ff the model axis does not divide under a cut batch."""
+    import dataclasses
     mesh = make_named_mesh((4, 2), device="cpu")
-    with pytest.raises(ValueError, match="A21c"):
-        B.build_train_step(_cfg("mamba2-780m"), mesh, InputShape(*SHAPE),
-                           strategy="B2")
-    fused = DFedAvgMConfig(eta=1e-3, theta=0.9, local_steps=2,
-                           fuse_round=True)
-    with pytest.raises(ValueError, match="A21c"):
-        B.build_train_step(_cfg("smollm-135m"), mesh, InputShape(*SHAPE),
-                           strategy="B", dfed=fused)
-    q8 = DFedAvgMConfig(eta=1e-3, theta=0.9, local_steps=2,
-                        quant=QuantConfig(bits=8))
-    built = B.build_train_step(_cfg("smollm-135m"), mesh,
-                               InputShape(*SHAPE), strategy="B3", dfed=q8)
-    assert built.mesh is None
+    for cfg, s, dfed in (
+            (_cfg("mamba2-780m"), "B2", None),
+            (_cfg("smollm-135m"), "B", DFedAvgMConfig(
+                eta=1e-3, theta=0.9, local_steps=2, fuse_round=True)),
+            (_cfg("smollm-135m"), "B3", DFedAvgMConfig(
+                eta=1e-3, theta=0.9, local_steps=2,
+                quant=QuantConfig(bits=8)))):
+        built = B.build_train_step(cfg, mesh, InputShape(*SHAPE),
+                                   strategy=s, dfed=dfed)
+        assert built.mesh is mesh and built.meta["mixer"] == "dense"
     pods = make_named_mesh((2, 2, 2), ("pod", "data", "model"),
                            device="meta")
     built = B.build_train_step(_cfg("mixtral-8x22b"), pods,
                                InputShape(*SHAPE))
-    assert built.mesh is None and built.meta["client_axes"] == ("pod",)
-    ok = B.build_train_step(_cfg("mamba2-780m"), mesh, InputShape(*SHAPE),
-                            strategy="B")
-    assert ok.mesh is mesh
+    assert built.mesh is pods and built.meta["client_axes"] == ("pod",)
+    assert built.meta["mixer"] == "ring"
+    fused = DFedAvgMConfig(eta=1e-3, theta=0.9, local_steps=2,
+                           fuse_round=True)
+    with pytest.raises(ValueError, match="model-sharded params"):
+        B.build_train_step(_cfg("smollm-135m"), pods, InputShape(*SHAPE),
+                           strategy="B", dfed=fused)
+    odd = dataclasses.replace(_cfg("mixtral-8x22b"), moe_d_ff=33)
+    with pytest.raises(ValueError, match="moe_d_ff=33"):
+        B.build_train_step(odd, mesh, InputShape(*SHAPE), strategy="B3")
+    axes = {"stages/0/mlp/wg": ("layers", "embed", "mlp"),
+            "stages/0/mlp/wd": ("layers", "mlp", "embed")}
+    unalike = {"stages/0/mlp/wg": P(None, None, None, ("data", "model")),
+               "stages/0/mlp/wd": P(None, None, "model", None)}
+    with pytest.raises(ValueError, match="unalike"):
+        B._check_cells_layout(_cfg("smollm-135m"), None, unalike, axes, 2,
+                              True)
 
 
 @pytest.mark.parametrize("arch,strategy", CASES)
