@@ -281,13 +281,27 @@ Phases (any failure exits non-zero):
    against the global program on cuda:0 and the 8-bit ring, each card's
    peak and the ring's transfers between cards timed alone; ``--only
    cards_pods`` runs that arm alone);
-21. print the kernel table (with the floor; B1-B3 with their full-width
+21. "crossing": the layouts the reference runs that the port once
+   refused (CROSS_*; ``--only crossing``): Mamba2-780M's widths at 2
+   layers, f32, mp 32 (its inner dim cut across its 48 heads): served
+   on (1, 32) against the one program (f32 within 1e-5 of the largest
+   logit, every token equal, the replicated state's 32 copies bitwise),
+   B2 and B3 on (2, 32) against the global program (losses within 1e-5,
+   leaves within 1e-5 of their largest value, a leaf zero at the start
+   within the gradient tolerance beside its one-ulp floor), the driver
+   at ``--model-parallel 32`` with 8 bits against the 1D mesh ("local
+   step: tensor_parallel"), the dense mix on the pods phase's (2, 2, 2)
+   cells fp32 and 8-bit, a MoE routed as one group over a cut batch on
+   (2, 4); every arm's counted round (a decode step for serving) equal
+   to ``meta``'s; B3 at a crossing cell bitwise and timed;
+22. print the kernel table (with the floor; B1-B3 with their full-width
    times, B1-B5 with their mesh launches, B2 and B5 at the mesh's
    extended table, a B3 bf16 row, the 2D rows: B1 tensor noise and B2
    at a cell, T2 at SmolLM-135M's largest leaf, ``bench.kernels``' B6,
-   B8 and B3 at 1M, B3 at a (data, model) cell, and B1 tensor noise
-   and B2 at a pod cell) as one JSON line, then the card again, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+   B8 and B3 at 1M, B3 at a (data, model) cell, B1 tensor noise and B2
+   at a pod cell, and B3 at a crossing cell) as one JSON line, then the
+   card again, then ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 It needs one CUDA card and exits non-zero without one.
 """
@@ -8266,17 +8280,23 @@ def replicas_bitwise(mesh, specs: dict, cells) -> int:
     return checked
 
 
-def leaf_worst(got: dict, want: dict) -> tuple[float, str]:
-    """The largest |got - want| of a leaf over its largest |want|, and
-    that leaf (each compared on the CPU)."""
-    worst, at = 0.0, ""
+def leaf_rels(got: dict, want: dict) -> dict:
+    """Each leaf's largest |got - want| over its largest |want| (each
+    compared on the CPU)."""
+    out = {}
     for n, w in want.items():
         w = w.to("cpu", torch.float32)
         g = got[n].to("cpu", torch.float32)
-        d = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-        if d > worst:
-            worst, at = d, n
-    return worst, at
+        out[n] = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                  1e-30)
+    return out
+
+
+def leaf_worst(got: dict, want: dict) -> tuple[float, str]:
+    """The largest of :func:`leaf_rels` and that leaf."""
+    rels = leaf_rels(got, want)
+    at = max(rels, key=rels.get, default="")
+    return (rels[at] if at else 0.0), at
 
 
 def global_rounds(cfg, dfed, params: dict, batches: dict, rounds: int,
@@ -8334,26 +8354,34 @@ def strategy_rounds(built, params: dict, batches: dict, rounds: int,
 
 
 def strategy_gates(name: str, run: dict, want_losses: list,
-                   want_params: dict, built) -> dict:
-    """(a)'s and (b)'s gates: each round's loss within STRAT_LOSS_RTOL
-    of the global program's, every leaf within STRAT_LEAF_RTOL of its
-    largest |value|, every replicated block bitwise."""
+                   want_params: dict, built,
+                   loss_rtol: float = STRAT_LOSS_RTOL,
+                   leaf_rtol: dict | None = None) -> dict:
+    """(a)'s and (b)'s gates: each round's loss within ``loss_rtol`` of
+    the global program's, every leaf within STRAT_LEAF_RTOL of its
+    largest |value| (``leaf_rtol``: another bound for the leaves it
+    names), every replicated block bitwise."""
     specs = built.specs[0][0].params
     rel = [abs(a - b) / abs(b) for a, b in zip(run["loss"], want_losses)]
     if not all(math.isfinite(v) for v in run["loss"]) or max(rel) > \
-            STRAT_LOSS_RTOL:
+            loss_rtol:
         raise AssertionError(f"{name}: losses {run['loss']} against "
                              f"{want_losses} (rel {rel})")
     got = built.mesh.gather(run["state"].params, specs)
-    worst, at = leaf_worst(got, want_params)
+    rels = leaf_rels(got, want_params)
     del got
-    if worst > STRAT_LEAF_RTOL:
-        raise AssertionError(f"{name}: {at} {worst} of its largest value "
-                             f"> {STRAT_LEAF_RTOL}")
+    bounds = {n: (leaf_rtol or {}).get(n, STRAT_LEAF_RTOL) for n in rels}
+    over = {n: v for n, v in rels.items() if v > bounds[n]}
+    if over:
+        raise AssertionError(f"{name}: leaves over their bound (of their "
+                             f"largest value): {over} (bounds "
+                             f"{ {n: bounds[n] for n in over} })")
+    at = max(rels, key=rels.get)
     copies = replicas_bitwise(built.mesh, specs, run["state"].params)
     return {"loss": run["loss"], "global_loss": want_losses,
-            "loss_rel_diff": rel, "leaf_rel_diff_max": worst,
-            "leaf_worst": at, "replicated_copies_bitwise": copies,
+            "loss_rel_diff": rel, "leaf_rel_diff_max": rels[at],
+            "leaf_worst": at, "leaf_rel_diff": rels,
+            "replicated_copies_bitwise": copies,
             "round_ms": run["round_ms"], "metrics": run["metrics"]}
 
 
@@ -8453,12 +8481,15 @@ def dryrun_strategies(dev) -> dict:
             "mesh": list(DRYRUN_MESH), "shape": list(DRYRUN_TRAIN)}, block
 
 
-def strategies_kernel_check(dev, flush, block: dict) -> dict:
-    """B3 at a (data, model) cell: one local step's update over cell
-    (0, 0)'s blocks of SmolLM-135M's two f32 clients under strategy B
-    (the (4, 2) cells of (a)), one launch, bitwise against the plain
-    step leaf by leaf; timed against the plain step and
-    ``torch._fused_sgd_`` over the same blocks."""
+def strategies_kernel_check(dev, flush, block: dict,
+                            where: str = "cell (0, 0) of (4, 2) under B",
+                            tag: str = "strategies_kernel") -> dict:
+    """B3 at a (data, model) cell: one local step's update over a cell's
+    blocks of two f32 clients (``where``: by default cell (0, 0) of (a)'s
+    (4, 2) cells of SmolLM-135M under strategy B), one launch, bitwise
+    against the plain step leaf by leaf; timed against the plain step
+    and ``torch._fused_sgd_`` over the same blocks; printed under
+    ``tag``."""
     from repro_torch.kernels import momentum_update, ref
 
     gen = torch.Generator(device=dev).manual_seed(43)
@@ -8492,13 +8523,12 @@ def strategies_kernel_check(dev, flush, block: dict) -> dict:
         flush)
     r["bound_ms"], r["bound_by"] = bound(5 * 4 * n_el, 3 * n_el)
     r["bound_bytes"] = 5 * 4 * n_el
-    r["shape"] = (f"cell (0, 0) of (4, 2) under B: {len(y)} leaves x 2 "
-                  f"clients ({n_el} f32)")
+    r["shape"] = f"{where}: {len(y)} leaves x 2 clients ({n_el} f32)"
     r["checks"].append(f"{len(y)} leaves, {n_el} values in one launch: "
                        "bitwise")
     del params, bufs, grads, v, g
     torch.cuda.empty_cache()
-    print(json.dumps({"strategies_kernel": r}), flush=True)
+    print(json.dumps({tag: r}), flush=True)
     return r
 
 
@@ -8564,13 +8594,16 @@ def _pods_cfg():
                                n_layers=PODS_LAYERS)
 
 
-def _pods_dfed(mesh_name: str, wire: str, fused: bool, K: int = 2):
+def _pods_dfed(mesh_name: str, wire: str, fused: bool, K: int = 2,
+               mixer: str | None = None):
+    """The pods phase's config: the ring over "pod" on (2, 2, 2), the
+    dense mix on (4, 2), or ``mixer`` where given."""
     from repro_torch.core import DFedAvgMConfig, QuantConfig
     return DFedAvgMConfig(
         eta=1e-3, theta=0.9, local_steps=K,
         quant=QuantConfig(bits=8) if wire == "q8" else None,
         fuse_round=fused,
-        mixer_impl="ring" if mesh_name == "2x2x2" else "dense")
+        mixer_impl=mixer or ("ring" if mesh_name == "2x2x2" else "dense"))
 
 
 def _scale_spy():
@@ -8714,7 +8747,7 @@ def pods_mix_gate(dev, mesh, specs: dict, params: dict, dense: bool
     per_pod = len(xs) // pods
     for i, sc in enumerate(sc_cells):
         for n in names:
-            want_s = (sc_glob[n] if dense else
+            want_s = (sc_glob[n] if pods == 1 else
                       sc_glob[n][i // per_pod:i // per_pod + 1])
             if not torch.equal(sc[n].to(want_s.device), want_s):
                 raise AssertionError(f"pods mix gate: cell {i} {n}: scale "
@@ -8731,11 +8764,14 @@ def pods_mix_gate(dev, mesh, specs: dict, params: dict, dense: bool
 
 
 def pods_arm(dev, cfg, mesh_name: str, strategy: str, wire: str,
-             fused: bool, params: dict, want: tuple) -> dict:
+             fused: bool, params: dict, want: tuple,
+             mixer: str | None = None, steps: float = 1.0) -> dict:
     """One arm of the pods phase: PODS_ROUNDS rounds of the built step on
     the mesh's cells of cuda:0 against the global program's ``want``
-    (losses, last params); the B3 / B1 / B2 launches; one more round
-    counted, card against ``meta``."""
+    (losses, last params; 8 bits: every leaf within ``steps`` quantizer
+    steps); the B3 / B1 / B2 launches; one more round counted, card
+    against ``meta``. ``mixer``: as :func:`_pods_dfed`'s (the crossing
+    phase's dense mix on the pods)."""
     from repro_torch.configs.base import InputShape
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.build import build_train_step
@@ -8745,10 +8781,13 @@ def pods_arm(dev, cfg, mesh_name: str, strategy: str, wire: str,
     shape, axes = (PODS_MESH if mesh_name == "2x2x2"
                    else DRYRUN_MESH)
     mesh = make_named_mesh(shape, axes, device=dev)
-    dfed = _pods_dfed(mesh_name, wire, fused)
+    dfed = _pods_dfed(mesh_name, wire, fused, mixer=mixer)
     built = build_train_step(cfg, mesh, InputShape(*DRYRUN_TRAIN),
                              strategy=strategy, dfed=dfed)
-    name = f"pods {strategy} {mesh_name} {wire}{' fused' if fused else ''}"
+    name = (f"pods {strategy} {mesh_name} {wire}{' fused' if fused else ''}"
+            f"{' ' + mixer if mixer else ''}")
+    if built.meta["mixer"] != dfed.mixer_impl:
+        raise AssertionError(f"{name}: meta mixer {built.meta['mixer']}")
     if built.mesh is not mesh:
         raise AssertionError(f"{name}: Built.mesh {built.mesh!r}")
     meta = built.meta
@@ -8764,7 +8803,7 @@ def pods_arm(dev, cfg, mesh_name: str, strategy: str, wire: str,
     cells_n = int(np.prod(shape))
     K = meta["K"]
     want_b3 = cells_n * (K - 2 if fused else K) * PODS_ROUNDS
-    ring_q8 = mesh_name == "2x2x2" and wire == "q8"
+    ring_q8 = mesh_name == "2x2x2" and wire == "q8" and mixer != "dense"
     want_wire = cells_n * PODS_ROUNDS if ring_q8 else 0
     got = {k: counts[k] for k in ("momentum_sgd", "quantize_pack_buffer",
                                   "dequant_mix_buffer")}
@@ -8787,7 +8826,7 @@ def pods_arm(dev, cfg, mesh_name: str, strategy: str, wire: str,
         for n, w in want_params.items():
             err = float((cells[n].to("cpu") - w).abs().max())
             over = max(over, err / seen[n])
-        if over > 1.0:
+        if over > steps:
             raise AssertionError(f"{name}: a leaf {over} quantizer steps "
                                  "from the global program's")
         rec = {"loss": run["loss"], "global_loss": want_loss,
@@ -9065,6 +9104,442 @@ def cards_pods(dev) -> dict:
     return out
 
 
+# The "crossing" phase: the layouts the JAX package runs and the port
+# once refused. Mamba2-780M at its registered widths (d 1 536, inner
+# 3 072, 48 heads of 64, state 128), CROSS_LAYERS of its 48 layers, f32,
+# on cuda:0 cells with CROSS_MP columns: the smallest model axis that
+# divides its inner dim (96 channels a column) but not its 48 heads, so
+# every column's channels cross a head boundary (sub-heads of 32).
+# (a) serving on (1, 32), vocab 50 280: a prefill of CROSS_SERVE_SHAPE's
+# prompts then its decode tokens, teacher-forced against the one
+# program; (b) B2 and B3 on (2, 32), K 2, batch 8 x seq 128 (DRYRUN_TRAIN)
+# against the global program; (c) the driver under strategy A at
+# --model-parallel 32, 8 bits, against the 1D mesh of its 2 shards. The
+# train arms pad the vocabulary to CROSS_TRAIN_VOCAB, a multiple of 32,
+# so the model axis cuts the tied table: replicated, its f32 copy on
+# every cell of two clients would take 40 GB of the card before the
+# step's buffers. (d) the dense mix on the pods phase's (2, 2, 2) cells
+# (SmolLM-135M, PODS_LAYERS layers): the 8-bit mix given the same z, and
+# B3 fp32 and 8-bit rounds against the global program. (e) a MoE that
+# the reference routes as one group over a cut batch (CROSS_MOE: a
+# Qwen3-MoE-30B-A3B block at widths one card holds, moe_d_ff 382, which
+# 4 does not divide) under B3 on (2, 4) against the global program.
+CROSS_ARCH = "mamba2-780m"
+CROSS_LAYERS = 2
+CROSS_MP = 32
+CROSS_TRAIN_VOCAB = 50304
+CROSS_SERVE_MESH = ((1, CROSS_MP), ("data", "model"))
+CROSS_SERVE_SHAPE = (4, 64, 17)          # batch, prompt, tokens generated
+CROSS_TRAIN_MESH = ((2, CROSS_MP), ("data", "model"))
+CROSS_ROUNDS = 1
+CROSS_RTOL = 1e-5                        # losses, leaves, logits
+# A leaf that is zero everywhere at the round's start (Mamba2's A_log and
+# dt_bias, as the reference inits them) holds only the round's gradient
+# steps, so it is held at the gradient tolerance of
+# tests/test_torch_models.py, beside the global program's own move under
+# a one-ulp nudge of its input (its floor, :func:`nudged_floor`).
+CROSS_GRAD_RTOL = 1e-4
+CROSS_DRIVER_ARGV = ["--bits", "8", "--clients", "4",
+                     "--clients-per-shard", "2", "--local-steps", "2",
+                     "--batch", "2", "--seq", "128"]
+CROSS_DRIVER_ARMS = {"1d": (1, "whole"),
+                     "tp32": (CROSS_MP, "tensor_parallel")}
+CROSS_MOE = dict(n_layers=2, d_model=1024, n_heads=16, n_kv_heads=4,
+                 head_dim=64, n_experts=32, moe_d_ff=382, vocab_size=32768,
+                 dtype="float32", remat=True)
+CROSS_MOE_MESH = ((2, 4), ("data", "model"))
+# Predicted before the first chip run (PERF.md §6).
+CROSS_PREDICTION = {
+    "serve_token_ms": [30, 120], "serve_peak_gib": [10, 14],
+    "decode_coll_by_kind_meta": {"all-gather": 392716928.0,
+                                 "all-reduce": 3049408.0},
+    "train_round_ms": [1500, 6000], "train_peak_gib": [4, 10],
+    "train_coll_bytes_meta": {"B2": 13317869568.0, "B3": 12864393216.0},
+    "driver_round_ms": [1500, 6000], "driver_peak_gib": [3, 8],
+    "driver_coll_bytes_meta": 18403778560.0,
+    "pods_dense_round_ms": [800, 4000], "moe_round_ms": [300, 2000],
+    "loss_rel_diff": [1e-8, 1e-5], "b3_cell_us": [50, 80]}
+
+
+def _cross_cfg(vocab: int | None = None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(CROSS_ARCH), n_layers=CROSS_LAYERS,
+                              dtype="float32")
+    return cfg if vocab is None else dataclasses.replace(cfg,
+                                                         vocab_size=vocab)
+
+
+def _counted_equal(name: str, card, meta) -> dict:
+    """A round (or step) counted on the card against the same build on
+    ``meta``: the collectives and kernel records equal."""
+    for f in ("coll_bytes", "coll_by_kind", "kernels"):
+        if getattr(card, f) != getattr(meta, f):
+            raise AssertionError(f"{name} {f}: card {getattr(card, f)} != "
+                                 f"meta {getattr(meta, f)}")
+    return {"coll_bytes": card.coll_bytes, "coll_by_kind": card.coll_by_kind,
+            "card_equals_meta": True}
+
+
+def crossing_serve(dev) -> dict:
+    """(a) The crossing's serving on (1, 32) cells of ``dev``: the built
+    prefill, the filling prefill and the decode tokens teacher-forced
+    against the one program (:func:`serve_gate`: within CROSS_RTOL of
+    its largest logit, every greedy token equal); the replicated ssm
+    state's 32 copies bitwise alike; one more decode step counted on the
+    card against ``meta``; the prefill and a decode token timed (host
+    clock to synchronize, median), the peak."""
+    from repro_torch import prng
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.build import build_decode_step
+    from repro_torch.launch.cost_model import structural_costs
+    from repro_torch.launch.mesh import make_named_mesh
+    from repro_torch.models import model as TM
+
+    cfg = _cross_cfg()
+    b, lp, gen_n = CROSS_SERVE_SHAPE
+    s_alloc = lp + gen_n
+    mesh = make_named_mesh(*CROSS_SERVE_MESH, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    with torch.no_grad():
+        params = TM.init_model(prng.PRNGKey(50, device=dev), cfg, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (b, lp), generator=gen,
+                                device=dev, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = serve_compare(cfg, mesh, params, prompts, gen_n, s_alloc)
+    rec = serve_gate("crossing", r, True)
+    dec, pcells, cells = r["built"], r["pcells"], r["cells"]
+    cspec = dec.specs[0][3][0]
+    if "model" in cspec["ssm"].names(2) or \
+            "model" not in cspec["conv_x"].names(3):
+        raise AssertionError(f"crossing serve: cache specs {cspec}")
+    copies = [c[0]["ssm"] for c in cells]
+    if not all(torch.equal(c, copies[0]) for c in copies[1:]):
+        raise AssertionError("crossing serve: the ssm state's copies "
+                             "differ across the columns")
+    tok = r["tokens"][:, -1].to(torch.int32)
+    pos = torch.tensor(s_alloc - 1, dtype=torch.int32, device=dev)
+    card = structural_costs(dec.fn, pcells, tok, pos, cells)
+    on_meta = build_decode_step(cfg, make_named_mesh(*CROSS_SERVE_MESH,
+                                                     device="meta"),
+                                InputShape("d", s_alloc, b, "decode"))
+    rec.update(_counted_equal("crossing serve", card, structural_costs(
+        on_meta.fn, *on_meta.args)))
+    pre = r["prefill_built"]
+    ms = {"prefill": [], "token": []}
+    with torch.no_grad():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pre.fn(pcells, prompts)
+            torch.cuda.synchronize()
+            ms["prefill"].append((time.perf_counter() - t0) * 1e3)
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.fn(pcells, tok, pos, cells)
+            torch.cuda.synchronize()
+            ms["token"].append((time.perf_counter() - t0) * 1e3)
+    rec.update({"prefill_rel": r["prefill_rel"], "step_rel": r["step_rel"],
+                "tokens": r["tokens"].tolist(), "ssm_copies_bitwise":
+                len(copies), "prefill_ms": statistics.median(ms["prefill"]),
+                "token_ms": statistics.median(ms["token"]),
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                "shape": list(CROSS_SERVE_SHAPE),
+                "mesh": list(CROSS_SERVE_MESH)})
+    print(json.dumps({"crossing_serve": rec}), flush=True)
+    del r, dec, pcells, cells, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def zero_start(params: dict) -> set:
+    """The leaves that are zero everywhere (CROSS_GRAD_RTOL's)."""
+    return {n for n, t in params.items() if not bool(t.any())}
+
+
+def nudged_floor(cfg, dfed, params: dict, batches: dict, want: tuple,
+                 dev) -> dict:
+    """The global program's own move, leaf by leaf over its largest
+    |value|, when the embedding rows of every client's first tokens are
+    nudged by one f32 ulp in their first element: the floor under which
+    two f32 programs cannot be told apart."""
+    table = params["embed/table"].clone()
+    first = batches["tokens"][:, 0, :, 0].long()           # [m, b]
+    for c in range(first.shape[0]):
+        rows = first[c].unique()
+        table[c, rows, 0] = table[c, rows, 0] * (1 + 2 ** -23)
+    _, moved = global_rounds(cfg, dfed, {**params, "embed/table": table},
+                             batches, CROSS_ROUNDS, dev)
+    return leaf_rels(moved, want[1])
+
+
+def crossing_train_arm(dev, cfg, mesh_spec, strategy: str, params: dict,
+                       batches: dict, want: tuple, name: str,
+                       floor: dict | None = None) -> tuple[dict, dict]:
+    """One train arm on ``mesh_spec``'s cells of ``dev``: CROSS_ROUNDS
+    rounds against the global program's ``want`` (:func:`strategy_gates`
+    at CROSS_RTOL, the zero-start leaves at CROSS_GRAD_RTOL, reported
+    beside ``floor``), B3 once a local step a cell, one more round
+    counted on the card against the ``meta`` build, the peak. Returns
+    its record and cell (0, 0)'s blocks."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.build import build_train_step
+    from repro_torch.launch.cost_model import structural_costs
+    from repro_torch.launch.mesh import make_named_mesh
+
+    shape = InputShape(*DRYRUN_TRAIN)
+    mesh = make_named_mesh(*mesh_spec, device=dev)
+    built = build_train_step(cfg, mesh, shape, strategy=strategy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    run = strategy_rounds(built, params, batches, CROSS_ROUNDS, dev)
+    counts = launch_counts()
+    cells_n = int(np.prod(mesh_spec[0]))
+    if counts["momentum_sgd"] != cells_n * built.meta["K"] * CROSS_ROUNDS:
+        raise AssertionError(f"{name}: {counts['momentum_sgd']} B3 "
+                             f"launches, not {cells_n} a local step")
+    zeros = zero_start(params)
+    rec = strategy_gates(name, run, *want, built, loss_rtol=CROSS_RTOL,
+                         leaf_rtol={n: CROSS_GRAD_RTOL for n in zeros})
+    rec["zero_start"] = {n: {"rel": rec["leaf_rel_diff"][n],
+                             "floor": (floor or {}).get(n)}
+                         for n in sorted(zeros)}
+    rec["leaf_rel_diff_max_nonzero_start"] = max(
+        (v for n, v in rec["leaf_rel_diff"].items() if n not in zeros),
+        default=0.0)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    rec["launches"] = {k: v for k, v in counts.items() if v}
+    state = run["state"]
+    card = structural_costs(built.fn, state, batches)
+    torch.cuda.synchronize()
+    on_meta = build_train_step(cfg, make_named_mesh(*mesh_spec,
+                                                    device="meta"),
+                               shape, strategy=strategy)
+    rec.update(_counted_equal(name, card, structural_costs(
+        on_meta.fn, *on_meta.args)))
+    rec["round_ms_median"] = statistics.median(run["round_ms"])
+    block = {n: t.clone() for n, t in state.params[0].items()}
+    print(json.dumps({"crossing_arm": name, **{
+        k: rec[k] for k in ("loss_rel_diff", "leaf_rel_diff_max",
+                            "leaf_worst",
+                            "leaf_rel_diff_max_nonzero_start", "zero_start",
+                            "replicated_copies_bitwise", "launches",
+                            "round_ms", "peak_gib", "coll_by_kind")}}),
+        flush=True)
+    del run, state, built, on_meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, block
+
+
+def crossing_train(dev) -> tuple[dict, dict]:
+    """(b) B2 and B3 on (2, 32) cells of the crossing config (the train
+    vocabulary) against CROSS_ROUNDS rounds of the global program on
+    ``dev``; returns the records and a B3 cell's blocks."""
+    from repro_torch.core import DFedAvgMConfig
+
+    cfg = _cross_cfg(CROSS_TRAIN_VOCAB)
+    params = _stacked_init(cfg, 2, dev, seed=51)
+    meta = {"m": 2, "K": 2, "local_bs": DRYRUN_TRAIN[2] // 2,
+            "seq": DRYRUN_TRAIN[1]}
+    batches = _token_batches(cfg, meta, dev, seed=52)
+    dfed = DFedAvgMConfig(eta=1e-3, theta=0.9, local_steps=2,
+                          mixer_impl="dense")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    want = global_rounds(cfg, dfed, params, batches, CROSS_ROUNDS, dev)
+    out = {"global_s": time.perf_counter() - t0,
+           "global_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    floor = nudged_floor(cfg, dfed, params, batches, want, dev)
+    out["floor_zero_start"] = {n: floor[n] for n in zero_start(params)}
+    block = None
+    for s in ("B2", "B3"):
+        out[s], b = crossing_train_arm(dev, cfg, CROSS_TRAIN_MESH, s, params,
+                                       batches, want, f"crossing {s}",
+                                       floor=floor)
+        block = b if s == "B3" else block
+    del params, batches, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, block
+
+
+def crossing_driver(dev) -> dict:
+    """(c) The crossing config (the train vocabulary) through the driver
+    under strategy A, 8 bits (CROSS_DRIVER_ARGV), on the 1D mesh of 2
+    shards and on (2, 32) cells of ``dev`` (:func:`mesh2d_driver_arm`,
+    :func:`driver_gates`: "local step: tensor_parallel", B1 = B2 = 64 a
+    round, B3 = 64 x K a round, losses within CROSS_RTOL of the 1D
+    run's); then one round of the same step (``build_train_step`` under
+    strategy A on (2, 32), the driver's wire) counted on the card against
+    ``meta``."""
+    from repro_torch import prng
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import DFedAvgMConfig, QuantConfig, RoundState
+    from repro_torch.launch.build import build_train_step
+    from repro_torch.launch.cost_model import structural_costs
+    from repro_torch.launch.mesh import make_named_mesh
+
+    cfg = _cross_cfg(CROSS_TRAIN_VOCAB)
+    PROD_OUT.mkdir(parents=True, exist_ok=True)
+    runs = {arm: [mesh2d_driver_arm(dev, cfg, arm, arms=CROSS_DRIVER_ARMS,
+                                    argv=CROSS_DRIVER_ARGV, tag="crossing_")]
+            for arm in CROSS_DRIVER_ARMS}
+    gates = driver_gates("crossing driver", runs, CROSS_DRIVER_ARMS,
+                         CROSS_RTOL)
+    two = runs["tp32"][0]
+    line = next(m for m in two["info"] if m.startswith("local step:"))
+    rec = {"local_step_line": line, "loss": {k: v[0]["loss"]
+                                             for k, v in runs.items()},
+           "loss_rel_diff_max": gates["loss_rel_diff_max"],
+           "round_ms": {k: v[0]["round_ms"] for k, v in runs.items()},
+           "peak_gib": {k: v[0]["peak_gib"] for k, v in runs.items()},
+           "launches": {k: {n: c for n, c in v[0]["launches"].items() if c}
+                        for k, v in runs.items()},
+           "cut_leaves": two["cut_leaves"],
+           "replicated_leaves": two["replicated_leaves"]}
+    dfed = DFedAvgMConfig(eta=1e-3, theta=0.9, local_steps=2,
+                          quant=QuantConfig(bits=8), mixer_impl="ring")
+    shape = InputShape(*DRYRUN_TRAIN)
+    built = build_train_step(cfg, make_named_mesh(*CROSS_TRAIN_MESH,
+                                                  device=dev),
+                             shape, strategy="A", dfed=dfed)
+    if built.fn.step.local_step != "tensor_parallel":
+        raise AssertionError(f"crossing driver: strategy A's step is "
+                             f"{built.fn.step.local_step}")
+    params = _stacked_init(cfg, built.meta["m"], dev, seed=53)
+    batches = _token_batches(cfg, built.meta, dev, seed=54)
+    card = structural_costs(built.fn, RoundState(
+        params=params, rng=prng.PRNGKey(1, device=dev), round=0), batches)
+    torch.cuda.synchronize()
+    on_meta = build_train_step(cfg, make_named_mesh(*CROSS_TRAIN_MESH,
+                                                    device="meta"),
+                               shape, strategy="A", dfed=dfed)
+    rec["counted"] = _counted_equal("crossing strategy A", card,
+                                    structural_costs(on_meta.fn,
+                                                     *on_meta.args))
+    print(json.dumps({"crossing_driver": rec}), flush=True)
+    del params, batches, built, on_meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def crossing_pods(dev) -> dict:
+    """(d) The dense mix on the pods phase's (2, 2, 2) cells: the 8-bit
+    lemma5 mix given the same z under B2's specs
+    (:func:`pods_mix_gate`: dequantized deltas and scales bitwise the
+    global program's), then B3 with the fp32 and the 8-bit dense mix,
+    PODS_ROUNDS rounds each against the global program
+    (:func:`pods_arm`: no B1 / B2 launch, a round counted on the card
+    against ``meta``; 8 bits: every leaf within one quantizer step a
+    round, since a pod's lone lane trains apart from the global
+    program's pair by ulps and a rounding that flips in each round moves
+    a value by up to a step)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.build import build_train_step
+    from repro_torch.launch.mesh import make_named_mesh
+
+    cfg = _pods_cfg()
+    params = _stacked_init(cfg, 2, dev, seed=40)
+    mesh = make_named_mesh(*PODS_MESH, device=dev)
+    dense = _pods_dfed("2x2x2", "q8", False, mixer="dense")
+    specs = build_train_step(cfg, mesh, InputShape(*DRYRUN_TRAIN),
+                             strategy="B2", dfed=dense).specs[0][0].params
+    out = {"mix": pods_mix_gate(dev, mesh, specs, params, True)}
+    print(json.dumps({"crossing_pods_mix": out["mix"]}), flush=True)
+    meta = {"m": 2, "K": 2, "local_bs": DRYRUN_TRAIN[2] // 2,
+            "seq": DRYRUN_TRAIN[1]}
+    batches = _token_batches(cfg, meta, dev, seed=41)
+    for wire in ("fp32", "q8"):
+        want = global_rounds(cfg, _pods_dfed("2x2x2", wire, False,
+                                             mixer="dense"),
+                             params, batches, PODS_ROUNDS, dev)
+        out[wire], _ = pods_arm(dev, cfg, "2x2x2", "B3", wire, False,
+                                params, want, mixer="dense",
+                                steps=PODS_ROUNDS)
+        out[wire]["meta_mixer"] = "dense"
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def crossing_moe(dev) -> dict:
+    """(e) CROSS_MOE (its moe_d_ff not divided by the model axis) under
+    B3 on (2, 4) cells of ``dev``, the batch cut over "data": the rows
+    route as one group a client; CROSS_ROUNDS rounds against the global
+    program (the whole batch one group; :func:`crossing_train_arm`)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import DFedAvgMConfig
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), **CROSS_MOE)
+    if cfg.moe_d_ff % CROSS_MOE_MESH[0][1] == 0:
+        raise AssertionError("crossing moe: the model axis divides moe_d_ff")
+    params = _stacked_init(cfg, 2, dev, seed=55)
+    meta = {"m": 2, "K": 2, "local_bs": DRYRUN_TRAIN[2] // 2,
+            "seq": DRYRUN_TRAIN[1]}
+    batches = _token_batches(cfg, meta, dev, seed=56)
+    dfed = DFedAvgMConfig(eta=1e-3, theta=0.9, local_steps=2,
+                          mixer_impl="dense")
+    want = global_rounds(cfg, dfed, params, batches, CROSS_ROUNDS, dev)
+    floor = nudged_floor(cfg, dfed, params, batches, want, dev)
+    rec, _ = crossing_train_arm(dev, cfg, CROSS_MOE_MESH, "B3", params,
+                                batches, want, "crossing moe one group",
+                                floor=floor)
+    rec["cuts"] = dict(CROSS_MOE)
+    del params, batches, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def crossing_phase(dev, flush=None) -> dict:
+    """Phase "crossing" (``--only crossing``; in the full run after the
+    pods phase): (a) :func:`crossing_serve`, (b) :func:`crossing_train`
+    and B3 at a crossing cell (:func:`strategies_kernel_check` on a
+    (2, 32) B3 cell's blocks), (c) :func:`crossing_driver`, (d)
+    :func:`crossing_pods`, (e) :func:`crossing_moe`."""
+    if flush is None:
+        flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    print(json.dumps({"crossing_prediction": CROSS_PREDICTION}), flush=True)
+    out = {"serve": crossing_serve(dev)}
+    out["train"], block = crossing_train(dev)
+    out["kernel"] = strategies_kernel_check(
+        dev, flush, block, where=f"cell (0, 0) of (2, 32) under B3, "
+        f"{CROSS_ARCH} at {CROSS_LAYERS} layers", tag="crossing_kernel")
+    del block
+    out["driver"] = crossing_driver(dev)
+    out["pods"] = crossing_pods(dev)
+    out["moe"] = crossing_moe(dev)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"crossing": {
+        "serve": {k: out["serve"][k] for k in ("worst_rel", "token_ms",
+                                                "prefill_ms", "peak_gib")},
+        "train": {s: {k: out["train"][s][k] for k in (
+            "loss_rel_diff", "leaf_rel_diff_max", "round_ms_median",
+            "peak_gib")} for s in ("B2", "B3")},
+        "driver": {k: out["driver"][k] for k in (
+            "local_step_line", "loss_rel_diff_max", "round_ms",
+            "peak_gib")},
+        "pods": {w: {k: out["pods"][w].get(k) for k in (
+            "loss_rel_diff", "leaf_rel_diff_max", "leaf_err_over_step_max",
+            "round_ms_median")} for w in ("fp32", "q8")},
+        "moe": {k: out["moe"][k] for k in ("loss_rel_diff",
+                                           "leaf_rel_diff_max",
+                                           "round_ms_median", "peak_gib")},
+        "phase_s": out["phase_s"]}}), flush=True)
+    return out
+
+
 def dryrun_phase(dev, flush=None, rec=None, one=None) -> dict:
     """The counting tools and the build layer on the card: (a)
     :func:`dryrun_counter`, (b) :func:`dryrun_built`, the strategies' train
@@ -9093,7 +9568,8 @@ ONLY = {"pool": pool_phase, "telemetry": telemetry_phase,
         "bench_kernels": bench_kernels_phase, "wire": wire_phase,
         "dryrun": dryrun_phase, "strategies": strategies_phase,
         "cards_serve": cards_serve, "cards_strategies": cards_strategies,
-        "pods": pods_phase, "cards_pods": cards_pods}
+        "pods": pods_phase, "cards_pods": cards_pods,
+        "crossing": crossing_phase}
 
 
 def main() -> int:
@@ -9183,6 +9659,7 @@ def main() -> int:
     wire = wire_phase(dev)
     dry = dryrun_phase(dev, flush, rec, one)
     pods = pods_phase(dev, flush)
+    cross = crossing_phase(dev, flush)
     fig8 = [r for r in rows if r["name"].startswith("fig8/")]
     counts["fig8"] = {k: sum(r["eager_launches"][k] for r in fig8)
                       for k in KERNEL_SOURCES}
@@ -9301,6 +9778,20 @@ def main() -> int:
                           "max_abs_err", "ms", "plain_ms", "bound_ms",
                           "bound_by", "call_ms", "max_ulp", "shape",
                           "clean_ms", "host_ms", "plain_call_ms")}})
+    # B3 at a crossing cell (the crossing phase): its launches the B3
+    # arm's round on the (2, 32) cells.
+    r = cross["kernel"]
+    table.append({"name": "momentum_sgd_crossing_cell", "route": "cuda",
+                  "source": KERNEL_SOURCES["momentum_sgd"][0],
+                  "replaces": KERNEL_SOURCES["momentum_sgd"][1],
+                  "launches": cross["train"]["B3"]["launches"][
+                      "momentum_sgd"],
+                  "path": "crossing",
+                  **{f: r.get(f) for f in (
+                      "max_abs_err", "ms", "plain_ms", "bound_ms",
+                      "bound_by", "library_ms", "call_ms", "max_ulp",
+                      "shape", "clean_ms", "host_ms", "plain_call_ms",
+                      "library_clean_ms")}})
     b3 = prod["kernels"]["momentum_sgd_bf16"]
     # B3 on bf16 leaves: the same kernel source, its bf16 instantiation;
     # its launches are the 8-bit full-width arm's (every leaf bf16).
@@ -9435,7 +9926,16 @@ def main() -> int:
                               "loss_rel_diff", "leaf_rel_diff_max",
                               "leaf_err_over_step_max", "round_ms_median")}
                               for k, v in pods["arms"].items()},
-                          "mix": pods["mix"], "phase_s": pods["phase_s"]}}))
+                          "mix": pods["mix"], "phase_s": pods["phase_s"]},
+                      "crossing": {
+                          "serve_worst_rel": cross["serve"]["worst_rel"],
+                          "train_loss_rel_diff": {
+                              s: cross["train"][s]["loss_rel_diff"]
+                              for s in ("B2", "B3")},
+                          "driver_line": cross["driver"]["local_step_line"],
+                          "moe_loss_rel_diff": cross["moe"][
+                              "loss_rel_diff"],
+                          "phase_s": cross["phase_s"]}}))
     print(card)
     print(json.dumps({"kernels": table, "floor_ms": floor["ms"],
                       "floor_clean_ms": floor["clean_ms"]}))

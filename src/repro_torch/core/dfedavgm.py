@@ -394,10 +394,10 @@ def make_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
       and ``consensus_dist`` and ``local_drift`` meet as partial sums
       over the cells. Row- and column-parallel sums change float order,
       so the round is within rounding of the 1D mesh's, not bitwise.
-    * ``"joined"`` for any other loss (an opaque callable, or a cut the
-      form declines: an SSM inner dim cut across heads): a shard's local
-      SGD joins its
-      cells into its full lanes on column 0's device, runs the 1D
+    * ``"joined"`` for any other loss (an opaque callable, or a cut a
+      form declines; ``make_loss``'s takes every cut the rules make, an
+      SSM inner dim cut across heads included): a shard's local SGD
+      joins its cells into its full lanes on column 0's device, runs the 1D
       ``local_train`` there (B3 once a step), and cuts z back into the
       cells; the round and its metrics are bitwise the 1D mesh's, but the
       working set is a shard's full lanes on column 0.
@@ -583,14 +583,14 @@ _POD_FUSED_REFUSAL = (
 
 def make_cells_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
                           spec: MixingSpec, mesh, param_specs: dict, *,
-                          batch_axes: tuple = ()) -> Callable:
+                          batch_axes: tuple = (), routing=None) -> Callable:
     """Build round_step(state, batches) -> (state', metrics) on the cells
     of a ``launch.mesh.ServeMesh`` (module docstring): ``state.params``
     one dict a cell (``mesh.shard(stacked, param_specs)``), row-major,
     its key on the first cell's device; ``batches`` leaves [m, K, b, ...]
-    whole, cut over ``batch_axes`` by the rows (``local_train_rows``).
-    The key chain is :func:`make_round_step`'s (the mixing key feeds a
-    quantized wire).
+    whole, cut over ``batch_axes`` by the rows (``local_train_rows``,
+    which takes ``routing``). The key chain is :func:`make_round_step`'s
+    (the mixing key feeds a quantized wire).
 
     On one pod (``("data", "model")``: every cell all m clients' blocks)
     the mix is the dense one on each cell (``make_cells_mixer``: fp32, or
@@ -603,8 +603,10 @@ def make_cells_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
     cells) each pod trains its own clients and the ring gossips over
     ``"pod"`` through the plan realization (``make_plan_mixer`` on the
     mesh: a pod's cells its columns, fp32 rows or B1 / B2 with the
-    pod's amax and the cut noise); the fused round is refused there, as
-    the reference refuses it.
+    pod's amax and the cut noise), or, with ``mixer_impl="dense"``, the
+    dense mix runs on every cell over the pods' blocks of its position
+    (``make_cells_mixer``); the fused round is refused there, as the
+    reference refuses it.
     Metrics as :func:`make_round_step`'s: ``loss`` the mean over the
     clients, ``consensus_dist`` and ``local_drift`` from the cells'
     partial sums (``consensus_distance_cells``)."""
@@ -616,16 +618,17 @@ def make_cells_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
         raise ValueError(
             f"fuse_round needs local_steps >= 2 (one step is deferred "
             f"past the mix), got {cfg.local_steps}")
-    if pods:
-        impl = cfg.mixer_config().resolved_impl(spec, mesh)
-        if impl not in ("ring", "sparse") or spec.kind != "ring":
-            raise ValueError(f"the pod mesh gossips a ring over 'pod' "
-                             f"(mixer 'ring'), got {impl!r} on "
-                             f"{spec.kind!r}")
+    impl = (cfg.mixer_config().resolved_impl(spec, mesh) if pods
+            else "dense")
+    if impl == "dense":
+        mix = make_cells_mixer(spec, mesh, param_specs, cfg.quant)
+    elif impl in ("ring", "sparse") and spec.kind == "ring":
         mix = make_plan_mixer(spec.gossip_plan(), cfg.quant, mesh=mesh,
                               param_specs=param_specs)
     else:
-        mix = make_cells_mixer(spec, mesh, param_specs, cfg.quant)
+        raise ValueError(f"the pod mesh gossips a ring over 'pod' (mixer "
+                         f"'ring') or mixes densely (mixer 'dense'), got "
+                         f"{impl!r} on {spec.kind!r}")
     et = (float(np.float32(cfg.eta)), float(np.float32(cfg.theta)))
 
     def unfused(state, batches, client_keys, key_mix):
@@ -633,7 +636,7 @@ def make_cells_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             z, losses = local_train_rows(
                 loss_fn, mesh, state.params, param_specs, batches,
                 client_keys, eta=cfg.eta, theta=cfg.theta,
-                batch_axes=batch_axes)
+                batch_axes=batch_axes, routing=routing)
         with record_function("round/mix"):
             x_next = mix(state.params, z, key_mix)
         return x_next, z, losses
@@ -644,13 +647,14 @@ def make_cells_round_step(loss_fn: LossFn, cfg: DFedAvgMConfig,
             y, v, g, head = local_train_rows(
                 loss_fn, mesh, state.params, param_specs, batches,
                 client_keys, eta=cfg.eta, theta=cfg.theta, deferred=True,
-                batch_axes=batch_axes)
+                batch_axes=batch_axes, routing=routing)
             y1, v1 = map(list, zip(*(_penultimate(*a, et)
                                      for a in zip(y, v, g))))
             last, gK = rows_loss_and_grad(
                 loss_fn, mesh, y1, param_specs,
                 {n: b[:, K - 1] for n, b in batches.items()},
-                prng.split(client_keys, K)[:, K - 1], batch_axes=batch_axes)
+                prng.split(client_keys, K)[:, K - 1], batch_axes=batch_axes,
+                routing=routing)
         with record_function("round/mix"):
             mixed = mix(state.params, y1, key_mix)
             x_next = [_deferred(*a, et) for a in zip(mixed, v1, gK)]

@@ -37,12 +37,16 @@ data-cut block keeps its own row's slice and any other block row 0's
 gradient, so the replicated blocks stay bitwise equal. Each row's loss
 is weighted by its share of the batch's tokens in the backward (1/dp
 without a mask), so no gradient is counted twice. B3 then runs once a
-cell. A leaf the loss's form reads on head boundaries (an SSM's inner
-dim) but whose dim the specs cut over ``("data", "model")`` is gathered
-from the cells that hold its column's heads (``ServeMesh.row_cells(...,
-heads=)``) and its gradient returned to them. On the pod mesh
-``("pod", "data", "model")`` every pod trains its own clients on its
-``("data", "model")`` cells (``ServeMesh.pod``); nothing crosses pods.
+cell. A leaf the loss's form reads as a column's contiguous channels
+(an SSM's inner dim) but whose dim the specs cut over ``("data",
+"model")`` is gathered from the cells that hold its column's channels
+(``ServeMesh.row_cells(..., heads=)``) and its gradient returned to
+them. A MoE that the reference routes as one group over a cut batch
+routes every row first, in batch order (``routing``), so that each
+row's forward and backward reads the whole batch's expert counts. On
+the pod mesh ``("pod", "data", "model")`` every pod trains its own
+clients on its ``("data", "model")`` cells (``ServeMesh.pod``); nothing
+crosses pods.
 :func:`local_train_rows` can stop as :func:`local_train_deferred` does,
 and :func:`rows_loss_and_grad` gives one step's gradient on the rows
 (the fused round's head and last gradient on cells).
@@ -317,7 +321,7 @@ def _reduce_rows(mesh, rows: list, per_row: list, specs: dict,
     gradients, in the module docstring's order; records the data
     column's all-reduces (the reduce-scatters record themselves in the
     gathers' backward) and B's row-0 broadcasts. A leaf of ``heads``
-    (re-cut on head boundaries, ``ServeMesh.row_cells``) finds cell
+    (re-cut to contiguous channels, ``ServeMesh.row_cells``) finds cell
     ``(r, c)``'s block as part ``i`` of column ``c'``'s entry, ``(c',
     i) = divmod(r * mp + c, dp)``: every row's slice summed under a cut
     batch, row r's own otherwise."""
@@ -363,14 +367,24 @@ def _reduce_rows(mesh, rows: list, per_row: list, specs: dict,
     return loss, out
 
 
+@repeats_on_meta
+def _row_route(group, loss_fn, entries, batch, keys):
+    """One mesh row's forward alone, without a gradient: the pass that
+    routes every row's tokens (``routing``, :func:`local_train_rows`)
+    before any row's backward. Returns its losses."""
+    with torch.no_grad():
+        return loss_fn.column_parallel.fn(group, group.view(entries), batch,
+                                          keys)
+
+
 class _PodRows:
     """One pod's rows for :func:`local_train_rows`: its ``("data",
-    "model")`` mesh, specs, column groups, batch blocks and the leaves
-    its loss's form reads on head boundaries."""
+    "model")`` mesh, specs, column groups, batch blocks, the leaves its
+    loss's form reads as contiguous channels and its routing."""
 
     def __init__(self, loss_fn: LossFn, mesh, specs: dict,
-                 batch_axes: tuple, b: int):
-        self.mesh, self.specs = mesh, specs
+                 batch_axes: tuple, b: int, routing=None):
+        self.mesh, self.specs, self.routing = mesh, specs, routing
         dims = model_sharded_dims(specs, "model")
         form = loss_fn.column_parallel
         declined = [n for n, d in dims.items() if d is not None
@@ -395,7 +409,7 @@ class _PodRows:
         """Local step ``k``'s losses [m] and every cell's gradient at
         ``y``."""
         weights = _row_weights(batches, self.slices, self.scatter)
-        per_row = []
+        args = []
         for row, group, sl, w in zip(self.rows, self.groups, self.slices,
                                      weights):
             with uncounted():
@@ -407,8 +421,22 @@ class _PodRows:
             entries = self.mesh.row_cells(y, self.specs, row,
                                           scatter=self.scatter,
                                           heads=self.heads)
-            per_row.append(_row_loss_and_grad(group, loss_fn, entries,
-                                              batch, kk, w))
+            args.append((group, loss_fn, entries, batch, kk, w))
+        if self.routing is None:
+            per_row = [_row_loss_and_grad(*a) for a in args]
+        else:
+            # One routing group over the rows' blocks: every row routes
+            # (a forward, in batch order) before any row's backward.
+            starts = sorted(sl.start for sl in self.slices)
+            blocks = [starts.index(sl.start) for sl in self.slices]
+            with self.routing(len(starts)) as route:
+                for blk, a in sorted(zip(blocks, args), key=lambda v: v[0]):
+                    route.enter(blk)
+                    _row_route(*a[:5])
+                per_row = []
+                for blk, a in zip(blocks, args):
+                    route.enter(blk)
+                    per_row.append(_row_loss_and_grad(*a))
         return _reduce_rows(self.mesh, self.rows, per_row, self.specs,
                             self.scatter, weights, k, self.heads)
 
@@ -436,7 +464,8 @@ class _PodRows:
 
 
 def _pods(loss_fn: LossFn, mesh, cells: list[Params], specs: dict,
-          batches: Params, keys: torch.Tensor, batch_axes: tuple) -> list:
+          batches: Params, keys: torch.Tensor, batch_axes: tuple,
+          routing=None) -> list:
     """Per pod of ``mesh`` (one without a pod axis): its
     :class:`_PodRows`, its cells, its clients' batches and keys (the
     clients the ``"pod"`` axis gives it, a contiguous block)."""
@@ -458,7 +487,8 @@ def _pods(loss_fn: LossFn, mesh, cells: list[Params], specs: dict,
     out = []
     for p in range(n):
         lanes = slice(p * ml, (p + 1) * ml)
-        out.append((_PodRows(loss_fn, mesh.pod(p), sp, batch_axes, b),
+        out.append((_PodRows(loss_fn, mesh.pod(p), sp, batch_axes, b,
+                             routing),
                     mesh.pod_cells(cells, p),
                     {k: t[lanes] for k, t in batches.items()}, keys[lanes]))
     return out
@@ -467,8 +497,8 @@ def _pods(loss_fn: LossFn, mesh, cells: list[Params], specs: dict,
 def local_train_rows(loss_fn: LossFn, mesh, cells: list[Params],
                      specs: dict, batches: Params, keys: torch.Tensor, *,
                      eta: float, theta: float,
-                     batch_axes: tuple = (), deferred: bool = False
-                     ) -> tuple:
+                     batch_axes: tuple = (), deferred: bool = False,
+                     routing=None) -> tuple:
     """K heavy-ball steps on every cell of a ``launch.mesh.ServeMesh``
     of ``("data", "model")`` or ``("pod", "data", "model")`` cells
     (module docstring). On the pod mesh each pod trains its own clients
@@ -492,6 +522,14 @@ def local_train_rows(loss_fn: LossFn, mesh, cells: list[Params],
       deferred: stop as :func:`local_train_deferred` does: K-2 steps
                 applied and step K-2's gradient computed, not applied
                 (the fused round's head; K >= 2).
+      routing:  ``n_blocks -> RowRouting`` (``models.moe``, with
+                ``whole_aux``) to route a cut batch's rows as one
+                dispatch group a client (the reference's MoE where the
+                model axis does not divide ``moe_d_ff``): each step's
+                rows first run their forwards alone, in batch order, so
+                every block's expert counts are known, then each row its
+                forward and backward; None: each row routes its own
+                tokens.
 
     Returns:
       (y^{t,K} as cells, each client's mean local loss over the K steps
@@ -504,7 +542,7 @@ def local_train_rows(loss_fn: LossFn, mesh, cells: list[Params],
     home = mesh.devices.flat[0]
     parts = []
     for rows, pc, pb, pk in _pods(loss_fn, mesh, cells, specs, batches,
-                                  keys, tuple(batch_axes)):
+                                  keys, tuple(batch_axes), routing):
         parts.append(rows.train(loss_fn, pc, pb, prng.split(pk, K),
                                 K - 2 if deferred else K, eta, theta,
                                 deferred))
@@ -519,7 +557,7 @@ def local_train_rows(loss_fn: LossFn, mesh, cells: list[Params],
 
 def rows_loss_and_grad(loss_fn: LossFn, mesh, cells: list[Params],
                        specs: dict, batch: Params, keys: torch.Tensor, *,
-                       batch_axes: tuple = ()
+                       batch_axes: tuple = (), routing=None
                        ) -> tuple[torch.Tensor, list[Params]]:
     """One step's losses [m] (on the first cell's device) and every
     cell's gradient at ``cells``, the rows' as :func:`local_train_rows`
@@ -529,7 +567,7 @@ def rows_loss_and_grad(loss_fn: LossFn, mesh, cells: list[Params],
     batches = {n: t[:, None] for n, t in batch.items()}
     losses, grads = [], []
     for rows, pc, pb, pk in _pods(loss_fn, mesh, cells, specs, batches,
-                                  keys, tuple(batch_axes)):
+                                  keys, tuple(batch_axes), routing):
         loss, g = rows.step(loss_fn, pc, pb, pk[:, None], 0)
         losses.append(loss.to(home))
         grads.append(g)

@@ -806,14 +806,19 @@ def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
     are) through B1's tensor-noise entry. The fp32 wire, the ``lemma5``
     replicas and B2 work elementwise on the slices as they are.
 
-    With ``W`` (the dense mix of one ``ServeMesh`` pod's cells: one
-    shard of all m lanes, no transfer) ``ex(xs, zs, key=None,
-    leaf_keys=None)`` is the
-    reference's ``mix_dense`` / ``_mix_dense_quantized`` on every cell's
-    blocks: each client's per-leaf amax met over the cells as above, the
-    noise that client's full-leaf draw cut to the cell, ``q = deq(Q(z -
-    x))`` elementwise, then ``W @ (x + q)`` (``lemma5``) or ``x + W @
-    q`` (``eq7``), or ``W @ z`` on the fp32 wire."""
+    With ``W`` (the dense mix of a ``ServeMesh``'s cells: one shard of
+    all m lanes a pod, its cells the shard's columns) ``ex(xs, zs,
+    key=None, leaf_keys=None)`` is the reference's ``mix_dense`` /
+    ``_mix_dense_quantized`` on every cell's blocks: each client's
+    per-leaf amax met over its pod's cells as above, the noise that
+    client's full-leaf draw cut to the cell, ``q = deq(Q(z - x))``
+    elementwise, then ``W @ (x + q)`` (``lemma5``) or ``x + W @ q``
+    (``eq7``), or ``W @ z`` on the fp32 wire. Gossip is linear, so a
+    cell mixes its position's blocks over the client axis: on the pod
+    mesh every pod's block of that ``(data, model)`` position joins on
+    the cell (:func:`across`, recorded as an ``all-gather`` over the
+    pods, the reference's GSPMD mix with the clients on ``"pod"``) and
+    the cell takes its own clients' rows of ``W``."""
     layout_for = _layouts(quant)
     quant_on = quant is not None and quant.enabled
     lemma5 = quant_on and quant.delta_mode == "lemma5"
@@ -865,34 +870,59 @@ def _make_exec(wire: _Wire, m: int, quant: QuantConfig | None,
             amax = meet(amax)
         return [layout.scales_from_amax(a, quant) for a in amax]
 
+    def across(Ws: list, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+        """One leaf's f32 blocks a cell [lanes, ...] -> each cell's rows
+        of ``W`` (``Ws`` one copy a cell) times every client's block at
+        its position: the pods' blocks of one ``(data, model)`` position
+        joined in lane order on each of their cells (an all-gather over
+        the pods; one pod: the cell's own block)."""
+        out = []
+        for i, p in enumerate(parts):
+            lo, hi, dev = wire.blocks[i]
+            col = [parts[s * mp + i % mp] for s in range(wire.n_shards)]
+            whole = p if len(col) == 1 else torch.cat(
+                [q.to(dev) for q in col])
+            if len(col) > 1 and i < mp:
+                hlo_stats.record("all-gather", whole.numel()
+                                 * whole.element_size(), len(col))
+            out.append(torch.tensordot(Ws[i][lo:hi], whole,
+                                       dims=([1], [0])))
+        return out
+
     def dense(xs, zs, key=None, leaf_keys=None):
         Ws = [_device_w(W, next(iter(z.values())).device) for z in zs]
         if not quant_on:
-            return [mix_dense(Wc, z) for Wc, z in zip(Ws, zs)]
+            out = [{} for _ in zs]
+            for n in zs[0]:
+                for o, z, mx in zip(out, zs, across(
+                        Ws, [z[n].to(torch.float32) for z in zs])):
+                    o[n] = mx.to(z[n].dtype)
+            return out
         layout = layout_for(xs[0])
         names = layout.names
         deltas = [{n: (z[n] - x[n]).to(torch.float32) for n in names}
                   for x, z in zip(xs, zs)]
         scales = scales_of(layout, [
-            torch.stack([d[n].abs().reshape(m, -1).amax(dim=1)
+            torch.stack([d[n].abs().reshape(d[n].shape[0], -1).amax(dim=1)
                          for n in names], dim=-1) for d in deltas])
         noise = (noise_of(layout, xs, key, leaf_keys) if quant.stochastic
                  else [None] * len(xs))
-        out = []
-        for x, d, sc, nz, Wc in zip(xs, deltas, scales, noise, Ws):
-            res = {}
+        for d, sc, nz in zip(deltas, scales, noise):   # q = deq(Q(d))
             for li, n in enumerate(names):
-                sl = sc[:, li].reshape((m,) + (1,) * (d[n].dim() - 1))
-                q = quantize_levels(d[n], sl, quant,
-                                    None if nz is None else nz[n]) * sl
-                xl = x[n]
-                if lemma5:
-                    res[n] = torch.tensordot(Wc, xl.to(torch.float32) + q,
-                                             dims=([1], [0])).to(xl.dtype)
-                else:
-                    res[n] = (xl.to(torch.float32) + torch.tensordot(
-                        Wc, q, dims=([1], [0]))).to(xl.dtype)
-            out.append(res)
+                sl = sc[:, li].reshape((-1,) + (1,) * (d[n].dim() - 1))
+                d[n] = quantize_levels(d[n], sl, quant,
+                                       None if nz is None else nz[n]) * sl
+        out = [{} for _ in xs]
+        for n in names:
+            if lemma5:
+                mixed = across(Ws, [x[n].to(torch.float32) + q[n]
+                                    for x, q in zip(xs, deltas)])
+                for o, x, mx in zip(out, xs, mixed):
+                    o[n] = mx.to(x[n].dtype)
+            else:
+                for o, x, mx in zip(out, xs,
+                                    across(Ws, [q[n] for q in deltas])):
+                    o[n] = (x[n].to(torch.float32) + mx).to(x[n].dtype)
         return out
 
     if W is not None:
@@ -1628,19 +1658,20 @@ def consensus_distance(stacked: Params | list[Params],
 
 def make_cells_mixer(spec: MixingSpec, mesh, specs: dict,
                      quant: QuantConfig | None = None) -> Callable:
-    """The dense mix on one pod's cells of a ``launch.mesh.ServeMesh``
-    (every cell holding all m clients' blocks, laid out by ``specs``):
-    ``mixer(xs, zs, key=None) -> cells``, each cell's blocks mixed on
-    its device over the client axis (gossip is linear, so mixing a block
-    is mixing the leaf restricted to it). fp32: ``W @ z``; a quantized
+    """The dense mix on the cells of a ``launch.mesh.ServeMesh`` (laid
+    out by ``specs``; on one pod every cell holds all m clients' blocks,
+    on the pod mesh a pod's cells hold its own clients'): ``mixer(xs,
+    zs, key=None) -> cells``, each cell's blocks mixed on its device over
+    the client axis (gossip is linear, so mixing a block is mixing the
+    leaf restricted to it; on the pod mesh the pods' blocks of the
+    cell's position join there first). fp32: ``W @ z``; a quantized
     wire: the reference's ``_mix_dense_quantized`` (``_make_exec``'s
-    dense mode: each client's per-leaf scale from its amax over every
-    cell, its noise its full-leaf draw from ``key`` cut to the cell)."""
-    if mesh.n_pods != 1:
-        raise ValueError("the dense mix on cells runs on one pod's cells "
-                         "(a pod mesh gossips over 'pod': make_plan_mixer)")
+    dense mode: each client's per-leaf scale from its amax over its
+    pod's cells, its noise its full-leaf draw from ``key`` cut to the
+    cell)."""
     devs = list(mesh.devices.flat)
-    ex = _make_exec(_Wire(devs, spec.m, len(devs)), spec.m, quant,
+    n = mesh.n_pods
+    ex = _make_exec(_Wire(devs, spec.m // n, len(devs) // n), spec.m, quant,
                     cut=_MeshCut(mesh, specs), W=spec.W)
 
     def mixer(xs: list[Params], zs: list[Params], key=None

@@ -19,18 +19,22 @@ over ``("data", "model")`` and the batch over ``"data"``; B3 cuts
 weights over ``"model"`` alone and the batch over ``"data"``. Every data
 row trains as a column group on its batch block
 (``core.local_sgd.local_train_rows``: data-cut weights gathered at their
-use, an SSM's inner dim re-cut on head boundaries there, their gradients
-reduce-scattered, or kept as the row's own slice under B; the other
-gradients all-reduced over the data column under B2 and B3), B3 runs
-once a local step a cell. On one pod (two clients, no client axis) the
-dense mix runs on each cell, fp32 or quantized, and the fused round is
-the reference's dense fused tail on the cells; on the multi-pod mesh
+use, an SSM's inner dim re-cut to contiguous channels there, their
+gradients reduce-scattered, or kept as the row's own slice under B; the
+other gradients all-reduced over the data column under B2 and B3), B3
+runs once a local step a cell. On one pod (two clients, no client axis)
+the dense mix runs on each cell, fp32 or quantized, and the fused round
+is the reference's dense fused tail on the cells; on the multi-pod mesh
 (its clients on ``"pod"``, one a pod) each pod trains its client on its
 cells and the ring gossips over ``"pod"`` within each ``(data, model)``
-position (``meta["mixer"]`` ``"ring"``), fp32 or quantized; the fused
-round there is refused with the reference's reason. A MoE's data rows
-route their own tokens, one dispatch group a row, as the reference's
-``shard_map``'d MoE does.
+position (``meta["mixer"]`` ``"ring"``), or with ``mixer_impl="dense"``
+each cell mixes the pods' blocks of its position (``"dense"``), fp32 or
+quantized; the fused round there is refused with the reference's
+reason. A MoE's data rows route their own tokens, one dispatch group a
+row, as the reference's ``shard_map``'d MoE does; where the model axis
+does not divide ``moe_d_ff`` (the reference's ``shard_map`` then
+declines) the rows of a cut batch route as the one group a client the
+reference routes (``models.moe.RowRouting`` with ``whole_aux``).
 
 The serving steps run model-sharded on the mesh's cells (a
 ``ServeMesh``; ``Built.mesh``), laid out exactly as the reference's
@@ -151,17 +155,13 @@ def _model_shapes(cfg: ArchConfig) -> tuple[dict, dict]:
 # Training round step (DFedAvgM over the model)
 # ---------------------------------------------------------------------------
 
-def _check_cells_layout(cfg: ArchConfig, strat, pspecs: dict,
-                        axes: dict, mp: int, batch_cut: bool) -> None:
+def _check_cells_layout(pspecs: dict, axes: dict) -> None:
     """Refuse a layout the train step on cells would compute otherwise
     than the reference: an MLP or expert block whose gate, up and down
     weights cut their ``"mlp"`` dim unalike (a strided partition of the
-    hidden dim is exact only when all three share it), and a MoE whose
-    ``moe_d_ff`` does not divide the model axis under a cut batch (the
-    reference then routes the whole batch as one group, not one a data
-    shard). An SSM inner dim cut over ``("data", "model")`` is re-cut on
-    head boundaries at its row's gather
-    (``launch.mesh.ServeMesh.row_cells``)."""
+    hidden dim is exact only when all three share it). An SSM inner dim
+    cut over ``("data", "model")`` is re-cut to the column's contiguous
+    channels at its row's gather (``launch.mesh.ServeMesh.row_cells``)."""
     by_block: dict = {}
     for name, names in axes.items():
         spec = pspecs[name]
@@ -173,11 +173,6 @@ def _check_cells_layout(cfg: ArchConfig, strat, pspecs: dict,
         if len(entries) > 1:
             raise ValueError(f"{block}: its weights cut the mlp dim "
                              f"unalike ({sorted(entries)})")
-    if cfg.n_experts and batch_cut and cfg.moe_d_ff % mp:
-        raise ValueError(
-            f"moe_d_ff={cfg.moe_d_ff} does not divide the model axis "
-            f"({mp}): the reference routes the whole batch as one group, "
-            "which the rows of a cut batch do not")
 
 
 def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
@@ -220,10 +215,16 @@ def build_train_step(cfg: ArchConfig, mesh, shape: InputShape, *,
     on_cells = strat.name != "A"
     cmesh = None
     if on_cells:
-        _check_cells_layout(cfg, strat, pspecs, axes, sizes["model"],
-                            bool(ba))
-        step = make_cells_round_step(loss, dfed, spec, mesh, pspecs,
-                                     batch_axes=ba)
+        _check_cells_layout(pspecs, axes)
+        # The reference's MoE routes a cut batch as one group where the
+        # model axis does not divide moe_d_ff (its shard_map declines):
+        # the rows route their blocks as one group a client.
+        one_group = (cfg.n_experts and ba
+                     and cfg.moe_d_ff % sizes["model"] != 0)
+        step = make_cells_round_step(
+            loss, dfed, spec, mesh, pspecs, batch_axes=ba,
+            routing=((lambda n: RowRouting(n, whole_aux=True))
+                     if one_group else None))
     else:
         cmesh = _client_mesh(mesh, strat.client_axes)
         step = make_round_step(loss, dfed, spec, device=dev, mesh=cmesh,

@@ -32,11 +32,18 @@ reports itself, while it runs, to every recorder that
     ``all-reduce`` of a cell's block a column, and under B the copy of
     row 0's gradient of a leaf the data axis does not cut to each other
     row as a ``collective-permute``; an SSM inner dim cut over ``("data",
-    "model")`` and re-cut on head boundaries is gathered from the cells
-    that hold its column's heads, recorded as the same ``all-gather``
-    (and its backward's ``reduce-scatter``) over dp blocks; on the pod
-    mesh the ring's payloads over ``"pod"`` as above, one a cell (f32
-    rows, or words, scales and ``lemma5`` replicas).
+    "model")`` and re-cut to contiguous channels is gathered from the
+    cells that hold its column's channels, recorded as the same
+    ``all-gather`` (and its backward's ``reduce-scatter``) over dp
+    blocks; a MoE routed as one group over a cut batch
+    (``models.moe.RowRouting``) as an ``all-gather`` of every row's
+    per-expert counts a layer; on the pod mesh the ring's payloads over
+    ``"pod"`` as above, one a cell (f32 rows, or words, scales and
+    ``lemma5`` replicas), or the dense mix's blocks of a ``(data,
+    model)`` position as an ``all-gather`` over the pods;
+  * an SSM's cached mixer whose inner dim is cut across heads: the
+    columns' new sub-head states as an ``all-gather`` onto every
+    column's copy of the replicated state.
 
 A recorder sees every trip of every loop, so no trip-count pass (the
 reference's ``collect_collectives_looped``) has a counterpart, and the

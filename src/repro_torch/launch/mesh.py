@@ -330,18 +330,18 @@ class ServeMesh:
         axes, in their order. A dim cut over ``("data", "model")``
         (``RULES_B2``'s ``"mlp"``) is cut data-major, as ``jax.sharding``
         orders it: column c's blocks are then the sub-blocks at positions
-        ``d * mp + c`` of the full dim, strided, joined in data order
-        (a partition across the columns that a product summed over that
-        dim takes as exactly as a contiguous one, when every weight it
-        meets is cut alike). ``heads`` (such a dim, read on head
-        boundaries: an SSM's inner dim) re-cuts it contiguously instead:
-        column c's entry holds the sub-blocks ``c * dp .. (c+1) * dp - 1``
-        of the full dim, sub-block k from cell ``(k // mp, k % mp)``, so
-        the column holds its heads' slice, as a cut over ``"model"``
-        alone gives it; its gradient goes back to every block (``own``
-        None). ``scatter``: each row holds its own batch block (the
-        gradient goes back to every block), else the cut's ``own`` is
-        the row's block."""
+        ``d * mp + c`` of the full dim, strided, joined in data order (a
+        partition across the columns that a product summed over that dim
+        takes as exactly as a contiguous one, when every weight it meets is
+        cut alike). ``heads`` (such a dim, read as a column's contiguous
+        channels: an SSM's inner dim, on head boundaries or across them)
+        re-cuts it contiguously instead: column c's entry holds the
+        sub-blocks ``c * dp .. (c+1) * dp - 1`` of the full dim, sub-block
+        k from cell ``(k // mp, k % mp)``, so the column holds the channels
+        ``[c * w, (c+1) * w)``, as a cut over ``"model"`` alone gives them;
+        its gradient goes back to every block (``own`` None). ``scatter``:
+        each row holds its own batch block (the gradient goes back to every
+        block), else the cut's ``own`` is the row's block."""
         cut = [i for i in range(len(spec))
                if any(a != "model" for a in spec.names(i))]
         if not cut:
@@ -355,8 +355,8 @@ class ServeMesh:
         if heads and "model" in names:
             if tuple(self.axis_names) != ("data", "model") or \
                     names != ("data", "model"):
-                raise ValueError(f"{'/'.join(map(str, path))}: a re-cut on "
-                                 f"head boundaries takes a dim cut over "
+                raise ValueError(f"{'/'.join(map(str, path))}: a re-cut to "
+                                 f"contiguous channels takes a dim cut over "
                                  f"('data', 'model'), got {spec!r}")
             dp, mp = self.sizes["data"], self.model_parallel
             parts = [_at(self._cell(cells, (k // mp,), k % mp), path)
@@ -405,7 +405,7 @@ class ServeMesh:
                   heads: frozenset = frozenset()) -> list[dict]:
         """Row ``row``'s entries of a laid-out flat dict, one dict a
         column (:meth:`_data_cut`'s: a block, or a :class:`DataCut`; the
-        leaves named in ``heads`` re-cut on head boundaries), as
+        leaves named in ``heads`` re-cut to contiguous channels), as
         ``ColumnGroup.view`` reads a row's cells: the train step's
         (``core.local_sgd.loss_and_grad_columns``)."""
         return [{n: self._data_cut(cells, (n,), specs[n], row, c, scatter,

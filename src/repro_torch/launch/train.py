@@ -30,16 +30,17 @@ wire lines, and a "local step:" line. Every registered arch trains
 each shard's row of cells tensor-parallel (``models.model.make_loss``
 carries a column-parallel form for the dense decoders, the MoE with its
 experts or their ``moe_d_ff`` cut, the SSM, the hybrid, Whisper's
-encoder and decoder and the VLM: the reference's GSPMD-partitioned
-step, within float rounding of the 1D mesh's losses); where the form
-declines a cut (an SSM inner dim that ``--model-parallel`` cuts across
-heads) the step joins each shard's cells on its first column's card,
-bitwise the 1D mesh's losses (``core.dfedavgm``), and the line says
-"joined". ``--pool``, ``--mixer-impl dense`` and
-``--fuse-round`` refuse it, as in the reference. ``--wire`` takes the
-reference's codec names; the port has one codec, so ``auto``, ``seq``
-and ``planar`` all run the planar buffer kernels (B1/B2, B4/B5 fused).
-``--device`` picks the card (the default) or ``cpu``.
+encoder and decoder and the VLM, an SSM inner dim that
+``--model-parallel`` cuts across heads included: the reference's
+GSPMD-partitioned step, within float rounding of the 1D mesh's losses),
+and the line says "tensor_parallel"; an opaque loss joins each shard's
+cells on its first column's card, bitwise the 1D mesh's losses
+(``core.dfedavgm``), and the line says "joined". ``--pool``,
+``--mixer-impl dense`` and ``--fuse-round`` refuse it, as in the
+reference. ``--wire`` takes the reference's codec names; the port has
+one codec, so ``auto``, ``seq`` and ``planar`` all run the planar buffer
+kernels (B1/B2, B4/B5 fused). ``--device`` picks the card (the default)
+or ``cpu``.
 """
 from __future__ import annotations
 
@@ -278,9 +279,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "of every model-sharded leaf; needs n_shards x "
                          "model_parallel cards and the sparse backend; "
                          "every arch trains tensor-parallel over the "
-                         "columns, but where its form declines a cut (an "
-                         "SSM inner dim cut across heads): then each "
-                         "shard's cells join on its first column")
+                         "columns (an SSM inner dim cut across heads "
+                         "too)")
     ap.add_argument("--placement", default="contiguous",
                     choices=["contiguous", "partition"],
                     help="client -> lane placement for the sparse backend: "

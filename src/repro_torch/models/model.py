@@ -26,11 +26,12 @@ a column-parallel form (``sharding.tensor_parallel``) for every
 registered architecture: ``loss_fn(..., tp=group)`` on a 2D mesh row's
 view, with the vocabulary-parallel embedding and logits, heads-cut
 self- and cross-attention, the cut MLP, the MoE with its experts or
-their ``moe_d_ff`` cut, the Mamba2 mixer with its inner dim and heads
-cut, the hybrid's shared block (``down`` row-parallel) and the encoder,
-so the round trains that row's cells tensor-parallel. The form declines
-one cut (:func:`_tp_covers`): an SSM inner dim cut across heads, which
-keeps the joined step.
+their ``moe_d_ff`` cut, the Mamba2 mixer with its inner dim cut (with
+its heads or across them), the hybrid's shared block (``down``
+row-parallel) and the encoder, so the round trains that row's cells
+tensor-parallel. The form takes every cut the strategies' rules make
+(:func:`_tp_covers`), an SSM inner dim cut across heads included
+(``ssm._sub_heads``).
 
 Serving on a mesh (``launch.build``'s prefill and decode on a
 ``launch.mesh.ServeMesh``): ``forward(..., caches=, tp=)``,
@@ -52,6 +53,7 @@ from ..device import resolve_device
 from .layers import (Params, apply_norm, dense_init, embed_tokens,
                      init_embedding, init_norm, logits_from_embedding, mm,
                      prefixed, sub, vocab_logits, vocab_parallel_nll)
+from .moe import MOE_LAYER
 from .transformer import (apply_stage, init_block, init_stage,
                           init_stage_cache, torch_dtype)
 from ..convert import index_key
@@ -311,10 +313,14 @@ def _forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     aux = torch.zeros((m,), dtype=torch.float32, device=x.device)
     for si, (kind, n) in enumerate(stages):
         cache_i = caches[si] if caches is not None else None
-        x, nc, a = apply_stage(
-            sub(params, stage_name(cfg, si)), x, cfg=cfg, kind=kind, n=n,
-            positions=positions, cache=cache_i, cross_kv=cross_kv,
-            x_first=x_first, shared_params=shared, tp=tp)
+        stage = MOE_LAYER.set((si,))
+        try:
+            x, nc, a = apply_stage(
+                sub(params, stage_name(cfg, si)), x, cfg=cfg, kind=kind,
+                n=n, positions=positions, cache=cache_i, cross_kv=cross_kv,
+                x_first=x_first, shared_params=shared, tp=tp)
+        finally:
+            MOE_LAYER.reset(stage)
         new_caches.append(nc)
         aux = aux + a
     if last_only:
@@ -412,27 +418,24 @@ def _tp_covers(name: str, dims: dict) -> bool:
     """Whether the column-parallel form takes leaf ``name`` cut (``dims``
     every leaf's cut dim): the vocabulary's (the table, ``lm_head``) and
     the block leaves of ``_TP_LEAVES``, under a stage, the encoder's
-    stage or the shared block. A leaf cut on the SSM's inner dim only
-    where its mixer's heads are cut too: where mp divides ``ssm_inner``
-    but not ``ssm_heads`` a column's slice would cross heads, and the
-    form declines."""
+    stage or the shared block. An SSM mixer's inner-dim leaves are taken
+    with its heads cut or not (where the model axis divides ``ssm_inner``
+    but not ``ssm_heads`` a column's channels cross heads, which
+    ``ssm._sub_heads`` reads as sub-heads)."""
+    del dims
     if name in ("embed/table", "lm_head"):
         return True
     parts = name.split("/")
     depth = _BLOCK_DEPTH.get(parts[0])
-    if depth is None or "/".join(parts[depth:]) not in _TP_LEAVES:
-        return False
-    if parts[depth] == "mixer" and parts[-1] in _SSM_INNER:
-        heads = "/".join(parts[:depth] + ["mixer", "A_log"])
-        return dims.get(heads) is not None
-    return True
+    return depth is not None and "/".join(parts[depth:]) in _TP_LEAVES
 
 
 def _tp_heads(name: str) -> bool:
-    """Whether the column-parallel form reads leaf ``name``'s column as
-    its heads' contiguous block: an SSM mixer's inner-dim leaves (a cut
-    over ``("data", "model")``, strided across the columns, is re-cut on
-    head boundaries at the row's gather)."""
+    """Whether the column-parallel form reads leaf ``name``'s column as a
+    contiguous block of channels: an SSM mixer's inner-dim leaves (a cut
+    over ``("data", "model")``, strided across the columns, is re-cut to
+    the column's contiguous channels at the row's gather, whether or not
+    they end on head boundaries)."""
     parts = name.split("/")
     depth = _BLOCK_DEPTH.get(parts[0])
     return (depth is not None and len(parts) == depth + 2

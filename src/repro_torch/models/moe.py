@@ -87,46 +87,76 @@ MOE_SHARD_MAP: contextvars.ContextVar = contextvars.ContextVar(
     "MOE_SHARD_MAP", default=None)
 MOE_ROWS: contextvars.ContextVar = contextvars.ContextVar(
     "MOE_ROWS", default=None)
+# The MoE layer a block call runs (``transformer.apply_stage``'s stage
+# and layer), which ``RowRouting`` keys its counts by.
+MOE_LAYER: contextvars.ContextVar = contextvars.ContextVar(
+    "MOE_LAYER", default=None)
 
 
 class RowRouting:
-    """A serving batch's ``n_blocks`` blocks (in batch order, one a data
-    row) routed as one dispatch group (module docstring). The rows run
-    their steps one after another, each announced by :meth:`enter`; a
-    block's routing reads only the blocks before it, so the rows run in
-    batch order."""
+    """A batch's ``n_blocks`` blocks (in batch order, one a data row)
+    routed as one dispatch group a client (module docstring). The rows
+    run their steps one after another, each announced by :meth:`enter`;
+    a block's ranks read only the blocks before it, so the rows run in
+    batch order. ``whole_aux`` (a train step's rows, routed once before
+    any row's backward): a block's load-balance loss reads the whole
+    batch's top-1 fractions. A MoE layer is known by ``MOE_LAYER``
+    (``transformer.apply_stage`` sets it, so a remat'd block's
+    recomputation finds its layer)."""
 
-    def __init__(self, n_blocks: int):
+    def __init__(self, n_blocks: int, whole_aux: bool = False):
         self.n_blocks = n_blocks
+        self.whole_aux = whole_aux
         self.block = 0
-        self._layer = 0
-        self._counts: list[dict] = []   # a MoE layer's: block -> [1, e]
+        self._seen: dict = {}   # a MoE layer -> block -> (counts, top-1)
 
     def enter(self, block: int) -> None:
         """A row serving block ``block`` starts its step."""
-        self.block, self._layer = block, 0
+        self.block = block
 
-    def offsets(self, counts: torch.Tensor) -> torch.Tensor:
-        """The row's per-expert counts [1, e] at its next MoE layer ->
-        the earlier blocks' sums there, [1, e] on its device: the row's
-        share of an all-gather of every block's counts."""
-        layer = self._layer
-        self._layer += 1
-        if layer == len(self._counts):
-            self._counts.append({})
-        seen = self._counts[layer]
-        seen.setdefault(self.block, counts)
-        earlier = [c for blk, c in seen.items() if blk < self.block]
+    def __enter__(self) -> "RowRouting":
+        """The routing as ``MOE_ROWS`` inside a ``with`` block."""
+        self._token = MOE_ROWS.set(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        MOE_ROWS.reset(self._token)
+
+    def route(self, counts: torch.Tensor, top1: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The row's per-expert slot counts and top-1 counts [g, e] at
+        one MoE layer -> the earlier blocks' slot counts summed there
+        ([g, e] on its device: the row's share of an all-gather of every
+        block's counts, recorded when the block first routes the layer)
+        and, with ``whole_aux``, the top-1 counts of every block routed
+        so far summed in block order (the whole batch's, once every row
+        has routed), else None."""
+        key = MOE_LAYER.get()
+        if key is None:
+            raise ValueError("a MoE routed over rows runs inside a stage "
+                             "(transformer.apply_stage sets MOE_LAYER)")
+        seen = self._seen.setdefault(key, {})
+        if self.block not in seen:
+            seen[self.block] = (counts, top1)
+            sent = counts.numel() * counts.element_size()
+            if self.whole_aux:
+                sent += top1.numel() * top1.element_size()
+            hlo_stats.record("all-gather", sent * self.n_blocks,
+                             self.n_blocks, senders=1)
+        earlier = [c for blk, (c, _) in sorted(seen.items())
+                   if blk < self.block]
         if len(earlier) != self.block:
-            raise ValueError("the rows of a MoE serving step run in batch "
+            raise ValueError("the rows of a MoE routing group run in batch "
                              "order")
-        hlo_stats.record("all-gather",
-                         counts.numel() * counts.element_size()
-                         * self.n_blocks, self.n_blocks, senders=1)
         off = torch.zeros_like(counts)
         for c in earlier:
             off = off + c.to(off.device)
-        return off
+        if not self.whole_aux:
+            return off, None
+        total = torch.zeros_like(top1)
+        for blk in sorted(seen):
+            total = total + seen[blk][1].to(total.device)
+        return off, total
 
 
 def init_moe(key: torch.Tensor, d_model: int, n_experts: int, d_ff: int,
@@ -288,23 +318,15 @@ def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
 
-    # ---- load-balance loss (Switch): E * sum_e f_e * p_e ---------------
-    pool = groups if pool_aux else 1
-    me = probs.reshape(-1, pool * tg, e).mean(dim=1)
-    ce = F.one_hot(idx[..., 0], e).to(torch.float32).reshape(
-        -1, pool * tg, e).mean(dim=1)
-    aux = e * (me * ce).sum(dim=-1)
-    if not pool_aux and groups > 1:
-        aux = aux.reshape(-1, groups).mean(dim=1)
-
     # ---- capacity & ranking (per group) ---------------------------------
     rows = MOE_ROWS.get()
-    if rows is not None and g != 1:
-        raise ValueError("a serving row routes one group of one client")
+    if rows is not None and groups != 1:
+        raise ValueError("a row of one routing group routes one dispatch "
+                         "group a client")
     t_all = tg if rows is None else tg * rows.n_blocks
     cap = max(1, int(capacity_factor * k * t_all / e))
-    # A buffer's slots an expert: a serving row's own tokens only, of
-    # which an expert takes at most tg.
+    # A buffer's slots an expert: a row's own tokens only, of which an
+    # expert takes at most tg.
     width = cap if rows is None else min(cap, tg)
     tk = tg * k
     flat_e = idx.reshape(g, tk)                               # [g, tk]
@@ -317,11 +339,24 @@ def moe_grouped(params: Params, xg: torch.Tensor, *, top_k: int,
                    - grp_start.gather(1, sorted_e))
     inv = torch.argsort(order, dim=-1, stable=True)
     rank = rank_sorted.gather(1, inv)
-    # A serving row's slots of an expert follow the earlier blocks'.
-    off = None if rows is None else rows.offsets(grp_end - grp_start)
+    top1 = F.one_hot(idx[..., 0], e).to(torch.float32)       # [g, tg, e]
+    # A row's slots of an expert follow the earlier blocks'.
+    off, whole = (None, None) if rows is None else rows.route(
+        grp_end - grp_start, top1.sum(dim=1))
     keep = (rank if off is None
             else rank + off.gather(1, flat_e)) < cap          # [g, tk]
     safe_rank = torch.where(keep, rank, 0)
+
+    # ---- load-balance loss (Switch): E * sum_e f_e * p_e ---------------
+    # A train row of one routing group: f_e the whole batch's, p_e its
+    # own tokens' mean (the rows' weighted sum is the batch's loss).
+    pool = groups if pool_aux else 1
+    me = probs.reshape(-1, pool * tg, e).mean(dim=1)
+    ce = (top1.reshape(-1, pool * tg, e).mean(dim=1) if whole is None
+          else whole / t_all)
+    aux = e * (me * ce).sum(dim=-1)
+    if not pool_aux and groups > 1:
+        aux = aux.reshape(-1, groups).mean(dim=1)
 
     # ---- dispatch: batched gather into [g, e, width, d] -----------------
     slots = torch.arange(width, device=dev)[None, None]

@@ -15,30 +15,44 @@ p]; B, C: [m, b, l, n] (ngroups = 1); dt: [m, b, l, h]. The SSD core has
 no weights, so it folds the clients into its batch.
 
 With a column group ``tp`` (``sharding.tensor_parallel``) and the inner
-dim cut over the model columns together with the heads (a column's
-``ssm_inner`` slice is exactly its heads' slice), the training forward
-runs tensor-parallel: B and C (the replicated ``ssm_state`` leaves) are
-computed at home and broadcast, each column projects z, x and dt for
-its heads, convolves, runs ``ssd_chunked`` over them and gates; the
-gated RMSNorm's ``mean(g * g)`` over the whole ``d_inner`` is the
-columns' partial sums of squares added at home and broadcast back; and
-``wo`` is row-parallel, its partials summed at home.
+dim cut over the model columns, the training forward runs
+tensor-parallel: B and C (the replicated ``ssm_state`` leaves) are
+computed at home and broadcast, each column projects z and x for its
+channels, convolves, runs ``ssd_chunked`` over them and gates; the gated
+RMSNorm's ``mean(g * g)`` over the whole ``d_inner`` is the columns'
+partial sums of squares added at home and broadcast back; and ``wo`` is
+row-parallel, its partials summed at home. Where the heads are cut with
+the inner dim (a column's ``ssm_inner`` slice is exactly its heads'
+slice) each column also projects its heads' dt. Where the model axis
+divides the inner dim but not the heads, a column's contiguous channels
+``[c * w, (c+1) * w)`` cross head boundaries: the SSD is independent per
+channel given its head's dt, A and D (B and C are shared), so each head
+is read as sub-heads of width ``gcd(w, head_dim)``, whole within one
+column, and every head's dt and dt * A are computed at home from the
+replicated ``wdt``, ``dt_bias`` and ``A_log`` and broadcast with ``D``;
+each column expands them to its sub-heads (a sum over a head's sub-heads
+in the backward, then the columns' sum at home in column order).
 
 A serving row (``launch.build`` on a ``launch.mesh.ServeMesh``) passes
 its cache as one copy or slice a column (every leaf a list), laid out by
 the reference's ``_cache_specs``: ``conv_x`` cut by channel with the
-inner dim, the ``ssm`` state ``[b, h, n_state, p]`` by heads, and
+inner dim, the ``ssm`` state ``[b, h, n_state, p]`` by heads where the
+model axis divides them (else every column holds a copy), and
 ``conv_B`` / ``conv_C`` by channel where the model axis divides
 ``ssm_state`` (else each column holds a copy). The cached mixer then runs
 one decode step's recurrence (or a prompt's chunked scan from the state)
-per column over its heads, as the training form does; B and C's
-convolutions run at home over their whole state (a cut state's slices
-gathered there, and the new state sliced back); every column's cache is
-updated in place. With the inner dim and heads replicated the mixer runs
-at home and every column's copy takes the new state. An inner dim cut
-across heads (ROADMAP A20c) is refused.
+per column over its heads or sub-heads, as the training form does; B
+and C's convolutions run at home over their whole state (a cut state's
+slices gathered there, and the new state sliced back); every column's
+cache is updated in place. A replicated state is read by each column at
+its sub-heads, and the columns' new sub-head states are all-gathered, so
+every copy takes the whole new state, bitwise alike. With the inner dim
+and heads replicated the mixer runs at home and every column's copy
+takes the new state.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -165,26 +179,32 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _heads_gated(params: Params, x: torch.Tensor, Bc: torch.Tensor,
                  Cc: torch.Tensor, *, head_dim: int, chunk: int,
-                 state: Params | None = None
+                 state: Params | None = None, heads=None
                  ) -> tuple[torch.Tensor, Params | None]:
     """The mixer up to its gated norm, over the heads of ``params`` (the
     whole mixer, or one column's heads): ``y * silu(z)`` in f32, [m, b,
-    l, d_inner of these heads], and the new state. ``state`` (``conv_x``
-    and ``ssm`` of these heads) is read as the conv's trailing context
-    and the scan's initial state (one recurrence step for one token);
-    the new one is returned (None without a state), not written."""
+    l, d_inner of these heads], and the new state. ``heads``: the (dt,
+    dt * A, D) of these (sub-)heads, [m, b, l, h] twice and [m, h], where
+    they come from elsewhere (a column whose channels cross heads), else
+    from ``params``' own ``wdt``, ``dt_bias``, ``A_log`` and ``D``.
+    ``state`` (``conv_x`` and ``ssm`` of these heads) is read as the
+    conv's trailing context and the scan's initial state (one recurrence
+    step for one token); the new one is returned (None without a state),
+    not written."""
     m, b, l, _ = x.shape
     f32 = torch.float32
     z = mm(x, params["wz"])
     xin = mm(x, params["wx"])
     xc = _causal_conv(xin, params["conv_x"],
                       None if state is None else state["conv_x"])
-    dt = _softplus(mm(x.to(f32), params["wdt"].to(f32))
-                   + bcast(params["dt_bias"], x))      # [m,b,l,h]
+    if heads is None:
+        dt, dA = _dt_dA(params, x)
+        D = params["D"]
+    else:
+        dt, dA, D = heads
     h = dt.shape[-1]
     xh = xc.reshape(m, b, l, h, head_dim)
     x_dt = xh.to(f32) * dt[..., None]
-    dA = dt * -torch.exp(params["A_log"])[:, None, None, :]
     if state is not None and l == 1:
         s_new = state["ssm"].to(f32) * torch.exp(dA[:, :, 0])[
             ..., None, None] + torch.einsum(
@@ -203,8 +223,62 @@ def _heads_gated(params: Params, x: torch.Tensor, Bc: torch.Tensor,
     new = None if state is None else {
         "conv_x": _conv_state(state["conv_x"], xin),
         "ssm": s_new.reshape(state["ssm"].shape).to(state["ssm"].dtype)}
-    y = y + params["D"][:, None, None, :, None] * xh.to(f32)
+    y = y + D[:, None, None, :, None] * xh.to(f32)
     return y.reshape(m, b, l, h * head_dim) * F.silu(z.to(f32)), new
+
+
+def _dt_dA(params: Params, x: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every head of ``params``: dt = softplus(x wdt + dt_bias) and dt *
+    A (A = -exp(A_log)), f32 [m, b, l, h] each."""
+    f32 = torch.float32
+    dt = _softplus(mm(x.to(f32), params["wdt"].to(f32))
+                   + bcast(params["dt_bias"], x))
+    return dt, dt * -torch.exp(params["A_log"])[:, None, None, :]
+
+
+def _crossing(params: Params) -> bool:
+    """Whether the model axis cuts the inner dim but not the heads."""
+    return (isinstance(params["wx"], list)
+            and not isinstance(params["A_log"], list))
+
+
+def _sub_heads(tp, params: Params, x: torch.Tensor, per: list,
+               head_dim: int) -> tuple[list, int]:
+    """A cut across heads (module docstring): each column's (dt, dt * A,
+    D) over its sub-heads, and the sub-head width g. Every head's values
+    are computed at home and broadcast; column c holds sub-heads ``[c *
+    n, (c+1) * n)`` of the ``h * head_dim / g``, n = w / g."""
+    w = per[0]["wx"].shape[-1]
+    g = math.gcd(w, head_dim)
+    rep, n = head_dim // g, w // g
+
+    def mine(t: torch.Tensor, c: int) -> torch.Tensor:
+        sub = t.unsqueeze(-1).expand(t.shape + (rep,))
+        return sub.reshape(t.shape[:-1] + (-1,)).narrow(-1, c * n, n)
+
+    dt, dA = _dt_dA(params, x)
+    out = []
+    for c, (both, D) in enumerate(zip(tp.broadcast(torch.stack([dt, dA])),
+                                      tp.broadcast(params["D"]))):
+        out.append((mine(both[0], c), mine(both[1], c), mine(D, c)))
+    return out, g
+
+
+def _sub_state(ssm: torch.Tensor, rep: int) -> torch.Tensor:
+    """A state [m, b, h, n, p] as its sub-heads [m, b, h * rep, n, p /
+    rep], sub-head ``i * rep + k`` channels ``[k * p / rep, (k+1) * p /
+    rep)`` of head i."""
+    m, b, h, n, p = ssm.shape
+    return ssm.reshape(m, b, h, n, rep, p // rep).permute(
+        0, 1, 2, 4, 3, 5).reshape(m, b, h * rep, n, p // rep)
+
+
+def _whole_state(sub: torch.Tensor, rep: int) -> torch.Tensor:
+    """The inverse of :func:`_sub_state`."""
+    m, b, hs, n, g = sub.shape
+    return sub.reshape(m, b, hs // rep, rep, n, g).permute(
+        0, 1, 2, 4, 3, 5).reshape(m, b, hs // rep, n, rep * g)
 
 
 def _conv_state(state: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
@@ -242,25 +316,36 @@ def _mamba2_cached_columns(tp, params: Params, x: torch.Tensor,
             for col, tc in zip(cols, tp.broadcast(t)):
                 col[name].copy_(tc)
         return y
-    if not isinstance(params["A_log"], list):
-        raise ValueError(
-            "the cached tensor-parallel mixer needs its heads cut with "
-            "its inner dim; this model axis cuts the inner dim across "
-            "heads (ROADMAP A20c)")
     Bc = _conv_at_home(tp, mm(x, params["wB"]), params["conv_B"],
                        [c["conv_B"] for c in cols])
     Cc = _conv_at_home(tp, mm(x, params["wC"]), params["conv_C"],
                        [c["conv_C"] for c in cols])
     per = [{n: t[c] for n, t in params.items() if isinstance(t, list)}
            for c in range(tp.mp)]
-    gs = []
-    for p, xc, bc, cc, col in zip(per, tp.broadcast(x), tp.broadcast(Bc),
-                                  tp.broadcast(Cc), cols):
-        g, new = _heads_gated(p, xc, bc, cc, head_dim=head_dim, chunk=chunk,
-                              state=col)
-        for name, t in new.items():
-            col[name].copy_(t)
+    crossing = _crossing(params)
+    heads, hd = (_sub_heads(tp, params, x, per, head_dim) if crossing
+                 else ([None] * tp.mp, head_dim))
+    rep = head_dim // hd
+    gs, subs = [], []
+    for c, (p, xc, bc, cc, col, hv) in enumerate(zip(
+            per, tp.broadcast(x), tp.broadcast(Bc), tp.broadcast(Cc), cols,
+            heads)):
+        st = col
+        if crossing:          # the column's sub-heads of its state's copy
+            n = p["wx"].shape[-1] // hd
+            st = {"conv_x": col["conv_x"],
+                  "ssm": _sub_state(col["ssm"], rep).narrow(2, c * n, n)}
+        g, new = _heads_gated(p, xc, bc, cc, head_dim=hd, chunk=chunk,
+                              state=st, heads=hv)
+        col["conv_x"].copy_(new["conv_x"])
+        if crossing:
+            subs.append(new["ssm"])
+        else:
+            col["ssm"].copy_(new["ssm"])
         gs.append(g)
+    if crossing:              # every copy takes the whole new state
+        for col, s in zip(cols, tp.all_gather(subs, dim=2)):
+            col["ssm"].copy_(_whole_state(s, rep))
     return _gated_out(tp, per, gs, x.dtype)
 
 
@@ -281,15 +366,20 @@ def _gated_out(tp, per: list, gs: list, dtype) -> torch.Tensor:
 
 def _mamba2_columns(tp, params: Params, x: torch.Tensor, *, head_dim: int,
                     chunk: int) -> torch.Tensor:
-    """The uncached mixer with its inner dim and heads cut over ``tp``'s
-    columns (module docstring); returns [m, b, l, d_model] at home."""
+    """The uncached mixer with its inner dim cut over ``tp``'s columns,
+    with its heads or across them (module docstring); returns [m, b, l,
+    d_model] at home."""
     Bc = _causal_conv(mm(x, params["wB"]), params["conv_B"])
     Cc = _causal_conv(mm(x, params["wC"]), params["conv_C"])
     per = [{n: t[c] for n, t in params.items() if isinstance(t, list)}
            for c in range(tp.mp)]
-    gs = [_heads_gated(p, xc, bc, cc, head_dim=head_dim, chunk=chunk)[0]
-          for p, xc, bc, cc in zip(per, tp.broadcast(x), tp.broadcast(Bc),
-                                   tp.broadcast(Cc))]
+    heads, hd = (_sub_heads(tp, params, x, per, head_dim)
+                 if _crossing(params) else ([None] * tp.mp, head_dim))
+    gs = [_heads_gated(p, xc, bc, cc, head_dim=hd, chunk=chunk,
+                       heads=hv)[0]
+          for p, xc, bc, cc, hv in zip(per, tp.broadcast(x),
+                                       tp.broadcast(Bc), tp.broadcast(Cc),
+                                       heads)]
     return _gated_out(tp, per, gs, x.dtype)
 
 
@@ -298,7 +388,7 @@ def apply_mamba2(params: Params, x: torch.Tensor, *, head_dim: int = 64,
                  tp=None) -> tuple[torch.Tensor, Params | None]:
     """x: [m, b, l, d_model]. cache (decode): {"conv_x","conv_B","conv_C":
     [m, b, D_CONV-1, *], "ssm": [m, b, h, n, p]}. ``tp``: a column group,
-    the inner dim and heads cut (the uncached training forward), or with
+    the inner dim cut (the uncached training forward), or with
     a cache (a serving row's, a list a leaf) the cached mixer, which
     updates it in place (:func:`_mamba2_cached_columns`). Returns (y,
     new_cache|None)."""

@@ -47,7 +47,7 @@ from ..configs.base import ArchConfig
 from .attention import apply_attention, init_attention, init_kv_cache
 from .layers import (Params, apply_mlp, apply_norm, dense_init, init_mlp,
                      init_norm, mm_rows, prefixed, sub)
-from .moe import apply_moe, init_moe
+from .moe import MOE_LAYER, apply_moe, init_moe
 from .ssm import apply_mamba2, init_mamba2, init_mamba2_cache
 from ..sharding.tensor_parallel import gather_data
 
@@ -276,17 +276,26 @@ def apply_stage(stage_params: Params, x: torch.Tensor, *, cfg: ArchConfig,
     caches = _layer_caches(cache, n)
     aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
     new = []
+    stage = MOE_LAYER.get() or ()
     for i in range(n):
         p = {name: layers[name][i] for name in layers}
-        if cfg.remat and cache is None:
-            # The backward may recompute the block on autograd's device
-            # thread, which does not see this one's context variables
-            # (the MoE's grouping): it recomputes in the forward's.
-            ctx = contextvars.copy_context()
-            x, nc, a = checkpoint(lambda *args: ctx.run(gathered, *args),
-                                  p, x, None, use_reentrant=False)
-        else:
-            x, nc, a = gathered(p, x, caches[i])
+        # The layer a MoE's row routing keys its counts by.
+        layer = MOE_LAYER.set(stage + (i,))
+        try:
+            if cfg.remat and cache is None:
+                # The backward may recompute the block on autograd's
+                # device thread, which does not see this one's context
+                # variables (the MoE's grouping and layer): it recomputes
+                # in this layer's forward's (bound now, not the loop's
+                # last).
+                ctx = contextvars.copy_context()
+                x, nc, a = checkpoint(
+                    lambda *args, ctx=ctx: ctx.run(gathered, *args), p, x,
+                    None, use_reentrant=False)
+            else:
+                x, nc, a = gathered(p, x, caches[i])
+        finally:
+            MOE_LAYER.reset(layer)
         aux = aux + a
         new.append(nc)
     if cache is None:

@@ -281,11 +281,11 @@ class ColumnParallel:
     cells (``view`` from :meth:`ColumnGroup.view`) without joining them;
     ``covers(name, dims)`` says whether the form handles leaf ``name``
     cut, given every leaf's cut dim ``dims`` (a form may take a leaf
-    only together with others, as the SSM's inner dim with its heads);
-    ``heads(name)`` whether it reads leaf ``name``'s column as the
-    contiguous block of its heads, so that a dim cut over ``("data",
-    "model")`` (strided across the columns) is re-cut on head
-    boundaries at the row's gather (``launch.mesh.ServeMesh.row_cells``)."""
+    only together with others); ``heads(name)`` whether it reads leaf
+    ``name``'s column as a contiguous block of channels (an SSM's inner
+    dim), so that a dim cut over ``("data", "model")`` (strided across
+    the columns) is re-cut contiguously at the row's gather
+    (``launch.mesh.ServeMesh.row_cells``)."""
 
     fn: Callable
     covers: Callable[[str, dict], bool]

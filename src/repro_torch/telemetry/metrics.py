@@ -33,8 +33,10 @@ Metric definitions, as in the reference:
                   live count).
   cohort_size     pooled: resident lanes this round/event.
   placement_boundary_lanes
-                  the placed block realization's boundary lane slots
-                  (client placement is not ported: always None here).
+                  the (placed) plan's block realization's wire lane
+                  slots on the round's client mesh, for a sparse impl
+                  other than a cycle's switch (``core.dfedavgm``'s
+                  ``_boundary_lanes``); None without a mesh.
 
 The quantizer replay draws its stochastic-rounding noise through
 ``core.mixing._quant_leaf_keys`` and ``quantize_int`` (one T2 launch a

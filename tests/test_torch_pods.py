@@ -482,16 +482,12 @@ def test_an_mlp_cut_unalike_is_refused():
     """Gate, up and down weights whose hidden dim the specs cut unalike
     (one over ("data", "model"), one over "model"): a strided partition
     of the hidden dim is exact only when all three share it."""
-    cfg = reduced(get_config("smollm-135m"))
-    from repro_torch.sharding.rules import ShardingStrategy
-    mesh = make_named_mesh((4, 2), device="meta")
-    strat = ShardingStrategy.for_arch(cfg.name, mesh, strategy="B2")
     axes = {"stages/0/mlp/wg": ("layers", "embed", "mlp"),
             "stages/0/mlp/wd": ("layers", "mlp", "embed")}
     specs = {"stages/0/mlp/wg": P(None, None, None, ("data", "model")),
              "stages/0/mlp/wd": P(None, None, "model", None)}
     with pytest.raises(ValueError, match="unalike"):
-        B._check_cells_layout(cfg, strat, specs, axes, 2, True)
+        B._check_cells_layout(specs, axes)
 
 
 def test_pod_views_of_a_laid_out_tree():

@@ -28,9 +28,9 @@ the CPU.
   their own tokens under B2 and B3 and the whole batch under B; the
   layouts that ran the global program or were refused before (a
   quantized wire, the multi-pod mesh, B2 on Mamba2, the fused round on
-  one pod) build on the cells, and the refusals that remain (the fused
-  round on the pod mesh, a MoE's moe_d_ff the model axis does not
-  divide under a cut batch). ``tests/test_torch_pods.py`` holds those
+  one pod, a MoE's moe_d_ff the model axis does not divide under a cut
+  batch) build on the cells, and the refusal that remains (the fused
+  round on the pod mesh). ``tests/test_torch_pods.py`` holds those
   layouts' rounds against the reference.
 """
 import contextlib
@@ -541,10 +541,11 @@ def test_moe_rows_route_their_own_tokens(monkeypatch):
 def test_refusals_and_the_global_program_of_a21c():
     """The layouts that ran the one global program (a quantized wire, the
     multi-pod mesh) and those that were refused (B2 on Mamba2, the fused
-    round on one pod) now build on the mesh's own cells; what stays
-    refused: the fused round on the pod mesh (the reference's reason), an
-    MLP whose weights cut their hidden dim unalike, and a MoE whose
-    moe_d_ff the model axis does not divide under a cut batch."""
+    round on one pod) now build on the mesh's own cells, and so does a
+    MoE whose moe_d_ff the model axis does not divide under a cut batch
+    (its rows routed as one group, ``tests/test_torch_crossing.py``);
+    what stays refused: the fused round on the pod mesh (the reference's
+    reason) and an MLP whose weights cut their hidden dim unalike."""
     import dataclasses
     mesh = make_named_mesh((4, 2), device="cpu")
     for cfg, s, dfed in (
@@ -569,15 +570,14 @@ def test_refusals_and_the_global_program_of_a21c():
         B.build_train_step(_cfg("smollm-135m"), pods, InputShape(*SHAPE),
                            strategy="B", dfed=fused)
     odd = dataclasses.replace(_cfg("mixtral-8x22b"), moe_d_ff=33)
-    with pytest.raises(ValueError, match="moe_d_ff=33"):
-        B.build_train_step(odd, mesh, InputShape(*SHAPE), strategy="B3")
+    built = B.build_train_step(odd, mesh, InputShape(*SHAPE), strategy="B3")
+    assert built.mesh is mesh and built.meta["mixer"] == "dense"
     axes = {"stages/0/mlp/wg": ("layers", "embed", "mlp"),
             "stages/0/mlp/wd": ("layers", "mlp", "embed")}
     unalike = {"stages/0/mlp/wg": P(None, None, None, ("data", "model")),
                "stages/0/mlp/wd": P(None, None, "model", None)}
     with pytest.raises(ValueError, match="unalike"):
-        B._check_cells_layout(_cfg("smollm-135m"), None, unalike, axes, 2,
-                              True)
+        B._check_cells_layout(unalike, axes)
 
 
 @pytest.mark.parametrize("arch,strategy", CASES)

@@ -629,8 +629,8 @@ def test_b3_runs_once_a_step_a_cell(monkeypatch):
 def test_local_step_names_the_path():
     """``local_step`` on the round and the async step: tensor-parallel for
     a loss whose form covers every cut leaf (the MoE's experts cut too),
-    joined for an opaque loss or a cut the form declines (an SSM inner
-    dim cut without its heads), whole off a 2D mesh."""
+    an SSM inner dim cut without its heads too, joined for an opaque
+    loss, whole off a 2D mesh."""
     mesh = make_test_mesh(2, model_parallel=2, device="cpu")
     cfg = T.DFedAvgMConfig(mixer_impl="sparse")
     spec = T.MixingSpec.ring(M, 0.5)
@@ -662,7 +662,8 @@ def test_local_step_names_the_path():
                 specs=wg_cut) == "joined"
     ssm = tcfg.reduced(tcfg.get_config("mamba2-780m"))
     assert kind(TM.make_loss(ssm), specs={
-        "stages/0/mixer/wx": P("clients", None, None, "model")}) == "joined"
+        "stages/0/mixer/wx": P("clients", None, None, "model")}
+    ) == "tensor_parallel"
 
 
 def test_lone_lane_shards_run_as_two():

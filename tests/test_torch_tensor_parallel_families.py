@@ -14,7 +14,8 @@ both of the strategy-A rules' cuts fire where a family has two:
   block's at every seed (zero flips).
 * SSM (Mamba2 reduced, 32 heads of 16) at mp 2 and 4, ``ssm_inner`` and
   ``ssm_heads`` cut together. At d_model 24 (3 heads of 16) mp 2 divides
-  the inner dim but not the heads: the form declines and the step joins.
+  the inner dim but not the heads: the form reads each column's
+  channels as sub-heads and the step stays tensor-parallel.
 * Hybrid (Zamba2 reduced): the Mamba2 stages, and the shared block's
   attention, MLP and ``down`` (row-parallel over ``concat(x, x_first)``),
   re-entered twice, at mp 2 and 4.
@@ -355,9 +356,11 @@ def test_every_arch_carries_a_form(arch):
 
 def test_ssm_cut_across_heads_declines():
     """Mamba2 at d_model 24 on mp 2: ``ssm_inner`` (48) is cut, its 3
-    heads are not, so a column's slice would cross heads: the form
-    declines those leaves (and only those), the step joins, and the
-    heads' leaves stay replicated."""
+    heads are not, so a column's 24 channels cross a head boundary. The
+    form, which once declined those leaves, now takes every cut leaf
+    (the step is tensor-parallel), the heads' leaves stay replicated,
+    and the mixer block (sub-heads of 8) matches the unsharded one:
+    forward and every gradient within rtol 1e-5."""
     arch, over, mp = SSM_CROSSING
     _, tc = cfgs(arch, over)
     params = params_of(tc)
@@ -368,10 +371,9 @@ def test_ssm_cut_across_heads_declines():
     assert dims["stages/0/mixer/A_log"] is None
     declined = sorted(n for n, d in dims.items()
                       if d is not None and not form.covers(n, dims))
-    assert declined == sorted(
-        f"stages/0/mixer/{w}" for w in ("conv_x", "norm_scale", "wo", "wx",
-                                        "wz")), declined
-    assert local_step_kind(TM.make_loss(tc), dims) == "joined"
+    assert declined == [], declined
+    assert local_step_kind(TM.make_loss(tc), dims) == "tensor_parallel"
+    block_matches(tc, mp, "ssm", "stages/0")
 
 
 # ---------------------------------------------------------------------------
@@ -401,9 +403,8 @@ def _driver(tc, arch, mp, capsys):
 @pytest.mark.parametrize("family", list(FAMILIES) + ["ssm-crossing"])
 def test_driver_round_against_the_1d_mesh(family, capsys):
     """The driver's round on a (2, 2) mesh against the 1D mesh of its 2
-    shards: the "local step:" line (tensor-parallel, or joined where the
-    form declines the SSM's cut across heads, then bitwise), loss and
-    consensus within rtol 1e-5."""
+    shards: the "local step:" line (tensor-parallel, the SSM's inner dim
+    cut across its heads too), loss and consensus within rtol 1e-5."""
     if family == "ssm-crossing":
         arch, over, mp = SSM_CROSSING
         _, tc = cfgs(arch, over)
@@ -418,13 +419,9 @@ def test_driver_round_against_the_1d_mesh(family, capsys):
                                  moe_d_ff=min(tc.moe_d_ff, 64))
     one, _ = _driver(tc, arch, 1, capsys)
     two, out = _driver(tc, arch, mp, capsys)
-    kind = "joined" if family == "ssm-crossing" else "tensor_parallel"
     line = next(ln for ln in out.splitlines() if "local step:" in ln)
-    assert f"local step: {kind} ({tc.arch_type} family" in line, line
-    if kind == "joined":
-        assert "declines 5 cut leaves" in line, line
-        for k in ("loss", "consensus_dist"):
-            assert torch.equal(two[k], one[k]), k
+    assert f"local step: tensor_parallel ({tc.arch_type} family" in line, \
+        line
     for k in ("loss", "consensus_dist"):
         np.testing.assert_allclose(float(two[k]), float(one[k]), rtol=RTOL,
                                    err_msg=k)
